@@ -1,0 +1,132 @@
+"""Config dataclasses — the port's own copy of ``repro.configs.base``.
+
+``ModelConfig`` and ``reduced`` are copied verbatim so that a config built
+here describes exactly the model the JAX package builds.  ``VRLConfig`` and
+``EngineConfig`` keep only the fields the ported slice reads (vrl_sgd with
+the sgd inner optimizer on the flat-buffer engine); their defaults are the
+reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture definition (see ``repro.configs.base.ModelConfig``).
+
+    The port runs the ``dense`` family; the other fields are kept so that
+    configs and ``reduced`` stay field-for-field the reference's.
+    """
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    # attention
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    qkv_bias: bool = False
+    attn_window: Optional[int] = None          # sliding-window size; None = full
+    long_context_window: int = 8192            # window used for long_500k variant
+    rope_theta: float = 10_000.0
+    # mlp
+    d_ff: int = 0
+    mlp_act: str = "silu"                      # silu | geglu | gelu
+    # moe
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    # ssm
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    # embeddings / misc
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    seq_shard_acts: bool = False
+    frontend: Optional[str] = None             # None | "vision" | "codec"
+    frontend_dim: int = 0
+    # citation for the config (public pool provenance)
+    source: str = ""
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense family."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet (ROADMAP Queue 1)")
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        total = V * d if self.tie_embeddings else 2 * V * d
+        hd = self.head_dim
+        per_layer = d * (self.num_heads * hd)               # q
+        per_layer += 2 * d * (self.num_kv_heads * hd)       # k, v
+        per_layer += (self.num_heads * hd) * d              # o
+        if self.qkv_bias:
+            per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        mult = 3 if self.mlp_act in ("silu", "geglu") else 2
+        per_layer += mult * d * self.d_ff
+        per_layer += 2 * d  # norms
+        return total + L * per_layer
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Flat-buffer engine layout knobs (``repro.configs.base.EngineConfig``).
+
+    ``block=0`` auto-sizes the row tile (pad toward 1024-row multiples,
+    capping padding waste at ``max_pad_waste``).  The CUDA kernels stream
+    the whole buffer and ignore ``block``; it only decides the row padding,
+    so the port's layout is the reference's.
+    """
+
+    block: int = 0
+    lanes: int = 256
+    max_pad_waste: float = 0.25
+
+
+@dataclass(frozen=True)
+class VRLConfig:
+    """The paper's algorithm knobs that the ported slice reads."""
+
+    algorithm: str = "vrl_sgd"
+    comm_period: int = 20           # k
+    warmup: bool = True             # VRL-SGD-W (Remark 5.3): first period k=1
+    learning_rate: float = 0.01
+    weight_decay: float = 1e-4
+    delta_dtype: str = "float32"    # accumulator dtype for Δ
+    engine: EngineConfig = EngineConfig()
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests (2 layers, d<=512)."""
+    small: dict = dict(num_layers=2, vocab_size=512)
+    d = min(cfg.d_model, 128)
+    small["d_model"] = d
+    if cfg.num_heads:
+        nh = min(cfg.num_heads, 4)
+        group = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+        nkv = max(1, nh // group) if cfg.num_kv_heads < cfg.num_heads else nh
+        small.update(num_heads=nh, num_kv_heads=nkv, head_dim=32)
+    if cfg.d_ff:
+        small["d_ff"] = 4 * d
+    if cfg.num_experts:
+        small.update(num_experts=4, experts_per_token=min(2, cfg.experts_per_token),
+                     moe_d_ff=2 * d)
+        small["num_shared_experts"] = min(1, cfg.num_shared_experts)
+    if cfg.ssm_state:
+        small.update(ssm_state=min(cfg.ssm_state, 16), ssm_head_dim=32, ssm_chunk=32)
+    if cfg.frontend:
+        small["frontend_dim"] = d
+    small["attn_window"] = None if cfg.attn_window is None else 64
+    small["long_context_window"] = 64
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

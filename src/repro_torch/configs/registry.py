@@ -1,0 +1,34 @@
+"""Architecture registry: ``--arch <id>`` lookup.
+
+Lists only the architectures whose model family the port runs (the dense
+family: qwen2-0.5b).  The reference's other families join as they are
+ported (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs.base import ModelConfig, reduced
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [qwen2_0_5b.CONFIG]}
+
+
+def get_arch(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+def smoke_arch(arch_id: str, **overrides) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests."""
+    return reduced(get_arch(arch_id), **overrides)
+
+
+def list_archs() -> list[str]:
+    return sorted(ARCHS)
+
+
+def describe(arch_id: str) -> str:
+    c = get_arch(arch_id)
+    n = c.param_count()
+    return (f"{c.name} [{c.family}] {c.num_layers}L d={c.d_model} "
+            f"params={n/1e9:.2f}B  ({c.source})")

@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels (plain C interface, ``ctypes``).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+at first use, under ``kernels/_build/`` (git-ignored), keyed by a hash of
+the source and the flags, so an edited source rebuilds and an unchanged one
+loads from the cache.  ``build_all`` starts one ``nvcc`` per source at
+once.  Nothing here runs at import time: the CPU tests import this module
+on machines without ``nvcc``.
+
+Flags: ``-fmad=false`` keeps every multiply and add separately rounded (no
+FMA contraction) and fast math stays off (IEEE division), so the kernels
+are bitwise their plain PyTorch versions (``kernels/torch_update``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("vrl_update",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, /usr/local/cuda/bin, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def _compile(names: Iterable[str]) -> None:
+    """Start one nvcc per stale library, all at once; wait for all."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log.decode()}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)        # atomic: concurrent builders agree
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build_all() -> None:
+    """Compile every stale kernel library in parallel."""
+    with _lock:
+        _compile(SOURCES)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _compile([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,254 @@
+"""Training driver (``repro.launch.train``, core flags).
+
+Runs VRL-SGD on the qwen2-0.5b architecture (full width, or ``--smoke``'s
+reduced variant) over the synthetic non-iid LM stream, round by round:
+each communication period is k local steps (forward/backward per worker,
+then one fused local-update kernel over the (W, R, C) buffers) closed by
+one worker mean and one fused sync kernel.  VRL-SGD-W (``--warmup``) runs
+the first period as a 1-step round; a tail shorter than a round finishes
+step by step, syncing on the per-step cadence.
+
+Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
+device it fails rather than fall back to the CPU.  The log lines are the
+reference driver's (``step N (round r)  local_loss …  avg_model_loss …``)
+so two runs can be diffed; the last line holds the kernels' launch counts.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --workers 4 --batch 8 --seq 64 --steps 7 --k 2 --lr 0.05 --warmup
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32
+
+Not ported yet (ROADMAP Queue 1): the other algorithms and inner
+optimizers, compression, overlap, membership and faults, client sampling,
+checkpoints, diagnostics and telemetry, meshes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import EngineConfig, VRLConfig
+from repro_torch.core import engine as engine_mod
+from repro_torch.data import assigned_token_stream, contiguous_assignment
+from repro_torch.kernels import vrl_update
+from repro_torch.models import transformer as T
+from repro_torch.train.loss import cross_entropy_lm
+from repro_torch.train.train_loop import make_train_step
+
+
+class TrainResult(NamedTuple):
+    state: object               # final FlatWorkerState
+    engine: object              # the core.engine.Engine that ran
+    losses: List[float]         # per-step worker-mean local loss
+    avg_model_losses: List[float]  # averaged-model loss at each log line
+    invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log line
+    wall_s: float               # training wall time (set-up excluded)
+    phases_ms: dict             # CUDA only: {phase: [ms per span]}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=registry.list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--algorithm", default="vrl_sgd",
+                    choices=sorted((*engine_mod.ALGO_SPECS,
+                                    *engine_mod.NOT_PORTED)))
+    ap.add_argument("--block", type=int, default=0,
+                    help="flat-layout row tile height (0 = auto)")
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8, help="per-worker batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--k", type=int, default=10, help="communication period")
+    ap.add_argument("--lr", type=float, default=0.2)
+    ap.add_argument("--warmup", action="store_true",
+                    help="VRL-SGD-W: the first period runs k=1")
+    ap.add_argument("--alpha", type=float, default=0.05,
+                    help="Dirichlet non-iid skew (lower = more skewed)")
+    ap.add_argument("--identical", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="log every N rounds")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the run lives (default cuda; never falls "
+                         "back to the CPU)")
+    ap.add_argument("--profile-round", type=int, default=0,
+                    help="run torch.profiler over the Nth round (1-based; "
+                         "0 = off) and print its busiest operations and "
+                         "the device-busy share of the round")
+    args = ap.parse_args(argv)
+    if args.profile_round < 0:
+        raise SystemExit(f"--profile-round counts rounds from 1 (0 = off), "
+                         f"got {args.profile_round}")
+    for flag in ("steps", "k", "workers", "batch", "seq", "log_every"):
+        if getattr(args, flag) < 1:
+            raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1, got "
+                             f"{getattr(args, flag)}")
+    return args
+
+
+def run(argv=None) -> TrainResult:
+    """Parse ``argv``, train, print the reference's log lines; returns the
+    final state and what was logged."""
+    args = parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible (pass "
+                         "--device cpu to run on the CPU)")
+    device = torch.device(args.device)
+    # the reference trains in full fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = (registry.smoke_arch(args.arch) if args.smoke
+           else registry.get_arch(args.arch))
+    print(f"arch: {registry.describe(args.arch)}"
+          f"{' [reduced smoke variant]' if args.smoke else ''}")
+    vrl = VRLConfig(algorithm=args.algorithm, comm_period=args.k,
+                    learning_rate=args.lr, warmup=args.warmup,
+                    engine=EngineConfig(block=args.block))
+    try:
+        bundle = make_train_step(cfg, vrl, device=device,
+                                 timed=device.type == "cuda")
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    eng = bundle.engine
+    state = bundle.init_state(args.seed, args.workers)
+    es = eng.spec
+    print(f"params: {es.size/1e6:.2f}M x {args.workers} workers, "
+          f"algorithm={args.algorithm}, k={args.k}, device={device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    print(f"engine: flat buffer {es.rows}x{es.lanes} "
+          f"({es.padded - es.size} pad elems), block={es.block}")
+
+    assignment = contiguous_assignment(args.workers, args.workers)
+    data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
+                                 steps=args.steps, batch=args.batch,
+                                 alpha=args.alpha,
+                                 identical=args.identical, seed=args.seed)
+
+    def tokens(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device=device, dtype=torch.long)
+
+    @torch.no_grad()
+    def eval_avg(state, toks, labels):
+        avg = bundle.average_model(state)
+        logits = T.forward(cfg, avg, toks.reshape(-1, args.seq))
+        return cross_entropy_lm(logits, labels.reshape(-1, args.seq))
+
+    step_losses: list = []      # device tensors until the end of the run
+    avg_losses: List[float] = []
+    invariant: List[tuple] = []
+
+    def log_invariant(state, t):
+        """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
+        the largest Δ the run has held)."""
+        sum_d, max_d = engine_mod.delta_invariant(state)
+        invariant.append((t, sum_d, max_d))
+        print(f"             max|sum_i delta_i| {sum_d:.3e}  "
+              f"max|delta| {max_d:.3e}")
+    warm_first = args.warmup and eng.algo.warmup_aware
+    t0 = time.time()
+    t, r = 0, 0
+    while t < args.steps:
+        rk = 1 if (warm_first and t == 0) else args.k
+        if args.steps - t < rk:
+            # tail shorter than a round: per-step, syncing on the per-step
+            # cadence exactly as the reference's tail does
+            while t < args.steps:
+                toks = tokens(data[t])
+                labels = torch.roll(toks, -1, dims=-1)
+                state, loss = bundle.train_step(state, toks, labels)
+                step_losses.append(loss[None])
+                t += 1
+            el = float(eval_avg(state, toks, labels))
+            avg_losses.append(el)
+            print(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
+                  f"avg_model_loss {el:.4f}  "
+                  f"({(time.time()-t0)/t:.2f}s/step)")
+            log_invariant(state, t)
+            break
+        toks = tokens(data[t:t + rk])
+        labels = torch.roll(toks, -1, dims=-1)
+        if r + 1 == args.profile_round:
+            state, losses = profiled_round(bundle, state, toks, labels,
+                                           device)
+        else:
+            state, losses = bundle.round_step(state, toks, labels)
+        step_losses.append(losses)
+        t += rk
+        r += 1
+        if r % args.log_every == 0 or r == 1 or t >= args.steps:
+            el = float(eval_avg(state, toks[-1], labels[-1]))
+            avg_losses.append(el)
+            print(f"step {t:5d} (round {r})  "
+                  f"local_loss {float(losses.mean()):.4f}  "
+                  f"avg_model_loss {el:.4f}  "
+                  f"({(time.time()-t0)/t:.2f}s/step)")
+            log_invariant(state, t)
+    losses_host = torch.cat(step_losses).tolist()
+    wall = time.time() - t0
+    print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)")
+    phases = bundle.timer.ms() if bundle.timer is not None else {}
+    if phases:
+        print("phases (device ms, first span / mean of the rest): "
+              + ", ".join(f"{k} {v[0]:.2f} / "
+                          f"{np.mean(v[1:]) if len(v) > 1 else float('nan'):.2f}"
+                          f" x{len(v)}" for k, v in phases.items()))
+    print(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
+    return TrainResult(state=state, engine=eng, losses=losses_host,
+                       avg_model_losses=avg_losses, invariant=invariant,
+                       wall_s=wall,
+                       phases_ms=phases)
+
+
+def profiled_round(bundle, state, toks, labels, device):
+    """One round under torch.profiler: prints the operations with the most
+    device time and the round's device-busy share (device time summed over
+    operations / the round's wall time, the round ending in a sync)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with profile(activities=acts) as prof:
+        # timed inside: the profiler's start-up and its processing of the
+        # trace on exit are not the round's
+        t0 = time.perf_counter()
+        state, losses = bundle.round_step(state, toks, labels)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ops = prof.key_averages()
+    # device time of the kernels themselves: an operator's row repeats
+    # the time of the kernels it launched
+    busy_ms = sum(e.self_device_time_total for e in ops
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    print(ops.table(sort_by="self_device_time_total", row_limit=15,
+                    max_name_column_width=50))
+    busy = (f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)"
+            if device.type == "cuda" else "no device traced on the CPU")
+    print(f"profile: round of {len(toks)} steps, wall {wall_ms:.1f} ms "
+          f"(profiler on), {busy}")
+    return state, losses
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

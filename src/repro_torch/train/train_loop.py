@@ -1,0 +1,156 @@
+"""Train-step factory (``repro.train.train_loop``, engine branch).
+
+``make_train_step`` binds (model config, algorithm config) into functions
+over worker-stacked engine state:
+
+  train_step(state, tokens, labels) -> (state, loss)
+      one local iteration + the sync when a period completes
+  local_step(state, tokens, labels) -> (state, loss)
+      local iteration only
+  sync_step(state) -> state
+      model averaging + Δ update (the per-period communication event)
+  round_step(state, tokens_k, labels_k) -> (state, losses)
+      ONE COMMUNICATION ROUND: k local steps over (k, W, ...) token/label
+      stacks, then the round-closing sync; losses stay on the device as a
+      (k,) tensor.  Warmup (VRL-SGD-W): the caller sizes the first round
+      k=1 (``launch/train.py`` does).
+
+Per-worker gradients: the reference ``vmap``s one forward/backward over
+the worker axis; here a loop over workers runs each on views of
+``params[w]`` (the engine's buffer, no copy) and writes the gradients into
+ONE reused (W, R, C) buffer, so W gradient trees are never held at once.
+The update kernels then run over the whole buffer, after every backward
+of the step has finished — they write ``params`` in place.  The reported
+loss is the mean over workers.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch import tree as tree_mod
+from repro_torch.configs.base import ModelConfig, VRLConfig
+from repro_torch.core import engine as engine_mod
+from repro_torch.core import flat
+from repro_torch.models import transformer
+from repro_torch.models.param import abstract
+from repro_torch.train.loss import cross_entropy_lm
+
+
+class StepBundle(NamedTuple):
+    init_state: Callable        # (seed, num_workers) -> state
+    train_step: Callable
+    local_step: Callable
+    sync_step: Callable
+    grads_fn: Callable          # (state, tokens, labels) -> (gbuf, loss)
+    average_model: Any = None   # (state,) -> single-model tree
+    engine: Any = None          # core.engine.Engine
+    round_step: Any = None      # (state, tokens_k, labels_k) -> (state, losses)
+    timer: Any = None           # PhaseTimer (None unless timing was asked)
+
+
+class PhaseTimer:
+    """Device time of the step's phases — ``fwd_bwd`` (per-worker forward
+    and backward), ``local`` (the local-step kernel) and ``sync`` (worker
+    mean + sync kernel) — from CUDA events recorded around each, with no
+    host sync while recording; ``ms()`` synchronises and reads them."""
+
+    def __init__(self):
+        self.events = {"fwd_bwd": [], "local": [], "sync": []}
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.events[name].append((start, end))
+
+    def ms(self) -> dict:
+        """{phase: [ms of each span, in order]}."""
+        torch.cuda.synchronize()
+        return {k: [s.elapsed_time(e) for s, e in v]
+                for k, v in self.events.items()}
+
+
+def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
+                    device: torch.device | str = "cuda",
+                    timed: bool = False) -> StepBundle:
+    """``timed`` records CUDA-event spans around the forward/backward and
+    the engine update of every step (``StepBundle.timer``); CUDA only."""
+    device = torch.device(device)
+    template = abstract(transformer.model_defs(model_cfg))
+    eng = engine_mod.make_engine(vrl_cfg, template, device=device)
+    spec = eng.spec
+    timer = PhaseTimer() if timed else None
+    gbuf: dict = {}             # W -> the reused (W, R, C) gradient buffer
+
+    def span(name: str):
+        return contextlib.nullcontext() if timer is None else timer.span(name)
+
+    def loss_fn(params, tokens, labels):
+        logits = transformer.forward(model_cfg, params, tokens)
+        return cross_entropy_lm(logits, labels)
+
+    def grads_fn(state, tokens, labels):
+        """Per-worker loss and gradients -> ((W, R, C) gradient buffer,
+        mean loss over workers)."""
+        w = state.params.shape[0]
+        buf = gbuf.get(w)
+        if buf is None:
+            # pad tail stays zero: gradients only ever fill the leaf spans
+            buf = gbuf[w] = torch.zeros_like(state.params)
+        ptree = eng.params_tree(state)
+        gleaves = tree_mod.leaves(flat.unflatten_stacked(spec, buf))
+        losses = []
+        for i in range(w):
+            pairs = tree_mod.leaves_with_path(
+                tree_mod.tree_map(lambda x: x[i], ptree))
+            leaves = [x.detach().requires_grad_() for _, x in pairs]
+            params = tree_mod.from_paths(
+                [(path, x) for (path, _), x in zip(pairs, leaves)])
+            loss = loss_fn(params, tokens[i], labels[i])
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for gl, g in zip(gleaves, grads):
+                    gl[i].copy_(g)
+            losses.append(loss.detach())
+            del grads, loss, params, leaves
+        return buf, torch.stack(losses).mean()
+
+    def local_step(state, tokens, labels):
+        with span("fwd_bwd"):
+            g, loss = grads_fn(state, tokens, labels)
+        with span("local"):
+            state = eng.local_step(state, g)
+        return state, loss
+
+    def sync_step(state):
+        with span("sync"):
+            return eng.sync(state)
+
+    def train_step(state, tokens, labels):
+        state, loss = local_step(state, tokens, labels)
+        if engine_mod.should_sync(eng.algo, vrl_cfg, state.step,
+                                  state.last_sync):
+            state = sync_step(state)
+        return state, loss
+
+    def round_step(state, tokens_k, labels_k):
+        losses = []
+        for tokens, labels in zip(tokens_k, labels_k):
+            state, loss = local_step(state, tokens, labels)
+            losses.append(loss)
+        return sync_step(state), torch.stack(losses)
+
+    def init_state(seed: int, num_workers: int):
+        params = transformer.init_params(model_cfg, seed, device=device)
+        return eng.init(params, num_workers)
+
+    return StepBundle(init_state, train_step, local_step, sync_step,
+                      grads_fn, eng.average_model, eng,
+                      round_step=round_step, timer=timer)
+
