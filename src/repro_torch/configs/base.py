@@ -2,9 +2,9 @@
 
 ``ModelConfig`` and ``reduced`` are copied verbatim so that a config built
 here describes exactly the model the JAX package builds.  ``VRLConfig`` and
-``EngineConfig`` keep only the fields the ported slice reads (vrl_sgd with
-the sgd inner optimizer on the flat-buffer engine); their defaults are the
-reference's.
+``EngineConfig`` keep only the fields the ported slice reads (the flat
+algorithms with the sgd, momentum and adam inner optimizers on the
+flat-buffer engine); their defaults are the reference's.
 """
 from __future__ import annotations
 
@@ -97,11 +97,28 @@ class EngineConfig:
 class VRLConfig:
     """The paper's algorithm knobs that the ported slice reads."""
 
+    # vrl_sgd | local_sgd | ssgd | easgd | stl_sgd | bvr_l_sgd
     algorithm: str = "vrl_sgd"
     comm_period: int = 20           # k
     warmup: bool = True             # VRL-SGD-W (Remark 5.3): first period k=1
     learning_rate: float = 0.01
     weight_decay: float = 1e-4
+    inner_optimizer: str = "sgd"    # sgd | momentum | adam (beyond-paper)
+    clip_norm: float = 0.0          # per-worker global-norm gradient clip
+    momentum: float = 0.0
+    # storage dtype of the inner-optimizer moments (momentum / Adam mu+nu);
+    # the update math stays fp32 in-register
+    moment_dtype: str = "float32"   # float32 | bfloat16
+    sm3: bool = False               # SM3-factored Adam nu: not ported yet
+    easgd_alpha: float = 0.3        # elastic coefficient (EASGD baseline)
+    # bvr_l_sgd: EMA rate of the bias control variate B (0 disables the
+    # correction — the trajectory is then bitwise vrl_sgd)
+    bvr_beta: float = 0.5
+    # stagewise round schedule (a ``core.schedule.CommSchedule``).  None =
+    # the constant ``comm_period`` cadence, except stl_sgd which defaults to
+    # the doubling ramp 1 → comm_period (``core.engine.comm_schedule``).
+    # Supersedes ``warmup`` when set.
+    comm_schedule: Optional[object] = None
     delta_dtype: str = "float32"    # accumulator dtype for Δ
     engine: EngineConfig = EngineConfig()
 

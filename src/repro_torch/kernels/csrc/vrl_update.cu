@@ -1,26 +1,39 @@
 // Fused VRL-SGD engine updates for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/vrl_update.py:
-//   vrl_fused_local_sgd  <- fused_local_sgd  (vrl_update.py:152)
-//   vrl_fused_sync_vrl   <- fused_sync_vrl   (vrl_update.py:351)
+//   vrl_fused_local_sgd       <- fused_local_sgd       (vrl_update.py:152)
+//   vrl_fused_local_momentum  <- fused_local_momentum  (vrl_update.py:188)
+//   vrl_fused_local_adam      <- fused_local_adam      (vrl_update.py:230)
+//   vrl_fused_sync_vrl        <- fused_sync_vrl        (vrl_update.py:351)
+//   vrl_fused_sync_bvr        <- fused_sync_bvr        (vrl_update.py:388)
+//   vrl_fused_sync_easgd      <- fused_sync_easgd      (vrl_update.py:618)
 //
-// Bound: both are single elementwise passes over model-sized fp32 buffers
-// (a few flops per 16+ bytes), so device-memory bandwidth is the only
-// limit.  Design: one streaming pass, 16-byte (float4) loads and stores,
-// a grid-stride loop over 64-bit indices (W*R*C reaches 2^31 at full
-// width), results written in place over p (and Δ) as the Pallas kernels'
-// input_output_aliases do.  The sync reads each x̂ element once and
-// applies it to all W workers from a register, so x̂ is never expanded W
-// times.  Nothing is allocated here; the caller passes PyTorch's stream.
+// Bound: all are single elementwise passes over model-sized buffers (a few
+// flops per 16+ bytes), so device-memory bandwidth is the only limit.
+// Design: one streaming pass, 16-byte (float4) loads and stores of fp32
+// (8-byte loads of four bf16 moments), a grid-stride loop over 64-bit
+// indices (W*R*C reaches 2^31 at full width), results written in place
+// over the state buffers as the Pallas kernels' input_output_aliases do.
+// The syncs read each x̂ (and EASGD center) element once and apply it to
+// all W workers from a register, so it is never expanded W times.  Nothing
+// is allocated here; the caller passes PyTorch's stream.  Runtime scalars
+// that change every step (k_eff*γ, Adam's bias corrections) are read from
+// small device tensors, so a step never needs a host round trip.
 //
 // Numerics: the arithmetic is the plain PyTorch version's op for op
-// (kernels/torch_update.py), and the library is built with -fmad=false so
-// that no multiply-add is contracted into an FMA, and without fast math so
-// that the sync divides by k_eff*γ with IEEE division — which keeps the
-// kernels bitwise equal to the plain versions.
+// (kernels/torch_update.py), in the same association order, and the
+// library is built with -fmad=false so that no multiply-add is contracted
+// into an FMA, and without fast math so that divisions and sqrtf are IEEE
+// — which keeps the kernels bitwise equal to the plain versions.  Scalar
+// constants such as 1 − β1 are computed by the caller in double and
+// rounded to fp32 once, as JAX's weak-typed Python scalars are.  bf16
+// moments load exactly and store rounded to nearest even, as
+// Tensor.to(torch.bfloat16) does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -39,14 +52,20 @@ int grid_for(int64_t n) {
   return (int)(g > 0 ? g : 1);
 }
 
-__device__ __forceinline__ float local_one(float p, float g, float d,
-                                           float b, bool has_d, bool has_b,
-                                           float lr, float wd) {
+// v = g − [Δ] − [B] (+ wd·p), the corrected gradient of every local step
+__device__ __forceinline__ float corrected(float p, float g, float d, float b,
+                                          bool has_d, bool has_b, float wd) {
   float v = g;
   if (has_d) v = v - d;
   if (has_b) v = v - b;
   if (wd != 0.0f) v = v + wd * p;
-  return p - lr * v;
+  return v;
+}
+
+__device__ __forceinline__ float local_one(float p, float g, float d,
+                                           float b, bool has_d, bool has_b,
+                                           float lr, float wd) {
+  return p - lr * corrected(p, g, d, b, has_d, has_b, wd);
 }
 
 // p <- p − lr·((g − [Δ] − [B]) + wd·p) over n4 float4 groups.
@@ -98,6 +117,205 @@ __global__ void sync_vrl_kernel(float4* __restrict__ p, float4* __restrict__ d,
   }
 }
 
+// ---- four-element moment loads and stores: fp32 (float4) or bf16 (8 B)
+__device__ __forceinline__ float4 load4(const float* x, int64_t i) {
+  return reinterpret_cast<const float4*>(x)[i];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int64_t i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(x)[i];
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &raw.x, sizeof(lo));
+  memcpy(&hi, &raw.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* x, int64_t i, float4 v) {
+  reinterpret_cast<float4*>(x)[i] = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* x, int64_t i,
+                                       float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  memcpy(&raw.x, &lo, sizeof(lo));
+  memcpy(&raw.y, &hi, sizeof(hi));
+  reinterpret_cast<uint2*>(x)[i] = raw;
+}
+
+struct MomentumArgs {
+  float lr, beta, wd;
+  bool nesterov;
+};
+
+__device__ __forceinline__ void momentum_one(float& p, float& m, float g,
+                                             float d, float b, bool has_d,
+                                             bool has_b,
+                                             const MomentumArgs& a) {
+  const float v = corrected(p, g, d, b, has_d, has_b, a.wd);
+  const float m_new = a.beta * m + v;
+  const float dir = a.nesterov ? v + a.beta * m_new : m_new;
+  p = p - a.lr * dir;
+  m = m_new;
+}
+
+// v = g − [Δ] − [B] + wd·p;  m' = βm + v;  p' = p − γ·(nesterov ? v + βm'
+// : m'), in place over p and m (fp32 or bf16).
+template <typename MT>
+__global__ void local_momentum_kernel(float4* __restrict__ p,
+                                      const float4* __restrict__ g,
+                                      const float4* __restrict__ d,
+                                      const float4* __restrict__ b,
+                                      MT* __restrict__ m, MomentumArgs a,
+                                      int64_t n4) {
+  const bool has_d = d != nullptr, has_b = b != nullptr;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float4 pv = p[i];
+    const float4 gv = g[i];
+    const float4 dv = has_d ? d[i] : zero;
+    const float4 bv = has_b ? b[i] : zero;
+    float4 mv = load4(m, i);
+    momentum_one(pv.x, mv.x, gv.x, dv.x, bv.x, has_d, has_b, a);
+    momentum_one(pv.y, mv.y, gv.y, dv.y, bv.y, has_d, has_b, a);
+    momentum_one(pv.z, mv.z, gv.z, dv.z, bv.z, has_d, has_b, a);
+    momentum_one(pv.w, mv.w, gv.w, dv.w, bv.w, has_d, has_b, a);
+    p[i] = pv;
+    store4(m, i, mv);
+  }
+}
+
+struct AdamArgs {
+  float lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_wd;
+};
+
+__device__ __forceinline__ void adam_one(float& p, float& mu, float& nu,
+                                         float g, float d, float b,
+                                         bool has_d, bool has_b, float c1,
+                                         float c2, const AdamArgs& a) {
+  const float v = corrected(p, g, d, b, has_d, has_b, 0.0f);
+  const float mu_new = a.b1 * mu + a.one_minus_b1 * v;
+  const float nu_new = a.b2 * nu + a.one_minus_b2 * v * v;
+  float step = a.lr * (mu_new / c1) / (sqrtf(nu_new / c2) + a.eps);
+  if (a.wd != 0.0f) step = step + a.lr_wd * p;
+  p = p - step;
+  mu = mu_new;
+  nu = nu_new;
+}
+
+// Adam on v = g − [Δ] − [B]: mu, nu EMAs (stored fp32 or bf16);
+// p' = p − γ(mu'/c1)/(√(nu'/c2) + eps) − (γ·wd)·p, with [c1, c2] = scal
+// read on the device.  In place over p, mu and nu.
+template <typename MT>
+__global__ void local_adam_kernel(float4* __restrict__ p,
+                                  const float4* __restrict__ g,
+                                  const float4* __restrict__ d,
+                                  const float4* __restrict__ b,
+                                  MT* __restrict__ mu, MT* __restrict__ nu,
+                                  const float* __restrict__ scal, AdamArgs a,
+                                  int64_t n4) {
+  const bool has_d = d != nullptr, has_b = b != nullptr;
+  const float c1 = scal[0], c2 = scal[1];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float4 pv = p[i];
+    const float4 gv = g[i];
+    const float4 dv = has_d ? d[i] : zero;
+    const float4 bv = has_b ? b[i] : zero;
+    float4 mv = load4(mu, i);
+    float4 nv = load4(nu, i);
+    adam_one(pv.x, mv.x, nv.x, gv.x, dv.x, bv.x, has_d, has_b, c1, c2, a);
+    adam_one(pv.y, mv.y, nv.y, gv.y, dv.y, bv.y, has_d, has_b, c1, c2, a);
+    adam_one(pv.z, mv.z, nv.z, gv.z, dv.z, bv.z, has_d, has_b, c1, c2, a);
+    adam_one(pv.w, mv.w, nv.w, gv.w, dv.w, bv.w, has_d, has_b, c1, c2, a);
+    p[i] = pv;
+    store4(mu, i, mv);
+    store4(nu, i, nv);
+  }
+}
+
+__device__ __forceinline__ void bvr_one(float xb, float& p, float& d,
+                                        float& b, float kg, float omb,
+                                        float beta) {
+  const float u = (xb - p) / kg;
+  d = d + u;
+  b = omb * b + beta * u;
+  p = xb;
+}
+
+// u = (x̂ − p_w)/kg;  Δ_w += u;  B_w = (1−β)B_w + β·u;  p_w = x̂, for every
+// worker w, with kg = scal[0] = k_eff·γ read on the device.  omb = 1 − β
+// (rounded once from double by the caller).  rc4 = R*C/4 per worker.
+__global__ void sync_bvr_kernel(float4* __restrict__ p, float4* __restrict__ d,
+                                float4* __restrict__ b,
+                                const float4* __restrict__ xbar,
+                                const float* __restrict__ scal, float omb,
+                                float beta, int64_t w, int64_t rc4) {
+  const float kg = scal[0];
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < rc4;
+       i += stride) {
+    const float4 xb = xbar[i];
+    for (int64_t k = 0; k < w; ++k) {
+      const int64_t j = k * rc4 + i;
+      float4 pv = p[j];
+      float4 dv = d[j];
+      float4 bv = b[j];
+      bvr_one(xb.x, pv.x, dv.x, bv.x, kg, omb, beta);
+      bvr_one(xb.y, pv.y, dv.y, bv.y, kg, omb, beta);
+      bvr_one(xb.z, pv.z, dv.z, bv.z, kg, omb, beta);
+      bvr_one(xb.w, pv.w, dv.w, bv.w, kg, omb, beta);
+      d[j] = dv;
+      b[j] = bv;
+      p[j] = pv;
+    }
+  }
+}
+
+// EASGD worker pass: p_w <- p_w − a·(p_w − x̃) for every worker, reading
+// the OLD center x̃ (the center pass runs after it on the same stream).
+__global__ void easgd_worker_kernel(float4* __restrict__ p,
+                                    const float4* __restrict__ center,
+                                    float a, int64_t w, int64_t rc4) {
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < rc4;
+       i += stride) {
+    const float4 c = center[i];
+    for (int64_t k = 0; k < w; ++k) {
+      const int64_t j = k * rc4 + i;
+      float4 pv = p[j];
+      pv.x = pv.x - a * (pv.x - c.x);
+      pv.y = pv.y - a * (pv.y - c.y);
+      pv.z = pv.z - a * (pv.z - c.z);
+      pv.w = pv.w - a * (pv.w - c.w);
+      p[j] = pv;
+    }
+  }
+}
+
+// EASGD center pass: x̃ <- (1 − na)·x̃ + na·x̂ in place; omna = 1 − na.
+__global__ void easgd_center_kernel(float4* __restrict__ center,
+                                    const float4* __restrict__ xbar,
+                                    float omna, float na, int64_t rc4) {
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < rc4;
+       i += stride) {
+    float4 c = center[i];
+    const float4 xb = xbar[i];
+    c.x = omna * c.x + na * xb.x;
+    c.y = omna * c.y + na * xb.y;
+    c.z = omna * c.z + na * xb.z;
+    c.w = omna * c.w + na * xb.w;
+    center[i] = c;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -124,6 +342,90 @@ int vrl_fused_sync_vrl(void* p, void* d, const void* xbar, const void* scal,
     sync_vrl_kernel<<<grid_for(rc4), kThreads, 0, (cudaStream_t)stream>>>(
         (float4*)p, (float4*)d, (const float4*)xbar, (const float*)scal, w,
         rc4);
+  }
+  return (int)cudaGetLastError();
+}
+
+// n: element count of p (a multiple of 4); d and b may be null; m is fp32
+// (m_bf16 = 0) or bf16 (m_bf16 = 1).
+int vrl_fused_local_momentum(void* p, const void* g, const void* d,
+                             const void* b, void* m, int m_bf16, float lr,
+                             float beta, float wd, int nesterov, int64_t n,
+                             void* stream) {
+  int64_t n4 = n / 4;
+  const MomentumArgs a{lr, beta, wd, nesterov != 0};
+  if (n4 > 0) {
+    dim3 grid(grid_for(n4)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (m_bf16) {
+      local_momentum_kernel<<<grid, block, 0, s>>>(
+          (float4*)p, (const float4*)g, (const float4*)d, (const float4*)b,
+          (__nv_bfloat16*)m, a, n4);
+    } else {
+      local_momentum_kernel<<<grid, block, 0, s>>>(
+          (float4*)p, (const float4*)g, (const float4*)d, (const float4*)b,
+          (float*)m, a, n4);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// As vrl_fused_local_momentum, with mu and nu of one storage type and
+// scal: two fp32 on the device, [1 − b1^t, 1 − b2^t].  one_minus_b1,
+// one_minus_b2 and lr_wd are computed by the caller in double.
+int vrl_fused_local_adam(void* p, const void* g, const void* d,
+                         const void* b, void* mu, void* nu, int m_bf16,
+                         const void* scal, float lr, float b1,
+                         float one_minus_b1, float b2, float one_minus_b2,
+                         float eps, float wd, float lr_wd, int64_t n,
+                         void* stream) {
+  int64_t n4 = n / 4;
+  const AdamArgs a{lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_wd};
+  if (n4 > 0) {
+    dim3 grid(grid_for(n4)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (m_bf16) {
+      local_adam_kernel<<<grid, block, 0, s>>>(
+          (float4*)p, (const float4*)g, (const float4*)d, (const float4*)b,
+          (__nv_bfloat16*)mu, (__nv_bfloat16*)nu, (const float*)scal, a, n4);
+    } else {
+      local_adam_kernel<<<grid, block, 0, s>>>(
+          (float4*)p, (const float4*)g, (const float4*)d, (const float4*)b,
+          (float*)mu, (float*)nu, (const float*)scal, a, n4);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// p, d, b: (w, rc) fp32; xbar: (rc,) fp32; scal: one fp32 (k_eff·γ) on the
+// device; omb = 1 − β.  rc is a multiple of 4.
+int vrl_fused_sync_bvr(void* p, void* d, void* b, const void* xbar,
+                       const void* scal, float omb, float beta, int64_t w,
+                       int64_t rc, void* stream) {
+  int64_t rc4 = rc / 4;
+  if (rc4 > 0 && w > 0) {
+    sync_bvr_kernel<<<grid_for(rc4), kThreads, 0, (cudaStream_t)stream>>>(
+        (float4*)p, (float4*)d, (float4*)b, (const float4*)xbar,
+        (const float*)scal, omb, beta, w, rc4);
+  }
+  return (int)cudaGetLastError();
+}
+
+// p: (w, rc) fp32; center, xbar: (rc,) fp32; omna = 1 − na.  Two launches
+// on one stream: the worker pass reads the old center, then the center
+// pass updates it in place.
+int vrl_fused_sync_easgd(void* p, void* center, const void* xbar, float a,
+                         float omna, float na, int64_t w, int64_t rc,
+                         void* stream) {
+  int64_t rc4 = rc / 4;
+  if (rc4 > 0 && w > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    easgd_worker_kernel<<<grid_for(rc4), kThreads, 0, s>>>(
+        (float4*)p, (const float4*)center, a, w, rc4);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    easgd_center_kernel<<<grid_for(rc4), kThreads, 0, s>>>(
+        (float4*)center, (const float4*)xbar, omna, na, rc4);
   }
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,45 @@ def fused_local_sgd(p, g, d=None, *, lr: float, wd: float = 0.0,
     return (p32 - lr * v).to(p.dtype)
 
 
+def fused_local_momentum(p, g, d, m, *, lr: float, beta: float,
+                         wd: float = 0.0, nesterov: bool = False,
+                         block: int = 0, b=None):
+    """Momentum inner step fused with the corrections; returns (p', m').
+
+      v = g − Δ − B + wd·p;  m' = βm + v;  p' = p − γ·(nesterov ? v + βm' : m')
+    """
+    del block
+    v = _corrected(g, d, b)
+    p32 = _f32(p)
+    if wd:
+        v = v + wd * p32
+    m_new = beta * _f32(m) + v
+    step_dir = v + beta * m_new if nesterov else m_new
+    return (p32 - lr * step_dir).to(p.dtype), m_new.to(m.dtype)
+
+
+def fused_local_adam(p, g, d, mu, nu, scal, *, lr: float, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8, wd: float = 0.0,
+                     block: int = 0, b=None):
+    """Adam inner step fused with the corrections; returns (p', mu', nu').
+
+    ``scal``: (1, 2) fp32 = [1 − b1^t, 1 − b2^t] (device-made bias
+    corrections, ``optim.adam_scal``).
+    """
+    del block
+    v = _corrected(g, d, b)
+    p32 = _f32(p)
+    c1 = scal[0, 0]
+    c2 = scal[0, 1]
+    mu_new = b1 * _f32(mu) + (1.0 - b1) * v
+    nu_new = b2 * _f32(nu) + (1.0 - b2) * v * v
+    step = lr * (mu_new / c1) / (torch.sqrt(nu_new / c2) + eps)
+    if wd:
+        step = step + lr * wd * p32
+    return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype),
+            nu_new.to(nu.dtype))
+
+
 def fused_sync_vrl(p, xbar, d, scal, *, block: int = 0):
     """Δ' = Δ + (x̂ − p)/(k_eff γ); p' = x̂ on (W, R, C) buffers.
 
@@ -59,3 +98,37 @@ def fused_sync_vrl(p, xbar, d, scal, *, block: int = 0):
     new_d = (_f32(d) + (xb - _f32(p)) / kg).to(d.dtype)
     new_p = xb.expand(p.shape).to(p.dtype, copy=True)
     return new_p, new_d
+
+
+def fused_sync_bvr(p, xbar, d, b, scal, *, beta: float, block: int = 0):
+    """BVR-L-SGD sync: the VRL Δ update plus the bias-variate EMA.
+
+      u = (x̂ − p)/(k_eff γ);  Δ' = Δ + u;  B' = (1−β)·B + β·u;  p' = x̂
+
+    Returns (p', Δ', B').
+    """
+    del block
+    xb = _f32(xbar)[None]
+    kg = scal[0, 0]
+    u = (xb - _f32(p)) / kg
+    new_d = (_f32(d) + u).to(d.dtype)
+    new_b = ((1.0 - beta) * _f32(b) + beta * u).to(b.dtype)
+    new_p = xb.expand(p.shape).to(p.dtype, copy=True)
+    return new_p, new_d, new_b
+
+
+def fused_sync_easgd(p, xbar, center, *, a: float, na: float,
+                     block: int = 0):
+    """Elastic sync (Zhang et al.); returns (p', x̃').
+
+      p' = p − a·(p − x̃)            a  = easgd_alpha / N
+      x̃' = (1 − N·a)·x̃ + N·a·x̂     na = N·a
+
+    ``xbar``/``center``: (R, C); p' reads the OLD center.
+    """
+    del block
+    p32 = _f32(p)
+    c = _f32(center)[None]
+    new_p = (p32 - a * (p32 - c)).to(p.dtype)
+    new_c = ((1.0 - na) * _f32(center) + na * _f32(xbar)).to(center.dtype)
+    return new_p, new_c

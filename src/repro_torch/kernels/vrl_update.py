@@ -1,11 +1,15 @@
 """Fused VRL-SGD update kernels for Hopper — the engine's hot path.
 
-The port's counterpart of ``repro.kernels.vrl_update``: the paper's local
-step and sync as single passes over worker-stacked (W, R, C) fp32 buffers,
-written in place.
+The port's counterpart of ``repro.kernels.vrl_update``: the flat
+algorithms' local steps and syncs as single passes over worker-stacked
+(W, R, C) fp32 buffers, written in place.
 
-  local:  p' = p − γ((g − Δ − B) + wd·p)
-  sync:   Δ' = Δ + (x̂ − p)/(k_eff γ);  p' = x̂
+  local sgd:       p' = p − γ((g − Δ − B) + wd·p)
+  local momentum:  m' = βm + v;  p' = p − γ·m'  (v = g − Δ − B + wd·p)
+  local adam:      mu, nu EMAs of v;  p' = p − γ(mu/c1)/(√(nu/c2)+eps) − γwd·p
+  sync vrl:        Δ' = Δ + (x̂ − p)/(k_eff γ);  p' = x̂
+  sync bvr:        the vrl sync plus B' = (1−β)B + β(x̂ − p)/(k_eff γ)
+  sync easgd:      p' = p − a(p − x̃), then x̃' = (1 − na)x̃ + na·x̂
 
 Each wrapper takes its kernel for CUDA tensors (``csrc/vrl_update.cu``,
 built at first use by ``kernels/build``) and the plain PyTorch version
@@ -25,7 +29,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import torch_update as tu
 
-LAUNCHES = {"fused_local_sgd": 0, "fused_sync_vrl": 0}
+LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
+            "fused_local_adam": 0, "fused_sync_vrl": 0, "fused_sync_bvr": 0,
+            "fused_sync_easgd": 0}
 
 
 def reset_launches() -> None:
@@ -48,22 +54,45 @@ def _lib() -> ctypes.CDLL:
     lib.vrl_fused_sync_vrl.argtypes = [_PTR, _PTR, _PTR, _PTR,
                                        ctypes.c_int64, ctypes.c_int64, _PTR]
     lib.vrl_fused_sync_vrl.restype = ctypes.c_int
+    f32, i64 = ctypes.c_float, ctypes.c_int64
+    lib.vrl_fused_local_momentum.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, f32, f32, f32,
+        ctypes.c_int, i64, _PTR]
+    lib.vrl_fused_local_momentum.restype = ctypes.c_int
+    lib.vrl_fused_local_adam.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, _PTR,
+        f32, f32, f32, f32, f32, f32, f32, f32, i64, _PTR]
+    lib.vrl_fused_local_adam.restype = ctypes.c_int
+    lib.vrl_fused_sync_bvr.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, f32,
+                                       f32, i64, i64, _PTR]
+    lib.vrl_fused_sync_bvr.restype = ctypes.c_int
+    lib.vrl_fused_sync_easgd.argtypes = [_PTR, _PTR, _PTR, f32, f32, f32,
+                                         i64, i64, _PTR]
+    lib.vrl_fused_sync_easgd.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, ref: torch.Tensor, **tensors) -> None:
-    """Raise on what the kernels do not take: non-fp32, mixed devices,
-    non-contiguous or misaligned buffers, lanes not a multiple of 4."""
+_MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name: str, ref: torch.Tensor, *, moments=(), **tensors) -> None:
+    """Raise on what the kernels do not take: non-fp32 buffers (moments
+    named in ``moments`` may be fp32 or bf16, all of one type), mixed
+    devices, non-contiguous or misaligned buffers, lanes not a multiple of
+    4."""
     if ref.dim() != 3:
         raise ValueError(f"{name}: p must be (W, R, C), got {tuple(ref.shape)}")
     if ref.shape[-1] % 4:
         raise ValueError(f"{name}: lanes {ref.shape[-1]} not a multiple of 4")
+    if len({tensors[k].dtype for k in moments}) > 1:
+        raise TypeError(f"{name}: moments {moments} differ in dtype")
     for key, t in tensors.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
+        allowed = _MOMENT_DTYPES if key in moments else (torch.float32,)
+        if t.dtype not in allowed:
             raise TypeError(f"{name}: {key} is {t.dtype}; the kernels take "
-                            f"float32 only")
+                            f"{' or '.join(map(str, allowed))} there")
         if t.device != ref.device:
             raise ValueError(f"{name}: {key} on {t.device}, p on {ref.device}")
         if not t.is_contiguous():
@@ -80,6 +109,21 @@ def _raise_on(name: str, err: int) -> None:
                            f"{err}") from torch.cuda.CudaError(err)
 
 
+def _same_shape(name: str, p: torch.Tensor, **tensors) -> None:
+    for key, t in tensors.items():
+        if t is not None and t.shape != p.shape:
+            raise ValueError(f"{name}: {key} {tuple(t.shape)} != p "
+                             f"{tuple(p.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 # Replaces repro/kernels/vrl_update.py:152 fused_local_sgd (Pallas, TPU).
 # Bound: device-memory bandwidth — reads p, g, Δ [, B] and writes p once
 # (16 B per element with Δ); a handful of flops per element.  Design: one
@@ -94,20 +138,14 @@ def fused_local_sgd(p: torch.Tensor, g: torch.Tensor,
     """
     del block
     _check("fused_local_sgd", p, p=p, g=g, d=d, b=b)
-    for key, t in (("g", g), ("d", d), ("b", b)):
-        if t is not None and t.shape != p.shape:
-            raise ValueError(f"fused_local_sgd: {key} {tuple(t.shape)} != p "
-                             f"{tuple(p.shape)}")
+    _same_shape("fused_local_sgd", p, g=g, d=d, b=b)
     if p.device.type == "cpu":
         return p.copy_(tu.fused_local_sgd(p, g, d, lr=lr, wd=wd, b=b))
     lib = _lib()
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.vrl_fused_local_sgd(
-            p.data_ptr(), g.data_ptr(),
-            d.data_ptr() if d is not None else None,
-            b.data_ptr() if b is not None else None,
-            float(lr), float(wd), p.numel(), stream)
+            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), float(lr),
+            float(wd), p.numel(), _stream(p))
     _raise_on("fused_local_sgd", err)
     LAUNCHES["fused_local_sgd"] += 1
     return p
@@ -138,10 +176,150 @@ def fused_sync_vrl(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.vrl_fused_sync_vrl(
             p.data_ptr(), d.data_ptr(), xbar.data_ptr(), scal.data_ptr(),
-            w, p.numel() // max(w, 1), stream)
+            w, p.numel() // max(w, 1), _stream(p))
     _raise_on("fused_sync_vrl", err)
     LAUNCHES["fused_sync_vrl"] += 1
     return p, d
+
+
+# Replaces repro/kernels/vrl_update.py:188 fused_local_momentum (Pallas,
+# TPU).  Bound: device-memory bandwidth — reads p, g [, Δ, B], m and writes
+# p, m once (20 B per fp32 element without Δ); ~6 flops per element.
+# Design: as fused_local_sgd, one float4 pass in place over p and m (the
+# Pallas kernel aliases both), m loaded and stored as fp32 or bf16.
+def fused_local_momentum(p: torch.Tensor, g: torch.Tensor,
+                         d: Optional[torch.Tensor], m: torch.Tensor, *,
+                         lr: float, beta: float, wd: float = 0.0,
+                         nesterov: bool = False, block: int = 0,
+                         b: Optional[torch.Tensor] = None):
+    """m ← βm + v; p ← p − γ·(nesterov ? v + βm : m), v = g − Δ − B + wd·p,
+    in place on (W, R, C); returns (p, m).  d/b None ⇒ Δ/B ≡ 0; ``block``
+    is accepted and ignored."""
+    del block
+    name = "fused_local_momentum"
+    _check(name, p, moments=("m",), p=p, g=g, d=d, b=b, m=m)
+    _same_shape(name, p, g=g, d=d, b=b, m=m)
+    if p.device.type == "cpu":
+        new_p, new_m = tu.fused_local_momentum(p, g, d, m, lr=lr, beta=beta,
+                                               wd=wd, nesterov=nesterov, b=b)
+        return p.copy_(new_p), m.copy_(new_m)
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_local_momentum(
+            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), m.data_ptr(),
+            int(m.dtype == torch.bfloat16), float(lr), float(beta),
+            float(wd), int(bool(nesterov)), p.numel(), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, m
+
+
+# Replaces repro/kernels/vrl_update.py:230 fused_local_adam (Pallas, TPU).
+# Bound: device-memory bandwidth — reads p, g [, Δ, B], mu, nu and writes
+# p, mu, nu once (36 B per fp32 element with Δ and B); ~20 flops, one
+# sqrt and two divisions per element.  Design: one float4 pass in place
+# over p, mu and nu; the bias corrections [c1, c2] are read from the (1, 2)
+# device tensor ``scal`` (no host sync); every constant derived from the
+# hyper-parameters (1 − b1, 1 − b2, γ·wd) is rounded from double once, here.
+def fused_local_adam(p: torch.Tensor, g: torch.Tensor,
+                     d: Optional[torch.Tensor], mu: torch.Tensor,
+                     nu: torch.Tensor, scal: torch.Tensor, *, lr: float,
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                     wd: float = 0.0, block: int = 0,
+                     b: Optional[torch.Tensor] = None):
+    """Adam inner step fused with the corrections, in place on (W, R, C);
+    returns (p, mu, nu).  ``scal``: (1, 2) fp32 [1 − b1^t, 1 − b2^t]."""
+    del block
+    name = "fused_local_adam"
+    _check(name, p, moments=("mu", "nu"), p=p, g=g, d=d, b=b, mu=mu, nu=nu,
+           scal=scal)
+    _same_shape(name, p, g=g, d=d, b=b, mu=mu, nu=nu)
+    if scal.numel() != 2:
+        raise ValueError(f"{name}: scal must hold [c1, c2], got "
+                         f"{tuple(scal.shape)}")
+    if p.device.type == "cpu":
+        outs = tu.fused_local_adam(p, g, d, mu, nu, scal.reshape(1, 2),
+                                   lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, b=b)
+        return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_local_adam(
+            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), mu.data_ptr(),
+            nu.data_ptr(), int(mu.dtype == torch.bfloat16), scal.data_ptr(),
+            float(lr), float(b1), float(1.0 - b1), float(b2),
+            float(1.0 - b2), float(eps), float(wd), float(lr * wd),
+            p.numel(), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, mu, nu
+
+
+# Replaces repro/kernels/vrl_update.py:388 fused_sync_bvr (Pallas, TPU).
+# Bound: device-memory bandwidth — reads p, Δ, B (W·R·C each) and x̂ (R·C)
+# once, writes p, Δ, B.  Design: as fused_sync_vrl, one float4 of x̂ per
+# thread walks the W workers from a register; k_eff·γ read from ``scal``.
+def fused_sync_bvr(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
+                   b: torch.Tensor, scal: torch.Tensor, *, beta: float,
+                   block: int = 0):
+    """u = (x̂ − p)/(k_eff γ); Δ ← Δ + u; B ← (1−β)B + βu; p ← x̂, in place;
+    returns (p, Δ, B).  ``xbar``: (R, C); ``scal``: (1, 1) k_eff·γ."""
+    del block
+    name = "fused_sync_bvr"
+    _check(name, p, p=p, xbar=xbar, d=d, b=b, scal=scal)
+    _same_shape(name, p, d=d, b=b)
+    if tuple(xbar.shape) != tuple(p.shape[1:]):
+        raise ValueError(f"{name}: xbar {tuple(xbar.shape)} is not one "
+                         f"worker of p {tuple(p.shape)}")
+    if scal.numel() != 1:
+        raise ValueError(f"{name}: scal must hold one value, got "
+                         f"{tuple(scal.shape)}")
+    if p.device.type == "cpu":
+        outs = tu.fused_sync_bvr(p, xbar, d, b, scal.reshape(1, 1),
+                                 beta=beta)
+        return tuple(t.copy_(o) for t, o in zip((p, d, b), outs))
+    lib = _lib()
+    w = p.shape[0]
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_sync_bvr(
+            p.data_ptr(), d.data_ptr(), b.data_ptr(), xbar.data_ptr(),
+            scal.data_ptr(), float(1.0 - beta), float(beta), w,
+            p.numel() // max(w, 1), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, d, b
+
+
+# Replaces repro/kernels/vrl_update.py:618 fused_sync_easgd (Pallas, TPU:
+# two pallas_calls, :636 and :646).  Bound: device-memory bandwidth — the
+# worker pass reads p and x̃ and writes p, the center pass reads x̃, x̂ and
+# writes x̃.  Design: two launches on the caller's stream, the worker pass
+# first (it reads the OLD center; stream order gives the ordering that
+# XLA's alias analysis gives the reference), each x̃ float4 walking the W
+# workers from a register.  One call counts as one launch.
+def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
+                     center: torch.Tensor, *, a: float, na: float,
+                     block: int = 0):
+    """p ← p − a(p − x̃), then x̃ ← (1 − na)x̃ + na·x̂, in place; returns
+    (p, x̃).  ``xbar``/``center``: (R, C) fp32."""
+    del block
+    name = "fused_sync_easgd"
+    _check(name, p, p=p, xbar=xbar, center=center)
+    if not (tuple(xbar.shape) == tuple(center.shape) == tuple(p.shape[1:])):
+        raise ValueError(f"{name}: shapes p {tuple(p.shape)}, xbar "
+                         f"{tuple(xbar.shape)}, center "
+                         f"{tuple(center.shape)}")
+    if p.device.type == "cpu":
+        new_p, new_c = tu.fused_sync_easgd(p, xbar, center, a=a, na=na)
+        return p.copy_(new_p), center.copy_(new_c)
+    lib = _lib()
+    w = p.shape[0]
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_sync_easgd(
+            p.data_ptr(), center.data_ptr(), xbar.data_ptr(), float(a),
+            float(1.0 - na), float(na), w, p.numel() // max(w, 1),
+            _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, center

@@ -1,12 +1,17 @@
 """Training driver (``repro.launch.train``, core flags).
 
-Runs VRL-SGD on the qwen2-0.5b architecture (full width, or ``--smoke``'s
-reduced variant) over the synthetic non-iid LM stream, round by round:
-each communication period is k local steps (forward/backward per worker,
-then one fused local-update kernel over the (W, R, C) buffers) closed by
-one worker mean and one fused sync kernel.  VRL-SGD-W (``--warmup``) runs
-the first period as a 1-step round; a tail shorter than a round finishes
-step by step, syncing on the per-step cadence.
+Runs a flat algorithm (``--algorithm``: vrl_sgd, local_sgd, ssgd, easgd,
+stl_sgd, bvr_l_sgd) on the qwen2-0.5b architecture (full width, or
+``--smoke``'s reduced variant) over the synthetic non-iid LM stream, round
+by round: each communication period is k local steps (forward/backward
+per worker, then one fused local-update kernel over the (W, R, C)
+buffers) closed by one worker mean and the algorithm's sync.  VRL-SGD-W
+(``--warmup``) runs the first period as a 1-step round; a
+``--comm-schedule`` (stl_sgd's default: doubling 1 → k) sizes each round
+from its stage and supersedes ``--warmup``; a tail shorter than a round
+finishes step by step, syncing on the per-step cadence.  The inner
+optimizer comes from ``VRLConfig`` (sgd here, as in the reference CLI,
+so there is no moment buffer and no ``--moment-dtype``).
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The log lines are the
@@ -19,8 +24,8 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32
 
-Not ported yet (ROADMAP Queue 1): the other algorithms and inner
-optimizers, compression, overlap, membership and faults, client sampling,
+Not ported yet (ROADMAP Queue 1): hier_vrl_sgd, SM3 moments (``--sm3``),
+compression, overlap, membership and faults, client sampling,
 checkpoints, diagnostics and telemetry, meshes.
 """
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.data import assigned_token_stream, contiguous_assignment
 from repro_torch.kernels import vrl_update
 from repro_torch.models import transformer as T
@@ -48,7 +54,9 @@ class TrainResult(NamedTuple):
     engine: object              # the core.engine.Engine that ran
     losses: List[float]         # per-step worker-mean local loss
     avg_model_losses: List[float]  # averaged-model loss at each log line
-    invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log line
+    invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log
+                                # line; [] where the algorithm has no Δ
+    bias_invariant: List[tuple]  # the same for BVR-L-SGD's B
     wall_s: float               # training wall time (set-up excluded)
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
 
@@ -62,6 +70,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--algorithm", default="vrl_sgd",
                     choices=sorted((*engine_mod.ALGO_SPECS,
                                     *engine_mod.NOT_PORTED)))
+    ap.add_argument("--comm-schedule", default=None,
+                    help="stagewise round schedule: const | "
+                         "stagewise[:k0:rounds:k_max] | custom:1x4,2x4,8x2 "
+                         "(default: constant --k; stl_sgd defaults to the "
+                         "doubling ramp 1 -> --k)")
+    ap.add_argument("--bvr-beta", type=float, default=0.5,
+                    help="bvr_l_sgd bias-variate EMA rate (0 = plain "
+                         "vrl_sgd)")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
     ap.add_argument("--workers", type=int, default=4)
@@ -112,14 +128,24 @@ def run(argv=None) -> TrainResult:
            else registry.get_arch(args.arch))
     print(f"arch: {registry.describe(args.arch)}"
           f"{' [reduced smoke variant]' if args.smoke else ''}")
+    try:
+        sched_arg = (schedule_mod.parse_schedule(args.comm_schedule, args.k)
+                     if args.comm_schedule else None)
+    except ValueError as e:
+        raise SystemExit(f"--comm-schedule: {e}")
     vrl = VRLConfig(algorithm=args.algorithm, comm_period=args.k,
                     learning_rate=args.lr, warmup=args.warmup,
+                    bvr_beta=args.bvr_beta, comm_schedule=sched_arg,
                     engine=EngineConfig(block=args.block))
     try:
         bundle = make_train_step(cfg, vrl, device=device,
                                  timed=device.type == "cuda")
     except NotImplementedError as e:
         raise SystemExit(str(e))
+    sched = engine_mod.comm_schedule(vrl)    # explicit or the algo default
+    if sched is not None:
+        print(f"comm schedule: stages {sched.stages} (k repeats from the "
+              f"last stage)")
     eng = bundle.engine
     state = bundle.init_state(args.seed, args.workers)
     es = eng.spec
@@ -148,19 +174,27 @@ def run(argv=None) -> TrainResult:
     step_losses: list = []      # device tensors until the end of the run
     avg_losses: List[float] = []
     invariant: List[tuple] = []
+    bias_invariant: List[tuple] = []
 
     def log_invariant(state, t):
         """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
-        the largest Δ the run has held)."""
-        sum_d, max_d = engine_mod.delta_invariant(state)
-        invariant.append((t, sum_d, max_d))
-        print(f"             max|sum_i delta_i| {sum_d:.3e}  "
-              f"max|delta| {max_d:.3e}")
-    warm_first = args.warmup and eng.algo.warmup_aware
+        the largest Δ the run has held), and BVR's Σ_i B_i = 0; nothing
+        for an algorithm without Δ."""
+        for buf, log, name in ((state.delta, invariant, "delta"),
+                               (state.bias, bias_invariant, "bias")):
+            if isinstance(buf, torch.Tensor):
+                sum_b, max_b = engine_mod.sum_invariant(buf)
+                log.append((t, sum_b, max_b))
+                print(f"             max|sum_i {name}_i| {sum_b:.3e}  "
+                      f"max|{name}| {max_b:.3e}")
+    warm_first = sched is None and args.warmup and eng.algo.warmup_aware
     t0 = time.time()
     t, r = 0, 0
     while t < args.steps:
-        rk = 1 if (warm_first and t == 0) else args.k
+        if sched is not None:
+            rk = sched.period_starting_at(t)
+        else:
+            rk = 1 if (warm_first and t == 0) else args.k
         if args.steps - t < rk:
             # tail shorter than a round: per-step, syncing on the per-step
             # cadence exactly as the reference's tail does
@@ -207,7 +241,7 @@ def run(argv=None) -> TrainResult:
     print(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
     return TrainResult(state=state, engine=eng, losses=losses_host,
                        avg_model_losses=avg_losses, invariant=invariant,
-                       wall_s=wall,
+                       bias_invariant=bias_invariant, wall_s=wall,
                        phases_ms=phases)
 
 

@@ -11,14 +11,17 @@ over worker-stacked engine state:
       model averaging + Δ update (the per-period communication event)
   round_step(state, tokens_k, labels_k) -> (state, losses)
       ONE COMMUNICATION ROUND: k local steps over (k, W, ...) token/label
-      stacks, then the round-closing sync; losses stay on the device as a
-      (k,) tensor.  Warmup (VRL-SGD-W): the caller sizes the first round
-      k=1 (``launch/train.py`` does).
+      stacks, then the round-closing sync (a no-op for S-SGD, which
+      averages gradients every step); losses stay on the device as a (k,)
+      tensor.  The caller sizes each round: k=1 for VRL-SGD-W's warmup
+      round, the stage's k under a CommSchedule (``launch/train.py``).
 
 Per-worker gradients: the reference ``vmap``s one forward/backward over
 the worker axis; here a loop over workers runs each on views of
-``params[w]`` (the engine's buffer, no copy) and writes the gradients into
-ONE reused (W, R, C) buffer, so W gradient trees are never held at once.
+``params[w]`` (the engine's buffer, no copy), clips them to
+``vrl_cfg.clip_norm`` when set (``clip_by_global_norm``, per worker) and
+writes them into ONE reused (W, R, C) buffer, so W gradient trees are
+never held at once.
 The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
@@ -37,6 +40,23 @@ from repro_torch.core import flat
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
 from repro_torch.train.loss import cross_entropy_lm
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
+    """Per-worker global-norm clipping (``repro.train.train_loop``): scale
+    every gradient by min(1, max_norm / max(‖g‖₂, 1e-9)), the norm taken
+    over all leaves in fp32.  ``grads``: a tree (dict) or a sequence of
+    tensors (returned as a list)."""
+    gl = tree_mod.leaves(grads) if isinstance(grads, dict) else list(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in gl))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+    def clip(g):
+        return (g.to(torch.float32) * scale).to(g.dtype)
+    if isinstance(grads, dict):
+        return tree_mod.tree_map(clip, grads)
+    return [clip(g) for g in gl]
 
 
 class StepBundle(NamedTuple):
@@ -114,6 +134,8 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                 [(path, x) for (path, _), x in zip(pairs, leaves)])
             loss = loss_fn(params, tokens[i], labels[i])
             grads = torch.autograd.grad(loss, leaves)
+            if vrl_cfg.clip_norm:
+                grads = clip_by_global_norm(grads, vrl_cfg.clip_norm)
             with torch.no_grad():
                 for gl, g in zip(gleaves, grads):
                     gl[i].copy_(g)
@@ -134,8 +156,8 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
 
     def train_step(state, tokens, labels):
         state, loss = local_step(state, tokens, labels)
-        if engine_mod.should_sync(eng.algo, vrl_cfg, state.step,
-                                  state.last_sync):
+        if eng.algo.sync != "none" and engine_mod.should_sync(
+                eng.algo, vrl_cfg, state.step, state.last_sync):
             state = sync_step(state)
         return state, loss
 

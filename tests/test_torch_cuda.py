@@ -7,8 +7,9 @@ JAX here, so the file runs on a machine with PyTorch alone:
   PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Required: bitwise equality with ``kernels/torch_update`` (the library is
-built with -fmad=false and IEEE division), on a tile-aligned and a ragged
-row count, with and without Δ, wd 0 and non-zero.
+built with -fmad=false, IEEE division and sqrt), on a tile-aligned and a
+ragged row count, with and without Δ (and B), wd 0 and non-zero, fp32
+and bf16 moments, nesterov on and off, several β and k_eff.
 """
 import numpy as np
 import pytest
@@ -64,3 +65,98 @@ def test_cuda_kernels_sync_vrl_bitwise(r):
     torch.cuda.synchronize()
     assert tvu.LAUNCHES["fused_sync_vrl"] == n0 + 1
     assert torch.equal(got_p, want_p) and torch.equal(got_d, want_d)
+
+
+MW, MR = 4, 4096                # the new kernels' moderate shape
+MOMENT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _state(seed, r, dev, n=6):
+    """n (MW, r, C) fp32 tensors and one (r, C) on ``dev``, from numpy."""
+    rng = np.random.RandomState(seed)
+    bufs = [torch.from_numpy(rng.randn(MW, r, C).astype(np.float32)).to(dev)
+            for _ in range(n)]
+    xbar = torch.from_numpy(rng.randn(r, C).astype(np.float32)).to(dev)
+    return bufs, xbar
+
+
+def _launched(name, fn):
+    n0 = tvu.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert tvu.LAUNCHES[name] == n0 + 1
+    return out
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("corr", ["none", "d", "db"])
+@pytest.mark.parametrize("wd,nesterov", [(0.0, False), (1e-4, False),
+                                         (1e-4, True)])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_local_momentum_bitwise(mdt, corr, wd, nesterov, r):
+    dev = _cuda_or_skip()
+    (p, g, d, b, m, _), _ = _state(7, r, dev)
+    d = d if "d" in corr else None
+    b = b if "b" in corr else None
+    m = (0.1 * m).to(MOMENT_DTYPES[mdt])
+    kw = dict(lr=0.05, beta=0.9, wd=wd, nesterov=nesterov, b=b)
+    want = tu.fused_local_momentum(p, g, d, m, **kw)
+    got = _launched("fused_local_momentum", lambda: tvu.fused_local_momentum(
+        p.clone(), g, d, m.clone(), **kw))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("corr", ["none", "d", "db"])
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("t", [1, 7])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_local_adam_bitwise(mdt, corr, wd, t, r):
+    from repro_torch.optim import adam_scal
+    dev = _cuda_or_skip()
+    (p, g, d, b, mu, nu), _ = _state(8, r, dev)
+    d = d if "d" in corr else None
+    b = b if "b" in corr else None
+    mu = (0.1 * mu).to(MOMENT_DTYPES[mdt])
+    nu = (0.01 * nu * nu).to(MOMENT_DTYPES[mdt])
+    scal = adam_scal(t, dev)
+    kw = dict(lr=1e-3, wd=wd, b=b)
+    want = tu.fused_local_adam(p, g, d, mu, nu, scal, **kw)
+    got = _launched("fused_local_adam", lambda: tvu.fused_local_adam(
+        p.clone(), g, d, mu.clone(), nu.clone(), scal, **kw))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", [0.5, 1.0])
+@pytest.mark.parametrize("k_eff", [1, 2, 3])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_sync_bvr_bitwise(beta, k_eff, r):
+    dev = _cuda_or_skip()
+    (p, d, b, *_), xbar = _state(9, r, dev, n=3)
+    scal = torch.full((1, 1), float(k_eff), device=dev) * 0.05
+    want = tu.fused_sync_bvr(p, xbar, d, b, scal, beta=beta)
+    got = _launched("fused_sync_bvr", lambda: tvu.fused_sync_bvr(
+        p.clone(), xbar, d.clone(), b.clone(), scal, beta=beta))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.3, 0.9])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_sync_easgd_bitwise(alpha, r):
+    dev = _cuda_or_skip()
+    (p, *_), xbar = _state(10, r, dev, n=1)
+    center = p.mean(dim=0) + 0.5
+    a = alpha / MW
+    want = tu.fused_sync_easgd(p, xbar, center, a=a, na=MW * a)
+    got = _launched("fused_sync_easgd", lambda: tvu.fused_sync_easgd(
+        p.clone(), xbar, center.clone(), a=a, na=MW * a))
+    _assert_equal(got, want)

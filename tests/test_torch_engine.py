@@ -1,14 +1,18 @@
-"""PyTorch port, flat-buffer engine (vrl_sgd, sgd inner) vs the JAX
-package's ``make_engine(update_backend="xla")``.
+"""PyTorch port, flat-buffer engine vs the JAX package's
+``make_engine(update_backend="xla")``.
 
-Both engines start from the same parameters and consume the same
-(k, W, R, C) gradient stacks (numpy, pad lanes zero) through
-``round_step_flat``, with VRL-SGD-W warmup on and off.  The update math is
-bitwise equal op for op (``tests/test_torch_update.py``); the worker mean
-may sum in another order, so trajectories are held to the reference's own
-engine standard (``tests/test_engine_parity.py``): params atol 1e-5, and Δ
-— the param residual divided by k·γ — atol 1e-5/(k·γ).  Paper §4.1:
-Σ_i Δ_i = 0 after every sync, to 1e-4 · max|Δ| (fp32 rounding of x̂).
+vrl_sgd with sgd: both engines start from the same parameters and consume
+the same (k, W, R, C) gradient stacks (numpy, pad lanes zero) through
+``round_step_flat`` and ``train_step``, with VRL-SGD-W warmup on and off.
+Every flat algorithm × sgd, momentum, adam: 13 per-step ``train_step``s at
+k = 4, W = 4 (the reference's ``tests/test_engine_parity.py`` matrix).
+The update math is bitwise equal op for op (``tests/test_torch_update.py``);
+the worker mean may sum in another order, so trajectories are held to the
+reference's own engine standard: params atol 1e-5, and Δ — the param
+residual divided by k·γ — atol 1e-5/(k·γ).  Paper §4.1: Σ_i Δ_i = 0 (and
+BVR's Σ_i B_i = 0) after every sync, to 1e-4 · max|Δ| (fp32 rounding of
+x̂).  The spec identities are bitwise in the port: stl_sgd on a constant
+schedule is local_sgd; bvr_l_sgd with β = 0 is vrl_sgd.
 """
 import functools
 
@@ -128,8 +132,11 @@ def test_should_sync_matches_reference(warmup):
 
 
 def test_specs_and_unported_algorithms():
-    assert teng.get_spec("vrl_sgd") == jeng.get_spec("vrl_sgd")
+    for name in teng.ALGO_SPECS:
+        assert tuple(teng.get_spec(name)) == tuple(jeng.get_spec(name)), name
     assert set(teng.NOT_PORTED) | set(teng.ALGO_SPECS) == set(jeng.ALGO_SPECS)
+    assert teng.NOT_PORTED == ("hier_vrl_sgd",)
+    assert teng.flat_algorithms() == jeng.flat_algorithms()
     for name in teng.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng.get_spec(name)
@@ -154,3 +161,160 @@ def test_tree_grads_equal_flat_grads(setup):
                                                                    1 + K)
     assert torch.equal(st.params, st2.params)
     assert torch.equal(st.delta, st2.delta)
+
+
+# ------------------------------------------ every flat algorithm x inner
+INNER = ["sgd", "momentum", "adam"]
+MK, MSTEPS = 4, 13              # 13 steps at k=4: 3 completed sync periods
+
+
+def _mcfg(mod, alg, inner, k=MK, **over):
+    kw = dict(algorithm=alg, comm_period=k, learning_rate=LR,
+              weight_decay=1e-3, inner_optimizer=inner,
+              momentum=0.9 if inner == "momentum" else 0.0, warmup=False)
+    kw.update(over)
+    if mod is JVRL:
+        kw["update_backend"] = "xla"
+    return mod(**kw)
+
+
+def _matrix_run(setup, alg, inner, steps=MSTEPS, k=MK, **over):
+    """Per-step ``train_step`` of both engines over the same numpy
+    gradient stacks (a fresh buffer each step: S-SGD overwrites it)."""
+    template_j, template_t, params_j = setup
+    ej = jeng.make_engine(_mcfg(JVRL, alg, inner, k, **over), template_j)
+    et = teng.make_engine(_mcfg(TVRL, alg, inner, k, **over), template_t)
+    sj = ej.init(params_j, W)
+    st = et.init(from_numpy(jax.tree.map(np.asarray, params_j)), W)
+    step_j = jax.jit(ej.train_step)
+    for t in range(steps):
+        g = _grad_stack(ej.spec, 1, seed=100 + t)[0]
+        sj = step_j(sj, jflat.unflatten_stacked(ej.spec, jnp.asarray(g)))
+        st = et.train_step(st, torch.from_numpy(g.copy()))
+        assert (st.step, st.last_sync) == (int(sj.step), int(sj.last_sync))
+    return ej, et, sj, st
+
+
+def _inner_bufs(inner_state):
+    if isinstance(inner_state, tuple) and not inner_state:
+        return []
+    if isinstance(inner_state, torch.Tensor) or hasattr(inner_state, "shape"):
+        return [inner_state]
+    return [inner_state.mu, inner_state.nu]
+
+
+@pytest.mark.parametrize("inner", INNER)
+@pytest.mark.parametrize("alg", list(jeng.flat_algorithms()))
+def test_engine_matrix_matches_reference(setup, alg, inner):
+    """Params atol 1e-5 (the reference's engine standard); Δ, B and the
+    first moments are param residuals over k·γ, so atol 1e-5/(k·γ); Adam's
+    nu (a square of those) rtol 1e-4; EASGD's center atol 1e-5."""
+    ej, et, sj, st = _matrix_run(setup, alg, inner)
+    np.testing.assert_allclose(st.params.numpy(), np.asarray(sj.params),
+                               rtol=0, atol=1e-5)
+    scaled = 1e-5 / (MK * LR)
+    for name in ("delta", "bias"):
+        a, b = getattr(st, name), getattr(sj, name)
+        assert isinstance(a, torch.Tensor) == hasattr(b, "shape"), name
+        if isinstance(a, torch.Tensor):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=scaled, err_msg=name)
+    ti, ji = _inner_bufs(st.inner), _inner_bufs(sj.inner)
+    assert len(ti) == len(ji) == {"sgd": 0, "momentum": 1, "adam": 2}[inner]
+    for i, (a, b) in enumerate(zip(ti, ji)):
+        if i == 1:      # Adam's nu
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                       atol=1e-12)
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=scaled)
+    if inner == "adam":
+        assert st.inner.count == int(sj.inner.count) == MSTEPS
+    assert isinstance(st.center, torch.Tensor) == (alg == "easgd")
+    if alg == "easgd":
+        np.testing.assert_allclose(st.center.numpy(), np.asarray(sj.center),
+                                   rtol=0, atol=1e-5)
+    for a, b in zip(jax.tree.leaves(ej.average_model(sj)),
+                    tm.leaves(et.average_model(st))):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("inner", INNER)
+def test_stl_const_schedule_is_local_sgd_bitwise(setup, inner):
+    """STL-SGD on a constant schedule IS Local SGD: same kernels, same
+    sync rule, same round boundaries — bitwise, in the port."""
+    from repro_torch.core.schedule import const_comm
+    *_, s1 = _matrix_run(setup, "stl_sgd", inner,
+                         comm_schedule=const_comm(MK))
+    *_, s2 = _matrix_run(setup, "local_sgd", inner)
+    assert torch.equal(s1.params, s2.params)
+    assert s1.last_sync == s2.last_sync == 12
+
+
+@pytest.mark.parametrize("inner", INNER)
+@pytest.mark.parametrize("warmup", [False, True])
+def test_bvr_zero_beta_is_vrl_sgd_bitwise(setup, inner, warmup):
+    """bvr_beta=0 turns B off: the state carries no B and the trajectory
+    is bitwise vrl_sgd (params and Δ), in the port."""
+    *_, s1 = _matrix_run(setup, "bvr_l_sgd", inner, bvr_beta=0.0,
+                         warmup=warmup)
+    *_, s2 = _matrix_run(setup, "vrl_sgd", inner, warmup=warmup)
+    assert s1.bias == ()
+    assert torch.equal(s1.params, s2.params)
+    assert torch.equal(s1.delta, s2.delta)
+
+
+def test_vrl_k1_matches_ssgd(setup):
+    """Paper §4.1: VRL-SGD with k=1 is S-SGD (the Δ-corrected local steps
+    of one step average to the mean-gradient step), to rounding."""
+    *_, s1 = _matrix_run(setup, "vrl_sgd", "sgd", steps=8, k=1)
+    *_, s2 = _matrix_run(setup, "ssgd", "sgd", steps=8, k=1)
+    np.testing.assert_allclose(s1.params.numpy(), s2.params.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert s2.last_sync == s2.step == 8
+
+
+@pytest.mark.parametrize("alg", ["vrl_sgd", "bvr_l_sgd"])
+@pytest.mark.parametrize("inner", INNER)
+def test_delta_and_bias_sum_to_zero_after_sync(setup, alg, inner):
+    """Σ_i Δ_i = 0 and Σ_i B_i = 0 after every sync, to fp32 rounding of
+    x̂ relative to the largest value the buffer holds."""
+    *_, st = _matrix_run(setup, alg, inner, steps=12)
+    assert st.last_sync == 12
+    for buf in (st.delta, st.bias):
+        if isinstance(buf, torch.Tensor):
+            sum_b, max_b = teng.sum_invariant(buf)
+            assert max_b > 0 and sum_b <= 1e-4 * max_b
+
+
+def test_schedule_and_moment_options(setup):
+    """stl_sgd defaults to doubling 1 → k; a schedule supersedes warmup;
+    should_sync follows the reference on every (algorithm, step); bf16
+    moments are stored bf16; SM3 raises."""
+    from repro_torch.core.schedule import stagewise_doubling
+    ct = _mcfg(TVRL, "stl_sgd", "sgd")
+    assert teng.comm_schedule(ct) == stagewise_doubling(1, MK)
+    assert teng.comm_schedule(_mcfg(TVRL, "vrl_sgd", "sgd")) is None
+    for alg in teng.flat_algorithms():
+        for warmup in (False, True):
+            cj = _mcfg(JVRL, alg, "sgd", warmup=warmup)
+            ct = _mcfg(TVRL, alg, "sgd", warmup=warmup)
+            for last in (0, 1, 4, 12):
+                for step in range(last, last + MK + 2):
+                    want = bool(jeng.should_sync(
+                        jeng.get_spec(alg), cj, jnp.int32(step),
+                        jnp.int32(last)))
+                    assert teng.should_sync(teng.get_spec(alg), ct, step,
+                                            last) == want
+    template_t = setup[1]
+    et = teng.make_engine(_mcfg(TVRL, "vrl_sgd", "adam",
+                                moment_dtype="bfloat16"), template_t)
+    st = et.init(from_numpy(jax.tree.map(np.asarray, setup[2])), 2)
+    assert st.inner.mu.dtype == st.inner.nu.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.make_engine(_mcfg(TVRL, "vrl_sgd", "adam", sm3=True),
+                         template_t)
+    # SM3 factors Adam's nu only: inert for momentum, as in the reference
+    teng.make_engine(_mcfg(TVRL, "vrl_sgd", "momentum", sm3=True),
+                     template_t)
