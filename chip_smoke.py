@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-  python3 chip_smoke.py                  # the phases below
-  python3 chip_smoke.py --easgd-lr-sweep # path (b) at γ = 1e-3, 1e-4, 1e-5:
-                                         # prints whether each stays finite
+  python3 chip_smoke.py             # the phases below
+  python3 chip_smoke.py --lr-sweep  # paths (b) and (f) at γ = 1e-3, 1e-4,
+                                    # 1e-5: prints whether each stays finite
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -11,21 +11,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
    is a failure, as is a directory without the repo's sources.
 2. build — compile every CUDA kernel of the training paths from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
-3. kernels — each of the six kernels' wrappers against its plain PyTorch
-   version on the card, on random fp32 inputs made with numpy from a seed:
-   a moderate shape (W=4, R=65,536) and a ragged one (W=3, R=1,237), over
-   the variants: with and without Δ (and B), wd 0 and 1e-4, fp32 and bf16
-   moments, nesterov on and off, β ∈ {0.5, 1}, k_eff ∈ {1, 2, 3}.
-   Required: BITWISE equality.  Then the main paths' full shape
-   (qwen2-0.5b: W=4, R=1,930,240, C=256), one rule for all six: bitwise
-   again one worker slice at a time (to bound memory), then the kernel's
-   time in place on the whole buffer and its plain version's worker slice
-   by worker slice (their temporaries at W=4 do not all fit beside the
-   inputs), CUDA events, beside the bound (bytes moved over 3.35 TB/s, or
-   fp32 operations over 67 TFLOP/s, whichever is larger; H100 SXM data
-   sheet).  The one library call that computes one of these functions,
-   ``torch._fused_sgd_`` for fused_local_momentum without Δ or B, is held
-   to the plain version (rtol 1e-5) and timed on the same operands.
+3. kernels — each of the eleven kernels' wrappers against its plain
+   PyTorch version on the card, on random fp32 inputs made with numpy from
+   a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
+   R=1,237), over the variants: with and without Δ (and B), wd 0 and 1e-4,
+   fp32 and bf16 moments, nesterov on and off, β ∈ {0.5, 1}, k_eff ∈ {1,
+   2, 3}; the EF round trip int8 and top-k (k ∈ {8, 64, 256}) with and
+   without ref and EF, on rows with ± ties, all-zero rows and rows with
+   fewer than k non-zeros mixed in; the overlap fold vrl, bvr (β ∈ {0.5,
+   1}) and avg, capture on and off, the miss mask mixed 0/1 over the
+   workers and pend_k ∈ {1, 2, 3}.  Required: BITWISE equality.  Then the
+   main paths' full shape (qwen2-0.5b: W=4, R=1,930,240, C=256), one rule
+   for all eleven: bitwise again one worker slice at a time (to bound
+   memory), then the kernel's time in place on the whole buffer and its
+   plain version's worker slice by worker slice (their temporaries at W=4
+   do not all fit beside the inputs), CUDA events, beside the bound (bytes
+   moved over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is
+   larger; H100 SXM data sheet).  The library calls: ``torch._fused_sgd_``
+   for fused_local_momentum without Δ or B, held to the plain version
+   (rtol 1e-5) and timed on the same operands; ``torch.topk(|payload|, k,
+   dim=-1)`` beside fused_ef_topk, which does only the selection part of
+   its function (a partial yardstick).
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -47,6 +53,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      loss finite.  Then, after the counts are read, one more sync through
      the engine on the final state: worker 0's parameters and the center
      bitwise the plain version from the same pre-sync state.
+   - (c) vrl_sgd + sgd, ``compress=int8``, blocking (``make_train_step(
+     timed=True)``, rounds of 1, 2, 2, 2): fused_local_sgd 7,
+     fused_ef_int8 4, fused_sync_vrl 4.  Every loss finite; at every sync
+     Σ_i Δ_i moves by Σ_i (e_i − e'_i)/(k_eff γ) — x̂ − mean_i p_i =
+     mean_i(e_i − e'_i) — within 1e-4 · the run's largest |Δ| plus the fp32
+     rounding of x̂, 2 W ulp(max|p|)/(k_eff γ).
+   - (d) bvr_l_sgd + sgd, β = 0.5, ``compress=topk:32``, ``overlap=True``
+     (rounds of 1, 2, 2, 2): fused_local_sgd 7, fused_ef_topk 4,
+     fused_fold_overlap_bvr 4 (no capture in the kernel: the EF round trip
+     writes dec into pend, which the fold has read, and pend' = x̂ + dec is
+     finished in place).  Every loss finite; Σ_i Δ_i and Σ_i B_i after the
+     last fold within 1e-4 · the largest |Δ| (|B|) plus 2 W ulp(max|pend|)/
+     (pend_k γ) per fold (Σ_i c_i = 0 holds under compression too).
+   - (e) vrl_sgd + sgd, ``--overlap``, uncompressed, through
+     ``repro_torch.launch.train`` (rounds of 1, 2, 2, 2): fused_local_sgd
+     7, fused_fold_overlap 4 (capture in the kernel).  Every logged loss
+     finite; Σ_i Δ_i ≤ 1e-4 · max|Δ| in the CLI's log.
+   - (f) local_sgd + sgd, ``overlap=True`` (rounds of 2, 2, 2, 2) at
+     ``LOCAL_OVERLAP_LR``: fused_local_sgd 8, fused_fold_overlap_avg 4.
+     Every loss finite.
    γ: the model's init rule (the reference's: fan-in taken as
    ``shape[-2]``, the head count for wq/wk) makes the first gradient grow
    with depth — ~1e12 at 24 layers — so at γ = 0.05 the activations
@@ -54,7 +80,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
    vrl_sgd and (a) run at γ = 0.001 (finite: the first sync saturates the
    sgd model, the loss sits at ln V; Adam normalises its step); (b) at
    ``EASGD_LR`` = 0.001, the largest of 1e-3, 1e-4, 1e-5 that stays
-   finite (``--easgd-lr-sweep``; all three do, PERF.md).
+   finite (``--lr-sweep``; all three do, PERF.md); (f) at
+   ``LOCAL_OVERLAP_LR``, the largest of them that stays finite (at 1e-3
+   the uncorrected workers of local SGD reach NaN one round after the
+   stale fold, PERF.md).
 5. small input — each slice at smoke size (W=2, batch 2, seq 16, rounds of
    1, 2, 2, 2, or the schedule's) on the card and on the CPU from the same
    parameters (the init with wq, wk scaled by 0.1, which keeps the
@@ -66,12 +95,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
    1e-4/(k·γ).  Adam turns gradient elements that are cancelling sums
    (fp32 noise above its eps) into ±γ steps of the noise's sign, so its
    runs are held to those tolerances on all but 1 % of the elements and
-   to 2γ per step on every element.
+   to 2γ per step on every element.  Five more slices compress or overlap:
+   vrl_sgd + int8 (the configuration ``launch.train --compress int8``
+   builds), ssgd + topk:4, easgd + int8:noef, local_sgd + overlap and
+   vrl_sgd + int8 + overlap, each side through ``round_step``.  The
+   card's GEMMs round differently, so an int8 level or a top-k pick may
+   flip between the two runs: a flip moves one element of one worker's
+   decompressed payload by one step of its row — max|row|/127 for int8,
+   the row's kth-largest |payload| for top-k (what one run keeps and the
+   other drops lies at the threshold).  So every element is held to the
+   tolerances above but at most ``FLIP_CAP`` = 16 per buffer, and those,
+   counted as flipped, each to twice the sum of its row's steps over the
+   CPU run's communications (read from each payload as the CPU run's EF
+   wrappers receive it); losses rtol 1e-4.  ssgd + topk:4 runs at
+   γ = 0.01: at 0.05 its error-feedback bursts blow the smoke model up
+   within 6 steps.
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it), and last ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import math
@@ -89,20 +133,29 @@ FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
 FULL = (4, 1_930_240, 256)      # qwen2-0.5b flat layout at W=4
 MODERATE = ((4, 65_536), (3, 1_237))   # (W, R) at C = 256
 LR = 0.05
-SOURCE = "src/repro_torch/kernels/csrc/vrl_update.cu"
-REPLACES = {"fused_local_sgd": "src/repro/kernels/vrl_update.py:152",
-            "fused_local_momentum": "src/repro/kernels/vrl_update.py:188",
-            "fused_local_adam": "src/repro/kernels/vrl_update.py:230",
-            "fused_sync_vrl": "src/repro/kernels/vrl_update.py:351",
-            "fused_sync_bvr": "src/repro/kernels/vrl_update.py:388",
-            "fused_sync_easgd": "src/repro/kernels/vrl_update.py:618"}
-KERNELS = tuple(REPLACES)
+CSRC = "src/repro_torch/kernels/csrc/"
+REF = "src/repro/kernels/vrl_update.py:"
+# kernel: (its source, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "fused_local_sgd": ("vrl_update.cu", 152),
+    "fused_local_momentum": ("vrl_update.cu", 188),
+    "fused_local_adam": ("vrl_update.cu", 230),
+    "fused_sync_vrl": ("vrl_update.cu", 351),
+    "fused_sync_bvr": ("vrl_update.cu", 388),
+    "fused_sync_easgd": ("vrl_update.cu", 618),
+    "fused_ef_int8": ("comm_update.cu", 743),
+    "fused_ef_topk": ("comm_update.cu", 755),
+    "fused_fold_overlap": ("comm_update.cu", 521),
+    "fused_fold_overlap_bvr": ("comm_update.cu", 537),
+    "fused_fold_overlap_avg": ("comm_update.cu", 546)}
+KERNELS = tuple(KERNEL_SOURCES)
 MAIN_LR = 1e-3
 MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--seq", "64", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
              "--warmup"]
 MAIN_LAUNCHES = {"fused_local_sgd": 7, "fused_sync_vrl": 4}
 EASGD_LR = 1e-3
+LOCAL_OVERLAP_LR = 1e-4
 # the two further full-width paths: VRLConfig fields, rounds, launches
 PATH_A = (dict(algorithm="bvr_l_sgd", inner_optimizer="adam", bvr_beta=0.5,
                comm_period=2, warmup=True, learning_rate=1e-3),
@@ -113,6 +166,33 @@ def path_b(lr):
     return (dict(algorithm="easgd", inner_optimizer="momentum",
                  momentum=0.9, comm_period=2, learning_rate=lr),
             (2, 2, 2, 2), {"fused_local_momentum": 8, "fused_sync_easgd": 4})
+
+
+def comm_paths():
+    """Paths (c), (d), (f): VRLConfig fields, rounds, launches."""
+    from repro_torch.comm import parse_compressor
+    return {
+        "c": (dict(algorithm="vrl_sgd", comm_period=2, warmup=True,
+                   learning_rate=MAIN_LR,
+                   compress=parse_compressor("int8")),
+              (1, 2, 2, 2), {"fused_local_sgd": 7, "fused_ef_int8": 4,
+                             "fused_sync_vrl": 4}),
+        "d": (dict(algorithm="bvr_l_sgd", bvr_beta=0.5, comm_period=2,
+                   warmup=True, learning_rate=MAIN_LR, overlap=True,
+                   compress=parse_compressor("topk:32")),
+              (1, 2, 2, 2), {"fused_local_sgd": 7, "fused_ef_topk": 4,
+                             "fused_fold_overlap_bvr": 4}),
+        "f": path_f(LOCAL_OVERLAP_LR)}
+
+
+def path_f(lr):
+    return (dict(algorithm="local_sgd", comm_period=2, learning_rate=lr,
+                 overlap=True),
+            (2, 2, 2, 2), {"fused_local_sgd": 8, "fused_fold_overlap_avg": 4})
+
+
+PATH_E_LAUNCHES = {"fused_local_sgd": 7, "fused_fold_overlap": 4}
+TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
 
 
 def nvidia_smi() -> str:
@@ -184,14 +264,50 @@ def easgd_cost(w, r, c):
     return 4 * (2 * n + rc) + 4 * 3 * rc, 3 * n + 3 * rc
 
 
+def ef_int8_cost(w, r, c):
+    """Path (c)'s operands: p, ref and e read, dec and e written."""
+    n = w * r * c
+    # sub, add, abs, max, div, rint, two clamps, mul, sub per element
+    return 4 * (4 * n + r * c), 10 * n
+
+
+def ef_topk_cost(w, r, c):
+    """Path (d)'s operands (ref = x̂_stale, e, dec into pend): the bytes of
+    int8; 31 rounds of one compare per element to find the threshold,
+    then sub, add, abs, compare, select, sub."""
+    n = w * r * c
+    return 4 * (4 * n + r * c), 37 * n
+
+
+def fold_cost(w, r, c, bufs, capture, flops):
+    """``bufs`` (W, R, C) buffers read and written in place (p, Δ, B),
+    pend read (and written with ``capture``), x̂ and wscal read once."""
+    n = w * r * c
+    return 4 * ((2 * bufs + 1 + capture) * n + r * c + 2 * w), flops * n
+
+
 COSTS = {"fused_local_sgd": local_cost, "fused_sync_vrl": sync_cost,
          "fused_local_momentum": momentum_cost, "fused_local_adam": adam_cost,
-         "fused_sync_bvr": bvr_cost, "fused_sync_easgd": easgd_cost}
+         "fused_sync_bvr": bvr_cost, "fused_sync_easgd": easgd_cost,
+         "fused_ef_int8": ef_int8_cost, "fused_ef_topk": ef_topk_cost,
+         # path (e): capture in the kernel; c, p + c, Δ + c·s₀, km·pend +
+         # (1 − km)·p'
+         "fused_fold_overlap": lambda w, r, c: fold_cost(w, r, c, 2, 1, 9),
+         # path (d): under compression the kernel does not capture
+         "fused_fold_overlap_bvr": lambda w, r, c: fold_cost(w, r, c, 3, 0,
+                                                            9),
+         # path (f): capture in the kernel
+         "fused_fold_overlap_avg": lambda w, r, c: fold_cost(w, r, c, 1, 1,
+                                                            7)}
 
 # which arguments each kernel writes in place (the rest are read only)
 INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
            "fused_local_adam": (0, 3, 4), "fused_sync_vrl": (0, 2),
-           "fused_sync_bvr": (0, 2, 3), "fused_sync_easgd": (0, 2)}
+           "fused_sync_bvr": (0, 2, 3), "fused_sync_easgd": (0, 2),
+           "fused_ef_int8": (2,), "fused_ef_topk": (2,),
+           "fused_fold_overlap": (0, 2, 3), "fused_fold_overlap_bvr": (0, 2,
+                                                                       3, 4),
+           "fused_fold_overlap_avg": (0, 2)}
 
 
 def kg_scal(k_eff, dev):
@@ -218,17 +334,21 @@ class KernelChecks:
         plain version on the originals."""
         want = _tuple(getattr(self.tu, name)(*args, **kw))
         got = _tuple(getattr(self.vu, name)(
-            *(a.clone() if i in INPLACE[name] else a
+            *(a.clone() if i in INPLACE[name] and a is not None else a
               for i, a in enumerate(args)), **kw))
         torch.cuda.synchronize()
         self.compare(name, got, want, tag)
 
     def compare(self, name, got, want, tag):
+        if len(got) != len(want) or any((g is None) != (w is None)
+                                        for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {tag}: outputs differ in kind")
+        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
         e = max((g.float() - w.float()).abs().max().item()
-                for g, w in zip(got, want))
+                for g, w in pairs)
         self.err[name] = max(self.err[name], e)
         if not all(g.dtype == w.dtype and torch.equal(g, w)
-                   for g, w in zip(got, want)):
+                   for g, w in pairs):
             raise AssertionError(f"{name} {tag}: not bitwise the plain "
                                  f"version (max abs err {e})")
         self.count += 1
@@ -237,19 +357,24 @@ class KernelChecks:
         """The kernel on each cloned (1, R, C) worker slice against the
         plain version on the same slice; ``args`` hold (W, R, C) worker
         buffers and shared operands."""
-        for i in range(args[0].shape[0]):
-            sl_args, sl_kw = worker_slice(i, args, kw)
+        w = args[0].shape[0]
+        for i in range(w):
+            sl_args, sl_kw = worker_slice(i, args, kw, w)
             self.run(name, sl_args, f"full shape, worker {i}", **sl_kw)
             del sl_args, sl_kw
             gc.collect()
 
 
-def worker_slice(i, args, kw):
+def worker_slice(i, args, kw, w):
     """Worker i's (1, R, C) slice of every (W, R, C) buffer among the
-    arguments (positional and keyword); shared operands as they are."""
+    arguments (positional and keyword), and its row of the folds' (W, 2)
+    per-worker scalars; shared operands as they are."""
     def one(a):
-        return a[i:i + 1] if isinstance(a, torch.Tensor) and a.dim() == 3 \
-            else a
+        if isinstance(a, torch.Tensor) and a.dim() == 3:
+            return a[i:i + 1]
+        if isinstance(a, torch.Tensor) and tuple(a.shape) == (w, 2):
+            return a[i:i + 1].clone()       # a 16-byte aligned copy
+        return a
     return [one(a) for a in args], {k: one(v) for k, v in kw.items()}
 
 
@@ -305,6 +430,7 @@ def moderate_checks(chk, vu, tu, dev):
             chk.run("fused_sync_easgd", (p, xbar, center),
                     f"({shape}, alpha={alpha})", a=alpha / w,
                     na=w * (alpha / w))
+        comm_checks(chk, p, g, d, b, xbar, shape)
         if (w, r) == MODERATE[0]:
             plain_moderate["fused_local_sgd"] = time_ms(
                 lambda: tu.fused_local_sgd(p, g, d, lr=LR, wd=1e-4), 5)
@@ -316,6 +442,58 @@ def moderate_checks(chk, vu, tu, dev):
     return plain_moderate
 
 
+def special_rows(p: torch.Tensor) -> torch.Tensor:
+    """Rows 0-3 of every worker set to the round trip's hard cases: ± ties
+    at the top magnitudes, all zeros, fewer non-zeros than the smallest k
+    (8), and ±1 at int8 scale 2 (every x/safe an exact .5)."""
+    x = p.clone()
+    x[:, 0] *= 0.1
+    x[:, 0, :6] = torch.tensor([3.0, -3.0, 3.0, -2.5, 2.5, 2.5])
+    x[:, 1:3] = 0.0
+    x[:, 2, :4] = torch.linspace(0.5, 1.0, 4)
+    x[:, 3] = torch.where(torch.arange(x.shape[-1], device=x.device) % 2
+                          == 1, 1.0, -1.0)
+    x[:, 3, 0] = 254.0
+    return x
+
+
+def wscal_for(w, dev, pend_k, km):
+    """The folds' (W, 2) [1/(pend_k γ), km], made as the engine makes it."""
+    pk = torch.tensor([pend_k[i % len(pend_k)] for i in range(w)],
+                      dtype=torch.float32, device=dev)
+    kmt = torch.tensor([km[i % len(km)] for i in range(w)],
+                       dtype=torch.float32, device=dev)
+    inv = torch.reciprocal(pk * LR)
+    return torch.stack([inv, kmt], dim=1).contiguous()
+
+
+def comm_checks(chk, p, g, d, b, xbar, shape):
+    """The EF round trip and the overlap fold over their variants."""
+    dev = p.device
+    x = special_rows(p)
+    e = 0.01 * g
+    for use_ref in (False, True):
+        for use_e in (False, True):
+            args = (x, xbar if use_ref else None, e if use_e else None)
+            tag = f"({shape}, ref={use_ref}, ef={use_e}"
+            chk.run("fused_ef_int8", args, tag + ")")
+            for k in (8, 64, 256):
+                chk.run("fused_ef_topk", args, f"{tag}, k={k})", k=k)
+    pend = p + 0.1 * g
+    for pend_k, km in (((1, 2, 3), (0, 1)), ((3,), (0,))):
+        ws = wscal_for(p.shape[0], dev, pend_k, km)
+        for capture in (False, True):
+            tag = f"({shape}, pend_k={pend_k}, km={km}, capture={capture}"
+            chk.run("fused_fold_overlap", (p, xbar, pend, d, ws), tag + ")",
+                    capture=capture)
+            chk.run("fused_fold_overlap_avg", (p, xbar, pend, ws),
+                    tag + ")", capture=capture)
+            for beta in (0.5, 1.0):
+                chk.run("fused_fold_overlap_bvr", (p, xbar, pend, d, b, ws),
+                        f"{tag}, beta={beta})", beta=beta,
+                        capture=capture)
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -323,7 +501,7 @@ def free() -> None:
 
 def full_shape(chk, vu, tu, dev):
     """Phase 3 at the full shape with the main paths' operands, one rule
-    for all six kernels: bitwise worker slice by worker slice, then the
+    for all eleven kernels: bitwise worker slice by worker slice, then the
     kernel's time in place on the whole buffer and the plain version's
     slice by slice.  Returns {kernel: ms}, {kernel: plain ms} and
     {kernel: library ms or None}."""
@@ -343,7 +521,7 @@ def full_shape(chk, vu, tu, dev):
         times[name] = time_ms(lambda: getattr(vu, name)(*args, **kw), 10,
                               warmup=2)
         fn = getattr(tu, name)
-        slices = [worker_slice(i, args, kw) for i in range(w)]
+        slices = [worker_slice(i, args, kw, w) for i in range(w)]
 
         def run():
             for sl_args, sl_kw in slices:
@@ -383,9 +561,43 @@ def full_shape(chk, vu, tu, dev):
     center = randn(FULL[1:])
     measure("fused_sync_easgd", (p, xbar, center), a=0.3 / w,
             na=w * (0.3 / w))
-    del p, xbar, center
+    del center
+    free()
+    # path (c)'s round trip: int8 with ref and EF; path (d)'s: top-k:32
+    # with the stale mean as ref and EF
+    p.normal_(generator=gen)
+    e, ref = randn().mul_(0.01), randn(FULL[1:])
+    measure("fused_ef_int8", (p, ref, e))
+    measure("fused_ef_topk", (p, ref, e), k=TOPK_FULL)
+    library["fused_ef_topk"] = topk_library(p, ref, e, TOPK_FULL)
+    del e, ref
+    free()
+    # the folds with their paths' operands: (e) capture, (d) bvr without
+    # capture, (f) avg with capture; pend_k = 2 and no misses, as there
+    pend, d, b = randn(), randn(), randn()
+    ws = wscal_for(w, dev, (2,), (0,))
+    measure("fused_fold_overlap", (p, xbar, pend, d, ws), capture=True)
+    measure("fused_fold_overlap_bvr", (p, xbar, pend, d, b, ws), beta=0.5,
+            capture=False)
+    measure("fused_fold_overlap_avg", (p, xbar, pend, ws), capture=True)
+    del p, xbar, pend, d, b, ws
     free()
     return times, plain, library
+
+
+def topk_library(p, ref, e, k) -> float:
+    """The partial yardstick of ``fused_ef_topk``: ``torch.topk`` of the
+    payload's magnitudes over each row (the selection alone, without the
+    payload, the threshold keep or the residual); the port never calls
+    it."""
+    a = ((p - ref) + e).abs_()
+    t = time_ms(lambda: torch.topk(a, k, dim=-1), 10, warmup=2)
+    del a
+    free()
+    print(f"[3 kernels] library for fused_ef_topk (partial: selection "
+          f"only): torch.topk(|payload|, {k}, dim=-1) {t:.3f} ms",
+          flush=True)
+    return t
 
 
 def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
@@ -418,6 +630,38 @@ def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
     return t
 
 
+def cli_path(tag, argv, want_launches, launch, vu):
+    """A full-width path through ``repro_torch.launch.train``: launch
+    counts, finite logged losses, the flat layout, and Σ_i Δ_i after the
+    last sync (or fold) against the largest |Δ| the run logged (its first
+    sync's, here: the fp32 rounding residue of each sync stays in Σ Δ after
+    Δ itself shrinks)."""
+    torch.cuda.reset_peak_memory_stats()
+    vu.reset_launches()
+    res = launch.run(argv)
+    launches = dict(vu.LAUNCHES)
+    check_launches(tag, launches, want_launches)
+    logged = res.losses + res.avg_model_losses
+    if not all(math.isfinite(x) for x in logged):
+        raise AssertionError(f"path {tag}: non-finite loss {logged}")
+    _, sum_d, _ = res.invariant[-1]
+    max_d = max(m for _, _, m in res.invariant)
+    if not (max_d > 0 and sum_d <= 1e-4 * max_d):
+        raise AssertionError(f"path {tag}: Σ_i Δ_i not ~0 after the last "
+                             f"sync: max|ΣΔ| {sum_d} vs max|Δ| {max_d}")
+    spec = res.engine.spec
+    if (spec.size, spec.rows, spec.lanes) != (494_032_768, 1_930_240, 256):
+        raise AssertionError(f"unexpected flat layout {spec.meta()}")
+    out = path_result(tag, res.losses, res.wall_s, res.phases_ms, launches,
+                      MAIN_LR)
+    print_path(out, f"; avg-model "
+               f"{['%.4f' % x for x in res.avg_model_losses]}; max|ΣΔ| "
+               f"{sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}")
+    del res
+    free()
+    return out
+
+
 def check_launches(tag, launches, want_launches):
     want = {k: 0 for k in launches}
     want.update(want_launches)
@@ -426,11 +670,14 @@ def check_launches(tag, launches, want_launches):
                              f"{want}")
 
 
-def path_result(tag, losses, wall_s, phases, launches, lr, w=4, **extra):
-    """What print_path reads from one full-width path."""
+def path_result(tag, losses, wall_s, phases, launches, lr, w=4, peak=None,
+                **extra):
+    """What print_path reads from one full-width path; ``peak``: bytes
+    allocated at most (default: since the last reset of the peak)."""
+    peak = torch.cuda.max_memory_allocated() if peak is None else peak
     return dict(tag=tag, losses=losses, wall_ms=1e3 * wall_s / len(losses),
                 steady={k: float(np.mean(v[1:])) for k, v in phases.items()},
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                peak_gib=peak / 2 ** 30,
                 launches={k: v for k, v in launches.items() if v}, lr=lr,
                 w=w, **extra)
 
@@ -456,13 +703,47 @@ def easgd_sync_check(chk, tu):
     return check
 
 
+def ef_identity_watch(state):
+    """Path (c), before a round: Σ_i Δ_i, Σ_i e_i, max|Δ| and max|p|;
+    returns what reads the round's sync after it: how far Σ_i Δ_i's move
+    stands from Σ_i (e_i − e'_i)/(k_eff γ) (x̂ − mean_i p_i = mean_i(e_i −
+    e'_i)), against the fp32 rounding of the sync: 1e-4 · the larger
+    max|Δ| before or after it (Δ + u rounds at the scale of both) plus 2 W
+    ulp(max|p|)/(k_eff γ) (x̂ rounded once more)."""
+    # the two (R, C) sums wait on the host, outside the round's peak memory
+    sum_d0 = state.delta.sum(dim=0).cpu()
+    sum_e0 = state.comm.resid.sum(dim=0).cpu()
+    max_p0 = state.params.abs().max().item()
+    max_d0 = state.delta.abs().max().item()
+
+    def after(state, rk):
+        dev = state.delta.device
+        term = ((sum_e0.to(dev) - state.comm.resid.sum(dim=0))
+                / (rk * MAIN_LR))
+        moved = state.delta.sum(dim=0) - sum_d0.to(dev)
+        off = (moved - term).abs().max().item()
+        max_p = max(max_p0, state.params.abs().max().item())
+        max_d = max(max_d0, state.delta.abs().max().item())
+        w = state.params.shape[0]
+        limit = (1e-4 * max_d + 2 * w * float(np.spacing(np.float32(max_p)))
+                 / (rk * MAIN_LR))
+        if not off <= limit:
+            raise AssertionError(f"path (c): Σ_i Δ_i moved {off} away from "
+                                 f"the EF term (limit {limit})")
+        return {"ef_term": term.abs().max().item(), "off": off,
+                "limit": limit}
+    return after
+
+
 def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
-               require_finite=True, after=None):
+               require_finite=True, after=None, watch=None):
     """One full-width qwen2-0.5b path through ``make_train_step(timed=
     True)`` and ``round_step``, W=4, batch 8, seq 64, on the synthetic
     non-iid stream; the launch counters are zeroed just before the rounds
-    and read just after.  ``after(bundle, state, vrl)`` then checks the
-    final state and returns a note.  Returns what was measured."""
+    and read just after.  ``watch(state)``, before each round and outside
+    its timing, returns a check ``(state, k) -> record`` of the round's
+    sync.  ``after(bundle, state, vrl)`` then checks the final state and
+    returns a note.  Returns what was measured."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import VRLConfig
     from repro_torch.core import engine as engine_mod
@@ -477,17 +758,25 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     data = assigned_token_stream(contiguous_assignment(w, w), 64,
                                  cfg.vocab_size, steps=steps, batch=8,
                                  alpha=0.05, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     vu.reset_launches()
-    losses, wall, inv, t = [], 0.0, [], 0
+    losses, wall, inv, t, watched, peak = [], 0.0, [], 0, [], 0
     for rk in rounds:
         toks = torch.from_numpy(data[t:t + rk]).to(dev, torch.long)
+        check = watch(state) if watch is not None else None
+        ov = state.overlap
+        # under overlap the round's fold averages pend over pend_k steps
+        before = ((ov.pend.abs().max().item(), ov.pend_k.max().item())
+                  if ov != () else (0.0, rk))
+        # the peak of the rounds alone: the checks between them make
+        # (W, R, C) temporaries of their own
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, lk = bundle.round_step(state, toks,
                                       torch.roll(toks, -1, dims=-1))
         torch.cuda.synchronize()
         wall += time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated())
         t += rk
         losses += lk.tolist()
         # outside the timed round: Σ_i Δ_i, Σ_i B_i and max|p| after it
@@ -495,15 +784,18 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
                     for name, buf in (("delta", state.delta),
                                       ("bias", state.bias))
                     if isinstance(buf, torch.Tensor)})
-        inv[-1]["max_p"] = state.params.abs().max().item()
-        inv[-1]["k"] = rk
+        inv[-1]["max_p"] = max(state.params.abs().max().item(), before[0])
+        inv[-1]["k"] = before[1]
+        if check is not None:
+            watched.append(check(state, rk))
     launches = dict(vu.LAUNCHES)
     check_launches(tag, launches, want_launches)
     finite = all(math.isfinite(x) for x in losses)
     if require_finite and not finite:
         raise AssertionError(f"path {tag}: non-finite loss {losses}")
     out = path_result(tag, losses, wall, bundle.timer.ms(), launches,
-                      vrl.learning_rate, w, inv=inv, finite=finite)
+                      vrl.learning_rate, w, peak=peak, inv=inv,
+                      finite=finite, watched=watched)
     out["note"] = after(bundle, state, vrl) if after is not None else ""
     del bundle, state
     free()
@@ -516,7 +808,8 @@ def check_sums(res) -> str:
     fp32 mean of W values is within 2 ulp(max|p|) of the exact mean (the
     sum's roundings and the division's), and Σ_i (x̂ − p_i)/(k_eff γ)
     keeps W times that: 2 W ulp(max|p|)/(k_eff γ), summed over the
-    syncs."""
+    syncs (under overlap: the fold's Σ_i (x̂_stale − pend_i)/(pend_k γ),
+    with max|pend| and pend_k)."""
     rounding = sum(2 * res["w"] * float(np.spacing(np.float32(r["max_p"])))
                    / (r["k"] * res["lr"]) for r in res["inv"])
     notes = []
@@ -533,18 +826,38 @@ def check_sums(res) -> str:
     return "; ".join(notes)
 
 
+SPAN_NAMES = {"fwd_bwd": "fwd/bwd (4 workers) {:.2f}/step",
+              "local": "local update {:.3f}/step",
+              "sync": "worker mean + sync {:.3f}/round",
+              "round_begin": "round_begin (mean over pend) {:.3f}/round",
+              "fold": "fold + capture {:.3f}/round"}
+
+
+def wire_note(vrl_kw) -> str:
+    """The compressed path's sync wire bytes per worker against the raw
+    flat buffer (``comm.compressors.wire_bytes``: computed from the
+    layout, one card has no wire to measure)."""
+    from repro_torch.comm import compressors as comm_mod
+    rows, lanes, size = FULL[1], FULL[2], 494_032_768
+    raw = comm_mod.raw_bytes(rows, lanes)
+    wire = comm_mod.wire_bytes(vrl_kw["compress"], rows=rows, lanes=lanes,
+                               size=size)
+    return (f"; sync wire {wire / 2**20:.2f} MiB per worker vs raw "
+            f"{raw / 2**20:.2f} MiB ({raw / wire:.2f}x)")
+
+
 def print_path(res, extra=""):
     s = res["steady"]
     print(f"[4 main path {res['tag']}] qwen2-0.5b full width, W=4, "
           f"γ={res['lr']}: {len(res['losses'])} steps, launches "
           f"{res['launches']}; losses "
           f"{['%.4f' % x for x in res['losses']]}{extra}", flush=True)
+    spans = ", ".join(fmt.format(s[k]) for k, fmt in SPAN_NAMES.items()
+                      if k in s)
     print(f"[4 main path {res['tag']}] step wall {res['wall_ms']:.1f} ms "
           f"(mean of {len(res['losses'])}, first included); device ms, "
-          f"mean after the first: fwd/bwd (4 workers) {s['fwd_bwd']:.2f}/"
-          f"step, local update {s['local']:.3f}/step, worker mean + sync "
-          f"{s['sync']:.3f}/round; peak memory {res['peak_gib']:.1f} GiB",
-          flush=True)
+          f"mean after the first: {spans}; peak memory "
+          f"{res['peak_gib']:.1f} GiB", flush=True)
 
 
 SMALL_PAIRS = [  # (algorithm, inner optimizer, moment dtype)
@@ -625,6 +938,152 @@ def small_input_agreement(dev) -> None:
               f"{len(l_c)} steps, rounds {list(rounds)}, card vs CPU: "
               f"losses max rel diff {np.abs(l_g / l_c - 1).max():.2e}, "
               + ", ".join(notes), flush=True)
+    comm_small_input(dev, cfg, params, data, w, k, steps)
+
+
+SMOKE_ARGS = ["--smoke", "--workers", "2", "--k", "2", "--lr", str(LR),
+              "--warmup"]
+
+
+def comm_slices():
+    """(label, VRLConfig) of the compressed and overlapped smoke slices;
+    the first is what ``launch.train --compress int8`` builds."""
+    from repro_torch.comm import parse_compressor
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.launch import train as launch
+
+    def cfg(alg, compress=None, overlap=False, lr=LR):
+        return VRLConfig(algorithm=alg, comm_period=2, learning_rate=lr,
+                         warmup=True, overlap=overlap,
+                         compress=(None if compress is None
+                                   else parse_compressor(compress)))
+    return [("vrl_sgd+int8 (launch.train --compress int8)",
+             launch.vrl_config(launch.parse_args(
+                 SMOKE_ARGS + ["--compress", "int8"]))),
+            # at γ = 0.05 top-k S-SGD's error-feedback bursts blow the smoke
+            # model up by step 6 (loss 6.3 → 32): a run of huge payloads
+            # whose flip bound would hold nothing
+            ("ssgd+topk:4, γ=0.01", cfg("ssgd", "topk:4", lr=0.01)),
+            ("easgd+int8:noef", cfg("easgd", "int8:noef")),
+            ("local_sgd+overlap", cfg("local_sgd", overlap=True)),
+            ("vrl_sgd+int8+overlap", cfg("vrl_sgd", "int8", overlap=True))]
+
+
+# flipped elements one compared buffer may hold (up to 2 measured; a
+# planted fault — the residual zeroed, one lane too many kept — flips
+# hundreds)
+FLIP_CAP = 16
+
+
+def row_steps(comp, p, ref, e) -> np.ndarray:
+    """Per row, the most one flipped decision moves an element of the
+    decompressed payload (p − ref) + e, the largest over workers, as an
+    (R, 1) array: one int8 level, max|row|/127; one top-k pick, the row's
+    kth-largest |x|."""
+    from repro_torch.comm import topk_k
+    x = p - ref if ref is not None else p.clone()
+    if e is not None:
+        x = x + e
+    a = x.abs()
+    if comp.name == "int8":
+        step = a.amax(dim=-1) / 127.0
+    else:
+        step = a.topk(topk_k(comp, a.shape[-1]), dim=-1).values[..., -1]
+    return step.amax(dim=0).unsqueeze(-1).double().numpy()
+
+
+@contextlib.contextmanager
+def recording_payloads(vu, comp, steps):
+    """Within: the EF wrappers append each round trip's ``row_steps`` to
+    ``steps`` before they run it; an engine built here keeps them."""
+    names = ("fused_ef_int8", "fused_ef_topk")
+    saved = {n: getattr(vu, n) for n in names}
+
+    def recording(fn):
+        def ef(p, ref, e, **kw):
+            steps.append(row_steps(comp, p, ref, e))
+            return fn(p, ref, e, **kw)
+        return ef
+    for n in names:
+        setattr(vu, n, recording(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(vu, n, fn)
+
+
+def comm_small_input(dev, cfg, params, data, w, k, steps):
+    """The compressed and overlapped slices, card against CPU, both
+    through ``round_step``: every element within the uncompressed slices'
+    tolerances but at most ``FLIP_CAP`` per buffer, those within twice the
+    summed row step of the CPU run's communications; losses rtol 1e-4."""
+    from repro_torch import tree as tm
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels import vrl_update as vu
+    from repro_torch.train.train_loop import make_train_step
+
+    for label, vrl in comm_slices():
+        sched = engine_mod.comm_schedule(vrl)
+        algo = engine_mod.get_spec(vrl.algorithm)
+        rounds = (sched.round_sizes(steps) if sched is not None
+                  else (1, k, k, k) if algo.warmup_aware else (k, k, k))
+        comp, rows = vrl.compress, []
+        runs = {}
+        for where in ("cpu", dev):
+            if where == "cpu" and comp is not None:
+                with recording_payloads(vu, comp, rows):
+                    bundle = make_train_step(cfg, vrl, device=where)
+            else:
+                bundle = make_train_step(cfg, vrl, device=where)
+            state = bundle.engine.init(
+                tm.tree_map(lambda x: x.to(where), params), w)
+            losses, t = [], 0
+            for rk in rounds:
+                toks = torch.from_numpy(data[t:t + rk]).to(where).long()
+                state, lk = bundle.round_step(state, toks,
+                                              torch.roll(toks, -1, dims=-1))
+                losses += lk.tolist()
+                t += rk
+            bufs = {"params": state.params, "delta": state.delta,
+                    "bias": state.bias, "center": state.center}
+            if state.overlap != ():
+                bufs["pend"] = state.overlap.pend
+            if state.comm != ():
+                bufs["resid"], bufs["ref"] = state.comm
+            runs[str(where)] = (np.array(losses), {
+                n: b.float().cpu().numpy() for n, b in bufs.items()
+                if isinstance(b, torch.Tensor)})
+        (l_c, s_c), (l_g, s_g) = runs["cpu"], runs[str(dev)]
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+        # S-SGD's flips move a gradient, so its parameters by γ times it
+        resid_b = 2 * sum(rows) if rows else 0.0
+        param_b = resid_b * (vrl.learning_rate if algo.grad_all_reduce
+                             else 1.0)
+        notes = []
+        for name in s_c:
+            scale = 1 / (k * vrl.learning_rate) if name in ("delta",
+                                                            "bias") else 1
+            fb = np.broadcast_to(scale * (resid_b if name == "resid"
+                                          else param_b), s_c[name].shape)
+            diff = np.abs(s_g[name] - s_c[name])
+            flipped = diff > 1e-4 * scale
+            n, cap = int(flipped.sum()), FLIP_CAP
+            if n > cap or not np.all(diff[flipped] <= fb[flipped]):
+                raise AssertionError(
+                    f"small input {label}: {name} differs by {diff.max()} "
+                    f"at {n} elements beyond atol {1e-4 * scale} (at most "
+                    f"{cap} may flip, each within its row's flip bound, "
+                    f"largest {fb.max()})")
+            notes.append(f"{name} max diff {diff.max():.2e}, {n} flipped "
+                         f"(cap {cap})")
+        print(f"[5 small input] {label}: {len(l_c)} steps, rounds "
+              f"{list(rounds)}, card vs CPU: losses max rel diff "
+              f"{np.abs(l_g / l_c - 1).max():.2e}, {len(rows)} compressed "
+              f"communications, row flip bound max "
+              f"{np.max(param_b):.2e} / median {np.median(param_b):.2e} "
+              f"(resid max {np.max(resid_b):.2e}), " + ", ".join(notes),
+              flush=True)
 
 
 def main() -> int:
@@ -651,17 +1110,19 @@ def main() -> int:
     t0 = time.time()
     build.build_all()
     vu._lib()
+    vu._comm_lib()
     print(f"[2 build] {', '.join(build.SOURCES)} built and loaded in "
           f"{time.time() - t0:.1f}s", flush=True)
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if "--easgd-lr-sweep" in sys.argv[1:]:
-        for lr in (1e-3, 1e-4, 1e-5):
-            res = train_path(f"(b) γ={lr}", *path_b(lr), dev, vu,
-                             require_finite=False)
-            print_path(res, f"; finite: {res['finite']}")
+    if "--lr-sweep" in sys.argv[1:]:
+        for tag, path in (("b", path_b), ("f", path_f)):
+            for lr in (1e-3, 1e-4, 1e-5):
+                res = train_path(f"({tag}) γ={lr}", *path(lr), dev, vu,
+                                 require_finite=False)
+                print_path(res, f"; finite: {res['finite']}")
         return 0
 
     # ------------------------------------------------------ 3 kernels
@@ -684,41 +1145,37 @@ def main() -> int:
     print(f"[3 kernels] {chk.count} bitwise checks in all", flush=True)
 
     # ------------------------------------------------------ 4 main paths
-    torch.cuda.reset_peak_memory_stats()
-    vu.reset_launches()
-    res = launch.run(MAIN_ARGS)
-    launches = dict(vu.LAUNCHES)
-    check_launches("vrl_sgd+sgd", launches, MAIN_LAUNCHES)
-    logged = res.losses + res.avg_model_losses
-    if not all(math.isfinite(x) for x in logged):
-        raise AssertionError(f"non-finite loss on the main path: {logged}")
-    # Σ_i Δ_i after the last sync, against the largest |Δ| the run logged
-    # (its first sync's, here): the fp32 rounding residue of each sync
-    # stays in Σ Δ after Δ itself shrinks
-    _, sum_d, _ = res.invariant[-1]
-    max_d = max(m for _, _, m in res.invariant)
-    if not (max_d > 0 and sum_d <= 1e-4 * max_d):
-        raise AssertionError(f"Σ_i Δ_i not ~0 after the last sync: "
-                             f"max|ΣΔ| {sum_d} vs max|Δ| {max_d}")
-    spec = res.engine.spec
-    if (spec.size, spec.rows, spec.lanes) != (494_032_768, 1_930_240, 256):
-        raise AssertionError(f"unexpected flat layout {spec.meta()}")
-    res_v = path_result("vrl_sgd+sgd", res.losses, res.wall_s,
-                        res.phases_ms, launches, MAIN_LR)
-    print_path(res_v, f"; avg-model "
-               f"{['%.4f' % x for x in res.avg_model_losses]}; max|ΣΔ| "
-               f"{sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}")
-    del res
-    free()
-
+    res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
     res_a = train_path("(a) bvr_l_sgd+adam", *PATH_A, dev, vu)
     print_path(res_a, "; " + check_sums(res_a))
     res_b = train_path("(b) easgd+momentum", *path_b(EASGD_LR), dev, vu,
                        after=easgd_sync_check(chk, tu))
     print_path(res_b, res_b["note"])
-    main_launches = dict(res_v["launches"])
-    for res_p in (res_a, res_b):
-        main_launches.update(res_p["launches"])
+    paths = comm_paths()
+    res_c = train_path("(c) vrl_sgd+sgd, int8", *paths["c"], dev, vu,
+                       watch=ef_identity_watch)
+    worst = max(res_c["watched"], key=lambda r: r["off"] / r["limit"])
+    if not any(r["ef_term"] > 10 * r["limit"] for r in res_c["watched"]):
+        raise AssertionError(f"path (c): the EF term never stands above the "
+                             f"rounding: {res_c['watched']}")
+    print_path(res_c, wire_note(paths["c"][0])
+               + f"; at each of the {len(res_c['watched'])} syncs Σ_i "
+               f"Δ_i moved by the EF term Σ_i (e_i − e'_i)/(k γ) (largest "
+               f"{max(r['ef_term'] for r in res_c['watched']):.3e}) to "
+               f"within {worst['off']:.3e} <= {worst['limit']:.3e}")
+    res_d = train_path("(d) bvr_l_sgd+sgd, topk:32, overlap", *paths["d"],
+                       dev, vu)
+    print_path(res_d, wire_note(paths["d"][0]) + "; after the last fold "
+               + check_sums(res_d))
+    res_e = cli_path("(e) vrl_sgd+sgd, --overlap", MAIN_ARGS + ["--overlap"],
+                     PATH_E_LAUNCHES, launch, vu)
+    res_f = train_path("(f) local_sgd+sgd, overlap", *paths["f"], dev, vu)
+    print_path(res_f)
+    # each kernel's launches on the first path that runs it
+    main_launches = {}
+    for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f):
+        for name, n in res_p["launches"].items():
+            main_launches.setdefault(name, n)
 
     # ------------------------------------------------------ 5 small input
     small_input_agreement(dev)
@@ -726,8 +1183,9 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         b, by = bounds[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
+        src, line = KERNEL_SOURCES[name]
+        kernels.append({"name": name, "route": "cuda", "source": CSRC + src,
+                        "replaces": f"{REF}{line}",
                         "launches": main_launches[name],
                         "max_abs_err": chk.err[name], "ms": times[name],
                         "plain_ms": plain[name], "bound_ms": b,

@@ -120,6 +120,27 @@ class VRLConfig:
     # Supersedes ``warmup`` when set.
     comm_schedule: Optional[object] = None
     delta_dtype: str = "float32"    # accumulator dtype for Δ
+    # sync-payload compression (a ``comm.CompressorSpec``; stored untyped
+    # to keep configs import-free).  ``compress`` drives the flat sync;
+    # ``compress2`` overrides the hierarchy's cross-pod sync and falls back
+    # to ``compress`` when unset; the hierarchy is not ported, so the port's
+    # engine refuses it (the reference's flat algorithms ignore it).  None
+    # / "none" / topk at rate 1 resolve to the uncompressed path, bitwise
+    # (``comm.compressors.resolve_pair``).
+    compress: Optional[object] = None
+    compress2: Optional[object] = None
+    # overlapped rounds: issue the sync's worker mean at round START over
+    # the positions transmitted at the previous round boundary, so it can
+    # run while the round's local steps do, and fold its result in one
+    # round stale (Δ is already a previous-round quantity, so the
+    # staleness rides the existing math).  Round driver only
+    # (``round_step``); the per-step ``train_step`` stays blocking.
+    overlap: bool = False
+    # straggler deadline: the probability in [0, 1] that a worker misses a
+    # round's capture deadline.  The reference draws the misses with
+    # jax.random, whose bits the port cannot reproduce: any value > 0
+    # raises NotImplementedError (ROADMAP).  Requires ``overlap=True``.
+    deadline: float = 0.0
     engine: EngineConfig = EngineConfig()
 
 

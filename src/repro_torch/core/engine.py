@@ -16,22 +16,37 @@ On one device the worker axis is the leading buffer dimension, and the
 worker mean — on a cluster, the one all-reduce per round — is a
 ``torch.mean`` over it.
 
+Compressed sync (``cfg.compress``, ``comm/compressors``): every sync
+first runs one fused EF round trip over the payload's drift against the
+shared reference ``ref`` (``fused_ef_{int8,topk}``), and the worker mean
+runs over the decompressed drift: x̂ = ref + mean_i(dec_i).  S-SGD
+compresses its per-step gradient mean instead (ref ≡ 0).
+
+Overlapped rounds (``cfg.overlap``): ``round_begin`` takes the worker mean
+of the positions every worker transmitted at the previous round boundary
+(``OverlapState.pend``), the round's k local steps run, and ``round_fold``
+folds the one-round-stale mean in (``fused_fold_overlap{,_bvr,_avg}``) and
+captures the new positions, through the EF round trip under compression.
+
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
-stl_sgd, bvr_l_sgd) with the sgd, momentum and adam inner optimizers;
-hier_vrl_sgd and SM3-factored Adam are still to be ported (ROADMAP
-Queue 1), and asking for either raises.
+stl_sgd, bvr_l_sgd) with the sgd, momentum and adam inner optimizers, with
+or without compression and overlap; hier_vrl_sgd, SM3-factored Adam and
+overlap deadlines and ``compress2`` (the hierarchy's) are still to be
+ported (ROADMAP Queue 1), and asking for any of them raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs.base import VRLConfig
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
-from repro_torch.core.types import FlatWorkerState
+from repro_torch.core.types import CommState, FlatWorkerState, OverlapState
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
 
@@ -146,6 +161,44 @@ def sum_invariant(buf: torch.Tensor) -> Tuple[float, float]:
     return (buf.sum(dim=0).abs().max().item(), buf.abs().max().item())
 
 
+def _ef_op(comp: comm_mod.CompressorSpec, lanes: int) -> Callable:
+    """The EF round-trip kernel for one compressor: (payload buffer, ref,
+    resid, out=) -> (dec fp32, resid'), resid' in place."""
+    if comp.name == "int8":
+        return vu.fused_ef_int8
+    return functools.partial(vu.fused_ef_topk, k=comm_mod.topk_k(comp, lanes))
+
+
+def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
+    """Reject what the overlapped round cannot honour (the reference's
+    checks, then the port's own: deadlines are not ported)."""
+    if not cfg.overlap:
+        if cfg.deadline:
+            raise ValueError(
+                "deadline is a property of the overlapped round; set "
+                "overlap=True (--overlap) to use it")
+        return
+    if algo.sync in ("none", "elastic"):
+        raise ValueError(
+            f"overlap defers a mean-style round-closing sync; "
+            f"{algo.name!r} (sync={algo.sync!r}) has none to defer")
+    if not 0.0 <= cfg.deadline <= 1.0:
+        raise ValueError(
+            f"deadline is a per-round miss probability in [0, 1]; got "
+            f"{cfg.deadline}")
+    if cfg.deadline and comp is not None and not comp.error_feedback:
+        raise ValueError(
+            "deadline misses park the skipped payload in the EF residual; "
+            "the overlapped sync's compressor needs error_feedback=True")
+    if cfg.deadline:
+        # the reference draws the misses with jax.random (a bit stream the
+        # port cannot reproduce); the fold kernel takes the miss column
+        # all the same
+        raise NotImplementedError(
+            "overlap deadlines (deadline > 0) are not ported to PyTorch yet; "
+            "see ROADMAP.md Queue 1")
+
+
 _ADAM_B1, _ADAM_B2 = opt_mod.ADAM_B1, opt_mod.ADAM_B2
 _MOMENT_DTYPES = ("float32", "bfloat16")
 
@@ -180,12 +233,19 @@ class Engine(NamedTuple):
     init: Callable              # (params_tree, num_workers) -> state
     train_step: Callable        # (state, grads) -> state
     local_step: Callable        # (state, grads) -> state
-    sync: Callable              # (state,) -> state
+    sync: Callable              # (state, out=None) -> state
     average_model: Callable     # (state,) -> single-model tree
     params_tree: Callable       # (state,) -> worker-stacked params tree (views)
     round_step: Callable        # (state, grads_k) -> state: k local steps + sync
     round_end: Callable         # (state,) -> state: the round-closing sync
     round_step_flat: Callable   # (state, gk) -> state over (k, W, R, C) grads
+    round_begin: Any = None     # overlap only: (state,) -> x̂_stale, the
+                                # round-START worker mean over pend; None
+                                # when overlap is off (callers dispatch on
+                                # that)
+    round_fold: Any = None      # overlap only: (state, x̂_stale) -> state,
+                                # the round-END stale fold and capture
+    compressors: Any = (None, None)  # resolved (level-1, level-2) specs
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
@@ -203,6 +263,17 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     lr, wd = cfg.learning_rate, cfg.weight_decay
     delta_dt = flat.dtype_of(cfg.delta_dtype)
     bias_on = use_bias(algo, cfg)
+    if cfg.compress2 is not None:
+        # the reference's flat algorithms ignore it; refused here rather
+        # than carried as an option that does nothing
+        raise NotImplementedError(
+            "compress2 compresses the hierarchy's cross-pod sync, and "
+            "hier_vrl_sgd is not ported to PyTorch yet; see ROADMAP.md "
+            "Queue 1")
+    comp, comp2 = comm_mod.resolve_pair(cfg)
+    _validate_overlap(cfg, algo, comp)
+    ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
+    ef_on = comp is not None and comp.error_feedback
 
     def _wmean(buf: torch.Tensor) -> torch.Tensor:
         """Worker mean of a (W, R, C) buffer -> (R, C): on one device a
@@ -230,18 +301,40 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             inner = zeros(mdt)
         else:
             inner = opt_mod.AdamState(zeros(mdt), zeros(mdt), 0)
+        comm = ()
+        if comp is not None:
+            # fp32 residuals keep the EF invariant exact; ref is the shared
+            # post-sync value, () for S-SGD's gradient compression
+            ref = (() if (algo.grad_all_reduce or algo.sync == "none")
+                   else flat1.to(torch.float32, copy=True))
+            comm = CommState(resid=zeros(torch.float32) if ef_on else (),
+                             ref=ref)
+        overlap = ()
+        if cfg.overlap:
+            # pend = the initial broadcast position (everyone "transmitted"
+            # x0 before step 0), so the first fold's correction is exactly
+            # zero; pend_k = 1 keeps its Δ scale finite
+            overlap = OverlapState(
+                pend=stacked.to(torch.float32, copy=True),
+                pend_k=torch.ones((num_workers, 1, 1), dtype=torch.float32,
+                                  device=stacked.device))
         return FlatWorkerState(
             params=stacked, delta=zeros(delta_dt) if algo.use_delta else (),
             step=0, last_sync=0, inner=inner,
             center=(flat1.to(torch.float32, copy=True) if algo.has_center
                     else ()),
-            bias=zeros(delta_dt) if bias_on else ())
+            bias=zeros(delta_dt) if bias_on else (), comm=comm,
+            overlap=overlap)
 
     def local_step(state: FlatWorkerState, grads: Any) -> FlatWorkerState:
         """One local step.  S-SGD first overwrites the (W, R, C) gradient
-        buffer with its worker mean, in place (no second W× buffer)."""
+        buffer with its worker mean, in place (no second W× buffer); under
+        compression the gradient is the payload (ref ≡ 0), its EF round
+        trip written over the buffer before the mean."""
         g = _gbuf(grads)
         if algo.grad_all_reduce:
+            if comp is not None:
+                ef_rt(g, None, state.comm.resid if ef_on else None, out=g)
             g.copy_(_wmean(g).unsqueeze(0).expand_as(g))
         p = state.params
         d = state.delta if algo.use_delta else None
@@ -264,7 +357,25 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             out = out._replace(last_sync=state.step + 1)
         return out
 
-    def sync(state: FlatWorkerState) -> FlatWorkerState:
+    def comp_mean(state: FlatWorkerState, out: Optional[torch.Tensor]):
+        """The compressed worker mean: one EF round trip over the drift
+        (payload = p − ref + resid → dec, resid' in place), then the mean
+        of the decompressed drift.  ref is shared by every worker, so
+        x̂ = ref + mean_i(dec_i) reconstructs mean_i(p_i) up to the
+        compression error; x̂ becomes the next ref.  dec goes into ``out``
+        when given, else into a new (W, R, C) buffer."""
+        cm = state.comm
+        dec, _ = ef_rt(state.params, cm.ref, cm.resid if ef_on else None,
+                       out=out)
+        xbar = cm.ref + _wmean(dec)
+        return xbar, state._replace(comm=cm._replace(ref=xbar))
+
+    def sync(state: FlatWorkerState,
+             out: Optional[torch.Tensor] = None) -> FlatWorkerState:
+        """The round-closing sync.  ``out``: a dead (W, R, C) fp32 buffer
+        (the last step's gradients) that a compressed sync may write its
+        decompressed payload over; its pad lanes stay zero, since the
+        payload's do."""
         p = state.params
         if algo.sync == "none":
             return state._replace(last_sync=state.step)
@@ -272,11 +383,17 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             n = p.shape[0]
             a = cfg.easgd_alpha / n
             # x̂ of the PRE-sync parameters, before the worker pass
-            xbar = _wmean(p.to(torch.float32))
+            if comp is not None:
+                xbar, state = comp_mean(state, out)
+            else:
+                xbar = _wmean(p.to(torch.float32))
             vu.fused_sync_easgd(p, xbar, state.center, a=a, na=n * a,
                                 block=fspec.block)
             return state._replace(last_sync=state.step)
-        xbar = _wmean(p)
+        if comp is not None:
+            xbar, state = comp_mean(state, out)
+        else:
+            xbar = _wmean(p)
         if algo.sync == "average":
             p.copy_(xbar.unsqueeze(0).expand_as(p))
             return state._replace(last_sync=state.step)
@@ -300,23 +417,64 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             state = sync(state)
         return state
 
-    def round_step_flat(state: FlatWorkerState,
-                        gk: torch.Tensor) -> FlatWorkerState:
-        """k local steps over a (k, W, R, C) grads buffer, then the
-        round-closing sync.  The round IS the communication period — the
-        caller sizes gk (warmup's first k=1 period is a 1-step round, a
-        CommSchedule sizes each round from its stage)."""
-        for g in gk:
-            state = local_step(state, g)
-        return sync(state)
+    def round_begin(state: FlatWorkerState) -> torch.Tensor:
+        """The overlapped round's START: the worker mean of the positions
+        transmitted at the previous boundary (its operands are ready before
+        the round's local steps, so on a cluster the all-reduce can run
+        while they do)."""
+        return _wmean(state.overlap.pend)
+
+    def round_fold(state: FlatWorkerState,
+                   xbar: torch.Tensor) -> FlatWorkerState:
+        """The overlapped round's END: fold c = x̂_stale − pend into the
+        parameters, Δ (and B), then capture the new positions for the next
+        round's mean — in the fold kernel, or, under compression, as the
+        transmitted position x̂_stale + dec of the EF round trip of the
+        folded parameters' drift against x̂_stale."""
+        ov = state.overlap
+        p = state.params
+        k_eff = max(state.step - state.last_sync, 1)
+        inv = torch.reciprocal(ov.pend_k[:, :, 0] * lr)        # (W, 1)
+        # no worker misses its capture deadline: deadlines are not ported
+        wscal = torch.cat([inv, torch.zeros_like(inv)], dim=1)
+        capture = comp is None
+        xb = xbar.to(p.dtype)
+        if algo.sync == "average":
+            vu.fused_fold_overlap_avg(p, xb, ov.pend, wscal, capture=capture,
+                                      block=fspec.block)
+        elif algo.sync == "bvr" and bias_on:
+            vu.fused_fold_overlap_bvr(p, xb, ov.pend, state.delta,
+                                      state.bias, wscal, beta=cfg.bvr_beta,
+                                      capture=capture, block=fspec.block)
+        else:
+            vu.fused_fold_overlap(p, xb, ov.pend, state.delta, wscal,
+                                  capture=capture, block=fspec.block)
+        if comp is not None:
+            # pend is dead once the fold has read it: the round trip writes
+            # dec there and pend' = x̂_stale + dec is finished in place
+            ef_rt(p, xbar, state.comm.resid if ef_on else None, out=ov.pend)
+            ov.pend.add_(xbar)
+            state = state._replace(comm=state.comm._replace(ref=xbar))
+        ov.pend_k.fill_(float(k_eff))
+        return state._replace(last_sync=state.step)
 
     def round_step(state: FlatWorkerState, grads_k: Any) -> FlatWorkerState:
-        """``round_step_flat`` over a grads tree with (k, W, ...) leaves."""
-        k = tree_mod.leaves(grads_k)[0].shape[0]
-        for i in range(k):
-            state = local_step(state, tree_mod.tree_map(
-                lambda x: x[i], grads_k))
-        return sync(state)
+        """k local steps over a (k, W, R, C) grads buffer or a grads tree
+        with (k, W, ...) leaves, closed by the round's sync (under overlap:
+        opened by ``round_begin``, closed by ``round_fold``).  The round IS
+        the communication period — the caller sizes it (warmup's first k=1
+        period is a 1-step round, a CommSchedule sizes each round from its
+        stage)."""
+        if isinstance(grads_k, torch.Tensor):
+            steps = list(grads_k)
+        else:
+            k = tree_mod.leaves(grads_k)[0].shape[0]
+            steps = [tree_mod.tree_map(lambda x, i=i: x[i], grads_k)
+                     for i in range(k)]
+        xbar = round_begin(state) if cfg.overlap else None
+        for g in steps:
+            state = local_step(state, g)
+        return sync(state) if xbar is None else round_fold(state, xbar)
 
     def params_tree(state: FlatWorkerState) -> Any:
         """Worker-stacked parameter tree of views into ``state.params``."""
@@ -330,4 +488,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   train_step=train_step, local_step=local_step, sync=sync,
                   average_model=avg_model, params_tree=params_tree,
                   round_step=round_step, round_end=sync,
-                  round_step_flat=round_step_flat)
+                  round_step_flat=round_step,
+                  round_begin=round_begin if cfg.overlap else None,
+                  round_fold=round_fold if cfg.overlap else None,
+                  compressors=(comp, comp2))

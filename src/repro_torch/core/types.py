@@ -1,6 +1,7 @@
 """State container of the flat-buffer engine (``repro.core.engine``
-``FlatWorkerState``), for the slice the port runs: the flat algorithms
-with the sgd, momentum and adam inner optimizers.
+``FlatWorkerState``, ``CommState``, ``OverlapState``), for the slice the
+port runs: the flat algorithms with the sgd, momentum and adam inner
+optimizers, compressed sync and overlapped rounds.
 
 The buffers are updated IN PLACE by the engine's kernels; an engine call
 returns a new tuple (``_replace``) that holds the same buffers with the
@@ -14,14 +15,45 @@ from typing import Any, NamedTuple
 import torch
 
 
+class CommState(NamedTuple):
+    """Compressed-sync state (``comm.compressors``).
+
+    ``resid``: the per-worker error-feedback residual, (W, R, C) fp32; ()
+    when error feedback is off.  ``ref``: the shared drift reference, the
+    (R, C) fp32 value every worker holds after the last sync, against
+    which the next payload is compressed; () for S-SGD's gradient
+    compression (ref ≡ 0).
+    """
+
+    resid: Any = ()
+    ref: Any = ()
+
+
+class OverlapState(NamedTuple):
+    """Double buffer of the overlapped round.
+
+    The round issues its worker mean at round START over the positions
+    every worker transmitted at the previous round boundary, and folds
+    the result in one round stale.  ``pend``: each worker's last
+    transmitted absolute position, (W, R, C) fp32.  ``pend_k``: the local
+    steps each ``pend`` covers, a (W, 1, 1) fp32 DEVICE tensor, so that
+    the fold's 1/(pend_k·γ) is formed on the device without a host round
+    trip.
+    """
+
+    pend: Any
+    pend_k: Any
+
+
 class FlatWorkerState(NamedTuple):
     """Worker-stacked algorithm state as contiguous flat buffers.
 
     ``params``/``delta``/moments: (W, R, C) (layout: ``core.flat``);
     ``center``: (R, C) fp32 (EASGD only); ``inner``: () for sgd, the (W, R,
     C) momentum buffer, or an ``optim.AdamState`` of (W, R, C) mu and nu;
-    ``bias``: BVR-L-SGD's (W, R, C) variate B.  Δ, center and bias are ()
-    for algorithms that never use them.
+    ``bias``: BVR-L-SGD's (W, R, C) variate B; ``comm``: a ``CommState``
+    under compression; ``overlap``: an ``OverlapState`` under overlapped
+    rounds.  Each is () where the configuration does not use it.
     """
 
     params: torch.Tensor
@@ -31,3 +63,5 @@ class FlatWorkerState(NamedTuple):
     inner: Any = ()
     center: Any = ()
     bias: Any = ()
+    comm: Any = ()
+    overlap: Any = ()

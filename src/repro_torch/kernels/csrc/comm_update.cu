@@ -1,0 +1,292 @@
+// Compressed and overlapped sync for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/vrl_update.py:
+//   vrl_fused_ef    <- _ef_call (vrl_update.py:698), flat (W, R, C) form:
+//                      fused_ef_int8 (:743) and fused_ef_topk (:755)
+//   vrl_fused_fold  <- _fold_call (vrl_update.py:476): fused_fold_overlap
+//                      (:521), fused_fold_overlap_bvr (:537) and
+//                      fused_fold_overlap_avg (:546)
+//
+// EF round trip.  payload x = (p − ref) + e per 256-lane row; int8: scale =
+// max|x|/127, q = clip(round(x/safe), ±127), dec = q·scale; top-k: keep the
+// lanes with |x| ≥ the row's kth-largest |x|.  resid' = x − dec, in place
+// over e.  Bound: device-memory bandwidth — it reads p, e and the (R, C)
+// ref once and writes dec and e (16 B per element plus ref), and does a
+// few flops per element (top-k: 31 rounds of 8 compares and one warp sum
+// per row and worker, still far below the byte time).  Design: one warp
+// per row of the (R, C) plane, 8 floats per lane in two coalesced float4
+// loads (for C = 256); the warp loads the ref row once and walks the W
+// workers with it from registers, so ref is never expanded W times.  Row
+// statistics stay in the warp: int8's max is a shuffle reduction with
+// fmaxf (exact in any order, so bitwise torch.amax); top-k's threshold is
+// found by a bitwise search over the uint32 bits of |x| (non-negative
+// floats order as their bits): 31 steps, each counting the lanes ≥ the
+// candidate with __reduce_add_sync.  dec may be the same buffer as p (the
+// warp reads its whole row before it writes it).
+//
+// Overlap fold.  c = x̂_stale − pend; p' = p + c; Δ' = Δ + c·s₀;
+// B' = (1−β)B + (β·c)·s₀; pend' = km·pend + (1−km)·p', with [s₀, km] read
+// per worker from the (W, 2) device operand wscal.  Bound: device-memory
+// bandwidth (a handful of flops per 16–36 B).  Design: as the syncs of
+// vrl_update.cu — a float4 grid-stride pass, each x̂ float4 loaded once
+// and applied to the W workers from a register, everything in place.
+//
+// Numerics: the arithmetic is the plain PyTorch version's op for op
+// (kernels/torch_update.py), built with -fmad=false (no FMA contraction)
+// and without fast math (IEEE division), so the kernels are bitwise the
+// plain versions.  rintf rounds half to even, like torch.round; the clamp
+// keeps NaN, like torch.clamp.  1 − β is rounded from double by the caller.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+int num_sms() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+int grid_for(int64_t items, int per_block) {
+  // enough blocks to fill the card a few times over; the grid-stride
+  // loops cover the rest
+  int64_t want = (items + per_block - 1) / per_block;
+  int64_t cap = (int64_t)num_sms() * 16;
+  int64_t g = want < cap ? want : cap;
+  return (int)(g > 0 ? g : 1);
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float clamp127(float q) {
+  // torch.clamp(q, -127, 127): NaN stays NaN
+  q = q < -127.0f ? -127.0f : q;
+  return q > 127.0f ? 127.0f : q;
+}
+
+__device__ __forceinline__ float quant(float x, float safe, float scale) {
+  return clamp127(rintf(x / safe)) * scale;
+}
+
+__device__ __forceinline__ unsigned count_ge(float4 v, unsigned cand) {
+  return (__float_as_uint(fabsf(v.x)) >= cand) +
+         (__float_as_uint(fabsf(v.y)) >= cand) +
+         (__float_as_uint(fabsf(v.z)) >= cand) +
+         (__float_as_uint(fabsf(v.w)) >= cand);
+}
+
+__device__ __forceinline__ float keep(float x, float thresh) {
+  return fabsf(x) >= thresh ? x : 0.0f;
+}
+
+// One warp per row of the (R, C) plane, walking the W workers.  NV float4
+// groups per lane: lane t holds groups t, t + 32, ... of the row's c4 =
+// C/4 (NV = ceil(c4 / 32)).  mode 0 = int8, 1 = top-k keeping k lanes.
+// ref and e may be null; e, when given, receives resid' in place.
+template <int NV>
+__global__ void ef_kernel(const float4* p, const float4* __restrict__ ref,
+                          float4* __restrict__ e, float4* dec, int mode,
+                          int k, int64_t w, int64_t rows, int64_t c4) {
+  const int lane = threadIdx.x & 31;
+  const int64_t nwarps = (int64_t)gridDim.x * kWarps;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool keep_all = (int64_t)k >= 4 * c4;
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       row < rows; row += nwarps) {
+    float4 rv[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int64_t j = lane + 32 * v;
+      rv[v] = (ref != nullptr && j < c4) ? ref[row * c4 + j] : zero;
+    }
+    for (int64_t wi = 0; wi < w; ++wi) {
+      const int64_t base = (wi * rows + row) * c4;
+      float4 x[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int64_t j = lane + 32 * v;
+        x[v] = zero;
+        if (j < c4) {
+          x[v] = p[base + j];
+          if (ref != nullptr) x[v] = sub4(x[v], rv[v]);
+          if (e != nullptr) x[v] = add4(x[v], e[base + j]);
+        }
+      }
+      float4 dv[NV];
+      if (mode == 0) {
+        float m = 0.0f;
+        bool nan = false;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float a[4] = {fabsf(x[v].x), fabsf(x[v].y), fabsf(x[v].z),
+                              fabsf(x[v].w)};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            m = fmaxf(m, a[q]);
+            nan |= a[q] != a[q];
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+        }
+        if (__any_sync(kFull, nan)) m = __int_as_float(0x7fffffff);
+        const float scale = m / 127.0f;
+        const float safe = m > 0.0f ? scale : 1.0f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          dv[v] = make_float4(quant(x[v].x, safe, scale),
+                              quant(x[v].y, safe, scale),
+                              quant(x[v].z, safe, scale),
+                              quant(x[v].w, safe, scale));
+        }
+      } else if (keep_all) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) dv[v] = x[v];
+      } else {
+        // the kth-largest |x| of the row: the largest t with
+        // #{lanes: bits(|x|) ≥ t} ≥ k, built bit by bit from the top
+        unsigned thr = 0;
+        for (int bit = 30; bit >= 0; --bit) {
+          const unsigned cand = thr | (1u << bit);
+          unsigned cnt = 0;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if (lane + 32 * v < c4) cnt += count_ge(x[v], cand);
+          }
+          if (__reduce_add_sync(kFull, cnt) >= (unsigned)k) thr = cand;
+        }
+        const float thresh = __uint_as_float(thr);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          dv[v] = make_float4(keep(x[v].x, thresh), keep(x[v].y, thresh),
+                              keep(x[v].z, thresh), keep(x[v].w, thresh));
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int64_t j = lane + 32 * v;
+        if (j < c4) {
+          dec[base + j] = dv[v];
+          if (e != nullptr) {
+            // top-k with k ≥ C keeps everything: the residual is zero
+            e[base + j] = (mode == 1 && keep_all) ? zero : sub4(x[v], dv[v]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The stale fold over (w, rc) buffers, rc4 = rc/4 float4 groups per worker.
+// d, b null ⇒ no Δ, no B; capture = 0 leaves pend as it is.
+__global__ void fold_kernel(float4* __restrict__ p,
+                            const float4* __restrict__ xbar,
+                            float4* __restrict__ pend, float4* __restrict__ d,
+                            float4* __restrict__ b,
+                            const float* __restrict__ wscal, float omb,
+                            float beta, int capture, int64_t w, int64_t rc4) {
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < rc4;
+       i += stride) {
+    const float4 xb = xbar[i];
+    for (int64_t k = 0; k < w; ++k) {
+      const float inv = wscal[2 * k], km = wscal[2 * k + 1];
+      const float omkm = 1.0f - km;
+      const int64_t j = k * rc4 + i;
+      const float4 pe = pend[j];
+      const float4 c = sub4(xb, pe);
+      const float4 pn = add4(p[j], c);
+      p[j] = pn;
+      if (d != nullptr) {
+        float4 dv = d[j];
+        dv.x = dv.x + c.x * inv;
+        dv.y = dv.y + c.y * inv;
+        dv.z = dv.z + c.z * inv;
+        dv.w = dv.w + c.w * inv;
+        d[j] = dv;
+      }
+      if (b != nullptr) {
+        float4 bv = b[j];
+        bv.x = omb * bv.x + (beta * c.x) * inv;
+        bv.y = omb * bv.y + (beta * c.y) * inv;
+        bv.z = omb * bv.z + (beta * c.z) * inv;
+        bv.w = omb * bv.w + (beta * c.w) * inv;
+        b[j] = bv;
+      }
+      if (capture) {
+        pend[j] = make_float4(km * pe.x + omkm * pn.x, km * pe.y + omkm * pn.y,
+                              km * pe.z + omkm * pn.z,
+                              km * pe.w + omkm * pn.w);
+      }
+    }
+  }
+}
+
+template <int NV>
+void launch_ef(const void* p, const void* ref, void* e, void* dec, int mode,
+               int k, int64_t w, int64_t rows, int64_t c4,
+               cudaStream_t s) {
+  ef_kernel<NV><<<grid_for(rows, kWarps), kThreads, 0, s>>>(
+      (const float4*)p, (const float4*)ref, (float4*)e, (float4*)dec, mode,
+      k, w, rows, c4);
+}
+
+}  // namespace
+
+extern "C" {
+
+// p, e, dec: (w, rows, c) fp32; ref: (rows, c) fp32 or null; e null ⇒ no
+// error feedback.  c is a multiple of 4, at most 1024.  mode 0 = int8,
+// 1 = top-k (k lanes).  Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a lane count it does not take.
+int vrl_fused_ef(const void* p, const void* ref, void* e, void* dec,
+                 int mode, int k, int64_t w, int64_t rows, int64_t c,
+                 void* stream) {
+  const int64_t c4 = c / 4;
+  if (c % 4 || c4 > 32 * 8) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && w > 0 && c4 > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (c4 <= 32) {
+      launch_ef<1>(p, ref, e, dec, mode, k, w, rows, c4, s);
+    } else if (c4 <= 64) {
+      launch_ef<2>(p, ref, e, dec, mode, k, w, rows, c4, s);
+    } else if (c4 <= 128) {
+      launch_ef<4>(p, ref, e, dec, mode, k, w, rows, c4, s);
+    } else {
+      launch_ef<8>(p, ref, e, dec, mode, k, w, rows, c4, s);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// p, pend, d, b: (w, rc) fp32 (d, b may be null); xbar: (rc,) fp32;
+// wscal: (w, 2) fp32 on the device, [1/(pend_k·γ), km] per worker; omb =
+// 1 − β.  rc is a multiple of 4.
+int vrl_fused_fold(void* p, const void* xbar, void* pend, void* d, void* b,
+                   const void* wscal, float omb, float beta, int capture,
+                   int64_t w, int64_t rc, void* stream) {
+  const int64_t rc4 = rc / 4;
+  if (rc4 > 0 && w > 0) {
+    fold_kernel<<<grid_for(rc4, kThreads), kThreads, 0,
+                  (cudaStream_t)stream>>>(
+        (float4*)p, (const float4*)xbar, (float4*)pend, (float4*)d,
+        (float4*)b, (const float*)wscal, omb, beta, capture, w, rc4);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.comm import compressors as cc
+
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
@@ -132,3 +134,91 @@ def fused_sync_easgd(p, xbar, center, *, a: float, na: float,
     new_p = (p32 - a * (p32 - c)).to(p.dtype)
     new_c = ((1.0 - na) * _f32(center) + na * _f32(xbar)).to(center.dtype)
     return new_p, new_c
+
+
+# ====================================================== overlapped-round fold
+# Apply the round-START worker mean's one-round-stale result at round END:
+#   c = x̂_stale − pend;  p' = p + c;  Δ' = Δ + c·s₀;  pend' = km·pend +
+#   (1−km)·p'
+# ``wscal``: the per-worker (W, 2) fp32 [s₀ = 1/(pend_k·γ), miss mask km].
+# ``capture=False`` leaves the pend capture to the caller (compressed sync).
+
+def fused_fold_overlap(p, xbar, pend, d, wscal, *, capture: bool = True,
+                       block: int = 0):
+    """Stale fold for the VRL algorithms; returns (p', Δ'[, pend'])."""
+    del block
+    pend32 = _f32(pend)
+    c = _f32(xbar)[None] - pend32
+    pnew = _f32(p) + c
+    inv = wscal[:, 0][:, None, None]
+    new_d = (_f32(d) + c * inv).to(d.dtype)
+    if not capture:
+        return pnew.to(p.dtype), new_d
+    km = wscal[:, 1][:, None, None]
+    new_pend = (km * pend32 + (1.0 - km) * pnew).to(pend.dtype)
+    return pnew.to(p.dtype), new_d, new_pend
+
+
+def fused_fold_overlap_bvr(p, xbar, pend, d, b, wscal, *, beta: float,
+                           capture: bool = True, block: int = 0):
+    """BVR-L-SGD stale fold: the VRL fold plus
+    B' = (1−β)B + β·c·s₀.  Returns (p', Δ', B'[, pend'])."""
+    del block
+    pend32 = _f32(pend)
+    c = _f32(xbar)[None] - pend32
+    pnew = _f32(p) + c
+    inv = wscal[:, 0][:, None, None]
+    new_d = (_f32(d) + c * inv).to(d.dtype)
+    new_b = ((1.0 - beta) * _f32(b) + beta * c * inv).to(b.dtype)
+    if not capture:
+        return pnew.to(p.dtype), new_d, new_b
+    km = wscal[:, 1][:, None, None]
+    new_pend = (km * pend32 + (1.0 - km) * pnew).to(pend.dtype)
+    return pnew.to(p.dtype), new_d, new_b, new_pend
+
+
+def fused_fold_overlap_avg(p, xbar, pend, wscal, *, capture: bool = True,
+                           block: int = 0):
+    """Average-sync stale fold (local_sgd, stl_sgd): p' = p + c only.
+    Returns (p'[, pend'])."""
+    del block
+    pend32 = _f32(pend)
+    c = _f32(xbar)[None] - pend32
+    pnew = _f32(p) + c
+    if not capture:
+        return (pnew.to(p.dtype),)
+    km = wscal[:, 1][:, None, None]
+    new_pend = (km * pend32 + (1.0 - km) * pnew).to(pend.dtype)
+    return pnew.to(p.dtype), new_pend
+
+
+# ==================================================== compressed-sync round trip
+# The EF round trip of the sync payload's drift: payload = (p − ref) + e,
+# then ``comm.compressors.ef_int8`` / ``ef_topk``; resid' = payload − dec,
+# so resid' + dec == payload bitwise.  ``ref`` (R, C, broadcast over the
+# workers) and ``e`` may be None (S-SGD's gradient compression has no ref;
+# error feedback off has no residual); resid' is then None too.
+
+def _ef_payload(p, ref, e):
+    x = _f32(p)
+    if ref is not None:
+        x = x - _f32(ref)
+    if e is not None:
+        x = x + _f32(e)
+    return x
+
+
+def fused_ef_int8(p, ref, e, *, block: int = 0):
+    """Per-row-scaled int8 EF round trip on (W, R, C); returns (dec fp32,
+    resid' or None)."""
+    del block
+    dec, res = cc.ef_int8(_ef_payload(p, ref, e))
+    return dec, (res if e is not None else None)
+
+
+def fused_ef_topk(p, ref, e, *, k: int, block: int = 0):
+    """Top-k (k lanes kept per row) EF round trip on (W, R, C); the
+    operand contract of ``fused_ef_int8``."""
+    del block
+    dec, res = cc.ef_topk(_ef_payload(p, ref, e), k)
+    return dec, (res if e is not None else None)

@@ -10,11 +10,16 @@ algorithms' local steps and syncs as single passes over worker-stacked
   sync vrl:        Δ' = Δ + (x̂ − p)/(k_eff γ);  p' = x̂
   sync bvr:        the vrl sync plus B' = (1−β)B + β(x̂ − p)/(k_eff γ)
   sync easgd:      p' = p − a(p − x̃), then x̃' = (1 − na)x̃ + na·x̂
+  EF round trip:   x = (p − ref) + e;  dec = int8 or top-k round trip of x;
+                   e' = x − dec
+  overlap fold:    c = x̂_stale − pend;  p' = p + c;  Δ' = Δ + c·s₀;
+                   B' = (1−β)B + β·c·s₀;  pend' = km·pend + (1−km)·p'
 
-Each wrapper takes its kernel for CUDA tensors (``csrc/vrl_update.cu``,
-built at first use by ``kernels/build``) and the plain PyTorch version
-(``kernels/torch_update``) for CPU tensors; a CUDA tensor never falls back
-to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
+Each wrapper takes its kernel for CUDA tensors (``csrc/vrl_update.cu`` for
+the local steps and syncs, ``csrc/comm_update.cu`` for the EF round trip
+and the fold, built at first use by ``kernels/build``) and the plain
+PyTorch version (``kernels/torch_update``) for CPU tensors; a CUDA tensor
+never falls back to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
 CPU call is not a launch), so a run can show that its main path went
 through the kernels.
 """
@@ -31,7 +36,9 @@ from repro_torch.kernels import torch_update as tu
 
 LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
             "fused_local_adam": 0, "fused_sync_vrl": 0, "fused_sync_bvr": 0,
-            "fused_sync_easgd": 0}
+            "fused_sync_easgd": 0, "fused_ef_int8": 0, "fused_ef_topk": 0,
+            "fused_fold_overlap": 0, "fused_fold_overlap_bvr": 0,
+            "fused_fold_overlap_avg": 0}
 
 
 def reset_launches() -> None:
@@ -72,18 +79,33 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _comm_lib() -> ctypes.CDLL:
+    """The compressed/overlapped-sync library with its C signatures."""
+    lib = build.load("comm_update")
+    f32, i64, cint = ctypes.c_float, ctypes.c_int64, ctypes.c_int
+    lib.vrl_fused_ef.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, cint, i64,
+                                 i64, i64, _PTR]
+    lib.vrl_fused_ef.restype = cint
+    lib.vrl_fused_fold.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, f32,
+                                   f32, cint, i64, i64, _PTR]
+    lib.vrl_fused_fold.restype = cint
+    return lib
+
+
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(name: str, ref: torch.Tensor, *, moments=(), **tensors) -> None:
+def _check(name: str, lead: torch.Tensor, *, moments=(), **tensors) -> None:
     """Raise on what the kernels do not take: non-fp32 buffers (moments
     named in ``moments`` may be fp32 or bf16, all of one type), mixed
     devices, non-contiguous or misaligned buffers, lanes not a multiple of
     4."""
-    if ref.dim() != 3:
-        raise ValueError(f"{name}: p must be (W, R, C), got {tuple(ref.shape)}")
-    if ref.shape[-1] % 4:
-        raise ValueError(f"{name}: lanes {ref.shape[-1]} not a multiple of 4")
+    if lead.dim() != 3:
+        raise ValueError(f"{name}: p must be (W, R, C), got "
+                         f"{tuple(lead.shape)}")
+    if lead.shape[-1] % 4:
+        raise ValueError(f"{name}: lanes {lead.shape[-1]} not a multiple of 4")
     if len({tensors[k].dtype for k in moments}) > 1:
         raise TypeError(f"{name}: moments {moments} differ in dtype")
     for key, t in tensors.items():
@@ -93,14 +115,15 @@ def _check(name: str, ref: torch.Tensor, *, moments=(), **tensors) -> None:
         if t.dtype not in allowed:
             raise TypeError(f"{name}: {key} is {t.dtype}; the kernels take "
                             f"{' or '.join(map(str, allowed))} there")
-        if t.device != ref.device:
-            raise ValueError(f"{name}: {key} on {t.device}, p on {ref.device}")
+        if t.device != lead.device:
+            raise ValueError(f"{name}: {key} on {t.device}, p on "
+                             f"{lead.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
         if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if ref.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {ref.device}")
+    if lead.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {lead.device}")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -323,3 +346,151 @@ def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return p, center
+
+
+# Replaces repro/kernels/vrl_update.py:698 _ef_call, flat form (Pallas, TPU):
+# fused_ef_int8 (:743) and fused_ef_topk (:755).  Bound: device-memory
+# bandwidth — reads p, e (W·R·C each) and ref (R·C) once, writes dec and e
+# (16 B per element with EF); top-k's per-row select adds 31 rounds of 8
+# compares and one warp sum per row and worker, below the byte time.
+# Design (csrc/comm_update.cu): one warp per 256-lane row, ref loaded once
+# per row and applied to the W workers from registers; the row's max (int8)
+# or kth-largest magnitude (top-k, a bitwise search) never leaves the warp.
+_MAX_EF_LANES = 1024
+
+
+def _ef(name: str, mode: int, k: int, p: torch.Tensor,
+        ref: Optional[torch.Tensor], e: Optional[torch.Tensor],
+        out: Optional[torch.Tensor]):
+    _check(name, p, p=p, ref=ref, e=e, out=out)
+    _same_shape(name, p, e=e, out=out)
+    if ref is not None and tuple(ref.shape) != tuple(p.shape[1:]):
+        raise ValueError(f"{name}: ref {tuple(ref.shape)} is not one worker "
+                         f"of p {tuple(p.shape)}")
+    if out is not None and e is not None and out.data_ptr() == e.data_ptr():
+        raise ValueError(f"{name}: out and e are one buffer; dec and the "
+                         f"residual are both outputs")
+    if mode == 1 and k < 1:
+        raise ValueError(f"{name}: k must be >= 1, got {k}")
+    if p.device.type == "cpu":
+        dec, res = (tu.fused_ef_int8(p, ref, e) if mode == 0 else
+                    tu.fused_ef_topk(p, ref, e, k=k))
+        out = dec if out is None else out.copy_(dec)
+        if e is not None:
+            e.copy_(res)
+        return out, e
+    if p.shape[-1] > _MAX_EF_LANES:
+        raise ValueError(f"{name}: the kernel takes rows of at most "
+                         f"{_MAX_EF_LANES} lanes, got {p.shape[-1]}")
+    if out is None:
+        out = torch.empty_like(p)
+    lib = _comm_lib()
+    w, r, c = p.shape
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_ef(p.data_ptr(), _ptr(ref), _ptr(e),
+                               out.data_ptr(), mode, int(k), w, r, c,
+                               _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out, e
+
+
+def fused_ef_int8(p: torch.Tensor, ref: Optional[torch.Tensor],
+                  e: Optional[torch.Tensor], *, block: int = 0,
+                  out: Optional[torch.Tensor] = None):
+    """Per-row-scaled int8 EF round trip on (W, R, C) fp32 buffers.
+
+    ``ref``: the (R, C) shared drift reference, or None (S-SGD's gradient
+    compression); ``e``: the (W, R, C) residual, or None (error feedback
+    off), updated in place to resid' = payload − dec.  ``out``: the (W, R,
+    C) fp32 buffer that receives dec (new when None; it may be ``p``
+    itself).  Returns (dec, e).  ``block`` is accepted and ignored.
+    """
+    del block
+    return _ef("fused_ef_int8", 0, 0, p, ref, e, out)
+
+
+def fused_ef_topk(p: torch.Tensor, ref: Optional[torch.Tensor],
+                  e: Optional[torch.Tensor], *, k: int, block: int = 0,
+                  out: Optional[torch.Tensor] = None):
+    """Top-k EF round trip (the k largest-magnitude lanes of each row
+    kept, every lane tied with the kth kept too); the operand contract of
+    ``fused_ef_int8``."""
+    del block
+    return _ef("fused_ef_topk", 1, k, p, ref, e, out)
+
+
+# Replaces repro/kernels/vrl_update.py:476 _fold_call (Pallas, TPU):
+# fused_fold_overlap (:521), fused_fold_overlap_bvr (:537) and
+# fused_fold_overlap_avg (:546).  Bound: device-memory bandwidth — reads p,
+# pend [, Δ, B] and x̂ once, writes p [, Δ, B] [, pend].  Design: one float4
+# of x̂ per thread walks the W workers from a register; s₀ = 1/(pend_k γ)
+# and km are read per worker from the (W, 2) device tensor ``wscal``.
+def _fold(name: str, p, xbar, pend, d, b, wscal, *, beta: float,
+          capture: bool):
+    _check(name, p, p=p, xbar=xbar, pend=pend, d=d, b=b, wscal=wscal)
+    _same_shape(name, p, pend=pend, d=d, b=b)
+    if tuple(xbar.shape) != tuple(p.shape[1:]):
+        raise ValueError(f"{name}: xbar {tuple(xbar.shape)} is not one "
+                         f"worker of p {tuple(p.shape)}")
+    if tuple(wscal.shape) != (p.shape[0], 2):
+        raise ValueError(f"{name}: wscal must be (W, 2) = ({p.shape[0]}, 2), "
+                         f"got {tuple(wscal.shape)}")
+    bufs = (p,) + ((d,) if d is not None else ()) \
+        + ((b,) if b is not None else ()) + ((pend,) if capture else ())
+    if p.device.type == "cpu":
+        if b is not None:
+            outs = tu.fused_fold_overlap_bvr(p, xbar, pend, d, b, wscal,
+                                             beta=beta, capture=capture)
+        elif d is not None:
+            outs = tu.fused_fold_overlap(p, xbar, pend, d, wscal,
+                                         capture=capture)
+        else:
+            outs = tu.fused_fold_overlap_avg(p, xbar, pend, wscal,
+                                             capture=capture)
+        return tuple(t.copy_(o) for t, o in zip(bufs, outs))
+    lib = _comm_lib()
+    w = p.shape[0]
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_fold(
+            p.data_ptr(), xbar.data_ptr(), pend.data_ptr(), _ptr(d), _ptr(b),
+            wscal.data_ptr(), float(1.0 - beta), float(beta), int(capture),
+            w, p.numel() // max(w, 1), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return bufs
+
+
+def fused_fold_overlap(p: torch.Tensor, xbar: torch.Tensor,
+                       pend: torch.Tensor, d: torch.Tensor,
+                       wscal: torch.Tensor, *, capture: bool = True,
+                       block: int = 0):
+    """The overlapped round's stale fold for the VRL algorithms, in place:
+    c = x̂ − pend; p ← p + c; Δ ← Δ + c·s₀; with ``capture``, pend ←
+    km·pend + (1−km)·p'.  ``xbar``: (R, C); ``wscal``: (W, 2) fp32 [s₀ =
+    1/(pend_k·γ), km].  Returns (p, Δ[, pend])."""
+    del block
+    return _fold("fused_fold_overlap", p, xbar, pend, d, None, wscal,
+                 beta=0.0, capture=capture)
+
+
+def fused_fold_overlap_bvr(p: torch.Tensor, xbar: torch.Tensor,
+                           pend: torch.Tensor, d: torch.Tensor,
+                           b: torch.Tensor, wscal: torch.Tensor, *,
+                           beta: float, capture: bool = True,
+                           block: int = 0):
+    """BVR-L-SGD's stale fold: the VRL fold plus B ← (1−β)B + β·c·s₀.
+    Returns (p, Δ, B[, pend])."""
+    del block
+    return _fold("fused_fold_overlap_bvr", p, xbar, pend, d, b, wscal,
+                 beta=beta, capture=capture)
+
+
+def fused_fold_overlap_avg(p: torch.Tensor, xbar: torch.Tensor,
+                           pend: torch.Tensor, wscal: torch.Tensor, *,
+                           capture: bool = True, block: int = 0):
+    """The average-sync stale fold (local_sgd, stl_sgd): p ← p + c only.
+    Returns (p[, pend])."""
+    del block
+    return _fold("fused_fold_overlap_avg", p, xbar, pend, None, None, wscal,
+                 beta=0.0, capture=capture)

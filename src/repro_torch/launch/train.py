@@ -11,7 +11,11 @@ buffers) closed by one worker mean and the algorithm's sync.  VRL-SGD-W
 from its stage and supersedes ``--warmup``; a tail shorter than a round
 finishes step by step, syncing on the per-step cadence.  The inner
 optimizer comes from ``VRLConfig`` (sgd here, as in the reference CLI,
-so there is no moment buffer and no ``--moment-dtype``).
+so there is no moment buffer and no ``--moment-dtype``).  ``--compress``
+sends every sync's payload drift through an EF-compressed round trip
+(int8 or top-k); ``--overlap`` opens each round with the worker mean of
+the previous boundary's positions and folds it in one round stale (the
+tail then takes local steps only, as in the reference).
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The log lines are the
@@ -22,11 +26,13 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
       --workers 4 --batch 8 --seq 64 --steps 7 --k 2 --lr 0.05 --warmup
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
-      --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32
+      --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32 \\
+      --compress int8 --overlap
 
-Not ported yet (ROADMAP Queue 1): hier_vrl_sgd, SM3 moments (``--sm3``),
-compression, overlap, membership and faults, client sampling,
-checkpoints, diagnostics and telemetry, meshes.
+Not ported yet (ROADMAP Queue 1): hier_vrl_sgd (and ``--compress2``),
+SM3 moments (``--sm3``), overlap deadlines (``--deadline``), membership
+and faults, client sampling, checkpoints, diagnostics and telemetry,
+meshes.
 """
 from __future__ import annotations
 
@@ -38,9 +44,11 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
+from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.data import assigned_token_stream, contiguous_assignment
 from repro_torch.kernels import vrl_update
@@ -57,6 +65,9 @@ class TrainResult(NamedTuple):
     invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log
                                 # line; [] where the algorithm has no Δ
     bias_invariant: List[tuple]  # the same for BVR-L-SGD's B
+    ef_identity: List[tuple]    # blocking compression with Δ and EF: (step,
+                                # max|Σ_i (e_i − e'_i)|/(kγ), max|ΣΔ' − ΣΔ
+                                # − that term|) for each logged round
     wall_s: float               # training wall time (set-up excluded)
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
 
@@ -78,6 +89,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bvr-beta", type=float, default=0.5,
                     help="bvr_l_sgd bias-variate EMA rate (0 = plain "
                          "vrl_sgd)")
+    ap.add_argument("--compress", default=None,
+                    help="sync-payload compressor: none | int8 | "
+                         "topk[:rate] (append :noef to drop error "
+                         "feedback).  none/rate-1 is bitwise the "
+                         "uncompressed path")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped rounds: take the sync's worker mean at "
+                         "round START over the previous boundary's "
+                         "transmitted positions, so it can run while the "
+                         "round's local steps do, and fold the one-round-"
+                         "stale mean in at the end")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
     ap.add_argument("--workers", type=int, default=4)
@@ -112,6 +134,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def vrl_config(args: argparse.Namespace) -> VRLConfig:
+    """The algorithm configuration the parsed flags ask for."""
+    try:
+        sched = (schedule_mod.parse_schedule(args.comm_schedule, args.k)
+                 if args.comm_schedule else None)
+    except ValueError as e:
+        raise SystemExit(f"--comm-schedule: {e}")
+    try:
+        comp = (comm_mod.parse_compressor(args.compress) if args.compress
+                else None)
+    except ValueError as e:
+        raise SystemExit(f"--compress: {e}")
+    return VRLConfig(algorithm=args.algorithm, comm_period=args.k,
+                     learning_rate=args.lr, warmup=args.warmup,
+                     bvr_beta=args.bvr_beta, comm_schedule=sched,
+                     compress=comp, overlap=args.overlap,
+                     engine=EngineConfig(block=args.block))
+
+
 def run(argv=None) -> TrainResult:
     """Parse ``argv``, train, print the reference's log lines; returns the
     final state and what was logged."""
@@ -128,19 +169,11 @@ def run(argv=None) -> TrainResult:
            else registry.get_arch(args.arch))
     print(f"arch: {registry.describe(args.arch)}"
           f"{' [reduced smoke variant]' if args.smoke else ''}")
-    try:
-        sched_arg = (schedule_mod.parse_schedule(args.comm_schedule, args.k)
-                     if args.comm_schedule else None)
-    except ValueError as e:
-        raise SystemExit(f"--comm-schedule: {e}")
-    vrl = VRLConfig(algorithm=args.algorithm, comm_period=args.k,
-                    learning_rate=args.lr, warmup=args.warmup,
-                    bvr_beta=args.bvr_beta, comm_schedule=sched_arg,
-                    engine=EngineConfig(block=args.block))
+    vrl = vrl_config(args)
     try:
         bundle = make_train_step(cfg, vrl, device=device,
                                  timed=device.type == "cuda")
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     sched = engine_mod.comm_schedule(vrl)    # explicit or the algo default
     if sched is not None:
@@ -155,6 +188,18 @@ def run(argv=None) -> TrainResult:
              if device.type == "cuda" else ""))
     print(f"engine: flat buffer {es.rows}x{es.lanes} "
           f"({es.padded - es.size} pad elems), block={es.block}")
+    if args.overlap:
+        print("overlap: sync worker mean taken at round start (one-round-"
+              "stale fold at the boundary)")
+    comp = eng.compressors[0]
+    if comp is not None:
+        item = flat.dtype_of(es.dtype).itemsize
+        raw = comm_mod.raw_bytes(es.rows, es.lanes, item)
+        wire = comm_mod.wire_bytes(comp, rows=es.rows, lanes=es.lanes,
+                                   size=es.size, itemsize=item)
+        print(f"compress: {comm_mod.describe_pair(eng.compressors)} — sync "
+              f"wire {wire/2**20:.2f} MiB ({raw/wire:.1f}x) vs raw "
+              f"{raw/2**20:.2f} MiB per worker payload")
 
     assignment = contiguous_assignment(args.workers, args.workers)
     data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
@@ -175,6 +220,11 @@ def run(argv=None) -> TrainResult:
     avg_losses: List[float] = []
     invariant: List[tuple] = []
     bias_invariant: List[tuple] = []
+    ef_identity: List[tuple] = []
+    # blocking compression moves Σ_i Δ_i by design: x̂ − mean_i p_i =
+    # mean_i(e_i − e'_i), so each sync adds Σ_i (e_i − e'_i)/(k_eff γ)
+    ef_log = (comp is not None and comp.error_feedback and not args.overlap
+              and isinstance(state.delta, torch.Tensor))
 
     def log_invariant(state, t):
         """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
@@ -187,6 +237,18 @@ def run(argv=None) -> TrainResult:
                 log.append((t, sum_b, max_b))
                 print(f"             max|sum_i {name}_i| {sum_b:.3e}  "
                       f"max|{name}| {max_b:.3e}")
+
+    def log_ef_identity(before, state, t, rk):
+        """The EF term of the round's sync and how far Σ_i Δ_i's move
+        stands from it (fp32 rounding)."""
+        sum_d0, sum_e0 = before
+        term = (sum_e0 - state.comm.resid.sum(dim=0)) / (rk * args.lr)
+        moved = state.delta.sum(dim=0) - sum_d0
+        ef_t = term.abs().max().item()
+        resid = (moved - term).abs().max().item()
+        ef_identity.append((t, ef_t, resid))
+        print(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
+              f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
     warm_first = sched is None and args.warmup and eng.algo.warmup_aware
     t0 = time.time()
     t, r = 0, 0
@@ -198,10 +260,14 @@ def run(argv=None) -> TrainResult:
         if args.steps - t < rk:
             # tail shorter than a round: per-step, syncing on the per-step
             # cadence exactly as the reference's tail does
+            # under overlap the per-step sync would not keep the pend
+            # buffer, so the tail takes local steps only (its steps would
+            # fold at a next boundary, which never comes)
+            step_fn = bundle.local_step if args.overlap else bundle.train_step
             while t < args.steps:
                 toks = tokens(data[t])
                 labels = torch.roll(toks, -1, dims=-1)
-                state, loss = bundle.train_step(state, toks, labels)
+                state, loss = step_fn(state, toks, labels)
                 step_losses.append(loss[None])
                 t += 1
             el = float(eval_avg(state, toks, labels))
@@ -213,6 +279,10 @@ def run(argv=None) -> TrainResult:
             break
         toks = tokens(data[t:t + rk])
         labels = torch.roll(toks, -1, dims=-1)
+        logged = ((r + 1) % args.log_every == 0 or r == 0
+                  or t + rk >= args.steps)
+        before = ((state.delta.sum(dim=0), state.comm.resid.sum(dim=0))
+                  if ef_log and logged else None)
         if r + 1 == args.profile_round:
             state, losses = profiled_round(bundle, state, toks, labels,
                                            device)
@@ -221,7 +291,7 @@ def run(argv=None) -> TrainResult:
         step_losses.append(losses)
         t += rk
         r += 1
-        if r % args.log_every == 0 or r == 1 or t >= args.steps:
+        if logged:
             el = float(eval_avg(state, toks[-1], labels[-1]))
             avg_losses.append(el)
             print(f"step {t:5d} (round {r})  "
@@ -229,6 +299,8 @@ def run(argv=None) -> TrainResult:
                   f"avg_model_loss {el:.4f}  "
                   f"({(time.time()-t0)/t:.2f}s/step)")
             log_invariant(state, t)
+            if before is not None:
+                log_ef_identity(before, state, t, rk)
     losses_host = torch.cat(step_losses).tolist()
     wall = time.time() - t0
     print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)")
@@ -241,7 +313,8 @@ def run(argv=None) -> TrainResult:
     print(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
     return TrainResult(state=state, engine=eng, losses=losses_host,
                        avg_model_losses=avg_losses, invariant=invariant,
-                       bias_invariant=bias_invariant, wall_s=wall,
+                       bias_invariant=bias_invariant,
+                       ef_identity=ef_identity, wall_s=wall,
                        phases_ms=phases)
 
 

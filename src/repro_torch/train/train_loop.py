@@ -15,6 +15,9 @@ over worker-stacked engine state:
       averages gradients every step); losses stay on the device as a (k,)
       tensor.  The caller sizes each round: k=1 for VRL-SGD-W's warmup
       round, the stage's k under a CommSchedule (``launch/train.py``).
+      Under ``overlap`` the round opens with the engine's ``round_begin``
+      (the worker mean of the previous boundary's positions) and closes
+      with ``round_fold`` (the stale fold and the capture) instead.
 
 Per-worker gradients: the reference ``vmap``s one forward/backward over
 the worker axis; here a loop over workers runs each on views of
@@ -73,12 +76,15 @@ class StepBundle(NamedTuple):
 
 class PhaseTimer:
     """Device time of the step's phases — ``fwd_bwd`` (per-worker forward
-    and backward), ``local`` (the local-step kernel) and ``sync`` (worker
-    mean + sync kernel) — from CUDA events recorded around each, with no
-    host sync while recording; ``ms()`` synchronises and reads them."""
+    and backward), ``local`` (the local-step kernel), ``sync`` (worker
+    mean + sync kernel, after the EF round trip under compression), and
+    under overlap ``round_begin`` (the worker mean over pend) and ``fold``
+    (the fold and the capture) — from CUDA events recorded around each,
+    with no host sync while recording; ``ms()`` synchronises and reads
+    them."""
 
     def __init__(self):
-        self.events = {"fwd_bwd": [], "local": [], "sync": []}
+        self.events: dict = {}
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -87,10 +93,10 @@ class PhaseTimer:
         yield
         end = torch.cuda.Event(enable_timing=True)
         end.record()
-        self.events[name].append((start, end))
+        self.events.setdefault(name, []).append((start, end))
 
     def ms(self) -> dict:
-        """{phase: [ms of each span, in order]}."""
+        """{phase: [ms of each span, in order]}, for the phases that ran."""
         torch.cuda.synchronize()
         return {k: [s.elapsed_time(e) for s, e in v]
                 for k, v in self.events.items()}
@@ -152,7 +158,9 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
 
     def sync_step(state):
         with span("sync"):
-            return eng.sync(state)
+            # the last step's gradients are dead: a compressed sync writes
+            # its decompressed payload over them instead of a new buffer
+            return eng.sync(state, out=gbuf.get(state.params.shape[0]))
 
     def train_step(state, tokens, labels):
         state, loss = local_step(state, tokens, labels)
@@ -162,11 +170,20 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return state, loss
 
     def round_step(state, tokens_k, labels_k):
+        xbar = None
+        if eng.round_begin is not None:
+            with span("round_begin"):
+                xbar = eng.round_begin(state)
         losses = []
         for tokens, labels in zip(tokens_k, labels_k):
             state, loss = local_step(state, tokens, labels)
             losses.append(loss)
-        return sync_step(state), torch.stack(losses)
+        if xbar is None:
+            state = sync_step(state)
+        else:
+            with span("fold"):
+                state = eng.round_fold(state, xbar)
+        return state, torch.stack(losses)
 
     def init_state(seed: int, num_workers: int):
         params = transformer.init_params(model_cfg, seed, device=device)

@@ -6,10 +6,14 @@ JAX here, so the file runs on a machine with PyTorch alone:
 
   PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Required: bitwise equality with ``kernels/torch_update`` (the library is
-built with -fmad=false, IEEE division and sqrt), on a tile-aligned and a
-ragged row count, with and without Δ (and B), wd 0 and non-zero, fp32
-and bf16 moments, nesterov on and off, several β and k_eff.
+Required: bitwise equality with ``kernels/torch_update`` (the libraries
+are built with -fmad=false, IEEE division and sqrt), on a tile-aligned and
+a ragged row count, with and without Δ (and B), wd 0 and non-zero, fp32
+and bf16 moments, nesterov on and off, several β and k_eff; for the EF
+round trip int8 and top-k (k = 8, 64, 256), with and without ref and EF,
+with rows of ± ties, all-zero rows and rows with fewer than k non-zeros;
+for the overlap fold vrl, bvr (β = 0.5, 1) and avg, capture on and off,
+the miss mask mixed 0/1 over the workers and pend_k ∈ {1, 2, 3}.
 """
 import numpy as np
 import pytest
@@ -159,4 +163,110 @@ def test_cuda_kernels_sync_easgd_bitwise(alpha, r):
     want = tu.fused_sync_easgd(p, xbar, center, a=a, na=MW * a)
     got = _launched("fused_sync_easgd", lambda: tvu.fused_sync_easgd(
         p.clone(), xbar, center.clone(), a=a, na=MW * a))
+    _assert_equal(got, want)
+
+
+def _special_rows(x: np.ndarray, k: int = 8) -> np.ndarray:
+    """Rows 0-3 of every worker: ± ties at the top magnitudes, all zeros,
+    fewer than k non-zeros, and ±1 at scale 2 (int8: exact .5 levels)."""
+    x = x.copy()
+    x[:, 0] *= 0.1
+    x[:, 0, :6] = [3.0, -3.0, 3.0, -2.5, 2.5, 2.5]
+    x[:, 1] = 0.0
+    x[:, 2] = 0.0
+    x[:, 2, :k // 2] = np.linspace(0.5, 1.0, k // 2)
+    x[:, 3] = np.where(np.arange(x.shape[-1]) % 2, 1.0, -1.0)
+    x[:, 3, 0] = 127.0 * 2.0
+    return x
+
+
+EF_MODES = ["int8", "topk:8", "topk:64", "topk:256"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", EF_MODES)
+@pytest.mark.parametrize("use_ref,use_e", [(False, False), (False, True),
+                                           (True, False), (True, True)])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_ef_bitwise(mode, use_ref, use_e, r):
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(11)
+    p = torch.from_numpy(_special_rows(
+        rng.randn(MW, r, C).astype(np.float32))).to(dev)
+    ref = torch.from_numpy(
+        0.1 * rng.randn(r, C).astype(np.float32)).to(dev) if use_ref else None
+    e = torch.from_numpy(
+        0.01 * rng.randn(MW, r, C).astype(np.float32)).to(dev) if use_e \
+        else None
+    if mode == "int8":
+        name, kw = "fused_ef_int8", {}
+    else:
+        name, kw = "fused_ef_topk", {"k": int(mode.split(":")[1])}
+    want = getattr(tu, name)(p, ref, e, **kw)
+    e2 = None if e is None else e.clone()
+    dec, res = _launched(name, lambda: getattr(tvu, name)(p, ref, e2, **kw))
+    assert torch.equal(dec, want[0])
+    assert (res is None) == (want[1] is None)
+    if res is not None:
+        assert res is e2 and torch.equal(res, want[1])
+        assert torch.equal(res + dec, want[1] + want[0])
+    # dec written over the payload buffer itself (the engine's S-SGD path)
+    p2 = p.clone()
+    e3 = None if e is None else e.clone()
+    dec2, _ = _launched(name, lambda: getattr(tvu, name)(p2, ref, e3,
+                                                          out=p2, **kw))
+    assert dec2 is p2 and torch.equal(p2, want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vrl", "bvr0.5", "bvr1", "avg"])
+@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("r", [MR, 1237])
+def test_cuda_kernels_fold_overlap_bitwise(kind, capture, r):
+    dev = _cuda_or_skip()
+    (p, pend, d, b, *_), xbar = _state(12, r, dev, n=4)
+    pend_k = torch.tensor([1.0, 2.0, 3.0, 2.0], device=dev)[:MW]
+    inv = torch.reciprocal(pend_k * 0.05)[:, None]
+    km = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)[:MW, None]
+    wscal = torch.cat([inv, km], dim=1).contiguous()
+    if kind == "avg":
+        name, args, kw = "fused_fold_overlap_avg", (p, xbar, pend, wscal), {}
+        inplace = (0, 2)
+    elif kind == "vrl":
+        name, args, kw = ("fused_fold_overlap", (p, xbar, pend, d, wscal),
+                          {})
+        inplace = (0, 2, 3)
+    else:
+        name = "fused_fold_overlap_bvr"
+        args, kw = (p, xbar, pend, d, b, wscal), {"beta": float(kind[3:])}
+        inplace = (0, 2, 3, 4)
+    want = getattr(tu, name)(*args, capture=capture, **kw)
+    got_args = [a.clone() if i in inplace else a for i, a in enumerate(args)]
+    got = _launched(name, lambda: getattr(tvu, name)(*got_args,
+                                                     capture=capture, **kw))
+    assert len(got) == len(want)
+    _assert_equal(got, want)
+    if not capture:
+        assert torch.equal(got_args[2], pend)     # pend left as it was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "topk:8"])
+@pytest.mark.parametrize("c", [128, 512, 1024])
+def test_cuda_kernels_ef_other_lane_counts(mode, c):
+    """Rows of 128, 512 and 1,024 lanes (``EngineConfig.lanes``): one, four
+    and eight float4 groups per lane of the warp."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(13)
+    p, e = (torch.from_numpy(rng.randn(MW, 333, c).astype(np.float32))
+            .to(dev) for _ in range(2))
+    ref = torch.from_numpy(rng.randn(333, c).astype(np.float32)).to(dev)
+    p[:, 0] = 0.0
+    if mode == "int8":
+        name, kw = "fused_ef_int8", {}
+    else:
+        name, kw = "fused_ef_topk", {"k": int(mode.split(":")[1])}
+    want = getattr(tu, name)(p, ref, e, **kw)
+    got = _launched(name, lambda: getattr(tvu, name)(p, ref, e.clone(),
+                                                     **kw))
     _assert_equal(got, want)

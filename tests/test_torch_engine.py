@@ -318,3 +318,78 @@ def test_schedule_and_moment_options(setup):
     # SM3 factors Adam's nu only: inert for momentum, as in the reference
     teng.make_engine(_mcfg(TVRL, "vrl_sgd", "momentum", sm3=True),
                      template_t)
+
+
+# ------------------------------------------ compressed and overlapped rounds
+ROUND_CASES = [("vrl_sgd", "int8", False), ("vrl_sgd", None, True),
+               ("bvr_l_sgd", "topk:32", True), ("vrl_sgd", "int8", True),
+               ("local_sgd", "topk:4", True), ("easgd", "int8:noef", False)]
+
+
+@pytest.mark.parametrize("alg,compress,overlap", ROUND_CASES)
+def test_round_trajectory_compressed_overlapped(setup, alg, compress,
+                                                overlap):
+    """The smoke qwen2 layout (2,560 rows), VRL-SGD-W rounds of 1, K, K, K
+    through the port's ``round_step_flat``, compressed and/or overlapped,
+    against the reference's local steps and sync (or round_begin/
+    round_fold) on the same gradients: params atol 1e-5, Δ and B atol
+    1e-5/γ (the fold scales by 1/(pend_k γ), the sync by 1/(k γ)), except
+    where an int8 level flipped between the packages' roundings: at most a
+    few such elements, each within twice the summed step of its row over
+    the run's communications; top-k is held to atol
+    (``tests/test_torch_compress.py``)."""
+    from repro.comm import compressors as jcc
+    from repro_torch.comm import compressors as tcc
+    from test_torch_compress import close_or_flipped, step_bound
+    template_j, template_t, params_j = setup
+    kw = dict(algorithm=alg, comm_period=K, learning_rate=LR, warmup=True,
+              overlap=overlap)
+    ej = jeng.make_engine(JVRL(update_backend="xla", compress=None if
+                               compress is None else
+                               jcc.parse_compressor(compress), **kw),
+                          template_j)
+    et = teng.make_engine(TVRL(compress=None if compress is None else
+                               tcc.parse_compressor(compress), **kw),
+                          template_t)
+    sj = ej.init(params_j, W)
+    st = et.init(from_numpy(jax.tree.map(np.asarray, params_j)), W)
+    assert (et.round_begin is None) == (not overlap)
+    local_j = jax.jit(ej.local_step)
+    ks = ([1] if teng.get_spec(alg).warmup_aware else []) + [K, K, K]
+    bound = 0.0
+    for r, k in enumerate(ks):
+        gk = _grad_stack(ej.spec, k, seed=60 + r)
+        xbar = ej.round_begin(sj, k) if overlap else None
+        for g in gk:
+            sj = local_j(sj, jflat.unflatten_stacked(ej.spec,
+                                                     jnp.asarray(g)))
+        if compress is not None and not overlap:
+            x = np.asarray(sj.params) - np.asarray(sj.comm.ref)[None]
+            if not isinstance(sj.comm.resid, tuple):
+                x = x + np.asarray(sj.comm.resid)
+            bound += step_bound(compress, x)
+        sj = ej.round_fold(sj, xbar) if overlap else ej.sync(sj)
+        if compress is not None and overlap:
+            bound += step_bound(compress, np.asarray(sj.overlap.pend)
+                                - np.asarray(xbar)[None]
+                                + np.asarray(sj.comm.resid))
+        st = et.round_step_flat(st, torch.from_numpy(gk))
+        assert (st.step, st.last_sync) == (int(sj.step), int(sj.last_sync))
+    pairs = [("params", st.params, sj.params, 1)]
+    for name in ("delta", "bias"):
+        a, b = getattr(st, name), getattr(sj, name)
+        assert isinstance(a, torch.Tensor) == hasattr(b, "shape")
+        if isinstance(a, torch.Tensor):
+            pairs.append((name, a, b, 1 / LR))
+    if overlap:
+        pairs.append(("pend", st.overlap.pend, sj.overlap.pend, 1))
+        np.testing.assert_array_equal(st.overlap.pend_k.numpy(),
+                                      np.asarray(sj.overlap.pend_k))
+    if compress is not None:
+        pairs.append(("ref", st.comm.ref, sj.comm.ref, 1))
+        if compress != "int8:noef":
+            pairs.append(("resid", st.comm.resid, sj.comm.resid, 1))
+    flips = {name: close_or_flipped(a.numpy(), b, 1e-5 * scale,
+                                    2 * bound * scale, name, compress)
+             for name, a, b, scale in pairs}
+    print(f"{alg}+{compress}, overlap={overlap}: flipped elements {flips}")

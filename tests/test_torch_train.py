@@ -201,6 +201,7 @@ def test_port_imports_neither_jax_nor_repro():
         "n.startswith(('jax.', 'jaxlib')) or n == 'repro' or "
         "n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert 'repro_torch.comm.compressors' in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -321,3 +322,116 @@ def test_launch_train_every_flat_algorithm_on_cpu(capsys, alg):
     assert out[-1].startswith("kernels: ")
     if alg == "stl_sgd":
         assert "comm schedule: stages ((1, 4), (2, 4))" in "\n".join(out)
+
+
+SLICE_COMM_CASES = [("vrl_sgd", "int8", False), ("bvr_l_sgd", "topk:32", True),
+                    ("vrl_sgd", None, True), ("local_sgd", "int8", True)]
+
+
+@pytest.mark.parametrize("alg,compress,overlap", SLICE_COMM_CASES)
+def test_slice_compressed_overlapped_matches_reference(alg, compress,
+                                                       overlap):
+    """``make_train_step`` with ``compress`` and/or ``overlap`` against the
+    reference's, free-running from the same softened start (rounds of 1,
+    2, 2, 2): per-step losses rtol 1e-5; final params atol 1e-5, Δ and B
+    atol 1e-5/γ, except at most a few elements where an int8 level or a
+    top-k pick flipped between the packages' roundings (the free-running
+    models' matmuls round apart), each held to twice the summed step of
+    its row over the run's communications — one int8 level, or the row's
+    kth-largest |payload| (``tests/test_torch_compress.py``).  The
+    reference runs its local steps, sync and round_begin/round_fold one by
+    one, so the payload of each communication can be read."""
+    from repro.comm import compressors as jcc
+    from repro_torch.comm import compressors as tcc
+    from test_torch_compress import close_or_flipped, step_bound
+    kw = dict(algorithm=alg, comm_period=K, learning_rate=LR, warmup=True,
+              overlap=overlap)
+    jb = j_make(CFG_J, JVRL(update_backend="xla", compress=None if
+                            compress is None else
+                            jcc.parse_compressor(compress), **kw),
+                remat=False)
+    tb = t_make(CFG_T, TVRL(compress=None if compress is None else
+                            tcc.parse_compressor(compress), **kw),
+                device="cpu")
+    params = JT.init_params(CFG_J, jax.random.PRNGKey(0))
+    attn = params["layers"]["attn"]
+    attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+    js = jb.engine.init(params, W)
+    ts = tb.engine.init(from_numpy(jax.tree.map(np.asarray, params)), W)
+    data = j_stream(j_assign(W, W), S, CFG_J.vocab_size, steps=7, batch=B,
+                    alpha=0.05, seed=0)
+    local_j = jax.jit(jb.local_step)
+    ej = jb.engine
+    t, bound = 0, 0.0
+    rounds = (1, K, K, K) if teng_spec(alg).warmup_aware else (K, K, K)
+    for rk in rounds:
+        toks = data[t:t + rk]
+        labels = np.roll(toks, -1, axis=-1)
+        xbar = ej.round_begin(js, rk) if overlap else None
+        lj = []
+        for i in range(rk):
+            js, loss = local_j(js, jnp.asarray(toks[i]),
+                               jnp.asarray(labels[i]))
+            lj.append(float(loss))
+        if compress is not None and not overlap:
+            x = np.asarray(js.params) - np.asarray(js.comm.ref)[None]
+            bound += step_bound(compress, x + np.asarray(js.comm.resid))
+        js = ej.round_fold(js, xbar) if overlap else jb.sync_step(js)
+        if compress is not None and overlap:
+            bound += step_bound(compress, np.asarray(js.overlap.pend)
+                                - np.asarray(xbar)[None]
+                                + np.asarray(js.comm.resid))
+        ts, lt = tb.round_step(ts, _tok(toks), _tok(labels))
+        t += rk
+        np.testing.assert_allclose(lt.numpy(), np.array(lj), rtol=1e-5)
+        assert (ts.step, ts.last_sync) == (int(js.step), int(js.last_sync))
+    pairs = [("params", ts.params, js.params, 1.0)]
+    for name in ("delta", "bias"):
+        a, b = getattr(ts, name), getattr(js, name)
+        assert isinstance(a, torch.Tensor) == hasattr(b, "shape")
+        if isinstance(a, torch.Tensor):
+            pairs.append((name, a, b, 1 / LR))
+    if overlap:
+        pairs.append(("pend", ts.overlap.pend, js.overlap.pend, 1.0))
+    for name, a, b, scale in pairs:
+        n = close_or_flipped(a.numpy(), b, 1e-5 * scale, 2 * bound * scale,
+                             name, compress, picks=True)
+        print(f"{alg}+{compress}, overlap={overlap}: {name} {n} flipped")
+
+
+def teng_spec(alg):
+    from repro_torch.core import engine as teng
+    return teng.get_spec(alg)
+
+
+def test_launch_train_compress_and_overlap_on_cpu(capsys):
+    """``--compress int8 --overlap`` runs at smoke size; blocking
+    ``--compress`` logs the EF term beside Σ_i Δ_i, and Σ_i Δ_i moves by
+    it to fp32 rounding; refusals exit with the reason."""
+    args = ["--smoke", "--device", "cpu", "--workers", "2", "--steps", "6",
+            "--k", "2", "--batch", "2", "--seq", "16", "--lr", "0.05",
+            "--warmup", "--log-every", "1"]
+    res = t_launch.run(args + ["--compress", "int8", "--overlap"])
+    out = capsys.readouterr().out
+    assert "overlap: sync worker mean taken at round start" in out
+    assert "compress: int8 — sync wire 0.52 MiB (4.8x)" in out
+    assert [l.split(")")[0] for l in out.splitlines()
+            if l.startswith("step")] == [
+        "step     1 (round 1", "step     3 (round 2", "step     5 (round 3",
+        "step     6 (tail"]
+    assert len(res.losses) == 6 and np.all(np.isfinite(res.losses))
+    # the tail takes local steps only: the last fold was at step 5
+    assert (res.state.step, res.state.last_sync) == (6, 5)
+    assert all(s <= 1e-4 * m for _, s, m in res.invariant)
+    assert res.ef_identity == []
+    res = t_launch.run(args + ["--compress", "topk:8"])
+    out = capsys.readouterr().out
+    assert out.count("EF term max|sum_i (e_i - e'_i)|/(k lr)") == 3
+    assert len(res.ef_identity) == 3
+    for (_, ef_t, resid), (_, _, max_d) in zip(res.ef_identity,
+                                               res.invariant):
+        assert ef_t > 0 and resid <= 1e-4 * max_d
+    for bad, why in ((["--compress", "int9"], "--compress"),
+                     (["--overlap", "--algorithm", "ssgd"], "overlap")):
+        with pytest.raises(SystemExit, match=why):
+            t_launch.run(args + bad)

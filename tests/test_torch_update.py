@@ -331,3 +331,97 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take():
         tvu.fused_sync_easgd(p, xbar, xbar[:-1], a=0.1, na=0.3)
     with pytest.raises(TypeError):
         tvu.fused_sync_easgd(p, xbar, xbar.double(), a=0.1, na=0.3)
+
+
+# ------------------------------------------------ overlapped-round fold
+def _wscal(w=W):
+    """(W, 2) [1/(pend_k γ), km] with pend_k ∈ {1, 2, 3} and km mixed."""
+    pend_k = np.array([1.0, 2.0, 3.0, 2.0][:w], np.float32)
+    inv = np.float32(1.0) / (pend_k * np.float32(0.05))
+    km = np.array([0.0, 1.0, 0.0, 1.0][:w], np.float32)
+    return np.stack([inv, km], axis=1)
+
+
+FOLD_CASES = [(kind, capture) for kind in ("vrl", "bvr0.5", "bvr1", "avg")
+              for capture in (False, True)]
+
+
+def _fold_call(mod, kind, p, xbar, pend, d, b, wscal, capture, **kw):
+    if kind == "avg":
+        return mod.fused_fold_overlap_avg(p, xbar, pend, wscal,
+                                          capture=capture, **kw)
+    if kind == "vrl":
+        return mod.fused_fold_overlap(p, xbar, pend, d, wscal,
+                                      capture=capture, **kw)
+    return mod.fused_fold_overlap_bvr(p, xbar, pend, d, b, wscal,
+                                      beta=float(kind[3:]), capture=capture,
+                                      **kw)
+
+
+@pytest.mark.parametrize("kind,capture", FOLD_CASES)
+def test_plain_fold_overlap_bitwise_xla(kind, capture):
+    p, g, d, xbar = _inputs(seed=18)
+    pend, b = p + 0.1 * g, 0.5 * g
+    ws = _wscal()
+    got = _fold_call(tu, kind, _t(p), _t(xbar), _t(pend), _t(d), _t(b),
+                     _t(ws), capture)
+    want = _fold_call(jxu, kind, _j(p), _j(xbar), _j(pend), _j(d), _j(b),
+                      _j(ws), capture)
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind,capture", FOLD_CASES)
+def test_plain_fold_overlap_vs_pallas_interpret(kind, capture):
+    """p' and pend' bitwise (their products are by km ∈ {0, 1}: exact);
+    Δ' and B' within the ulps of the products interpret-mode Pallas may
+    contract into an FMA (c·s₀, (1−β)B, β·c·s₀) and of the result."""
+    p, g, d, xbar = _inputs(seed=19)
+    pend, b = p + 0.1 * g, 0.5 * g
+    ws = _wscal()
+    got = [x.numpy() for x in _fold_call(
+        tu, kind, _t(p), _t(xbar), _t(pend), _t(d), _t(b), _t(ws), capture)]
+    want = [np.asarray(x) for x in _fold_call(
+        jvu, kind, _j(p), _j(xbar), _j(pend), _j(d), _j(b), _j(ws), capture,
+        block=BLOCK, interpret=True)]
+    assert len(got) == len(want)
+    np.testing.assert_array_equal(got[0], want[0])
+    if capture:
+        np.testing.assert_array_equal(got[-1], want[-1])
+    f = np.float32
+    c = xbar[None] - pend
+    inv = ws[:, 0][:, None, None]
+    if kind != "avg":
+        np.testing.assert_array_less(np.abs(got[1] - want[1]),
+                                     _ulp(c * inv, want[1]) + 1e-30)
+    if kind.startswith("bvr"):
+        beta = f(kind[3:])
+        tol = _ulp(f(1 - beta) * b, beta * c * inv, want[2]) + 1e-30
+        np.testing.assert_array_less(np.abs(got[2] - want[2]), tol)
+
+
+def test_fold_wrappers_on_cpu_write_in_place_and_reject():
+    p, g, d, xbar = (_t(x) for x in _inputs(seed=20))
+    pend, b, ws = p + 0.1 * g, 0.5 * g, _t(_wscal())
+    tvu.reset_launches()
+    want = tu.fused_fold_overlap_bvr(p, xbar, pend, d, b, ws, beta=0.5)
+    bufs = [x.clone() for x in (p, pend, d, b)]
+    out = tvu.fused_fold_overlap_bvr(bufs[0], xbar, bufs[1], bufs[2],
+                                     bufs[3], ws, beta=0.5)
+    assert [o is x for o, x in zip(out, (bufs[0], bufs[2], bufs[3],
+                                         bufs[1]))] == [True] * 4
+    assert all(torch.equal(a, w) for a, w in zip(out, want))
+    pend2 = pend.clone()
+    out = tvu.fused_fold_overlap(p.clone(), xbar, pend2, d.clone(), ws,
+                                 capture=False)
+    assert len(out) == 2 and torch.equal(pend2, pend)
+    out = tvu.fused_fold_overlap_avg(p.clone(), xbar, pend.clone(), ws)
+    assert len(out) == 2
+    assert not any(tvu.LAUNCHES.values()), tvu.LAUNCHES
+    with pytest.raises(ValueError, match="wscal"):
+        tvu.fused_fold_overlap(p, xbar, pend, d, ws[:, :1].contiguous())
+    with pytest.raises(ValueError, match="xbar"):
+        tvu.fused_fold_overlap(p, xbar[:-1], pend, d, ws)
+    with pytest.raises(ValueError):
+        tvu.fused_fold_overlap(p, xbar, pend[:, :-1], d, ws)
