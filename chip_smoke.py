@@ -11,7 +11,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
    is a failure, as is a directory without the repo's sources.
 2. build — compile every CUDA kernel of the training paths from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
-3. kernels — each of the eleven kernels' wrappers against its plain
+3. kernels — each of the fifteen kernels' wrappers against its plain
    PyTorch version on the card, on random fp32 inputs made with numpy from
    a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
    R=1,237), over the variants: with and without Δ (and B), wd 0 and 1e-4,
@@ -20,18 +20,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
    without ref and EF, on rows with ± ties, all-zero rows and rows with
    fewer than k non-zeros mixed in; the overlap fold vrl, bvr (β ∈ {0.5,
    1}) and avg, capture on and off, the miss mask mixed 0/1 over the
-   workers and pend_k ∈ {1, 2, 3}.  Required: BITWISE equality.  Then the
-   main paths' full shape (qwen2-0.5b: W=4, R=1,930,240, C=256), one rule
-   for all eleven: bitwise again one worker slice at a time (to bound
-   memory), then the kernel's time in place on the whole buffer and its
-   plain version's worker slice by worker slice (their temporaries at W=4
-   do not all fit beside the inputs), CUDA events, beside the bound (bytes
-   moved over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is
-   larger; H100 SXM data sheet).  The library calls: ``torch._fused_sgd_``
-   for fused_local_momentum without Δ or B, held to the plain version
-   (rtol 1e-5) and timed on the same operands; ``torch.topk(|payload|, k,
-   dim=-1)`` beside fused_ef_topk, which does only the selection part of
-   its function (a partial yardstick).
+   workers and pend_k ∈ {1, 2, 3}.  The hierarchy's four over (P, D, R)
+   = (2, 3, 4,096), (3, 2, 1,237), (4, 1, 4,096) and (1, 4, 1,237), the
+   special rows in p, wd 0 and 1e-4, k_eff ∈ {1, 2, 3}, the fold with and
+   without capture and the miss mask 0, 1 and mixed over the pods.
+   Required: BITWISE equality.  Then the main paths' full shape
+   (qwen2-0.5b: W=4, R=1,930,240, C=256; the hierarchy's as (P, D) = (2,
+   2)), one rule for all fifteen: bitwise again one worker (pod) slice at
+   a time (to bound memory), then the kernel's time in place on the whole
+   buffer and its plain version's slice by slice (their temporaries at
+   W=4 do not all fit beside the inputs), CUDA events, beside the bound
+   (bytes moved over 3.35 TB/s, or fp32 operations over 67 TFLOP/s,
+   whichever is larger; H100 SXM data sheet).  The library calls:
+   ``torch._fused_sgd_`` for fused_local_momentum without Δ or B, held to
+   the plain version (rtol 1e-5) and timed on the same operands;
+   ``torch.topk(|payload|, k, dim=-1)`` beside fused_ef_topk, which does
+   only the selection part of its function (a partial yardstick).  No
+   PyTorch call computes the hierarchy's four.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -73,6 +78,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (f) local_sgd + sgd, ``overlap=True`` (rounds of 2, 2, 2, 2) at
      ``LOCAL_OVERLAP_LR``: fused_local_sgd 8, fused_fold_overlap_avg 4.
      Every loss finite.
+   - (g) hier_vrl_sgd + sgd on a (2, 2) grid, k1 = 2, k2 = 4, through
+     ``repro_torch.launch.train`` (8 steps, rounds of 2): fused_hier_local_sgd
+     8, fused_sync_hier1 4, fused_sync_hier2 2, no flat kernel.  Every
+     logged loss finite; after the last round max_p max|Σ_d Δ1[p, d]| and
+     max|Σ_p Δ2[p]| within 1e-4 · the run's largest |Δ1| (|Δ2|) plus the
+     fp32 rounding of the means, 2 n ulp(max|p|)/(k1 γ) per round (n = D,
+     P).  The device ms of every round's spans are printed.
+   - (h) the same with ``--overlap`` (12 steps): fused_hier_local_sgd 12,
+     fused_sync_hier1 6, fused_fold_overlap_hier2 3 (the first fold's
+     correction is exactly 0, since pend = x0), fused_sync_hier2 0.
+   The CLI paths' peak memory is the most allocated during a round, as
+   the train paths' is (``TrainResult.round_peak_bytes``).
    γ: the model's init rule (the reference's: fan-in taken as
    ``shape[-2]``, the head count for wq/wk) makes the first gradient grow
    with depth — ~1e12 at 24 layers — so at γ = 0.05 the activations
@@ -109,7 +126,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
    CPU run's communications (read from each payload as the CPU run's EF
    wrappers receive it); losses rtol 1e-4.  ssgd + topk:4 runs at
    γ = 0.01: at 0.05 its error-feedback bursts blow the smoke model up
-   within 6 steps.
+   within 6 steps.  Then hier_vrl_sgd at W = 4, (P, D) = (2, 2), k1 = 2,
+   k2 = 4, blocking and overlapped (8 steps): losses rtol 1e-4, params and
+   pend atol 1e-4, Δ1 1e-4/(k1 γ), Δ2 1e-4/(k2 γ); and one pod, (1, 4) at
+   k1 = k2 = 2, BITWISE the card's flat vrl_sgd at k = 2.
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -147,8 +167,15 @@ KERNEL_SOURCES = {
     "fused_ef_topk": ("comm_update.cu", 755),
     "fused_fold_overlap": ("comm_update.cu", 521),
     "fused_fold_overlap_bvr": ("comm_update.cu", 537),
-    "fused_fold_overlap_avg": ("comm_update.cu", 546)}
+    "fused_fold_overlap_avg": ("comm_update.cu", 546),
+    "fused_hier_local_sgd": ("vrl_update.cu", 803),
+    "fused_sync_hier1": ("vrl_update.cu", 971),
+    "fused_sync_hier2": ("vrl_update.cu", 1003),
+    "fused_fold_overlap_hier2": ("vrl_update.cu", 570)}
 KERNELS = tuple(KERNEL_SOURCES)
+HIER_KERNELS = KERNELS[-4:]
+HIER_FULL = (2, 2, 1_930_240, 256)      # the same W=4 as a (P, D) grid
+HIER_MODERATE = ((2, 3, 4_096), (3, 2, 1_237), (4, 1, 4_096), (1, 4, 1_237))
 MAIN_LR = 1e-3
 MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--seq", "64", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
@@ -192,6 +219,21 @@ def path_f(lr):
 
 
 PATH_E_LAUNCHES = {"fused_local_sgd": 7, "fused_fold_overlap": 4}
+# paths (g) and (h): hier_vrl_sgd on a (2, 2) grid, k1 = 2, k2 = 4, through
+# the CLI, a log line (and its invariant check) after every round
+HIER_K1, HIER_K2 = 2, 4
+HIER_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
+             "--seq", "64", "--lr", str(MAIN_LR), "--algorithm",
+             "hier_vrl_sgd", "--pods", "2", "--k1", str(HIER_K1), "--k2",
+             str(HIER_K2), "--log-every", "1"]
+PATH_G = (HIER_ARGS + ["--steps", "8"],
+          {"fused_hier_local_sgd": 8, "fused_sync_hier1": 4,
+           "fused_sync_hier2": 2})
+# 6 rounds: sync1 at each, the stale fold at steps 4, 8, 12 (the first's
+# correction exactly 0: pend = x0)
+PATH_H = (HIER_ARGS + ["--steps", "12", "--overlap"],
+          {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
+           "fused_fold_overlap_hier2": 3})
 TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
 
 
@@ -286,6 +328,35 @@ def fold_cost(w, r, c, bufs, capture, flops):
     return 4 * ((2 * bufs + 1 + capture) * n + r * c + 2 * w), flops * n
 
 
+# the hierarchy's, over (P, D, R, C) with n = P·D·R·C worker elements and
+# m = P·R·C per-pod elements (Δ2, x̂_pod, pend2)
+def hier_local_cost(pp, dd, r, c, wd=1e-4):
+    """Read p, g, Δ1 and Δ2 once, write p; sub, sub, [mul, add], mul, sub."""
+    n, m = pp * dd * r * c, pp * r * c
+    return 4 * (4 * n + m), n * (4 + (2 if wd else 0))
+
+
+def hier_sync1_cost(pp, dd, r, c):
+    """Read p, Δ1, x̂_pod and kγ, write p and Δ1; sub, div, add."""
+    n, m = pp * dd * r * c, pp * r * c
+    return 4 * (4 * n + m) + 4, 3 * n
+
+
+def hier_sync2_cost(pp, dd, r, c):
+    """Read the pod value (worker 0), Δ2, x̂ and kγ, write p and Δ2; sub,
+    div, add per pod element."""
+    n, m = pp * dd * r * c, pp * r * c
+    return 4 * (n + 3 * m + r * c) + 4, 3 * m
+
+
+def hier_fold_cost(pp, dd, r, c):
+    """Path (h): capture in the kernel.  Read p, x̂, pend2, Δ2 and wscal,
+    write p, Δ2 and pend2; p + c per worker element, c, c·s₀ + Δ2 and
+    km·pend2 + (1 − km)·p' per pod element."""
+    n, m = pp * dd * r * c, pp * r * c
+    return 4 * (2 * n + 4 * m + r * c + 2 * pp), n + 6 * m
+
+
 COSTS = {"fused_local_sgd": local_cost, "fused_sync_vrl": sync_cost,
          "fused_local_momentum": momentum_cost, "fused_local_adam": adam_cost,
          "fused_sync_bvr": bvr_cost, "fused_sync_easgd": easgd_cost,
@@ -298,7 +369,11 @@ COSTS = {"fused_local_sgd": local_cost, "fused_sync_vrl": sync_cost,
                                                             9),
          # path (f): capture in the kernel
          "fused_fold_overlap_avg": lambda w, r, c: fold_cost(w, r, c, 1, 1,
-                                                            7)}
+                                                            7),
+         "fused_hier_local_sgd": hier_local_cost,
+         "fused_sync_hier1": hier_sync1_cost,
+         "fused_sync_hier2": hier_sync2_cost,
+         "fused_fold_overlap_hier2": hier_fold_cost}
 
 # which arguments each kernel writes in place (the rest are read only)
 INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
@@ -307,7 +382,9 @@ INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
            "fused_ef_int8": (2,), "fused_ef_topk": (2,),
            "fused_fold_overlap": (0, 2, 3), "fused_fold_overlap_bvr": (0, 2,
                                                                        3, 4),
-           "fused_fold_overlap_avg": (0, 2)}
+           "fused_fold_overlap_avg": (0, 2), "fused_hier_local_sgd": (0,),
+           "fused_sync_hier1": (0, 2), "fused_sync_hier2": (0, 2),
+           "fused_fold_overlap_hier2": (0, 2, 3)}
 
 
 def kg_scal(k_eff, dev):
@@ -353,24 +430,26 @@ class KernelChecks:
                                  f"version (max abs err {e})")
         self.count += 1
 
-    def full_shape(self, name, args, **kw):
+    def full_shape(self, name, args, ndim=3, **kw):
         """The kernel on each cloned (1, R, C) worker slice against the
         plain version on the same slice; ``args`` hold (W, R, C) worker
-        buffers and shared operands."""
+        buffers and shared operands (``ndim=4``: the hierarchy's (P, D, R,
+        C) and (P, 1, R, C) buffers, pod by pod)."""
         w = args[0].shape[0]
         for i in range(w):
-            sl_args, sl_kw = worker_slice(i, args, kw, w)
-            self.run(name, sl_args, f"full shape, worker {i}", **sl_kw)
+            sl_args, sl_kw = worker_slice(i, args, kw, w, ndim)
+            self.run(name, sl_args, f"full shape, slice {i}", **sl_kw)
             del sl_args, sl_kw
             gc.collect()
 
 
-def worker_slice(i, args, kw, w):
+def worker_slice(i, args, kw, w, ndim=3):
     """Worker i's (1, R, C) slice of every (W, R, C) buffer among the
     arguments (positional and keyword), and its row of the folds' (W, 2)
-    per-worker scalars; shared operands as they are."""
+    per-worker scalars; shared operands as they are.  ``ndim=4``: pod i's
+    slice of every (P, D, R, C) and (P, 1, R, C) buffer and of (P, 2)."""
     def one(a):
-        if isinstance(a, torch.Tensor) and a.dim() == 3:
+        if isinstance(a, torch.Tensor) and a.dim() == ndim:
             return a[i:i + 1]
         if isinstance(a, torch.Tensor) and tuple(a.shape) == (w, 2):
             return a[i:i + 1].clone()       # a 16-byte aligned copy
@@ -442,6 +521,40 @@ def moderate_checks(chk, vu, tu, dev):
     return plain_moderate
 
 
+def hier_moderate_checks(chk, dev):
+    """Phase 3 for the hierarchy's four kernels over (P, D, R, C) grids:
+    (2, 3) and (3, 2) pods × workers, one worker per pod, one pod; the
+    special rows in p; wd 0 and 1e-4, k_eff 1, 2, 3; the fold with and
+    without capture and the miss mask all 0, all 1 and mixed."""
+    for seed, (pp, dd, r) in enumerate(HIER_MODERATE):
+        rng = np.random.RandomState(100 + seed)
+
+        def arr(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    ).to(dev)
+        p, g, d1 = (arr(pp, dd, r, 256) for _ in range(3))
+        p = special_rows(p.view(-1, r, 256)).view(p.shape)
+        d2, xpod, pend = (arr(pp, 1, r, 256) for _ in range(3))
+        glob = arr(r, 256)
+        shape = f"P={pp}, D={dd}, R={r}"
+        for wd in (0.0, 1e-4):
+            chk.run("fused_hier_local_sgd", (p, g, d1, d2),
+                    f"({shape}, wd={wd})", lr=LR, wd=wd)
+        for k_eff in (1, 2, 3):
+            chk.run("fused_sync_hier1", (p, xpod, d1, kg_scal(k_eff, dev)),
+                    f"({shape}, k_eff={k_eff})")
+            chk.run("fused_sync_hier2", (p, glob, d2, kg_scal(k_eff, dev)),
+                    f"({shape}, k_eff={k_eff})")
+        for km in ((0,), (1,), (0, 1)):
+            ws = wscal_for(pp, dev, (1, 2, 3), km)
+            for capture in (False, True):
+                chk.run("fused_fold_overlap_hier2", (p, glob, pend, d2, ws),
+                        f"({shape}, km={km}, capture={capture})",
+                        capture=capture)
+        del p, g, d1, d2, xpod, pend, glob
+        free()
+
+
 def special_rows(p: torch.Tensor) -> torch.Tensor:
     """Rows 0-3 of every worker set to the round trip's hard cases: ± ties
     at the top magnitudes, all zeros, fewer non-zeros than the smallest k
@@ -501,7 +614,7 @@ def free() -> None:
 
 def full_shape(chk, vu, tu, dev):
     """Phase 3 at the full shape with the main paths' operands, one rule
-    for all eleven kernels: bitwise worker slice by worker slice, then the
+    for all fifteen kernels: bitwise worker slice by worker slice, then the
     kernel's time in place on the whole buffer and the plain version's
     slice by slice.  Returns {kernel: ms}, {kernel: plain ms} and
     {kernel: library ms or None}."""
@@ -516,12 +629,13 @@ def full_shape(chk, vu, tu, dev):
     def randn(shape=FULL):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def measure(name, args, **kw):
-        chk.full_shape(name, args, **kw)
+    def measure(name, args, ndim=3, **kw):
+        chk.full_shape(name, args, ndim=ndim, **kw)
         times[name] = time_ms(lambda: getattr(vu, name)(*args, **kw), 10,
                               warmup=2)
         fn = getattr(tu, name)
-        slices = [worker_slice(i, args, kw, w) for i in range(w)]
+        n = args[0].shape[0]
+        slices = [worker_slice(i, args, kw, n, ndim) for i in range(n)]
 
         def run():
             for sl_args, sl_kw in slices:
@@ -582,6 +696,30 @@ def full_shape(chk, vu, tu, dev):
     measure("fused_fold_overlap_avg", (p, xbar, pend, ws), capture=True)
     del p, xbar, pend, d, b, ws
     free()
+    # the hierarchy's kernels with paths (g) and (h)'s operands, at (P, D)
+    # = (2, 2): bitwise pod by pod, the plain versions timed pod by pod
+    pod = HIER_FULL[:1] + (1,) + HIER_FULL[2:]
+    p, g, d1, d2 = randn(HIER_FULL), randn(HIER_FULL), randn(HIER_FULL), \
+        randn(pod)
+    measure("fused_hier_local_sgd", (p, g, d1, d2), ndim=4, lr=LR, wd=1e-4)
+    del g
+    free()
+    p.normal_(generator=gen)
+    xpod = p.mean(dim=1, keepdim=True)
+    measure("fused_sync_hier1", (p, xpod, d1, kg_scal(2, dev)), ndim=4)
+    del xpod, d1
+    free()
+    p.normal_(generator=gen)
+    glob = p[:, :1].mean(dim=(0, 1))
+    measure("fused_sync_hier2", (p, glob, d2, kg_scal(4, dev)), ndim=4)
+    # (h)'s fold: capture, pend_k = 4 (k2), no misses
+    p.normal_(generator=gen)
+    pend = randn(pod)
+    measure("fused_fold_overlap_hier2",
+            (p, glob, pend, d2, wscal_for(HIER_FULL[0], dev, (4,), (0,))),
+            ndim=4, capture=True)
+    del p, d2, glob, pend
+    free()
     return times, plain, library
 
 
@@ -630,13 +768,14 @@ def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
     return t
 
 
-def cli_path(tag, argv, want_launches, launch, vu):
+def cli_path(tag, argv, want_launches, launch, vu, grid=None):
     """A full-width path through ``repro_torch.launch.train``: launch
     counts, finite logged losses, the flat layout, and Σ_i Δ_i after the
     last sync (or fold) against the largest |Δ| the run logged (its first
     sync's, here: the fp32 rounding residue of each sync stays in Σ Δ after
-    Δ itself shrinks)."""
-    torch.cuda.reset_peak_memory_stats()
+    Δ itself shrinks).  ``grid``: hier_vrl_sgd's (P, D); then Σ_d Δ1 within
+    every pod and Σ_p Δ2 instead (``hier_sums``).  The peak is the CLI's,
+    over its rounds alone."""
     vu.reset_launches()
     res = launch.run(argv)
     launches = dict(vu.LAUNCHES)
@@ -644,22 +783,55 @@ def cli_path(tag, argv, want_launches, launch, vu):
     logged = res.losses + res.avg_model_losses
     if not all(math.isfinite(x) for x in logged):
         raise AssertionError(f"path {tag}: non-finite loss {logged}")
-    _, sum_d, _ = res.invariant[-1]
-    max_d = max(m for _, _, m in res.invariant)
-    if not (max_d > 0 and sum_d <= 1e-4 * max_d):
-        raise AssertionError(f"path {tag}: Σ_i Δ_i not ~0 after the last "
-                             f"sync: max|ΣΔ| {sum_d} vs max|Δ| {max_d}")
     spec = res.engine.spec
     if (spec.size, spec.rows, spec.lanes) != (494_032_768, 1_930_240, 256):
         raise AssertionError(f"unexpected flat layout {spec.meta()}")
+    if grid is not None:
+        note = "; " + hier_sums(tag, res, grid)
+    else:
+        _, sum_d, _ = res.invariant[-1]
+        max_d = max(m for _, _, m in res.invariant)
+        if not (max_d > 0 and sum_d <= 1e-4 * max_d):
+            raise AssertionError(
+                f"path {tag}: Σ_i Δ_i not ~0 after the last sync: max|ΣΔ| "
+                f"{sum_d} vs max|Δ| {max_d}")
+        note = f"; max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}"
     out = path_result(tag, res.losses, res.wall_s, res.phases_ms, launches,
-                      MAIN_LR)
+                      MAIN_LR, peak=res.round_peak_bytes)
     print_path(out, f"; avg-model "
-               f"{['%.4f' % x for x in res.avg_model_losses]}; max|ΣΔ| "
-               f"{sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}")
+               f"{['%.4f' % x for x in res.avg_model_losses]}" + note)
+    if grid is not None:
+        print(f"[4 main path {tag}] device ms per round: "
+              + ", ".join(f"{k} {['%.3f' % x for x in v]}"
+                          for k, v in res.phases_ms.items()
+                          if k != "fwd_bwd"), flush=True)
     del res
     free()
     return out
+
+
+def hier_sums(tag, res, grid) -> str:
+    """Paths (g), (h): after the last round, max_p max|Σ_d Δ1[p, d]| and
+    max|Σ_p Δ2[p]| within 1e-4 · the largest |Δ1| (|Δ2|) the run logged
+    plus the fp32 rounding of the means the syncs keep: 2 n ulp(max|p|)/
+    (k1 γ) per round (n = D for Δ1, P for Δ2; k1 γ is the smallest divisor
+    any sync or fold of this run uses, so the bound is generous for Δ2)."""
+    pods, dper = grid
+    notes = []
+    for name, log, n in (("Δ1 (per pod)", res.invariant, dper),
+                         ("Δ2", res.bias_invariant, pods)):
+        rounding = sum(2 * n * float(np.spacing(np.float32(mp)))
+                       / (HIER_K1 * MAIN_LR) for _, mp in res.param_max)
+        sum_b = log[-1][1]
+        max_b = max(m for _, _, m in log)
+        limit = 1e-4 * max_b + rounding
+        if not (max_b > 0 and sum_b <= limit):
+            raise AssertionError(f"path {tag}: Σ {name} not ~0 after the "
+                                 f"last round: {sum_b} > {limit}")
+        notes.append(f"max|Σ {name}| {sum_b:.3e} <= {limit:.3e} (1e-4 * "
+                     f"max|{name.split()[0]}| {max_b:.3e} + rounding "
+                     f"{rounding:.3e})")
+    return "; ".join(notes)
 
 
 def check_launches(tag, launches, want_launches):
@@ -941,6 +1113,83 @@ def small_input_agreement(dev) -> None:
     comm_small_input(dev, cfg, params, data, w, k, steps)
 
 
+def hier_small_input(dev) -> None:
+    """hier_vrl_sgd at smoke size, W = 4 (rounds of k1 = 2, 8 steps), on
+    the card against the CPU from the same parameters, blocking and
+    overlapped, at (P, D) = (2, 2), k2 = 4: losses rtol 1e-4, params and
+    pend atol 1e-4, Δ1 1e-4/(k1 γ), Δ2 1e-4/(k2 γ).  Then one pod, (1, 4)
+    at k1 = k2 = 2, against the card's flat vrl_sgd at k = 2 (no warmup):
+    BITWISE, the same worker mean and arithmetic, Δ2 staying 0."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import HierConfig, VRLConfig
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.models import transformer
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = registry.smoke_arch("qwen2-0.5b")
+    w, k1, k2, steps = 4, 2, 4, 8
+    params = transformer.init_params(cfg, seed=0)
+    attn = params["layers"]["attn"]
+    attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+    data = assigned_token_stream(contiguous_assignment(w, w), 16,
+                                 cfg.vocab_size, steps=steps, batch=2,
+                                 alpha=0.05, seed=0)
+
+    def run(vrl, where):
+        bundle = make_train_step(cfg, vrl, device=where)
+        state = bundle.engine.init(
+            tm.tree_map(lambda x: x.to(where), params), w)
+        losses = []
+        for t in range(0, steps, k1):
+            toks = torch.from_numpy(data[t:t + k1]).to(where).long()
+            state, lk = bundle.round_step(state, toks,
+                                          torch.roll(toks, -1, dims=-1))
+            losses += lk.tolist()
+        return np.array(losses), state
+
+    def hier(grid, kk2, overlap=False):
+        return VRLConfig(algorithm="hier_vrl_sgd", learning_rate=LR,
+                         overlap=overlap,
+                         hier=HierConfig(k1=k1, k2=kk2, grid=grid))
+    for overlap in (False, True):
+        vrl = hier((2, 2), k2, overlap)
+        (l_c, s_c), (l_g, s_g) = run(vrl, "cpu"), run(vrl, dev)
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+        bufs = {"params": 1e-4, "delta1": 1e-4 / (k1 * LR),
+                "delta2": 1e-4 / (k2 * LR)}
+        if overlap:
+            bufs["pend"] = 1e-4
+        notes = []
+        for name, atol in bufs.items():
+            a = (s_c.overlap.pend if name == "pend" else getattr(s_c, name))
+            b = (s_g.overlap.pend if name == "pend" else getattr(s_g, name))
+            a, b = a.numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=name)
+            notes.append(f"{name} max diff {np.abs(b - a).max():.2e}")
+        if (s_g.last_sync1, s_g.last_sync2) != (steps, steps):
+            raise AssertionError(f"hier small input: sync counters "
+                                 f"{s_g.last_sync1}, {s_g.last_sync2}")
+        print(f"[5 small input] hier_vrl_sgd (2, 2), k1={k1}, k2={k2}"
+              f"{' + overlap' if overlap else ''}: {steps} steps, card vs "
+              f"CPU: losses max rel diff {np.abs(l_g / l_c - 1).max():.2e}, "
+              + ", ".join(notes), flush=True)
+    l_f, s_f = run(VRLConfig(algorithm="vrl_sgd", comm_period=k1,
+                             learning_rate=LR, warmup=False), dev)
+    l_h, s_h = run(hier((1, w), k1), dev)
+    if not (np.array_equal(l_f, l_h) and torch.equal(s_f.params, s_h.params[0])
+            and torch.equal(s_f.delta, s_h.delta1[0])
+            and not s_h.delta2.any()):
+        raise AssertionError(
+            f"hier (1, {w}) is not bitwise flat vrl_sgd on the card: params "
+            f"{(s_f.params - s_h.params[0]).abs().max().item()}, Δ "
+            f"{(s_f.delta - s_h.delta1[0]).abs().max().item()}, max|Δ2| "
+            f"{s_h.delta2.abs().max().item()}")
+    print(f"[5 small input] hier_vrl_sgd (1, {w}), k1 = k2 = {k1}: bitwise "
+          f"the card's flat vrl_sgd (losses, params, Δ1 = Δ; Δ2 = 0) over "
+          f"{steps} steps", flush=True)
+
+
 SMOKE_ARGS = ["--smoke", "--workers", "2", "--k", "2", "--lr", str(LR),
               "--warmup"]
 
@@ -1128,16 +1377,21 @@ def main() -> int:
     # ------------------------------------------------------ 3 kernels
     chk = KernelChecks(vu, tu)
     plain_moderate = moderate_checks(chk, vu, tu, dev)
+    hier_moderate_checks(chk, dev)
     print(f"[3 kernels] {chk.count} checks bitwise equal to the plain "
-          f"versions at (4, 65536, 256) and (3, 1237, 256); plain at the "
+          f"versions at (4, 65536, 256) and (3, 1237, 256), the hierarchy's "
+          f"at (P, D, R) = {', '.join(map(str, HIER_MODERATE))}; plain at the "
           f"moderate shape: local {plain_moderate['fused_local_sgd']:.3f} "
           f"ms, sync {plain_moderate['fused_sync_vrl']:.3f} ms", flush=True)
 
     times, plain, library = full_shape(chk, vu, tu, dev)
-    bounds = {name: bound_ms(*COSTS[name](*FULL)) for name in KERNELS}
+    shapes = {name: HIER_FULL if name in HIER_KERNELS else FULL
+              for name in KERNELS}
+    bounds = {name: bound_ms(*COSTS[name](*shapes[name])) for name in KERNELS}
     for name in KERNELS:
         b, _ = bounds[name]
-        print(f"[3 kernels] {name} at {FULL}: {times[name]:.3f} ms (bound "
+        print(f"[3 kernels] {name} at {shapes[name]}: {times[name]:.3f} ms "
+              f"(bound "
               f"{b:.3f} ms, {100 * b / times[name]:.1f}% of 3.35 TB/s); "
               f"plain {plain[name]:.3f} ms (slice by slice); max abs err vs "
               f"plain "
@@ -1171,14 +1425,20 @@ def main() -> int:
                      PATH_E_LAUNCHES, launch, vu)
     res_f = train_path("(f) local_sgd+sgd, overlap", *paths["f"], dev, vu)
     print_path(res_f)
+    res_g = cli_path("(g) hier_vrl_sgd+sgd (2, 2)", *PATH_G, launch, vu,
+                     grid=(2, 2))
+    res_h = cli_path("(h) hier_vrl_sgd+sgd (2, 2), --overlap", *PATH_H,
+                     launch, vu, grid=(2, 2))
     # each kernel's launches on the first path that runs it
     main_launches = {}
-    for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f):
+    for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
+                  res_h):
         for name, n in res_p["launches"].items():
             main_launches.setdefault(name, n)
 
     # ------------------------------------------------------ 5 small input
     small_input_agreement(dev)
+    hier_small_input(dev)
 
     kernels = []
     for name in KERNELS:

@@ -1,16 +1,17 @@
 """Config dataclasses — the port's own copy of ``repro.configs.base``.
 
 ``ModelConfig`` and ``reduced`` are copied verbatim so that a config built
-here describes exactly the model the JAX package builds.  ``VRLConfig`` and
-``EngineConfig`` keep only the fields the ported slice reads (the flat
-algorithms with the sgd, momentum and adam inner optimizers on the
+here describes exactly the model the JAX package builds, and so is
+``HierConfig``.  ``VRLConfig`` and ``EngineConfig`` keep only the fields
+the ported slice reads (the flat algorithms with the sgd, momentum and
+adam inner optimizers and two-level hier_vrl_sgd with sgd, on the
 flat-buffer engine); their defaults are the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -94,10 +95,29 @@ class EngineConfig:
 
 
 @dataclass(frozen=True)
+class HierConfig:
+    """Two-level hierarchical VRL-SGD (beyond-paper, STL-SGD direction).
+
+    The worker population is a pod-major ``grid = (P pods, D workers/pod)``.
+    Intra-pod sync (cheap ICI links) runs every ``k1`` steps, cross-pod sync
+    (slow DCI links) every ``k2 >= k1``; each level carries its own VRL
+    correction (Δ1 per worker, Δ2 per pod).  ``axes`` names the mesh axes
+    backing each level as (cross-pod axis, intra-pod axis): level-1 sync
+    lowers to one psum over ``axes[1]``, level-2 to one psum over
+    ``axes[0]``.
+    """
+
+    k1: int = 5
+    k2: int = 20
+    grid: Tuple[int, int] = (2, 4)
+    axes: Tuple[str, str] = ("pod", "data")
+
+
+@dataclass(frozen=True)
 class VRLConfig:
     """The paper's algorithm knobs that the ported slice reads."""
 
-    # vrl_sgd | local_sgd | ssgd | easgd | stl_sgd | bvr_l_sgd
+    # vrl_sgd | local_sgd | ssgd | easgd | hier_vrl_sgd | stl_sgd | bvr_l_sgd
     algorithm: str = "vrl_sgd"
     comm_period: int = 20           # k
     warmup: bool = True             # VRL-SGD-W (Remark 5.3): first period k=1
@@ -120,11 +140,16 @@ class VRLConfig:
     # Supersedes ``warmup`` when set.
     comm_schedule: Optional[object] = None
     delta_dtype: str = "float32"    # accumulator dtype for Δ
+    # two-level hierarchical periods/grid (hier_vrl_sgd; ignored by the
+    # flat algorithms; None = k1 = k2 = comm_period on the default grid)
+    hier: Optional[HierConfig] = None
     # sync-payload compression (a ``comm.CompressorSpec``; stored untyped
     # to keep configs import-free).  ``compress`` drives the flat sync;
     # ``compress2`` overrides the hierarchy's cross-pod sync and falls back
-    # to ``compress`` when unset; the hierarchy is not ported, so the port's
-    # engine refuses it (the reference's flat algorithms ignore it).  None
+    # to ``compress`` when unset.  The hierarchy is ported uncompressed:
+    # its compressed syncs wait for the grid EF kernels, so the port's
+    # engine refuses ``compress2``, and ``compress`` with hier_vrl_sgd
+    # (the reference's flat algorithms ignore ``compress2``).  None
     # / "none" / topk at rate 1 resolve to the uncompressed path, bitwise
     # (``comm.compressors.resolve_pair``).
     compress: Optional[object] = None

@@ -28,11 +28,21 @@ of the positions every worker transmitted at the previous round boundary
 folds the one-round-stale mean in (``fused_fold_overlap{,_bvr,_avg}``) and
 captures the new positions, through the EF round trip under compression.
 
+Two-level hier_vrl_sgd (sync rule "vrl2", ``configs.base.HierConfig``)
+runs over pod-major (P, D, R, C) buffers with Δ1 per worker and Δ2
+(P, 1, R, C) per pod (``_make_hier_engine``): the local step is one
+``fused_hier_local_sgd`` pass, the level-1 sync one pod mean plus
+``fused_sync_hier1``, the level-2 sync one cross-pod mean plus
+``fused_sync_hier2``; under overlap only level 2 is deferred
+(``fused_fold_overlap_hier2``).
+
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
 stl_sgd, bvr_l_sgd) with the sgd, momentum and adam inner optimizers, with
-or without compression and overlap; hier_vrl_sgd, SM3-factored Adam and
-overlap deadlines and ``compress2`` (the hierarchy's) are still to be
-ported (ROADMAP Queue 1), and asking for any of them raises.
+or without compression and overlap, and hier_vrl_sgd with the sgd inner
+optimizer, blocking or overlapped.  Still to be ported (ROADMAP Queue 1),
+and refused with NotImplementedError: the hierarchy with momentum or Adam
+and its compressed syncs (``compress``/``compress2``, the grid EF
+kernels), SM3-factored Adam, and overlap deadlines.
 """
 from __future__ import annotations
 
@@ -43,10 +53,11 @@ import torch
 
 from repro_torch import tree as tree_mod
 from repro_torch.comm import compressors as comm_mod
-from repro_torch.configs.base import VRLConfig
+from repro_torch.configs.base import HierConfig, VRLConfig
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
-from repro_torch.core.types import CommState, FlatWorkerState, OverlapState
+from repro_torch.core.types import (CommState, FlatWorkerState,
+                                    HierFlatState, OverlapState)
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
 
@@ -56,13 +67,15 @@ class AlgoSpec(NamedTuple):
     """An algorithm as a description over the shared engine.
 
     ``sync`` names the rule that runs at period boundaries; "bvr" is the
-    VRL rule plus BVR-L-SGD's bias-variate EMA.
+    VRL rule plus BVR-L-SGD's bias-variate EMA; "vrl2" the two-level
+    hierarchical rule (pod-major grid, ``configs.base.HierConfig``).
     """
 
     name: str
     use_delta: bool        # local step applies v = g − Δ (eq. 6)
     grad_all_reduce: bool  # S-SGD: mean gradients over workers every step
-    sync: str              # "vrl" | "average" | "elastic" | "none" | "bvr"
+    # "vrl" | "average" | "elastic" | "none" | "bvr" | "vrl2"
+    sync: str
     has_center: bool       # EASGD center variable x̃
     warmup_aware: bool     # honors VRLConfig.warmup (first period k=1)
     use_bias: bool = False  # BVR-L-SGD: local step also subtracts B
@@ -79,6 +92,9 @@ ALGO_SPECS = {
                      sync="none", has_center=False, warmup_aware=False),
     "easgd": AlgoSpec("easgd", use_delta=False, grad_all_reduce=False,
                       sync="elastic", has_center=True, warmup_aware=False),
+    "hier_vrl_sgd": AlgoSpec("hier_vrl_sgd", use_delta=True,
+                             grad_all_reduce=False, sync="vrl2",
+                             has_center=False, warmup_aware=False),
     # STL-SGD (Shen et al., 2020): Local SGD whose period grows stagewise;
     # the cadence comes from the CommSchedule (comm_schedule() below), so
     # with a constant schedule the trajectory is bitwise local_sgd.
@@ -95,15 +111,15 @@ ALGO_SPECS = {
                           use_bias=True),
 }
 
-# In the reference, not yet in the port.
-NOT_PORTED = ("hier_vrl_sgd",)
+
+def hier_config(cfg: VRLConfig) -> HierConfig:
+    """The two-level periods/grid; defaults to the flat period at k1=k2."""
+    if cfg.hier is not None:
+        return cfg.hier
+    return HierConfig(k1=cfg.comm_period, k2=cfg.comm_period)
 
 
 def get_spec(name: str) -> AlgoSpec:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to PyTorch yet; see ROADMAP.md "
-            f"Queue 1 (ported: {sorted(ALGO_SPECS)})")
     if name not in ALGO_SPECS:
         raise KeyError(f"unknown algorithm {name!r}; known: "
                        f"{sorted(ALGO_SPECS)}")
@@ -112,7 +128,7 @@ def get_spec(name: str) -> AlgoSpec:
 
 def flat_algorithms() -> Tuple[str, ...]:
     """Names of the flat (non-hierarchical) algorithms, sorted."""
-    return tuple(sorted(ALGO_SPECS))
+    return tuple(n for n, s in sorted(ALGO_SPECS.items()) if s.sync != "vrl2")
 
 
 def comm_schedule(cfg: VRLConfig):
@@ -153,12 +169,13 @@ def should_sync(spec: AlgoSpec, cfg: VRLConfig, step: int,
     return (step - last_sync) >= k
 
 
-def sum_invariant(buf: torch.Tensor) -> Tuple[float, float]:
-    """(max|Σ_i buf_i|, max|buf|) over the worker axis: the paper's
-    invariant Σ_i Δ_i = 0 after every sync (and BVR's Σ_i B_i = 0), and
-    the scale its fp32 rounding residue is relative to.  Reads the state
-    once per value (host sync)."""
-    return (buf.sum(dim=0).abs().max().item(), buf.abs().max().item())
+def sum_invariant(buf: torch.Tensor, dim: int = 0) -> Tuple[float, float]:
+    """(max|Σ_i buf_i|, max|buf|) over the worker axis ``dim``: the paper's
+    invariant Σ_i Δ_i = 0 after every sync (and BVR's Σ_i B_i = 0; the
+    hierarchy's Σ_d Δ1 = 0 within every pod with ``dim=1``, Σ_p Δ2 = 0),
+    and the scale its fp32 rounding residue is relative to.  Reads the
+    state once per value (host sync)."""
+    return (buf.sum(dim=dim).abs().max().item(), buf.abs().max().item())
 
 
 def _ef_op(comp: comm_mod.CompressorSpec, lanes: int) -> Callable:
@@ -199,6 +216,32 @@ def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
             "see ROADMAP.md Queue 1")
 
 
+def _validate_hier(cfg: VRLConfig, kind: str, comp) -> None:
+    """Refuse what the port's hierarchy does not run yet (ROADMAP Queue 1):
+    the momentum and Adam local steps (fused_hier_local_{momentum,adam,
+    adam_sm3}) and the compressed syncs (the grid EF kernels)."""
+    if kind != "sgd":
+        raise NotImplementedError(
+            f"hier_vrl_sgd with the {kind!r} inner optimizer needs the "
+            f"fused_hier_local_{kind} kernel, not ported to PyTorch yet; see "
+            f"ROADMAP.md Queue 1 (the hierarchy runs with sgd)")
+    if comp is not None:
+        raise NotImplementedError(
+            "hier_vrl_sgd with a compressed sync (compress) needs the grid "
+            "EF kernels (fused_ef_int8_grid, fused_ef_topk_grid), not ported "
+            "to PyTorch yet; see ROADMAP.md Queue 1")
+
+
+def _round_grads(grads_k: Any) -> list:
+    """A round's gradients, one entry per step: the (k, ...) buffer's
+    slices, or the tree with (k, ...) leaves cut per step."""
+    if isinstance(grads_k, torch.Tensor):
+        return list(grads_k)
+    k = tree_mod.leaves(grads_k)[0].shape[0]
+    return [tree_mod.tree_map(lambda x, i=i: x[i], grads_k)
+            for i in range(k)]
+
+
 _ADAM_B1, _ADAM_B2 = opt_mod.ADAM_B1, opt_mod.ADAM_B2
 _MOMENT_DTYPES = ("float32", "bfloat16")
 
@@ -224,7 +267,8 @@ class Engine(NamedTuple):
     """Bound flat-buffer-executor closures for one (algorithm, model) pair.
 
     Every callable taking ``grads`` accepts either a worker-stacked
-    gradient tree or an already-flat (W, R, C) gradient buffer.
+    gradient tree or an already-flat (W, R, C) gradient buffer (the
+    hierarchy: a grid-stacked tree or a (P, D, R, C) buffer).
     """
 
     algorithm: str
@@ -233,19 +277,31 @@ class Engine(NamedTuple):
     init: Callable              # (params_tree, num_workers) -> state
     train_step: Callable        # (state, grads) -> state
     local_step: Callable        # (state, grads) -> state
-    sync: Callable              # (state, out=None) -> state
+    sync: Callable              # (state, out=None) -> state (hier: sync2
+                                # after sync1)
     average_model: Callable     # (state,) -> single-model tree
-    params_tree: Callable       # (state,) -> worker-stacked params tree (views)
+    params_tree: Callable       # (state,) -> worker-stacked params tree
+                                # (views; hier: grid-stacked)
     round_step: Callable        # (state, grads_k) -> state: k local steps + sync
-    round_end: Callable         # (state,) -> state: the round-closing sync
+    round_end: Callable         # (state, out=None) -> state: the
+                                # round-closing sync
     round_step_flat: Callable   # (state, gk) -> state over (k, W, R, C) grads
-    round_begin: Any = None     # overlap only: (state,) -> x̂_stale, the
-                                # round-START worker mean over pend; None
-                                # when overlap is off (callers dispatch on
-                                # that)
+    sync_due: Callable          # (state,) -> bool: after a local step, the
+                                # per-step cadence has a sync due
+    step_sync: Callable         # (state, out=None) -> state: that sync
+                                # (train_step's second half)
+    round_begin: Any = None     # overlap only: (state, k) -> x̂_stale, the
+                                # round-START mean over pend (hier: None
+                                # when the round of k steps ends off the
+                                # k2 cadence); None when overlap is off
+                                # (callers dispatch on that)
     round_fold: Any = None      # overlap only: (state, x̂_stale) -> state,
                                 # the round-END stale fold and capture
+                                # (hier: after the blocking sync1)
     compressors: Any = (None, None)  # resolved (level-1, level-2) specs
+    sync1: Any = None           # hier only: (state,) -> state, intra-pod
+    sync2: Any = None           # hier only: (state,) -> state, cross-pod
+    grid: Any = None            # hier only: (P, D)
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
@@ -267,10 +323,16 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         # the reference's flat algorithms ignore it; refused here rather
         # than carried as an option that does nothing
         raise NotImplementedError(
-            "compress2 compresses the hierarchy's cross-pod sync, and "
-            "hier_vrl_sgd is not ported to PyTorch yet; see ROADMAP.md "
+            "compress2 compresses the hierarchy's cross-pod sync, which "
+            "needs the grid EF kernels (fused_ef_int8_grid, "
+            "fused_ef_topk_grid), not ported to PyTorch yet; see ROADMAP.md "
             "Queue 1")
     comp, comp2 = comm_mod.resolve_pair(cfg)
+    if algo.sync == "vrl2":
+        _validate_hier(cfg, kind, comp)
+        _validate_overlap(cfg, algo, comp2)
+        return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
+                                 delta_dt=delta_dt, device=device)
     _validate_overlap(cfg, algo, comp)
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
@@ -410,18 +472,21 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                               block=fspec.block)
         return state._replace(last_sync=state.step)
 
+    def sync_due(state: FlatWorkerState) -> bool:
+        return algo.sync != "none" and should_sync(algo, cfg, state.step,
+                                                   state.last_sync)
+
     def train_step(state: FlatWorkerState, grads: Any) -> FlatWorkerState:
         state = local_step(state, grads)
-        if algo.sync != "none" and should_sync(algo, cfg, state.step,
-                                               state.last_sync):
-            state = sync(state)
-        return state
+        return sync(state) if sync_due(state) else state
 
-    def round_begin(state: FlatWorkerState) -> torch.Tensor:
+    def round_begin(state: FlatWorkerState, k: int = 0) -> torch.Tensor:
         """The overlapped round's START: the worker mean of the positions
         transmitted at the previous boundary (its operands are ready before
         the round's local steps, so on a cluster the all-reduce can run
-        while they do)."""
+        while they do).  ``k`` (the round's length) is unused here; the
+        hierarchy's twin needs it for the k2 cadence."""
+        del k
         return _wmean(state.overlap.pend)
 
     def round_fold(state: FlatWorkerState,
@@ -465,12 +530,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         the communication period — the caller sizes it (warmup's first k=1
         period is a 1-step round, a CommSchedule sizes each round from its
         stage)."""
-        if isinstance(grads_k, torch.Tensor):
-            steps = list(grads_k)
-        else:
-            k = tree_mod.leaves(grads_k)[0].shape[0]
-            steps = [tree_mod.tree_map(lambda x, i=i: x[i], grads_k)
-                     for i in range(k)]
+        steps = _round_grads(grads_k)
         xbar = round_begin(state) if cfg.overlap else None
         for g in steps:
             state = local_step(state, g)
@@ -488,7 +548,202 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   train_step=train_step, local_step=local_step, sync=sync,
                   average_model=avg_model, params_tree=params_tree,
                   round_step=round_step, round_end=sync,
-                  round_step_flat=round_step,
+                  round_step_flat=round_step, sync_due=sync_due,
+                  step_sync=sync,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp, comp2))
+
+
+# ============================================== hierarchical executor ("vrl2")
+def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
+                      *, lr: float, wd: float, delta_dt: torch.dtype,
+                      device: Optional[torch.device]) -> Engine:
+    """The two-level engine over pod-major (P, D, R, C) flat buffers
+    (``repro.core.engine._make_hier_engine``, sgd inner optimizer,
+    uncompressed).
+
+    The level-1 sync averages within each pod and folds the Δ1 update into
+    one kernel pass; the level-2 sync averages across pods and folds the Δ2
+    update in.  Local steps touch no cross-worker axis.  On one device the
+    pod mean is a reduction over dim 1 and the cross-pod mean one over dims
+    (0, 1); on a cluster each is one all-reduce over its level's group.
+    """
+    hcfg = hier_config(cfg)
+    p_total, d_total = hcfg.grid
+    k1, k2 = hcfg.k1, hcfg.k2
+
+    def _pod_mean(buf: torch.Tensor) -> torch.Tensor:
+        """(P, D, R, C) -> (P, 1, R, C): THE intra-pod all-reduce.  With one
+        pod it reduces exactly as the flat engine's worker mean does."""
+        return buf.mean(dim=1, keepdim=True)
+
+    def _cross_mean(pod_avg: torch.Tensor) -> torch.Tensor:
+        """(P, 1, R, C) pod averages -> (R, C): THE cross-pod all-reduce."""
+        return pod_avg.mean(dim=(0, 1))
+
+    def _kg(k_eff: int, dev: torch.device) -> torch.Tensor:
+        """k_eff·γ as an fp32 product made on the device (no host sync)."""
+        return torch.full((1, 1), float(k_eff), dtype=torch.float32,
+                          device=dev) * lr
+
+    def _gbuf(grads: Any) -> torch.Tensor:
+        if isinstance(grads, torch.Tensor):
+            return grads
+        return flat.flatten_grid(fspec, grads,
+                                 dtype=flat.dtype_of(fspec.dtype))
+
+    def _check_round() -> None:
+        if k2 % k1:
+            raise ValueError(
+                f"round execution treats one k1 period as the unit and "
+                f"nests the level-2 cadence, which needs k2 % k1 == 0; got "
+                f"k1={k1}, k2={k2}")
+
+    def init(params: Any, num_workers: int) -> HierFlatState:
+        if num_workers != p_total * d_total:
+            raise ValueError(
+                f"hier grid {hcfg.grid} holds {p_total * d_total} workers, "
+                f"init asked for {num_workers}")
+        flat1 = flat.flatten_tree(fspec, params)
+        if device is not None:
+            flat1 = flat1.to(device)
+        stacked = flat1.expand(p_total, d_total, *flat1.shape).clone()
+        pod_shape = (p_total, 1, *flat1.shape)
+        overlap = ()
+        if cfg.overlap:
+            # per-pod transmitted positions; pend = x0, so the first level-2
+            # fold's correction is exactly zero
+            overlap = OverlapState(
+                pend=flat1.to(torch.float32).expand(pod_shape).clone(),
+                pend_k=torch.ones((p_total, 1, 1, 1), dtype=torch.float32,
+                                  device=stacked.device))
+        return HierFlatState(
+            params=stacked,
+            delta1=torch.zeros(stacked.shape, dtype=delta_dt,
+                               device=stacked.device),
+            delta2=torch.zeros(pod_shape, dtype=delta_dt,
+                               device=stacked.device),
+            inner=(), step=0, last_sync1=0, last_sync2=0, overlap=overlap)
+
+    def local_step(state: HierFlatState, grads: Any) -> HierFlatState:
+        vu.fused_hier_local_sgd(state.params, _gbuf(grads), state.delta1,
+                                state.delta2, lr=lr, wd=wd,
+                                block=fspec.block)
+        return state._replace(step=state.step + 1)
+
+    def sync1(state: HierFlatState) -> HierFlatState:
+        p = state.params
+        k_eff = max(state.step - state.last_sync1, 1)
+        vu.fused_sync_hier1(p, _pod_mean(p), state.delta1,
+                            _kg(k_eff, p.device), block=fspec.block)
+        return state._replace(last_sync1=state.step)
+
+    def sync2(state: HierFlatState) -> HierFlatState:
+        """Assumes a level-1 sync at this step: params ARE the pod
+        averages, so the global mean needs only the cross-pod axis."""
+        p = state.params
+        k_eff = max(state.step - state.last_sync2, 1)
+        vu.fused_sync_hier2(p, _cross_mean(p[:, :1]), state.delta2,
+                            _kg(k_eff, p.device), block=fspec.block)
+        return state._replace(last_sync2=state.step)
+
+    def sync(state: HierFlatState, out=None) -> HierFlatState:
+        del out             # no compressed sync writes a payload here
+        return sync2(sync1(state))
+
+    def level2_due(state: HierFlatState, k: int = 0) -> bool:
+        """True when the step k steps from now lands on the k2 cadence."""
+        return state.step + k - state.last_sync2 >= k2
+
+    def sync_due(state: HierFlatState) -> bool:
+        return state.step - state.last_sync1 >= k1 or level2_due(state)
+
+    def step_sync(state: HierFlatState, out=None) -> HierFlatState:
+        """sync1, then sync2 when the k2 cadence is due (the reference's
+        per-step ``do1 | do2`` / ``do2`` conds)."""
+        del out
+        state = sync1(state)
+        return sync2(state) if level2_due(state) else state
+
+    def train_step(state: HierFlatState, grads: Any) -> HierFlatState:
+        state = local_step(state, grads)
+        return step_sync(state) if sync_due(state) else state
+
+    def round_end(state: HierFlatState, out=None) -> HierFlatState:
+        """The round-closing sync: a round is one k1 period, so level 1
+        always fires; level 2 whenever the k2 cadence is due."""
+        _check_round()
+        return step_sync(state, out)
+
+    # Only the cross-pod sync2 is overlapped; the intra-pod sync1 stays
+    # blocking (the level-2 fold needs post-sync1 pod-uniform params).
+    def round_begin(state: HierFlatState, k: int) -> Optional[torch.Tensor]:
+        """The level-2 mean over pend taken at round START, when the round
+        of ``k`` steps will end on the k2 cadence; None otherwise (the fold
+        then has nothing to read, and nothing is allocated)."""
+        _check_round()
+        return _cross_mean(state.overlap.pend) if level2_due(state, k) \
+            else None
+
+    def _fold2(state: HierFlatState, glob: torch.Tensor) -> HierFlatState:
+        """Apply the stale cross-pod mean: c_p = x̂_stale − pend2_p folds
+        into every worker of pod p (post-sync1, so the whole pod moves
+        together), Δ2 updates over the period pend covered, and the new
+        per-pod positions are captured for the next level-2 mean."""
+        ov = state.overlap
+        p = state.params
+        k_eff = max(state.step - state.last_sync2, 1)
+        inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)      # (P, 1)
+        # no pod misses its capture deadline: deadlines are not ported
+        wscal = torch.cat([inv, torch.zeros_like(inv)], dim=1)
+        vu.fused_fold_overlap_hier2(p, glob.to(p.dtype), ov.pend,
+                                    state.delta2, wscal, capture=True,
+                                    block=fspec.block)
+        ov.pend_k.fill_(float(k_eff))
+        return state._replace(last_sync2=state.step)
+
+    def round_fold(state: HierFlatState,
+                   glob: Optional[torch.Tensor]) -> HierFlatState:
+        """The overlapped round's END: the blocking sync1, then, when this
+        step lands on the k2 cadence, the stale level-2 fold of
+        ``round_begin``'s mean."""
+        _check_round()
+        state = sync1(state)
+        if not level2_due(state):
+            return state
+        if glob is None:
+            raise ValueError(
+                "round_fold: the k2 cadence is due but round_begin took no "
+                "cross-pod mean (it was given another round length)")
+        return _fold2(state, glob)
+
+    def round_step(state: HierFlatState, grads_k: Any) -> HierFlatState:
+        """One k1 round over a (k1, P, D, R, C) grads buffer or a grads tree
+        with (k1, P, D, ...) leaves: k1 local steps, then sync1 (+ sync2
+        when the k2 cadence is due); under overlap opened by
+        ``round_begin`` and closed by ``round_fold``."""
+        _check_round()
+        steps = _round_grads(grads_k)
+        glob = round_begin(state, len(steps)) if cfg.overlap else None
+        for g in steps:
+            state = local_step(state, g)
+        return round_fold(state, glob) if cfg.overlap else round_end(state)
+
+    def params_tree(state: HierFlatState) -> Any:
+        """Grid-stacked parameter tree ((P, D, ...) leaves), views."""
+        return flat.unflatten_grid(fspec, state.params)
+
+    def avg_model(state: HierFlatState) -> Any:
+        """x̂ over all P·D workers — the evaluation model."""
+        return flat.unflatten_tree(fspec, state.params.mean(dim=(0, 1)))
+
+    return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
+                  train_step=train_step, local_step=local_step, sync=sync,
+                  average_model=avg_model, params_tree=params_tree,
+                  round_step=round_step, round_end=round_end,
+                  round_step_flat=round_step, sync_due=sync_due,
+                  step_sync=step_sync,
+                  round_begin=round_begin if cfg.overlap else None,
+                  round_fold=round_fold if cfg.overlap else None,
+                  sync1=sync1, sync2=sync2, grid=(p_total, d_total))

@@ -185,3 +185,30 @@ def unflatten_stacked(spec: FlatSpec, buf: torch.Tensor) -> Any:
         [(l.path, _piece(vec[:, l.offset:l.offset + l.size]
                          .view((w,) + l.shape), l.dtype))
          for l in spec.leaves])
+
+
+# ------------------------------------------------- pod-major (P, D, R, C)
+# The hierarchical engine carries its worker population as a pod-major grid:
+# axis 0 indexes pods (slow cross-pod links), axis 1 the workers inside a
+# pod (fast intra-pod links).  The flat layout per worker is IDENTICAL to
+# the (W, R, C) one — a grid buffer is the stacked buffer with its worker
+# axis split (P, D) — so these are exact reshapes around the stacked
+# converters and the same FlatSpec round-trips both.
+
+def flatten_grid(spec: FlatSpec, tree: Any,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Grid-stacked tree ((P, D, ...) leaves) -> (P, D, R, C)."""
+    p, d = tree_mod.leaves(tree)[0].shape[:2]
+    stacked = tree_mod.tree_map(
+        lambda x: x.reshape((p * d,) + tuple(x.shape[2:])), tree)
+    buf = flatten_stacked(spec, stacked, dtype=dtype)
+    return buf.view(p, d, spec.rows, spec.lanes)
+
+
+def unflatten_grid(spec: FlatSpec, buf: torch.Tensor) -> Any:
+    """(P, D, R, C) buffer -> grid-stacked tree ((P, D, ...) leaves), views
+    where no dtype cast is needed."""
+    p, d, r, c = buf.shape
+    tree = unflatten_stacked(spec, buf.view(p * d, r, c))
+    return tree_mod.tree_map(
+        lambda x: x.view((p, d) + tuple(x.shape[1:])), tree)

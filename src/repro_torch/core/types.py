@@ -1,7 +1,8 @@
 """State container of the flat-buffer engine (``repro.core.engine``
-``FlatWorkerState``, ``CommState``, ``OverlapState``), for the slice the
-port runs: the flat algorithms with the sgd, momentum and adam inner
-optimizers, compressed sync and overlapped rounds.
+``FlatWorkerState``, ``CommState``, ``OverlapState``, ``HierFlatState``),
+for the slice the port runs: the flat algorithms with the sgd, momentum
+and adam inner optimizers, compressed sync and overlapped rounds, and the
+two-level hierarchy with sgd, blocking or overlapped.
 
 The buffers are updated IN PLACE by the engine's kernels; an engine call
 returns a new tuple (``_replace``) that holds the same buffers with the
@@ -38,7 +39,8 @@ class OverlapState(NamedTuple):
     transmitted absolute position, (W, R, C) fp32.  ``pend_k``: the local
     steps each ``pend`` covers, a (W, 1, 1) fp32 DEVICE tensor, so that
     the fold's 1/(pend_k·γ) is formed on the device without a host round
-    trip.
+    trip.  Under the hierarchy only the cross-pod level overlaps: pend is
+    each pod's position, (P, 1, R, C), and pend_k (P, 1, 1, 1).
     """
 
     pend: Any
@@ -63,5 +65,30 @@ class FlatWorkerState(NamedTuple):
     inner: Any = ()
     center: Any = ()
     bias: Any = ()
+    comm: Any = ()
+    overlap: Any = ()
+
+
+class HierFlatState(NamedTuple):
+    """Two-level algorithm state as pod-major contiguous flat buffers.
+
+    ``params``/``delta1``: (P, D, R, C); ``delta2``: (P, 1, R, C), one
+    cross-pod correction per pod, broadcast over the intra-pod axis by the
+    kernels rather than materialised; ``inner``: () (the hierarchy runs
+    the sgd inner optimizer).  Invariants: Σ_d Δ1[p, d] = 0 within every
+    pod after a level-1 sync, Σ_p Δ2[p] = 0 after a level-2 sync.
+    ``overlap``: an ``OverlapState`` over pods under overlapped rounds, ()
+    otherwise; ``comm``: () (the hierarchy's compressed syncs are not
+    ported).
+    """
+
+    params: torch.Tensor
+    delta1: torch.Tensor
+    delta2: torch.Tensor
+    inner: Any
+    step: int                   # iterations completed
+    last_sync1: int             # step index of the last level-1 sync
+    last_sync2: int             # step index of the last level-2 sync (or
+                                # fold)
     comm: Any = ()
     overlap: Any = ()

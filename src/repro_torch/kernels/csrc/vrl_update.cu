@@ -7,6 +7,11 @@
 //   vrl_fused_sync_vrl        <- fused_sync_vrl        (vrl_update.py:351)
 //   vrl_fused_sync_bvr        <- fused_sync_bvr        (vrl_update.py:388)
 //   vrl_fused_sync_easgd      <- fused_sync_easgd      (vrl_update.py:618)
+//   vrl_fused_hier_local_sgd  <- fused_hier_local_sgd  (vrl_update.py:803)
+//   vrl_fused_sync_hier1      <- fused_sync_hier1      (vrl_update.py:971)
+//   vrl_fused_sync_hier2      <- fused_sync_hier2      (vrl_update.py:1003)
+//   vrl_fused_fold_hier2      <- fused_fold_overlap_hier2
+//                                                      (vrl_update.py:570)
 //
 // Bound: all are single elementwise passes over model-sized buffers (a few
 // flops per 16+ bytes), so device-memory bandwidth is the only limit.
@@ -19,6 +24,14 @@
 // is allocated here; the caller passes PyTorch's stream.  Runtime scalars
 // that change every step (k_eff*γ, Adam's bias corrections) are read from
 // small device tensors, so a step never needs a host round trip.
+//
+// The hierarchy's kernels run over pod-major (P, D, R, C) buffers with
+// per-pod operands (Δ2, x̂_pod, pend2) of shape (P, 1, R, C).  One thread
+// owns one (pod, float4 of R*C) — the pod is blockIdx.y — and walks the
+// pod's D workers from registers, so every per-pod operand is read and
+// written once, not D times.  The Pallas kernels revisit the per-pod
+// block D times and therefore refuse to donate it; here one thread owns
+// each element, so Δ2 and pend2 are updated in place with no hazard.
 //
 // Numerics: the arithmetic is the plain PyTorch version's op for op
 // (kernels/torch_update.py), in the same association order, and the
@@ -316,6 +329,142 @@ __global__ void easgd_center_kernel(float4* __restrict__ center,
   }
 }
 
+// ---------------------------------------------------- hierarchy (P, D, R, C)
+// In every kernel below: pod = blockIdx.y; e walks the pod's rc4 float4
+// groups; worker k of the pod is at (pod*dper + k)*rc4 + e; the per-pod
+// operand is at pod*rc4 + e.
+
+// p <- p − lr·((g − Δ1 − Δ2) + wd·p): local_one with Δ1 as Δ and Δ2 as the
+// second correction, Δ2 loaded once per pod.
+__global__ void hier_local_sgd_kernel(float4* __restrict__ p,
+                                      const float4* __restrict__ g,
+                                      const float4* __restrict__ d1,
+                                      const float4* __restrict__ d2, float lr,
+                                      float wd, int64_t dper, int64_t rc4) {
+  const int64_t pod = blockIdx.y;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const float4 bv = d2[pod * rc4 + e];
+    for (int64_t k = 0; k < dper; ++k) {
+      const int64_t j = (pod * dper + k) * rc4 + e;
+      float4 pv = p[j];
+      const float4 gv = g[j];
+      const float4 dv = d1[j];
+      pv.x = local_one(pv.x, gv.x, dv.x, bv.x, true, true, lr, wd);
+      pv.y = local_one(pv.y, gv.y, dv.y, bv.y, true, true, lr, wd);
+      pv.z = local_one(pv.z, gv.z, dv.z, bv.z, true, true, lr, wd);
+      pv.w = local_one(pv.w, gv.w, dv.w, bv.w, true, true, lr, wd);
+      p[j] = pv;
+    }
+  }
+}
+
+// Level-1 sync: Δ1 <- Δ1 + (x̂_pod − p)/kg; p <- x̂_pod for every worker of
+// the pod, kg = scal[0] = k1_eff·γ; x̂_pod loaded once per pod.
+__global__ void sync_hier1_kernel(float4* __restrict__ p,
+                                  float4* __restrict__ d1,
+                                  const float4* __restrict__ xbar_pod,
+                                  const float* __restrict__ scal,
+                                  int64_t dper, int64_t rc4) {
+  const float kg = scal[0];
+  const int64_t pod = blockIdx.y;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const float4 xb = xbar_pod[pod * rc4 + e];
+    for (int64_t k = 0; k < dper; ++k) {
+      const int64_t j = (pod * dper + k) * rc4 + e;
+      const float4 pv = p[j];
+      float4 dv = d1[j];
+      dv.x = dv.x + (xb.x - pv.x) / kg;
+      dv.y = dv.y + (xb.y - pv.y) / kg;
+      dv.z = dv.z + (xb.z - pv.z) / kg;
+      dv.w = dv.w + (xb.w - pv.w) / kg;
+      d1[j] = dv;
+      p[j] = xb;
+    }
+  }
+}
+
+// Level-2 sync: Δ2 <- Δ2 + (x̂ − p_pod)/kg once per pod, p_pod read off
+// worker 0 (after a level-1 sync every worker holds the pod average); then
+// p <- x̂ for every worker.  kg = scal[0] = k2_eff·γ.
+__global__ void sync_hier2_kernel(float4* __restrict__ p,
+                                  float4* __restrict__ d2,
+                                  const float4* __restrict__ glob,
+                                  const float* __restrict__ scal,
+                                  int64_t dper, int64_t rc4) {
+  const float kg = scal[0];
+  const int64_t pod = blockIdx.y;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const float4 gl = glob[e];
+    const float4 pv = p[pod * dper * rc4 + e];
+    const int64_t i = pod * rc4 + e;
+    float4 dv = d2[i];
+    dv.x = dv.x + (gl.x - pv.x) / kg;
+    dv.y = dv.y + (gl.y - pv.y) / kg;
+    dv.z = dv.z + (gl.z - pv.z) / kg;
+    dv.w = dv.w + (gl.w - pv.w) / kg;
+    d2[i] = dv;
+    for (int64_t k = 0; k < dper; ++k) p[(pod * dper + k) * rc4 + e] = gl;
+  }
+}
+
+// Level-2 stale fold: c = x̂_stale − pend2_pod; p <- p + c for every worker
+// of the pod; Δ2 <- Δ2 + c·s₀; with capture, pend2 <- km·pend2 + (1 − km)·
+// (worker 0's folded p).  [s₀, km] = wscal[2*pod], wscal[2*pod + 1].
+__global__ void fold_hier2_kernel(float4* __restrict__ p,
+                                  const float4* __restrict__ glob,
+                                  float4* __restrict__ pend2,
+                                  float4* __restrict__ d2,
+                                  const float* __restrict__ wscal,
+                                  int capture, int64_t dper, int64_t rc4) {
+  const int64_t pod = blockIdx.y;
+  const float inv = wscal[2 * pod], km = wscal[2 * pod + 1];
+  const float omkm = 1.0f - km;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const int64_t i = pod * rc4 + e;
+    const float4 gl = glob[e];
+    const float4 pe = pend2[i];
+    const float4 c = make_float4(gl.x - pe.x, gl.y - pe.y, gl.z - pe.z,
+                                 gl.w - pe.w);
+    float4 pod_new = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int64_t k = 0; k < dper; ++k) {
+      const int64_t j = (pod * dper + k) * rc4 + e;
+      const float4 pv = p[j];
+      const float4 pn = make_float4(pv.x + c.x, pv.y + c.y, pv.z + c.z,
+                                    pv.w + c.w);
+      p[j] = pn;
+      if (k == 0) pod_new = pn;
+    }
+    float4 dv = d2[i];
+    dv.x = dv.x + c.x * inv;
+    dv.y = dv.y + c.y * inv;
+    dv.z = dv.z + c.z * inv;
+    dv.w = dv.w + c.w * inv;
+    d2[i] = dv;
+    if (capture) {
+      pend2[i] = make_float4(
+          km * pe.x + omkm * pod_new.x, km * pe.y + omkm * pod_new.y,
+          km * pe.z + omkm * pod_new.z, km * pe.w + omkm * pod_new.w);
+    }
+  }
+}
+
+// The hierarchy's launch shape: blockIdx.y = pod (at most 65,535 pods),
+// the x blocks of all pods together about grid_for(pods*rc4).
+bool hier_grid(int64_t pods, int64_t rc4, dim3* grid) {
+  if (pods < 1 || pods > 65535 || rc4 < 1) return false;
+  int64_t gx = grid_for(pods * rc4) / pods;
+  *grid = dim3((unsigned)(gx > 0 ? gx : 1), (unsigned)pods);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -427,6 +576,58 @@ int vrl_fused_sync_easgd(void* p, void* center, const void* xbar, float a,
     easgd_center_kernel<<<grid_for(rc4), kThreads, 0, s>>>(
         (float4*)center, (const float4*)xbar, omna, na, rc4);
   }
+  return (int)cudaGetLastError();
+}
+
+// The hierarchy: p, g, d1 (pods, dper, rc) fp32; d2, xbar_pod, pend2
+// (pods, 1, rc); glob (rc,); scal one fp32 (k_eff·γ) and wscal (pods, 2)
+// fp32 on the device.  rc is a multiple of 4.  More than 65,535 pods is
+// refused (cudaErrorInvalidValue); zero workers launch nothing.
+int vrl_fused_hier_local_sgd(void* p, const void* g, const void* d1,
+                             const void* d2, float lr, float wd, int64_t pods,
+                             int64_t dper, int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  hier_local_sgd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (float4*)p, (const float4*)g, (const float4*)d1, (const float4*)d2, lr,
+      wd, dper, rc / 4);
+  return (int)cudaGetLastError();
+}
+
+int vrl_fused_sync_hier1(void* p, void* d1, const void* xbar_pod,
+                         const void* scal, int64_t pods, int64_t dper,
+                         int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  sync_hier1_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (float4*)p, (float4*)d1, (const float4*)xbar_pod, (const float*)scal,
+      dper, rc / 4);
+  return (int)cudaGetLastError();
+}
+
+int vrl_fused_sync_hier2(void* p, void* d2, const void* glob,
+                         const void* scal, int64_t pods, int64_t dper,
+                         int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  sync_hier2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (float4*)p, (float4*)d2, (const float4*)glob, (const float*)scal, dper,
+      rc / 4);
+  return (int)cudaGetLastError();
+}
+
+int vrl_fused_fold_hier2(void* p, const void* glob, void* pend2, void* d2,
+                         const void* wscal, int capture, int64_t pods,
+                         int64_t dper, int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  fold_hier2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (float4*)p, (const float4*)glob, (float4*)pend2, (float4*)d2,
+      (const float*)wscal, capture, dper, rc / 4);
   return (int)cudaGetLastError();
 }
 

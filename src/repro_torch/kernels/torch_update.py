@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the engine's fused update kernels.
 
 The port's counterpart of ``repro.kernels.xla_update``: the same
-elementwise math over worker-stacked (W, R, C) buffers, written as tensor
-ops.  Each function is the oracle its CUDA kernel (``kernels/vrl_update``)
+elementwise math over worker-stacked (W, R, C) buffers (and the
+hierarchy's pod-major (P, D, R, C) ones), written as tensor ops.  Each function is the oracle its CUDA kernel (``kernels/vrl_update``)
 is held against, and what the kernel wrappers run for CPU tensors.
 
 The math is the reference's op for op: fp32 in-register values, the same
@@ -192,6 +192,27 @@ def fused_fold_overlap_avg(p, xbar, pend, wscal, *, capture: bool = True,
     return pnew.to(p.dtype), new_pend
 
 
+def fused_fold_overlap_hier2(p, glob, pend2, d2, wscal, *,
+                             capture: bool = True, block: int = 0):
+    """Level-2 stale fold on (P, D, R, C) buffers; assumes a level-1 sync
+    at the same step (worker params equal their pod average, read off
+    worker 0 like ``fused_sync_hier2``).  ``glob``: (R, C); ``pend2``/
+    ``d2``: (P, 1, R, C); ``wscal``: (P, 2) [s₀, km] per pod.  Returns
+    (p', Δ2'[, pend2'])."""
+    del block
+    pend32 = _f32(pend2)
+    c = _f32(glob)[None, None] - pend32          # (P, 1, R, C) per pod
+    pnew = _f32(p) + c                           # broadcast over D
+    inv = wscal[:, 0][:, None, None, None]
+    new_d2 = (_f32(d2) + c * inv).to(d2.dtype)
+    if not capture:
+        return pnew.to(p.dtype), new_d2
+    km = wscal[:, 1][:, None, None, None]
+    pod_new = _f32(p[:, :1]) + c                 # per-pod folded position
+    new_pend = (km * pend32 + (1.0 - km) * pod_new).to(pend2.dtype)
+    return pnew.to(p.dtype), new_d2, new_pend
+
+
 # ==================================================== compressed-sync round trip
 # The EF round trip of the sync payload's drift: payload = (p − ref) + e,
 # then ``comm.compressors.ef_int8`` / ``ef_topk``; resid' = payload − dec,
@@ -222,3 +243,45 @@ def fused_ef_topk(p, ref, e, *, k: int, block: int = 0):
     del block
     dec, res = cc.ef_topk(_ef_payload(p, ref, e), k)
     return dec, (res if e is not None else None)
+
+
+# ========================================== hierarchical (P, D, R, C) versions
+def fused_hier_local_sgd(p, g, d1, d2, *, lr: float, wd: float = 0.0,
+                         block: int = 0) -> torch.Tensor:
+    """p' = p − γ((g − Δ1 − Δ2) + wd·p); Δ2 (P, 1, R, C) broadcasts over
+    the D workers of its pod."""
+    del block
+    v = _f32(g) - _f32(d1) - _f32(d2)
+    p32 = _f32(p)
+    if wd:
+        v = v + wd * p32
+    return (p32 - lr * v).to(p.dtype)
+
+
+def fused_sync_hier1(p, xbar_pod, d1, scal, *, block: int = 0):
+    """Level-1 sync: Δ1' = Δ1 + (x̂_pod − p)/(k1γ); p' = x̂_pod.
+    ``xbar_pod``: (P, 1, R, C); ``scal``: (1, 1) k1_eff·γ.  Returns
+    (p', Δ1')."""
+    del block
+    xb = _f32(xbar_pod)
+    kg = scal[0, 0]
+    new_d1 = (_f32(d1) + (xb - _f32(p)) / kg).to(d1.dtype)
+    new_p = xb.expand(p.shape).to(p.dtype, copy=True)
+    return new_p, new_d1
+
+
+def fused_sync_hier2(p, glob, d2, scal, *, block: int = 0):
+    """Level-2 sync: Δ2' = Δ2 + (x̂ − x̂_pod)/(k2γ); p' = x̂.
+
+    Assumes a level-1 sync at the same step, so every worker's params ARE
+    its pod average: the (P, 1, R, C) pod average is read off worker 0 of
+    each pod.  ``glob``: (R, C); ``scal``: (1, 1) k2_eff·γ.  Returns
+    (p', Δ2').
+    """
+    del block
+    glob32 = _f32(glob)[None, None]
+    pod = _f32(p[:, :1])
+    kg = scal[0, 0]
+    new_d2 = (_f32(d2) + (glob32 - pod) / kg).to(d2.dtype)
+    new_p = glob32.expand(p.shape).to(p.dtype, copy=True)
+    return new_p, new_d2

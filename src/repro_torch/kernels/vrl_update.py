@@ -15,11 +15,20 @@ algorithms' local steps and syncs as single passes over worker-stacked
   overlap fold:    c = x̂_stale − pend;  p' = p + c;  Δ' = Δ + c·s₀;
                    B' = (1−β)B + β·c·s₀;  pend' = km·pend + (1−km)·p'
 
+and the two-level hierarchy's over pod-major (P, D, R, C) buffers, with
+Δ2, x̂_pod and pend2 (P, 1, R, C) per pod:
+
+  hier local sgd:  p' = p − γ((g − Δ1 − Δ2) + wd·p)
+  sync hier1:      Δ1' = Δ1 + (x̂_pod − p)/(k1_eff γ);  p' = x̂_pod
+  sync hier2:      Δ2' = Δ2 + (x̂ − p_pod)/(k2_eff γ);  p' = x̂
+  fold hier2:      c = x̂_stale − pend2;  p' = p + c;  Δ2' = Δ2 + c·s₀;
+                   pend2' = km·pend2 + (1−km)·p'_pod
+
 Each wrapper takes its kernel for CUDA tensors (``csrc/vrl_update.cu`` for
-the local steps and syncs, ``csrc/comm_update.cu`` for the EF round trip
-and the fold, built at first use by ``kernels/build``) and the plain
-PyTorch version (``kernels/torch_update``) for CPU tensors; a CUDA tensor
-never falls back to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
+the local steps, the syncs and the hierarchy, ``csrc/comm_update.cu`` for
+the EF round trip and the flat fold, built at first use by
+``kernels/build``) and the plain PyTorch version (``kernels/torch_update``)
+for CPU tensors; a CUDA tensor never falls back to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
 CPU call is not a launch), so a run can show that its main path went
 through the kernels.
 """
@@ -38,7 +47,9 @@ LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
             "fused_local_adam": 0, "fused_sync_vrl": 0, "fused_sync_bvr": 0,
             "fused_sync_easgd": 0, "fused_ef_int8": 0, "fused_ef_topk": 0,
             "fused_fold_overlap": 0, "fused_fold_overlap_bvr": 0,
-            "fused_fold_overlap_avg": 0}
+            "fused_fold_overlap_avg": 0, "fused_hier_local_sgd": 0,
+            "fused_sync_hier1": 0, "fused_sync_hier2": 0,
+            "fused_fold_overlap_hier2": 0}
 
 
 def reset_launches() -> None:
@@ -76,6 +87,15 @@ def _lib() -> ctypes.CDLL:
     lib.vrl_fused_sync_easgd.argtypes = [_PTR, _PTR, _PTR, f32, f32, f32,
                                          i64, i64, _PTR]
     lib.vrl_fused_sync_easgd.restype = ctypes.c_int
+    lib.vrl_fused_hier_local_sgd.argtypes = [_PTR, _PTR, _PTR, _PTR, f32,
+                                             f32, i64, i64, i64, _PTR]
+    lib.vrl_fused_hier_local_sgd.restype = ctypes.c_int
+    for fn in (lib.vrl_fused_sync_hier1, lib.vrl_fused_sync_hier2):
+        fn.argtypes = [_PTR, _PTR, _PTR, _PTR, i64, i64, i64, _PTR]
+        fn.restype = ctypes.c_int
+    lib.vrl_fused_fold_hier2.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR,
+                                         ctypes.c_int, i64, i64, i64, _PTR]
+    lib.vrl_fused_fold_hier2.restype = ctypes.c_int
     return lib
 
 
@@ -96,13 +116,15 @@ def _comm_lib() -> ctypes.CDLL:
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(name: str, lead: torch.Tensor, *, moments=(), **tensors) -> None:
-    """Raise on what the kernels do not take: non-fp32 buffers (moments
-    named in ``moments`` may be fp32 or bf16, all of one type), mixed
-    devices, non-contiguous or misaligned buffers, lanes not a multiple of
-    4."""
-    if lead.dim() != 3:
-        raise ValueError(f"{name}: p must be (W, R, C), got "
+def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
+           **tensors) -> None:
+    """Raise on what the kernels do not take: p not (W, R, C) (with
+    ``grid``: not (P, D, R, C)), non-fp32 buffers (moments named in
+    ``moments`` may be fp32 or bf16, all of one type), mixed devices,
+    non-contiguous or misaligned buffers, lanes not a multiple of 4."""
+    if lead.dim() != (4 if grid else 3):
+        raise ValueError(f"{name}: p must be "
+                         f"{'(P, D, R, C)' if grid else '(W, R, C)'}, got "
                          f"{tuple(lead.shape)}")
     if lead.shape[-1] % 4:
         raise ValueError(f"{name}: lanes {lead.shape[-1]} not a multiple of 4")
@@ -494,3 +516,161 @@ def fused_fold_overlap_avg(p: torch.Tensor, xbar: torch.Tensor,
     del block
     return _fold("fused_fold_overlap_avg", p, xbar, pend, None, None, wscal,
                  beta=0.0, capture=capture)
+
+
+# ------------------------------------------------ hierarchy (P, D, R, C)
+def _pod_shape(name: str, p: torch.Tensor, **tensors) -> None:
+    """Each per-pod operand must be (P, 1, R, C) beside p (P, D, R, C)."""
+    want = (p.shape[0], 1) + tuple(p.shape[2:])
+    for key, t in tensors.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {key} {tuple(t.shape)} is not one "
+                             f"value per pod of p {tuple(p.shape)}: want "
+                             f"{want}")
+
+
+def _scal1(name: str, scal: torch.Tensor) -> None:
+    if scal.numel() != 1:
+        raise ValueError(f"{name}: scal must hold one value, got "
+                         f"{tuple(scal.shape)}")
+
+
+def _grid_sizes(p: torch.Tensor):
+    pods, dper = p.shape[:2]
+    return pods, dper, p.numel() // max(pods * dper, 1)
+
+
+# Replaces repro/kernels/vrl_update.py:803 fused_hier_local_sgd (Pallas,
+# TPU).  Bound: device-memory bandwidth — reads p, g, Δ1 (P·D·R·C each)
+# and Δ2 (P·R·C) once, writes p (18 R·C-buffers at P = D = 2); ~5 flops
+# per element.  Design: one thread per (pod, float4 of R·C) walks the pod's
+# D workers with Δ2 in a register (loaded once per pod, never expanded);
+# the arithmetic is fused_local_sgd's device function with Δ1 as Δ and Δ2
+# as the second correction.
+def fused_hier_local_sgd(p: torch.Tensor, g: torch.Tensor, d1: torch.Tensor,
+                         d2: torch.Tensor, *, lr: float, wd: float = 0.0,
+                         block: int = 0) -> torch.Tensor:
+    """p ← p − γ((g − Δ1 − Δ2) + wd·p) in place on (P, D, R, C); Δ2 is
+    (P, 1, R, C).  Returns p.  ``block`` is accepted and ignored."""
+    del block
+    name = "fused_hier_local_sgd"
+    _check(name, p, grid=True, p=p, g=g, d1=d1, d2=d2)
+    _same_shape(name, p, g=g, d1=d1)
+    _pod_shape(name, p, d2=d2)
+    if p.device.type == "cpu":
+        return p.copy_(tu.fused_hier_local_sgd(p, g, d1, d2, lr=lr, wd=wd))
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_hier_local_sgd(
+            p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            float(lr), float(wd), *_grid_sizes(p), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p
+
+
+# Replaces repro/kernels/vrl_update.py:971 fused_sync_hier1 (Pallas, TPU).
+# Bound: device-memory bandwidth — reads p, Δ1 and x̂_pod (P·R·C) once,
+# writes p and Δ1 (18 R·C-buffers at P = D = 2).  Design: the VRL sync of
+# each pod in ONE launch over the whole grid: a thread holds one float4 of
+# its pod's x̂_pod in a register and walks the pod's D workers; k1_eff·γ is
+# read from the device tensor ``scal``.
+def fused_sync_hier1(p: torch.Tensor, xbar_pod: torch.Tensor,
+                     d1: torch.Tensor, scal: torch.Tensor, *, block: int = 0):
+    """Δ1 ← Δ1 + (x̂_pod − p)/(k1_eff γ); p ← x̂_pod, in place on (P, D, R,
+    C); ``xbar_pod``: (P, 1, R, C); ``scal``: (1, 1) k1_eff·γ.  Returns
+    (p, Δ1)."""
+    del block
+    name = "fused_sync_hier1"
+    _check(name, p, grid=True, p=p, xbar_pod=xbar_pod, d1=d1, scal=scal)
+    _same_shape(name, p, d1=d1)
+    _pod_shape(name, p, xbar_pod=xbar_pod)
+    _scal1(name, scal)
+    if p.device.type == "cpu":
+        new_p, new_d = tu.fused_sync_hier1(p, xbar_pod, d1,
+                                           scal.reshape(1, 1))
+        return p.copy_(new_p), d1.copy_(new_d)
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_sync_hier1(
+            p.data_ptr(), d1.data_ptr(), xbar_pod.data_ptr(),
+            scal.data_ptr(), *_grid_sizes(p), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, d1
+
+
+# Replaces repro/kernels/vrl_update.py:1003 fused_sync_hier2 (Pallas, TPU).
+# Bound: device-memory bandwidth — reads the pod value (worker 0's p), Δ2
+# and x̂ once, writes p and Δ2 (11 R·C-buffers at P = D = 2).  Design: a
+# thread reads its pod's value off worker 0 (as the plain version does;
+# after the level-1 sync every worker holds it), updates Δ2 once per pod in
+# place, then writes x̂ to the pod's D workers.  The Pallas kernel revisits
+# Δ2 D times and so cannot donate it; one thread per (pod, element) has no
+# such hazard.
+def fused_sync_hier2(p: torch.Tensor, glob: torch.Tensor, d2: torch.Tensor,
+                     scal: torch.Tensor, *, block: int = 0):
+    """Δ2 ← Δ2 + (x̂ − p_pod)/(k2_eff γ); p ← x̂, in place; p_pod is worker
+    0 of each pod.  ``glob``: (R, C); ``d2``: (P, 1, R, C); ``scal``: (1, 1)
+    k2_eff·γ.  Returns (p, Δ2)."""
+    del block
+    name = "fused_sync_hier2"
+    _check(name, p, grid=True, p=p, glob=glob, d2=d2, scal=scal)
+    _pod_shape(name, p, d2=d2)
+    if tuple(glob.shape) != tuple(p.shape[2:]):
+        raise ValueError(f"{name}: glob {tuple(glob.shape)} is not one "
+                         f"worker of p {tuple(p.shape)}")
+    _scal1(name, scal)
+    if p.device.type == "cpu":
+        new_p, new_d = tu.fused_sync_hier2(p, glob, d2, scal.reshape(1, 1))
+        return p.copy_(new_p), d2.copy_(new_d)
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_sync_hier2(
+            p.data_ptr(), d2.data_ptr(), glob.data_ptr(), scal.data_ptr(),
+            *_grid_sizes(p), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, d2
+
+
+# Replaces repro/kernels/vrl_update.py:570 fused_fold_overlap_hier2 (Pallas,
+# TPU).  Bound: device-memory bandwidth — reads p, x̂_stale, pend2 and Δ2
+# once, writes p, Δ2 and (with capture) pend2 (17 R·C-buffers at P = D = 2).
+# Design: a thread holds one float4 of x̂_stale and of its pod's pend2 and
+# forms c once, adds it to the pod's D workers, updates Δ2 and captures
+# pend2' from worker 0's folded value, both once per pod in place; s₀ and
+# km are read per pod from the (P, 2) device tensor ``wscal``.
+def fused_fold_overlap_hier2(p: torch.Tensor, glob: torch.Tensor,
+                             pend2: torch.Tensor, d2: torch.Tensor,
+                             wscal: torch.Tensor, *, capture: bool = True,
+                             block: int = 0):
+    """The level-2 stale fold, in place: c = x̂ − pend2 (per pod); p ← p +
+    c; Δ2 ← Δ2 + c·s₀; with ``capture``, pend2 ← km·pend2 + (1−km)·p'_pod.
+    ``glob``: (R, C); ``pend2``, ``d2``: (P, 1, R, C); ``wscal``: (P, 2) fp32
+    [s₀ = 1/(pend_k·γ), km].  Assumes a level-1 sync at the same step (p_pod
+    is worker 0).  Returns (p, Δ2[, pend2])."""
+    del block
+    name = "fused_fold_overlap_hier2"
+    _check(name, p, grid=True, p=p, glob=glob, pend2=pend2, d2=d2,
+           wscal=wscal)
+    _pod_shape(name, p, pend2=pend2, d2=d2)
+    if tuple(glob.shape) != tuple(p.shape[2:]):
+        raise ValueError(f"{name}: glob {tuple(glob.shape)} is not one "
+                         f"worker of p {tuple(p.shape)}")
+    if tuple(wscal.shape) != (p.shape[0], 2):
+        raise ValueError(f"{name}: wscal must be (P, 2) = ({p.shape[0]}, "
+                         f"2), got {tuple(wscal.shape)}")
+    bufs = (p, d2) + ((pend2,) if capture else ())
+    if p.device.type == "cpu":
+        outs = tu.fused_fold_overlap_hier2(p, glob, pend2, d2, wscal,
+                                           capture=capture)
+        return tuple(t.copy_(o) for t, o in zip(bufs, outs))
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_fold_hier2(
+            p.data_ptr(), glob.data_ptr(), pend2.data_ptr(), d2.data_ptr(),
+            wscal.data_ptr(), int(capture), *_grid_sizes(p), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return bufs

@@ -1,11 +1,12 @@
 """Training driver (``repro.launch.train``, core flags).
 
 Runs a flat algorithm (``--algorithm``: vrl_sgd, local_sgd, ssgd, easgd,
-stl_sgd, bvr_l_sgd) on the qwen2-0.5b architecture (full width, or
-``--smoke``'s reduced variant) over the synthetic non-iid LM stream, round
-by round: each communication period is k local steps (forward/backward
-per worker, then one fused local-update kernel over the (W, R, C)
-buffers) closed by one worker mean and the algorithm's sync.  VRL-SGD-W
+stl_sgd, bvr_l_sgd) or two-level hier_vrl_sgd on the qwen2-0.5b
+architecture (full width, or ``--smoke``'s reduced variant) over the
+synthetic non-iid LM stream, round by round: each communication period
+is k local steps (forward/backward per worker, then one fused
+local-update kernel over the (W, R, C) buffers) closed by one worker
+mean and the algorithm's sync.  VRL-SGD-W
 (``--warmup``) runs the first period as a 1-step round; a
 ``--comm-schedule`` (stl_sgd's default: doubling 1 → k) sizes each round
 from its stage and supersedes ``--warmup``; a tail shorter than a round
@@ -16,6 +17,12 @@ sends every sync's payload drift through an EF-compressed round trip
 (int8 or top-k); ``--overlap`` opens each round with the worker mean of
 the previous boundary's positions and folds it in one round stale (the
 tail then takes local steps only, as in the reference).
+
+hier_vrl_sgd (``--pods P --k1 A --k2 B``) splits the W workers into a
+pod-major P × W/P grid: rounds are k1 long and close with the intra-pod
+sync1, plus the cross-pod sync2 every k2 steps (k2 a multiple of k1);
+the tail runs step by step on the same two-level cadence.  Under
+``--overlap`` only the cross-pod level is deferred, sync1 stays blocking.
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The log lines are the
@@ -29,24 +36,29 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
       --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32 \\
       --compress int8 --overlap
 
-Not ported yet (ROADMAP Queue 1): hier_vrl_sgd (and ``--compress2``),
-SM3 moments (``--sm3``), overlap deadlines (``--deadline``), membership
-and faults, client sampling, checkpoints, diagnostics and telemetry,
-meshes.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 4 --steps 8 --batch 2 --seq 32 \\
+      --lr 0.05 --algorithm hier_vrl_sgd --pods 2 --k1 2 --k2 4 --overlap
+
+Not ported yet (ROADMAP Queue 1): the hierarchy's compressed syncs
+(``--compress`` with hier_vrl_sgd, and ``--compress2``: they exit "not
+ported"), SM3 moments (``--sm3``), overlap deadlines (``--deadline``),
+membership and faults, client sampling, checkpoints, diagnostics and
+telemetry, meshes.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs import registry
-from repro_torch.configs.base import EngineConfig, VRLConfig
+from repro_torch.configs.base import EngineConfig, HierConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
@@ -58,18 +70,23 @@ from repro_torch.train.train_loop import make_train_step
 
 
 class TrainResult(NamedTuple):
-    state: object               # final FlatWorkerState
+    state: object               # final FlatWorkerState (HierFlatState)
     engine: object              # the core.engine.Engine that ran
     losses: List[float]         # per-step worker-mean local loss
     avg_model_losses: List[float]  # averaged-model loss at each log line
     invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log
-                                # line; [] where the algorithm has no Δ
-    bias_invariant: List[tuple]  # the same for BVR-L-SGD's B
+                                # line; [] where the algorithm has no Δ;
+                                # hier: Δ1 summed within each pod
+    bias_invariant: List[tuple]  # the same for BVR-L-SGD's B; hier: Δ2
+                                # summed over the pods
     ef_identity: List[tuple]    # blocking compression with Δ and EF: (step,
                                 # max|Σ_i (e_i − e'_i)|/(kγ), max|ΣΔ' − ΣΔ
                                 # − that term|) for each logged round
+    param_max: List[tuple]      # (step, max|params|) at each log line
     wall_s: float               # training wall time (set-up excluded)
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
+    round_peak_bytes: int       # CUDA only: most device memory allocated
+                                # during a round (0 on the CPU)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,8 +96,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--algorithm", default="vrl_sgd",
-                    choices=sorted((*engine_mod.ALGO_SPECS,
-                                    *engine_mod.NOT_PORTED)))
+                    choices=sorted(engine_mod.ALGO_SPECS))
     ap.add_argument("--comm-schedule", default=None,
                     help="stagewise round schedule: const | "
                          "stagewise[:k0:rounds:k_max] | custom:1x4,2x4,8x2 "
@@ -94,6 +110,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "topk[:rate] (append :noef to drop error "
                          "feedback).  none/rate-1 is bitwise the "
                          "uncompressed path")
+    ap.add_argument("--compress2", default=None,
+                    help="hier_vrl_sgd: override the cross-pod sync2 "
+                         "compressor (default: --compress) so the slow "
+                         "DCI tier compresses harder")
     ap.add_argument("--overlap", action="store_true",
                     help="overlapped rounds: take the sync's worker mean at "
                          "round START over the previous boundary's "
@@ -110,6 +130,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--warmup", action="store_true",
                     help="VRL-SGD-W: the first period runs k=1")
+    ap.add_argument("--pods", type=int, default=2,
+                    help="hier_vrl_sgd: pods P (workers split as P x W/P)")
+    ap.add_argument("--k1", type=int, default=0,
+                    help="hier_vrl_sgd intra-pod period (default: --k)")
+    ap.add_argument("--k2", type=int, default=0,
+                    help="hier_vrl_sgd cross-pod period (default: 4*k1)")
     ap.add_argument("--alpha", type=float, default=0.05,
                     help="Dirichlet non-iid skew (lower = more skewed)")
     ap.add_argument("--identical", action="store_true")
@@ -124,32 +150,61 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "0 = off) and print its busiest operations and "
                          "the device-busy share of the round")
     args = ap.parse_args(argv)
+    if args.k1 < 0 or args.k2 < 0:
+        raise SystemExit(f"--k1/--k2 must be >= 1 (0 = default), got "
+                         f"{args.k1}/{args.k2}")
     if args.profile_round < 0:
         raise SystemExit(f"--profile-round counts rounds from 1 (0 = off), "
                          f"got {args.profile_round}")
-    for flag in ("steps", "k", "workers", "batch", "seq", "log_every"):
+    for flag in ("steps", "k", "workers", "batch", "seq", "log_every",
+                 "pods"):
         if getattr(args, flag) < 1:
             raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1, got "
                              f"{getattr(args, flag)}")
     return args
 
 
+def hier_config(args: argparse.Namespace) -> Optional[HierConfig]:
+    """The two-level grid and periods for hier_vrl_sgd (the reference's
+    defaults: k1 = --k, k2 = 4·k1); None for the flat algorithms."""
+    if args.algorithm != "hier_vrl_sgd":
+        return None
+    if args.workers % args.pods:
+        raise SystemExit(f"--workers {args.workers} not divisible by "
+                         f"--pods {args.pods}")
+    k1 = args.k1 or args.k
+    k2 = args.k2 or 4 * k1
+    return HierConfig(k1=k1, k2=k2,
+                      grid=(args.pods, args.workers // args.pods))
+
+
 def vrl_config(args: argparse.Namespace) -> VRLConfig:
     """The algorithm configuration the parsed flags ask for."""
+    hier = hier_config(args)
+    if hier is not None and args.comm_schedule:
+        raise SystemExit("--comm-schedule drives the flat algorithms; "
+                         "hier_vrl_sgd's cadence is --k1/--k2")
     try:
         sched = (schedule_mod.parse_schedule(args.comm_schedule, args.k)
                  if args.comm_schedule else None)
     except ValueError as e:
         raise SystemExit(f"--comm-schedule: {e}")
-    try:
-        comp = (comm_mod.parse_compressor(args.compress) if args.compress
-                else None)
-    except ValueError as e:
-        raise SystemExit(f"--compress: {e}")
+    comps = []
+    for flag in ("compress", "compress2"):
+        value = getattr(args, flag)
+        try:
+            comps.append(comm_mod.parse_compressor(value) if value else None)
+        except ValueError as e:
+            raise SystemExit(f"--{flag}: {e}")
+    if comps[1] is not None and hier is None:
+        raise SystemExit("--compress2 drives the hierarchical cross-pod "
+                         "sync2; flat algorithms have one level "
+                         "(--compress)")
     return VRLConfig(algorithm=args.algorithm, comm_period=args.k,
                      learning_rate=args.lr, warmup=args.warmup,
                      bvr_beta=args.bvr_beta, comm_schedule=sched,
-                     compress=comp, overlap=args.overlap,
+                     compress=comps[0], compress2=comps[1],
+                     overlap=args.overlap, hier=hier,
                      engine=EngineConfig(block=args.block))
 
 
@@ -170,6 +225,10 @@ def run(argv=None) -> TrainResult:
     print(f"arch: {registry.describe(args.arch)}"
           f"{' [reduced smoke variant]' if args.smoke else ''}")
     vrl = vrl_config(args)
+    hier = vrl.hier
+    if hier is not None:
+        print(f"hier: {hier.grid[0]} pods x {hier.grid[1]} workers, "
+              f"k1={hier.k1} (intra-pod), k2={hier.k2} (cross-pod)")
     try:
         bundle = make_train_step(cfg, vrl, device=device,
                                  timed=device.type == "cuda")
@@ -190,7 +249,8 @@ def run(argv=None) -> TrainResult:
           f"({es.padded - es.size} pad elems), block={es.block}")
     if args.overlap:
         print("overlap: sync worker mean taken at round start (one-round-"
-              "stale fold at the boundary)")
+              "stale fold at the boundary"
+              + ("; cross-pod sync2 only, sync1 blocking)" if hier else ")"))
     comp = eng.compressors[0]
     if comp is not None:
         item = flat.dtype_of(es.dtype).itemsize
@@ -221,22 +281,35 @@ def run(argv=None) -> TrainResult:
     invariant: List[tuple] = []
     bias_invariant: List[tuple] = []
     ef_identity: List[tuple] = []
+    param_max: List[tuple] = []
     # blocking compression moves Σ_i Δ_i by design: x̂ − mean_i p_i =
     # mean_i(e_i − e'_i), so each sync adds Σ_i (e_i − e'_i)/(k_eff γ)
     ef_log = (comp is not None and comp.error_feedback and not args.overlap
               and isinstance(state.delta, torch.Tensor))
 
+    if hier is None:
+        sums = (("delta", "max|sum_i delta_i|", 0, invariant),
+                ("bias", "max|sum_i bias_i|", 0, bias_invariant))
+    else:
+        sums = (("delta1", "max_p max|sum_d delta1[p, d]|", 1, invariant),
+                ("delta2", "max|sum_p delta2[p]|", 0, bias_invariant))
+
     def log_invariant(state, t):
         """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
-        the largest Δ the run has held), and BVR's Σ_i B_i = 0; nothing
-        for an algorithm without Δ."""
-        for buf, log, name in ((state.delta, invariant, "delta"),
-                               (state.bias, bias_invariant, "bias")):
+        the largest Δ the run has held), and BVR's Σ_i B_i = 0; the
+        hierarchy's Σ_d Δ1 = 0 within every pod and Σ_p Δ2 = 0; nothing
+        for an algorithm without Δ.  Also keeps max|params|, the scale of
+        the rounding of x̂ that each sync leaves in those sums (read
+        without an |params| temporary)."""
+        param_max.append((t, torch.linalg.vector_norm(
+            state.params, float("inf")).item()))
+        for field, label, dim, log in sums:
+            buf = getattr(state, field)
             if isinstance(buf, torch.Tensor):
-                sum_b, max_b = engine_mod.sum_invariant(buf)
+                sum_b, max_b = engine_mod.sum_invariant(buf, dim=dim)
                 log.append((t, sum_b, max_b))
-                print(f"             max|sum_i {name}_i| {sum_b:.3e}  "
-                      f"max|{name}| {max_b:.3e}")
+                print(f"             {label} {sum_b:.3e}  max|{field}| "
+                      f"{max_b:.3e}")
 
     def log_ef_identity(before, state, t, rk):
         """The EF term of the round's sync and how far Σ_i Δ_i's move
@@ -250,13 +323,16 @@ def run(argv=None) -> TrainResult:
         print(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
               f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
     warm_first = sched is None and args.warmup and eng.algo.warmup_aware
+    k_round = hier.k1 if hier is not None else args.k
+    cuda = device.type == "cuda"
+    round_peak = 0
     t0 = time.time()
     t, r = 0, 0
     while t < args.steps:
         if sched is not None:
             rk = sched.period_starting_at(t)
         else:
-            rk = 1 if (warm_first and t == 0) else args.k
+            rk = 1 if (warm_first and t == 0) else k_round
         if args.steps - t < rk:
             # tail shorter than a round: per-step, syncing on the per-step
             # cadence exactly as the reference's tail does
@@ -283,11 +359,18 @@ def run(argv=None) -> TrainResult:
                   or t + rk >= args.steps)
         before = ((state.delta.sum(dim=0), state.comm.resid.sum(dim=0))
                   if ef_log and logged else None)
+        if cuda:
+            # the round's own peak: the checks between rounds make
+            # temporaries of their own
+            torch.cuda.reset_peak_memory_stats(device)
         if r + 1 == args.profile_round:
             state, losses = profiled_round(bundle, state, toks, labels,
                                            device)
         else:
             state, losses = bundle.round_step(state, toks, labels)
+        if cuda:
+            round_peak = max(round_peak,
+                             torch.cuda.max_memory_allocated(device))
         step_losses.append(losses)
         t += rk
         r += 1
@@ -303,7 +386,9 @@ def run(argv=None) -> TrainResult:
                 log_ef_identity(before, state, t, rk)
     losses_host = torch.cat(step_losses).tolist()
     wall = time.time() - t0
-    print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)")
+    print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)"
+          + (f", round peak memory {round_peak / 2**30:.2f} GiB"
+             if cuda else ""))
     phases = bundle.timer.ms() if bundle.timer is not None else {}
     if phases:
         print("phases (device ms, first span / mean of the rest): "
@@ -314,8 +399,9 @@ def run(argv=None) -> TrainResult:
     return TrainResult(state=state, engine=eng, losses=losses_host,
                        avg_model_losses=avg_losses, invariant=invariant,
                        bias_invariant=bias_invariant,
-                       ef_identity=ef_identity, wall_s=wall,
-                       phases_ms=phases)
+                       ef_identity=ef_identity, param_max=param_max,
+                       wall_s=wall, phases_ms=phases,
+                       round_peak_bytes=round_peak)
 
 
 def profiled_round(bundle, state, toks, labels, device):

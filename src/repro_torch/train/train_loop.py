@@ -8,23 +8,30 @@ over worker-stacked engine state:
   local_step(state, tokens, labels) -> (state, loss)
       local iteration only
   sync_step(state) -> state
-      model averaging + Δ update (the per-period communication event)
+      model averaging + Δ update (the per-period communication event;
+      hier_vrl_sgd: sync1 then sync2, and ``sync1_step``/``sync2_step``
+      run one level)
   round_step(state, tokens_k, labels_k) -> (state, losses)
       ONE COMMUNICATION ROUND: k local steps over (k, W, ...) token/label
       stacks, then the round-closing sync (a no-op for S-SGD, which
-      averages gradients every step); losses stay on the device as a (k,)
-      tensor.  The caller sizes each round: k=1 for VRL-SGD-W's warmup
-      round, the stage's k under a CommSchedule (``launch/train.py``).
-      Under ``overlap`` the round opens with the engine's ``round_begin``
-      (the worker mean of the previous boundary's positions) and closes
-      with ``round_fold`` (the stale fold and the capture) instead.
+      averages gradients every step; hier_vrl_sgd: sync1 plus sync2 when
+      the k2 cadence is due); losses stay on the device as a (k,) tensor.
+      The caller sizes each round: k=1 for VRL-SGD-W's warmup round, the
+      stage's k under a CommSchedule, k1 for the hierarchy
+      (``launch/train.py``).  Under ``overlap`` the round opens with the
+      engine's ``round_begin`` (the mean of the previous boundary's
+      positions; hier: the cross-pod mean, when the round ends on the k2
+      cadence) and closes with ``round_fold`` (the stale fold and the
+      capture; hier: sync1, then the fold when due) instead.
 
 Per-worker gradients: the reference ``vmap``s one forward/backward over
 the worker axis; here a loop over workers runs each on views of
 ``params[w]`` (the engine's buffer, no copy), clips them to
 ``vrl_cfg.clip_norm`` when set (``clip_by_global_norm``, per worker) and
 writes them into ONE reused (W, R, C) buffer, so W gradient trees are
-never held at once.
+never held at once.  For hier_vrl_sgd the workers are the pod-major grid's
+(worker i is pod i // D, member i % D), and the engine sees the same
+buffer as a (P, D, R, C) view, with no copy.
 The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
@@ -72,14 +79,18 @@ class StepBundle(NamedTuple):
     engine: Any = None          # core.engine.Engine
     round_step: Any = None      # (state, tokens_k, labels_k) -> (state, losses)
     timer: Any = None           # PhaseTimer (None unless timing was asked)
+    sync1_step: Any = None      # hier only: (state,) -> state, intra-pod
+    sync2_step: Any = None      # hier only: (state,) -> state, cross-pod
 
 
 class PhaseTimer:
     """Device time of the step's phases — ``fwd_bwd`` (per-worker forward
     and backward), ``local`` (the local-step kernel), ``sync`` (worker
-    mean + sync kernel, after the EF round trip under compression), and
-    under overlap ``round_begin`` (the worker mean over pend) and ``fold``
-    (the fold and the capture) — from CUDA events recorded around each,
+    mean + sync kernel, after the EF round trip under compression; hier:
+    sync1 plus sync2 when due), and under overlap ``round_begin`` (the
+    worker mean over pend; hier: the cross-pod mean, when due) and
+    ``fold`` (the fold and the capture; hier: sync1 plus the fold when
+    due) — from CUDA events recorded around each,
     with no host sync while recording; ``ms()`` synchronises and reads
     them."""
 
@@ -112,7 +123,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     eng = engine_mod.make_engine(vrl_cfg, template, device=device)
     spec = eng.spec
     timer = PhaseTimer() if timed else None
-    gbuf: dict = {}             # W -> the reused (W, R, C) gradient buffer
+    gbuf: dict = {}             # params shape -> the reused gradient buffer
 
     def span(name: str):
         return contextlib.nullcontext() if timer is None else timer.span(name)
@@ -121,16 +132,24 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         logits = transformer.forward(model_cfg, params, tokens)
         return cross_entropy_lm(logits, labels)
 
+    def dead_grads(state):
+        """The last step's gradient buffer (dead once the step is done)."""
+        return gbuf.get(tuple(state.params.shape))
+
     def grads_fn(state, tokens, labels):
-        """Per-worker loss and gradients -> ((W, R, C) gradient buffer,
+        """Per-worker loss and gradients -> (gradient buffer shaped like
+        ``state.params``: (W, R, C), or (P, D, R, C) for the hierarchy;
         mean loss over workers)."""
-        w = state.params.shape[0]
-        buf = gbuf.get(w)
+        buf = dead_grads(state)
         if buf is None:
             # pad tail stays zero: gradients only ever fill the leaf spans
-            buf = gbuf[w] = torch.zeros_like(state.params)
-        ptree = eng.params_tree(state)
-        gleaves = tree_mod.leaves(flat.unflatten_stacked(spec, buf))
+            buf = gbuf[tuple(state.params.shape)] = torch.zeros_like(
+                state.params)
+        stacked = (-1, spec.rows, spec.lanes)    # the (W, R, C) views
+        w = buf.view(stacked).shape[0]
+        ptree = flat.unflatten_stacked(spec, state.params.view(stacked))
+        gleaves = tree_mod.leaves(flat.unflatten_stacked(spec,
+                                                         buf.view(stacked)))
         losses = []
         for i in range(w):
             pairs = tree_mod.leaves_with_path(
@@ -156,33 +175,34 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
             state = eng.local_step(state, g)
         return state, loss
 
+    # the last step's gradients are dead at a sync: a compressed sync
+    # writes its decompressed payload over them instead of a new buffer
     def sync_step(state):
         with span("sync"):
-            # the last step's gradients are dead: a compressed sync writes
-            # its decompressed payload over them instead of a new buffer
-            return eng.sync(state, out=gbuf.get(state.params.shape[0]))
+            return eng.sync(state, out=dead_grads(state))
 
     def train_step(state, tokens, labels):
         state, loss = local_step(state, tokens, labels)
-        if eng.algo.sync != "none" and engine_mod.should_sync(
-                eng.algo, vrl_cfg, state.step, state.last_sync):
-            state = sync_step(state)
+        if eng.sync_due(state):
+            with span("sync"):
+                state = eng.step_sync(state, out=dead_grads(state))
         return state, loss
 
     def round_step(state, tokens_k, labels_k):
-        xbar = None
-        if eng.round_begin is not None:
+        overlap = eng.round_begin is not None
+        if overlap:
             with span("round_begin"):
-                xbar = eng.round_begin(state)
+                xbar = eng.round_begin(state, len(tokens_k))
         losses = []
         for tokens, labels in zip(tokens_k, labels_k):
             state, loss = local_step(state, tokens, labels)
             losses.append(loss)
-        if xbar is None:
-            state = sync_step(state)
-        else:
+        if overlap:
             with span("fold"):
                 state = eng.round_fold(state, xbar)
+        else:
+            with span("sync"):
+                state = eng.round_end(state, out=dead_grads(state))
         return state, torch.stack(losses)
 
     def init_state(seed: int, num_workers: int):
@@ -191,5 +211,6 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
 
     return StepBundle(init_state, train_step, local_step, sync_step,
                       grads_fn, eng.average_model, eng,
-                      round_step=round_step, timer=timer)
+                      round_step=round_step, timer=timer,
+                      sync1_step=eng.sync1, sync2_step=eng.sync2)
 

@@ -13,7 +13,11 @@ and bf16 moments, nesterov on and off, several β and k_eff; for the EF
 round trip int8 and top-k (k = 8, 64, 256), with and without ref and EF,
 with rows of ± ties, all-zero rows and rows with fewer than k non-zeros;
 for the overlap fold vrl, bvr (β = 0.5, 1) and avg, capture on and off,
-the miss mask mixed 0/1 over the workers and pend_k ∈ {1, 2, 3}.
+the miss mask mixed 0/1 over the workers and pend_k ∈ {1, 2, 3}; for the
+hierarchy's four kernels over (P, D, R, C) grids — (2, 3) and (3, 2) pods
+× workers, one worker per pod and one pod, tile-aligned and ragged rows —
+wd 0 and non-zero, several k_eff, the fold with and without capture and
+the miss mask all 0, all 1 and mixed over the pods.
 """
 import numpy as np
 import pytest
@@ -270,3 +274,83 @@ def test_cuda_kernels_ef_other_lane_counts(mode, c):
     got = _launched(name, lambda: getattr(tvu, name)(p, ref, e.clone(),
                                                      **kw))
     _assert_equal(got, want)
+
+
+# ------------------------------------------------ hierarchy (P, D, R, C)
+GRIDS = [(2, 3, MR), (3, 2, 1237), (4, 1, MR), (1, 4, 1237)]
+
+
+def _grid_state(seed, grid, dev):
+    """p, g, d1 (P, D, r, C); d2, x̂_pod, pend2 (P, 1, r, C); glob (r, C),
+    fp32 from numpy on ``dev``."""
+    pp, dd, r = grid
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    return ([arr(pp, dd, r, C) for _ in range(3)]
+            + [arr(pp, 1, r, C) for _ in range(3)] + [arr(r, C)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_hier_local_sgd_bitwise(wd, grid):
+    dev = _cuda_or_skip()
+    p, g, d1, d2, *_ = _grid_state(14, grid, dev)
+    want = tu.fused_hier_local_sgd(p, g, d1, d2, lr=0.05, wd=wd)
+    got = _launched("fused_hier_local_sgd", lambda: tvu.fused_hier_local_sgd(
+        p.clone(), g, d1, d2, lr=0.05, wd=wd))
+    _assert_equal((got,), (want,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_eff", [1, 2, 3])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_sync_hier1_bitwise(k_eff, grid):
+    dev = _cuda_or_skip()
+    p, _, d1, _, xpod, *_ = _grid_state(15, grid, dev)
+    scal = torch.full((1, 1), float(k_eff), device=dev) * 0.05
+    want = tu.fused_sync_hier1(p, xpod, d1, scal)
+    got = _launched("fused_sync_hier1", lambda: tvu.fused_sync_hier1(
+        p.clone(), xpod, d1.clone(), scal))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_eff", [1, 2])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_sync_hier2_bitwise(k_eff, grid):
+    dev = _cuda_or_skip()
+    p, _, _, d2, _, _, glob = _grid_state(16, grid, dev)
+    scal = torch.full((1, 1), float(k_eff), device=dev) * 0.05
+    want = tu.fused_sync_hier2(p, glob, d2, scal)
+    got = _launched("fused_sync_hier2", lambda: tvu.fused_sync_hier2(
+        p.clone(), glob, d2.clone(), scal))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("km", ["0", "1", "mixed"])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_fold_overlap_hier2_bitwise(capture, km, grid):
+    dev = _cuda_or_skip()
+    p, _, _, d2, _, pend, glob = _grid_state(17, grid, dev)
+    pods = grid[0]
+    pend_k = torch.tensor([1.0, 2.0, 3.0, 2.0], device=dev)[:pods]
+    inv = torch.reciprocal(pend_k * 0.05)[:, None]
+    miss = {"0": [0.0] * 4, "1": [1.0] * 4, "mixed": [0.0, 1.0, 1.0, 0.0]}
+    kmt = torch.tensor(miss[km], device=dev)[:pods, None]
+    wscal = torch.cat([inv, kmt], dim=1).contiguous()
+    want = tu.fused_fold_overlap_hier2(p, glob, pend, d2, wscal,
+                                       capture=capture)
+    bufs = [x.clone() for x in (p, pend, d2)]
+    got = _launched("fused_fold_overlap_hier2",
+                    lambda: tvu.fused_fold_overlap_hier2(
+                        bufs[0], glob, bufs[1], bufs[2], wscal,
+                        capture=capture))
+    assert len(got) == len(want)
+    _assert_equal(got, want)
+    if not capture:
+        assert torch.equal(bufs[1], pend)          # pend2 left as it was

@@ -185,9 +185,11 @@ def test_launch_train_needs_cuda_without_device_flag():
 
 
 def test_launch_train_refuses_unported_algorithm():
+    """hier_vrl_sgd is ported; its compressed syncs (the grid EF kernels)
+    are not, and the CLI exits naming them."""
     with pytest.raises(SystemExit, match="not ported"):
         t_launch.run(["--smoke", "--device", "cpu", "--algorithm",
-                      "hier_vrl_sgd", "--steps", "1"])
+                      "hier_vrl_sgd", "--compress", "int8", "--steps", "1"])
 
 
 def test_port_imports_neither_jax_nor_repro():
