@@ -3,9 +3,10 @@
 ``ModelConfig`` and ``reduced`` are copied verbatim so that a config built
 here describes exactly the model the JAX package builds, and so is
 ``HierConfig``.  ``VRLConfig`` and ``EngineConfig`` keep only the fields
-the ported slice reads (the flat algorithms with the sgd, momentum and
-adam inner optimizers and two-level hier_vrl_sgd with sgd, on the
-flat-buffer engine); their defaults are the reference's.
+the ported slice reads (the flat algorithms and two-level hier_vrl_sgd
+with the sgd, momentum and adam inner optimizers, SM3-factored Adam
+included, on the flat-buffer engine); their defaults are the
+reference's.
 """
 from __future__ import annotations
 
@@ -86,12 +87,17 @@ class EngineConfig:
     ``block=0`` auto-sizes the row tile (pad toward 1024-row multiples,
     capping padding waste at ``max_pad_waste``).  The CUDA kernels stream
     the whole buffer and ignore ``block``; it only decides the row padding,
-    so the port's layout is the reference's.
+    so the port's layout is the reference's.  ``shards`` pads rows to a
+    multiple of ``block * shards`` and gives SM3's lane stat one row per
+    shard's row span, as the reference does; the port places nothing on a
+    mesh (there is no ``shard_axis`` yet), so it is layout only, and
+    ``shards=1`` is the unsharded layout.
     """
 
     block: int = 0
     lanes: int = 256
     max_pad_waste: float = 0.25
+    shards: int = 1                 # row-block shard count of engine state
 
 
 @dataclass(frozen=True)
@@ -129,7 +135,7 @@ class VRLConfig:
     # storage dtype of the inner-optimizer moments (momentum / Adam mu+nu);
     # the update math stays fp32 in-register
     moment_dtype: str = "float32"   # float32 | bfloat16
-    sm3: bool = False               # SM3-factored Adam nu: not ported yet
+    sm3: bool = False               # SM3-factored Adam nu (row/lane stats)
     easgd_alpha: float = 0.3        # elastic coefficient (EASGD baseline)
     # bvr_l_sgd: EMA rate of the bias control variate B (0 disables the
     # correction — the trajectory is then bitwise vrl_sgd)

@@ -7,8 +7,8 @@ inner-optimizer step on the Δ-corrected gradient) and a periodic *sync*
 algorithm over that loop; ``make_engine`` binds the executor: parameters,
 Δ, B and the inner-optimizer moments are flattened ONCE at init into
 contiguous (W, R, C) buffers (``core/flat``), every local step is one
-fused kernel pass (``kernels/vrl_update.fused_local_{sgd,momentum,adam}``)
-and every sync is one worker mean plus at most one fused pass
+fused kernel pass (``kernels/vrl_update.fused_local_{sgd,momentum,adam,
+adam_sm3}``) and every sync is one worker mean plus at most one fused pass
 (``fused_sync_{vrl,bvr,easgd}``; local_sgd's average is a broadcast copy).
 The kernels update the buffers in place.
 
@@ -31,18 +31,23 @@ captures the new positions, through the EF round trip under compression.
 Two-level hier_vrl_sgd (sync rule "vrl2", ``configs.base.HierConfig``)
 runs over pod-major (P, D, R, C) buffers with Δ1 per worker and Δ2
 (P, 1, R, C) per pod (``_make_hier_engine``): the local step is one
-``fused_hier_local_sgd`` pass, the level-1 sync one pod mean plus
-``fused_sync_hier1``, the level-2 sync one cross-pod mean plus
-``fused_sync_hier2``; under overlap only level 2 is deferred
-(``fused_fold_overlap_hier2``).
+``fused_hier_local_{sgd,momentum,adam,adam_sm3}`` pass, the level-1
+sync one pod mean plus ``fused_sync_hier1``, the level-2 sync one
+cross-pod mean plus ``fused_sync_hier2``; under overlap only level 2 is
+deferred (``fused_fold_overlap_hier2``).
+
+SM3-factored Adam (``sm3=True``) replaces the dense (W, R, C) nu with a
+(W, R, 1) row stat and a (W, S, C) lane stat, one lane row per shard span
+of ``EngineConfig.shards`` (layout only: rows pad to a multiple of
+``block * shards``, nothing is placed on a mesh).
 
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
-stl_sgd, bvr_l_sgd) with the sgd, momentum and adam inner optimizers, with
-or without compression and overlap, and hier_vrl_sgd with the sgd inner
-optimizer, blocking or overlapped.  Still to be ported (ROADMAP Queue 1),
-and refused with NotImplementedError: the hierarchy with momentum or Adam
-and its compressed syncs (``compress``/``compress2``, the grid EF
-kernels), SM3-factored Adam, and overlap deadlines.
+stl_sgd, bvr_l_sgd) and hier_vrl_sgd with the sgd, momentum and adam
+inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16);
+the flat ones with or without compression and overlap, the hierarchy
+blocking or overlapped.  Still to be ported (ROADMAP Queue 1), and
+refused with NotImplementedError: the hierarchy's compressed syncs
+(``compress``/``compress2``, the grid EF kernels) and overlap deadlines.
 """
 from __future__ import annotations
 
@@ -216,15 +221,9 @@ def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
             "see ROADMAP.md Queue 1")
 
 
-def _validate_hier(cfg: VRLConfig, kind: str, comp) -> None:
+def _validate_hier(comp) -> None:
     """Refuse what the port's hierarchy does not run yet (ROADMAP Queue 1):
-    the momentum and Adam local steps (fused_hier_local_{momentum,adam,
-    adam_sm3}) and the compressed syncs (the grid EF kernels)."""
-    if kind != "sgd":
-        raise NotImplementedError(
-            f"hier_vrl_sgd with the {kind!r} inner optimizer needs the "
-            f"fused_hier_local_{kind} kernel, not ported to PyTorch yet; see "
-            f"ROADMAP.md Queue 1 (the hierarchy runs with sgd)")
+    the compressed syncs (the grid EF kernels)."""
     if comp is not None:
         raise NotImplementedError(
             "hier_vrl_sgd with a compressed sync (compress) needs the grid "
@@ -246,20 +245,47 @@ _ADAM_B1, _ADAM_B2 = opt_mod.ADAM_B1, opt_mod.ADAM_B2
 _MOMENT_DTYPES = ("float32", "bfloat16")
 
 
-def _moment_opts(cfg: VRLConfig, kind: str) -> torch.dtype:
-    """The moment storage dtype.  The kernels compute fp32 in-register;
-    ``moment_dtype`` only picks what persists between steps.  SM3 factors
-    Adam's second moment only, so it is inert for sgd/momentum, as in the
-    reference; for adam it is not ported and raises."""
+def _moment_opts(cfg: VRLConfig, kind: str) -> Tuple[torch.dtype, bool]:
+    """(moment storage dtype, SM3 active).  The kernels compute fp32
+    in-register; ``moment_dtype`` only picks what persists between steps.
+    SM3 factors Adam's second moment only, so it is inert for sgd and
+    momentum, as in the reference."""
     name = cfg.moment_dtype
     if name not in _MOMENT_DTYPES:
         raise ValueError(f"unknown moment_dtype {name!r}; known: "
                          f"{_MOMENT_DTYPES}")
-    if cfg.sm3 and kind == "adam":
-        raise NotImplementedError(
-            "SM3-factored Adam (sm3=True) is not ported to PyTorch yet; see "
-            "ROADMAP.md Queue 1")
-    return flat.dtype_of(name)
+    return flat.dtype_of(name), bool(cfg.sm3) and kind == "adam"
+
+
+def _adam_state(shape, shards: int, mdt, sm3: bool,
+                device) -> opt_mod.AdamState:
+    """Adam's zero state over worker buffers of ``shape`` (W, R, C) or (P,
+    D, R, C): a dense nu, or SM3's fp32 row stat (..., R, 1) and lane stat
+    (..., S, C), one lane row per shard span (~R·C/(R + S·C) times
+    smaller)."""
+    def zeros(sh, dtype):
+        return torch.zeros(sh, dtype=dtype, device=device)
+    *lead, rows, lanes = shape
+    nu = (opt_mod.SM3Pair(row=zeros((*lead, rows, 1), torch.float32),
+                          col=zeros((*lead, shards, lanes), torch.float32))
+          if sm3 else zeros(shape, mdt))
+    return opt_mod.AdamState(zeros(shape, mdt), nu, 0)
+
+
+def _adam_local(vu_dense: Callable, vu_sm3: Callable, inner, p, g, corr,
+                kw) -> opt_mod.AdamState:
+    """One Adam local step through the dense or the SM3 kernel; ``corr``:
+    the corrections before the moments ((Δ,) flat, (Δ1, Δ2) hier).  The
+    bias corrections are made on the device.  Returns the new state."""
+    count = inner.count + 1
+    scal = opt_mod.adam_scal(count, p.device, _ADAM_B1, _ADAM_B2)
+    if isinstance(inner.nu, opt_mod.SM3Pair):
+        _, _, _, col = vu_sm3(p, g, *corr, inner.mu, inner.nu.row,
+                              inner.nu.col, scal, **kw)
+        return opt_mod.AdamState(inner.mu, inner.nu._replace(col=col),
+                                 count)
+    vu_dense(p, g, *corr, inner.mu, inner.nu, scal, **kw)
+    return inner._replace(count=count)
 
 
 # ============================================================ fused executor
@@ -313,9 +339,9 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     algo = get_spec(cfg.algorithm)
     ecfg = cfg.engine
     fspec = flat.make_spec(template, lanes=ecfg.lanes, block=ecfg.block,
-                           max_waste=ecfg.max_pad_waste)
+                           max_waste=ecfg.max_pad_waste, shards=ecfg.shards)
     kind, beta = opt_mod.inner_kind(cfg)
-    mdt = _moment_opts(cfg, kind)
+    mdt, sm3 = _moment_opts(cfg, kind)
     lr, wd = cfg.learning_rate, cfg.weight_decay
     delta_dt = flat.dtype_of(cfg.delta_dtype)
     bias_on = use_bias(algo, cfg)
@@ -329,10 +355,11 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             "Queue 1")
     comp, comp2 = comm_mod.resolve_pair(cfg)
     if algo.sync == "vrl2":
-        _validate_hier(cfg, kind, comp)
+        _validate_hier(comp)
         _validate_overlap(cfg, algo, comp2)
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
-                                 delta_dt=delta_dt, device=device)
+                                 delta_dt=delta_dt, device=device,
+                                 kind=kind, beta=beta, mdt=mdt, sm3=sm3)
     _validate_overlap(cfg, algo, comp)
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
@@ -362,7 +389,8 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         elif kind == "momentum":
             inner = zeros(mdt)
         else:
-            inner = opt_mod.AdamState(zeros(mdt), zeros(mdt), 0)
+            inner = _adam_state(stacked.shape, fspec.shards, mdt, sm3,
+                                stacked.device)
         comm = ()
         if comp is not None:
             # fp32 residuals keep the EF invariant exact; ref is the shared
@@ -408,12 +436,10 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             vu.fused_local_momentum(p, g, d, inner, b=b, lr=lr, beta=beta,
                                     wd=wd, block=fspec.block)
         else:
-            count = inner.count + 1
-            scal = opt_mod.adam_scal(count, p.device, _ADAM_B1, _ADAM_B2)
-            vu.fused_local_adam(p, g, d, inner.mu, inner.nu, scal, b=b,
-                                lr=lr, b1=_ADAM_B1, b2=_ADAM_B2, wd=wd,
-                                block=fspec.block)
-            inner = inner._replace(count=count)
+            inner = _adam_local(vu.fused_local_adam, vu.fused_local_adam_sm3,
+                                inner, p, g, (d,),
+                                dict(b=b, lr=lr, b1=_ADAM_B1, b2=_ADAM_B2,
+                                     wd=wd, block=fspec.block))
         out = state._replace(inner=inner, step=state.step + 1)
         if algo.grad_all_reduce:
             out = out._replace(last_sync=state.step + 1)
@@ -558,10 +584,12 @@ def make_engine(cfg: VRLConfig, template: Any, *,
 # ============================================== hierarchical executor ("vrl2")
 def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                       *, lr: float, wd: float, delta_dt: torch.dtype,
-                      device: Optional[torch.device]) -> Engine:
+                      device: Optional[torch.device], kind: str, beta: float,
+                      mdt: torch.dtype, sm3: bool) -> Engine:
     """The two-level engine over pod-major (P, D, R, C) flat buffers
-    (``repro.core.engine._make_hier_engine``, sgd inner optimizer,
-    uncompressed).
+    (``repro.core.engine._make_hier_engine``, uncompressed), with the sgd,
+    momentum or Adam (dense or SM3) inner optimizer over (P, D, ...)
+    moments.
 
     The level-1 sync averages within each pod and folds the Δ1 update into
     one kernel pass; the level-2 sync averages across pods and folds the Δ2
@@ -624,13 +652,36 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                                device=stacked.device),
             delta2=torch.zeros(pod_shape, dtype=delta_dt,
                                device=stacked.device),
-            inner=(), step=0, last_sync1=0, last_sync2=0, overlap=overlap)
+            inner=inner_init(stacked), step=0, last_sync1=0, last_sync2=0,
+            overlap=overlap)
+
+    def inner_init(stacked: torch.Tensor) -> Any:
+        if kind == "sgd":
+            return ()
+        if kind == "momentum":
+            return torch.zeros(stacked.shape, dtype=mdt,
+                               device=stacked.device)
+        return _adam_state(stacked.shape, fspec.shards, mdt, sm3,
+                           stacked.device)
 
     def local_step(state: HierFlatState, grads: Any) -> HierFlatState:
-        vu.fused_hier_local_sgd(state.params, _gbuf(grads), state.delta1,
-                                state.delta2, lr=lr, wd=wd,
-                                block=fspec.block)
-        return state._replace(step=state.step + 1)
+        """One local step: the inner optimizer on v = g − Δ1 − Δ2 (the
+        reference's ``_core_local``)."""
+        p, g, inner = state.params, _gbuf(grads), state.inner
+        corr = (state.delta1, state.delta2)
+        if kind == "sgd":
+            vu.fused_hier_local_sgd(p, g, *corr, lr=lr, wd=wd,
+                                    block=fspec.block)
+        elif kind == "momentum":
+            vu.fused_hier_local_momentum(p, g, *corr, inner, lr=lr,
+                                         beta=beta, wd=wd,
+                                         block=fspec.block)
+        else:
+            inner = _adam_local(vu.fused_hier_local_adam,
+                                vu.fused_hier_local_adam_sm3, inner, p, g,
+                                corr, dict(lr=lr, b1=_ADAM_B1, b2=_ADAM_B2,
+                                           wd=wd, block=fspec.block))
+        return state._replace(inner=inner, step=state.step + 1)
 
     def sync1(state: HierFlatState) -> HierFlatState:
         p = state.params

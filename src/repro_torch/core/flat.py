@@ -55,8 +55,9 @@ class FlatSpec(NamedTuple):
     rows: int                       # R — padded row count (multiple of block)
     block: int                      # row tile height of the layout
     dtype: str                      # buffer dtype for the params buffer
-    shards: int = 1                 # the reference's row-block sharding of
-                                    # the engine state; not ported (1)
+    shards: int = 1                 # row-block shard count: rows are a
+                                    # multiple of block * shards (layout
+                                    # only: nothing is placed on a mesh)
 
     @property
     def padded(self) -> int:
@@ -94,11 +95,14 @@ def _shape_dtype(leaf: Any) -> Tuple[Tuple[int, ...], torch.dtype]:
 
 
 def make_spec(template: Any, *, lanes: int = 256, block: int = 0,
-              max_waste: float = 0.25) -> FlatSpec:
+              max_waste: float = 0.25, shards: int = 1) -> FlatSpec:
     """Build the unravel spec from a SINGLE-MODEL parameter tree.
 
     Leaves may be tensors (meta tensors allocate nothing) or
-    ``(shape, dtype)`` pairs; only shapes and dtypes are read.
+    ``(shape, dtype)`` pairs; only shapes and dtypes are read.  ``shards``
+    pads rows up to a multiple of ``block * shards``: only zero pad rows
+    are added (inert through every update), and ``shards=1`` is the
+    unsharded layout.
     """
     leaves = []
     dtypes = []
@@ -114,13 +118,16 @@ def make_spec(template: Any, *, lanes: int = 256, block: int = 0,
         off += size
     if not leaves:
         raise ValueError("empty template tree")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     dtype = dtype_name(functools.reduce(torch.promote_types, dtypes))
     rows_needed = -(-off // lanes)
     blk = int(block) if block else choose_block(rows_needed,
                                                 max_waste=max_waste)
-    rows = -(-rows_needed // blk) * blk
+    quantum = blk * int(shards)
+    rows = -(-rows_needed // quantum) * quantum
     return FlatSpec(leaves=tuple(leaves), size=off, lanes=lanes, rows=rows,
-                    block=blk, dtype=dtype)
+                    block=blk, dtype=dtype, shards=int(shards))
 
 
 def _check(spec: FlatSpec, tree: Any, stacked: bool) -> list:

@@ -1,8 +1,9 @@
 """State container of the flat-buffer engine (``repro.core.engine``
 ``FlatWorkerState``, ``CommState``, ``OverlapState``, ``HierFlatState``),
 for the slice the port runs: the flat algorithms with the sgd, momentum
-and adam inner optimizers, compressed sync and overlapped rounds, and the
-two-level hierarchy with sgd, blocking or overlapped.
+and adam inner optimizers (Adam dense or SM3-factored), compressed sync
+and overlapped rounds, and the two-level hierarchy with the same inner
+optimizers, blocking or overlapped.
 
 The buffers are updated IN PLACE by the engine's kernels; an engine call
 returns a new tuple (``_replace``) that holds the same buffers with the
@@ -52,7 +53,9 @@ class FlatWorkerState(NamedTuple):
 
     ``params``/``delta``/moments: (W, R, C) (layout: ``core.flat``);
     ``center``: (R, C) fp32 (EASGD only); ``inner``: () for sgd, the (W, R,
-    C) momentum buffer, or an ``optim.AdamState`` of (W, R, C) mu and nu;
+    C) momentum buffer, or an ``optim.AdamState`` of a (W, R, C) mu and a
+    nu that is dense (W, R, C) or an ``optim.SM3Pair`` of fp32 stats, row
+    (W, R, 1) and lane (W, S, C) with S = ``FlatSpec.shards``;
     ``bias``: BVR-L-SGD's (W, R, C) variate B; ``comm``: a ``CommState``
     under compression; ``overlap``: an ``OverlapState`` under overlapped
     rounds.  Each is () where the configuration does not use it.
@@ -74,8 +77,10 @@ class HierFlatState(NamedTuple):
 
     ``params``/``delta1``: (P, D, R, C); ``delta2``: (P, 1, R, C), one
     cross-pod correction per pod, broadcast over the intra-pod axis by the
-    kernels rather than materialised; ``inner``: () (the hierarchy runs
-    the sgd inner optimizer).  Invariants: Σ_d Δ1[p, d] = 0 within every
+    kernels rather than materialised; ``inner``: () for sgd, the (P, D, R,
+    C) momentum buffer, or an ``optim.AdamState`` of a (P, D, R, C) mu and
+    a dense nu or an ``SM3Pair`` of row (P, D, R, 1) and lane (P, D, S, C)
+    stats.  Invariants: Σ_d Δ1[p, d] = 0 within every
     pod after a level-1 sync, Σ_p Δ2[p] = 0 after a level-2 sync.
     ``overlap``: an ``OverlapState`` over pods under overlapped rounds, ()
     otherwise; ``comm``: () (the hierarchy's compressed syncs are not

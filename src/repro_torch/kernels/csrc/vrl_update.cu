@@ -4,10 +4,16 @@
 //   vrl_fused_local_sgd       <- fused_local_sgd       (vrl_update.py:152)
 //   vrl_fused_local_momentum  <- fused_local_momentum  (vrl_update.py:188)
 //   vrl_fused_local_adam      <- fused_local_adam      (vrl_update.py:230)
+//   vrl_fused_local_adam_sm3  <- fused_local_adam_sm3  (vrl_update.py:302)
+//                             and fused_hier_local_adam_sm3
+//                                                      (vrl_update.py:927)
 //   vrl_fused_sync_vrl        <- fused_sync_vrl        (vrl_update.py:351)
 //   vrl_fused_sync_bvr        <- fused_sync_bvr        (vrl_update.py:388)
 //   vrl_fused_sync_easgd      <- fused_sync_easgd      (vrl_update.py:618)
 //   vrl_fused_hier_local_sgd  <- fused_hier_local_sgd  (vrl_update.py:803)
+//   vrl_fused_hier_local_momentum <- fused_hier_local_momentum
+//                                                      (vrl_update.py:833)
+//   vrl_fused_hier_local_adam <- fused_hier_local_adam (vrl_update.py:871)
 //   vrl_fused_sync_hier1      <- fused_sync_hier1      (vrl_update.py:971)
 //   vrl_fused_sync_hier2      <- fused_sync_hier2      (vrl_update.py:1003)
 //   vrl_fused_fold_hier2      <- fused_fold_overlap_hier2
@@ -32,6 +38,19 @@
 // written once, not D times.  The Pallas kernels revisit the per-pod
 // block D times and therefore refuse to donate it; here one thread owns
 // each element, so Δ2 and pend2 are updated in place with no hazard.
+//
+// SM3-factored Adam keeps no dense nu: a row stat (one value per row) and a
+// lane stat (one row of C values per shard's row span) rebuild
+// v̂ = min(row, col) per element, and the step re-factors nu into both.
+// Statistics span a whole row, so one warp owns a (worker, row): the row
+// max is a warp reduction and the row stat is updated in place by its
+// owning warp.  Every row of a span reads the OLD lane stat, so the new
+// one goes to a separate zeroed buffer: each block (whose rows never
+// straddle a span) takes its lanes' max over its rows in shared memory and
+// folds it in with one atomicMax per lane.  nu = b2·v̂ + (1 − b2)·v² is
+// +0 or above (or NaN), where the uint order of the bits is the float
+// order with every NaN above +inf, so the integer max is exact,
+// order-free and propagates NaN as the plain version's max does.
 //
 // Numerics: the arithmetic is the plain PyTorch version's op for op
 // (kernels/torch_update.py), in the same association order, and the
@@ -206,18 +225,27 @@ struct AdamArgs {
   float lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_wd;
 };
 
-__device__ __forceinline__ void adam_one(float& p, float& mu, float& nu,
-                                         float g, float d, float b,
-                                         bool has_d, bool has_b, float c1,
-                                         float c2, const AdamArgs& a) {
+// One Adam step from the old second moment nu_old (dense, or SM3's v̂):
+// updates p and mu, returns nu' = b2·nu_old + (1 − b2)·v².
+__device__ __forceinline__ float adam_step(float& p, float& mu, float nu_old,
+                                           float g, float d, float b,
+                                           bool has_d, bool has_b, float c1,
+                                           float c2, const AdamArgs& a) {
   const float v = corrected(p, g, d, b, has_d, has_b, 0.0f);
   const float mu_new = a.b1 * mu + a.one_minus_b1 * v;
-  const float nu_new = a.b2 * nu + a.one_minus_b2 * v * v;
+  const float nu_new = a.b2 * nu_old + a.one_minus_b2 * v * v;
   float step = a.lr * (mu_new / c1) / (sqrtf(nu_new / c2) + a.eps);
   if (a.wd != 0.0f) step = step + a.lr_wd * p;
   p = p - step;
   mu = mu_new;
-  nu = nu_new;
+  return nu_new;
+}
+
+__device__ __forceinline__ void adam_one(float& p, float& mu, float& nu,
+                                         float g, float d, float b,
+                                         bool has_d, bool has_b, float c1,
+                                         float c2, const AdamArgs& a) {
+  nu = adam_step(p, mu, nu, g, d, b, has_d, has_b, c1, c2, a);
 }
 
 // Adam on v = g − [Δ] − [B]: mu, nu EMAs (stored fp32 or bf16);
@@ -456,6 +484,207 @@ __global__ void fold_hier2_kernel(float4* __restrict__ p,
   }
 }
 
+// Momentum on v = g − Δ1 − Δ2 (+ wd·p): momentum_one with Δ1 as Δ and Δ2
+// as the second correction, Δ2 loaded once per pod; m fp32 or bf16.
+template <typename MT>
+__global__ void hier_local_momentum_kernel(float4* __restrict__ p,
+                                           const float4* __restrict__ g,
+                                           const float4* __restrict__ d1,
+                                           const float4* __restrict__ d2,
+                                           MT* __restrict__ m, MomentumArgs a,
+                                           int64_t dper, int64_t rc4) {
+  const int64_t pod = blockIdx.y;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const float4 bv = d2[pod * rc4 + e];
+    for (int64_t k = 0; k < dper; ++k) {
+      const int64_t j = (pod * dper + k) * rc4 + e;
+      float4 pv = p[j];
+      const float4 gv = g[j];
+      const float4 dv = d1[j];
+      float4 mv = load4(m, j);
+      momentum_one(pv.x, mv.x, gv.x, dv.x, bv.x, true, true, a);
+      momentum_one(pv.y, mv.y, gv.y, dv.y, bv.y, true, true, a);
+      momentum_one(pv.z, mv.z, gv.z, dv.z, bv.z, true, true, a);
+      momentum_one(pv.w, mv.w, gv.w, dv.w, bv.w, true, true, a);
+      p[j] = pv;
+      store4(m, j, mv);
+    }
+  }
+}
+
+// Adam on v = g − Δ1 − Δ2, dense nu: adam_one with Δ2 loaded once per pod;
+// [c1, c2] = scal read on the device; mu, nu fp32 or bf16.
+template <typename MT>
+__global__ void hier_local_adam_kernel(float4* __restrict__ p,
+                                       const float4* __restrict__ g,
+                                       const float4* __restrict__ d1,
+                                       const float4* __restrict__ d2,
+                                       MT* __restrict__ mu,
+                                       MT* __restrict__ nu,
+                                       const float* __restrict__ scal,
+                                       AdamArgs a, int64_t dper,
+                                       int64_t rc4) {
+  const float c1 = scal[0], c2 = scal[1];
+  const int64_t pod = blockIdx.y;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < rc4;
+       e += stride) {
+    const float4 bv = d2[pod * rc4 + e];
+    for (int64_t k = 0; k < dper; ++k) {
+      const int64_t j = (pod * dper + k) * rc4 + e;
+      float4 pv = p[j];
+      const float4 gv = g[j];
+      const float4 dv = d1[j];
+      float4 mv = load4(mu, j);
+      float4 nv = load4(nu, j);
+      adam_one(pv.x, mv.x, nv.x, gv.x, dv.x, bv.x, true, true, c1, c2, a);
+      adam_one(pv.y, mv.y, nv.y, gv.y, dv.y, bv.y, true, true, c1, c2, a);
+      adam_one(pv.z, mv.z, nv.z, gv.z, dv.z, bv.z, true, true, c1, c2, a);
+      adam_one(pv.w, mv.w, nv.w, gv.w, dv.w, bv.w, true, true, c1, c2, a);
+      p[j] = pv;
+      store4(mu, j, mv);
+      store4(nu, j, nv);
+    }
+  }
+}
+
+// ------------------------------------------------ SM3-factored Adam
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLaneGroups = 8;   // C ≤ 32 lanes × 8 float4 = 1,024
+
+// min that returns NaN when either operand is NaN, as torch.minimum does
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ unsigned max_bits(unsigned m, float x) {
+  const unsigned u = __float_as_uint(x);
+  return u > m ? u : m;
+}
+
+struct Sm3Shape {
+  int64_t workers;   // leading buffers: workers × rows × lanes
+  int64_t b_div;     // b is indexed by worker / b_div (hier: Δ2 per pod)
+  int64_t rows, shards, span, rpc, cps;
+};
+
+// One block: rows [r0, r1) of one shard span s of worker w, with w the
+// fastest-varying block index (a pod's workers run side by side and share
+// Δ2 through L2).  Warp i takes rows r0 + i, r0 + i + kWarps, ...; lane l
+// holds float4 groups q·32 + l (q < G) of each row, so the old lane stat of
+// its columns stays in registers for the whole block.  G = C/128.
+template <int G, typename MT>
+__global__ void __launch_bounds__(kThreads)
+    adam_sm3_kernel(float* __restrict__ p, const float* __restrict__ g,
+                    const float* __restrict__ d, const float* __restrict__ b,
+                    MT* __restrict__ mu, float* __restrict__ row,
+                    const float* __restrict__ col, float* __restrict__ col_out,
+                    const float* __restrict__ scal, AdamArgs a, Sm3Shape sh) {
+  constexpr int C = G * 128, C4 = G * 32;
+  __shared__ unsigned red[kWarps][C];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t w = blockIdx.x % sh.workers;
+  const int64_t rest = blockIdx.x / sh.workers;
+  const int64_t s = rest / sh.cps, c = rest % sh.cps;
+  const int64_t r0 = s * sh.span + c * sh.rpc;
+  int64_t r1 = r0 + sh.rpc;
+  if (r1 > (s + 1) * sh.span) r1 = (s + 1) * sh.span;
+  const bool has_d = d != nullptr, has_b = b != nullptr;
+  const float c1 = scal[0], c2 = scal[1];
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const float4* d4 = reinterpret_cast<const float4*>(d);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  const float4* col4 = reinterpret_cast<const float4*>(col);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 cv[G];
+  unsigned cmax[G][4];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    cv[q] = col4[(w * sh.shards + s) * C4 + q * 32 + lane];
+    cmax[q][0] = cmax[q][1] = cmax[q][2] = cmax[q][3] = 0u;
+  }
+  for (int64_t r = r0 + warp; r < r1; r += kWarps) {
+    const float rs = row[w * sh.rows + r];
+    const int64_t base = (w * sh.rows + r) * C4 + lane;
+    const int64_t bbase = ((w / sh.b_div) * sh.rows + r) * C4 + lane;
+    unsigned rmax = 0u;
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int64_t i = base + q * 32;
+      float4 pv = p4[i];
+      const float4 gv = g4[i];
+      const float4 dv = has_d ? d4[i] : zero;
+      const float4 bv = has_b ? b4[bbase + q * 32] : zero;
+      float4 mv = load4(mu, i);
+      float4 nv;
+      nv.x = adam_step(pv.x, mv.x, min_nan(rs, cv[q].x), gv.x, dv.x, bv.x,
+                       has_d, has_b, c1, c2, a);
+      nv.y = adam_step(pv.y, mv.y, min_nan(rs, cv[q].y), gv.y, dv.y, bv.y,
+                       has_d, has_b, c1, c2, a);
+      nv.z = adam_step(pv.z, mv.z, min_nan(rs, cv[q].z), gv.z, dv.z, bv.z,
+                       has_d, has_b, c1, c2, a);
+      nv.w = adam_step(pv.w, mv.w, min_nan(rs, cv[q].w), gv.w, dv.w, bv.w,
+                       has_d, has_b, c1, c2, a);
+      reinterpret_cast<float4*>(p)[i] = pv;
+      store4(mu, i, mv);
+      rmax = max_bits(max_bits(max_bits(max_bits(rmax, nv.x), nv.y), nv.z),
+                      nv.w);
+      cmax[q][0] = max_bits(cmax[q][0], nv.x);
+      cmax[q][1] = max_bits(cmax[q][1], nv.y);
+      cmax[q][2] = max_bits(cmax[q][2], nv.z);
+      cmax[q][3] = max_bits(cmax[q][3], nv.w);
+    }
+    rmax = __reduce_max_sync(0xffffffffu, rmax);
+    if (lane == 0) row[w * sh.rows + r] = __uint_as_float(rmax);
+  }
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) red[warp][(q * 32 + lane) * 4 + t] = cmax[q][t];
+  }
+  __syncthreads();
+  unsigned* out = reinterpret_cast<unsigned*>(col_out) +
+                  (w * sh.shards + s) * C;
+  for (int k = threadIdx.x; k < C; k += kThreads) {
+    unsigned m = 0u;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) m = red[i][k] > m ? red[i][k] : m;
+    if (m) atomicMax(out + k, m);
+  }
+}
+
+template <typename MT>
+int launch_adam_sm3(int groups, dim3 grid, cudaStream_t st, void* p,
+                    const void* g, const void* d, const void* b, void* mu,
+                    void* row, const void* col, void* col_out,
+                    const void* scal, const AdamArgs& a, const Sm3Shape& sh) {
+#define VRL_SM3_CASE(G)                                                     \
+  case G:                                                                   \
+    adam_sm3_kernel<G, MT><<<grid, kThreads, 0, st>>>(                      \
+        (float*)p, (const float*)g, (const float*)d, (const float*)b,       \
+        (MT*)mu, (float*)row, (const float*)col, (float*)col_out,           \
+        (const float*)scal, a, sh);                                         \
+    break;
+  switch (groups) {
+    VRL_SM3_CASE(1)
+    VRL_SM3_CASE(2)
+    VRL_SM3_CASE(3)
+    VRL_SM3_CASE(4)
+    VRL_SM3_CASE(5)
+    VRL_SM3_CASE(6)
+    VRL_SM3_CASE(7)
+    VRL_SM3_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VRL_SM3_CASE
+  return (int)cudaGetLastError();
+}
+
 // The hierarchy's launch shape: blockIdx.y = pod (at most 65,535 pods),
 // the x blocks of all pods together about grid_for(pods*rc4).
 bool hier_grid(int64_t pods, int64_t rc4, dim3* grid) {
@@ -629,6 +858,102 @@ int vrl_fused_fold_hier2(void* p, const void* glob, void* pend2, void* d2,
       (float4*)p, (const float4*)glob, (float4*)pend2, (float4*)d2,
       (const float*)wscal, capture, dper, rc / 4);
   return (int)cudaGetLastError();
+}
+
+// The hierarchy's momentum and Adam steps: p, g, d1, m (or mu, nu) (pods,
+// dper, rc), d2 (pods, 1, rc); moments fp32 (m_bf16 = 0) or bf16 (1).
+int vrl_fused_hier_local_momentum(void* p, const void* g, const void* d1,
+                                  const void* d2, void* m, int m_bf16,
+                                  float lr, float beta, float wd,
+                                  int nesterov, int64_t pods, int64_t dper,
+                                  int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  const MomentumArgs a{lr, beta, wd, nesterov != 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m_bf16) {
+    hier_local_momentum_kernel<<<grid, kThreads, 0, s>>>(
+        (float4*)p, (const float4*)g, (const float4*)d1, (const float4*)d2,
+        (__nv_bfloat16*)m, a, dper, rc / 4);
+  } else {
+    hier_local_momentum_kernel<<<grid, kThreads, 0, s>>>(
+        (float4*)p, (const float4*)g, (const float4*)d1, (const float4*)d2,
+        (float*)m, a, dper, rc / 4);
+  }
+  return (int)cudaGetLastError();
+}
+
+int vrl_fused_hier_local_adam(void* p, const void* g, const void* d1,
+                              const void* d2, void* mu, void* nu, int m_bf16,
+                              const void* scal, float lr, float b1,
+                              float one_minus_b1, float b2,
+                              float one_minus_b2, float eps, float wd,
+                              float lr_wd, int64_t pods, int64_t dper,
+                              int64_t rc, void* stream) {
+  dim3 grid;
+  if (dper < 1 || rc < 4) return (int)cudaGetLastError();
+  if (!hier_grid(pods, rc / 4, &grid)) return (int)cudaErrorInvalidValue;
+  const AdamArgs a{lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_wd};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m_bf16) {
+    hier_local_adam_kernel<<<grid, kThreads, 0, s>>>(
+        (float4*)p, (const float4*)g, (const float4*)d1, (const float4*)d2,
+        (__nv_bfloat16*)mu, (__nv_bfloat16*)nu, (const float*)scal, a, dper,
+        rc / 4);
+  } else {
+    hier_local_adam_kernel<<<grid, kThreads, 0, s>>>(
+        (float4*)p, (const float4*)g, (const float4*)d1, (const float4*)d2,
+        (float*)mu, (float*)nu, (const float*)scal, a, dper, rc / 4);
+  }
+  return (int)cudaGetLastError();
+}
+
+// SM3-factored Adam, flat and hierarchical: p, g, [d], mu (workers, rows,
+// lanes); b (workers / b_div, rows, lanes) or null (flat: B per worker,
+// b_div = 1; hier: Δ2 per pod, b_div = D, with d = Δ1); row (workers,
+// rows, 1) updated in place; col (workers, shards, lanes) read; col_out of
+// the same shape receives the new lane stat (zeroed here first).  lanes a
+// multiple of 128 up to 1,024; rows a multiple of shards.
+int vrl_fused_local_adam_sm3(void* p, const void* g, const void* d,
+                             const void* b, void* mu, void* row,
+                             const void* col, void* col_out, int m_bf16,
+                             const void* scal, float lr, float b1,
+                             float one_minus_b1, float b2,
+                             float one_minus_b2, float eps, float wd,
+                             float lr_wd, int64_t workers, int64_t b_div,
+                             int64_t rows, int64_t lanes, int64_t shards,
+                             void* stream) {
+  if (workers < 1 || rows < 1) return (int)cudaGetLastError();
+  if (lanes % 128 || lanes < 128 || lanes > 128 * kMaxLaneGroups ||
+      shards < 1 || rows % shards || b_div < 1 || workers % b_div)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      col_out, 0, (size_t)(workers * shards * lanes) * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  Sm3Shape sh;
+  sh.workers = workers;
+  sh.b_div = b_div;
+  sh.rows = rows;
+  sh.shards = shards;
+  sh.span = rows / shards;
+  // about one wave of blocks in all, each at least kWarps rows of one span
+  int64_t want = (int64_t)grid_for((int64_t)1 << 40) / (workers * shards);
+  int64_t most = (sh.span + kWarps - 1) / kWarps;
+  sh.cps = want < 1 ? 1 : (want > most ? most : want);
+  sh.rpc = (sh.span + sh.cps - 1) / sh.cps;
+  sh.cps = (sh.span + sh.rpc - 1) / sh.rpc;
+  const int64_t blocks = workers * shards * sh.cps;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const AdamArgs a{lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_wd};
+  const int groups = (int)(lanes / 128);
+  dim3 grid((unsigned)blocks);
+  if (m_bf16)
+    return launch_adam_sm3<__nv_bfloat16>(groups, grid, st, p, g, d, b, mu,
+                                          row, col, col_out, scal, a, sh);
+  return launch_adam_sm3<float>(groups, grid, st, p, g, d, b, mu, row, col,
+                                col_out, scal, a, sh);
 }
 
 }  // extern "C"

@@ -25,6 +25,18 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 square root rounded to nearest, as XLA's and the CUDA
+    kernels' ``sqrtf`` are.  PyTorch's vectorised CPU ``sqrt`` is not
+    correctly rounded for ~0.6 % of fp32 inputs (its AVX-512 path; one ulp
+    off), so on the CPU the root is taken in double and rounded to fp32
+    once, which is exact rounding (53 >= 2·24 + 2 bits).  On the card
+    ``torch.sqrt`` is IEEE already."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def _corrected(g: torch.Tensor, d: Optional[torch.Tensor],
                b: Optional[torch.Tensor]) -> torch.Tensor:
     """v = g − [Δ] − [B] (same association order as the kernels)."""
@@ -81,11 +93,49 @@ def fused_local_adam(p, g, d, mu, nu, scal, *, lr: float, b1: float = 0.9,
     c2 = scal[0, 1]
     mu_new = b1 * _f32(mu) + (1.0 - b1) * v
     nu_new = b2 * _f32(nu) + (1.0 - b2) * v * v
-    step = lr * (mu_new / c1) / (torch.sqrt(nu_new / c2) + eps)
+    step = lr * (mu_new / c1) / (sqrt_rn(nu_new / c2) + eps)
     if wd:
         step = step + lr * wd * p32
     return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype),
             nu_new.to(nu.dtype))
+
+
+def _sm3_second_moment(v, row, col, b2: float):
+    """v̂ = min(row, col) rebuilt per element, EMA'd with the fresh v²,
+    re-factored into the two stats.  ``row``: (..., R, 1); ``col``:
+    (..., S, C), one lane-stat row per shard's row span of R/S rows.  fp32
+    max is exact and order-free (NaN propagates through min and max), so a
+    kernel that accumulates the span's max in any order matches bitwise.
+    Returns (nu, row', col')."""
+    shards = col.shape[-2]
+    span = v.shape[-2] // shards
+    col_b = torch.repeat_interleave(_f32(col), span, dim=-2)   # (..., R, C)
+    vhat = torch.minimum(_f32(row), col_b)
+    nu = b2 * vhat + (1.0 - b2) * v * v
+    new_row = nu.amax(dim=-1, keepdim=True)
+    spanned = nu.reshape(nu.shape[:-2] + (shards, span, nu.shape[-1]))
+    return nu, new_row, spanned.amax(dim=-2)
+
+
+def fused_local_adam_sm3(p, g, d, mu, row, col, scal, *, lr: float,
+                         b1: float = 0.9, b2: float = 0.999,
+                         eps: float = 1e-8, wd: float = 0.0,
+                         block: int = 0, b=None):
+    """SM3-factored Adam inner step fused with the corrections: ``row``
+    (W, R, 1) and ``col`` (W, S, C) fp32 stats replace the dense nu.
+    Returns (p', mu', row', col')."""
+    del block
+    v = _corrected(g, d, b)
+    p32 = _f32(p)
+    c1 = scal[0, 0]
+    c2 = scal[0, 1]
+    mu_new = b1 * _f32(mu) + (1.0 - b1) * v
+    nu, new_row, new_col = _sm3_second_moment(v, row, col, b2)
+    step = lr * (mu_new / c1) / (sqrt_rn(nu / c2) + eps)
+    if wd:
+        step = step + lr * wd * p32
+    return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype), new_row,
+            new_col)
 
 
 def fused_sync_vrl(p, xbar, d, scal, *, block: int = 0):
@@ -285,3 +335,58 @@ def fused_sync_hier2(p, glob, d2, scal, *, block: int = 0):
     new_d2 = (_f32(d2) + (glob32 - pod) / kg).to(d2.dtype)
     new_p = glob32.expand(p.shape).to(p.dtype, copy=True)
     return new_p, new_d2
+
+
+def fused_hier_local_momentum(p, g, d1, d2, m, *, lr: float, beta: float,
+                              wd: float = 0.0, nesterov: bool = False,
+                              block: int = 0):
+    """Momentum inner step with both Δ corrections: v = g − Δ1 − Δ2
+    (+ wd·p); returns (p', m')."""
+    del block
+    v = _f32(g) - _f32(d1) - _f32(d2)
+    p32 = _f32(p)
+    if wd:
+        v = v + wd * p32
+    m_new = beta * _f32(m) + v
+    step_dir = v + beta * m_new if nesterov else m_new
+    return (p32 - lr * step_dir).to(p.dtype), m_new.to(m.dtype)
+
+
+def fused_hier_local_adam(p, g, d1, d2, mu, nu, scal, *, lr: float,
+                          b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8, wd: float = 0.0,
+                          block: int = 0):
+    """Adam inner step on v = g − Δ1 − Δ2, dense nu; returns (p', mu',
+    nu')."""
+    del block
+    v = _f32(g) - _f32(d1) - _f32(d2)
+    p32 = _f32(p)
+    c1 = scal[0, 0]
+    c2 = scal[0, 1]
+    mu_new = b1 * _f32(mu) + (1.0 - b1) * v
+    nu_new = b2 * _f32(nu) + (1.0 - b2) * v * v
+    step = lr * (mu_new / c1) / (sqrt_rn(nu_new / c2) + eps)
+    if wd:
+        step = step + lr * wd * p32
+    return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype),
+            nu_new.to(nu.dtype))
+
+
+def fused_hier_local_adam_sm3(p, g, d1, d2, mu, row, col, scal, *,
+                              lr: float, b1: float = 0.9, b2: float = 0.999,
+                              eps: float = 1e-8, wd: float = 0.0,
+                              block: int = 0):
+    """Pod-major SM3 Adam on v = g − Δ1 − Δ2: ``row`` (P, D, R, 1),
+    ``col`` (P, D, S, C).  Returns (p', mu', row', col')."""
+    del block
+    v = _f32(g) - _f32(d1) - _f32(d2)
+    p32 = _f32(p)
+    c1 = scal[0, 0]
+    c2 = scal[0, 1]
+    mu_new = b1 * _f32(mu) + (1.0 - b1) * v
+    nu, new_row, new_col = _sm3_second_moment(v, row, col, b2)
+    step = lr * (mu_new / c1) / (sqrt_rn(nu / c2) + eps)
+    if wd:
+        step = step + lr * wd * p32
+    return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype), new_row,
+            new_col)

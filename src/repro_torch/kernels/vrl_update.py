@@ -7,6 +7,9 @@ algorithms' local steps and syncs as single passes over worker-stacked
   local sgd:       p' = p − γ((g − Δ − B) + wd·p)
   local momentum:  m' = βm + v;  p' = p − γ·m'  (v = g − Δ − B + wd·p)
   local adam:      mu, nu EMAs of v;  p' = p − γ(mu/c1)/(√(nu/c2)+eps) − γwd·p
+  local adam sm3:  the same with nu rebuilt as b2·min(row, col) + (1−b2)v²;
+                   row' = its max over each row, col' = over each shard's
+                   row span
   sync vrl:        Δ' = Δ + (x̂ − p)/(k_eff γ);  p' = x̂
   sync bvr:        the vrl sync plus B' = (1−β)B + β(x̂ − p)/(k_eff γ)
   sync easgd:      p' = p − a(p − x̃), then x̃' = (1 − na)x̃ + na·x̂
@@ -19,6 +22,7 @@ and the two-level hierarchy's over pod-major (P, D, R, C) buffers, with
 Δ2, x̂_pod and pend2 (P, 1, R, C) per pod:
 
   hier local sgd:  p' = p − γ((g − Δ1 − Δ2) + wd·p)
+  hier local momentum, adam, adam sm3: the flat steps on v = g − Δ1 − Δ2
   sync hier1:      Δ1' = Δ1 + (x̂_pod − p)/(k1_eff γ);  p' = x̂_pod
   sync hier2:      Δ2' = Δ2 + (x̂ − p_pod)/(k2_eff γ);  p' = x̂
   fold hier2:      c = x̂_stale − pend2;  p' = p + c;  Δ2' = Δ2 + c·s₀;
@@ -49,7 +53,9 @@ LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
             "fused_fold_overlap": 0, "fused_fold_overlap_bvr": 0,
             "fused_fold_overlap_avg": 0, "fused_hier_local_sgd": 0,
             "fused_sync_hier1": 0, "fused_sync_hier2": 0,
-            "fused_fold_overlap_hier2": 0}
+            "fused_fold_overlap_hier2": 0, "fused_local_adam_sm3": 0,
+            "fused_hier_local_momentum": 0, "fused_hier_local_adam": 0,
+            "fused_hier_local_adam_sm3": 0}
 
 
 def reset_launches() -> None:
@@ -96,6 +102,19 @@ def _lib() -> ctypes.CDLL:
     lib.vrl_fused_fold_hier2.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR,
                                          ctypes.c_int, i64, i64, i64, _PTR]
     lib.vrl_fused_fold_hier2.restype = ctypes.c_int
+    lib.vrl_fused_hier_local_momentum.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, f32, f32, f32,
+        ctypes.c_int, i64, i64, i64, _PTR]
+    lib.vrl_fused_hier_local_momentum.restype = ctypes.c_int
+    lib.vrl_fused_hier_local_adam.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, _PTR,
+        f32, f32, f32, f32, f32, f32, f32, f32, i64, i64, i64, _PTR]
+    lib.vrl_fused_hier_local_adam.restype = ctypes.c_int
+    lib.vrl_fused_local_adam_sm3.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, _PTR,
+        f32, f32, f32, f32, f32, f32, f32, f32, i64, i64, i64, i64, i64,
+        _PTR]
+    lib.vrl_fused_local_adam_sm3.restype = ctypes.c_int
     return lib
 
 
@@ -167,6 +186,13 @@ def _stream(t: torch.Tensor) -> int:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _adam_consts(lr, b1, b2, eps, wd):
+    """Adam's scalar arguments, each derived constant rounded from double
+    once (as JAX's weak-typed Python scalars are)."""
+    return (float(lr), float(b1), float(1.0 - b1), float(b2),
+            float(1.0 - b2), float(eps), float(wd), float(lr * wd))
 
 
 # Replaces repro/kernels/vrl_update.py:152 fused_local_sgd (Pallas, TPU).
@@ -293,12 +319,93 @@ def fused_local_adam(p: torch.Tensor, g: torch.Tensor,
         err = lib.vrl_fused_local_adam(
             p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), mu.data_ptr(),
             nu.data_ptr(), int(mu.dtype == torch.bfloat16), scal.data_ptr(),
-            float(lr), float(b1), float(1.0 - b1), float(b2),
-            float(1.0 - b2), float(eps), float(wd), float(lr * wd),
-            p.numel(), _stream(p))
+            *_adam_consts(lr, b1, b2, eps, wd), p.numel(), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return p, mu, nu
+
+
+# Replaces repro/kernels/vrl_update.py:302 fused_local_adam_sm3 (Pallas,
+# TPU).  Bound: device-memory bandwidth — reads p, g [, Δ, B], mu and the
+# row stat once, writes p, mu and the row stat (24 R·C-buffers plus the row
+# stat at W = 4 with Δ and fp32 mu); the lane stat is 4 KiB.  ~22 flops,
+# one sqrt and two divisions per element.  Design (csrc/vrl_update.cu,
+# adam_sm3_kernel): one warp per (worker, 256-lane row) rebuilds
+# v̂ = min(row, col) from the row stat and the OLD lane stat held in
+# registers, takes the row max with a warp reduction and writes the row
+# stat in place; each block of rows within one shard span folds its lanes'
+# max into a new zeroed lane-stat buffer with one atomicMax per lane (the
+# Pallas kernel does not donate col either: every row of a span reads the
+# old one).  Max over bits of nu ≥ +0 is exact and order-free, so the
+# result is bitwise the plain version's.
+_SM3_MAX_LANES = 1024
+
+
+def _check_sm3(name: str, p: torch.Tensor, row: torch.Tensor,
+               col: torch.Tensor) -> None:
+    """row (..., R, 1) and col (..., S, C) beside p (..., R, C), R % S ==
+    0; on the card lanes a multiple of 128 up to 1,024 (a warp per row)."""
+    lead, r, c = tuple(p.shape[:-2]), p.shape[-2], p.shape[-1]
+    shards = col.shape[-2] if col.dim() == p.dim() else 0
+    if (tuple(row.shape) != lead + (r, 1)
+            or tuple(col.shape) != lead + (shards, c) or shards < 1):
+        raise ValueError(f"{name}: row {tuple(row.shape)} / col "
+                         f"{tuple(col.shape)} are not the stats of p "
+                         f"{tuple(p.shape)}: want {lead + (r, 1)} and "
+                         f"{lead + ('S', c)}")
+    if r % shards:
+        raise ValueError(f"{name}: {r} rows do not split into {shards} "
+                         f"shard spans")
+    if p.device.type == "cuda" and (c % 128 or c > _SM3_MAX_LANES):
+        raise ValueError(f"{name}: the kernel takes rows of 128·n lanes up "
+                         f"to {_SM3_MAX_LANES}, got {c}")
+
+
+
+def _adam_sm3(name, p, g, d, b, mu, row, col, scal, b_div, consts):
+    workers = p.numel() // max(p.shape[-2] * p.shape[-1], 1)
+    col_out = torch.empty_like(col)
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_local_adam_sm3(
+            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), mu.data_ptr(),
+            row.data_ptr(), col.data_ptr(), col_out.data_ptr(),
+            int(mu.dtype == torch.bfloat16), scal.data_ptr(), *consts,
+            workers, b_div, p.shape[-2], p.shape[-1], col.shape[-2],
+            _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, mu, row, col_out
+
+
+def fused_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
+                         d: Optional[torch.Tensor], mu: torch.Tensor,
+                         row: torch.Tensor, col: torch.Tensor,
+                         scal: torch.Tensor, *, lr: float, b1: float = 0.9,
+                         b2: float = 0.999, eps: float = 1e-8,
+                         wd: float = 0.0, block: int = 0,
+                         b: Optional[torch.Tensor] = None):
+    """SM3-factored Adam inner step fused with the corrections on (W, R,
+    C): ``row`` (W, R, 1) and ``col`` (W, S, C) fp32 stats (S shard spans
+    of R/S rows) replace the dense nu.  p, mu and row are updated in place;
+    the new lane stat is a new tensor (every row reads the old one).
+    Returns (p, mu, row, col').  ``scal``: (1, 2) fp32 [c1, c2]."""
+    del block
+    name = "fused_local_adam_sm3"
+    _check(name, p, moments=("mu",), p=p, g=g, d=d, b=b, mu=mu, row=row,
+           col=col, scal=scal)
+    _same_shape(name, p, g=g, d=d, b=b, mu=mu)
+    _check_sm3(name, p, row, col)
+    if scal.numel() != 2:
+        raise ValueError(f"{name}: scal must hold [c1, c2], got "
+                         f"{tuple(scal.shape)}")
+    if p.device.type == "cpu":
+        new_p, new_mu, new_row, new_col = tu.fused_local_adam_sm3(
+            p, g, d, mu, row, col, scal.reshape(1, 2), lr=lr, b1=b1, b2=b2,
+            eps=eps, wd=wd, b=b)
+        return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
+    return _adam_sm3(name, p, g, d, b, mu, row, col, scal, 1,
+                     _adam_consts(lr, b1, b2, eps, wd))
 
 
 # Replaces repro/kernels/vrl_update.py:388 fused_sync_bvr (Pallas, TPU).
@@ -674,3 +781,114 @@ def fused_fold_overlap_hier2(p: torch.Tensor, glob: torch.Tensor,
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return bufs
+
+
+# Replaces repro/kernels/vrl_update.py:833 fused_hier_local_momentum
+# (Pallas, TPU).  Bound: device-memory bandwidth — reads p, g, Δ1, m (P·D·R·C
+# each) and Δ2 (P·R·C) once, writes p and m (26 R·C-buffers at P = D = 2
+# with fp32 m); ~8 flops per element.  Design: fused_hier_local_sgd's — one
+# thread per (pod, float4 of R·C) walks the pod's D workers with Δ2 in a
+# register — with fused_local_momentum's arithmetic, Δ1 as Δ and Δ2 as the
+# second correction; m fp32 or bf16, in place.
+def fused_hier_local_momentum(p: torch.Tensor, g: torch.Tensor,
+                              d1: torch.Tensor, d2: torch.Tensor,
+                              m: torch.Tensor, *, lr: float, beta: float,
+                              wd: float = 0.0, nesterov: bool = False,
+                              block: int = 0):
+    """m ← βm + v; p ← p − γ·(nesterov ? v + βm : m), v = g − Δ1 − Δ2 +
+    wd·p, in place on (P, D, R, C); Δ2 is (P, 1, R, C).  Returns (p, m)."""
+    del block
+    name = "fused_hier_local_momentum"
+    _check(name, p, grid=True, moments=("m",), p=p, g=g, d1=d1, d2=d2, m=m)
+    _same_shape(name, p, g=g, d1=d1, m=m)
+    _pod_shape(name, p, d2=d2)
+    if p.device.type == "cpu":
+        new_p, new_m = tu.fused_hier_local_momentum(
+            p, g, d1, d2, m, lr=lr, beta=beta, wd=wd, nesterov=nesterov)
+        return p.copy_(new_p), m.copy_(new_m)
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_hier_local_momentum(
+            p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            m.data_ptr(), int(m.dtype == torch.bfloat16), float(lr),
+            float(beta), float(wd), int(bool(nesterov)), *_grid_sizes(p),
+            _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, m
+
+
+# Replaces repro/kernels/vrl_update.py:871 fused_hier_local_adam (Pallas,
+# TPU).  Bound: device-memory bandwidth — reads p, g, Δ1, mu, nu and Δ2 once
+# per pod, writes p, mu, nu (34 R·C-buffers at P = D = 2 with fp32
+# moments); ~20 flops, one sqrt and two divisions per element.  Design: the
+# pod walk of fused_hier_local_sgd with fused_local_adam's arithmetic; [c1,
+# c2] read from the (1, 2) device tensor ``scal``; in place over p, mu, nu.
+def fused_hier_local_adam(p: torch.Tensor, g: torch.Tensor,
+                          d1: torch.Tensor, d2: torch.Tensor,
+                          mu: torch.Tensor, nu: torch.Tensor,
+                          scal: torch.Tensor, *, lr: float, b1: float = 0.9,
+                          b2: float = 0.999, eps: float = 1e-8,
+                          wd: float = 0.0, block: int = 0):
+    """Adam on v = g − Δ1 − Δ2 in place on (P, D, R, C); returns (p, mu,
+    nu).  ``scal``: (1, 2) fp32 [1 − b1^t, 1 − b2^t]."""
+    del block
+    name = "fused_hier_local_adam"
+    _check(name, p, grid=True, moments=("mu", "nu"), p=p, g=g, d1=d1, d2=d2,
+           mu=mu, nu=nu, scal=scal)
+    _same_shape(name, p, g=g, d1=d1, mu=mu, nu=nu)
+    _pod_shape(name, p, d2=d2)
+    if scal.numel() != 2:
+        raise ValueError(f"{name}: scal must hold [c1, c2], got "
+                         f"{tuple(scal.shape)}")
+    if p.device.type == "cpu":
+        outs = tu.fused_hier_local_adam(p, g, d1, d2, mu, nu,
+                                        scal.reshape(1, 2), lr=lr, b1=b1,
+                                        b2=b2, eps=eps, wd=wd)
+        return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
+    lib = _lib()
+    with torch.cuda.device(p.device):
+        err = lib.vrl_fused_hier_local_adam(
+            p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            mu.data_ptr(), nu.data_ptr(), int(mu.dtype == torch.bfloat16),
+            scal.data_ptr(), *_adam_consts(lr, b1, b2, eps, wd),
+            *_grid_sizes(p), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return p, mu, nu
+
+
+# Replaces repro/kernels/vrl_update.py:927 fused_hier_local_adam_sm3
+# (Pallas, TPU).  Bound: device-memory bandwidth — reads p, g, Δ1, mu, Δ2
+# once per pod and the row stat, writes p, mu and the row stat (22
+# R·C-buffers plus the row stat at P = D = 2 with bf16 mu).  Design:
+# fused_local_adam_sm3's kernel over the P·D workers, with Δ1 as Δ and Δ2
+# indexed by pod; a pod's workers take neighbouring blocks, so the second
+# read of a Δ2 row finds it in L2.
+def fused_hier_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
+                              d1: torch.Tensor, d2: torch.Tensor,
+                              mu: torch.Tensor, row: torch.Tensor,
+                              col: torch.Tensor, scal: torch.Tensor, *,
+                              lr: float, b1: float = 0.9, b2: float = 0.999,
+                              eps: float = 1e-8, wd: float = 0.0,
+                              block: int = 0):
+    """SM3-factored Adam on v = g − Δ1 − Δ2 over (P, D, R, C): ``row`` (P,
+    D, R, 1), ``col`` (P, D, S, C).  p, mu, row in place; returns (p, mu,
+    row, col') with col' new."""
+    del block
+    name = "fused_hier_local_adam_sm3"
+    _check(name, p, grid=True, moments=("mu",), p=p, g=g, d1=d1, d2=d2,
+           mu=mu, row=row, col=col, scal=scal)
+    _same_shape(name, p, g=g, d1=d1, mu=mu)
+    _pod_shape(name, p, d2=d2)
+    _check_sm3(name, p, row, col)
+    if scal.numel() != 2:
+        raise ValueError(f"{name}: scal must hold [c1, c2], got "
+                         f"{tuple(scal.shape)}")
+    if p.device.type == "cpu":
+        new_p, new_mu, new_row, new_col = tu.fused_hier_local_adam_sm3(
+            p, g, d1, d2, mu, row, col, scal.reshape(1, 2), lr=lr, b1=b1,
+            b2=b2, eps=eps, wd=wd)
+        return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
+    return _adam_sm3(name, p, g, d1, d2, mu, row, col, scal, p.shape[1],
+                     _adam_consts(lr, b1, b2, eps, wd))

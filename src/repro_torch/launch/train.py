@@ -40,11 +40,16 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
       --smoke --device cpu --workers 4 --steps 8 --batch 2 --seq 32 \\
       --lr 0.05 --algorithm hier_vrl_sgd --pods 2 --k1 2 --k2 4 --overlap
 
+The inner optimizers beyond sgd (momentum, Adam with fp32 or bf16
+moments, SM3-factored Adam, ``EngineConfig.shards``) run through
+``VRLConfig`` and ``make_train_step``, flat and hierarchical; the
+reference CLI trains with sgd only, so its ``--sm3`` and
+``--moment-dtype`` change nothing there and are not flags here.
+
 Not ported yet (ROADMAP Queue 1): the hierarchy's compressed syncs
 (``--compress`` with hier_vrl_sgd, and ``--compress2``: they exit "not
-ported"), SM3 moments (``--sm3``), overlap deadlines (``--deadline``),
-membership and faults, client sampling, checkpoints, diagnostics and
-telemetry, meshes.
+ported"), overlap deadlines (``--deadline``), membership and faults,
+client sampling, checkpoints, diagnostics and telemetry, meshes.
 """
 from __future__ import annotations
 

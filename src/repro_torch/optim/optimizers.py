@@ -14,7 +14,11 @@ for them in the tests.  Adam's step count is a host integer, as the
 engine's step counters are; its bias corrections are made on the device
 (``adam_scal``).
 
-Not ported: the SM3-factored second moment (``sm3=True`` raises).
+``sm3=True`` switches Adam's second moment to the SM3 factored form
+(Anil et al. 2019): per matrix-like leaf, nu's full buffer is replaced by
+a row-max and a lane-max statistic over the trailing 2D face, with
+v̂ = min(row, lane) bounding nu from above; the engine applies the same
+construction to its (R, C) flat buffers.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.kernels.torch_update import sqrt_rn
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 
@@ -34,8 +39,19 @@ class Optimizer(NamedTuple):
 
 class AdamState(NamedTuple):
     mu: Any
-    nu: Any
+    nu: Any                     # dense, or an SM3Pair
     count: int                  # steps taken (host integer)
+
+
+class SM3Pair(NamedTuple):
+    """Factored second-moment statistics: ``row`` the max over the last
+    (lane) dim, ``col`` the max over the second-to-last (row) dim (the
+    engine's: over each shard's row span); ``min(row, col)`` bounds the
+    dense nu from above.  Always fp32 (the stats are ~(R + C)/(R·C) of the
+    dense buffer, so quantizing them buys nothing)."""
+
+    row: Any
+    col: Any
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -101,16 +117,26 @@ def momentum(lr: float, beta: float = 0.9, weight_decay: float = 0.0,
 def adam(lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
          eps: float = 1e-8, weight_decay: float = 0.0,
          moment_dtype: Any = torch.float32, sm3: bool = False) -> Optimizer:
-    if sm3:
-        raise NotImplementedError(
-            "SM3-factored Adam (sm3=True) is not ported to PyTorch yet; see "
-            "ROADMAP.md Queue 1")
+    """Adam with decoupled weight decay.  ``sm3``: leaves with ndim >= 2
+    keep an ``SM3Pair`` of fp32 stats instead of nu; the others a dense nu
+    (fp32 zeros at init, stored in ``moment_dtype`` after a step, as in the
+    reference)."""
     mdt = _dtype(moment_dtype)
+
+    def stats(x):
+        if x.dim() < 2:
+            return torch.zeros_like(x, dtype=torch.float32)
+        return SM3Pair(
+            row=x.new_zeros(x.shape[:-1] + (1,), dtype=torch.float32),
+            col=x.new_zeros(x.shape[:-2] + (1, x.shape[-1]),
+                            dtype=torch.float32))
 
     def init(params):
         zeros = tree_mod.tree_map(
             lambda x: torch.zeros_like(x, dtype=mdt), params)
-        return AdamState(zeros, tree_mod.tree_map(torch.clone, zeros), 0)
+        nu = (tree_mod.tree_map(stats, params) if sm3
+              else tree_mod.tree_map(torch.clone, zeros))
+        return AdamState(zeros, nu, 0)
 
     def update(params, grads, state):
         count = state.count + 1
@@ -121,11 +147,18 @@ def adam(lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
         def upd(x, g, m_old, nu_old):
             g = _f32(g)
             m = b1 * _f32(m_old) + (1 - b1) * g
-            v = b2 * _f32(nu_old) + (1 - b2) * torch.square(g)
-            step = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+            if isinstance(nu_old, SM3Pair):
+                vhat = torch.minimum(nu_old.row, nu_old.col)
+                v = b2 * vhat + (1 - b2) * torch.square(g)
+                nu_new = SM3Pair(row=v.amax(dim=-1, keepdim=True),
+                                 col=v.amax(dim=-2, keepdim=True))
+            else:
+                v = b2 * _f32(nu_old) + (1 - b2) * torch.square(g)
+                nu_new = v.to(mdt)
+            step = lr * (m / c1) / (sqrt_rn(v / c2) + eps)
             if weight_decay:
                 step = step + lr * weight_decay * _f32(x)
-            return (_f32(x) - step).to(x.dtype), m.to(mdt), v.to(mdt)
+            return (_f32(x) - step).to(x.dtype), m.to(mdt), nu_new
 
         out = tree_mod.tree_map(upd, params, grads, state.mu, state.nu)
         return _pick(out, 0), AdamState(_pick(out, 1), _pick(out, 2), count)

@@ -17,7 +17,10 @@ the miss mask mixed 0/1 over the workers and pend_k ∈ {1, 2, 3}; for the
 hierarchy's four kernels over (P, D, R, C) grids — (2, 3) and (3, 2) pods
 × workers, one worker per pod and one pod, tile-aligned and ragged rows —
 wd 0 and non-zero, several k_eff, the fold with and without capture and
-the miss mask all 0, all 1 and mixed over the pods.
+the miss mask all 0, all 1 and mixed over the pods; SM3-factored Adam
+(flat and hierarchical) over S ∈ {1, 2, 5} lane-stat spans (flat; {1, 2}
+hier), with rows holding a planted NaN compared NaN for NaN, and the
+hierarchy's momentum (nesterov on and off) and dense Adam steps.
 """
 import numpy as np
 import pytest
@@ -354,3 +357,124 @@ def test_cuda_kernels_fold_overlap_hier2_bitwise(capture, km, grid):
     _assert_equal(got, want)
     if not capture:
         assert torch.equal(bufs[1], pend)          # pend2 left as it was
+
+
+# ------------------------------------------ SM3 Adam, hier momentum and Adam
+def _equal_nan(got, want):
+    """Bitwise, NaN for NaN (a NaN's payload is not compared)."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        nan = torch.isnan(a.float())
+        assert torch.equal(nan, torch.isnan(b.float()))
+        assert torch.equal(a[~nan], b[~nan])
+
+
+def _adam_scal(dev, t=3):
+    return torch.tensor([[1 - 0.9 ** t, 1 - 0.999 ** t]], dtype=torch.float32,
+                        device=dev)
+
+
+def _stats(rng, lead, r, shards, dev):
+    """SM3's row (lead, r, 1) and lane (lead, S, C) stats, ≥ 0."""
+    row = 0.01 * np.square(rng.randn(*lead, r, 1)).astype(np.float32)
+    col = 0.01 * np.square(rng.randn(*lead, shards, C)).astype(np.float32)
+    return torch.from_numpy(row).to(dev), torch.from_numpy(col).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("corr", ["none", "d", "db"])
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("shards", [1, 2, 5])
+@pytest.mark.parametrize("r", [MR, 1235])
+def test_cuda_kernels_local_adam_sm3_bitwise(mdt, corr, wd, shards, r):
+    dev = _cuda_or_skip()
+    rows = r - r % shards
+    (p, g, d, b, mu, _), _ = _state(18, rows, dev)
+    d = d if "d" in corr else None
+    b = b if "b" in corr else None
+    mu = (0.1 * mu).to(MOMENT_DTYPES[mdt])
+    row, col = _stats(np.random.RandomState(19), (MW,), rows, shards, dev)
+    kw = dict(lr=1e-3, wd=wd, b=b)
+    scal = _adam_scal(dev)
+    want = tu.fused_local_adam_sm3(p, g, d, mu, row, col, scal, **kw)
+    got = _launched("fused_local_adam_sm3", lambda: tvu.fused_local_adam_sm3(
+        p.clone(), g, d, mu.clone(), row.clone(), col, scal, **kw))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_cuda_kernels_adam_sm3_nan_rows(shards):
+    """A planted NaN in g reaches p, mu, the row stat and its span's lane
+    stat as in the plain version (compared NaN for NaN)."""
+    dev = _cuda_or_skip()
+    (p, g, d, _, mu, _), _ = _state(20, MR, dev)
+    g[1, 7, 33] = float("nan")
+    g[2, MR - 1, 255] = float("nan")
+    row, col = _stats(np.random.RandomState(21), (MW,), MR, shards, dev)
+    scal = _adam_scal(dev)
+    want = tu.fused_local_adam_sm3(p, g, d, mu, row, col, scal, lr=1e-3)
+    got = _launched("fused_local_adam_sm3", lambda: tvu.fused_local_adam_sm3(
+        p.clone(), g, d, mu.clone(), row.clone(), col, scal, lr=1e-3))
+    _equal_nan(got, want)
+    assert torch.isnan(got[2]).sum().item() == 2
+
+
+SM3_GRIDS = [(2, 3, MR), (3, 2, 1236), (4, 1, MR), (1, 4, 1236)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("wd,nesterov", [(0.0, False), (1e-4, False),
+                                         (1e-4, True)])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_hier_local_momentum_bitwise(mdt, wd, nesterov, grid):
+    dev = _cuda_or_skip()
+    p, g, d1, d2, *_ = _grid_state(22, grid, dev)
+    m = (0.1 * g).to(MOMENT_DTYPES[mdt])
+    kw = dict(lr=0.05, beta=0.9, wd=wd, nesterov=nesterov)
+    want = tu.fused_hier_local_momentum(p, g, d1, d2, m, **kw)
+    got = _launched("fused_hier_local_momentum",
+                    lambda: tvu.fused_hier_local_momentum(
+                        p.clone(), g, d1, d2, m.clone(), **kw))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("t", [1, 7])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_hier_local_adam_bitwise(mdt, wd, t, grid):
+    dev = _cuda_or_skip()
+    p, g, d1, d2, *_ = _grid_state(23, grid, dev)
+    mu = (0.1 * g).to(MOMENT_DTYPES[mdt])
+    nu = (0.01 * d1.square()).to(MOMENT_DTYPES[mdt])
+    scal = _adam_scal(dev, t)
+    want = tu.fused_hier_local_adam(p, g, d1, d2, mu, nu, scal, lr=1e-3,
+                                    wd=wd)
+    got = _launched("fused_hier_local_adam", lambda: tvu.fused_hier_local_adam(
+        p.clone(), g, d1, d2, mu.clone(), nu.clone(), scal, lr=1e-3, wd=wd))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", sorted(MOMENT_DTYPES))
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("grid", SM3_GRIDS)
+def test_cuda_kernels_hier_local_adam_sm3_bitwise(mdt, wd, shards, grid):
+    dev = _cuda_or_skip()
+    p, g, d1, d2, *_ = _grid_state(24, grid, dev)
+    pp, dd, r = grid
+    mu = (0.1 * g).to(MOMENT_DTYPES[mdt])
+    row, col = _stats(np.random.RandomState(25), (pp, dd), r, shards, dev)
+    scal = _adam_scal(dev)
+    want = tu.fused_hier_local_adam_sm3(p, g, d1, d2, mu, row, col, scal,
+                                        lr=1e-3, wd=wd)
+    got = _launched("fused_hier_local_adam_sm3",
+                    lambda: tvu.fused_hier_local_adam_sm3(
+                        p.clone(), g, d1, d2, mu.clone(), row.clone(), col,
+                        scal, lr=1e-3, wd=wd))
+    _assert_equal(got, want)

@@ -132,19 +132,25 @@ def test_should_sync_matches_reference(warmup):
 
 
 def test_specs_and_unported_algorithms():
-    """Every algorithm of the reference is ported; what the hierarchy does
-    not run yet — the momentum and Adam local steps — raises, naming
-    ROADMAP."""
+    """Every algorithm of the reference is ported, the hierarchy with every
+    inner optimizer; what it does not run yet — its compressed syncs —
+    raises, naming ROADMAP."""
     for name in teng.ALGO_SPECS:
         assert tuple(teng.get_spec(name)) == tuple(jeng.get_spec(name)), name
     assert set(teng.ALGO_SPECS) == set(jeng.ALGO_SPECS)
     assert not getattr(teng, "NOT_PORTED", ())
     assert teng.flat_algorithms() == jeng.flat_algorithms()
     template_t = abstract(TT.model_defs(treg.smoke_arch("qwen2-0.5b")))
+    from repro_torch.comm import compressors as tcc
     for inner in ("momentum", "adam"):
+        assert teng.make_engine(TVRL(algorithm="hier_vrl_sgd",
+                                     inner_optimizer=inner),
+                                template_t).grid == (2, 4)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng.make_engine(TVRL(algorithm="hier_vrl_sgd",
-                                  inner_optimizer=inner), template_t)
+                                  inner_optimizer=inner,
+                                  compress=tcc.parse_compressor("int8")),
+                             template_t)
 
 
 def test_tree_grads_equal_flat_grads(setup):
@@ -317,12 +323,22 @@ def test_schedule_and_moment_options(setup):
                                 moment_dtype="bfloat16"), template_t)
     st = et.init(from_numpy(jax.tree.map(np.asarray, setup[2])), 2)
     assert st.inner.mu.dtype == st.inner.nu.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.make_engine(_mcfg(TVRL, "vrl_sgd", "adam", sm3=True),
-                         template_t)
+    # SM3 factors Adam's nu into the reference's stats (runs:
+    # tests/test_torch_sm3.py)
+    ej = jeng.make_engine(_mcfg(JVRL, "vrl_sgd", "adam", sm3=True),
+                          setup[0])
+    et = teng.make_engine(_mcfg(TVRL, "vrl_sgd", "adam", sm3=True),
+                          template_t)
+    sj = ej.init(setup[2], 2)
+    st = et.init(from_numpy(jax.tree.map(np.asarray, setup[2])), 2)
+    for a, b in ((st.inner.nu.row, sj.inner.nu.row),
+                 (st.inner.nu.col, sj.inner.nu.col)):
+        assert a.shape == b.shape and a.dtype == torch.float32
     # SM3 factors Adam's nu only: inert for momentum, as in the reference
-    teng.make_engine(_mcfg(TVRL, "vrl_sgd", "momentum", sm3=True),
-                     template_t)
+    st = teng.make_engine(_mcfg(TVRL, "vrl_sgd", "momentum", sm3=True),
+                          template_t).init(
+        from_numpy(jax.tree.map(np.asarray, setup[2])), 2)
+    assert isinstance(st.inner, torch.Tensor)
 
 
 # ------------------------------------------ compressed and overlapped rounds

@@ -24,9 +24,15 @@
   port's flat vrl_sgd (same reductions, same arithmetic, Δ2 stays 0).
 * Overlap: four rounds at (2, 4) against the JAX xla executor (params,
   pend atol 1e-5, Δ atol as above, pend_k bitwise, Σ invariants).
-* Refusals: momentum/adam, compress, compress2, deadline (not ported:
-  NotImplementedError naming ROADMAP), k2 % k1 for rounds, wrong worker
-  count (ValueError).
+* Inner optimizers: momentum (nesterov on and off), Adam and SM3-factored
+  Adam (fp32 and bf16 moments, S ∈ {1, 2}) kernels bitwise their xla
+  twins and within the FMA-contraction ulps of Pallas interpret mode;
+  the engine with each, (2, 3) grid at (2, 4), against the xla executor
+  (moments at the Δ standard, nu and the stats rtol 1e-4, bf16 to 1e-3),
+  overlapped Adam rounds, and the reference's composition case (bf16 +
+  SM3, shards = 2) to 1e-3.
+* Refusals: compress, compress2, deadline (not ported: NotImplementedError
+  naming ROADMAP), k2 % k1 for rounds, wrong worker count (ValueError).
 * Train loop: rounds from the same parameters (wq, wk × 0.1, see
   ``tests/test_torch_train.py``) on the reference's token stream, blocking
   and overlapped, against the JAX ``make_train_step``: losses rtol 1e-5,
@@ -43,6 +49,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402
+from repro.configs.base import EngineConfig as JEng  # noqa: E402
 from repro.configs.base import HierConfig as JHier  # noqa: E402
 from repro.configs.base import VRLConfig as JVRL  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402
@@ -55,6 +62,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.train.train_loop import make_train_step as j_make  # noqa: E402
 from repro_torch.comm import compressors as tcc  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.configs.base import EngineConfig as TEng  # noqa: E402
 from repro_torch.configs.base import HierConfig as THier  # noqa: E402
 from repro_torch.configs.base import VRLConfig as TVRL  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
@@ -138,13 +146,52 @@ HIER_CASES = ([("local", wd) for wd in (0.0, WD)]
               + [("sync1", kg) for kg in (0.05, 0.15, 0.7)]
               + [("sync2", kg) for kg in (0.05, 0.2)]
               + [("fold", (capture, km)) for capture in (False, True)
-                 for km in (0.0, 1.0)])
+                 for km in (0.0, 1.0)]
+              # the inner optimizers: (moment dtype, nesterov or S, wd)
+              + [("momentum", (mdt, nesterov, WD)) for mdt in ("f32", "bf16")
+                 for nesterov in (False, True)]
+              + [("momentum", ("f32", False, 0.0))]
+              + [("adam", (mdt, 1, wd)) for mdt in ("f32", "bf16")
+                 for wd in (0.0, WD)]
+              + [("adam_sm3", (mdt, shards, WD)) for mdt in ("f32", "bf16")
+                 for shards in (1, 2)])
+INNER_KINDS = ("momentum", "adam", "adam_sm3")
+ADAM_SCAL = np.array([[1 - 0.9 ** 3, 1 - 0.999 ** 3]], np.float32)
+
+
+def _case_inputs(kind, arg, seed):
+    """(torch inputs, jax inputs) of one case: the grid buffers (level-2
+    kernels: pod-uniform params), then for the inner optimizers m (or mu
+    and nu) in the case's dtype — the same values in both packages — and
+    the SM3 stats (P, D, R, 1), (P, D, S, C), ≥ 0 as the engine keeps
+    them."""
+    ins = _grid_inputs(seed, uniform=kind in ("sync2", "fold"))
+    ins_t, ins_j = [_t(x) for x in ins], [_j(x) for x in ins]
+    if kind in INNER_KINDS:
+        mdt, shards = arg[0], arg[1] if kind == "adam_sm3" else 1
+        rng = np.random.RandomState(seed + 1)
+        moms = [0.1 * rng.randn(P, D, R, C).astype(np.float32),
+                0.01 * np.square(rng.randn(P, D, R, C)).astype(np.float32)]
+        if kind == "adam_sm3":
+            moms[1:] = [
+                0.01 * np.square(rng.randn(P, D, R, 1)).astype(np.float32),
+                0.01 * np.square(rng.randn(P, D, shards, C)).astype(
+                    np.float32)]
+        n_mom = {"momentum": 1, "adam": 2, "adam_sm3": 1}[kind]
+        for i, x in enumerate(moms):
+            t = torch.from_numpy(x)
+            if i < n_mom and mdt == "bf16":
+                t = t.bfloat16()
+            ins_t.append(t)
+            ins_j.append(jnp.asarray(t.float().numpy()).astype(
+                jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32))
+    return ins_t, ins_j
 
 
 def _hier_call(mod, kind, arg, ins, **kw):
-    """One of the four kernels of ``mod`` (the port's plain versions, or
-    the reference's twins or Pallas kernels) on ``ins``."""
-    p, g, d1, d2, xpod, pend, glob = ins
+    """One of the hierarchy's kernels of ``mod`` (the port's plain
+    versions, or the reference's twins or Pallas kernels) on ``ins``."""
+    p, g, d1, d2, xpod, pend, glob = ins[:7]
     conv = _t if mod is tu else _j
     if kind == "local":
         return (mod.fused_hier_local_sgd(p, g, d1, d2, lr=LR, wd=arg, **kw),)
@@ -154,32 +201,105 @@ def _hier_call(mod, kind, arg, ins, **kw):
     if kind == "sync2":
         return mod.fused_sync_hier2(p, glob, d2,
                                     conv(np.array([[arg]], np.float32)), **kw)
+    if kind == "momentum":
+        return mod.fused_hier_local_momentum(p, g, d1, d2, ins[7], lr=LR,
+                                             beta=0.9, wd=arg[2],
+                                             nesterov=arg[1], **kw)
+    if kind == "adam":
+        return mod.fused_hier_local_adam(p, g, d1, d2, ins[7], ins[8],
+                                         conv(ADAM_SCAL), lr=1e-3,
+                                         wd=arg[2], **kw)
+    if kind == "adam_sm3":
+        return mod.fused_hier_local_adam_sm3(p, g, d1, d2, *ins[7:10],
+                                             conv(ADAM_SCAL), lr=1e-3,
+                                             wd=arg[2], **kw)
     capture, km = arg
     return mod.fused_fold_overlap_hier2(p, glob, pend, d2, conv(_wscal(km)),
                                         capture=capture, **kw)
 
 
+def _f32np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x).astype(jnp.float32))
+
+
 @pytest.mark.parametrize("kind,arg", HIER_CASES)
 def test_plain_hier_kernels_bitwise_xla(kind, arg):
-    ins = _grid_inputs(30, uniform=kind in ("sync2", "fold"))
-    got = _hier_call(tu, kind, arg, [_t(x) for x in ins])
-    want = _hier_call(jxu, kind, arg, [_j(x) for x in ins])
+    ins_t, ins_j = _case_inputs(kind, arg, 30)
+    got = _hier_call(tu, kind, arg, ins_t)
+    want = _hier_call(jxu, kind, arg, ins_j)
     assert len(got) == len(want)
     for a, w in zip(got, want):
-        assert a.dtype == torch.float32
-        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        assert a.dtype == (torch.bfloat16 if w.dtype == jnp.bfloat16
+                           else torch.float32)
+        np.testing.assert_array_equal(_f32np(a), _f32np(w))
+
+
+def _bf16_ulp(x):
+    """One bf16 step at |x| (fp32 spacing × 2^16): where an FMA-apart fp32
+    value may round to the neighbouring bf16 value."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * 2.0 ** 16
+
+
+def _inner_tols(kind, arg, ins_t, want):
+    """Per output, the bound of the plain version's distance from
+    interpret-mode Pallas, which contracts every product that feeds an add
+    into an FMA (wd·p, β·m, γ·dir; b1·mu, b2·nu, γwd·p, p − step): the
+    ulps of those products, each output's own rounding, what an input's
+    difference carries through, and one bf16 step for a bf16 moment."""
+    f = np.float32
+    p, g, d1, d2 = (x.numpy() for x in ins_t[:4])
+    v = (g - d1) - d2
+    mdt, wd = arg[0], f(arg[2])
+    bf = (lambda x: _bf16_ulp(x)) if mdt == "bf16" else (lambda x: 0.0)
+    if kind == "momentum":
+        lr, beta = f(LR), f(0.9)
+        m = ins_t[7].float().numpy()
+        # each contracted sum may round to the neighbouring fp32 value
+        tol_v = _ulp(wd * p, v + wd * p) if wd else 0.0
+        v = v + wd * p
+        m_new = beta * m + v
+        tol_m = tol_v + _ulp(beta * m, m_new)
+        dir_ = v + beta * m_new if arg[1] else m_new
+        tol_dir = (tol_v + beta * tol_m + _ulp(beta * m_new, dir_)
+                   if arg[1] else tol_m)
+        tol_p = lr * tol_dir + _ulp(lr * dir_, want[0])
+        return [tol_p, tol_m + bf(want[1])]
+    lr, b1, b2 = f(1e-3), f(0.9), f(0.999)
+    mu = ins_t[7].float().numpy()
+    if kind == "adam":
+        nu_old = ins_t[8].float().numpy()
+    else:
+        row, col = (x.numpy() for x in ins_t[8:10])
+        nu_old = np.minimum(row, np.repeat(col, R // col.shape[-2], axis=-2))
+    mu_new = b1 * mu + f(1 - 0.9) * v
+    nu = b2 * nu_old + f(1 - 0.999) * v * v
+    tol_mu = _ulp(b1 * mu, f(1 - 0.9) * v, mu_new)
+    tol_nu = _ulp(b2 * nu_old, f(1 - 0.999) * v * v, nu)
+    step = lr * (mu_new / ADAM_SCAL[0, 0]) / (np.sqrt(nu / ADAM_SCAL[0, 1])
+                                              + f(1e-8))
+    tol_p = (np.abs(step) * (tol_mu / np.abs(mu_new) + tol_nu / (2 * nu))
+             + 4 * _ulp(step) + _ulp(f(1e-3 * arg[2]) * p, want[0]))
+    if kind == "adam":
+        return [tol_p, tol_mu + bf(want[1]), tol_nu + bf(want[2])]
+    shards = ins_t[9].shape[-2]
+    return [tol_p, tol_mu + bf(want[1]), tol_nu.max(axis=-1, keepdims=True),
+            tol_nu.reshape(P, D, shards, R // shards, C).max(axis=-2)]
 
 
 @pytest.mark.parametrize("kind,arg", HIER_CASES)
 def test_plain_hier_kernels_vs_pallas_interpret(kind, arg):
-    ins = _grid_inputs(31, uniform=kind in ("sync2", "fold"))
-    got = [x.numpy() for x in _hier_call(tu, kind, arg,
-                                         [_t(x) for x in ins])]
-    want = [np.asarray(x) for x in _hier_call(
-        jvu, kind, arg, [_j(x) for x in ins], block=BLOCK, interpret=True)]
+    ins_t, ins_j = _case_inputs(kind, arg, 31)
+    got = [_f32np(x) for x in _hier_call(tu, kind, arg, ins_t)]
+    want = [_f32np(x) for x in _hier_call(
+        jvu, kind, arg, ins_j, block=BLOCK, interpret=True)]
     assert len(got) == len(want)
-    p, g, d1, d2, _, pend, glob = ins
-    if kind == "local":
+    p, g, d1, d2, _, pend, glob = (x.numpy() for x in ins_t[:7])
+    if kind in INNER_KINDS:
+        for i, (a, w, tol) in enumerate(zip(got, want, _inner_tols(
+                kind, arg, ins_t, want))):
+            assert np.all(np.abs(a - w) <= tol), (i, np.abs(a - w).max())
+    elif kind == "local":
         # one rounding of γ·v apart (interpret mode's FMA contraction)
         v = g - d1 - d2
         if arg:
@@ -254,13 +374,20 @@ def _hier_grads(params, t):
     return jax.tree.map(one, params)
 
 
-def _cfgs(k1, k2, grid=GRID, **over):
+def _cfgs(k1, k2, grid=GRID, shards=0, **over):
+    """``shards``: an EngineConfig at block 8 with that many row shards in
+    both packages (0: the default engine config)."""
     kw = dict(algorithm="hier_vrl_sgd", learning_rate=LR, weight_decay=WD,
               warmup=False)
     kw.update(over)
+    eng = {}
+    if shards:
+        eng = {"engine": (JEng(block=BLOCK, shards=shards),
+                          TEng(block=BLOCK, shards=shards))}
     cj = JVRL(update_backend="xla", hier=JHier(k1=k1, k2=k2, grid=grid),
-              **kw)
-    ct = TVRL(hier=THier(k1=k1, k2=k2, grid=grid), **kw)
+              **{k: v[0] for k, v in eng.items()}, **kw)
+    ct = TVRL(hier=THier(k1=k1, k2=k2, grid=grid),
+              **{k: v[1] for k, v in eng.items()}, **kw)
     return cj, ct
 
 
@@ -428,15 +555,166 @@ def test_blocking_round_is_the_per_step_cadence():
         assert torch.equal(getattr(sa, name), getattr(sb, name)), name
 
 
+# ------------------------------------------------- inner optimizers
+INNER_ENGINE = [("momentum", {}), ("adam", {}),
+                ("adam", {"moment_dtype": "bfloat16"}),
+                ("adam", {"sm3": True}),
+                ("adam", {"sm3": True, "moment_dtype": "bfloat16"})]
+
+
+def _inner_over(inner, over):
+    return dict(inner_optimizer=inner,
+                momentum=0.9 if inner == "momentum" else 0.0, **over)
+
+
+@pytest.mark.parametrize("inner,over", INNER_ENGINE)
+def test_engine_inner_optimizers_match_reference(inner, over):
+    """(2, 3) grid at (k1, k2) = (2, 4), 13 per-step ``train_step``s on the
+    same numpy gradients (the reference's run eagerly, as
+    ``test_engine_matches_reference`` does, so that only the means' summing
+    order differs): params atol 1e-5 and Δ1, Δ2 and mu at the Δ standard
+    (param residuals over k1·γ), nu and the SM3 stats rtol 1e-4.  Under
+    momentum the syncs' rounding residue, which enters v through Δ every
+    step, is summed by m over ~1/(1 − β) steps: params atol 1e-5/(1 − β),
+    m ten times the Δ standard.  bf16 moments to 1e-3 on params (the
+    reference's bf16 bound: a moment may round to the neighbouring bf16
+    value)."""
+    k1, k2 = 2, 4
+    ej, et, sj, st = _engines(k1, k2, **_inner_over(inner, over))
+    for t in range(STEPS):
+        g = _grid_buf(ej.spec, 400 + t)
+        sj = ej.train_step(sj, jflat.unflatten_grid(ej.spec,
+                                                    jnp.asarray(g)))
+        st = et.train_step(st, torch.from_numpy(g))
+        assert (st.step, st.last_sync1, st.last_sync2) == (
+            int(sj.step), int(sj.last_sync1), int(sj.last_sync2))
+    bf16 = over.get("moment_dtype") == "bfloat16"
+    atol = 1e-3 if bf16 else 1e-5 / (1 - 0.9) if inner == "momentum" \
+        else 1e-5
+    np.testing.assert_allclose(st.params.numpy(), np.asarray(sj.params),
+                               rtol=0, atol=atol)
+    if bf16:
+        assert _f32np(st.inner.mu).dtype == np.float32
+        assert st.inner.mu.dtype == torch.bfloat16
+        return
+    for name in ("delta1", "delta2"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   np.asarray(getattr(sj, name)), rtol=0,
+                                   atol=_delta_atol(k1), err_msg=name)
+    if inner == "momentum":
+        np.testing.assert_allclose(st.inner.numpy(), np.asarray(sj.inner),
+                                   rtol=0, atol=10 * _delta_atol(k1))
+        return
+    assert st.inner.count == int(sj.inner.count) == STEPS
+    np.testing.assert_allclose(st.inner.mu.numpy(), np.asarray(sj.inner.mu),
+                               rtol=0, atol=_delta_atol(k1))
+    nus = ([(st.inner.nu.row, sj.inner.nu.row),
+            (st.inner.nu.col, sj.inner.nu.col)] if over.get("sm3")
+           else [(st.inner.nu, sj.inner.nu)])
+    for a, b in nus:
+        assert a.shape == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-12)
+    assert st.delta1.sum(dim=1).abs().max().item() < 5e-5
+    assert st.delta2.sum(dim=0).abs().max().item() < 5e-5
+
+
+def test_overlap_rounds_adam_match_reference():
+    """Four overlapped rounds of (k1, k2) = (2, 4) with Adam: the level-2
+    fold one round stale, the moments carried through it."""
+    k1, k2 = 2, 4
+    ej, et, sj, st = _engines(k1, k2, overlap=True, inner_optimizer="adam")
+    round_j = jax.jit(ej.round_step_flat)
+    for r in range(4):
+        gk = np.stack([_grid_buf(ej.spec, 950 + 10 * r + i)
+                       for i in range(k1)])
+        sj = round_j(sj, jnp.asarray(gk))
+        st = et.round_step_flat(st, torch.from_numpy(gk))
+        assert (st.step, st.last_sync1, st.last_sync2) == (
+            int(sj.step), int(sj.last_sync1), int(sj.last_sync2))
+    for name, a, b in (("params", st.params, sj.params),
+                       ("pend", st.overlap.pend, sj.overlap.pend)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    for name in ("delta1", "delta2"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   np.asarray(getattr(sj, name)), rtol=0,
+                                   atol=_delta_atol(k1), err_msg=name)
+    np.testing.assert_allclose(st.inner.mu.numpy(), np.asarray(sj.inner.mu),
+                               rtol=0, atol=_delta_atol(k1))
+    np.testing.assert_allclose(st.inner.nu.numpy(), np.asarray(sj.inner.nu),
+                               rtol=1e-4, atol=1e-12)
+    assert st.inner.count == 8 and st.last_sync2 == 8
+
+
+def test_compose_with_hierarchical_engine():
+    """The reference's composition case on the port: (2, 2) grid, shards =
+    2, bf16 mu + SM3, 9 per-step ``train_step``s (both sync levels) on the
+    pseudo-gradients of each engine's own parameters, to the bf16 bound
+    1e-3."""
+    ej, et, sj, st = _engines(2, 4, grid=(2, 2), shards=2,
+                              inner_optimizer="adam",
+                              moment_dtype="bfloat16", sm3=True)
+    assert et.spec.meta() == ej.spec.meta() and et.spec.shards == 2
+    assert st.inner.nu.col.shape == (2, 2, 2, et.spec.lanes)
+    step_j = jax.jit(ej.train_step)
+    for t in range(9):
+        sj = step_j(sj, jax.tree.map(jnp.asarray, _hier_grads(
+            jax.tree.map(np.asarray, ej.params_tree(sj)), t)))
+        st = et.train_step(st, _port_grads(et, st, t))
+    assert st.inner.mu.dtype == torch.bfloat16
+    for a, b in zip(jax.tree.leaves(ej.average_model(sj)),
+                    teng.tree_mod.leaves(et.average_model(st))):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-3)
+
+
+def test_inner_wrappers_on_cpu_write_in_place_and_reject():
+    ins_t, _ = _case_inputs("adam_sm3", ("f32", 2, WD), 33)
+    p, g, d1, d2 = ins_t[:4]
+    mu, row, col = ins_t[7:10]
+    scal = torch.from_numpy(ADAM_SCAL)
+    tvu.reset_launches()
+    bufs = [x.clone() for x in (p, mu, row, col)]
+    want = tu.fused_hier_local_adam_sm3(p, g, d1, d2, mu, row, col, scal,
+                                        lr=1e-3)
+    out = tvu.fused_hier_local_adam_sm3(bufs[0], g, d1, d2, *bufs[1:], scal,
+                                        lr=1e-3)
+    assert [o is b for o, b in zip(out, bufs)] == [True, True, True, False]
+    assert torch.equal(bufs[3], col)
+    assert all(torch.equal(a, w) for a, w in zip(out, want))
+    m = mu.clone()
+    out = tvu.fused_hier_local_momentum(p.clone(), g, d1, d2, m, lr=LR,
+                                        beta=0.9)
+    assert out[1] is m
+    nu = mu.square()
+    out = tvu.fused_hier_local_adam(p.clone(), g, d1, d2, mu.clone(), nu,
+                                    scal, lr=1e-3)
+    assert out[2] is nu
+    assert not any(tvu.LAUNCHES.values()), tvu.LAUNCHES
+    with pytest.raises(ValueError, match="per pod"):
+        tvu.fused_hier_local_momentum(p, g, d1, d1, m, lr=LR, beta=0.9)
+    with pytest.raises(TypeError):
+        tvu.fused_hier_local_adam(p, g, d1, d2, mu, nu.bfloat16(), scal,
+                                  lr=1e-3)
+    with pytest.raises(ValueError, match="stats"):
+        tvu.fused_hier_local_adam_sm3(p, g, d1, d2, mu, row[:1].contiguous(),
+                                      col, scal, lr=1e-3)
+
+
 # -------------------------------------------------------------- refusals
 def test_refusals():
     tj, tt = templates()
 
     def build(k1=2, k2=4, **over):
         return teng.make_engine(_cfgs(k1, k2, **over)[1], tt)
+    # the inner optimizers build (their runs: test_engine_inner_*); what
+    # stays refused is the compressed syncs and deadlines
     for inner in ("momentum", "adam"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(inner_optimizer=inner)
+        assert build(inner_optimizer=inner).grid == GRID
+    with pytest.raises(NotImplementedError, match="grid EF kernels"):
+        build(inner_optimizer="adam", sm3=True,
+              compress=tcc.parse_compressor("topk:4"))
     with pytest.raises(NotImplementedError, match="grid EF kernels"):
         build(compress=tcc.parse_compressor("int8"))
     with pytest.raises(NotImplementedError, match="compress2"):

@@ -102,10 +102,15 @@ def test_make_inner_matches_reference(inner, momentum, moment_dtype):
 
 
 def test_sm3_and_unknown_inner_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.adam(1e-3, sm3=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.make_inner(TVRL(inner_optimizer="adam", sm3=True))
+    """SM3 Adam is ported: ``make_inner`` builds it as the reference does
+    (its steps: tests/test_torch_sm3.py); an unknown inner optimizer still
+    raises."""
+    kw = dict(inner_optimizer="adam", sm3=True, learning_rate=0.05)
+    (pj, sj), (pt, st) = _run(jopt.make_inner(JVRL(**kw)),
+                              topt.make_inner(TVRL(**kw)), steps=2)
+    assert isinstance(st.nu["w"], topt.SM3Pair)
+    for a, b in zip(_leaves_np(pt), _leaves_np(pj)):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         topt.make_inner(TVRL(inner_optimizer="lamb"))
 
