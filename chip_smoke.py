@@ -12,7 +12,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
    is a failure, as is a directory without the repo's sources.
 2. build — compile every CUDA kernel of the training paths from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
-3. kernels — each of the nineteen kernels' wrappers against its plain
+3. kernels — each of the twenty-one kernels' wrappers against its plain
    PyTorch version on the card, on random fp32 inputs made with numpy from
    a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
    R=1,237), over the variants: with and without Δ (and B), wd 0 and 1e-4,
@@ -30,9 +30,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
    S), fp32 and bf16 mu, with and without Δ and B, and rows with a planted
    NaN in g (compared NaN for NaN); the hierarchy's momentum (nesterov on
    and off) and dense Adam steps over the four grids, fp32 and bf16
-   moments, wd 0 and 1e-4.  Required: BITWISE equality.  Then the main
-   paths' full shape (qwen2-0.5b: W=4, R=1,930,240, C=256; the hierarchy's
-   as (P, D) = (2, 2)), one rule for all nineteen: bitwise again one
+   moments, wd 0 and 1e-4; the hierarchy's EF round trips (grid form, ref
+   per pod) over the four grids, int8 and top-k (k ∈ {8, 64, 256}) with
+   and without ref and EF on the special rows, and once more with a NaN
+   row (compared NaN for NaN where it reaches an output).  Required:
+   BITWISE equality.  Then the main paths' full shape (qwen2-0.5b: W=4,
+   R=1,930,240, C=256; the hierarchy's as (P, D) = (2, 2)), one rule for
+   all twenty-one: bitwise again one
    worker (pod) slice at a time (to bound memory; the hierarchy's local
    steps one worker at a time), then the kernel's time in place on the whole
    buffer and its plain version's slice by slice (their temporaries at
@@ -42,9 +46,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
    ``torch._fused_sgd_`` for fused_local_momentum without Δ or B, held to
    the plain version (rtol 1e-5) and timed on the same operands;
    ``torch.topk(|payload|, k, dim=-1)`` beside fused_ef_topk, which does
-   only the selection part of its function (a partial yardstick).  No
-   PyTorch call computes the hierarchy's seven or SM3 Adam (Adafactor
-   factors with means, not SM3's max cover).
+   only the selection part of its function (a partial yardstick), and
+   beside fused_ef_topk_grid on its payload.  No PyTorch call computes
+   the hierarchy's seven other kernels, the int8 round trip or SM3 Adam
+   (Adafactor factors with means, not SM3's max cover).  Last, level 2's
+   flat round trips on the strided pod rows p[:, 0] of a (2, 2, R, C)
+   buffer: bitwise pod by pod, timed beside their bound.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -106,6 +113,25 @@ Phases (each prints a line; any failure raises and exits non-zero):
      moments: fused_hier_local_adam 8; (l) with Adam + ``sm3=True`` and bf16
      mu: fused_hier_local_adam_sm3 8.  Every loss finite; Σ_d Δ1 in every
      pod and Σ_p Δ2 as for (g); the device ms of every round's spans.
+   - (m) hier_vrl_sgd (2, 2), k1 = 2, k2 = 4, ``--compress int8``,
+     blocking, through ``launch.train`` (8 steps): fused_ef_int8_grid 4,
+     fused_sync_hier1 4, fused_ef_int8 2 (level 2, on the pod rows),
+     fused_sync_hier2 2, fused_hier_local_sgd 8.  Every logged loss finite;
+     at every round Σ_d Δ1 in every pod moves by Σ_d (e1 − e1')/(k1 γ), and
+     at every sync2 Σ_p Δ2 by Σ_p (e2 − e2')/(k2 γ) — the CLI's log, each
+     within 1e-4 · max|Δ| plus 2 n ulp(max|p|)/(k γ), and some EF term of
+     each level above twice that (so a sync that lost it would fail).
+   - (n) the same grid with ``--compress int8 --compress2 topk:32
+     --overlap --deadline 0.25`` (12 steps): fused_ef_int8_grid 6,
+     fused_sync_hier1 6, fused_fold_overlap_hier2 3 (no capture in the
+     kernel), fused_ef_topk 3 (the compressed capture),
+     fused_hier_local_sgd 12.  The per-pod misses at the folds of steps 4,
+     8 and 12 are the reference's draws, [1, 0], [0, 1] and [0, 0], and
+     pend_k after them [5, 4], [4, 8], [4, 4]; Σ_d Δ1 as in (m), Σ_p Δ2
+     moves at each fold by Σ_p c_p/(pend_k_p γ) (the pods' pend_k differ
+     once one misses).
+   - (o) ``--compress topk:32`` at both levels, blocking (4 steps):
+     fused_ef_topk_grid 2, fused_ef_topk 1; the checks of (m).
    The CLI paths' peak memory is the most allocated during a round, as
    the train paths' is (``TrainResult.round_peak_bytes``).
    γ: the model's init rule (the reference's: fan-in taken as
@@ -151,13 +177,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    pend atol 1e-4, Δ1 1e-4/(k1 γ), Δ2 1e-4/(k2 γ); the same grid with
    momentum 0.9, with Adam and with Adam + sm3 and bf16 mu (Adam at
    γ = 1e-3), Adam's under the Adam rule above; and one pod, (1, 4) at
-   k1 = k2 = 2, BITWISE the card's flat vrl_sgd at k = 2.
+   k1 = k2 = 2, BITWISE the card's flat vrl_sgd at k = 2.  Deadlines and
+   the hierarchy's compressed syncs under the flip rules: vrl_sgd + int8
+   + overlap at deadline 0.25 (W = 2), and hier (2, 2) with int8, with
+   int8 / topk:4, with topk:4:noef at level 2 only (blocking) and with
+   topk:4 overlapped at deadline 0.25 (Δ1 and Δ2 over k1 γ).
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it), and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -197,13 +228,16 @@ KERNEL_SOURCES = {
     "fused_local_adam_sm3": ("vrl_update.cu", 302),
     "fused_hier_local_momentum": ("vrl_update.cu", 833),
     "fused_hier_local_adam": ("vrl_update.cu", 871),
-    "fused_hier_local_adam_sm3": ("vrl_update.cu", 927)}
+    "fused_hier_local_adam_sm3": ("vrl_update.cu", 927),
+    "fused_ef_int8_grid": ("comm_update.cu", 762),
+    "fused_ef_topk_grid": ("comm_update.cu", 769)}
 KERNELS = tuple(KERNEL_SOURCES)
 # the kernels over the (P, D, R, C) grid, timed at HIER_FULL
 HIER_KERNELS = frozenset({
     "fused_hier_local_sgd", "fused_sync_hier1", "fused_sync_hier2",
     "fused_fold_overlap_hier2", "fused_hier_local_momentum",
-    "fused_hier_local_adam", "fused_hier_local_adam_sm3"})
+    "fused_hier_local_adam", "fused_hier_local_adam_sm3",
+    "fused_ef_int8_grid", "fused_ef_topk_grid"})
 HIER_FULL = (2, 2, 1_930_240, 256)      # the same W=4 as a (P, D) grid
 HIER_MODERATE = ((2, 3, 4_096), (3, 2, 1_237), (4, 1, 4_096), (1, 4, 1_237))
 MAIN_LR = 1e-3
@@ -264,6 +298,27 @@ PATH_G = (HIER_ARGS + ["--steps", "8"],
 PATH_H = (HIER_ARGS + ["--steps", "12", "--overlap"],
           {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
            "fused_fold_overlap_hier2": 3})
+# paths (m)-(o): the hierarchy's compressed syncs on (g)'s grid, through
+# the CLI.  (m) int8 at both levels, blocking: the grid round trip at
+# every sync1, the flat one over the pod rows at every sync2
+PATH_M = (HIER_ARGS + ["--steps", "8", "--compress", "int8"],
+          {"fused_hier_local_sgd": 8, "fused_ef_int8_grid": 4,
+           "fused_sync_hier1": 4, "fused_ef_int8": 2, "fused_sync_hier2": 2})
+# (n) int8 within pods, topk:32 across them, overlapped, deadline 0.25: the
+# folds at steps 4, 8, 12 run without capture, the compressed capture is
+# the flat top-k round trip; the reference's per-pod misses and the pend_k
+# they leave
+PATH_N = (HIER_ARGS + ["--steps", "12", "--compress", "int8", "--compress2",
+                       "topk:32", "--overlap", "--deadline", "0.25"],
+          {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
+           "fused_ef_int8_grid": 6, "fused_fold_overlap_hier2": 3,
+           "fused_ef_topk": 3})
+PATH_N_MISSES = [(4, [1.0, 0.0], [5.0, 4.0]), (8, [0.0, 1.0], [4.0, 8.0]),
+                 (12, [0.0, 0.0], [4.0, 4.0])]
+# (o) topk:32 at both levels, blocking, 4 steps: the grid top-k round trip
+PATH_O = (HIER_ARGS + ["--steps", "4", "--compress", "topk:32"],
+          {"fused_hier_local_sgd": 4, "fused_ef_topk_grid": 2,
+           "fused_sync_hier1": 2, "fused_ef_topk": 1, "fused_sync_hier2": 1})
 TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
 # paths (i)-(l): SM3 Adam on the flat vrl_sgd, and the hierarchy's (2, 2)
 # grid with momentum, Adam and SM3 Adam (bf16 mu), through make_train_step
@@ -408,6 +463,14 @@ def hier_fold_cost(pp, dd, r, c):
     return 4 * (2 * n + 4 * m + r * c + 2 * pp), n + 6 * m
 
 
+def hier_ef_cost(pp, dd, r, c, flops=10):
+    """Paths (m)-(o)'s level-1 round trip: read p and e (P·D·R·C each) and
+    the per-pod ref (P·R·C) once, write dec and e; int8's 10 operations
+    per element, top-k's 37 (``ef_int8_cost``, ``ef_topk_cost``)."""
+    n, m = pp * dd * r * c, pp * r * c
+    return 4 * (4 * n + m), flops * n
+
+
 def adam_sm3_cost(w, r, c, use_d=True, mu_bytes=4, wd=1e-4, shards=1,
                   pods=0):
     """Path (i)'s operands (Δ, no B, fp32 mu; hier, ``pods`` > 0: Δ1 and Δ2
@@ -458,7 +521,10 @@ COSTS = {"fused_local_sgd": local_cost, "fused_sync_vrl": sync_cost,
          "fused_hier_local_adam": hier_adam_cost,
          # path (l): bf16 mu
          "fused_hier_local_adam_sm3": lambda pp, dd, r, c: adam_sm3_cost(
-             pp * dd, r, c, mu_bytes=2, pods=pp)}
+             pp * dd, r, c, mu_bytes=2, pods=pp),
+         "fused_ef_int8_grid": hier_ef_cost,
+         "fused_ef_topk_grid": lambda pp, dd, r, c: hier_ef_cost(
+             pp, dd, r, c, flops=37)}
 
 # which arguments each kernel writes in place (the rest are read only)
 INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
@@ -473,7 +539,8 @@ INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
            "fused_local_adam_sm3": (0, 3, 4),
            "fused_hier_local_momentum": (0, 4),
            "fused_hier_local_adam": (0, 4, 5),
-           "fused_hier_local_adam_sm3": (0, 4, 5)}
+           "fused_hier_local_adam_sm3": (0, 4, 5),
+           "fused_ef_int8_grid": (2,), "fused_ef_topk_grid": (2,)}
 
 
 def kg_scal(k_eff, dev):
@@ -699,8 +766,30 @@ def hier_moderate_checks(chk, dev):
                         capture=capture)
         hier_inner_checks(chk, (p, g, d1, d2), arr(pp, dd, r, 256),
                           arr(pp, dd, r, 256), shape, dev)
+        grid_ef_checks(chk, p, xpod, 0.01 * g, shape)
         del p, g, d1, d2, xpod, pend, glob
         free()
+
+
+def grid_ef_checks(chk, p, ref, e, shape):
+    """The grid EF round trips on one grid: int8 and top-k k ∈ {8, 64,
+    256}, with and without the per-pod ref and the residual, on p's special
+    rows; then once more with a NaN planted in one worker's row 5, compared
+    NaN for NaN wherever it reaches an output (int8's whole row; top-k
+    drops the NaN lane unless it keeps every lane, so only the residual
+    holds it)."""
+    pn = p.clone()
+    pn[0, -1, 5, 7] = float("nan")
+    for x, planted in ((p, False), (pn, True)):
+        for use_ref in (False, True):
+            for use_e in (False, True):
+                args = (x, ref if use_ref else None, e if use_e else None)
+                tag = (f"({shape}, ref={use_ref}, ef={use_e}"
+                       + (", NaN row" if planted else ""))
+                chk.run("fused_ef_int8_grid", args, tag + ")", nan=planted)
+                for k in (8, 64, 256):
+                    chk.run("fused_ef_topk_grid", args, f"{tag}, k={k})",
+                            nan=planted and (use_e or k == 256), k=k)
 
 
 def hier_inner_checks(chk, grid_bufs, a, b, shape, dev):
@@ -800,7 +889,7 @@ def free() -> None:
 
 def full_shape(chk, vu, tu, dev):
     """Phase 3 at the full shape with the main paths' operands, one rule
-    for all fifteen kernels: bitwise worker slice by worker slice, then the
+    for every kernel: bitwise worker slice by worker slice, then the
     kernel's time in place on the whole buffer and the plain version's
     slice by slice.  Returns {kernel: ms}, {kernel: plain ms} and
     {kernel: library ms or None}."""
@@ -906,6 +995,20 @@ def full_shape(chk, vu, tu, dev):
             ndim=4, capture=True)
     del p, d2, glob, pend
     free()
+    # paths (m)-(o)'s level-1 round trips: the per-pod ref and the residual,
+    # checked and the plain version timed pod by pod; then level 2's flat
+    # round trip over the strided pod rows
+    p, e, ref = randn(HIER_FULL), randn(HIER_FULL).mul_(0.01), randn(pod)
+    measure("fused_ef_int8_grid", (p, ref, e), ndim=4)
+    measure("fused_ef_topk_grid", (p, ref, e), ndim=4, k=TOPK_FULL)
+    library["fused_ef_topk_grid"] = topk_library(p, ref, e, TOPK_FULL,
+                                                 "fused_ef_topk_grid")
+    del ref, e
+    free()
+    level2_strided(chk, vu, p, randn(pod).mul_(0.01)[:, 0],
+                   randn(HIER_FULL[2:]))
+    del p
+    free()
     # path (i)'s SM3 Adam: Δ, fp32 mu, one lane-stat span, wd 1e-4
     p, g, d, mu = randn(), randn(), randn(), randn().mul_(0.1)
     row = randn(FULL[:2] + (1,)).square_().mul_(0.01)
@@ -939,19 +1042,41 @@ def full_shape(chk, vu, tu, dev):
     return times, plain, library
 
 
-def topk_library(p, ref, e, k) -> float:
-    """The partial yardstick of ``fused_ef_topk``: ``torch.topk`` of the
-    payload's magnitudes over each row (the selection alone, without the
-    payload, the threshold keep or the residual); the port never calls
-    it."""
+def topk_library(p, ref, e, k, name="fused_ef_topk") -> float:
+    """The partial yardstick of ``fused_ef_topk`` (``name``: the grid form,
+    ref per pod): ``torch.topk`` of the payload's magnitudes over each row
+    (the selection alone, without the payload, the threshold keep or the
+    residual); the port never calls it."""
     a = ((p - ref) + e).abs_()
     t = time_ms(lambda: torch.topk(a, k, dim=-1), 10, warmup=2)
     del a
     free()
-    print(f"[3 kernels] library for fused_ef_topk (partial: selection "
+    print(f"[3 kernels] library for {name} (partial: selection "
           f"only): torch.topk(|payload|, {k}, dim=-1) {t:.3f} ms",
           flush=True)
     return t
+
+
+def level2_strided(chk, vu, p, e2, ref2):
+    """Level 2's flat round trips at full width on the pod rows p[:, 0] of
+    the (P, D, R, C) buffer, a strided (P, R, C) view (no copy), with the
+    global ref and the contiguous resid2[:, 0]: bitwise the plain version
+    on the view (pod by pod), then timed in place beside their bound —
+    read the P pod rows, e2 and ref, write dec and e2: (4 P + 1) R·C
+    buffers.  Printed; the kernels' rows stay the flat shape's."""
+    pod = p[:, 0]
+    pp, r, c = pod.shape
+    for name, kw in (("fused_ef_int8", {}), ("fused_ef_topk",
+                                               {"k": TOPK_FULL})):
+        chk.full_shape(name, (pod, ref2, e2), **kw)
+        t = time_ms(lambda: getattr(vu, name)(pod, ref2, e2, **kw), 10,
+                    warmup=2)
+        b, _ = bound_ms(4 * (4 * pp * r * c + r * c),
+                        (10 if name == "fused_ef_int8" else 37) * pp * r * c)
+        print(f"[3 kernels] {name} on the strided pod rows p[:, 0] of "
+              f"{tuple(p.shape)} (level 2): {t:.3f} ms (bound {b:.3f} ms, "
+              f"{100 * b / t:.1f}%), bitwise the plain version", flush=True)
+        free()
 
 
 def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
@@ -984,14 +1109,16 @@ def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
     return t
 
 
-def cli_path(tag, argv, want_launches, launch, vu, grid=None):
+def cli_path(tag, argv, want_launches, launch, vu, grid=None,
+             misses=None):
     """A full-width path through ``repro_torch.launch.train``: launch
     counts, finite logged losses, the flat layout, and Σ_i Δ_i after the
     last sync (or fold) against the largest |Δ| the run logged (its first
     sync's, here: the fp32 rounding residue of each sync stays in Σ Δ after
     Δ itself shrinks).  ``grid``: hier_vrl_sgd's (P, D); then Σ_d Δ1 within
-    every pod and Σ_p Δ2 instead (``hier_sums``).  The peak is the CLI's,
-    over its rounds alone."""
+    every pod and Σ_p Δ2 instead (``hier_sums``), and ``misses``: the
+    (step, per-pod mask, pend_k) the CLI logs at each deadline fold.  The
+    peak is the CLI's, over its rounds alone."""
     vu.reset_launches()
     res = launch.run(argv)
     launches = dict(vu.LAUNCHES)
@@ -1004,6 +1131,13 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None):
         raise AssertionError(f"unexpected flat layout {spec.meta()}")
     if grid is not None:
         note = "; " + hier_sums(tag, res, grid)
+        if misses is not None:
+            got = [(t, m, k) for t, m, k in res.misses]
+            if got != misses:
+                raise AssertionError(f"path {tag}: per-pod misses and "
+                                     f"pend_k {got}, expected {misses}")
+            note += (f"; per-pod misses (step, mask, pend_k after) {got}, "
+                     f"the reference's draws")
     else:
         _, sum_d, _ = res.invariant[-1]
         max_d = max(m for _, _, m in res.invariant)
@@ -1027,10 +1161,40 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None):
 
 
 def hier_sums(tag, res, grid) -> str:
-    """Paths (g), (h) through the CLI's log: ``hier_limits``."""
-    return hier_limits(tag, [(s, m) for _, s, m in res.invariant],
-                       [(s, m) for _, s, m in res.bias_invariant],
-                       [mp for _, mp in res.param_max], grid, MAIN_LR)
+    """Paths (g), (h), (m)-(o) through the CLI's log: a level whose syncs
+    move its Δ sum by a known term (``TrainResult.level_terms``: the EF
+    term under blocking compression, the deadline fold's) is held to that
+    move at every logged round; the others to ``hier_limits``."""
+    moved = {r["level"] for r in res.level_terms}
+    notes = []
+    for level in sorted(moved):
+        recs = [r for r in res.level_terms if r["level"] == level]
+        worst = max(recs, key=lambda r: r["off"] / r["limit"])
+        if worst["off"] > worst["limit"]:
+            raise AssertionError(f"path {tag}: Σ {level} moved "
+                                 f"{worst['off']} away from its "
+                                 f"{worst['kind']} term at step "
+                                 f"{worst['step']} (limit {worst['limit']})")
+        # some EF term must stand clear of the limit, so that a sync which
+        # lost it would fail (at full width 1e-4 · max|Δ2| is large: Δ
+        # reaches ~1e10 at γ = 1e-3)
+        efs = [r for r in recs if r["kind"] == "ef"]
+        if efs and not any(r["term"] > 2 * r["limit"] for r in efs):
+            raise AssertionError(f"path {tag}: the EF term of {level} never "
+                                 f"stands above twice the limit: {efs}")
+        kinds = "/".join(sorted({r["kind"] for r in recs}))
+        notes.append(f"Σ {level} moved by its {kinds} term (largest "
+                     f"{max(r['term'] for r in recs):.3e}) at each of "
+                     f"{len(recs)} rounds to within {worst['off']:.3e} <= "
+                     f"{worst['limit']:.3e}")
+    log1 = [(s, m) for _, s, m in res.invariant]
+    log2 = [(s, m) for _, s, m in res.bias_invariant]
+    max_ps = [mp for _, mp in res.param_max]
+    if moved != {"delta1", "delta2"}:
+        notes.append(hier_limits(tag, None if "delta1" in moved else log1,
+                                 None if "delta2" in moved else log2,
+                                 max_ps, grid, MAIN_LR))
+    return "; ".join(notes)
 
 
 def hier_limits(tag, log1, log2, max_ps, grid, lr) -> str:
@@ -1043,6 +1207,8 @@ def hier_limits(tag, log1, log2, max_ps, grid, lr) -> str:
     pods, dper = grid
     notes = []
     for name, log, n in (("Δ1 (per pod)", log1, dper), ("Δ2", log2, pods)):
+        if log is None:             # held to its move instead
+            continue
         rounding = sum(2 * n * float(np.spacing(np.float32(mp)))
                        / (HIER_K1 * lr) for mp in max_ps)
         sum_b = log[-1][0]
@@ -1384,7 +1550,20 @@ def small_input_agreement(dev) -> None:
               f"{len(l_c)} steps, rounds {list(rounds)}, card vs CPU: "
               f"losses max rel diff {np.abs(l_g / l_c - 1).max():.2e}, "
               + ", ".join(notes), flush=True)
-    comm_small_input(dev, cfg, params, data, w, k, steps)
+    slices = []
+    for label, vrl in comm_slices():
+        sched = engine_mod.comm_schedule(vrl)
+        algo = engine_mod.get_spec(vrl.algorithm)
+        rounds = (sched.round_sizes(steps) if sched is not None
+                  else (1, k, k, k) if algo.warmup_aware else (k, k, k))
+        slices.append((label, vrl, w, rounds, data))
+    # the hierarchy's at W = 4 on hier_small_input's stream: 4 rounds of k1
+    hier_data = assigned_token_stream(contiguous_assignment(4, 4), 16,
+                                      cfg.vocab_size, steps=8, batch=2,
+                                      alpha=0.05, seed=0)
+    slices += [(label, vrl, 4, (2,) * 4, hier_data)
+               for label, vrl in hier_comm_slices()]
+    comm_small_input(dev, cfg, params, slices)
 
 
 def hier_small_input(dev) -> None:
@@ -1502,7 +1681,31 @@ def comm_slices():
             ("ssgd+topk:4, γ=0.01", cfg("ssgd", "topk:4", lr=0.01)),
             ("easgd+int8:noef", cfg("easgd", "int8:noef")),
             ("local_sgd+overlap", cfg("local_sgd", overlap=True)),
-            ("vrl_sgd+int8+overlap", cfg("vrl_sgd", "int8", overlap=True))]
+            ("vrl_sgd+int8+overlap", cfg("vrl_sgd", "int8", overlap=True)),
+            # folds at steps 1, 3, 5, 7 miss [1, 1], [0, 0], [0, 0], [0, 1]
+            ("vrl_sgd+int8+overlap, deadline 0.25",
+             dataclasses.replace(cfg("vrl_sgd", "int8", overlap=True),
+                                 deadline=0.25))]
+
+
+def hier_comm_slices():
+    """(label, VRLConfig) of the hierarchy's compressed smoke slices, (P,
+    D) = (2, 2) at k1 = 2, k2 = 4: int8 at both levels, the int8 / topk:4
+    pair, topk:4:noef at level 2 only (blocking), and topk:4 overlapped
+    with deadline 0.25 (its folds at steps 4, 8 miss [1, 0], [0, 1])."""
+    from repro_torch.comm import parse_compressor as pc
+    from repro_torch.configs.base import HierConfig, VRLConfig
+
+    def cfg(**kw):
+        return VRLConfig(algorithm="hier_vrl_sgd", learning_rate=LR,
+                         hier=HierConfig(k1=2, k2=4, grid=(2, 2)), **kw)
+    return [("hier (2, 2)+int8", cfg(compress=pc("int8"))),
+            ("hier (2, 2)+int8 / sync2=topk:4",
+             cfg(compress=pc("int8"), compress2=pc("topk:4"))),
+            ("hier (2, 2)+sync2=topk:4:noef",
+             cfg(compress2=pc("topk:4:noef"))),
+            ("hier (2, 2)+topk:4+overlap, deadline 0.25",
+             cfg(compress=pc("topk:4"), overlap=True, deadline=0.25))]
 
 
 # flipped elements one compared buffer may hold (up to 2 measured; a
@@ -1511,33 +1714,35 @@ def comm_slices():
 FLIP_CAP = 16
 
 
-def row_steps(comp, p, ref, e) -> np.ndarray:
+def row_steps(k, p, ref, e) -> np.ndarray:
     """Per row, the most one flipped decision moves an element of the
-    decompressed payload (p − ref) + e, the largest over workers, as an
-    (R, 1) array: one int8 level, max|row|/127; one top-k pick, the row's
-    kth-largest |x|."""
-    from repro_torch.comm import topk_k
+    decompressed payload (p − ref) + e, the largest over workers (and
+    pods), as an (R, 1) array: one int8 level (``k`` None), max|row|/127;
+    one top-k pick, the row's kth-largest |x|."""
     x = p - ref if ref is not None else p.clone()
     if e is not None:
         x = x + e
     a = x.abs()
-    if comp.name == "int8":
+    if k is None:
         step = a.amax(dim=-1) / 127.0
     else:
-        step = a.topk(topk_k(comp, a.shape[-1]), dim=-1).values[..., -1]
-    return step.amax(dim=0).unsqueeze(-1).double().numpy()
+        step = a.topk(min(k, a.shape[-1]), dim=-1).values[..., -1]
+    return step.reshape(-1, step.shape[-1]).amax(dim=0).unsqueeze(
+        -1).double().numpy()
 
 
 @contextlib.contextmanager
-def recording_payloads(vu, comp, steps):
-    """Within: the EF wrappers append each round trip's ``row_steps`` to
-    ``steps`` before they run it; an engine built here keeps them."""
-    names = ("fused_ef_int8", "fused_ef_topk")
+def recording_payloads(vu, steps):
+    """Within: the EF wrappers (flat and grid) append each round trip's
+    ``row_steps`` to ``steps`` before they run it; an engine built here
+    keeps them."""
+    names = ("fused_ef_int8", "fused_ef_topk", "fused_ef_int8_grid",
+             "fused_ef_topk_grid")
     saved = {n: getattr(vu, n) for n in names}
 
     def recording(fn):
         def ef(p, ref, e, **kw):
-            steps.append(row_steps(comp, p, ref, e))
+            steps.append(row_steps(kw.get("k"), p, ref, e))
             return fn(p, ref, e, **kw)
         return ef
     for n in names:
@@ -1549,26 +1754,41 @@ def recording_payloads(vu, comp, steps):
             setattr(vu, n, fn)
 
 
-def comm_small_input(dev, cfg, params, data, w, k, steps):
-    """The compressed and overlapped slices, card against CPU, both
-    through ``round_step``: every element within the uncompressed slices'
-    tolerances but at most ``FLIP_CAP`` per buffer, those within twice the
-    summed row step of the CPU run's communications; losses rtol 1e-4."""
+def state_buffers(state) -> dict:
+    """Every buffer of a flat or hier engine state by name: the worker
+    buffers, the comm state's, and pend."""
+    bufs = {name: getattr(state, name) for name in
+            ("params", "delta", "bias", "center", "delta1", "delta2")
+            if hasattr(state, name)}
+    if state.comm != ():
+        bufs.update(state.comm._asdict())
+    if state.overlap != ():
+        bufs["pend"] = state.overlap.pend
+    return {n: b for n, b in bufs.items() if isinstance(b, torch.Tensor)}
+
+
+def comm_small_input(dev, cfg, params, slices):
+    """The compressed, overlapped and deadline slices, card against CPU,
+    both through ``round_step``: every element within the uncompressed
+    slices' tolerances but at most ``FLIP_CAP`` per buffer, those within
+    twice the summed row step of the CPU run's communications (Δ, B, Δ1
+    and Δ2 over k·γ, k the flat period or k1); losses rtol 1e-4.
+    ``slices``: (label, VRLConfig, workers, round sizes, token stream)."""
     from repro_torch import tree as tm
+    from repro_torch.comm import resolve_pair
     from repro_torch.core import engine as engine_mod
     from repro_torch.kernels import vrl_update as vu
     from repro_torch.train.train_loop import make_train_step
 
-    for label, vrl in comm_slices():
-        sched = engine_mod.comm_schedule(vrl)
+    for label, vrl, w, rounds, data in slices:
         algo = engine_mod.get_spec(vrl.algorithm)
-        rounds = (sched.round_sizes(steps) if sched is not None
-                  else (1, k, k, k) if algo.warmup_aware else (k, k, k))
-        comp, rows = vrl.compress, []
+        k = rounds[-1]
+        compressed = any(c is not None for c in resolve_pair(vrl))
+        rows = []
         runs = {}
         for where in ("cpu", dev):
-            if where == "cpu" and comp is not None:
-                with recording_payloads(vu, comp, rows):
+            if where == "cpu" and compressed:
+                with recording_payloads(vu, rows):
                     bundle = make_train_step(cfg, vrl, device=where)
             else:
                 bundle = make_train_step(cfg, vrl, device=where)
@@ -1581,15 +1801,9 @@ def comm_small_input(dev, cfg, params, data, w, k, steps):
                                               torch.roll(toks, -1, dims=-1))
                 losses += lk.tolist()
                 t += rk
-            bufs = {"params": state.params, "delta": state.delta,
-                    "bias": state.bias, "center": state.center}
-            if state.overlap != ():
-                bufs["pend"] = state.overlap.pend
-            if state.comm != ():
-                bufs["resid"], bufs["ref"] = state.comm
             runs[str(where)] = (np.array(losses), {
-                n: b.float().cpu().numpy() for n, b in bufs.items()
-                if isinstance(b, torch.Tensor)})
+                n: b.float().cpu().numpy()
+                for n, b in state_buffers(state).items()})
         (l_c, s_c), (l_g, s_g) = runs["cpu"], runs[str(dev)]
         np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
         # S-SGD's flips move a gradient, so its parameters by γ times it
@@ -1598,9 +1812,9 @@ def comm_small_input(dev, cfg, params, data, w, k, steps):
                              else 1.0)
         notes = []
         for name in s_c:
-            scale = 1 / (k * vrl.learning_rate) if name in ("delta",
-                                                            "bias") else 1
-            fb = np.broadcast_to(scale * (resid_b if name == "resid"
+            scale = (1 / (k * vrl.learning_rate)
+                     if name in ("delta", "bias", "delta1", "delta2") else 1)
+            fb = np.broadcast_to(scale * (resid_b if name.startswith("resid")
                                           else param_b), s_c[name].shape)
             diff = np.abs(s_g[name] - s_c[name])
             flipped = diff > 1e-4 * scale
@@ -1716,6 +1930,13 @@ def main() -> int:
                      grid=(2, 2))
     res_h = cli_path("(h) hier_vrl_sgd+sgd (2, 2), --overlap", *PATH_H,
                      launch, vu, grid=(2, 2))
+    res_m = cli_path("(m) hier_vrl_sgd+sgd (2, 2), --compress int8", *PATH_M,
+                     launch, vu, grid=(2, 2))
+    res_n = cli_path("(n) hier_vrl_sgd+sgd (2, 2), --compress int8 "
+                     "--compress2 topk:32 --overlap --deadline 0.25",
+                     *PATH_N, launch, vu, grid=(2, 2), misses=PATH_N_MISSES)
+    res_o = cli_path("(o) hier_vrl_sgd+sgd (2, 2), --compress topk:32",
+                     *PATH_O, launch, vu, grid=(2, 2))
     res_i = train_path("(i) vrl_sgd+adam+sm3", *PATH_I, dev, vu,
                        after=sm3_note)
     print_path(res_i, "; " + check_sums(res_i) + res_i["note"])
@@ -1735,7 +1956,7 @@ def main() -> int:
     # each kernel's launches on the first path that runs it
     main_launches = {}
     for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
-                  res_h, res_i, res_j, res_k, res_l):
+                  res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o):
         for name, n in res_p["launches"].items():
             main_launches.setdefault(name, n)
 

@@ -27,6 +27,10 @@ of the positions every worker transmitted at the previous round boundary
 (``OverlapState.pend``), the round's k local steps run, and ``round_fold``
 folds the one-round-stale mean in (``fused_fold_overlap{,_bvr,_avg}``) and
 captures the new positions, through the EF round trip under compression.
+Under ``cfg.deadline`` each participant misses its capture with that
+probability per round (``core/deadline``, the reference's draws bit for
+bit): it keeps its last transmitted position, the period its pend covers
+stretches, and under compression its payload is parked in its residual.
 
 Two-level hier_vrl_sgd (sync rule "vrl2", ``configs.base.HierConfig``)
 runs over pod-major (P, D, R, C) buffers with Δ1 per worker and Δ2
@@ -34,7 +38,10 @@ runs over pod-major (P, D, R, C) buffers with Δ1 per worker and Δ2
 ``fused_hier_local_{sgd,momentum,adam,adam_sm3}`` pass, the level-1
 sync one pod mean plus ``fused_sync_hier1``, the level-2 sync one
 cross-pod mean plus ``fused_sync_hier2``; under overlap only level 2 is
-deferred (``fused_fold_overlap_hier2``).
+deferred (``fused_fold_overlap_hier2``).  Each level may compress
+(``compress``, and ``compress2`` for level 2): level 1 through the grid EF
+round trip against a per-pod reference (``fused_ef_{int8,topk}_grid``),
+level 2 through the flat one over the pod rows against a global one.
 
 SM3-factored Adam (``sm3=True``) replaces the dense (W, R, C) nu with a
 (W, R, 1) row stat and a (W, S, C) lane stat, one lane row per shard span
@@ -43,11 +50,9 @@ of ``EngineConfig.shards`` (layout only: rows pad to a multiple of
 
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
 stl_sgd, bvr_l_sgd) and hier_vrl_sgd with the sgd, momentum and adam
-inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16);
-the flat ones with or without compression and overlap, the hierarchy
-blocking or overlapped.  Still to be ported (ROADMAP Queue 1), and
-refused with NotImplementedError: the hierarchy's compressed syncs
-(``compress``/``compress2``, the grid EF kernels) and overlap deadlines.
+inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16), with
+or without compression, overlap and deadlines; it refuses only what the
+reference refuses.
 """
 from __future__ import annotations
 
@@ -59,10 +64,12 @@ import torch
 from repro_torch import tree as tree_mod
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs.base import HierConfig, VRLConfig
+from repro_torch.core import deadline as deadline_mod
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.types import (CommState, FlatWorkerState,
-                                    HierFlatState, OverlapState)
+                                    HierCommState, HierFlatState,
+                                    OverlapState)
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
 
@@ -183,17 +190,21 @@ def sum_invariant(buf: torch.Tensor, dim: int = 0) -> Tuple[float, float]:
     return (buf.sum(dim=dim).abs().max().item(), buf.abs().max().item())
 
 
-def _ef_op(comp: comm_mod.CompressorSpec, lanes: int) -> Callable:
+def _ef_op(comp: comm_mod.CompressorSpec, lanes: int, *,
+           grid: bool = False) -> Callable:
     """The EF round-trip kernel for one compressor: (payload buffer, ref,
-    resid, out=) -> (dec fp32, resid'), resid' in place."""
+    resid, out=) -> (dec fp32, resid'), resid' in place; ``grid``: the
+    pod-major form over (P, D, R, C) with a (P, 1, R, C) ref."""
     if comp.name == "int8":
-        return vu.fused_ef_int8
-    return functools.partial(vu.fused_ef_topk, k=comm_mod.topk_k(comp, lanes))
+        return vu.fused_ef_int8_grid if grid else vu.fused_ef_int8
+    fn = vu.fused_ef_topk_grid if grid else vu.fused_ef_topk
+    return functools.partial(fn, k=comm_mod.topk_k(comp, lanes))
 
 
 def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
     """Reject what the overlapped round cannot honour (the reference's
-    checks, then the port's own: deadlines are not ported)."""
+    checks).  ``comp``: the compressor of the sync that overlap defers
+    (flat: ``compress``; the hierarchy: level 2's)."""
     if not cfg.overlap:
         if cfg.deadline:
             raise ValueError(
@@ -212,23 +223,61 @@ def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
         raise ValueError(
             "deadline misses park the skipped payload in the EF residual; "
             "the overlapped sync's compressor needs error_feedback=True")
-    if cfg.deadline:
-        # the reference draws the misses with jax.random (a bit stream the
-        # port cannot reproduce); the fold kernel takes the miss column
-        # all the same
-        raise NotImplementedError(
-            "overlap deadlines (deadline > 0) are not ported to PyTorch yet; "
-            "see ROADMAP.md Queue 1")
 
 
-def _validate_hier(comp) -> None:
-    """Refuse what the port's hierarchy does not run yet (ROADMAP Queue 1):
-    the compressed syncs (the grid EF kernels)."""
-    if comp is not None:
-        raise NotImplementedError(
-            "hier_vrl_sgd with a compressed sync (compress) needs the grid "
-            "EF kernels (fused_ef_int8_grid, fused_ef_topk_grid), not ported "
-            "to PyTorch yet; see ROADMAP.md Queue 1")
+def _misses(cfg: VRLConfig) -> Callable:
+    """(step, n) -> the (n, 1) fp32 numpy miss mask of the overlapped fold
+    ending at ``step`` (``core/deadline``; all zeros without a deadline)."""
+    return functools.partial(deadline_mod.miss_mask, deadline=cfg.deadline)
+
+
+def _fold_scal(pend_k: torch.Tensor, km, lr: float) -> torch.Tensor:
+    """The fold kernels' (n, 2) fp32 [1/(pend_k·γ), km] per participant
+    from the (n, 1) pend_k column, km copied to the device (zeros made
+    there without a deadline)."""
+    inv = torch.reciprocal(pend_k * lr)
+    kmt = (torch.zeros_like(inv) if not km.any() else
+           torch.from_numpy(km).to(inv.device))
+    return torch.cat([inv, kmt], dim=1)
+
+
+def _stretch(pend_k: torch.Tensor, km, k_eff: int) -> None:
+    """pend_k' = km·(pend_k + k_eff) + (1 − km)·k_eff in place: a missed
+    capture keeps pend and stretches the period it covers (exact: small
+    integers in fp32).  Without a miss, the fill of the no-deadline
+    program."""
+    if not km.any():
+        pend_k.fill_(float(k_eff))
+        return
+    kmt = torch.from_numpy(km).to(pend_k.device).view(pend_k.shape)
+    pend_k.copy_(kmt * (pend_k + k_eff) + (1.0 - kmt) * k_eff)
+
+
+def _park(pend, resid, dec, xbar, km) -> None:
+    """The compressed capture under a deadline, in place: sent = x̂_stale +
+    dec (written over dec), pend' = km·pend + (1 − km)·sent, resid' =
+    resid + km·dec (a missed worker never transmitted its payload, so it
+    returns to its residual).  ``pend``, ``resid``, ``dec``: (n, R, C);
+    ``km``: (n, 1) numpy.  Every product is by 0 or 1, so each output is
+    rounded once, as the reference's expressions are."""
+    kmt = torch.from_numpy(km).to(dec.device).view(-1, 1, 1)
+    if isinstance(resid, torch.Tensor):
+        resid.addcmul_(dec, kmt)
+    dec.add_(xbar)
+    pend.mul_(kmt).addcmul_(dec, 1.0 - kmt)
+
+
+def _reanchor_ref1(ref1: torch.Tensor, glob: torch.Tensor) -> None:
+    """After a level-2 sync every worker holds x̂: ref1 ← x̂ in every pod,
+    so the next intra-pod payload is small again."""
+    ref1.copy_(glob.expand_as(ref1))
+
+
+def _shift_ref1(ref1: torch.Tensor, glob: torch.Tensor,
+                pend: torch.Tensor) -> None:
+    """The level-2 fold moves pod p by c_p = x̂_stale − pend_p: ref1 moves
+    with it (ref1 + c_p, rounded as the reference rounds it)."""
+    ref1.add_(glob - pend)
 
 
 def _round_grads(grads_k: Any) -> list:
@@ -321,12 +370,17 @@ class Engine(NamedTuple):
                                 # when the round of k steps ends off the
                                 # k2 cadence); None when overlap is off
                                 # (callers dispatch on that)
-    round_fold: Any = None      # overlap only: (state, x̂_stale) -> state,
-                                # the round-END stale fold and capture
-                                # (hier: after the blocking sync1)
+    round_fold: Any = None      # overlap only: (state, x̂_stale, out=None)
+                                # -> state, the round-END stale fold and
+                                # capture (hier: after the blocking sync1)
     compressors: Any = (None, None)  # resolved (level-1, level-2) specs
-    sync1: Any = None           # hier only: (state,) -> state, intra-pod
-    sync2: Any = None           # hier only: (state,) -> state, cross-pod
+    misses: Any = None          # overlap only: (step, n) -> the (n, 1) numpy
+                                # deadline-miss mask of the fold ending at
+                                # step (workers; hier: pods)
+    sync1: Any = None           # hier only: (state, out=None) -> state,
+                                # intra-pod
+    sync2: Any = None           # hier only: (state, out=None) -> state,
+                                # cross-pod
     grid: Any = None            # hier only: (P, D)
 
 
@@ -345,22 +399,16 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     lr, wd = cfg.learning_rate, cfg.weight_decay
     delta_dt = flat.dtype_of(cfg.delta_dtype)
     bias_on = use_bias(algo, cfg)
-    if cfg.compress2 is not None:
-        # the reference's flat algorithms ignore it; refused here rather
-        # than carried as an option that does nothing
-        raise NotImplementedError(
-            "compress2 compresses the hierarchy's cross-pod sync, which "
-            "needs the grid EF kernels (fused_ef_int8_grid, "
-            "fused_ef_topk_grid), not ported to PyTorch yet; see ROADMAP.md "
-            "Queue 1")
+    # the flat algorithms ignore level 2, as the reference's do; the pair
+    # stays canonical, so pair_meta(engine.compressors) == pair_meta(cfg)
     comp, comp2 = comm_mod.resolve_pair(cfg)
     if algo.sync == "vrl2":
-        _validate_hier(comp)
         _validate_overlap(cfg, algo, comp2)
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
                                  delta_dt=delta_dt, device=device,
                                  kind=kind, beta=beta, mdt=mdt, sm3=sm3)
     _validate_overlap(cfg, algo, comp)
+    misses = _misses(cfg)
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
 
@@ -515,19 +563,20 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         del k
         return _wmean(state.overlap.pend)
 
-    def round_fold(state: FlatWorkerState,
-                   xbar: torch.Tensor) -> FlatWorkerState:
+    def round_fold(state: FlatWorkerState, xbar: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> FlatWorkerState:
         """The overlapped round's END: fold c = x̂_stale − pend into the
         parameters, Δ (and B), then capture the new positions for the next
         round's mean — in the fold kernel, or, under compression, as the
         transmitted position x̂_stale + dec of the EF round trip of the
-        folded parameters' drift against x̂_stale."""
+        folded parameters' drift against x̂_stale.  A worker that misses
+        its deadline keeps its pend (and parks dec in its residual).
+        ``out``: a dead (W, R, C) fp32 buffer for dec under a deadline."""
         ov = state.overlap
         p = state.params
         k_eff = max(state.step - state.last_sync, 1)
-        inv = torch.reciprocal(ov.pend_k[:, :, 0] * lr)        # (W, 1)
-        # no worker misses its capture deadline: deadlines are not ported
-        wscal = torch.cat([inv, torch.zeros_like(inv)], dim=1)
+        km = misses(state.step, p.shape[0])                    # (W, 1)
+        wscal = _fold_scal(ov.pend_k[:, :, 0], km, lr)
         capture = comp is None
         xb = xbar.to(p.dtype)
         if algo.sync == "average":
@@ -540,13 +589,18 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         else:
             vu.fused_fold_overlap(p, xb, ov.pend, state.delta, wscal,
                                   capture=capture, block=fspec.block)
-        if comp is not None:
+        resid = state.comm.resid if ef_on else None
+        if comp is not None and not km.any():
             # pend is dead once the fold has read it: the round trip writes
             # dec there and pend' = x̂_stale + dec is finished in place
-            ef_rt(p, xbar, state.comm.resid if ef_on else None, out=ov.pend)
+            ef_rt(p, xbar, resid, out=ov.pend)
             ov.pend.add_(xbar)
+        elif comp is not None:
+            dec, _ = ef_rt(p, xbar, resid, out=out)
+            _park(ov.pend, resid, dec, xbar, km)
+        if comp is not None:
             state = state._replace(comm=state.comm._replace(ref=xbar))
-        ov.pend_k.fill_(float(k_eff))
+        _stretch(ov.pend_k, km, k_eff)
         return state._replace(last_sync=state.step)
 
     def round_step(state: FlatWorkerState, grads_k: Any) -> FlatWorkerState:
@@ -578,7 +632,8 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   step_sync=sync,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
-                  compressors=(comp, comp2))
+                  compressors=(comp, comp2),
+                  misses=misses if cfg.overlap else None)
 
 
 # ============================================== hierarchical executor ("vrl2")
@@ -587,19 +642,29 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                       device: Optional[torch.device], kind: str, beta: float,
                       mdt: torch.dtype, sm3: bool) -> Engine:
     """The two-level engine over pod-major (P, D, R, C) flat buffers
-    (``repro.core.engine._make_hier_engine``, uncompressed), with the sgd,
-    momentum or Adam (dense or SM3) inner optimizer over (P, D, ...)
-    moments.
+    (``repro.core.engine._make_hier_engine``), with the sgd, momentum or
+    Adam (dense or SM3) inner optimizer over (P, D, ...) moments.
 
     The level-1 sync averages within each pod and folds the Δ1 update into
     one kernel pass; the level-2 sync averages across pods and folds the Δ2
     update in.  Local steps touch no cross-worker axis.  On one device the
     pod mean is a reduction over dim 1 and the cross-pod mean one over dims
     (0, 1); on a cluster each is one all-reduce over its level's group.
+    A compressed level averages the decompressed drift against its
+    reference instead (``HierCommState``): level 1 per pod, x̂_pod = ref1 +
+    pod_mean(dec), through the grid EF kernel; level 2 over the pod rows,
+    x̂ = ref2 + cross_mean(dec), through the flat one on the strided view
+    ``params[:, 0]``.
     """
     hcfg = hier_config(cfg)
     p_total, d_total = hcfg.grid
     k1, k2 = hcfg.k1, hcfg.k2
+    comp1, comp2 = comm_mod.resolve_pair(cfg)
+    ef1 = None if comp1 is None else _ef_op(comp1, fspec.lanes, grid=True)
+    ef2 = None if comp2 is None else _ef_op(comp2, fspec.lanes)
+    ef1_on = comp1 is not None and comp1.error_feedback
+    ef2_on = comp2 is not None and comp2.error_feedback
+    misses = _misses(cfg)
 
     def _pod_mean(buf: torch.Tensor) -> torch.Tensor:
         """(P, D, R, C) -> (P, 1, R, C): THE intra-pod all-reduce.  With one
@@ -646,6 +711,20 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                 pend=flat1.to(torch.float32).expand(pod_shape).clone(),
                 pend_k=torch.ones((p_total, 1, 1, 1), dtype=torch.float32,
                                   device=stacked.device))
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32,
+                               device=stacked.device)
+        comm = ()
+        if comp1 is not None or comp2 is not None:
+            # fp32 residuals; ref1 per pod and ref2 global start at x0
+            comm = HierCommState(
+                resid1=zeros(stacked.shape) if ef1_on else (),
+                ref1=(flat1.to(torch.float32).expand(pod_shape).clone()
+                      if comp1 is not None else ()),
+                resid2=zeros(pod_shape) if ef2_on else (),
+                ref2=(flat1.to(torch.float32, copy=True)
+                      if comp2 is not None else ()))
         return HierFlatState(
             params=stacked,
             delta1=torch.zeros(stacked.shape, dtype=delta_dt,
@@ -653,7 +732,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             delta2=torch.zeros(pod_shape, dtype=delta_dt,
                                device=stacked.device),
             inner=inner_init(stacked), step=0, last_sync1=0, last_sync2=0,
-            overlap=overlap)
+            comm=comm, overlap=overlap)
 
     def inner_init(stacked: torch.Tensor) -> Any:
         if kind == "sgd":
@@ -683,25 +762,61 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                                            wd=wd, block=fspec.block))
         return state._replace(inner=inner, step=state.step + 1)
 
-    def sync1(state: HierFlatState) -> HierFlatState:
+    def _pod_rows(out: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A contiguous (P, R, C) buffer for level 2's dec: the first P
+        worker slices of the dead (P, D, R, C) buffer ``out`` (None: the
+        round trip makes a new one)."""
+        return None if out is None else out.view(-1, *out.shape[2:])[
+            :p_total]
+
+    def _ef2(state: HierFlatState, ref: torch.Tensor,
+             dec: Optional[torch.Tensor]) -> torch.Tensor:
+        """Level 2's EF round trip over the pod rows params[:, 0] (a
+        strided view, no copy) against ``ref``, resid2 in place, dec into
+        the (P, R, C) buffer ``dec`` (None: a new one); -> dec."""
+        cm = state.comm
+        dec, _ = ef2(state.params[:, 0], ref,
+                     cm.resid2[:, 0] if ef2_on else None, out=dec)
+        return dec
+
+    def sync1(state: HierFlatState, out=None) -> HierFlatState:
+        """The intra-pod sync; compressed: x̂_pod = ref1 + pod_mean(dec),
+        dec over ``out`` (a dead (P, D, R, C) fp32 buffer) when given, and
+        x̂_pod is written over ref1 in place."""
         p = state.params
         k_eff = max(state.step - state.last_sync1, 1)
-        vu.fused_sync_hier1(p, _pod_mean(p), state.delta1,
-                            _kg(k_eff, p.device), block=fspec.block)
+        if comp1 is not None:
+            cm = state.comm
+            dec, _ = ef1(p, cm.ref1, cm.resid1 if ef1_on else None, out=out)
+            xbar = cm.ref1.add_(_pod_mean(dec))
+        else:
+            xbar = _pod_mean(p)
+        vu.fused_sync_hier1(p, xbar, state.delta1, _kg(k_eff, p.device),
+                            block=fspec.block)
         return state._replace(last_sync1=state.step)
 
-    def sync2(state: HierFlatState) -> HierFlatState:
+    def sync2(state: HierFlatState, out=None) -> HierFlatState:
         """Assumes a level-1 sync at this step: params ARE the pod
-        averages, so the global mean needs only the cross-pod axis."""
+        averages, so the global mean needs only the cross-pod axis.
+        Compressed: x̂ = ref2 + cross_mean(dec) over the pod rows, written
+        over ref2 in place.  Level 2 moves every worker to x̂, so a compressed
+        level 1 re-anchors ref1 there (the next intra-pod payload is small
+        again)."""
         p = state.params
         k_eff = max(state.step - state.last_sync2, 1)
-        vu.fused_sync_hier2(p, _cross_mean(p[:, :1]), state.delta2,
-                            _kg(k_eff, p.device), block=fspec.block)
+        if comp2 is not None:
+            dec = _ef2(state, state.comm.ref2, _pod_rows(out))
+            glob = state.comm.ref2.add_(_cross_mean(dec[:, None]))
+        else:
+            glob = _cross_mean(p[:, :1])
+        if comp1 is not None:
+            _reanchor_ref1(state.comm.ref1, glob)
+        vu.fused_sync_hier2(p, glob, state.delta2, _kg(k_eff, p.device),
+                            block=fspec.block)
         return state._replace(last_sync2=state.step)
 
     def sync(state: HierFlatState, out=None) -> HierFlatState:
-        del out             # no compressed sync writes a payload here
-        return sync2(sync1(state))
+        return sync2(sync1(state, out), out)
 
     def level2_due(state: HierFlatState, k: int = 0) -> bool:
         """True when the step k steps from now lands on the k2 cadence."""
@@ -713,9 +828,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     def step_sync(state: HierFlatState, out=None) -> HierFlatState:
         """sync1, then sync2 when the k2 cadence is due (the reference's
         per-step ``do1 | do2`` / ``do2`` conds)."""
-        del out
-        state = sync1(state)
-        return sync2(state) if level2_due(state) else state
+        state = sync1(state, out)
+        return sync2(state, out) if level2_due(state) else state
 
     def train_step(state: HierFlatState, grads: Any) -> HierFlatState:
         state = local_step(state, grads)
@@ -737,37 +851,56 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         return _cross_mean(state.overlap.pend) if level2_due(state, k) \
             else None
 
-    def _fold2(state: HierFlatState, glob: torch.Tensor) -> HierFlatState:
+    def _fold2(state: HierFlatState, glob: torch.Tensor,
+               out: Optional[torch.Tensor]) -> HierFlatState:
         """Apply the stale cross-pod mean: c_p = x̂_stale − pend2_p folds
         into every worker of pod p (post-sync1, so the whole pod moves
         together), Δ2 updates over the period pend covered, and the new
-        per-pod positions are captured for the next level-2 mean."""
+        per-pod positions are captured for the next level-2 mean — in the
+        fold kernel, or under a compressed level 2 as x̂_stale + dec of the
+        EF round trip of the folded pod rows against x̂_stale.  A pod that
+        misses its deadline keeps its pend (and parks dec in resid2).  A
+        compressed level 1 shifts ref1 by c_p with its pod."""
         ov = state.overlap
         p = state.params
         k_eff = max(state.step - state.last_sync2, 1)
-        inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)      # (P, 1)
-        # no pod misses its capture deadline: deadlines are not ported
-        wscal = torch.cat([inv, torch.zeros_like(inv)], dim=1)
+        km = misses(state.step, p_total)                       # (P, 1)
+        wscal = _fold_scal(ov.pend_k[:, 0, :, 0], km, lr)
+        if comp1 is not None:
+            _shift_ref1(state.comm.ref1, glob, ov.pend)
         vu.fused_fold_overlap_hier2(p, glob.to(p.dtype), ov.pend,
-                                    state.delta2, wscal, capture=True,
+                                    state.delta2, wscal,
+                                    capture=comp2 is None,
                                     block=fspec.block)
-        ov.pend_k.fill_(float(k_eff))
+        if comp2 is not None:
+            pend = ov.pend[:, 0]
+            if not km.any():
+                # pend is dead once the fold has read it: dec goes there
+                # and pend' = x̂_stale + dec is finished in place
+                _ef2(state, glob, pend)
+                pend.add_(glob)
+            else:
+                _park(pend, state.comm.resid2[:, 0] if ef2_on else None,
+                      _ef2(state, glob, _pod_rows(out)), glob, km)
+            state = state._replace(comm=state.comm._replace(ref2=glob))
+        _stretch(ov.pend_k, km, k_eff)
         return state._replace(last_sync2=state.step)
 
-    def round_fold(state: HierFlatState,
-                   glob: Optional[torch.Tensor]) -> HierFlatState:
+    def round_fold(state: HierFlatState, glob: Optional[torch.Tensor],
+                   out: Optional[torch.Tensor] = None) -> HierFlatState:
         """The overlapped round's END: the blocking sync1, then, when this
         step lands on the k2 cadence, the stale level-2 fold of
-        ``round_begin``'s mean."""
+        ``round_begin``'s mean.  ``out``: a dead (P, D, R, C) fp32 buffer
+        for the compressed payloads."""
         _check_round()
-        state = sync1(state)
+        state = sync1(state, out)
         if not level2_due(state):
             return state
         if glob is None:
             raise ValueError(
                 "round_fold: the k2 cadence is due but round_begin took no "
                 "cross-pod mean (it was given another round length)")
-        return _fold2(state, glob)
+        return _fold2(state, glob, out)
 
     def round_step(state: HierFlatState, grads_k: Any) -> HierFlatState:
         """One k1 round over a (k1, P, D, R, C) grads buffer or a grads tree
@@ -797,4 +930,6 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   step_sync=step_sync,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
+                  compressors=(comp1, comp2),
+                  misses=misses if cfg.overlap else None,
                   sync1=sync1, sync2=sync2, grid=(p_total, d_total))

@@ -1,9 +1,9 @@
 """State container of the flat-buffer engine (``repro.core.engine``
-``FlatWorkerState``, ``CommState``, ``OverlapState``, ``HierFlatState``),
-for the slice the port runs: the flat algorithms with the sgd, momentum
-and adam inner optimizers (Adam dense or SM3-factored), compressed sync
-and overlapped rounds, and the two-level hierarchy with the same inner
-optimizers, blocking or overlapped.
+``FlatWorkerState``, ``CommState``, ``OverlapState``, ``HierFlatState``,
+``HierCommState``), for the slice the port runs: the flat algorithms with
+the sgd, momentum and adam inner optimizers (Adam dense or SM3-factored),
+compressed sync and overlapped rounds, and the two-level hierarchy with
+the same inner optimizers, blocking or overlapped, compressed per level.
 
 The buffers are updated IN PLACE by the engine's kernels; an engine call
 returns a new tuple (``_replace``) that holds the same buffers with the
@@ -29,6 +29,23 @@ class CommState(NamedTuple):
 
     resid: Any = ()
     ref: Any = ()
+
+
+class HierCommState(NamedTuple):
+    """The hierarchy's per-level compressed-sync state.
+
+    Level 1 (intra-pod): ``resid1`` the per-worker residual, (P, D, R, C)
+    fp32; ``ref1`` the per-pod reference, (P, 1, R, C) fp32, shared by the
+    pod's workers.  Level 2 (cross-pod): ``resid2`` the per-pod residual,
+    (P, 1, R, C) fp32; ``ref2`` the global reference, (R, C) fp32.  Each
+    half is () when its level is uncompressed, each residual () when its
+    compressor has no error feedback.
+    """
+
+    resid1: Any = ()
+    ref1: Any = ()
+    resid2: Any = ()
+    ref2: Any = ()
 
 
 class OverlapState(NamedTuple):
@@ -83,8 +100,8 @@ class HierFlatState(NamedTuple):
     stats.  Invariants: Σ_d Δ1[p, d] = 0 within every
     pod after a level-1 sync, Σ_p Δ2[p] = 0 after a level-2 sync.
     ``overlap``: an ``OverlapState`` over pods under overlapped rounds, ()
-    otherwise; ``comm``: () (the hierarchy's compressed syncs are not
-    ported).
+    otherwise; ``comm``: a ``HierCommState`` when either level compresses,
+    () otherwise.
     """
 
     params: torch.Tensor

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/vrl_update.py:
 //   vrl_fused_ef    <- _ef_call (vrl_update.py:698), flat (W, R, C) form:
-//                      fused_ef_int8 (:743) and fused_ef_topk (:755)
+//                      fused_ef_int8 (:743) and fused_ef_topk (:755); and
+//                      pod-major (P, D, R, C) form: fused_ef_int8_grid
+//                      (:762) and fused_ef_topk_grid (:769)
 //   vrl_fused_fold  <- _fold_call (vrl_update.py:476): fused_fold_overlap
 //                      (:521), fused_fold_overlap_bvr (:537) and
 //                      fused_fold_overlap_avg (:546)
@@ -22,7 +24,13 @@
 // found by a bitwise search over the uint32 bits of |x| (non-negative
 // floats order as their bits): 31 steps, each counting the lanes ≥ the
 // candidate with __reduce_add_sync.  dec may be the same buffer as p (the
-// warp reads its whole row before it writes it).
+// warp reads its whole row before it writes it).  The pod-major form is the
+// same kernel over P pods of D workers with a (P, R, C) ref, one per pod:
+// a warp owns a (pod, row), loads that pod's ref row once and walks the
+// pod's D workers with it (the flat form is P = 1, D = W).  p's workers
+// may lie a stride apart (the hierarchy's level 2 compresses the pod rows
+// params[:, 0] of a (P, D, R, C) buffer in place, without a copy); e and
+// dec are contiguous.
 //
 // Overlap fold.  c = x̂_stale − pend; p' = p + c; Δ' = Δ + c·s₀;
 // B' = (1−β)B + (β·c)·s₀; pend' = km·pend + (1−km)·p', with [s₀, km] read
@@ -92,35 +100,40 @@ __device__ __forceinline__ float keep(float x, float thresh) {
   return fabsf(x) >= thresh ? x : 0.0f;
 }
 
-// One warp per row of the (R, C) plane, walking the W workers.  NV float4
-// groups per lane: lane t holds groups t, t + 32, ... of the row's c4 =
-// C/4 (NV = ceil(c4 / 32)).  mode 0 = int8, 1 = top-k keeping k lanes.
-// ref and e may be null; e, when given, receives resid' in place.
+// One warp per (pod, row) of the (P, R, C) plane, walking the pod's D
+// workers.  NV float4 groups per lane: lane t holds groups t, t + 32, ... of
+// the row's c4 = C/4 (NV = ceil(c4 / 32)).  mode 0 = int8, 1 = top-k keeping
+// k lanes.  ref ((pods, rows, c4), one row per pod) and e may be null; e,
+// when given, receives resid' in place.  Worker w's rows start at w·ps4 in
+// p and at w·rows·c4 in e and dec.
 template <int NV>
 __global__ void ef_kernel(const float4* p, const float4* __restrict__ ref,
                           float4* __restrict__ e, float4* dec, int mode,
-                          int k, int64_t w, int64_t rows, int64_t c4) {
+                          int k, int64_t pods, int64_t dper, int64_t rows,
+                          int64_t c4, int64_t ps4) {
   const int lane = threadIdx.x & 31;
   const int64_t nwarps = (int64_t)gridDim.x * kWarps;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool keep_all = (int64_t)k >= 4 * c4;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       row < rows; row += nwarps) {
+  for (int64_t item = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       item < pods * rows; item += nwarps) {
+    const int64_t pod = item / rows, row = item - pod * rows;
     float4 rv[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const int64_t j = lane + 32 * v;
-      rv[v] = (ref != nullptr && j < c4) ? ref[row * c4 + j] : zero;
+      rv[v] = (ref != nullptr && j < c4) ? ref[item * c4 + j] : zero;
     }
-    for (int64_t wi = 0; wi < w; ++wi) {
+    for (int64_t wi = pod * dper; wi < (pod + 1) * dper; ++wi) {
       const int64_t base = (wi * rows + row) * c4;
+      const int64_t pbase = wi * ps4 + row * c4;
       float4 x[NV];
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int64_t j = lane + 32 * v;
         x[v] = zero;
         if (j < c4) {
-          x[v] = p[base + j];
+          x[v] = p[pbase + j];
           if (ref != nullptr) x[v] = sub4(x[v], rv[v]);
           if (e != nullptr) x[v] = add4(x[v], e[base + j]);
         }
@@ -238,36 +251,43 @@ __global__ void fold_kernel(float4* __restrict__ p,
 
 template <int NV>
 void launch_ef(const void* p, const void* ref, void* e, void* dec, int mode,
-               int k, int64_t w, int64_t rows, int64_t c4,
-               cudaStream_t s) {
-  ef_kernel<NV><<<grid_for(rows, kWarps), kThreads, 0, s>>>(
+               int k, int64_t pods, int64_t dper, int64_t rows, int64_t c4,
+               int64_t ps4, cudaStream_t s) {
+  ef_kernel<NV><<<grid_for(pods * rows, kWarps), kThreads, 0, s>>>(
       (const float4*)p, (const float4*)ref, (float4*)e, (float4*)dec, mode,
-      k, w, rows, c4);
+      k, pods, dper, rows, c4, ps4);
 }
 
 }  // namespace
 
 extern "C" {
 
-// p, e, dec: (w, rows, c) fp32; ref: (rows, c) fp32 or null; e null ⇒ no
-// error feedback.  c is a multiple of 4, at most 1024.  mode 0 = int8,
-// 1 = top-k (k lanes).  Returns cudaGetLastError() after the launch; 1
-// (cudaErrorInvalidValue) for a lane count it does not take.
+// p, e, dec: (pods·dper, rows, c) fp32, worker w of pod w / dper; ref:
+// (pods, rows, c) fp32 or null, pod p's row shared by its dper workers (the
+// flat form: pods = 1, dper = W, ref (rows, c)); e null ⇒ no error
+// feedback.  p_stride: elements between consecutive workers of p (a
+// multiple of 4, at least rows·c); e and dec are contiguous.  c is a
+// multiple of 4, at most 1024.  mode 0 = int8, 1 = top-k (k lanes).
+// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
+// for a lane count or stride it does not take.
 int vrl_fused_ef(const void* p, const void* ref, void* e, void* dec,
-                 int mode, int k, int64_t w, int64_t rows, int64_t c,
-                 void* stream) {
+                 int mode, int k, int64_t pods, int64_t dper, int64_t rows,
+                 int64_t c, int64_t p_stride, void* stream) {
   const int64_t c4 = c / 4;
-  if (c % 4 || c4 > 32 * 8) return (int)cudaErrorInvalidValue;
-  if (rows > 0 && w > 0 && c4 > 0) {
+  if (c % 4 || c4 > 32 * 8 || p_stride % 4 || p_stride < rows * c) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows > 0 && pods > 0 && dper > 0 && c4 > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+    const int64_t ps4 = p_stride / 4;
     if (c4 <= 32) {
-      launch_ef<1>(p, ref, e, dec, mode, k, w, rows, c4, s);
+      launch_ef<1>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
     } else if (c4 <= 64) {
-      launch_ef<2>(p, ref, e, dec, mode, k, w, rows, c4, s);
+      launch_ef<2>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
     } else if (c4 <= 128) {
-      launch_ef<4>(p, ref, e, dec, mode, k, w, rows, c4, s);
+      launch_ef<4>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
     } else {
-      launch_ef<8>(p, ref, e, dec, mode, k, w, rows, c4, s);
+      launch_ef<8>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
     }
   }
   return (int)cudaGetLastError();

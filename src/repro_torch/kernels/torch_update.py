@@ -267,6 +267,7 @@ def fused_fold_overlap_hier2(p, glob, pend2, d2, wscal, *,
 # The EF round trip of the sync payload's drift: payload = (p − ref) + e,
 # then ``comm.compressors.ef_int8`` / ``ef_topk``; resid' = payload − dec,
 # so resid' + dec == payload bitwise.  ``ref`` (R, C, broadcast over the
+# workers; the grid forms: (P, 1, R, C), broadcast over each pod's D
 # workers) and ``e`` may be None (S-SGD's gradient compression has no ref;
 # error feedback off has no residual); resid' is then None too.
 
@@ -293,6 +294,18 @@ def fused_ef_topk(p, ref, e, *, k: int, block: int = 0):
     del block
     dec, res = cc.ef_topk(_ef_payload(p, ref, e), k)
     return dec, (res if e is not None else None)
+
+
+def fused_ef_int8_grid(p, ref, e, *, block: int = 0):
+    """Pod-major int8 EF round trip: p, e (P, D, R, C), ref the (P, 1, R,
+    C) per-pod reference; returns (dec fp32, resid' or None)."""
+    return fused_ef_int8(p, ref, e, block=block)
+
+
+def fused_ef_topk_grid(p, ref, e, *, k: int, block: int = 0):
+    """Pod-major top-k EF round trip; the contract of
+    ``fused_ef_int8_grid``."""
+    return fused_ef_topk(p, ref, e, k=k, block=block)
 
 
 # ========================================== hierarchical (P, D, R, C) versions

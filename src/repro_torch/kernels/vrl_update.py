@@ -14,7 +14,7 @@ algorithms' local steps and syncs as single passes over worker-stacked
   sync bvr:        the vrl sync plus B' = (1−β)B + β(x̂ − p)/(k_eff γ)
   sync easgd:      p' = p − a(p − x̃), then x̃' = (1 − na)x̃ + na·x̂
   EF round trip:   x = (p − ref) + e;  dec = int8 or top-k round trip of x;
-                   e' = x − dec
+                   e' = x − dec (grid form: ref (P, 1, R, C), one per pod)
   overlap fold:    c = x̂_stale − pend;  p' = p + c;  Δ' = Δ + c·s₀;
                    B' = (1−β)B + β·c·s₀;  pend' = km·pend + (1−km)·p'
 
@@ -55,7 +55,8 @@ LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
             "fused_sync_hier1": 0, "fused_sync_hier2": 0,
             "fused_fold_overlap_hier2": 0, "fused_local_adam_sm3": 0,
             "fused_hier_local_momentum": 0, "fused_hier_local_adam": 0,
-            "fused_hier_local_adam_sm3": 0}
+            "fused_hier_local_adam_sm3": 0, "fused_ef_int8_grid": 0,
+            "fused_ef_topk_grid": 0}
 
 
 def reset_launches() -> None:
@@ -124,7 +125,7 @@ def _comm_lib() -> ctypes.CDLL:
     lib = build.load("comm_update")
     f32, i64, cint = ctypes.c_float, ctypes.c_int64, ctypes.c_int
     lib.vrl_fused_ef.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, cint, i64,
-                                 i64, i64, _PTR]
+                                 i64, i64, i64, i64, _PTR]
     lib.vrl_fused_ef.restype = cint
     lib.vrl_fused_fold.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, f32,
                                    f32, cint, i64, i64, _PTR]
@@ -136,11 +137,13 @@ _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
-           **tensors) -> None:
+           strided=(), **tensors) -> None:
     """Raise on what the kernels do not take: p not (W, R, C) (with
     ``grid``: not (P, D, R, C)), non-fp32 buffers (moments named in
     ``moments`` may be fp32 or bf16, all of one type), mixed devices,
-    non-contiguous or misaligned buffers, lanes not a multiple of 4."""
+    non-contiguous or misaligned buffers (those named in ``strided`` may
+    hold their contiguous (R, C) worker slices a stride apart, see
+    ``_worker_stride``), lanes not a multiple of 4."""
     if lead.dim() != (4 if grid else 3):
         raise ValueError(f"{name}: p must be "
                          f"{'(P, D, R, C)' if grid else '(W, R, C)'}, got "
@@ -159,12 +162,26 @@ def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
         if t.device != lead.device:
             raise ValueError(f"{name}: {key} on {t.device}, p on "
                              f"{lead.device}")
-        if not t.is_contiguous():
+        if not (t.is_contiguous() or key in strided):
             raise ValueError(f"{name}: {key} is not contiguous")
         if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
     if lead.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {lead.device}")
+
+
+def _worker_stride(name: str, p: torch.Tensor) -> int:
+    """Elements between consecutive workers of a (W, R, C) ``p`` whose
+    (R, C) slices are contiguous but may lie a stride apart: the pod rows
+    ``params[:, 0]`` of a (P, D, R, C) buffer, which the hierarchy's
+    level 2 compresses in place rather than copy."""
+    w, r, c = p.shape
+    stride = p.stride(0) if w > 1 else r * c
+    if p.stride()[1:] != (c, 1) or stride < r * c or stride % 4:
+        raise ValueError(f"{name}: p's (R, C) worker slices are not "
+                         f"contiguous, or lie closer than R·C or off a "
+                         f"multiple of 4 apart (strides {p.stride()})")
+    return stride
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -485,15 +502,20 @@ def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
 # Design (csrc/comm_update.cu): one warp per 256-lane row, ref loaded once
 # per row and applied to the W workers from registers; the row's max (int8)
 # or kth-largest magnitude (top-k, a bitwise search) never leaves the warp.
+# p's workers may lie a stride apart (the hierarchy's level-2 pod rows).
 _MAX_EF_LANES = 1024
 
 
 def _ef(name: str, mode: int, k: int, p: torch.Tensor,
         ref: Optional[torch.Tensor], e: Optional[torch.Tensor],
-        out: Optional[torch.Tensor]):
-    _check(name, p, p=p, ref=ref, e=e, out=out)
+        out: Optional[torch.Tensor], grid: bool = False):
+    _check(name, p, grid=grid, strided=() if grid else ("p",), p=p, ref=ref,
+           e=e, out=out)
+    stride = p[0, 0].numel() if grid else _worker_stride(name, p)
     _same_shape(name, p, e=e, out=out)
-    if ref is not None and tuple(ref.shape) != tuple(p.shape[1:]):
+    if grid and ref is not None:
+        _pod_shape(name, p, ref=ref)
+    elif ref is not None and tuple(ref.shape) != tuple(p.shape[1:]):
         raise ValueError(f"{name}: ref {tuple(ref.shape)} is not one worker "
                          f"of p {tuple(p.shape)}")
     if out is not None and e is not None and out.data_ptr() == e.data_ptr():
@@ -502,8 +524,8 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
     if mode == 1 and k < 1:
         raise ValueError(f"{name}: k must be >= 1, got {k}")
     if p.device.type == "cpu":
-        dec, res = (tu.fused_ef_int8(p, ref, e) if mode == 0 else
-                    tu.fused_ef_topk(p, ref, e, k=k))
+        dec, res = getattr(tu, name)(p, ref, e,
+                                     **({"k": k} if mode == 1 else {}))
         out = dec if out is None else out.copy_(dec)
         if e is not None:
             e.copy_(res)
@@ -512,13 +534,14 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
         raise ValueError(f"{name}: the kernel takes rows of at most "
                          f"{_MAX_EF_LANES} lanes, got {p.shape[-1]}")
     if out is None:
-        out = torch.empty_like(p)
+        out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     lib = _comm_lib()
-    w, r, c = p.shape
+    pods, dper = p.shape[:2] if grid else (1, p.shape[0])
+    r, c = p.shape[-2:]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_ef(p.data_ptr(), _ptr(ref), _ptr(e),
-                               out.data_ptr(), mode, int(k), w, r, c,
-                               _stream(p))
+                               out.data_ptr(), mode, int(k), pods, dper, r,
+                               c, stride, _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return out, e
@@ -533,7 +556,9 @@ def fused_ef_int8(p: torch.Tensor, ref: Optional[torch.Tensor],
     compression); ``e``: the (W, R, C) residual, or None (error feedback
     off), updated in place to resid' = payload − dec.  ``out``: the (W, R,
     C) fp32 buffer that receives dec (new when None; it may be ``p``
-    itself).  Returns (dec, e).  ``block`` is accepted and ignored.
+    itself).  ``p``'s (R, C) worker slices may lie a stride apart (a view
+    ``params[:, 0]`` of a (P, D, R, C) buffer); ``e`` and ``out`` are
+    contiguous.  Returns (dec, e).  ``block`` is accepted and ignored.
     """
     del block
     return _ef("fused_ef_int8", 0, 0, p, ref, e, out)
@@ -547,6 +572,36 @@ def fused_ef_topk(p: torch.Tensor, ref: Optional[torch.Tensor],
     ``fused_ef_int8``."""
     del block
     return _ef("fused_ef_topk", 1, k, p, ref, e, out)
+
+
+# Replaces repro/kernels/vrl_update.py:698 _ef_call, grid form (Pallas,
+# TPU): fused_ef_int8_grid (:762) and fused_ef_topk_grid (:769).  Bound:
+# device-memory bandwidth — reads p and e (P·D·R·C each) and ref (P·R·C)
+# once, writes dec and e: at (P, D) = (2, 2) and the main path's rows, 18
+# R·C buffers, 35.6 GB (the bytes of fused_sync_hier1).  Design
+# (csrc/comm_update.cu, the flat form's kernel): one warp owns a (pod,
+# row), loads that pod's ref row into registers once and walks the pod's D
+# workers with it, so ref is read once per pod, never D times (what the
+# Pallas index map (pi, 0, i, 0) buys on the TPU); the row statistics are
+# the flat form's.
+def fused_ef_int8_grid(p: torch.Tensor, ref: Optional[torch.Tensor],
+                       e: Optional[torch.Tensor], *, block: int = 0,
+                       out: Optional[torch.Tensor] = None):
+    """Pod-major int8 EF round trip: p, e, out (P, D, R, C) fp32, ref the
+    (P, 1, R, C) per-pod reference broadcast over each pod's D workers (or
+    None); otherwise the contract of ``fused_ef_int8``.  Returns (dec,
+    e)."""
+    del block
+    return _ef("fused_ef_int8_grid", 0, 0, p, ref, e, out, grid=True)
+
+
+def fused_ef_topk_grid(p: torch.Tensor, ref: Optional[torch.Tensor],
+                       e: Optional[torch.Tensor], *, k: int, block: int = 0,
+                       out: Optional[torch.Tensor] = None):
+    """Pod-major top-k EF round trip; the operand contract of
+    ``fused_ef_int8_grid``."""
+    del block
+    return _ef("fused_ef_topk_grid", 1, k, p, ref, e, out, grid=True)
 
 
 # Replaces repro/kernels/vrl_update.py:476 _fold_call (Pallas, TPU):

@@ -16,13 +16,18 @@ so there is no moment buffer and no ``--moment-dtype``).  ``--compress``
 sends every sync's payload drift through an EF-compressed round trip
 (int8 or top-k); ``--overlap`` opens each round with the worker mean of
 the previous boundary's positions and folds it in one round stale (the
-tail then takes local steps only, as in the reference).
+tail then takes local steps only, as in the reference); ``--deadline``
+makes each participant of an overlapped fold miss its capture with that
+probability (the reference's draws).
 
 hier_vrl_sgd (``--pods P --k1 A --k2 B``) splits the W workers into a
 pod-major P × W/P grid: rounds are k1 long and close with the intra-pod
 sync1, plus the cross-pod sync2 every k2 steps (k2 a multiple of k1);
 the tail runs step by step on the same two-level cadence.  Under
 ``--overlap`` only the cross-pod level is deferred, sync1 stays blocking.
+``--compress`` compresses both levels, ``--compress2`` overrides level 2
+(the slow cross-pod tier), and the log holds each level's Σ Δ against
+the term its syncs move it by.
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The log lines are the
@@ -38,7 +43,8 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --workers 4 --steps 8 --batch 2 --seq 32 \\
-      --lr 0.05 --algorithm hier_vrl_sgd --pods 2 --k1 2 --k2 4 --overlap
+      --lr 0.05 --algorithm hier_vrl_sgd --pods 2 --k1 2 --k2 4 --overlap \\
+      --compress int8 --compress2 topk:32 --deadline 0.25
 
 The inner optimizers beyond sgd (momentum, Adam with fp32 or bf16
 moments, SM3-factored Adam, ``EngineConfig.shards``) run through
@@ -46,10 +52,8 @@ moments, SM3-factored Adam, ``EngineConfig.shards``) run through
 reference CLI trains with sgd only, so its ``--sm3`` and
 ``--moment-dtype`` change nothing there and are not flags here.
 
-Not ported yet (ROADMAP Queue 1): the hierarchy's compressed syncs
-(``--compress`` with hier_vrl_sgd, and ``--compress2``: they exit "not
-ported"), overlap deadlines (``--deadline``), membership and faults,
-client sampling, checkpoints, diagnostics and telemetry, meshes.
+Not ported yet (ROADMAP Queue 1): membership and faults, client
+sampling, checkpoints, diagnostics and telemetry, meshes.
 """
 from __future__ import annotations
 
@@ -87,8 +91,16 @@ class TrainResult(NamedTuple):
     ef_identity: List[tuple]    # blocking compression with Δ and EF: (step,
                                 # max|Σ_i (e_i − e'_i)|/(kγ), max|ΣΔ' − ΣΔ
                                 # − that term|) for each logged round
+    level_terms: List[dict]     # hier: for each logged round and level whose
+                                # Δ sum its syncs move by a known term (EF
+                                # under blocking compression, the deadline
+                                # fold's Σ_p c_p/(pend_k γ)): {step, level,
+                                # kind, term, off, limit}
+    misses: List[tuple]         # deadline: (step, miss mask, pend_k after)
+                                # per fold, over workers (hier: pods)
     param_max: List[tuple]      # (step, max|params|) at each log line
-    wall_s: float               # training wall time (set-up excluded)
+    wall_s: float               # training wall time (set-up and the log's
+                                # checks between rounds excluded)
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
     round_peak_bytes: int       # CUDA only: most device memory allocated
                                 # during a round (0 on the CPU)
@@ -125,6 +137,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "transmitted positions, so it can run while the "
                          "round's local steps do, and fold the one-round-"
                          "stale mean in at the end")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="straggler deadline: per-round probability in "
+                         "[0, 1] that a participant misses its capture "
+                         "(simulated), keeps its last transmitted position "
+                         "and, under compressed sync, parks the missed "
+                         "payload in its EF residual.  Requires --overlap.")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
     ap.add_argument("--workers", type=int, default=4)
@@ -155,6 +173,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "0 = off) and print its busiest operations and "
                          "the device-busy share of the round")
     args = ap.parse_args(argv)
+    if not 0.0 <= args.deadline <= 1.0:
+        raise SystemExit(f"--deadline is a probability in [0, 1], got "
+                         f"{args.deadline}")
     if args.k1 < 0 or args.k2 < 0:
         raise SystemExit(f"--k1/--k2 must be >= 1 (0 = default), got "
                          f"{args.k1}/{args.k2}")
@@ -209,7 +230,8 @@ def vrl_config(args: argparse.Namespace) -> VRLConfig:
                      learning_rate=args.lr, warmup=args.warmup,
                      bvr_beta=args.bvr_beta, comm_schedule=sched,
                      compress=comps[0], compress2=comps[1],
-                     overlap=args.overlap, hier=hier,
+                     overlap=args.overlap, deadline=args.deadline,
+                     hier=hier,
                      engine=EngineConfig(block=args.block))
 
 
@@ -255,16 +277,11 @@ def run(argv=None) -> TrainResult:
     if args.overlap:
         print("overlap: sync worker mean taken at round start (one-round-"
               "stale fold at the boundary"
-              + ("; cross-pod sync2 only, sync1 blocking)" if hier else ")"))
-    comp = eng.compressors[0]
-    if comp is not None:
-        item = flat.dtype_of(es.dtype).itemsize
-        raw = comm_mod.raw_bytes(es.rows, es.lanes, item)
-        wire = comm_mod.wire_bytes(comp, rows=es.rows, lanes=es.lanes,
-                                   size=es.size, itemsize=item)
-        print(f"compress: {comm_mod.describe_pair(eng.compressors)} — sync "
-              f"wire {wire/2**20:.2f} MiB ({raw/wire:.1f}x) vs raw "
-              f"{raw/2**20:.2f} MiB per worker payload")
+              + ("; cross-pod sync2 only, sync1 blocking" if hier else "")
+              + (f"), deadline: miss prob {args.deadline}" if args.deadline
+                 else ")"))
+    if any(c is not None for c in eng.compressors):
+        print(wire_banner(eng.compressors, es, state))
 
     assignment = contiguous_assignment(args.workers, args.workers)
     data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
@@ -289,8 +306,11 @@ def run(argv=None) -> TrainResult:
     param_max: List[tuple] = []
     # blocking compression moves Σ_i Δ_i by design: x̂ − mean_i p_i =
     # mean_i(e_i − e'_i), so each sync adds Σ_i (e_i − e'_i)/(k_eff γ)
-    ef_log = (comp is not None and comp.error_feedback and not args.overlap
-              and isinstance(state.delta, torch.Tensor))
+    comp = eng.compressors[0]
+    ef_log = (hier is None and comp is not None and comp.error_feedback
+              and not args.overlap and isinstance(state.delta, torch.Tensor))
+    level_terms: List[dict] = []
+    misses: List[tuple] = []
 
     if hier is None:
         sums = (("delta", "max|sum_i delta_i|", 0, invariant),
@@ -331,7 +351,13 @@ def run(argv=None) -> TrainResult:
     k_round = hier.k1 if hier is not None else args.k
     cuda = device.type == "cuda"
     round_peak = 0
-    t0 = time.time()
+    # the steps' own time: the log's checks between rounds are not training
+    wall = 0.0
+
+    def clock() -> float:
+        if cuda:
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
     t, r = 0, 0
     while t < args.steps:
         if sched is not None:
@@ -345,17 +371,19 @@ def run(argv=None) -> TrainResult:
             # buffer, so the tail takes local steps only (its steps would
             # fold at a next boundary, which never comes)
             step_fn = bundle.local_step if args.overlap else bundle.train_step
+            t1 = clock()
             while t < args.steps:
                 toks = tokens(data[t])
                 labels = torch.roll(toks, -1, dims=-1)
                 state, loss = step_fn(state, toks, labels)
                 step_losses.append(loss[None])
                 t += 1
+            wall += clock() - t1
             el = float(eval_avg(state, toks, labels))
             avg_losses.append(el)
             print(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
                   f"avg_model_loss {el:.4f}  "
-                  f"({(time.time()-t0)/t:.2f}s/step)")
+                  f"({wall / t:.2f}s/step)")
             log_invariant(state, t)
             break
         toks = tokens(data[t:t + rk])
@@ -364,33 +392,48 @@ def run(argv=None) -> TrainResult:
                   or t + rk >= args.steps)
         before = ((state.delta.sum(dim=0), state.comm.resid.sum(dim=0))
                   if ef_log and logged else None)
+        watch = (level_watch(eng, hier, state, rk, args.lr, args.deadline)
+                 if hier is not None and logged else None)
         if cuda:
             # the round's own peak: the checks between rounds make
             # temporaries of their own
             torch.cuda.reset_peak_memory_stats(device)
+        t1 = clock()
         if r + 1 == args.profile_round:
             state, losses = profiled_round(bundle, state, toks, labels,
                                            device)
         else:
             state, losses = bundle.round_step(state, toks, labels)
+        wall += clock() - t1
         if cuda:
             round_peak = max(round_peak,
                              torch.cuda.max_memory_allocated(device))
         step_losses.append(losses)
         t += rk
         r += 1
+        if args.deadline and state_folded(state, t):
+            ov = state.overlap
+            mask = eng.misses(t, ov.pend_k.shape[0]).ravel().tolist()
+            pend_k = ov.pend_k.flatten().tolist()
+            misses.append((t, mask, pend_k))
+            print(f"deadline: fold at step {t}: misses {mask}, pend_k "
+                  f"{pend_k}")
         if logged:
             el = float(eval_avg(state, toks[-1], labels[-1]))
             avg_losses.append(el)
             print(f"step {t:5d} (round {r})  "
                   f"local_loss {float(losses.mean()):.4f}  "
                   f"avg_model_loss {el:.4f}  "
-                  f"({(time.time()-t0)/t:.2f}s/step)")
+                  f"({wall / t:.2f}s/step)")
             log_invariant(state, t)
             if before is not None:
                 log_ef_identity(before, state, t, rk)
+            for rec in (watch(state, t) if watch is not None else ()):
+                level_terms.append(rec)
+                print(f"             {rec['level']} {rec['kind']} term "
+                      f"{rec['term']:.3e}  max|sum move - term| "
+                      f"{rec['off']:.3e} (limit {rec['limit']:.3e})")
     losses_host = torch.cat(step_losses).tolist()
-    wall = time.time() - t0
     print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)"
           + (f", round peak memory {round_peak / 2**30:.2f} GiB"
              if cuda else ""))
@@ -404,9 +447,111 @@ def run(argv=None) -> TrainResult:
     return TrainResult(state=state, engine=eng, losses=losses_host,
                        avg_model_losses=avg_losses, invariant=invariant,
                        bias_invariant=bias_invariant,
-                       ef_identity=ef_identity, param_max=param_max,
+                       ef_identity=ef_identity, level_terms=level_terms,
+                       misses=misses, param_max=param_max,
                        wall_s=wall, phases_ms=phases,
                        round_peak_bytes=round_peak)
+
+
+def state_folded(state, t: int) -> bool:
+    """True when the round that ended at step ``t`` closed with an
+    overlapped fold (flat: every round; hier: on the k2 cadence)."""
+    if state.overlap == ():
+        return False
+    last = state.last_sync2 if hasattr(state, "last_sync2") else \
+        state.last_sync
+    return last == t
+
+
+def wire_banner(pair, es, state) -> str:
+    """The reference's compression banner: the per-level summary and one
+    sync-wire figure per distinct compressor, against the raw payload.
+    Each figure is measured: the wire arrays (``compress``) of the first
+    rows of worker 0's payload, ``rep_nbytes`` per row, times the rows the
+    wire carries; it must equal ``wire_bytes``, the count from the
+    shapes."""
+    item = flat.dtype_of(es.dtype).itemsize
+    raw = comm_mod.raw_bytes(es.rows, es.lanes, item)
+    rows = comm_mod.used_rows(es.size, es.lanes)
+    sample = state.params.reshape(-1, es.rows, es.lanes)[0, :8]
+    figures = []
+    for c in dict.fromkeys(c for c in pair if c is not None):
+        per_row = (comm_mod.rep_nbytes(comm_mod.compress(c, sample))
+                   // sample.shape[0])
+        wire = comm_mod.wire_bytes(c, rows=es.rows, lanes=es.lanes,
+                                   size=es.size, itemsize=item)
+        if per_row * rows != wire:
+            raise AssertionError(f"{c.label()}: {per_row} B/row measured "
+                                 f"x {rows} rows != wire_bytes {wire}")
+        figures.append(f"{wire/2**20:.2f} MiB ({raw/wire:.1f}x)")
+    return (f"compress: {comm_mod.describe_pair(pair)} — sync wire "
+            + " / ".join(figures)
+            + f" vs raw {raw/2**20:.2f} MiB per worker payload")
+
+
+def level_watch(eng, hcfg: HierConfig, state, rk: int, lr: float,
+                deadline: float):
+    """Before a logged hier round: for each level whose Δ sum the round's
+    syncs move by a known term, the sums it starts from (on the host, out
+    of the round's peak memory); returns what reads the round after it.
+
+    Level 1 under blocking compression with EF moves Σ_d Δ1 in every pod
+    by Σ_d (e1 − e1')/(k1 γ) (x̂_pod − mean_d p_d = mean_d(e1 − e1'));
+    level 2 the same with Σ_p (e2 − e2')/(k2 γ) at a blocking sync2, and
+    at an overlapped fold under a deadline by Σ_p c_p/(pend_k_p γ) (the
+    pods' pend_k differ once one misses).  Each move is held to 1e-4 ·
+    max|Δ| plus the fp32 rounding of the mean, 2 n ulp(max|p|)/(k γ)."""
+    c1, c2 = eng.compressors
+    pods, dper = hcfg.grid
+    step2 = state.step + rk - state.last_sync2
+    plan = []
+    if c1 is not None and c1.error_feedback:
+        plan.append(("delta1", 1, "ef", dper,
+                     max(state.step + rk - state.last_sync1, 1)))
+    if step2 >= hcfg.k2 and state.overlap == ():
+        if c2 is not None and c2.error_feedback:
+            plan.append(("delta2", 0, "ef", pods, step2))
+    elif step2 >= hcfg.k2 and deadline:
+        plan.append(("delta2", 0, "fold", pods, 1))
+    starts = []
+    for level, dim, kind, n, k in plan:
+        delta = getattr(state, level)
+        if kind == "ef":
+            # the level's residual: resid1 for Δ1, resid2 for Δ2
+            term0 = getattr(state.comm, "resid" + level[-1]).sum(
+                dim=dim).cpu()
+        else:
+            ov = state.overlap
+            inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)
+            glob = ov.pend.mean(dim=(0, 1))
+            term0 = ((glob - ov.pend) * inv[:, :, None, None]).sum(
+                dim=(0, 1)).cpu()
+            k = ov.pend_k.min().item()
+        starts.append((level, dim, kind, n, k, delta.sum(dim=dim).cpu(),
+                       term0, delta.abs().max().item()))
+    max_p0 = state.params.abs().max().item()
+
+    def after(state, t):
+        out = []
+        max_p = max(max_p0, state.params.abs().max().item())
+        for level, dim, kind, n, k, sum0, term0, max_d0 in starts:
+            delta = getattr(state, level)
+            dev = delta.device
+            if kind == "ef":
+                e = getattr(state.comm, "resid" + level[-1])
+                term = (term0.to(dev) - e.sum(dim=dim)) / (k * lr)
+            else:
+                term = term0.to(dev)
+            moved = delta.sum(dim=dim) - sum0.to(dev)
+            max_d = max(max_d0, delta.abs().max().item())
+            limit = (1e-4 * max_d + 2 * n * float(np.spacing(np.float32(
+                max_p))) / (k * lr))
+            out.append({"step": t, "level": level, "kind": kind,
+                        "term": term.abs().max().item(),
+                        "off": (moved - term).abs().max().item(),
+                        "limit": limit})
+        return out
+    return after
 
 
 def profiled_round(bundle, state, toks, labels, device):

@@ -47,6 +47,7 @@ from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
+from repro_torch.kernels.torch_update import sqrt_rn
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
 from repro_torch.train.loss import cross_entropy_lm
@@ -55,11 +56,12 @@ from repro_torch.train.loss import cross_entropy_lm
 def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
     """Per-worker global-norm clipping (``repro.train.train_loop``): scale
     every gradient by min(1, max_norm / max(‖g‖₂, 1e-9)), the norm taken
-    over all leaves in fp32.  ``grads``: a tree (dict) or a sequence of
-    tensors (returned as a list)."""
+    over all leaves in fp32 and its root correctly rounded (``sqrt_rn``,
+    as XLA's).  ``grads``: a tree (dict) or a sequence of tensors
+    (returned as a list)."""
     gl = tree_mod.leaves(grads) if isinstance(grads, dict) else list(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in gl))
+    gn = sqrt_rn(sum(torch.sum(torch.square(g.to(torch.float32)))
+                     for g in gl))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
     def clip(g):
@@ -199,7 +201,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
             losses.append(loss)
         if overlap:
             with span("fold"):
-                state = eng.round_fold(state, xbar)
+                state = eng.round_fold(state, xbar, out=dead_grads(state))
         else:
             with span("sync"):
                 state = eng.round_end(state, out=dead_grads(state))

@@ -601,11 +601,29 @@ def test_sync_writes_dec_over_a_dead_buffer(alg, compress):
 
 
 def test_compress2_is_refused():
-    """The hierarchy's level-2 compressor is not ported: the engine raises
-    rather than ignore it (the reference's flat algorithms ignore it)."""
+    """A flat algorithm accepts the hierarchy's level-2 compressor and
+    ignores it, as the reference's do: the engine keeps the resolved pair
+    (so ``pair_meta`` of the engine and of the config agree with the
+    reference's) and runs bitwise the run without it."""
+    import dataclasses
     tj, tt = templates()
-    for c2 in ("int8", "none"):
-        _, ct = engine_cfgs("vrl_sgd", "int8",
-                            compress2=tcc.parse_compressor(c2))
-        with pytest.raises(NotImplementedError, match="compress2"):
-            teng.make_engine(ct, tt)
+    cj0, ct0 = engine_cfgs("vrl_sgd", "int8")
+    p0 = from_numpy(jax.tree.map(np.asarray, params0()))
+    runs = []
+    for c2 in (None, "int8", "none", "topk:4"):
+        cj, ct = cj0, ct0
+        if c2 is not None:
+            cj = dataclasses.replace(cj0, compress2=jcc.parse_compressor(c2))
+            ct = dataclasses.replace(ct0, compress2=tcc.parse_compressor(c2))
+        et, ej = teng.make_engine(ct, tt), jeng.make_engine(cj, tj)
+        assert et.compressors == tcc.resolve_pair(ct)
+        assert tcc.pair_meta(et.compressors) == tcc.pair_meta(ct) \
+            == jcc.pair_meta(ej.compressors)
+        st = et.init(p0, EW)
+        for t in range(9):
+            st = et.train_step(st, torch.from_numpy(grad_buf(et.spec, t)))
+        runs.append(st)
+    for st in runs[1:]:
+        for a, b in ((runs[0].params, st.params), (runs[0].delta, st.delta),
+                     (runs[0].comm.resid, st.comm.resid)):
+            assert torch.equal(a, b)

@@ -20,7 +20,11 @@ wd 0 and non-zero, several k_eff, the fold with and without capture and
 the miss mask all 0, all 1 and mixed over the pods; SM3-factored Adam
 (flat and hierarchical) over S ∈ {1, 2, 5} lane-stat spans (flat; {1, 2}
 hier), with rows holding a planted NaN compared NaN for NaN, and the
-hierarchy's momentum (nesterov on and off) and dense Adam steps.
+hierarchy's momentum (nesterov on and off) and dense Adam steps; the
+hierarchy's EF round trips (grid form, a (P, 1, R, C) ref per pod) over
+the four grids, int8 and top-k, with rows holding a NaN compared NaN for
+NaN, and the flat round trip on the strided pod rows ``params[:, 0]``
+that level 2 compresses.
 """
 import numpy as np
 import pytest
@@ -478,3 +482,67 @@ def test_cuda_kernels_hier_local_adam_sm3_bitwise(mdt, wd, shards, grid):
                         p.clone(), g, d1, d2, mu.clone(), row.clone(), col,
                         scal, lr=1e-3, wd=wd))
     _assert_equal(got, want)
+
+
+# ------------------------------- the hierarchy's EF round trips (grid form)
+EF_GRID_MODES = ["int8", "topk:8", "topk:64", "topk:256"]
+
+
+def _grid_ef_inputs(seed, grid, dev):
+    """p (P, D, r, C) with the special rows and a NaN row in every worker,
+    ref (P, 1, r, C), e (P, D, r, C)."""
+    pp, dd, r = grid
+    rng = np.random.RandomState(seed)
+    p = _special_rows(rng.randn(pp * dd, r, C).astype(np.float32))
+    p[:, 5, 7] = np.nan
+    ref = 0.1 * rng.randn(pp, 1, r, C).astype(np.float32)
+    e = 0.01 * rng.randn(pp, dd, r, C).astype(np.float32)
+    return (torch.from_numpy(p.reshape(pp, dd, r, C)).to(dev),
+            torch.from_numpy(ref).to(dev), torch.from_numpy(e).to(dev))
+
+
+def _ef_name(mode, grid=True):
+    name = "fused_ef_int8" if mode == "int8" else "fused_ef_topk"
+    kw = {} if mode == "int8" else {"k": int(mode.split(":")[1])}
+    return name + ("_grid" if grid else ""), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", EF_GRID_MODES)
+@pytest.mark.parametrize("use_ref,use_e", [(False, False), (False, True),
+                                           (True, False), (True, True)])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_ef_grid_bitwise(mode, use_ref, use_e, grid):
+    """Bitwise the plain version, NaN rows NaN for NaN; ref is the pod's,
+    read once per pod; out= and e in place."""
+    dev = _cuda_or_skip()
+    p, ref, e = _grid_ef_inputs(31, grid, dev)
+    ref = ref if use_ref else None
+    e = e if use_e else None
+    name, kw = _ef_name(mode)
+    want = getattr(tu, name)(p, ref, e, **kw)
+    e2 = None if e is None else e.clone()
+    out = torch.empty_like(p)
+    got = _launched(name, lambda: getattr(tvu, name)(p, ref, e2, out=out,
+                                                     **kw))
+    assert got[0] is out and (got[1] is e2)
+    _equal_nan([x for x in got if x is not None],
+               [x for x in want if x is not None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "topk:8"])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_cuda_kernels_ef_flat_on_pod_rows(mode, grid):
+    """Level 2's round trip: the flat kernel over the strided pod rows
+    params[:, 0] of a (P, D, R, C) buffer, with a shared (R, C) ref and the
+    contiguous resid2[:, 0], bitwise the plain version on a copy."""
+    dev = _cuda_or_skip()
+    p, ref, e = _grid_ef_inputs(32, grid, dev)
+    pod, ref2, e2 = p[:, 0], ref[0, 0], e[:, :1].clone()
+    name, kw = _ef_name(mode, grid=False)
+    want = getattr(tu, name)(pod.contiguous(), ref2, e2[:, 0].clone(), **kw)
+    got = _launched(name, lambda: getattr(tvu, name)(pod, ref2, e2[:, 0],
+                                                     **kw))
+    _equal_nan(got, want)
+    _equal_nan([e2[:, 0]], [want[1]])

@@ -133,8 +133,8 @@ def test_should_sync_matches_reference(warmup):
 
 def test_specs_and_unported_algorithms():
     """Every algorithm of the reference is ported, the hierarchy with every
-    inner optimizer; what it does not run yet — its compressed syncs —
-    raises, naming ROADMAP."""
+    inner optimizer and with its compressed syncs: nothing raises
+    NotImplementedError."""
     for name in teng.ALGO_SPECS:
         assert tuple(teng.get_spec(name)) == tuple(jeng.get_spec(name)), name
     assert set(teng.ALGO_SPECS) == set(jeng.ALGO_SPECS)
@@ -146,11 +146,11 @@ def test_specs_and_unported_algorithms():
         assert teng.make_engine(TVRL(algorithm="hier_vrl_sgd",
                                      inner_optimizer=inner),
                                 template_t).grid == (2, 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.make_engine(TVRL(algorithm="hier_vrl_sgd",
-                                  inner_optimizer=inner,
-                                  compress=tcc.parse_compressor("int8")),
-                             template_t)
+        eng = teng.make_engine(TVRL(algorithm="hier_vrl_sgd",
+                                    inner_optimizer=inner,
+                                    compress=tcc.parse_compressor("int8")),
+                               template_t)
+        assert eng.compressors == (tcc.parse_compressor("int8"),) * 2
 
 
 def test_tree_grads_equal_flat_grads(setup):

@@ -31,8 +31,10 @@
   (moments at the Δ standard, nu and the stats rtol 1e-4, bf16 to 1e-3),
   overlapped Adam rounds, and the reference's composition case (bf16 +
   SM3, shards = 2) to 1e-3.
-* Refusals: compress, compress2, deadline (not ported: NotImplementedError
-  naming ROADMAP), k2 % k1 for rounds, wrong worker count (ValueError).
+* Refusals: what the reference refuses — a deadline without overlap,
+  k2 % k1 for rounds, wrong worker count (ValueError); compress,
+  compress2 and deadlines build (their runs: ``tests/test_torch_hier_
+  compress.py``, ``tests/test_torch_deadline.py``).
 * Train loop: rounds from the same parameters (wq, wk × 0.1, see
   ``tests/test_torch_train.py``) on the reference's token stream, blocking
   and overlapped, against the JAX ``make_train_step``: losses rtol 1e-5,
@@ -708,21 +710,22 @@ def test_refusals():
 
     def build(k1=2, k2=4, **over):
         return teng.make_engine(_cfgs(k1, k2, **over)[1], tt)
-    # the inner optimizers build (their runs: test_engine_inner_*); what
-    # stays refused is the compressed syncs and deadlines
+    # the inner optimizers, the compressed syncs and deadlines build (their
+    # runs: test_engine_inner_*, test_torch_hier_compress.py,
+    # test_torch_deadline.py); what stays refused is the reference's
     for inner in ("momentum", "adam"):
         assert build(inner_optimizer=inner).grid == GRID
-    with pytest.raises(NotImplementedError, match="grid EF kernels"):
-        build(inner_optimizer="adam", sm3=True,
-              compress=tcc.parse_compressor("topk:4"))
-    with pytest.raises(NotImplementedError, match="grid EF kernels"):
-        build(compress=tcc.parse_compressor("int8"))
-    with pytest.raises(NotImplementedError, match="compress2"):
-        build(compress2=tcc.parse_compressor("topk:4"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(overlap=True, deadline=0.5)
+    topk, int8 = tcc.parse_compressor("topk:4"), tcc.parse_compressor("int8")
+    assert build(inner_optimizer="adam", sm3=True,
+                 compress=topk).compressors == (topk, topk)
+    assert build(compress=int8).compressors == (int8, int8)
+    assert build(compress2=topk).compressors == (None, topk)
+    assert build(overlap=True, deadline=0.5).misses(4, 2).shape == (2, 1)
     with pytest.raises(ValueError, match="deadline"):
         build(deadline=0.5)
+    with pytest.raises(ValueError, match="error.feedback|residual"):
+        build(overlap=True, deadline=0.5,
+              compress2=tcc.parse_compressor("int8:noef"))
     eng = build(k1=2, k2=5)
     st = eng.init(from_numpy(jax.tree.map(np.asarray, params0())), 6)
     g = torch.from_numpy(_grid_buf(eng.spec, 1))

@@ -18,7 +18,7 @@
 * ``overlap=False`` is the blocking round bitwise and adds no buffers; the
   per-step ``train_step`` stays blocking under overlap, as in the
   reference; the reference's overlap validations raise in the port too,
-  and ``deadline > 0`` (not ported) raises NotImplementedError.
+  and a valid deadline builds (its runs: ``tests/test_torch_deadline.py``).
 """
 import pytest
 
@@ -218,8 +218,7 @@ def test_train_step_stays_blocking_and_round_step_takes_trees():
 
 def test_overlap_validation_and_unported_deadline():
     """The reference's refusals raise in the port too; a valid deadline
-    raises NotImplementedError (the port cannot draw the reference's
-    jax.random misses)."""
+    builds in both packages, the port drawing the reference's misses."""
     tj, tt = templates()
     for alg, over, exc, match in [
             ("ssgd", {}, ValueError, "overlap"),
@@ -238,6 +237,8 @@ def test_overlap_validation_and_unported_deadline():
     with pytest.raises(ValueError, match="error.feedback|residual"):
         teng.make_engine(ct, tt)
     for d in (0.5, 1.0):
-        _, ct = cfgs("vrl_sgd", "int8", deadline=d)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.make_engine(ct, tt)
+        cj, ct = cfgs("vrl_sgd", "int8", deadline=d)
+        jeng.make_engine(cj, tj)
+        et = teng.make_engine(ct, tt)
+        assert et.misses(8, W).shape == (W, 1)
+        assert et.misses(8, W).all() == (d == 1.0)

@@ -185,11 +185,21 @@ def test_launch_train_needs_cuda_without_device_flag():
 
 
 def test_launch_train_refuses_unported_algorithm():
-    """hier_vrl_sgd is ported; its compressed syncs (the grid EF kernels)
-    are not, and the CLI exits naming them."""
-    with pytest.raises(SystemExit, match="not ported"):
-        t_launch.run(["--smoke", "--device", "cpu", "--algorithm",
-                      "hier_vrl_sgd", "--compress", "int8", "--steps", "1"])
+    """Every algorithm and option of the core flags is ported: hier_vrl_sgd
+    runs with ``--compress`` (its runs: ``tests/test_torch_hier_compress
+    .py``); what the CLI refuses is what the reference's refuses —
+    ``--compress2`` without the hierarchy, a deadline outside [0, 1], a
+    deadline without overlap."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "1", "--workers", "2",
+            "--batch", "1", "--seq", "8"]
+    res = t_launch.run(argv + ["--algorithm", "hier_vrl_sgd", "--pods", "1",
+                               "--compress", "int8"])
+    assert res.engine.compressors[0].name == "int8"
+    for bad, why in ((["--compress2", "int8"], "--compress2"),
+                     (["--overlap", "--deadline", "-0.1"], "--deadline"),
+                     (["--deadline", "0.5"], "overlap")):
+        with pytest.raises(SystemExit, match=why):
+            t_launch.run(argv + bad)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -293,6 +303,30 @@ def test_clip_by_global_norm_matches_reference():
         as_list = t_clip([torch.from_numpy(tree["a"]),
                           torch.from_numpy(tree["b"]["c"])], max_norm)
         assert torch.equal(as_list[0], got["a"])
+
+
+def test_clip_root_is_bitwise_reference():
+    """The global norm's root is correctly rounded (``sqrt_rn``), as XLA's
+    is: on equal sums of squares (two-element trees, whose a² + b² both
+    packages round alike) every clipped value is bitwise the reference's,
+    for 400 norms over twelve decades (the CPU ``torch.sqrt`` of torch
+    2.13 misses 6 of them).  Over many elements the two packages sum the
+    squares in other orders, so there the norm stays a tolerance matter
+    (``test_clip_by_global_norm_matches_reference``)."""
+    from repro.train.train_loop import clip_by_global_norm as j_clip
+    from repro_torch.train.train_loop import clip_by_global_norm as t_clip
+    rng = np.random.RandomState(11)
+    g = (np.exp(rng.uniform(-14.0, 14.0, (400, 2)))
+         * np.sign(rng.randn(400, 2))).astype(np.float32)
+    # one tree per call, as the train loop clips one worker's gradients
+    # (XLA's vectorised sqrt over a vmapped batch is not correctly rounded)
+    want = np.stack([np.asarray(j_clip({"a": jnp.asarray(x)}, 1.0)["a"])
+                     for x in g])
+    got = np.stack([t_clip({"a": torch.from_numpy(g[i])}, 1.0)["a"].numpy()
+                    for i in range(len(g))])
+    # the root decides the scale wherever the norm exceeds 1
+    assert (np.hypot(g[:, 0], g[:, 1]) > 1.0).sum() > 150
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("alg", ["local_sgd", "ssgd", "easgd", "stl_sgd",
