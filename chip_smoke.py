@@ -10,9 +10,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, as is a directory without the repo's sources.
-2. build — compile every CUDA kernel of the training paths from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
-3. kernels — each of the twenty-one kernels' wrappers against its plain
+2. build — compile every CUDA kernel of the training paths and the
+   tree-update API from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, all at once).
+3. kernels — each of the twenty-three kernels' wrappers against its plain
    PyTorch version on the card, on random fp32 inputs made with numpy from
    a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
    R=1,237), over the variants: with and without Δ (and B), wd 0 and 1e-4,
@@ -52,6 +53,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
    (Adafactor factors with means, not SM3's max cover).  Last, level 2's
    flat round trips on the strided pod rows p[:, 0] of a (2, 2, R, C)
    buffer: bitwise pod by pod, timed beside their bound.
+   The tree-update API's pair, ``vrl_local_update`` and
+   ``vrl_sync_update`` (one launch per leaf), at n = 1, 105, 1000,
+   2^16 + 3, (64, 64) and (4, 130, 7), fp32 and bf16 operands, views one
+   element off 16-byte alignment, x̂ broadcast over 4 workers (stride 0)
+   and NaNs planted (NaN for NaN); then over the full-width W = 4
+   worker-stacked qwen2-0.5b tree as the per-leaf executor holds it,
+   fp32 and again with bf16 p and g: bitwise leaf by leaf, the tree call
+   (launches = the tree's leaf count) timed against its byte bound, the
+   plain versions over the tree beside it.  No single PyTorch call
+   computes either (library: none).
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -132,6 +143,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
      once one misses).
    - (o) ``--compress topk:32`` at both levels, blocking (4 steps):
      fused_ef_topk_grid 2, fused_ef_topk 1; the checks of (m).
+   - (p) vrl_sgd + sgd with ``--backend reference`` (the per-leaf
+     executor, 6 steps, k = 2, warmup: rounds of 1, 2, 2 and a one-step
+     tail) and (q) hier_vrl_sgd (2, 2) with ``--backend reference
+     --compress int8`` (8 steps), through ``launch.train``: no kernel
+     launched (the per-leaf executor runs none, as the reference's),
+     every logged loss finite, Σ_i Δ_i (for (q) each level's move by its
+     EF term) as for the flat paths.
+   - (r) vrl_sgd + sgd through the tree-update API: the per-leaf state
+     and ``grads_fn`` of ``--backend reference``, ``vrl_local_update_tree``
+     every step and ``vrl_sync_update_tree`` over the worker mean every
+     k = 2 steps, 2 rounds: vrl_local_update 4 × the leaf count,
+     vrl_sync_update 2 × it; losses finite, Σ_i Δ_i ≈ 0 after each sync.
    The CLI paths' peak memory is the most allocated during a round, as
    the train paths' is (``TrainResult.round_peak_bytes``).
    γ: the model's init rule (the reference's: fan-in taken as
@@ -181,7 +204,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
    the hierarchy's compressed syncs under the flip rules: vrl_sgd + int8
    + overlap at deadline 0.25 (W = 2), and hier (2, 2) with int8, with
    int8 / topk:4, with topk:4:noef at level 2 only (blocking) and with
-   topk:4 overlapped at deadline 0.25 (Δ1 and Δ2 over k1 γ).
+   topk:4 overlapped at deadline 0.25 (Δ1 and Δ2 over k1 γ).  The
+   per-leaf executor (``update_backend="reference"``): vrl_sgd + sgd,
+   easgd + momentum, bvr_l_sgd + adam (W = 2) and hier (2, 2) + int8
+   (W = 4), card against CPU under the same rules (int8's flip bound from
+   the CPU run's ``ef_leaf`` payloads); and the card's per-leaf executor
+   against its flat engine over one round from identical states, params
+   and Δ atol 1e-5.
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -204,6 +233,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
 FULL = (4, 1_930_240, 256)      # qwen2-0.5b flat layout at W=4
+FULL_PARAMS = 494_032_768       # qwen2-0.5b's parameters per worker
 MODERATE = ((4, 65_536), (3, 1_237))   # (W, R) at C = 256
 LR = 0.05
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -230,7 +260,9 @@ KERNEL_SOURCES = {
     "fused_hier_local_adam": ("vrl_update.cu", 871),
     "fused_hier_local_adam_sm3": ("vrl_update.cu", 927),
     "fused_ef_int8_grid": ("comm_update.cu", 762),
-    "fused_ef_topk_grid": ("comm_update.cu", 769)}
+    "fused_ef_topk_grid": ("comm_update.cu", 769),
+    "vrl_local_update": ("leaf_update.cu", 73),
+    "vrl_sync_update": ("leaf_update.cu", 91)}
 KERNELS = tuple(KERNEL_SOURCES)
 # the kernels over the (P, D, R, C) grid, timed at HIER_FULL
 HIER_KERNELS = frozenset({
@@ -239,6 +271,8 @@ HIER_KERNELS = frozenset({
     "fused_hier_local_adam", "fused_hier_local_adam_sm3",
     "fused_ef_int8_grid", "fused_ef_topk_grid"})
 HIER_FULL = (2, 2, 1_930_240, 256)      # the same W=4 as a (P, D) grid
+# the tree-update API's pair, timed over the W=4 worker-stacked tree
+LEAF_KERNELS = frozenset({"vrl_local_update", "vrl_sync_update"})
 HIER_MODERATE = ((2, 3, 4_096), (3, 2, 1_237), (4, 1, 4_096), (1, 4, 1_237))
 MAIN_LR = 1e-3
 MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
@@ -320,6 +354,15 @@ PATH_O = (HIER_ARGS + ["--steps", "4", "--compress", "topk:32"],
           {"fused_hier_local_sgd": 4, "fused_ef_topk_grid": 2,
            "fused_sync_hier1": 2, "fused_ef_topk": 1, "fused_sync_hier2": 1})
 TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
+# paths (p) and (q): the per-leaf reference executor through the CLI; it
+# launches no kernel.  (p) vrl_sgd, 6 steps, k = 2 with warmup (rounds of
+# 1, 2, 2 and a one-step tail); (q) hier_vrl_sgd (2, 2) with int8 at both
+# levels, 8 steps (every level's EF identity in the log)
+PATH_P = MAIN_ARGS[:MAIN_ARGS.index("--steps")] + [
+    "--steps", "6", "--k", "2", "--lr", str(MAIN_LR), "--warmup",
+    "--backend", "reference"]
+PATH_Q = HIER_ARGS + ["--steps", "8", "--compress", "int8", "--backend",
+                      "reference"]
 # paths (i)-(l): SM3 Adam on the flat vrl_sgd, and the hierarchy's (2, 2)
 # grid with momentum, Adam and SM3 Adam (bf16 mu), through make_train_step
 PATH_I = (dict(algorithm="vrl_sgd", inner_optimizer="adam", sm3=True,
@@ -540,7 +583,8 @@ INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
            "fused_hier_local_momentum": (0, 4),
            "fused_hier_local_adam": (0, 4, 5),
            "fused_hier_local_adam_sm3": (0, 4, 5),
-           "fused_ef_int8_grid": (2,), "fused_ef_topk_grid": (2,)}
+           "fused_ef_int8_grid": (2,), "fused_ef_topk_grid": (2,),
+           "vrl_local_update": (), "vrl_sync_update": ()}
 
 
 def kg_scal(k_eff, dev):
@@ -1126,9 +1170,15 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     logged = res.losses + res.avg_model_losses
     if not all(math.isfinite(x) for x in logged):
         raise AssertionError(f"path {tag}: non-finite loss {logged}")
-    spec = res.engine.spec
-    if (spec.size, spec.rows, spec.lanes) != (494_032_768, 1_930_240, 256):
-        raise AssertionError(f"unexpected flat layout {spec.meta()}")
+    if res.engine is None:
+        # the per-leaf executor: the tree's elements per worker
+        n = sum(x.numel() for x in tm_leaves(res.state.params))
+        if n != 4 * FULL_PARAMS:
+            raise AssertionError(f"path {tag}: the tree holds {n} elements")
+    elif (res.engine.spec.size, res.engine.spec.rows,
+          res.engine.spec.lanes) != (494_032_768, 1_930_240, 256):
+        raise AssertionError(f"unexpected flat layout "
+                             f"{res.engine.spec.meta()}")
     if grid is not None:
         note = "; " + hier_sums(tag, res, grid)
         if misses is not None:
@@ -1158,6 +1208,11 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     del res
     free()
     return out
+
+
+def tm_leaves(tree):
+    from repro_torch import tree as tm
+    return tm.leaves(tree)
 
 
 def hier_sums(tag, res, grid) -> str:
@@ -1836,6 +1891,375 @@ def comm_small_input(dev, cfg, params, slices):
               flush=True)
 
 
+# ------------------------------------------- the per-leaf pair (tree API)
+LEAF_MODERATE = [(1,), (105,), (1000,), (2 ** 16 + 3,), (64, 64),
+                 (4, 130, 7)]
+LEAF_DTYPES = [(torch.float32,) * 3,
+               (torch.bfloat16, torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.float32, torch.bfloat16)]
+LEAF_K, LEAF_LR = 3, 0.07       # the sync's inv_kg = 1/(k·γ)
+
+
+def leaf_inputs(seed, shape, dts, dev, offset=0, nan=False):
+    """Three operands of ``shape`` in the dtypes ``dts`` from numpy; with
+    ``offset`` each a view one element into its buffer (not 16-byte
+    aligned); with ``nan`` a NaN planted in each."""
+    rng = np.random.RandomState(seed)
+    n = math.prod(shape)
+    out = []
+    for i, dt in enumerate(dts):
+        x = rng.randn(n + offset).astype(np.float32)
+        if nan:
+            x[offset + (7 * i) % n] = np.nan
+        out.append(torch.from_numpy(x).to(dev).to(dt)[offset:].view(shape))
+    return out
+
+
+def leaf_moderate_checks(chk, dev) -> int:
+    """Phase 3 for the per-leaf pair: ragged sizes (n = 1, 105, 1000,
+    2^16 + 3) and the tests' shapes, fp32 and bf16 operands (Δ rounded to
+    p's dtype in the local kernel), views one element off 16-byte
+    alignment, x̂ of p's shape and x̂ broadcast over a worker axis (stride
+    0, not materialised), and NaNs planted in every operand (NaN for
+    NaN).  Returns the number of checks."""
+    inv_kg = 1.0 / (LEAF_K * LEAF_LR)
+    n0 = chk.count
+    for seed, shape in enumerate(LEAF_MODERATE):
+        for dts in LEAF_DTYPES:
+            for offset in (0, 1):
+                tag = f"({shape}, {[str(d)[6:] for d in dts]}, +{offset})"
+                p, g, d = leaf_inputs(seed, shape, dts, dev, offset)
+                chk.run("vrl_local_update", (p, g, d), tag, lr=0.03)
+                chk.run("vrl_sync_update", (p, g, d), tag, inv_kg=inv_kg)
+            p, g, d = leaf_inputs(seed, (4,) + shape, dts, dev)
+            xb = leaf_inputs(seed + 50, shape, dts[1:2], dev)[0]
+            chk.run("vrl_sync_update", (p, xb, d),
+                    f"(4 workers x {shape}, x̂ broadcast)", inv_kg=inv_kg)
+            if math.prod(shape) >= 105:
+                p, g, d = leaf_inputs(seed, shape, dts, dev, nan=True)
+                chk.run("vrl_local_update", (p, g, d), f"({shape}, NaN)",
+                        nan=True, lr=0.03)
+                chk.run("vrl_sync_update", (p, g, d), f"({shape}, NaN)",
+                        nan=True, inv_kg=inv_kg)
+    return chk.count - n0
+
+
+def leaf_cost(n, m, local, item=(4, 4, 4)):
+    """Bytes and fp32 operations of one tree call over n worker elements
+    (m = n/W x̂ elements): local reads p, g, Δ and writes p' (sub, mul,
+    sub); sync reads p, Δ and x̂ once and writes p', Δ' (sub, mul, add).
+    ``item``: the bytes of p, g (x̂), Δ."""
+    ip, ig, idl = item
+    if local:
+        return n * (2 * ip + ig + idl), 3 * n
+    return n * (2 * ip + 2 * idl) + m * ig, 3 * n
+
+
+def leaf_full_width(chk, vu, tu, dev):
+    """Phase 3 at full width: the W = 4 worker-stacked qwen2-0.5b tree as
+    the per-leaf executor holds it (494,032,768 parameters per worker,
+    built from the seed), fp32, then p and g (and x̂) in bf16 with an fp32
+    Δ: each kernel bitwise its plain version leaf by leaf, then the
+    tree-update API call (one launch per leaf) and the plain versions over
+    the tree timed with CUDA events beside the byte bound.  Returns
+    {kernel: ms}, {kernel: plain ms}, {kernel: (bound ms, bound by)} of the
+    fp32 run."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    w = FULL[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cfg = registry.get_arch("qwen2-0.5b")
+    params = transformer.init_params(cfg, 0, device=dev)
+    p = tm.tree_map(lambda x: x.expand(w, *x.shape).clone(
+        memory_format=torch.contiguous_format), params)
+    del params
+    leaves = len(tm.leaves(p))
+    n = sum(x.numel() for x in tm.leaves(p))
+    if n != w * FULL_PARAMS:
+        raise AssertionError(f"full-width tree holds {n} elements")
+
+    def randn_like(tree, scale=1.0):
+        return tm.tree_map(lambda x: torch.randn(
+            x.shape, generator=gen, device=dev).mul_(scale), tree)
+    g, d = randn_like(p), randn_like(p, 0.01)
+    inv_kg = 1.0 / (2 * LR)
+    times, plain, bounds = {}, {}, {}
+    for label, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        pp = tm.tree_map(lambda x: x.to(dt), p)
+        gg = tm.tree_map(lambda x: x.to(dt), g)
+        xb = tm.tree_map(lambda x: x.mean(dim=0), pp)
+        paths = [path for path, _ in tm.leaves_with_path(pp)]
+        for path, a, b, c, x in zip(paths, tm.leaves(pp), tm.leaves(gg),
+                                    tm.leaves(d), tm.leaves(xb)):
+            chk.run("vrl_local_update", (a, b, c),
+                    f"full width {label} {path}", lr=LR)
+            chk.run("vrl_sync_update", (a, x, c),
+                    f"full width {label} {path}", inv_kg=inv_kg)
+        free()
+        calls = {"vrl_local_update": (
+            lambda: ops.vrl_local_update_tree(pp, gg, d, lr=LR),
+            lambda: tm.tree_map(lambda a, b, c: tu.vrl_local_update(
+                a, b, c, lr=LR), pp, gg, d)),
+            "vrl_sync_update": (
+            lambda: ops.vrl_sync_update_tree(pp, xb, d, k=2, lr=LR),
+            lambda: tm.tree_map(lambda a, x, c: tu.vrl_sync_update(
+                a, x, c, inv_kg=inv_kg), pp, xb, d))}
+        item = (dt.itemsize, dt.itemsize, 4)
+        for name, (kernel, plain_fn) in calls.items():
+            n0 = vu.LAUNCHES[name]
+            kernel()
+            torch.cuda.synchronize()
+            per_call = vu.LAUNCHES[name] - n0
+            if per_call != leaves:
+                raise AssertionError(f"{name}: {per_call} launches per tree "
+                                     f"call, the tree has {leaves} leaves")
+            t = time_ms(kernel, 10, warmup=2)
+            free()
+            tp = time_ms(plain_fn, 3)
+            free()
+            b, by = bound_ms(*leaf_cost(n, n // w,
+                                        name == "vrl_local_update", item))
+            if label == "fp32":
+                times[name], plain[name], bounds[name] = t, tp, (b, by)
+            print(f"[3 kernels] {name} over the W=4 qwen2-0.5b tree "
+                  f"({leaves} leaves, {label} p and g, fp32 Δ): {t:.3f} ms "
+                  f"per tree call of {per_call} launches (bound {b:.3f} ms "
+                  f"by {by}, {100 * b / t:.1f}% of 3.35 TB/s); plain "
+                  f"{tp:.3f} ms; bitwise the plain version leaf by leaf",
+                  flush=True)
+        del pp, gg, xb, calls
+        free()
+    del p, g, d
+    free()
+    return times, plain, bounds
+
+
+def tree_api_path(dev, vu):
+    """Path (r): VRL-SGD through the tree-update API at full width — the
+    per-leaf state of ``update_backend="reference"`` (W = 4, batch 8,
+    seq 64), its ``grads_fn`` for each step's gradients, then
+    ``vrl_local_update_tree`` every step and the worker mean plus
+    ``vrl_sync_update_tree`` every k = 2 steps, 2 rounds.  The launch
+    counters are zeroed just before and read just after: each tree call
+    launches its kernel once per leaf.  Every loss finite; Σ_i Δ_i ≈ 0
+    after every sync (1e-4 · max|Δ| plus the fp32 rounding of x̂)."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = registry.get_arch("qwen2-0.5b")
+    w, k, rounds = 4, 2, 2
+    vrl = VRLConfig(algorithm="vrl_sgd", comm_period=k, learning_rate=MAIN_LR,
+                    weight_decay=0.0, update_backend="reference")
+    bundle = make_train_step(cfg, vrl, device=dev)
+    state = bundle.init_state(0, w)
+    leaves = len(tm.leaves(state.params))
+    data = assigned_token_stream(contiguous_assignment(w, w), 64,
+                                 cfg.vocab_size, steps=k * rounds, batch=8,
+                                 alpha=0.05, seed=0)
+    vu.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, sums, t0 = [], [], time.perf_counter()
+    for t in range(k * rounds):
+        toks = torch.from_numpy(data[t]).to(dev, torch.long)
+        grads, loss = bundle.grads_fn(state, toks,
+                                      torch.roll(toks, -1, dims=-1))
+        params = ops.vrl_local_update_tree(state.params, grads, state.delta,
+                                           lr=MAIN_LR)
+        del grads
+        delta = state.delta
+        if (t + 1) % k == 0:
+            xbar = engine_mod.worker_mean(params)
+            params, delta = ops.vrl_sync_update_tree(params, xbar, delta,
+                                                     k=k, lr=MAIN_LR)
+            del xbar
+        state = state._replace(params=params, delta=delta, step=t + 1)
+        del params, delta
+        losses.append(loss.item())
+        if (t + 1) % k == 0:
+            sums.append(engine_mod.sum_invariant(state.delta)
+                        + (max(x.abs().max().item()
+                               for x in tm.leaves(state.params)),))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(vu.LAUNCHES)
+    check_launches("(r)", launches, {"vrl_local_update": k * rounds * leaves,
+                                     "vrl_sync_update": rounds * leaves})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"path (r): non-finite loss {losses}")
+    max_d = max(m for _, m, _ in sums)
+    rounding = sum(2 * w * float(np.spacing(np.float32(mp))) / (k * MAIN_LR)
+                   for _, _, mp in sums)
+    if not sums[-1][0] <= 1e-4 * max_d + rounding:
+        raise AssertionError(f"path (r): Σ_i Δ_i not ~0 after the last sync: "
+                             f"{sums}")
+    out = path_result("(r) vrl_sgd+sgd via the tree-update API", losses,
+                      wall, {}, launches, MAIN_LR)
+    print_path(out, f"; {leaves} leaves, each tree call one launch per leaf; "
+               f"max|ΣΔ| {sums[-1][0]:.3e} <= 1e-4 * max|Δ| {max_d:.3e} + "
+               f"x̂ rounding {rounding:.3e}")
+    del bundle, state
+    free()
+    return out
+
+
+def ref_small_input(dev) -> None:
+    """Phase 5 for the per-leaf executor: smoke size, the card against the
+    CPU from the same parameters (wq, wk × 0.1), through ``round_step`` of
+    ``update_backend="reference"``: vrl_sgd + sgd, easgd + momentum and
+    bvr_l_sgd + adam (W = 2, rounds of 1, 2, 2, 2), the hierarchy (2, 2)
+    at k1 = 2, k2 = 4 with int8 (W = 4, 4 rounds); losses rtol 1e-4,
+    params (center, refs, residuals) atol 1e-4, Δ and B atol 1e-4/(k·γ),
+    Adam under the Adam rule, int8 under the flip rule (at most
+    ``FLIP_CAP`` elements of a tree beyond atol, each within twice the
+    summed largest row step of the CPU run's payloads, recorded from
+    ``ef_leaf``).  Then the card's per-leaf executor against the card's
+    flat engine over one round (k = 2) from identical states: params and
+    Δ atol 1e-5 (the reference's)."""
+    from repro_torch import tree as tm
+    from repro_torch.comm import compressors as comm_mod
+    from repro_torch.comm import parse_compressor
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import HierConfig, VRLConfig
+    from repro_torch.core import get_algorithm
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.models import transformer
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = registry.smoke_arch("qwen2-0.5b")
+    params = transformer.init_params(cfg, seed=0)
+    attn = params["layers"]["attn"]
+    attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+    hier = HierConfig(k1=2, k2=4, grid=(2, 2))
+    slices = [
+        ("vrl_sgd+sgd", VRLConfig(algorithm="vrl_sgd", comm_period=2,
+                                  learning_rate=LR, warmup=True), 2,
+         (1, 2, 2, 2)),
+        ("easgd+momentum", VRLConfig(algorithm="easgd", comm_period=2,
+                                     learning_rate=LR,
+                                     inner_optimizer="momentum",
+                                     momentum=0.9), 2, (2, 2, 2)),
+        ("bvr_l_sgd+adam", VRLConfig(algorithm="bvr_l_sgd", comm_period=2,
+                                     learning_rate=1e-3, warmup=True,
+                                     inner_optimizer="adam"), 2,
+         (1, 2, 2, 2)),
+        ("hier (2, 2)+int8", VRLConfig(algorithm="hier_vrl_sgd",
+                                       learning_rate=LR, hier=hier,
+                                       compress=parse_compressor("int8")),
+         4, (2, 2, 2, 2))]
+
+    def run(vrl, w, rounds, where, data):
+        vrl = dataclasses.replace(vrl, update_backend="reference")
+        bundle = make_train_step(cfg, vrl, device=where)
+        state = get_algorithm(vrl.algorithm).init(
+            vrl, tm.tree_map(lambda x: x.to(where), params),
+            hier.grid if vrl.hier is not None else w)
+        losses, t = [], 0
+        for rk in rounds:
+            toks = torch.from_numpy(data[t:t + rk]).to(where).long()
+            state, lk = bundle.round_step(state, toks,
+                                          torch.roll(toks, -1, dims=-1))
+            losses += lk.tolist()
+            t += rk
+        return np.array(losses), state
+
+    for label, vrl, w, rounds in slices:
+        data = assigned_token_stream(contiguous_assignment(w, w), 16,
+                                     cfg.vocab_size, steps=sum(rounds),
+                                     batch=2, alpha=0.05, seed=0)
+        steps_rec = []
+        saved = comm_mod.ef_leaf
+
+        def recording(spec, payload, n_lead, lanes=256):
+            a = payload.abs().double().reshape(-1)
+            a = torch.nn.functional.pad(a, (0, (-a.numel()) % lanes))
+            rows = a.reshape(-1, lanes).amax(dim=-1)
+            steps_rec.append(float(rows.max()) / 127.0)
+            return saved(spec, payload, n_lead, lanes)
+        comm_mod.ef_leaf = recording
+        try:
+            l_c, s_c = run(vrl, w, rounds, "cpu", data)
+        finally:
+            comm_mod.ef_leaf = saved
+        l_g, s_g = run(vrl, w, rounds, dev, data)
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+        k = 2
+        flip = 2 * sum(steps_rec)
+        notes = []
+        bufs = dict(s_c._asdict())
+        if s_c.comm != ():
+            bufs.update({f"comm.{n}": v for n, v in s_c.comm._asdict().items()})
+        for name, tree_c in bufs.items():
+            tree_g = (getattr(s_g.comm, name[5:]) if name.startswith("comm.")
+                      else getattr(s_g, name))
+            if not isinstance(tree_c, dict) or name == "inner":
+                continue
+            scale = (1 / (k * vrl.learning_rate)
+                     if name in ("delta", "bias", "delta1", "delta2") else 1)
+            atol = 1e-4 * scale
+            diff = np.concatenate([
+                np.abs(b.float().cpu().numpy() - a.float().numpy()).ravel()
+                for a, b in zip(tm.leaves(tree_c), tm.leaves(tree_g))])
+            if vrl.inner_optimizer == "adam":
+                notes.append(adam_rule(label, name, diff, atol,
+                                       vrl.learning_rate, sum(rounds),
+                                       1 if scale == 1 else k))
+                continue
+            flipped = diff > atol
+            nf = int(flipped.sum())
+            if nf > (FLIP_CAP if vrl.compress is not None else 0) or \
+                    not np.all(diff[flipped] <= flip * scale):
+                raise AssertionError(
+                    f"per-leaf small input {label}: {name} differs by "
+                    f"{diff.max()} at {nf} elements beyond {atol}")
+            notes.append(f"{name} max diff {diff.max():.2e}"
+                         + (f", {nf} flipped" if vrl.compress else ""))
+        print(f"[5 small input] per-leaf {label}: {len(l_c)} steps, card "
+              f"vs CPU: losses max rel diff "
+              f"{np.abs(l_g / l_c - 1).max():.2e}, " + ", ".join(notes),
+              flush=True)
+    # the card's two executors, one round from identical states
+    vrl = VRLConfig(algorithm="vrl_sgd", comm_period=2, learning_rate=LR)
+    data = assigned_token_stream(contiguous_assignment(2, 2), 16,
+                                 cfg.vocab_size, steps=2, batch=2,
+                                 alpha=0.05, seed=1)
+    _, s_ref = run(vrl, 2, (2,), dev, data)
+    flat_b = make_train_step(cfg, vrl, device=dev)
+    s_flat = flat_b.engine.init(tm.tree_map(lambda x: x.to(dev), params), 2)
+    toks = torch.from_numpy(data[:2]).to(dev).long()
+    s_flat, _ = flat_b.round_step(s_flat, toks, torch.roll(toks, -1, dims=-1))
+    diffs = {}
+    for name, a, b, atol in (
+            ("params", s_ref.params, flat_b.engine.params_tree(s_flat),
+             1e-5),
+            ("delta", s_ref.delta, _delta_tree(flat_b.engine, s_flat),
+             1e-5)):
+        diffs[name] = max((x - y).abs().max().item() for x, y in zip(
+            tm.leaves(a), tm.leaves(b)))
+        if diffs[name] > atol:
+            raise AssertionError(f"per-leaf vs flat engine on the card: "
+                                 f"{name} differs by {diffs[name]}")
+    print(f"[5 small input] per-leaf vs flat engine on the card, vrl_sgd, "
+          f"one round of 2 from identical states: params max diff "
+          f"{diffs['params']:.2e}, Δ max diff {diffs['delta']:.2e} "
+          f"(atol 1e-5)", flush=True)
+
+
+def _delta_tree(eng, state):
+    """The flat engine's Δ as a worker-stacked tree (views)."""
+    from repro_torch.core import flat
+    return flat.unflatten_stacked(eng.spec, state.delta)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1861,6 +2285,7 @@ def main() -> int:
     build.build_all()
     vu._lib()
     vu._comm_lib()
+    vu._leaf_lib()
     print(f"[2 build] {', '.join(build.SOURCES)} built and loaded in "
           f"{time.time() - t0:.1f}s", flush=True)
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
@@ -1884,12 +2309,22 @@ def main() -> int:
           f"at (P, D, R) = {', '.join(map(str, HIER_MODERATE))}; plain at the "
           f"moderate shape: local {plain_moderate['fused_local_sgd']:.3f} "
           f"ms, sync {plain_moderate['fused_sync_vrl']:.3f} ms", flush=True)
+    n_leaf = leaf_moderate_checks(chk, dev)
+    print(f"[3 kernels] vrl_local_update, vrl_sync_update: {n_leaf} checks "
+          f"bitwise equal to the plain versions at n = 1, 105, 1000, "
+          f"2^16 + 3, (64, 64) and (4, 130, 7), fp32 and bf16 operands, "
+          f"views off 16-byte alignment, x̂ broadcast over 4 workers, NaN "
+          f"for NaN", flush=True)
 
     times, plain, library = full_shape(chk, vu, tu, dev)
+    leaf_t, leaf_p, bounds = leaf_full_width(chk, vu, tu, dev)
+    times.update(leaf_t)
+    plain.update(leaf_p)
     shapes = {name: HIER_FULL if name in HIER_KERNELS else FULL
-              for name in KERNELS}
-    bounds = {name: bound_ms(*COSTS[name](*shapes[name])) for name in KERNELS}
-    for name in KERNELS:
+              for name in KERNELS if name not in LEAF_KERNELS}
+    bounds.update({name: bound_ms(*COSTS[name](*shape))
+                   for name, shape in shapes.items()})
+    for name in shapes:
         b, _ = bounds[name]
         print(f"[3 kernels] {name} at {shapes[name]}: {times[name]:.3f} ms "
               f"(bound "
@@ -1953,16 +2388,25 @@ def main() -> int:
     for res_p in (res_j, res_k, res_l):
         print_path(res_p, "; " + check_hier_sums(res_p) + res_p["note"])
         print_rounds(res_p)
+    # the per-leaf executor through the CLI (no kernel launched), then the
+    # tree-update API's VRL-SGD rounds
+    res_p_ = cli_path("(p) vrl_sgd+sgd, --backend reference", PATH_P, {},
+                      launch, vu)
+    res_q = cli_path("(q) hier_vrl_sgd+sgd (2, 2), --backend reference "
+                     "--compress int8", PATH_Q, {}, launch, vu, grid=(2, 2))
+    res_r = tree_api_path(dev, vu)
     # each kernel's launches on the first path that runs it
     main_launches = {}
     for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
-                  res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o):
+                  res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o,
+                  res_p_, res_q, res_r):
         for name, n in res_p["launches"].items():
             main_launches.setdefault(name, n)
 
     # ------------------------------------------------------ 5 small input
     small_input_agreement(dev)
     hier_small_input(dev)
+    ref_small_input(dev)
 
     kernels = []
     for name in KERNELS:

@@ -8,6 +8,7 @@ from repro_torch.comm.compressors import (  # noqa: F401
     decompress,
     describe_pair,
     ef_int8,
+    ef_leaf,
     ef_roundtrip,
     ef_topk,
     is_identity,

@@ -22,13 +22,15 @@ Compressors over the engine's (R, C) payload rows (``core/flat``):
 ``ef_int8`` / ``ef_topk`` are the canonical round-trip math, fp32 in and
 out; the residual is the literal subtraction, so ``resid + dec ==
 payload`` bitwise.  They are the plain versions the engine's CUDA kernels
-(``kernels/vrl_update.fused_ef_*``) are held against.  ``compress`` /
+(``kernels/vrl_update.fused_ef_*``) are held against, and ``ef_leaf``
+runs them leaf by leaf for the per-leaf reference executor.  ``compress`` /
 ``decompress`` build the actual wire arrays, so byte counts are measured
 (``rep_nbytes``), not assumed; ``wire_bytes`` is the same count from the
 shapes alone.  The wire skips the layout's tile-padding rows (``used_rows``).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -169,6 +171,31 @@ def ef_roundtrip(spec: CompressorSpec, x: torch.Tensor
     if spec.name == "topk":
         return ef_topk(x, topk_k(spec, x.shape[-1]))
     return x, torch.zeros_like(x)          # "none": identity
+
+
+def ef_leaf(spec: CompressorSpec, payload: torch.Tensor, n_lead: int,
+            lanes: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-leaf EF round trip for the per-leaf reference executor.
+
+    ``payload``: fp32 with ``n_lead`` leading worker axes; the trailing
+    leaf dims are raveled into rows of ``lanes`` (zero-padded tail), so
+    rows are aligned to the leaf, where the flat engine's are aligned to
+    its layout: a compressed per-leaf run and a flat one agree only
+    approximately, as in the reference.  Returns (dec, resid) shaped like
+    ``payload``."""
+    lead = tuple(payload.shape[:n_lead])
+    n = math.prod(payload.shape[n_lead:])
+    u = used_rows(n, lanes)
+    flat = payload.reshape(lead + (n,))
+    pad = u * lanes - n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    dec2, res2 = ef_roundtrip(spec, flat.reshape(lead + (u, lanes)))
+
+    def back(b: torch.Tensor) -> torch.Tensor:
+        return b.reshape(lead + (u * lanes,))[..., :n].reshape(payload.shape)
+
+    return back(dec2), back(res2)
 
 
 # ================================================================ wire format

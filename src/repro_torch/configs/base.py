@@ -5,8 +5,8 @@ here describes exactly the model the JAX package builds, and so is
 ``HierConfig``.  ``VRLConfig`` and ``EngineConfig`` keep only the fields
 the ported slice reads (the flat algorithms and two-level hier_vrl_sgd
 with the sgd, momentum and adam inner optimizers, SM3-factored Adam
-included, on the flat-buffer engine); their defaults are the
-reference's.
+included, on the flat-buffer engine or the per-leaf reference executor);
+their defaults are the reference's.
 """
 from __future__ import annotations
 
@@ -150,14 +150,11 @@ class VRLConfig:
     # flat algorithms; None = k1 = k2 = comm_period on the default grid)
     hier: Optional[HierConfig] = None
     # sync-payload compression (a ``comm.CompressorSpec``; stored untyped
-    # to keep configs import-free).  ``compress`` drives the flat sync;
-    # ``compress2`` overrides the hierarchy's cross-pod sync and falls back
-    # to ``compress`` when unset.  The hierarchy is ported uncompressed:
-    # its compressed syncs wait for the grid EF kernels, so the port's
-    # engine refuses ``compress2``, and ``compress`` with hier_vrl_sgd
-    # (the reference's flat algorithms ignore ``compress2``).  None
-    # / "none" / topk at rate 1 resolve to the uncompressed path, bitwise
-    # (``comm.compressors.resolve_pair``).
+    # to keep configs import-free).  ``compress`` drives the flat sync and
+    # the hierarchy's intra-pod sync1; ``compress2`` overrides the
+    # cross-pod sync2 and falls back to ``compress`` when unset (the flat
+    # algorithms ignore it).  None / "none" / topk at rate 1 resolve to the
+    # uncompressed path, bitwise (``comm.compressors.resolve_pair``).
     compress: Optional[object] = None
     compress2: Optional[object] = None
     # overlapped rounds: issue the sync's worker mean at round START over
@@ -167,11 +164,23 @@ class VRLConfig:
     # staleness rides the existing math).  Round driver only
     # (``round_step``); the per-step ``train_step`` stays blocking.
     overlap: bool = False
-    # straggler deadline: the probability in [0, 1] that a worker misses a
-    # round's capture deadline.  The reference draws the misses with
-    # jax.random, whose bits the port cannot reproduce: any value > 0
-    # raises NotImplementedError (ROADMAP).  Requires ``overlap=True``.
+    # straggler deadline: the probability in [0, 1] that a participant
+    # misses a round's capture deadline (the reference's draws, bit for
+    # bit: ``core/deadline``).  Requires ``overlap=True``.
     deadline: float = 0.0
+    # which executor runs the update math (``core.engine.resolve_backend``):
+    #   "fused"     — the flat-buffer engine over the CUDA kernels
+    #   "xla"       — the reference's plain-jnp flat executor; here the
+    #                 flat engine on the CPU, whose wrappers run the plain
+    #                 PyTorch versions (refused on the card, where those
+    #                 are only test oracles)
+    #   "auto"      — fused on the card, xla on the CPU
+    #   "reference" — the per-leaf tree executor (``get_algorithm``)
+    update_backend: str = "auto"    # auto | fused | xla | reference
+    # elastic membership (the reference's MemberState): not ported yet
+    # (ROADMAP Queue 1); the flat engine refuses it, and the per-leaf
+    # executor refuses it as the reference's does
+    membership: bool = False
     engine: EngineConfig = EngineConfig()
 
 

@@ -53,6 +53,14 @@ stl_sgd, bvr_l_sgd) and hier_vrl_sgd with the sgd, momentum and adam
 inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16), with
 or without compression, overlap and deadlines; it refuses only what the
 reference refuses.
+
+The per-leaf reference executor (``ref_*``, ``ref_hier_*``) is the
+reference's oracle path, ported: per-leaf tensor math over the parameter
+tree (``types.WorkerState`` / ``HierState``), functional, the inner
+optimizer ``optim.make_inner``'s per-leaf steps, compression through
+``comm.compressors.ef_leaf``.  It launches no kernel.  ``get_algorithm``
+(``core/api``) returns it, and ``update_backend="reference"`` trains
+with it (``resolve_backend``).
 """
 from __future__ import annotations
 
@@ -68,8 +76,8 @@ from repro_torch.core import deadline as deadline_mod
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.types import (CommState, FlatWorkerState,
-                                    HierCommState, HierFlatState,
-                                    OverlapState)
+                                    HierCommState, HierFlatState, HierState,
+                                    OverlapState, WorkerState)
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
 
@@ -122,6 +130,34 @@ ALGO_SPECS = {
                           has_center=False, warmup_aware=True,
                           use_bias=True),
 }
+
+
+BACKENDS = ("auto", "fused", "xla", "reference")
+
+
+def resolve_backend(cfg_or_name, device: Any = "cuda") -> str:
+    """Resolve ``update_backend`` (a VRLConfig or a bare name) for a run on
+    ``device`` to the executor that runs it.
+
+    "auto" is the flat engine: "fused" (the CUDA kernels) on the card,
+    "xla" on the CPU, where the kernel wrappers run their plain PyTorch
+    versions — the port's counterpart of the reference's plain-jnp
+    executor.  "xla" is refused on the card: there the plain versions are
+    only the kernels' test oracles.  "reference" is the per-leaf
+    executor."""
+    name = getattr(cfg_or_name, "update_backend", cfg_or_name)
+    if name not in BACKENDS:
+        raise ValueError(f"unknown update_backend {name!r}; known: "
+                         f"{BACKENDS}")
+    cuda = torch.device(device).type == "cuda"
+    if name == "auto":
+        return "fused" if cuda else "xla"
+    if name == "xla" and cuda:
+        raise ValueError(
+            "update_backend='xla' runs the port's plain PyTorch versions, "
+            "which are the CUDA kernels' test oracles, not an executor for "
+            "the card: use 'auto' or 'fused' there ('xla' is the CPU's)")
+    return name
 
 
 def hier_config(cfg: VRLConfig) -> HierConfig:
@@ -181,13 +217,16 @@ def should_sync(spec: AlgoSpec, cfg: VRLConfig, step: int,
     return (step - last_sync) >= k
 
 
-def sum_invariant(buf: torch.Tensor, dim: int = 0) -> Tuple[float, float]:
+def sum_invariant(buf: Any, dim: int = 0) -> Tuple[float, float]:
     """(max|Σ_i buf_i|, max|buf|) over the worker axis ``dim``: the paper's
     invariant Σ_i Δ_i = 0 after every sync (and BVR's Σ_i B_i = 0; the
     hierarchy's Σ_d Δ1 = 0 within every pod with ``dim=1``, Σ_p Δ2 = 0),
-    and the scale its fp32 rounding residue is relative to.  Reads the
-    state once per value (host sync)."""
-    return (buf.sum(dim=dim).abs().max().item(), buf.abs().max().item())
+    and the scale its fp32 rounding residue is relative to.  ``buf``: a
+    flat buffer or a per-leaf tree (the maxima over its leaves).  Reads
+    the state once per value (host sync)."""
+    leaves = tree_mod.leaves(buf)
+    return (max(x.sum(dim=dim).abs().max().item() for x in leaves),
+            max(x.abs().max().item() for x in leaves))
 
 
 def _ef_op(comp: comm_mod.CompressorSpec, lanes: int, *,
@@ -337,6 +376,366 @@ def _adam_local(vu_dense: Callable, vu_sm3: Callable, inner, p, g, corr,
     return inner._replace(count=count)
 
 
+# ======================================================== reference executor
+# Per-leaf tree math: the reference's oracle path (``repro.core.engine``
+# ``ref_*``), op for op.  Functional: every call returns new trees and
+# leaves its input state as it was; unchanged trees are shared.  A synced
+# parameter leaf is x̂ broadcast over the worker axes — a view, as
+# ``torch.broadcast_to`` makes it, not W copies.
+
+def _bcast(tree: Any, w: int) -> Any:
+    """Every leaf copied onto a new leading worker axis of size ``w``."""
+    return tree_mod.tree_map(
+        lambda x: x.expand(w, *x.shape).clone(
+            memory_format=torch.contiguous_format), tree)
+
+
+def worker_mean(tree: Any) -> Any:
+    return tree_mod.tree_map(lambda x: x.mean(dim=0, keepdim=True), tree)
+
+
+def average_model(state: WorkerState) -> Any:
+    """x̂ — the evaluation model (paper reports metrics on the average)."""
+    return tree_mod.tree_map(lambda x: x.mean(dim=0), state.params)
+
+
+def _none_tree(tree: Any) -> Any:
+    return tree_mod.tree_map(lambda x: None, tree)
+
+
+def _ref_payload(x: torch.Tensor, ref: Optional[torch.Tensor],
+                 resid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One leaf's compression payload: x − ref + resid in fp32 (``ref``,
+    ``resid`` optional; ref broadcasts against the worker axes)."""
+    p = x.to(torch.float32)
+    if ref is not None:
+        p = p - ref
+    if resid is not None:
+        p = p + resid
+    return p
+
+
+def _leaf_rt(comp: comm_mod.CompressorSpec, tree_x: Any, ref: Any,
+             resid: Any, n_lead: int, reduce: Callable) -> Tuple[Any, Any]:
+    """The per-leaf EF round trip of a sync (or S-SGD's gradient) payload
+    and its mean: per leaf, payload = x − ref + resid, (dec, resid') =
+    ``ef_leaf`` of it, then ``reduce(ref, dec)`` (the new shared value).
+    ``ref`` / ``resid``: trees or None.  Leaf by leaf, so neither the
+    payload nor dec outlives its leaf.  Returns (reduced tree, resid'
+    tree)."""
+    def one(x, r, e):
+        dec, res = comm_mod.ef_leaf(comp, _ref_payload(x, r, e), n_lead)
+        return reduce(r, dec), res
+
+    pairs = tree_mod.tree_map(
+        one, tree_x, _none_tree(tree_x) if ref is None else ref,
+        _none_tree(tree_x) if resid is None else resid)
+    return tree_mod.pick(pairs, 0), tree_mod.pick(pairs, 1)
+
+
+def _kg(k_eff: int, lr: float, like: Any) -> torch.Tensor:
+    """k_eff·γ as the reference forms it: k_eff an fp32 device value times
+    the Python float γ (an fp32 product), on the state's device so that
+    dividing by it is IEEE division."""
+    dev = tree_mod.leaves(like)[0].device
+    return torch.full((), float(max(k_eff, 1)), dtype=torch.float32,
+                      device=dev) * lr
+
+
+def _to_xbar(x: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """A parameter leaf after a sync: x̂ broadcast to x's shape (a view)."""
+    return torch.broadcast_to(xb, x.shape).to(x.dtype)
+
+
+def ref_init(spec: AlgoSpec, cfg: VRLConfig, params: Any,
+             num_workers: int) -> WorkerState:
+    stacked = _bcast(params, num_workers)
+    delta_dt = flat.dtype_of(cfg.delta_dtype)
+    delta = tree_mod.tree_map(
+        lambda x: torch.zeros_like(x, dtype=delta_dt), stacked)
+    inner = opt_mod.make_inner(cfg).init(stacked)
+    center = (tree_mod.tree_map(lambda x: x[0].to(torch.float32, copy=True),
+                                stacked) if spec.has_center else None)
+    bias = (tree_mod.tree_map(lambda x: torch.zeros_like(x, dtype=delta_dt),
+                              stacked) if use_bias(spec, cfg) else None)
+    comp, _ = comm_mod.resolve_pair(cfg)
+    comm = ()
+    if comp is not None:
+        # fp32 residuals keep the EF invariant exact; ref is the shared
+        # post-sync value (init: the broadcast params), () for S-SGD's
+        # gradient compression
+        resid = (tree_mod.tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), stacked)
+            if comp.error_feedback else ())
+        ref = (() if (spec.grad_all_reduce or spec.sync == "none")
+               else tree_mod.tree_map(
+                   lambda x: x.to(torch.float32, copy=True), params))
+        comm = CommState(resid=resid, ref=ref)
+    return WorkerState(params=stacked, delta=delta, inner=inner,
+                       center=center, step=0, last_sync=0, bias=bias,
+                       comm=comm)
+
+
+def corrected_grads(state: WorkerState, grads: Any) -> Any:
+    """v_i = g_i − Δ_i  (eq. 6)."""
+    return tree_mod.tree_map(lambda g, d: g - d.to(g.dtype), grads,
+                             state.delta)
+
+
+def ref_local_step(spec: AlgoSpec, cfg: VRLConfig, state: WorkerState,
+                   grads: Any) -> WorkerState:
+    opt = opt_mod.make_inner(cfg)
+    if spec.grad_all_reduce:
+        # S-SGD's "local" step IS a train step: that's the point of the paper
+        comp, _ = comm_mod.resolve_pair(cfg)
+        new_comm = state.comm
+        if comp is not None:
+            # the gradient IS the communicated payload: compress it (ref ≡ 0)
+            e = state.comm.resid if comp.error_feedback else None
+            gbar, res = _leaf_rt(comp, grads, None, e, 1,
+                                 lambda r, d: d.mean(dim=0, keepdim=True))
+            if comp.error_feedback:
+                new_comm = state.comm._replace(resid=res)
+        else:
+            gbar = worker_mean(grads)
+        gbar = tree_mod.tree_map(lambda g, x: torch.broadcast_to(g, x.shape),
+                                 gbar, state.params)
+        new_params, new_inner = opt.update(state.params, gbar, state.inner)
+        return state._replace(params=new_params, inner=new_inner,
+                              step=state.step + 1, last_sync=state.step + 1,
+                              comm=new_comm)
+    v = corrected_grads(state, grads) if spec.use_delta else grads
+    if use_bias(spec, cfg):
+        v = tree_mod.tree_map(lambda g, b: g - b.to(g.dtype), v, state.bias)
+    new_params, new_inner = opt.update(state.params, v, state.inner)
+    return state._replace(params=new_params, inner=new_inner,
+                          step=state.step + 1)
+
+
+def ref_sync(spec: AlgoSpec, cfg: VRLConfig, state: WorkerState
+             ) -> WorkerState:
+    if spec.sync == "none":
+        return state._replace(last_sync=state.step)
+
+    # compressed sync: transmit each worker's drift against the shared ref,
+    # average the decompressed drifts (mean_i x_i = ref + mean_i(x_i − ref))
+    comp, _ = comm_mod.resolve_pair(cfg)
+    new_comm = state.comm
+    xbar = None
+    if comp is not None:
+        e = state.comm.resid if comp.error_feedback else None
+        ref_new, res = _leaf_rt(comp, state.params, state.comm.ref, e, 1,
+                                lambda r, d: r + d.mean(dim=0))
+        xbar = tree_mod.tree_map(lambda x: x[None], ref_new)
+        new_comm = CommState(resid=(res if comp.error_feedback else ()),
+                             ref=ref_new)
+
+    if spec.sync == "elastic":
+        # Zhang et al. parameterise elasticity as beta/N (beta =
+        # easgd_alpha); a and n·a are Python doubles, rounded to fp32 where
+        # they meet a tensor, as the reference's weak-typed scalars are
+        n = tree_mod.leaves(state.params)[0].shape[0]
+        a = cfg.easgd_alpha / n
+
+        def upd_worker(x, c):
+            x32 = x.to(torch.float32)
+            return (x32 - a * (x32 - c)).to(x.dtype)
+
+        if xbar is None:
+            def upd_center(c, x):
+                xb = x.to(torch.float32).mean(dim=0)
+                return (1.0 - n * a) * c + n * a * xb
+
+            new_center = tree_mod.tree_map(upd_center, state.center,
+                                           state.params)
+        else:
+            new_center = tree_mod.tree_map(
+                lambda c, xb: (1.0 - n * a) * c + n * a * xb[0],
+                state.center, xbar)
+        new_params = tree_mod.tree_map(upd_worker, state.params,
+                                       state.center)
+        return state._replace(params=new_params, center=new_center,
+                              last_sync=state.step, comm=new_comm)
+
+    if xbar is None:
+        xbar = worker_mean(state.params)                # the all-reduce
+    new_params = tree_mod.tree_map(_to_xbar, state.params, xbar)
+    if spec.sync == "average":
+        return state._replace(params=new_params, last_sync=state.step,
+                              comm=new_comm)
+
+    # "vrl"/"bvr": Δ_i ← Δ_i + u_i, u_i = (x̂ − x_i)/(k_eff γ)  (eq. 4)
+    kg = _kg(state.step - state.last_sync, cfg.learning_rate, state.params)
+
+    def drift(x, xb):
+        return (xb.to(torch.float32) - x.to(torch.float32)) / kg
+
+    def upd_delta(d, x, xb):
+        return (d.to(torch.float32) + drift(x, xb)).to(d.dtype)
+
+    new_delta = tree_mod.tree_map(upd_delta, state.delta, state.params, xbar)
+    new_bias = state.bias
+    if spec.sync == "bvr" and use_bias(spec, cfg):
+        # B_i ← (1−β)·B_i + β·u_i — the bias-variate EMA of realised drift
+        beta = cfg.bvr_beta
+
+        def upd_bias(b, x, xb):
+            return ((1.0 - beta) * b.to(torch.float32)
+                    + beta * drift(x, xb)).to(b.dtype)
+
+        new_bias = tree_mod.tree_map(upd_bias, state.bias, state.params,
+                                     xbar)
+    return state._replace(params=new_params, delta=new_delta,
+                          bias=new_bias, last_sync=state.step,
+                          comm=new_comm)
+
+
+def ref_train_step(spec: AlgoSpec, cfg: VRLConfig, state: WorkerState,
+                   grads: Any) -> WorkerState:
+    state = ref_local_step(spec, cfg, state, grads)
+    if spec.sync == "none":
+        return state
+    if should_sync(spec, cfg, state.step, state.last_sync):
+        return ref_sync(spec, cfg, state)
+    return state
+
+
+# ---------------------------------------------- reference executor ("vrl2")
+# The two-level rule over a pod-major (P, D, ...) tree state
+# (``core/hierarchical.py`` is a thin wrapper over these).
+
+def ref_hier_init(cfg: VRLConfig, params: Any,
+                  grid: Tuple[int, int]) -> HierState:
+    p, d = grid
+
+    def per_pod(x, fill):
+        return (fill(x).expand(p, 1, *x.shape)
+                .clone(memory_format=torch.contiguous_format))
+
+    stacked = tree_mod.tree_map(
+        lambda x: x.expand(p, d, *x.shape).clone(
+            memory_format=torch.contiguous_format), params)
+    dt = flat.dtype_of(cfg.delta_dtype)
+    d2 = tree_mod.tree_map(
+        lambda x: torch.zeros((p, 1, *x.shape[2:]), dtype=dt,
+                              device=x.device), stacked)
+    inner = opt_mod.make_inner(cfg).init(stacked)
+    comp1, comp2 = comm_mod.resolve_pair(cfg)
+    comm = ()
+    if comp1 is not None or comp2 is not None:
+        comm = HierCommState(
+            resid1=(tree_mod.tree_map(
+                lambda x: torch.zeros_like(x, dtype=torch.float32), stacked)
+                if comp1 and comp1.error_feedback else ()),
+            ref1=(tree_mod.tree_map(
+                lambda x: per_pod(x, lambda y: y.to(torch.float32)), params)
+                if comp1 else ()),
+            resid2=(tree_mod.tree_map(
+                lambda x: per_pod(x, lambda y: torch.zeros_like(
+                    y, dtype=torch.float32)), params)
+                if comp2 and comp2.error_feedback else ()),
+            ref2=(tree_mod.tree_map(
+                lambda x: x.to(torch.float32, copy=True), params)
+                if comp2 else ()))
+    return HierState(params=stacked,
+                     delta1=tree_mod.tree_map(
+                         lambda x: torch.zeros_like(x, dtype=dt), stacked),
+                     delta2=d2, inner=inner, step=0, last_sync1=0,
+                     last_sync2=0, comm=comm)
+
+
+def ref_hier_local_step(cfg: VRLConfig, state: HierState,
+                        grads: Any) -> HierState:
+    """x ← inner_opt(x, g − Δ1 − Δ2): zero cross-worker communication."""
+    v = tree_mod.tree_map(
+        lambda g, d1, d2: g - d1.to(g.dtype) - d2.to(g.dtype),
+        grads, state.delta1, state.delta2)
+    new_params, new_inner = opt_mod.make_inner(cfg).update(
+        state.params, v, state.inner)
+    return state._replace(params=new_params, inner=new_inner,
+                          step=state.step + 1)
+
+
+def ref_hier_sync1(cfg: VRLConfig, state: HierState) -> HierState:
+    """Intra-pod sync: mean over axis 1 (the pod-internal worker axis)."""
+    kg = _kg(state.step - state.last_sync1, cfg.learning_rate, state.params)
+    comp1, _ = comm_mod.resolve_pair(cfg)
+    new_comm = state.comm
+    if comp1 is not None:
+        e = state.comm.resid1 if comp1.error_feedback else None
+        xbar, res = _leaf_rt(comp1, state.params, state.comm.ref1, e, 2,
+                             lambda r, d: r + d.mean(dim=1, keepdim=True))
+        new_comm = state.comm._replace(
+            ref1=xbar, resid1=(res if comp1.error_feedback else ()))
+    else:
+        xbar = tree_mod.tree_map(lambda x: x.mean(dim=1, keepdim=True),
+                                 state.params)
+
+    def upd(d, x, xb):
+        return (d.to(torch.float32)
+                + (xb.to(torch.float32) - x.to(torch.float32)) / kg
+                ).to(d.dtype)
+
+    new_d1 = tree_mod.tree_map(upd, state.delta1, state.params, xbar)
+    new_p = tree_mod.tree_map(_to_xbar, state.params, xbar)
+    return state._replace(params=new_p, delta1=new_d1,
+                          last_sync1=state.step, comm=new_comm)
+
+
+def ref_hier_sync2(cfg: VRLConfig, state: HierState) -> HierState:
+    """Cross-pod sync.  Assumes a level-1 sync at the same step (so every
+    worker already holds its pod average)."""
+    kg = _kg(state.step - state.last_sync2, cfg.learning_rate, state.params)
+    comp1, comp2 = comm_mod.resolve_pair(cfg)
+    new_comm = state.comm
+    pod_avg = tree_mod.tree_map(lambda x: x.mean(dim=1, keepdim=True),
+                                state.params)
+    if comp2 is not None:
+        e = state.comm.resid2 if comp2.error_feedback else None
+        glob_sm, res = _leaf_rt(comp2, pod_avg, state.comm.ref2, e, 2,
+                                lambda r, d: r + d.mean(dim=(0, 1)))
+        glob = tree_mod.tree_map(lambda x: x[None, None], glob_sm)
+        new_comm = new_comm._replace(
+            ref2=glob_sm, resid2=(res if comp2.error_feedback else ()))
+    else:
+        glob = tree_mod.tree_map(
+            lambda x: x.mean(dim=(0, 1), keepdim=True), state.params)
+    if comp1 is not None:
+        # level 2 just moved every worker to x̂: re-anchor the level-1
+        # drift reference so the next intra-pod payload is small again
+        new_comm = new_comm._replace(ref1=tree_mod.tree_map(
+            lambda g, r1: torch.broadcast_to(g.to(torch.float32), r1.shape),
+            glob, new_comm.ref1))
+
+    def upd(d2, pa, g):
+        return (d2.to(torch.float32)
+                + (g.to(torch.float32) - pa.to(torch.float32)) / kg
+                ).to(d2.dtype)
+
+    new_d2 = tree_mod.tree_map(upd, state.delta2, pod_avg, glob)
+    new_p = tree_mod.tree_map(_to_xbar, state.params, glob)
+    return state._replace(params=new_p, delta2=new_d2,
+                          last_sync2=state.step, comm=new_comm)
+
+
+def ref_hier_train_step(cfg: VRLConfig, state: HierState, grads: Any, *,
+                        k1: Optional[int] = None,
+                        k2: Optional[int] = None) -> HierState:
+    hcfg = hier_config(cfg)
+    k1 = hcfg.k1 if k1 is None else k1
+    k2 = hcfg.k2 if k2 is None else k2
+    state = ref_hier_local_step(cfg, state, grads)
+    do2 = (state.step - state.last_sync2) >= k2
+    if do2 or (state.step - state.last_sync1) >= k1:
+        state = ref_hier_sync1(cfg, state)
+    return ref_hier_sync2(cfg, state) if do2 else state
+
+
+def hier_average_model(state: HierState) -> Any:
+    """x̂ — the evaluation model, averaged over the whole (P, D) grid."""
+    return tree_mod.tree_map(lambda x: x.mean(dim=(0, 1)), state.params)
+
+
 # ============================================================ fused executor
 class Engine(NamedTuple):
     """Bound flat-buffer-executor closures for one (algorithm, model) pair.
@@ -391,6 +790,10 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     pairs).  ``device`` places the state; default: where ``init``'s
     parameters lie."""
     algo = get_spec(cfg.algorithm)
+    if cfg.membership:
+        raise NotImplementedError(
+            "membership (elastic fault tolerance) is not ported yet "
+            "(ROADMAP Queue 1)")
     ecfg = cfg.engine
     fspec = flat.make_spec(template, lanes=ecfg.lanes, block=ecfg.block,
                            max_waste=ecfg.max_pad_waste, shards=ecfg.shards)

@@ -1,5 +1,13 @@
-"""Stagewise communication-period schedules (``repro.core.schedule``,
-``CommSchedule`` part).
+"""Communication-period schedules (``repro.core.schedule``).
+
+``Schedule`` is the per-step anytime schedule (beyond-paper): sync densely
+early (the Remark 5.3 warm-up generalised) and stretch the period as
+sqrt(t) later.  Because the sync uses the true elapsed period k_eff in the
+Δ update (eq. 4), any schedule stays exact:
+
+    sched = sqrt_schedule(c=1.0, k_max=64)
+    if sched.should_sync(state.step, state.last_sync):
+        state = alg.sync(cfg, state)
 
 ``CommSchedule`` is the round-structured schedule the engine consumes
 (``VRLConfig.comm_schedule`` → ``core.engine.should_sync`` and the round
@@ -19,10 +27,53 @@ counters are host integers, so every lookup here is plain Python.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 
+@dataclass(frozen=True)
+class Schedule:
+    kind: str
+    k: int = 20
+    c: float = 1.0
+    k_max: int = 512
+    warmup: bool = True
+
+    def period_at(self, step: int) -> int:
+        if self.warmup and step <= 1:
+            return 1
+        if self.kind == "const":
+            return self.k
+        if self.kind == "sqrt":
+            return max(1, min(self.k_max, int(self.c * math.sqrt(step))))
+        raise ValueError(self.kind)
+
+    def should_sync(self, step: int, last_sync: int) -> bool:
+        """step = iterations completed (post-increment)."""
+        return (step - last_sync) >= self.period_at(step)
+
+
+def const_schedule(k: int, warmup: bool = True) -> Schedule:
+    return Schedule(kind="const", k=k, warmup=warmup)
+
+
+def sqrt_schedule(c: float = 1.0, k_max: int = 512,
+                  warmup: bool = True) -> Schedule:
+    return Schedule(kind="sqrt", c=c, k_max=k_max, warmup=warmup)
+
+
+def total_syncs(sched: Schedule, t_total: int) -> int:
+    """Communication rounds over a horizon (for complexity comparisons)."""
+    n, last = 0, 0
+    for t in range(1, t_total + 1):
+        if sched.should_sync(t, last):
+            n += 1
+            last = t
+    return n
+
+
+# ================================================ stagewise round schedules
 @dataclass(frozen=True)
 class CommSchedule:
     """A stagewise communication-period schedule.

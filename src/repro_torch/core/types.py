@@ -1,20 +1,62 @@
-"""State container of the flat-buffer engine (``repro.core.engine``
-``FlatWorkerState``, ``CommState``, ``OverlapState``, ``HierFlatState``,
-``HierCommState``), for the slice the port runs: the flat algorithms with
-the sgd, momentum and adam inner optimizers (Adam dense or SM3-factored),
-compressed sync and overlapped rounds, and the two-level hierarchy with
-the same inner optimizers, blocking or overlapped, compressed per level.
+"""State containers of the algorithms (``repro.core.types`` and
+``repro.core.engine``): the flat-buffer engine's ``FlatWorkerState``,
+``CommState``, ``OverlapState``, ``HierFlatState`` and ``HierCommState``,
+and the per-leaf reference executor's ``WorkerState`` and ``HierState``.
 
-The buffers are updated IN PLACE by the engine's kernels; an engine call
-returns a new tuple (``_replace``) that holds the same buffers with the
-step counters advanced.  The counters are host integers: the round driver
-decides on the host when a round ends, so they never need a device read.
+The flat engine's buffers are updated IN PLACE by its kernels; an engine
+call returns a new tuple (``_replace``) that holds the same buffers with
+the step counters advanced.  The per-leaf executor is functional, as the
+reference's is: each call returns new trees (nested dicts of tensors with
+the worker axes leading) and leaves its input state as it was.  The step
+counters are host integers in both: the driver decides on the host when a
+round ends, so they never need a device read.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch import tree as tree_mod
+
+
+class WorkerState(NamedTuple):
+    """The per-leaf executor's state (``repro.core.types.WorkerState``):
+    trees whose leaves carry a leading worker axis W.  ``center`` (EASGD's
+    x̃, single-model fp32) and ``bias`` (BVR-L-SGD's B) are None where the
+    algorithm has none; ``comm`` a ``CommState`` of trees under compressed
+    sync (ref single-model), () otherwise."""
+
+    params: Any              # (W, ...) worker-stacked model parameters
+    delta: Any               # (W, ...) VRL correction Δ_i (zeros if unused)
+    inner: Any               # inner-optimizer state (momentum buffers, ...)
+    center: Any              # EASGD center variable x̃ (None elsewhere)
+    step: int                # iterations completed
+    last_sync: int           # step index of the last sync
+    bias: Any = None         # (W, ...) BVR-L-SGD bias variate B_i (else None)
+    comm: Any = ()           # compressed-sync state (CommState) — () when
+                             # the sync payload is uncompressed
+
+
+class HierState(NamedTuple):
+    """Two-level hierarchical VRL-SGD state of the per-leaf executor
+    (``repro.core.types.HierState``): leaves carry a pod-major (P, D, ...)
+    worker grid, Δ2 one (P, 1, ...) correction per pod; ``comm`` a
+    ``HierCommState`` of trees when a level compresses."""
+
+    params: Any              # (P, D, ...) pod-major worker grid
+    delta1: Any              # (P, D, ...) intra-pod corrections
+    delta2: Any              # (P, 1, ...) cross-pod corrections (per pod)
+    inner: Any
+    step: int
+    last_sync1: int          # step of the last level-1 (intra-pod) sync
+    last_sync2: int          # step of the last level-2 (cross-pod) sync
+    comm: Any = ()           # per-level compressed-sync state
+
+
+def swap_dims(tree, a: int = 0, b: int = 1):
+    """Every leaf with dims ``a`` and ``b`` swapped (views)."""
+    return tree_mod.tree_map(lambda x: x.transpose(a, b), tree)
 
 
 class CommState(NamedTuple):
@@ -24,7 +66,8 @@ class CommState(NamedTuple):
     when error feedback is off.  ``ref``: the shared drift reference, the
     (R, C) fp32 value every worker holds after the last sync, against
     which the next payload is compressed; () for S-SGD's gradient
-    compression (ref ≡ 0).
+    compression (ref ≡ 0).  The per-leaf executor holds trees in both:
+    resid worker-stacked, ref single-model.
     """
 
     resid: Any = ()
@@ -39,7 +82,8 @@ class HierCommState(NamedTuple):
     pod's workers.  Level 2 (cross-pod): ``resid2`` the per-pod residual,
     (P, 1, R, C) fp32; ``ref2`` the global reference, (R, C) fp32.  Each
     half is () when its level is uncompressed, each residual () when its
-    compressor has no error feedback.
+    compressor has no error feedback.  The per-leaf executor holds trees
+    of the same leading shapes (ref2 single-model).
     """
 
     resid1: Any = ()

@@ -1,0 +1,72 @@
+"""The tree-update API (``repro.kernels.ops``, its VRL-SGD part).
+
+``vrl_local_update_tree`` / ``vrl_sync_update_tree`` apply the paper's
+local step (eqs. 5-6) and sync (eq. 4) leaf by leaf over whole parameter
+trees, one kernel launch per leaf (``kernels/vrl_update.vrl_local_update``
+/ ``vrl_sync_update``, ``csrc/leaf_update.cu`` on the card, the plain
+versions for CPU tensors).  The flat-buffer engine (``core.engine
+.make_engine``) is the preferred path for training — one kernel for the
+whole model instead of one per leaf.
+
+The reference pads each leaf to a (R, 256) tile multiple for its Pallas
+blocks (``_leaf_tile``, ``_to_2d``); the kernels here take the element
+count and handle the tail, so nothing is padded and ``block`` is accepted
+and ignored.  The attention and SSD ops of the reference's module are
+not ported yet (ROADMAP Queue 2).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import tree as tree_mod
+from repro_torch.kernels import vrl_update as vu
+
+
+def vrl_local_update_tree(params: Any, grads: Any, delta: Any, *, lr: float,
+                          block: int = 0) -> Any:
+    """p' = p − γ(g − Δ) over a whole tree; Δ is cast to p's dtype (in the
+    kernel), as the reference's wrapper casts it.  Returns the new
+    parameter tree."""
+    def one(p, g, d):
+        return vu.vrl_local_update(p.contiguous(), g.contiguous(),
+                                   d.contiguous(), lr=lr, block=block)
+
+    return tree_mod.tree_map(one, params, grads, delta)
+
+
+def _xbar_operand(xb: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """x̂ for one leaf of ``shape``: its leading size-1 axes dropped, so a
+    worker-mean (1, ...) or a single-model x̂ reaches the kernel as p's
+    trailing shape (read with a stride of 0 over the leading axes);
+    another broadcast is materialised."""
+    try:
+        fits = torch.broadcast_shapes(xb.shape, shape) == shape
+    except RuntimeError:
+        fits = False
+    if not fits:
+        raise ValueError(f"xbar {tuple(xb.shape)} does not broadcast to the "
+                         f"leaf's {tuple(shape)}")
+    while xb.dim() > 0 and xb.shape[0] == 1 and \
+            tuple(xb.shape) != tuple(shape[len(shape) - xb.dim():]):
+        xb = xb[0]
+    if tuple(xb.shape) != tuple(shape[len(shape) - xb.dim():]):
+        xb = xb.expand(shape)
+    return xb.contiguous()
+
+
+def vrl_sync_update_tree(params: Any, xbar: Any, delta: Any, *, k: int,
+                         lr: float, block: int = 0):
+    """Δ' = Δ + (x̂ − p)/(kγ); p' = x̂ over a whole tree, as a product by
+    inv_kg = 1/(k·γ) formed in double on the host (the reference's
+    ``inv_kg``), rounded to fp32 once.  x̂ broadcasts to each leaf's shape.
+    Returns (new params tree, new Δ tree): p' in p's dtype, Δ' in Δ's."""
+    inv_kg = 1.0 / (k * lr)
+
+    def one(p, xb, d):
+        return vu.vrl_sync_update(p.contiguous(), _xbar_operand(xb, p.shape),
+                                  d.contiguous(), inv_kg=inv_kg, block=block)
+
+    outs = tree_mod.tree_map(one, params, xbar, delta)
+    return tree_mod.pick(outs, 0), tree_mod.pick(outs, 1)

@@ -2,7 +2,9 @@
 
 The port's counterpart of ``repro.kernels.xla_update``: the same
 elementwise math over worker-stacked (W, R, C) buffers (and the
-hierarchy's pod-major (P, D, R, C) ones), written as tensor ops.  Each function is the oracle its CUDA kernel (``kernels/vrl_update``)
+hierarchy's pod-major (P, D, R, C) ones), written as tensor ops; and the
+per-leaf updates of the tree-update API (``vrl_local_update``,
+``vrl_sync_update``), whose oracles are ``repro.kernels.ref``'s.  Each function is the oracle its CUDA kernel (``kernels/vrl_update``)
 is held against, and what the kernel wrappers run for CPU tensors.
 
 The math is the reference's op for op: fp32 in-register values, the same
@@ -403,3 +405,26 @@ def fused_hier_local_adam_sm3(p, g, d1, d2, mu, row, col, scal, *,
         step = step + lr * wd * p32
     return ((p32 - step).to(p.dtype), mu_new.to(mu.dtype), new_row,
             new_col)
+
+
+# ============================================== per-leaf (tree-update API)
+def vrl_local_update(p, g, d, *, lr: float, block: int = 0) -> torch.Tensor:
+    """One leaf's local step, p' = p − γ(g − Δ) in fp32, in p's dtype; Δ is
+    first cast to p's dtype, as the tree wrapper casts it.  Bitwise the
+    eager oracle ``repro.kernels.ref.vrl_update_ref`` applied to that Δ."""
+    del block
+    d32 = _f32(d.to(p.dtype))
+    return (_f32(p) - lr * (_f32(g) - d32)).to(p.dtype)
+
+
+def vrl_sync_update(p, xbar, d, *, inv_kg: float, block: int = 0):
+    """One leaf's sync: Δ' = Δ + (x̂ − p)·inv_kg (a product by the fp32
+    inv_kg, not a division by k·γ) in Δ's dtype, p' = x̂ in p's; x̂
+    broadcasts against p.  Returns new (p', Δ'), bitwise the eager oracle
+    ``repro.kernels.ref.vrl_sync_ref``."""
+    del block
+    xb = _f32(xbar)
+    new_d = (_f32(d) + (xb - _f32(p)) * inv_kg).to(d.dtype)
+    new_p = torch.broadcast_to(xb, p.shape).to(
+        p.dtype, memory_format=torch.contiguous_format, copy=True)
+    return new_p, new_d

@@ -28,10 +28,16 @@ and the two-level hierarchy's over pod-major (P, D, R, C) buffers, with
   fold hier2:      c = x̂_stale − pend2;  p' = p + c;  Δ2' = Δ2 + c·s₀;
                    pend2' = km·pend2 + (1−km)·p'_pod
 
+and the per-leaf updates of the tree-update API (``kernels/ops``), over
+one parameter leaf of any shape, fp32 or bf16, into new tensors:
+
+  leaf local:      p' = p − γ(g − Δ)    (Δ rounded to p's dtype first)
+  leaf sync:       Δ' = Δ + (x̂ − p)·inv_kg;  p' = x̂
+
 Each wrapper takes its kernel for CUDA tensors (``csrc/vrl_update.cu`` for
 the local steps, the syncs and the hierarchy, ``csrc/comm_update.cu`` for
-the EF round trip and the flat fold, built at first use by
-``kernels/build``) and the plain PyTorch version (``kernels/torch_update``)
+the EF round trip and the flat fold, ``csrc/leaf_update.cu`` for the
+per-leaf pair, built at first use by ``kernels/build``) and the plain PyTorch version (``kernels/torch_update``)
 for CPU tensors; a CUDA tensor never falls back to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
 CPU call is not a launch), so a run can show that its main path went
 through the kernels.
@@ -56,7 +62,8 @@ LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
             "fused_fold_overlap_hier2": 0, "fused_local_adam_sm3": 0,
             "fused_hier_local_momentum": 0, "fused_hier_local_adam": 0,
             "fused_hier_local_adam_sm3": 0, "fused_ef_int8_grid": 0,
-            "fused_ef_topk_grid": 0}
+            "fused_ef_topk_grid": 0, "vrl_local_update": 0,
+            "vrl_sync_update": 0}
 
 
 def reset_launches() -> None:
@@ -947,3 +954,100 @@ def fused_hier_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
         return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
     return _adam_sm3(name, p, g, d1, d2, mu, row, col, scal, p.shape[1],
                      _adam_consts(lr, b1, b2, eps, wd))
+
+
+# ============================================== per-leaf (tree-update API)
+@functools.cache
+def _leaf_lib() -> ctypes.CDLL:
+    """The per-leaf update library with its C signatures."""
+    lib = build.load("leaf_update")
+    f32, i64, cint = ctypes.c_float, ctypes.c_int64, ctypes.c_int
+    lib.leaf_local_update.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, cint,
+                                      cint, f32, i64, _PTR]
+    lib.leaf_local_update.restype = cint
+    lib.leaf_sync_update.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, cint,
+                                     cint, cint, f32, i64, i64, _PTR]
+    lib.leaf_sync_update.restype = cint
+    return lib
+
+
+def _check_leaf(name: str, p: torch.Tensor, **tensors) -> None:
+    """Raise on what the per-leaf kernels do not take: an operand not fp32
+    or bf16, on another device than p, or not contiguous (any alignment
+    and any element count are fine)."""
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {p.device}")
+    for key, t in dict(p=p, **tensors).items():
+        if t.dtype not in _MOMENT_DTYPES:
+            raise TypeError(f"{name}: {key} is {t.dtype}; the kernel takes "
+                            f"torch.float32 or torch.bfloat16")
+        if t.device != p.device:
+            raise ValueError(f"{name}: {key} on {t.device}, p on {p.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def _bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+# Replaces repro/kernels/vrl_update.py:73 vrl_local_update (Pallas, TPU).
+# Bound: device-memory bandwidth — reads p, g, Δ and writes p' once (16 B
+# per fp32 element, a few flops).  Design: one pass over the whole leaf,
+# 8-element groups by 16-byte loads where aligned, the tail (and any
+# misaligned view) element by element; Δ rounded to p's dtype in register.
+def vrl_local_update(p: torch.Tensor, g: torch.Tensor, d: torch.Tensor, *,
+                     lr: float, block: int = 0) -> torch.Tensor:
+    """p' = p − γ(g − Δ) over one leaf of any shape, a new tensor in p's
+    dtype; Δ is rounded to p's dtype first (the tree wrapper's cast).
+    Operands fp32 or bf16, each in its own dtype.  ``block`` is accepted
+    and ignored: the kernel takes the element count, no tile padding."""
+    del block
+    name = "vrl_local_update"
+    _check_leaf(name, p, g=g, d=d)
+    _same_shape(name, p, g=g, d=d)
+    if p.device.type == "cpu":
+        return tu.vrl_local_update(p, g, d, lr=lr)
+    out = torch.empty_like(p, memory_format=torch.contiguous_format)
+    lib = _leaf_lib()
+    with torch.cuda.device(p.device):
+        err = lib.leaf_local_update(
+            out.data_ptr(), p.data_ptr(), g.data_ptr(), d.data_ptr(),
+            _bf16(p), _bf16(g), _bf16(d), float(lr), p.numel(), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+# Replaces repro/kernels/vrl_update.py:91 vrl_sync_update (Pallas, TPU).
+# Bound: device-memory bandwidth — reads p, Δ and x̂ once, writes p' and
+# Δ'.  Design: as vrl_local_update; an x̂ shaped like p without its leading
+# axes is read with a stride of 0 over them (each thread loads its x̂
+# elements once and walks the copies), so it is never expanded.
+def vrl_sync_update(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
+                    *, inv_kg: float, block: int = 0):
+    """Δ' = Δ + (x̂ − p)·inv_kg (inv_kg rounded to fp32 once, a product,
+    not a division) and p' = x̂, over one leaf: returns new (p' in p's
+    dtype, Δ' in Δ's).  ``xbar``: p's shape, or p's without leading axes
+    (broadcast over them, not materialised)."""
+    del block
+    name = "vrl_sync_update"
+    _check_leaf(name, p, xbar=xbar, d=d)
+    _same_shape(name, p, d=d)
+    if tuple(xbar.shape) != tuple(p.shape[p.dim() - xbar.dim():]) \
+            or xbar.dim() > p.dim():
+        raise ValueError(f"{name}: xbar {tuple(xbar.shape)} is not p's "
+                         f"shape {tuple(p.shape)} or a trailing part of it")
+    if p.device.type == "cpu":
+        return tu.vrl_sync_update(p, xbar, d, inv_kg=inv_kg)
+    new_p = torch.empty_like(p, memory_format=torch.contiguous_format)
+    new_d = torch.empty_like(d, memory_format=torch.contiguous_format)
+    lib = _leaf_lib()
+    with torch.cuda.device(p.device):
+        err = lib.leaf_sync_update(
+            new_p.data_ptr(), new_d.data_ptr(), p.data_ptr(),
+            xbar.data_ptr(), d.data_ptr(), _bf16(p), _bf16(xbar), _bf16(d),
+            float(inv_kg), p.numel(), xbar.numel(), _stream(p))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return new_p, new_d

@@ -46,6 +46,17 @@ so two runs can be diffed; the last line holds the kernels' launch counts.
       --lr 0.05 --algorithm hier_vrl_sgd --pods 2 --k1 2 --k2 4 --overlap \\
       --compress int8 --compress2 topk:32 --deadline 0.25
 
+``--backend`` picks the executor (``core.engine.resolve_backend``): auto
+(the default: the CUDA kernels on the card, their plain versions on the
+CPU), fused, xla (the CPU's; refused on the card) or reference, the
+per-leaf reference executor over tree-structured state, which launches no
+kernel and refuses ``--overlap`` as the reference's does:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 4 --steps 8 --batch 2 --seq 32 \\
+      --lr 0.05 --backend reference --algorithm hier_vrl_sgd --pods 2 \\
+      --k1 2 --k2 4 --compress int8
+
 The inner optimizers beyond sgd (momentum, Adam with fp32 or bf16
 moments, SM3-factored Adam, ``EngineConfig.shards``) run through
 ``VRLConfig`` and ``make_train_step``, flat and hierarchical; the
@@ -65,6 +76,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, HierConfig, VRLConfig
@@ -79,8 +91,10 @@ from repro_torch.train.train_loop import make_train_step
 
 
 class TrainResult(NamedTuple):
-    state: object               # final FlatWorkerState (HierFlatState)
-    engine: object              # the core.engine.Engine that ran
+    state: object               # final FlatWorkerState (HierFlatState; the
+                                # per-leaf WorkerState / HierState)
+    engine: object              # the core.engine.Engine that ran (None for
+                                # --backend reference)
     losses: List[float]         # per-step worker-mean local loss
     avg_model_losses: List[float]  # averaged-model loss at each log line
     invariant: List[tuple]      # (step, max|Σ_i Δ_i|, max|Δ|) at each log
@@ -143,6 +157,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(simulated), keeps its last transmitted position "
                          "and, under compressed sync, parks the missed "
                          "payload in its EF residual.  Requires --overlap.")
+    ap.add_argument("--backend", default="auto",
+                    choices=list(engine_mod.BACKENDS),
+                    help="update math: auto (the CUDA kernels on the card, "
+                         "their plain versions on the CPU), fused, xla (the "
+                         "CPU's plain versions; refused on the card), or "
+                         "the per-leaf reference executor")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
     ap.add_argument("--workers", type=int, default=4)
@@ -231,7 +251,7 @@ def vrl_config(args: argparse.Namespace) -> VRLConfig:
                      bvr_beta=args.bvr_beta, comm_schedule=sched,
                      compress=comps[0], compress2=comps[1],
                      overlap=args.overlap, deadline=args.deadline,
-                     hier=hier,
+                     hier=hier, update_backend=args.backend,
                      engine=EngineConfig(block=args.block))
 
 
@@ -267,21 +287,35 @@ def run(argv=None) -> TrainResult:
               f"last stage)")
     eng = bundle.engine
     state = bundle.init_state(args.seed, args.workers)
-    es = eng.spec
-    print(f"params: {es.size/1e6:.2f}M x {args.workers} workers, "
-          f"algorithm={args.algorithm}, k={args.k}, device={device}"
+    resolved = engine_mod.resolve_backend(vrl, device)
+    p_leaves = tree_mod.leaves(state.params)
+    n_params = (eng.spec.size if eng is not None else
+                sum(x.numel() for x in p_leaves) // args.workers)
+    print(f"params: {n_params/1e6:.2f}M x {args.workers} workers, "
+          f"algorithm={args.algorithm}, k={args.k}, "
+          f"backend={args.backend}"
+          + (f" -> {resolved}" if resolved != args.backend else "")
+          + f", device={device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
-    print(f"engine: flat buffer {es.rows}x{es.lanes} "
-          f"({es.padded - es.size} pad elems), block={es.block}")
+    if eng is not None:
+        es = eng.spec
+        print(f"engine: flat buffer {es.rows}x{es.lanes} "
+              f"({es.padded - es.size} pad elems), block={es.block}")
+    else:
+        print(f"engine: per-leaf reference executor over {len(p_leaves)} "
+              f"leaves (no kernel)")
     if args.overlap:
         print("overlap: sync worker mean taken at round start (one-round-"
               "stale fold at the boundary"
               + ("; cross-pod sync2 only, sync1 blocking" if hier else "")
               + (f"), deadline: miss prob {args.deadline}" if args.deadline
                  else ")"))
-    if any(c is not None for c in eng.compressors):
-        print(wire_banner(eng.compressors, es, state))
+    comps = (eng.compressors if eng is not None
+             else comm_mod.resolve_pair(vrl))
+    if any(c is not None for c in comps):
+        print(wire_banner(comps, es, state) if eng is not None else
+              f"compress: {comm_mod.describe_pair(comps)} (per-leaf rows)")
 
     assignment = contiguous_assignment(args.workers, args.workers)
     data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
@@ -306,9 +340,9 @@ def run(argv=None) -> TrainResult:
     param_max: List[tuple] = []
     # blocking compression moves Σ_i Δ_i by design: x̂ − mean_i p_i =
     # mean_i(e_i − e'_i), so each sync adds Σ_i (e_i − e'_i)/(k_eff γ)
-    comp = eng.compressors[0]
+    comp = comps[0]
     ef_log = (hier is None and comp is not None and comp.error_feedback
-              and not args.overlap and isinstance(state.delta, torch.Tensor))
+              and not args.overlap and _present(state.delta))
     level_terms: List[dict] = []
     misses: List[tuple] = []
 
@@ -326,11 +360,12 @@ def run(argv=None) -> TrainResult:
         for an algorithm without Δ.  Also keeps max|params|, the scale of
         the rounding of x̂ that each sync leaves in those sums (read
         without an |params| temporary)."""
-        param_max.append((t, torch.linalg.vector_norm(
-            state.params, float("inf")).item()))
+        param_max.append((t, max(
+            torch.linalg.vector_norm(x, float("inf")).item()
+            for x in tree_mod.leaves(state.params))))
         for field, label, dim, log in sums:
             buf = getattr(state, field)
-            if isinstance(buf, torch.Tensor):
+            if _present(buf):
                 sum_b, max_b = engine_mod.sum_invariant(buf, dim=dim)
                 log.append((t, sum_b, max_b))
                 print(f"             {label} {sum_b:.3e}  max|{field}| "
@@ -340,14 +375,18 @@ def run(argv=None) -> TrainResult:
         """The EF term of the round's sync and how far Σ_i Δ_i's move
         stands from it (fp32 rounding)."""
         sum_d0, sum_e0 = before
-        term = (sum_e0 - state.comm.resid.sum(dim=0)) / (rk * args.lr)
-        moved = state.delta.sum(dim=0) - sum_d0
-        ef_t = term.abs().max().item()
-        resid = (moved - term).abs().max().item()
+        term = tree_mod.tree_map(
+            lambda e0, e: (e0 - e.sum(dim=0)) / (rk * args.lr), sum_e0,
+            state.comm.resid)
+        moved = tree_mod.tree_map(lambda d, d0: d.sum(dim=0) - d0,
+                                  state.delta, sum_d0)
+        ef_t = _tmax(term)
+        resid = _tmax(tree_mod.tree_map(torch.sub, moved, term))
         ef_identity.append((t, ef_t, resid))
         print(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
               f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
-    warm_first = sched is None and args.warmup and eng.algo.warmup_aware
+    warm_first = (sched is None and args.warmup
+                  and engine_mod.get_spec(args.algorithm).warmup_aware)
     k_round = hier.k1 if hier is not None else args.k
     cuda = device.type == "cuda"
     round_peak = 0
@@ -390,9 +429,10 @@ def run(argv=None) -> TrainResult:
         labels = torch.roll(toks, -1, dims=-1)
         logged = ((r + 1) % args.log_every == 0 or r == 0
                   or t + rk >= args.steps)
-        before = ((state.delta.sum(dim=0), state.comm.resid.sum(dim=0))
+        before = ((_tsum(state.delta, 0), _tsum(state.comm.resid, 0))
                   if ef_log and logged else None)
-        watch = (level_watch(eng, hier, state, rk, args.lr, args.deadline)
+        watch = (level_watch(comps, hier, state, rk, args.lr,
+                             args.deadline)
                  if hier is not None and logged else None)
         if cuda:
             # the round's own peak: the checks between rounds make
@@ -453,10 +493,25 @@ def run(argv=None) -> TrainResult:
                        round_peak_bytes=round_peak)
 
 
+def _present(buf) -> bool:
+    """A state field that holds a buffer or a tree (not (), not None)."""
+    return isinstance(buf, (torch.Tensor, dict))
+
+
+def _tsum(buf, dim: int):
+    """Σ over a worker axis of a buffer, or of every leaf of a tree."""
+    return tree_mod.tree_map(lambda x: x.sum(dim=dim), buf)
+
+
+def _tmax(buf) -> float:
+    """max|x| over a buffer or over every leaf of a tree."""
+    return max(x.abs().max().item() for x in tree_mod.leaves(buf))
+
+
 def state_folded(state, t: int) -> bool:
     """True when the round that ended at step ``t`` closed with an
     overlapped fold (flat: every round; hier: on the k2 cadence)."""
-    if state.overlap == ():
+    if getattr(state, "overlap", ()) == ():
         return False
     last = state.last_sync2 if hasattr(state, "last_sync2") else \
         state.last_sync
@@ -489,7 +544,7 @@ def wire_banner(pair, es, state) -> str:
             + f" vs raw {raw/2**20:.2f} MiB per worker payload")
 
 
-def level_watch(eng, hcfg: HierConfig, state, rk: int, lr: float,
+def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
                 deadline: float):
     """Before a logged hier round: for each level whose Δ sum the round's
     syncs move by a known term, the sums it starts from (on the host, out
@@ -501,14 +556,15 @@ def level_watch(eng, hcfg: HierConfig, state, rk: int, lr: float,
     at an overlapped fold under a deadline by Σ_p c_p/(pend_k_p γ) (the
     pods' pend_k differ once one misses).  Each move is held to 1e-4 ·
     max|Δ| plus the fp32 rounding of the mean, 2 n ulp(max|p|)/(k γ)."""
-    c1, c2 = eng.compressors
+    c1, c2 = comps
     pods, dper = hcfg.grid
     step2 = state.step + rk - state.last_sync2
+    overlap = getattr(state, "overlap", ())
     plan = []
     if c1 is not None and c1.error_feedback:
         plan.append(("delta1", 1, "ef", dper,
                      max(state.step + rk - state.last_sync1, 1)))
-    if step2 >= hcfg.k2 and state.overlap == ():
+    if step2 >= hcfg.k2 and overlap == ():
         if c2 is not None and c2.error_feedback:
             plan.append(("delta2", 0, "ef", pods, step2))
     elif step2 >= hcfg.k2 and deadline:
@@ -518,37 +574,41 @@ def level_watch(eng, hcfg: HierConfig, state, rk: int, lr: float,
         delta = getattr(state, level)
         if kind == "ef":
             # the level's residual: resid1 for Δ1, resid2 for Δ2
-            term0 = getattr(state.comm, "resid" + level[-1]).sum(
-                dim=dim).cpu()
+            term0 = tree_mod.tree_map(
+                lambda x: x.cpu(),
+                _tsum(getattr(state.comm, "resid" + level[-1]), dim))
         else:
-            ov = state.overlap
+            ov = overlap
             inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)
             glob = ov.pend.mean(dim=(0, 1))
             term0 = ((glob - ov.pend) * inv[:, :, None, None]).sum(
                 dim=(0, 1)).cpu()
             k = ov.pend_k.min().item()
-        starts.append((level, dim, kind, n, k, delta.sum(dim=dim).cpu(),
-                       term0, delta.abs().max().item()))
-    max_p0 = state.params.abs().max().item()
+        starts.append((level, dim, kind, n, k, tree_mod.tree_map(
+            lambda x: x.cpu(), _tsum(delta, dim)), term0, _tmax(delta)))
+    max_p0 = _tmax(state.params)
 
     def after(state, t):
         out = []
-        max_p = max(max_p0, state.params.abs().max().item())
+        max_p = max(max_p0, _tmax(state.params))
         for level, dim, kind, n, k, sum0, term0, max_d0 in starts:
             delta = getattr(state, level)
-            dev = delta.device
+            dev = tree_mod.leaves(delta)[0].device
             if kind == "ef":
-                e = getattr(state.comm, "resid" + level[-1])
-                term = (term0.to(dev) - e.sum(dim=dim)) / (k * lr)
+                term = tree_mod.tree_map(
+                    lambda t0, e: (t0.to(dev) - e.sum(dim=dim)) / (k * lr),
+                    term0, getattr(state.comm, "resid" + level[-1]))
             else:
-                term = term0.to(dev)
-            moved = delta.sum(dim=dim) - sum0.to(dev)
-            max_d = max(max_d0, delta.abs().max().item())
+                term = tree_mod.tree_map(lambda t0: t0.to(dev), term0)
+            moved = tree_mod.tree_map(
+                lambda d, s0: d.sum(dim=dim) - s0.to(dev), delta, sum0)
+            max_d = max(max_d0, _tmax(delta))
             limit = (1e-4 * max_d + 2 * n * float(np.spacing(np.float32(
                 max_p))) / (k * lr))
             out.append({"step": t, "level": level, "kind": kind,
-                        "term": term.abs().max().item(),
-                        "off": (moved - term).abs().max().item(),
+                        "term": _tmax(term),
+                        "off": _tmax(tree_mod.tree_map(torch.sub, moved,
+                                                       term)),
                         "limit": limit})
         return out
     return after

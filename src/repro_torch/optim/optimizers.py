@@ -161,16 +161,10 @@ def adam(lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
             return (_f32(x) - step).to(x.dtype), m.to(mdt), nu_new
 
         out = tree_mod.tree_map(upd, params, grads, state.mu, state.nu)
-        return _pick(out, 0), AdamState(_pick(out, 1), _pick(out, 2), count)
+        return (tree_mod.pick(out, 0),
+                AdamState(tree_mod.pick(out, 1), tree_mod.pick(out, 2), count))
 
     return Optimizer(init, update)
-
-
-def _pick(tree: Any, i: int) -> Any:
-    """The i-th element of every tuple leaf of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def inner_kind(cfg) -> Tuple[str, float]:

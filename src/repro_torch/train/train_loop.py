@@ -35,6 +35,17 @@ buffer as a (P, D, R, C) view, with no copy.
 The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
+
+Backend selection: ``vrl_cfg.update_backend``, resolved for the device by
+``core.engine.resolve_backend``.  "auto"/"fused" (and "xla" on the CPU)
+build the flat-buffer engine above; "reference" runs the per-leaf
+reference executor (``core.get_algorithm``) over tree-structured
+``WorkerState`` / ``HierState``: the same per-worker forward/backward,
+with the gradients written into a worker-stacked tree ((P, D, ...) leaves
+for the hierarchy), then the algorithm's functional local step, and at the
+round's end its sync (hierarchy: sync1, plus sync2 when the k2 cadence is
+due).  It launches no kernel, has no ``engine`` (None), and refuses what
+the reference's refuses there: overlapped rounds and membership.
 """
 from __future__ import annotations
 
@@ -44,9 +55,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs.base import ModelConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
+from repro_torch.core import get_algorithm
 from repro_torch.kernels.torch_update import sqrt_rn
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
@@ -115,17 +128,34 @@ class PhaseTimer:
                 for k, v in self.events.items()}
 
 
+def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
+                  gtree: Any, idx: tuple, tokens, labels) -> torch.Tensor:
+    """One worker's forward/backward on the views ``x[idx]`` of the
+    worker-stacked parameter tree; its gradients go into ``gtree``'s
+    ``[idx]`` slices (clipped to ``clip_norm`` when set).  Returns the
+    loss."""
+    pairs = tree_mod.leaves_with_path(tree_mod.tree_map(lambda x: x[idx],
+                                                        ptree))
+    leaves = [x.detach().requires_grad_() for _, x in pairs]
+    params = tree_mod.from_paths(
+        [(path, x) for (path, _), x in zip(pairs, leaves)])
+    loss = loss_fn(params, tokens, labels)
+    grads = torch.autograd.grad(loss, leaves)
+    if clip_norm:
+        grads = clip_by_global_norm(grads, clip_norm)
+    with torch.no_grad():
+        for gl, g in zip(tree_mod.leaves(gtree), grads):
+            gl[idx].copy_(g)
+    return loss.detach()
+
+
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                     device: torch.device | str = "cuda",
                     timed: bool = False) -> StepBundle:
     """``timed`` records CUDA-event spans around the forward/backward and
-    the engine update of every step (``StepBundle.timer``); CUDA only."""
+    the update of every step (``StepBundle.timer``); CUDA only."""
     device = torch.device(device)
-    template = abstract(transformer.model_defs(model_cfg))
-    eng = engine_mod.make_engine(vrl_cfg, template, device=device)
-    spec = eng.spec
     timer = PhaseTimer() if timed else None
-    gbuf: dict = {}             # params shape -> the reused gradient buffer
 
     def span(name: str):
         return contextlib.nullcontext() if timer is None else timer.span(name)
@@ -133,6 +163,14 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     def loss_fn(params, tokens, labels):
         logits = transformer.forward(model_cfg, params, tokens)
         return cross_entropy_lm(logits, labels)
+
+    if engine_mod.resolve_backend(vrl_cfg, device) == "reference":
+        return _reference_bundle(model_cfg, vrl_cfg, device, timer, span,
+                                 loss_fn)
+    template = abstract(transformer.model_defs(model_cfg))
+    eng = engine_mod.make_engine(vrl_cfg, template, device=device)
+    spec = eng.spec
+    gbuf: dict = {}             # params shape -> the reused gradient buffer
 
     def dead_grads(state):
         """The last step's gradient buffer (dead once the step is done)."""
@@ -150,24 +188,10 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         stacked = (-1, spec.rows, spec.lanes)    # the (W, R, C) views
         w = buf.view(stacked).shape[0]
         ptree = flat.unflatten_stacked(spec, state.params.view(stacked))
-        gleaves = tree_mod.leaves(flat.unflatten_stacked(spec,
-                                                         buf.view(stacked)))
-        losses = []
-        for i in range(w):
-            pairs = tree_mod.leaves_with_path(
-                tree_mod.tree_map(lambda x: x[i], ptree))
-            leaves = [x.detach().requires_grad_() for _, x in pairs]
-            params = tree_mod.from_paths(
-                [(path, x) for (path, _), x in zip(pairs, leaves)])
-            loss = loss_fn(params, tokens[i], labels[i])
-            grads = torch.autograd.grad(loss, leaves)
-            if vrl_cfg.clip_norm:
-                grads = clip_by_global_norm(grads, vrl_cfg.clip_norm)
-            with torch.no_grad():
-                for gl, g in zip(gleaves, grads):
-                    gl[i].copy_(g)
-            losses.append(loss.detach())
-            del grads, loss, params, leaves
+        gtree = flat.unflatten_stacked(spec, buf.view(stacked))
+        losses = [_worker_grads(loss_fn, vrl_cfg.clip_norm, ptree, gtree,
+                                (i,), tokens[i], labels[i])
+                  for i in range(w)]
         return buf, torch.stack(losses).mean()
 
     def local_step(state, tokens, labels):
@@ -216,3 +240,124 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                       round_step=round_step, timer=timer,
                       sync1_step=eng.sync1, sync2_step=eng.sync2)
 
+
+def _release(old: Any, new: Any) -> None:
+    """Empty, in place, every tree (dict) of the state ``old`` that ``new``
+    replaced, recursing into NamedTuple fields (CommState, AdamState, ...);
+    trees ``new`` still holds are the same objects and are kept.  The
+    per-leaf executor builds fresh dicts for what it replaces, so this
+    drops exactly the replaced leaves, and a tensor that ``new`` still
+    views stays alive through it."""
+    if old is new:
+        return
+    if isinstance(old, dict):
+        old.clear()
+    elif isinstance(old, tuple) and hasattr(old, "_fields") and \
+            type(old) is type(new):
+        for a, b in zip(old, new):
+            _release(a, b)
+
+
+def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
+                      device: torch.device, timer, span: Callable,
+                      loss_fn: Callable) -> StepBundle:
+    """The train step over the per-leaf reference executor
+    (``update_backend="reference"``; the reference's ``make_train_step``
+    reference branch)."""
+    if vrl_cfg.membership:
+        raise ValueError(
+            "membership (elastic fault tolerance) needs the flat-buffer "
+            "engine's MemberState; update_backend='reference' has none — "
+            "use 'auto', 'xla' or 'fused'")
+    if vrl_cfg.overlap:
+        raise ValueError(
+            "overlap needs the flat-buffer engine (its double-buffered "
+            "pend state); update_backend='reference' has no overlapped "
+            "round — use 'auto', 'xla' or 'fused'")
+    spec = engine_mod.get_spec(vrl_cfg.algorithm)
+    engine_mod._validate_overlap(vrl_cfg, spec,
+                                 comm_mod.resolve_pair(vrl_cfg)[0])
+    alg = get_algorithm(vrl_cfg.algorithm)
+    hier = spec.sync == "vrl2"
+    hcfg = engine_mod.hier_config(vrl_cfg)
+
+    def grads_fn(state, tokens, labels):
+        """Per-worker loss and gradients -> (a gradient tree shaped like
+        ``state.params``, mean loss over workers); tokens arrive
+        worker-stacked (W, ...), worker i the grid's (i // D, i % D) under
+        the hierarchy."""
+        grads = tree_mod.tree_map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            state.params)
+        w = tokens.shape[0]
+        losses = [_worker_grads(
+            loss_fn, vrl_cfg.clip_norm, state.params, grads,
+            divmod(i, hcfg.grid[1]) if hier else (i,), tokens[i], labels[i])
+            for i in range(w)]
+        return grads, torch.stack(losses).mean()
+
+    def local_step(state, tokens, labels):
+        with span("fwd_bwd"):
+            grads, loss = grads_fn(state, tokens, labels)
+        with span("local"):
+            state = alg.local_step(vrl_cfg, state, grads)
+        del grads
+        return state, loss
+
+    def sync1(state):
+        return engine_mod.ref_hier_sync1(vrl_cfg, state)
+
+    def sync2(state):
+        return engine_mod.ref_hier_sync2(vrl_cfg, state)
+
+    def round_syncs(state) -> list:
+        """The round-closing syncs; the hierarchy's round is one k1
+        period: sync1, then sync2 when the k2 cadence is due."""
+        if not hier:
+            return [lambda s: alg.sync(vrl_cfg, s)]
+        if hcfg.k2 % hcfg.k1:
+            raise ValueError(f"round execution needs k2 % k1 == 0; got "
+                             f"k1={hcfg.k1}, k2={hcfg.k2}")
+        return [sync1] + ([sync2] if state.step - state.last_sync2
+                          >= hcfg.k2 else [])
+
+    def sync_step(state):
+        with span("sync"):
+            return alg.sync(vrl_cfg, state)
+
+    def train_step(state, tokens, labels):
+        """The algorithm's per-step ``train_step`` (its local step, then
+        the syncs its cadence has due; their time falls in ``local``)."""
+        with span("fwd_bwd"):
+            grads, loss = grads_fn(state, tokens, labels)
+        with span("local"):
+            state = alg.train_step(vrl_cfg, state, grads)
+        return state, loss
+
+    def round_step(state, tokens_k, labels_k):
+        """k local steps, then the round-closing syncs.  Consumes ``state``
+        as the reference's round driver does (it donates the state to the
+        compiled round): each tree a step replaces is emptied in place as
+        soon as it is replaced, so the caller's handle on the round's start
+        state pins no model-sized buffer while the round runs.  Use the
+        state it returns."""
+        losses = []
+        for tokens, labels in zip(tokens_k, labels_k):
+            prev, (state, loss) = state, local_step(state, tokens, labels)
+            _release(prev, state)
+            losses.append(loss)
+        with span("sync"):
+            for sync in round_syncs(state):
+                prev, state = state, sync(state)
+                _release(prev, state)
+        return state, torch.stack(losses)
+
+    def init_state(seed: int, num_workers: int):
+        params = transformer.init_params(model_cfg, seed, device=device)
+        return alg.init(vrl_cfg, params, num_workers)
+
+    return StepBundle(init_state, train_step, local_step, sync_step,
+                      grads_fn, alg.average_model, None,
+                      round_step=round_step, timer=timer,
+                      sync1_step=sync1 if hier else None,
+                      sync2_step=sync2 if hier else None)

@@ -35,6 +35,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def pick(tree: Any, i: int) -> Any:
+    """The i-th element of every tuple leaf of ``tree`` (to split a tree of
+    pairs, as ``tree_map`` over a function returning tuples makes)."""
+    if isinstance(tree, dict):
+        return {k: pick(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def from_paths(pairs: List[Tuple[str, Any]]) -> Dict[str, Any]:
     """Inverse of :func:`leaves_with_path`: rebuild the nested dict."""
     out: Dict[str, Any] = {}

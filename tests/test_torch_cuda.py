@@ -24,7 +24,10 @@ hierarchy's momentum (nesterov on and off) and dense Adam steps; the
 hierarchy's EF round trips (grid form, a (P, 1, R, C) ref per pod) over
 the four grids, int8 and top-k, with rows holding a NaN compared NaN for
 NaN, and the flat round trip on the strided pod rows ``params[:, 0]``
-that level 2 compresses.
+that level 2 compresses; the tree-update API's per-leaf pair
+(``vrl_local_update``, ``vrl_sync_update``) at ragged sizes, on views one
+element off 16-byte alignment, fp32 and bf16 operands, x̂ broadcast over
+the worker axes, NaN for NaN, and one launch per leaf of a tree.
 """
 import numpy as np
 import pytest
@@ -546,3 +549,135 @@ def test_cuda_kernels_ef_flat_on_pod_rows(mode, grid):
                                                      **kw))
     _equal_nan(got, want)
     _equal_nan([e2[:, 0]], [want[1]])
+
+
+# ------------------------------------ the per-leaf pair (tree-update API)
+LEAF_SHAPES = [(64, 64), (1000,), (3, 5, 7), (4, 130, 7), (1,), (105,),
+               (2 ** 16 + 3,)]
+LEAF_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _leaf_inputs(seed, shape, dev, dts=("f32", "f32", "f32"), nan=False,
+                 offset=0):
+    """Three operands of ``shape`` in the dtypes ``dts``, from numpy; with
+    ``offset`` each is a view one element into a larger buffer (not
+    16-byte aligned); with ``nan`` a NaN planted in each."""
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    out = []
+    for i, dt in enumerate(dts):
+        x = rng.randn(n + offset).astype(np.float32)
+        if nan:
+            x[offset + (7 * i) % n] = np.nan
+        t = torch.from_numpy(x).to(dev).to(LEAF_DTYPES[dt])
+        out.append(t[offset:].view(shape))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+@pytest.mark.parametrize("dts", [("f32", "f32", "f32"),
+                                 ("bf16", "bf16", "f32"),
+                                 ("bf16", "f32", "bf16"),
+                                 ("f32", "bf16", "bf16")])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernels_leaf_local_bitwise(shape, dts, offset):
+    """vrl_local_update bitwise its plain version, ragged sizes and views
+    one element off 16-byte alignment included; Δ rounded to p's dtype in
+    the kernel."""
+    dev = _cuda_or_skip()
+    p, g, d = _leaf_inputs(41, shape, dev, dts, offset=offset)
+    assert offset == 0 or p.data_ptr() % 16
+    want = tu.vrl_local_update(p, g, d, lr=0.03)
+    got = _launched("vrl_local_update",
+                    lambda: tvu.vrl_local_update(p, g, d, lr=0.03))
+    _assert_equal([got], [want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+@pytest.mark.parametrize("dts", [("f32", "f32", "f32"),
+                                 ("bf16", "bf16", "f32"),
+                                 ("bf16", "f32", "bf16")])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernels_leaf_sync_bitwise(shape, dts, offset):
+    """vrl_sync_update bitwise its plain version at k = 3, γ = 0.07, x̂ of
+    p's shape."""
+    dev = _cuda_or_skip()
+    p, xb, d = _leaf_inputs(42, shape, dev, dts, offset=offset)
+    inv_kg = 1.0 / (3 * 0.07)
+    want = tu.vrl_sync_update(p, xb, d, inv_kg=inv_kg)
+    got = _launched("vrl_sync_update",
+                    lambda: tvu.vrl_sync_update(p, xb, d, inv_kg=inv_kg))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,shape", [((4,), (130, 7)), ((3,), (1000,)),
+                                        ((2, 2), (64, 64)), ((4,), (3,)),
+                                        ((2,), (2 ** 16 + 3,))])
+@pytest.mark.parametrize("dts", [("f32", "f32", "f32"),
+                                 ("bf16", "bf16", "f32")])
+def test_cuda_kernels_leaf_sync_broadcast_xbar(lead, shape, dts):
+    """x̂ shaped like p without its worker axes, read with a stride of 0
+    over them: bitwise the plain version on the broadcast."""
+    dev = _cuda_or_skip()
+    p, _, d = _leaf_inputs(43, lead + shape, dev, dts)
+    xb = _leaf_inputs(44, shape, dev, (dts[1],))[0]
+    want = tu.vrl_sync_update(p, xb, d, inv_kg=1.0 / (2 * 0.05))
+    got = _launched("vrl_sync_update",
+                    lambda: tvu.vrl_sync_update(p, xb, d,
+                                                inv_kg=1.0 / (2 * 0.05)))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (1000,), (4, 130, 7)])
+@pytest.mark.parametrize("p_dt", ["f32", "bf16"])
+def test_cuda_kernels_leaf_nan_rows(shape, p_dt):
+    """NaN in p, g, Δ or x̂ reaches the outputs where the plain version
+    has it, NaN for NaN."""
+    dev = _cuda_or_skip()
+    dts = (p_dt, p_dt, "f32")
+    p, g, d = _leaf_inputs(45, shape, dev, dts, nan=True)
+    want = tu.vrl_local_update(p, g, d, lr=0.1)
+    got = _launched("vrl_local_update",
+                    lambda: tvu.vrl_local_update(p, g, d, lr=0.1))
+    assert torch.isnan(got.float()).any()
+    _equal_nan([got], [want])
+    want = tu.vrl_sync_update(p, g, d, inv_kg=1.0 / 0.3)
+    got = _launched("vrl_sync_update",
+                    lambda: tvu.vrl_sync_update(p, g, d, inv_kg=1.0 / 0.3))
+    _equal_nan(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_leaf_tree_api_launches_per_leaf():
+    """The tree-update API launches each kernel once per leaf, and its
+    trees are bitwise the plain versions' leaf by leaf."""
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    shapes = {"a": (4, 64, 64), "b": {"c": (4, 1000), "d": (4, 3, 5, 7)}}
+
+    def tree(seed):
+        rng = np.random.RandomState(seed)
+
+        def make(s):
+            if isinstance(s, dict):
+                return {k: make(v) for k, v in s.items()}
+            return torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+        return make(shapes)
+    from repro_torch import tree as tm
+    p, g, d = tree(1), tree(2), tree(3)
+    xb = tm.tree_map(lambda x: x.mean(dim=0, keepdim=True), p)
+    n0 = dict(tvu.LAUNCHES)
+    out = ops.vrl_local_update_tree(p, g, d, lr=0.05)
+    po, do = ops.vrl_sync_update_tree(p, xb, d, k=3, lr=0.07)
+    torch.cuda.synchronize()
+    for name in ("vrl_local_update", "vrl_sync_update"):
+        assert tvu.LAUNCHES[name] == n0[name] + 3
+    inv_kg = 1.0 / (3 * 0.07)
+    for a, b, c, x, o, op_, od in zip(*(tm.leaves(t) for t in (
+            p, g, d, xb, out, po, do))):
+        _assert_equal([o], [tu.vrl_local_update(a, b, c, lr=0.05)])
+        _assert_equal([op_, od], tu.vrl_sync_update(a, x, c, inv_kg=inv_kg))
