@@ -10,12 +10,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, as is a directory without the repo's sources.
-2. build — compile every CUDA kernel of the training paths and the
-   tree-update API from ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, all at once).
-3. kernels — each of the twenty-three kernels' wrappers against its plain
-   PyTorch version on the card, on random fp32 inputs made with numpy from
-   a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
+2. build — compile every CUDA kernel of the training paths, the
+   tree-update API and the attention op from ``src/repro_torch/kernels/
+   csrc`` (one nvcc per source, all at once).
+3. kernels — each of the twenty-three update kernels' wrappers against its
+   plain PyTorch version on the card, on random fp32 inputs made with numpy
+   from a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
    R=1,237), over the variants: with and without Δ (and B), wd 0 and 1e-4,
    fp32 and bf16 moments, nesterov on and off, β ∈ {0.5, 1}, k_eff ∈ {1,
    2, 3}; the EF round trip int8 and top-k (k ∈ {8, 64, 256}) with and
@@ -63,6 +63,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
    (launches = the tree's leaf count) timed against its byte bound, the
    plain versions over the tree beside it.  No single PyTorch call
    computes either (library: none).
+   The attention op's kernel, ``flash_attention`` (``kernels.mha_flash``
+   and the (BH, S, D) wrapper), against its plain version to a tolerance,
+   not bitwise (its online softmax sums in another order than one
+   softmax): fp32 within rtol 2e-4 and atol 2e-5 (the reference's own),
+   bf16 within one bf16 ulp of the output beyond that; B ∈ {1, 2}, ragged
+   S ∈ {1, 100, 257, 512} padded to blocks of 64 or 128, D ∈ {16, 32, 64,
+   128}, GQA groups 1, 2, 7, causal on and off, window None, 16, 64, fp32
+   and bf16.  Then its path: ``kernels.mha_flash`` at the served models'
+   prefill widths, (B, S, H, KVH, D) = (4, 2048, 14, 2, 64) for
+   qwen2-0.5b and (4, 2048, 32, 8, 64) for granite-3-2b, fp32 and bf16,
+   window None and 512 — eight calls, the launch count zeroed just before
+   and read just after — each output against the plain version, the
+   kernel's time (CUDA events) beside the plain version's, the library's
+   (``scaled_dot_product_attention`` on the repeated (B, H, S, D) tensors,
+   causal, the window as a boolean mask; timed only) and the bound:
+   fp32 operations, 4·D per kept (query, key) pair, over 67 TFLOP/s.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -155,6 +171,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
      every step and ``vrl_sync_update_tree`` over the worker mean every
      k = 2 steps, 2 rounds: vrl_local_update 4 × the leaf count,
      vrl_sync_update 2 × it; losses finite, Σ_i Δ_i ≈ 0 after each sync.
+   - (s), (t) the serve CLI, ``repro_torch.launch.serve --batch 4
+     --prompt-len 32 --gen 32``, at full width with random weights from
+     seed 0: qwen2-0.5b and the reference CLI's default granite-3-2b (40
+     layers, d 2048, 2,533,531,648 parameters).  No
+     kernel launched (the reference's serving path runs none, and no
+     model calls mha_flash).  The output is (4, 64), its prompt kept,
+     every token in [0, V); every prefill and decode logit finite; the
+     greedy tokens are the decode logits' picks wherever their top-2
+     margin is clear; decode against prefill of the same prefix, at each
+     of the 31 steps, within 5e-4 · max|logit| with wq and wk × 0.1 (the
+     reference's init makes attention near one-hot at depth, and two
+     summation orders part: the JAX prefill and decode themselves differ
+     by more than 1e-2 · max|logit| at 24 layers, d 128, tests/
+     test_torch_serve.py; the port's difference under the init as drawn
+     is printed, not held).  Prefill ms, decode ms per
+     token, tok/s and the peak are printed.
    The CLI paths' peak memory is the most allocated during a round, as
    the train paths' is (``TrainResult.round_peak_bytes``).
    γ: the model's init rule (the reference's: fan-in taken as
@@ -210,11 +242,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    (W = 4), card against CPU under the same rules (int8's flip bound from
    the CPU run's ``ef_leaf`` payloads); and the card's per-leaf executor
    against its flat engine over one round from identical states, params
-   and Δ atol 1e-5.
+   and Δ atol 1e-5.  The serving path: the smoke qwen2-0.5b and
+   granite-3-2b on the card and on the CPU from the same parameters (wq,
+   wk × 0.1), full attention and a window of 8 (the ring buffer): prefill
+   logits and the cache leaf by leaf, decode logits over the CPU's greedy
+   tokens (atol 1e-4), the greedy tokens wherever the CPU's top-2 margin
+   exceeds twice that; and mha_flash at the smoke model's attention
+   shapes, the kernel against the CPU's plain version (fp32 tolerance).
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
-it), and last ``{"ok": true, "device": {...}}``.
+it; flash_attention's from its phase-3 path, its times at qwen2-0.5b's
+width, fp32, causal), and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -237,32 +276,34 @@ FULL_PARAMS = 494_032_768       # qwen2-0.5b's parameters per worker
 MODERATE = ((4, 65_536), (3, 1_237))   # (W, R) at C = 256
 LR = 0.05
 CSRC = "src/repro_torch/kernels/csrc/"
-REF = "src/repro/kernels/vrl_update.py:"
+VRL_REF = "src/repro/kernels/vrl_update.py:"
 # kernel: (its source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
-    "fused_local_sgd": ("vrl_update.cu", 152),
-    "fused_local_momentum": ("vrl_update.cu", 188),
-    "fused_local_adam": ("vrl_update.cu", 230),
-    "fused_sync_vrl": ("vrl_update.cu", 351),
-    "fused_sync_bvr": ("vrl_update.cu", 388),
-    "fused_sync_easgd": ("vrl_update.cu", 618),
-    "fused_ef_int8": ("comm_update.cu", 743),
-    "fused_ef_topk": ("comm_update.cu", 755),
-    "fused_fold_overlap": ("comm_update.cu", 521),
-    "fused_fold_overlap_bvr": ("comm_update.cu", 537),
-    "fused_fold_overlap_avg": ("comm_update.cu", 546),
-    "fused_hier_local_sgd": ("vrl_update.cu", 803),
-    "fused_sync_hier1": ("vrl_update.cu", 971),
-    "fused_sync_hier2": ("vrl_update.cu", 1003),
-    "fused_fold_overlap_hier2": ("vrl_update.cu", 570),
-    "fused_local_adam_sm3": ("vrl_update.cu", 302),
-    "fused_hier_local_momentum": ("vrl_update.cu", 833),
-    "fused_hier_local_adam": ("vrl_update.cu", 871),
-    "fused_hier_local_adam_sm3": ("vrl_update.cu", 927),
-    "fused_ef_int8_grid": ("comm_update.cu", 762),
-    "fused_ef_topk_grid": ("comm_update.cu", 769),
-    "vrl_local_update": ("leaf_update.cu", 73),
-    "vrl_sync_update": ("leaf_update.cu", 91)}
+    "fused_local_sgd": ("vrl_update.cu", f"{VRL_REF}152"),
+    "fused_local_momentum": ("vrl_update.cu", f"{VRL_REF}188"),
+    "fused_local_adam": ("vrl_update.cu", f"{VRL_REF}230"),
+    "fused_sync_vrl": ("vrl_update.cu", f"{VRL_REF}351"),
+    "fused_sync_bvr": ("vrl_update.cu", f"{VRL_REF}388"),
+    "fused_sync_easgd": ("vrl_update.cu", f"{VRL_REF}618"),
+    "fused_ef_int8": ("comm_update.cu", f"{VRL_REF}743"),
+    "fused_ef_topk": ("comm_update.cu", f"{VRL_REF}755"),
+    "fused_fold_overlap": ("comm_update.cu", f"{VRL_REF}521"),
+    "fused_fold_overlap_bvr": ("comm_update.cu", f"{VRL_REF}537"),
+    "fused_fold_overlap_avg": ("comm_update.cu", f"{VRL_REF}546"),
+    "fused_hier_local_sgd": ("vrl_update.cu", f"{VRL_REF}803"),
+    "fused_sync_hier1": ("vrl_update.cu", f"{VRL_REF}971"),
+    "fused_sync_hier2": ("vrl_update.cu", f"{VRL_REF}1003"),
+    "fused_fold_overlap_hier2": ("vrl_update.cu", f"{VRL_REF}570"),
+    "fused_local_adam_sm3": ("vrl_update.cu", f"{VRL_REF}302"),
+    "fused_hier_local_momentum": ("vrl_update.cu", f"{VRL_REF}833"),
+    "fused_hier_local_adam": ("vrl_update.cu", f"{VRL_REF}871"),
+    "fused_hier_local_adam_sm3": ("vrl_update.cu", f"{VRL_REF}927"),
+    "fused_ef_int8_grid": ("comm_update.cu", f"{VRL_REF}762"),
+    "fused_ef_topk_grid": ("comm_update.cu", f"{VRL_REF}769"),
+    "vrl_local_update": ("leaf_update.cu", f"{VRL_REF}73"),
+    "vrl_sync_update": ("leaf_update.cu", f"{VRL_REF}91"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82")}
 KERNELS = tuple(KERNEL_SOURCES)
 # the kernels over the (P, D, R, C) grid, timed at HIER_FULL
 HIER_KERNELS = frozenset({
@@ -273,6 +314,15 @@ HIER_KERNELS = frozenset({
 HIER_FULL = (2, 2, 1_930_240, 256)      # the same W=4 as a (P, D) grid
 # the tree-update API's pair, timed over the W=4 worker-stacked tree
 LEAF_KERNELS = frozenset({"vrl_local_update", "vrl_sync_update"})
+# the attention op's kernel, held to a tolerance and timed at ATTN_FULL
+ATTN_KERNELS = frozenset({"flash_attention"})
+# (B, S, H, KVH, D) of mha_flash at the served models' prefill widths
+ATTN_FULL = {"qwen2-0.5b": (4, 2048, 14, 2, 64),
+             "granite-3-2b": (4, 2048, 32, 8, 64)}
+ATTN_WINDOWS = (None, 512)
+# paths (s) and (t): the serve CLI at full width
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
+SERVE_REL_TOL = 5e-4        # prefill vs decode, × max|logit|
 HIER_MODERATE = ((2, 3, 4_096), (3, 2, 1_237), (4, 1, 4_096), (1, 4, 1_237))
 MAIN_LR = 1e-3
 MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
@@ -2254,6 +2304,370 @@ def ref_small_input(dev) -> None:
           f"(atol 1e-5)", flush=True)
 
 
+# ---------------------------------------- the attention op (to a tolerance)
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), x in fp32."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e.clamp_min(-125) - 8)
+
+
+def attention_close(got, want, tag) -> tuple:
+    """The kernel's output against the plain version's: fp32 within rtol
+    2e-4 and atol 2e-5 (the reference's own tolerance); bf16 within one
+    bf16 ulp of the output beyond that (both compute in fp32 and round
+    once; an output near zero is a cancelling sum whose fp32 error is more
+    than a bf16 ulp there).  Returns (max abs err, elements more than one
+    bf16 ulp apart)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash_attention {tag}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = 2e-5 + 2e-4 * w.abs()
+    past_ulp = 0
+    if got.dtype == torch.bfloat16:
+        ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        past_ulp = int((err > ulp).sum())
+        bound = bound + ulp
+    bad = int((err > bound).sum())
+    if bad or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"flash_attention {tag}: {bad} elements past "
+                             f"the tolerance (max abs err "
+                             f"{err.max().item():.3e}) or not finite")
+    return err.max().item(), past_ulp
+
+
+def attention_moderate_checks(dev):
+    """The attention op on the card against its plain version: B ∈ {1, 2};
+    ragged S ∈ {1, 100, 257, 512} (padded to the block, 64 or 128); D ∈
+    {16, 32, 64, 128}; GQA groups 1, 2, 7; causal on and off; window None,
+    16, 64; fp32 and bf16.  Then the (BH, S, D) wrapper.  Returns the
+    number of checks and {dtype: (max abs err, elements past one ulp)}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst = {torch.float32: [0.0, 0], torch.bfloat16: [0.0, 0]}
+    n = 0
+
+    def check(got, want, dt, tag):
+        nonlocal n
+        err, past = attention_close(got, want, tag)
+        worst[dt][0] = max(worst[dt][0], err)
+        worst[dt][1] += past
+        n += 1
+
+    for d in (16, 32, 64, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            i = 0
+            for s in (1, 100, 257, 512):
+                for causal in (True, False):
+                    for window in (None, 16, 64):
+                        for group in (1, 2, 7):
+                            b, kvh = 1 + i % 2, 1 + (i // 2) % 2
+                            blk = (64, 128)[(i // 3) % 2]
+                            i += 1
+                            q = torch.randn(b, s, group * kvh, d,
+                                            generator=gen, device=dev)
+                            k, v = (torch.randn(b, s, kvh, d, generator=gen,
+                                                device=dev)
+                                    for _ in range(2))
+                            q, k, v = (x.to(dt) for x in (q, k, v))
+                            kw = dict(causal=causal, window=window,
+                                      block_q=blk, block_k=blk)
+                            check(ops.mha_flash(q, k, v, **kw),
+                                  fa.mha_flash_ref(q, k, v, **kw), dt,
+                                  f"({b}, {s}, {group * kvh}, {kvh}, {d}) "
+                                  f"{dt} {kw}")
+            q, k, v = (torch.randn(6, 256, d, generator=gen,
+                                   device=dev).to(dt) for _ in range(3))
+            for causal, window in ((True, None), (False, None),
+                                   (True, 100)):
+                check(fa.flash_attention(q, k, v, causal=causal,
+                                         window=window),
+                      fa.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window), dt,
+                      f"(6, 256, {d}) {dt} causal {causal} window {window}")
+    torch.cuda.synchronize()
+    return n, worst
+
+
+def attention_cost(b, s, h, kvh, d, window, itemsize):
+    """Bytes (q, k, v read once, out written once, in their dtype) and fp32
+    operations (4·D per kept causal (query, key) pair) of one mha_flash."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return (itemsize * (2 * b * s * h * d + 2 * b * s * kvh * d),
+            4 * d * pairs * b * h)
+
+
+def sdpa_call(q, k, v, window):
+    """The library yardstick, timed only (the port never calls it):
+    ``scaled_dot_product_attention`` on the repeated (B, H, S, D) tensors,
+    causal, the window as a boolean mask."""
+    F = torch.nn.functional
+    group = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] >
+                                             pos[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask)
+
+
+def attention_full_width(dev):
+    """The attention op's path: ``kernels.mha_flash`` at the two served
+    models' prefill widths (ATTN_FULL), fp32 and bf16, window None and
+    512, its launch count zeroed just before and read just after; then
+    each output against the plain version, the kernel's time (CUDA
+    events), the plain version's, SDPA's and the bound.  Returns the
+    launches and {(model, dtype, window): numbers}."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cases = [(m, dt, w) for m in ATTN_FULL
+             for dt in (torch.float32, torch.bfloat16) for w in ATTN_WINDOWS]
+    inputs = {}
+    for model, dt, w in cases:
+        b, s, h, kvh, d = ATTN_FULL[model]
+        inputs[model, dt, w] = tuple(
+            torch.randn(b, s, n, d, generator=gen, device=dev).to(dt)
+            for n in (h, kvh, kvh))
+    fa.reset_launches()
+    outs = {c: kernels.mha_flash(*inputs[c], window=c[2]) for c in cases}
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != len(cases):
+        raise AssertionError(f"mha_flash: {launches} launches for "
+                             f"{len(cases)} calls")
+    rows = {}
+    for c in cases:
+        model, dt, w = c
+        q, k, v = inputs[c]
+        tag = f"{model} {ATTN_FULL[model]} {dt} window {w}"
+        err, past = attention_close(outs[c], fa.mha_flash_ref(q, k, v,
+                                                              window=w), tag)
+        free()
+        ms = time_ms(lambda: kernels.mha_flash(q, k, v, window=w), 10,
+                     warmup=2)
+        plain = time_ms(lambda: fa.mha_flash_ref(q, k, v, window=w), 3)
+        free()
+        library = time_ms(sdpa_call(q, k, v, w), 10, warmup=2)
+        free()
+        b_ms, by = bound_ms(*attention_cost(*ATTN_FULL[model], w,
+                                            dt.itemsize))
+        rows[c] = dict(ms=ms, plain=plain, library=library, bound=b_ms,
+                       by=by, err=err)
+        print(f"[3 kernels] flash_attention via mha_flash at {tag}: "
+              f"{ms:.3f} ms (bound {b_ms:.3f} ms by {by}, "
+              f"{100 * b_ms / ms:.1f}% of 67 TFLOP/s); plain {plain:.3f} ms; "
+              f"SDPA {library:.3f} ms; max abs err vs plain {err:.3e}"
+              + (f" ({past} elements one bf16 ulp apart)"
+                 if dt == torch.bfloat16 else ""), flush=True)
+    del outs, inputs
+    free()
+    return launches, rows
+
+
+# --------------------------------------------------- the serving path
+def decode_consistency(eng, out, s):
+    """Decode ``out``'s tokens after the prompt (teacher-forced) and hold
+    each step's logits against ``prefill`` of the same prefix at its last
+    position.  Returns (largest |decode − prefill| / max|prefill logit|,
+    every logit finite, the greedy tokens the decode logits give where
+    their top-2 margin exceeds the tolerance, else None)."""
+    logits, cache = eng.prefill(out[:, :s])
+    finite = bool(torch.isfinite(logits).all())
+    worst, picks = 0.0, []
+    for i in range(out.shape[1] - s - 1):
+        pos = s + i
+        dl, cache = eng.step(cache, out[:, pos:pos + 1], pos)
+        pl, _ = eng.prefill(out[:, :pos + 1])
+        finite &= bool(torch.isfinite(dl).all() & torch.isfinite(pl).all())
+        scale = pl.abs().max().item()
+        worst = max(worst, (dl - pl).abs().max().item() / scale)
+        top2 = torch.topk(dl[:, 0], 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * SERVE_REL_TOL * scale
+        picks.append(torch.where(sure, torch.argmax(dl[:, 0], dim=-1), -1))
+    return worst, finite, torch.stack(picks, dim=1)
+
+
+def serve_path(tag, arch, vu, fa):
+    """Paths (s), (t): ``repro_torch.launch.serve`` at full width (batch 4,
+    32 prompt tokens, 32 generated, random weights from seed 0): no
+    kernel launched (the reference's serving path runs none); the output's
+    shape, its prompt, every token in [0, V); then, on the engine the CLI
+    built, every prefill and decode logit finite and the greedy tokens the
+    decode logits give (where their top-2 margin is clear); and decode
+    against prefill of the same prefix within SERVE_REL_TOL · max|logit|
+    — with wq and wk × 0.1.  Under the reference's own init the attention
+    scores grow with depth until the softmax is near one-hot, and two
+    summation orders of the same logits part (the reference's JAX prefill
+    and decode at 24 layers, d 128, differ by more than 1e-2 · max|logit|,
+    tests/test_torch_serve.py; the port's on the card: printed as
+    measured, not held), as in ROADMAP Queue 3."""
+    from repro_torch.launch import serve
+    vu.reset_launches()
+    fa.reset_launches()
+    res = serve.run(["--arch", arch] + SERVE_ARGS)
+    launches = {**vu.LAUNCHES, **fa.LAUNCHES}
+    check_launches(tag, launches, {})
+    b, s, gen = 4, 32, 32
+    out, v = res.out, res.cfg.vocab_size
+    if tuple(out.shape) != (b, s + gen) or not torch.equal(out[:, :s],
+                                                           res.prompt):
+        raise AssertionError(f"path {tag}: output {tuple(out.shape)}")
+    if int(out.min()) < 0 or int(out.max()) >= v:
+        raise AssertionError(f"path {tag}: a token outside [0, {v})")
+    n_params = sum(x.numel() for x in tm_leaves(res.engine.params))
+    # param_count leaves out the final norm, as the reference's does
+    if n_params != res.cfg.param_count() + res.cfg.d_model:
+        raise AssertionError(f"path {tag}: {n_params} parameters")
+    raw, finite, picks = decode_consistency(res.engine, out, s)
+    if not finite:
+        raise AssertionError(f"path {tag}: a non-finite logit")
+    want = out[:, s + 1:]
+    off = int(((picks >= 0) & (picks != want)).sum())
+    if off:
+        raise AssertionError(f"path {tag}: {off} greedy tokens differ from "
+                             f"the decode logits' clear picks")
+    attn = res.engine.params["layers"]["attn"]
+    attn["wq"].mul_(0.1)
+    attn["wk"].mul_(0.1)
+    soft, finite, _ = decode_consistency(res.engine, out, s)
+    if not finite or soft > SERVE_REL_TOL:
+        raise AssertionError(f"path {tag}: decode vs prefill "
+                             f"{soft:.3e} · max|logit| (limit "
+                             f"{SERVE_REL_TOL}), finite {finite}")
+    per_tok = float(np.mean(res.decode_ms))
+    row = dict(tag=tag, prefill_ms=res.prefill_ms, decode_ms=per_tok,
+               tok_s=b * gen / res.wall_s, peak_gib=res.peak_bytes / 2 ** 30,
+               launches={})
+    print(f"[4 main path {tag}] {arch}, {n_params} parameters, batch {b}: "
+          f"prefill {res.prefill_ms:.3f} ms ({b} x {s} tokens), decode "
+          f"{per_tok:.3f} ms per token ({len(res.decode_ms)} steps, "
+          f"{min(res.decode_ms):.3f}-{max(res.decode_ms):.3f}), "
+          f"{row['tok_s']:.1f} tok/s batched, peak {row['peak_gib']:.2f} "
+          f"GiB; no kernel launched; {int((picks >= 0).sum())} greedy "
+          f"tokens re-derived; decode vs prefill of the same prefix "
+          f"{soft:.3e} · max|logit| with wq, wk × 0.1 (limit "
+          f"{SERVE_REL_TOL}), {raw:.3e} under the init as drawn (not "
+          f"held)", flush=True)
+    del res, attn
+    free()
+    return row
+
+
+def serve_small_input(dev) -> None:
+    """Phase 5 for the serving path: the smoke models (qwen2-0.5b and
+    granite-3-2b, 2 layers) on the card and on the CPU from the same
+    parameters (wq, wk × 0.1): prefill logits and the cache leaf by leaf,
+    decode logits over the CPU's greedy tokens, and the greedy tokens where
+    the CPU's top-2 margin exceeds twice the tolerance, full attention and
+    a window of 8 (ring buffer); then mha_flash at the smoke model's
+    attention shapes, the kernel on the card against the CPU."""
+    from repro_torch import kernels
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine
+    tol = 1e-4
+    notes = []
+    for arch in ("qwen2-0.5b", "granite-3-2b"):
+        cfg = registry.smoke_arch(arch)
+        params = transformer.init_params(cfg, seed=0)
+        attn = params["layers"]["attn"]
+        attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+        on_card = tm.tree_map(lambda x: x.to(dev), params)
+        gen = torch.Generator()
+        gen.manual_seed(4)
+        prompt = torch.randint(0, cfg.vocab_size, (3, 12), generator=gen)
+        for window in (None, 8):
+            tag = f"{arch} smoke, window {window}"
+            with torch.no_grad():
+                lc, cc = transformer.prefill(cfg, params, prompt, 32,
+                                             window=window)
+                lg, cg = transformer.prefill(cfg, on_card, prompt.to(dev),
+                                             32, window=window)
+            close(lg.cpu(), lc, tol, f"{tag}: prefill logits")
+            for key in cc:
+                close(cg[key].cpu(), cc[key],
+                      tol * max(1.0, cc[key].abs().max().item()),
+                      f"{tag}: prefill cache {key}")
+            cpu, card = (Engine(cfg, p, max_len=32, window=window)
+                         for p in (params, on_card))
+            want = cpu.generate(prompt, 16)
+            got = card.generate(prompt, 16).cpu()
+            # the CPU's tokens, teacher-forced through both
+            _, c_cpu = cpu.prefill(prompt)
+            _, c_card = card.prefill(prompt)
+            for i in range(15):
+                pos = 12 + i
+                tok = want[:, pos:pos + 1]
+                l_cpu, c_cpu = cpu.step(c_cpu, tok, pos)
+                l_card, c_card = card.step(c_card, tok, pos)
+                close(l_card.cpu(), l_cpu, tol, f"{tag}: decode logits at "
+                      f"{pos}")
+            margins = decode_margins(cpu, want, 12)
+            compared = 0
+            for row in range(3):
+                for i in range(16):
+                    if margins[row, i] <= 2 * tol:
+                        break           # either pick is right; they part
+                    if got[row, 12 + i] != want[row, 12 + i]:
+                        raise AssertionError(f"{tag}: greedy token {i} of "
+                                             f"row {row} differs")
+                    compared += 1
+            notes.append(f"{tag}: {compared} greedy tokens equal")
+    rng = np.random.RandomState(6)
+    cfg = registry.smoke_arch("qwen2-0.5b")
+    for s in (12, 28):
+        q, k, v = (torch.from_numpy(rng.randn(
+            3, s, n, cfg.head_dim).astype(np.float32)) for n in (
+                cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+        for window in (None, 8):
+            want = kernels.mha_flash(q, k, v, window=window)
+            got = kernels.mha_flash(q.to(dev), k.to(dev), v.to(dev),
+                                    window=window).cpu()
+            attention_close(got, want, f"smoke (3, {s}, {cfg.num_heads}, "
+                            f"{cfg.num_kv_heads}, {cfg.head_dim}) window "
+                            f"{window}, card vs CPU")
+    print(f"[5 small input] serving card vs CPU: prefill logits and cache, "
+          f"decode logits (atol {tol}), {'; '.join(notes)}; mha_flash at "
+          f"the smoke model's shapes within rtol 2e-4, atol 2e-5 of the "
+          f"CPU", flush=True)
+
+
+def decode_margins(eng, out, s) -> np.ndarray:
+    """The top-2 margin of the logits behind each generated token of
+    ``out`` (B, s + n): the prefill's last position, then each decode
+    step's."""
+    logits, cache = eng.prefill(out[:, :s])
+    margins = []
+    for i in range(out.shape[1] - s):
+        top2 = torch.topk(logits[:, -1], 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        if s + i + 1 < out.shape[1]:
+            logits, cache = eng.step(cache, out[:, s + i:s + i + 1], s + i)
+    return np.stack(margins, axis=1)
+
+
+def close(got, want, atol, tag) -> None:
+    err = (got.float() - want.float()).abs().max().item()
+    if got.shape != want.shape or got.dtype != want.dtype or err > atol:
+        raise AssertionError(f"{tag}: max abs err {err:.3e} (atol {atol}); "
+                             f"{got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+
+
+
 def _delta_tree(eng, state):
     """The flat engine's Δ as a worker-stacked tree (views)."""
     from repro_torch.core import flat
@@ -2271,6 +2685,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import torch_update as tu
     from repro_torch.kernels import vrl_update as vu
     from repro_torch.launch import train as launch
@@ -2286,6 +2701,7 @@ def main() -> int:
     vu._lib()
     vu._comm_lib()
     vu._leaf_lib()
+    fa._lib()
     print(f"[2 build] {', '.join(build.SOURCES)} built and loaded in "
           f"{time.time() - t0:.1f}s", flush=True)
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
@@ -2321,7 +2737,8 @@ def main() -> int:
     times.update(leaf_t)
     plain.update(leaf_p)
     shapes = {name: HIER_FULL if name in HIER_KERNELS else FULL
-              for name in KERNELS if name not in LEAF_KERNELS}
+              for name in KERNELS
+              if name not in LEAF_KERNELS | ATTN_KERNELS}
     bounds.update({name: bound_ms(*COSTS[name](*shape))
                    for name, shape in shapes.items()})
     for name in shapes:
@@ -2333,6 +2750,22 @@ def main() -> int:
               f"plain "
               f"{chk.err[name]}", flush=True)
     print(f"[3 kernels] {chk.count} bitwise checks in all", flush=True)
+    n_attn, attn_worst = attention_moderate_checks(dev)
+    print(f"[3 kernels] flash_attention: {n_attn} checks of mha_flash (B "
+          f"1-2, S 1, 100, 257, 512, D 16-128, GQA groups 1, 2, 7, causal "
+          f"on and off, window None, 16, 64) and of the (BH, S, D) wrapper "
+          f"against the plain version within the tolerance: fp32 max abs "
+          f"err {attn_worst[torch.float32][0]:.3e}; bf16 "
+          f"{attn_worst[torch.bfloat16][0]:.3e} "
+          f"({attn_worst[torch.bfloat16][1]} elements one bf16 ulp apart)",
+          flush=True)
+    attn_launches, attn_rows = attention_full_width(dev)
+    attn_main = attn_rows["qwen2-0.5b", torch.float32, None]
+    times["flash_attention"] = attn_main["ms"]
+    plain["flash_attention"] = attn_main["plain"]
+    library["flash_attention"] = attn_main["library"]
+    bounds["flash_attention"] = (attn_main["bound"], attn_main["by"])
+    chk.err["flash_attention"] = max(r["err"] for r in attn_rows.values())
 
     # ------------------------------------------------------ 4 main paths
     res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
@@ -2395,8 +2828,12 @@ def main() -> int:
     res_q = cli_path("(q) hier_vrl_sgd+sgd (2, 2), --backend reference "
                      "--compress int8", PATH_Q, {}, launch, vu, grid=(2, 2))
     res_r = tree_api_path(dev, vu)
+    # the serve CLI at full width (no kernel: the reference's serving path
+    # runs none); mha_flash's launches come from its path in phase 3
+    serve_path("(s) serve", "qwen2-0.5b", vu, fa)
+    serve_path("(t) serve", "granite-3-2b", vu, fa)
     # each kernel's launches on the first path that runs it
-    main_launches = {}
+    main_launches = {"flash_attention": attn_launches}
     for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
                   res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o,
                   res_p_, res_q, res_r):
@@ -2407,13 +2844,14 @@ def main() -> int:
     small_input_agreement(dev)
     hier_small_input(dev)
     ref_small_input(dev)
+    serve_small_input(dev)
 
     kernels = []
     for name in KERNELS:
         b, by = bounds[name]
-        src, line = KERNEL_SOURCES[name]
+        src, ref = KERNEL_SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": CSRC + src,
-                        "replaces": f"{REF}{line}",
+                        "replaces": ref,
                         "launches": main_launches[name],
                         "max_abs_err": chk.err[name], "ms": times[name],
                         "plain_ms": plain[name], "bound_ms": b,

@@ -1,15 +1,16 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
 Lists only the architectures whose model family the port runs (the dense
-family: qwen2-0.5b).  The reference's other families join as they are
-ported (ROADMAP Queue 1).
+family: qwen2-0.5b, and granite-3-2b, the reference serve CLI's default).
+The reference's other families join as they are ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import granite_3_2b, qwen2_0_5b
 from repro_torch.configs.base import ModelConfig, reduced
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [qwen2_0_5b.CONFIG]}
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in [qwen2_0_5b.CONFIG, granite_3_2b.CONFIG]}
 
 
 def get_arch(arch_id: str) -> ModelConfig:

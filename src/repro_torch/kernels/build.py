@@ -7,9 +7,12 @@ loads from the cache.  ``build_all`` starts one ``nvcc`` per source at
 once.  Nothing here runs at import time: the CPU tests import this module
 on machines without ``nvcc``.
 
-Flags: ``-fmad=false`` keeps every multiply and add separately rounded (no
-FMA contraction) and fast math stays off (IEEE division), so the kernels
-are bitwise their plain PyTorch versions (``kernels/torch_update``).
+Flags: fast math stays off everywhere (IEEE division, accurate ``expf``).
+The update kernels also take ``-fmad=false``, which keeps every multiply
+and add separately rounded (no FMA contraction), so they are bitwise their
+plain PyTorch versions (``kernels/torch_update``).  ``flash_attention`` is
+held to a tolerance, not bitwise, and may contract into FMAs: without it
+its fp32 rate would halve (``SOURCE_FLAGS``).
 """
 from __future__ import annotations
 
@@ -24,9 +27,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("vrl_update", "comm_update", "leaf_update")
+SOURCES = ("vrl_update", "comm_update", "leaf_update", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# per source, after NVCC_FLAGS: the bitwise update kernels contract nothing
+SOURCE_FLAGS = {"vrl_update": ("-fmad=false",),
+                "comm_update": ("-fmad=false",),
+                "leaf_update": ("-fmad=false",),
+                "flash_attention": ()}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -44,9 +52,14 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
@@ -59,7 +72,7 @@ def _compile(names: Iterable[str]) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []

@@ -1,4 +1,13 @@
-"""The tree-update API (``repro.kernels.ops``, its VRL-SGD part).
+"""User-facing kernel ops (``repro.kernels.ops``): the attention op and the
+tree-update API.
+
+``mha_flash`` is causal (and sliding-window) attention over (B, S, H, D)
+queries with GQA keys and values, the reference wrapper's function: on the
+card one launch of ``csrc/flash_attention.cu``, which reads the KV head
+h // group and the caller's strides in place (the reference repeats the KV
+heads, moves the heads next to the batch and pads a copy); for CPU tensors
+the plain version with the reference's layout steps
+(``kernels/flash_attention.mha_flash_ref``).
 
 ``vrl_local_update_tree`` / ``vrl_sync_update_tree`` apply the paper's
 local step (eqs. 5-6) and sync (eq. 4) leaf by leaf over whole parameter
@@ -11,17 +20,39 @@ whole model instead of one per leaf.
 The reference pads each leaf to a (R, 256) tile multiple for its Pallas
 blocks (``_leaf_tile``, ``_to_2d``); the kernels here take the element
 count and handle the tail, so nothing is padded and ``block`` is accepted
-and ignored.  The attention and SSD ops of the reference's module are
-not ported yet (ROADMAP Queue 2).
+and ignored.  The SSD op of the reference's module is not ported yet
+(ROADMAP Queue 2).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import vrl_update as vu
+
+
+# ------------------------------------------------------------ attention op
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, KVH, D) -> (B, S, H, D) in q's dtype.
+
+    The KV heads serve H / KVH query heads each (GQA), and S is padded with
+    zeros to a multiple of max(block_q, block_k), as the reference pads: so
+    with ``causal=False`` the queries attend to the padded zero keys too
+    (score 0, value 0), as they do in the reference.
+    """
+    if q.device.type == "cpu":
+        return fa.mha_flash_ref(q, k, v, causal=causal, window=window,
+                                block_q=block_q, block_k=block_k)
+    s = q.shape[1]
+    s_pad = s + (-s) % max(block_q, block_k)
+    fa.check_blocks(s_pad, block_q, block_k)
+    return fa.attend_bshd(q, k, v, causal=causal, window=window,
+                          s_pad=s_pad)
 
 
 def vrl_local_update_tree(params: Any, grads: Any, delta: Any, *, lr: float,

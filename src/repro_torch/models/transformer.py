@@ -3,7 +3,9 @@ embedding -> pre-norm blocks (GQA attention + gated MLP) -> norm -> tied
 logits.
 
 Layer parameters stay stacked on a leading "layers" axis, the reference's
-tree layout; a Python loop over that axis takes the place of ``lax.scan``.
+tree layout; a Python loop over that axis takes the place of ``lax.scan``
+(decode and prefill stack their per-layer caches on a leading layer axis,
+so the cache tree is the reference's too).
 The reference's ``remat`` only saves activation memory and is left out:
 at the sizes the port trains, activations are a small share of the card.
 """
@@ -63,6 +65,15 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + mlp(cfg, p["mlp"], h)
 
 
+def embed_inputs(cfg: ModelConfig, params: dict,
+                 inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) int -> embeddings (B, S, d)."""
+    if cfg.frontend == "codec":
+        raise NotImplementedError("the codec frontend is not ported yet "
+                                  "(ROADMAP Queue 1)")
+    return params["embed"][inputs]
+
+
 def logits_out(cfg: ModelConfig, params: dict,
                x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -78,15 +89,93 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 
     (The reference also returns an MoE aux loss, always 0 for the dense
     family; the port returns the logits alone.)"""
-    x = params["embed"][inputs]
+    x = embed_inputs(cfg, params, inputs)
     if positions is None:
         positions = torch.arange(x.shape[-2], device=x.device).expand(
             x.shape[:-1])
     # unbind once: its backward stacks the L layer gradients in one pass,
     # where L separate a[i] selects would each scatter into a zeroed
     # full-depth buffer (O(L²) traffic)
-    per_layer = tree_mod.tree_map(lambda a: a.unbind(0), params["layers"])
-    for i in range(cfg.num_layers):
-        layer_p = tree_mod.tree_map(lambda t: t[i], per_layer)
+    for layer_p in _layers(cfg, params):
         x = _block(cfg, layer_p, x, positions, window)
     return logits_out(cfg, params, x)
+
+
+def _layers(cfg: ModelConfig, params: dict) -> list:
+    """The per-layer parameter trees, views of the stacked leaves."""
+    per_layer = tree_mod.tree_map(lambda a: a.unbind(0), params["layers"])
+    return [tree_mod.tree_map(lambda t: t[i], per_layer)
+            for i in range(cfg.num_layers)]
+
+
+def _stack(caches: list) -> dict:
+    return {key: torch.stack([c[key] for c in caches])
+            for key in caches[0]}
+
+
+# ------------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               window: Optional[int] = None,
+               device: torch.device | str = "cpu") -> dict:
+    """Per-layer KV caches stacked on a leading layer axis (zeros)."""
+    layer_defs(cfg)                     # refuses the families not ported
+    eff_len = min(cache_len, window) if window is not None else cache_len
+    layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device)
+    return {key: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                             device=t.device) for key, t in layer.items()}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                inputs: torch.Tensor, pos,
+                window: Optional[int] = None):
+    """One-token decode against a cache. inputs: (B, 1) ids; pos: the
+    position of that token (an int or a 0-d tensor, read on the host).
+
+    Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
+    """
+    layer_defs(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    eff_window = window if window is not None else cfg.attn_window
+    new = []
+    for i, layer_p in enumerate(_layers(cfg, params)):
+        y, c = attention.decode_attend(
+            cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
+            {key: t[i] for key, t in cache.items()}, pos, window=eff_window)
+        x = x + y
+        x = x + mlp(cfg, layer_p["mlp"],
+                    rms_norm(x, layer_p["norm2"], cfg.norm_eps))
+        new.append(c)
+    return logits_out(cfg, params, x), _stack(new)
+
+
+def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+            cache_len: int, window: Optional[int] = None,
+            last_only: bool = False):
+    """Cache-building prefill: the full-sequence forward that also emits
+    every layer's decode cache, stacked on the layer axis.
+
+    Returns (logits (B, S, V) — (B, 1, V) with ``last_only`` — , cache);
+    the cache is layout-compatible with ``init_cache``/``decode_step``, in
+    the activations' dtype.
+    """
+    layer_defs(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    positions = torch.arange(x.shape[-2], device=x.device).expand(
+        x.shape[:-1])
+    eff_window = window if window is not None else cfg.attn_window
+    caches = []
+    for layer_p in _layers(cfg, params):
+        y, kv = attention.attend_full(
+            cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
+            positions, window=eff_window, return_kv=True)
+        caches.append(attention.prefill_kv_cache(cfg, kv, cache_len,
+                                                 eff_window, x.dtype))
+        x = x + y
+        x = x + mlp(cfg, layer_p["mlp"],
+                    rms_norm(x, layer_p["norm2"], cfg.norm_eps))
+    if last_only:
+        # serving needs only the next-token distribution: logits for every
+        # prefill position would be a (B, S, V) tensor for nothing
+        x = x[..., -1:, :]
+    return logits_out(cfg, params, x), _stack(caches)

@@ -28,6 +28,16 @@ that level 2 compresses; the tree-update API's per-leaf pair
 (``vrl_local_update``, ``vrl_sync_update``) at ragged sizes, on views one
 element off 16-byte alignment, fp32 and bf16 operands, x̂ broadcast over
 the worker axes, NaN for NaN, and one launch per leaf of a tree.
+
+The attention kernel (``csrc/flash_attention.cu``, behind
+``kernels.mha_flash`` and ``kernels/flash_attention.flash_attention``) is
+held to a tolerance, not bitwise (its online softmax sums in another order
+than the one-pass plain version): fp32 rtol 2e-4 / atol 2e-5, bf16 one
+bf16 ulp of the output beyond that fp32 tolerance (an output near zero is
+a cancelling sum, whose fp32 error is more than a bf16 ulp there); over
+ragged S, GQA groups 1, 2 and 7, D 16, 32, 64 and 128, causal on and off,
+windows, views of a fused qkv buffer; the
+wrapper raises on a head dim or dtype the kernel does not take.
 """
 import numpy as np
 import pytest
@@ -681,3 +691,115 @@ def test_cuda_kernels_leaf_tree_api_launches_per_leaf():
             p, g, d, xb, out, po, do))):
         _assert_equal([o], [tu.vrl_local_update(a, b, c, lr=0.05)])
         _assert_equal([op_, od], tu.vrl_sync_update(a, x, c, inv_kg=inv_kg))
+
+
+# ------------------------------------------------- attention (tolerance)
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), x in fp32."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e.clamp_min(-125) - 8)
+
+
+def _assert_attention_close(got: torch.Tensor, want: torch.Tensor):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+    else:
+        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        bound = ulp + 2e-5 + 2e-4 * w.abs()
+        assert int(((g - w).abs() > bound).sum()) == 0
+
+
+def _mha_inputs(seed, b, s, h, kvh, d, dev, dtype):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32)).to(
+        device=dev, dtype=dtype) for n in (h, kvh, kvh)]
+
+
+FLASH_CASES = [
+    # b, s, h, kvh, d, causal, window
+    (1, 1, 2, 1, 64, True, None),
+    (2, 100, 4, 2, 16, True, None),
+    (1, 257, 7, 1, 32, True, 16),
+    (2, 512, 4, 4, 64, True, 64),
+    (1, 200, 2, 1, 128, True, None),
+    (2, 130, 6, 3, 64, False, None),
+    (1, 96, 2, 2, 32, False, 16),
+    (1, 70, 2, 1, 16, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_mha_flash_matches_plain(case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    b, s, h, kvh, d, causal, window = case
+    q, k, v = _mha_inputs(s + d, b, s, h, kvh, d, dev, dtype)
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = ops.mha_flash(q, k, v, causal=causal, window=window, block_q=64,
+                        block_k=64)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    want = fa.mha_flash_ref(q, k, v, causal=causal, window=window,
+                            block_q=64, block_k=64)
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_flash_attention_bhsd(d, dtype):
+    """The (BH, S, D) wrapper, the reference kernel's own interface."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda_or_skip()
+    q, k, v = (x[:, :, 0] for x in _mha_inputs(d, 6, 256, 1, 1, d, dev,
+                                               dtype))
+    for causal, window in ((True, None), (False, None), (True, 100)):
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+        _assert_attention_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_mha_flash_reads_views():
+    """q, k, v as views of one fused (B, S, H + 2 KVH, D) buffer and a
+    misaligned view: read through their strides (or copied), same result."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(3)
+    qkv = torch.from_numpy(rng.randn(2, 150, 8, 64).astype(np.float32)).to(
+        dev)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    want = fa.mha_flash_ref(q, k, v, block_q=64, block_k=64)
+    _assert_attention_close(ops.mha_flash(q, k, v, block_q=64, block_k=64),
+                            want)
+    flat = torch.from_numpy(rng.randn(1 + 2 * 150 * 4 * 64).astype(
+        np.float32)).to(dev)
+    qm = flat[1:].view(2, 150, 4, 64)
+    _assert_attention_close(
+        ops.mha_flash(qm, k, v, block_q=64, block_k=64),
+        fa.mha_flash_ref(qm, k, v, block_q=64, block_k=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(48, torch.float32),
+                                     (256, torch.float32),
+                                     (64, torch.float16),
+                                     (64, torch.float64)])
+def test_cuda_kernels_mha_flash_raises_on_what_it_does_not_take(d, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    q = torch.zeros(1, 64, 2, d, device=dev, dtype=dtype)
+    n0 = fa.LAUNCHES["flash_attention"]
+    with pytest.raises((ValueError, TypeError)):
+        ops.mha_flash(q, q, q, block_q=64, block_k=64)
+    with pytest.raises(TypeError):
+        ops.mha_flash(q, q.float() if dtype != torch.float32 else q.double(),
+                      q, block_q=64, block_k=64)
+    assert fa.LAUNCHES["flash_attention"] == n0
