@@ -11,8 +11,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
 1. device — the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, as is a directory without the repo's sources.
 2. build — compile every CUDA kernel of the training paths, the
-   tree-update API and the attention op from ``src/repro_torch/kernels/
-   csrc`` (one nvcc per source, all at once).
+   tree-update API, the attention op and the SSD op from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
 3. kernels — each of the twenty-three update kernels' wrappers against its
    plain PyTorch version on the card, on random fp32 inputs made with numpy
    from a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
@@ -79,6 +79,29 @@ Phases (each prints a line; any failure raises and exits non-zero):
    (``scaled_dot_product_attention`` on the repeated (B, H, S, D) tensors,
    causal, the window as a boolean mask; timed only) and the bound:
    fp32 operations, 4·D per kept (query, key) pair, over 67 TFLOP/s.
+   The SSD op's kernel, ``ssd_scan`` (``kernels.ssd_chunk_scan`` and the
+   (BH, L, P) wrapper), against its plain version to a tolerance, not
+   bitwise: fp32 within rtol 2e-4 and atol 2e-5 · max(1, max|y|) (the
+   reference tests' tolerance on unit-scale outputs, scaled with the
+   output: at Q = 256 cum falls by hundreds within a chunk, and the plain
+   version's fp32 prefix sums carry ulp(|cum|) into every decay), bf16
+   one bf16 ulp beyond that; on numpy draws like the reference tests',
+   P ∈ {16, 64}, N ∈ {8, 128}, Q ∈ {16, 64, 256} with 1 to 8 chunks, L a
+   chunk multiple or ragged, B ∈ {1, 2} and H ∈ {1, 3, 32} in turn, fp32
+   and bf16, an a_log that drives cum below −100 inside a chunk, the
+   (BH, L, P) wrapper with a per-(batch, head) a_log, and mixed dtypes
+   of x, dt, B and C.  Then its path:
+   mamba2-370m's layer 0 at full width (random weights from seed 0, token
+   ids (4, 2048)), its x, dt, B and C as ``ssm_forward`` makes them, one
+   ``kernels.ssd_chunk_scan(chunk=256)`` with the launch count zeroed just
+   before and read just after (1 launch), held against the plain version
+   and the model's ``ssd_chunked`` (1e-4 · max(1, max|y|)), timed beside
+   the plain version and the bound (fp32 operations of the chunked form:
+   2N per kept pair once per batch, B and C being shared by its heads,
+   then per head 2P + 1 per kept pair and 4·P·N per row, over 67 TFLOP/s;
+   the sequential recurrence's 5·P·N per step and head printed beside it;
+   no PyTorch call computes the scan: library none); then the same in
+   bf16.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -187,6 +210,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
      test_torch_serve.py; the port's difference under the init as drawn
      is printed, not held).  Prefill ms, decode ms per
      token, tok/s and the peak are printed.
+   - (u) mamba2-370m (48 layers, d 1024, 368,227,840 parameters per
+     worker) through ``repro_torch.launch.train --arch mamba2-370m
+     --workers 4 --batch 4 --seq 256 --steps 7 --k 2 --lr 1e-3 --warmup``
+     (one full 256-step chunk per sequence): vrl_sgd + sgd, rounds of 1,
+     2, 2, 2: fused_local_sgd 7, fused_sync_vrl 4 (the model's own
+     ``ssd_chunked`` scan, as in the reference: no ssd_scan launch); the
+     checks of the qwen2 CLI path, Σ_i Δ_i with the fp32 rounding of x̂
+     added to its bound, 2 W ulp(max|p|)/(k_eff γ) per sync (Δ is O(1)
+     here, where qwen2's init makes it ~1e12, so that rounding is no
+     longer negligible beside 1e-4 · max|Δ|, as for the Adam paths).
+   - (v) ``repro_torch.launch.serve --arch mamba2-370m --batch 4
+     --prompt-len 288 --gen 32`` (a full chunk and a padded one, so the
+     SSM state crosses a chunk boundary): the checks of (s), with decode
+     against prefill held under the init as drawn (no attention to
+     soften).
    The CLI paths' peak memory is the most allocated during a round, as
    the train paths' is (``TrainResult.round_peak_bytes``).
    γ: the model's init rule (the reference's: fan-in taken as
@@ -249,11 +287,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
    tokens (atol 1e-4), the greedy tokens wherever the CPU's top-2 margin
    exceeds twice that; and mha_flash at the smoke model's attention
    shapes, the kernel against the CPU's plain version (fp32 tolerance).
+   The ssm family: the smoke mamba2-370m on the card and on the CPU from
+   the same parameters: prefill logits and both cache leaves (the SSM
+   state, the conv window) over 40 tokens, decode logits over the CPU's
+   greedy tokens (atol 1e-4) and the greedy tokens where the margin is
+   clear; one vrl_sgd + sgd slice (W = 2, seq 40, 7 steps: losses rtol
+   1e-4, params atol 1e-4, Δ atol 1e-4/(k γ)); and ssd_chunk_scan at the
+   smoke model's shapes, the kernel against the CPU's plain version.
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
-it; flash_attention's from its phase-3 path, its times at qwen2-0.5b's
-width, fp32, causal), and last ``{"ok": true, "device": {...}}``.
+it; flash_attention's and ssd_scan's from their phase-3 paths, their
+times at qwen2-0.5b's width, fp32, causal, and at mamba2-370m's layer 0,
+fp32), and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -303,7 +349,8 @@ KERNEL_SOURCES = {
     "vrl_local_update": ("leaf_update.cu", f"{VRL_REF}73"),
     "vrl_sync_update": ("leaf_update.cu", f"{VRL_REF}91"),
     "flash_attention": ("flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:82")}
+                        "src/repro/kernels/flash_attention.py:82"),
+    "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:74")}
 KERNELS = tuple(KERNEL_SOURCES)
 # the kernels over the (P, D, R, C) grid, timed at HIER_FULL
 HIER_KERNELS = frozenset({
@@ -320,6 +367,10 @@ ATTN_KERNELS = frozenset({"flash_attention"})
 ATTN_FULL = {"qwen2-0.5b": (4, 2048, 14, 2, 64),
              "granite-3-2b": (4, 2048, 32, 8, 64)}
 ATTN_WINDOWS = (None, 512)
+# the SSD op's kernel, held to a tolerance and timed on mamba2-370m's layer
+# 0 at full width: token ids (B, L), chunk Q
+SSD_KERNELS = frozenset({"ssd_scan"})
+SSD_FULL = (4, 2048, 256)
 # paths (s) and (t): the serve CLI at full width
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
 SERVE_REL_TOL = 5e-4        # prefill vs decode, × max|logit|
@@ -329,6 +380,20 @@ MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--seq", "64", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
              "--warmup"]
 MAIN_LAUNCHES = {"fused_local_sgd": 7, "fused_sync_vrl": 4}
+QWEN_LAYOUT = (FULL_PARAMS, FULL[1], FULL[2])
+# paths (u) and (v): mamba2-370m (48 layers, d 1024, 32 SSD heads of 64,
+# state 128, chunk 256) trains and serves at full width through the CLIs;
+# (u) trains one full 256-step chunk per sequence
+MAMBA = "mamba2-370m"
+MAMBA_PARAMS = 368_227_840          # materialised, per worker
+MAMBA_LAYOUT = (MAMBA_PARAMS, 1_438_720, 256)
+FLAT_LAYOUTS = {"qwen2-0.5b": QWEN_LAYOUT, MAMBA: MAMBA_LAYOUT}
+MAMBA_ARGS = ["--arch", MAMBA, "--workers", "4", "--batch", "4", "--seq",
+              "256", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
+              "--warmup"]
+# (v): a prompt of one full chunk and one padded chunk, so the SSM state
+# crosses a chunk boundary in prefill
+MAMBA_SERVE_ARGS = ["--batch", "4", "--prompt-len", "288", "--gen", "32"]
 EASGD_LR = 1e-3
 LOCAL_OVERLAP_LR = 1e-4
 # the two further full-width paths: VRLConfig fields, rounds, launches
@@ -1203,8 +1268,18 @@ def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
     return t
 
 
+def sync_periods(args) -> list:
+    """The k_eff of each sync of a flat CLI run on the constant schedule,
+    as ``launch.train`` walks it: ``--warmup``'s 1-step first round, then
+    rounds of ``--k``."""
+    rest = args.steps - args.warmup
+    if args.comm_schedule or rest % args.k:
+        raise ValueError("only whole rounds of --k after the warm-up round")
+    return [1] * args.warmup + [args.k] * (rest // args.k)
+
+
 def cli_path(tag, argv, want_launches, launch, vu, grid=None,
-             misses=None):
+             misses=None, rounding=False):
     """A full-width path through ``repro_torch.launch.train``: launch
     counts, finite logged losses, the flat layout, and Σ_i Δ_i after the
     last sync (or fold) against the largest |Δ| the run logged (its first
@@ -1212,7 +1287,14 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     Δ itself shrinks).  ``grid``: hier_vrl_sgd's (P, D); then Σ_d Δ1 within
     every pod and Σ_p Δ2 instead (``hier_sums``), and ``misses``: the
     (step, per-pod mask, pend_k) the CLI logs at each deadline fold.  The
-    peak is the CLI's, over its rounds alone."""
+    peak is the CLI's, over its rounds alone; the flat layout expected is
+    ``FLAT_LAYOUTS``' for the ``--arch`` in ``argv``.  ``rounding``: where Δ
+    is O(1), the fp32 rounding of x̂ that each sync keeps, 2 W ulp(max|p|)
+    /(k_eff γ), is no longer negligible beside 1e-4 · max|Δ| (as for Adam's
+    paths: ``check_sums``), so the bound adds it over the run's syncs
+    (``sync_periods``); max|p| is the largest the CLI logged."""
+    args = launch.parse_args(argv)
+    layout = FLAT_LAYOUTS[args.arch]
     vu.reset_launches()
     res = launch.run(argv)
     launches = dict(vu.LAUNCHES)
@@ -1223,10 +1305,10 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     if res.engine is None:
         # the per-leaf executor: the tree's elements per worker
         n = sum(x.numel() for x in tm_leaves(res.state.params))
-        if n != 4 * FULL_PARAMS:
+        if n != 4 * layout[0]:
             raise AssertionError(f"path {tag}: the tree holds {n} elements")
     elif (res.engine.spec.size, res.engine.spec.rows,
-          res.engine.spec.lanes) != (494_032_768, 1_930_240, 256):
+          res.engine.spec.lanes) != layout:
         raise AssertionError(f"unexpected flat layout "
                              f"{res.engine.spec.meta()}")
     if grid is not None:
@@ -1241,13 +1323,20 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     else:
         _, sum_d, _ = res.invariant[-1]
         max_d = max(m for _, _, m in res.invariant)
-        if not (max_d > 0 and sum_d <= 1e-4 * max_d):
+        x_hat = 0.0
+        if rounding:
+            ulp = float(np.spacing(np.float32(max(
+                m for _, m in res.param_max))))
+            x_hat = sum(2 * args.workers * ulp / (k * args.lr)
+                        for k in sync_periods(args))
+        if not (max_d > 0 and sum_d <= 1e-4 * max_d + x_hat):
             raise AssertionError(
                 f"path {tag}: Σ_i Δ_i not ~0 after the last sync: max|ΣΔ| "
-                f"{sum_d} vs max|Δ| {max_d}")
-        note = f"; max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}"
+                f"{sum_d} vs max|Δ| {max_d} (x̂ rounding {x_hat})")
+        note = f"; max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}" + (
+            f" + x̂ rounding {x_hat:.3e}" if rounding else "")
     out = path_result(tag, res.losses, res.wall_s, res.phases_ms, launches,
-                      MAIN_LR, peak=res.round_peak_bytes)
+                      MAIN_LR, peak=res.round_peak_bytes, arch=args.arch)
     print_path(out, f"; avg-model "
                f"{['%.4f' % x for x in res.avg_model_losses]}" + note)
     if grid is not None:
@@ -1550,7 +1639,8 @@ def wire_note(vrl_kw) -> str:
 
 def print_path(res, extra=""):
     s = res["steady"]
-    print(f"[4 main path {res['tag']}] qwen2-0.5b full width, W=4, "
+    print(f"[4 main path {res['tag']}] {res.get('arch', 'qwen2-0.5b')} "
+          f"full width, W=4, "
           f"γ={res['lr']}: {len(res['losses'])} steps, launches "
           f"{res['launches']}; losses "
           f"{['%.4f' % x for x in res['losses']]}{extra}", flush=True)
@@ -2476,6 +2566,220 @@ def attention_full_width(dev):
     return launches, rows
 
 
+# ------------------------------------------- the SSD op (to a tolerance)
+def ssd_close(got, want, tag) -> tuple:
+    """The SSD kernel's output against the plain version's: fp32 within
+    rtol 2e-4 and atol 2e-5 · max(1, max|want|) — the reference tests'
+    tolerance on unit-scale outputs, scaled with the output: at Q = 256
+    cum falls by hundreds within a chunk, and the plain version's fp32
+    prefix sums carry ulp(|cum|) into every decay (its own error against
+    an fp64 evaluation reaches 1.2 × the unscaled bound) — bf16 within one
+    bf16 ulp of the output beyond that.  Returns (max abs err, the largest
+    err / bound)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"ssd_scan {tag}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = 2e-5 * max(1.0, w.abs().max().item()) + 2e-4 * w.abs()
+    if got.dtype == torch.bfloat16:
+        bound = bound + bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    bad = int((err > bound).sum())
+    if bad or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"ssd_scan {tag}: {bad} elements past the "
+                             f"tolerance (max abs err "
+                             f"{err.max().item():.3e}) or not finite")
+    return err.max().item(), (err / bound).max().item()
+
+
+def ssd_inputs(seed, b, l, h, p, n, dev, dtype, a_shift=0.0):
+    """Drawn with numpy like the reference tests' (tests/test_kernels.py):
+    x ~ N(0, 1), dt = softplus(N(0, 1)), a_log ~ 0.5 N(0, 1) (+ a_shift),
+    B, C ~ 0.3 N(0, 1); a_log stays fp32."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, l, h, p).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(b, l, h))).astype(np.float32)
+    a_log = (rng.randn(h) * 0.5 + a_shift).astype(np.float32)
+    bb = (rng.randn(b, l, n) * 0.3).astype(np.float32)
+    cc = (rng.randn(b, l, n) * 0.3).astype(np.float32)
+    x, dt, bb, cc = (torch.from_numpy(t).to(device=dev, dtype=dtype)
+                     for t in (x, dt, bb, cc))
+    return x, dt, torch.from_numpy(a_log).to(dev), bb, cc
+
+
+def ssd_moderate_checks(dev):
+    """The SSD op on the card against its plain version: P ∈ {16, 64}, N ∈
+    {8, 128}, Q ∈ {16, 64, 256} with 1 to 8 chunks, L a chunk multiple or
+    ragged (a short last chunk; with one chunk, chunk = L), B ∈ {1, 2} and
+    H ∈ {1, 3, 32} in turn, fp32 and bf16; then an a_log near 1.5 that
+    drives cum below −100 inside a chunk, the (BH, L, P) wrapper with a
+    per-(batch, head) a_log, and mixed dtypes of x, dt, B and C.  Returns the number of checks and {y's
+    dtype: (max abs err, largest err / bound)}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    n_checks = 0
+
+    def check(got, want, dt, tag):
+        nonlocal n_checks
+        err, ratio = ssd_close(got, want, tag)
+        worst[dt][0] = max(worst[dt][0], err)
+        worst[dt][1] = max(worst[dt][1], ratio)
+        n_checks += 1
+
+    i = 0
+    for p in (16, 64):
+        for n in (8, 128):
+            for q, nc in ((16, 1), (16, 8), (64, 3), (256, 1), (256, 8)):
+                for ragged in (False, True):
+                    b, h = 1 + i % 2, (1, 3, 32)[i % 3]
+                    l = nc * q - (q // 3 + 1 if ragged else 0)
+                    for dt in (torch.float32, torch.bfloat16):
+                        args = ssd_inputs(i, b, l, h, p, n, dev, dt)
+                        check(ops.ssd_chunk_scan(*args, chunk=q),
+                              ss.ssd_chunk_scan_ref(*args, chunk=q), dt,
+                              f"({b}, {l}, {h}, {p}, {n}) chunk {q} {dt}")
+                    i += 1
+    for dt in (torch.float32, torch.bfloat16):
+        for b, l, h in ((2, 512, 3), (1, 2048, 32)):
+            args = ssd_inputs(7 + l, b, l, h, 64, 128, dev, dt, a_shift=1.5)
+            cum = (args[1].float() * torch.exp(args[2])).reshape(
+                b, l // 256, 256, h).sum(2)
+            if cum.min().item() < 100:
+                raise AssertionError(f"the overflow case's cum falls only "
+                                     f"{cum.min().item()} in a chunk")
+            check(ops.ssd_chunk_scan(*args, chunk=256),
+                  ss.ssd_chunk_scan_ref(*args, chunk=256), dt,
+                  f"({b}, {l}, {h}, 64, 128) a_log + 1.5 {dt}")
+        x, dtt, _, bb, cc = ssd_inputs(3, 2, 192, 3, 32, 16, dev, dt)
+        xt = x.transpose(1, 2).reshape(6, 192, 32).contiguous()
+        dtt = dtt.transpose(1, 2).reshape(6, 192).contiguous()
+        alog = torch.from_numpy(np.random.RandomState(4).randn(6, 1).astype(
+            np.float32) * 0.5).to(dev)
+        check(ss.ssd_scan(xt, dtt, alog, bb, cc, chunk=64, num_heads=3),
+              ss.ssd_scan_ref(xt, dtt, alog, bb, cc, chunk=64, num_heads=3),
+              dt, f"(BH, L, P) = (6, 192, 32) {dt}")
+    bf, f32 = torch.bfloat16, torch.float32
+    for dts in ((bf, f32, f32, f32), (f32, bf, bf, bf), (bf, f32, bf, bf),
+                (f32, f32, bf, f32)):
+        x, dtt, a_log, bb, cc = ssd_inputs(12, 2, 300, 32, 64, 128, dev,
+                                             f32)
+        args = (x.to(dts[0]), dtt.to(dts[1]), a_log, bb.to(dts[2]),
+                cc.to(dts[3]))
+        check(ops.ssd_chunk_scan(*args, chunk=256),
+              ss.ssd_chunk_scan_ref(*args, chunk=256), dts[0],
+              f"(2, 300, 32, 64, 128) x, dt, B, C {dts}")
+    torch.cuda.synchronize()
+    return n_checks, worst
+
+
+def ssd_cost(b, l, h, p, n, q, itemsize):
+    """Bytes (x, dt, B, C read once, y written once, a_log) and fp32
+    operations of one ssd_chunk_scan, chunk by chunk: for a chunk of v
+    valid rows, v(v+1)/2 kept (i, j) pairs, whose C_i·B_j (2N flops) B and C
+    shared by a batch's heads give once per batch; then per (b·h) 2P + 1
+    flops a pair (the decay, the product with xd) and 2·v·P·N each for
+    C·stateᵀ and the state update."""
+    shared = per_head = 0
+    for z in range(-(-l // q)):
+        v = min(q, l - z * q)
+        pairs = v * (v + 1) // 2
+        shared += pairs * 2 * n
+        per_head += pairs * (2 * p + 1) + 4 * v * p * n
+    return (itemsize * (2 * b * l * h * p + b * l * h + 2 * b * l * n)
+            + 4 * h, shared * b + per_head * b * h)
+
+
+def ssd_full_width(dev):
+    """The SSD op's path: mamba2-370m's layer 0 at full width (random
+    weights from seed 0, token ids (4, 2048)): its x, dt, B and C as
+    ``ssm_forward`` makes them, then ``kernels.ssd_chunk_scan(chunk=256)``
+    with the launch count zeroed just before and read just after (1
+    launch); the output against the plain version and against the model's
+    own ``ssd_chunked`` (within 1e-4 · max(1, max|y|): the reference's
+    1e-4 on unit-scale outputs, scaled); the kernel's time (CUDA events),
+    the plain version's and the bound; library: none.  Then the same in
+    bf16 (x, dt, B, C rounded), against the bf16 plain version.  Returns
+    the launches and {dtype: numbers}."""
+    from repro_torch import kernels
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.layers import rms_norm
+    cfg = registry.get_arch(MAMBA)
+    b, l, q = SSD_FULL
+    h, hd, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    p0 = {k: v[0] for k, v in params["layers"]["ssm"].items()}
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (b, l), generator=gen).to(dev)
+    with torch.no_grad():
+        u = rms_norm(params["embed"][toks], params["layers"]["norm1"][0],
+                     cfg.norm_eps)
+        x = ssm._causal_conv(u @ p0["wx"], p0["conv_x"]).reshape(b, l, h, hd)
+        bb = ssm._causal_conv(u @ p0["wB"], p0["conv_B"])
+        cc = ssm._causal_conv(u @ p0["wC"], p0["conv_C"])
+        dt = ssm._softplus(u @ p0["wdt"] + p0["dt_bias"])
+        a_log = p0["A_log"].clone()
+    del params, p0, u
+    free()
+    cum = (dt * torch.exp(a_log)).reshape(b, l // q, q, h).sum(2)
+    ss.reset_launches()
+    y = kernels.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=q)
+    torch.cuda.synchronize()
+    launches = ss.LAUNCHES["ssd_scan"]
+    if launches != 1:
+        raise AssertionError(f"ssd_chunk_scan: {launches} launches for 1 "
+                             f"call")
+    rows = {}
+    for dt_ in (torch.float32, torch.bfloat16):
+        args = tuple(t.to(dt_) for t in (x, dt)) + (a_log,) + tuple(
+            t.to(dt_) for t in (bb, cc))
+        tag = f"{MAMBA} layer 0, (B, L, H, P, N) = ({b}, {l}, {h}, {hd}, " \
+              f"{n}), chunk {q}, {dt_}"
+        got = y if dt_ == torch.float32 else kernels.ssd_chunk_scan(
+            *args, chunk=q)
+        err, ratio = ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=q),
+                               tag)
+        note = ""
+        if dt_ == torch.float32:
+            model = ssm.ssd_chunked(x, dt, a_log, bb, cc, q)
+            m_err = (got - model).abs().max().item()
+            m_tol = 1e-4 * max(1.0, model.abs().max().item())
+            if not m_err <= m_tol:
+                raise AssertionError(f"ssd_scan {tag}: {m_err:.3e} from the "
+                                     f"model's ssd_chunked (limit "
+                                     f"{m_tol:.3e})")
+            note = (f"; vs the model's ssd_chunked {m_err:.3e} (limit "
+                    f"{m_tol:.3e})")
+            del model
+        free()
+        ms = time_ms(lambda: kernels.ssd_chunk_scan(*args, chunk=q), 10,
+                     warmup=2)
+        plain = time_ms(lambda: ss.ssd_chunk_scan_ref(*args, chunk=q), 3)
+        free()
+        b_ms, by = bound_ms(*ssd_cost(b, l, h, hd, n, q, dt_.itemsize))
+        rows[dt_] = dict(ms=ms, plain=plain, bound=b_ms, by=by, err=err)
+        # the sequential recurrence's count, lower still: per step and
+        # head, decay·S + xd ⊗ B (3PN) and S·C (2PN)
+        rec_ms = 5 * b * l * h * hd * n / FP32_FLOPS_PER_S * 1e3
+        print(f"[3 kernels] ssd_scan via ssd_chunk_scan at {tag}: {ms:.3f} "
+              f"ms (bound {b_ms:.3f} ms by {by}: the chunked form with C·Bᵀ "
+              f"once per batch; {100 * b_ms / ms:.1f}% of it; the "
+              f"recurrence's count {rec_ms:.3f} ms); plain {plain:.3f} ms; "
+              f"library: none; max abs "
+              f"err vs plain {err:.3e} (max|y| "
+              f"{got.float().abs().max().item():.3e}, {ratio:.3f} of the "
+              f"tolerance){note}; cum falls by "
+              f"{cum.min().item():.1f}-{cum.max().item():.1f} per chunk",
+              flush=True)
+        del got, args
+    del x, dt, bb, cc, y
+    free()
+    return launches, rows
+
+
 # --------------------------------------------------- the serving path
 def decode_consistency(eng, out, s):
     """Decode ``out``'s tokens after the prompt (teacher-forced) and hold
@@ -2499,27 +2803,30 @@ def decode_consistency(eng, out, s):
     return worst, finite, torch.stack(picks, dim=1)
 
 
-def serve_path(tag, arch, vu, fa):
-    """Paths (s), (t): ``repro_torch.launch.serve`` at full width (batch 4,
-    32 prompt tokens, 32 generated, random weights from seed 0): no
-    kernel launched (the reference's serving path runs none); the output's
-    shape, its prompt, every token in [0, V); then, on the engine the CLI
-    built, every prefill and decode logit finite and the greedy tokens the
-    decode logits give (where their top-2 margin is clear); and decode
-    against prefill of the same prefix within SERVE_REL_TOL · max|logit|
-    — with wq and wk × 0.1.  Under the reference's own init the attention
-    scores grow with depth until the softmax is near one-hot, and two
-    summation orders of the same logits part (the reference's JAX prefill
-    and decode at 24 layers, d 128, differ by more than 1e-2 · max|logit|,
+def serve_path(tag, arch, vu, fa, ss, args=SERVE_ARGS):
+    """Paths (s), (t), (v): ``repro_torch.launch.serve`` at full width
+    (``args``: batch, prompt and generated tokens; random weights from
+    seed 0): no kernel launched (the reference's serving path runs none);
+    the output's shape, its prompt, every token in [0, V); then, on the
+    engine the CLI built, every prefill and decode logit finite and the
+    greedy tokens the decode logits give (where their top-2 margin is
+    clear); and decode against prefill of the same prefix within
+    SERVE_REL_TOL · max|logit|.  The attention models are held with wq
+    and wk × 0.1: under the reference's own init their attention scores
+    grow with depth until the softmax is near one-hot, and two summation
+    orders of the same logits part (the reference's JAX prefill and decode
+    at 24 layers, d 128, differ by more than 1e-2 · max|logit|,
     tests/test_torch_serve.py; the port's on the card: printed as
-    measured, not held), as in ROADMAP Queue 3."""
+    measured, not held), as in ROADMAP Queue 3.  The attention-free ssm
+    family (v) is held under the init as drawn."""
     from repro_torch.launch import serve
-    vu.reset_launches()
-    fa.reset_launches()
-    res = serve.run(["--arch", arch] + SERVE_ARGS)
-    launches = {**vu.LAUNCHES, **fa.LAUNCHES}
+    for mod in (vu, fa, ss):
+        mod.reset_launches()
+    res = serve.run(["--arch", arch] + args)
+    launches = {**vu.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
     check_launches(tag, launches, {})
-    b, s, gen = 4, 32, 32
+    b, s, gen = (int(args[args.index(flag) + 1])
+                 for flag in ("--batch", "--prompt-len", "--gen"))
     out, v = res.out, res.cfg.vocab_size
     if tuple(out.shape) != (b, s + gen) or not torch.equal(out[:, :s],
                                                            res.prompt):
@@ -2527,8 +2834,11 @@ def serve_path(tag, arch, vu, fa):
     if int(out.min()) < 0 or int(out.max()) >= v:
         raise AssertionError(f"path {tag}: a token outside [0, {v})")
     n_params = sum(x.numel() for x in tm_leaves(res.engine.params))
-    # param_count leaves out the final norm, as the reference's does
-    if n_params != res.cfg.param_count() + res.cfg.d_model:
+    # param_count leaves out the final norm, as the reference's does; for
+    # the ssm family it is the reference's analytic overcount
+    want_n = (MAMBA_PARAMS if res.cfg.family == "ssm"
+              else res.cfg.param_count() + res.cfg.d_model)
+    if n_params != want_n:
         raise AssertionError(f"path {tag}: {n_params} parameters")
     raw, finite, picks = decode_consistency(res.engine, out, s)
     if not finite:
@@ -2538,10 +2848,17 @@ def serve_path(tag, arch, vu, fa):
     if off:
         raise AssertionError(f"path {tag}: {off} greedy tokens differ from "
                              f"the decode logits' clear picks")
-    attn = res.engine.params["layers"]["attn"]
-    attn["wq"].mul_(0.1)
-    attn["wk"].mul_(0.1)
-    soft, finite, _ = decode_consistency(res.engine, out, s)
+    if res.cfg.family == "ssm":
+        soft = raw
+        held = f"{raw:.3e} · max|logit| under the init as drawn"
+    else:
+        attn = res.engine.params["layers"]["attn"]
+        attn["wq"].mul_(0.1)
+        attn["wk"].mul_(0.1)
+        soft, finite, _ = decode_consistency(res.engine, out, s)
+        held = (f"{soft:.3e} · max|logit| with wq, wk × 0.1, {raw:.3e} "
+                f"under the init as drawn (not held)")
+        del attn
     if not finite or soft > SERVE_REL_TOL:
         raise AssertionError(f"path {tag}: decode vs prefill "
                              f"{soft:.3e} · max|logit| (limit "
@@ -2557,10 +2874,8 @@ def serve_path(tag, arch, vu, fa):
           f"{row['tok_s']:.1f} tok/s batched, peak {row['peak_gib']:.2f} "
           f"GiB; no kernel launched; {int((picks >= 0).sum())} greedy "
           f"tokens re-derived; decode vs prefill of the same prefix "
-          f"{soft:.3e} · max|logit| with wq, wk × 0.1 (limit "
-          f"{SERVE_REL_TOL}), {raw:.3e} under the init as drawn (not "
-          f"held)", flush=True)
-    del res, attn
+          f"{held} (limit {SERVE_REL_TOL})", flush=True)
+    del res
     free()
     return row
 
@@ -2645,6 +2960,108 @@ def serve_small_input(dev) -> None:
           f"CPU", flush=True)
 
 
+def ssm_small_input(dev) -> None:
+    """Phase 5 for the ssm family: the smoke mamba2-370m (2 layers, d 128,
+    4 SSD heads of 32, state 16, chunk 32) on the card and on the CPU from
+    the same parameters: prefill logits and both cache leaves (the SSM
+    state, the conv window) over 40 tokens (a full chunk and a padded one),
+    decode over the CPU's greedy tokens (atol 1e-4) and the greedy tokens
+    where the CPU's top-2 margin exceeds twice that; one vrl_sgd + sgd
+    slice, W = 2, seq 40, 7 steps in rounds of 1, 2, 2, 2 (losses rtol
+    1e-4, params atol 1e-4, Δ atol 1e-4/(k γ)); and ssd_chunk_scan at the
+    smoke model's shapes, the kernel against the CPU's plain version."""
+    from repro_torch import kernels
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine
+    from repro_torch.train.train_loop import make_train_step
+    tol = 1e-4
+    cfg = registry.smoke_arch(MAMBA)
+    params = transformer.init_params(cfg, seed=0)
+    on_card = tm.tree_map(lambda x: x.to(dev), params)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
+    tag = f"{MAMBA} smoke"
+    with torch.no_grad():
+        lc, cc = transformer.prefill(cfg, params, prompt, 64)
+        lg, cg = transformer.prefill(cfg, on_card, prompt.to(dev), 64)
+    close(lg.cpu(), lc, tol, f"{tag}: prefill logits")
+    for key in cc:
+        close(cg[key].cpu(), cc[key],
+              tol * max(1.0, cc[key].abs().max().item()),
+              f"{tag}: prefill cache {key}")
+    cpu, card = (Engine(cfg, p, max_len=64) for p in (params, on_card))
+    want = cpu.generate(prompt, 16)
+    got = card.generate(prompt, 16).cpu()
+    _, c_cpu = cpu.prefill(prompt)
+    _, c_card = card.prefill(prompt)
+    for i in range(15):
+        pos = 40 + i
+        tok = want[:, pos:pos + 1]
+        l_cpu, c_cpu = cpu.step(c_cpu, tok, pos)
+        l_card, c_card = card.step(c_card, tok, pos)
+        close(l_card.cpu(), l_cpu, tol, f"{tag}: decode logits at {pos}")
+    margins = decode_margins(cpu, want, 40)
+    compared = 0
+    for row in range(3):
+        for i in range(16):
+            if margins[row, i] <= 2 * tol:
+                break                   # either pick is right; they part
+            if got[row, 40 + i] != want[row, 40 + i]:
+                raise AssertionError(f"{tag}: greedy token {i} of row "
+                                     f"{row} differs")
+            compared += 1
+    w, k, lr, steps = 2, 2, LR, 7
+    data = assigned_token_stream(contiguous_assignment(w, w), 40,
+                                 cfg.vocab_size, steps=steps, batch=2,
+                                 alpha=0.05, seed=0)
+    vrl = VRLConfig(comm_period=k, learning_rate=lr, warmup=True)
+    runs = {}
+    for where in ("cpu", dev):
+        bundle = make_train_step(cfg, vrl, device=where)
+        state = bundle.engine.init(tm.tree_map(lambda x: x.to(where),
+                                               params), w)
+        losses, t = [], 0
+        for rk in (1, k, k, k):
+            toks = torch.from_numpy(data[t:t + rk]).to(where).long()
+            state, lk = bundle.round_step(state, toks,
+                                          torch.roll(toks, -1, dims=-1))
+            losses += lk.tolist()
+            t += rk
+        runs[str(where)] = (np.array(losses), state.params.cpu().numpy(),
+                            state.delta.cpu().numpy())
+    (l_c, p_c, d_c), (l_g, p_g, d_g) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+    np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(d_g, d_c, rtol=0, atol=1e-4 / (k * lr))
+    rng = np.random.RandomState(8)
+    h, hd, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, dt = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(3, 40, h, hd), np.log1p(np.exp(rng.randn(3, 40, h)))))
+    a_log = torch.from_numpy((rng.randn(h) * 0.5).astype(np.float32))
+    bb, cc_ = (torch.from_numpy((rng.randn(3, 40, n) * 0.3).astype(
+        np.float32)) for _ in range(2))
+    want_y = kernels.ssd_chunk_scan(x, dt, a_log, bb, cc_,
+                                    chunk=cfg.ssm_chunk)
+    got_y = kernels.ssd_chunk_scan(*(t.to(dev) for t in (x, dt, a_log, bb,
+                                                         cc_)),
+                                   chunk=cfg.ssm_chunk).cpu()
+    err, _ = ssd_close(got_y, want_y, f"smoke (3, 40, {h}, {hd}, {n}), card "
+                       f"vs CPU")
+    print(f"[5 small input] {tag} card vs CPU: prefill logits and cache "
+          f"(state, conv), decode logits over 15 steps (atol {tol}), "
+          f"{compared} greedy tokens equal; vrl_sgd+sgd 7 steps: losses max "
+          f"rel diff {np.abs(l_g / l_c - 1).max():.2e}, params max diff "
+          f"{np.abs(p_g - p_c).max():.2e}, Δ max diff "
+          f"{np.abs(d_g - d_c).max():.2e}; ssd_chunk_scan at the smoke "
+          f"shape within the tolerance (max abs err {err:.3e})",
+          flush=True)
+
+
 def decode_margins(eng, out, s) -> np.ndarray:
     """The top-2 margin of the logits behind each generated token of
     ``out`` (B, s + n): the prefill's last position, then each decode
@@ -2686,6 +3103,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import torch_update as tu
     from repro_torch.kernels import vrl_update as vu
     from repro_torch.launch import train as launch
@@ -2702,6 +3120,7 @@ def main() -> int:
     vu._comm_lib()
     vu._leaf_lib()
     fa._lib()
+    ss._lib()
     print(f"[2 build] {', '.join(build.SOURCES)} built and loaded in "
           f"{time.time() - t0:.1f}s", flush=True)
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
@@ -2738,7 +3157,7 @@ def main() -> int:
     plain.update(leaf_p)
     shapes = {name: HIER_FULL if name in HIER_KERNELS else FULL
               for name in KERNELS
-              if name not in LEAF_KERNELS | ATTN_KERNELS}
+              if name not in LEAF_KERNELS | ATTN_KERNELS | SSD_KERNELS}
     bounds.update({name: bound_ms(*COSTS[name](*shape))
                    for name, shape in shapes.items()})
     for name in shapes:
@@ -2766,6 +3185,23 @@ def main() -> int:
     library["flash_attention"] = attn_main["library"]
     bounds["flash_attention"] = (attn_main["bound"], attn_main["by"])
     chk.err["flash_attention"] = max(r["err"] for r in attn_rows.values())
+    n_ssd, ssd_worst = ssd_moderate_checks(dev)
+    print(f"[3 kernels] ssd_scan: {n_ssd} checks of ssd_chunk_scan (B 1-2, "
+          f"H 1, 3, 32, P 16, 64, N 8, 128, Q 16, 64, 256 with 1-8 chunks, "
+          f"ragged L, a_log + 1.5, mixed dtypes) and of the (BH, L, P) "
+          f"wrapper against the "
+          f"plain version within the tolerance: fp32 max abs err "
+          f"{ssd_worst[torch.float32][0]:.3e} "
+          f"({ssd_worst[torch.float32][1]:.3f} of the bound); bf16 "
+          f"{ssd_worst[torch.bfloat16][0]:.3e} "
+          f"({ssd_worst[torch.bfloat16][1]:.3f})", flush=True)
+    ssd_launches, ssd_rows = ssd_full_width(dev)
+    ssd_main = ssd_rows[torch.float32]
+    times["ssd_scan"] = ssd_main["ms"]
+    plain["ssd_scan"] = ssd_main["plain"]
+    library["ssd_scan"] = None
+    bounds["ssd_scan"] = (ssd_main["bound"], ssd_main["by"])
+    chk.err["ssd_scan"] = max(r["err"] for r in ssd_rows.values())
 
     # ------------------------------------------------------ 4 main paths
     res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
@@ -2828,15 +3264,22 @@ def main() -> int:
     res_q = cli_path("(q) hier_vrl_sgd+sgd (2, 2), --backend reference "
                      "--compress int8", PATH_Q, {}, launch, vu, grid=(2, 2))
     res_r = tree_api_path(dev, vu)
+    # (u) mamba2-370m trains through the CLI: the flat engine's kernels;
+    # the model's own ssd_chunked scan, as in the reference
+    res_u = cli_path(f"(u) {MAMBA} vrl_sgd+sgd", MAMBA_ARGS, MAIN_LAUNCHES,
+                     launch, vu, rounding=True)
     # the serve CLI at full width (no kernel: the reference's serving path
-    # runs none); mha_flash's launches come from its path in phase 3
-    serve_path("(s) serve", "qwen2-0.5b", vu, fa)
-    serve_path("(t) serve", "granite-3-2b", vu, fa)
+    # runs none); mha_flash's and ssd_chunk_scan's launches come from
+    # their paths in phase 3
+    serve_path("(s) serve", "qwen2-0.5b", vu, fa, ss)
+    serve_path("(t) serve", "granite-3-2b", vu, fa, ss)
+    serve_path("(v) serve", MAMBA, vu, fa, ss, MAMBA_SERVE_ARGS)
     # each kernel's launches on the first path that runs it
-    main_launches = {"flash_attention": attn_launches}
+    main_launches = {"flash_attention": attn_launches,
+                     "ssd_scan": ssd_launches}
     for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
                   res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o,
-                  res_p_, res_q, res_r):
+                  res_p_, res_q, res_r, res_u):
         for name, n in res_p["launches"].items():
             main_launches.setdefault(name, n)
 
@@ -2845,6 +3288,7 @@ def main() -> int:
     hier_small_input(dev)
     ref_small_input(dev)
     serve_small_input(dev)
+    ssm_small_input(dev)
 
     kernels = []
     for name in KERNELS:

@@ -19,8 +19,9 @@ from typing import Optional, Tuple
 class ModelConfig:
     """Architecture definition (see ``repro.configs.base.ModelConfig``).
 
-    The port runs the ``dense`` family; the other fields are kept so that
-    configs and ``reduced`` stay field-for-field the reference's.
+    The port runs the ``dense`` and ``ssm`` families; the other fields are
+    kept so that configs and ``reduced`` stay field-for-field the
+    reference's.
     """
 
     name: str
@@ -61,21 +62,50 @@ class ModelConfig:
     # citation for the config (public pool provenance)
     source: str = ""
 
+    # ---- derived (the reference's) ---------------------------------------
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch natively supports O(<<L^2) long-context decode."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
-        if self.family != "dense":
+        """The reference's analytic parameter count, for the families the
+        port runs.  Its ssm branch counts the B/C projections once per head
+        and two norms per layer, as the reference's does (mamba2-370m:
+        759,767,040, where the materialised tree holds 368,227,840)."""
+        if self.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {self.family!r} is not ported yet (ROADMAP Queue 1)")
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         total = V * d if self.tie_embeddings else 2 * V * d
-        hd = self.head_dim
-        per_layer = d * (self.num_heads * hd)               # q
-        per_layer += 2 * d * (self.num_kv_heads * hd)       # k, v
-        per_layer += (self.num_heads * hd) * d              # o
-        if self.qkv_bias:
-            per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
-        mult = 3 if self.mlp_act in ("silu", "geglu") else 2
-        per_layer += mult * d * self.d_ff
+        per_layer = 0
+        if self.family == "dense":
+            hd = self.head_dim
+            per_layer += d * (self.num_heads * hd)          # q
+            per_layer += 2 * d * (self.num_kv_heads * hd)   # k, v
+            per_layer += (self.num_heads * hd) * d          # o
+            if self.qkv_bias:
+                per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+            mult = 3 if self.mlp_act in ("silu", "geglu") else 2
+            per_layer += mult * d * self.d_ff
+        else:
+            di, ds, nh = self.ssm_d_inner, self.ssm_state, self.ssm_num_heads
+            per_layer += d * (2 * di + 2 * ds * (di // self.ssm_head_dim)
+                              + nh)
+            per_layer += di * d                              # out proj
+            per_layer += self.conv_kernel * (di + 2 * ds * nh)
         per_layer += 2 * d  # norms
         return total + L * per_layer
 

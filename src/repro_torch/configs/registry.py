@@ -1,16 +1,18 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
-Lists only the architectures whose model family the port runs (the dense
-family: qwen2-0.5b, and granite-3-2b, the reference serve CLI's default).
-The reference's other families join as they are ported (ROADMAP Queue 1).
+Lists only the architectures whose model family the port runs: the dense
+family (qwen2-0.5b, and granite-3-2b, the reference serve CLI's default)
+and the ssm family (mamba2-370m).  The reference's other families join as
+they are ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b, qwen2_0_5b
+from repro_torch.configs import granite_3_2b, mamba2_370m, qwen2_0_5b
 from repro_torch.configs.base import ModelConfig, reduced
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [qwen2_0_5b.CONFIG, granite_3_2b.CONFIG]}
+    c.name: c for c in [qwen2_0_5b.CONFIG, granite_3_2b.CONFIG,
+                         mamba2_370m.CONFIG]}
 
 
 def get_arch(arch_id: str) -> ModelConfig:

@@ -10,9 +10,9 @@ on machines without ``nvcc``.
 Flags: fast math stays off everywhere (IEEE division, accurate ``expf``).
 The update kernels also take ``-fmad=false``, which keeps every multiply
 and add separately rounded (no FMA contraction), so they are bitwise their
-plain PyTorch versions (``kernels/torch_update``).  ``flash_attention`` is
-held to a tolerance, not bitwise, and may contract into FMAs: without it
-its fp32 rate would halve (``SOURCE_FLAGS``).
+plain PyTorch versions (``kernels/torch_update``).  ``flash_attention`` and
+``ssd_scan`` are held to a tolerance, not bitwise, and may contract into
+FMAs: without them their fp32 rate would halve (``SOURCE_FLAGS``).
 """
 from __future__ import annotations
 
@@ -27,14 +27,16 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("vrl_update", "comm_update", "leaf_update", "flash_attention")
+SOURCES = ("vrl_update", "comm_update", "leaf_update", "flash_attention",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per source, after NVCC_FLAGS: the bitwise update kernels contract nothing
 SOURCE_FLAGS = {"vrl_update": ("-fmad=false",),
                 "comm_update": ("-fmad=false",),
                 "leaf_update": ("-fmad=false",),
-                "flash_attention": ()}
+                "flash_attention": (),
+                "ssd_scan": ()}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

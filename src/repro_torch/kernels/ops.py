@@ -1,5 +1,5 @@
-"""User-facing kernel ops (``repro.kernels.ops``): the attention op and the
-tree-update API.
+"""User-facing kernel ops (``repro.kernels.ops``): the attention op, the
+SSD op and the tree-update API.
 
 ``mha_flash`` is causal (and sliding-window) attention over (B, S, H, D)
 queries with GQA keys and values, the reference wrapper's function: on the
@@ -8,6 +8,14 @@ h // group and the caller's strides in place (the reference repeats the KV
 heads, moves the heads next to the batch and pads a copy); for CPU tensors
 the plain version with the reference's layout steps
 (``kernels/flash_attention.mha_flash_ref``).
+
+``ssd_chunk_scan`` is the Mamba2 SSD chunked scan over (B, L, H, P) inputs
+with B and C shared across heads, the reference wrapper's function: on the
+card one launch of ``csrc/ssd_scan.cu``, which reads the caller's strides
+in place and reads a short last chunk as zero-padded (the reference moves
+the heads next to the batch and pads a copy); for CPU tensors the plain
+version with the reference's layout steps
+(``kernels/ssd_scan.ssd_chunk_scan_ref``).
 
 ``vrl_local_update_tree`` / ``vrl_sync_update_tree`` apply the paper's
 local step (eqs. 5-6) and sync (eq. 4) leaf by leaf over whole parameter
@@ -20,8 +28,7 @@ whole model instead of one per leaf.
 The reference pads each leaf to a (R, 256) tile multiple for its Pallas
 blocks (``_leaf_tile``, ``_to_2d``); the kernels here take the element
 count and handle the tail, so nothing is padded and ``block`` is accepted
-and ignored.  The SSD op of the reference's module is not ported yet
-(ROADMAP Queue 2).
+and ignored.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch import tree as tree_mod
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import vrl_update as vu
 
 
@@ -53,6 +61,18 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fa.check_blocks(s_pad, block_q, block_k)
     return fa.attend_bshd(q, k, v, causal=causal, window=window,
                           s_pad=s_pad)
+
+
+# ------------------------------------------------------------------ ssd op
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, *,
+                   chunk: int = 256) -> torch.Tensor:
+    """x: (B, L, H, P); dt: (B, L, H); a_log: (H,); b, c: (B, L, N) ->
+    y (B, L, H, P) in x's dtype, in chunks of min(chunk, L) steps (L
+    zero-padded to a multiple: the padded steps are exact no-ops)."""
+    if x.device.type == "cpu":
+        return ssd.ssd_chunk_scan_ref(x, dt, a_log, b, c, chunk=chunk)
+    return ssd.scan_blhp(x, dt, a_log, b, c, chunk=min(chunk, x.shape[1]))
 
 
 def vrl_local_update_tree(params: Any, grads: Any, delta: Any, *, lr: float,

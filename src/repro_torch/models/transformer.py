@@ -1,6 +1,9 @@
-"""Model assembly (``repro.models.transformer``), dense family:
-embedding -> pre-norm blocks (GQA attention + gated MLP) -> norm -> tied
-logits.
+"""Model assembly (``repro.models.transformer``): embedding -> pre-norm
+blocks -> norm -> tied logits, for the two families the port runs:
+  dense : GQA attention + gated MLP blocks
+  ssm   : Mamba2 SSD blocks (no MLP, as in Mamba2; ``models/ssm.py``)
+The reference's moe and hybrid families (and vlm, audio) are not ported
+yet (ROADMAP Queue 1): ``layer_defs`` refuses them.
 
 Layer parameters stay stacked on a leading "layers" axis, the reference's
 tree layout; a Python loop over that axis takes the place of ``lax.scan``
@@ -17,13 +20,15 @@ import torch
 
 from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import mlp, mlp_defs, rms_norm, rms_norm_def
 from repro_torch.models.param import ParamDef, materialize, stack_defs
 
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg: ModelConfig) -> dict:
+    if cfg.family == "ssm":
+        return {"ssm": ssm.ssm_defs(cfg), "norm1": rms_norm_def(cfg.d_model)}
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
@@ -57,7 +62,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ------------------------------------------------------------------- blocks
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
            positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """One dense layer."""
+    """One layer."""
+    if cfg.family == "ssm":
+        return x + ssm.ssm_forward(cfg, p["ssm"],
+                                   rms_norm(x, p["norm1"], cfg.norm_eps))
     x = x + attention.attend_full(
         cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), positions,
         window=window if window is not None else cfg.attn_window)
@@ -118,10 +126,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
                window: Optional[int] = None,
                device: torch.device | str = "cpu") -> dict:
-    """Per-layer KV caches stacked on a leading layer axis (zeros)."""
+    """Per-layer caches (KV; for ssm the SSM state and conv window) stacked
+    on a leading layer axis (zeros)."""
     layer_defs(cfg)                     # refuses the families not ported
-    eff_len = min(cache_len, window) if window is not None else cache_len
-    layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device)
+    if cfg.family == "ssm":
+        layer = ssm.init_ssm_cache(cfg, batch, dtype, device)
+    else:
+        eff_len = min(cache_len, window) if window is not None \
+            else cache_len
+        layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device)
     return {key: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
                              device=t.device) for key, t in layer.items()}
 
@@ -130,7 +143,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 inputs: torch.Tensor, pos,
                 window: Optional[int] = None):
     """One-token decode against a cache. inputs: (B, 1) ids; pos: the
-    position of that token (an int or a 0-d tensor, read on the host).
+    position of that token (an int or a 0-d tensor, read on the host; the
+    ssm family's decode does not read it).
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
     """
@@ -139,9 +153,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     eff_window = window if window is not None else cfg.attn_window
     new = []
     for i, layer_p in enumerate(_layers(cfg, params)):
+        layer_c = {key: t[i] for key, t in cache.items()}
+        if cfg.family == "ssm":
+            y, c = ssm.ssm_decode_step(
+                cfg, layer_p["ssm"],
+                rms_norm(x, layer_p["norm1"], cfg.norm_eps), layer_c)
+            x = x + y
+            new.append(c)
+            continue
         y, c = attention.decode_attend(
             cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
-            {key: t[i] for key, t in cache.items()}, pos, window=eff_window)
+            layer_c, pos, window=eff_window)
         x = x + y
         x = x + mlp(cfg, layer_p["mlp"],
                     rms_norm(x, layer_p["norm2"], cfg.norm_eps))
@@ -153,7 +175,8 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             cache_len: int, window: Optional[int] = None,
             last_only: bool = False):
     """Cache-building prefill: the full-sequence forward that also emits
-    every layer's decode cache, stacked on the layer axis.
+    every layer's decode cache (KV; for ssm the final SSM state and the
+    conv window, ``cache_len`` unused), stacked on the layer axis.
 
     Returns (logits (B, S, V) — (B, 1, V) with ``last_only`` — , cache);
     the cache is layout-compatible with ``init_cache``/``decode_step``, in
@@ -166,6 +189,14 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     eff_window = window if window is not None else cfg.attn_window
     caches = []
     for layer_p in _layers(cfg, params):
+        if cfg.family == "ssm":
+            y, c = ssm.ssm_forward(
+                cfg, layer_p["ssm"],
+                rms_norm(x, layer_p["norm1"], cfg.norm_eps),
+                return_cache=True)
+            x = x + y
+            caches.append(c)
+            continue
         y, kv = attention.attend_full(
             cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
             positions, window=eff_window, return_kv=True)

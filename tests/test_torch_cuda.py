@@ -38,6 +38,17 @@ a cancelling sum, whose fp32 error is more than a bf16 ulp there); over
 ragged S, GQA groups 1, 2 and 7, D 16, 32, 64 and 128, causal on and off,
 windows, views of a fused qkv buffer; the
 wrapper raises on a head dim or dtype the kernel does not take.
+
+The SSD scan kernel (``csrc/ssd_scan.cu``, behind ``kernels.ssd_chunk_scan``
+and ``kernels/ssd_scan.ssd_scan``) is held to its plain version within
+fp32 rtol 2e-4 and atol 2e-5 · max(1, max|y|) (the reference tests'
+tolerance on unit-scale outputs, scaled with the output: cum falls by
+hundreds within a chunk at Q = 256, and ulp(|cum|) in each fp32 decay of
+the plain version is of that order), bf16 one bf16 ulp beyond that; over
+B 1-2, H 1-3, P 8-64, N 4-128, Q 16-256 with 1-8 chunks, ragged L (a short
+last chunk), an a_log that drives cum below −100 inside a chunk, views of
+a fused buffer, mixed dtypes of x, dt, B and C; the wrapper raises on
+what the kernel does not take.
 """
 import numpy as np
 import pytest
@@ -803,3 +814,156 @@ def test_cuda_kernels_mha_flash_raises_on_what_it_does_not_take(d, dtype):
         ops.mha_flash(q, q.float() if dtype != torch.float32 else q.double(),
                       q, block_q=64, block_k=64)
     assert fa.LAUNCHES["flash_attention"] == n0
+
+
+# ------------------------------------------------- ssd scan (tolerance)
+def _assert_ssd_close(got: torch.Tensor, want: torch.Tensor):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    bound = 2e-5 * max(1.0, w.abs().max().item()) + 2e-4 * w.abs()
+    if got.dtype == torch.bfloat16:
+        bound = bound + _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    assert bool(torch.isfinite(g).all())
+    assert int(((g - w).abs() > bound).sum()) == 0, (g - w).abs().max()
+
+
+def _ssd_inputs(seed, b, l, h, p, n, dev, dtype, a_scale=0.5, a_shift=0.0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, l, h, p).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(b, l, h))).astype(np.float32)
+    a_log = (rng.randn(h) * a_scale + a_shift).astype(np.float32)
+    bb = (rng.randn(b, l, n) * 0.3).astype(np.float32)
+    cc = (rng.randn(b, l, n) * 0.3).astype(np.float32)
+    cast = [torch.from_numpy(t).to(device=dev, dtype=dtype)
+            for t in (x, dt, bb, cc)]
+    return cast[0], cast[1], torch.from_numpy(a_log).to(dev), cast[2], cast[3]
+
+
+SSD_CASES = [
+    # b, l, h, p, n, chunk
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 32, 16, 32),
+    (1, 256, 1, 64, 128, 64),
+    (2, 512, 2, 64, 128, 256),
+    (1, 100, 3, 16, 8, 32),         # ragged: a short last chunk
+    (2, 37, 1, 8, 4, 256),          # chunk = L
+    (1, 2048, 1, 64, 128, 256),     # 8 chunks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_ssd_chunk_scan_matches_plain(case, dtype):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    b, l, h, p, n, q = case
+    args = _ssd_inputs(l + p, b, l, h, p, n, dev, dtype)
+    n0 = ss.LAUNCHES["ssd_scan"]
+    got = ops.ssd_chunk_scan(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == n0 + 1
+    _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_ssd_scan_bhlp(dtype):
+    """The (BH, L, P) wrapper, the reference kernel's own interface, with a
+    per-(batch, head) a_log."""
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    x, dt, a_log, bb, cc = _ssd_inputs(9, 2, 192, 3, 32, 16, dev, dtype)
+    xt = x.transpose(1, 2).reshape(6, 192, 32).contiguous()
+    dtt = dt.transpose(1, 2).reshape(6, 192).contiguous()
+    alog = torch.randn(6, 1, generator=torch.Generator().manual_seed(2)).to(
+        dev) * 0.5
+    got = ss.ssd_scan(xt, dtt, alog, bb, cc, chunk=64, num_heads=3)
+    _assert_ssd_close(got, ss.ssd_scan_ref(xt, dtt, alog, bb, cc, chunk=64,
+                                           num_heads=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_ssd_scan_overflow_case(dtype):
+    """a_log ≈ 1.5 drives cum below −100 within 40 steps and to ~−900 by
+    the end of a 256-step chunk: the factored exp(cum_i)·exp(−cum_j) would
+    overflow fp32; the kernel's exp(cum_i − cum_j) does not."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    args = _ssd_inputs(4, 2, 512, 2, 64, 128, dev, dtype, a_scale=0.1,
+                       a_shift=1.5)
+    cum = (args[1].float() * torch.exp(args[2])).reshape(2, 2, 256, 2).sum(2)
+    assert cum.min().item() > 100
+    got = ops.ssd_chunk_scan(*args, chunk=256)
+    _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=256))
+
+
+_BF, _F = torch.bfloat16, torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(_BF, _F, _F, _F), (_F, _BF, _BF, _BF),
+                                    (_BF, _F, _BF, _BF), (_F, _F, _BF, _F)])
+def test_cuda_kernels_ssd_chunk_scan_mixed_dtypes(dtypes):
+    """x, dt, B and C in mixed dtypes: a bf16 x with fp32 dt, B and C, the
+    reverse, Mamba2's usual bf16 x, B, C with an fp32 dt, and B and C
+    apart; each operand read up to fp32, y in x's dtype."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    x, dt, a_log, bb, cc = _ssd_inputs(12, 2, 300, 3, 64, 128, dev,
+                                       torch.float32)
+    args = (x.to(dtypes[0]), dt.to(dtypes[1]), a_log, bb.to(dtypes[2]),
+            cc.to(dtypes[3]))
+    n0 = ss.LAUNCHES["ssd_scan"]
+    got = ops.ssd_chunk_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == n0 + 1 and got.dtype == dtypes[0]
+    _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=256))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_ssd_chunk_scan_reads_views():
+    """x and dt as views of fused buffers (strided heads and steps), read
+    through their strides; the same result as contiguous copies."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(5)
+    fused = torch.from_numpy(rng.randn(2, 150, 5, 32).astype(
+        np.float32)).to(dev)
+    x = fused[:, :, 1:4]
+    dts = torch.from_numpy(np.log1p(np.exp(rng.randn(2, 150, 7))).astype(
+        np.float32)).to(dev)
+    dt = dts[:, :, 2:5]
+    bc = torch.from_numpy(rng.randn(2, 150, 40).astype(np.float32) * 0.3).to(
+        dev)
+    bb, cc = bc[..., :16], bc[..., 20:36]
+    a_log = torch.zeros(3, device=dev)
+    want = ss.ssd_chunk_scan_ref(x.contiguous(), dt.contiguous(), a_log,
+                                 bb.contiguous(), cc.contiguous(), chunk=64)
+    _assert_ssd_close(ops.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=64),
+                      want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_ssd_scan_raises_on_what_it_does_not_take():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    n0 = ss.LAUNCHES["ssd_scan"]
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 128, 8, dev,
+                                       torch.float32)
+    with pytest.raises(ValueError):            # P = 128 > 64
+        ops.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=16)
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 16, 8, dev,
+                                       torch.float32)
+    with pytest.raises(TypeError):             # an fp16 dt
+        ops.ssd_chunk_scan(x, dt.half(), a_log, bb, cc, chunk=16)
+    with pytest.raises(TypeError):             # fp16
+        ops.ssd_chunk_scan(*(t.half() for t in (x, dt)), a_log,
+                           *(t.half() for t in (bb, cc)), chunk=16)
+    assert ss.LAUNCHES["ssd_scan"] == n0
