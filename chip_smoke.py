@@ -13,6 +13,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
 2. build — compile every CUDA kernel of the training paths, the
    tree-update API, the attention op and the SSD op from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once).
+   For ``libflash_attention`` and ``libssd_scan`` it prints each kernel's
+   registers, stack frame (where ptxas spills) and local memory
+   (``cuobjdump -res-usage``) and the count of tensor-core instructions
+   (HMMA, HGMMA) in their SASS (``cuobjdump -sass``); a count of 0 fails
+   the phase.
 3. kernels — each of the twenty-three update kernels' wrappers against its
    plain PyTorch version on the card, on random fp32 inputs made with numpy
    from a seed: a moderate shape (W=4, R=65,536) and a ragged one (W=3,
@@ -43,13 +48,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    buffer and its plain version's slice by slice (their temporaries at
    W=4 do not all fit beside the inputs), CUDA events, beside the bound
    (bytes moved over 3.35 TB/s, or fp32 operations over 67 TFLOP/s,
-   whichever is larger; H100 SXM data sheet).  The library calls:
-   ``torch._fused_sgd_`` for fused_local_momentum without Δ or B, held to
-   the plain version (rtol 1e-5) and timed on the same operands;
+   whichever is larger; H100 SXM data sheet).  The library calls, each
+   on its path's operands without Δ (or B), held to the plain version on
+   worker 0 (rtol 1e-5) and timed over the worker slices:
+   ``torch._fused_sgd_`` for fused_local_momentum and
+   fused_hier_local_momentum, and with momentum 0 (no buffer) for
+   fused_local_sgd and fused_hier_local_sgd; ``torch._fused_adamw_`` for
+   fused_local_adam and fused_hier_local_adam;
    ``torch.topk(|payload|, k, dim=-1)`` beside fused_ef_topk, which does
    only the selection part of its function (a partial yardstick), and
    beside fused_ef_topk_grid on its payload.  No PyTorch call computes
-   the hierarchy's seven other kernels, the int8 round trip or SM3 Adam
+   the syncs, folds and the hierarchy's other kernels, the int8 round
+   trip or SM3 Adam
    (Adafactor factors with means, not SM3's max cover).  Last, level 2's
    flat round trips on the strided pod rows p[:, 0] of a (2, 2, R, C)
    buffer: bitwise pod by pod, timed beside their bound.
@@ -70,15 +80,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
    bf16 within one bf16 ulp of the output beyond that; B ∈ {1, 2}, ragged
    S ∈ {1, 100, 257, 512} padded to blocks of 64 or 128, D ∈ {16, 32, 64,
    128}, GQA groups 1, 2, 7, causal on and off, window None, 16, 64, fp32
-   and bf16.  Then its path: ``kernels.mha_flash`` at the served models'
-   prefill widths, (B, S, H, KVH, D) = (4, 2048, 14, 2, 64) for
-   qwen2-0.5b and (4, 2048, 32, 8, 64) for granite-3-2b, fp32 and bf16,
-   window None and 512 — eight calls, the launch count zeroed just before
-   and read just after — each output against the plain version, the
-   kernel's time (CUDA events) beside the plain version's, the library's
-   (``scaled_dot_product_attention`` on the repeated (B, H, S, D) tensors,
-   causal, the window as a boolean mask; timed only) and the bound:
-   fp32 operations, 4·D per kept (query, key) pair, over 67 TFLOP/s.
+   and bf16; scores of large magnitude (q · 10, a sharply peaked softmax)
+   and D = 128 at S = 2048.  Then its path: ``kernels.mha_flash`` at the
+   served models' prefill widths, (B, S, H, KVH, D) = (4, 2048, 14, 2, 64)
+   for qwen2-0.5b and (4, 2048, 32, 8, 64) for granite-3-2b, fp32 and
+   bf16, window None and 512 — eight calls, the launch count zeroed just
+   before and read just after — each output against the plain version,
+   the kernel's time (CUDA events), the plain version's, the library's in
+   the same dtype (``scaled_dot_product_attention`` on the repeated (B, H,
+   S, D) tensors, causal, the window as a boolean mask; timed only) and
+   two bounds: the
+   tensor cores' (fp32: three TF32 products for each of q·k and p·v, 12·D
+   flops per kept (query, key) pair at 495 TFLOP/s; bf16: one bf16
+   product for q·k and two for p·v, 6·D at 989 TFLOP/s; or 5 CUDA-core
+   operations a pair at 67 TFLOP/s, which run beside them, where that is
+   longer) and the first port's fp32 CUDA-core bound, 4·D per pair over
+   67 TFLOP/s.
    The SSD op's kernel, ``ssd_scan`` (``kernels.ssd_chunk_scan`` and the
    (BH, L, P) wrapper), against its plain version to a tolerance, not
    bitwise: fp32 within rtol 2e-4 and atol 2e-5 · max(1, max|y|) (the
@@ -96,12 +113,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    ``kernels.ssd_chunk_scan(chunk=256)`` with the launch count zeroed just
    before and read just after (1 launch), held against the plain version
    and the model's ``ssd_chunked`` (1e-4 · max(1, max|y|)), timed beside
-   the plain version and the bound (fp32 operations of the chunked form:
-   2N per kept pair once per batch, B and C being shared by its heads,
-   then per head 2P + 1 per kept pair and 4·P·N per row, over 67 TFLOP/s;
-   the sequential recurrence's 5·P·N per step and head printed beside it;
-   no PyTorch call computes the scan: library none); then the same in
-   bf16.
+   the plain version and two bounds: the tensor cores' (the chunked
+   form's products — 2N per kept pair once per batch, B and C being
+   shared by its heads, then per head 2P per kept pair, 2·P·N per row for
+   C·stateᵀ in every chunk but the first (whose state is 0) and 2·P·N per
+   row for the state update in every chunk but the last (whose state is
+   never read) — as three TF32 products each, two where x or C is bf16,
+   one for bf16 C·Bᵀ, at 495 TFLOP/s; or 3 CUDA-core operations per kept
+   pair and head for the decay, where that is longer) and the first
+   port's fp32 CUDA-core
+   bound (those flops and one more a pair over 67 TFLOP/s; the sequential
+   recurrence's 5·P·N per step and head printed beside it; no PyTorch
+   call computes the scan: library none); then the same in bf16.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -299,7 +322,9 @@ Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
 times at qwen2-0.5b's width, fp32, causal, and at mamba2-370m's layer 0,
-fp32), and last ``{"ok": true, "device": {...}}``.
+fp32, ``bound_ms`` the tensor cores', with the fp32 CUDA-core bound and
+the bf16 row's numbers beside them), and last
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -307,6 +332,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -317,6 +343,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
+TF32_FLOPS_PER_S = 495e12       # dense tensor-core rates, same sheet
+BF16_FLOPS_PER_S = 989e12
 FULL = (4, 1_930_240, 256)      # qwen2-0.5b flat layout at W=4
 FULL_PARAMS = 494_032_768       # qwen2-0.5b's parameters per worker
 MODERATE = ((4, 65_536), (3, 1_237))   # (W, R) at C = 256
@@ -509,6 +537,55 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the sources whose products run on the tensor cores: phase 2 prints their
+# registers, stack and tensor-core instructions
+TC_SOURCES = ("flash_attention", "ssd_scan")
+
+
+def tensor_core_report(build) -> None:
+    """Print each TC_SOURCES kernel's registers, stack frame (where ptxas
+    spills) and local memory (``cuobjdump -res-usage``), and the count of
+    tensor-core instructions (HMMA, HGMMA) in its library's SASS
+    (``cuobjdump -sass``); fail where that count is 0."""
+    bin_dir = os.path.dirname(build.nvcc())
+    filt = os.path.join(bin_dir, "cu++filt")
+
+    def dump(flag, name):
+        out = subprocess.run([os.path.join(bin_dir, "cuobjdump"), flag,
+                              str(build.library_path(name))],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise RuntimeError(f"cuobjdump {flag} failed for lib{name}: "
+                               f"{out.stderr[-2000:]}")
+        return out.stdout
+
+    for name in TC_SOURCES:
+        usage = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) "
+                           r"SHARED:\d+ LOCAL:(\d+)",
+                           dump("-res-usage", name))
+        if not usage:
+            raise AssertionError(f"cuobjdump -res-usage lists no kernel in "
+                                 f"lib{name}")
+        fns = [u[0] for u in usage]
+        if os.path.exists(filt):        # demangled where the toolkit can
+            fns = subprocess.run([filt], input="\n".join(fns),
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()
+        for fn, (_, regs, stack, local) in zip(fns, usage):
+            short = re.sub(r"\(.*$", "", re.sub(
+                r"\(int\)|\(anonymous namespace\)::|<unnamed>::|^void ", "",
+                fn))
+            print(f"[2 build] lib{name}: {short}: {regs} registers, {stack} "
+                  f"bytes stack, {local} bytes local", flush=True)
+        sass = dump("-sass", name)
+        hmma = len(re.findall(r"\bHMMA\b", sass))
+        hgmma = len(re.findall(r"\bHGMMA\b", sass))
+        print(f"[2 build] lib{name}: {hmma} HMMA and {hgmma} HGMMA "
+              f"instructions in its SASS (cuobjdump -sass)", flush=True)
+        if hmma + hgmma == 0:
+            raise AssertionError(f"lib{name} has no tensor-core instruction")
+
+
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -523,8 +600,15 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S,
+             core_flops: float = 0.0):
+    """The least time for the work, the longest of: bytes over 3.35 TB/s,
+    ``flops`` over ``rate`` (the CUDA cores' fp32 rate unless a
+    tensor-core rate is given), and ``core_flops`` over the CUDA cores'
+    rate — they run beside the tensor cores, so the two unit times do not
+    add."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / rate, core_flops / FP32_FLOPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1081,18 +1165,30 @@ def full_shape(chk, vu, tu, dev):
     # vrl_sgd's path: sgd with Δ, wd 1e-4
     p, g, d = randn(), randn(), randn()
     measure("fused_local_sgd", (p, g, d), lr=LR, wd=1e-4)
+    library["fused_local_sgd"] = optimizer_library(
+        "fused_local_sgd",
+        lambda p0, g0: tu.fused_local_sgd(p0, g0, None, lr=LR, wd=1e-4),
+        p, g, lr=LR, wd=1e-4)
     # easgd's path: momentum without Δ or B, fp32 m, wd 1e-4
     m = randn().mul_(0.1)
     measure("fused_local_momentum", (p, g, None, m), lr=LR, beta=0.9,
             wd=1e-4)
-    library["fused_local_momentum"] = fused_sgd_library(tu, p, g, m, lr=LR,
-                                                        beta=0.9, wd=1e-4)
+    library["fused_local_momentum"] = optimizer_library(
+        "fused_local_momentum",
+        lambda p0, g0, m0: tu.fused_local_momentum(p0, g0, None, m0, lr=LR,
+                                                   beta=0.9, wd=1e-4),
+        p, g, (m,), lr=LR, wd=1e-4, beta=0.9)
     del m
     # bvr_l_sgd's path: adam with Δ and B, fp32 mu and nu
     b, mu, nu = randn(), randn().mul_(0.1), randn()
     nu.square_().mul_(0.01)
     measure("fused_local_adam", (p, g, d, mu, nu, adam_scal(3, dev)),
             lr=1e-3, wd=1e-4, b=b)
+    library["fused_local_adam"] = optimizer_library(
+        "fused_local_adam",
+        lambda p0, g0, mu0, nu0: tu.fused_local_adam(
+            p0, g0, None, mu0, nu0, adam_scal(3, dev), lr=1e-3, wd=1e-4),
+        p, g, (mu, nu), lr=1e-3, wd=1e-4)
     del g, mu, nu
     free()
     # each sync from fresh, unsynced workers (a timed sync leaves p = x̂)
@@ -1136,7 +1232,13 @@ def full_shape(chk, vu, tu, dev):
     p, g, d1, d2 = randn(HIER_FULL), randn(HIER_FULL), randn(HIER_FULL), \
         randn(pod)
     measure("fused_hier_local_sgd", (p, g, d1, d2), ndim=4, lr=LR, wd=1e-4)
-    del g
+    zero = torch.zeros(HIER_FULL[2:], device=dev)     # Δ1 = Δ2 = 0
+    library["fused_hier_local_sgd"] = optimizer_library(
+        "fused_hier_local_sgd",
+        lambda p0, g0: tu.fused_hier_local_sgd(p0, g0, zero, zero, lr=LR,
+                                               wd=1e-4),
+        p, g, lr=LR, wd=1e-4, lead=2)
+    del g, zero
     free()
     p.normal_(generator=gen)
     xpod = p.mean(dim=1, keepdim=True)
@@ -1184,10 +1286,22 @@ def full_shape(chk, vu, tu, dev):
     m = randn(HIER_FULL).mul_(0.1)
     measure("fused_hier_local_momentum", (p, g, d1, d2, m), ndim=4,
             per_worker=True, lr=HIER_MOMENTUM_LR, beta=0.9, wd=1e-4)
+    zero = torch.zeros(HIER_FULL[2:], device=dev)     # Δ1 = Δ2 = 0
+    library["fused_hier_local_momentum"] = optimizer_library(
+        "fused_hier_local_momentum",
+        lambda p0, g0, m0: tu.fused_hier_local_momentum(
+            p0, g0, zero, zero, m0, lr=HIER_MOMENTUM_LR, beta=0.9, wd=1e-4),
+        p, g, (m,), lr=HIER_MOMENTUM_LR, wd=1e-4, beta=0.9, lead=2)
     nu = randn(HIER_FULL).square_().mul_(0.01)
     measure("fused_hier_local_adam", (p, g, d1, d2, m, nu, adam_scal(3, dev)),
             ndim=4, per_worker=True, lr=1e-3, wd=1e-4)
-    del nu
+    library["fused_hier_local_adam"] = optimizer_library(
+        "fused_hier_local_adam",
+        lambda p0, g0, mu0, nu0: tu.fused_hier_local_adam(
+            p0, g0, zero, zero, mu0, nu0, adam_scal(3, dev), lr=1e-3,
+            wd=1e-4),
+        p, g, (m, nu), lr=1e-3, wd=1e-4, lead=2)
+    del nu, zero
     free()
     mu = m.bfloat16()
     del m
@@ -1238,33 +1352,55 @@ def level2_strided(chk, vu, p, e2, ref2):
         free()
 
 
-def fused_sgd_library(tu, p, g, m, *, lr, beta, wd) -> float:
-    """The library time of ``fused_local_momentum`` on path (b)'s
-    operands (no Δ, no B, fp32 m): ``torch._fused_sgd_``, the kernel of
-    ``torch.optim.SGD(momentum=β, weight_decay=wd, fused=True)``, which
-    computes v = g + wd·p; m' = βm + v; p' = p − γm' — the same function.
-    It is held to the plain version on worker 0 (rtol 1e-5: it may
-    contract the products into FMAs), then timed over the W worker
-    slices in one call; the port never calls it."""
-    def call(ps, gs, ms):
-        torch._fused_sgd_(ps, gs, ms, weight_decay=wd, momentum=beta, lr=lr,
-                          dampening=0.0, nesterov=False, maximize=False,
-                          is_first_step=False)
-    p0, m0 = p[:1].clone(), m[:1].clone()
-    want = tu.fused_local_momentum(p0, g[:1], None, m0, lr=lr, beta=beta,
-                                   wd=wd)
-    call([p0], [g[:1].clone()], [m0])
-    for got, ref in zip((p0, m0), want):
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
-    err = max((got - ref).abs().max().item()
-              for got, ref in zip((p0, m0), want))
-    del p0, m0, want
+def optimizer_library(name, plain, p, g, states=(), *, lr, wd, beta=0.0,
+                      lead=1) -> float:
+    """The library time of an update kernel on its path's operands without
+    Δ (or B): ``torch._fused_sgd_``, the kernel of ``torch.optim.SGD(
+    momentum=β, weight_decay=wd, fused=True)`` — v = g + wd·p; m' = βm + v;
+    p' = p − γm', and p' = p − γ(g + wd·p) at momentum 0 with no buffer —
+    for the sgd and momentum kernels (``states`` = (m,) or ()), and
+    ``torch._fused_adamw_`` — p(1 − γ·wd) − γ(m'/c1)/(√ν'/√c2 + ε) at
+    step t = 3 — for the Adam kernels (``states`` = (mu, nu), fp32).  Each
+    is held to ``plain`` (the kernel's plain version with Δ absent or zero,
+    called on worker 0's clones, returning p' and the states) at rtol 1e-5
+    (it may contract the products into FMAs and round in another order),
+    then timed over the worker slices (the first ``lead`` axes) in one
+    call; the port never calls it.  Both update p and the states in place,
+    as the kernels' timed calls do."""
+    adam = len(states) == 2
+    steps = [torch.full((), 3.0, device=p.device)]
+
+    def call(ps, gs, ss):
+        if adam:
+            torch._fused_adamw_(ps, gs, ss[0], ss[1], [], steps * len(ps),
+                                lr=lr, beta1=0.9, beta2=0.999,
+                                weight_decay=wd, eps=1e-8, amsgrad=False,
+                                maximize=False)
+        else:
+            torch._fused_sgd_(ps, gs, ss[0] if ss else [], weight_decay=wd,
+                              momentum=beta, lr=lr, dampening=0.0,
+                              nesterov=False, maximize=False,
+                              is_first_step=False)
+
+    first = (0,) * lead
+    p0, g0 = p[first].clone(), g[first].clone()
+    s0 = [t[first].clone() for t in states]
+    want = plain(p0.clone(), g0, *(t.clone() for t in s0))
+    want = want if isinstance(want, tuple) else (want,)
+    call([p0], [g0], [[t] for t in s0])
+    got = (p0, *s0)
+    for x, ref in zip(got, want):
+        torch.testing.assert_close(x, ref, rtol=1e-5, atol=1e-6)
+    err = max((x - ref).abs().max().item() for x, ref in zip(got, want))
+    del p0, g0, s0, want, got
     free()
-    ps, gs, ms = (list(t.unbind(0)) for t in (p, g, m))
-    t = time_ms(lambda: call(ps, gs, ms), 10, warmup=2)
-    print(f"[3 kernels] library for fused_local_momentum: torch._fused_sgd_ "
-          f"{t:.3f} ms over the {len(ps)} worker slices; max abs diff from "
-          f"the plain version on worker 0: {err}", flush=True)
+    ps, gs = (list(t.flatten(0, lead - 1).unbind(0)) for t in (p, g))
+    ss = [list(t.flatten(0, lead - 1).unbind(0)) for t in states]
+    t = time_ms(lambda: call(ps, gs, ss), 10, warmup=2)
+    lib = "torch._fused_adamw_" if adam else "torch._fused_sgd_"
+    print(f"[3 kernels] library for {name} (without Δ): {lib} {t:.3f} ms "
+          f"over the {len(ps)} worker slices; max abs diff from the plain "
+          f"version on worker 0: {err}", flush=True)
     return t
 
 
@@ -2432,8 +2568,10 @@ def attention_moderate_checks(dev):
     """The attention op on the card against its plain version: B ∈ {1, 2};
     ragged S ∈ {1, 100, 257, 512} (padded to the block, 64 or 128); D ∈
     {16, 32, 64, 128}; GQA groups 1, 2, 7; causal on and off; window None,
-    16, 64; fp32 and bf16.  Then the (BH, S, D) wrapper.  Returns the
-    number of checks and {dtype: (max abs err, elements past one ulp)}."""
+    16, 64; fp32 and bf16.  Then the (BH, S, D) wrapper; then scores of
+    large magnitude (q · 10) and D = 128 at S = 2048, causal on and off
+    and window 512.  Returns the number of checks and {dtype: (max abs
+    err, elements past one ulp)}."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev)
@@ -2479,17 +2617,45 @@ def attention_moderate_checks(dev):
                       fa.flash_attention_ref(q, k, v, causal=causal,
                                              window=window), dt,
                       f"(6, 256, {d}) {dt} causal {causal} window {window}")
+    # scores of large magnitude (q · 10: |s| ~ 80, a sharply peaked
+    # softmax), and D = 128 over S = 2048 (many key tiles a query tile)
+    for dt in (torch.float32, torch.bfloat16):
+        for (b, s, h, kvh, d), scale in (((2, 512, 4, 2, 64), 10.0),
+                                         ((1, 2048, 4, 2, 128), 1.0)):
+            q, k, v = (torch.randn(b, s, m, d, generator=gen, device=dev)
+                       for m in (h, kvh, kvh))
+            q, k, v = (q * scale).to(dt), k.to(dt), v.to(dt)
+            for causal, window in ((True, None), (False, None),
+                                   (True, 512)):
+                kw = dict(causal=causal, window=window)
+                check(ops.mha_flash(q, k, v, **kw),
+                      fa.mha_flash_ref(q, k, v, **kw), dt,
+                      f"({b}, {s}, {h}, {kvh}, {d}) q × {scale} {dt} {kw}")
     torch.cuda.synchronize()
     return n, worst
 
 
+# CUDA-core operations per kept (query, key) pair beside the products:
+# the scale, the running max, the subtraction, exp and the row sum
+ATTN_CORE_OPS = 5
+
+
 def attention_cost(b, s, h, kvh, d, window, itemsize):
-    """Bytes (q, k, v read once, out written once, in their dtype) and fp32
-    operations (4·D per kept causal (query, key) pair) of one mha_flash."""
+    """Bytes (q, k, v read once, out written once, in their dtype) of one
+    mha_flash and its operations per kept causal (query, key) pair:
+    (bytes, fp32 flops, (tensor-core flops, their rate, CUDA-core ops)).
+    fp32: 4·D flops of q·k and p·v; on the tensor cores three TF32 products
+    each (both operands carry more than TF32's bits), 12·D at 495 TFLOP/s.
+    bf16: q·k one bf16 product (both exact), p·v two (p split into two
+    bf16 parts: p rounded once to bf16 fails the bf16 tolerance,
+    tests/test_torch_split_products.py), 6·D at 989 TFLOP/s.  Beside them
+    ATTN_CORE_OPS a pair on the CUDA cores."""
     w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
+    pairs = (w * (w + 1) // 2 + (s - w) * w) * b * h
+    tc = ((12 * d, TF32_FLOPS_PER_S) if itemsize == 4
+          else (6 * d, BF16_FLOPS_PER_S))
     return (itemsize * (2 * b * s * h * d + 2 * b * s * kvh * d),
-            4 * d * pairs * b * h)
+            4 * d * pairs, (tc[0] * pairs, tc[1], ATTN_CORE_OPS * pairs))
 
 
 def sdpa_call(q, k, v, window):
@@ -2551,14 +2717,18 @@ def attention_full_width(dev):
         free()
         library = time_ms(sdpa_call(q, k, v, w), 10, warmup=2)
         free()
-        b_ms, by = bound_ms(*attention_cost(*ATTN_FULL[model], w,
-                                            dt.itemsize))
+        nbytes, flops, tc = attention_cost(*ATTN_FULL[model], w,
+                                           dt.itemsize)
+        b_ms, by = bound_ms(nbytes, *tc)
+        core_ms, _ = bound_ms(nbytes, flops)
         rows[c] = dict(ms=ms, plain=plain, library=library, bound=b_ms,
-                       by=by, err=err)
+                       by=by, core_bound=core_ms, err=err)
         print(f"[3 kernels] flash_attention via mha_flash at {tag}: "
-              f"{ms:.3f} ms (bound {b_ms:.3f} ms by {by}, "
-              f"{100 * b_ms / ms:.1f}% of 67 TFLOP/s); plain {plain:.3f} ms; "
-              f"SDPA {library:.3f} ms; max abs err vs plain {err:.3e}"
+              f"{ms:.3f} ms; tensor-core "
+              f"bound {b_ms:.3f} ms by {by}, {100 * b_ms / ms:.1f}%; fp32 "
+              f"CUDA-core bound {core_ms:.3f} ms, {100 * core_ms / ms:.1f}%; "
+              f"plain {plain:.3f} ms; SDPA ({str(dt)[6:]}) {library:.3f} ms; "
+              f"max abs err vs plain {err:.3e}"
               + (f" ({past} elements one bf16 ulp apart)"
                  if dt == torch.bfloat16 else ""), flush=True)
     del outs, inputs
@@ -2675,20 +2845,36 @@ def ssd_moderate_checks(dev):
 
 
 def ssd_cost(b, l, h, p, n, q, itemsize):
-    """Bytes (x, dt, B, C read once, y written once, a_log) and fp32
-    operations of one ssd_chunk_scan, chunk by chunk: for a chunk of v
-    valid rows, v(v+1)/2 kept (i, j) pairs, whose C_i·B_j (2N flops) B and C
-    shared by a batch's heads give once per batch; then per (b·h) 2P + 1
-    flops a pair (the decay, the product with xd) and 2·v·P·N each for
-    C·stateᵀ and the state update."""
-    shared = per_head = 0
-    for z in range(-(-l // q)):
+    """Bytes (x, dt, B, C read once, y written once, a_log) and operations
+    of one ssd_chunk_scan, chunk by chunk: (bytes, fp32 flops,
+    (tensor-core flops, their rate, CUDA-core ops)).  For a chunk of v
+    valid rows, v(v+1)/2 kept (i, j) pairs, whose C_i·B_j (2N flops) B and
+    C shared by a batch's heads give once per batch; then per (b·h) 2P
+    flops a pair (the product with xd), 2·v·P·N for C·stateᵀ in every
+    chunk but the first (its state is 0) and 2·v·P·N for the state update
+    in every chunk but the last (its state is never read).  fp32: 2P + 1
+    a pair and the rest on the CUDA cores.
+    Tensor cores (TF32, 495 TFLOP/s): three products where both operands
+    carry more than TF32's bits, two where one is exact (a bf16 x against
+    the decayed C·Bᵀ and in the update, bf16 C in C·stateᵀ), one where both
+    are (bf16 C·Bᵀ); beside them 3 CUDA-core operations a kept pair and
+    head (the difference, exp, the product with C·Bᵀ)."""
+    shared = pairs_bh = state_rows = 0
+    nc = -(-l // q)
+    for z in range(nc):
         v = min(q, l - z * q)
         pairs = v * (v + 1) // 2
         shared += pairs * 2 * n
-        per_head += pairs * (2 * p + 1) + 4 * v * p * n
-    return (itemsize * (2 * b * l * h * p + b * l * h + 2 * b * l * n)
-            + 4 * h, shared * b + per_head * b * h)
+        pairs_bh += pairs
+        state_rows += v * ((z > 0) + (z < nc - 1))
+    per_head = pairs_bh * (2 * p + 1) + 2 * state_rows * p * n
+    exact = itemsize == 2                 # B and C in the dtype of the call
+    tc = (shared * b * (1 if exact else 3)
+          + b * h * (2 if exact else 3) * (2 * p * pairs_bh
+                                           + 2 * state_rows * p * n))
+    return ((itemsize * (2 * b * l * h * p + b * l * h + 2 * b * l * n)
+             + 4 * h), shared * b + per_head * b * h,
+            (tc, TF32_FLOPS_PER_S, 3 * pairs_bh * b * h))
 
 
 def ssd_full_width(dev):
@@ -2759,15 +2945,20 @@ def ssd_full_width(dev):
                      warmup=2)
         plain = time_ms(lambda: ss.ssd_chunk_scan_ref(*args, chunk=q), 3)
         free()
-        b_ms, by = bound_ms(*ssd_cost(b, l, h, hd, n, q, dt_.itemsize))
-        rows[dt_] = dict(ms=ms, plain=plain, bound=b_ms, by=by, err=err)
+        nbytes, flops, tc = ssd_cost(b, l, h, hd, n, q, dt_.itemsize)
+        b_ms, by = bound_ms(nbytes, *tc)
+        core_ms, _ = bound_ms(nbytes, flops)
+        rows[dt_] = dict(ms=ms, plain=plain, bound=b_ms, by=by,
+                         core_bound=core_ms, err=err)
         # the sequential recurrence's count, lower still: per step and
         # head, decay·S + xd ⊗ B (3PN) and S·C (2PN)
         rec_ms = 5 * b * l * h * hd * n / FP32_FLOPS_PER_S * 1e3
         print(f"[3 kernels] ssd_scan via ssd_chunk_scan at {tag}: {ms:.3f} "
-              f"ms (bound {b_ms:.3f} ms by {by}: the chunked form with C·Bᵀ "
-              f"once per batch; {100 * b_ms / ms:.1f}% of it; the "
-              f"recurrence's count {rec_ms:.3f} ms); plain {plain:.3f} ms; "
+              f"ms; tensor-core bound {b_ms:.3f} ms by {by}, "
+              f"{100 * b_ms / ms:.1f}%; fp32 CUDA-core bound {core_ms:.3f} "
+              f"ms, {100 * core_ms / ms:.1f}% (the chunked form with C·Bᵀ "
+              f"once per batch; the recurrence's count {rec_ms:.3f} ms); "
+              f"plain {plain:.3f} ms; "
               f"library: none; max abs "
               f"err vs plain {err:.3e} (max|y| "
               f"{got.float().abs().max().item():.3e}, {ratio:.3f} of the "
@@ -3123,6 +3314,7 @@ def main() -> int:
     ss._lib()
     print(f"[2 build] {', '.join(build.SOURCES)} built and loaded in "
           f"{time.time() - t0:.1f}s", flush=True)
+    tensor_core_report(build)
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3172,7 +3364,8 @@ def main() -> int:
     n_attn, attn_worst = attention_moderate_checks(dev)
     print(f"[3 kernels] flash_attention: {n_attn} checks of mha_flash (B "
           f"1-2, S 1, 100, 257, 512, D 16-128, GQA groups 1, 2, 7, causal "
-          f"on and off, window None, 16, 64) and of the (BH, S, D) wrapper "
+          f"on and off, window None, 16, 64; q · 10; D 128 at S 2048) and "
+          f"of the (BH, S, D) wrapper "
           f"against the plain version within the tolerance: fp32 max abs "
           f"err {attn_worst[torch.float32][0]:.3e}; bf16 "
           f"{attn_worst[torch.bfloat16][0]:.3e} "
@@ -3180,11 +3373,20 @@ def main() -> int:
           flush=True)
     attn_launches, attn_rows = attention_full_width(dev)
     attn_main = attn_rows["qwen2-0.5b", torch.float32, None]
+    attn_bf16 = attn_rows["qwen2-0.5b", torch.bfloat16, None]
     times["flash_attention"] = attn_main["ms"]
     plain["flash_attention"] = attn_main["plain"]
     library["flash_attention"] = attn_main["library"]
     bounds["flash_attention"] = (attn_main["bound"], attn_main["by"])
     chk.err["flash_attention"] = max(r["err"] for r in attn_rows.values())
+    # the redesigned kernels' second bound (the first port's, fp32 on the
+    # CUDA cores); flash_attention's bf16 row
+    extra = {"flash_attention": {
+        "bound_share": attn_main["bound"] / attn_main["ms"],
+        "cuda_core_bound_ms": attn_main["core_bound"],
+        "cuda_core_bound_share": attn_main["core_bound"] / attn_main["ms"],
+        "bf16_ms": attn_bf16["ms"], "bf16_bound_ms": attn_bf16["bound"],
+        "bf16_library_ms": attn_bf16["library"]}}
     n_ssd, ssd_worst = ssd_moderate_checks(dev)
     print(f"[3 kernels] ssd_scan: {n_ssd} checks of ssd_chunk_scan (B 1-2, "
           f"H 1, 3, 32, P 16, 64, N 8, 128, Q 16, 64, 256 with 1-8 chunks, "
@@ -3202,6 +3404,12 @@ def main() -> int:
     library["ssd_scan"] = None
     bounds["ssd_scan"] = (ssd_main["bound"], ssd_main["by"])
     chk.err["ssd_scan"] = max(r["err"] for r in ssd_rows.values())
+    extra["ssd_scan"] = {
+        "bound_share": ssd_main["bound"] / ssd_main["ms"],
+        "cuda_core_bound_ms": ssd_main["core_bound"],
+        "cuda_core_bound_share": ssd_main["core_bound"] / ssd_main["ms"],
+        "bf16_ms": ssd_rows[torch.bfloat16]["ms"],
+        "bf16_bound_ms": ssd_rows[torch.bfloat16]["bound"]}
 
     # ------------------------------------------------------ 4 main paths
     res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
@@ -3299,7 +3507,8 @@ def main() -> int:
                         "launches": main_launches[name],
                         "max_abs_err": chk.err[name], "ms": times[name],
                         "plain_ms": plain[name], "bound_ms": b,
-                        "bound_by": by, "library_ms": library[name]})
+                        "bound_by": by, "library_ms": library[name],
+                        **extra.get(name, {})})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

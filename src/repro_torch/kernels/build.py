@@ -2,23 +2,27 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 at first use, under ``kernels/_build/`` (git-ignored), keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads from the cache.  ``build_all`` starts one ``nvcc`` per source at
-once.  Nothing here runs at import time: the CPU tests import this module
-on machines without ``nvcc``.
+the source, the ``csrc/*.cuh`` headers it includes and the flags, so an
+edited source or header rebuilds and an unchanged one loads from the cache.
+``build_all`` starts one ``nvcc`` per source at once.  Nothing here runs at
+import time: the CPU tests import this module on machines without
+``nvcc``.
 
 Flags: fast math stays off everywhere (IEEE division, accurate ``expf``).
 The update kernels also take ``-fmad=false``, which keeps every multiply
 and add separately rounded (no FMA contraction), so they are bitwise their
 plain PyTorch versions (``kernels/torch_update``).  ``flash_attention`` and
-``ssd_scan`` are held to a tolerance, not bitwise, and may contract into
-FMAs: without them their fp32 rate would halve (``SOURCE_FLAGS``).
+``ssd_scan`` are held to a tolerance, not bitwise: their matrix products
+run on the tensor cores, fp32 operands split into two TF32 parts so that
+the products stay fp32-accurate (``csrc/split_mma.cuh``), and their
+CUDA-core arithmetic may contract into FMAs (``SOURCE_FLAGS``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,10 +63,24 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS[name]
 
 
-def library_path(name: str) -> Path:
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+\.cuh)"', re.M)
+
+
+def headers(name: str) -> list:
+    """The ``csrc/*.cuh`` headers that ``csrc/<name>.cu`` includes, in
+    sorted order."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    return sorted(CSRC / m.decode() for m in set(_INCLUDE.findall(src)))
+
+
+def library_path(name: str) -> Path:
+    """The cached library of ``csrc/<name>.cu``: keyed by the source, the
+    headers it includes (name and bytes) and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in headers(name):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def _compile(names: Iterable[str]) -> None:

@@ -11,54 +11,79 @@
 //   out = acc / max(l, 1e-30), rounded to q's dtype (bf16: to nearest even)
 //
 // Layout: q, k, v and out are (B, S, heads, D) with any element strides over
-// B, S and heads and D contiguous, so ops.mha_flash passes its operands as
-// the caller holds them: the KV head of query head h is h / group (GQA) and
-// is read in place, never repeated, and no (B·H, S, D) copy is made.  Rows
-// in [s, s_pad) are the wrapper's zero padding (keys read as zeros, as the
-// reference's padded copy holds them; those queries are not written); keys
-// at or past s_pad do not exist (score −inf: they add nothing, even to a row
-// whose every score is masked).
+// B, S and heads and D contiguous (16-byte aligned rows: the wrapper copies
+// what is not), so ops.mha_flash passes its operands as the caller holds
+// them: the KV head of query head h is h / group (GQA) and is read in place,
+// never repeated, and no (B·H, S, D) copy is made.  Rows in [s, s_pad) are
+// the wrapper's zero padding (keys read as zeros, as the reference's padded
+// copy holds them; those queries are not written); keys at or past s_pad do
+// not exist (score −inf: they add nothing, even to a row whose every score
+// is masked).
 //
-// Bound: operations.  4·D flops per (query, key) pair that the masks keep,
-// against bytes that are read once per block of 64 queries (q, k, v and out
-// are under 0.3 GB at the main path's widths): the fp32 rate of the CUDA
-// cores, 67 TFLOP/s.  The reference computes in fp32 throughout; fp32 on
-// the tensor cores would be TF32, which this repository keeps off, so the
-// products run on the CUDA cores (a bf16 wgmma design is later work).
+// Bound: operations.  Per (query, key) pair that the masks keep, q·k and
+// p·v take 2·D multiply-adds (4·D flops).  On the tensor cores fp32
+// operands take three TF32 products each (split_mma.cuh), 12·D flops a
+// pair at 495 TFLOP/s; bf16 operands one bf16 product for q·k (exact) and
+// two for p·v (p split into two bf16 parts), 6·D flops at 989 TFLOP/s;
+// beside them exp, the masks and the rescale on the CUDA cores (67
+// TFLOP/s).  The bytes (q, k, v and out, under 0.3 GB at the main path's
+// widths, each K/V tile read once per block of 64 queries) weigh less.
+// chip_smoke.py prints that tensor-core bound and the fp32 CUDA-core bound
+// of the first port (4·D a pair at 67 TFLOP/s) beside each time.
 //
-// Design: one block of 256 threads per (b·h, tile of 64 queries), heaviest
-// (causal: last) tiles first.  The loop over key tiles inside the block
-// takes the place of the TPU's sequential k-grid axis; each key tile (64
-// keys, 32 at D = 128) and its values are staged in shared memory as fp32
-// beside the block's queries, rows padded by 4 floats so that the 16-byte
-// loads of neighbouring threads fall in distinct banks.  A thread owns 4
-// query rows × 4 (2) keys of the score tile and 4 rows × D/16 columns of the
-// output, so m, l and acc stay in registers; a row's max and sum are
-// reduced over its 16 threads with warp shuffles, and p goes through shared
-// memory to the p·v product.  Key tiles that the masks empty for every query
-// of the block are skipped, which is exact: a tile past the causal diagonal
-// gives p = exp(−1e30 − m) = 0 and α = 1, and a tile before the window adds
-// to l and acc only what the first tile holding a kept key wipes with
-// α = exp(−1e30 − m) = 0.  With a window below 1 a query may keep no key at
-// all; then nothing is skipped.  Shared memory above 48 KB is asked for
-// with cudaFuncSetAttribute.
+// Accuracy: the reference computes in fp32; one TF32 product per pair
+// keeps ~11 bits of each operand and fails the fp32 tolerance below, so
+// fp32 products are split, x = hi + lo, and taken as lo·hi + hi·lo +
+// hi·hi (split_mma.cuh): fp32-accurate.  bf16 q and k are exact in bf16
+// products; for p·v, p is split into a bf16 hi and a bf16 lo (about 2^-17
+// relative, inside one bf16 ulp) against the exact bf16 v.
 //
-// Numerics: accurate expf (no fast math), IEEE division; the products may
-// contract into FMAs (this source is built without -fmad=false).  The sums
-// run in another order than the reference's (the key tile is 64 wide, not
-// block_k, and row sums are shuffle trees), so the kernel is held to a
-// tolerance, not bitwise: fp32 rtol 2e-4 / atol 2e-5, bf16 one ulp of the
-// output (tests/test_torch_cuda.py, chip_smoke.py).
+// Design (the FlashAttention-2 layout on mma.sync): one block of 4 warps
+// per (b·h, tile of 64 queries), heaviest (causal: last) tiles first; each
+// warp owns 16 query rows.  The Q tile is loaded once and split once into
+// register fragments (fp32 at D = 128 keeps it in shared memory instead:
+// its fragments would not fit beside the accumulators).  K/V tiles of 64
+// keys (32 for fp32 at D = 128) stream through a two-stage cp.async ring
+// in shared memory, so the load of tile j+1 overlaps the math on tile j;
+// their rows are padded (K by 8, V by 4 fp32 or 8 bf16 elements) so the
+// fragment loads of a warp fall in distinct banks.  S = Q·Kᵀ accumulates
+// in registers; the online softmax runs on the accumulator fragments, a
+// row's max reduced over its 4 lanes by shuffles, accurate expf, the
+// row sum kept per lane and reduced once at the end.  P stays in registers:
+// the k index of the P·V product is numbered so that the S fragment is
+// already the A fragment (split_mma.cuh, `kperm`), with the values read
+// in the same order, so P moves neither through shared memory nor through
+// shuffles.  Key tiles that the masks empty for every query of the block
+// are skipped, which is exact: a tile past the causal diagonal gives p =
+// exp(−1e30 − m) = 0 and α = 1, and a tile before the window adds to l and
+// acc only what the first tile holding a kept key wipes with α =
+// exp(−1e30 − m) = 0.  With a window below 1 a query may keep no key at
+// all; then nothing is skipped.  Tiles that no mask touches for a warp's
+// rows skip the mask arithmetic.
+//
+// Numerics: accurate expf (no fast math), IEEE division; the CUDA-core
+// arithmetic may contract into FMAs (this source is built without
+// -fmad=false).  The sums run in another order than the reference's, so
+// the kernel is held to a tolerance, not bitwise: fp32 rtol 2e-4 / atol
+// 2e-5, bf16 one ulp of the output beyond that (tests/test_torch_cuda.py,
+// chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "split_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // a 16 × 16 grid of threads
-constexpr int kBQ = 64;         // queries per block
+using namespace split_mma;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;   // queries per block
 constexpr float kMasked = -1e30f;
 
 struct Params {
@@ -77,85 +102,75 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float4 load4(const float* x) {
-  return *reinterpret_cast<const float4*>(x);
-}
+// shared-memory geometry of one instantiation (elements of T)
+template <int D, int BK, typename T>
+struct Geom {
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int LDK = D + 8;                 // K (and Q) rows
+  static constexpr int LDV = kBf16 ? D + 8 : D + 4;  // V rows
+  static constexpr int kStage = BK * (LDK + LDV);   // one K/V tile pair
+  // Q in registers, staged first in the ring's second stage; else its
+  // own region after the ring
+  static constexpr bool kQReg = kBf16 || D <= 64;
+  static constexpr int kElems = 2 * kStage + (kQReg ? 0 : kBQ * LDK);
+  static constexpr int kBytes = kElems * (int)sizeof(T);
+  static_assert(!kQReg || kBQ * LDK <= kStage, "Q must fit in a stage");
+  // blocks an SM should hold (the register cap): bf16 runs faster at 3
+  // (≤ 168 registers a thread); fp32 at 2, where its Q fragments, S and
+  // the output accumulators (220 registers at D = 64) need not spill
+  static constexpr int kMinBlocks = kBf16 ? 3 : 2;
+};
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* x) {
-  const uint2 u = *reinterpret_cast<const uint2*>(x);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store(float* x, float v) { *x = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* x, float v) {
-  *x = __float2bfloat16_rn(v);
-}
-
-// rows [row0, row0 + rows) of a (seq, D) slice into sm (row stride ld), fp32;
-// rows at or past s read as zeros
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* sm, int ld, const T* base,
-                                          int64_t row_stride, int row0,
-                                          int rows, int s) {
-  constexpr int kC4 = D / 4;
-  for (int e = threadIdx.x; e < rows * kC4; e += kThreads) {
-    const int r = e / kC4, c = (e % kC4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < s) x = load4(base + (int64_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(sm + r * ld + c) = x;
+// rows [row0, row0 + rows) of a (seq, D) slice into sm (row stride LD),
+// 16 bytes a copy, asynchronously; rows at or past s read as zeros
+template <int D, int LD, typename T>
+__device__ __forceinline__ void load_async(T* sm, const T* base,
+                                           int64_t row_stride, int row0,
+                                           int rows, int s) {
+  constexpr int CH = 16 / (int)sizeof(T), kC = D / CH;
+  for (int e = threadIdx.x; e < rows * kC; e += kThreads) {
+    const int r = e / kC, c = (e % kC) * CH;
+    const bool ok = row0 + r < s;
+    const T* src = ok ? base + (int64_t)(row0 + r) * row_stride + c : base;
+    cp_async16(sm + r * LD + c, src, ok ? 16 : 0);
   }
 }
 
-// N consecutive floats of shared memory (N·4 bytes aligned) into registers
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int t = 0; t < N; t += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(src + t);
-      dst[t] = x.x; dst[t + 1] = x.y; dst[t + 2] = x.z; dst[t + 3] = x.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    dst[0] = x.x; dst[1] = x.y;
-  } else {
-    dst[0] = src[0];
-  }
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* x) {
+  return *reinterpret_cast<const uint32_t*>(x);
 }
 
-// max / sum over the 16 threads of one query row (lanes differing in tx)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// the split A fragment of an fp32 (16 × 8) tile at row r (row stride ld)
+// and column c, under kperm
+__device__ __forceinline__ FragA q_frag(const float* qs, int ld, int r,
+                                        int c) {
+  const float2 x0 = *reinterpret_cast<const float2*>(qs + r * ld + c);
+  const float2 x1 = *reinterpret_cast<const float2*>(qs + (r + 8) * ld + c);
+  return split_a(x0.x, x1.x, x0.y, x1.y);
 }
 
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void store2(float* x, float a, float b) {
+  *reinterpret_cast<float2*>(x) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* x, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(x) = __floats2bfloat162_rn(a, b);
 }
 
 template <int D, int BK, typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
-  constexpr int LD = D + 4;        // q, k, v row stride in shared memory
-  constexpr int LDP = BK + 4;      // p row stride
-  constexpr int KJ = BK / 16;      // keys per thread
-  constexpr int CJ = D / 16;       // output columns per thread
+__global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
+    flash_fwd(Params p) {
+  using G = Geom<D, BK, T>;
+  constexpr bool kBf16 = G::kBf16;
+  constexpr int LDK = G::LDK, LDV = G::LDV;
+  constexpr int NK = BK / 8;       // 8-key column tiles of S
+  constexpr int ND = D / 8;        // 8-column tiles of the output
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * LD;
-  float* vs = ks + BK * LD;
-  float* ps = vs + BK * LD;
+  T* ring = reinterpret_cast<T*>(smem4);
+  T* qs = G::kQReg ? ring + G::kStage : ring + 2 * G::kStage;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t bid = blockIdx.x;
   const int qt = p.n_qt - 1 - (int)(bid / p.n_bh);
   const int64_t bh = bid % p.n_bh;
@@ -167,8 +182,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int q0 = qt * kBQ;
-
-  load_tile<D>(qs, LD, q, p.q_ss, q0, kBQ, p.s);
+  const int w0 = q0 + 16 * warp;   // this warp's first query row
 
   // the key tiles that hold a kept key for some query of this block
   int kt_lo = 0, kt_hi = (p.s_pad + BK - 1) / BK;
@@ -180,114 +194,187 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
     kt_hi = (k_hi + BK - 1) / BK;
   }
 
-  float m[4], l[4], acc[4][CJ];
+  // prologue: the Q tile and the first K/V tile
+  load_async<D, LDK>(qs, q, p.q_ss, q0, kBQ, p.s);
+  if (kt_lo < kt_hi) {
+    load_async<D, LDK>(ring, k, p.k_ss, kt_lo * BK, BK, p.s);
+    load_async<D, LDV>(ring + BK * LDK, v, p.v_ss, kt_lo * BK, BK, p.s);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Q fragments: fp32 split into hi and lo under kperm; bf16 as they are
+  constexpr int QF = G::kQReg ? (kBf16 ? D / 16 : D / 8) : 1;
+  FragA qa[QF];
+  if constexpr (G::kQReg) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+    for (int kk = 0; kk < QF; ++kk) {
+      if constexpr (kBf16) {
+        const T* r0 = qs + (16 * warp + g) * LDK + 16 * kk + 2 * t;
+        qa[kk].hi[0] = ld32(r0);
+        qa[kk].hi[1] = ld32(r0 + 8 * LDK);
+        qa[kk].hi[2] = ld32(r0 + 8);
+        qa[kk].hi[3] = ld32(r0 + 8 * LDK + 8);
+      } else {
+        qa[kk] = q_frag(reinterpret_cast<const float*>(qs), LDK,
+                        16 * warp + g, 8 * kk + 2 * t);
+      }
+    }
+    __syncthreads();               // stage 1 is free for the ring
   }
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt_lo, st = 0; kt < kt_hi; ++kt, st ^= 1) {
+    if (kt + 1 < kt_hi) {          // prefetch the next tile pair
+      T* nx = ring + (st ^ 1) * G::kStage;
+      load_async<D, LDK>(nx, k, p.k_ss, (kt + 1) * BK, BK, p.s);
+      load_async<D, LDV>(nx + BK * LDK, v, p.v_ss, (kt + 1) * BK, BK, p.s);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();            // this tile pair has landed
+    __syncthreads();
+    const T* ks = ring + st * G::kStage;
+    const T* vs = ks + BK * LDK;
     const int k0 = kt * BK;
-    __syncthreads();               // the last tile's p·v is done with vs, ps
-    load_tile<D>(ks, LD, k, p.k_ss, k0, BK, p.s);
-    load_tile<D>(vs, LD, v, p.v_ss, k0, BK, p.s);
-    __syncthreads();
 
-    // scores: rows ty + 16i, keys tx + 16j
-    float sc[4][KJ];
+    // S = Q·Kᵀ: rows w0 + g (+ 8), keys k0 + 8j + 2t (+ 1)
+    float sc[NK][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[KJ];
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (kBf16) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = load4(qs + (ty + 16 * i) * LD + d);
+      for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) kv[j] = load4(ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          sc[i][j] += qv[i].x * kv[j].x;
-          sc[i][j] += qv[i].y * kv[j].y;
-          sc[i][j] += qv[i].z * kv[j].z;
-          sc[i][j] += qv[i].w * kv[j].w;
+        for (int j = 0; j < NK; ++j) {
+          const T* kr = ks + (8 * j + g) * LDK + 16 * kk + 2 * t;
+          const uint32_t kb[2] = {ld32(kr), ld32(kr + 8)};
+          mma_bf16(sc[j], qa[kk].hi, kb);
         }
+    } else {
+      const float* kf = reinterpret_cast<const float*>(ks);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA a;
+        if constexpr (G::kQReg) {
+          a = qa[kk];
+        } else {
+          a = q_frag(reinterpret_cast<const float*>(qs), LDK, 16 * warp + g,
+                     8 * kk + 2 * t);
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              kf + (8 * j + g) * LDK + 8 * kk + 2 * t);
+          mma3(sc[j], a, split_b(kv.x, kv.y));
+        }
+      }
     }
 
-    // masks, then the online softmax, row by row
+    // scale, masks, then the online softmax on the fragments
+    const bool masked = (p.causal && k0 + BK - 1 > w0) ||
+                        (p.has_window && k0 <= w0 + 15 - p.window) ||
+                        k0 + BK > p.s_pad;
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = m[i];
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = sc[i][j] * p.scale;
-        const bool kept = !(p.causal && kpos > qpos) &&
-                          !(p.has_window && kpos <= qpos - p.window);
-        x = kept ? x : kMasked;
-        if (kpos >= p.s_pad) x = -INFINITY;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * p.scale;
+        if (masked) {
+          const int qpos = w0 + g + 8 * (e >> 1);
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const bool kept = !(p.causal && kpos > qpos) &&
+                            !(p.has_window && kpos <= qpos - p.window);
+          x = kept ? x : kMasked;
+          if (kpos >= p.s_pad) x = -INFINITY;
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      const float m_new = row_max(mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+    float alpha[2];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float e = expf(sc[i][j] - m_new);
-        sc[i][j] = e;
-        sum += e;
-      }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j)
-        ps[(ty + 16 * i) * LDP + tx + 16 * j] = sc[i][j];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = expf(sc[j][e] - m[e >> 1]);
+        sc[j][e] = pe;
+        l[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 
-    // acc += p · v: rows ty + 16i, columns tx·CJ .. tx·CJ + CJ − 1
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float pr[4][4];
+    // acc += P·V, P from the S fragments
+    if constexpr (kBf16) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) lds(pr[i], ps + (ty + 16 * i) * LDP + c);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+        split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+        split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float vv[CJ];
-        lds(vv, vs + (c + cc) * LD + tx * CJ);
+        for (int j = 0; j < ND; ++j) {
+          const T* vc = vs + (16 * kk + 2 * t) * LDV + 8 * j + g;
+          const uint32_t vb[2] = {pack_bf16(vc[0], vc[LDV]),
+                                  pack_bf16(vc[8 * LDV], vc[9 * LDV])};
+          mma_bf16(acc[j], pl, vb);
+          mma_bf16(acc[j], ph, vb);
+        }
+      }
+    } else {
+      const float* vf = reinterpret_cast<const float*>(vs);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < NK; ++kk) {
+        const FragA a = split_a(sc[kk][0], sc[kk][2], sc[kk][1], sc[kk][3]);
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] += pr[i][cc] * vv[j];
+        for (int j = 0; j < ND; ++j) {
+          const float* vc = vf + (8 * kk + 2 * t) * LDV + 8 * j + g;
+          mma3(acc[j], a, split_b(vc[0], vc[LDV]));
+        }
       }
     }
+    __syncthreads();               // this stage is free for the prefetch
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= p.s) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* row = o + (int64_t)qpos * p.o_ss + tx * CJ;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) store(row + j, acc[i][j] / denom);
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w0 + g + 8 * r;
+    if (qpos >= p.s) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* row = o + (int64_t)qpos * p.o_ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      store2(row + 8 * j, acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
   }
 }
 
 template <int D, int BK, typename T>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(float) *
-                       (kBQ * (D + 4) + 2 * BK * (D + 4) + kBQ * (BK + 4));
+  constexpr int smem = Geom<D, BK, T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<D, BK, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -300,11 +387,13 @@ int launch(const Params& p, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(int d, const Params& p, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   switch (d) {
     case 16: return launch<16, 64, T>(p, stream);
     case 32: return launch<32, 64, T>(p, stream);
     case 64: return launch<64, 64, T>(p, stream);
-    case 128: return launch<128, 32, T>(p, stream);  // 77 KB: 2 per SM
+    // fp32: 32-key tiles, so two blocks fit an SM beside Q in shared memory
+    case 128: return launch<128, kBf16 ? 64 : 32, T>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -315,7 +404,8 @@ extern "C" {
 
 // q, o: (batch, s, heads, d); k, v: (batch, ≥ s, heads / group, d), each
 // with the element strides strides[0..11] = (batch, seq, head) of q, k, v, o
-// and d contiguous; fp32 (bf16 = 0) or bf16 (bf16 = 1), all four alike.
+// and d contiguous (q, k, v: rows 16-byte aligned, strides multiples of 16
+// bytes); fp32 (bf16 = 0) or bf16 (bf16 = 1), all four alike.
 // Rows [s, s_pad) are zero padding; window is read only where has_window
 // is 1 (any value, also below 1).  Returns 0 (cudaSuccess), or the CUDA
 // error of the attribute call or of the launch.

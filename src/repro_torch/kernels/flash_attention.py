@@ -115,23 +115,29 @@ def _lib() -> ctypes.CDLL:
 
 
 def _loadable(x: torch.Tensor) -> torch.Tensor:
-    """x itself where the kernel's 4-element loads may read it in place
-    (D contiguous, strides and address multiples of 4 elements), else a
+    """x itself where the kernel's 16-byte copies may read it in place (D
+    contiguous, strides and address multiples of 16 bytes), else a
     contiguous copy."""
-    ok = (x.stride(-1) == 1 and all(st % 4 == 0 for st in x.stride()[:-1])
-          and x.data_ptr() % (4 * x.element_size()) == 0)
+    per = 16 // x.element_size()
+    ok = (x.stride(-1) == 1 and all(st % per == 0 for st in x.stride()[:-1])
+          and x.data_ptr() % 16 == 0)
     return x if ok else torch.empty_like(
         x, memory_format=torch.contiguous_format).copy_(x)
 
 
 # Replaces repro/kernels/flash_attention.py:82 flash_attention (Pallas, TPU).
-# Bound: fp32 operations — 4·D flops per kept (query, key) pair on the CUDA
-# cores (fp32 products on the tensor cores would be TF32, kept off here);
-# the bytes, read once per 64 queries, weigh far less.  Design: one block
-# per (b·h, 64 queries), a loop over key tiles staged in shared memory, m, l
-# and acc in registers, fully masked key tiles skipped (exact); the KV head
-# h // group read in place through the caller's strides (csrc/
-# flash_attention.cu).
+# Bound: operations — 4·D flops per kept (query, key) pair of q·k and p·v on
+# the tensor cores, each fp32 product as three TF32 products (a split that
+# keeps them fp32-accurate; bf16: one product for q·k, two for p·v), beside
+# exp and the masks on the CUDA cores (beside it chip_smoke.py keeps the
+# first port's bound, 4·D flops a pair at the CUDA cores' fp32 rate); the
+# bytes, read once per 64 queries, weigh far less.  Design:
+# FlashAttention-2 on mma.sync — one block of 4 warps per (b·h, 64
+# queries), a warp per 16 rows, Q split once into registers, K/V tiles
+# through a two-stage cp.async ring, the online softmax on the accumulator
+# fragments, P kept in registers for P·V, fully masked key tiles skipped
+# (exact); the KV head h // group read in place through the caller's
+# strides (csrc/flash_attention.cu, csrc/split_mma.cuh).
 def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: Optional[int],
                 s_pad: int) -> torch.Tensor:

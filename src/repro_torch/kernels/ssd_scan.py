@@ -151,21 +151,27 @@ def _lib() -> ctypes.CDLL:
     i64, cint = ctypes.c_int64, ctypes.c_int
     lib.ssd_scan_fwd.argtypes = [
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, cint, cint, cint, i64, cint,
-        cint, cint, cint, cint, ctypes.POINTER(i64), _PTR]
+        cint, cint, cint, cint, ctypes.POINTER(i64), _PTR, _PTR]
     lib.ssd_scan_fwd.restype = cint
+    lib.ssd_scan_workspace_bytes.argtypes = [i64, cint, cint, cint, cint,
+                                             cint]
+    lib.ssd_scan_workspace_bytes.restype = i64
     return lib
 
 
 # Replaces repro/kernels/ssd_scan.py:74 ssd_scan (Pallas, TPU; pallas_call
-# at :86).  Bound: fp32 operations on the CUDA cores (the reference computes
-# in fp32, and fp32 on the tensor cores would be TF32, kept off here): 2N
-# per kept (i, j) pair of a chunk for C·Bᵀ, once per batch (B and C are
-# shared by its heads), then per head 2P + 1 per kept pair and 2·P·N per row
-# each for C·stateᵀ and the state update; the bytes (x, y, dt, B, C once)
-# weigh far less.  Design: one block per (b·h) walks the chunks in order
-# (the Pallas grid's sequential minor axis), the (P, N) state in shared
-# memory; the 256 × 256 C·Bᵀ does not fit a block's shared memory, so query
-# tiles of 64 rows stream key tiles j ≤ i (csrc/ssd_scan.cu).
+# at :86).  Bound: operations — the chunked form's matrix products (C·Bᵀ
+# once per batch and chunk, B and C being shared by its heads; per head the
+# decayed C·Bᵀ times x, C·stateᵀ and the state update) on the tensor
+# cores, each fp32 product as three TF32 products (two where x or C is
+# bf16, exact in TF32), which keeps them fp32-accurate; the decays on the
+# CUDA cores (beside it chip_smoke.py keeps the first port's bound, all of
+# it at the CUDA cores' fp32 rate); the bytes (x, y, dt, B, C once) weigh
+# less.  Design: the chunked SSD's parallel stages, four launches a call
+# on mma.sync — C·Bᵀ per (batch, chunk), each chunk's state contribution
+# per head, the state passed over the chunks, then y per (batch, chunk,
+# head, 128 rows) — with fp32 scratch allocated here (csrc/ssd_scan.cu,
+# csrc/split_mma.cuh).
 def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int,
               out: torch.Tensor | None = None) -> torch.Tensor:
@@ -174,7 +180,8 @@ def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunks of ``chunk`` steps; a last chunk that L leaves short is read as
     if zero-padded (padded steps are exact no-ops: dt = 0, B = 0).  Writes
     y into ``out`` (a (B, L, H, P) tensor or view, P contiguous) or a new
-    tensor in x's dtype, and returns it."""
+    tensor in x's dtype, and returns it.  One op call: four kernel
+    launches (two when L fits one chunk), counted once in ``LAUNCHES``."""
     name = "ssd_scan"
     bsz, l, h, p = x.shape
     check_operands(name, x, dt, b, c)
@@ -202,12 +209,19 @@ def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     strides = (ctypes.c_int64 * 15)(
         *x.stride()[:3], *dt.stride(), *a.stride(), *b.stride()[:2],
         *c.stride()[:2], *out.stride()[:3])
+    lib = _lib()
+    n = b.shape[-1]
+    size = lib.ssd_scan_workspace_bytes(bsz, h, p, n, l, chunk)
+    if size < 0:
+        raise ValueError(f"{name}: the kernel does not take {tuple(x.shape)}"
+                         f", N = {n}, chunk {chunk}")
+    work = torch.empty(size, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib().ssd_scan_fwd(
+        err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), out.data_ptr(),
             *(int(t.dtype == torch.bfloat16) for t in (x, dt, b)),
-            bsz, h, p, b.shape[-1], l, chunk, strides,
+            bsz, h, p, n, l, chunk, strides, work.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error "

@@ -36,7 +36,8 @@ than the one-pass plain version): fp32 rtol 2e-4 / atol 2e-5, bf16 one
 bf16 ulp of the output beyond that fp32 tolerance (an output near zero is
 a cancelling sum, whose fp32 error is more than a bf16 ulp there); over
 ragged S, GQA groups 1, 2 and 7, D 16, 32, 64 and 128, causal on and off,
-windows, views of a fused qkv buffer; the
+windows, views of a fused qkv buffer, scores of large magnitude (q · 10)
+and D = 128 at S = 2048; the
 wrapper raises on a head dim or dtype the kernel does not take.
 
 The SSD scan kernel (``csrc/ssd_scan.cu``, behind ``kernels.ssd_chunk_scan``
@@ -47,8 +48,11 @@ hundreds within a chunk at Q = 256, and ulp(|cum|) in each fp32 decay of
 the plain version is of that order), bf16 one bf16 ulp beyond that; over
 B 1-2, H 1-3, P 8-64, N 4-128, Q 16-256 with 1-8 chunks, ragged L (a short
 last chunk), an a_log that drives cum below −100 inside a chunk, views of
-a fused buffer, mixed dtypes of x, dt, B and C; the wrapper raises on
-what the kernel does not take.
+a fused buffer, mixed dtypes of x, dt, B and C, and mamba2-370m's layer-0
+width (4, 2048, 32, 64, 128); the wrapper raises on what the kernel does
+not take.  Both kernels take their products on the tensor cores, fp32
+operands split into two TF32 parts (csrc/split_mma.cuh); the tolerances
+are those of the first, CUDA-core ports.
 """
 import numpy as np
 import pytest
@@ -776,6 +780,40 @@ def test_cuda_kernels_flash_attention_bhsd(d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_mha_flash_large_scores(causal, window, dtype):
+    """q · 10: scores of magnitude ~80, a sharply peaked softmax, where
+    the fp32 products' rounding moves p the most (the tensor-core split
+    keeps them fp32-accurate; tests/test_torch_split_products.py)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    q, k, v = _mha_inputs(11, 2, 512, 4, 2, 64, dev, torch.float32)
+    q, k, v = (q * 10).to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, window=window)
+    _assert_attention_close(ops.mha_flash(q, k, v, **kw),
+                            fa.mha_flash_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_mha_flash_d128_long(causal, window, dtype):
+    """D = 128 over S = 2048: fp32 streams 32-key tiles with Q kept in
+    shared memory, bf16 64-key tiles with Q in registers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    q, k, v = _mha_inputs(12, 1, 2048, 4, 2, 128, dev, dtype)
+    kw = dict(causal=causal, window=window)
+    _assert_attention_close(ops.mha_flash(q, k, v, **kw),
+                            fa.mha_flash_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
 def test_cuda_kernels_mha_flash_reads_views():
     """q, k, v as views of one fused (B, S, H + 2 KVH, D) buffer and a
     misaligned view: read through their strides (or copied), same result."""
@@ -865,6 +903,23 @@ def test_cuda_kernels_ssd_chunk_scan_matches_plain(case, dtype):
     torch.cuda.synchronize()
     assert ss.LAUNCHES["ssd_scan"] == n0 + 1
     _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_ssd_chunk_scan_layer0_width(dtype):
+    """mamba2-370m's layer-0 width, (B, L, H, P, N) = (4, 2048, 32, 64,
+    128) at Q = 256: 8 chunks whose state crosses 7 boundaries, C·Bᵀ
+    shared by 32 heads."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    args = _ssd_inputs(13, 4, 2048, 32, 64, 128, dev, dtype)
+    n0 = ss.LAUNCHES["ssd_scan"]
+    got = ops.ssd_chunk_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == n0 + 1
+    _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=256))
 
 
 @pytest.mark.cuda
