@@ -5,6 +5,8 @@
   python3 chip_smoke.py --lr-sweep  # paths (b), (f) and (j) at γ = 1e-3,
                                     # 1e-4, 1e-5: prints whether each stays
                                     # finite
+  python3 chip_smoke.py --paper-cpu PATH   # phase 6's CPU runs into PATH
+                                           # (the script starts it itself)
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -125,6 +127,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
    bound (those flops and one more a pair over 67 TFLOP/s; the sequential
    recurrence's 5·P·N per step and head printed beside it; no PyTorch
    call computes the scan: library none); then the same in bf16.
+   Then both ops past the first ports' domain: ``mha_flash`` at
+   stablelm-3b's (2, 2048, 32, 32, 80), kimi-k2's attention (1, 2048, 64,
+   8, 112), gemma-7b's (2, 2048, 16, 16, 256) and an odd D = 72 (2, 2048,
+   16, 4, 72), fp32 and bf16, causal and window 512; ``ssd_chunk_scan``
+   at (B, L, H, P, N) = (2, 2048, 16, 128, 256), hymba-1.5b's (2, 2048,
+   50, 64, 16) and the odd (2, 2000, 8, 80, 200), fp32 and bf16, chunk
+   256 — each against its plain version at the tolerances above, timed
+   beside its tensor-core bound (counted as above, at the true D); first
+   the SSD wrapper's shared-memory count (``ssd_scan.smem_bytes``, which
+   its domain predicate reads) against the source's own at 256 (P, N,
+   chunk, dtype) points.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
    just before each path and read just after it:
@@ -318,12 +331,43 @@ Phases (each prints a line; any failure raises and exits non-zero):
    1e-4, params atol 1e-4, Δ atol 1e-4/(k γ)); and ssd_chunk_scan at the
    smoke model's shapes, the kernel against the CPU's plain version.
 
+6. the paper — the paper's own workload (``repro_torch.paper``), each
+   card run's per-step losses held within atol 1e-5 + rtol 1e-4 of the
+   same run on the CPU from the same initial tree (``mlp_init(0)``),
+   computed by a child process (``chip_smoke.py --paper-cpu PATH``: every
+   figure's runs on the per-leaf executor) started before phase 4:
+   - (w) Fig. 1 at ``run_mlp_task``'s defaults (W = 8, batch 32, γ = 0.5,
+     k = 20, 300 steps, class-sharded ``feature_classification(4096, 256,
+     64)``, hidden 128) for ssgd, vrl_sgd, local_sgd and easgd, through
+     the flat engine's kernels (``update_backend="fused"``) and through
+     the per-leaf executor (no launch): each within the bound of the
+     other and of the CPU's; the fused run's launches those of the
+     schedule (fused_local_sgd 300; fused_sync_vrl, fused_sync_easgd 15;
+     none else); Σ_i Δ_i after each of vrl_sgd's syncs within 1e-4 ·
+     max|Δ| plus the fp32 rounding of x̂ (as path (a)); VRL-SGD's final
+     gap to S-SGD below Local SGD's.
+   - (x) Fig. 2, the warm-up ablation, Appendix E and Appendix F through
+     the flat engine's kernels (``paper.figures``, backend "fused"), each
+     run (Appendix E: its distance) within the bound of the CPU's; Fig.
+     2's core spread below 0.005, the warm-up's early gain positive,
+     Appendix E's VRL-SGD within 1e-3 of x* at every (b, k) and Local
+     SGD's bias growing, Appendix F's VRL-SGD degrading less than Local
+     SGD from k = 2 to k = 100 (the reference's CPU runs show each).
+   - (y) the paper's MLP (``configs/paper_mlp.py``, 2048 -> 1024 -> 200)
+     over ``feature_classification()`` at its defaults (8192 × 2048, 200
+     classes), W = 8, batch 32, k = 20, 300 steps, each algorithm through
+     the flat engine's kernels: ms per step (host clock, synchronised),
+     the engine's device ms per round (CUDA events), launches (checked
+     against the schedule), peak memory and losses (finite), beside the
+     card's name and power limit.  No time is asserted.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
 times at qwen2-0.5b's width, fp32, causal, and at mamba2-370m's layer 0,
-fp32, ``bound_ms`` the tensor cores', with the fp32 CUDA-core bound and
-the bf16 row's numbers beside them), and last
+fp32, ``bound_ms`` the tensor cores', with the fp32 CUDA-core bound,
+the bf16 row's numbers and the widened shapes' rows (``wide``) beside
+them), and last
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -335,12 +379,14 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.time()             # the script's clock, for the phase stamps
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
 TF32_FLOPS_PER_S = 495e12       # dense tensor-core rates, same sheet
@@ -399,6 +445,27 @@ ATTN_WINDOWS = (None, 512)
 # 0 at full width: token ids (B, L), chunk Q
 SSD_KERNELS = frozenset({"ssd_scan"})
 SSD_FULL = (4, 2048, 256)
+# the attention op past the first port's head dims: (B, S, H, KVH, D) at
+# stablelm-3b's, kimi-k2's and gemma-7b's attention widths and an odd D
+# (72, run on the 80-wide instantiation with zero columns)
+ATTN_WIDE = {"stablelm-3b": (2, 2048, 32, 32, 80),
+             "kimi-k2-1t-a32b": (1, 2048, 64, 8, 112),
+             "gemma-7b": (2, 2048, 16, 16, 256),
+             "odd D 72": (2, 2048, 16, 4, 72)}
+# the SSD op past the first port's (P, N): (B, L, H, P, N, chunk) at the
+# reference op's widest (two 64-wide P slices, four state tiles a warp),
+# hymba-1.5b's SSM heads and an odd pair
+SSD_WIDE = {"(P, N) = (128, 256)": (2, 2048, 16, 128, 256, 256),
+            "hymba-1.5b": (2, 2048, 50, 64, 16, 256),
+            "odd (P, N) = (80, 200)": (2, 2000, 8, 80, 200, 256)}
+# phase 6, the paper's workload (repro_torch.paper): per-step losses held
+# within atol + rtol · |want| (card vs CPU, fused vs reference executor)
+PAPER_ATOL, PAPER_RTOL = 1e-5, 1e-4
+PAPER_ALGS = ("ssgd", "vrl_sgd", "local_sgd", "easgd")
+# each algorithm's sync kernel on the flat engine (local_sgd's average is
+# a broadcast copy; S-SGD has none)
+PAPER_SYNC = {"ssgd": None, "vrl_sgd": "fused_sync_vrl", "local_sgd": None,
+              "easgd": "fused_sync_easgd"}
 # paths (s) and (t): the serve CLI at full width
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
 SERVE_REL_TOL = 5e-4        # prefill vs decode, × max|logit|
@@ -2971,6 +3038,110 @@ def ssd_full_width(dev):
     return launches, rows
 
 
+# --------------------- the two model kernels past the first port's domain
+def attention_wide(dev):
+    """``kernels.mha_flash`` at the head dims the first port refused
+    (ATTN_WIDE: D = 80, 112, 256 and the odd 72), fp32 and bf16, causal
+    and window 512: each output against the plain version within the
+    tolerance, its time (CUDA events) beside the tensor-core bound counted
+    as for the main path (attention_cost at the true D), the plain
+    version's and SDPA's (timed only).  Returns rows for the kernels
+    line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rows = []
+    for model, shape in ATTN_WIDE.items():
+        b, s, h, kvh, d = shape
+        base = [torch.randn(b, s, n, d, generator=gen, device=dev)
+                for n in (h, kvh, kvh)]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dt) for x in base)
+            for w in ATTN_WINDOWS:
+                tag = f"{model} {shape} {dt} window {w}"
+                err, past = attention_close(
+                    kernels.mha_flash(q, k, v, window=w),
+                    fa.mha_flash_ref(q, k, v, window=w), tag)
+                free()
+                ms = time_ms(lambda: kernels.mha_flash(q, k, v, window=w), 5,
+                             warmup=1)
+                plain = time_ms(lambda: fa.mha_flash_ref(q, k, v, window=w),
+                                2)
+                free()
+                library = time_ms(sdpa_call(q, k, v, w), 5, warmup=1)
+                free()
+                nbytes, _, tc = attention_cost(*shape, w, dt.itemsize)
+                b_ms, by = bound_ms(nbytes, *tc)
+                rows.append(dict(shape=model, d=d, dtype=str(dt)[6:],
+                                 window=w, ms=ms, bound_ms=b_ms, err=err,
+                                 plain_ms=plain, library_ms=library))
+                print(f"[3 kernels] flash_attention via mha_flash at {tag}: "
+                      f"{ms:.3f} ms; tensor-core bound {b_ms:.3f} ms by "
+                      f"{by}, {100 * b_ms / ms:.1f}%; plain {plain:.3f} ms; "
+                      f"SDPA ({str(dt)[6:]}) {library:.3f} ms; max abs err "
+                      f"vs plain {err:.3e}"
+                      + (f" ({past} elements one bf16 ulp apart)"
+                         if dt == torch.bfloat16 else ""), flush=True)
+        del base, q, k, v
+        free()
+    return rows
+
+
+def ssd_wide(dev):
+    """``kernels.ssd_chunk_scan`` at the (P, N) the first port refused
+    (SSD_WIDE), fp32 and bf16: each output against the plain version
+    within the tolerance, its time beside the tensor-core bound (ssd_cost)
+    and the plain version's; first the host-side shared-memory count that the wrappers' predicate
+    reads (``ssd_scan.smem_bytes``) against the source's own.  Returns
+    rows for the kernels line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ssd_scan as ss
+    lib = ss._lib()
+    n_counts = 0
+    for p in (16, 64, 100, 128):
+        for n in (8, 128, 200, 256):
+            for q in (64, 256, 2474, 4096):
+                for xb in (0, 1):
+                    for bcb in (0, 1):
+                        want = lib.ssd_scan_smem_bytes(p, n, q, xb, bcb)
+                        got = ss.smem_bytes(p, n, q, 2 if xb else 4,
+                                            2 if bcb else 4)
+                        if got != want:
+                            raise AssertionError(
+                                f"ssd_scan.smem_bytes{(p, n, q, xb, bcb)} "
+                                f"= {got}, the source's {want}")
+                        n_counts += 1
+    print(f"[3 kernels] ssd_scan: the predicate's shared-memory count "
+          f"equals the source's at {n_counts} (P, N, chunk, dtypes)",
+          flush=True)
+    rows = []
+    for i, (name, (b, l, h, p, n, q)) in enumerate(SSD_WIDE.items()):
+        for dt in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(40 + i, b, l, h, p, n, dev, dt)
+            tag = f"{name}, (B, L, H, P, N) = ({b}, {l}, {h}, {p}, {n}), " \
+                  f"chunk {q}, {dt}"
+            err, ratio = ssd_close(kernels.ssd_chunk_scan(*args, chunk=q),
+                                   ss.ssd_chunk_scan_ref(*args, chunk=q), tag)
+            free()
+            ms = time_ms(lambda: kernels.ssd_chunk_scan(*args, chunk=q), 5,
+                         warmup=1)
+            plain = time_ms(lambda: ss.ssd_chunk_scan_ref(*args, chunk=q), 2)
+            free()
+            nbytes, _, tc = ssd_cost(b, l, h, p, n, q, dt.itemsize)
+            b_ms, by = bound_ms(nbytes, *tc)
+            rows.append(dict(shape=name, p=p, n=n, dtype=str(dt)[6:], ms=ms,
+                             bound_ms=b_ms, err=err, plain_ms=plain))
+            print(f"[3 kernels] ssd_scan via ssd_chunk_scan at {tag}: "
+                  f"{ms:.3f} ms; tensor-core bound {b_ms:.3f} ms by {by}, "
+                  f"{100 * b_ms / ms:.1f}%; plain {plain:.3f} ms; library: "
+                  f"none; max abs err vs plain {err:.3e} ({ratio:.3f} of "
+                  f"the tolerance)", flush=True)
+            del args
+            free()
+    return rows
+
+
 # --------------------------------------------------- the serving path
 def decode_consistency(eng, out, s):
     """Decode ``out``'s tokens after the prompt (teacher-forced) and hold
@@ -3282,6 +3453,279 @@ def _delta_tree(eng, state):
     return flat.unflatten_stacked(eng.spec, state.delta)
 
 
+# --------------------------------------------- 6 the paper's workload
+def paper_cpu_runs(path: str) -> int:
+    """The child process of phase 6: every figure's runs on the CPU
+    (``paper.figures``, the per-leaf executor, the reference's own), each
+    run's per-step losses (Appendix E: its distance) written as JSON to
+    ``path``, keyed by figure and repr(run key).  Started before phase 4,
+    so it runs beside the card's paths."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.paper import figures
+    torch.set_num_threads(3)
+    out = {}
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        for name, fn in figures.FIGURES.items():
+            rec = {}
+            fn(device="cpu", backend="reference", record=rec)
+            out[name] = {repr(k): v for k, v in rec.items()}
+    out["seconds"] = time.time() - START
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_paper_cpu():
+    """Start ``paper_cpu_runs`` in a child process: (process, its JSON
+    path, its log path)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_paper_")
+    path, log = os.path.join(tmp, "cpu.json"), os.path.join(tmp, "cpu.log")
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--paper-cpu", path],
+            stdout=subprocess.DEVNULL, stderr=err, cwd=ROOT)
+    return proc, path, log
+
+
+def paper_cpu_result(proc, path, log) -> dict:
+    """Wait for the child (at most 600 s) and read its runs."""
+    rc = proc.wait(timeout=600)
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"the paper's CPU runs failed ({rc}): "
+                                 f"{f.read()[-3000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def paper_close(got, want, tag) -> float:
+    """Per-step losses (or Appendix E's distances) within PAPER_ATOL +
+    PAPER_RTOL · |want|, all finite; returns the max abs difference."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape or not np.isfinite(g).all():
+        raise AssertionError(f"paper {tag}: {g.shape} vs {w.shape}, or not "
+                             f"finite")
+    err = np.abs(g - w)
+    bad = err > PAPER_ATOL + PAPER_RTOL * np.abs(w)
+    if bad.any():
+        i = int(np.argmax(bad.ravel()))
+        raise AssertionError(f"paper {tag}: {int(bad.sum())} values past "
+                             f"atol {PAPER_ATOL} + rtol {PAPER_RTOL} (first "
+                             f"at {i}: {g.ravel()[i]} vs {w.ravel()[i]})")
+    return float(err.max())
+
+
+def paper_launches(alg, steps, k, warmup=False) -> dict:
+    """The flat engine's launches that the schedule gives a run: one
+    fused_local_sgd a step, one sync kernel a round (rounds of k steps,
+    the warm-up's first of one step)."""
+    want = {"fused_local_sgd": steps}
+    if PAPER_SYNC[alg]:
+        want[PAPER_SYNC[alg]] = (1 + (steps - 1) // k if warmup
+                                 else steps // k)
+    return want
+
+
+def paper_check_launches(tag, vu, want) -> dict:
+    got = {n: c for n, c in vu.LAUNCHES.items() if c}
+    if got != want:
+        raise AssertionError(f"paper {tag}: launches {got}, the schedule's "
+                             f"{want}")
+    return got
+
+
+def paper_sums(w, lr):
+    """An ``on_step`` hook recording Σ_i Δ_i after each sync against the
+    bound of check_sums: 1e-4 · max|Δ| plus 2 W ulp(max|p|)/(k_eff γ)
+    summed over the syncs."""
+    from repro_torch.core import engine
+    seen = []
+
+    def hook(step, state):
+        if state.last_sync != step:
+            return
+        k_eff = step - (seen[-1]["step"] if seen else 0)
+        s, m = engine.sum_invariant(state.delta)
+        max_p = state.params.abs().max().item()
+        rounding = 2 * w * float(np.spacing(np.float32(max_p))) / (
+            k_eff * lr)
+        prev = seen[-1]["rounding"] if seen else 0.0
+        seen.append(dict(step=step, sum=s, max=m,
+                         rounding=prev + rounding))
+        limit = 1e-4 * max(r["max"] for r in seen) + seen[-1]["rounding"]
+        if not s <= limit:
+            raise AssertionError(f"paper: Σ_i Δ_i = {s} after the sync at "
+                                 f"step {step}, past {limit}")
+    return hook, seen
+
+
+def paper_fig1(dev, vu, cpu, card):
+    """Path (w): Fig. 1 at ``run_mlp_task``'s defaults (W = 8, batch 32,
+    γ = 0.5, k = 20, 300 steps, class-sharded features (4096, 256), 64
+    classes, hidden 128) on the card, each algorithm through the flat
+    engine's kernels and through the per-leaf executor: per-step losses
+    within the bound of each other and of the CPU's run from the same
+    initial tree; the fused run's launches those of the schedule, Σ_i Δ_i
+    ≈ 0 after each of VRL-SGD's syncs; VRL-SGD's gap to S-SGD below Local
+    SGD's.  Returns the fused runs' launches."""
+    from repro_torch.data import feature_classification
+    from repro_torch.paper import task
+    data = feature_classification(n=4096, dim=256, num_classes=64, seed=0)
+    final, first_launches = {}, {}
+    for alg in PAPER_ALGS:
+        runs, ms, seen = {}, {}, []
+        for backend in ("fused", "reference"):
+            hook = None
+            if backend == "fused" and alg == "vrl_sgd":
+                hook, seen = paper_sums(8, 0.5)
+            vu.reset_launches()
+            t0 = time.perf_counter()
+            run = task.mlp_task(alg, device=dev, update_backend=backend,
+                                data=data, on_step=hook)
+            ms[backend] = (time.perf_counter() - t0) / 300 * 1e3
+            runs[backend] = run.losses
+            want = (paper_launches(alg, 300, 20) if backend == "fused"
+                    else {})
+            got = paper_check_launches(f"(w) {alg} {backend}", vu, want)
+            if backend == "fused":
+                first_launches.update(got)
+        tag = f"(w) fig1 {alg}"
+        e_fr = paper_close(runs["fused"], runs["reference"],
+                           f"{tag}: fused vs reference")
+        ref_cpu = cpu["fig1"][repr(alg)]
+        e_fc = paper_close(runs["fused"], ref_cpu, f"{tag}: fused vs CPU")
+        e_rc = paper_close(runs["reference"], ref_cpu,
+                           f"{tag}: reference vs CPU")
+        final[alg] = float(np.mean(runs["fused"][-20:]))
+        note = ""
+        if seen:
+            note = (f"; Σ_i Δ_i after each of its {len(seen)} syncs ≤ "
+                    f"{max(r['sum'] for r in seen):.3e} (max|Δ| "
+                    f"{max(r['max'] for r in seen):.3e})")
+        print(f"[6 paper {tag}] final loss (mean of the last 20) "
+              f"{final[alg]:.6f}; per-step losses: fused vs reference "
+              f"{e_fr:.3e}, fused vs CPU {e_fc:.3e}, reference vs CPU "
+              f"{e_rc:.3e} (bound {PAPER_ATOL} + {PAPER_RTOL}·|loss|); "
+              f"launches {paper_launches(alg, 300, 20)}; host ms per step: "
+              f"fused {ms['fused']:.3f}, reference {ms['reference']:.3f}"
+              f"{note}; {card}", flush=True)
+    gap_vrl = final["vrl_sgd"] - final["ssgd"]
+    gap_loc = final["local_sgd"] - final["ssgd"]
+    if not gap_vrl < gap_loc:
+        raise AssertionError(f"paper (w): vrl_gap_to_ssgd {gap_vrl} not "
+                             f"below local_gap_to_ssgd {gap_loc}")
+    print(f"[6 paper (w) fig1] vrl_gap_to_ssgd={gap_vrl:.4f};"
+          f"local_gap_to_ssgd={gap_loc:.4f};vrl_beats_local="
+          f"{final['vrl_sgd'] < final['local_sgd']}", flush=True)
+    return first_launches
+
+
+def paper_figures(dev, cpu, card):
+    """Path (x): Fig. 2, the warm-up ablation, Appendix E and Appendix F
+    on the card through the flat engine's kernels (``paper.figures``,
+    ``backend="fused"``): each run within the bound of the CPU's, and the
+    conclusions the reference's own runs show (Fig. 2's core spread below
+    0.005; the warm-up's early gain positive; Appendix E's VRL-SGD within
+    1e-3 of x* at every (b, k) and Local SGD's bias growing; Appendix F's
+    VRL-SGD degrading less than Local SGD from k = 2 to k = 100)."""
+    from repro_torch.paper import figures
+    results = {}
+    for name in ("fig2", "warmup", "appendix_e", "appendix_f"):
+        rec = {}
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            results[name] = figures.FIGURES[name](device=dev, backend="fused",
+                                                  record=rec)
+        wall = time.perf_counter() - t0
+        worst = max(paper_close(v, cpu[name][repr(key)], f"(x) {name} {key}")
+                    for key, v in rec.items())
+        print(f"[6 paper (x) {name}] {len(rec)} runs on the card within the "
+              f"bound of the CPU's (max abs diff {worst:.3e}) in {wall:.1f} s",
+              flush=True)
+    out = results["fig2"]
+    core = [out[a] for a in ("ssgd", "vrl_sgd", "local_sgd")]
+    spread = max(core) - min(core)
+    out = results["warmup"]
+    gain = out["vrl_sgd"][0] - out["vrl_sgd_w"][0]
+    out = results["appendix_e"]
+    bs, ks = (1.0, 5.0, 25.0), (4, 16, 64)
+    vrl_worst = max(out[("vrl_sgd", b, k)] for b in bs for k in ks)
+    grows = out[("local_sgd", 25.0, 64)] > out[("local_sgd", 1.0, 4)]
+    out = results["appendix_f"]
+    deg_vrl = out[("vrl_sgd", 100)] - out[("vrl_sgd", 2)]
+    deg_loc = out[("local_sgd", 100)] - out[("local_sgd", 2)]
+    print(f"[6 paper (x)] fig2 final_loss_spread_core={spread:.4f} "
+          f"(easgd {results['fig2']['easgd']:.4f}); warmup_early_gain="
+          f"{gain:.4f}; appendix_e max VRL-SGD distance {vrl_worst:.3e}, "
+          f"local_bias_grows={grows}; appendix_f vrl_degradation="
+          f"{deg_vrl:.4f}, local_degradation={deg_loc:.4f}; {card}",
+          flush=True)
+    if not (spread < 0.005 and gain > 0 and vrl_worst < 1e-3 and grows
+            and deg_vrl < deg_loc):
+        raise AssertionError("paper (x): a conclusion of the reference's "
+                             "runs does not hold on the card")
+
+
+def paper_width(dev, vu, card):
+    """Path (y): the paper's width, ``configs.paper_mlp`` (2048 -> 1024 ->
+    200) over ``feature_classification()`` at its defaults (n 8192, dim
+    2048, 200 classes), W = 8, batch 32, k = 20, 300 steps, each algorithm
+    through the flat engine's kernels: ms per step on the host clock
+    (synchronised; the loader and the per-step loss read included), the
+    engine's device ms per round (k local steps and the sync on the run's
+    final state and one fixed gradient buffer, CUDA events), launches,
+    peak memory and the final losses.  Recorded, no time asserted."""
+    from repro_torch.configs.paper_mlp import CONFIG
+    from repro_torch.data import feature_classification
+    from repro_torch.paper import task
+    data = feature_classification()
+    if (data.x.shape[1], data.num_classes) != (CONFIG.in_dim,
+                                                CONFIG.classes):
+        raise AssertionError(f"paper (y): data {data.x.shape}, "
+                             f"{data.num_classes} classes, not {CONFIG}")
+    k, steps = 20, 300
+    for alg in PAPER_ALGS:
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vu.reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        run = task.mlp_task(alg, device=dev, update_backend="fused",
+                            data=data, hidden=CONFIG.hidden, k=k,
+                            steps=steps)
+        torch.cuda.synchronize(dev)
+        ms_step = (time.perf_counter() - t0) / steps * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = paper_check_launches(f"(y) {alg}", vu,
+                                        paper_launches(alg, steps, k))
+        if not np.isfinite(run.losses).all():
+            raise AssertionError(f"paper (y) {alg}: a loss is not finite")
+        eng, state = run.executor, run.state
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        g = torch.randn(state.params.shape, generator=gen, device=dev) * 1e-3
+
+        def one_round():
+            s = state
+            for _ in range(k):
+                s = eng.local_step(s, g)
+            eng.sync(s)
+
+        round_ms = time_ms(one_round, 3, warmup=1)
+        print(f"[6 paper (y) {CONFIG.name} {alg}] W 8, batch 32, k {k}, "
+              f"{steps} steps, {eng.spec.rows} x {eng.spec.lanes} flat rows "
+              f"a worker: {ms_step:.3f} ms per step (host clock); engine "
+              f"{round_ms:.3f} ms per round of {k} local steps and the sync "
+              f"(CUDA events); launches {launches}; peak "
+              f"{peak / 2 ** 30:.3f} GiB; final loss (mean of the last 20) "
+              f"{float(np.mean(run.losses[-20:])):.6f}, first "
+              f"{run.losses[0]:.6f}, last {run.losses[-1]:.6f}; {card}",
+              flush=True)
+        del run, eng, state, g
+    free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3291,13 +3735,14 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not under {src}",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--paper-cpu"]:
+        return paper_cpu_runs(sys.argv[2])
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import torch_update as tu
     from repro_torch.kernels import vrl_update as vu
-    from repro_torch.launch import train as launch
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
@@ -3410,8 +3855,33 @@ def main() -> int:
         "cuda_core_bound_share": ssd_main["core_bound"] / ssd_main["ms"],
         "bf16_ms": ssd_rows[torch.bfloat16]["ms"],
         "bf16_bound_ms": ssd_rows[torch.bfloat16]["bound"]}
+    extra["flash_attention"]["wide"] = attention_wide(dev)
+    extra["ssd_scan"]["wide"] = ssd_wide(dev)
+
+    # the paper's runs on the CPU, in a child process beside phases 4-5
+    paper_cpu = start_paper_cpu()
+    try:
+        return main_paths(dev, card, chk, times, plain, library, bounds,
+                          extra, attn_launches, ssd_launches, paper_cpu)
+    finally:
+        if paper_cpu[0].poll() is None:
+            paper_cpu[0].kill()
+            paper_cpu[0].wait()
+
+
+def main_paths(dev, card, chk, times, plain, library, bounds, extra,
+               attn_launches, ssd_launches, paper_cpu) -> int:
+    """Phases 4 to 6 and the closing lines."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import torch_update as tu
+    from repro_torch.kernels import vrl_update as vu
+    from repro_torch.launch import train as launch
 
     # ------------------------------------------------------ 4 main paths
+    print(f"[4 main paths] from {time.time() - START:.1f} s of the script, "
+          f"the paper's CPU runs in a child process beside them",
+          flush=True)
     res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
     res_a = train_path("(a) bvr_l_sgd+adam", *PATH_A, dev, vu)
     print_path(res_a, "; " + check_sums(res_a))
@@ -3497,6 +3967,17 @@ def main() -> int:
     ref_small_input(dev)
     serve_small_input(dev)
     ssm_small_input(dev)
+
+    # ------------------------------------------------------ 6 the paper
+    cpu = paper_cpu_result(*paper_cpu)
+    t6 = time.time() - START
+    print(f"[6 paper] from {t6:.1f} s of the script; its CPU runs took "
+          f"{cpu['seconds']:.1f} s beside phases 4-5", flush=True)
+    paper_fig1(dev, vu, cpu, card)
+    paper_figures(dev, cpu, card)
+    paper_width(dev, vu, card)
+    print(f"[6 paper] {time.time() - START - t6:.1f} s on the card; the "
+          f"script {time.time() - START:.1f} s", flush=True)
 
     kernels = []
     for name in KERNELS:

@@ -20,6 +20,14 @@
 // not exist (score −inf: they add nothing, even to a row whose every score
 // is masked).
 //
+// Head dims: any 1 ≤ D ≤ 256.  Instantiations at D = 16, 32, 64, 80, 96,
+// 112, 128 and 256; a D between two runs on the wider one, its Q and K
+// columns past D loaded as zeros (nothing in q·k) and its V columns past D
+// neither used nor written.  The wrapper pads a D whose rows are not a
+// multiple of 16 bytes into a copy.  The scale is the caller's (D^-½ of
+// the true D).  Past 256 the fp32 instantiation's Q tile and K/V ring
+// would not fit an SM block's 227 KB of shared memory.
+//
 // Bound: operations.  Per (query, key) pair that the masks keep, q·k and
 // p·v take 2·D multiply-adds (4·D flops).  On the tensor cores fp32
 // operands take three TF32 products each (split_mma.cuh), 12·D flops a
@@ -41,10 +49,13 @@
 // Design (the FlashAttention-2 layout on mma.sync): one block of 4 warps
 // per (b·h, tile of 64 queries), heaviest (causal: last) tiles first; each
 // warp owns 16 query rows.  The Q tile is loaded once and split once into
-// register fragments (fp32 at D = 128 keeps it in shared memory instead:
-// its fragments would not fit beside the accumulators).  K/V tiles of 64
-// keys (32 for fp32 at D = 128) stream through a two-stage cp.async ring
-// in shared memory, so the load of tile j+1 overlaps the math on tile j;
+// register fragments (fp32 past D = 64 keeps it in shared memory instead:
+// its fragments would not fit beside the accumulators).  At D = 256 a
+// block computes 128 of the output columns (two blocks a query tile, each
+// taking q·k over all 256): all 256 would be 128 fp32 accumulators a
+// thread, which spill.  K/V tiles of 64 keys (32 for fp32 past D = 64)
+// stream through a two-stage cp.async ring in shared memory, so the load
+// of tile j+1 overlaps the math on tile j;
 // their rows are padded (K by 8, V by 4 fp32 or 8 bf16 elements) so the
 // fragment loads of a warp fall in distinct banks.  S = Q·Kᵀ accumulates
 // in registers; the online softmax runs on the accumulator fragments, a
@@ -97,40 +108,49 @@ struct Params {
   int64_t n_bh;        // batch · heads
   int heads, group;    // query heads; query heads per KV head
   int s, s_pad;        // rows holding data; keys that exist
+  int d;               // columns holding data (≤ the instance's width)
   int n_qt;            // query tiles
   int causal, has_window, window;
   float scale;
 };
 
-// shared-memory geometry of one instantiation (elements of T)
-template <int D, int BK, typename T>
+// shared-memory geometry of one instantiation (elements of T): D columns
+// of Q and K, DV of V and of the output (D / DV passes over the output
+// columns, one block each)
+template <int D, int DV, int BK, typename T>
 struct Geom {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int LDK = D + 8;                 // K (and Q) rows
-  static constexpr int LDV = kBf16 ? D + 8 : D + 4;  // V rows
-  static constexpr int kStage = BK * (LDK + LDV);   // one K/V tile pair
+  static constexpr int LDK = D + 8;                   // K (and Q) rows
+  static constexpr int LDV = kBf16 ? DV + 8 : DV + 4;  // V rows
+  static constexpr int kStage = BK * (LDK + LDV);     // one K/V tile pair
   // Q in registers, staged first in the ring's second stage; else its
   // own region after the ring
   static constexpr bool kQReg = kBf16 || D <= 64;
   static constexpr int kElems = 2 * kStage + (kQReg ? 0 : kBQ * LDK);
   static constexpr int kBytes = kElems * (int)sizeof(T);
   static_assert(!kQReg || kBQ * LDK <= kStage, "Q must fit in a stage");
+  static_assert(kBytes <= 227 * 1024, "over an SM block's shared memory");
+  static_assert(D % DV == 0 && DV % 16 == 0, "DV tiles D");
   // blocks an SM should hold (the register cap): bf16 runs faster at 3
   // (≤ 168 registers a thread); fp32 at 2, where its Q fragments, S and
-  // the output accumulators (220 registers at D = 64) need not spill
-  static constexpr int kMinBlocks = kBf16 ? 3 : 2;
+  // the output accumulators (220 registers at D = 64) need not spill.  At
+  // D = 256 bf16 keeps 2 (its Q fragments and 128 output columns need
+  // more than 168), and fp32 1 (its shared memory holds one block).
+  static constexpr int kMinBlocks =
+      kBf16 ? (D > 128 ? 2 : 3) : (D > 128 ? 1 : 2);
 };
 
-// rows [row0, row0 + rows) of a (seq, D) slice into sm (row stride LD),
-// 16 bytes a copy, asynchronously; rows at or past s read as zeros
-template <int D, int LD, typename T>
+// rows [row0, row0 + rows) × columns [0, W) of a (seq, ·) slice into sm
+// (row stride LD), 16 bytes a copy, asynchronously; rows at or past s and
+// columns at or past cols (a multiple of 16 bytes) read as zeros
+template <int W, int LD, typename T>
 __device__ __forceinline__ void load_async(T* sm, const T* base,
                                            int64_t row_stride, int row0,
-                                           int rows, int s) {
-  constexpr int CH = 16 / (int)sizeof(T), kC = D / CH;
+                                           int rows, int s, int cols) {
+  constexpr int CH = 16 / (int)sizeof(T), kC = W / CH;
   for (int e = threadIdx.x; e < rows * kC; e += kThreads) {
     const int r = e / kC, c = (e % kC) * CH;
-    const bool ok = row0 + r < s;
+    const bool ok = row0 + r < s && c < cols;
     const T* src = ok ? base + (int64_t)(row0 + r) * row_stride + c : base;
     cp_async16(sm + r * LD + c, src, ok ? 16 : 0);
   }
@@ -157,21 +177,23 @@ __device__ __forceinline__ void store2(__nv_bfloat16* x, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(x) = __floats2bfloat162_rn(a, b);
 }
 
-template <int D, int BK, typename T>
-__global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
+template <int D, int DV, int BK, typename T>
+__global__ void __launch_bounds__(kThreads, (Geom<D, DV, BK, T>::kMinBlocks))
     flash_fwd(Params p) {
-  using G = Geom<D, BK, T>;
+  using G = Geom<D, DV, BK, T>;
   constexpr bool kBf16 = G::kBf16;
   constexpr int LDK = G::LDK, LDV = G::LDV;
   constexpr int NK = BK / 8;       // 8-key column tiles of S
-  constexpr int ND = D / 8;        // 8-column tiles of the output
+  constexpr int ND = DV / 8;       // 8-column tiles of the output
   extern __shared__ float4 smem4[];
   T* ring = reinterpret_cast<T*>(smem4);
   T* qs = G::kQReg ? ring + G::kStage : ring + 2 * G::kStage;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int64_t bid = blockIdx.x;
+  constexpr int kPasses = D / DV;
+  const int dv0 = DV * (int)(blockIdx.x % kPasses);  // first output column
+  const int64_t bid = blockIdx.x / kPasses;
   const int qt = p.n_qt - 1 - (int)(bid / p.n_bh);
   const int64_t bh = bid % p.n_bh;
   const int64_t b = bh / p.heads;
@@ -179,8 +201,9 @@ __global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
   const int kh = h / p.group;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh + dv0;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + dv0;
+  const int vcols = p.d - dv0;     // V (and output) columns holding data
   const int q0 = qt * kBQ;
   const int w0 = q0 + 16 * warp;   // this warp's first query row
 
@@ -195,10 +218,11 @@ __global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
   }
 
   // prologue: the Q tile and the first K/V tile
-  load_async<D, LDK>(qs, q, p.q_ss, q0, kBQ, p.s);
+  load_async<D, LDK>(qs, q, p.q_ss, q0, kBQ, p.s, p.d);
   if (kt_lo < kt_hi) {
-    load_async<D, LDK>(ring, k, p.k_ss, kt_lo * BK, BK, p.s);
-    load_async<D, LDV>(ring + BK * LDK, v, p.v_ss, kt_lo * BK, BK, p.s);
+    load_async<D, LDK>(ring, k, p.k_ss, kt_lo * BK, BK, p.s, p.d);
+    load_async<DV, LDV>(ring + BK * LDK, v, p.v_ss, kt_lo * BK, BK, p.s,
+                        vcols);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -234,8 +258,9 @@ __global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
   for (int kt = kt_lo, st = 0; kt < kt_hi; ++kt, st ^= 1) {
     if (kt + 1 < kt_hi) {          // prefetch the next tile pair
       T* nx = ring + (st ^ 1) * G::kStage;
-      load_async<D, LDK>(nx, k, p.k_ss, (kt + 1) * BK, BK, p.s);
-      load_async<D, LDV>(nx + BK * LDK, v, p.v_ss, (kt + 1) * BK, BK, p.s);
+      load_async<D, LDK>(nx, k, p.k_ss, (kt + 1) * BK, BK, p.s, p.d);
+      load_async<DV, LDV>(nx + BK * LDK, v, p.v_ss, (kt + 1) * BK, BK, p.s,
+                          vcols);
     }
     cp_async_commit();
     cp_async_wait<1>();            // this tile pair has landed
@@ -368,34 +393,44 @@ __global__ void __launch_bounds__(kThreads, (Geom<D, BK, T>::kMinBlocks))
     T* row = o + (int64_t)qpos * p.o_ss + 2 * t;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      store2(row + 8 * j, acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
+      if (8 * j + 2 * t < vcols)   // pairs: vcols is even
+        store2(row + 8 * j, acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
   }
 }
 
-template <int D, int BK, typename T>
+template <int D, int DV, int BK, typename T>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int smem = Geom<D, BK, T>::kBytes;
+  constexpr int smem = Geom<D, DV, BK, T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, BK, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd<D, DV, BK, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (int64_t)p.n_qt * p.n_bh;
+  const int64_t blocks = (int64_t)p.n_qt * p.n_bh * (D / DV);
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd<D, BK, T><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  flash_fwd<D, DV, BK, T><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// the narrowest instantiation at least d wide; its columns past d are
+// zeros in shared memory (nothing in q·k, not written from p·v)
 template <typename T>
 int dispatch(int d, const Params& p, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  switch (d) {
-    case 16: return launch<16, 64, T>(p, stream);
-    case 32: return launch<32, 64, T>(p, stream);
-    case 64: return launch<64, 64, T>(p, stream);
-    // fp32: 32-key tiles, so two blocks fit an SM beside Q in shared memory
-    case 128: return launch<128, kBf16 ? 64 : 32, T>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // fp32 past D = 64: 32-key tiles, so two blocks fit an SM beside Q in
+  // shared memory (one at D = 256)
+  constexpr int BKW = kBf16 ? 64 : 32;
+  if (d <= 16) return launch<16, 16, 64, T>(p, stream);
+  if (d <= 32) return launch<32, 32, 64, T>(p, stream);
+  if (d <= 64) return launch<64, 64, 64, T>(p, stream);
+  if (d <= 80) return launch<80, 80, BKW, T>(p, stream);
+  if (d <= 96) return launch<96, 96, BKW, T>(p, stream);
+  if (d <= 112) return launch<112, 112, BKW, T>(p, stream);
+  if (d <= 128) return launch<128, 128, BKW, T>(p, stream);
+  // two passes of 128 output columns (all 256 would be 128 fp32
+  // accumulators a thread, which spill); each takes q·k over all 256
+  if (d <= 256) return launch<256, 128, BKW, T>(p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -405,7 +440,8 @@ extern "C" {
 // q, o: (batch, s, heads, d); k, v: (batch, ≥ s, heads / group, d), each
 // with the element strides strides[0..11] = (batch, seq, head) of q, k, v, o
 // and d contiguous (q, k, v: rows 16-byte aligned, strides multiples of 16
-// bytes); fp32 (bf16 = 0) or bf16 (bf16 = 1), all four alike.
+// bytes, d · sizeof(element) a multiple of 16; 1 ≤ d ≤ 256); fp32 (bf16 =
+// 0) or bf16 (bf16 = 1), all four alike.
 // Rows [s, s_pad) are zero padding; window is read only where has_window
 // is 1 (any value, also below 1).  Returns 0 (cudaSuccess), or the CUDA
 // error of the attribute call or of the launch.
@@ -425,6 +461,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.group = group;
   p.s = s;
   p.s_pad = s_pad;
+  p.d = d;
   p.n_qt = (s + kBQ - 1) / kBQ;
   p.causal = causal;
   p.has_window = has_window;

@@ -54,12 +54,14 @@
 //       G = C·Bᵀ, once for the batch's H heads, into a (B, nc, Qp, Qp)
 //       scratch (Qp: Q rounded up to 64; 8 MB at the main path's width,
 //       L2-resident).
-//   (b) ssd_state, per (b, chunk, head), every chunk but the last: the
-//       chunk's state contribution ΔS = Σ_j x_j (dt_j exp(cum_Q − cum_j)
-//       B_j)ᵀ (P × N, K = Q), and λ = exp(cum_Q).
-//   (c) ssd_pass, per (b, head, 1024 state entries): S_0 = 0, S_{c+1} =
-//       λ_c S_c + ΔS_c over the chunks, each S_c written over ΔS_c.
-//   (d) ssd_out, per (b, chunk, head, 128 rows), heaviest rows first:
+//   (b) ssd_state, per (b, chunk, head, slice of P), every chunk but the
+//       last: the chunk's state contribution ΔS = Σ_j x_j (dt_j
+//       exp(cum_Q − cum_j) B_j)ᵀ (P × N, K = Q), and λ = exp(cum_Q).
+//   (c) ssd_pass, per (b, head, slice, 1024 state entries): S_0 = 0,
+//       S_{c+1} = λ_c S_c + ΔS_c over the chunks, each S_c written over
+//       ΔS_c.
+//   (d) ssd_out, per (b, chunk, head, slice, 128 rows), heaviest rows
+//       first:
 //       y = exp(cum_i) C·S_cᵀ + (G ∘ decay ∘ mask ∘ dt_j)·x, the decay
 //       exp(cum_i − cum_j) computed for each kept pair as its fragment is
 //       made.
@@ -77,6 +79,16 @@
 // bf16.  P pads to 16, 32 or 64 and N to a multiple of 16 with zeros (zero
 // columns add nothing).  Shared memory above 48 KB is asked for with
 // cudaFuncSetAttribute.
+//
+// Domain: 1 ≤ P ≤ 128, 1 ≤ N ≤ 256.  A P past 64 is cut into 64-wide
+// slices, each its own block in (b), (c) and (d): column p of x drives
+// only row p of the state and y's column p reads only that row, so the
+// slices share nothing but C·Bᵀ (stage (a), once per batch and chunk) and
+// the prefix sums (each block takes its own).  N is the reduction of C·Bᵀ
+// and C·Sᵀ and the width of the state: (b) gives each warp up to four
+// 8-column tiles of it (two where N ≤ 128), and the B and C tiles and the
+// state in shared memory grow with it; the largest block must fit 227 KB
+// (ssd_scan_smem_bytes), which at N = 256 holds chunks up to 2474 steps.
 //
 // Numerics: the decay is always exp(cum_i − cum_j), never exp(cum_i) ·
 // exp(−cum_j): cum falls by Q · dt · exp(a_log), hundreds at Q = 256, and
@@ -107,7 +119,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kT = 64;           // rows of a staged tile (steps j)
 constexpr int kRows = 128;       // output rows of a stage-(d) block
-constexpr int kMaxN = 128;
+constexpr int kMaxN = 256;
+constexpr int kMaxP = 128;
+constexpr int kSlice = 64;       // P columns of one block (P > 64: slices)
+constexpr int kSmemMax = 227 * 1024;   // an SM block's shared memory
 
 struct Params {
   const void* x;
@@ -117,7 +132,7 @@ struct Params {
   const void* c;
   void* y;
   float* g;                      // (batch, nc, qp, qp) C·Bᵀ
-  float* ds;                     // (batch, nc, heads, pt, np) ΔS, then S
+  float* ds;                     // (batch, nc, heads, ps, pt, np) ΔS, then S
   float* lam;                    // (batch, nc, heads) exp(cum_Q)
   // element strides: x, y over (batch, step, head); dt the same; a_log over
   // (batch, head); b, c over (batch, step).  P and N are contiguous.
@@ -125,6 +140,7 @@ struct Params {
   int64_t b_sb, b_sl, c_sb, c_sl, y_sb, y_sl, y_sh;
   int64_t batch;
   int heads, p, n, np, pt;       // np: n padded to 16; pt: p to 16, 32, 64
+  int ps;                        // slices of P (pt = 64 when over one)
   int l, q, qp, nc;              // steps, chunk, chunk padded to 64, chunks
   int dt_bf16;
   // x, B, C: base and row strides 16-byte aligned (cp.async copies), or not
@@ -295,9 +311,10 @@ __global__ void __launch_bounds__(128) ssd_cb(Params p) {
 }
 
 // ---------------------------------------------------------------- (b)
-// ΔS = Σ_j x_j (dt_j w_j B_j)ᵀ (PT × np) of one (batch, chunk, head) and
-// λ = exp(cum_Q); 8 warps: warp w owns column tiles w and w + 8 of every
-// row slab, so each of B's fragments is made once, by one warp.  x and B
+// ΔS = Σ_j x_j (dt_j w_j B_j)ᵀ (PT × np) of one (batch, chunk, head, slice
+// of P) and λ = exp(cum_Q); 8 warps: warp w owns column tiles w + 8u (u <
+// NU) of every row slab, so each of B's fragments is made once, by one
+// warp.  x and B
 // stream in 64-step tiles through a two-stage cp.async ring; dt_j w_j
 // scales B's rows as its fragments are made, so a bf16 x is exact (two
 // products, not three).
@@ -318,7 +335,7 @@ struct StateGeom {
   }
 };
 
-template <int PT, typename TX, typename TBC>
+template <int PT, int NU, typename TX, typename TBC>
 __global__ void __launch_bounds__(256) ssd_state(Params p) {
   using SG = StateGeom<PT, TX, TBC>;
   constexpr int MT = PT / 16;          // row slabs of the state
@@ -332,20 +349,22 @@ __global__ void __launch_bounds__(256) ssd_state(Params p) {
   char* ring = reinterpret_cast<char*>(smem4) + SG::head_bytes(p.q);
 
   const int64_t nz = p.nc - 1;         // chunks whose state is carried
-  const int h = (int)(blockIdx.x % p.heads);
-  const int64_t rest = blockIdx.x / p.heads;
+  const int hs = (int)(blockIdx.x % (p.heads * p.ps));
+  const int h = hs / p.ps, sl = hs % p.ps;
+  const int64_t rest = blockIdx.x / (p.heads * p.ps);
   const int z = (int)(rest % nz);
   const int64_t bi = rest / nz;
   const int64_t t0 = (int64_t)z * p.q;
   const int lim = (int)min((int64_t)p.q, p.l - t0);
+  const int pcols = min(PT, p.p - kSlice * sl);   // this slice's columns
   const TX* x = static_cast<const TX*>(p.x) + bi * p.x_sb + h * p.x_sh +
-                t0 * p.x_sl;
+                t0 * p.x_sl + kSlice * sl;
   const TBC* bm = static_cast<const TBC*>(p.b) + bi * p.b_sb + t0 * p.b_sl;
   auto load = [&](int jc, int stg) {
     TX* xs = reinterpret_cast<TX*>(ring + stg * SG::stage_bytes(p.np));
     TBC* bs = reinterpret_cast<TBC*>(xs + kT * LDX);
     const int j0 = jc * kT;
-    stage<256>(xs, LDX, x + j0 * p.x_sl, p.x_sl, kT, lim - j0, p.p, PT,
+    stage<256>(xs, LDX, x + j0 * p.x_sl, p.x_sl, kT, lim - j0, pcols, PT,
                p.x_vec);
     stage<256>(bs, ldb, bm + j0 * p.b_sl, p.b_sl, kT, lim - j0, p.n, p.np,
                p.b_vec);
@@ -359,17 +378,17 @@ __global__ void __launch_bounds__(256) ssd_state(Params p) {
   chunk_cum(cum, dts, dtb, p, t0, p.q, a);
   for (int i = threadIdx.x; i < qpad; i += blockDim.x)
     sw[i] = i < p.q ? dts[i] * expf((float)(cum[p.q - 1] - cum[i])) : 0.f;
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0 && sl == 0)
     p.lam[(bi * p.nc + z) * p.heads + h] = expf((float)cum[p.q - 1]);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n_nt = p.np / 8;
-  float acc[MT][2][4];
+  float acc[MT][NU][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
+    for (int u = 0; u < NU; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][u][e] = 0.f;
 
@@ -387,9 +406,9 @@ __global__ void __launch_bounds__(256) ssd_state(Params p) {
       for (int kk = 0; kk < (kmax + 7) / 8; ++kk) {
         const float s0 = sw[jc * kT + 8 * kk + 2 * t];
         const float s1 = sw[jc * kT + 8 * kk + 2 * t + 1];
-        FragB bf[2];
+        FragB bf[NU];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < NU; ++u) {
           const TBC* br = bs + (8 * kk + 2 * t) * ldb + 8 * (warp + 8 * u) + g;
           bf[u] = warp + 8 * u < n_nt ? split_b(ld(br) * s0, ld(br + ldb) * s1)
                                       : split_b(0.f, 0.f);
@@ -400,15 +419,19 @@ __global__ void __launch_bounds__(256) ssd_state(Params p) {
           const FragA af = split_a(ld(xr), ld(xr + 8), ld(xr + LDX),
                                    ld(xr + LDX + 8));
           mma3<kBf16<TX>, false>(acc[m][0], af, bf[0]);
-          if (warp + 8 < n_nt) mma3<kBf16<TX>, false>(acc[m][1], af, bf[1]);
+#pragma unroll
+          for (int u = 1; u < NU; ++u)
+            if (warp + 8 * u < n_nt)
+              mma3<kBf16<TX>, false>(acc[m][u], af, bf[u]);
         }
       }
     }
     __syncthreads();               // this stage is free for the prefetch
   }
-  float* out = p.ds + ((bi * p.nc + z) * p.heads + h) * (int64_t)PT * p.np;
+  float* out = p.ds + (((bi * p.nc + z) * p.heads + h) * p.ps + sl) *
+                         (int64_t)PT * p.np;
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < NU; ++u) {
     const int jn = warp + 8 * u;
     if (jn >= n_nt) continue;
 #pragma unroll
@@ -423,14 +446,15 @@ __global__ void __launch_bounds__(256) ssd_state(Params p) {
 
 // ---------------------------------------------------------------- (c)
 // S_0 = 0, S_{c+1} = λ_c S_c + ΔS_c, each S_c written over ΔS_c; four
-// state entries of a (batch, head) a thread, the chunks' ΔS loaded four at
+// state entries of a (batch, head, slice of P) a thread, the chunks' ΔS loaded four at
 // a time ahead of the products that need them
 __global__ void __launch_bounds__(256) ssd_pass(Params p) {
   const int64_t per = (int64_t)p.pt * p.np / 4;     // float4 a thread
   const int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
   if (e >= per) return;
-  const int h = (int)(blockIdx.x % p.heads);
-  const int64_t bi = blockIdx.x / p.heads;
+  const int hs = (int)(blockIdx.x % (p.heads * p.ps));
+  const int h = hs / p.ps, sl = hs % p.ps;
+  const int64_t bi = blockIdx.x / (p.heads * p.ps);
   float4* __restrict__ ds = reinterpret_cast<float4*>(p.ds);
   const float* __restrict__ lam = p.lam;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -441,14 +465,15 @@ __global__ void __launch_bounds__(256) ssd_pass(Params p) {
     for (int u = 0; u < 4; ++u) {
       const int64_t k = (bi * p.nc + z0 + u) * p.heads + h;
       const bool ok = z0 + u + 1 < p.nc;       // the last chunk adds none
-      d[u] = ok ? ds[k * per + e] : make_float4(0.f, 0.f, 0.f, 0.f);
+      d[u] = ok ? ds[(k * p.ps + sl) * per + e]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
       l[u] = ok ? lam[k] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       if (z0 + u >= p.nc) break;
       const int64_t k = (bi * p.nc + z0 + u) * p.heads + h;
-      ds[k * per + e] = s;
+      ds[(k * p.ps + sl) * per + e] = s;
       s = make_float4(l[u] * s.x + d[u].x, l[u] * s.y + d[u].y,
                       l[u] * s.z + d[u].z, l[u] * s.w + d[u].w);
     }
@@ -456,8 +481,8 @@ __global__ void __launch_bounds__(256) ssd_pass(Params p) {
 }
 
 // ---------------------------------------------------------------- (d)
-// y over 128 rows of one (batch, chunk, head): 8 warps, a warp owning 16
-// rows × PT columns.  First the carried state, from C's rows and S_z in
+// y over 128 rows of one (batch, chunk, head, slice of P): 8 warps, a warp
+// owning 16 rows × PT columns.  First the carried state, from C's rows and S_z in
 // shared memory; then the chunk's 64-step tiles of C·Bᵀ (fp32, from the
 // stage-(a) scratch) and x stream through a two-stage cp.async ring over
 // the same memory; decay and dt_j scale C·Bᵀ as its fragments are made, so
@@ -498,11 +523,12 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
   constexpr int LDX = OG::LDX, LDG = OG::LDG;
   const int ldc = OG::ldc(p.np), lds = OG::lds(p.np);
   const int n_rc = (p.q + kRows - 1) / kRows;
-  const int64_t n_bzh = p.batch * p.nc * p.heads;
+  const int64_t n_bzh = p.batch * p.nc * p.heads * p.ps;
   const int rc = n_rc - 1 - (int)(blockIdx.x / n_bzh);   // heaviest first
   const int64_t bzh = blockIdx.x % n_bzh;
-  const int h = (int)(bzh % p.heads);
-  const int64_t bz = bzh / p.heads;
+  const int hs = (int)(bzh % (p.heads * p.ps));
+  const int h = hs / p.ps, sl = hs % p.ps;
+  const int64_t bz = bzh / (p.heads * p.ps);
   const int z = (int)(bz % p.nc);
   const int64_t bi = bz / p.nc;
   const int64_t t0 = (int64_t)z * p.q;
@@ -516,8 +542,9 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
   char* r1 = reinterpret_cast<char*>(smem4) + OG::head_bytes(qe);
   char* r2 = r1 + OG::r1_bytes(p.np);
 
+  const int pcols = min(PT, p.p - kSlice * sl);   // this slice's columns
   const TX* x = static_cast<const TX*>(p.x) + bi * p.x_sb + h * p.x_sh +
-                t0 * p.x_sl;
+                t0 * p.x_sl + kSlice * sl;
   const float* gt = p.g + bz * p.qp * p.qp;
   auto load = [&](int jc, int stg) {
     float* gs = reinterpret_cast<float*>(r1) + stg * kRows * LDG;
@@ -526,7 +553,7 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
     stage<256>(gs, LDG, gt + (int64_t)r0 * p.qp + j0, p.qp, kRows,
                p.q - r0, kT, kT, true);
     stage<256>(xs, LDX, x + j0 * p.x_sl, p.x_sl, kT, min(lim, qe) - j0,
-               p.p, PT, p.x_vec);
+               pcols, PT, p.x_vec);
   };
   if (z > 0) {                     // C's rows and S_z, in flight during
     stage<256>(reinterpret_cast<TBC*>(r1), ldc,      // the prefix sums
@@ -534,7 +561,8 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
                    (t0 + r0) * p.c_sl,
                p.c_sl, kRows, lim - r0, p.n, p.np, p.c_vec);
     stage<256>(reinterpret_cast<float*>(r2), lds,
-               p.ds + ((bi * p.nc + z) * p.heads + h) * (int64_t)PT * p.np,
+               p.ds + (((bi * p.nc + z) * p.heads + h) * p.ps + sl) *
+                          (int64_t)PT * p.np,
                p.np, PT, PT, p.np, p.np, true);
   }
   cp_async_commit();
@@ -634,7 +662,7 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
   }
 
   if (!active) return;
-  TX* y = static_cast<TX*>(p.y) + bi * p.y_sb + h * p.y_sh;
+  TX* y = static_cast<TX*>(p.y) + bi * p.y_sb + h * p.y_sh + kSlice * sl;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (ir[r] >= p.q || t0 + ir[r] >= p.l) continue;
@@ -644,7 +672,7 @@ __global__ void __launch_bounds__(256) ssd_out(Params p) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int col = 8 * j + 2 * t + u;
-        if (col < p.p) st(row + col, acc[j][2 * r + u]);
+        if (col < pcols) st(row + col, acc[j][2 * r + u]);
       }
   }
 }
@@ -657,7 +685,7 @@ int64_t g_floats(const Params& p) {
   return p.batch * p.nc * (int64_t)p.qp * p.qp;
 }
 int64_t ds_floats(const Params& p) {
-  return p.batch * p.nc * p.heads * (int64_t)p.pt * p.np;
+  return p.batch * p.nc * p.heads * (int64_t)p.ps * p.pt * p.np;
 }
 int64_t lam_floats(const Params& p) {
   return align4(p.batch * p.nc * p.heads);
@@ -669,40 +697,69 @@ int prepare(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// shared memory of each stage's blocks at these sizes: (a), (b) (only
+// run when a state crosses a chunk), (d); the largest must fit kSmemMax
+template <int PT, typename TX, typename TBC>
+int smem_a(const Params& p) {
+  return 2 * kT * ld_a(p.np) * (int)sizeof(TBC);
+}
+template <int PT, typename TX, typename TBC>
+int smem_b(const Params& p) {
+  return StateGeom<PT, TX, TBC>::bytes(p.q, p.np);
+}
+// (d): the last row chunk's (qe = q) serves every block
+template <int PT, typename TX, typename TBC>
+int smem_d(const Params& p) {
+  return OutGeom<PT, TX, TBC>::bytes(p.q, p.np);
+}
+template <int PT, typename TX, typename TBC>
+int smem_max(const Params& p) {
+  const int a = smem_a<PT, TX, TBC>(p), d = smem_d<PT, TX, TBC>(p);
+  const int b = p.nc > 1 ? smem_b<PT, TX, TBC>(p) : 0;
+  const int ad = a > d ? a : d;
+  return ad > b ? ad : b;
+}
+
 template <int PT, typename TX, typename TBC>
 int run(const Params& p, cudaStream_t stream) {
-  const int64_t n_bzh = p.batch * p.nc * p.heads;
+  if (smem_max<PT, TX, TBC>(p) > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int64_t n_bzh = p.batch * p.nc * p.heads * p.ps;
   int err;
   // (a)
   const int n_t = p.qp / kT;
   const int64_t blocks_a = p.batch * p.nc * (int64_t)(n_t * (n_t + 1) / 2);
-  const int smem_a = 2 * kT * ld_a(p.np) * (int)sizeof(TBC);
-  if ((err = prepare(ssd_cb<TBC>, smem_a))) return err;
+  const int sm_a = smem_a<PT, TX, TBC>(p);
+  if ((err = prepare(ssd_cb<TBC>, sm_a))) return err;
   if (blocks_a > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ssd_cb<TBC><<<(unsigned)blocks_a, 128, smem_a, stream>>>(p);
+  ssd_cb<TBC><<<(unsigned)blocks_a, 128, sm_a, stream>>>(p);
   if ((err = (int)cudaGetLastError())) return err;
   if (p.nc > 1) {
-    // (b)
-    const int smem_b = StateGeom<PT, TX, TBC>::bytes(p.q, p.np);
-    if ((err = prepare(ssd_state<PT, TX, TBC>, smem_b))) return err;
-    const int64_t blocks_b = p.batch * (p.nc - 1) * p.heads;
+    // (b): NU column tiles of 8 a warp, over np ≤ 64 · NU
+    const int sm_b = smem_b<PT, TX, TBC>(p);
+    const int64_t blocks_b = p.batch * (p.nc - 1) * p.heads * p.ps;
     if (blocks_b > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    ssd_state<PT, TX, TBC><<<(unsigned)blocks_b, 256, smem_b, stream>>>(p);
+    if (p.np <= 128) {
+      if ((err = prepare(ssd_state<PT, 2, TX, TBC>, sm_b))) return err;
+      ssd_state<PT, 2, TX, TBC><<<(unsigned)blocks_b, 256, sm_b, stream>>>(p);
+    } else {
+      if ((err = prepare(ssd_state<PT, 4, TX, TBC>, sm_b))) return err;
+      ssd_state<PT, 4, TX, TBC><<<(unsigned)blocks_b, 256, sm_b, stream>>>(p);
+    }
     if ((err = (int)cudaGetLastError())) return err;
     // (c)
-    const dim3 grid_c((unsigned)(p.batch * p.heads),
+    const dim3 grid_c((unsigned)(p.batch * p.heads * p.ps),
                       (unsigned)((PT * p.np / 4 + 255) / 256));
-    if (p.batch * p.heads > 0x7fffffffLL)
+    if (p.batch * p.heads * p.ps > 0x7fffffffLL)
       return (int)cudaErrorInvalidConfiguration;
     ssd_pass<<<grid_c, 256, 0, stream>>>(p);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  // (d): the last row chunk's smem (qe = q) serves every block
-  const int smem_d = OutGeom<PT, TX, TBC>::bytes(p.q, p.np);
-  if ((err = prepare(ssd_out<PT, TX, TBC>, smem_d))) return err;
+  // (d)
+  const int sm_d = smem_d<PT, TX, TBC>(p);
+  if ((err = prepare(ssd_out<PT, TX, TBC>, sm_d))) return err;
   const int64_t blocks_d = n_bzh * ((p.q + kRows - 1) / kRows);
   if (blocks_d > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ssd_out<PT, TX, TBC><<<(unsigned)blocks_d, 256, smem_d, stream>>>(p);
+  ssd_out<PT, TX, TBC><<<(unsigned)blocks_d, 256, sm_d, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -717,6 +774,13 @@ int dispatch_p(const Params& p, cudaStream_t stream) {
   return run<64, TX, TBC>(p, stream);
 }
 
+template <typename TX, typename TBC>
+int smem_p(const Params& p) {
+  if (p.pt == 16) return smem_max<16, TX, TBC>(p);
+  if (p.pt == 32) return smem_max<32, TX, TBC>(p);
+  return smem_max<64, TX, TBC>(p);
+}
+
 // ptr and each of its n element strides 16-byte aligned
 bool aligned16(const void* ptr, int elem, const int64_t* strides, int n) {
   bool ok = (uintptr_t)ptr % 16 == 0;
@@ -726,8 +790,8 @@ bool aligned16(const void* ptr, int elem, const int64_t* strides, int n) {
 
 bool fill(Params& prm, int64_t batch, int heads, int p, int n, int l,
           int chunk) {
-  if (p < 1 || p > 64 || n < 1 || n > kMaxN || chunk < 1 || chunk > 4096 ||
-      heads < 1 || l < 0 || batch < 0)
+  if (p < 1 || p > kMaxP || n < 1 || n > kMaxN || chunk < 1 ||
+      chunk > 4096 || heads < 1 || l < 0 || batch < 0)
     return false;
   prm.batch = batch;
   prm.heads = heads;
@@ -735,6 +799,7 @@ bool fill(Params& prm, int64_t batch, int heads, int p, int n, int l,
   prm.n = n;
   prm.np = (n + 15) & ~15;
   prm.pt = p <= 16 ? 16 : p <= 32 ? 32 : 64;
+  prm.ps = (p + kSlice - 1) / kSlice;
   prm.l = l;
   prm.q = chunk;
   prm.qp = (chunk + kT - 1) / kT * kT;
@@ -745,6 +810,17 @@ bool fill(Params& prm, int64_t batch, int heads, int p, int n, int l,
 }  // namespace
 
 extern "C" {
+
+// Bytes of shared memory that the largest block of ssd_scan_fwd asks for
+// at these sizes and dtypes when a state crosses a chunk (more than 227
+// KB: the call is refused), or −1 for sizes it does not take.
+int ssd_scan_smem_bytes(int p, int n, int chunk, int x_bf16, int bc_bf16) {
+  Params prm;
+  if (!fill(prm, 1, 1, p, n, 2 * chunk, chunk)) return -1;
+  if (x_bf16)
+    return bc_bf16 ? smem_p<bf16, bf16>(prm) : smem_p<bf16, float>(prm);
+  return bc_bf16 ? smem_p<float, bf16>(prm) : smem_p<float, float>(prm);
+}
 
 // Bytes of fp32 scratch that ssd_scan_fwd needs for these sizes (16-byte
 // aligned: C·Bᵀ per (batch, chunk), the states per (batch, chunk, head),
@@ -763,7 +839,8 @@ int64_t ssd_scan_workspace_bytes(int64_t batch, int heads, int p, int n,
 // b (batch, step), c (batch, step), y (batch, step, head); p and n
 // contiguous.  x (and y), dt, and b and c (alike) are each fp32 (their
 // *_bf16 = 0) or bf16 (1).  Chunks of `chunk` steps; a last chunk short of
-// it is read as zero-padded.  1 ≤ p ≤ 64, 1 ≤ n ≤ 128, 1 ≤ chunk ≤ 4096.
+// it is read as zero-padded.  1 ≤ p ≤ 128, 1 ≤ n ≤ 256, 1 ≤ chunk ≤ 4096,
+// and ssd_scan_smem_bytes(...) ≤ 227 KB (at N = 256: chunks up to 2474).
 // workspace: ssd_scan_workspace_bytes(...) bytes of device memory, 16-byte
 // aligned, that the call may overwrite.  Launches four kernels on `stream`
 // (two when l ≤ chunk).  Returns 0 (cudaSuccess), or the CUDA error of an

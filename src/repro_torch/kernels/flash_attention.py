@@ -25,7 +25,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+# the kernel's instantiated widths; any head dim up to MAX_HEAD_DIM runs on
+# the narrowest one at least as wide (zero columns past it)
+INSTANCE_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)
+MAX_HEAD_DIM = INSTANCE_DIMS[-1]
 DTYPES = (torch.float32, torch.bfloat16)
 LAUNCHES = {"flash_attention": 0}
 
@@ -81,6 +84,21 @@ def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ----------------------------------------------------------------- checks
+def head_dim_supported(d: int) -> bool:
+    """True for the head dims the kernel takes: 1 ≤ d ≤ MAX_HEAD_DIM (256).
+    Past 256 the fp32 instantiation's Q tile and two-stage K/V ring would
+    not fit an SM block's 227 KB of shared memory."""
+    return 1 <= d <= MAX_HEAD_DIM
+
+
+def check_head_dim(name: str, d: int) -> None:
+    if not head_dim_supported(d):
+        raise ValueError(
+            f"{name}: head dim {d}; the kernel takes 1 ≤ D ≤ {MAX_HEAD_DIM} "
+            f"(past {MAX_HEAD_DIM} the fp32 Q tile and K/V ring of a block "
+            f"of 64 queries would not fit an SM's 227 KB of shared memory)")
+
+
 def check_blocks(s: int, block_q: int, block_k: int) -> None:
     """The reference kernel's assert: S divides into both block sizes."""
     assert s % block_q == 0 and s % block_k == 0, (s, block_q, block_k)
@@ -137,7 +155,10 @@ def _loadable(x: torch.Tensor) -> torch.Tensor:
 # through a two-stage cp.async ring, the online softmax on the accumulator
 # fragments, P kept in registers for P·V, fully masked key tiles skipped
 # (exact); the KV head h // group read in place through the caller's
-# strides (csrc/flash_attention.cu, csrc/split_mma.cuh).
+# strides (csrc/flash_attention.cu, csrc/split_mma.cuh).  Head dims 1 to
+# 256: instantiations at 16, 32, 64, 80, 96, 112, 128 and 256 (two passes
+# of 128 output columns), a width between them zero-padded in shared
+# memory to the next.
 def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: Optional[int],
                 s_pad: int) -> torch.Tensor:
@@ -159,15 +180,19 @@ def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: {q.dtype}; the kernel takes torch.float32 "
                         f"or torch.bfloat16")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d}; the kernel takes "
-                         f"{HEAD_DIMS}")
+    check_head_dim(name, d)
     if not s <= s_pad < 2 ** 30:
         raise ValueError(f"{name}: s_pad {s_pad} for S = {s}")
-    q, k, v = (_loadable(x) for x in (q, k, v))
+    # rows of 16-byte multiples for the kernel's copies: a head dim off
+    # that is padded with zero columns into a copy (sliced off the output)
+    pad = -d % (16 // q.element_size())
+    if pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+    else:
+        q, k, v = (_loadable(x) for x in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out)
                                       for st in x.stride()[:-1]))
     has_window = window is not None
@@ -176,14 +201,14 @@ def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, group, d, s, s_pad,
+            int(q.dtype == torch.bfloat16), b, h, group, d + pad, s, s_pad,
             strides, int(causal), int(has_window), win, d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error "
                            f"{err}") from torch.cuda.CudaError(err)
     LAUNCHES[name] += 1
-    return out
+    return out[..., :d].contiguous() if pad else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -34,9 +34,10 @@ from repro_torch.kernels import build
 
 F32 = torch.float32
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 64           # P: the kernel pads it to 16, 32 or 64
-MAX_STATE = 128             # N
+MAX_HEAD_DIM = 128          # P: padded to 16, 32 or 64; past 64, 64-wide slices
+MAX_STATE = 256             # N: padded to a multiple of 16
 MAX_CHUNK = 4096            # Q: cum and dt of a chunk sit in shared memory
+SMEM_LIMIT = 227 * 1024     # bytes of shared memory an SM block may hold
 LAUNCHES = {"ssd_scan": 0}
 
 
@@ -122,10 +123,80 @@ def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor,
 
 
 # ----------------------------------------------------------------- checks
+def smem_bytes(p: int, n: int, chunk: int, x_itemsize: int = 4,
+               bc_itemsize: int = 4) -> int:
+    """Shared memory of the largest block ``csrc/ssd_scan.cu`` launches at
+    head dim ``p``, state ``n`` and ``chunk`` (x and B, C of these element
+    sizes; fp32, the default, is the largest): C·Bᵀ's two tiles (stage a),
+    the state pass's prefix sums and two-stage ring (b), and the output's
+    prefix sums, C rows or C·Bᵀ tiles, and state or x tiles (d).  The
+    source's ``ssd_scan_smem_bytes`` computes the same."""
+    t, rows = 64, 128                           # kT, kRows
+    xs, bcs = x_itemsize, bc_itemsize
+    npad = -(-n // 16) * 16
+    pt = 16 if p <= 16 else 32 if p <= 32 else 64
+
+    def ld_b(w, size):
+        return w + (8 if size == 2 else 4)
+
+    lda = npad + 8
+    ldx = ld_b(pt, xs)
+    q2 = (chunk + 1) & ~1
+    stage_a = 2 * t * lda * bcs
+    stage_b = (8 * q2 + 4 * 2 * (-(-chunk // t) * t)
+               + 2 * t * (ldx * xs + ld_b(npad, bcs) * bcs))
+    stage_d = (8 * q2 + 4 * ((chunk + 3) & ~3)
+               + max(rows * lda * bcs, 2 * rows * (t + 8) * 4)
+               + max(pt * lda * 4, 2 * t * ldx * xs))
+    return max(stage_a, stage_b, stage_d)
+
+
+def shape_supported(p: int, n: int, chunk: int = 256) -> bool:
+    """True where the kernel takes head dim ``p`` and state ``n`` at
+    ``chunk`` in every dtype: 1 ≤ p ≤ MAX_HEAD_DIM (128), 1 ≤ n ≤
+    MAX_STATE (256), 1 ≤ chunk ≤ MAX_CHUNK, and its largest block's shared
+    memory (fp32, the largest) within SMEM_LIMIT — at N = 256 chunks up to
+    2474 steps."""
+    return (1 <= p <= MAX_HEAD_DIM and 1 <= n <= MAX_STATE
+            and 1 <= chunk <= MAX_CHUNK
+            and smem_bytes(p, n, chunk) <= SMEM_LIMIT)
+
+
+def widest_state(p: int, chunk: int, x_itemsize: int = 4,
+                 bc_itemsize: int = 4) -> int:
+    """The largest N (a multiple of 16, at most MAX_STATE) whose blocks fit
+    SMEM_LIMIT at head dim ``p`` and ``chunk``; 0 if none does."""
+    for n in range(MAX_STATE, 0, -16):
+        if smem_bytes(p, n, chunk, x_itemsize, bc_itemsize) <= SMEM_LIMIT:
+            return n
+    return 0
+
+
+def check_shape(name: str, p: int, n: int, chunk: int, x_itemsize: int = 4,
+                bc_itemsize: int = 4) -> None:
+    """Raise where the kernel does not take (P, N, chunk) in these element
+    sizes, naming the limit and, for shared memory, the bytes and the
+    widest N that fits."""
+    if not 0 < p <= MAX_HEAD_DIM or not 0 < n <= MAX_STATE:
+        raise ValueError(f"{name}: head dim {p}, state {n}; the kernel takes "
+                         f"P ≤ {MAX_HEAD_DIM} and N ≤ {MAX_STATE}")
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"{name}: chunk {chunk}; the kernel takes 1 to "
+                         f"{MAX_CHUNK}")
+    need = smem_bytes(p, n, chunk, x_itemsize, bc_itemsize)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: state {n} at chunk {chunk} needs {need} bytes of "
+            f"shared memory in one block, past the {SMEM_LIMIT} an SM block "
+            f"may hold; the widest N that fits at this chunk is "
+            f"{widest_state(p, chunk, x_itemsize, bc_itemsize)}")
+
+
 def check_operands(name: str, x: torch.Tensor, dt: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor) -> None:
     """What the kernel takes: x, dt, b, c on one CUDA device, each fp32 or
-    bf16 (in any mix: each is read up to fp32), P ≤ 64 and N ≤ 128."""
+    bf16 (in any mix: each is read up to fp32); the sizes are
+    ``check_shape``'s."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{x.device}")
@@ -135,11 +206,6 @@ def check_operands(name: str, x: torch.Tensor, dt: torch.Tensor,
         if t.dtype not in DTYPES:
             raise TypeError(f"{name}: {key} is {t.dtype}; the kernel takes "
                             f"torch.float32 or torch.bfloat16")
-    if not 0 < x.shape[-1] <= MAX_HEAD_DIM or \
-            not 0 < b.shape[-1] <= MAX_STATE:
-        raise ValueError(f"{name}: head dim {x.shape[-1]}, state "
-                         f"{b.shape[-1]}; the kernel takes P ≤ "
-                         f"{MAX_HEAD_DIM} and N ≤ {MAX_STATE}")
 
 
 _PTR = ctypes.c_void_p
@@ -156,6 +222,8 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_workspace_bytes.argtypes = [i64, cint, cint, cint, cint,
                                              cint]
     lib.ssd_scan_workspace_bytes.restype = i64
+    lib.ssd_scan_smem_bytes.argtypes = [cint] * 5
+    lib.ssd_scan_smem_bytes.restype = cint
     return lib
 
 
@@ -171,7 +239,9 @@ def _lib() -> ctypes.CDLL:
 # on mma.sync — C·Bᵀ per (batch, chunk), each chunk's state contribution
 # per head, the state passed over the chunks, then y per (batch, chunk,
 # head, 128 rows) — with fp32 scratch allocated here (csrc/ssd_scan.cu,
-# csrc/split_mma.cuh).
+# csrc/split_mma.cuh).  P ≤ 128 (past 64 in 64-wide slices, a block each)
+# and N ≤ 256 where the largest block fits 227 KB of shared memory
+# (``shape_supported``).
 def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int,
               out: torch.Tensor | None = None) -> torch.Tensor:
@@ -185,9 +255,6 @@ def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     name = "ssd_scan"
     bsz, l, h, p = x.shape
     check_operands(name, x, dt, b, c)
-    if not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"{name}: chunk {chunk}; the kernel takes 1 to "
-                         f"{MAX_CHUNK}")
     if tuple(dt.shape) != (bsz, l, h) or b.shape != c.shape or \
             tuple(b.shape[:2]) != (bsz, l) or l >= 2 ** 31:
         raise ValueError(f"{name}: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
@@ -197,6 +264,8 @@ def scan_blhp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         # the kernel reads B and C as one type: the bf16 one, read up to
         # fp32 exactly either way, is widened here ((B, L, N): small)
         b, c = b.float(), c.float()
+    check_shape(name, p, b.shape[-1], chunk, x.element_size(),
+                b.element_size())
     a = a_log.to(device=x.device, dtype=F32)
     a = a.expand(bsz, h) if a.dim() == 1 else a.reshape(bsz, h)
     if out is None:

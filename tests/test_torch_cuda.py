@@ -37,8 +37,11 @@ bf16 ulp of the output beyond that fp32 tolerance (an output near zero is
 a cancelling sum, whose fp32 error is more than a bf16 ulp there); over
 ragged S, GQA groups 1, 2 and 7, D 16, 32, 64 and 128, causal on and off,
 windows, views of a fused qkv buffer, scores of large magnitude (q · 10)
-and D = 128 at S = 2048; the
-wrapper raises on a head dim or dtype the kernel does not take.
+and D = 128 at S = 2048; and every head dim up to 256: the instantiations
+80, 96, 112 and 256, widths between them zero-padded (40, 72, 200) and
+bf16 rows that are not 16 bytes (36, 100), D = 80, 112, 256 and 72 at
+S = 2048; the wrapper raises on a head dim past 256 or a dtype the kernel
+does not take.
 
 The SSD scan kernel (``csrc/ssd_scan.cu``, behind ``kernels.ssd_chunk_scan``
 and ``kernels/ssd_scan.ssd_scan``) is held to its plain version within
@@ -46,11 +49,13 @@ fp32 rtol 2e-4 and atol 2e-5 · max(1, max|y|) (the reference tests'
 tolerance on unit-scale outputs, scaled with the output: cum falls by
 hundreds within a chunk at Q = 256, and ulp(|cum|) in each fp32 decay of
 the plain version is of that order), bf16 one bf16 ulp beyond that; over
-B 1-2, H 1-3, P 8-64, N 4-128, Q 16-256 with 1-8 chunks, ragged L (a short
-last chunk), an a_log that drives cum below −100 inside a chunk, views of
-a fused buffer, mixed dtypes of x, dt, B and C, and mamba2-370m's layer-0
-width (4, 2048, 32, 64, 128); the wrapper raises on what the kernel does
-not take.  Both kernels take their products on the tensor cores, fp32
+B 1-2, H 1-4, P 8-128, N 4-256, Q 16-256 with 1-8 chunks, ragged L (a
+short last chunk), an a_log that drives cum below −100 inside a chunk,
+views of a fused buffer, mixed dtypes of x, dt, B and C, mamba2-370m's
+layer-0 width (4, 2048, 32, 64, 128), P = 128 with N = 256 (two P
+slices), hymba-1.5b's (64, 16) and odd pairs; the host-side shared-memory
+count equals the source's; the wrapper raises on what the kernel does
+not take (P > 128, N > 256, N = 256 at a chunk past the shared memory).  Both kernels take their products on the tensor cores, fp32
 operands split into two TF32 parts (csrc/split_mma.cuh); the tolerances
 are those of the first, CUDA-core ports.
 """
@@ -835,9 +840,67 @@ def test_cuda_kernels_mha_flash_reads_views():
         fa.mha_flash_ref(qm, k, v, block_q=64, block_k=64))
 
 
+# head dims past the first four instantiations: the new instantiations
+# (80, 96, 112, 256: two passes of 128 output columns), and widths between
+# them zero-padded to the next (40 -> 64, 72 -> 80, 200 -> 256; 36 and 100
+# in bf16 are not 16-byte rows and are padded into a copy first)
+WIDE_DIMS = [80, 96, 112, 256, 40, 72, 200, 36, 100]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,dtype", [(48, torch.float32),
-                                     (256, torch.float32),
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_mha_flash_wide_head_dims(d, causal, window, dtype):
+    """Every head dim up to 256, GQA and a ragged S, one launch a call;
+    the scale is D^-½ of the true D."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    q, k, v = _mha_inputs(d, 2, 300, 4, 2, d, dev, dtype)
+    kw = dict(causal=causal, window=window, block_q=64, block_k=64)
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = ops.mha_flash(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.is_contiguous()
+    _assert_attention_close(got, fa.mha_flash_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 112, 256, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_mha_flash_wide_long(d, dtype):
+    """stablelm-3b's, kimi-k2's and gemma-7b's head dims and an odd one at
+    S = 2048 (many key tiles a query tile), causal and window 512."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _cuda_or_skip()
+    q, k, v = _mha_inputs(100 + d, 1, 2048, 4, 2, d, dev, dtype)
+    for window in (None, 512):
+        _assert_attention_close(ops.mha_flash(q, k, v, window=window),
+                                fa.mha_flash_ref(q, k, v, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 256, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_flash_attention_bhsd_wide(d, dtype):
+    """The (BH, S, D) wrapper at the new widths."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda_or_skip()
+    q, k, v = (x[:, :, 0] for x in _mha_inputs(d, 6, 256, 1, 1, d, dev,
+                                               dtype))
+    for causal, window in ((True, None), (False, None), (True, 100)):
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+        _assert_attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(257, torch.float32),
+                                     (512, torch.bfloat16),
                                      (64, torch.float16),
                                      (64, torch.float64)])
 def test_cuda_kernels_mha_flash_raises_on_what_it_does_not_take(d, dtype):
@@ -1010,10 +1073,18 @@ def test_cuda_kernels_ssd_scan_raises_on_what_it_does_not_take():
     from repro_torch.kernels import ssd_scan as ss
     dev = _cuda_or_skip()
     n0 = ss.LAUNCHES["ssd_scan"]
-    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 128, 8, dev,
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 129, 8, dev,
                                        torch.float32)
-    with pytest.raises(ValueError):            # P = 128 > 64
+    with pytest.raises(ValueError):            # P = 129 > 128
         ops.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=16)
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 16, 264, dev,
+                                       torch.float32)
+    with pytest.raises(ValueError):            # N = 264 > 256
+        ops.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=16)
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 3000, 1, 64, 256, dev,
+                                       torch.float32)
+    with pytest.raises(ValueError, match="widest N that fits"):
+        ops.ssd_chunk_scan(x, dt, a_log, bb, cc, chunk=3000)
     x, dt, a_log, bb, cc = _ssd_inputs(1, 1, 32, 1, 16, 8, dev,
                                        torch.float32)
     with pytest.raises(TypeError):             # an fp16 dt
@@ -1022,3 +1093,69 @@ def test_cuda_kernels_ssd_scan_raises_on_what_it_does_not_take():
         ops.ssd_chunk_scan(*(t.half() for t in (x, dt)), a_log,
                            *(t.half() for t in (bb, cc)), chunk=16)
     assert ss.LAUNCHES["ssd_scan"] == n0
+
+
+# (P, N) past the first port's domain: mamba-class P = 128 with N = 256
+# (two 64-wide P slices, four 8-column state tiles a warp), hymba-1.5b's
+# (64, 16), and odd pairs (P 80 -> slices of 64 and 16, N 200 -> 208)
+WIDE_SSD_CASES = [
+    # b, l, h, p, n, chunk
+    (2, 512, 2, 128, 256, 256),
+    (1, 300, 3, 128, 256, 64),      # ragged, 5 chunks
+    (2, 1024, 4, 64, 16, 256),
+    (1, 700, 2, 80, 200, 256),      # ragged
+    (1, 96, 1, 100, 136, 96),       # one chunk
+    (2, 256, 2, 48, 256, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_ssd_chunk_scan_wide(case, dtype):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    b, l, h, p, n, q = case
+    assert ss.shape_supported(p, n, q)
+    args = _ssd_inputs(l + p + n, b, l, h, p, n, dev, dtype)
+    n0 = ss.LAUNCHES["ssd_scan"]
+    got = ops.ssd_chunk_scan(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == n0 + 1
+    _assert_ssd_close(got, ss.ssd_chunk_scan_ref(*args, chunk=q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(_BF, _F, _BF, _BF), (_F, _F, _BF, _F)])
+def test_cuda_kernels_ssd_chunk_scan_wide_mixed(dtypes):
+    """(P, N) = (128, 256) with Mamba2's usual bf16 x, B, C and fp32 dt,
+    and with bf16 B only."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    dev = _cuda_or_skip()
+    x, dt, a_log, bb, cc = _ssd_inputs(21, 2, 600, 2, 128, 256, dev,
+                                       torch.float32)
+    args = (x.to(dtypes[0]), dt.to(dtypes[1]), a_log, bb.to(dtypes[2]),
+            cc.to(dtypes[3]))
+    _assert_ssd_close(ops.ssd_chunk_scan(*args, chunk=256),
+                      ss.ssd_chunk_scan_ref(*args, chunk=256))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_ssd_smem_bytes_match_the_source():
+    """``ssd_scan.smem_bytes`` (the host-side predicate's count) is the
+    source's ``ssd_scan_smem_bytes`` at every P slice width, N, chunk and
+    dtype mix."""
+    from repro_torch.kernels import ssd_scan as ss
+    _cuda_or_skip()
+    lib = ss._lib()
+    for p in (8, 32, 64, 128):
+        for n in (4, 16, 128, 200, 256):
+            for chunk in (16, 64, 256, 1000, 2474, 4096):
+                for xb in (0, 1):
+                    for bcb in (0, 1):
+                        want = lib.ssd_scan_smem_bytes(p, n, chunk, xb, bcb)
+                        assert ss.smem_bytes(p, n, chunk, 2 if xb else 4,
+                                             2 if bcb else 4) == want, (
+                            p, n, chunk, xb, bcb)
