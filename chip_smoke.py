@@ -361,6 +361,43 @@ Phases (each prints a line; any failure raises and exits non-zero):
      against the schedule), peak memory and losses (finite), beside the
      card's name and power limit.  No time is asserted.
 
+7. mesh — the distributed worker axis: ``repro_torch.launch.train
+   --mesh-grid`` under ``python -m torch.distributed.run --standalone
+   --nproc-per-node N`` (one process per rank, ``--loss-out`` a JSON per
+   rank), each rank's block of the workers on the one card:
+   - (z1) NCCL, world 1: phase 4's vrl_sgd + sgd flags (full width, W = 4,
+     batch 8 × seq 64, k = 2, ``--warmup``, γ = 1e-3, 7 steps: rounds of 1,
+     2, 2, 2), held to phase 4's one-process run of them.
+   - (z2) gloo, world 2 on the one card (two workers a rank; gloo stages
+     CUDA tensors through host memory): the same with ``--overlap`` (no
+     deadline), held to path (e).
+   - (z3) gloo, world 2: path (g)'s flags, hier_vrl_sgd (2, 2), k1 = 2,
+     k2 = 4, 8 steps; the rank grid is (1, 2), so every intra-pod mean
+     crosses ranks and the pod group holds one rank; held to path (g).
+   - (z4) gloo, world 2, the smoke width: hier (2, 2) with ``--compress
+     int8 --compress2 topk:32 --overlap --deadline 0.25``, 8 steps at
+     γ = 0.05, held to the same flags as one process on the card; its
+     misses and pend_k to the same two ranks on the CPU (a child process
+     started at the phase's start).  The CPU's losses are not held: at
+     the smoke width the reference's init makes attention near one-hot,
+     and card and CPU GEMMs part by ~3e-3 in the first loss, before any
+     update (printed).
+   Each path fails where a rank exits non-zero or runs another backend or
+   device; any loss is non-finite or the ranks' differ; rank 0's logged
+   losses (per step and the averaged model's) stand more than
+   ``Z_RTOL`` = 1e-4 (relative) from the reference run's; the model-state
+   all-reduces per group (the mesh's own counts) are not one per round —
+   one per level per sync in the hierarchy, each on its group (data for
+   sync1, pod for sync2), the overlapped round's issued async — which also
+   says none ran in the local steps; a rank's kernel launches are not
+   those of its block's steps and syncs; or Σ Δ breaks phase 4's bound
+   after the last sync (the hierarchy's through ``hier_sums``; at (z4)'s
+   γ the EF term need not stand clear of the rounding).  Each rank's
+   collective counts and bytes, its sync (or begin / fold) spans (device
+   ms, labelled NCCL world 1 or gloo through host memory), peak memory
+   and step wall are printed.  One card cannot show multi-card timing:
+   NCCL refuses two ranks on one device, so world 2 goes through gloo.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -381,6 +418,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -466,6 +504,18 @@ PAPER_ALGS = ("ssgd", "vrl_sgd", "local_sgd", "easgd")
 # a broadcast copy; S-SGD has none)
 PAPER_SYNC = {"ssgd": None, "vrl_sgd": "fused_sync_vrl", "local_sgd": None,
               "easgd": "fused_sync_easgd"}
+# phase 7, the distributed worker axis: ``launch.train --mesh-grid`` under
+# ``torch.distributed.run``; (z4) at the smoke width
+Z_RTOL = 1e-4
+Z_TIMEOUT = 400                 # s, a launch at most
+Z4_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "4", "--batch",
+           "2", "--seq", "32", "--steps", "8", "--lr", str(LR),
+           "--algorithm", "hier_vrl_sgd", "--pods", "2", "--k1", "2", "--k2",
+           "4", "--compress", "int8", "--compress2", "topk:32", "--overlap",
+           "--deadline", "0.25"]
+Z4_LAUNCHES = {"fused_hier_local_sgd": 8, "fused_sync_hier1": 4,
+               "fused_ef_int8_grid": 4, "fused_fold_overlap_hier2": 2,
+               "fused_ef_topk": 2}
 # paths (s) and (t): the serve CLI at full width
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
 SERVE_REL_TOL = 5e-4        # prefill vs decode, × max|logit|
@@ -1539,7 +1589,8 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
         note = f"; max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}" + (
             f" + x̂ rounding {x_hat:.3e}" if rounding else "")
     out = path_result(tag, res.losses, res.wall_s, res.phases_ms, launches,
-                      MAIN_LR, peak=res.round_peak_bytes, arch=args.arch)
+                      MAIN_LR, peak=res.round_peak_bytes, arch=args.arch,
+                      avg=res.avg_model_losses)
     print_path(out, f"; avg-model "
                f"{['%.4f' % x for x in res.avg_model_losses]}" + note)
     if grid is not None:
@@ -1557,11 +1608,12 @@ def tm_leaves(tree):
     return tm.leaves(tree)
 
 
-def hier_sums(tag, res, grid) -> str:
-    """Paths (g), (h), (m)-(o) through the CLI's log: a level whose syncs
-    move its Δ sum by a known term (``TrainResult.level_terms``: the EF
-    term under blocking compression, the deadline fold's) is held to that
-    move at every logged round; the others to ``hier_limits``."""
+def hier_sums(tag, res, grid, lr=MAIN_LR) -> str:
+    """Paths (g), (h), (m)-(o), (z3), (z4) through the CLI's log: a level
+    whose syncs move its Δ sum by a known term (``TrainResult.
+    level_terms``: the EF term under blocking compression, the deadline
+    fold's) is held to that move at every logged round; the others to
+    ``hier_limits``."""
     moved = {r["level"] for r in res.level_terms}
     notes = []
     for level in sorted(moved):
@@ -1590,7 +1642,7 @@ def hier_sums(tag, res, grid) -> str:
     if moved != {"delta1", "delta2"}:
         notes.append(hier_limits(tag, None if "delta1" in moved else log1,
                                  None if "delta2" in moved else log2,
-                                 max_ps, grid, MAIN_LR))
+                                 max_ps, grid, lr))
     return "; ".join(notes)
 
 
@@ -3726,6 +3778,177 @@ def paper_width(dev, vu, card):
     free()
 
 
+# ----------------------------------------------------------------- phase 7
+def start_ranks(argv, nproc, out, log, device="cuda"):
+    """``launch.train`` under ``python -m torch.distributed.run
+    --standalone --nproc-per-node nproc`` with ``--mesh-grid`` and
+    ``--loss-out out`` (one JSON per rank), its output into ``log``; its
+    own session, so that ``stop_ranks`` reaches every rank."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(log, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
+             *argv, "--device", device, "--mesh-grid", "--loss-out", out],
+            stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+            start_new_session=True)
+
+
+def stop_ranks(proc) -> None:
+    """Kill the launcher and its ranks if they still run."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+
+
+def ranks_result(tag, proc, out, log, nproc, timeout=Z_TIMEOUT) -> list:
+    """Wait for a launch (at most ``timeout`` s) and read every rank's
+    JSON; a non-zero exit or a timeout fails the path."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_ranks(proc)
+        rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"path {tag}: the ranks exited {rc}: "
+                             f"{text[-4000:]}")
+    return [dict(json.load(open(f"{out}.rank{r}")), log=text)
+            for r in range(nproc)]
+
+
+def z_path(tag, argv, nproc, backend, want_state, want_launches, ref,
+           grid=None, lr=MAIN_LR):
+    """One phase-7 path on the card: the CLI under the launcher, each
+    rank's JSON checked — its backend and device, every loss finite and
+    the same on every rank, within ``Z_RTOL`` of ``ref`` (the same flags
+    as one process: {"losses", "avg"}), the model-state all-reduces per
+    group ({group: (calls, async calls)}: one per round, per level in the
+    hierarchy, none in the local steps), the kernel launches (each rank's
+    own block), the deadline misses where ``ref`` has them, Σ Δ as phase 4
+    holds it — and each rank's counts, spans, peak and wall printed."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    ranks = ranks_result(tag, start_ranks(argv, nproc, out, log), out, log,
+                         nproc)
+    banner = next(line for line in ranks[0]["log"].splitlines()
+                  if line.startswith("mesh: "))
+    via = {"nccl": "NCCL world 1", "gloo": "gloo through host memory"}[
+        backend]
+    print(f"[7 mesh {tag}] {banner}", flush=True)
+    for r, res in enumerate(ranks):
+        if (res["backend"], res["device"]) != (backend, "cuda:0"):
+            raise AssertionError(f"path {tag}: rank {r} ran {res['backend']}"
+                                 f" on {res['device']}")
+        if not all(math.isfinite(x) for x in res["losses"]
+                   + res["avg_model_losses"]):
+            raise AssertionError(f"path {tag}: rank {r} non-finite loss "
+                                 f"{res['losses']}")
+        if (res["losses"], res["avg_model_losses"]) != (
+                ranks[0]["losses"], ranks[0]["avg_model_losses"]):
+            raise AssertionError(f"path {tag}: the ranks' losses differ")
+        state = {g: (c["calls"], c["async"])
+                 for g, c in res["collectives"]["state"].items()}
+        if state != want_state:
+            raise AssertionError(f"path {tag}: rank {r} model-state "
+                                 f"all-reduces {state}, expected "
+                                 f"{want_state}")
+        check_launches(f"{tag} rank {r}", res["kernels"], want_launches)
+        spans = {k: [round(x, 3) for x in v]
+                 for k, v in res["phases_ms"].items() if k != "fwd_bwd"}
+        print(f"[7 mesh {tag}] rank {r}: collectives "
+              f"{json.dumps(res['collectives'])}; spans ({via}, device ms "
+              f"per round) {spans}; round peak "
+              f"{res['round_peak_bytes'] / 2**30:.2f} GiB; step wall "
+              f"{1e3 * res['wall_s'] / len(res['losses']):.1f} ms",
+              flush=True)
+    res = ranks[0]
+    worst = 0.0
+    for got, want in ((res["losses"], ref["losses"]),
+                      (res["avg_model_losses"], ref["avg"])):
+        if len(got) != len(want):
+            raise AssertionError(f"path {tag}: {len(got)} losses, the "
+                                 f"one-process run {len(want)}")
+        for g, w in zip(got, want):
+            rel = abs(g - w) / abs(w)
+            worst = max(worst, rel)
+            if rel > Z_RTOL:
+                raise AssertionError(f"path {tag}: loss {g} vs {w} of the "
+                                     f"one-process run (rel {rel:.3e})")
+    if "misses" in ref and res["misses"] != ref["misses"]:
+        raise AssertionError(f"path {tag}: misses {res['misses']}, the "
+                             f"reference run's {ref['misses']}")
+    if grid is not None:
+        note = hier_sums(tag, types.SimpleNamespace(**res), grid, lr)
+    else:
+        _, sum_d, _ = res["invariant"][-1]
+        max_d = max(m for _, _, m in res["invariant"])
+        if not (max_d > 0 and sum_d <= 1e-4 * max_d):
+            raise AssertionError(f"path {tag}: Σ_i Δ_i not ~0 after the "
+                                 f"last sync: {sum_d} vs max|Δ| {max_d}")
+        note = f"max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}"
+    print(f"[7 mesh {tag}] {len(res['losses'])} steps, losses "
+          f"{['%.4f' % x for x in res['losses']]}, max rel diff to the "
+          f"one-process run {worst:.3e} (<= {Z_RTOL}); model-state "
+          f"all-reduces {want_state} per rank; launches per rank "
+          f"{want_launches}; {note}", flush=True)
+    return ranks
+
+
+def start_z4_cpu():
+    """(z4)'s reference: the same two ranks on the CPU, a child process
+    started at the phase's start -> (process, JSON path, log path)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_cpu_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    return start_ranks(Z4_ARGS, 2, out, log, device="cpu"), out, log
+
+
+def mesh_paths(refs) -> None:
+    """Phase 7: (z1)-(z3) against phase 4's one-process runs of the same
+    flags (``refs``), (z4) against its one-process run on the card and,
+    for its misses, the same two ranks on the CPU (a child started first,
+    beside (z1)-(z3))."""
+    t7 = time.time() - START
+    print(f"[7 mesh] from {t7:.1f} s of the script", flush=True)
+    free()
+    z4_cpu = start_z4_cpu()
+    try:
+        mesh_card_paths(refs, z4_cpu)
+    finally:
+        stop_ranks(z4_cpu[0])
+    print(f"[7 mesh] {time.time() - START - t7:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
+def mesh_card_paths(refs, z4_cpu) -> None:
+    """(z1)-(z4) on the card."""
+    from repro_torch.launch import train as launch
+    z_path("(z1) vrl_sgd+sgd, NCCL world 1", MAIN_ARGS, 1, "nccl",
+           {"pod+data": (4, 0)}, MAIN_LAUNCHES, refs["main"])
+    z_path("(z2) vrl_sgd+sgd --overlap, gloo world 2",
+           MAIN_ARGS + ["--overlap"], 2, "gloo", {"pod+data": (4, 4)},
+           PATH_E_LAUNCHES, refs["e"])
+    z_path("(z3) hier_vrl_sgd (2, 2), gloo world 2", PATH_G[0], 2, "gloo",
+           {"data": (4, 0), "pod": (2, 0)}, PATH_G[1], refs["g"],
+           grid=(2, 2))
+    cpu = ranks_result("(z4) on the CPU", *z4_cpu, 2)
+    one = launch.run(Z4_ARGS)
+    ranks = z_path("(z4) smoke hier (2, 2) int8 / topk:32 --overlap "
+                   "--deadline 0.25, gloo world 2", Z4_ARGS, 2, "gloo",
+                   {"data": (4, 0), "pod": (2, 2)}, Z4_LAUNCHES,
+                   {"losses": one.losses, "avg": one.avg_model_losses,
+                    "misses": cpu[0]["misses"]}, grid=(2, 2), lr=LR)
+    # the card's first loss beside the CPU's, from the same parameters:
+    # the smoke model's forward under the reference's init (attention near
+    # one-hot) parts the two GEMM orders before any update, so the card is
+    # held to its own one-process run, the CPU only to the misses
+    first = ranks[0]["losses"][0] / cpu[0]["losses"][0] - 1
+    print(f"[7 mesh (z4)] misses {ranks[0]['misses']} as the CPU ranks "
+          f"draw them; step-1 loss card / CPU − 1 = {first:.3e} (not held)",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3978,6 +4201,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
     paper_width(dev, vu, card)
     print(f"[6 paper] {time.time() - START - t6:.1f} s on the card; the "
           f"script {time.time() - START:.1f} s", flush=True)
+
+    # ------------------------------------------------------ 7 mesh
+    mesh_paths({"main": res_v, "e": res_e, "g": res_g})
 
     kernels = []
     for name in KERNELS:

@@ -18,7 +18,11 @@ JAX 0.5): element i of the (n, 1) draw is the cipher of the 64-bit
 counter i split into (hi, lo) words, its two output words XORed.  A
 uniform fp32 in [0, 1) is then ``(bits >> 9) | 0x3f800000`` read as a
 float, minus 1.  The compare is in fp32, as the reference's weak-typed
-``deadline`` is.  The mask is (n, 1) fp32 {0, 1}; it is made on the host
+``deadline`` is.  On a mesh the reference folds each worker axis's index
+into the key after the step (``fold_in(key, axis_index(a))``, in the
+order of the worker axes; the hierarchy's level 2 folds the pod axis
+only), so each rank draws for its own block: ``axis_index`` takes those
+indices.  The mask is (n, 1) fp32 {0, 1}; it is made on the host
 and copied to the device once per fold.
 """
 from __future__ import annotations
@@ -71,18 +75,25 @@ def random_bits(key, n: int) -> np.ndarray:
     return (a ^ b).reshape(n, 1)
 
 
-def uniform(step: int, n: int) -> np.ndarray:
+def uniform(step: int, n: int, axis_index: tuple = ()) -> np.ndarray:
     """The reference's per-round draw ``jax.random.uniform(fold_in(
-    PRNGKey(0), step), (n, 1))``, fp32 in [0, 1)."""
-    bits = random_bits(fold_in((0, 0), step), n)
+    PRNGKey(0), step), (n, 1))``, fp32 in [0, 1), with each of
+    ``axis_index`` folded into the key after the step."""
+    key = fold_in((0, 0), step)
+    for i in axis_index:
+        key = fold_in(key, i)
+    bits = random_bits(key, n)
     one = np.uint32(0x3F800000)
     return ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
 
 
-def miss_mask(step: int, n: int, deadline: float) -> np.ndarray:
+def miss_mask(step: int, n: int, deadline: float,
+              axis_index: tuple = ()) -> np.ndarray:
     """(n, 1) fp32 miss mask of the round ending at ``step``: 1 where the
-    participant missed its capture deadline.  ``deadline`` = 0 is all
-    zeros without a draw (the reference's no-deadline program)."""
+    participant missed its capture deadline (``axis_index``: as for
+    ``uniform``).  ``deadline`` = 0 is all zeros without a draw (the
+    reference's no-deadline program)."""
     if not deadline:
         return np.zeros((n, 1), np.float32)
-    return (uniform(step, n) < np.float32(deadline)).astype(np.float32)
+    return (uniform(step, n, axis_index) < np.float32(deadline)
+            ).astype(np.float32)

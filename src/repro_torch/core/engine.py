@@ -13,8 +13,13 @@ adam_sm3}``) and every sync is one worker mean plus at most one fused pass
 The kernels update the buffers in place.
 
 On one device the worker axis is the leading buffer dimension, and the
-worker mean — on a cluster, the one all-reduce per round — is a
-``torch.mean`` over it.
+worker mean is a ``torch.mean`` over it.  On a mesh (``mesh=``, a
+``launch.mesh.WorkerMesh`` over ``torch.distributed`` ranks) each rank
+holds its block of the workers, and every worker mean is the reference's
+on-mesh form: a local sum, one counted ``all_reduce(SUM)`` over the
+worker axes' group, then ÷ the global count — the round's one
+all-reduce, none in the local steps (S-SGD: one per step, its gradient
+mean).
 
 Compressed sync (``cfg.compress``, ``comm/compressors``): every sync
 first runs one fused EF round trip over the payload's drift against the
@@ -264,10 +269,51 @@ def _validate_overlap(cfg: VRLConfig, algo: AlgoSpec, comp) -> None:
             "the overlapped sync's compressor needs error_feedback=True")
 
 
-def _misses(cfg: VRLConfig) -> Callable:
+def _misses(cfg: VRLConfig, axis_index: tuple = ()) -> Callable:
     """(step, n) -> the (n, 1) fp32 numpy miss mask of the overlapped fold
-    ending at ``step`` (``core/deadline``; all zeros without a deadline)."""
-    return functools.partial(deadline_mod.miss_mask, deadline=cfg.deadline)
+    ending at ``step`` (``core/deadline``; all zeros without a deadline);
+    ``axis_index``: this rank's mesh indices, folded into the draw."""
+    return functools.partial(deadline_mod.miss_mask, deadline=cfg.deadline,
+                             axis_index=tuple(axis_index))
+
+
+class _PendingMean(NamedTuple):
+    """A worker mean whose all-reduce was issued with ``async_op=True``:
+    the local sum it reduces in place, the work handle and the global
+    count.  ``result()`` waits, then divides."""
+
+    total: torch.Tensor
+    work: Any
+    count: int
+
+    def result(self) -> torch.Tensor:
+        self.work.wait()
+        return self.total.div_(self.count)
+
+
+def _mesh_mean(mesh, buf: torch.Tensor, dim, axes, count: int, *,
+               keepdim: bool = False, kind: str = "state",
+               async_op: bool = False):
+    """The mean of ``buf`` over its local worker dims ``dim`` and the ranks
+    of ``axes``: a local sum, one all-reduce, ÷ ``count`` (the workers it
+    covers in all); a ``_PendingMean`` when ``async_op``."""
+    s = buf.sum(dim=dim, keepdim=keepdim)
+    work = mesh.all_reduce(s, axes, kind=kind, async_op=async_op)
+    return _PendingMean(s, work, count) if async_op else s.div_(count)
+
+
+def _resolve(mean: Any) -> Any:
+    """A round_begin mean, waited for when its all-reduce is in flight."""
+    return mean.result() if isinstance(mean, _PendingMean) else mean
+
+
+def _check_mesh(cfg: VRLConfig, mesh) -> None:
+    """Reject what the port cannot run on a mesh."""
+    if mesh is not None and cfg.engine.shards > 1:
+        raise ValueError(
+            "EngineConfig.shards > 1 with a mesh: the port's row shards are "
+            "layout only, and placing them on ranks needs an all-gather "
+            "before every forward (ROADMAP Queue 1); use shards=1 on a mesh")
 
 
 def _fold_scal(pend_k: torch.Tensor, km, lr: float) -> torch.Tensor:
@@ -781,19 +827,30 @@ class Engine(NamedTuple):
     sync2: Any = None           # hier only: (state, out=None) -> state,
                                 # cross-pod
     grid: Any = None            # hier only: (P, D)
+    mesh: Any = None            # the WorkerMesh the worker means run over
+    worker_axes: Any = None     # the mesh axes the workers span (with mesh)
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
-                device: Optional[torch.device] = None) -> Engine:
+                device: Optional[torch.device] = None, mesh=None,
+                worker_axes: Tuple[str, ...] = ("data",)) -> Engine:
     """Build the flat-buffer engine for ``cfg.algorithm`` over ``template``
     (a single-model tree of meta tensors, tensors or ``(shape, dtype)``
     pairs).  ``device`` places the state; default: where ``init``'s
-    parameters lie."""
+    parameters lie.
+
+    ``mesh``: a ``launch.mesh.WorkerMesh``.  The flat algorithms spread
+    their W workers over the ranks of ``worker_axes`` (which must span
+    every rank), the hierarchy its (P, D) grid over the mesh's (pod, data)
+    rank grid; ``init`` returns this rank's block and every worker mean is
+    a counted all-reduce (even on one rank).  Without a mesh nothing is
+    communicated."""
     algo = get_spec(cfg.algorithm)
     if cfg.membership:
         raise NotImplementedError(
             "membership (elastic fault tolerance) is not ported yet "
             "(ROADMAP Queue 1)")
+    _check_mesh(cfg, mesh)
     ecfg = cfg.engine
     fspec = flat.make_spec(template, lanes=ecfg.lanes, block=ecfg.block,
                            max_waste=ecfg.max_pad_waste, shards=ecfg.shards)
@@ -809,16 +866,32 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         _validate_overlap(cfg, algo, comp2)
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
                                  delta_dt=delta_dt, device=device,
-                                 kind=kind, beta=beta, mdt=mdt, sm3=sm3)
+                                 kind=kind, beta=beta, mdt=mdt, sm3=sm3,
+                                 mesh=mesh)
     _validate_overlap(cfg, algo, comp)
-    misses = _misses(cfg)
+    axes, world = None, 1
+    if mesh is not None:
+        axes = tuple(worker_axes)
+        world = mesh.size(axes)
+        if world != mesh.size(mesh.axes):
+            raise ValueError(
+                f"worker axes {axes} span {world} of the mesh's "
+                f"{mesh.size(mesh.axes)} ranks: a flat algorithm spreads its "
+                f"workers over every rank")
+    # the reference folds the axis indices in only where the worker axes
+    # span more than one device
+    misses = _misses(cfg, mesh.index(axes) if world > 1 else ())
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
 
-    def _wmean(buf: torch.Tensor) -> torch.Tensor:
+    def _wmean(buf: torch.Tensor, kind: str = "state") -> torch.Tensor:
         """Worker mean of a (W, R, C) buffer -> (R, C): on one device a
-        reduction over dim 0 (on a cluster, the round's one all-reduce)."""
-        return buf.mean(dim=0)
+        reduction over dim 0; on a mesh the local sum, one all-reduce
+        (counted under ``kind``) and ÷ W."""
+        if mesh is None:
+            return buf.mean(dim=0)
+        return _mesh_mean(mesh, buf, 0, axes, buf.shape[0] * world,
+                          kind=kind)
 
     def _gbuf(grads: Any) -> torch.Tensor:
         if isinstance(grads, torch.Tensor):
@@ -827,6 +900,13 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                                     dtype=flat.dtype_of(fspec.dtype))
 
     def init(params: Any, num_workers: int) -> FlatWorkerState:
+        """The state of ``num_workers`` workers from ``params`` (on a mesh:
+        this rank's block of W / world of them; every rank passes the same
+        params)."""
+        if num_workers % world:
+            raise ValueError(f"{num_workers} workers do not split over the "
+                             f"mesh's {world} ranks")
+        num_workers //= world
         flat1 = flat.flatten_tree(fspec, params)
         if device is not None:
             flat1 = flat1.to(device)
@@ -919,7 +999,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         if algo.sync == "none":
             return state._replace(last_sync=state.step)
         if algo.sync == "elastic":
-            n = p.shape[0]
+            n = p.shape[0] * world
             a = cfg.easgd_alpha / n
             # x̂ of the PRE-sync parameters, before the worker pass
             if comp is not None:
@@ -960,11 +1040,16 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     def round_begin(state: FlatWorkerState, k: int = 0) -> torch.Tensor:
         """The overlapped round's START: the worker mean of the positions
         transmitted at the previous boundary (its operands are ready before
-        the round's local steps, so on a cluster the all-reduce can run
-        while they do).  ``k`` (the round's length) is unused here; the
-        hierarchy's twin needs it for the k2 cadence."""
+        the round's local steps, so on a mesh its all-reduce is issued
+        asynchronously and runs while they do: the result is then a pending
+        mean that ``round_fold`` waits for).  ``k`` (the round's length) is
+        unused here; the hierarchy's twin needs it for the k2 cadence."""
         del k
-        return _wmean(state.overlap.pend)
+        pend = state.overlap.pend
+        if mesh is None:
+            return _wmean(pend)
+        return _mesh_mean(mesh, pend, 0, axes, pend.shape[0] * world,
+                          async_op=True)
 
     def round_fold(state: FlatWorkerState, xbar: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> FlatWorkerState:
@@ -975,6 +1060,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         folded parameters' drift against x̂_stale.  A worker that misses
         its deadline keeps its pend (and parks dec in its residual).
         ``out``: a dead (W, R, C) fp32 buffer for dec under a deadline."""
+        xbar = _resolve(xbar)
         ov = state.overlap
         p = state.params
         k_eff = max(state.step - state.last_sync, 1)
@@ -1024,8 +1110,9 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         return flat.unflatten_stacked(fspec, state.params)
 
     def avg_model(state: FlatWorkerState) -> Any:
-        """x̂ — the evaluation model (the paper reports metrics on it)."""
-        return flat.unflatten_tree(fspec, _wmean(state.params))
+        """x̂ — the evaluation model (the paper reports metrics on it; on a
+        mesh its all-reduce counts as "eval", outside the round)."""
+        return flat.unflatten_tree(fspec, _wmean(state.params, "eval"))
 
     return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
                   train_step=train_step, local_step=local_step, sync=sync,
@@ -1036,14 +1123,15 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp, comp2),
-                  misses=misses if cfg.overlap else None)
+                  misses=misses if cfg.overlap else None,
+                  mesh=mesh, worker_axes=axes)
 
 
 # ============================================== hierarchical executor ("vrl2")
 def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                       *, lr: float, wd: float, delta_dt: torch.dtype,
                       device: Optional[torch.device], kind: str, beta: float,
-                      mdt: torch.dtype, sm3: bool) -> Engine:
+                      mdt: torch.dtype, sm3: bool, mesh=None) -> Engine:
     """The two-level engine over pod-major (P, D, R, C) flat buffers
     (``repro.core.engine._make_hier_engine``), with the sgd, momentum or
     Adam (dense or SM3) inner optimizer over (P, D, ...) moments.
@@ -1052,7 +1140,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     one kernel pass; the level-2 sync averages across pods and folds the Δ2
     update in.  Local steps touch no cross-worker axis.  On one device the
     pod mean is a reduction over dim 1 and the cross-pod mean one over dims
-    (0, 1); on a cluster each is one all-reduce over its level's group.
+    (0, 1); on a mesh each rank holds a (P/p_r, D/d_r) block of the grid
+    and each mean is one all-reduce over its level's group (data, pod).
     A compressed level averages the decompressed drift against its
     reference instead (``HierCommState``): level 1 per pod, x̂_pod = ref1 +
     pod_mean(dec), through the grid EF kernel; level 2 over the pod rows,
@@ -1067,16 +1156,28 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     ef2 = None if comp2 is None else _ef_op(comp2, fspec.lanes)
     ef1_on = comp1 is not None and comp1.error_feedback
     ef2_on = comp2 is not None and comp2.error_feedback
-    misses = _misses(cfg)
+    p_r, d_r = (1, 1) if mesh is None else mesh.shape
+    if p_total % p_r or d_total % d_r:
+        raise ValueError(f"hier grid {hcfg.grid} does not split over the "
+                         f"mesh's {(p_r, d_r)} rank grid")
+    p_loc, d_loc = p_total // p_r, d_total // d_r
+    # level 2's participants are pods: the pod index alone is folded in,
+    # where the pod axis spans more than one rank (as the reference does)
+    misses = _misses(cfg, mesh.index(("pod",)) if p_r > 1 else ())
 
     def _pod_mean(buf: torch.Tensor) -> torch.Tensor:
         """(P, D, R, C) -> (P, 1, R, C): THE intra-pod all-reduce.  With one
         pod it reduces exactly as the flat engine's worker mean does."""
-        return buf.mean(dim=1, keepdim=True)
+        if mesh is None:
+            return buf.mean(dim=1, keepdim=True)
+        return _mesh_mean(mesh, buf, 1, ("data",), d_total, keepdim=True)
 
-    def _cross_mean(pod_avg: torch.Tensor) -> torch.Tensor:
+    def _cross_mean(pod_avg: torch.Tensor, async_op: bool = False):
         """(P, 1, R, C) pod averages -> (R, C): THE cross-pod all-reduce."""
-        return pod_avg.mean(dim=(0, 1))
+        if mesh is None:
+            return pod_avg.mean(dim=(0, 1))
+        return _mesh_mean(mesh, pod_avg, (0, 1), ("pod",), p_total,
+                          async_op=async_op)
 
     def _kg(k_eff: int, dev: torch.device) -> torch.Tensor:
         """k_eff·γ as an fp32 product made on the device (no host sync)."""
@@ -1104,15 +1205,16 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         flat1 = flat.flatten_tree(fspec, params)
         if device is not None:
             flat1 = flat1.to(device)
-        stacked = flat1.expand(p_total, d_total, *flat1.shape).clone()
-        pod_shape = (p_total, 1, *flat1.shape)
+        # this rank's block of the grid (all of it without a mesh)
+        stacked = flat1.expand(p_loc, d_loc, *flat1.shape).clone()
+        pod_shape = (p_loc, 1, *flat1.shape)
         overlap = ()
         if cfg.overlap:
             # per-pod transmitted positions; pend = x0, so the first level-2
             # fold's correction is exactly zero
             overlap = OverlapState(
                 pend=flat1.to(torch.float32).expand(pod_shape).clone(),
-                pend_k=torch.ones((p_total, 1, 1, 1), dtype=torch.float32,
+                pend_k=torch.ones((p_loc, 1, 1, 1), dtype=torch.float32,
                                   device=stacked.device))
 
         def zeros(shape):
@@ -1170,7 +1272,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         worker slices of the dead (P, D, R, C) buffer ``out`` (None: the
         round trip makes a new one)."""
         return None if out is None else out.view(-1, *out.shape[2:])[
-            :p_total]
+            :p_loc]
 
     def _ef2(state: HierFlatState, ref: torch.Tensor,
              dec: Optional[torch.Tensor]) -> torch.Tensor:
@@ -1248,11 +1350,12 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     # blocking (the level-2 fold needs post-sync1 pod-uniform params).
     def round_begin(state: HierFlatState, k: int) -> Optional[torch.Tensor]:
         """The level-2 mean over pend taken at round START, when the round
-        of ``k`` steps will end on the k2 cadence; None otherwise (the fold
-        then has nothing to read, and nothing is allocated)."""
+        of ``k`` steps will end on the k2 cadence (on a mesh issued
+        asynchronously, a pending mean); None otherwise (the fold then has
+        nothing to read, and nothing is allocated)."""
         _check_round()
-        return _cross_mean(state.overlap.pend) if level2_due(state, k) \
-            else None
+        return (_cross_mean(state.overlap.pend, async_op=mesh is not None)
+                if level2_due(state, k) else None)
 
     def _fold2(state: HierFlatState, glob: torch.Tensor,
                out: Optional[torch.Tensor]) -> HierFlatState:
@@ -1267,7 +1370,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         ov = state.overlap
         p = state.params
         k_eff = max(state.step - state.last_sync2, 1)
-        km = misses(state.step, p_total)                       # (P, 1)
+        km = misses(state.step, p_loc)                         # (P, 1)
         wscal = _fold_scal(ov.pend_k[:, 0, :, 0], km, lr)
         if comp1 is not None:
             _shift_ref1(state.comm.ref1, glob, ov.pend)
@@ -1303,7 +1406,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             raise ValueError(
                 "round_fold: the k2 cadence is due but round_begin took no "
                 "cross-pod mean (it was given another round length)")
-        return _fold2(state, glob, out)
+        return _fold2(state, _resolve(glob), out)
 
     def round_step(state: HierFlatState, grads_k: Any) -> HierFlatState:
         """One k1 round over a (k1, P, D, R, C) grads buffer or a grads tree
@@ -1323,7 +1426,11 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
 
     def avg_model(state: HierFlatState) -> Any:
         """x̂ over all P·D workers — the evaluation model."""
-        return flat.unflatten_tree(fspec, state.params.mean(dim=(0, 1)))
+        if mesh is None:
+            return flat.unflatten_tree(fspec, state.params.mean(dim=(0, 1)))
+        return flat.unflatten_tree(fspec, _mesh_mean(
+            mesh, state.params, (0, 1), mesh.axes, p_total * d_total,
+            kind="eval"))
 
     return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
                   train_step=train_step, local_step=local_step, sync=sync,
@@ -1335,4 +1442,5 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp1, comp2),
                   misses=misses if cfg.overlap else None,
-                  sync1=sync1, sync2=sync2, grid=(p_total, d_total))
+                  sync1=sync1, sync2=sync2, grid=(p_total, d_total),
+                  mesh=mesh, worker_axes=None if mesh is None else mesh.axes)

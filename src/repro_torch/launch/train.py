@@ -63,18 +63,44 @@ moments, SM3-factored Adam, ``EngineConfig.shards``) run through
 reference CLI trains with sgd only, so its ``--sm3`` and
 ``--moment-dtype`` change nothing there and are not flags here.
 
+``--mesh-grid`` spreads the worker grid over ``torch.distributed`` ranks
+(the reference's flag over a JAX mesh; ``launch.mesh``): run it under a
+launcher, one process per rank, e.g.
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 4 --steps 6 --k 2 --batch 2 --seq 32 \\
+      --lr 0.05 --mesh-grid
+
+Each rank reads RANK, WORLD_SIZE and LOCAL_RANK from the launcher, takes
+``cuda:(LOCAL_RANK % device_count)`` (or the CPU), joins the default group
+over NCCL when every rank has a card of its own and over gloo otherwise
+(ranks sharing a card, or the CPU), and holds its block of the workers:
+(1, world) ranks for the flat algorithms, (P / p_r, D / d_r) workers a
+rank for the hierarchy.  Every rank draws the same global data and trains
+its workers' slice; every worker mean is an all-reduce, and the log's
+figures (the averaged model's loss, the Σ Δ sums) take theirs outside the
+round.  Rank 0 prints the log; every rank prints its last line, with its
+collectives' counts beside the kernels'.  Without a launcher's
+environment the flag fails; it never falls back to one process.
+
+``--loss-out PATH`` writes the run's losses, logged sums, spans, peak and
+counts as JSON (under ``--mesh-grid`` one file per rank, ``PATH.rank<r>``).
+
 Not ported yet (ROADMAP Queue 1): membership and faults, client
-sampling, checkpoints, diagnostics and telemetry, meshes.
+sampling, checkpoints, diagnostics and telemetry, row shards on a mesh.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_mod
 from repro_torch.comm import compressors as comm_mod
@@ -85,6 +111,7 @@ from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.data import assigned_token_stream, contiguous_assignment
 from repro_torch.kernels import vrl_update
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
 from repro_torch.train.loss import cross_entropy_lm
 from repro_torch.train.train_loop import make_train_step
@@ -118,6 +145,8 @@ class TrainResult(NamedTuple):
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
     round_peak_bytes: int       # CUDA only: most device memory allocated
                                 # during a round (0 on the CPU)
+    collectives: Any = None     # --mesh-grid: this rank's mesh_mod.COUNTS
+    rank: int = 0               # --mesh-grid: this process's rank
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -188,6 +217,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the run lives (default cuda; never falls "
                          "back to the CPU)")
+    ap.add_argument("--mesh-grid", action="store_true",
+                    help="spread the worker grid over torch.distributed "
+                         "ranks, (1, world) flat or (p_r, d_r) over the "
+                         "hierarchy's (pods, W/pods); run under a launcher "
+                         "(python -m torch.distributed.run)")
+    ap.add_argument("--loss-out", default=None,
+                    help="write the run's losses, logged sums and counts "
+                         "as JSON here (per rank under --mesh-grid: "
+                         "PATH.rank<r>)")
     ap.add_argument("--profile-round", type=int, default=0,
                     help="run torch.profiler over the Nth round (1-based; "
                          "0 = off) and print its busiest operations and "
@@ -262,76 +300,207 @@ def run(argv=None) -> TrainResult:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass "
                          "--device cpu to run on the CPU)")
-    device = torch.device(args.device)
+    if not args.mesh_grid:
+        return _train(args, torch.device(args.device), None)
+    device, backend = init_distributed(args.device)
+    try:
+        return _train(args, device, backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def init_distributed(device: str):
+    """``--mesh-grid``: the default process group from the launcher's
+    environment -> (this rank's device, the backend).  NCCL when every rank
+    of this host has a card of its own, gloo when ranks share one (it
+    stages CUDA tensors through host memory) or run on the CPU."""
+    need = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    missing = [k for k in need if k not in os.environ]
+    if missing:
+        raise SystemExit(
+            f"--mesh-grid runs one process per rank under a launcher (python "
+            f"-m torch.distributed.run --nproc-per-node N -m "
+            f"repro_torch.launch.train ... --mesh-grid); "
+            f"{', '.join(missing)} not set")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    backend = "gloo"
+    if device == "cuda":
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", local % n)
+        torch.cuda.set_device(dev)
+        if int(os.environ.get("LOCAL_WORLD_SIZE", world)) <= n:
+            backend = "nccl"
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world)
+    return dev, backend
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank other than 0."""
+
+
+def _mesh_device() -> torch.device:
+    """Where the mesh's collectives take their tensors: the card under
+    NCCL, the host under gloo."""
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+
+class WorkerSums:
+    """The log's reductions over the workers (never inside a round): a
+    local sum over a buffer's worker dims and, on a mesh, one all-reduce
+    over the axes those dims span (counted "eval"); maxima and minima over
+    every rank.  Without a mesh they are the plain reductions."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def _all(self, x: torch.Tensor, axes=None, op=None) -> torch.Tensor:
+        if self.mesh is not None:
+            self.mesh.all_reduce(x, axes or self.mesh.axes, kind="eval",
+                                 op=op)
+        return x
+
+    def sum(self, buf, dim, axes=None):
+        """Σ over ``dim`` of a buffer or of every leaf of a tree."""
+        return tree_mod.tree_map(lambda x: self._all(x.sum(dim=dim), axes),
+                                 buf)
+
+    def mean(self, buf: torch.Tensor, dim, axes, count: int):
+        if self.mesh is None:
+            return buf.mean(dim=dim)
+        return self._all(buf.sum(dim=dim), axes).div_(count)
+
+    def max(self, buf) -> float:
+        """max|x| over a buffer or every leaf of a tree (read without an
+        |x| temporary)."""
+        leaves = tree_mod.leaves(buf)
+        m = max(torch.linalg.vector_norm(x, float("inf")).item()
+                for x in leaves)
+        if self.mesh is None:
+            return m
+        return self._all(torch.tensor(m, device=leaves[0].device),
+                         op=dist.ReduceOp.MAX).item()
+
+    def min(self, x: torch.Tensor) -> float:
+        m = x.min()
+        return (m if self.mesh is None else
+                self._all(m, op=dist.ReduceOp.MIN)).item()
+
+    def invariant(self, buf, dim: int, axes) -> tuple:
+        """(max|Σ over ``dim``|, max|buf|): ``engine.sum_invariant``."""
+        if self.mesh is None:
+            return engine_mod.sum_invariant(buf, dim=dim)
+        return self.max(self.sum(buf, dim, axes)), self.max(buf)
+
+    def spread(self, local, where: Optional[np.ndarray], n: int) -> list:
+        """A per-participant vector of which this rank holds the entries
+        ``where`` (``local``; values ≥ 0, replicas equal) as the list of
+        all ``n`` (``where`` None: this rank holds all of them)."""
+        local = np.asarray(local, np.float64).ravel()
+        if where is None:
+            return local.tolist()
+        full = torch.zeros(n, dtype=torch.float64)
+        full[torch.from_numpy(where)] = torch.from_numpy(local)
+        return self._all(full.to(_mesh_device()),
+                         op=dist.ReduceOp.MAX).cpu().tolist()
+
+
+def _train(args: argparse.Namespace, device: torch.device,
+           backend: Optional[str]) -> TrainResult:
+    say = print if backend is None or dist.get_rank() == 0 else _quiet
     # the reference trains in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = (registry.smoke_arch(args.arch) if args.smoke
            else registry.get_arch(args.arch))
-    print(f"arch: {registry.describe(args.arch)}"
-          f"{' [reduced smoke variant]' if args.smoke else ''}")
+    say(f"arch: {registry.describe(args.arch)}"
+        f"{' [reduced smoke variant]' if args.smoke else ''}")
     vrl = vrl_config(args)
     hier = vrl.hier
     if hier is not None:
-        print(f"hier: {hier.grid[0]} pods x {hier.grid[1]} workers, "
-              f"k1={hier.k1} (intra-pod), k2={hier.k2} (cross-pod)")
+        say(f"hier: {hier.grid[0]} pods x {hier.grid[1]} workers, "
+            f"k1={hier.k1} (intra-pod), k2={hier.k2} (cross-pod)")
+    mesh = None
+    pods = hier.grid[0] if hier is not None else 0
+    if backend is not None:
+        mesh_mod.reset_counts()
+        try:
+            mesh = mesh_mod.make_engine_mesh(args.workers, pods=pods)
+        except ValueError as e:
+            raise SystemExit(f"--mesh-grid: {e}")
+        say(mesh_banner(mesh, backend, device, args.workers, hier))
     try:
         bundle = make_train_step(cfg, vrl, device=device,
-                                 timed=device.type == "cuda")
+                                 timed=device.type == "cuda", mesh=mesh,
+                                 worker_axes=mesh_mod.AXES)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     sched = engine_mod.comm_schedule(vrl)    # explicit or the algo default
     if sched is not None:
-        print(f"comm schedule: stages {sched.stages} (k repeats from the "
-              f"last stage)")
+        say(f"comm schedule: stages {sched.stages} (k repeats from the "
+            f"last stage)")
     eng = bundle.engine
     state = bundle.init_state(args.seed, args.workers)
     resolved = engine_mod.resolve_backend(vrl, device)
     p_leaves = tree_mod.leaves(state.params)
     n_params = (eng.spec.size if eng is not None else
                 sum(x.numel() for x in p_leaves) // args.workers)
-    print(f"params: {n_params/1e6:.2f}M x {args.workers} workers, "
-          f"algorithm={args.algorithm}, k={args.k}, "
-          f"backend={args.backend}"
-          + (f" -> {resolved}" if resolved != args.backend else "")
-          + f", device={device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    say(f"params: {n_params/1e6:.2f}M x {args.workers} workers, "
+        f"algorithm={args.algorithm}, k={args.k}, "
+        f"backend={args.backend}"
+        + (f" -> {resolved}" if resolved != args.backend else "")
+        + f", device={device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else ""))
     if eng is not None:
         es = eng.spec
-        print(f"engine: flat buffer {es.rows}x{es.lanes} "
-              f"({es.padded - es.size} pad elems), block={es.block}")
+        say(f"engine: flat buffer {es.rows}x{es.lanes} "
+            f"({es.padded - es.size} pad elems), block={es.block}")
     else:
-        print(f"engine: per-leaf reference executor over {len(p_leaves)} "
-              f"leaves (no kernel)")
+        say(f"engine: per-leaf reference executor over {len(p_leaves)} "
+            f"leaves (no kernel)")
     if args.overlap:
-        print("overlap: sync worker mean taken at round start (one-round-"
-              "stale fold at the boundary"
-              + ("; cross-pod sync2 only, sync1 blocking" if hier else "")
-              + (f"), deadline: miss prob {args.deadline}" if args.deadline
-                 else ")"))
+        say("overlap: sync worker mean taken at round start (one-round-"
+            "stale fold at the boundary"
+            + ("; cross-pod sync2 only, sync1 blocking" if hier else "")
+            + (f"), deadline: miss prob {args.deadline}" if args.deadline
+               else ")"))
     comps = (eng.compressors if eng is not None
              else comm_mod.resolve_pair(vrl))
     if any(c is not None for c in comps):
-        print(wire_banner(comps, es, state) if eng is not None else
-              f"compress: {comm_mod.describe_pair(comps)} (per-leaf rows)")
+        say(wire_banner(comps, es, state) if eng is not None else
+            f"compress: {comm_mod.describe_pair(comps)} (per-leaf rows)")
 
     assignment = contiguous_assignment(args.workers, args.workers)
     data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
                                  steps=args.steps, batch=args.batch,
                                  alpha=args.alpha,
                                  identical=args.identical, seed=args.seed)
+    # every rank draws the same global data and trains its workers' slice
+    mine = None if mesh is None else mesh.local_workers(args.workers, pods)
 
-    def tokens(a: np.ndarray) -> torch.Tensor:
+    def tokens(a: np.ndarray, local: bool = True) -> torch.Tensor:
+        """Token ids of ``a`` (..., W, batch, seq): this rank's workers'
+        (every worker's for ``local=False``)."""
+        if local and mine is not None:
+            a = a[..., mine, :, :]
         return torch.from_numpy(a).to(device=device, dtype=torch.long)
 
     @torch.no_grad()
-    def eval_avg(state, toks, labels):
+    def eval_avg(state, t: int):
+        """The averaged model's loss on every worker's batch of step t."""
+        toks = tokens(data[t], local=False)
+        labels = torch.roll(toks, -1, dims=-1)
         avg = bundle.average_model(state)
         logits = T.forward(cfg, avg, toks.reshape(-1, args.seq))
         return cross_entropy_lm(logits, labels.reshape(-1, args.seq))
 
+    red = WorkerSums(mesh)
     step_losses: list = []      # device tensors until the end of the run
     avg_losses: List[float] = []
     invariant: List[tuple] = []
@@ -346,45 +515,61 @@ def run(argv=None) -> TrainResult:
     level_terms: List[dict] = []
     misses: List[tuple] = []
 
+    # (field, label, worker dim, the mesh axes that dim spans, log)
     if hier is None:
-        sums = (("delta", "max|sum_i delta_i|", 0, invariant),
-                ("bias", "max|sum_i bias_i|", 0, bias_invariant))
+        sums = (("delta", "max|sum_i delta_i|", 0, None, invariant),
+                ("bias", "max|sum_i bias_i|", 0, None, bias_invariant))
     else:
-        sums = (("delta1", "max_p max|sum_d delta1[p, d]|", 1, invariant),
-                ("delta2", "max|sum_p delta2[p]|", 0, bias_invariant))
+        sums = (("delta1", "max_p max|sum_d delta1[p, d]|", 1, ("data",),
+                 invariant),
+                ("delta2", "max|sum_p delta2[p]|", 0, ("pod",),
+                 bias_invariant))
 
     def log_invariant(state, t):
         """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
         the largest Δ the run has held), and BVR's Σ_i B_i = 0; the
         hierarchy's Σ_d Δ1 = 0 within every pod and Σ_p Δ2 = 0; nothing
         for an algorithm without Δ.  Also keeps max|params|, the scale of
-        the rounding of x̂ that each sync leaves in those sums (read
-        without an |params| temporary)."""
-        param_max.append((t, max(
-            torch.linalg.vector_norm(x, float("inf")).item()
-            for x in tree_mod.leaves(state.params))))
-        for field, label, dim, log in sums:
+        the rounding of x̂ that each sync leaves in those sums."""
+        param_max.append((t, red.max(state.params)))
+        for field, label, dim, axes, log in sums:
             buf = getattr(state, field)
             if _present(buf):
-                sum_b, max_b = engine_mod.sum_invariant(buf, dim=dim)
+                sum_b, max_b = red.invariant(buf, dim, axes)
                 log.append((t, sum_b, max_b))
-                print(f"             {label} {sum_b:.3e}  max|{field}| "
-                      f"{max_b:.3e}")
+                say(f"             {label} {sum_b:.3e}  max|{field}| "
+                    f"{max_b:.3e}")
 
     def log_ef_identity(before, state, t, rk):
         """The EF term of the round's sync and how far Σ_i Δ_i's move
         stands from it (fp32 rounding)."""
         sum_d0, sum_e0 = before
         term = tree_mod.tree_map(
-            lambda e0, e: (e0 - e.sum(dim=0)) / (rk * args.lr), sum_e0,
-            state.comm.resid)
-        moved = tree_mod.tree_map(lambda d, d0: d.sum(dim=0) - d0,
-                                  state.delta, sum_d0)
-        ef_t = _tmax(term)
-        resid = _tmax(tree_mod.tree_map(torch.sub, moved, term))
+            lambda e0, e: (e0 - e) / (rk * args.lr), sum_e0,
+            red.sum(state.comm.resid, 0))
+        moved = tree_mod.tree_map(torch.sub, red.sum(state.delta, 0),
+                                  sum_d0)
+        ef_t = red.max(term)
+        resid = red.max(tree_mod.tree_map(torch.sub, moved, term))
         ef_identity.append((t, ef_t, resid))
-        print(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
-              f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
+        say(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
+            f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
+
+    def log_misses(state, t):
+        """The fold's misses and pend_k over every participant (workers;
+        hier: pods)."""
+        ov = state.overlap
+        n_loc = ov.pend_k.shape[0]
+        where, n = None, n_loc
+        if mine is not None and hier is None:
+            where, n = mine, args.workers
+        elif mine is not None:
+            pi = mesh.coords[0]
+            where, n = np.arange(pi * n_loc, (pi + 1) * n_loc), pods
+        mask = red.spread(eng.misses(t, n_loc), where, n)
+        pend_k = red.spread(ov.pend_k.flatten().cpu().numpy(), where, n)
+        misses.append((t, mask, pend_k))
+        say(f"deadline: fold at step {t}: misses {mask}, pend_k {pend_k}")
     warm_first = (sched is None and args.warmup
                   and engine_mod.get_spec(args.algorithm).warmup_aware)
     k_round = hier.k1 if hier is not None else args.k
@@ -418,21 +603,21 @@ def run(argv=None) -> TrainResult:
                 step_losses.append(loss[None])
                 t += 1
             wall += clock() - t1
-            el = float(eval_avg(state, toks, labels))
+            el = float(eval_avg(state, t - 1))
             avg_losses.append(el)
-            print(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
-                  f"avg_model_loss {el:.4f}  "
-                  f"({wall / t:.2f}s/step)")
+            say(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
+                f"avg_model_loss {el:.4f}  "
+                f"({wall / t:.2f}s/step)")
             log_invariant(state, t)
             break
         toks = tokens(data[t:t + rk])
         labels = torch.roll(toks, -1, dims=-1)
         logged = ((r + 1) % args.log_every == 0 or r == 0
                   or t + rk >= args.steps)
-        before = ((_tsum(state.delta, 0), _tsum(state.comm.resid, 0))
+        before = ((red.sum(state.delta, 0), red.sum(state.comm.resid, 0))
                   if ef_log and logged else None)
         watch = (level_watch(comps, hier, state, rk, args.lr,
-                             args.deadline)
+                             args.deadline, red)
                  if hier is not None and logged else None)
         if cuda:
             # the round's own peak: the checks between rounds make
@@ -441,7 +626,7 @@ def run(argv=None) -> TrainResult:
         t1 = clock()
         if r + 1 == args.profile_round:
             state, losses = profiled_round(bundle, state, toks, labels,
-                                           device)
+                                           device, say)
         else:
             state, losses = bundle.round_step(state, toks, labels)
         wall += clock() - t1
@@ -452,60 +637,105 @@ def run(argv=None) -> TrainResult:
         t += rk
         r += 1
         if args.deadline and state_folded(state, t):
-            ov = state.overlap
-            mask = eng.misses(t, ov.pend_k.shape[0]).ravel().tolist()
-            pend_k = ov.pend_k.flatten().tolist()
-            misses.append((t, mask, pend_k))
-            print(f"deadline: fold at step {t}: misses {mask}, pend_k "
-                  f"{pend_k}")
+            log_misses(state, t)
         if logged:
-            el = float(eval_avg(state, toks[-1], labels[-1]))
+            el = float(eval_avg(state, t - 1))
             avg_losses.append(el)
-            print(f"step {t:5d} (round {r})  "
-                  f"local_loss {float(losses.mean()):.4f}  "
-                  f"avg_model_loss {el:.4f}  "
-                  f"({wall / t:.2f}s/step)")
+            say(f"step {t:5d} (round {r})  "
+                f"local_loss {float(losses.mean()):.4f}  "
+                f"avg_model_loss {el:.4f}  "
+                f"({wall / t:.2f}s/step)")
             log_invariant(state, t)
             if before is not None:
                 log_ef_identity(before, state, t, rk)
             for rec in (watch(state, t) if watch is not None else ()):
                 level_terms.append(rec)
-                print(f"             {rec['level']} {rec['kind']} term "
-                      f"{rec['term']:.3e}  max|sum move - term| "
-                      f"{rec['off']:.3e} (limit {rec['limit']:.3e})")
+                say(f"             {rec['level']} {rec['kind']} term "
+                    f"{rec['term']:.3e}  max|sum move - term| "
+                    f"{rec['off']:.3e} (limit {rec['limit']:.3e})")
     losses_host = torch.cat(step_losses).tolist()
-    print(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)"
-          + (f", round peak memory {round_peak / 2**30:.2f} GiB"
-             if cuda else ""))
+    say(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)"
+        + (f", round peak memory {round_peak / 2**30:.2f} GiB"
+           if cuda else ""))
     phases = bundle.timer.ms() if bundle.timer is not None else {}
     if phases:
-        print("phases (device ms, first span / mean of the rest): "
-              + ", ".join(f"{k} {v[0]:.2f} / "
-                          f"{np.mean(v[1:]) if len(v) > 1 else float('nan'):.2f}"
-                          f" x{len(v)}" for k, v in phases.items()))
-    print(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
-    return TrainResult(state=state, engine=eng, losses=losses_host,
-                       avg_model_losses=avg_losses, invariant=invariant,
-                       bias_invariant=bias_invariant,
-                       ef_identity=ef_identity, level_terms=level_terms,
-                       misses=misses, param_max=param_max,
-                       wall_s=wall, phases_ms=phases,
-                       round_peak_bytes=round_peak)
+        say("phases (device ms, first span / mean of the rest): "
+            + ", ".join(f"{k} {v[0]:.2f} / "
+                        f"{np.mean(v[1:]) if len(v) > 1 else float('nan'):.2f}"
+                        f" x{len(v)}" for k, v in phases.items()))
+    counts = None
+    if mesh is None:
+        say(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
+    else:
+        counts = json.loads(json.dumps(mesh_mod.COUNTS))
+        # every rank's own last line: its wall, peak and spans beside its
+        # launches and collectives
+        print(f"[rank {mesh.rank}] {device}, {backend}: step wall "
+              f"{1e3 * wall / args.steps:.1f} ms, round peak memory "
+              f"{round_peak / 2**30:.2f} GiB, spans (device ms) "
+              + json.dumps({k: [round(x, 3) for x in v]
+                            for k, v in phases.items() if k != "fwd_bwd"})
+              + f"; kernels: {json.dumps(vrl_update.LAUNCHES)} "
+              f"collectives: {json.dumps(counts)}", flush=True)
+    res = TrainResult(state=state, engine=eng, losses=losses_host,
+                      avg_model_losses=avg_losses, invariant=invariant,
+                      bias_invariant=bias_invariant,
+                      ef_identity=ef_identity, level_terms=level_terms,
+                      misses=misses, param_max=param_max,
+                      wall_s=wall, phases_ms=phases,
+                      round_peak_bytes=round_peak, collectives=counts,
+                      rank=0 if mesh is None else mesh.rank)
+    if args.loss_out:
+        write_loss_out(args.loss_out if mesh is None else
+                       f"{args.loss_out}.rank{mesh.rank}", res, args,
+                       device, backend)
+    return res
+
+
+def mesh_banner(mesh, backend: str, device: torch.device, workers: int,
+                hier) -> str:
+    """The backend, the rank grid, each rank's block and device (one
+    "setup" all-reduce of the device indices)."""
+    ids = torch.zeros(mesh.size(mesh.axes), dtype=torch.int64,
+                      device=_mesh_device())
+    ids[mesh.rank] = -1 if device.type == "cpu" else device.index
+    mesh.all_reduce(ids, mesh.axes, kind="setup")
+    devs = {r: "cpu" if i < 0 else f"cuda:{i}"
+            for r, i in enumerate(ids.tolist())}
+    if hier is None:
+        block = f"{workers // len(devs)} workers a rank"
+    else:
+        p, d = hier.grid
+        block = (f"({p // mesh.shape[0]}, {d // mesh.shape[1]}) of the "
+                 f"({p}, {d}) grid a rank")
+    via = (" (gloo stages CUDA tensors through host memory)"
+           if backend == "gloo" and device.type == "cuda" else "")
+    return (f"mesh: {backend}{via}, rank grid "
+            f"{dict(zip(mesh.axes, mesh.shape))}, {block}, ranks -> "
+            f"devices {devs}")
+
+
+def write_loss_out(path: str, res: TrainResult, args, device,
+                   backend) -> None:
+    """``--loss-out``: the run's logged numbers as JSON."""
+    out = {"steps": args.steps, "final_loss": res.losses[-1],
+           "avg_model_loss": res.avg_model_losses[-1],
+           "losses": res.losses, "avg_model_losses": res.avg_model_losses,
+           "invariant": res.invariant, "bias_invariant": res.bias_invariant,
+           "ef_identity": res.ef_identity, "level_terms": res.level_terms,
+           "misses": res.misses, "param_max": res.param_max,
+           "wall_s": res.wall_s, "phases_ms": res.phases_ms,
+           "round_peak_bytes": res.round_peak_bytes,
+           "kernels": dict(vrl_update.LAUNCHES),
+           "collectives": res.collectives, "rank": res.rank,
+           "device": str(device), "backend": backend}
+    with open(path, "w") as f:
+        json.dump(out, f)
 
 
 def _present(buf) -> bool:
     """A state field that holds a buffer or a tree (not (), not None)."""
     return isinstance(buf, (torch.Tensor, dict))
-
-
-def _tsum(buf, dim: int):
-    """Σ over a worker axis of a buffer, or of every leaf of a tree."""
-    return tree_mod.tree_map(lambda x: x.sum(dim=dim), buf)
-
-
-def _tmax(buf) -> float:
-    """max|x| over a buffer or over every leaf of a tree."""
-    return max(x.abs().max().item() for x in tree_mod.leaves(buf))
 
 
 def state_folded(state, t: int) -> bool:
@@ -545,7 +775,7 @@ def wire_banner(pair, es, state) -> str:
 
 
 def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
-                deadline: float):
+                deadline: float, red: WorkerSums):
     """Before a logged hier round: for each level whose Δ sum the round's
     syncs move by a known term, the sums it starts from (on the host, out
     of the round's peak memory); returns what reads the round after it.
@@ -555,66 +785,70 @@ def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
     level 2 the same with Σ_p (e2 − e2')/(k2 γ) at a blocking sync2, and
     at an overlapped fold under a deadline by Σ_p c_p/(pend_k_p γ) (the
     pods' pend_k differ once one misses).  Each move is held to 1e-4 ·
-    max|Δ| plus the fp32 rounding of the mean, 2 n ulp(max|p|)/(k γ)."""
+    max|Δ| plus the fp32 rounding of the mean, 2 n ulp(max|p|)/(k γ).
+    ``red`` takes the sums over the workers (on a mesh: Σ_d over the data
+    axis, Σ_p over the pod axis)."""
     c1, c2 = comps
     pods, dper = hcfg.grid
     step2 = state.step + rk - state.last_sync2
     overlap = getattr(state, "overlap", ())
-    plan = []
+    plan = []               # (level, worker dim, its axes, kind, n, k)
     if c1 is not None and c1.error_feedback:
-        plan.append(("delta1", 1, "ef", dper,
+        plan.append(("delta1", 1, ("data",), "ef", dper,
                      max(state.step + rk - state.last_sync1, 1)))
     if step2 >= hcfg.k2 and overlap == ():
         if c2 is not None and c2.error_feedback:
-            plan.append(("delta2", 0, "ef", pods, step2))
+            plan.append(("delta2", 0, ("pod",), "ef", pods, step2))
     elif step2 >= hcfg.k2 and deadline:
-        plan.append(("delta2", 0, "fold", pods, 1))
+        plan.append(("delta2", 0, ("pod",), "fold", pods, 1))
     starts = []
-    for level, dim, kind, n, k in plan:
+    for level, dim, axes, kind, n, k in plan:
         delta = getattr(state, level)
         if kind == "ef":
             # the level's residual: resid1 for Δ1, resid2 for Δ2
             term0 = tree_mod.tree_map(
                 lambda x: x.cpu(),
-                _tsum(getattr(state.comm, "resid" + level[-1]), dim))
+                red.sum(getattr(state.comm, "resid" + level[-1]), dim, axes))
         else:
             ov = overlap
             inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)
-            glob = ov.pend.mean(dim=(0, 1))
-            term0 = ((glob - ov.pend) * inv[:, :, None, None]).sum(
-                dim=(0, 1)).cpu()
-            k = ov.pend_k.min().item()
-        starts.append((level, dim, kind, n, k, tree_mod.tree_map(
-            lambda x: x.cpu(), _tsum(delta, dim)), term0, _tmax(delta)))
-    max_p0 = _tmax(state.params)
+            glob = red.mean(ov.pend, (0, 1), axes, pods)
+            term0 = red.sum((glob - ov.pend) * inv[:, :, None, None],
+                            (0, 1), axes).cpu()
+            k = red.min(ov.pend_k)
+        starts.append((level, dim, axes, kind, n, k, tree_mod.tree_map(
+            lambda x: x.cpu(), red.sum(delta, dim, axes)), term0,
+            red.max(delta)))
+    max_p0 = red.max(state.params)
 
     def after(state, t):
         out = []
-        max_p = max(max_p0, _tmax(state.params))
-        for level, dim, kind, n, k, sum0, term0, max_d0 in starts:
+        max_p = max(max_p0, red.max(state.params))
+        for level, dim, axes, kind, n, k, sum0, term0, max_d0 in starts:
             delta = getattr(state, level)
             dev = tree_mod.leaves(delta)[0].device
             if kind == "ef":
                 term = tree_mod.tree_map(
-                    lambda t0, e: (t0.to(dev) - e.sum(dim=dim)) / (k * lr),
-                    term0, getattr(state.comm, "resid" + level[-1]))
+                    lambda t0, e: (t0.to(dev) - e) / (k * lr), term0,
+                    red.sum(getattr(state.comm, "resid" + level[-1]), dim,
+                            axes))
             else:
                 term = tree_mod.tree_map(lambda t0: t0.to(dev), term0)
-            moved = tree_mod.tree_map(
-                lambda d, s0: d.sum(dim=dim) - s0.to(dev), delta, sum0)
-            max_d = max(max_d0, _tmax(delta))
+            moved = tree_mod.tree_map(lambda d, s0: d - s0.to(dev),
+                                      red.sum(delta, dim, axes), sum0)
+            max_d = max(max_d0, red.max(delta))
             limit = (1e-4 * max_d + 2 * n * float(np.spacing(np.float32(
                 max_p))) / (k * lr))
             out.append({"step": t, "level": level, "kind": kind,
-                        "term": _tmax(term),
-                        "off": _tmax(tree_mod.tree_map(torch.sub, moved,
-                                                       term)),
+                        "term": red.max(term),
+                        "off": red.max(tree_mod.tree_map(torch.sub, moved,
+                                                         term)),
                         "limit": limit})
         return out
     return after
 
 
-def profiled_round(bundle, state, toks, labels, device):
+def profiled_round(bundle, state, toks, labels, device, say=print):
     """One round under torch.profiler: prints the operations with the most
     device time and the round's device-busy share (device time summed over
     operations / the round's wall time, the round ending in a sync)."""
@@ -639,12 +873,12 @@ def profiled_round(bundle, state, toks, labels, device):
     busy_ms = sum(e.self_device_time_total for e in ops
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
-    print(ops.table(sort_by="self_device_time_total", row_limit=15,
-                    max_name_column_width=50))
+    say(ops.table(sort_by="self_device_time_total", row_limit=15,
+                  max_name_column_width=50))
     busy = (f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)"
             if device.type == "cuda" else "no device traced on the CPU")
-    print(f"profile: round of {len(toks)} steps, wall {wall_ms:.1f} ms "
-          f"(profiler on), {busy}")
+    say(f"profile: round of {len(toks)} steps, wall {wall_ms:.1f} ms "
+        f"(profiler on), {busy}")
     return state, losses
 
 

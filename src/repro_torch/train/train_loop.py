@@ -36,6 +36,15 @@ The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
 
+On a mesh (``mesh=``, ``launch.mesh.WorkerMesh``; the reference's
+``mesh``/``worker_axes``) the engine holds this rank's block of the
+workers, ``grads_fn`` runs only those, and the reported loss is the global
+worker mean, through all-reduces counted apart from the model-state ones:
+``round_step`` reduces its (k,) losses once, after the round's sync (so
+no scalar joins the queue behind an overlapped mean in flight), the
+per-step functions one scalar each.  The per-leaf executor stays
+single-process and is refused on a mesh.
+
 Backend selection: ``vrl_cfg.update_backend``, resolved for the device by
 ``core.engine.resolve_backend``.  "auto"/"fused" (and "xla" on the CPU)
 build the flat-buffer engine above; "reference" runs the per-leaf
@@ -151,9 +160,11 @@ def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
 
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                     device: torch.device | str = "cuda",
-                    timed: bool = False) -> StepBundle:
+                    timed: bool = False, mesh=None,
+                    worker_axes=("data",)) -> StepBundle:
     """``timed`` records CUDA-event spans around the forward/backward and
-    the update of every step (``StepBundle.timer``); CUDA only."""
+    the update of every step (``StepBundle.timer``); CUDA only.
+    ``mesh``/``worker_axes`` go to ``core.engine.make_engine``."""
     device = torch.device(device)
     timer = PhaseTimer() if timed else None
 
@@ -165,10 +176,16 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return cross_entropy_lm(logits, labels)
 
     if engine_mod.resolve_backend(vrl_cfg, device) == "reference":
+        if mesh is not None:
+            raise ValueError(
+                "update_backend='reference' (the per-leaf executor) is "
+                "single-process: on a mesh every rank would run all W "
+                "workers; use 'auto' or 'fused' with a mesh")
         return _reference_bundle(model_cfg, vrl_cfg, device, timer, span,
                                  loss_fn)
     template = abstract(transformer.model_defs(model_cfg))
-    eng = engine_mod.make_engine(vrl_cfg, template, device=device)
+    eng = engine_mod.make_engine(vrl_cfg, template, device=device, mesh=mesh,
+                                 worker_axes=tuple(worker_axes))
     spec = eng.spec
     gbuf: dict = {}             # params shape -> the reused gradient buffer
 
@@ -176,10 +193,19 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         """The last step's gradient buffer (dead once the step is done)."""
         return gbuf.get(tuple(state.params.shape))
 
-    def grads_fn(state, tokens, labels):
+    def mean_loss(local: torch.Tensor) -> torch.Tensor:
+        """(..., w) losses of this rank's workers -> (...) worker means (on
+        a mesh over every rank's: one all-reduce of the local sums)."""
+        if mesh is None:
+            return local.mean(dim=-1)
+        total = local.sum(dim=-1)
+        mesh.all_reduce(total, eng.worker_axes, kind="scalar")
+        return total / (local.shape[-1] * mesh.size(eng.worker_axes))
+
+    def local_grads(state, tokens, labels):
         """Per-worker loss and gradients -> (gradient buffer shaped like
         ``state.params``: (W, R, C), or (P, D, R, C) for the hierarchy;
-        mean loss over workers)."""
+        the (w,) losses of this rank's workers)."""
         buf = dead_grads(state)
         if buf is None:
             # pad tail stays zero: gradients only ever fill the leaf spans
@@ -192,14 +218,24 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         losses = [_worker_grads(loss_fn, vrl_cfg.clip_norm, ptree, gtree,
                                 (i,), tokens[i], labels[i])
                   for i in range(w)]
-        return buf, torch.stack(losses).mean()
+        return buf, torch.stack(losses)
 
-    def local_step(state, tokens, labels):
+    def grads_fn(state, tokens, labels):
+        """``local_grads`` with the losses' worker mean."""
+        buf, losses = local_grads(state, tokens, labels)
+        return buf, mean_loss(losses)
+
+    def step(state, tokens, labels):
+        """One local step -> (state, this rank's (w,) worker losses)."""
         with span("fwd_bwd"):
-            g, loss = grads_fn(state, tokens, labels)
+            g, losses = local_grads(state, tokens, labels)
         with span("local"):
             state = eng.local_step(state, g)
-        return state, loss
+        return state, losses
+
+    def local_step(state, tokens, labels):
+        state, losses = step(state, tokens, labels)
+        return state, mean_loss(losses)
 
     # the last step's gradients are dead at a sync: a compressed sync
     # writes its decompressed payload over them instead of a new buffer
@@ -221,7 +257,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                 xbar = eng.round_begin(state, len(tokens_k))
         losses = []
         for tokens, labels in zip(tokens_k, labels_k):
-            state, loss = local_step(state, tokens, labels)
+            state, loss = step(state, tokens, labels)
             losses.append(loss)
         if overlap:
             with span("fold"):
@@ -229,7 +265,9 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         else:
             with span("sync"):
                 state = eng.round_end(state, out=dead_grads(state))
-        return state, torch.stack(losses)
+        if mesh is None:
+            return state, torch.stack([x.mean() for x in losses])
+        return state, mean_loss(torch.stack(losses))
 
     def init_state(seed: int, num_workers: int):
         params = transformer.init_params(model_cfg, seed, device=device)
