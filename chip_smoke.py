@@ -381,7 +381,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      started at the phase's start).  The CPU's losses are not held: at
      the smoke width the reference's init makes attention near one-hot,
      and card and CPU GEMMs part by ~3e-3 in the first loss, before any
-     update (printed).
+     update (printed, with the step wall of the two ranks beside the
+     one-process run's and the CPU ranks').
    Each path fails where a rank exits non-zero or runs another backend or
    device; any loss is non-finite or the ranks' differ; rank 0's logged
    losses (per step and the averaged model's) stand more than
@@ -3944,8 +3945,15 @@ def mesh_card_paths(refs, z4_cpu) -> None:
     # one-hot) parts the two GEMM orders before any update, so the card is
     # held to its own one-process run, the CPU only to the misses
     first = ranks[0]["losses"][0] / cpu[0]["losses"][0] - 1
+    # the step wall (round_step only) beside the same flags as one process
+    # on the card and the two ranks on the CPU
+    walls = [1e3 * r["wall_s"] / len(r["losses"]) for r in ranks]
     print(f"[7 mesh (z4)] misses {ranks[0]['misses']} as the CPU ranks "
-          f"draw them; step-1 loss card / CPU − 1 = {first:.3e} (not held)",
+          f"draw them; step-1 loss card / CPU − 1 = {first:.3e} (not held); "
+          f"step wall ms: gloo world 2 on the card "
+          f"{', '.join('%.1f' % w for w in walls)} (ranks), one process on "
+          f"the card {1e3 * one.wall_s / len(one.losses):.1f}, gloo world 2 "
+          f"on the CPU {1e3 * cpu[0]['wall_s'] / len(cpu[0]['losses']):.1f}",
           flush=True)
 
 

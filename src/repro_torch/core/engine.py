@@ -14,12 +14,12 @@ The kernels update the buffers in place.
 
 On one device the worker axis is the leading buffer dimension, and the
 worker mean is a ``torch.mean`` over it.  On a mesh (``mesh=``, a
-``launch.mesh.WorkerMesh`` over ``torch.distributed`` ranks) each rank
-holds its block of the workers, and every worker mean is the reference's
-on-mesh form: a local sum, one counted ``all_reduce(SUM)`` over the
-worker axes' group, then ÷ the global count — the round's one
-all-reduce, none in the local steps (S-SGD: one per step, its gradient
-mean).
+``comm.collectives.WorkerMesh`` over ``torch.distributed`` ranks) each
+rank holds its block of the workers, and every worker mean is the
+reference's on-mesh form (``comm.collectives.worker_mean``): a local sum,
+one counted ``all_reduce(SUM)`` over the worker axes' group, then ÷ the
+global count — the round's one all-reduce, none in the local steps
+(S-SGD: one per step, its gradient mean).
 
 Compressed sync (``cfg.compress``, ``comm/compressors``): every sync
 first runs one fused EF round trip over the payload's drift against the
@@ -75,6 +75,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import collectives as coll
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs.base import HierConfig, VRLConfig
 from repro_torch.core import deadline as deadline_mod
@@ -222,16 +223,22 @@ def should_sync(spec: AlgoSpec, cfg: VRLConfig, step: int,
     return (step - last_sync) >= k
 
 
-def sum_invariant(buf: Any, dim: int = 0) -> Tuple[float, float]:
+def sum_invariant(buf: Any, dim: int = 0, mesh=None,
+                  axes: Tuple[str, ...] = coll.AXES) -> Tuple[float, float]:
     """(max|Σ_i buf_i|, max|buf|) over the worker axis ``dim``: the paper's
     invariant Σ_i Δ_i = 0 after every sync (and BVR's Σ_i B_i = 0; the
     hierarchy's Σ_d Δ1 = 0 within every pod with ``dim=1``, Σ_p Δ2 = 0),
     and the scale its fp32 rounding residue is relative to.  ``buf``: a
     flat buffer or a per-leaf tree (the maxima over its leaves).  Reads
-    the state once per value (host sync)."""
+    the state once per value (host sync).  On a ``mesh`` the sum also
+    runs over the ranks of ``axes`` (the ones ``dim`` spans) and the
+    maxima over every rank, all counted "eval"."""
     leaves = tree_mod.leaves(buf)
-    return (max(x.sum(dim=dim).abs().max().item() for x in leaves),
-            max(x.abs().max().item() for x in leaves))
+    return (coll.global_reduce(mesh, max(
+                coll.worker_sum(mesh, x, dim, axes).abs().max().item()
+                for x in leaves)),
+            coll.global_reduce(mesh, max(x.abs().max().item()
+                                         for x in leaves)))
 
 
 def _ef_op(comp: comm_mod.CompressorSpec, lanes: int, *,
@@ -275,36 +282,6 @@ def _misses(cfg: VRLConfig, axis_index: tuple = ()) -> Callable:
     ``axis_index``: this rank's mesh indices, folded into the draw."""
     return functools.partial(deadline_mod.miss_mask, deadline=cfg.deadline,
                              axis_index=tuple(axis_index))
-
-
-class _PendingMean(NamedTuple):
-    """A worker mean whose all-reduce was issued with ``async_op=True``:
-    the local sum it reduces in place, the work handle and the global
-    count.  ``result()`` waits, then divides."""
-
-    total: torch.Tensor
-    work: Any
-    count: int
-
-    def result(self) -> torch.Tensor:
-        self.work.wait()
-        return self.total.div_(self.count)
-
-
-def _mesh_mean(mesh, buf: torch.Tensor, dim, axes, count: int, *,
-               keepdim: bool = False, kind: str = "state",
-               async_op: bool = False):
-    """The mean of ``buf`` over its local worker dims ``dim`` and the ranks
-    of ``axes``: a local sum, one all-reduce, ÷ ``count`` (the workers it
-    covers in all); a ``_PendingMean`` when ``async_op``."""
-    s = buf.sum(dim=dim, keepdim=keepdim)
-    work = mesh.all_reduce(s, axes, kind=kind, async_op=async_op)
-    return _PendingMean(s, work, count) if async_op else s.div_(count)
-
-
-def _resolve(mean: Any) -> Any:
-    """A round_begin mean, waited for when its all-reduce is in flight."""
-    return mean.result() if isinstance(mean, _PendingMean) else mean
 
 
 def _check_mesh(cfg: VRLConfig, mesh) -> None:
@@ -827,23 +804,22 @@ class Engine(NamedTuple):
     sync2: Any = None           # hier only: (state, out=None) -> state,
                                 # cross-pod
     grid: Any = None            # hier only: (P, D)
-    mesh: Any = None            # the WorkerMesh the worker means run over
-    worker_axes: Any = None     # the mesh axes the workers span (with mesh)
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
-                device: Optional[torch.device] = None, mesh=None,
-                worker_axes: Tuple[str, ...] = ("data",)) -> Engine:
+                device: Optional[torch.device] = None,
+                mesh=None) -> Engine:
     """Build the flat-buffer engine for ``cfg.algorithm`` over ``template``
     (a single-model tree of meta tensors, tensors or ``(shape, dtype)``
     pairs).  ``device`` places the state; default: where ``init``'s
     parameters lie.
 
-    ``mesh``: a ``launch.mesh.WorkerMesh``.  The flat algorithms spread
-    their W workers over the ranks of ``worker_axes`` (which must span
-    every rank), the hierarchy its (P, D) grid over the mesh's (pod, data)
-    rank grid; ``init`` returns this rank's block and every worker mean is
-    a counted all-reduce (even on one rank).  Without a mesh nothing is
+    ``mesh``: a ``comm.collectives.WorkerMesh``.  The flat algorithms
+    spread their W workers over every rank of its (pod, data) rank grid
+    (the reference's ``worker_axes=("pod", "data")``, as its
+    ``--mesh-grid`` passes), the hierarchy its (P, D) grid over the same
+    axes; ``init`` returns this rank's block and every worker mean is a
+    counted all-reduce (even on one rank).  Without a mesh nothing is
     communicated."""
     algo = get_spec(cfg.algorithm)
     if cfg.membership:
@@ -869,29 +845,20 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                                  kind=kind, beta=beta, mdt=mdt, sm3=sm3,
                                  mesh=mesh)
     _validate_overlap(cfg, algo, comp)
-    axes, world = None, 1
-    if mesh is not None:
-        axes = tuple(worker_axes)
-        world = mesh.size(axes)
-        if world != mesh.size(mesh.axes):
-            raise ValueError(
-                f"worker axes {axes} span {world} of the mesh's "
-                f"{mesh.size(mesh.axes)} ranks: a flat algorithm spreads its "
-                f"workers over every rank")
+    world = 1 if mesh is None else mesh.size()
     # the reference folds the axis indices in only where the worker axes
     # span more than one device
-    misses = _misses(cfg, mesh.index(axes) if world > 1 else ())
+    misses = _misses(cfg, mesh.index() if world > 1 else ())
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
 
-    def _wmean(buf: torch.Tensor, kind: str = "state") -> torch.Tensor:
+    def _wmean(buf: torch.Tensor, kind: str = "state",
+               async_op: bool = False):
         """Worker mean of a (W, R, C) buffer -> (R, C): on one device a
         reduction over dim 0; on a mesh the local sum, one all-reduce
         (counted under ``kind``) and ÷ W."""
-        if mesh is None:
-            return buf.mean(dim=0)
-        return _mesh_mean(mesh, buf, 0, axes, buf.shape[0] * world,
-                          kind=kind)
+        return coll.worker_mean(mesh, buf, 0, coll.AXES, kind=kind,
+                                async_op=async_op)
 
     def _gbuf(grads: Any) -> torch.Tensor:
         if isinstance(grads, torch.Tensor):
@@ -1045,11 +1012,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         mean that ``round_fold`` waits for).  ``k`` (the round's length) is
         unused here; the hierarchy's twin needs it for the k2 cadence."""
         del k
-        pend = state.overlap.pend
-        if mesh is None:
-            return _wmean(pend)
-        return _mesh_mean(mesh, pend, 0, axes, pend.shape[0] * world,
-                          async_op=True)
+        return _wmean(state.overlap.pend, async_op=True)
 
     def round_fold(state: FlatWorkerState, xbar: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> FlatWorkerState:
@@ -1060,7 +1023,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         folded parameters' drift against x̂_stale.  A worker that misses
         its deadline keeps its pend (and parks dec in its residual).
         ``out``: a dead (W, R, C) fp32 buffer for dec under a deadline."""
-        xbar = _resolve(xbar)
+        xbar = coll.resolve(xbar)
         ov = state.overlap
         p = state.params
         k_eff = max(state.step - state.last_sync, 1)
@@ -1123,8 +1086,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp, comp2),
-                  misses=misses if cfg.overlap else None,
-                  mesh=mesh, worker_axes=axes)
+                  misses=misses if cfg.overlap else None)
 
 
 # ============================================== hierarchical executor ("vrl2")
@@ -1168,16 +1130,12 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     def _pod_mean(buf: torch.Tensor) -> torch.Tensor:
         """(P, D, R, C) -> (P, 1, R, C): THE intra-pod all-reduce.  With one
         pod it reduces exactly as the flat engine's worker mean does."""
-        if mesh is None:
-            return buf.mean(dim=1, keepdim=True)
-        return _mesh_mean(mesh, buf, 1, ("data",), d_total, keepdim=True)
+        return coll.worker_mean(mesh, buf, 1, ("data",), keepdim=True)
 
     def _cross_mean(pod_avg: torch.Tensor, async_op: bool = False):
         """(P, 1, R, C) pod averages -> (R, C): THE cross-pod all-reduce."""
-        if mesh is None:
-            return pod_avg.mean(dim=(0, 1))
-        return _mesh_mean(mesh, pod_avg, (0, 1), ("pod",), p_total,
-                          async_op=async_op)
+        return coll.worker_mean(mesh, pod_avg, (0, 1), ("pod",),
+                                async_op=async_op)
 
     def _kg(k_eff: int, dev: torch.device) -> torch.Tensor:
         """k_eff·γ as an fp32 product made on the device (no host sync)."""
@@ -1354,7 +1312,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         asynchronously, a pending mean); None otherwise (the fold then has
         nothing to read, and nothing is allocated)."""
         _check_round()
-        return (_cross_mean(state.overlap.pend, async_op=mesh is not None)
+        return (_cross_mean(state.overlap.pend, async_op=True)
                 if level2_due(state, k) else None)
 
     def _fold2(state: HierFlatState, glob: torch.Tensor,
@@ -1406,7 +1364,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             raise ValueError(
                 "round_fold: the k2 cadence is due but round_begin took no "
                 "cross-pod mean (it was given another round length)")
-        return _fold2(state, _resolve(glob), out)
+        return _fold2(state, coll.resolve(glob), out)
 
     def round_step(state: HierFlatState, grads_k: Any) -> HierFlatState:
         """One k1 round over a (k1, P, D, R, C) grads buffer or a grads tree
@@ -1426,11 +1384,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
 
     def avg_model(state: HierFlatState) -> Any:
         """x̂ over all P·D workers — the evaluation model."""
-        if mesh is None:
-            return flat.unflatten_tree(fspec, state.params.mean(dim=(0, 1)))
-        return flat.unflatten_tree(fspec, _mesh_mean(
-            mesh, state.params, (0, 1), mesh.axes, p_total * d_total,
-            kind="eval"))
+        return flat.unflatten_tree(fspec, coll.worker_mean(
+            mesh, state.params, (0, 1), coll.AXES, kind="eval"))
 
     return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
                   train_step=train_step, local_step=local_step, sync=sync,
@@ -1442,5 +1397,4 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp1, comp2),
                   misses=misses if cfg.overlap else None,
-                  sync1=sync1, sync2=sync2, grid=(p_total, d_total),
-                  mesh=mesh, worker_axes=None if mesh is None else mesh.axes)
+                  sync1=sync1, sync2=sync2, grid=(p_total, d_total))

@@ -1,52 +1,22 @@
 """Worker meshes over ``torch.distributed`` (``repro.launch.mesh``
-``make_engine_mesh``).
-
-A ``WorkerMesh`` takes the place of the reference's JAX ``Mesh`` over the
-engine's worker axes: the ranks of the default process group laid out
-pod-major over a ("pod", "data") rank grid, each holding one contiguous
-block of the worker grid, with a process group over both axes and one
-per axis.  The engine's worker means become a local sum, one
-``all_reduce(SUM)`` over the right group and a division by the global
-count — the reference's on-mesh ``psum(sum) / total``.
+``make_engine_mesh``): the rank grid and its process groups.
 
 The rank grid (``rank_grid``): flat, (1, world) with W % world == 0;
 hierarchical over a (P, D) worker grid, d_r = gcd(D, world) ranks along
 the data axis and p_r = world / d_r along the pod axis, so that ranks fill
 the data axis first (P % p_r == 0).  Each rank holds W / world workers
-((P / p_r, D / d_r) for the hierarchy).
-
-Every collective goes through ``WorkerMesh.all_reduce``, which counts its
-calls, bytes and asynchronous issues per kind and group in ``COUNTS``:
-"state" for the engine's model-state means (the round's communication),
-"scalar" for the reported loss, "eval" for the log's reductions outside
-the round (the averaged model, the Σ Δ invariants) and "setup" for the
-launch's banner.
+((P / p_r, D / d_r) for the hierarchy).  ``make_engine_mesh`` returns the
+``comm.collectives.WorkerMesh`` the engine's worker means run over.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
-AXES = ("pod", "data")
-# kind -> group label -> {"calls", "bytes", "async"}
-COUNTS: Dict[str, Dict[str, Dict[str, int]]] = {}
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-
-
-def canonical(axes: Sequence[str]) -> Tuple[str, ...]:
-    """The worker axes in mesh order; an unknown name is refused."""
-    bad = [a for a in axes if a not in AXES]
-    if bad or not axes:
-        raise ValueError(f"worker axes {tuple(axes)}: the mesh's axes are "
-                         f"{AXES}")
-    return tuple(a for a in AXES if a in axes)
+from repro_torch.comm.collectives import AXES, WorkerMesh
 
 
 def rank_grid(workers: int, world: int, pods: int = 0) -> Tuple[int, int]:
@@ -75,58 +45,18 @@ def rank_grid(workers: int, world: int, pods: int = 0) -> Tuple[int, int]:
     return p_r, d_r
 
 
-class WorkerMesh:
-    """This rank's place in the rank grid and the groups over its axes.
-
-    ``shape``: (p_r, d_r) ranks along ("pod", "data"); ``coords``: this
-    rank's (pod, data) index, rank = pod · d_r + data; ``groups``: the
-    process group of each axis subset (``canonical`` order)."""
-
-    axes = AXES
-
-    def __init__(self, shape: Tuple[int, int], rank: int,
-                 groups: Dict[Tuple[str, ...], object]):
-        self.shape = tuple(shape)
-        self.rank = rank
-        self.coords = divmod(rank, shape[1])
-        self.groups = groups
-
-    def size(self, axes: Sequence[str]) -> int:
-        """Ranks along ``axes``."""
-        return math.prod(self.shape[AXES.index(a)] for a in canonical(axes))
-
-    def index(self, axes: Sequence[str]) -> Tuple[int, ...]:
-        """This rank's index on each of ``axes``, in the order given."""
-        canonical(axes)
-        return tuple(self.coords[AXES.index(a)] for a in axes)
-
-    def all_reduce(self, tensor: torch.Tensor, axes: Sequence[str], *,
-                   kind: str = "state", op=None, async_op: bool = False):
-        """``dist.all_reduce`` of ``tensor`` in place over the group of
-        ``axes`` (``op`` default SUM), counted under ``kind``; returns the
-        work handle when ``async_op``."""
-        axes = canonical(axes)
-        label = "+".join(axes)
-        rec = COUNTS.setdefault(kind, {}).setdefault(
-            label, {"calls": 0, "bytes": 0, "async": 0})
-        rec["calls"] += 1
-        rec["bytes"] += tensor.numel() * tensor.element_size()
-        rec["async"] += int(async_op)
-        return dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None
-                               else op, group=self.groups[axes],
-                               async_op=async_op)
-
-    def local_workers(self, workers: int, pods: int = 0) -> np.ndarray:
-        """The global indices (pod-major for the hierarchy) of this rank's
-        workers, in the order of its local buffers."""
-        pi, di = self.coords
-        if not pods:
-            w = workers // (self.shape[0] * self.shape[1])
-            return np.arange(self.rank * w, (self.rank + 1) * w)
-        d = workers // pods
-        pl, dl = pods // self.shape[0], d // self.shape[1]
-        grid = np.arange(workers).reshape(pods, d)
-        return grid[pi * pl:(pi + 1) * pl, di * dl:(di + 1) * dl].ravel()
+def local_workers(mesh: WorkerMesh, workers: int,
+                  pods: int = 0) -> np.ndarray:
+    """The global indices (pod-major for the hierarchy) of this rank's
+    workers, in the order of its local buffers."""
+    pi, di = mesh.coords
+    if not pods:
+        w = workers // mesh.size()
+        return np.arange(mesh.rank * w, (mesh.rank + 1) * w)
+    d = workers // pods
+    pl, dl = pods // mesh.shape[0], d // mesh.shape[1]
+    grid = np.arange(workers).reshape(pods, d)
+    return grid[pi * pl:(pi + 1) * pl, di * dl:(di + 1) * dl].ravel()
 
 
 def make_engine_mesh(workers: int, *, pods: int = 0) -> WorkerMesh:

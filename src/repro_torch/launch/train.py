@@ -103,6 +103,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import collectives as coll
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, HierConfig, VRLConfig
@@ -145,7 +146,7 @@ class TrainResult(NamedTuple):
     phases_ms: dict             # CUDA only: {phase: [ms per span]}
     round_peak_bytes: int       # CUDA only: most device memory allocated
                                 # during a round (0 on the CPU)
-    collectives: Any = None     # --mesh-grid: this rank's mesh_mod.COUNTS
+    collectives: Any = None     # --mesh-grid: this rank's coll.COUNTS
     rank: int = 0               # --mesh-grid: this process's rank
 
 
@@ -342,71 +343,18 @@ def _quiet(*args, **kwargs) -> None:
     """The log of a rank other than 0."""
 
 
-def _mesh_device() -> torch.device:
-    """Where the mesh's collectives take their tensors: the card under
-    NCCL, the host under gloo."""
-    return (torch.device("cuda", torch.cuda.current_device())
-            if dist.get_backend() == "nccl" else torch.device("cpu"))
-
-
-class WorkerSums:
-    """The log's reductions over the workers (never inside a round): a
-    local sum over a buffer's worker dims and, on a mesh, one all-reduce
-    over the axes those dims span (counted "eval"); maxima and minima over
-    every rank.  Without a mesh they are the plain reductions."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-
-    def _all(self, x: torch.Tensor, axes=None, op=None) -> torch.Tensor:
-        if self.mesh is not None:
-            self.mesh.all_reduce(x, axes or self.mesh.axes, kind="eval",
-                                 op=op)
-        return x
-
-    def sum(self, buf, dim, axes=None):
-        """Σ over ``dim`` of a buffer or of every leaf of a tree."""
-        return tree_mod.tree_map(lambda x: self._all(x.sum(dim=dim), axes),
-                                 buf)
-
-    def mean(self, buf: torch.Tensor, dim, axes, count: int):
-        if self.mesh is None:
-            return buf.mean(dim=dim)
-        return self._all(buf.sum(dim=dim), axes).div_(count)
-
-    def max(self, buf) -> float:
-        """max|x| over a buffer or every leaf of a tree (read without an
-        |x| temporary)."""
-        leaves = tree_mod.leaves(buf)
-        m = max(torch.linalg.vector_norm(x, float("inf")).item()
-                for x in leaves)
-        if self.mesh is None:
-            return m
-        return self._all(torch.tensor(m, device=leaves[0].device),
-                         op=dist.ReduceOp.MAX).item()
-
-    def min(self, x: torch.Tensor) -> float:
-        m = x.min()
-        return (m if self.mesh is None else
-                self._all(m, op=dist.ReduceOp.MIN)).item()
-
-    def invariant(self, buf, dim: int, axes) -> tuple:
-        """(max|Σ over ``dim``|, max|buf|): ``engine.sum_invariant``."""
-        if self.mesh is None:
-            return engine_mod.sum_invariant(buf, dim=dim)
-        return self.max(self.sum(buf, dim, axes)), self.max(buf)
-
-    def spread(self, local, where: Optional[np.ndarray], n: int) -> list:
-        """A per-participant vector of which this rank holds the entries
-        ``where`` (``local``; values ≥ 0, replicas equal) as the list of
-        all ``n`` (``where`` None: this rank holds all of them)."""
-        local = np.asarray(local, np.float64).ravel()
-        if where is None:
-            return local.tolist()
-        full = torch.zeros(n, dtype=torch.float64)
-        full[torch.from_numpy(where)] = torch.from_numpy(local)
-        return self._all(full.to(_mesh_device()),
-                         op=dist.ReduceOp.MAX).cpu().tolist()
+def _spread(mesh, local, where: Optional[np.ndarray], n: int) -> list:
+    """A per-participant vector of which this rank holds the entries
+    ``where`` (``local``; values ≥ 0, replicas equal) as the list of all
+    ``n`` (``where`` None: this rank holds all of them)."""
+    local = np.asarray(local, np.float64).ravel()
+    if where is None:
+        return local.tolist()
+    full = torch.zeros(n, dtype=torch.float64)
+    full[torch.from_numpy(where)] = torch.from_numpy(local)
+    full = full.to(coll.wire_device(mesh))
+    mesh.all_reduce(full, kind="eval", op=dist.ReduceOp.MAX)
+    return full.cpu().tolist()
 
 
 def _train(args: argparse.Namespace, device: torch.device,
@@ -428,7 +376,7 @@ def _train(args: argparse.Namespace, device: torch.device,
     mesh = None
     pods = hier.grid[0] if hier is not None else 0
     if backend is not None:
-        mesh_mod.reset_counts()
+        coll.reset_counts()
         try:
             mesh = mesh_mod.make_engine_mesh(args.workers, pods=pods)
         except ValueError as e:
@@ -436,8 +384,7 @@ def _train(args: argparse.Namespace, device: torch.device,
         say(mesh_banner(mesh, backend, device, args.workers, hier))
     try:
         bundle = make_train_step(cfg, vrl, device=device,
-                                 timed=device.type == "cuda", mesh=mesh,
-                                 worker_axes=mesh_mod.AXES)
+                                 timed=device.type == "cuda", mesh=mesh)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     sched = engine_mod.comm_schedule(vrl)    # explicit or the algo default
@@ -482,7 +429,8 @@ def _train(args: argparse.Namespace, device: torch.device,
                                  alpha=args.alpha,
                                  identical=args.identical, seed=args.seed)
     # every rank draws the same global data and trains its workers' slice
-    mine = None if mesh is None else mesh.local_workers(args.workers, pods)
+    mine = (None if mesh is None else
+            mesh_mod.local_workers(mesh, args.workers, pods))
 
     def tokens(a: np.ndarray, local: bool = True) -> torch.Tensor:
         """Token ids of ``a`` (..., W, batch, seq): this rank's workers'
@@ -500,7 +448,6 @@ def _train(args: argparse.Namespace, device: torch.device,
         logits = T.forward(cfg, avg, toks.reshape(-1, args.seq))
         return cross_entropy_lm(logits, labels.reshape(-1, args.seq))
 
-    red = WorkerSums(mesh)
     step_losses: list = []      # device tensors until the end of the run
     avg_losses: List[float] = []
     invariant: List[tuple] = []
@@ -517,8 +464,8 @@ def _train(args: argparse.Namespace, device: torch.device,
 
     # (field, label, worker dim, the mesh axes that dim spans, log)
     if hier is None:
-        sums = (("delta", "max|sum_i delta_i|", 0, None, invariant),
-                ("bias", "max|sum_i bias_i|", 0, None, bias_invariant))
+        sums = (("delta", "max|sum_i delta_i|", 0, coll.AXES, invariant),
+                ("bias", "max|sum_i bias_i|", 0, coll.AXES, bias_invariant))
     else:
         sums = (("delta1", "max_p max|sum_d delta1[p, d]|", 1, ("data",),
                  invariant),
@@ -531,11 +478,11 @@ def _train(args: argparse.Namespace, device: torch.device,
         hierarchy's Σ_d Δ1 = 0 within every pod and Σ_p Δ2 = 0; nothing
         for an algorithm without Δ.  Also keeps max|params|, the scale of
         the rounding of x̂ that each sync leaves in those sums."""
-        param_max.append((t, red.max(state.params)))
+        param_max.append((t, _tmax(state.params, mesh)))
         for field, label, dim, axes, log in sums:
             buf = getattr(state, field)
             if _present(buf):
-                sum_b, max_b = red.invariant(buf, dim, axes)
+                sum_b, max_b = engine_mod.sum_invariant(buf, dim, mesh, axes)
                 log.append((t, sum_b, max_b))
                 say(f"             {label} {sum_b:.3e}  max|{field}| "
                     f"{max_b:.3e}")
@@ -546,11 +493,11 @@ def _train(args: argparse.Namespace, device: torch.device,
         sum_d0, sum_e0 = before
         term = tree_mod.tree_map(
             lambda e0, e: (e0 - e) / (rk * args.lr), sum_e0,
-            red.sum(state.comm.resid, 0))
-        moved = tree_mod.tree_map(torch.sub, red.sum(state.delta, 0),
+            _tsum(state.comm.resid, 0, mesh))
+        moved = tree_mod.tree_map(torch.sub, _tsum(state.delta, 0, mesh),
                                   sum_d0)
-        ef_t = red.max(term)
-        resid = red.max(tree_mod.tree_map(torch.sub, moved, term))
+        ef_t = _tmax(term, mesh)
+        resid = _tmax(tree_mod.tree_map(torch.sub, moved, term), mesh)
         ef_identity.append((t, ef_t, resid))
         say(f"             EF term max|sum_i (e_i - e'_i)|/(k lr) "
             f"{ef_t:.3e}  max|sum-delta move - EF term| {resid:.3e}")
@@ -566,8 +513,8 @@ def _train(args: argparse.Namespace, device: torch.device,
         elif mine is not None:
             pi = mesh.coords[0]
             where, n = np.arange(pi * n_loc, (pi + 1) * n_loc), pods
-        mask = red.spread(eng.misses(t, n_loc), where, n)
-        pend_k = red.spread(ov.pend_k.flatten().cpu().numpy(), where, n)
+        mask = _spread(mesh, eng.misses(t, n_loc), where, n)
+        pend_k = _spread(mesh, ov.pend_k.flatten().cpu().numpy(), where, n)
         misses.append((t, mask, pend_k))
         say(f"deadline: fold at step {t}: misses {mask}, pend_k {pend_k}")
     warm_first = (sched is None and args.warmup
@@ -614,10 +561,11 @@ def _train(args: argparse.Namespace, device: torch.device,
         labels = torch.roll(toks, -1, dims=-1)
         logged = ((r + 1) % args.log_every == 0 or r == 0
                   or t + rk >= args.steps)
-        before = ((red.sum(state.delta, 0), red.sum(state.comm.resid, 0))
+        before = ((_tsum(state.delta, 0, mesh),
+                   _tsum(state.comm.resid, 0, mesh))
                   if ef_log and logged else None)
         watch = (level_watch(comps, hier, state, rk, args.lr,
-                             args.deadline, red)
+                             args.deadline, mesh)
                  if hier is not None and logged else None)
         if cuda:
             # the round's own peak: the checks between rounds make
@@ -667,7 +615,7 @@ def _train(args: argparse.Namespace, device: torch.device,
     if mesh is None:
         say(f"kernels: {json.dumps(vrl_update.LAUNCHES)}")
     else:
-        counts = json.loads(json.dumps(mesh_mod.COUNTS))
+        counts = json.loads(json.dumps(coll.COUNTS))
         # every rank's own last line: its wall, peak and spans beside its
         # launches and collectives
         print(f"[rank {mesh.rank}] {device}, {backend}: step wall "
@@ -697,7 +645,7 @@ def mesh_banner(mesh, backend: str, device: torch.device, workers: int,
     """The backend, the rank grid, each rank's block and device (one
     "setup" all-reduce of the device indices)."""
     ids = torch.zeros(mesh.size(mesh.axes), dtype=torch.int64,
-                      device=_mesh_device())
+                      device=coll.wire_device(mesh))
     ids[mesh.rank] = -1 if device.type == "cpu" else device.index
     mesh.all_reduce(ids, mesh.axes, kind="setup")
     devs = {r: "cpu" if i < 0 else f"cuda:{i}"
@@ -738,6 +686,21 @@ def _present(buf) -> bool:
     return isinstance(buf, (torch.Tensor, dict))
 
 
+def _tsum(buf, dim, mesh=None, axes=coll.AXES):
+    """Σ over a worker axis of a buffer, or of every leaf of a tree (on a
+    mesh also over the ranks of ``axes``, counted "eval")."""
+    return tree_mod.tree_map(
+        lambda x: coll.worker_sum(mesh, x, dim, axes), buf)
+
+
+def _tmax(buf, mesh=None) -> float:
+    """max|x| over a buffer or over every leaf of a tree (read without an
+    |x| temporary), on a mesh over every rank."""
+    return coll.global_reduce(mesh, max(
+        torch.linalg.vector_norm(x, float("inf")).item()
+        for x in tree_mod.leaves(buf)))
+
+
 def state_folded(state, t: int) -> bool:
     """True when the round that ended at step ``t`` closed with an
     overlapped fold (flat: every round; hier: on the k2 cadence)."""
@@ -775,7 +738,7 @@ def wire_banner(pair, es, state) -> str:
 
 
 def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
-                deadline: float, red: WorkerSums):
+                deadline: float, mesh=None):
     """Before a logged hier round: for each level whose Δ sum the round's
     syncs move by a known term, the sums it starts from (on the host, out
     of the round's peak memory); returns what reads the round after it.
@@ -786,8 +749,8 @@ def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
     at an overlapped fold under a deadline by Σ_p c_p/(pend_k_p γ) (the
     pods' pend_k differ once one misses).  Each move is held to 1e-4 ·
     max|Δ| plus the fp32 rounding of the mean, 2 n ulp(max|p|)/(k γ).
-    ``red`` takes the sums over the workers (on a mesh: Σ_d over the data
-    axis, Σ_p over the pod axis)."""
+    On a ``mesh`` each sum over the workers is an all-reduce too (Σ_d over
+    the data axis, Σ_p over the pod axis)."""
     c1, c2 = comps
     pods, dper = hcfg.grid
     step2 = state.step + rk - state.last_sync2
@@ -808,40 +771,43 @@ def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
             # the level's residual: resid1 for Δ1, resid2 for Δ2
             term0 = tree_mod.tree_map(
                 lambda x: x.cpu(),
-                red.sum(getattr(state.comm, "resid" + level[-1]), dim, axes))
+                _tsum(getattr(state.comm, "resid" + level[-1]), dim, mesh,
+                      axes))
         else:
             ov = overlap
             inv = torch.reciprocal(ov.pend_k[:, 0, :, 0] * lr)
-            glob = red.mean(ov.pend, (0, 1), axes, pods)
-            term0 = red.sum((glob - ov.pend) * inv[:, :, None, None],
-                            (0, 1), axes).cpu()
-            k = red.min(ov.pend_k)
+            glob = coll.worker_mean(mesh, ov.pend, (0, 1), axes,
+                                    kind="eval")
+            term0 = _tsum((glob - ov.pend) * inv[:, :, None, None], (0, 1),
+                          mesh, axes).cpu()
+            k = coll.global_reduce(mesh, ov.pend_k.min().item(),
+                                   dist.ReduceOp.MIN)
         starts.append((level, dim, axes, kind, n, k, tree_mod.tree_map(
-            lambda x: x.cpu(), red.sum(delta, dim, axes)), term0,
-            red.max(delta)))
-    max_p0 = red.max(state.params)
+            lambda x: x.cpu(), _tsum(delta, dim, mesh, axes)), term0,
+            _tmax(delta, mesh)))
+    max_p0 = _tmax(state.params, mesh)
 
     def after(state, t):
         out = []
-        max_p = max(max_p0, red.max(state.params))
+        max_p = max(max_p0, _tmax(state.params, mesh))
         for level, dim, axes, kind, n, k, sum0, term0, max_d0 in starts:
             delta = getattr(state, level)
             dev = tree_mod.leaves(delta)[0].device
             if kind == "ef":
                 term = tree_mod.tree_map(
                     lambda t0, e: (t0.to(dev) - e) / (k * lr), term0,
-                    red.sum(getattr(state.comm, "resid" + level[-1]), dim,
-                            axes))
+                    _tsum(getattr(state.comm, "resid" + level[-1]), dim,
+                          mesh, axes))
             else:
                 term = tree_mod.tree_map(lambda t0: t0.to(dev), term0)
             moved = tree_mod.tree_map(lambda d, s0: d - s0.to(dev),
-                                      red.sum(delta, dim, axes), sum0)
-            max_d = max(max_d0, red.max(delta))
+                                      _tsum(delta, dim, mesh, axes), sum0)
+            max_d = max(max_d0, _tmax(delta, mesh))
             limit = (1e-4 * max_d + 2 * n * float(np.spacing(np.float32(
                 max_p))) / (k * lr))
             out.append({"step": t, "level": level, "kind": kind,
-                        "term": red.max(term),
-                        "off": red.max(tree_mod.tree_map(torch.sub, moved,
+                        "term": _tmax(term, mesh),
+                        "off": _tmax(tree_mod.tree_map(torch.sub, moved,
                                                          term)),
                         "limit": limit})
         return out

@@ -36,10 +36,11 @@ The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
 
-On a mesh (``mesh=``, ``launch.mesh.WorkerMesh``; the reference's
-``mesh``/``worker_axes``) the engine holds this rank's block of the
-workers, ``grads_fn`` runs only those, and the reported loss is the global
-worker mean, through all-reduces counted apart from the model-state ones:
+On a mesh (``mesh=``, ``comm.collectives.WorkerMesh``; the reference's
+``mesh`` with ``worker_axes=("pod", "data")``) the engine holds this
+rank's block of the workers, ``grads_fn`` runs only those, and the
+reported loss is the global worker mean, through all-reduces counted
+apart from the model-state ones:
 ``round_step`` reduces its (k,) losses once, after the round's sync (so
 no scalar joins the queue behind an overlapped mean in flight), the
 per-step functions one scalar each.  The per-leaf executor stays
@@ -64,6 +65,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import collectives as coll
 from repro_torch.comm import compressors as comm_mod
 from repro_torch.configs.base import ModelConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
@@ -160,11 +162,10 @@ def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
 
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                     device: torch.device | str = "cuda",
-                    timed: bool = False, mesh=None,
-                    worker_axes=("data",)) -> StepBundle:
+                    timed: bool = False, mesh=None) -> StepBundle:
     """``timed`` records CUDA-event spans around the forward/backward and
     the update of every step (``StepBundle.timer``); CUDA only.
-    ``mesh``/``worker_axes`` go to ``core.engine.make_engine``."""
+    ``mesh`` goes to ``core.engine.make_engine``."""
     device = torch.device(device)
     timer = PhaseTimer() if timed else None
 
@@ -184,8 +185,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return _reference_bundle(model_cfg, vrl_cfg, device, timer, span,
                                  loss_fn)
     template = abstract(transformer.model_defs(model_cfg))
-    eng = engine_mod.make_engine(vrl_cfg, template, device=device, mesh=mesh,
-                                 worker_axes=tuple(worker_axes))
+    eng = engine_mod.make_engine(vrl_cfg, template, device=device, mesh=mesh)
     spec = eng.spec
     gbuf: dict = {}             # params shape -> the reused gradient buffer
 
@@ -196,11 +196,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     def mean_loss(local: torch.Tensor) -> torch.Tensor:
         """(..., w) losses of this rank's workers -> (...) worker means (on
         a mesh over every rank's: one all-reduce of the local sums)."""
-        if mesh is None:
-            return local.mean(dim=-1)
-        total = local.sum(dim=-1)
-        mesh.all_reduce(total, eng.worker_axes, kind="scalar")
-        return total / (local.shape[-1] * mesh.size(eng.worker_axes))
+        return coll.worker_mean(mesh, local, -1, coll.AXES, kind="scalar")
 
     def local_grads(state, tokens, labels):
         """Per-worker loss and gradients -> (gradient buffer shaped like

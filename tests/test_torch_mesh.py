@@ -1,7 +1,8 @@
 """PyTorch port, the distributed worker axis vs the JAX package.
 
-The port's mesh (``launch/mesh``: a ``WorkerMesh`` over gloo ranks, each
-holding its block of the worker grid) runs every worker mean as a local
+The port's mesh (``launch/mesh``'s rank grid, ``comm/collectives``'
+``WorkerMesh`` over gloo ranks, each holding its block of the worker
+grid) runs every worker mean as a local
 sum, one all-reduce over its group and ÷ the global count.  The ranks are
 processes spawned by ``torch.multiprocessing`` over a ``file://`` store
 (``tests/torch_mesh_ranks.py``); the JAX side runs in a subprocess that
@@ -61,6 +62,7 @@ import numpy as np  # noqa: E402
 import torch.multiprocessing as tmp  # noqa: E402
 
 import torch_mesh_ranks as R  # noqa: E402
+from repro_torch.comm import collectives as coll  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.core import deadline as tdl  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
@@ -440,7 +442,7 @@ def test_rank_grid_fills_the_data_axis_first():
 def _fake_mesh(shape=(1, 2), rank=0):
     """A mesh object with no groups: enough for what is refused before any
     collective."""
-    return mesh_mod.WorkerMesh(shape, rank, {})
+    return coll.WorkerMesh(shape, rank, {})
 
 
 def test_engine_refusals_on_a_mesh():
@@ -449,15 +451,11 @@ def test_engine_refusals_on_a_mesh():
     with pytest.raises(ValueError, match="shards > 1 with a mesh"):
         teng.make_engine(R.port_cfg("vrl_sgd", engine=EngineConfig(shards=2)),
                          tpl, mesh=_fake_mesh())
-    with pytest.raises(ValueError, match="a flat algorithm spreads"):
-        teng.make_engine(R.port_cfg("vrl_sgd"), tpl, mesh=_fake_mesh((2, 1)),
-                         worker_axes=("data",))
     with pytest.raises(ValueError, match="worker axes"):
-        teng.make_engine(R.port_cfg("vrl_sgd"), tpl, mesh=_fake_mesh(),
-                         worker_axes=("model",))
+        _fake_mesh().size(("model",))
     with pytest.raises(ValueError, match="do not split over the mesh"):
-        teng.make_engine(R.port_cfg("vrl_sgd"), tpl, mesh=_fake_mesh(),
-                         worker_axes=("pod", "data")).init(R.params0(), 3)
+        teng.make_engine(R.port_cfg("vrl_sgd"), tpl,
+                         mesh=_fake_mesh((2, 1))).init(R.params0(), 3)
     with pytest.raises(ValueError, match="does not split over the mesh"):
         teng.make_engine(R.port_cfg("hier_overlap_deadline"), tpl,
                          mesh=_fake_mesh((4, 1)))

@@ -113,12 +113,11 @@ def run_case(name: str, mesh=None) -> dict:
     cfg = port_cfg(name)
     rounds = CASES[name][1]
     hier = cfg.hier is not None
-    et = teng.make_engine(cfg, template(), mesh=mesh,
-                          worker_axes=mesh_mod.AXES)
+    et = teng.make_engine(cfg, template(), mesh=mesh)
     st = et.init(params0(), W)
     spec = et.spec
     idx = (np.arange(W) if mesh is None else
-           mesh.local_workers(W, PODS if hier else 0))
+           mesh_mod.local_workers(mesh, W, PODS if hier else 0))
     local = tuple(st.params.shape[:-2])
     masks = []
     for r, k in enumerate(rounds):
@@ -201,6 +200,7 @@ def counts(rank: int, world: int, store: str, out: str) -> None:
     algorithm of the registry (local step, sync, round), stl_sgd's rounds
     at every stage, int8 and topk, the overlapped round, the hierarchy's
     syncs and overlapped round, and a train-loop round's loss."""
+    from repro_torch.comm import collectives as coll
     from repro_torch.configs import registry
     from repro_torch.core import engine as teng
     from repro_torch.core import schedule as tsched
@@ -216,8 +216,7 @@ def counts(rank: int, world: int, store: str, out: str) -> None:
            "coords": hier_mesh.coords, "algs": {}, "rounds": {}}
 
     def engine(cfg, mesh=flat_mesh):
-        et = teng.make_engine(cfg, template(), mesh=mesh,
-                              worker_axes=mesh_mod.AXES)
+        et = teng.make_engine(cfg, template(), mesh=mesh)
         return et, et.init(params0(), W)
 
     def grads(et, st, k):
@@ -278,14 +277,14 @@ def counts(rank: int, world: int, store: str, out: str) -> None:
     # a train-loop round: the model-state all-reduce and one (k,) loss
     cfg = registry.smoke_arch("qwen2-0.5b")
     bundle = make_train_step(cfg, port_cfg("vrl_sgd"), device="cpu",
-                             mesh=flat_mesh, worker_axes=mesh_mod.AXES)
+                             mesh=flat_mesh)
     st = bundle.init_state(0, W)
     toks = torch.zeros((K, st.params.shape[0], 1, 8), dtype=torch.long)
     (_, losses), rnd = _phase(log, lambda: bundle.round_step(st, toks,
                                                              toks))
     res["train_round"] = rnd
     res["train_losses"] = losses.tolist()
-    res["port_counts"] = mesh_mod.COUNTS
+    res["port_counts"] = coll.COUNTS
     torch.save(res, f"{out}.rank{rank}")
     dist.destroy_process_group()
 
