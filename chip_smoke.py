@@ -7,6 +7,7 @@
                                     # finite
   python3 chip_smoke.py --paper-cpu PATH   # phase 6's CPU runs into PATH
                                            # (the script starts it itself)
+  python3 chip_smoke.py --backbone  # phases 1, 2 and 8 alone
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -399,6 +400,45 @@ Phases (each prints a line; any failure raises and exits non-zero):
    and step wall are printed.  One card cannot show multi-card timing:
    NCCL refuses two ranks on one device, so world 2 goes through gloo.
 
+8. backbone — the dense backbone's four further architectures
+   (stablelm-3b, gemma-7b, musicgen-large, chameleon-34b); every line
+   carries the card's name and power limit:
+   - smoke (2 layers, d 128), the card against the CPU from the same
+     parameters: forward logits (atol 1e-4); the loss (rtol 1e-5) and
+     every gradient (1e-3 · max|g|) with remat off and on, through the
+     full loss and the vocab-streaming one at chunk 200 (the vocabulary,
+     512, is not a multiple); prefill logits and cache, four decode steps
+     (frame embeddings for musicgen-large); a vrl_sgd slice through
+     ``make_train_step`` (W = 2, rounds of 1, 2, 2, the kernels on the
+     card, chunked_ce 200 for the tied gemma-7b): losses rtol 1e-4,
+     params atol 1e-4, Δ atol 1e-4/(k γ).  GELU (musicgen-large) and
+     GeGLU (gemma-7b) among them.
+   - (aa) stablelm-3b (32 layers, 2,795,276,800 parameters) and (ab)
+     gemma-7b (28 layers, 8,537,680,896) through ``launch.serve --batch 4
+     --prompt-len 32 --gen 32``; (ac) musicgen-large (48 layers) at full
+     depth through ``transformer.prefill`` and ``decode_step`` over
+     seeded frame embeddings (4 × 32 prompt frames, 32 decode frames; the
+     CLIs refuse a codec architecture); (ad) chameleon-34b at full width
+     with 8 of its 48 layers (6,610,362,368 parameters; its fp32 weights
+     at full depth, 137 GB, do not fit one card) through ``serve.Engine``.
+     No kernel launched.  Each: the checks of (s) (decode against prefill
+     of the same prefix within 5e-4 · max|logit|, wq and wk × 0.1 in
+     place), prefill ms, decode ms per token (frame), the peak and the
+     weights' bytes at 3.35 TB/s.
+   - (ae) stablelm-3b at full width with 4 of 32 layers (574,773,760
+     parameters a worker), vrl_sgd + sgd, W = 4, batch 8 × seq 64, k = 2,
+     4 steps, γ = 1e-3, through ``make_train_step`` with remat off and
+     on: fused_local_sgd 4, fused_sync_vrl 2 each; the losses within 1e-6
+     relative (the difference printed), both peaks and step walls.
+   - (af) gemma-7b at full width with 2 of 28 layers (1,340,095,488
+     parameters a worker), batch 4 × seq 64, otherwise as (ae), with
+     ``chunked_ce`` 8192 (256,000 is not a multiple: the last chunk is
+     padded at full width) and 0: the first step's loss within 1e-5
+     relative; one step's gradients of the two losses from one state
+     (``grads_fn``, W = 1, worker 0's batch) per leaf within 1e-3 ·
+     max|g|; both peaks and step walls.
+   ``python3 chip_smoke.py --backbone`` runs phases 1, 2 and 8 alone.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -517,6 +557,20 @@ Z4_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "4", "--batch",
 Z4_LAUNCHES = {"fused_hier_local_sgd": 8, "fused_sync_hier1": 4,
                "fused_ef_int8_grid": 4, "fused_fold_overlap_hier2": 2,
                "fused_ef_topk": 2}
+# phase 8, the dense backbone: the four further architectures
+BACKBONE = ("stablelm-3b", "gemma-7b", "musicgen-large", "chameleon-34b")
+# the smoke checks' losses: (remat, chunked_ce); the chunk does not divide
+# the smoke vocabulary (512)
+BACKBONE_SMOKE_CHUNK = 200
+BACKBONE_LOSSES = ((False, 0), (True, 0), (False, BACKBONE_SMOKE_CHUNK),
+                   (True, BACKBONE_SMOKE_CHUNK))
+BACKBONE_SERVE = (4, 32, 32)    # (aa)-(ad): batch, prompt, generated
+CHAMELEON_LAYERS = 8            # of 48: 137 GB of fp32 weights at full depth
+STABLELM_TRAIN_LAYERS = 4       # (ae), of 32
+GEMMA_TRAIN_LAYERS = 2          # (af), of 28
+GEMMA_CHUNK = 8192              # (af)'s chunked_ce; 256,000 = 31.25 chunks
+TRAIN8_ROUNDS = (2, 2)          # k = 2, no warm-up: 4 steps
+TRAIN8_LAUNCHES = {"fused_local_sgd": 4, "fused_sync_vrl": 2}
 # paths (s) and (t): the serve CLI at full width
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
 SERVE_REL_TOL = 5e-4        # prefill vs decode, × max|logit|
@@ -1243,6 +1297,11 @@ def comm_checks(chk, p, g, d, b, xbar, shape):
                         capture=capture)
 
 
+def amax(x: torch.Tensor) -> float:
+    """max|x|, read without an |x| temporary the size of ``x``."""
+    return torch.linalg.vector_norm(x, float("inf")).item()
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1747,27 +1806,31 @@ def ef_identity_watch(state):
 
 
 def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
-               require_finite=True, after=None, watch=None):
-    """One full-width qwen2-0.5b path through ``make_train_step(timed=
-    True)`` and ``round_step``, W=4, batch 8, seq 64, on the synthetic
-    non-iid stream; the launch counters are zeroed just before the rounds
-    and read just after.  ``watch(state)``, before each round and outside
-    its timing, returns a check ``(state, k) -> record`` of the round's
-    sync.  ``after(bundle, state, vrl)`` then checks the final state and
-    returns a note.  Returns what was measured."""
+               require_finite=True, after=None, watch=None, cfg=None,
+               batch=8, seq=64, make_kw=None):
+    """One full-width path through ``make_train_step(timed=True)`` and
+    ``round_step``, W=4, on the synthetic non-iid stream: qwen2-0.5b at
+    batch 8, seq 64 unless ``cfg``, ``batch``, ``seq`` say otherwise;
+    ``make_kw``: more ``make_train_step`` arguments (remat, chunked_ce).
+    The launch counters are zeroed just before the rounds and read just
+    after.  ``watch(state)``, before each round and outside its timing,
+    returns a check ``(state, k) -> record`` of the round's sync.
+    ``after(bundle, state, vrl)`` then checks the final state and returns
+    a note.  Returns what was measured."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import VRLConfig
     from repro_torch.core import engine as engine_mod
     from repro_torch.data import assigned_token_stream, contiguous_assignment
     from repro_torch.train.train_loop import make_train_step
 
-    cfg = registry.get_arch("qwen2-0.5b")
+    cfg = registry.get_arch("qwen2-0.5b") if cfg is None else cfg
     w, steps = 4, sum(rounds)
     vrl = VRLConfig(**vrl_kw)
-    bundle = make_train_step(cfg, vrl, device=dev, timed=True)
+    bundle = make_train_step(cfg, vrl, device=dev, timed=True,
+                             **(make_kw or {}))
     state = bundle.init_state(0, w)
-    data = assigned_token_stream(contiguous_assignment(w, w), 64,
-                                 cfg.vocab_size, steps=steps, batch=8,
+    data = assigned_token_stream(contiguous_assignment(w, w), seq,
+                                 cfg.vocab_size, steps=steps, batch=batch,
                                  alpha=0.05, seed=0)
     vu.reset_launches()
     losses, wall, inv, t, watched, peak = [], 0.0, [], 0, [], 0
@@ -1776,7 +1839,7 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
         check = watch(state) if watch is not None else None
         ov = state.overlap
         # under overlap the round's fold averages pend over pend_k steps
-        before = ((ov.pend.abs().max().item(), ov.pend_k.max().item())
+        before = ((amax(ov.pend), ov.pend_k.max().item())
                   if ov != () else (0.0, rk))
         # the peak of the rounds alone: the checks between them make
         # (W, R, C) temporaries of their own
@@ -1798,7 +1861,7 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
         inv.append({name: engine_mod.sum_invariant(buf, dim=dim)
                     for name, buf, dim in bufs
                     if isinstance(buf, torch.Tensor)})
-        inv[-1]["max_p"] = max(state.params.abs().max().item(), before[0])
+        inv[-1]["max_p"] = max(amax(state.params), before[0])
         inv[-1]["k"] = before[1]
         if check is not None:
             watched.append(check(state, rk))
@@ -1810,7 +1873,8 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     phases = bundle.timer.ms()
     out = path_result(tag, losses, wall, phases, launches,
                       vrl.learning_rate, w, peak=peak, inv=inv,
-                      finite=finite, watched=watched, rounds_ms=phases)
+                      finite=finite, watched=watched, rounds_ms=phases,
+                      arch=cfg.name)
     out["note"] = after(bundle, state, vrl) if after is not None else ""
     del bundle, state
     free()
@@ -1893,16 +1957,16 @@ def wire_note(vrl_kw) -> str:
             f"{raw / 2**20:.2f} MiB ({raw / wire:.2f}x)")
 
 
-def print_path(res, extra=""):
+def print_path(res, extra="", phase="4 main path"):
     s = res["steady"]
-    print(f"[4 main path {res['tag']}] {res.get('arch', 'qwen2-0.5b')} "
+    print(f"[{phase} {res['tag']}] {res.get('arch', 'qwen2-0.5b')} "
           f"full width, W=4, "
           f"γ={res['lr']}: {len(res['losses'])} steps, launches "
           f"{res['launches']}; losses "
           f"{['%.4f' % x for x in res['losses']]}{extra}", flush=True)
     spans = ", ".join(fmt.format(s[k]) for k, fmt in SPAN_NAMES.items()
                       if k in s)
-    print(f"[4 main path {res['tag']}] step wall {res['wall_ms']:.1f} ms "
+    print(f"[{phase} {res['tag']}] step wall {res['wall_ms']:.1f} ms "
           f"(mean of {len(res['losses'])}, first included); device ms, "
           f"mean after the first: {spans}; peak memory "
           f"{res['peak_gib']:.1f} GiB", flush=True)
@@ -3218,59 +3282,80 @@ def decode_consistency(eng, out, s):
     return worst, finite, torch.stack(picks, dim=1)
 
 
-def serve_path(tag, arch, vu, fa, ss, args=SERVE_ARGS):
-    """Paths (s), (t), (v): ``repro_torch.launch.serve`` at full width
-    (``args``: batch, prompt and generated tokens; random weights from
-    seed 0): no kernel launched (the reference's serving path runs none);
-    the output's shape, its prompt, every token in [0, V); then, on the
-    engine the CLI built, every prefill and decode logit finite and the
-    greedy tokens the decode logits give (where their top-2 margin is
-    clear); and decode against prefill of the same prefix within
-    SERVE_REL_TOL · max|logit|.  The attention models are held with wq
-    and wk × 0.1: under the reference's own init their attention scores
-    grow with depth until the softmax is near one-hot, and two summation
-    orders of the same logits part (the reference's JAX prefill and decode
-    at 24 layers, d 128, differ by more than 1e-2 · max|logit|,
-    tests/test_torch_serve.py; the port's on the card: printed as
-    measured, not held), as in ROADMAP Queue 3.  The attention-free ssm
-    family (v) is held under the init as drawn."""
+def serve_path(tag, arch, vu, fa, ss, args=SERVE_ARGS, phase="4 main path",
+               card=None):
+    """Paths (s), (t), (v), (aa), (ab): ``repro_torch.launch.serve`` at
+    full width (``args``: batch, prompt and generated tokens; random
+    weights from seed 0): no kernel launched (the reference's serving path
+    runs none); then ``served_checks``."""
     from repro_torch.launch import serve
     for mod in (vu, fa, ss):
         mod.reset_launches()
     res = serve.run(["--arch", arch] + args)
     launches = {**vu.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
     check_launches(tag, launches, {})
-    b, s, gen = (int(args[args.index(flag) + 1])
-                 for flag in ("--batch", "--prompt-len", "--gen"))
-    out, v = res.out, res.cfg.vocab_size
-    if tuple(out.shape) != (b, s + gen) or not torch.equal(out[:, :s],
-                                                           res.prompt):
+    row = served_checks(tag, arch, res.cfg, res.engine, res.prompt, res.out,
+                        res.prefill_ms, res.decode_ms, res.wall_s,
+                        res.peak_bytes, phase, card)
+    del res
+    free()
+    return row
+
+
+def served_checks(tag, label, cfg, eng, prompt, out, prefill_ms, decode_ms,
+                  wall_s, peak, phase="4 main path", card=None):
+    """The checks of a served path on the engine that served it
+    (``eng.prefill``, ``eng.step``): the output's shape and its prompt;
+    for token ids every token in [0, V) and the greedy tokens the decode
+    logits give (where their top-2 margin is clear); every prefill and
+    decode logit finite; the tree's parameter count; decode against
+    prefill of the same prefix within SERVE_REL_TOL · max|logit|.  The
+    attention models are held with wq and wk × 0.1 (in place, no second
+    copy of the tree): under the reference's own init their attention
+    scores grow with depth until the softmax is near one-hot, and two
+    summation orders of the same logits part (the reference's JAX prefill
+    and decode at 24 layers, d 128, differ by more than 1e-2 ·
+    max|logit|, tests/test_torch_serve.py; the port's on the card: printed
+    as measured, not held), as in ROADMAP Queue 3.  The attention-free
+    ssm family (v) is held under the init as drawn.  ``out`` holds frame
+    embeddings (B, S + gen, F) for the codec frontend, its prompt the
+    first S."""
+    b, s = prompt.shape[:2]
+    gen = out.shape[1] - s
+    codec = cfg.frontend == "codec"
+    if out.shape[:2] != (b, s + gen) or not torch.equal(out[:, :s], prompt):
         raise AssertionError(f"path {tag}: output {tuple(out.shape)}")
-    if int(out.min()) < 0 or int(out.max()) >= v:
+    v = cfg.vocab_size
+    if not codec and (int(out.min()) < 0 or int(out.max()) >= v):
         raise AssertionError(f"path {tag}: a token outside [0, {v})")
-    n_params = sum(x.numel() for x in tm_leaves(res.engine.params))
-    # param_count leaves out the final norm, as the reference's does; for
-    # the ssm family it is the reference's analytic overcount
-    want_n = (MAMBA_PARAMS if res.cfg.family == "ssm"
-              else res.cfg.param_count() + res.cfg.d_model)
+    n_params = sum(x.numel() for x in tm_leaves(eng.params))
+    # param_count leaves out the final norm, as the reference's does (and
+    # the codec frontend's frontend_proj); for the ssm family it is the
+    # reference's analytic overcount
+    want_n = (MAMBA_PARAMS if cfg.family == "ssm"
+              else cfg.param_count() + cfg.d_model
+              + (cfg.frontend_dim * cfg.d_model if codec else 0))
     if n_params != want_n:
         raise AssertionError(f"path {tag}: {n_params} parameters")
-    raw, finite, picks = decode_consistency(res.engine, out, s)
+    raw, finite, picks = decode_consistency(eng, out, s)
     if not finite:
         raise AssertionError(f"path {tag}: a non-finite logit")
-    want = out[:, s + 1:]
-    off = int(((picks >= 0) & (picks != want)).sum())
-    if off:
-        raise AssertionError(f"path {tag}: {off} greedy tokens differ from "
-                             f"the decode logits' clear picks")
-    if res.cfg.family == "ssm":
+    rederived = ""
+    if not codec:
+        want = out[:, s + 1:]
+        off = int(((picks >= 0) & (picks != want)).sum())
+        if off:
+            raise AssertionError(f"path {tag}: {off} greedy tokens differ "
+                                 f"from the decode logits' clear picks")
+        rederived = f"; {int((picks >= 0).sum())} greedy tokens re-derived"
+    if cfg.family == "ssm":
         soft = raw
         held = f"{raw:.3e} · max|logit| under the init as drawn"
     else:
-        attn = res.engine.params["layers"]["attn"]
+        attn = eng.params["layers"]["attn"]
         attn["wq"].mul_(0.1)
         attn["wk"].mul_(0.1)
-        soft, finite, _ = decode_consistency(res.engine, out, s)
+        soft, finite, _ = decode_consistency(eng, out, s)
         held = (f"{soft:.3e} · max|logit| with wq, wk × 0.1, {raw:.3e} "
                 f"under the init as drawn (not held)")
         del attn
@@ -3278,20 +3363,22 @@ def serve_path(tag, arch, vu, fa, ss, args=SERVE_ARGS):
         raise AssertionError(f"path {tag}: decode vs prefill "
                              f"{soft:.3e} · max|logit| (limit "
                              f"{SERVE_REL_TOL}), finite {finite}")
-    per_tok = float(np.mean(res.decode_ms))
-    row = dict(tag=tag, prefill_ms=res.prefill_ms, decode_ms=per_tok,
-               tok_s=b * gen / res.wall_s, peak_gib=res.peak_bytes / 2 ** 30,
-               launches={})
-    print(f"[4 main path {tag}] {arch}, {n_params} parameters, batch {b}: "
-          f"prefill {res.prefill_ms:.3f} ms ({b} x {s} tokens), decode "
-          f"{per_tok:.3f} ms per token ({len(res.decode_ms)} steps, "
-          f"{min(res.decode_ms):.3f}-{max(res.decode_ms):.3f}), "
-          f"{row['tok_s']:.1f} tok/s batched, peak {row['peak_gib']:.2f} "
-          f"GiB; no kernel launched; {int((picks >= 0).sum())} greedy "
-          f"tokens re-derived; decode vs prefill of the same prefix "
-          f"{held} (limit {SERVE_REL_TOL})", flush=True)
-    del res
-    free()
+    per_tok = float(np.mean(decode_ms))
+    nbytes = sum(x.numel() * x.element_size() for x in tm_leaves(eng.params))
+    weights_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    row = dict(tag=tag, prefill_ms=prefill_ms, decode_ms=per_tok,
+               tok_s=b * gen / wall_s, peak_gib=peak / 2 ** 30,
+               weights_ms=weights_ms, launches={})
+    unit = "frame" if codec else "token"
+    print(f"[{phase} {tag}] {label}, {n_params} parameters, batch {b}: "
+          f"prefill {prefill_ms:.3f} ms ({b} x {s} {unit}s), decode "
+          f"{per_tok:.3f} ms per {unit} ({len(decode_ms)} steps, "
+          f"{min(decode_ms):.3f}-{max(decode_ms):.3f}; the weights' "
+          f"{nbytes / 1e9:.2f} GB take {weights_ms:.3f} ms at 3.35 TB/s), "
+          f"{row['tok_s']:.1f} {unit}s/s batched, peak "
+          f"{row['peak_gib']:.2f} GiB; no kernel launched{rederived}; "
+          f"decode vs prefill of the same prefix {held} (limit "
+          f"{SERVE_REL_TOL})" + (f"; {card}" if card else ""), flush=True)
     return row
 
 
@@ -3957,6 +4044,347 @@ def mesh_card_paths(refs, z4_cpu) -> None:
           flush=True)
 
 
+# ----------------------------------------------------------------- phase 8
+def backbone_inputs(cfg, b, s, seed):
+    """Seeded inputs (token ids, or frame embeddings (b, s, F) for the
+    codec frontend) and next-token labels, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    if cfg.frontend == "codec":
+        return torch.randn((b, s, cfg.frontend_dim), generator=gen), labels
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    return toks, torch.roll(toks, -1, dims=-1)
+
+
+def backbone_loss_grads(cfg, params, x, labels, remat, chunk):
+    """The LM loss and its per-leaf gradients as ``make_train_step``'s
+    loss takes them (``chunk`` > 0: the vocab-streaming loss on the hidden
+    states); the leaves the loss does not read are left out."""
+    from repro_torch import tree as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loss as L
+    pairs = tm.leaves_with_path(params)
+    leaves = [p.clone().requires_grad_() for _, p in pairs]
+    p = tm.from_paths([(path, x) for (path, _), x in zip(pairs, leaves)])
+    if chunk:
+        tied = cfg.tie_embeddings
+        loss = L.chunked_cross_entropy_lm(
+            T.forward(cfg, p, x, remat=remat, return_hidden=True),
+            p["embed"] if tied else p["lm_head"], labels, chunk=chunk,
+            head_is_embed=tied)
+    else:
+        loss = L.cross_entropy_lm(T.forward(cfg, p, x, remat=remat), labels)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [(path, g) for (path, _), g in zip(pairs, grads)
+                           if g is not None]
+
+
+def grads_close(tag, got, want) -> float:
+    """Per-leaf gradients within 1e-3 · max|g| of ``want``'s; returns the
+    largest error over its limit."""
+    worst = 0.0
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{tag}: gradient leaves differ")
+    for (path, b), (_, a) in zip(got, want):
+        err = (b.to(a.device) - a).abs().max().item()
+        limit = 1e-3 * a.abs().max().item() + 1e-12
+        if not err <= limit:
+            raise AssertionError(f"{tag}: gradient {path} max abs err "
+                                 f"{err:.3e} (limit {limit:.3e})")
+        worst = max(worst, err / limit)
+    return worst
+
+
+def backbone_small_input(dev, vu, card) -> None:
+    """Phase 8's smoke checks: the four architectures at the smoke size on
+    the card against the CPU from the same parameters: forward logits
+    (atol 1e-4); the loss (rtol 1e-5) and every gradient (1e-3 · max|g|)
+    with remat off and on, through the full and the vocab-streaming loss
+    at a chunk that does not divide the vocabulary; prefill logits and
+    cache, then decode logits over drawn inputs (atol 1e-4); and a
+    vrl_sgd slice through ``make_train_step`` (W = 2, rounds of 1, 2, 2,
+    the engine's kernels on the card; chunked_ce for gemma-7b, frame
+    embeddings (W, B, S, F) for musicgen-large, wq, wk × 0.1): losses rtol
+    1e-4, params atol 1e-4, Δ atol 1e-4/(k γ)."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import make_train_step
+    w, k = 2, 2
+    for arch in BACKBONE:
+        cfg = registry.smoke_arch(arch)
+        params = T.init_params(cfg, seed=0)
+        on_card = tm.tree_map(lambda x: x.to(dev), params)
+        x, labels = backbone_inputs(cfg, 2, 16, 1)
+        with torch.no_grad():
+            close(T.forward(cfg, on_card, x.to(dev)).cpu(),
+                  T.forward(cfg, params, x), 1e-4, f"{arch} smoke logits")
+        worst_l, worst_g = 0.0, 0.0
+        for remat, chunk in BACKBONE_LOSSES:
+            lc, gc = backbone_loss_grads(cfg, params, x, labels, remat, chunk)
+            lg, gg = backbone_loss_grads(cfg, on_card, x.to(dev),
+                                         labels.to(dev), remat, chunk)
+            rel = abs(lg.item() / lc.item() - 1)
+            if not rel <= 1e-5:
+                raise AssertionError(f"{arch} smoke loss (remat {remat}, "
+                                     f"chunk {chunk}): rel diff {rel:.3e}")
+            worst_l = max(worst_l, rel)
+            worst_g = max(worst_g, grads_close(
+                f"{arch} smoke (remat {remat}, chunk {chunk})",
+                [(p_, g.cpu()) for p_, g in gg], gc))
+        xs, _ = backbone_inputs(cfg, 2, 12, 2)
+        with torch.no_grad():
+            lc, cc = T.prefill(cfg, params, xs[:, :8], 16)
+            lg, cg = T.prefill(cfg, on_card, xs[:, :8].to(dev), 16)
+            close(lg.cpu(), lc, 1e-4, f"{arch} smoke prefill logits")
+            for key in cc:
+                close(cg[key].cpu(), cc[key],
+                      1e-4 * max(1.0, cc[key].abs().max().item()),
+                      f"{arch} smoke prefill cache {key}")
+            for pos in range(8, 12):
+                lc, cc = T.decode_step(cfg, params, cc, xs[:, pos:pos + 1],
+                                       pos)
+                lg, cg = T.decode_step(cfg, on_card, cg,
+                                       xs[:, pos:pos + 1].to(dev), pos)
+                close(lg.cpu(), lc, 1e-4, f"{arch} smoke decode at {pos}")
+        # the train slice from the init with wq, wk × 0.1 (soft attention)
+        attn = params["layers"]["attn"]
+        attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+        chunk = BACKBONE_SMOKE_CHUNK if cfg.tie_embeddings else 0
+        vrl = VRLConfig(comm_period=k, learning_rate=LR, warmup=True)
+        toks, lab = backbone_inputs(cfg, 5 * w * 2, 16, 3)
+        toks = toks.reshape(5, w, 2, *toks.shape[1:])
+        lab = lab.reshape(5, w, 2, 16)
+        runs = {}
+        for where in ("cpu", dev):
+            bundle = make_train_step(cfg, vrl, device=where,
+                                     chunked_ce=chunk)
+            state = bundle.engine.init(
+                tm.tree_map(lambda x: x.to(where), params), w)
+            vu.reset_launches()
+            losses, t = [], 0
+            for rk in (1, k, k):
+                state, lk = bundle.round_step(state, toks[t:t + rk].to(where),
+                                              lab[t:t + rk].to(where))
+                losses += lk.tolist()
+                t += rk
+            runs[str(where)] = (np.array(losses), state.params.cpu().numpy(),
+                                state.delta.cpu().numpy(),
+                                dict(vu.LAUNCHES))
+        (l_c, p_c, d_c, _), (l_g, p_g, d_g, n_g) = runs["cpu"], runs[str(dev)]
+        check_launches(f"{arch} smoke slice", n_g,
+                       {"fused_local_sgd": 5, "fused_sync_vrl": 3})
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+        np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(d_g, d_c, rtol=0, atol=1e-4 / (k * LR))
+        print(f"[8 backbone] {arch} smoke ({cfg.mlp_act} MLP"
+              + (", codec frame embeddings" if cfg.frontend else "")
+              + f"), card vs CPU: logits, prefill and cache, 4 decode steps "
+              f"within atol 1e-4; loss max rel diff {worst_l:.2e} (rtol "
+              f"1e-5) and gradients at most {worst_g:.3f} of 1e-3 · max|g| "
+              f"over remat off/on × full / chunked CE (chunk "
+              f"{BACKBONE_SMOKE_CHUNK}, vocab {cfg.vocab_size}); vrl_sgd "
+              f"slice (W 2, rounds 1, 2, 2"
+              + (f", chunked_ce {chunk}" if chunk else "")
+              + f"): losses max rel diff {np.abs(l_g / l_c - 1).max():.2e}, "
+              f"params {np.abs(p_g - p_c).max():.2e}, Δ "
+              f"{np.abs(d_g - d_c).max():.2e}; {card}", flush=True)
+
+
+def timed_generate(eng, dev, prompt, steps):
+    """``eng.generate`` with its timings, the card's peak over it."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, steps, timings=timings)
+    wall = time.perf_counter() - t0
+    return out, timings, wall, torch.cuda.max_memory_allocated(dev)
+
+
+def chameleon_path(dev, card):
+    """(ad) chameleon-34b at full width, depth cut to CHAMELEON_LAYERS,
+    through ``serve.Engine``: the serve CLI's traffic and draws (weights
+    from seed 0, prompts from seed 1), then ``served_checks``."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(registry.get_arch("chameleon-34b"),
+                              num_layers=CHAMELEON_LAYERS)
+    b, s, gen = BACKBONE_SERVE
+    eng = Engine(cfg, T.init_params(cfg, 0, device=dev), max_len=s + gen,
+                 device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    out, timings, wall, peak = timed_generate(eng, dev, prompt, gen)
+    row = served_checks("(ad) serve.Engine",
+                        f"chameleon-34b at {CHAMELEON_LAYERS} of 48 layers",
+                        cfg, eng, prompt, out, timings["prefill_ms"],
+                        timings["decode_ms"], wall, peak, "8 backbone", card)
+    del eng, out
+    free()
+    return row
+
+
+def codec_path(dev, card):
+    """(ac) musicgen-large at full depth through ``transformer.prefill``
+    and ``decode_step`` over seeded frame embeddings (the CLIs draw token
+    ids and refuse a codec architecture): a prompt of ``s`` frames, then
+    ``gen`` decode frames, each timed as ``Engine.generate`` times its
+    steps; then ``served_checks`` on an engine of the two functions."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_arch("musicgen-large")
+    b, s, gen = BACKBONE_SERVE
+    params = T.init_params(cfg, 0, device=dev)
+    frames = torch.randn((b, s + gen, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+
+    @torch.no_grad()
+    def prefill(x):
+        return T.prefill(cfg, params, x, s + gen, last_only=True)
+
+    @torch.no_grad()
+    def step(cache, x, pos):
+        return T.decode_step(cfg, params, cache, x, pos)
+    eng = types.SimpleNamespace(params=params, prefill=prefill, step=step)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, cache = prefill(frames[:, :s])
+    torch.cuda.synchronize(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    decode_ms = []
+    for pos in range(s, s + gen):
+        t1 = time.perf_counter()
+        logits, cache = step(cache, frames[:, pos:pos + 1], pos)
+        torch.cuda.synchronize(dev)
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (b, 1, cfg.vocab_size):
+        raise AssertionError(f"path (ac): logits {tuple(logits.shape)}")
+    del cache, logits
+    row = served_checks("(ac) prefill/decode_step", "musicgen-large", cfg,
+                        eng, frames[:, :s], frames, prefill_ms, decode_ms,
+                        wall, peak, "8 backbone", card)
+    del eng, params, frames
+    free()
+    return row
+
+
+def backbone_train(dev, vu, card):
+    """(ae) stablelm-3b and (af) gemma-7b training at full width, depth
+    cut, through ``make_train_step`` and ``round_step`` (vrl_sgd + sgd,
+    W = 4, k = 2, 4 steps: fused_local_sgd 4, fused_sync_vrl 2 each run):
+    (ae) with remat off and on, the losses held to 1e-6 relative; (af)
+    with ``chunked_ce`` = GEMMA_CHUNK (256,000 is not a multiple of it, so
+    the last chunk is padded at full width) and 0, the first step's loss
+    held to 1e-5 relative, then one step's gradients of the two losses
+    through ``grads_fn`` (W = 1, worker 0's batch) from one state, per
+    leaf within 1e-3 · max|g|."""
+    from repro_torch.configs import registry
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.configs.base import VRLConfig
+    vrl_kw = dict(comm_period=2, warmup=False, learning_rate=MAIN_LR)
+    stab = dataclasses.replace(registry.get_arch("stablelm-3b"),
+                               num_layers=STABLELM_TRAIN_LAYERS)
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = train_path(f"(ae) stablelm-3b vrl_sgd+sgd, remat "
+                                 f"{'on' if remat else 'off'}", vrl_kw,
+                                 TRAIN8_ROUNDS, TRAIN8_LAUNCHES, dev, vu,
+                                 cfg=stab, make_kw=dict(remat=remat))
+        print_path(runs[remat], f"; {STABLELM_TRAIN_LAYERS} of 32 layers; "
+                   f"{card}", phase="8 backbone")
+    off, on = (np.array(runs[r]["losses"]) for r in (False, True))
+    rel = float(np.abs(on / off - 1).max())
+    if not rel <= 1e-6:
+        raise AssertionError(f"path (ae): remat on vs off losses {rel:.3e} "
+                             f"apart (limit 1e-6)")
+    print(f"[8 backbone (ae)] remat on vs off: losses max rel diff "
+          f"{rel:.3e} (limit 1e-6; {'bitwise' if rel == 0 else 'not bitwise'}"
+          f"), peak {runs[False]['peak_gib']:.2f} -> "
+          f"{runs[True]['peak_gib']:.2f} GiB, step wall "
+          f"{runs[False]['wall_ms']:.1f} -> {runs[True]['wall_ms']:.1f} ms; "
+          f"{card}", flush=True)
+    gemma = dataclasses.replace(registry.get_arch("gemma-7b"),
+                                num_layers=GEMMA_TRAIN_LAYERS)
+    g_runs = {}
+    for chunk in (GEMMA_CHUNK, 0):
+        g_runs[chunk] = train_path(
+            f"(af) gemma-7b vrl_sgd+sgd, chunked_ce {chunk}", vrl_kw,
+            TRAIN8_ROUNDS, TRAIN8_LAUNCHES, dev, vu, cfg=gemma, batch=4,
+            make_kw=dict(chunked_ce=chunk))
+        print_path(g_runs[chunk], f"; {GEMMA_TRAIN_LAYERS} of 28 layers, "
+                   f"batch 4 x seq 64; {card}", phase="8 backbone")
+    l0 = [g_runs[c]["losses"][0] for c in (GEMMA_CHUNK, 0)]
+    rel = abs(l0[0] / l0[1] - 1)
+    if not rel <= 1e-5:
+        raise AssertionError(f"path (af): first losses {l0} (rel "
+                             f"{rel:.3e}, limit 1e-5)")
+    # one step's gradients of the two losses from one state, worker 0
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    vrl = VRLConfig(**vrl_kw)
+    bundles = {c: make_train_step(gemma, vrl, device=dev, chunked_ce=c)
+               for c in (GEMMA_CHUNK, 0)}
+    state = bundles[GEMMA_CHUNK].init_state(0, 1)
+    data = assigned_token_stream(contiguous_assignment(4, 4), 64,
+                                 gemma.vocab_size, steps=1, batch=4,
+                                 alpha=0.05, seed=0)
+    toks = torch.from_numpy(data[0, :1]).to(dev, torch.long)
+    labels = torch.roll(toks, -1, dims=-1)
+    g_chunk, _ = bundles[GEMMA_CHUNK].grads_fn(state, toks, labels)
+    g_full, _ = bundles[0].grads_fn(state, toks, labels)
+    spec = bundles[0].engine.spec
+    worst = 0.0
+    for leaf in spec.leaves:
+        a = g_full.reshape(-1)[leaf.offset:leaf.offset + leaf.size]
+        b = g_chunk.reshape(-1)[leaf.offset:leaf.offset + leaf.size]
+        err = (b - a).abs().max().item()
+        limit = 1e-3 * a.abs().max().item() + 1e-12
+        if not err <= limit:
+            raise AssertionError(f"path (af): gradient {leaf.path} max abs "
+                                 f"err {err:.3e} (limit {limit:.3e})")
+        worst = max(worst, err / limit)
+    del bundles, state, g_chunk, g_full
+    free()
+    c, f = g_runs[GEMMA_CHUNK], g_runs[0]
+    print(f"[8 backbone (af)] chunked_ce {GEMMA_CHUNK} vs full: first loss "
+          f"{l0[0]:.6f} vs {l0[1]:.6f} (rel {rel:.3e}, limit 1e-5); one "
+          f"step's gradients of worker 0 from one state at most "
+          f"{worst:.3f} of 1e-3 · max|g| over {len(spec.leaves)} leaves; "
+          f"peak {c['peak_gib']:.2f} vs {f['peak_gib']:.2f} GiB, step wall "
+          f"{c['wall_ms']:.1f} vs {f['wall_ms']:.1f} ms; {card}", flush=True)
+    return [*runs.values(), *g_runs.values()]
+
+
+def backbone_phase(dev, vu, fa, ss, card) -> list:
+    """Phase 8: the smoke checks, then (aa)-(ad) served and (ae), (af)
+    trained at full width; returns the training paths' results."""
+    t8 = time.time() - START
+    print(f"[8 backbone] from {t8:.1f} s of the script; {card}", flush=True)
+    free()
+    backbone_small_input(dev, vu, card)
+    serve_args = ["--batch", str(BACKBONE_SERVE[0]), "--prompt-len",
+                  str(BACKBONE_SERVE[1]), "--gen", str(BACKBONE_SERVE[2])]
+    serve_path("(aa) serve", "stablelm-3b", vu, fa, ss, serve_args,
+               "8 backbone", card)
+    serve_path("(ab) serve", "gemma-7b", vu, fa, ss, serve_args,
+               "8 backbone", card)
+    for path in (codec_path, chameleon_path):
+        for mod in (vu, fa, ss):
+            mod.reset_launches()
+        row = path(dev, card)
+        check_launches(row["tag"], {**vu.LAUNCHES, **fa.LAUNCHES,
+                                    **ss.LAUNCHES}, {})
+    res = backbone_train(dev, vu, card)
+    print(f"[8 backbone] {time.time() - START - t8:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3995,6 +4423,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if "--backbone" in sys.argv[1:]:
+        backbone_phase(dev, vu, fa, ss, card)
+        return 0
     if "--lr-sweep" in sys.argv[1:]:
         for tag, path in (("b", path_b), ("f", path_f), ("j", path_j)):
             for lr in (1e-3, 1e-4, 1e-5):
@@ -4212,6 +4643,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 7 mesh
     mesh_paths({"main": res_v, "e": res_e, "g": res_g})
+
+    # ------------------------------------------------------ 8 backbone
+    backbone_phase(dev, vu, fa, ss, card)
 
     kernels = []
     for name in KERNELS:

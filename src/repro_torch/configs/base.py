@@ -19,9 +19,10 @@ from typing import Optional, Tuple
 class ModelConfig:
     """Architecture definition (see ``repro.configs.base.ModelConfig``).
 
-    The port runs the ``dense`` and ``ssm`` families; the other fields are
-    kept so that configs and ``reduced`` stay field-for-field the
-    reference's.
+    The port runs the ``dense`` backbone (also built for ``vlm`` and
+    ``audio``, the latter over codec frame embeddings) and the ``ssm``
+    family; the other fields are kept so that configs and ``reduced`` stay
+    field-for-field the reference's.
     """
 
     name: str
@@ -82,16 +83,19 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """The reference's analytic parameter count, for the families the
-        port runs.  Its ssm branch counts the B/C projections once per head
-        and two norms per layer, as the reference's does (mamba2-370m:
-        759,767,040, where the materialised tree holds 368,227,840)."""
-        if self.family not in ("dense", "ssm"):
+        port runs, formula as it stands.  Its ssm branch counts the B/C
+        projections once per head and two norms per layer (mamba2-370m:
+        759,767,040, where the materialised tree holds 368,227,840); it
+        counts no final norm, and for the codec frontend no
+        ``frontend_proj`` (musicgen-large: 2,424,504,320, where the tree
+        holds 4,194,304 + 2,048 more: 2,428,700,672)."""
+        if self.family not in ("dense", "vlm", "audio", "ssm"):
             raise NotImplementedError(
                 f"family {self.family!r} is not ported yet (ROADMAP Queue 1)")
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         total = V * d if self.tie_embeddings else 2 * V * d
         per_layer = 0
-        if self.family == "dense":
+        if self.family != "ssm":
             hd = self.head_dim
             per_layer += d * (self.num_heads * hd)          # q
             per_layer += 2 * d * (self.num_kv_heads * hd)   # k, v
@@ -121,12 +125,15 @@ class EngineConfig:
     multiple of ``block * shards`` and gives SM3's lane stat one row per
     shard's row span, as the reference does; the port places nothing on a
     mesh (there is no ``shard_axis`` yet), so it is layout only, and
-    ``shards=1`` is the unsharded layout.
+    ``shards=1`` is the unsharded layout.  ``round_scan`` is read by the
+    launch driver alone: True trains round by round (``round_step``),
+    False step by step (``train_step``, the reference's ``--no-round``).
     """
 
     block: int = 0
     lanes: int = 256
     max_pad_waste: float = 0.25
+    round_scan: bool = True         # launch driver uses round_step
     shards: int = 1                 # row-block shard count of engine state
 
 

@@ -1,18 +1,30 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
-Lists only the architectures whose model family the port runs: the dense
-family (qwen2-0.5b, and granite-3-2b, the reference serve CLI's default)
-and the ssm family (mamba2-370m).  The reference's other families join as
-they are ported (ROADMAP Queue 1).
+Lists the architectures whose model family the port runs: the dense
+backbone (qwen2-0.5b, granite-3-2b — the reference serve CLI's default —,
+stablelm-3b and gemma-7b; chameleon-34b's vlm and musicgen-large's audio
+family build the same block) and the ssm family (mamba2-370m).  The
+reference's hybrid and moe families join as they are ported (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b, mamba2_370m, qwen2_0_5b
+from repro_torch.configs import (
+    chameleon_34b,
+    gemma_7b,
+    granite_3_2b,
+    mamba2_370m,
+    musicgen_large,
+    qwen2_0_5b,
+    stablelm_3b,
+)
 from repro_torch.configs.base import ModelConfig, reduced
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [qwen2_0_5b.CONFIG, granite_3_2b.CONFIG,
-                         mamba2_370m.CONFIG]}
+    c.name: c for c in [qwen2_0_5b.CONFIG, stablelm_3b.CONFIG,
+                         chameleon_34b.CONFIG, musicgen_large.CONFIG,
+                         granite_3_2b.CONFIG, mamba2_370m.CONFIG,
+                         gemma_7b.CONFIG]}
 
 
 def get_arch(arch_id: str) -> ModelConfig:

@@ -234,11 +234,13 @@ def sum_invariant(buf: Any, dim: int = 0, mesh=None,
     runs over the ranks of ``axes`` (the ones ``dim`` spans) and the
     maxima over every rank, all counted "eval"."""
     leaves = tree_mod.leaves(buf)
+
+    def amax(x: torch.Tensor) -> float:
+        # max|x| without an |x| temporary the size of the state
+        return torch.linalg.vector_norm(x, float("inf")).item()
     return (coll.global_reduce(mesh, max(
-                coll.worker_sum(mesh, x, dim, axes).abs().max().item()
-                for x in leaves)),
-            coll.global_reduce(mesh, max(x.abs().max().item()
-                                         for x in leaves)))
+                amax(coll.worker_sum(mesh, x, dim, axes)) for x in leaves)),
+            coll.global_reduce(mesh, max(amax(x) for x in leaves)))
 
 
 def _ef_op(comp: comm_mod.CompressorSpec, lanes: int, *,

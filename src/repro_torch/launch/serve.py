@@ -5,8 +5,11 @@ Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The parameters are drawn
 from ``--seed`` and the prompts from ``--seed`` + 1 (sampling from
 ``--seed`` + 2) with ``torch.Generator``s, so they are not the reference
-CLI's ``jax.random`` draws.  Prints the prefill time, the decode time per
-token, the batched tokens per second and, on the card, the peak memory.
+CLI's ``jax.random`` draws.  A codec architecture (musicgen-large) takes
+frame embeddings, not token ids: the CLI refuses it, and
+``transformer.prefill``/``decode_step`` run it.  Prints the prefill time,
+the decode time per token, the batched tokens per second and, on the
+card, the peak memory.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --device cpu --batch 4 --prompt-len 32 --gen 32
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.train import refuse_codec
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Engine
 
@@ -68,6 +72,7 @@ def run(argv=None) -> ServeResult:
 
     cfg = (registry.smoke_arch(args.arch) if args.smoke
            else registry.get_arch(args.arch))
+    refuse_codec(cfg)
     print(f"arch: {registry.describe(args.arch)}"
           f"{' [reduced smoke variant]' if args.smoke else ''}")
     params = T.init_params(cfg, args.seed, device=device)

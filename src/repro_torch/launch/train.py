@@ -1,8 +1,8 @@
 """Training driver (``repro.launch.train``, core flags).
 
 Runs a flat algorithm (``--algorithm``: vrl_sgd, local_sgd, ssgd, easgd,
-stl_sgd, bvr_l_sgd) or two-level hier_vrl_sgd on the qwen2-0.5b
-architecture (full width, or ``--smoke``'s reduced variant) over the
+stl_sgd, bvr_l_sgd) or two-level hier_vrl_sgd on an ``--arch`` (full
+width, or ``--smoke``'s reduced variant; qwen2-0.5b by default) over the
 synthetic non-iid LM stream, round by round: each communication period
 is k local steps (forward/backward per worker, then one fused
 local-update kernel over the (W, R, C) buffers) closed by one worker
@@ -86,6 +86,19 @@ environment the flag fails; it never falls back to one process.
 
 ``--loss-out PATH`` writes the run's losses, logged sums, spans, peak and
 counts as JSON (under ``--mesh-grid`` one file per rank, ``PATH.rank<r>``).
+
+``--no-round`` (``EngineConfig.round_scan=False``) trains step by step
+through ``train_step``, each step syncing on the per-step cadence and a
+log line every ``--log-every`` steps, as the reference's per-step loop;
+it refuses ``--overlap`` and ``--profile-round`` as the reference's does.
+``--shards N`` sets ``EngineConfig.shards``, layout only (rows pad to
+shard boundaries; refused with ``--mesh-grid``).  ``--profile-round N``
+prints the round's busiest operations and, with ``--profile-dir DIR``,
+writes its ``torch.profiler`` trace there as Chrome-trace JSON.  Full
+width trains with activation checkpointing (``remat``), the smoke variant
+without, as in the reference.  A codec architecture (musicgen-large)
+takes frame embeddings, not the token stream: the CLI refuses it, and
+``make_train_step`` runs it.
 
 Not ported yet (ROADMAP Queue 1): membership and faults, client
 sampling, checkpoints, diagnostics and telemetry, row shards on a mesh.
@@ -195,6 +208,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the per-leaf reference executor")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="EngineConfig.shards: rows pad to a multiple of "
+                         "block * shards (layout only: nothing is placed "
+                         "on a mesh; refused with --mesh-grid).  1 = the "
+                         "unsharded layout")
+    ap.add_argument("--no-round", dest="round", action="store_false",
+                    help="train step by step through train_step (syncing "
+                         "on the per-step cadence) instead of round by "
+                         "round")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8, help="per-worker batch")
     ap.add_argument("--seq", type=int, default=64)
@@ -231,6 +253,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="run torch.profiler over the Nth round (1-based; "
                          "0 = off) and print its busiest operations and "
                          "the device-busy share of the round")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write the --profile-round trace here as "
+                         "Chrome-trace JSON")
     args = ap.parse_args(argv)
     if not 0.0 <= args.deadline <= 1.0:
         raise SystemExit(f"--deadline is a probability in [0, 1], got "
@@ -241,6 +266,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.profile_round < 0:
         raise SystemExit(f"--profile-round counts rounds from 1 (0 = off), "
                          f"got {args.profile_round}")
+    if args.profile_round and not args.round:
+        raise SystemExit("--profile-round traces a round; drop --no-round")
+    if args.overlap and not args.round:
+        raise SystemExit("--overlap hides the sync behind the next round's "
+                         "local steps, which needs round execution; drop "
+                         "--no-round")
+    if args.shards < 1:
+        raise SystemExit(f"--shards must be >= 1, got {args.shards}")
+    if args.shards > 1 and args.mesh_grid:
+        raise SystemExit(
+            "--shards > 1 with --mesh-grid: the port's row shards are "
+            "layout only, and placing them on ranks needs an all-gather of "
+            "the parameter rows before every forward (ROADMAP Queue 1); "
+            "use --shards 1 on a mesh")
     for flag in ("steps", "k", "workers", "batch", "seq", "log_every",
                  "pods"):
         if getattr(args, flag) < 1:
@@ -291,7 +330,9 @@ def vrl_config(args: argparse.Namespace) -> VRLConfig:
                      compress=comps[0], compress2=comps[1],
                      overlap=args.overlap, deadline=args.deadline,
                      hier=hier, update_backend=args.backend,
-                     engine=EngineConfig(block=args.block))
+                     engine=EngineConfig(block=args.block,
+                                         round_scan=args.round,
+                                         shards=args.shards))
 
 
 def run(argv=None) -> TrainResult:
@@ -366,6 +407,7 @@ def _train(args: argparse.Namespace, device: torch.device,
 
     cfg = (registry.smoke_arch(args.arch) if args.smoke
            else registry.get_arch(args.arch))
+    refuse_codec(cfg)
     say(f"arch: {registry.describe(args.arch)}"
         f"{' [reduced smoke variant]' if args.smoke else ''}")
     vrl = vrl_config(args)
@@ -383,8 +425,9 @@ def _train(args: argparse.Namespace, device: torch.device,
             raise SystemExit(f"--mesh-grid: {e}")
         say(mesh_banner(mesh, backend, device, args.workers, hier))
     try:
-        bundle = make_train_step(cfg, vrl, device=device,
-                                 timed=device.type == "cuda", mesh=mesh)
+        bundle = make_train_step(cfg, vrl, remat=not args.smoke,
+                                 device=device, timed=device.type == "cuda",
+                                 mesh=mesh)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     sched = engine_mod.comm_schedule(vrl)    # explicit or the algo default
@@ -403,11 +446,14 @@ def _train(args: argparse.Namespace, device: torch.device,
         + (f" -> {resolved}" if resolved != args.backend else "")
         + f", device={device}"
         + (f" ({torch.cuda.get_device_name(device)})"
-           if device.type == "cuda" else ""))
+           if device.type == "cuda" else "")
+        + f", round_scan={args.round}, remat={not args.smoke}")
     if eng is not None:
         es = eng.spec
         say(f"engine: flat buffer {es.rows}x{es.lanes} "
-            f"({es.padded - es.size} pad elems), block={es.block}")
+            f"({es.padded - es.size} pad elems), block={es.block}"
+            + (f", shards={es.shards} (layout only: rows pad to shard "
+               f"boundaries)" if es.shards > 1 else ""))
     else:
         say(f"engine: per-leaf reference executor over {len(p_leaves)} "
             f"leaves (no kernel)")
@@ -530,6 +576,27 @@ def _train(args: argparse.Namespace, device: torch.device,
             torch.cuda.synchronize(device)
         return time.perf_counter()
     t, r = 0, 0
+    while t < args.steps and not vrl.engine.round_scan:
+        # the reference's --no-round loop: one train_step a step, syncing
+        # on the per-step cadence, a log line every --log-every steps
+        toks = tokens(data[t])
+        labels = torch.roll(toks, -1, dims=-1)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        t1 = clock()
+        state, loss = bundle.train_step(state, toks, labels)
+        wall += clock() - t1
+        if cuda:
+            round_peak = max(round_peak,
+                             torch.cuda.max_memory_allocated(device))
+        step_losses.append(loss[None])
+        t += 1
+        if t % args.log_every == 0 or t == 1 or t == args.steps:
+            el = float(eval_avg(state, t - 1))
+            avg_losses.append(el)
+            say(f"step {t:5d}  local_loss {float(loss):.4f}  "
+                f"avg_model_loss {el:.4f}  ({wall / t:.2f}s/step)")
+            log_invariant(state, t)
     while t < args.steps:
         if sched is not None:
             rk = sched.period_starting_at(t)
@@ -574,7 +641,7 @@ def _train(args: argparse.Namespace, device: torch.device,
         t1 = clock()
         if r + 1 == args.profile_round:
             state, losses = profiled_round(bundle, state, toks, labels,
-                                           device, say)
+                                           device, say, args.profile_dir)
         else:
             state, losses = bundle.round_step(state, toks, labels)
         wall += clock() - t1
@@ -602,7 +669,8 @@ def _train(args: argparse.Namespace, device: torch.device,
                     f"{rec['term']:.3e}  max|sum move - term| "
                     f"{rec['off']:.3e} (limit {rec['limit']:.3e})")
     losses_host = torch.cat(step_losses).tolist()
-    say(f"done: {args.steps} steps in {wall:.1f}s ({r} rounds)"
+    say(f"done: {args.steps} steps in {wall:.1f}s "
+        + (f"({r} rounds)" if vrl.engine.round_scan else "(step by step)")
         + (f", round peak memory {round_peak / 2**30:.2f} GiB"
            if cuda else ""))
     phases = bundle.timer.ms() if bundle.timer is not None else {}
@@ -638,6 +706,18 @@ def _train(args: argparse.Namespace, device: torch.device,
                        f"{args.loss_out}.rank{mesh.rank}", res, args,
                        device, backend)
     return res
+
+
+def refuse_codec(cfg) -> None:
+    """Both CLIs draw integer token ids, and a codec architecture takes
+    frame embeddings: refuse it, saying what runs it (the reference's CLIs
+    crash on it in the frontend's matmul)."""
+    if cfg.frontend == "codec":
+        raise SystemExit(
+            f"--arch {cfg.name} takes frame embeddings (its codec frontend: "
+            f"(..., S, {cfg.frontend_dim}) floats), not the token ids this "
+            f"CLI draws; transformer.prefill/decode_step and "
+            f"make_train_step run it")
 
 
 def mesh_banner(mesh, backend: str, device: torch.device, workers: int,
@@ -814,10 +894,13 @@ def level_watch(comps, hcfg: HierConfig, state, rk: int, lr: float,
     return after
 
 
-def profiled_round(bundle, state, toks, labels, device, say=print):
+def profiled_round(bundle, state, toks, labels, device, say=print,
+                   trace_dir: Optional[str] = None):
     """One round under torch.profiler: prints the operations with the most
     device time and the round's device-busy share (device time summed over
-    operations / the round's wall time, the round ending in a sync)."""
+    operations / the round's wall time, the round ending in a sync); with
+    ``trace_dir`` also writes the trace there as Chrome-trace JSON
+    (``round_trace.json``, viewable in chrome://tracing or Perfetto)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -845,6 +928,11 @@ def profiled_round(bundle, state, toks, labels, device, say=print):
             if device.type == "cuda" else "no device traced on the CPU")
     say(f"profile: round of {len(toks)} steps, wall {wall_ms:.1f} ms "
         f"(profiler on), {busy}")
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "round_trace.json")
+        prof.export_chrome_trace(path)
+        say(f"profile: trace -> {path}")
     return state, losses
 
 

@@ -1,6 +1,7 @@
-"""Shared low-level layers (``repro.models.layers``): RMSNorm, RoPE,
-gated MLP — same numerics as the reference (norm in fp32, split-half
-rotary embedding)."""
+"""Shared low-level layers (``repro.models.layers``): RMSNorm, RoPE, the
+MLPs (SiLU- and GELU-gated, plain GELU) — same numerics as the reference
+(norm in fp32, split-half rotary embedding, tanh-approximated GELU as
+``jax.nn.gelu(approximate=True)``)."""
 from __future__ import annotations
 
 import torch
@@ -49,16 +50,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------- mlp
 def mlp_defs(cfg: ModelConfig) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
-    if cfg.mlp_act != "silu":
-        raise NotImplementedError(
-            f"mlp_act {cfg.mlp_act!r} is not ported yet (ROADMAP Queue 1)")
-    return {
-        "w_gate": ParamDef((d, ff), ("embed", "ff")),
+    if cfg.mlp_act not in ("silu", "geglu", "gelu"):
+        raise ValueError(f"mlp_act {cfg.mlp_act!r}")
+    defs = {
         "w_up": ParamDef((d, ff), ("embed", "ff")),
         "w_down": ParamDef((ff, d), ("ff", "embed")),
     }
+    if cfg.mlp_act != "gelu":
+        defs["w_gate"] = ParamDef((d, ff), ("embed", "ff"))
+    return defs
 
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    if cfg.mlp_act == "silu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp_act == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]

@@ -1,22 +1,28 @@
 """Model assembly (``repro.models.transformer``): embedding -> pre-norm
-blocks -> norm -> tied logits, for the two families the port runs:
-  dense : GQA attention + gated MLP blocks
-  ssm   : Mamba2 SSD blocks (no MLP, as in Mamba2; ``models/ssm.py``)
-The reference's moe and hybrid families (and vlm, audio) are not ported
-yet (ROADMAP Queue 1): ``layer_defs`` refuses them.
+blocks -> norm -> logits, for the families the port runs:
+  dense / vlm / audio : GQA attention + MLP blocks (silu- or gelu-gated,
+                        or plain gelu); vlm takes early-fusion token ids,
+                        audio the codec frontend's frame embeddings
+  ssm                 : Mamba2 SSD blocks (no MLP, as in Mamba2;
+                        ``models/ssm.py``)
+The reference's moe and hybrid families are not ported yet (ROADMAP
+Queue 1): ``layer_defs`` refuses them.
 
 Layer parameters stay stacked on a leading "layers" axis, the reference's
 tree layout; a Python loop over that axis takes the place of ``lax.scan``
 (decode and prefill stack their per-layer caches on a leading layer axis,
-so the cache tree is the reference's too).
-The reference's ``remat`` only saves activation memory and is left out:
-at the sizes the port trains, activations are a small share of the card.
+so the cache tree is the reference's too).  So the reference's ``unroll``,
+a ``lax.scan`` knob, has no counterpart here.  ``forward(remat=True)``
+runs each layer's block under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the scan body): its activations are recomputed in
+the backward instead of kept.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
@@ -29,7 +35,7 @@ from repro_torch.models.param import ParamDef, materialize, stack_defs
 def layer_defs(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         return {"ssm": ssm.ssm_defs(cfg), "norm1": rms_norm_def(cfg.d_model)}
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
     return {
@@ -47,6 +53,9 @@ def model_defs(cfg: ModelConfig) -> dict:
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                           scale=0.02),
     }
+    if cfg.frontend == "codec":
+        defs["frontend_proj"] = ParamDef((cfg.frontend_dim, cfg.d_model),
+                                         (None, "embed"))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                    ("embed", "vocab"), scale=0.02)
@@ -75,10 +84,13 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def embed_inputs(cfg: ModelConfig, params: dict,
                  inputs: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) int -> embeddings (B, S, d)."""
+    """Token ids (..., S) int -> embeddings (..., S, d); for the codec
+    frontend, precomputed frame embeddings (..., S, F) pass through
+    ``frontend_proj`` (in their promoted dtype, as ``jnp``'s matmul)."""
     if cfg.frontend == "codec":
-        raise NotImplementedError("the codec frontend is not ported yet "
-                                  "(ROADMAP Queue 1)")
+        proj = params["frontend_proj"]
+        dt = torch.promote_types(inputs.dtype, proj.dtype)
+        return inputs.to(dt) @ proj.to(dt)
     return params["embed"][inputs]
 
 
@@ -92,21 +104,45 @@ def logits_out(cfg: ModelConfig, params: dict,
 
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence forward over token ids (..., S) -> logits (..., S, V).
+            window: Optional[int] = None, remat: bool = False,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full-sequence forward over token ids (..., S) (codec: frame
+    embeddings (..., S, F)) -> logits (..., S, V), or with
+    ``return_hidden`` the post-final-norm hidden states (..., S, d), for
+    the vocab-streaming loss (``train.loss.chunked_cross_entropy_lm``).
+    ``remat`` recomputes each layer's activations in the backward.
 
-    (The reference also returns an MoE aux loss, always 0 for the dense
-    family; the port returns the logits alone.)"""
+    (The reference also returns an MoE aux loss, always 0 for the
+    families the port runs; the port returns the logits or hidden states
+    alone.)"""
     x = embed_inputs(cfg, params, inputs)
     if positions is None:
         positions = torch.arange(x.shape[-2], device=x.device).expand(
             x.shape[:-1])
+    block = _block_remat if remat else _block
     # unbind once: its backward stacks the L layer gradients in one pass,
     # where L separate a[i] selects would each scatter into a zeroed
     # full-depth buffer (O(L²) traffic)
     for layer_p in _layers(cfg, params):
-        x = _block(cfg, layer_p, x, positions, window)
+        x = block(cfg, layer_p, x, positions, window)
+    if return_hidden:
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_out(cfg, params, x)
+
+
+def _block_remat(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """``_block`` under non-reentrant activation checkpointing.  The
+    layer's parameter views (of the one ``unbind`` in ``_layers``) go in
+    as the checkpoint's inputs, so the recomputed block's gradients reach
+    them, and through the unbind the stacked leaves."""
+    paths, leaves = zip(*tree_mod.leaves_with_path(p))
+
+    def run(x, *leaves):
+        return _block(cfg, tree_mod.from_paths(list(zip(paths, leaves))), x,
+                      positions, window)
+    return checkpoint(run, x, *leaves, use_reentrant=False)
 
 
 def _layers(cfg: ModelConfig, params: dict) -> list:
@@ -142,9 +178,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 inputs: torch.Tensor, pos,
                 window: Optional[int] = None):
-    """One-token decode against a cache. inputs: (B, 1) ids; pos: the
-    position of that token (an int or a 0-d tensor, read on the host; the
-    ssm family's decode does not read it).
+    """One-token decode against a cache. inputs: (B, 1) ids (codec: frame
+    embeddings (B, 1, F)); pos: the position of that token (an int or a
+    0-d tensor, read on the host; the ssm family's decode does not read
+    it).
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
     """
@@ -174,9 +211,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             cache_len: int, window: Optional[int] = None,
             last_only: bool = False):
-    """Cache-building prefill: the full-sequence forward that also emits
-    every layer's decode cache (KV; for ssm the final SSM state and the
-    conv window, ``cache_len`` unused), stacked on the layer axis.
+    """Cache-building prefill: the full-sequence forward over ``inputs``
+    (B, S) ids (codec: frame embeddings (B, S, F)) that also emits every
+    layer's decode cache (KV; for ssm the final SSM state and the conv
+    window, ``cache_len`` unused), stacked on the layer axis.
 
     Returns (logits (B, S, V) — (B, 1, V) with ``last_only`` — , cache);
     the cache is layout-compatible with ``init_cache``/``decode_step``, in

@@ -74,7 +74,7 @@ from repro_torch.core import get_algorithm
 from repro_torch.kernels.torch_update import sqrt_rn
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
-from repro_torch.train.loss import cross_entropy_lm
+from repro_torch.train.loss import chunked_cross_entropy_lm, cross_entropy_lm
 
 
 def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
@@ -151,7 +151,10 @@ def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
     params = tree_mod.from_paths(
         [(path, x) for (path, _), x in zip(pairs, leaves)])
     loss = loss_fn(params, tokens, labels)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not read (the codec frontend's token ``embed``
+    # under an untied head) gets a zero gradient, as under jax.grad
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     if clip_norm:
         grads = clip_by_global_norm(grads, clip_norm)
     with torch.no_grad():
@@ -161,11 +164,19 @@ def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
 
 
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
+                    remat: bool = True, chunked_ce: int = 0,
                     device: torch.device | str = "cuda",
                     timed: bool = False, mesh=None) -> StepBundle:
-    """``timed`` records CUDA-event spans around the forward/backward and
-    the update of every step (``StepBundle.timer``); CUDA only.
-    ``mesh`` goes to ``core.engine.make_engine``."""
+    """``remat`` recomputes each layer's activations in the backward
+    (``transformer.forward(remat=True)``; the reference's default, as
+    here).  ``chunked_ce > 0`` streams the LM loss over vocab chunks of
+    that size (``chunked_cross_entropy_lm`` on the post-final-norm hidden
+    states, with ``embed`` as the head when it is tied): the (..., V)
+    logits are never held.  Tokens are ids (W, B, S), or for the codec
+    frontend frame embeddings (W, B, S, F).  ``timed`` records CUDA-event
+    spans around the forward/backward and the update of every step
+    (``StepBundle.timer``); CUDA only.  ``mesh`` goes to
+    ``core.engine.make_engine``."""
     device = torch.device(device)
     timer = PhaseTimer() if timed else None
 
@@ -173,7 +184,14 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return contextlib.nullcontext() if timer is None else timer.span(name)
 
     def loss_fn(params, tokens, labels):
-        logits = transformer.forward(model_cfg, params, tokens)
+        if chunked_ce:
+            hidden = transformer.forward(model_cfg, params, tokens,
+                                         remat=remat, return_hidden=True)
+            tied = model_cfg.tie_embeddings
+            return chunked_cross_entropy_lm(
+                hidden, params["embed"] if tied else params["lm_head"],
+                labels, chunk=chunked_ce, head_is_embed=tied)
+        logits = transformer.forward(model_cfg, params, tokens, remat=remat)
         return cross_entropy_lm(logits, labels)
 
     if engine_mod.resolve_backend(vrl_cfg, device) == "reference":

@@ -1159,3 +1159,101 @@ def test_cuda_kernels_ssd_smem_bytes_match_the_source():
                         assert ss.smem_bytes(p, n, chunk, 2 if xb else 4,
                                              2 if bcb else 4) == want, (
                             p, n, chunk, xb, bcb)
+
+
+BACKBONE_ARCHS = ["stablelm-3b", "gemma-7b", "musicgen-large",
+                  "chameleon-34b"]
+
+
+def _backbone_inputs(cfg, b, s, seed):
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    if cfg.frontend == "codec":
+        return torch.randn((b, s, cfg.frontend_dim), generator=gen), labels
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    return toks, torch.roll(toks, -1, dims=-1)
+
+
+def _loss_grads(cfg, params, x, labels, remat, chunk):
+    """Loss and per-leaf gradients of the LM loss (``chunk`` > 0: the
+    vocab-streaming one on the hidden states, as make_train_step's)."""
+    from repro_torch import tree as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loss as L
+    pairs = tm.leaves_with_path(params)
+    leaves = [p.clone().requires_grad_() for _, p in pairs]
+    p = tm.from_paths([(path, x) for (path, _), x in zip(pairs, leaves)])
+    if chunk:
+        head = p["embed"] if cfg.tie_embeddings else p["lm_head"]
+        loss = L.chunked_cross_entropy_lm(
+            T.forward(cfg, p, x, remat=remat, return_hidden=True), head,
+            labels, chunk=chunk, head_is_embed=cfg.tie_embeddings)
+    else:
+        loss = L.cross_entropy_lm(T.forward(cfg, p, x, remat=remat), labels)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss, [(path, g) for (path, _), g in zip(pairs, grads)
+                  if g is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", BACKBONE_ARCHS)
+@pytest.mark.parametrize("remat,chunk", [(False, 0), (True, 0), (True, 200)])
+def test_cuda_backbone_matches_cpu(arch, remat, chunk):
+    """The dense backbone's four further architectures at the smoke size,
+    the card against the CPU from the same parameters (fp32, no TF32):
+    logits atol 1e-4, loss rtol 1e-5, gradients per leaf atol 1e-3 ·
+    max|g| (the CPU tests' tolerances against JAX), with remat on and off
+    and the vocab-streaming loss at a chunk (200) that does not divide
+    the vocabulary (512); GELU (musicgen-large) and GeGLU (gemma-7b)."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    dev = _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.smoke_arch(arch)
+    params = T.init_params(cfg, seed=0)
+    on_card = tm.tree_map(lambda x: x.to(dev), params)
+    x, labels = _backbone_inputs(cfg, 2, 16, 1)
+    with torch.no_grad():
+        want = T.forward(cfg, params, x)
+        got = T.forward(cfg, on_card, x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    lc, gc = _loss_grads(cfg, params, x, labels, remat, chunk)
+    lg, gg = _loss_grads(cfg, on_card, x.to(dev), labels.to(dev), remat,
+                         chunk)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    assert [p for p, _ in gg] == [p for p, _ in gc]
+    for (path, a), (_, b) in zip(gc, gg):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=1e-3 * a.abs().max().item() + 1e-12,
+                                   msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", BACKBONE_ARCHS)
+def test_cuda_backbone_prefill_decode_match_cpu(arch):
+    """Prefill logits and cache, then step-by-step decode over drawn
+    inputs (frame embeddings for musicgen-large), the card against the
+    CPU (atol 1e-4; the cache 1e-4 · max(1, max|c|))."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    dev = _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.smoke_arch(arch)
+    params = T.init_params(cfg, seed=0)
+    on_card = tm.tree_map(lambda x: x.to(dev), params)
+    x, _ = _backbone_inputs(cfg, 2, 12, 2)
+    with torch.no_grad():
+        lc, cc = T.prefill(cfg, params, x[:, :8], 16)
+        lg, cg = T.prefill(cfg, on_card, x[:, :8].to(dev), 16)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        for key in cc:
+            torch.testing.assert_close(
+                cg[key].cpu(), cc[key], rtol=0,
+                atol=1e-4 * max(1.0, cc[key].abs().max().item()), msg=key)
+        for pos in range(8, 12):
+            lc, cc = T.decode_step(cfg, params, cc, x[:, pos:pos + 1], pos)
+            lg, cg = T.decode_step(cfg, on_card, cg,
+                                   x[:, pos:pos + 1].to(dev), pos)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
