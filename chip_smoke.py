@@ -8,6 +8,7 @@
   python3 chip_smoke.py --paper-cpu PATH   # phase 6's CPU runs into PATH
                                            # (the script starts it itself)
   python3 chip_smoke.py --backbone  # phases 1, 2 and 8 alone
+  python3 chip_smoke.py --ckpt      # phases 1, 2 and 9 alone
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -439,6 +440,42 @@ Phases (each prints a line; any failure raises and exits non-zero):
      max|g|; both peaks and step walls.
    ``python3 chip_smoke.py --backbone`` runs phases 1, 2 and 8 alone.
 
+9. checkpoints and telemetry (``repro_torch.checkpoint``, ``obs``,
+   ``Engine.diagnostics`` through ``launch.train``); every line carries
+   the card's name and power limit:
+   - (ag) qwen2-0.5b at full width, W = 2 (one checkpoint is params + Δ,
+     2 × 2 × 1.98 GB; the directory's free space is printed first),
+     batch 8 × seq 64, vrl_sgd + sgd, k = 2, γ = 1e-3, ``--steps 8
+     --ckpt D --ckpt-every 4 --metrics --diag``, then ``--resume
+     D/ckpt-00000004`` with the same flags: steps 5-8's losses and the
+     step-8 checkpoint (every array) bitwise the uninterrupted run's;
+     fused_local_sgd 8 / fused_sync_vrl 4 and 4 / 2 launches; every diag
+     record's delta_residual · W within phase 4's Σ Δ bound (1e-4 ·
+     max|Δ|), no alarm, no non-finite worker; the stream's events those
+     of the reference.  Timed apart from the CLI: a save of the final
+     state (s, GB/s; the device memory it adds, at most one leaf; its file
+     bitwise the CLI's), a restore of it (s, GB/s; bitwise on the card)
+     and one ``diagnostics`` pass (ms).
+   - (ah) the step-4 file onto W = 4 through ``restore_resharded`` (what
+     ``--resume`` calls when ``--workers`` changed; timed): right after it
+     Σ_i Δ_i within phase 4's bound and the params rows the tiled saved
+     rows, bitwise; two more rounds through ``make_train_step``: finite
+     losses, fused_local_sgd 4 / fused_sync_vrl 2, one model-state worker
+     mean a round, Σ_i Δ_i after them within phase 4's bound with the x̂
+     rounding.  (``launch.train`` itself, as the reference's, refuses to
+     grow W past the saved data assignment's shards: shown in (ai).)
+   - (ai) the smoke width: an adam + SM3 state with bf16 moments (two
+     layout shards) and a hier (2, 2) + int8 + overlap state, each saved
+     after two rounds through the card's kernels and restored bitwise,
+     then two rounds from the restored state bitwise two more rounds of
+     the unbroken run; a gloo world-2 ``--mesh-grid`` run saving every 2
+     steps (rank 0 writes the one file), resumed by one process on the
+     card: its losses and final checkpoint bitwise the one-process run's;
+     then ``--workers 4 --resume`` of its step-2 file: the CLI's
+     resharding line printed, then its refusal, the reference's, to
+     re-split two saved data shards over four workers.
+   The directories are removed at the phase's end.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -455,6 +492,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4384,6 +4422,415 @@ def backbone_phase(dev, vu, fa, ss, card) -> list:
           f"{time.time() - START:.1f} s", flush=True)
     return res
 
+# ----------------------------------------------------------------- phase 9
+CKPT_DIR = os.path.join(ROOT, ".chip_smoke_ckpt")   # git-ignored
+CKPT_ARGS = ["--arch", "qwen2-0.5b", "--workers", "2", "--batch", "8",
+             "--seq", "64", "--steps", "8", "--k", "2", "--lr", str(MAIN_LR),
+             "--log-every", "1", "--diag", "--ckpt-every", "4"]
+CKPT_LAUNCHES = {"fused_local_sgd": 8, "fused_sync_vrl": 4}
+CKPT_RESUMED_LAUNCHES = {"fused_local_sgd": 4, "fused_sync_vrl": 2}
+CKPT_SMOKE = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--batch",
+              "2", "--seq", "32", "--steps", "6", "--k", "2", "--lr", str(LR),
+              "--ckpt-every", "2"]
+# (ai): VRLConfig fields over a small template, W = 4
+CKPT_STATES = {
+    "adam+sm3, bf16 moments, 2 shards": dict(
+        algorithm="vrl_sgd", inner_optimizer="adam", sm3=True,
+        moment_dtype="bfloat16", shards=2),
+    "hier (2, 2)+int8+overlap": dict(algorithm="hier_vrl_sgd",
+                                     compress="int8", overlap=True)}
+
+
+class _Tee:
+    """stdout, copied into a buffer (to read what a CLI printed)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def counting_means():
+    """Count ``comm.collectives.worker_mean`` calls by kind ("state": the
+    model-state means of a round, on one process a reduction over the
+    worker dim)."""
+    from repro_torch.comm import collectives as coll
+    orig, counts = coll.worker_mean, {}
+
+    def counted(mesh, buf, dim, axes, *, kind="state", **kw):
+        counts[kind] = counts.get(kind, 0) + 1
+        return orig(mesh, buf, dim, axes, kind=kind, **kw)
+    coll.worker_mean = counted
+    try:
+        yield counts
+    finally:
+        coll.worker_mean = orig
+
+
+def npz_path(d):
+    return os.path.join(d, "arrays.npz")
+
+
+def same_checkpoint(tag, a, b) -> int:
+    """Every array of checkpoints ``a`` and ``b`` bitwise equal, read one
+    key at a time; returns the bytes compared."""
+    from repro_torch.checkpoint import ArrayFile
+    with ArrayFile(npz_path(a)) as fa, ArrayFile(npz_path(b)) as fb:
+        keys = sorted(k for k in fa.files if k != "__meta__")
+        if keys != sorted(k for k in fb.files if k != "__meta__"):
+            raise AssertionError(f"{tag}: keys {keys} vs {fb.files}")
+        n = 0
+        for k in keys:
+            x, y = fa[k], fb[k]
+            if (x.dtype, x.shape) != (y.dtype, y.shape) or \
+                    not np.array_equal(x.reshape(-1).view(np.uint8),
+                                       y.reshape(-1).view(np.uint8)):
+                raise AssertionError(f"{tag}: {k} differs")
+            n += x.nbytes
+    return n
+
+
+def ckpt_bound(res, w=2, k=2, lr=MAIN_LR) -> tuple:
+    """Phase 4's Σ Δ bound over a CLI run's log (``cli_path`` with
+    ``rounding``): 1e-4 · the largest |Δ| it logged plus the fp32 rounding
+    of x̂ its syncs keep, 2 W ulp(max|p|)/(k γ) each."""
+    max_d = max(m for _, _, m in res.invariant)
+    ulp = float(np.spacing(np.float32(max(m for _, m in res.param_max))))
+    syncs = len(res.losses) // k
+    return 1e-4 * max_d + syncs * 2 * w * ulp / (k * lr), max_d
+
+
+def ckpt_full_width(dev, vu, card, launch) -> str:
+    """(ag): the uninterrupted run, the resumed run, the timed save,
+    restore and diagnostics pass; returns the step-4 checkpoint."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm import compressors as comm_mod
+    from repro_torch.obs import diagnostics as obs_diag
+    from repro_torch.obs.metrics import read_metrics
+    d1, d2 = (os.path.join(CKPT_DIR, n) for n in ("run", "resumed"))
+    m1, m2 = (os.path.join(CKPT_DIR, n) for n in ("run.jsonl",
+                                                   "resumed.jsonl"))
+    vu.reset_launches()
+    full = launch.run(CKPT_ARGS + ["--ckpt", d1, "--metrics", m1])
+    check_launches("(ag) uninterrupted", dict(vu.LAUNCHES), CKPT_LAUNCHES)
+    n_run = {k: v for k, v in vu.LAUNCHES.items() if v}
+    vu.reset_launches()
+    res = launch.run(CKPT_ARGS + ["--ckpt", d2, "--metrics", m2,
+                                  "--resume", ckpt.step_dir(d1, 4)])
+    check_launches("(ag) resumed", dict(vu.LAUNCHES), CKPT_RESUMED_LAUNCHES)
+    if res.start_step != 4 or res.losses != full.losses[4:]:
+        raise AssertionError(f"(ag): resumed losses {res.losses} vs "
+                             f"{full.losses[4:]}")
+    nbytes = same_checkpoint("(ag) step 8", ckpt.step_dir(d1, 8),
+                             ckpt.step_dir(d2, 8))
+    limit, max_d = ckpt_bound(full)
+    recs = read_metrics(m1) + read_metrics(m2)
+    diags = [r for r in recs if r["event"] == "diag"]
+    worst = max(r["delta_residual"] for r in diags)
+    if worst * 2 > limit or any(r["alarms"] or r["nonfinite_workers"]
+                                for r in diags):
+        raise AssertionError(f"(ag): diag records {diags} against the "
+                             f"bound {limit} / W")
+    events = [r["event"] for r in read_metrics(m2)]
+    if events != (["run_start", "restore"] + ["round", "sync", "diag",
+                                              "eval"] * 2
+                  + ["checkpoint", "run_end"]):
+        raise AssertionError(f"(ag): resumed stream events {events}")
+    phases = read_metrics(m1)[-1]["phases"]
+    cli_save = phases["checkpoint"]["total_s"] / phases["checkpoint"]["n"]
+    print(f"[9 ckpt (ag)] qwen2-0.5b W = 2: the resumed steps 5-8 bitwise "
+          f"({['%.6f' % x for x in res.losses]}), the step-8 checkpoint "
+          f"bitwise ({nbytes / 1e9:.2f} GB compared); launches {n_run} "
+          f"uninterrupted, {CKPT_RESUMED_LAUNCHES} resumed; "
+          f"{len(diags)} diag records, max delta_residual · W "
+          f"{2 * worst:.3e} <= {limit:.3e} (1e-4 · max|Δ| {1e-4 * max_d:.3e} "
+          f"+ x̂ rounding); CLI save "
+          f"{cli_save:.2f} s a checkpoint; {card}", flush=True)
+    # the timed save, restore and diagnostics pass, on the final state
+    eng, state = full.engine, full.state
+    comps = comm_mod.pair_meta(eng.compressors)
+    vrl_moments = ckpt.moments_meta(launch.vrl_config(
+        launch.parse_args(CKPT_ARGS)))
+    d3 = os.path.join(CKPT_DIR, "timed")
+    free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ckpt.save_flat_state(d3, state, eng.spec, meta={"step": 8},
+                         compressors=comps, moments=vrl_moments)
+    save_s = time.perf_counter() - t0
+    grow = torch.cuda.max_memory_allocated() - base
+    leaf = max(x.numel() * x.element_size() for x in (state.params,
+                                                      state.delta))
+    if grow > leaf:
+        raise AssertionError(f"(ag): the save grew the device memory by "
+                             f"{grow} B, more than one leaf ({leaf} B)")
+    size = os.path.getsize(npz_path(d3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = ckpt.restore_flat_state(d3, state, eng.spec, compressors=comps,
+                                   moments=vrl_moments)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not (torch.equal(back.params, state.params)
+            and torch.equal(back.delta, state.delta)
+            and back.params.device == state.params.device):
+        raise AssertionError("(ag): the timed restore is not the state")
+    del back
+    shutil.rmtree(d3)
+    free()
+    eng.diagnostics(state)                  # warm
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = obs_diag.to_record(eng.diagnostics(state))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"[9 ckpt (ag)] save {size / 1e9:.3f} GB in {save_s:.2f} s "
+          f"({size / 1e9 / save_s:.2f} GB/s; device memory grew "
+          f"{grow} B, one leaf is {leaf} B), restore {restore_s:.2f} s "
+          f"({size / 1e9 / restore_s:.2f} GB/s) onto {dev}; one "
+          f"diagnostics pass {sorted(ms)[1]:.1f} ms (median of "
+          f"{['%.1f' % x for x in ms]}): {obs_diag.describe(rec)}; {card}",
+          flush=True)
+    del full, res, state
+    free()
+    return ckpt.step_dir(d1, 4)
+
+
+def ckpt_reshard(dev, vu, card, launch, path):
+    """(ah): W = 2's step-4 file onto W = 4 through ``restore_resharded``
+    (what ``launch.train --resume`` calls when ``--workers`` changed), then
+    two rounds through ``make_train_step``.  (The CLI itself, as the
+    reference's, refuses to grow past the saved data assignment's shards:
+    ``ckpt_mesh`` shows that at the smoke width.)"""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.train.train_loop import make_train_step
+    argv = list(CKPT_ARGS)
+    argv[argv.index("--workers") + 1] = "4"
+    args = launch.parse_args(argv)
+    vrl = launch.vrl_config(args)
+    cfg = (registry.smoke_arch if args.smoke else registry.get_arch)(
+        args.arch)
+    bundle = make_train_step(cfg, vrl, remat=not args.smoke, device=dev,
+                             timed=dev.type == "cuda")
+    eng = bundle.engine
+    state = bundle.init_state(0, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ckpt.restore_resharded(path, state, eng.spec, compressors=None,
+                                   moments=ckpt.moments_meta(vrl))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    sum_d, max_d = engine_mod.sum_invariant(state.delta)
+    if not sum_d <= 1e-4 * max_d:
+        raise AssertionError(f"(ah): Σ_i Δ_i {sum_d} after the resharded "
+                             f"restore, max|Δ| {max_d}")
+    with ckpt.ArrayFile(npz_path(path)) as f:
+        saved = f["params"]
+    for j in range(4):
+        if not torch.equal(state.params[j].cpu(),
+                           torch.from_numpy(saved[j % 2])):
+            raise AssertionError(f"(ah): params row {j} is not saved row "
+                                 f"{j % 2}")
+    del saved
+    data = assigned_token_stream(contiguous_assignment(4, 4), args.seq,
+                                 cfg.vocab_size, steps=args.steps,
+                                 batch=args.batch, alpha=args.alpha,
+                                 seed=args.seed)
+    vu.reset_launches()
+    losses, max_p = [], amax(state.params)
+    with counting_means() as means:
+        for t in (4, 6):
+            toks = torch.from_numpy(data[t:t + 2]).to(dev, torch.long)
+            state, loss = bundle.round_step(state, toks,
+                                            torch.roll(toks, -1, dims=-1))
+            losses += loss.tolist()
+            max_p = max(max_p, amax(state.params))
+    check_launches("(ah)", dict(vu.LAUNCHES), CKPT_RESUMED_LAUNCHES)
+    if means.get("state") != 2 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"(ah): worker means {means}, losses {losses}")
+    # after the two syncs Σ Δ holds phase 4's bound with the x̂ rounding
+    # (here Δ is the rounding residue of params near 1e8: the restored Δ,
+    # ~5e10, folded in and cancelled)
+    sum_d2, max_d2 = engine_mod.sum_invariant(state.delta)
+    limit2 = 1e-4 * max_d2 + 2 * 2 * 4 * float(np.spacing(np.float32(
+        max_p))) / (2 * args.lr)
+    if not sum_d2 <= limit2:
+        raise AssertionError(f"(ah): Σ_i Δ_i {sum_d2} after two rounds, "
+                             f"limit {limit2}")
+    del state, bundle, eng
+    free()
+    print(f"[9 ckpt (ah)] resharded 2 -> 4 workers in {restore_s:.2f} s: "
+          f"right after the restore max|Σ_i Δ_i| {sum_d:.3e} <= 1e-4 · "
+          f"max|Δ| {1e-4 * max_d:.3e}, params rows the tiled saved rows "
+          f"(bitwise); two rounds: losses {['%.4f' % x for x in losses]}, "
+          f"one model-state worker mean a round ({means}), launches "
+          f"{CKPT_RESUMED_LAUNCHES}, after them max|Σ_i Δ_i| {sum_d2:.3e} "
+          f"<= {limit2:.3e} (1e-4 · max|Δ| {max_d2:.3e} + x̂ rounding at "
+          f"max|p| {max_p:.3e}); {card}", flush=True)
+
+
+def ckpt_states(dev, vu, card):
+    """(ai) states: saved and restored bitwise, then continued bitwise."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree as tm
+    from repro_torch.comm import compressors as comm_mod
+    from repro_torch.configs.base import EngineConfig, HierConfig, VRLConfig
+    from repro_torch.core import engine as engine_mod
+    tpl = {"w": (48, 40), "b": (70,), "u": (3, 5, 33)}
+    rng = np.random.RandomState(9)
+    p0 = {k: rng.randn(*s).astype(np.float32) for k, s in tpl.items()}
+    for tag, kw in CKPT_STATES.items():
+        kw = dict(kw)
+        comp, shards = kw.pop("compress", None), kw.pop("shards", 1)
+        vrl = VRLConfig(comm_period=2, learning_rate=LR, warmup=False,
+                        compress=(comm_mod.parse_compressor(comp) if comp
+                                  else None),
+                        hier=(HierConfig(k1=2, k2=4, grid=(2, 2))
+                              if kw["algorithm"] == "hier_vrl_sgd"
+                              else None),
+                        engine=EngineConfig(block=8, shards=shards), **kw)
+        eng = engine_mod.make_engine(vrl, {k: torch.empty(s, device="meta")
+                                           for k, s in tpl.items()},
+                                     device=dev)
+        lead = tuple(eng.grid) if eng.grid is not None else (4,)
+
+        def fresh():
+            return eng.init({k: torch.from_numpy(v).to(dev)
+                             for k, v in p0.items()}, 4)
+
+        def rounds(state, seeds):
+            for seed in seeds:
+                g = np.zeros((2, 4, eng.spec.rows * eng.spec.lanes),
+                             np.float32)
+                g[..., :eng.spec.size] = np.random.RandomState(
+                    seed).randn(2, 4, eng.spec.size)
+                state = eng.round_step_flat(state, torch.from_numpy(
+                    g.reshape(2, *lead, eng.spec.rows, eng.spec.lanes)
+                ).to(dev))
+            return state
+
+        def host(state):
+            return {k: (v.cpu().clone() if isinstance(v, torch.Tensor)
+                        else v) for k, v in tm.state_leaves(state)}
+
+        vu.reset_launches()
+        state = rounds(fresh(), (1, 2))
+        d = os.path.join(CKPT_DIR, "states")
+        meta = dict(grid=eng.grid,
+                    compressors=comm_mod.pair_meta(eng.compressors),
+                    moments=ckpt.moments_meta(vrl))
+        ckpt.save_flat_state(d, state, eng.spec, **meta)
+        saved = host(state)
+        unbroken = host(rounds(state, (3, 4)))
+        restored = ckpt.restore_flat_state(d, fresh(), eng.spec, **meta)
+        again = host(restored)
+        cont = host(rounds(restored, (3, 4)))
+        for name, got, want in (("restored", again, saved),
+                                ("continued", cont, unbroken)):
+            for k, v in want.items():
+                g = got[k]
+                same = (g == v if not isinstance(v, torch.Tensor) else
+                        g.dtype == v.dtype and torch.equal(
+                            g.view(torch.int16) if g.dtype ==
+                            torch.bfloat16 else g,
+                            v.view(torch.int16) if v.dtype ==
+                            torch.bfloat16 else v))
+                if not same:
+                    raise AssertionError(f"(ai) {tag}: {name} {k} differs")
+        dtypes = sorted({str(v.dtype).replace("torch.", "")
+                         for v in saved.values()
+                         if isinstance(v, torch.Tensor)})
+        print(f"[9 ckpt (ai)] {tag}: {len(saved)} leaves ({dtypes}) saved "
+              f"and restored bitwise, two more rounds from the restored "
+              f"state bitwise the unbroken run's; launches "
+              f"{ {k: v for k, v in vu.LAUNCHES.items() if v} }; {card}",
+              flush=True)
+        shutil.rmtree(d)
+
+
+def ckpt_mesh(vu, card, launch):
+    """(ai) mesh: gloo world 2 saves, one process on the card resumes."""
+    from repro_torch import checkpoint as ckpt
+    dm, d1, d2 = (os.path.join(CKPT_DIR, n) for n in ("mesh", "one",
+                                                      "resumed_one"))
+    out, log = (os.path.join(CKPT_DIR, n) for n in ("mesh.json",
+                                                    "mesh.txt"))
+    ranks = ranks_result("(ai) mesh", start_ranks(
+        CKPT_SMOKE + ["--ckpt", dm], 2, out, log), out, log, 2)
+    if "gloo" not in ranks[0]["backend"]:
+        raise AssertionError(f"(ai) mesh: backend {ranks[0]['backend']}")
+    one = launch.run(CKPT_SMOKE + ["--ckpt", d1])
+    same_checkpoint("(ai) mesh vs one process", ckpt.step_dir(dm, 6),
+                    ckpt.step_dir(d1, 6))
+    res = launch.run(CKPT_SMOKE + ["--ckpt", d2, "--resume",
+                                   ckpt.step_dir(dm, 2)])
+    if res.losses != one.losses[2:] or ranks[0]["losses"] != one.losses:
+        raise AssertionError(f"(ai) mesh: losses {ranks[0]['losses']}, "
+                             f"resumed {res.losses}, one process "
+                             f"{one.losses}")
+    same_checkpoint("(ai) resumed at world 1", ckpt.step_dir(d2, 6),
+                    ckpt.step_dir(d1, 6))
+    # the CLI's resharded resume printing its line, then refusing (as the
+    # reference's) to re-split two saved shards over four workers
+    argv = list(CKPT_SMOKE)
+    argv[argv.index("--workers") + 1] = "4"
+    tee, refused = _Tee(sys.stdout), None
+    with contextlib.redirect_stdout(tee):
+        try:
+            launch.run(argv + ["--resume", ckpt.step_dir(dm, 2)])
+        except SystemExit as e:
+            refused = str(e)
+    if "resume: resharding 2 -> 4 workers" not in "".join(tee.text) or \
+            not (refused and "cannot give every worker an index" in refused):
+        raise AssertionError(f"(ai): the W = 4 resume exited {refused!r}")
+    gathers = ranks[0]["collectives"].get("checkpoint")
+    print(f"[9 ckpt (ai)] gloo world 2 saved every 2 steps (rank 0 wrote "
+          f"the one file, gathers {gathers}; model-state all-reduces "
+          f"{ranks[0]['collectives']['state']}); its step-6 file bitwise "
+          f"the one process's; one process on the card resumed its step-2 "
+          f"file: steps 3-6 and the step-6 file bitwise; at --workers 4 the "
+          f"CLI printed its resharding line and refused: {refused}; {card}",
+          flush=True)
+
+
+def ckpt_phase(dev, vu, card) -> None:
+    """Phase 9: (ag), (ah), (ai); the directories removed at the end."""
+    from repro_torch.launch import train as launch
+    t9 = time.time() - START
+    free()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    usage = shutil.disk_usage(CKPT_DIR)
+    need = 3 * 2 * 2 * FULL[1] * FULL[2] * 4        # three W = 2 saves
+    print(f"[9 ckpt] from {t9:.1f} s of the script; {CKPT_DIR}: "
+          f"{usage.free / 1e9:.1f} GB free of {usage.total / 1e9:.1f} GB, "
+          f"(ag) writes {need / 1e9:.1f} GB; {card}", flush=True)
+    if usage.free < 1.2 * need:
+        raise AssertionError(f"phase 9 needs {need / 1e9:.1f} GB on "
+                             f"{CKPT_DIR}; {usage.free / 1e9:.1f} GB free")
+    try:
+        step4 = ckpt_full_width(dev, vu, card, launch)
+        ckpt_reshard(dev, vu, card, launch, step4)
+        ckpt_states(dev, vu, card)
+        ckpt_mesh(vu, card, launch)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"[9 ckpt] {time.time() - START - t9:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4425,6 +4872,9 @@ def main() -> int:
 
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
+        return 0
+    if "--ckpt" in sys.argv[1:]:
+        ckpt_phase(dev, vu, card)
         return 0
     if "--lr-sweep" in sys.argv[1:]:
         for tag, path in (("b", path_b), ("f", path_f), ("j", path_j)):
@@ -4646,6 +5096,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 8 backbone
     backbone_phase(dev, vu, fa, ss, card)
+
+    # ------------------------------------------------------ 9 checkpoints
+    ckpt_phase(dev, vu, card)
 
     kernels = []
     for name in KERNELS:

@@ -6,14 +6,16 @@ pod-major over a ("pod", "data") rank grid, each holding one contiguous
 block of the worker grid, with a process group over both axes and one
 per axis (``launch.mesh.make_engine_mesh`` builds it).
 
-Every collective goes through ``WorkerMesh.all_reduce``, which counts its
-calls, bytes and asynchronous issues per kind and group in ``COUNTS``.
-The kinds:
+Every collective goes through ``WorkerMesh.all_reduce`` (or, for a
+checkpoint, ``WorkerMesh.gather``), which counts its calls, bytes and
+asynchronous issues per kind and group in ``COUNTS``.  The kinds:
 
   * "state" — the model-state means of a round (its communication);
   * "scalar" — the reported loss;
-  * "eval" — the evaluation model x̂ and the log's sums, outside the round;
-  * "setup" — once per run, before training.
+  * "eval" — the evaluation model x̂, the log's sums and the diagnostics
+    pass, outside the round;
+  * "setup" — once per run, before training;
+  * "checkpoint" — a save's gather of every rank's block to rank 0.
 
 ``worker_sum`` and ``worker_mean`` are the reductions over the workers of
 a buffer, one rule for the engine and the log: a local reduction over the
@@ -88,6 +90,17 @@ class WorkerMesh:
         return dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None
                                else op, group=self.groups[axes],
                                async_op=async_op)
+
+    def gather(self, tensor: torch.Tensor, gather_list, *,
+               kind: str = "checkpoint") -> None:
+        """``dist.gather`` of every rank's ``tensor`` (same shape on all)
+        into rank 0's ``gather_list`` (None elsewhere), in rank order over
+        the whole grid, counted under ``kind``."""
+        rec = COUNTS.setdefault(kind, {}).setdefault(
+            "+".join(AXES), {"calls": 0, "bytes": 0, "async": 0})
+        rec["calls"] += 1
+        rec["bytes"] += tensor.numel() * tensor.element_size()
+        dist.gather(tensor, gather_list, dst=0, group=self.groups[AXES])
 
 
 class PendingMean(NamedTuple):

@@ -59,6 +59,13 @@ inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16), with
 or without compression, overlap and deadlines; it refuses only what the
 reference refuses.
 
+``Engine.diagnostics`` is the reference's read-only health pass over a
+flat (or pod-major) state: drift against x̂, the Σ Δ (Σ B, per-level)
+residuals, the Δ-dispersion ζ² proxy, EF and moment norms, non-finite
+workers (``obs.diagnostics`` turns it into records).  It runs between
+rounds, in plain PyTorch reductions; on a mesh its sums are "eval"
+all-reduces, so a round keeps its one model-state all-reduce.
+
 The per-leaf reference executor (``ref_*``, ``ref_hier_*``) is the
 reference's oracle path, ported: per-leaf tensor math over the parameter
 tree (``types.WorkerState`` / ``HierState``), functional, the inner
@@ -73,6 +80,7 @@ import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_mod
 from repro_torch.comm import collectives as coll
@@ -761,6 +769,72 @@ def hier_average_model(state: HierState) -> Any:
     return tree_mod.tree_map(lambda x: x.mean(dim=(0, 1)), state.params)
 
 
+# ================================================================ diagnostics
+# The engines' read-only health pass (the reference's ``_core_diagnostics``
+# and ``_core_diag_hier``): plain PyTorch reductions between rounds, one
+# worker's slice at a time, so that no temporary outgrows a worker's
+# buffer.  On a mesh its sums over the workers and its scalars reach every
+# rank through all-reduces counted "eval", never "state".
+
+def _sq(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in fp32 (a 0-d tensor)."""
+    x = x.to(torch.float32)
+    return torch.sum(x * x)
+
+
+def _sq_rows(buf: torch.Tensor) -> torch.Tensor:
+    """Σ x² over a worker-stacked buffer, one worker slice at a time."""
+    rows = buf.reshape(-1, *buf.shape[-2:])
+    return sum(_sq(rows[i]) for i in range(rows.shape[0]))
+
+
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| (0-d) without an |x| temporary."""
+    return torch.linalg.vector_norm(x.to(torch.float32), float("inf"))
+
+
+def _nonfinite_rows(rows: torch.Tensor) -> torch.Tensor:
+    """How many of the (n, R, C) worker rows hold a non-finite value."""
+    return sum((~torch.isfinite(rows[i])).any().to(torch.float32)
+               for i in range(rows.shape[0]))
+
+
+def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
+    """This rank's partial sums and maxima -> every rank's: one "eval"
+    all-reduce each (SUM, MAX); as they are without a mesh."""
+    if mesh is None:
+        return sums, maxes
+    for vals, op in ((sums, None), (maxes, dist.ReduceOp.MAX)):
+        if vals:
+            v = torch.stack(list(vals.values()))
+            mesh.all_reduce(v, kind="eval", op=op)
+            vals.update(zip(vals, v))
+    return sums, maxes
+
+
+def _moment_sums(kind: str, sm3: bool, inner: Any, sums: dict) -> None:
+    """The moments' Σ x² into ``sums`` ("mu"; Adam's "nu": dense, or SM3's
+    row and lane stats together)."""
+    if kind == "sgd":
+        return
+    sums["mu"] = _sq_rows(inner if kind == "momentum" else inner.mu)
+    if kind == "adam":
+        sums["nu"] = (_sq(inner.nu.row) + _sq(inner.nu.col) if sm3
+                      else _sq_rows(inner.nu))
+
+
+def _moment_rms(kind: str, sm3: bool, fspec: flat.FlatSpec, n: float,
+                sums: dict, out: dict) -> None:
+    elems = float(fspec.rows * fspec.lanes)
+    if kind != "sgd":
+        out["mu_rms"] = torch.sqrt(sums["mu"] / (n * elems))
+    if kind == "adam":
+        cnt = (n * float(fspec.rows + fspec.shards * fspec.lanes) if sm3
+               else n * elems)
+        out["nu_rms"] = torch.sqrt(sums["nu"] / cnt)
+
+
+
 # ============================================================ fused executor
 class Engine(NamedTuple):
     """Bound flat-buffer-executor closures for one (algorithm, model) pair.
@@ -806,6 +880,9 @@ class Engine(NamedTuple):
     sync2: Any = None           # hier only: (state, out=None) -> state,
                                 # cross-pod
     grid: Any = None            # hier only: (P, D)
+    diagnostics: Any = None     # (state,) -> {name: 0-d tensor, and the
+                                # flat engine's (W,) drift_per_worker}: the
+                                # read-only health pass (obs.diagnostics)
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
@@ -1079,6 +1156,80 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         mesh its all-reduce counts as "eval", outside the round)."""
         return flat.unflatten_tree(fspec, _wmean(state.params, "eval"))
 
+    # the record's keys, decided by the configuration (the reference's)
+    diag_keys = ["params_rms", "drift_sq_mean", "drift_max",
+                 "drift_per_worker", "nonfinite_workers"]
+    if algo.use_delta:
+        diag_keys += ["delta_residual", "zeta_sq_proxy"]
+    if bias_on:
+        diag_keys += ["bias_residual"]
+    if ef_on:
+        diag_keys += ["ef_resid_rms"]
+    if kind != "sgd":
+        diag_keys += ["mu_rms"]
+    if kind == "adam":
+        diag_keys += ["nu_rms"]
+
+    @torch.no_grad()
+    def diagnostics(state: FlatWorkerState) -> dict:
+        """Algorithm-health figures in ONE read-only pass (the reference's
+        ``_core_diagnostics``), between rounds: ``zeta_sq_proxy`` is the
+        across-worker dispersion of the control variates, (1/n) Σᵢ ‖Δᵢ −
+        Δ̄‖², the runtime proxy for ζ²; ``delta_residual`` is ‖(1/n) Σᵢ
+        Δᵢ‖∞, the Σ Δ = 0 invariant's residual (``bias_residual`` the BVR
+        Σ B = 0 twin); drift is ‖xᵢ − x̂‖ per worker.  Leaves the state
+        untouched."""
+        p = state.params
+        w_l = p.shape[0]
+        n = float(w_l * world)
+        elems = float(fspec.rows * fspec.lanes)
+        sums = {"nonfinite": _nonfinite_rows(p), "params": _sq_rows(p)}
+        xhat = coll.worker_sum(mesh, p.to(torch.float32), 0).mul_(1.0 / n)
+        drift_w = torch.stack([_sq(p[i].to(torch.float32) - xhat)
+                               for i in range(w_l)])
+        del xhat
+        sums["drift"] = drift_w.sum()
+        maxes = {"drift": drift_w.max()}
+
+        def invariant(buf, res_key, disp_key=None):
+            s = coll.worker_sum(mesh, buf.to(torch.float32), 0)
+            maxes[res_key] = _amax(s)
+            if disp_key is not None:
+                mean = s.mul_(1.0 / n)
+                sums[disp_key] = sum(_sq(buf[i].to(torch.float32) - mean)
+                                     for i in range(w_l))
+
+        if algo.use_delta:
+            invariant(state.delta, "delta_residual", "zeta_sq_proxy")
+        if bias_on:
+            invariant(state.bias, "bias_residual")
+        if ef_on:
+            sums["ef"] = _sq_rows(state.comm.resid)
+        _moment_sums(kind, sm3, state.inner, sums)
+        sums, maxes = _global_scalars(mesh, sums, maxes)
+        out = {"nonfinite_workers": sums["nonfinite"],
+               "params_rms": torch.sqrt(sums["params"] / (n * elems)),
+               "drift_sq_mean": sums["drift"] * (1.0 / n),
+               "drift_max": torch.sqrt(maxes["drift"]),
+               "drift_per_worker": torch.sqrt(drift_w)}
+        if mesh is not None:
+            # every worker's entry on every rank ("eval"; entries are ≥ +0,
+            # so the zero-padded sum is exact)
+            full = torch.zeros(w_l * world, dtype=torch.float32,
+                               device=p.device)
+            full[mesh.rank * w_l:(mesh.rank + 1) * w_l] = drift_w
+            mesh.all_reduce(full, kind="eval")
+            out["drift_per_worker"] = torch.sqrt(full)
+        for key in ("delta_residual", "bias_residual"):
+            if key in maxes:
+                out[key] = maxes[key] * (1.0 / n)
+        if "zeta_sq_proxy" in sums:
+            out["zeta_sq_proxy"] = sums["zeta_sq_proxy"] * (1.0 / n)
+        if ef_on:
+            out["ef_resid_rms"] = torch.sqrt(sums["ef"] / (n * elems))
+        _moment_rms(kind, sm3, fspec, n, sums, out)
+        return {k: out[k] for k in diag_keys}
+
     return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
                   train_step=train_step, local_step=local_step, sync=sync,
                   average_model=avg_model, params_tree=params_tree,
@@ -1088,7 +1239,8 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   round_begin=round_begin if cfg.overlap else None,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp, comp2),
-                  misses=misses if cfg.overlap else None)
+                  misses=misses if cfg.overlap else None,
+                  diagnostics=diagnostics)
 
 
 # ============================================== hierarchical executor ("vrl2")
@@ -1389,6 +1541,69 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         return flat.unflatten_tree(fspec, coll.worker_mean(
             mesh, state.params, (0, 1), coll.AXES, kind="eval"))
 
+    diag_keys = ["params_rms", "drift_sq_mean", "drift_max",
+                 "nonfinite_workers", "delta1_residual", "delta2_residual",
+                 "zeta_sq_proxy"]
+    if ef1_on:
+        diag_keys += ["ef_resid_rms"]
+    if kind != "sgd":
+        diag_keys += ["mu_rms"]
+    if kind == "adam":
+        diag_keys += ["nu_rms"]
+
+    @torch.no_grad()
+    def diagnostics(state: HierFlatState) -> dict:
+        """The two-level twin of the flat pass (the reference's
+        ``_core_diag_hier``): ``delta1_residual`` is the worst pod's
+        ‖mean_d Δ1[p]‖∞ (Σ_d Δ1[p] = 0 within every pod),
+        ``delta2_residual`` ‖mean_p Δ2‖∞ (Σ_p Δ2 = 0); the ζ² proxy is
+        the dispersion of each worker's TOTAL correction Δ1 + Δ2."""
+        p = state.params
+        rows = p.reshape(-1, *p.shape[2:])
+        n_l = rows.shape[0]
+        n = float(p_total * d_total)
+        elems = float(fspec.rows * fspec.lanes)
+        sums = {"nonfinite": _nonfinite_rows(rows), "params": _sq_rows(p)}
+        xhat = coll.worker_sum(mesh, p.to(torch.float32),
+                               (0, 1)).mul_(1.0 / n)
+        drift_w = torch.stack([_sq(rows[i].to(torch.float32) - xhat)
+                               for i in range(n_l)])
+        del xhat
+        sums["drift"] = drift_w.sum()
+        maxes = {"drift": drift_w.max()}
+        d1, d2 = state.delta1, state.delta2
+        s1 = coll.worker_sum(mesh, d1.to(torch.float32), 1, ("data",))
+        maxes["delta1"] = _amax(s1.div_(float(d_total)))
+        s2 = coll.worker_sum(mesh, d2.to(torch.float32), (0, 1), ("pod",))
+        maxes["delta2"] = _amax(s2.div_(float(p_total)))
+        del s1, s2
+        # Σ over every worker of its total correction Δ1 + Δ2[pod]
+        csum = (d1.to(torch.float32).sum(dim=(0, 1))
+                + d2.to(torch.float32).sum(dim=(0, 1)) * float(d1.shape[1]))
+        if mesh is not None:
+            mesh.all_reduce(csum, kind="eval")
+        cmean = csum.mul_(1.0 / n)
+        sums["zeta"] = sum(
+            _sq(d1[i, j].to(torch.float32) + d2[i, 0].to(torch.float32)
+                - cmean)
+            for i in range(d1.shape[0]) for j in range(d1.shape[1]))
+        del cmean
+        if ef1_on:
+            sums["ef"] = _sq_rows(state.comm.resid1)
+        _moment_sums(kind, sm3, state.inner, sums)
+        sums, maxes = _global_scalars(mesh, sums, maxes)
+        out = {"params_rms": torch.sqrt(sums["params"] / (n * elems)),
+               "drift_sq_mean": sums["drift"] * (1.0 / n),
+               "drift_max": torch.sqrt(maxes["drift"]),
+               "nonfinite_workers": sums["nonfinite"],
+               "delta1_residual": maxes["delta1"],
+               "delta2_residual": maxes["delta2"],
+               "zeta_sq_proxy": sums["zeta"] * (1.0 / n)}
+        if ef1_on:
+            out["ef_resid_rms"] = torch.sqrt(sums["ef"] / (n * elems))
+        _moment_rms(kind, sm3, fspec, n, sums, out)
+        return {k: out[k] for k in diag_keys}
+
     return Engine(algorithm=cfg.algorithm, spec=fspec, algo=algo, init=init,
                   train_step=train_step, local_step=local_step, sync=sync,
                   average_model=avg_model, params_tree=params_tree,
@@ -1399,4 +1614,5 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp1, comp2),
                   misses=misses if cfg.overlap else None,
-                  sync1=sync1, sync2=sync2, grid=(p_total, d_total))
+                  sync1=sync1, sync2=sync2, grid=(p_total, d_total),
+                  diagnostics=diagnostics)

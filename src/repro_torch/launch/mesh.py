@@ -7,6 +7,8 @@ the data axis and p_r = world / d_r along the pod axis, so that ranks fill
 the data axis first (P % p_r == 0).  Each rank holds W / world workers
 ((P / p_r, D / d_r) for the hierarchy).  ``make_engine_mesh`` returns the
 ``comm.collectives.WorkerMesh`` the engine's worker means run over.
+``gather_state`` and ``state_block`` carry a checkpoint between a mesh
+and its one file.
 """
 from __future__ import annotations
 
@@ -14,8 +16,12 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
+from repro_torch import tree as tree_mod
+from repro_torch.checkpoint import Block
+from repro_torch.comm import collectives as coll
 from repro_torch.comm.collectives import AXES, WorkerMesh
 
 
@@ -76,3 +82,87 @@ def make_engine_mesh(workers: int, *, pods: int = 0) -> WorkerMesh:
         if rank // d_r == pi:
             groups[("data",)] = g
     return WorkerMesh((p_r, d_r), rank, groups)
+
+
+# ------------------------------------------------------------ checkpoints
+# A checkpoint is world-independent: the full worker grid, in the format of
+# a one-process save.  A meshed save gathers every rank's block to rank 0,
+# which writes the file; a meshed restore reads the file on every rank and
+# takes the rank's block of each leaf.
+
+def _span(key: str, hier: bool) -> str:
+    """How a state leaf lies over the ranks: "worker" (a block of the
+    worker grid: its leading dim, or the hierarchy's leading two), "pod"
+    (the hierarchy's per-pod (P, 1, ...) leaves, replicated along the data
+    axis) or "global" (the same on every rank)."""
+    top = key.split("/", 1)[0]
+    if not hier:
+        return "global" if top == "center" or key == "comm/ref" else "worker"
+    if key == "comm/ref2":
+        return "global"
+    if top in ("delta2", "overlap") or key in ("comm/ref1", "comm/resid2"):
+        return "pod"
+    return "worker"
+
+
+def state_block(mesh: WorkerMesh, pods: int = 0):
+    """The ``checkpoint.Block`` of this rank: its part of each saved leaf
+    (``pods``: the hierarchy's P, 0 for the flat algorithms)."""
+    hier = bool(pods)
+    (pi, di), (p_r, d_r), world = mesh.coords, mesh.shape, mesh.size()
+
+    def full_shape(key: str, shape: tuple) -> tuple:
+        span = _span(key, hier)
+        if not shape or span == "global":
+            return tuple(shape)
+        if not hier:
+            return (shape[0] * world, *shape[1:])
+        if span == "pod":
+            return (shape[0] * p_r, *shape[1:])
+        return (shape[0] * p_r, shape[1] * d_r, *shape[2:])
+
+    def take(key: str, arr: np.ndarray) -> np.ndarray:
+        span = _span(key, hier)
+        if arr.ndim == 0 or span == "global":
+            return arr
+        if not hier:
+            w = arr.shape[0] // world
+            return arr[mesh.rank * w:(mesh.rank + 1) * w]
+        pl = arr.shape[0] // p_r
+        if span == "pod":
+            return arr[pi * pl:(pi + 1) * pl]
+        dl = arr.shape[1] // d_r
+        return arr[pi * pl:(pi + 1) * pl, di * dl:(di + 1) * dl]
+
+    return Block(take, full_shape)
+
+
+def gather_state(mesh: WorkerMesh, state, pods: int = 0):
+    """The full state (every rank's block of each leaf, as host tensors)
+    on rank 0, None on the other ranks: one gather a leaf, counted
+    "checkpoint"."""
+    hier = bool(pods)
+    root = mesh.rank == 0
+    p_r, d_r = mesh.shape
+
+    def one(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if _span(key, hier) == "global":
+            return leaf.detach().cpu() if root else None
+        x = leaf.detach().to(coll.wire_device(mesh)).contiguous()
+        parts = ([torch.empty_like(x) for _ in range(mesh.size())] if root
+                 else None)
+        mesh.gather(x, parts)
+        if not root:
+            return None
+        parts = [q.cpu() for q in parts]
+        if not hier:
+            return torch.cat(parts, 0)
+        if _span(key, hier) == "pod":
+            return torch.cat([parts[pi * d_r] for pi in range(p_r)], 0)
+        return torch.cat([torch.cat(parts[pi * d_r:(pi + 1) * d_r], 1)
+                          for pi in range(p_r)], 0)
+
+    full = tree_mod.state_map(one, state)
+    return full if root else None

@@ -100,12 +100,46 @@ without, as in the reference.  A codec architecture (musicgen-large)
 takes frame embeddings, not the token stream: the CLI refuses it, and
 ``make_train_step`` runs it.
 
-Not ported yet (ROADMAP Queue 1): membership and faults, client
-sampling, checkpoints, diagnostics and telemetry, row shards on a mesh.
+Checkpoints (``repro_torch.checkpoint``, the JAX package's file format:
+a checkpoint written by either package's CLI resumes in the other):
+``--ckpt DIR --ckpt-every N`` saves the state atomically into
+``DIR/ckpt-XXXXXXXX/`` every N steps (at the round that crosses a
+multiple of N), with a ``latest`` pointer and ``--ckpt-retain`` (default
+3, 0 keeps all) step dirs kept; each save records the step, arch, worker
+count and data assignment beside the engine's layout, compressors and
+moment storage.  ``--resume PATH`` restores a step dir (``--resume auto``
+the newest complete one under ``--ckpt``, or starts fresh), resharding
+the flat state when ``--workers`` differs from the save (rows tiled, Δ
+and B recentred, EF residuals dropped) and re-splitting the saved data
+assignment (which, as in the reference, cannot grow the workers past
+its shard count); a checkpoint at or past ``--steps`` only evaluates the
+restored model.  Under ``--mesh-grid`` a save gathers every rank's block
+to rank 0, which writes the one file; a resume reads it on every rank.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32 \\
+      --lr 0.05 --ckpt /tmp/run --ckpt-every 2 --metrics run.jsonl --diag
+  PYTHONPATH=src python -m repro_torch.launch.train ... --resume auto
+  python -m repro_torch.obs.report run.jsonl
+
+Telemetry (``repro_torch.obs``): ``--metrics PATH`` streams the
+reference's schema-versioned JSONL events (``run_start`` with the run's
+description and measured wire bytes, then ``restore``, ``round``,
+``sync``, ``diag``, ``eval``, ``checkpoint``, ``tail`` and ``run_end``
+with the phase timers), readable by either package's report.  ``--diag``
+prints the engine's read-only health pass (``Engine.diagnostics``: drift,
+the ζ² proxy, the Σ Δ / Σ B residuals, EF and moment norms, non-finite
+workers) at the log cadence; ``--invariant-alarm X`` prints an alarm
+when a residual exceeds X and the run continues (the reference's
+behaviour without ``--guard``).
+
+Not ported yet (ROADMAP Queue 1): membership and faults (``--faults``,
+``--guard``), client sampling (``--clients``), row shards on a mesh.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -115,6 +149,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import tree as tree_mod
 from repro_torch.comm import collectives as coll
 from repro_torch.comm import compressors as comm_mod
@@ -124,9 +159,13 @@ from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.data import assigned_token_stream, contiguous_assignment
+from repro_torch.data import partition as partition_mod
 from repro_torch.kernels import vrl_update
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
+from repro_torch.obs import diagnostics as obs_diag
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.timers import PhaseTimers
 from repro_torch.train.loss import cross_entropy_lm
 from repro_torch.train.train_loop import make_train_step
 
@@ -161,6 +200,8 @@ class TrainResult(NamedTuple):
                                 # during a round (0 on the CPU)
     collectives: Any = None     # --mesh-grid: this rank's coll.COUNTS
     rank: int = 0               # --mesh-grid: this process's rank
+    start_step: int = 0         # --resume: the restored checkpoint's step
+                                # (``losses`` cover the steps after it)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -249,6 +290,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write the run's losses, logged sums and counts "
                          "as JSON here (per rank under --mesh-grid: "
                          "PATH.rank<r>)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint ROOT dir: saves land in per-step "
+                         "ckpt-XXXXXXXX/ subdirs with an atomic 'latest' "
+                         "pointer (each save is temp-file + rename, so a "
+                         "kill mid-save never tears a checkpoint)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-retain", type=int, default=3,
+                    help="keep only the newest N step checkpoints "
+                         "(0 = keep all)")
+    ap.add_argument("--resume", default=None,
+                    help="'auto' resumes from the newest complete "
+                         "checkpoint under --ckpt (fresh start if none); "
+                         "a path resumes from that step dir.  If "
+                         "--workers differs from the save, the flat state "
+                         "is RESHARDED (rows tiled, Δ recentred to Σ=0, "
+                         "EF residuals dropped); layout/compressor/moment "
+                         "mismatches still fail loudly")
+    ap.add_argument("--metrics", default=None,
+                    help="stream schema-versioned JSONL telemetry events "
+                         "here (run_start/round/sync/diag/eval/checkpoint/"
+                         "restore/tail/run_end); render with python -m "
+                         "repro_torch.obs.report")
+    ap.add_argument("--diag", action="store_true",
+                    help="print the engine's algorithm-health diagnostics "
+                         "at the log cadence: drift dispersion, the "
+                         "Δ-dispersion ζ² proxy, Σ Δ / Σ B invariant "
+                         "residuals, EF/moment norms, non-finite worker "
+                         "count (one read-only pass between rounds)")
+    ap.add_argument("--invariant-alarm", type=float, default=0.0,
+                    help="alarm threshold on the Σ Δ / Σ B invariant "
+                         "residuals (0 = off): a tripped alarm prints and "
+                         "the run continues.  Under a lossy --compress "
+                         "the residual is genuinely nonzero (EF-bounded "
+                         "bias) — leave off or set above that floor")
     ap.add_argument("--profile-round", type=int, default=0,
                     help="run torch.profiler over the Nth round (1-based; "
                          "0 = off) and print its busiest operations and "
@@ -280,6 +355,18 @@ def parse_args(argv=None) -> argparse.Namespace:
             "layout only, and placing them on ranks needs an all-gather of "
             "the parameter rows before every forward (ROADMAP Queue 1); "
             "use --shards 1 on a mesh")
+    if args.ckpt_every <= 0:
+        raise SystemExit(f"--ckpt-every must be a positive step count, "
+                         f"got {args.ckpt_every}")
+    if args.ckpt_retain < 0:
+        raise SystemExit(f"--ckpt-retain must be >= 0 (0 keeps all), got "
+                         f"{args.ckpt_retain}")
+    if args.invariant_alarm < 0:
+        raise SystemExit(f"--invariant-alarm must be >= 0 (0 disables "
+                         f"the residual alarm), got {args.invariant_alarm}")
+    if args.resume == "auto" and not args.ckpt:
+        raise SystemExit("--resume auto finds checkpoints under --ckpt; "
+                         "pass --ckpt too")
     for flag in ("steps", "k", "workers", "batch", "seq", "log_every",
                  "pods"):
         if getattr(args, flag) < 1:
@@ -469,14 +556,135 @@ def _train(args: argparse.Namespace, device: torch.device,
         say(wire_banner(comps, es, state) if eng is not None else
             f"compress: {comm_mod.describe_pair(comps)} (per-leaf rows)")
 
+    # ----------------------------------------------------- observability
+    # --metrics streams the reference's JSONL events (rank 0 writes);
+    # --diag/--invariant-alarm run the engine's read-only diagnostics pass
+    # at the log cadence, between rounds (on a mesh every rank takes part:
+    # its sums are "eval" all-reduces, never the round's "state" one)
+    diag_wanted = args.diag or args.invariant_alarm > 0
+    if diag_wanted and eng is None:
+        raise SystemExit("--diag/--invariant-alarm read the flat engine "
+                         "state; --backend reference has none")
+    wire = obs_diag.wire_bytes_per_sync(eng)
+    mw = obs_metrics.NullWriter()
+    if args.metrics and (mesh is None or mesh.rank == 0):
+        mw = obs_metrics.MetricsWriter(args.metrics, run_meta={
+            "arch": args.arch, "smoke": bool(args.smoke),
+            "algorithm": args.algorithm, "workers": args.workers,
+            "clients": None, "batch": args.batch, "seq": args.seq,
+            "steps": args.steps, "k": args.k,
+            "k1": hier.k1 if hier else None,
+            "k2": hier.k2 if hier else None,
+            "lr": args.lr, "seed": args.seed,
+            "backend": args.backend, "resolved_backend": resolved,
+            "round_scan": bool(args.round), "overlap": bool(args.overlap),
+            "membership": False, "guard": False, "shards": args.shards,
+            "compress": comm_mod.pair_meta(comps), "faults": None,
+            "n_params": int(n_params), "wire": wire, "client_store": None,
+        })
+        say(f"metrics: streaming JSONL events -> {args.metrics}")
+    timers = PhaseTimers() if mw.active else None
+
+    def phase(name: str):
+        return (timers.phase(name) if timers is not None
+                else contextlib.nullcontext())
+    diag_fn = (eng.diagnostics if eng is not None
+               and (diag_wanted or args.metrics) else None)
+
+    # data assignment: one Dirichlet-skewed shard per worker to start; a
+    # resumed run re-splits the SAVED assignment instead (below)
     assignment = contiguous_assignment(args.workers, args.workers)
+    # every rank draws the same global data and trains its workers' slice
+    mine = (None if mesh is None else
+            mesh_mod.local_workers(mesh, args.workers, pods))
+    block = None if mesh is None else mesh_mod.state_block(mesh, pods)
+
+    def save_into(path: str, state, t: int) -> None:
+        meta = {"step": t, "arch": args.arch, "workers": args.workers,
+                "assignment": partition_mod.assignment_to_meta(assignment)}
+        if eng is None:
+            ckpt.save(path, state, meta=meta)
+            return
+        ckpt.save_flat_state(
+            path, state, eng.spec, meta=meta, grid=eng.grid,
+            compressors=comm_mod.pair_meta(eng.compressors),
+            moments=ckpt.moments_meta(vrl))
+
+    def checkpoint(state, t: int) -> None:
+        with phase("checkpoint"):
+            if mesh is not None:
+                state = mesh_mod.gather_state(mesh, state, pods)
+            if state is not None:           # rank 0 writes the one file
+                ckpt.save_step(args.ckpt, t,
+                               lambda path: save_into(path, state, t),
+                               retain=args.ckpt_retain)
+        say(f"checkpointed -> {ckpt.step_dir(args.ckpt, t)}")
+        mw.emit("checkpoint", t=t, killed=False,
+                path=str(ckpt.step_dir(args.ckpt, t)))
+
+    def load_from(path: str):
+        """Restore into the fresh state, resharding the worker axis when
+        the save's W differs from this run's (flat engine only)."""
+        recorded = ckpt.load_meta(path).get("meta", {})
+        if "clients" in recorded:
+            raise ValueError(
+                f"checkpoint is a client store ({recorded['clients']} "
+                f"clients); the port does not run --clients yet (ROADMAP "
+                f"Queue 1)")
+        if eng is None:
+            return ckpt.restore(path, state)
+        comps_meta = comm_mod.pair_meta(eng.compressors)
+        mom = ckpt.moments_meta(vrl)
+        if eng.grid is None:
+            w_saved = ckpt.saved_workers(path)
+            if w_saved != args.workers:
+                say(f"resume: resharding {w_saved} -> {args.workers} "
+                    f"workers (Δ recentred, EF residuals dropped)")
+                return ckpt.restore_resharded(
+                    path, state, eng.spec, compressors=comps_meta,
+                    moments=mom, block=block)
+        return ckpt.restore_flat_state(
+            path, state, eng.spec, grid=eng.grid, compressors=comps_meta,
+            moments=mom, block=block)
+
+    start_t = 0
+    if args.resume:
+        resume_path = args.resume
+        if args.resume == "auto":
+            found = ckpt.latest_step(args.ckpt)
+            resume_path = None if found is None else found[1]
+            if found is None:
+                say("resume auto: no complete checkpoint — fresh start")
+        if resume_path is not None:
+            try:
+                state = load_from(resume_path)
+            except (ValueError, KeyError, FileNotFoundError) as e:
+                raise SystemExit(f"--resume {args.resume}: {e}")
+            rec_meta = ckpt.load_meta(resume_path).get("meta", {})
+            start_t = int(rec_meta.get("step", start_t))
+            # data continuity: the SAVED shard assignment, re-split once
+            # (data.partition.repartition) when the worker count changed
+            saved = rec_meta.get("assignment")
+            if saved is not None:
+                saved = partition_mod.assignment_from_meta(saved)
+                if len(saved) != args.workers:
+                    say(f"resume: re-splitting saved data assignment "
+                        f"{len(saved)} -> {args.workers} units (shard "
+                        f"skews preserved)")
+                    try:
+                        assignment = partition_mod.repartition(
+                            saved, args.workers)
+                    except ValueError as e:
+                        raise SystemExit(f"--resume {args.resume}: {e}")
+                else:
+                    assignment = saved
+            say(f"resumed step {start_t} from {resume_path}")
+            mw.emit("restore", t=start_t, path=str(resume_path),
+                    workers=args.workers)
     data = assigned_token_stream(assignment, args.seq, cfg.vocab_size,
                                  steps=args.steps, batch=args.batch,
                                  alpha=args.alpha,
                                  identical=args.identical, seed=args.seed)
-    # every rank draws the same global data and trains its workers' slice
-    mine = (None if mesh is None else
-            mesh_mod.local_workers(mesh, args.workers, pods))
 
     def tokens(a: np.ndarray, local: bool = True) -> torch.Tensor:
         """Token ids of ``a`` (..., W, batch, seq): this rank's workers'
@@ -563,6 +771,50 @@ def _train(args: argparse.Namespace, device: torch.device,
         pend_k = _spread(mesh, ov.pend_k.flatten().cpu().numpy(), where, n)
         misses.append((t, mask, pend_k))
         say(f"deadline: fold at step {t}: misses {mask}, pend_k {pend_k}")
+    def diagnose(state, t: int, r: Optional[int] = None) -> None:
+        """The diagnostics pass, its alarms, its record and its line."""
+        with phase("diag"):
+            drec = obs_diag.to_record(diag_fn(state))
+        alarms = obs_diag.check_alarms(
+            drec, invariant_threshold=args.invariant_alarm)
+        drec["alarms"] = alarms
+        if alarms:
+            say("invariant alarm (no --guard, continuing): "
+                + "; ".join(alarms))
+        at = {"t": t} if r is None else {"t": t, "r": r}
+        mw.emit("diag", **at, **drec)
+        if args.diag:
+            say(f"diag: step {t:5d}" + ("" if r is None else
+                                        f" (round {r})")
+                + "  " + obs_diag.describe(drec))
+
+    def emit_final(steps_done: int, el: float, **extra) -> None:
+        """The run_end record (both ends of the run: the normal one and a
+        restored checkpoint at or past --steps)."""
+        mw.emit("run_end", steps=int(steps_done), final_loss=el,
+                avg_model_loss=el, **extra,
+                phases=timers.summary() if timers is not None else None)
+        mw.close()
+
+    if start_t >= args.steps:
+        say(f"resume: checkpoint step {start_t} >= --steps {args.steps} — "
+            f"nothing to do")
+        with phase("eval"):
+            el = float(eval_avg(state, args.steps - 1))
+        emit_final(start_t, el)
+        res = TrainResult(state=state, engine=eng, losses=[],
+                          avg_model_losses=[el], invariant=[],
+                          bias_invariant=[], ef_identity=[], level_terms=[],
+                          misses=[], param_max=[], wall_s=0.0, phases_ms={},
+                          round_peak_bytes=0, start_step=start_t,
+                          rank=0 if mesh is None else mesh.rank)
+        if args.loss_out:
+            write_loss_out(args.loss_out if mesh is None else
+                           f"{args.loss_out}.rank{mesh.rank}", res, args,
+                           device, backend)
+            say(f"loss-out: avg_model_loss {el:.4f} (restored checkpoint) "
+                f"-> {args.loss_out}")
+        return res
     warm_first = (sched is None and args.warmup
                   and engine_mod.get_spec(args.algorithm).warmup_aware)
     k_round = hier.k1 if hier is not None else args.k
@@ -575,7 +827,8 @@ def _train(args: argparse.Namespace, device: torch.device,
         if cuda:
             torch.cuda.synchronize(device)
         return time.perf_counter()
-    t, r = 0, 0
+    t, r = start_t, 0
+    ks = set()                  # the distinct round lengths run
     while t < args.steps and not vrl.engine.round_scan:
         # the reference's --no-round loop: one train_step a step, syncing
         # on the per-step cadence, a log line every --log-every steps
@@ -592,11 +845,18 @@ def _train(args: argparse.Namespace, device: torch.device,
         step_losses.append(loss[None])
         t += 1
         if t % args.log_every == 0 or t == 1 or t == args.steps:
-            el = float(eval_avg(state, t - 1))
+            with phase("eval"):
+                el = float(eval_avg(state, t - 1))
             avg_losses.append(el)
             say(f"step {t:5d}  local_loss {float(loss):.4f}  "
-                f"avg_model_loss {el:.4f}  ({wall / t:.2f}s/step)")
+                f"avg_model_loss {el:.4f}  "
+                f"({wall / (t - start_t):.2f}s/step)")
+            mw.emit("eval", t=t, local_loss=float(loss), avg_model_loss=el)
+            if diag_fn is not None:
+                diagnose(state, t)
             log_invariant(state, t)
+        if args.ckpt and t % args.ckpt_every == 0:
+            checkpoint(state, t)
     while t < args.steps:
         if sched is not None:
             rk = sched.period_starting_at(t)
@@ -609,23 +869,29 @@ def _train(args: argparse.Namespace, device: torch.device,
             # buffer, so the tail takes local steps only (its steps would
             # fold at a next boundary, which never comes)
             step_fn = bundle.local_step if args.overlap else bundle.train_step
-            t1 = clock()
             while t < args.steps:
                 toks = tokens(data[t])
                 labels = torch.roll(toks, -1, dims=-1)
+                t1 = clock()
                 state, loss = step_fn(state, toks, labels)
+                wall += clock() - t1
                 step_losses.append(loss[None])
                 t += 1
-            wall += clock() - t1
-            el = float(eval_avg(state, t - 1))
+                if args.ckpt and t % args.ckpt_every == 0:
+                    checkpoint(state, t)
+            with phase("eval"):
+                el = float(eval_avg(state, t - 1))
             avg_losses.append(el)
             say(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
                 f"avg_model_loss {el:.4f}  "
-                f"({wall / t:.2f}s/step)")
+                f"({wall / (t - start_t):.2f}s/step)")
+            mw.emit("tail", t=t, local_loss=float(loss), avg_model_loss=el)
             log_invariant(state, t)
             break
-        toks = tokens(data[t:t + rk])
-        labels = torch.roll(toks, -1, dims=-1)
+        with phase("data"):
+            toks = tokens(data[t:t + rk])
+            labels = torch.roll(toks, -1, dims=-1)
+        ks.add(rk)
         logged = ((r + 1) % args.log_every == 0 or r == 0
                   or t + rk >= args.steps)
         before = ((_tsum(state.delta, 0, mesh),
@@ -639,12 +905,15 @@ def _train(args: argparse.Namespace, device: torch.device,
             # temporaries of their own
             torch.cuda.reset_peak_memory_stats(device)
         t1 = clock()
-        if r + 1 == args.profile_round:
-            state, losses = profiled_round(bundle, state, toks, labels,
-                                           device, say, args.profile_dir)
-        else:
-            state, losses = bundle.round_step(state, toks, labels)
-        wall += clock() - t1
+        with phase("round"):
+            if r + 1 == args.profile_round:
+                state, losses = profiled_round(bundle, state, toks, labels,
+                                               device, say,
+                                               args.profile_dir)
+            else:
+                state, losses = bundle.round_step(state, toks, labels)
+            t2 = clock()
+        wall += t2 - t1
         if cuda:
             round_peak = max(round_peak,
                              torch.cuda.max_memory_allocated(device))
@@ -653,13 +922,23 @@ def _train(args: argparse.Namespace, device: torch.device,
         r += 1
         if args.deadline and state_folded(state, t):
             log_misses(state, t)
+        loss_r = float(losses.mean()) if (mw.active or logged) else None
+        mw.emit("round", t=t, r=r, k=rk, loss=loss_r,
+                wire_bytes=None if wire is None else wire["wire_bytes"])
+        mw.emit("sync", t=t, r=r, k_eff=rk, participants=args.workers,
+                wire_bytes=None if wire is None else wire["wire_bytes"],
+                wire_bytes2=None if wire is None else wire["wire_bytes2"])
+        if diag_fn is not None and logged:
+            diagnose(state, t, r)
         if logged:
-            el = float(eval_avg(state, t - 1))
+            with phase("eval"):
+                el = float(eval_avg(state, t - 1))
             avg_losses.append(el)
             say(f"step {t:5d} (round {r})  "
-                f"local_loss {float(losses.mean()):.4f}  "
+                f"local_loss {loss_r:.4f}  "
                 f"avg_model_loss {el:.4f}  "
-                f"({wall / t:.2f}s/step)")
+                f"({wall / (t - start_t):.2f}s/step)")
+            mw.emit("eval", t=t, r=r, local_loss=loss_r, avg_model_loss=el)
             log_invariant(state, t)
             if before is not None:
                 log_ef_identity(before, state, t, rk)
@@ -668,6 +947,8 @@ def _train(args: argparse.Namespace, device: torch.device,
                 say(f"             {rec['level']} {rec['kind']} term "
                     f"{rec['term']:.3e}  max|sum move - term| "
                     f"{rec['off']:.3e} (limit {rec['limit']:.3e})")
+        if args.ckpt and t // args.ckpt_every > (t - rk) // args.ckpt_every:
+            checkpoint(state, t)
     losses_host = torch.cat(step_losses).tolist()
     say(f"done: {args.steps} steps in {wall:.1f}s "
         + (f"({r} rounds)" if vrl.engine.round_scan else "(step by step)")
@@ -693,6 +974,14 @@ def _train(args: argparse.Namespace, device: torch.device,
                             for k, v in phases.items() if k != "fwd_bwd"})
               + f"; kernels: {json.dumps(vrl_update.LAUNCHES)} "
               f"collectives: {json.dumps(counts)}", flush=True)
+    # the run's end record: the averaged model's loss on the last step's
+    # data, which the last log line evaluated (the reference's emit_final)
+    end_meta = {"wall_s_train": round(wall, 3)}
+    if vrl.engine.round_scan:
+        # one round function serves every k; the reference counts a
+        # compiled executable per distinct round length
+        end_meta.update(rounds=r, round_executables=len(ks))
+    emit_final(args.steps, avg_losses[-1], **end_meta)
     res = TrainResult(state=state, engine=eng, losses=losses_host,
                       avg_model_losses=avg_losses, invariant=invariant,
                       bias_invariant=bias_invariant,
@@ -700,7 +989,8 @@ def _train(args: argparse.Namespace, device: torch.device,
                       misses=misses, param_max=param_max,
                       wall_s=wall, phases_ms=phases,
                       round_peak_bytes=round_peak, collectives=counts,
-                      rank=0 if mesh is None else mesh.rank)
+                      rank=0 if mesh is None else mesh.rank,
+                      start_step=start_t)
     if args.loss_out:
         write_loss_out(args.loss_out if mesh is None else
                        f"{args.loss_out}.rank{mesh.rank}", res, args,
@@ -746,7 +1036,9 @@ def mesh_banner(mesh, backend: str, device: torch.device, workers: int,
 def write_loss_out(path: str, res: TrainResult, args, device,
                    backend) -> None:
     """``--loss-out``: the run's logged numbers as JSON."""
-    out = {"steps": args.steps, "final_loss": res.losses[-1],
+    out = {"steps": res.start_step + len(res.losses),
+           "final_loss": (res.losses[-1] if res.losses
+                          else res.avg_model_losses[-1]),
            "avg_model_loss": res.avg_model_losses[-1],
            "losses": res.losses, "avg_model_losses": res.avg_model_losses,
            "invariant": res.invariant, "bias_invariant": res.bias_invariant,

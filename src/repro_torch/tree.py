@@ -53,3 +53,55 @@ def from_paths(pairs: List[Tuple[str, Any]]) -> Dict[str, Any]:
             node = node.setdefault(h, {})
         node[last] = leaf
     return out
+
+
+# ------------------------------------------------------------ state trees
+# The algorithms' states nest NamedTuples (FlatWorkerState, CommState,
+# AdamState, ...), tuples and dicts; the checkpoint keys of their leaves
+# are ``jax.tree_util.tree_flatten_with_path``'s as
+# ``repro.checkpoint._path_str`` joins them: a NamedTuple field by its
+# NAME, a dict key by its value (sorted), a tuple or list entry by its
+# index.  ``None`` and empty containers hold no leaf.  A NamedTuple's
+# fields keep the class's order, so two classes whose fields differ in
+# order but not in name yield the same keys (in another order).
+
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def state_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[(key, leaf)] of a state tree, the keys the JAX package's
+    checkpoints use; a leaf is anything but a dict, tuple, list or
+    None."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(state_leaves(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def state_map(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """The state tree with every leaf replaced by ``fn(key, leaf)`` (keys
+    as :func:`state_leaves`), the containers rebuilt as they were."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: state_map(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(state_map(fn, getattr(tree, f),
+                                      f"{prefix}/{f}" if prefix else f)
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(state_map(fn, v, f"{prefix}/{i}" if prefix
+                                    else str(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)

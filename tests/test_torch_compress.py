@@ -64,6 +64,17 @@ BAD = ["", "foo", "int8:4", "none:3", "topk:x", "topk:-2", "int8:noef:z",
        ":"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("text", GOOD)
 def test_parse_and_resolve_match_reference(text):
     want, got = jcc.parse_compressor(text), tcc.parse_compressor(text)

@@ -72,6 +72,17 @@ LOCAL_CASES = [(use_d, lr, wd) for use_d in (False, True)
                for lr, wd in ((0.05, 0.0), (0.05, 1e-4), (0.2, 1e-4))]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, r):
     rng = np.random.RandomState(seed)
     p, g, d = (rng.randn(W, r, C).astype(np.float32) for _ in range(3))

@@ -41,6 +41,17 @@ from test_torch_overlap import cfgs  # noqa: E402
 W, K, LR, ROUNDS = 4, 4, 0.05, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ draw
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
 def test_draw_is_bitwise_jax_random_uniform(n):

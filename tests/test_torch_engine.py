@@ -40,6 +40,17 @@ from repro_torch.models.param import abstract, from_numpy  # noqa: E402
 W, K, LR = 4, 3, 0.05
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg_j = jreg.smoke_arch("qwen2-0.5b")

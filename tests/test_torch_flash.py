@@ -35,6 +35,17 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 RTOL, ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(seed, *shapes):
     rng = np.random.RandomState(seed)
     return [rng.randn(*s).astype(np.float32) for s in shapes]

@@ -25,6 +25,17 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import abstract  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _templates(smoke: bool):
     get_j = jreg.smoke_arch if smoke else jreg.get_arch
     get_t = treg.smoke_arch if smoke else treg.get_arch

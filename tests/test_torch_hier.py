@@ -82,6 +82,17 @@ GRID, LR, WD, STEPS = (2, 3), 0.05, 1e-3, 13
 P, D, R, C, BLOCK = 2, 3, 16, 256, 8
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return None if x is None else torch.from_numpy(np.array(x))
 

@@ -66,6 +66,17 @@ MODES = ["int8", "topk:1", "topk:4", "topk:8", "topk:64", "topk:256"]
 VARIANTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grid_inputs(seed, grid):
     """p (P, D, R, C) with the special rows in every worker, ref (P, 1, R,
     C), e (P, D, R, C), fp32 from numpy."""

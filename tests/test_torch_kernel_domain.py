@@ -20,6 +20,17 @@ from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 ARCHS = sorted(registry.ARCHS)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_predicates_take_every_registry_config(arch):
     cfg = registry.get_arch(arch)

@@ -46,6 +46,17 @@ LR, K, SYNC_LR = 0.03, 3, 0.07
 LOCAL_FRACTION, SYNC_FRACTION = 0.10, 0.40
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(seed, shape, n=3):
     rng = np.random.RandomState(seed)
     return [rng.randn(*shape).astype(np.float32) for _ in range(n)]

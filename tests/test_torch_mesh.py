@@ -158,6 +158,17 @@ JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spawn(fn, world, *args):
     tmp.start_processes(fn, args=(world, *args), nprocs=world,
                         start_method="spawn")

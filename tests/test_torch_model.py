@@ -36,6 +36,17 @@ CFG_J = jreg.smoke_arch("qwen2-0.5b")
 CFG_T = treg.smoke_arch("qwen2-0.5b")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     pj = JT.init_params(CFG_J, jax.random.PRNGKey(0))

@@ -30,6 +30,17 @@ from repro_torch.core import schedule as tsched  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(seed, scale=1.0):
     rng = np.random.RandomState(seed)
     return {"w": scale * rng.randn(8, 3).astype(np.float32),

@@ -45,6 +45,17 @@ W, K, LR = 4, 4, 0.05
 STAGES = [(1, 2), (2, 2), (4, 2)]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def cfgs(alg, compress=None, **over):
     kw = dict(algorithm=alg, comm_period=K, learning_rate=LR,
               weight_decay=0.0, warmup=False, overlap=True)

@@ -30,6 +30,17 @@ from repro_torch.train import loss as tloss  # noqa: E402
 from repro.configs import paper_mlp as rpaper_mlp  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same_data(a, b):
     assert a.num_classes == b.num_classes
     for x, y in ((a.x, b.x), (a.y, b.y)):

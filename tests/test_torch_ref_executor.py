@@ -64,6 +64,17 @@ from repro_torch.models.param import from_numpy  # noqa: E402
 from repro_torch.train.train_loop import make_train_step as t_make  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------- the algorithm claims
 def quad_grads(b):
     """Appendix E: f1=(x+2b)^2, f2=2(x-b)^2 (zero within-worker noise)."""

@@ -34,6 +34,17 @@ ARCHS = ("qwen2-0.5b", "granite-3-2b")
 LOGIT_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     arch = request.param

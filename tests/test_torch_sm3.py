@@ -60,6 +60,17 @@ from test_torch_engine import MK, MSTEPS, _matrix_run, setup  # noqa: E402,F401
 W, R, C, BLOCK, LR = 4, 32, 256, 8, 0.05
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return None if x is None else torch.from_numpy(np.array(x))
 

@@ -32,6 +32,17 @@ from repro_torch.kernels import ssd_scan as tss  # noqa: E402
 F32 = torch.float32
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """fp32 rounded to TF32 (10 explicit mantissa bits), to nearest with
     ties away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped

@@ -72,6 +72,17 @@ LOGIT_TOL = 1e-4
 MATERIALISED = 368_227_840
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _draws(seed, b, l, h, p, n):
     rng = np.random.RandomState(seed)
     x = rng.randn(b, l, h, p).astype(np.float32)

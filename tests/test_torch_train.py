@@ -59,6 +59,17 @@ CFG_J, CFG_T = jreg.smoke_arch("qwen2-0.5b"), treg.smoke_arch("qwen2-0.5b")
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def bundles():
     cfg_j, cfg_t = CFG_J, CFG_T
@@ -214,6 +225,10 @@ def test_port_imports_neither_jax_nor_repro():
         "n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.comm.compressors' in sys.modules\n"
+        "for m in ('checkpoint.checkpoint', 'checkpoint.reshard', "
+        "'obs.metrics', 'obs.diagnostics', 'obs.report', 'obs.convert', "
+        "'obs.timers', 'examples.train_lm_e2e'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -36,6 +36,17 @@ from repro_torch.kernels import vrl_update as tvu  # noqa: E402
 W, R, C, BLOCK = 3, 16, 256, 8
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small shapes run on one intra-op thread: under the suite's
+    parallel workers torch's default pool (one thread per core in every
+    worker) oversubscribes the cores and its waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed=0, w=W, r=R, c=C):
     rng = np.random.RandomState(seed)
     p, g, d = (rng.randn(w, r, c).astype(np.float32) for _ in range(3))
