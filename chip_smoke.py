@@ -9,6 +9,9 @@
                                            # (the script starts it itself)
   python3 chip_smoke.py --backbone  # phases 1, 2 and 8 alone
   python3 chip_smoke.py --ckpt      # phases 1, 2 and 9 alone
+  python3 chip_smoke.py --elastic   # phases 1, 2 and 10 alone
+  python3 chip_smoke.py --elastic --trace-memory   # and (aj)'s peak's live
+                                           # blocks by allocation site
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -175,15 +178,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      last fold within 1e-4 · the largest |Δ| (|B|) plus 2 W ulp(max|pend|)/
      (pend_k γ) per fold (Σ_i c_i = 0 holds under compression too).
    - (e) vrl_sgd + sgd, ``--overlap``, uncompressed, through
-     ``repro_torch.launch.train`` (rounds of 1, 2, 2, 2): fused_local_sgd
-     7, fused_fold_overlap 4 (capture in the kernel).  Every logged loss
+     ``repro_torch.launch.train`` (3 steps, rounds of 1, 2):
+     fused_local_sgd 3, fused_fold_overlap 2 (capture in the kernel).  Every logged loss
      finite; Σ_i Δ_i ≤ 1e-4 · max|Δ| in the CLI's log.
    - (f) local_sgd + sgd, ``overlap=True`` (rounds of 2, 2, 2, 2) at
      ``LOCAL_OVERLAP_LR``: fused_local_sgd 8, fused_fold_overlap_avg 4.
      Every loss finite.
    - (g) hier_vrl_sgd + sgd on a (2, 2) grid, k1 = 2, k2 = 4, through
-     ``repro_torch.launch.train`` (8 steps, rounds of 2): fused_hier_local_sgd
-     8, fused_sync_hier1 4, fused_sync_hier2 2, no flat kernel.  Every
+     ``repro_torch.launch.train`` (4 steps, rounds of 2): fused_hier_local_sgd
+     4, fused_sync_hier1 2, fused_sync_hier2 1, no flat kernel.  Every
      logged loss finite; after the last round max_p max|Σ_d Δ1[p, d]| and
      max|Σ_p Δ2[p]| within 1e-4 · the run's largest |Δ1| (|Δ2|) plus the
      fp32 rounding of the means, 2 n ulp(max|p|)/(k1 γ) per round (n = D,
@@ -371,10 +374,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      batch 8 × seq 64, k = 2, ``--warmup``, γ = 1e-3, 7 steps: rounds of 1,
      2, 2, 2), held to phase 4's one-process run of them.
    - (z2) gloo, world 2 on the one card (two workers a rank; gloo stages
-     CUDA tensors through host memory): the same with ``--overlap`` (no
-     deadline), held to path (e).
+     CUDA tensors through host memory): path (e)'s flags (3 steps; (e) and
+     (z2) cut from 7 for the script's time), held to path (e).
    - (z3) gloo, world 2: path (g)'s flags, hier_vrl_sgd (2, 2), k1 = 2,
-     k2 = 4, 8 steps; the rank grid is (1, 2), so every intra-pod mean
+     k2 = 4, 4 steps (cut from 8, with (g)); the rank grid is
+     (1, 2), so every intra-pod mean
      crosses ranks and the pod group holds one rank; held to path (g).
    - (z4) gloo, world 2, the smoke width: hier (2, 2) with ``--compress
      int8 --compress2 topk:32 --overlap --deadline 0.25``, 8 steps at
@@ -476,6 +480,36 @@ Phases (each prints a line; any failure raises and exits non-zero):
      re-split two saved data shards over four workers.
    The directories are removed at the phase's end.
 
+10. elastic runs and partial participation (``repro_torch.fault``,
+   ``MemberState``, ``Engine.set_membership``, ``core.clients`` through
+   ``launch.train``); every line carries the card's name and power limit:
+   - (aj) qwen2-0.5b at full width, W = 4, batch 8 × seq 64, k = 2, γ =
+     1e-7 (at 1e-3 the init's own blow-up trips the guard's loss trend),
+     12 steps with ``--membership --guard --faults
+     "nan@2:3,crash@1:4,rejoin@1:8"``: the rollback, membership and fault
+     events; the losses and final params and Δ bitwise its twin without
+     the poison (and without the guard): the NaN round rolled back to its
+     round-start state bitwise and replayed clean; max|Σ_active Δ| after
+     each sync within phase 4's bound; fused_local_sgd 14 / fused_sync_vrl
+     7 (twin 12 / 6); snapshot, rollback and repair seconds, the peak.
+     Then worker 1 dropped, NaN planted in its params and Δ, one round:
+     the survivors finite, health True; the rejoin re-seeds it within an
+     ulp of x̂; Σ Δ after each repair within the bound; and 4 steps through
+     ``make_train_step`` with membership on bitwise off.
+   - (ak) qwen2-0.5b, ``--clients 4 --participation 0.5`` over W = 2, 6
+     steps: the store's bytes (page-locked), each round's gather and
+     scatter seconds, one model-state mean a round (the recentres counted
+     "membership"), Σ Δ over a gathered cohort after ``recenter_drift``;
+     ``--clients 2`` (M = W) bitwise the storeless run for 2 rounds.
+   - (al) the smoke width (mamba2-370m's model): hier (2, 2) + int8 with a
+     pod drop and a worker drop, overlapped and blocking; ``--clients 8
+     --workers 4`` with crash/rejoin/killsave and ``--ckpt``, resumed
+     bitwise from its step-4 store; the quickstart at 20 steps and γ 5e-5
+     (at its γ 0.2 one ulp of the init parts two CPU runs); each also run
+     on the CPU by a child process (``--elastic-cpu PATH DIR``, from
+     step-0 starts drawn on the CPU): every loss within 1e-4.
+   The directory is removed at the phase's end.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -488,6 +522,7 @@ them), and last
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -669,7 +704,20 @@ def path_f(lr):
             (2, 2, 2, 2), {"fused_local_sgd": 8, "fused_fold_overlap_avg": 4})
 
 
-PATH_E_LAUNCHES = {"fused_local_sgd": 7, "fused_fold_overlap": 4}
+# path (e) and its gloo twin (z2) at 3 steps (rounds 1, 2: the second fold
+# the first with a correction), path (g) and (z3) at 4 (one k2 period),
+# cut from 7 and 8 so that the script, phase 10 added, keeps a margin
+# under its time limit: (z2) and (z3) are bound by gloo's host staging
+# (1.2-3.9 s a step against 0.5-0.9 s on one process)
+def with_steps(argv, n):
+    """``argv`` with ``--steps n``."""
+    out = list(argv)
+    out[out.index("--steps") + 1] = str(n)
+    return out
+
+
+PATH_E_ARGS = with_steps(MAIN_ARGS, 3) + ["--overlap"]
+PATH_E_LAUNCHES = {"fused_local_sgd": 3, "fused_fold_overlap": 2}
 # paths (g) and (h): hier_vrl_sgd on a (2, 2) grid, k1 = 2, k2 = 4, through
 # the CLI, a log line (and its invariant check) after every round
 HIER_K1, HIER_K2 = 2, 4
@@ -677,9 +725,9 @@ HIER_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--seq", "64", "--lr", str(MAIN_LR), "--algorithm",
              "hier_vrl_sgd", "--pods", "2", "--k1", str(HIER_K1), "--k2",
              str(HIER_K2), "--log-every", "1"]
-PATH_G = (HIER_ARGS + ["--steps", "8"],
-          {"fused_hier_local_sgd": 8, "fused_sync_hier1": 4,
-           "fused_sync_hier2": 2})
+PATH_G = (HIER_ARGS + ["--steps", "4"],
+          {"fused_hier_local_sgd": 4, "fused_sync_hier1": 2,
+           "fused_sync_hier2": 1})
 # 6 rounds: sync1 at each, the stale fold at steps 4, 8, 12 (the first's
 # correction exactly 0: pend = x0)
 PATH_H = (HIER_ARGS + ["--steps", "12", "--overlap"],
@@ -3665,12 +3713,12 @@ def start_paper_cpu():
     return proc, path, log
 
 
-def paper_cpu_result(proc, path, log) -> dict:
+def paper_cpu_result(proc, path, log, what="the paper's CPU runs") -> dict:
     """Wait for the child (at most 600 s) and read its runs."""
     rc = proc.wait(timeout=600)
     if rc != 0:
         with open(log) as f:
-            raise AssertionError(f"the paper's CPU runs failed ({rc}): "
+            raise AssertionError(f"{what} failed ({rc}): "
                                  f"{f.read()[-3000:]}")
     with open(path) as f:
         return json.load(f)
@@ -4053,10 +4101,10 @@ def mesh_card_paths(refs, z4_cpu) -> None:
     z_path("(z1) vrl_sgd+sgd, NCCL world 1", MAIN_ARGS, 1, "nccl",
            {"pod+data": (4, 0)}, MAIN_LAUNCHES, refs["main"])
     z_path("(z2) vrl_sgd+sgd --overlap, gloo world 2",
-           MAIN_ARGS + ["--overlap"], 2, "gloo", {"pod+data": (4, 4)},
+           PATH_E_ARGS, 2, "gloo", {"pod+data": (2, 2)},
            PATH_E_LAUNCHES, refs["e"])
     z_path("(z3) hier_vrl_sgd (2, 2), gloo world 2", PATH_G[0], 2, "gloo",
-           {"data": (4, 0), "pod": (2, 0)}, PATH_G[1], refs["g"],
+           {"data": (2, 0), "pod": (1, 0)}, PATH_G[1], refs["g"],
            grid=(2, 2))
     cpu = ranks_result("(z4) on the CPU", *z4_cpu, 2)
     one = launch.run(Z4_ARGS)
@@ -4832,6 +4880,458 @@ def ckpt_phase(dev, vu, card) -> None:
 
 
 
+# phase 10, elastic runs and partial participation (``repro_torch.fault``,
+# ``Engine.set_membership``, ``core.clients`` through ``launch.train``)
+ELASTIC_DIR = os.path.join(ROOT, ".chip_smoke_elastic")   # git-ignored
+ELASTIC_FULL = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "64",
+                "--k", "2", "--lr", str(MAIN_LR), "--log-every", "1"]
+# (aj): the NaN round [2, 4) rolled back and replayed, worker 1 out for
+# steps 4-7; its twin without the poison (and without the guard) must be
+# the same run, bit for bit.  At γ 1e-7: under the init's first gradients
+# (~1e12) γ 1e-3 blows the loss up by itself (round means 1.38e7, then
+# 5.61e10), which the guard's loss trend rightly calls a divergence; at
+# 1e-7 the round means stay near 6e4
+AJ_LR = 1e-7
+AJ_FULL = ELASTIC_FULL[:ELASTIC_FULL.index("--lr")] + [
+    "--lr", str(AJ_LR), "--log-every", "1", "--workers", "4", "--steps", "12"]
+AJ_ARGS = AJ_FULL + ["--membership", "--guard", "--faults",
+                     "nan@2:3,crash@1:4,rejoin@1:8"]
+AJ_TWIN = AJ_FULL + ["--membership", "--faults", "crash@1:4,rejoin@1:8"]
+AJ_LAUNCHES = {"fused_local_sgd": 14, "fused_sync_vrl": 7}
+AJ_TWIN_LAUNCHES = {"fused_local_sgd": 12, "fused_sync_vrl": 6}
+# (ak): M = 4 clients over W = 2 slots; the M = W run and its storeless twin
+AK_ARGS = ELASTIC_FULL + ["--workers", "2", "--steps", "6", "--clients", "4",
+                          "--participation", "0.5"]
+AK_MW = ELASTIC_FULL + ["--workers", "2", "--steps", "4", "--clients", "2"]
+AK_PLAIN = ELASTIC_FULL + ["--workers", "2", "--steps", "4"]
+# (al): the smoke width (mamba2-370m's, 2 layers, d 128: its map is smooth,
+# so the card's and the CPU's fp32 roundings stay apart by ulps; qwen2's
+# smoke model is chaotic under a pod drop), each run also on the CPU (a
+# child process)
+AL_LR = 0.02
+AL_HIER = ["--arch", MAMBA, "--smoke", "--workers", "4", "--batch",
+           "2", "--seq", "40", "--steps", "12", "--lr", str(AL_LR),
+           "--algorithm", "hier_vrl_sgd", "--pods", "2", "--k1", "2",
+           "--k2", "4", "--compress", "int8", "--membership", "--guard",
+           "--faults", "crash@2:2,crash@3:2,crash@0:6,rejoin@0:10,"
+           "rejoin@2:10,rejoin@3:10", "--log-every", "1"]
+AL_CLIENTS = ["--arch", MAMBA, "--smoke", "--workers", "4",
+              "--clients", "8", "--batch", "2", "--seq", "40", "--steps",
+              "8", "--k", "2", "--lr", str(AL_LR), "--alpha", "0.1",
+              "--faults", "crash@2:3,rejoin@2:5,killsave:6", "--ckpt-every",
+              "2", "--log-every", "1"]
+# the quickstart's tiny qwen2 under its init is chaotic at the example's
+# γ 0.2: one ulp of the init parts two CPU runs past 1e-4 within 20 steps,
+# as the card's and the CPU's roundings do
+# (tests/test_torch_elastic_cli.py::
+# test_quickstart_sensitivity_to_an_ulp_of_its_init); at γ 5e-5 the
+# nudged runs stay within 1e-6, and every loss is held
+AL_QUICKSTART = ["--steps", "20", "--lr", "5e-05"]
+
+
+AL_RUNS = {"hier overlap": AL_HIER + ["--overlap"], "hier": AL_HIER,
+           "clients": AL_CLIENTS}
+
+
+def al_starts(root: str) -> None:
+    """(al)'s start checkpoints, one per run, at step 0 under ``root``:
+    each run's initial state (its clients' store for the client run) drawn
+    on the CPU.  The card's and the CPU's runs resume from them, so they
+    start from the same weights (torch's generators differ by device)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm import compressors as comm_mod
+    from repro_torch.configs import registry
+    from repro_torch.core.clients import ClientStore
+    from repro_torch.data import partition as partition_mod
+    from repro_torch.launch import train as launch
+    from repro_torch.train.train_loop import make_train_step
+    for tag, argv in AL_RUNS.items():
+        args = launch.parse_args(argv + ["--device", "cpu"])
+        vrl = launch.vrl_config(args, membership=True)
+        bundle = make_train_step(registry.smoke_arch(args.arch), vrl,
+                                 remat=False, device="cpu")
+        eng, state = bundle.engine, bundle.init_state(args.seed,
+                                                      args.workers)
+        units = args.clients or args.workers
+        meta = {"step": 0, "arch": args.arch, "workers": args.workers,
+                "assignment": partition_mod.assignment_to_meta(
+                    partition_mod.contiguous_assignment(units, units))}
+        kw = dict(compressors=comm_mod.pair_meta(eng.compressors),
+                  moments=ckpt.moments_meta(vrl))
+        path = os.path.join(root, "start-" + tag.replace(" ", "-"))
+        if args.clients:
+            meta.update(clients=args.clients, flat_spec=eng.spec.meta(), **kw)
+            ckpt.save(path, ClientStore(state, args.clients).to_tree(),
+                      meta=meta)
+        else:
+            ckpt.save_flat_state(path, state, eng.spec, meta=meta,
+                                 grid=eng.grid, **kw)
+
+
+def al_runs(device: str, root: str) -> dict:
+    """(al)'s runs on ``device``, each resumed from its step-0 start under
+    ``root`` (``al_starts``): the hierarchy with a pod and a worker drop
+    under int8, overlapped and blocking; the client run with its store
+    checkpoints under ``root``; the quickstart.  Their losses."""
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import train as launch
+    out = {}
+    dev = ["--device", device]
+
+    def start(tag):
+        return ["--resume", os.path.join(root, "start-" + tag.replace(" ",
+                                                                      "-"))]
+    for tag in ("hier overlap", "hier"):
+        res = launch.run(AL_RUNS[tag] + dev + start(tag))
+        out[tag] = {"losses": res.losses, "avg": res.avg_model_losses,
+                    "masks": res.elastic["masks"]}
+    res = launch.run(AL_CLIENTS + dev + start("clients") + [
+        "--ckpt", os.path.join(root, device, "clients")])
+    out["clients"] = {"losses": res.losses, "avg": res.avg_model_losses,
+                      "masks": res.elastic["masks"]}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["quickstart"] = quickstart.main(AL_QUICKSTART + dev)
+    return out
+
+
+def elastic_cpu_runs(path: str, root: str) -> int:
+    """The child process of phase 10: (al)'s runs on the CPU from the
+    starts under ``root``, their losses as JSON to ``path``.  Started at
+    the phase's start, so it runs beside the card's (aj) and (ak)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(3)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        out = al_runs("cpu", root)
+    out["seconds"] = time.time() - START
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_elastic_cpu():
+    """Write (al)'s starts, then start ``elastic_cpu_runs`` in a child
+    process: (process, its JSON path, its log path)."""
+    al_starts(ELASTIC_DIR)
+    path, log = (os.path.join(ELASTIC_DIR, n) for n in ("cpu.json",
+                                                         "cpu.log"))
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-cpu",
+             path, ELASTIC_DIR], stdout=subprocess.DEVNULL, stderr=err,
+            cwd=ROOT)
+    return proc, path, log
+
+
+def delta_bound(res, w, k=2, lr=MAIN_LR) -> float:
+    """Phase 4's Σ Δ bound over a CLI run's (masked) log: 1e-4 · the
+    largest |Δ| it logged plus the fp32 rounding of x̂ each sync keeps,
+    2 W ulp(max|p|)/(k γ)."""
+    max_d = max(m for _, _, m in res.invariant)
+    ulp = float(np.spacing(np.float32(max(m for _, m in res.param_max))))
+    syncs = len(res.losses) // k
+    return 1e-4 * max_d + syncs * 2 * w * ulp / (k * lr)
+
+
+def active_sum(state) -> tuple:
+    """(max|Σ_active Δ|, max|Δ| over the active rows) of a flat state."""
+    keep = state.member.active > 0
+    d = torch.where(keep, state.delta, 0)
+    return (torch.linalg.vector_norm(d.sum(0), float("inf")).item(),
+            torch.linalg.vector_norm(d, float("inf")).item())
+
+
+def peak_sites(snap: dict, base: int) -> tuple:
+    """The peak of a recorded allocation history (``base``: the bytes held
+    when the recording began) and the bytes of its live blocks by
+    allocation site, the innermost frame in this repository."""
+    live, total, best, at = {}, base, base, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+            if total > best:
+                best, at = total, dict(live)
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])["size"]
+    sites = {"held before the run": base}
+    for ev in at.values():
+        f = next((f for f in ev["frames"]
+                  if f["filename"].startswith(ROOT)), None)
+        key = ("?" if f is None else f"{os.path.relpath(f['filename'], ROOT)}"
+               f":{f['line']} {f['name']}")
+        sites[key] = sites.get(key, 0) + ev["size"]
+    return best, sorted(sites.items(), key=lambda kv: -kv[1])
+
+
+def elastic_full_width(dev, vu, card, launch):
+    """(aj): the faulted run, its clean twin, the dead rows' NaN, and the
+    full mask bitwise membership off.  ``--trace-memory`` records the
+    faulted run's allocations and prints its peak's live blocks by
+    site."""
+    from repro_torch.configs import registry
+    from repro_torch.obs.metrics import read_metrics
+    from repro_torch.train.train_loop import make_train_step
+    m = os.path.join(ELASTIC_DIR, "aj.jsonl")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    vu.reset_launches()
+    trace = "--trace-memory" in sys.argv[1:]
+    if trace:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    a = launch.run(AJ_ARGS + ["--metrics", m])
+    peak = torch.cuda.max_memory_allocated()
+    if trace:
+        traced, sites = peak_sites(torch.cuda.memory._snapshot(), base)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        print(f"[10 elastic (aj)] allocation trace: peak "
+              f"{traced / 2**30:.2f} GiB, its live blocks by site (GiB): "
+              + "; ".join(f"{k} {v / 2**30:.2f}" for k, v in sites
+                          if v >= 2**26), flush=True)
+    check_launches("(aj)", dict(vu.LAUNCHES), AJ_LAUNCHES)
+    recs = read_metrics(m)
+    got = {
+        "rollback": [(r["t_fail"], r["reason"], r["back_to"]) for r in recs
+                     if r["event"] == "rollback"],
+        "membership": [(r["t"], r["active"]) for r in recs
+                       if r["event"] == "membership"],
+        "fault": [(r["t"], r["events"]) for r in recs
+                  if r["event"] == "fault"]}
+    want = {"rollback": [(4, "non-finite state", 2)],
+            "membership": [(4, [1, 0, 1, 1]), (8, [1, 1, 1, 1])],
+            "fault": [(2, [{"kind": "nan", "step": 3, "worker": 2}])]}
+    if got != want:
+        raise AssertionError(f"(aj): events {got}, expected {want}")
+    bound = delta_bound(a, 4, lr=AJ_LR)
+    worst = max(s for _, s, _ in a.invariant)
+    if not worst <= bound:
+        raise AssertionError(f"(aj): max|Σ_active Δ| {worst} after a sync "
+                             f"> {bound}")
+    if not all(math.isfinite(x) for x in a.losses + a.avg_model_losses):
+        raise AssertionError(f"(aj): non-finite loss {a.losses}")
+    ela = a.elastic
+    vu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    b = launch.run(AJ_TWIN)
+    twin_peak = torch.cuda.max_memory_allocated()
+    check_launches("(aj) twin", dict(vu.LAUNCHES), AJ_TWIN_LAUNCHES)
+    if a.losses != b.losses or not (
+            torch.equal(a.state.params, b.state.params)
+            and torch.equal(a.state.delta, b.state.delta)):
+        raise AssertionError(f"(aj): the rolled-back run {a.losses} is not "
+                             f"its clean twin {b.losses}")
+    step_ms = 1e3 * b.wall_s / 12
+    del b
+    free()
+    print(f"[10 elastic (aj)] qwen2-0.5b W = 4, --membership --guard "
+          f"--faults nan@2:3,crash@1:4,rejoin@1:8: round [2, 4) poisoned, "
+          f"rolled back to its start and replayed (losses and final params, "
+          f"Δ bitwise the un-poisoned twin's); events {got}; max|Σ_active Δ| "
+          f"after each sync {worst:.3e} <= {bound:.3e}; launches "
+          f"{AJ_LAUNCHES} (twin {AJ_TWIN_LAUNCHES}); step wall "
+          f"{1e3 * a.wall_s / 14:.1f} ms (twin {step_ms:.1f}); snapshot "
+          f"{['%.3f' % x for x in ela['snapshot_s']]} s, rollback "
+          f"{['%.3f' % x for x in ela['rollback_s']]} s, membership repair "
+          f"{['%.3f' % x for x in ela['membership_s']]} s; peak "
+          f"{peak / 2**30:.2f} GiB (round peak {a.round_peak_bytes / 2**30:.2f}"
+          f"; the twin's {twin_peak / 2**30:.2f}, the faulted run's final "
+          f"state held); {card}", flush=True)
+    # the dead rows are never read: NaN planted in a dropped worker's
+    # params and Δ, one more round, the survivors finite
+    args = launch.parse_args(AJ_ARGS)
+    cfg = registry.get_arch("qwen2-0.5b")
+    vrl = launch.vrl_config(args, membership=True)
+    bundle = make_train_step(cfg, vrl, remat=True, device=dev)
+    state, eng = a.state, bundle.engine
+    del a
+    mask = np.array([1, 0, 1, 1], np.float32)
+    t0 = time.perf_counter()
+    state = eng.set_membership(state, mask)
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    s_drop, d_drop = active_sum(state)
+    state.params[1].fill_(float("nan"))
+    state.delta[1].fill_(float("nan"))
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 4, 8, 64))).to(dev)
+    state, losses = bundle.round_step(state, toks, torch.roll(toks, -1, -1))
+    finite = all(bool(torch.isfinite(state.params[i]).all())
+                 for i in (0, 2, 3))
+    if not (finite and bundle.health(state, losses.mean())
+            and torch.isfinite(losses).all()):
+        raise AssertionError("(aj): a dead worker's NaN reached a survivor")
+    xhat = state.params[0].clone()
+    state = eng.set_membership(state, np.ones(4, np.float32))
+    s_join, d_join = active_sum(state)
+    # the rejoiner starts at the continuing rows' mean (3 x̂ / 3: within
+    # an ulp of x̂)
+    ulp = float(np.spacing(np.float32(torch.linalg.vector_norm(
+        xhat, float("inf")).item())))
+    off = torch.linalg.vector_norm(state.params[1] - xhat,
+                                   float("inf")).item()
+    if not (off <= ulp and torch.isfinite(state.params).all()
+            and s_drop <= 1e-4 * d_drop + bound
+            and s_join <= 1e-4 * d_join + bound):
+        raise AssertionError(f"(aj): the repairs' Σ Δ {s_drop}, {s_join}")
+    del state, bundle, eng
+    free()
+    # the full mask: 4 steps with --membership bitwise 4 steps without
+    finals = []
+    for member in (True, False):
+        vrl = launch.vrl_config(launch.parse_args(AJ_FULL),
+                                membership=member)
+        bundle = make_train_step(cfg, vrl, remat=True, device=dev)
+        state = bundle.init_state(0, 4)
+        ls = []
+        for r in range(2):
+            state, losses = bundle.round_step(state, toks,
+                                              torch.roll(toks, -1, -1))
+            ls.append(losses)
+        finals.append((state, torch.cat(ls)))
+        del bundle
+    (s1, l1), (s0, l0) = finals
+    if not (torch.equal(l1, l0) and torch.equal(s1.params, s0.params)
+            and torch.equal(s1.delta, s0.delta)):
+        raise AssertionError("(aj): the full mask is not membership off")
+    del finals, s1, s0
+    free()
+    print(f"[10 elastic (aj)] worker 1 dropped (repair {repair_s:.3f} s, "
+          f"max|Σ_active Δ| {s_drop:.3e}), NaN planted in its params and "
+          f"Δ, a round: survivors finite, health True, losses "
+          f"{['%.4f' % x for x in losses.tolist()]}; rejoined from x̂ "
+          f"(max|Σ Δ| {s_join:.3e}); 4 steps with membership on bitwise "
+          f"off (losses, params, Δ); {card}", flush=True)
+
+
+def elastic_clients(dev, vu, card, launch):
+    """(ak): M = 4 over W = 2 at full width; M = W bitwise storeless."""
+    from repro_torch.core.clients import sample_cohort
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    vu.reset_launches()
+    with counting_means() as counts:
+        k = launch.run(AK_ARGS)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("(ak)", dict(vu.LAUNCHES),
+                   {"fused_local_sgd": 6, "fused_sync_vrl": 3})
+    if counts.get("state") != 3:
+        raise AssertionError(f"(ak): model-state means {counts}, one a "
+                             f"round expected")
+    if not all(math.isfinite(x) for x in k.losses + k.avg_model_losses):
+        raise AssertionError(f"(ak): non-finite loss {k.losses}")
+    store, ela = k.store, k.elastic
+    # Σ Δ over a gathered cohort after the recentre
+    eng = k.engine
+    cohort = sample_cohort(4, 2, 6, 0)
+    st = eng.recenter_drift(store.gather(cohort, like=k.state,
+                                         seed_params=True))
+    s = torch.linalg.vector_norm(st.delta.sum(0), float("inf")).item()
+    d = torch.linalg.vector_norm(st.delta, float("inf")).item()
+    ulp = float(np.spacing(np.float32(torch.linalg.vector_norm(
+        st.params, float("inf")).item())))
+    if not s <= 1e-4 * d + 2 * 2 * ulp / (2 * MAIN_LR):
+        raise AssertionError(f"(ak): Σ Δ {s} over the gathered cohort")
+    nbytes, pinned = store.nbytes, store.pin
+    del k, store, st
+    free()
+    vu.reset_launches()
+    mw = launch.run(AK_MW)
+    plain = launch.run(AK_PLAIN)
+    if mw.losses != plain.losses or not (
+            torch.equal(mw.state.params, plain.state.params)
+            and torch.equal(mw.state.delta, plain.state.delta)):
+        raise AssertionError(f"(ak): M = W {mw.losses} is not the "
+                             f"storeless run {plain.losses}")
+    del mw, plain
+    free()
+    print(f"[10 elastic (ak)] qwen2-0.5b, --clients 4 over W = 2 "
+          f"(participation 0.5), 6 steps: host store {nbytes / 1e9:.3f} GB "
+          f"({'page-locked' if pinned else 'pageable'}), gather {['%.3f' % x for x in ela['gather_s']]} s "
+          f"and scatter {['%.3f' % x for x in ela['scatter_s']]} s a round; "
+          f"model-state means {counts}; after a gather and recentre "
+          f"max|Σ Δ| {s:.3e} (max|Δ| {d:.3e}); peak {peak / 2**30:.2f} GiB; "
+          f"--clients 2 (M = W) bitwise the storeless run for 2 rounds "
+          f"(losses, params, Δ); {card}", flush=True)
+
+
+def elastic_smoke(dev, vu, card, cpu):
+    """(al): the smoke runs on the card against the CPU's; the client run
+    resumed bitwise from its step-4 store."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train as launch
+    vu.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_runs = al_runs("cuda", ELASTIC_DIR)
+    launches = {k: v for k, v in vu.LAUNCHES.items() if v}
+    worst = {}
+    for tag, want in cpu.items():
+        if tag == "seconds":
+            continue
+        got = card_runs[tag]
+        pairs = ([(got[k], want[k]) for k in ("losses", "avg")]
+                 if tag != "quickstart" else
+                 [(got[k], want[k]) for k in want])
+        for g, w in pairs:
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+            worst[tag] = max(worst.get(tag, 0.0), float(rel.max()))
+            if g.shape != w.shape or not np.isfinite(g).all() or \
+                    not rel.max() <= 1e-4:
+                raise AssertionError(f"(al) {tag}: card {g.tolist()} vs CPU "
+                                     f"{w.tolist()} (rtol {rel.max():.3e})")
+        if tag != "quickstart" and json.loads(json.dumps(
+                got["masks"])) != want["masks"]:
+            raise AssertionError(f"(al) {tag}: masks {got['masks']}")
+    for name in ("fused_fold_overlap_hier2", "fused_ef_int8_grid",
+                 "fused_hier_local_sgd", "fused_sync_hier1",
+                 "fused_sync_hier2", "fused_local_sgd", "fused_sync_vrl"):
+        if not launches.get(name):
+            raise AssertionError(f"(al): {name} not launched: {launches}")
+    root = os.path.join(ELASTIC_DIR, "cuda", "clients")
+    res = launch.run(AL_CLIENTS + ["--ckpt", os.path.join(ELASTIC_DIR, "b"),
+                                   "--resume", ckpt.step_dir(root, 4)])
+    if res.losses != card_runs["clients"]["losses"][4:]:
+        raise AssertionError(f"(al): resumed {res.losses} vs "
+                             f"{card_runs['clients']['losses'][4:]}")
+    nbytes = same_checkpoint("(al) clients step 8", ckpt.step_dir(root, 8),
+                             ckpt.step_dir(os.path.join(ELASTIC_DIR, "b"), 8))
+    print(f"[10 elastic (al)] smoke, card vs CPU (its runs took "
+          f"{cpu['seconds']:.1f} s beside (aj)-(ak)): hier (2, 2) + int8 "
+          f"with a pod drop and a worker drop, overlapped and blocking; "
+          f"--clients 8 --workers 4 with crash/rejoin/killsave: every loss "
+          f"within 1e-4; the quickstart ({AL_QUICKSTART}): every loss "
+          f"within 1e-4; "
+          f"worst relative loss differences "
+          f"{ {k: '%.2e' % v for k, v in worst.items()} }; launches "
+          f"{launches}; the client run resumed from its step-4 store: "
+          f"steps 5-8 and the step-8 store ({nbytes / 1e6:.1f} MB) bitwise; "
+          f"{card}", flush=True)
+
+
+def elastic_phase(dev, vu, card) -> None:
+    """Phase 10: (aj), (ak), (al); the directory removed at the end."""
+    from repro_torch.launch import train as launch
+    t10 = time.time() - START
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    print(f"[10 elastic] from {t10:.1f} s of the script, the smoke runs' "
+          f"CPU twins in a child process beside (aj) and (ak); {card}",
+          flush=True)
+    proc = start_elastic_cpu()
+    try:
+        elastic_full_width(dev, vu, card, launch)
+        elastic_clients(dev, vu, card, launch)
+        cpu = paper_cpu_result(*proc, what="(al)'s CPU runs")
+        elastic_smoke(dev, vu, card, cpu)
+    finally:
+        if proc[0].poll() is None:
+            proc[0].kill()
+            proc[0].wait()
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    print(f"[10 elastic] {time.time() - START - t10:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4843,6 +5343,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--paper-cpu"]:
         return paper_cpu_runs(sys.argv[2])
+    if sys.argv[1:2] == ["--elastic-cpu"]:
+        return elastic_cpu_runs(sys.argv[2], sys.argv[3])
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -4875,6 +5377,9 @@ def main() -> int:
         return 0
     if "--ckpt" in sys.argv[1:]:
         ckpt_phase(dev, vu, card)
+        return 0
+    if "--elastic" in sys.argv[1:]:
+        elastic_phase(dev, vu, card)
         return 0
     if "--lr-sweep" in sys.argv[1:]:
         for tag, path in (("b", path_b), ("f", path_f), ("j", path_j)):
@@ -5016,7 +5521,7 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
                        dev, vu)
     print_path(res_d, wire_note(paths["d"][0]) + "; after the last fold "
                + check_sums(res_d))
-    res_e = cli_path("(e) vrl_sgd+sgd, --overlap", MAIN_ARGS + ["--overlap"],
+    res_e = cli_path("(e) vrl_sgd+sgd, --overlap", PATH_E_ARGS,
                      PATH_E_LAUNCHES, launch, vu)
     res_f = train_path("(f) local_sgd+sgd, overlap", *paths["f"], dev, vu)
     print_path(res_f)
@@ -5099,6 +5604,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 9 checkpoints
     ckpt_phase(dev, vu, card)
+
+    # ------------------------------------------------------ 10 elastic
+    elastic_phase(dev, vu, card)
 
     kernels = []
     for name in KERNELS:

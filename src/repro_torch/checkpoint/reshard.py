@@ -24,6 +24,7 @@ same file to the same bits:
   overlap pend       rebuilt from the resharded params (pend_k = 1): the
                      next overlapped collective averages real positions
   step counters      kept — the run resumes its global step
+  member             a fresh full mask at W' (the template's own)
 
 The unravel spec is W-independent (it describes one worker's (R, C)
 layout), so the same compatibility gate as ``restore_flat_state`` applies
@@ -142,6 +143,8 @@ def restore_resharded(path: str, state_like: Any, spec, *,
 
         def one(key: str, leaf: Any) -> Any:
             top = key.split(SEP, 1)[0]
+            if top == "member":
+                return leaf                          # fresh full mask
             tshape = full(key, leaf)
             rec = dtypes.get(key)
             if top == "overlap":

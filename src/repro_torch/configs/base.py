@@ -214,9 +214,15 @@ class VRLConfig:
     #   "auto"      — fused on the card, xla on the CPU
     #   "reference" — the per-leaf tree executor (``get_algorithm``)
     update_backend: str = "auto"    # auto | fused | xla | reference
-    # elastic membership (the reference's MemberState): not ported yet
-    # (ROADMAP Queue 1); the flat engine refuses it, and the per-leaf
-    # executor refuses it as the reference's does
+    # elastic membership: the state carries a ``MemberState`` (an
+    # active-worker mask plus the active counts) and every sync mean runs
+    # over the active workers only, still one all-reduce; workers drop
+    # (crash) and rejoin between rounds through ``Engine.set_membership``,
+    # which repairs Σ_i Δ_i = 0 over the survivors and re-seeds rejoiners
+    # from the continuing consensus.  With the mask fully active the
+    # trajectory is bitwise the membership=False path.  Flat-buffer engine
+    # only (the per-leaf executor refuses it, as the reference's does);
+    # easgd's center update assumes a fixed worker count and refuses it.
     membership: bool = False
     engine: EngineConfig = EngineConfig()
 

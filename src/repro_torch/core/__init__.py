@@ -31,5 +31,6 @@ from repro_torch.core.types import (  # noqa: F401
     HierCommState,
     HierFlatState,
     HierState,
+    MemberState,
     WorkerState,
 )

@@ -56,8 +56,26 @@ of ``EngineConfig.shards`` (layout only: rows pad to a multiple of
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
 stl_sgd, bvr_l_sgd) and hier_vrl_sgd with the sgd, momentum and adam
 inner optimizers (Adam dense or SM3-factored, moments fp32 or bf16), with
-or without compression, overlap and deadlines; it refuses only what the
-reference refuses.
+or without compression, overlap, deadlines and membership; it refuses
+only what the reference refuses.
+
+Elastic membership (``cfg.membership``): the state carries a
+``types.MemberState`` (the active-worker mask and the active counts) and
+every sync mean runs over the ACTIVE workers only
+(``comm.collectives.worker_mean``'s masked form: the active slices added
+one by one, never a multiply, and the state-carried count, so still one
+all-reduce).  The mask is read to the host once (``host_mask``); with
+every worker active the means are the plain ones, so a full mask is
+bitwise membership-off.  Dead rows stay in the buffers and keep taking
+local steps; no mean reads them.
+``Engine.set_membership(state, active)`` is the repair between rounds:
+continuing workers' Δ (and B) recentred to Σ = 0 over the continuing set
+without reading a dropped row, dropped and rejoining workers re-seeded
+from the continuing consensus x̂ (params, overlap pend) with Δ, B, moments
+and EF residual zeroed.  The hierarchy masks per level: per-pod active
+counts for the intra-pod means, a uniform mean over alive pods across
+them.  ``Engine.recenter_drift`` re-zeroes Σ Δ (Σ B) over the rows a
+client cohort loaded (``core.clients``).  easgd refuses the mask.
 
 ``Engine.diagnostics`` is the reference's read-only health pass over a
 flat (or pod-major) state: drift against x̂, the Σ Δ (Σ B, per-level)
@@ -79,8 +97,10 @@ from __future__ import annotations
 import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import tree as tree_mod
 from repro_torch.comm import collectives as coll
@@ -91,7 +111,7 @@ from repro_torch.core import flat
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.types import (CommState, FlatWorkerState,
                                     HierCommState, HierFlatState, HierState,
-                                    OverlapState, WorkerState)
+                                    MemberState, OverlapState, WorkerState)
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
 
@@ -232,7 +252,8 @@ def should_sync(spec: AlgoSpec, cfg: VRLConfig, step: int,
 
 
 def sum_invariant(buf: Any, dim: int = 0, mesh=None,
-                  axes: Tuple[str, ...] = coll.AXES) -> Tuple[float, float]:
+                  axes: Tuple[str, ...] = coll.AXES,
+                  keep: Optional[np.ndarray] = None) -> Tuple[float, float]:
     """(max|Σ_i buf_i|, max|buf|) over the worker axis ``dim``: the paper's
     invariant Σ_i Δ_i = 0 after every sync (and BVR's Σ_i B_i = 0; the
     hierarchy's Σ_d Δ1 = 0 within every pod with ``dim=1``, Σ_p Δ2 = 0),
@@ -240,12 +261,22 @@ def sum_invariant(buf: Any, dim: int = 0, mesh=None,
     flat buffer or a per-leaf tree (the maxima over its leaves).  Reads
     the state once per value (host sync).  On a ``mesh`` the sum also
     runs over the ranks of ``axes`` (the ones ``dim`` spans) and the
-    maxima over every rank, all counted "eval"."""
-    leaves = tree_mod.leaves(buf)
+    maxima over every rank, all counted "eval".  ``keep``: a host bool
+    array over a flat buffer's leading dims (``coll.masked_sum``'s), the
+    worker slices read (the active ones under membership)."""
 
     def amax(x: torch.Tensor) -> float:
         # max|x| without an |x| temporary the size of the state
         return torch.linalg.vector_norm(x, float("inf")).item()
+    if keep is not None:
+        s = coll.masked_sum(buf, keep, dim)
+        if mesh is not None:
+            mesh.all_reduce(s, axes, kind="eval")
+        return (coll.global_reduce(mesh, amax(s)),
+                coll.global_reduce(mesh, max(
+                    (amax(buf[tuple(map(int, i))])
+                     for i in zip(*np.nonzero(keep))), default=0.0)))
+    leaves = tree_mod.leaves(buf)
     return (coll.global_reduce(mesh, max(
                 amax(coll.worker_sum(mesh, x, dim, axes)) for x in leaves)),
             coll.global_reduce(mesh, max(amax(x) for x in leaves)))
@@ -301,6 +332,100 @@ def _check_mesh(cfg: VRLConfig, mesh) -> None:
             "EngineConfig.shards > 1 with a mesh: the port's row shards are "
             "layout only, and placing them on ranks needs an all-gather "
             "before every forward (ROADMAP Queue 1); use shards=1 on a mesh")
+
+
+def _validate_membership(cfg: VRLConfig, algo: AlgoSpec) -> None:
+    if cfg.membership and algo.sync == "elastic":
+        raise ValueError(
+            "membership composes with mean-style syncs; easgd's center "
+            f"update assumes a fixed worker count — {algo.name!r} cannot "
+            "run with membership=True")
+
+
+def _masked(member: Any) -> bool:
+    return isinstance(member, MemberState)
+
+
+class HostMask(NamedTuple):
+    """A ``MemberState`` on the host: ``keep``, this rank's active flags
+    (flattened, pod-major for the hierarchy); ``n``, ``n_active``;
+    ``n_pod``, this rank's pods' active members (the hierarchy; None on
+    the flat engine)."""
+
+    keep: np.ndarray
+    n: float
+    n_pod: Optional[np.ndarray]
+
+    @property
+    def live(self) -> np.ndarray:
+        return np.flatnonzero(self.keep)
+
+
+# a MemberState is replaced, never written in place, so its mask tensor
+# keys its host copy: one device read per mask, none at the syncs
+_HOST_MASKS = WeakIdKeyDictionary()
+
+
+def host_mask(member: MemberState) -> HostMask:
+    """``member`` read to the host, once per mask."""
+    hm = _HOST_MASKS.get(member.active)
+    if hm is None:
+        hm = HostMask(
+            keep=member.active.reshape(-1).cpu().numpy() > 0,
+            n=float(member.n_active),
+            n_pod=(member.n_pod.reshape(-1).cpu().numpy()
+                   if isinstance(member.n_pod, torch.Tensor) else None))
+        _HOST_MASKS[member.active] = hm
+    return hm
+
+
+def global_mask(mesh, active: torch.Tensor, where: np.ndarray,
+                 n: int) -> np.ndarray:
+    """The whole grid's (n,) fp32 mask from every rank's block (``where``:
+    this rank's global indices): without a mesh the local one; on a mesh
+    one zero-padded all-reduce counted "membership"."""
+    local = active.reshape(-1).to(torch.float32)
+    if mesh is None:
+        return local.cpu().numpy()
+    full = torch.zeros(n, dtype=torch.float32, device=coll.wire_device(mesh))
+    full[torch.from_numpy(where)] = local.to(full.device)
+    mesh.all_reduce(full, kind="membership")
+    return full.cpu().numpy()
+
+
+def _new_mask(active: Any, shape: tuple) -> np.ndarray:
+    """The mask ``set_membership`` was given, (n,) fp32 over the whole
+    grid (pod-major for the hierarchy), or a ValueError."""
+    m = np.asarray(active, np.float32)
+    if m.size != int(np.prod(shape)):
+        raise ValueError(f"set_membership: a mask of {m.size} entries for "
+                         f"a worker grid of {shape}")
+    return m.reshape(-1)
+
+
+def _rows_sum(buf: torch.Tensor, rows, mesh=None, axes=coll.AXES,
+              kind: str = "membership") -> torch.Tensor:
+    """Σ over the leading dim's ``rows`` of ``buf`` in fp32, one row after
+    another (no row outside ``rows`` is read), and on a mesh over the
+    ranks of ``axes`` (one all-reduce counted ``kind``)."""
+    s = torch.zeros(buf.shape[1:], dtype=torch.float32, device=buf.device)
+    for i in rows:
+        s.add_(buf[i])
+    if mesh is not None:
+        mesh.all_reduce(s, axes, kind=kind)
+    return s
+
+
+def _zero_rows(tree: Any, rows, ndim: int) -> None:
+    """Zero, in place, the workers ``rows`` (flattened indices: pod-major
+    over the hierarchy's (P, D)) of every tensor leaf of ``tree`` that has
+    the worker-stacked rank ``ndim`` (moments, SM3 stats, residuals;
+    Adam's count is left as it is)."""
+    for _, x in tree_mod.state_leaves(tree):
+        if isinstance(x, torch.Tensor) and x.dim() == ndim:
+            xr = x.view(-1, *x.shape[-2:])
+            for i in rows:
+                xr[i].zero_()
 
 
 def _fold_scal(pend_k: torch.Tensor, km, lr: float) -> torch.Tensor:
@@ -782,10 +907,13 @@ def _sq(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x)
 
 
-def _sq_rows(buf: torch.Tensor) -> torch.Tensor:
-    """Σ x² over a worker-stacked buffer, one worker slice at a time."""
+def _sq_rows(buf: torch.Tensor, live=None) -> torch.Tensor:
+    """Σ x² over a worker-stacked buffer, one worker slice at a time (the
+    flattened worker indices ``live`` only, when given)."""
     rows = buf.reshape(-1, *buf.shape[-2:])
-    return sum(_sq(rows[i]) for i in range(rows.shape[0]))
+    idx = range(rows.shape[0]) if live is None else live
+    return sum((_sq(rows[i]) for i in idx),
+               torch.zeros((), dtype=torch.float32, device=buf.device))
 
 
 def _amax(x: torch.Tensor) -> torch.Tensor:
@@ -793,10 +921,13 @@ def _amax(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x.to(torch.float32), float("inf"))
 
 
-def _nonfinite_rows(rows: torch.Tensor) -> torch.Tensor:
-    """How many of the (n, R, C) worker rows hold a non-finite value."""
-    return sum((~torch.isfinite(rows[i])).any().to(torch.float32)
-               for i in range(rows.shape[0]))
+def _nonfinite_rows(rows: torch.Tensor, live=None) -> torch.Tensor:
+    """How many of the (n, R, C) worker rows (of ``live``, when given)
+    hold a non-finite value."""
+    idx = range(rows.shape[0]) if live is None else live
+    return sum(((~torch.isfinite(rows[i])).any().to(torch.float32)
+                for i in idx),
+               torch.zeros((), dtype=torch.float32, device=rows.device))
 
 
 def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
@@ -812,15 +943,21 @@ def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
     return sums, maxes
 
 
-def _moment_sums(kind: str, sm3: bool, inner: Any, sums: dict) -> None:
+def _moment_sums(kind: str, sm3: bool, inner: Any, sums: dict,
+                 live=None) -> None:
     """The moments' Σ x² into ``sums`` ("mu"; Adam's "nu": dense, or SM3's
-    row and lane stats together)."""
+    row and lane stats together), over the workers ``live`` when given."""
     if kind == "sgd":
         return
-    sums["mu"] = _sq_rows(inner if kind == "momentum" else inner.mu)
+    sums["mu"] = _sq_rows(inner if kind == "momentum" else inner.mu, live)
     if kind == "adam":
-        sums["nu"] = (_sq(inner.nu.row) + _sq(inner.nu.col) if sm3
-                      else _sq_rows(inner.nu))
+        if not sm3:
+            sums["nu"] = _sq_rows(inner.nu, live)
+        elif live is None:
+            sums["nu"] = _sq(inner.nu.row) + _sq(inner.nu.col)
+        else:
+            sums["nu"] = (_sq_rows(inner.nu.row, live)
+                          + _sq_rows(inner.nu.col, live))
 
 
 def _moment_rms(kind: str, sm3: bool, fspec: flat.FlatSpec, n: float,
@@ -883,6 +1020,18 @@ class Engine(NamedTuple):
     diagnostics: Any = None     # (state,) -> {name: 0-d tensor, and the
                                 # flat engine's (W,) drift_per_worker}: the
                                 # read-only health pass (obs.diagnostics)
+    set_membership: Any = None  # membership only: (state, mask) -> state,
+                                # the invariant-preserving repair for a
+                                # changed active set ((W,) or (P, D) over
+                                # the whole grid); between rounds.  None
+                                # when cfg.membership is off
+    recenter_drift: Any = None  # flat only: (state,) -> state, Σ Δ (Σ B)
+                                # re-zeroed over the (active) rows in the
+                                # buffers — after a strict-subset client
+                                # cohort's gather, before its round
+    all_active: Any = None      # (member,) -> bool: no MemberState, or
+                                # every worker active (the plain means
+                                # apply); host-side, no device read
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
@@ -901,10 +1050,6 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     counted all-reduce (even on one rank).  Without a mesh nothing is
     communicated."""
     algo = get_spec(cfg.algorithm)
-    if cfg.membership:
-        raise NotImplementedError(
-            "membership (elastic fault tolerance) is not ported yet "
-            "(ROADMAP Queue 1)")
     _check_mesh(cfg, mesh)
     ecfg = cfg.engine
     fspec = flat.make_spec(template, lanes=ecfg.lanes, block=ecfg.block,
@@ -917,6 +1062,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     # the flat algorithms ignore level 2, as the reference's do; the pair
     # stays canonical, so pair_meta(engine.compressors) == pair_meta(cfg)
     comp, comp2 = comm_mod.resolve_pair(cfg)
+    _validate_membership(cfg, algo)
     if algo.sync == "vrl2":
         _validate_overlap(cfg, algo, comp2)
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
@@ -931,11 +1077,26 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     ef_rt = None if comp is None else _ef_op(comp, fspec.lanes)
     ef_on = comp is not None and comp.error_feedback
 
+    def all_active(member: Any) -> bool:
+        """No ``MemberState``, or one with every worker of the grid
+        active (its host copy: no device read at a sync)."""
+        if not _masked(member):
+            return True
+        hm = host_mask(member)
+        return hm.n == hm.keep.size * world
+
     def _wmean(buf: torch.Tensor, kind: str = "state",
-               async_op: bool = False):
+               async_op: bool = False, member: Any = ()):
         """Worker mean of a (W, R, C) buffer -> (R, C): on one device a
         reduction over dim 0; on a mesh the local sum, one all-reduce
-        (counted under ``kind``) and ÷ W."""
+        (counted under ``kind``) and ÷ W.  With a ``MemberState`` that
+        leaves a worker out, the mean over the active workers, × 1 / the
+        state's count."""
+        if not all_active(member):
+            return coll.worker_mean(mesh, buf, 0, coll.AXES, kind=kind,
+                                    async_op=async_op,
+                                    keep=host_mask(member).keep,
+                                    count=member.n_active)
         return coll.worker_mean(mesh, buf, 0, coll.AXES, kind=kind,
                                 async_op=async_op)
 
@@ -985,13 +1146,23 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                 pend=stacked.to(torch.float32, copy=True),
                 pend_k=torch.ones((num_workers, 1, 1), dtype=torch.float32,
                                   device=stacked.device))
+        member = ()
+        if cfg.membership:
+            # everyone starts active; the count rides in the state, so the
+            # masked means never need a second collective
+            member = MemberState(
+                active=torch.ones((num_workers, 1, 1), dtype=torch.float32,
+                                  device=stacked.device),
+                n_active=torch.tensor(float(num_workers * world),
+                                      dtype=torch.float32,
+                                      device=stacked.device))
         return FlatWorkerState(
             params=stacked, delta=zeros(delta_dt) if algo.use_delta else (),
             step=0, last_sync=0, inner=inner,
             center=(flat1.to(torch.float32, copy=True) if algo.has_center
                     else ()),
             bias=zeros(delta_dt) if bias_on else (), comm=comm,
-            overlap=overlap)
+            overlap=overlap, member=member)
 
     def local_step(state: FlatWorkerState, grads: Any) -> FlatWorkerState:
         """One local step.  S-SGD first overwrites the (W, R, C) gradient
@@ -1002,7 +1173,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         if algo.grad_all_reduce:
             if comp is not None:
                 ef_rt(g, None, state.comm.resid if ef_on else None, out=g)
-            g.copy_(_wmean(g).unsqueeze(0).expand_as(g))
+            g.copy_(_wmean(g, member=state.member).unsqueeze(0).expand_as(g))
         p = state.params
         d = state.delta if algo.use_delta else None
         b = state.bias if bias_on else None
@@ -1032,7 +1203,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         cm = state.comm
         dec, _ = ef_rt(state.params, cm.ref, cm.resid if ef_on else None,
                        out=out)
-        xbar = cm.ref + _wmean(dec)
+        xbar = cm.ref + _wmean(dec, member=state.member)
         return xbar, state._replace(comm=cm._replace(ref=xbar))
 
     def sync(state: FlatWorkerState,
@@ -1058,7 +1229,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         if comp is not None:
             xbar, state = comp_mean(state, out)
         else:
-            xbar = _wmean(p)
+            xbar = _wmean(p, member=state.member)
         if algo.sync == "average":
             p.copy_(xbar.unsqueeze(0).expand_as(p))
             return state._replace(last_sync=state.step)
@@ -1091,7 +1262,9 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         mean that ``round_fold`` waits for).  ``k`` (the round's length) is
         unused here; the hierarchy's twin needs it for the k2 cadence."""
         del k
-        return _wmean(state.overlap.pend, async_op=True)
+        # masked: a dead worker's pend is retired from the mean until it
+        # rejoins with a fresh one
+        return _wmean(state.overlap.pend, async_op=True, member=state.member)
 
     def round_fold(state: FlatWorkerState, xbar: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> FlatWorkerState:
@@ -1154,7 +1327,82 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     def avg_model(state: FlatWorkerState) -> Any:
         """x̂ — the evaluation model (the paper reports metrics on it; on a
         mesh its all-reduce counts as "eval", outside the round)."""
-        return flat.unflatten_tree(fspec, _wmean(state.params, "eval"))
+        return flat.unflatten_tree(fspec, _wmean(state.params, "eval",
+                                                 member=state.member))
+
+    # this rank's workers' indices in the whole grid
+    def _mine(w_l: int) -> np.ndarray:
+        r = 0 if mesh is None else mesh.rank
+        return np.arange(r * w_l, (r + 1) * w_l)
+
+    @torch.no_grad()
+    def set_membership(state: FlatWorkerState, active) -> FlatWorkerState:
+        """Change the active set to ``active`` ((W,) over the whole grid,
+        bools or floats), repairing the invariants in place: continuing
+        workers' Δ (and B) recentred to mean zero over the continuing set
+        — the dropped workers' Δ redistributed over the survivors, computed
+        without reading a dropped row — so Σ_i Δ_i = 0 exactly over the
+        new active set; dropped and rejoining workers re-seeded from the
+        continuing consensus x̂ (params and overlap pend; pend_k 1), their
+        Δ, B, moments and EF residual zeroed.  The sums over the workers
+        divide by the continuing count as a 0-d device tensor (a true
+        division, as the reference's); on a mesh each is one all-reduce
+        counted "membership".  Between rounds."""
+        p = state.params
+        w_l, dev = p.shape[0], p.device
+        mine = _mine(w_l)
+        new = _new_mask(active, (w_l * world,))
+        cont = global_mask(mesh, state.member.active, mine,
+                           w_l * world) * new
+        keep = cont[mine] > 0
+        live, dead = np.flatnonzero(keep), np.flatnonzero(~keep)
+        n_cont = torch.tensor(max(float(cont.sum()), 1.0),
+                              dtype=torch.float32, device=dev)
+        xhat = _rows_sum(p, live, mesh).div_(n_cont)
+        for i in dead:
+            p[i].copy_(xhat)
+
+        def recenter(buf):
+            shift = _rows_sum(buf, live, mesh).div_(n_cont).to(buf.dtype)
+            for i in live:
+                buf[i].sub_(shift)
+            for i in dead:
+                buf[i].zero_()
+        if algo.use_delta:
+            recenter(state.delta)
+        if bias_on:
+            recenter(state.bias)
+        _zero_rows(state.inner, dead, 3)
+        if ef_on:
+            _zero_rows(state.comm.resid, dead, 3)
+        if cfg.overlap:
+            for i in dead:
+                state.overlap.pend[i].copy_(xhat)
+                state.overlap.pend_k[i].fill_(1.0)
+        return state._replace(member=MemberState(
+            active=torch.from_numpy(new[mine].copy()).to(dev).view(-1, 1, 1),
+            n_active=torch.tensor(float(new.sum()), dtype=torch.float32,
+                                  device=dev)))
+
+    @torch.no_grad()
+    def recenter_drift(state: FlatWorkerState) -> FlatWorkerState:
+        """Re-zero Σ Δ (and Σ B) over the rows in the buffers, in place.
+
+        A client cohort gathers W of M client rows; each client's Δ was
+        recentred against ALL clients, so the cohort's sum to the cohort
+        mean rather than zero, and the sync would drag x̂ by it every
+        round.  Subtracting the (active) cohort mean restores Σ Δ = 0;
+        with a ``MemberState`` the mean is masked and a dead slot's row is
+        left as it is.  On a mesh the mean is counted "membership"."""
+        member = state.member
+        live = (host_mask(member).live if _masked(member)
+                else range(state.params.shape[0]))
+        for buf in ((state.delta,) if algo.use_delta else ()) + (
+                (state.bias,) if bias_on else ()):
+            shift = _wmean(buf, "membership", member=member).to(buf.dtype)
+            for i in live:
+                buf[i].sub_(shift)
+        return state
 
     # the record's keys, decided by the configuration (the reference's)
     diag_keys = ["params_rms", "drift_sq_mean", "drift_max",
@@ -1177,35 +1425,50 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         across-worker dispersion of the control variates, (1/n) Σᵢ ‖Δᵢ −
         Δ̄‖², the runtime proxy for ζ²; ``delta_residual`` is ‖(1/n) Σᵢ
         Δᵢ‖∞, the Σ Δ = 0 invariant's residual (``bias_residual`` the BVR
-        Σ B = 0 twin); drift is ‖xᵢ − x̂‖ per worker.  Leaves the state
+        Σ B = 0 twin); drift is ‖xᵢ − x̂‖ per worker.  With a
+        ``MemberState`` every figure is over the active workers (a dead
+        row is never read: it neither counts as non-finite nor moves a
+        mean; its drift is 0) and n is the active count.  Leaves the state
         untouched."""
         p = state.params
         w_l = p.shape[0]
-        n = float(w_l * world)
+        member = state.member
+        live = host_mask(member).live if _masked(member) else None
+        n = (host_mask(member).n if live is not None
+             else float(w_l * world))
         elems = float(fspec.rows * fspec.lanes)
-        sums = {"nonfinite": _nonfinite_rows(p), "params": _sq_rows(p)}
-        xhat = coll.worker_sum(mesh, p.to(torch.float32), 0).mul_(1.0 / n)
-        drift_w = torch.stack([_sq(p[i].to(torch.float32) - xhat)
-                               for i in range(w_l)])
+        rows = range(w_l) if live is None else live
+
+        def wsum(buf):
+            if live is None:
+                return coll.worker_sum(mesh, buf.to(torch.float32), 0)
+            return _rows_sum(buf, live, mesh, kind="eval")
+        sums = {"nonfinite": _nonfinite_rows(p, live),
+                "params": _sq_rows(p, live)}
+        xhat = wsum(p).mul_(1.0 / n)
+        drift_w = torch.zeros(w_l, dtype=torch.float32, device=p.device)
+        for i in rows:
+            drift_w[i] = _sq(p[i].to(torch.float32) - xhat)
         del xhat
         sums["drift"] = drift_w.sum()
         maxes = {"drift": drift_w.max()}
 
         def invariant(buf, res_key, disp_key=None):
-            s = coll.worker_sum(mesh, buf.to(torch.float32), 0)
+            s = wsum(buf)
             maxes[res_key] = _amax(s)
             if disp_key is not None:
                 mean = s.mul_(1.0 / n)
-                sums[disp_key] = sum(_sq(buf[i].to(torch.float32) - mean)
-                                     for i in range(w_l))
+                sums[disp_key] = sum(
+                    (_sq(buf[i].to(torch.float32) - mean) for i in rows),
+                    torch.zeros((), dtype=torch.float32, device=p.device))
 
         if algo.use_delta:
             invariant(state.delta, "delta_residual", "zeta_sq_proxy")
         if bias_on:
             invariant(state.bias, "bias_residual")
         if ef_on:
-            sums["ef"] = _sq_rows(state.comm.resid)
-        _moment_sums(kind, sm3, state.inner, sums)
+            sums["ef"] = _sq_rows(state.comm.resid, live)
+        _moment_sums(kind, sm3, state.inner, sums, live)
         sums, maxes = _global_scalars(mesh, sums, maxes)
         out = {"nonfinite_workers": sums["nonfinite"],
                "params_rms": torch.sqrt(sums["params"] / (n * elems)),
@@ -1240,7 +1503,9 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   round_fold=round_fold if cfg.overlap else None,
                   compressors=(comp, comp2),
                   misses=misses if cfg.overlap else None,
-                  diagnostics=diagnostics)
+                  diagnostics=diagnostics,
+                  set_membership=set_membership if cfg.membership else None,
+                  recenter_drift=recenter_drift, all_active=all_active)
 
 
 # ============================================== hierarchical executor ("vrl2")
@@ -1281,13 +1546,41 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     # where the pod axis spans more than one rank (as the reference does)
     misses = _misses(cfg, mesh.index(("pod",)) if p_r > 1 else ())
 
-    def _pod_mean(buf: torch.Tensor) -> torch.Tensor:
+    def all_active(member: Any) -> bool:
+        """No ``MemberState``, or one with every worker of the grid active
+        (its host copy).  Only known where this rank holds every pod: with
+        the pods over several ranks the masked means apply whatever the
+        mask (one rule on every rank, no collective)."""
+        if not _masked(member):
+            return True
+        hm = host_mask(member)
+        return (p_r == 1 and hm.n == p_total
+                and bool((hm.n_pod == d_total).all()))
+
+    def _pod_mean(buf: torch.Tensor, member: Any = ()) -> torch.Tensor:
         """(P, D, R, C) -> (P, 1, R, C): THE intra-pod all-reduce.  With one
-        pod it reduces exactly as the flat engine's worker mean does."""
+        pod it reduces exactly as the flat engine's worker mean does.
+        Masked, where a pod of this rank's misses a member: over each
+        pod's ACTIVE members, × 1 / max(n_pod, 1) (an all-dead pod's mean
+        is 0, and the cross-pod mean leaves it out)."""
+        if _masked(member) and (host_mask(member).n_pod < d_total).any():
+            return coll.worker_mean(
+                mesh, buf, 1, ("data",), keepdim=True,
+                keep=host_mask(member).keep.reshape(p_loc, d_loc),
+                count=member.n_pod.clamp(min=1.0))
         return coll.worker_mean(mesh, buf, 1, ("data",), keepdim=True)
 
-    def _cross_mean(pod_avg: torch.Tensor, async_op: bool = False):
-        """(P, 1, R, C) pod averages -> (R, C): THE cross-pod all-reduce."""
+    def _cross_mean(pod_avg: torch.Tensor, async_op: bool = False,
+                    member: Any = ()):
+        """(P, 1, R, C) pod averages -> (R, C): THE cross-pod all-reduce.
+        Masked, where a pod is dead: the uniform mean over ALIVE pods
+        (``n_active`` counts them), the weighting that keeps Σ_p Δ2 = 0
+        through pod churn."""
+        if _masked(member) and host_mask(member).n < p_total:
+            return coll.worker_mean(
+                mesh, pod_avg, (0, 1), ("pod",), async_op=async_op,
+                keep=(host_mask(member).n_pod > 0).reshape(p_loc, 1),
+                count=member.n_active)
         return coll.worker_mean(mesh, pod_avg, (0, 1), ("pod",),
                                 async_op=async_op)
 
@@ -1342,6 +1635,15 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                 resid2=zeros(pod_shape) if ef2_on else (),
                 ref2=(flat1.to(torch.float32, copy=True)
                       if comp2 is not None else ()))
+        member = ()
+        if cfg.membership:
+            member = MemberState(
+                active=torch.ones((p_loc, d_loc, 1, 1), dtype=torch.float32,
+                                  device=stacked.device),
+                n_active=torch.tensor(float(p_total), dtype=torch.float32,
+                                      device=stacked.device),
+                n_pod=torch.full((p_loc, 1, 1, 1), float(d_total),
+                                 dtype=torch.float32, device=stacked.device))
         return HierFlatState(
             params=stacked,
             delta1=torch.zeros(stacked.shape, dtype=delta_dt,
@@ -1349,7 +1651,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             delta2=torch.zeros(pod_shape, dtype=delta_dt,
                                device=stacked.device),
             inner=inner_init(stacked), step=0, last_sync1=0, last_sync2=0,
-            comm=comm, overlap=overlap)
+            comm=comm, overlap=overlap, member=member)
 
     def inner_init(stacked: torch.Tensor) -> Any:
         if kind == "sgd":
@@ -1405,9 +1707,9 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         if comp1 is not None:
             cm = state.comm
             dec, _ = ef1(p, cm.ref1, cm.resid1 if ef1_on else None, out=out)
-            xbar = cm.ref1.add_(_pod_mean(dec))
+            xbar = cm.ref1.add_(_pod_mean(dec, state.member))
         else:
-            xbar = _pod_mean(p)
+            xbar = _pod_mean(p, state.member)
         vu.fused_sync_hier1(p, xbar, state.delta1, _kg(k_eff, p.device),
                             block=fspec.block)
         return state._replace(last_sync1=state.step)
@@ -1423,9 +1725,10 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         k_eff = max(state.step - state.last_sync2, 1)
         if comp2 is not None:
             dec = _ef2(state, state.comm.ref2, _pod_rows(out))
-            glob = state.comm.ref2.add_(_cross_mean(dec[:, None]))
+            glob = state.comm.ref2.add_(_cross_mean(dec[:, None],
+                                                    member=state.member))
         else:
-            glob = _cross_mean(p[:, :1])
+            glob = _cross_mean(p[:, :1], member=state.member)
         if comp1 is not None:
             _reanchor_ref1(state.comm.ref1, glob)
         vu.fused_sync_hier2(p, glob, state.delta2, _kg(k_eff, p.device),
@@ -1466,7 +1769,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         asynchronously, a pending mean); None otherwise (the fold then has
         nothing to read, and nothing is allocated)."""
         _check_round()
-        return (_cross_mean(state.overlap.pend, async_op=True)
+        return (_cross_mean(state.overlap.pend, async_op=True,
+                            member=state.member)
                 if level2_due(state, k) else None)
 
     def _fold2(state: HierFlatState, glob: torch.Tensor,
@@ -1537,9 +1841,107 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         return flat.unflatten_grid(fspec, state.params)
 
     def avg_model(state: HierFlatState) -> Any:
-        """x̂ over all P·D workers — the evaluation model."""
+        """x̂ over all P·D workers — the evaluation model; with a
+        ``MemberState`` over the active ones."""
+        member = state.member
+        if all_active(member):
+            return flat.unflatten_tree(fspec, coll.worker_mean(
+                mesh, state.params, (0, 1), coll.AXES, kind="eval"))
         return flat.unflatten_tree(fspec, coll.worker_mean(
-            mesh, state.params, (0, 1), coll.AXES, kind="eval"))
+            mesh, state.params, (0, 1), coll.AXES, kind="eval",
+            keep=host_mask(member).keep.reshape(p_loc, d_loc),
+            count=_active_workers(member).clamp(min=1.0)))
+
+    def _active_workers(member: MemberState) -> torch.Tensor:
+        """The active workers of the whole grid, a 0-d fp32 tensor (on a
+        mesh the pods' counts summed over the pod axis, counted "eval")."""
+        n = member.n_pod.sum()
+        if mesh is not None:
+            n = n.to(coll.wire_device(mesh))
+            mesh.all_reduce(n, ("pod",), kind="eval")
+        return n.to(member.n_pod.device)
+
+    # this rank's block of the (P, D) grid
+    p0 = 0 if mesh is None else mesh.coords[0] * p_loc
+    d0 = 0 if mesh is None else mesh.coords[1] * d_loc
+    mine = np.arange(p_total * d_total).reshape(p_total, d_total)[
+        p0:p0 + p_loc, d0:d0 + d_loc].reshape(-1)
+
+    @torch.no_grad()
+    def set_membership(state: HierFlatState, active) -> HierFlatState:
+        """Change the active set to ``active`` ((W,) pod-major or (P, D)
+        over the whole grid), repairing the two-level invariants in place:
+        Δ1 recentred within each pod over its continuing members (Σ_d Δ1 =
+        0 in every pod with survivors), Δ2 over the pods that stay alive
+        (Σ_p Δ2 = 0 over them); dropped and rejoining workers re-seeded
+        from the continuing consensus x̂ (their Δ1, moments and EF residual
+        zeroed), and a pod none of whose members continue re-anchored
+        there (its Δ2 and resid2 zeroed, ref1 and overlap pend x̂, pend_k
+        1).  On a mesh each global sum is one all-reduce counted
+        "membership" over its axes."""
+        p = state.params
+        dev = p.device
+        new = _new_mask(active, (p_total, d_total))
+        cont_g = (global_mask(mesh, state.member.active, mine,
+                              p_total * d_total) * new).reshape(
+                                   p_total, d_total)
+        new_g = new.reshape(p_total, d_total)
+        cont = cont_g[p0:p0 + p_loc, d0:d0 + d_loc]
+        keep = cont.reshape(-1) > 0
+        live, dead = np.flatnonzero(keep), np.flatnonzero(~keep)
+        rows = p.view(-1, *p.shape[2:])
+
+        def scalar(x):
+            return torch.tensor(float(x), dtype=torch.float32, device=dev)
+        n_cont = scalar(max(cont_g.sum(), 1.0))
+        xhat = _rows_sum(rows, live, mesh).div_(n_cont)
+        for i in dead:
+            rows[i].copy_(xhat)
+        # Δ1 within each pod over its continuing members
+        n_cont_pod = cont_g.sum(axis=1)[p0:p0 + p_loc]
+        d1 = state.delta1
+        for pi in range(p_loc):
+            alive_d = np.flatnonzero(cont[pi] > 0)
+            s1 = _rows_sum(d1[pi], alive_d, mesh, ("data",)).div_(
+                scalar(max(n_cont_pod[pi], 1.0))).to(d1.dtype)
+            for di in range(d_loc):
+                if cont[pi, di] > 0:
+                    d1[pi, di].sub_(s1)
+                else:
+                    d1[pi, di].zero_()
+        # Δ2 over the pods that keep a continuing member
+        pod_keep_g = cont_g.sum(axis=1) > 0
+        pod_keep = pod_keep_g[p0:p0 + p_loc]
+        alive_p, gone_p = np.flatnonzero(pod_keep), np.flatnonzero(~pod_keep)
+        d2 = state.delta2[:, 0]
+        s2 = _rows_sum(d2, alive_p, mesh, ("pod",)).div_(
+            scalar(max(pod_keep_g.sum(), 1.0))).to(d2.dtype)
+        for pi in alive_p:
+            d2[pi].sub_(s2)
+        for pi in gone_p:
+            d2[pi].zero_()
+        _zero_rows(state.inner, dead, 4)
+        cm = state.comm
+        if isinstance(cm, HierCommState):
+            if ef1_on:
+                _zero_rows(cm.resid1, dead, 4)
+            for pi in gone_p:
+                if comp1 is not None:
+                    cm.ref1[pi, 0].copy_(xhat)
+                if ef2_on:
+                    cm.resid2[pi, 0].zero_()
+        if cfg.overlap:
+            for pi in gone_p:
+                state.overlap.pend[pi, 0].copy_(xhat)
+                state.overlap.pend_k[pi].fill_(1.0)
+        n_new_pod = new_g.sum(axis=1)
+        return state._replace(member=MemberState(
+            active=torch.from_numpy(
+                new_g[p0:p0 + p_loc, d0:d0 + d_loc].copy()).to(dev).view(
+                    p_loc, d_loc, 1, 1),
+            n_active=scalar((n_new_pod > 0).sum()),
+            n_pod=torch.from_numpy(n_new_pod[p0:p0 + p_loc].astype(
+                np.float32)).to(dev).view(p_loc, 1, 1, 1)))
 
     diag_keys = ["params_rms", "drift_sq_mean", "drift_max",
                  "nonfinite_workers", "delta1_residual", "delta2_residual",
@@ -1557,40 +1959,64 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         ``_core_diag_hier``): ``delta1_residual`` is the worst pod's
         ‖mean_d Δ1[p]‖∞ (Σ_d Δ1[p] = 0 within every pod),
         ``delta2_residual`` ‖mean_p Δ2‖∞ (Σ_p Δ2 = 0); the ζ² proxy is
-        the dispersion of each worker's TOTAL correction Δ1 + Δ2."""
-        p = state.params
+        the dispersion of each worker's TOTAL correction Δ1 + Δ2.  With a
+        ``MemberState``: over the active workers (a dead row is never
+        read), the pods' means over their active members and the
+        cross-pod mean over alive pods."""
+        member = state.member
+        p, d1, d2 = state.params, state.delta1, state.delta2
+        dev = p.device
         rows = p.reshape(-1, *p.shape[2:])
-        n_l = rows.shape[0]
-        n = float(p_total * d_total)
+        d1r = d1.reshape(-1, *d1.shape[2:])
+        # the rows read: every worker and pod (None), or the active ones
+        live = pods = None
+        pod_rows = [None] * p_loc
+        n, n_alive = float(p_total * d_total), float(p_total)
+        n_pod = np.full(p_loc, float(d_total))
+        if _masked(member):
+            hm = host_mask(member)
+            live, pods = hm.live, np.flatnonzero(hm.n_pod > 0)
+            pod_rows = [np.flatnonzero(k) for k in
+                        hm.keep.reshape(p_loc, d_loc)]
+            n = max(float(_active_workers(member)), 1.0)
+            n_alive, n_pod = hm.n, np.maximum(hm.n_pod, 1.0)
+        each = range(rows.shape[0]) if live is None else live
         elems = float(fspec.rows * fspec.lanes)
-        sums = {"nonfinite": _nonfinite_rows(rows), "params": _sq_rows(p)}
-        xhat = coll.worker_sum(mesh, p.to(torch.float32),
-                               (0, 1)).mul_(1.0 / n)
-        drift_w = torch.stack([_sq(rows[i].to(torch.float32) - xhat)
-                               for i in range(n_l)])
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def wsum(buf, axes, idx):
+            """Σ over ``buf``'s leading dim (its rows ``idx`` when given)
+            and the ranks of ``axes``, in fp32 ("eval")."""
+            if idx is None:
+                return coll.worker_sum(mesh, buf.to(torch.float32), 0, axes)
+            return _rows_sum(buf, idx, mesh, axes, kind="eval")
+        sums = {"nonfinite": _nonfinite_rows(rows, live),
+                "params": _sq_rows(p, live)}
+        xhat = wsum(rows, coll.AXES, live).mul_(1.0 / n)
+        drift_w = [_sq(rows[i].to(torch.float32) - xhat) for i in each]
         del xhat
-        sums["drift"] = drift_w.sum()
-        maxes = {"drift": drift_w.max()}
-        d1, d2 = state.delta1, state.delta2
-        s1 = coll.worker_sum(mesh, d1.to(torch.float32), 1, ("data",))
-        maxes["delta1"] = _amax(s1.div_(float(d_total)))
-        s2 = coll.worker_sum(mesh, d2.to(torch.float32), (0, 1), ("pod",))
-        maxes["delta2"] = _amax(s2.div_(float(p_total)))
-        del s1, s2
-        # Σ over every worker of its total correction Δ1 + Δ2[pod]
-        csum = (d1.to(torch.float32).sum(dim=(0, 1))
-                + d2.to(torch.float32).sum(dim=(0, 1)) * float(d1.shape[1]))
+        sums["drift"] = sum(drift_w, zero)
+        maxes = {"drift": torch.stack(drift_w + [zero]).max()}
+        maxes["delta1"] = torch.stack([zero] + [
+            _amax(wsum(d1[pi], ("data",), pod_rows[pi]).mul_(
+                1.0 / float(n_pod[pi]))) for pi in range(p_loc)]).max()
+        maxes["delta2"] = _amax(wsum(d2[:, 0], ("pod",), pods).mul_(
+            1.0 / n_alive))
+
+        def corr(i):                    # worker i's total correction
+            return (d1r[i].to(torch.float32)
+                    + d2[i // d_loc, 0].to(torch.float32))
+        cmean = sum((corr(i) for i in each),
+                    torch.zeros(d1.shape[2:], dtype=torch.float32,
+                                device=dev))
         if mesh is not None:
-            mesh.all_reduce(csum, kind="eval")
-        cmean = csum.mul_(1.0 / n)
-        sums["zeta"] = sum(
-            _sq(d1[i, j].to(torch.float32) + d2[i, 0].to(torch.float32)
-                - cmean)
-            for i in range(d1.shape[0]) for j in range(d1.shape[1]))
+            mesh.all_reduce(cmean, kind="eval")
+        cmean.mul_(1.0 / n)
+        sums["zeta"] = sum((_sq(corr(i) - cmean) for i in each), zero)
         del cmean
         if ef1_on:
-            sums["ef"] = _sq_rows(state.comm.resid1)
-        _moment_sums(kind, sm3, state.inner, sums)
+            sums["ef"] = _sq_rows(state.comm.resid1, live)
+        _moment_sums(kind, sm3, state.inner, sums, live)
         sums, maxes = _global_scalars(mesh, sums, maxes)
         out = {"params_rms": torch.sqrt(sums["params"] / (n * elems)),
                "drift_sq_mean": sums["drift"] * (1.0 / n),
@@ -1615,4 +2041,6 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   compressors=(comp1, comp2),
                   misses=misses if cfg.overlap else None,
                   sync1=sync1, sync2=sync2, grid=(p_total, d_total),
-                  diagnostics=diagnostics)
+                  diagnostics=diagnostics,
+                  set_membership=set_membership if cfg.membership else None,
+                  all_active=all_active)

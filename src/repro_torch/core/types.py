@@ -1,7 +1,8 @@
 """State containers of the algorithms (``repro.core.types`` and
 ``repro.core.engine``): the flat-buffer engine's ``FlatWorkerState``,
-``CommState``, ``OverlapState``, ``HierFlatState`` and ``HierCommState``,
-and the per-leaf reference executor's ``WorkerState`` and ``HierState``.
+``CommState``, ``OverlapState``, ``MemberState``, ``HierFlatState`` and
+``HierCommState``, and the per-leaf reference executor's ``WorkerState``
+and ``HierState``.
 
 The flat engine's buffers are updated IN PLACE by its kernels; an engine
 call returns a new tuple (``_replace``) that holds the same buffers with
@@ -109,6 +110,34 @@ class OverlapState(NamedTuple):
     pend_k: Any
 
 
+class MemberState(NamedTuple):
+    """Elastic membership of fault-tolerant rounds
+    (``repro.core.types.MemberState``), device tensors.
+
+    ``active``: the {0, 1} fp32 mask over workers, shaped to broadcast
+    against the flat buffers: (W, 1, 1), the hierarchy's (P, D, 1, 1); on a
+    mesh this rank's block of it.  Dead workers keep their rows (nothing is
+    re-laid out); every sync mean adds up only the active workers' slices,
+    never a multiply by the mask (a dead worker's NaN · 0 is NaN).
+
+    ``n_active``: 0-d fp32, the divisor of the top-level masked mean,
+    carried in the state so that the masked sync stays ONE all-reduce:
+    the active workers (the hierarchy: the ALIVE pods, those with at least
+    one active member — the cross-pod mean is uniform over them, the
+    weighting that keeps Σ_p Δ2 = 0 through pod churn); global on a mesh.
+
+    ``n_pod``: the hierarchy only, each pod's active members, (P, 1, 1, 1)
+    fp32 (the intra-pod means' divisors); () on the flat engine.
+
+    Only ``Engine.set_membership`` (the repair between rounds) changes
+    them.
+    """
+
+    active: Any
+    n_active: Any
+    n_pod: Any = ()
+
+
 class FlatWorkerState(NamedTuple):
     """Worker-stacked algorithm state as contiguous flat buffers.
 
@@ -119,7 +148,8 @@ class FlatWorkerState(NamedTuple):
     (W, R, 1) and lane (W, S, C) with S = ``FlatSpec.shards``;
     ``bias``: BVR-L-SGD's (W, R, C) variate B; ``comm``: a ``CommState``
     under compression; ``overlap``: an ``OverlapState`` under overlapped
-    rounds.  Each is () where the configuration does not use it.
+    rounds; ``member``: a ``MemberState`` under ``cfg.membership``.  Each
+    is () where the configuration does not use it.
     """
 
     params: torch.Tensor
@@ -131,6 +161,7 @@ class FlatWorkerState(NamedTuple):
     bias: Any = ()
     comm: Any = ()
     overlap: Any = ()
+    member: Any = ()
 
 
 class HierFlatState(NamedTuple):
@@ -145,7 +176,8 @@ class HierFlatState(NamedTuple):
     pod after a level-1 sync, Σ_p Δ2[p] = 0 after a level-2 sync.
     ``overlap``: an ``OverlapState`` over pods under overlapped rounds, ()
     otherwise; ``comm``: a ``HierCommState`` when either level compresses,
-    () otherwise.
+    () otherwise; ``member``: a ``MemberState`` (active (P, D, 1, 1), n_pod
+    (P, 1, 1, 1), n_active the alive pods) under ``cfg.membership``.
     """
 
     params: torch.Tensor
@@ -158,3 +190,4 @@ class HierFlatState(NamedTuple):
                                 # fold)
     comm: Any = ()
     overlap: Any = ()
+    member: Any = ()

@@ -96,11 +96,14 @@ def _span(key: str, hier: bool) -> str:
     (the hierarchy's per-pod (P, 1, ...) leaves, replicated along the data
     axis) or "global" (the same on every rank)."""
     top = key.split("/", 1)[0]
+    if key == "member/n_active":
+        return "global"
     if not hier:
         return "global" if top == "center" or key == "comm/ref" else "worker"
     if key == "comm/ref2":
         return "global"
-    if top in ("delta2", "overlap") or key in ("comm/ref1", "comm/resid2"):
+    if top in ("delta2", "overlap") or key in ("comm/ref1", "comm/resid2",
+                                                 "member/n_pod"):
         return "pod"
     return "worker"
 

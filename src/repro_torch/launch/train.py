@@ -114,7 +114,8 @@ and B recentred, EF residuals dropped) and re-splitting the saved data
 assignment (which, as in the reference, cannot grow the workers past
 its shard count); a checkpoint at or past ``--steps`` only evaluates the
 restored model.  Under ``--mesh-grid`` a save gathers every rank's block
-to rank 0, which writes the one file; a resume reads it on every rank.
+to rank 0, which writes the one file (a client store, whole on every
+rank, it writes as it is); a resume reads it on every rank.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32 \\
@@ -133,8 +134,52 @@ workers) at the log cadence; ``--invariant-alarm X`` prints an alarm
 when a residual exceeds X and the run continues (the reference's
 behaviour without ``--guard``).
 
-Not ported yet (ROADMAP Queue 1): membership and faults (``--faults``,
-``--guard``), client sampling (``--clients``), row shards on a mesh.
+Fault tolerance (elastic rounds; ``repro_torch.fault``,
+``Engine.set_membership``): ``--faults`` replays a deterministic chaos
+schedule (gradient NaN/Inf/scale poison through ``round_step_fault``,
+worker crash/rejoin, a simulated kill inside a checkpoint save),
+``--membership`` threads the survivor mask through every sync (the repair
+at each mask change keeps Σ_i Δ_i = 0 exactly; crash/rejoin events turn
+it on), ``--guard`` checks each round (the loss and every active worker's
+parameters finite, the round's loss no blow-up past 10× the last good one
++ 1, and, with ``--invariant-alarm``, the Σ Δ / Σ B residuals) and rolls
+back to the newest checkpoint at or before the round (or to the
+round-start snapshot, a clone of the state's tensors on the device) with
+backoff, at most ``--max-retries`` times in a row:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 4 --steps 10 --k 2 --batch 2 \\
+      --seq 32 --lr 0.05 --membership --guard \\
+      --faults "nan@1:3,crash@1:4,rejoin@1:8"
+
+Partial participation (``core.clients``): ``--clients M`` keeps M logical
+clients' engine state (each on its own Dirichlet shard) in a host-side
+store (page-locked on the card); every round a seed-deterministic cohort
+of ``--workers`` clients is gathered into the flat buffers in place, Σ Δ
+recentred over the cohort (``recenter_drift``, when M > W), the round runs
+unchanged (one model-state mean) and the healthy round's rows scatter
+back; M = W is bitwise the storeless run.  ``--participation p`` checks
+that round(p · M) = W.  A checkpoint then holds the store (the JAX
+package's "clients/..." and "server_params" keys).  Under ``--mesh-grid``
+every rank keeps a whole copy of the store and gathers its own slots; a
+scatter all-gathers the cohort's rows to every copy.  Refused, as in the
+reference: with the hierarchy, ``--overlap``, ``--no-round`` and
+``--backend reference``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --workers 4 --clients 8 --steps 8 --k 2 \\
+      --batch 2 --seq 32 --lr 0.05 --alpha 0.1 \\
+      --faults "crash@2:3,rejoin@2:5,killsave:6" --ckpt /tmp/run \\
+      --ckpt-every 2
+
+Under ``--membership`` the log's Σ Δ lines and max|params| are over the
+active workers, and the EF-identity and per-level term lines are not
+printed.  The stream adds the reference's ``membership``, ``rollback``,
+``fault`` and ``cohort`` events; the run's last lines give the snapshot,
+rollback, repair, gather and scatter seconds.
+
+Not ported yet (ROADMAP Queue 1): row shards on a mesh, client sampling on
+a mesh.
 """
 from __future__ import annotations
 
@@ -157,9 +202,12 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, HierConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
+from repro_torch.core import clients as clients_mod
 from repro_torch.core import schedule as schedule_mod
+from repro_torch.core.types import MemberState
 from repro_torch.data import assigned_token_stream, contiguous_assignment
 from repro_torch.data import partition as partition_mod
+from repro_torch.fault import FaultSchedule
 from repro_torch.kernels import vrl_update
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
@@ -168,6 +216,14 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.timers import PhaseTimers
 from repro_torch.train.loss import cross_entropy_lm
 from repro_torch.train.train_loop import make_train_step
+
+
+# --guard's loss-trend trip-wire: a round whose mean loss exceeds
+# factor * last_good + slack is treated as diverged even though every
+# value is finite (the signature of a scale-poisoned gradient).  The
+# slack keeps ordinary early-training noise from tripping it.
+_BLOWUP_FACTOR = 10.0
+_BLOWUP_SLACK = 1.0
 
 
 class TrainResult(NamedTuple):
@@ -202,6 +258,13 @@ class TrainResult(NamedTuple):
     rank: int = 0               # --mesh-grid: this process's rank
     start_step: int = 0         # --resume: the restored checkpoint's step
                                 # (``losses`` cover the steps after it)
+    elastic: Any = None         # --faults/--membership/--guard/--clients:
+                                # {"snapshot_s", "rollback_s",
+                                # "membership_s", "gather_s", "scatter_s":
+                                # [seconds each], "rollbacks": [(t_fail,
+                                # reason, back_to)], "masks": [(t, mask)],
+                                # "store_bytes"} (host clock, synchronised)
+    store: Any = None           # --clients: the core.clients.ClientStore
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -259,6 +322,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "on the per-step cadence) instead of round by "
                          "round")
     ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--clients", type=int, default=0,
+                    help="partial participation: keep this many LOGICAL "
+                         "clients' engine state (params, Δ, bias, EF "
+                         "residual, moments — each on its own Dirichlet "
+                         "non-iid data shard) in a host-side store, and "
+                         "sample a cohort of --workers of them per round "
+                         "into the flat buffers.  The round is unchanged "
+                         "(one model-state mean); Σ Δ is recentred over "
+                         "each sampled cohort.  0 = off; --clients == "
+                         "--workers is bitwise the plain path")
+    ap.add_argument("--participation", type=float, default=0.0,
+                    help="sampled fraction of --clients per round, as a "
+                         "cross-check: round(participation * clients) "
+                         "must equal --workers (the cohort size).  "
+                         "Default: --workers / --clients")
     ap.add_argument("--batch", type=int, default=8, help="per-worker batch")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--steps", type=int, default=100)
@@ -307,6 +385,36 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "is RESHARDED (rows tiled, Δ recentred to Σ=0, "
                          "EF residuals dropped); layout/compressor/moment "
                          "mismatches still fail loudly")
+    ap.add_argument("--faults", default=None,
+                    help="deterministic chaos schedule: 'kind@worker:step' "
+                         "events joined by commas — nan/inf (gradient "
+                         "poison), scale@w:step:mult (finite gradient "
+                         "blow-up — silent corruption only the --guard "
+                         "loss trend catches), crash/rejoin (membership), "
+                         "killsave:step (die inside the next checkpoint "
+                         "save).  'random' draws a schedule from "
+                         "--fault-seed.  Example: "
+                         "'nan@1:12,scale@0:20:1e3,crash@1:15,"
+                         "rejoin@1:30,killsave:20'")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="seed for --faults random (default: --seed)")
+    ap.add_argument("--membership", action="store_true",
+                    help="elastic membership: thread an active-worker "
+                         "mask through every sync (masked means stay ONE "
+                         "all-reduce; Σ Δ = 0 is repaired exactly on every "
+                         "drop/rejoin; full mask is bitwise the plain "
+                         "path).  Auto-enabled by crash/rejoin faults.")
+    ap.add_argument("--guard", action="store_true",
+                    help="divergence guard: check loss/param finiteness "
+                         "AND the loss trend (a round whose mean loss "
+                         "blows past 10x the last good round + 1 is "
+                         "diverged even when finite — the scale-poison "
+                         "signature) each round; on failure roll back to "
+                         "the last good checkpoint (or the round-start "
+                         "snapshot) and retry with backoff, bounded by "
+                         "--max-retries")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="divergence-guard rollback budget")
     ap.add_argument("--metrics", default=None,
                     help="stream schema-versioned JSONL telemetry events "
                          "here (run_start/round/sync/diag/eval/checkpoint/"
@@ -320,9 +428,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "count (one read-only pass between rounds)")
     ap.add_argument("--invariant-alarm", type=float, default=0.0,
                     help="alarm threshold on the Σ Δ / Σ B invariant "
-                         "residuals (0 = off): a tripped alarm prints and "
-                         "the run continues.  Under a lossy --compress "
-                         "the residual is genuinely nonzero (EF-bounded "
+                         "residuals (0 = off).  With --guard a tripped "
+                         "alarm is a divergence (rollback + retry); "
+                         "without it the alarm prints and the run "
+                         "continues.  Under a lossy --compress the "
+                         "residual is genuinely nonzero (EF-bounded "
                          "bias) — leave off or set above that floor")
     ap.add_argument("--profile-round", type=int, default=0,
                     help="run torch.profiler over the Nth round (1-based; "
@@ -361,6 +471,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.ckpt_retain < 0:
         raise SystemExit(f"--ckpt-retain must be >= 0 (0 keeps all), got "
                          f"{args.ckpt_retain}")
+    if args.max_retries < 0:
+        raise SystemExit(f"--max-retries must be >= 0, got "
+                         f"{args.max_retries}")
+    if args.clients < 0:
+        raise SystemExit(f"--clients must be >= 0 (0 = no client "
+                         f"sampling), got {args.clients}")
+    if args.clients and args.clients < args.workers:
+        raise SystemExit(f"--clients {args.clients} must be >= --workers "
+                         f"{args.workers} (the cohort size is the worker "
+                         f"count)")
+    if args.participation and not args.clients:
+        raise SystemExit("--participation needs --clients (it is the "
+                         "sampled fraction of the client population)")
+    if args.participation and not (0.0 < args.participation <= 1.0):
+        raise SystemExit(f"--participation is a fraction in (0, 1], got "
+                         f"{args.participation}")
+    if args.participation:
+        cohort = round(args.participation * args.clients)
+        if cohort != args.workers:
+            raise SystemExit(
+                f"--participation {args.participation} of "
+                f"{args.clients} clients is a cohort of {cohort}, but "
+                f"--workers is {args.workers} — set --workers {cohort} "
+                f"(the cohort size is the worker count)")
     if args.invariant_alarm < 0:
         raise SystemExit(f"--invariant-alarm must be >= 0 (0 disables "
                          f"the residual alarm), got {args.invariant_alarm}")
@@ -373,6 +507,59 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1, got "
                              f"{getattr(args, flag)}")
     return args
+
+
+def build_faults(args: argparse.Namespace) -> Optional[FaultSchedule]:
+    """The ``--faults`` schedule (the reference's ``_build_faults``), or
+    None; a bad spec or an impossible schedule exits with its message."""
+    if not args.faults:
+        return None
+    if not args.round:
+        raise SystemExit("--faults injects per-round; drop --no-round")
+    try:
+        if args.faults == "random":
+            fs = FaultSchedule.random(
+                args.steps, args.workers,
+                seed=args.fault_seed if args.fault_seed is not None
+                else args.seed,
+                killsave=bool(args.ckpt))
+        else:
+            fs = FaultSchedule.parse(args.faults)
+    except ValueError as e:
+        raise SystemExit(f"--faults: {e}")
+    for e in fs.events:
+        if e.worker >= args.workers:
+            raise SystemExit(f"--faults: event {e.kind}@{e.worker}:"
+                             f"{e.step} targets a worker >= --workers "
+                             f"{args.workers}")
+    for e in fs.membership_events():
+        if fs.active_at(e.step, args.workers).sum() < 1:
+            raise SystemExit(f"--faults: schedule leaves no active worker "
+                             f"at step {e.step}")
+    return fs
+
+
+def refuse_clients(args: argparse.Namespace) -> None:
+    """The reference's refusals of ``--clients``."""
+    if not args.clients:
+        return
+    if args.algorithm == "hier_vrl_sgd":
+        raise SystemExit("--clients samples cohorts into the flat "
+                         "(W, R, C) buffers; hier_vrl_sgd runs a "
+                         "pod-major grid — drop --clients or the "
+                         "hierarchy")
+    if args.overlap:
+        raise SystemExit("--clients does not compose with --overlap: "
+                         "the overlapped pend buffer is one round "
+                         "stale and would mix positions from "
+                         "different clients across cohorts")
+    if not args.round:
+        raise SystemExit("--clients gathers/scatters per round; drop "
+                         "--no-round")
+    if args.backend == "reference":
+        raise SystemExit("--clients needs the flat-buffer engine's "
+                         "contiguous client store; --backend "
+                         "reference has none")
 
 
 def hier_config(args: argparse.Namespace) -> Optional[HierConfig]:
@@ -389,8 +576,10 @@ def hier_config(args: argparse.Namespace) -> Optional[HierConfig]:
                       grid=(args.pods, args.workers // args.pods))
 
 
-def vrl_config(args: argparse.Namespace) -> VRLConfig:
-    """The algorithm configuration the parsed flags ask for."""
+def vrl_config(args: argparse.Namespace,
+               membership: bool = False) -> VRLConfig:
+    """The algorithm configuration the parsed flags ask for
+    (``membership``: the flag, or turned on by crash/rejoin faults)."""
     hier = hier_config(args)
     if hier is not None and args.comm_schedule:
         raise SystemExit("--comm-schedule drives the flat algorithms; "
@@ -417,6 +606,7 @@ def vrl_config(args: argparse.Namespace) -> VRLConfig:
                      compress=comps[0], compress2=comps[1],
                      overlap=args.overlap, deadline=args.deadline,
                      hier=hier, update_backend=args.backend,
+                     membership=membership or args.membership,
                      engine=EngineConfig(block=args.block,
                                          round_scan=args.round,
                                          shards=args.shards))
@@ -497,7 +687,19 @@ def _train(args: argparse.Namespace, device: torch.device,
     refuse_codec(cfg)
     say(f"arch: {registry.describe(args.arch)}"
         f"{' [reduced smoke variant]' if args.smoke else ''}")
-    vrl = vrl_config(args)
+    refuse_clients(args)
+    faults = build_faults(args)
+    membership = args.membership
+    if faults is not None and faults.membership_events() and not membership:
+        say("faults: schedule has crash/rejoin events — enabling "
+            "--membership")
+        membership = True
+    if membership and args.backend == "reference":
+        raise SystemExit("--membership needs the flat-buffer engine's "
+                         "MemberState; --backend reference has none")
+    if faults is not None:
+        say(f"faults: {faults.describe()}")
+    vrl = vrl_config(args, membership)
     hier = vrl.hier
     if hier is not None:
         say(f"hier: {hier.grid[0]} pods x {hier.grid[1]} workers, "
@@ -523,10 +725,27 @@ def _train(args: argparse.Namespace, device: torch.device,
             f"last stage)")
     eng = bundle.engine
     state = bundle.init_state(args.seed, args.workers)
+    store = None
+    if args.clients:
+        try:
+            store = clients_mod.ClientStore(state, args.clients,
+                                            pin=device.type == "cuda",
+                                            mesh=mesh)
+        except ValueError as e:
+            raise SystemExit(f"--clients: {e}")
+        say(f"clients: {args.clients} logical clients over {args.workers} "
+            f"worker slots (participation "
+            f"{args.workers / args.clients:.3g}), host store "
+            f"{store.nbytes / 2**20:.1f} MiB"
+            + (" (page-locked)" if store.pin else ""))
     resolved = engine_mod.resolve_backend(vrl, device)
     p_leaves = tree_mod.leaves(state.params)
     n_params = (eng.spec.size if eng is not None else
                 sum(x.numel() for x in p_leaves) // args.workers)
+    n_leaves = len(p_leaves)
+    # the run's first buffers stay unpinned: after a rollback the state is
+    # the snapshot's, and these are garbage
+    del p_leaves
     say(f"params: {n_params/1e6:.2f}M x {args.workers} workers, "
         f"algorithm={args.algorithm}, k={args.k}, "
         f"backend={args.backend}"
@@ -542,7 +761,7 @@ def _train(args: argparse.Namespace, device: torch.device,
             + (f", shards={es.shards} (layout only: rows pad to shard "
                f"boundaries)" if es.shards > 1 else ""))
     else:
-        say(f"engine: per-leaf reference executor over {len(p_leaves)} "
+        say(f"engine: per-leaf reference executor over {n_leaves} "
             f"leaves (no kernel)")
     if args.overlap:
         say("overlap: sync worker mean taken at round start (one-round-"
@@ -571,16 +790,20 @@ def _train(args: argparse.Namespace, device: torch.device,
         mw = obs_metrics.MetricsWriter(args.metrics, run_meta={
             "arch": args.arch, "smoke": bool(args.smoke),
             "algorithm": args.algorithm, "workers": args.workers,
-            "clients": None, "batch": args.batch, "seq": args.seq,
+            "clients": args.clients or None, "batch": args.batch,
+            "seq": args.seq,
             "steps": args.steps, "k": args.k,
             "k1": hier.k1 if hier else None,
             "k2": hier.k2 if hier else None,
             "lr": args.lr, "seed": args.seed,
             "backend": args.backend, "resolved_backend": resolved,
             "round_scan": bool(args.round), "overlap": bool(args.overlap),
-            "membership": False, "guard": False, "shards": args.shards,
-            "compress": comm_mod.pair_meta(comps), "faults": None,
-            "n_params": int(n_params), "wire": wire, "client_store": None,
+            "membership": bool(membership), "guard": bool(args.guard),
+            "shards": args.shards,
+            "compress": comm_mod.pair_meta(comps),
+            "faults": faults.describe() if faults is not None else None,
+            "n_params": int(n_params), "wire": wire,
+            "client_store": store.meta() if store is not None else None,
         })
         say(f"metrics: streaming JSONL events -> {args.metrics}")
     timers = PhaseTimers() if mw.active else None
@@ -591,9 +814,11 @@ def _train(args: argparse.Namespace, device: torch.device,
     diag_fn = (eng.diagnostics if eng is not None
                and (diag_wanted or args.metrics) else None)
 
-    # data assignment: one Dirichlet-skewed shard per worker to start; a
-    # resumed run re-splits the SAVED assignment instead (below)
-    assignment = contiguous_assignment(args.workers, args.workers)
+    # data assignment: one Dirichlet-skewed shard per unit (logical client
+    # or worker) to start; a resumed run re-splits the SAVED assignment
+    # instead (below)
+    units = args.clients if args.clients else args.workers
+    assignment = contiguous_assignment(units, units)
     # every rank draws the same global data and trains its workers' slice
     mine = (None if mesh is None else
             mesh_mod.local_workers(mesh, args.workers, pods))
@@ -602,6 +827,16 @@ def _train(args: argparse.Namespace, device: torch.device,
     def save_into(path: str, state, t: int) -> None:
         meta = {"step": t, "arch": args.arch, "workers": args.workers,
                 "assignment": partition_mod.assignment_to_meta(assignment)}
+        if store is not None:
+            # the STORE (every client's state, (M, ...) leaves + the shared
+            # globals), not the cohort window; the layout, compressor and
+            # moment metadata ride along so a mismatched restore fails
+            meta["clients"] = args.clients
+            meta["flat_spec"] = eng.spec.meta()
+            meta["compressors"] = comm_mod.pair_meta(eng.compressors)
+            meta["moments"] = ckpt.moments_meta(vrl)
+            ckpt.save(path, store.to_tree(), meta=meta)
+            return
         if eng is None:
             ckpt.save(path, state, meta=meta)
             return
@@ -610,10 +845,36 @@ def _train(args: argparse.Namespace, device: torch.device,
             compressors=comm_mod.pair_meta(eng.compressors),
             moments=ckpt.moments_meta(vrl))
 
+    def on_rank0(state):
+        """What rank 0 saves: on a mesh the whole grid's state gathered to
+        it (None on the other ranks); under ``--clients`` the state as it
+        is, the store being whole on every rank."""
+        if mesh is None:
+            return state
+        if store is not None:
+            return state if mesh.rank == 0 else None
+        return mesh_mod.gather_state(mesh, state, pods)
+
     def checkpoint(state, t: int) -> None:
+        if faults is not None and faults.killsave_at(t):
+            # a process dying inside the save: the atomic rename must leave
+            # the previous complete checkpoint in place
+            state = on_rank0(state)
+            try:
+                with ckpt.kill_save():
+                    if state is not None:
+                        ckpt.save_step(args.ckpt, t,
+                                       lambda path: save_into(path, state,
+                                                              t),
+                                       retain=args.ckpt_retain)
+            except ckpt.SimulatedKill:
+                pass
+            say(f"chaos: simulated kill during save at step {t} — 'latest' "
+                f"still points at the previous good step")
+            mw.emit("checkpoint", t=t, killed=True)
+            return
         with phase("checkpoint"):
-            if mesh is not None:
-                state = mesh_mod.gather_state(mesh, state, pods)
+            state = on_rank0(state)
             if state is not None:           # rank 0 writes the one file
                 ckpt.save_step(args.ckpt, t,
                                lambda path: save_into(path, state, t),
@@ -624,13 +885,34 @@ def _train(args: argparse.Namespace, device: torch.device,
 
     def load_from(path: str):
         """Restore into the fresh state, resharding the worker axis when
-        the save's W differs from this run's (flat engine only)."""
+        the save's W differs from this run's (flat engine only).  With
+        ``--clients`` the STORE is restored (the same client count; the
+        cohort size may change) and the state returned as it is: the next
+        round's gather installs the rows."""
         recorded = ckpt.load_meta(path).get("meta", {})
+        if store is not None:
+            if "clients" not in recorded:
+                raise ValueError(
+                    "checkpoint was saved without --clients (a plain "
+                    "worker state, not a client store) — resume it "
+                    "without --clients")
+            if int(recorded["clients"]) != args.clients:
+                raise ValueError(
+                    f"checkpoint holds {recorded['clients']} clients but "
+                    f"--clients is {args.clients}; the client population "
+                    f"is fixed for a run (change --workers to change the "
+                    f"participation rate instead)")
+            ckpt.validate_flat_meta(
+                recorded, eng.spec,
+                compressors=comm_mod.pair_meta(eng.compressors),
+                moments=ckpt.moments_meta(vrl))
+            store.load_tree(ckpt.restore(path, store.to_tree()))
+            return state
         if "clients" in recorded:
             raise ValueError(
                 f"checkpoint is a client store ({recorded['clients']} "
-                f"clients); the port does not run --clients yet (ROADMAP "
-                f"Queue 1)")
+                f"clients) — pass --clients {recorded['clients']} to "
+                f"resume it")
         if eng is None:
             return ckpt.restore(path, state)
         comps_meta = comm_mod.pair_meta(eng.compressors)
@@ -667,13 +949,12 @@ def _train(args: argparse.Namespace, device: torch.device,
             saved = rec_meta.get("assignment")
             if saved is not None:
                 saved = partition_mod.assignment_from_meta(saved)
-                if len(saved) != args.workers:
+                if len(saved) != units:
                     say(f"resume: re-splitting saved data assignment "
-                        f"{len(saved)} -> {args.workers} units (shard "
+                        f"{len(saved)} -> {units} units (shard "
                         f"skews preserved)")
                     try:
-                        assignment = partition_mod.repartition(
-                            saved, args.workers)
+                        assignment = partition_mod.repartition(saved, units)
                     except ValueError as e:
                         raise SystemExit(f"--resume {args.resume}: {e}")
                 else:
@@ -694,9 +975,11 @@ def _train(args: argparse.Namespace, device: torch.device,
         return torch.from_numpy(a).to(device=device, dtype=torch.long)
 
     @torch.no_grad()
-    def eval_avg(state, t: int):
-        """The averaged model's loss on every worker's batch of step t."""
-        toks = tokens(data[t], local=False)
+    def eval_avg(state, t: int, cohort=None):
+        """The averaged model's loss on step t's batches: every unit's
+        (worker, or with ``--clients`` every client's), or the cohort's."""
+        toks = tokens(data[t] if cohort is None else data[t][cohort],
+                      local=False)
         labels = torch.roll(toks, -1, dims=-1)
         avg = bundle.average_model(state)
         logits = T.forward(cfg, avg, toks.reshape(-1, args.seq))
@@ -710,11 +993,17 @@ def _train(args: argparse.Namespace, device: torch.device,
     param_max: List[tuple] = []
     # blocking compression moves Σ_i Δ_i by design: x̂ − mean_i p_i =
     # mean_i(e_i − e'_i), so each sync adds Σ_i (e_i − e'_i)/(k_eff γ)
+    # (over every worker: not logged under membership)
     comp = comps[0]
     ef_log = (hier is None and comp is not None and comp.error_feedback
-              and not args.overlap and _present(state.delta))
+              and not args.overlap and _present(state.delta)
+              and not vrl.membership)
     level_terms: List[dict] = []
     misses: List[tuple] = []
+    elastic = {"snapshot_s": [], "rollback_s": [], "membership_s": [],
+               "gather_s": [], "scatter_s": [], "rollbacks": [],
+               "masks": [], "store_bytes": (store.nbytes if store is not None
+                                            else None)}
 
     # (field, label, worker dim, the mesh axes that dim spans, log)
     if hier is None:
@@ -726,17 +1015,35 @@ def _train(args: argparse.Namespace, device: torch.device,
                 ("delta2", "max|sum_p delta2[p]|", 0, ("pod",),
                  bias_invariant))
 
+    def active_rows(state, field):
+        """Under ``--membership`` with a worker out, the host mask of the
+        worker slices of ``field`` to read (Δ2: the alive pods'); None
+        (every slice) otherwise."""
+        member = getattr(state, "member", ())
+        if not isinstance(member, MemberState) or eng.all_active(member):
+            return None
+        hm = engine_mod.host_mask(member)
+        if hier is None:
+            return hm.keep
+        if field == "delta2":
+            return (hm.n_pod > 0).reshape(-1, 1)
+        return hm.keep.reshape(state.params.shape[:2])
+
     def log_invariant(state, t):
         """Paper §4.1: Σ_i Δ_i = 0 after every sync (to fp32 rounding of
         the largest Δ the run has held), and BVR's Σ_i B_i = 0; the
         hierarchy's Σ_d Δ1 = 0 within every pod and Σ_p Δ2 = 0; nothing
         for an algorithm without Δ.  Also keeps max|params|, the scale of
-        the rounding of x̂ that each sync leaves in those sums."""
-        param_max.append((t, _tmax(state.params, mesh)))
+        the rounding of x̂ that each sync leaves in those sums.  Under
+        ``--membership`` over the active workers (alive pods), a dead
+        row never read."""
+        param_max.append((t, _tmax(state.params, mesh,
+                                   active_rows(state, "params"))))
         for field, label, dim, axes, log in sums:
             buf = getattr(state, field)
             if _present(buf):
-                sum_b, max_b = engine_mod.sum_invariant(buf, dim, mesh, axes)
+                sum_b, max_b = engine_mod.sum_invariant(
+                    buf, dim, mesh, axes, keep=active_rows(state, field))
                 log.append((t, sum_b, max_b))
                 say(f"             {label} {sum_b:.3e}  max|{field}| "
                     f"{max_b:.3e}")
@@ -771,22 +1078,27 @@ def _train(args: argparse.Namespace, device: torch.device,
         pend_k = _spread(mesh, ov.pend_k.flatten().cpu().numpy(), where, n)
         misses.append((t, mask, pend_k))
         say(f"deadline: fold at step {t}: misses {mask}, pend_k {pend_k}")
-    def diagnose(state, t: int, r: Optional[int] = None) -> None:
-        """The diagnostics pass, its alarms, its record and its line."""
+
+    def diag_record(state) -> dict:
+        """The diagnostics pass as a record, with its alarms."""
         with phase("diag"):
             drec = obs_diag.to_record(diag_fn(state))
-        alarms = obs_diag.check_alarms(
+        drec["alarms"] = obs_diag.check_alarms(
             drec, invariant_threshold=args.invariant_alarm)
-        drec["alarms"] = alarms
-        if alarms:
-            say("invariant alarm (no --guard, continuing): "
-                + "; ".join(alarms))
+        return drec
+
+    def emit_diag(drec: dict, t: int, r: Optional[int] = None) -> None:
         at = {"t": t} if r is None else {"t": t, "r": r}
         mw.emit("diag", **at, **drec)
         if args.diag:
             say(f"diag: step {t:5d}" + ("" if r is None else
                                         f" (round {r})")
                 + "  " + obs_diag.describe(drec))
+
+    def alarm_note(drec: dict) -> None:
+        if drec["alarms"]:
+            say("invariant alarm (no --guard, continuing): "
+                + "; ".join(drec["alarms"]))
 
     def emit_final(steps_done: int, el: float, **extra) -> None:
         """The run_end record (both ends of the run: the normal one and a
@@ -796,9 +1108,52 @@ def _train(args: argparse.Namespace, device: torch.device,
                 phases=timers.summary() if timers is not None else None)
         mw.close()
 
+    # strict-subset cohorts start the round FROM the server consensus (the
+    # federated broadcast): what persists per client is the control
+    # variate, bias, moments and residual.  EASGD keeps per-client params
+    seed_cohort = (store is not None and args.clients > args.workers
+                   and not eng.algo.has_center)
+
+    def gather(state, t: int):
+        """The cohort of the round starting at step t, its rows gathered
+        into the state's buffers (timed), its event emitted."""
+        cohort = clients_mod.sample_cohort(args.clients, args.workers, t,
+                                           args.seed)
+        t1 = clock()
+        with phase("gather"):
+            state = store.gather(cohort, member=state.member, like=state,
+                                 seed_params=seed_cohort)
+        elastic["gather_s"].append(clock() - t1)
+        mw.emit("cohort", t=t, clients=cohort.tolist())
+        return state, cohort
+
+    def global_mask(state) -> np.ndarray:
+        """The (W,) mask of a state's ``MemberState`` over the whole grid
+        (pod-major; on a mesh one all-reduce counted "membership")."""
+        return engine_mod.global_mask(
+            mesh, state.member.active,
+            np.arange(args.workers) if mine is None else mine, args.workers)
+
+    def scatter(state, cohort) -> None:
+        t1 = clock()
+        with phase("scatter"):
+            store.scatter(state, cohort)
+        elastic["scatter_s"].append(clock() - t1)
+
+    cuda = device.type == "cuda"
+
+    def clock() -> float:
+        if cuda:
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
     if start_t >= args.steps:
         say(f"resume: checkpoint step {start_t} >= --steps {args.steps} — "
             f"nothing to do")
+        if store is not None:
+            # the restored rows live in the store: the step's cohort is
+            # gathered so that the evaluation sees restored clients
+            state, _ = gather(state, start_t)
         with phase("eval"):
             el = float(eval_avg(state, args.steps - 1))
         emit_final(start_t, el)
@@ -807,7 +1162,8 @@ def _train(args: argparse.Namespace, device: torch.device,
                           bias_invariant=[], ef_identity=[], level_terms=[],
                           misses=[], param_max=[], wall_s=0.0, phases_ms={},
                           round_peak_bytes=0, start_step=start_t,
-                          rank=0 if mesh is None else mesh.rank)
+                          rank=0 if mesh is None else mesh.rank,
+                          elastic=elastic, store=store)
         if args.loss_out:
             write_loss_out(args.loss_out if mesh is None else
                            f"{args.loss_out}.rank{mesh.rank}", res, args,
@@ -818,15 +1174,9 @@ def _train(args: argparse.Namespace, device: torch.device,
     warm_first = (sched is None and args.warmup
                   and engine_mod.get_spec(args.algorithm).warmup_aware)
     k_round = hier.k1 if hier is not None else args.k
-    cuda = device.type == "cuda"
     round_peak = 0
     # the steps' own time: the log's checks between rounds are not training
     wall = 0.0
-
-    def clock() -> float:
-        if cuda:
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
     t, r = start_t, 0
     ks = set()                  # the distinct round lengths run
     while t < args.steps and not vrl.engine.round_scan:
@@ -853,10 +1203,19 @@ def _train(args: argparse.Namespace, device: torch.device,
                 f"({wall / (t - start_t):.2f}s/step)")
             mw.emit("eval", t=t, local_loss=float(loss), avg_model_loss=el)
             if diag_fn is not None:
-                diagnose(state, t)
+                drec = diag_record(state)
+                alarm_note(drec)
+                emit_diag(drec, t)
             log_invariant(state, t)
         if args.ckpt and t % args.ckpt_every == 0:
             checkpoint(state, t)
+    # the chaos machinery: the repair at every mask change, the guard's
+    # round-start snapshot (a clone of the state's tensors, on the device)
+    cur_mask = np.ones(args.workers, np.float32)
+    if isinstance(getattr(state, "member", ()), MemberState):
+        cur_mask = global_mask(state)
+    last_good = None            # the last healthy round's mean loss
+    retries = 0
     while t < args.steps:
         if sched is not None:
             rk = sched.period_starting_at(t)
@@ -868,9 +1227,13 @@ def _train(args: argparse.Namespace, device: torch.device,
             # under overlap the per-step sync would not keep the pend
             # buffer, so the tail takes local steps only (its steps would
             # fold at a next boundary, which never comes)
+            cohort = None
+            if store is not None:
+                state, cohort = gather(state, t)
             step_fn = bundle.local_step if args.overlap else bundle.train_step
             while t < args.steps:
-                toks = tokens(data[t])
+                toks = tokens(data[t] if cohort is None
+                              else data[t][cohort])
                 labels = torch.roll(toks, -1, dims=-1)
                 t1 = clock()
                 state, loss = step_fn(state, toks, labels)
@@ -878,9 +1241,13 @@ def _train(args: argparse.Namespace, device: torch.device,
                 step_losses.append(loss[None])
                 t += 1
                 if args.ckpt and t % args.ckpt_every == 0:
+                    if store is not None:
+                        scatter(state, cohort)
                     checkpoint(state, t)
+            if store is not None:
+                scatter(state, cohort)
             with phase("eval"):
-                el = float(eval_avg(state, t - 1))
+                el = float(eval_avg(state, t - 1, cohort))
             avg_losses.append(el)
             say(f"step {t:5d} (tail)  local_loss {float(loss):.4f}  "
                 f"avg_model_loss {el:.4f}  "
@@ -888,9 +1255,48 @@ def _train(args: argparse.Namespace, device: torch.device,
             mw.emit("tail", t=t, local_loss=float(loss), avg_model_loss=el)
             log_invariant(state, t)
             break
+        # client sampling: the round's cohort, its rows gathered into the
+        # buffers; the draw depends only on (seed, round-start step), so a
+        # resumed or rolled-back run re-gathers the same cohort
+        cohort = None
+        if store is not None:
+            state, cohort = gather(state, t)
+        # the membership repair at the round boundary: the fault
+        # schedule's crash/rejoin history folded into a mask
+        if faults is not None and eng is not None \
+                and eng.set_membership is not None:
+            mask = faults.active_at(t, args.workers)
+            if not np.array_equal(mask, cur_mask):
+                t1 = clock()
+                with phase("membership"):
+                    state = eng.set_membership(state, mask)
+                elastic["membership_s"].append(clock() - t1)
+                elastic["masks"].append((t, mask.astype(int).tolist()))
+                cur_mask = mask
+                say(f"membership: step {t} active "
+                    f"{int(mask.sum())}/{args.workers} "
+                    f"{mask.astype(int).tolist()}")
+                mw.emit("membership", t=t,
+                        active=mask.astype(int).tolist(),
+                        n_active=int(mask.sum()))
+        # a strict-subset cohort's corrections sum to the cohort mean, not
+        # zero: recentre so that the round's sync math holds
+        if store is not None and args.clients > args.workers:
+            state = eng.recenter_drift(state)
+        snap = None
+        if args.guard:
+            t1 = clock()
+            snap = snapshot(state)
+            elastic["snapshot_s"].append(clock() - t1)
         with phase("data"):
-            toks = tokens(data[t:t + rk])
+            toks = tokens(data[t:t + rk] if cohort is None
+                          else data[t:t + rk][:, cohort])
             labels = torch.roll(toks, -1, dims=-1)
+        gmul = (faults.grad_mul(t, rk, args.workers)
+                if faults is not None else None)
+        if gmul is not None:
+            say(f"chaos: gradient fault in round [{t}, {t + rk})")
+            mw.emit("fault", t=t, k=rk, events=faults.events_in(t, t + rk))
         ks.add(rk)
         logged = ((r + 1) % args.log_every == 0 or r == 0
                   or t + rk >= args.steps)
@@ -899,14 +1305,18 @@ def _train(args: argparse.Namespace, device: torch.device,
                   if ef_log and logged else None)
         watch = (level_watch(comps, hier, state, rk, args.lr,
                              args.deadline, mesh)
-                 if hier is not None and logged else None)
+                 if hier is not None and logged and not vrl.membership
+                 else None)
         if cuda:
             # the round's own peak: the checks between rounds make
             # temporaries of their own
             torch.cuda.reset_peak_memory_stats(device)
         t1 = clock()
         with phase("round"):
-            if r + 1 == args.profile_round:
+            if gmul is not None:
+                state, losses = bundle.round_step_fault(state, toks, labels,
+                                                        gmul)
+            elif r + 1 == args.profile_round:
                 state, losses = profiled_round(bundle, state, toks, labels,
                                                device, say,
                                                args.profile_dir)
@@ -917,28 +1327,88 @@ def _train(args: argparse.Namespace, device: torch.device,
         if cuda:
             round_peak = max(round_peak,
                              torch.cuda.max_memory_allocated(device))
+        loss_r = (float(losses.mean()) if (args.guard or mw.active or logged)
+                  else None)
+        diverged = None
+        if args.guard:
+            if not bundle.health(state, loss_r):
+                diverged = "non-finite state"
+            elif (last_good is not None
+                  and loss_r > _BLOWUP_FACTOR * last_good + _BLOWUP_SLACK):
+                # a finite blow-up (a scale@w:s:mult poison) passes every
+                # finiteness check: caught on the loss trend instead
+                diverged = (f"loss blow-up ({loss_r:.3g} vs last good "
+                            f"{last_good:.3g})")
+        drec = None
+        if diag_fn is not None and (logged or diverged is not None):
+            drec = diag_record(state)
+            if drec["alarms"] and args.guard and diverged is None:
+                # the invariant monitor feeds the SAME rollback path
+                diverged = "invariant alarm: " + "; ".join(drec["alarms"])
+            elif not args.guard:
+                alarm_note(drec)
+        if diverged is not None:
+            t_fail = t + rk
+            if retries >= args.max_retries:
+                mw.emit("rollback", t_fail=t_fail, reason=diverged,
+                        retry=retries, aborted=True)
+                mw.close()
+                raise SystemExit(
+                    f"divergence guard: state still diverged after "
+                    f"{retries} rollbacks at step {t + rk} — aborting")
+            retries += 1
+            time.sleep(min(0.05 * 2 ** retries, 1.0))        # backoff
+            t1 = clock()
+            found = ckpt.latest_step(args.ckpt) if args.ckpt else None
+            if found is not None and found[0] <= t:
+                back_t, back_path = found
+                state = load_from(back_path)
+                t = back_t
+            else:                           # no checkpoint: round start
+                state = snap
+            if isinstance(getattr(state, "member", ()), MemberState):
+                cur_mask = global_mask(state)
+            elastic["rollback_s"].append(clock() - t1)
+            elastic["rollbacks"].append((t_fail, diverged, t))
+            say(f"divergence guard: {diverged} — rolled back to step {t} "
+                f"(retry {retries}/{args.max_retries})")
+            mw.emit("rollback", t_fail=t_fail, reason=diverged, back_to=t,
+                    retry=retries)
+            if drec is not None:
+                mw.emit("diag", t=t_fail, r=r + 1, rolled_back=True, **drec)
+            del snap
+            continue
+        del snap
+        if args.guard:
+            last_good = loss_r
+        retries = 0
+        # only a HEALTHY round's rows reach the store: a rolled-back round
+        # never scatters, so its clients keep their pre-round state
+        if store is not None:
+            scatter(state, cohort)
         step_losses.append(losses)
         t += rk
         r += 1
         if args.deadline and state_folded(state, t):
             log_misses(state, t)
-        loss_r = float(losses.mean()) if (mw.active or logged) else None
         mw.emit("round", t=t, r=r, k=rk, loss=loss_r,
                 wire_bytes=None if wire is None else wire["wire_bytes"])
-        mw.emit("sync", t=t, r=r, k_eff=rk, participants=args.workers,
+        mw.emit("sync", t=t, r=r, k_eff=rk,
+                participants=int(cur_mask.sum()),
                 wire_bytes=None if wire is None else wire["wire_bytes"],
                 wire_bytes2=None if wire is None else wire["wire_bytes2"])
-        if diag_fn is not None and logged:
-            diagnose(state, t, r)
+        if drec is not None:
+            emit_diag(drec, t, r)
         if logged:
             with phase("eval"):
-                el = float(eval_avg(state, t - 1))
+                el = float(eval_avg(state, t - 1, cohort))
             avg_losses.append(el)
+            ll = loss_r if loss_r is not None else float(losses.mean())
             say(f"step {t:5d} (round {r})  "
-                f"local_loss {loss_r:.4f}  "
+                f"local_loss {ll:.4f}  "
                 f"avg_model_loss {el:.4f}  "
                 f"({wall / (t - start_t):.2f}s/step)")
-            mw.emit("eval", t=t, r=r, local_loss=loss_r, avg_model_loss=el)
+            mw.emit("eval", t=t, r=r, local_loss=ll, avg_model_loss=el)
             log_invariant(state, t)
             if before is not None:
                 log_ef_identity(before, state, t, rk)
@@ -954,6 +1424,12 @@ def _train(args: argparse.Namespace, device: torch.device,
         + (f"({r} rounds)" if vrl.engine.round_scan else "(step by step)")
         + (f", round peak memory {round_peak / 2**30:.2f} GiB"
            if cuda else ""))
+    if faults is not None or vrl.membership or args.guard or store:
+        say("elastic (host s, synchronised): " + ", ".join(
+            f"{k} {sum(v):.3f} x{len(v)}" for k, v in elastic.items()
+            if k.endswith("_s") and v)
+            + (f", store {store.nbytes / 1e9:.3f} GB" if store else "")
+            + f", rollbacks {len(elastic['rollbacks'])}")
     phases = bundle.timer.ms() if bundle.timer is not None else {}
     if phases:
         say("phases (device ms, first span / mean of the rest): "
@@ -975,13 +1451,19 @@ def _train(args: argparse.Namespace, device: torch.device,
               + f"; kernels: {json.dumps(vrl_update.LAUNCHES)} "
               f"collectives: {json.dumps(counts)}", flush=True)
     # the run's end record: the averaged model's loss on the last step's
-    # data, which the last log line evaluated (the reference's emit_final)
+    # data of every unit, which the last log line evaluated (the
+    # reference's emit_final); with --clients the log evaluated the last
+    # cohort, so every client's batches are evaluated here
+    final = avg_losses[-1]
+    if store is not None and mw.active:
+        with phase("eval"):
+            final = float(eval_avg(state, args.steps - 1))
     end_meta = {"wall_s_train": round(wall, 3)}
     if vrl.engine.round_scan:
         # one round function serves every k; the reference counts a
         # compiled executable per distinct round length
         end_meta.update(rounds=r, round_executables=len(ks))
-    emit_final(args.steps, avg_losses[-1], **end_meta)
+    emit_final(args.steps, final, **end_meta)
     res = TrainResult(state=state, engine=eng, losses=losses_host,
                       avg_model_losses=avg_losses, invariant=invariant,
                       bias_invariant=bias_invariant,
@@ -990,12 +1472,21 @@ def _train(args: argparse.Namespace, device: torch.device,
                       wall_s=wall, phases_ms=phases,
                       round_peak_bytes=round_peak, collectives=counts,
                       rank=0 if mesh is None else mesh.rank,
-                      start_step=start_t)
+                      start_step=start_t, elastic=elastic, store=store)
     if args.loss_out:
         write_loss_out(args.loss_out if mesh is None else
                        f"{args.loss_out}.rank{mesh.rank}", res, args,
                        device, backend)
     return res
+
+
+def snapshot(state):
+    """The guard's round-start snapshot: every tensor of ``state`` cloned
+    (on its device; host integers as they are), so that a rollback
+    restores the round's start bitwise and no later kernel, which writes
+    its buffers in place, can reach it."""
+    return tree_mod.state_map(
+        lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x, state)
 
 
 def refuse_codec(cfg) -> None:
@@ -1065,12 +1556,15 @@ def _tsum(buf, dim, mesh=None, axes=coll.AXES):
         lambda x: coll.worker_sum(mesh, x, dim, axes), buf)
 
 
-def _tmax(buf, mesh=None) -> float:
+def _tmax(buf, mesh=None, keep=None) -> float:
     """max|x| over a buffer or over every leaf of a tree (read without an
-    |x| temporary), on a mesh over every rank."""
+    |x| temporary), on a mesh over every rank; ``keep``: a host bool array
+    over a buffer's leading dims, the worker slices to read."""
+    xs = (tree_mod.leaves(buf) if keep is None else
+          [buf[tuple(map(int, i))] for i in zip(*np.nonzero(keep))])
     return coll.global_reduce(mesh, max(
-        torch.linalg.vector_norm(x, float("inf")).item()
-        for x in tree_mod.leaves(buf)))
+        (torch.linalg.vector_norm(x, float("inf")).item() for x in xs),
+        default=0.0))
 
 
 def state_folded(state, t: int) -> bool:

@@ -23,13 +23,24 @@ over worker-stacked engine state:
       positions; hier: the cross-pod mean, when the round ends on the k2
       cadence) and closes with ``round_fold`` (the stale fold and the
       capture; hier: sync1, then the fold when due) instead.
+  round_step_fault(state, tokens_k, labels_k, gmul) -> (state, losses)
+      ``round_step`` with a (k, W) host multiplier of each step's and
+      worker's gradient (1 = clean; NaN/Inf/a finite scale poisons that
+      worker's step, after clipping, so the poison is not renormalised
+      away) — the chaos harness's entry point (``repro_torch.fault``).
+      All ones is bitwise ``round_step``.
+  health(state, loss) -> bool
+      the divergence guard's predicate: the loss finite and every ACTIVE
+      worker's parameters finite (a dead worker's rows are not read).
 
 Per-worker gradients: the reference ``vmap``s one forward/backward over
 the worker axis; here a loop over workers runs each on views of
 ``params[w]`` (the engine's buffer, no copy), clips them to
 ``vrl_cfg.clip_norm`` when set (``clip_by_global_norm``, per worker) and
 writes them into ONE reused (W, R, C) buffer, so W gradient trees are
-never held at once.  For hier_vrl_sgd the workers are the pod-major grid's
+never held at once.  Under ``vrl_cfg.membership`` the reported loss is
+the mean over the ACTIVE workers (a dead worker's NaN loss must not poison
+it, nor the guard reading it), bitwise the plain mean with all active.  For hier_vrl_sgd the workers are the pod-major grid's
 (worker i is pod i // D, member i % D), and the engine sees the same
 buffer as a (P, D, R, C) view, with no copy.
 The update kernels then run over the whole buffer, after every backward
@@ -55,13 +66,16 @@ with the gradients written into a worker-stacked tree ((P, D, ...) leaves
 for the hierarchy), then the algorithm's functional local step, and at the
 round's end its sync (hierarchy: sync1, plus sync2 when the k2 cadence is
 due).  It launches no kernel, has no ``engine`` (None), and refuses what
-the reference's refuses there: overlapped rounds and membership.
+the reference's refuses there: overlapped rounds and membership.  Its
+``round_step_fault`` and ``health`` are the reference's too (``--guard``
+runs with ``--backend reference``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
@@ -71,7 +85,9 @@ from repro_torch.configs.base import ModelConfig, VRLConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import flat
 from repro_torch.core import get_algorithm
+from repro_torch.core.types import MemberState
 from repro_torch.kernels.torch_update import sqrt_rn
+from repro_torch.launch.mesh import local_workers
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
 from repro_torch.train.loss import chunked_cross_entropy_lm, cross_entropy_lm
@@ -107,6 +123,11 @@ class StepBundle(NamedTuple):
     timer: Any = None           # PhaseTimer (None unless timing was asked)
     sync1_step: Any = None      # hier only: (state,) -> state, intra-pod
     sync2_step: Any = None      # hier only: (state,) -> state, cross-pod
+    round_step_fault: Any = None  # (state, tokens_k, labels_k, gmul) ->
+                                # (state, losses): round_step with a (k, W)
+                                # numpy gradient multiplier
+    health: Any = None          # (state, loss) -> bool: loss finite and
+                                # every ACTIVE worker's params finite
 
 
 class PhaseTimer:
@@ -163,6 +184,47 @@ def _worker_grads(loss_fn: Callable, clip_norm: float, ptree: Any,
     return loss.detach()
 
 
+def _finite(x: torch.Tensor) -> bool:
+    """All of ``x`` finite, read through max|x| (NaN and ±inf carry into
+    it) without an elementwise temporary the size of ``x``."""
+    return bool(torch.isfinite(torch.linalg.vector_norm(
+        x.to(torch.float32), float("inf"))))
+
+
+def _health(state, loss, mesh=None) -> bool:
+    """The divergence guard's predicate over a state's parameters (a flat
+    (W, R, C) or pod-major buffer, or the per-leaf executor's tree): the
+    loss finite and every ACTIVE worker's parameters finite (with a
+    ``MemberState`` the dead rows are not read).  On a mesh every rank's
+    verdict, through one all-reduce counted "eval"."""
+    ok = _finite(torch.as_tensor(loss))
+    member = getattr(state, "member", ())
+    if isinstance(state.params, torch.Tensor):
+        p = state.params
+        rows = p.view(-1, *p.shape[-2:])
+        live = (engine_mod.host_mask(member).live
+                if isinstance(member, MemberState) else range(rows.shape[0]))
+        ok = ok and all(_finite(rows[i]) for i in live)
+    else:
+        ok = ok and all(_finite(x) for x in tree_mod.leaves(state.params))
+    if mesh is None:
+        return ok
+    flag = torch.tensor(float(ok), device=coll.wire_device(mesh))
+    mesh.all_reduce(flag, kind="eval", op=torch.distributed.ReduceOp.MIN)
+    return bool(flag.item() > 0)
+
+
+def _grad_mul(rows: torch.Tensor, size: int, m: np.ndarray) -> None:
+    """Scale each worker's gradient row of ``rows`` ((n, R, C); the leaf
+    spans are its first ``size`` elements, the pad stays zero) by its
+    entry of ``m`` (n,), in place, as the reference multiplies the
+    worker's gradient tree: NaN or Inf poisons the worker's local step;
+    1 changes nothing and is skipped (g · 1 = g)."""
+    for i, f in enumerate(np.asarray(m, np.float32)):
+        if f != 1.0:
+            rows[i].view(-1)[:size].mul_(float(f))
+
+
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                     remat: bool = True, chunked_ce: int = 0,
                     device: torch.device | str = "cuda",
@@ -204,6 +266,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                                  loss_fn)
     template = abstract(transformer.model_defs(model_cfg))
     eng = engine_mod.make_engine(vrl_cfg, template, device=device, mesh=mesh)
+    pods = eng.grid[0] if eng.grid is not None else 0
     spec = eng.spec
     gbuf: dict = {}             # params shape -> the reused gradient buffer
 
@@ -211,10 +274,23 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         """The last step's gradient buffer (dead once the step is done)."""
         return gbuf.get(tuple(state.params.shape))
 
-    def mean_loss(local: torch.Tensor) -> torch.Tensor:
+    def mean_loss(local: torch.Tensor, member: Any = ()) -> torch.Tensor:
         """(..., w) losses of this rank's workers -> (...) worker means (on
-        a mesh over every rank's: one all-reduce of the local sums)."""
-        return coll.worker_mean(mesh, local, -1, coll.AXES, kind="scalar")
+        a mesh over every rank's: one all-reduce of the local sums).  With
+        a ``MemberState`` that leaves a worker out, the mean over the
+        active workers (at least one), their count reduced in the same
+        all-reduce and × its reciprocal, the reference's op sequence."""
+        if eng.all_active(member):
+            return coll.worker_mean(mesh, local, -1, coll.AXES,
+                                    kind="scalar")
+        keep = member.active.reshape(-1) > 0
+        s = torch.where(keep, local, 0).sum(dim=-1)
+        cnt = keep.sum().to(s.dtype)
+        if mesh is not None:
+            both = torch.cat([s.reshape(-1), cnt.reshape(1)])
+            mesh.all_reduce(both, kind="scalar")
+            s, cnt = both[:-1].reshape(s.shape), both[-1]
+        return s.mul_(torch.reciprocal(cnt.clamp(min=1.0)))
 
     def local_grads(state, tokens, labels):
         """Per-worker loss and gradients -> (gradient buffer shaped like
@@ -237,19 +313,22 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     def grads_fn(state, tokens, labels):
         """``local_grads`` with the losses' worker mean."""
         buf, losses = local_grads(state, tokens, labels)
-        return buf, mean_loss(losses)
+        return buf, mean_loss(losses, state.member)
 
-    def step(state, tokens, labels):
-        """One local step -> (state, this rank's (w,) worker losses)."""
+    def step(state, tokens, labels, gmul: Optional[np.ndarray] = None):
+        """One local step -> (state, this rank's (w,) worker losses);
+        ``gmul``: this rank's workers' (w,) gradient multipliers."""
         with span("fwd_bwd"):
             g, losses = local_grads(state, tokens, labels)
+            if gmul is not None:
+                _grad_mul(g.view(-1, spec.rows, spec.lanes), spec.size, gmul)
         with span("local"):
             state = eng.local_step(state, g)
         return state, losses
 
     def local_step(state, tokens, labels):
         state, losses = step(state, tokens, labels)
-        return state, mean_loss(losses)
+        return state, mean_loss(losses, state.member)
 
     # the last step's gradients are dead at a sync: a compressed sync
     # writes its decompressed payload over them instead of a new buffer
@@ -264,14 +343,22 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                 state = eng.step_sync(state, out=dead_grads(state))
         return state, loss
 
-    def round_step(state, tokens_k, labels_k):
+    def round_step_fault(state, tokens_k, labels_k, gmul=None):
+        """``round_step``; ``gmul``: None, or the (k, W) numpy multiplier
+        of each step's and worker's gradient over the whole grid's workers
+        (pod-major for the hierarchy; on a mesh this rank takes its
+        workers' columns)."""
         overlap = eng.round_begin is not None
         if overlap:
             with span("round_begin"):
                 xbar = eng.round_begin(state, len(tokens_k))
+        if gmul is not None and mesh is not None:
+            gmul = np.asarray(gmul)[:, local_workers(
+                mesh, np.asarray(gmul).shape[1], pods)]
         losses = []
-        for tokens, labels in zip(tokens_k, labels_k):
-            state, loss = step(state, tokens, labels)
+        for i, (tokens, labels) in enumerate(zip(tokens_k, labels_k)):
+            state, loss = step(state, tokens, labels,
+                               None if gmul is None else gmul[i])
             losses.append(loss)
         if overlap:
             with span("fold"):
@@ -280,8 +367,12 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
             with span("sync"):
                 state = eng.round_end(state, out=dead_grads(state))
         if mesh is None:
-            return state, torch.stack([x.mean() for x in losses])
-        return state, mean_loss(torch.stack(losses))
+            return state, torch.stack([mean_loss(x, state.member)
+                                       for x in losses])
+        return state, mean_loss(torch.stack(losses), state.member)
+
+    def round_step(state, tokens_k, labels_k):
+        return round_step_fault(state, tokens_k, labels_k)
 
     def init_state(seed: int, num_workers: int):
         params = transformer.init_params(model_cfg, seed, device=device)
@@ -290,7 +381,9 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     return StepBundle(init_state, train_step, local_step, sync_step,
                       grads_fn, eng.average_model, eng,
                       round_step=round_step, timer=timer,
-                      sync1_step=eng.sync1, sync2_step=eng.sync2)
+                      sync1_step=eng.sync1, sync2_step=eng.sync2,
+                      round_step_fault=round_step_fault,
+                      health=lambda state, loss: _health(state, loss, mesh))
 
 
 def _release(old: Any, new: Any) -> None:
@@ -348,9 +441,17 @@ def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
             for i in range(w)]
         return grads, torch.stack(losses).mean()
 
-    def local_step(state, tokens, labels):
+    def local_step(state, tokens, labels, gmul=None):
+        """One local step; ``gmul``: None or the (W,) gradient multipliers
+        (worker i the grid's (i // D, i % D) under the hierarchy)."""
         with span("fwd_bwd"):
             grads, loss = grads_fn(state, tokens, labels)
+            for i, f in enumerate(np.asarray(() if gmul is None else gmul,
+                                             np.float32)):
+                if f != 1.0:
+                    idx = divmod(i, hcfg.grid[1]) if hier else (i,)
+                    for g in tree_mod.leaves(grads):
+                        g[idx].mul_(float(f))
         with span("local"):
             state = alg.local_step(vrl_cfg, state, grads)
         del grads
@@ -386,16 +487,18 @@ def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
             state = alg.train_step(vrl_cfg, state, grads)
         return state, loss
 
-    def round_step(state, tokens_k, labels_k):
-        """k local steps, then the round-closing syncs.  Consumes ``state``
+    def round_step_fault(state, tokens_k, labels_k, gmul=None):
+        """k local steps, then the round-closing syncs; ``gmul``: None or
+        the (k, W) gradient multipliers.  Consumes ``state``
         as the reference's round driver does (it donates the state to the
         compiled round): each tree a step replaces is emptied in place as
         soon as it is replaced, so the caller's handle on the round's start
         state pins no model-sized buffer while the round runs.  Use the
         state it returns."""
         losses = []
-        for tokens, labels in zip(tokens_k, labels_k):
-            prev, (state, loss) = state, local_step(state, tokens, labels)
+        for i, (tokens, labels) in enumerate(zip(tokens_k, labels_k)):
+            prev, (state, loss) = state, local_step(
+                state, tokens, labels, None if gmul is None else gmul[i])
             _release(prev, state)
             losses.append(loss)
         with span("sync"):
@@ -403,6 +506,9 @@ def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
                 prev, state = state, sync(state)
                 _release(prev, state)
         return state, torch.stack(losses)
+
+    def round_step(state, tokens_k, labels_k):
+        return round_step_fault(state, tokens_k, labels_k)
 
     def init_state(seed: int, num_workers: int):
         params = transformer.init_params(model_cfg, seed, device=device)
@@ -412,4 +518,5 @@ def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
                       grads_fn, alg.average_model, None,
                       round_step=round_step, timer=timer,
                       sync1_step=sync1 if hier else None,
-                      sync2_step=sync2 if hier else None)
+                      sync2_step=sync2 if hier else None,
+                      round_step_fault=round_step_fault, health=_health)

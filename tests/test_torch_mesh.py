@@ -470,8 +470,8 @@ def test_engine_refusals_on_a_mesh():
     with pytest.raises(ValueError, match="does not split over the mesh"):
         teng.make_engine(R.port_cfg("hier_overlap_deadline"), tpl,
                          mesh=_fake_mesh((4, 1)))
-    with pytest.raises(NotImplementedError, match="membership"):
-        teng.make_engine(R.port_cfg("vrl_sgd", membership=True), tpl,
+    with pytest.raises(ValueError, match="easgd"):
+        teng.make_engine(R.port_cfg("easgd_momentum", membership=True), tpl,
                          mesh=_fake_mesh())
 
 

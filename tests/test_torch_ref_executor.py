@@ -584,8 +584,13 @@ def test_resolve_backend():
                TVRL(update_backend="xla"), device="cuda")
     with pytest.raises(ValueError, match="unknown update_backend"):
         teng.resolve_backend("pallas", "cpu")
-    with pytest.raises(NotImplementedError, match="membership"):
-        make_engine(TVRL(membership=True), {"w": torch.zeros(3)})
+    # membership runs on the flat engine; easgd refuses it, as the
+    # reference's does
+    assert make_engine(TVRL(membership=True),
+                       {"w": torch.zeros(3)}).set_membership is not None
+    with pytest.raises(ValueError, match="easgd"):
+        make_engine(TVRL(algorithm="easgd", membership=True),
+                    {"w": torch.zeros(3)})
 
 
 CLI = ["--smoke", "--device", "cpu", "--steps", "8", "--batch", "2",

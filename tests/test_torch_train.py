@@ -227,7 +227,9 @@ def test_port_imports_neither_jax_nor_repro():
         "assert 'repro_torch.comm.compressors' in sys.modules\n"
         "for m in ('checkpoint.checkpoint', 'checkpoint.reshard', "
         "'obs.metrics', 'obs.diagnostics', 'obs.report', 'obs.convert', "
-        "'obs.timers', 'examples.train_lm_e2e'):\n"
+        "'obs.timers', 'examples.train_lm_e2e', 'fault.schedule', "
+        "'core.clients', 'examples.quickstart', "
+        "'examples.federated_nonidentical'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

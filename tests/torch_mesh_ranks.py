@@ -301,3 +301,50 @@ def cli(rank: int, world: int, port: int, argv: list, out: str) -> None:
     torch.save({"losses": res.losses, "avg": res.avg_model_losses,
                 "misses": res.misses, "collectives": res.collectives,
                 "invariant": res.invariant}, f"{out}.rank{rank}")
+
+
+# the elastic case (tests/test_torch_fault.py): (round length, the mask set
+# before the round or None), over the W = 4 workers (pod-major for the
+# hierarchy's (2, 2) grid)
+ELASTIC_ROUNDS = [(2, None), (2, [1, 0, 1, 1]), (2, None), (2, [0, 0, 1, 1]),
+                  (2, [1, 1, 1, 1]), (2, None)]
+
+
+def elastic(rank: int, world: int, store: str, out: str) -> None:
+    """vrl_sgd and the hierarchy with membership on this rank's block: the
+    ``ELASTIC_ROUNDS`` through ``round_step_flat`` with the repairs
+    between them; per round the collectives' counts by kind of the repair
+    and of the round (``comm.collectives.COUNTS``); the final buffers."""
+    from repro_torch.comm import collectives as coll
+    from repro_torch.core import engine as teng
+    from repro_torch.launch import mesh as mesh_mod
+    torch.set_num_threads(1)
+    _init(rank, world, store)
+    res = {}
+    for name, pods in (("flat", 0), ("hier", PODS)):
+        mesh = mesh_mod.make_engine_mesh(W, pods=pods)
+        cfg = (port_cfg("hier_overlap_deadline", overlap=False,
+                        deadline=0.0, membership=True) if pods
+               else port_cfg("vrl_sgd", warmup=False, membership=True))
+        et = teng.make_engine(cfg, template(), mesh=mesh)
+        st = et.init(params0(), W)
+        spec = et.spec
+        idx = mesh_mod.local_workers(mesh, W, pods)
+        local = tuple(st.params.shape[:-2])
+        rounds = []
+        for r, (k, mask) in enumerate(ELASTIC_ROUNDS):
+            coll.reset_counts()
+            if mask is not None:
+                st = et.set_membership(st, np.asarray(mask, np.float32))
+            repair = {kind for kind in coll.COUNTS}
+            coll.reset_counts()
+            gk = round_grads(spec.rows, spec.lanes, spec.size, 9, r, k)[:, idx]
+            gk = np.ascontiguousarray(gk.reshape(k, *local, *gk.shape[-2:]))
+            st = et.round_step_flat(st, torch.from_numpy(gk))
+            rounds.append({"repair": sorted(repair),
+                           "round": {kind: {g: dict(c) for g, c in v.items()}
+                                     for kind, v in coll.COUNTS.items()}})
+        res[name] = {"rounds": rounds, "buffers": buffers(st),
+                     "n_active": float(st.member.n_active)}
+    torch.save(res, f"{out}.rank{rank}")
+    dist.destroy_process_group()
