@@ -12,6 +12,14 @@
   python3 chip_smoke.py --elastic   # phases 1, 2 and 10 alone
   python3 chip_smoke.py --elastic --trace-memory   # and (aj)'s peak's live
                                            # blocks by allocation site
+  python3 chip_smoke.py --families  # phases 1, 2 and 11 alone
+  python3 chip_smoke.py --families-cpu PATH  # phase 11's CPU runs into PATH
+                                           # (the script starts it itself)
+  python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
+                                           # training paths alone, the cut
+                                           # ones at N of qwen2-0.5b's 24
+                                           # layers (default CUT_LAYERS),
+                                           # with each path's seconds
 
 Phases (each prints a line; any failure raises and exits non-zero):
 
@@ -145,7 +153,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
    chunk, dtype) points.
 4. main paths — full-width qwen2-0.5b, W=4, batch 8, seq 64, on the
    synthetic non-iid stream (α = 0.05); the launch counters are zeroed
-   just before each path and read just after it:
+   just before each path and read just after it.  vrl_sgd + sgd (the
+   reference of (z1)) and (u) run at full depth; every other path runs
+   qwen2-0.5b at ``CUT_LAYERS`` of its 24 layers, at full width, so that
+   the script, phase 11 added, stays within its time limit (its flat
+   layout the reference's at that depth; steps, rounds and gates as
+   they were).  The phase's last line gives each path's seconds:
    - vrl_sgd + sgd through ``repro_torch.launch.train`` (7 steps, k=2,
      warmup: rounds of 1, 2, 2, 2): fused_local_sgd 7 launches,
      fused_sync_vrl 4.  Every logged loss finite; after the last sync
@@ -375,9 +388,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      2, 2, 2), held to phase 4's one-process run of them.
    - (z2) gloo, world 2 on the one card (two workers a rank; gloo stages
      CUDA tensors through host memory): path (e)'s flags (3 steps; (e) and
-     (z2) cut from 7 for the script's time), held to path (e).
+     (z2) cut from 7 for the script's time; at (e)'s cut depth), held to
+     path (e).
    - (z3) gloo, world 2: path (g)'s flags, hier_vrl_sgd (2, 2), k1 = 2,
-     k2 = 4, 4 steps (cut from 8, with (g)); the rank grid is
+     k2 = 4, 4 steps (cut from 8, with (g); at (g)'s cut depth); the rank
+     grid is
      (1, 2), so every intra-pod mean
      crosses ranks and the pod group holds one rank; held to path (g).
    - (z4) gloo, world 2, the smoke width: hier (2, 2) with ``--compress
@@ -509,6 +524,42 @@ Phases (each prints a line; any failure raises and exits non-zero):
      on the CPU by a child process (``--elastic-cpu PATH DIR``, from
      step-0 starts drawn on the CPU): every loss within 1e-4.
    The directory is removed at the phase's end.
+
+11. families — the hybrid and MoE families (``models/hybrid.py``,
+   ``models/moe.py``: plain PyTorch, no kernel of their own, as the
+   reference's jnp); every line carries the card's name and power limit:
+   - (am) hymba-1.5b at full width and depth (32 layers, fp32) through
+     ``launch.serve``: 4 × 1040 prompt tokens (past the 1024-slot window
+     and four 256-token SSM chunks: the ring buffer wraps and the SSM
+     state crosses chunk boundaries in prefill and decode) + 32
+     generated; ``served_checks`` (decode against prefill of the same
+     prefix with the attention's wq, wk × 0.1, the tree's materialised
+     count); no kernel launched.
+   - (ao) phi3.5-moe at full width, 4 of 32 layers (all 16 experts top-2,
+     fp32, 21.8 GB), 4 × 32 + 32 through ``serve.Engine``, timed;
+     ``served_checks`` on an engine of the same weights at capacity
+     factor E / k (nothing dropped: a prefill of B·S tokens may drop
+     entries a decode step of B tokens keeps, by the reference's
+     capacity semantics).
+   - (aq) kimi-k2 at full width, 1 of 61 layers (all 384 experts top-8,
+     the shared expert, head_dim 112, the untied 163,840-row head), bf16
+     weights (38.8 GB; the init's peak printed), 4 × 32 + 32 through
+     ``serve.Engine``; layer 0's MoE output on the prefill against the
+     fp32 evaluation of its kept (token, expert) pairs from the same bf16
+     weights, per token within ``KIMI_TOL`` of its max|reference|.
+   - (an) hymba-1.5b at full depth through ``launch.train``: W = 2, batch
+     8 × 64, k = 2, 4 steps, vrl_sgd + sgd at γ = ``AN_LR``:
+     fused_local_sgd 4, fused_sync_vrl 2, finite losses, Σ Δ as phase 4.
+   - (ap) phi3.5-moe at full width, 1 layer, through ``make_train_step``:
+     W = 2, batch 8 × 64 (capacity 80 an expert), k = 2, 4 steps, gated
+     as (an).
+   - (ar) the three smoke variants on the card against the CPU's runs (a
+     child process, ``--families-cpu PATH``, started at the phase's
+     start): prefill logits and cache leaves, decode logits over the
+     CPU's tokens (atol 1e-4), the greedy tokens where the CPU's margin is
+     clear; 7 vrl_sgd + sgd steps (losses rtol 1e-4, params atol 1e-4, Δ
+     atol 1e-4/(k γ)); and (ap)'s first round twice more on the card,
+     bitwise equal in losses, params and Δ (the dispatch's determinism).
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -654,13 +705,32 @@ MAIN_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--warmup"]
 MAIN_LAUNCHES = {"fused_local_sgd": 7, "fused_sync_vrl": 4}
 QWEN_LAYOUT = (FULL_PARAMS, FULL[1], FULL[2])
+# phase 4's paths but vrl_sgd + sgd (the reference of (z1)) and (u) train
+# qwen2-0.5b at CUT_LAYERS of its 24 layers, at full width, so that the
+# script, phase 11 added, stays within its time; the reference's flat
+# layouts (repro.core.flat.make_spec) at the depths a cut may take
+CUT_LAYERS = (int(sys.argv[sys.argv.index("--main-paths") + 1])
+              if "--main-paths" in sys.argv[1:-1] else 4)
+QWEN_CUT_LAYOUTS = {2: (165_960_320, 649_216, 256),
+                    3: (180_872_704, 706_560, 256),
+                    4: (195_785_088, 764_928, 256),
+                    6: (225_609_856, 881_664, 256),
+                    8: (255_434_624, 998_400, 256),
+                    12: (315_084_160, 1_230_848, 256),
+                    24: QWEN_LAYOUT}
 # paths (u) and (v): mamba2-370m (48 layers, d 1024, 32 SSD heads of 64,
 # state 128, chunk 256) trains and serves at full width through the CLIs;
 # (u) trains one full 256-step chunk per sequence
 MAMBA = "mamba2-370m"
 MAMBA_PARAMS = 368_227_840          # materialised, per worker
 MAMBA_LAYOUT = (MAMBA_PARAMS, 1_438_720, 256)
-FLAT_LAYOUTS = {"qwen2-0.5b": QWEN_LAYOUT, MAMBA: MAMBA_LAYOUT}
+# phase 11: hymba-1.5b at full depth, materialised (the reference's
+# param_count overcounts its SSM and leaves out its norms), and its layout
+HYMBA = "hymba-1.5b"
+HYMBA_PARAMS = 1_589_669_760
+HYMBA_LAYOUT = (HYMBA_PARAMS, 6_210_560, 256)
+FLAT_LAYOUTS = {"qwen2-0.5b": QWEN_LAYOUT, MAMBA: MAMBA_LAYOUT,
+                HYMBA: HYMBA_LAYOUT}
 MAMBA_ARGS = ["--arch", MAMBA, "--workers", "4", "--batch", "4", "--seq",
               "256", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
               "--warmup"]
@@ -716,7 +786,27 @@ def with_steps(argv, n):
     return out
 
 
-PATH_E_ARGS = with_steps(MAIN_ARGS, 3) + ["--overlap"]
+def cut(argv):
+    """``argv`` at phase 4's cut depth (``--layers CUT_LAYERS``)."""
+    return list(argv) + ["--layers", str(CUT_LAYERS)]
+
+
+def qwen_cut():
+    """qwen2-0.5b at phase 4's cut depth, full width."""
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_arch("qwen2-0.5b"),
+                               num_layers=CUT_LAYERS)
+
+
+def expected_layout(args) -> tuple:
+    """The reference's flat layout (size, rows, lanes) of a CLI run's
+    ``--arch`` at its ``--layers``."""
+    if args.layers:
+        return QWEN_CUT_LAYOUTS[args.layers]
+    return FLAT_LAYOUTS[args.arch]
+
+
+PATH_E_ARGS = cut(with_steps(MAIN_ARGS, 3)) + ["--overlap"]
 PATH_E_LAUNCHES = {"fused_local_sgd": 3, "fused_fold_overlap": 2}
 # paths (g) and (h): hier_vrl_sgd on a (2, 2) grid, k1 = 2, k2 = 4, through
 # the CLI, a log line (and its invariant check) after every round
@@ -725,33 +815,34 @@ HIER_ARGS = ["--arch", "qwen2-0.5b", "--workers", "4", "--batch", "8",
              "--seq", "64", "--lr", str(MAIN_LR), "--algorithm",
              "hier_vrl_sgd", "--pods", "2", "--k1", str(HIER_K1), "--k2",
              str(HIER_K2), "--log-every", "1"]
-PATH_G = (HIER_ARGS + ["--steps", "4"],
+PATH_G = (cut(HIER_ARGS + ["--steps", "4"]),
           {"fused_hier_local_sgd": 4, "fused_sync_hier1": 2,
            "fused_sync_hier2": 1})
 # 6 rounds: sync1 at each, the stale fold at steps 4, 8, 12 (the first's
 # correction exactly 0: pend = x0)
-PATH_H = (HIER_ARGS + ["--steps", "12", "--overlap"],
+PATH_H = (cut(HIER_ARGS + ["--steps", "12", "--overlap"]),
           {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
            "fused_fold_overlap_hier2": 3})
 # paths (m)-(o): the hierarchy's compressed syncs on (g)'s grid, through
 # the CLI.  (m) int8 at both levels, blocking: the grid round trip at
 # every sync1, the flat one over the pod rows at every sync2
-PATH_M = (HIER_ARGS + ["--steps", "8", "--compress", "int8"],
+PATH_M = (cut(HIER_ARGS + ["--steps", "8", "--compress", "int8"]),
           {"fused_hier_local_sgd": 8, "fused_ef_int8_grid": 4,
            "fused_sync_hier1": 4, "fused_ef_int8": 2, "fused_sync_hier2": 2})
 # (n) int8 within pods, topk:32 across them, overlapped, deadline 0.25: the
 # folds at steps 4, 8, 12 run without capture, the compressed capture is
 # the flat top-k round trip; the reference's per-pod misses and the pend_k
 # they leave
-PATH_N = (HIER_ARGS + ["--steps", "12", "--compress", "int8", "--compress2",
-                       "topk:32", "--overlap", "--deadline", "0.25"],
+PATH_N = (cut(HIER_ARGS + ["--steps", "12", "--compress", "int8",
+                           "--compress2", "topk:32", "--overlap",
+                           "--deadline", "0.25"]),
           {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
            "fused_ef_int8_grid": 6, "fused_fold_overlap_hier2": 3,
            "fused_ef_topk": 3})
 PATH_N_MISSES = [(4, [1.0, 0.0], [5.0, 4.0]), (8, [0.0, 1.0], [4.0, 8.0]),
                  (12, [0.0, 0.0], [4.0, 4.0])]
 # (o) topk:32 at both levels, blocking, 4 steps: the grid top-k round trip
-PATH_O = (HIER_ARGS + ["--steps", "4", "--compress", "topk:32"],
+PATH_O = (cut(HIER_ARGS + ["--steps", "4", "--compress", "topk:32"]),
           {"fused_hier_local_sgd": 4, "fused_ef_topk_grid": 2,
            "fused_sync_hier1": 2, "fused_ef_topk": 1, "fused_sync_hier2": 1})
 TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
@@ -759,11 +850,11 @@ TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
 # launches no kernel.  (p) vrl_sgd, 6 steps, k = 2 with warmup (rounds of
 # 1, 2, 2 and a one-step tail); (q) hier_vrl_sgd (2, 2) with int8 at both
 # levels, 8 steps (every level's EF identity in the log)
-PATH_P = MAIN_ARGS[:MAIN_ARGS.index("--steps")] + [
+PATH_P = cut(MAIN_ARGS[:MAIN_ARGS.index("--steps")] + [
     "--steps", "6", "--k", "2", "--lr", str(MAIN_LR), "--warmup",
-    "--backend", "reference"]
-PATH_Q = HIER_ARGS + ["--steps", "8", "--compress", "int8", "--backend",
-                      "reference"]
+    "--backend", "reference"])
+PATH_Q = cut(HIER_ARGS + ["--steps", "8", "--compress", "int8", "--backend",
+                          "reference"])
 # paths (i)-(l): SM3 Adam on the flat vrl_sgd, and the hierarchy's (2, 2)
 # grid with momentum, Adam and SM3 Adam (bf16 mu), through make_train_step
 PATH_I = (dict(algorithm="vrl_sgd", inner_optimizer="adam", sm3=True,
@@ -1678,7 +1769,7 @@ def sync_periods(args) -> list:
 
 
 def cli_path(tag, argv, want_launches, launch, vu, grid=None,
-             misses=None, rounding=False):
+             misses=None, rounding=False, phase="4 main path"):
     """A full-width path through ``repro_torch.launch.train``: launch
     counts, finite logged losses, the flat layout, and Σ_i Δ_i after the
     last sync (or fold) against the largest |Δ| the run logged (its first
@@ -1687,13 +1778,15 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     every pod and Σ_p Δ2 instead (``hier_sums``), and ``misses``: the
     (step, per-pod mask, pend_k) the CLI logs at each deadline fold.  The
     peak is the CLI's, over its rounds alone; the flat layout expected is
-    ``FLAT_LAYOUTS``' for the ``--arch`` in ``argv``.  ``rounding``: where Δ
+    the reference's for the ``--arch`` and ``--layers`` in ``argv``
+    (``expected_layout``).  ``rounding``: where Δ
     is O(1), the fp32 rounding of x̂ that each sync keeps, 2 W ulp(max|p|)
     /(k_eff γ), is no longer negligible beside 1e-4 · max|Δ| (as for Adam's
     paths: ``check_sums``), so the bound adds it over the run's syncs
     (``sync_periods``); max|p| is the largest the CLI logged."""
+    from repro_torch.configs import registry
     args = launch.parse_args(argv)
-    layout = FLAT_LAYOUTS[args.arch]
+    layout = expected_layout(args)
     vu.reset_launches()
     res = launch.run(argv)
     launches = dict(vu.LAUNCHES)
@@ -1704,7 +1797,7 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
     if res.engine is None:
         # the per-leaf executor: the tree's elements per worker
         n = sum(x.numel() for x in tm_leaves(res.state.params))
-        if n != 4 * layout[0]:
+        if n != args.workers * layout[0]:
             raise AssertionError(f"path {tag}: the tree holds {n} elements")
     elif (res.engine.spec.size, res.engine.spec.rows,
           res.engine.spec.lanes) != layout:
@@ -1735,12 +1828,15 @@ def cli_path(tag, argv, want_launches, launch, vu, grid=None,
         note = f"; max|ΣΔ| {sum_d:.3e} <= 1e-4 * max|Δ| {max_d:.3e}" + (
             f" + x̂ rounding {x_hat:.3e}" if rounding else "")
     out = path_result(tag, res.losses, res.wall_s, res.phases_ms, launches,
-                      MAIN_LR, peak=res.round_peak_bytes, arch=args.arch,
-                      avg=res.avg_model_losses)
+                      args.lr, w=args.workers, peak=res.round_peak_bytes,
+                      arch=args.arch, avg=res.avg_model_losses,
+                      layers=args.layers or registry.get_arch(
+                          args.arch).num_layers)
     print_path(out, f"; avg-model "
-               f"{['%.4f' % x for x in res.avg_model_losses]}" + note)
+               f"{['%.4f' % x for x in res.avg_model_losses]}" + note,
+               phase=phase)
     if grid is not None:
-        print(f"[4 main path {tag}] device ms per round: "
+        print(f"[{phase} {tag}] device ms per round: "
               + ", ".join(f"{k} {['%.3f' % x for x in v]}"
                           for k, v in res.phases_ms.items()
                           if k != "fwd_bwd"), flush=True)
@@ -1893,10 +1989,11 @@ def ef_identity_watch(state):
 
 def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
                require_finite=True, after=None, watch=None, cfg=None,
-               batch=8, seq=64, make_kw=None):
+               batch=8, seq=64, make_kw=None, w=4):
     """One full-width path through ``make_train_step(timed=True)`` and
     ``round_step``, W=4, on the synthetic non-iid stream: qwen2-0.5b at
-    batch 8, seq 64 unless ``cfg``, ``batch``, ``seq`` say otherwise;
+    phase 4's cut depth, batch 8, seq 64 unless ``cfg``, ``batch``,
+    ``seq``, ``w`` say otherwise;
     ``make_kw``: more ``make_train_step`` arguments (remat, chunked_ce).
     The launch counters are zeroed just before the rounds and read just
     after.  ``watch(state)``, before each round and outside its timing,
@@ -1909,8 +2006,8 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     from repro_torch.data import assigned_token_stream, contiguous_assignment
     from repro_torch.train.train_loop import make_train_step
 
-    cfg = registry.get_arch("qwen2-0.5b") if cfg is None else cfg
-    w, steps = 4, sum(rounds)
+    cfg = qwen_cut() if cfg is None else cfg
+    steps = sum(rounds)
     vrl = VRLConfig(**vrl_kw)
     bundle = make_train_step(cfg, vrl, device=dev, timed=True,
                              **(make_kw or {}))
@@ -1960,7 +2057,7 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     out = path_result(tag, losses, wall, phases, launches,
                       vrl.learning_rate, w, peak=peak, inv=inv,
                       finite=finite, watched=watched, rounds_ms=phases,
-                      arch=cfg.name)
+                      arch=cfg.name, layers=cfg.num_layers)
     out["note"] = after(bundle, state, vrl) if after is not None else ""
     del bundle, state
     free()
@@ -2030,12 +2127,13 @@ SPAN_NAMES = {"fwd_bwd": "fwd/bwd (4 workers) {:.2f}/step",
               "fold": "fold + capture {:.3f}/round"}
 
 
-def wire_note(vrl_kw) -> str:
+def wire_note(vrl_kw, layout=None) -> str:
     """The compressed path's sync wire bytes per worker against the raw
     flat buffer (``comm.compressors.wire_bytes``: computed from the
-    layout, one card has no wire to measure)."""
+    layout (size, rows, lanes), phase 4's cut one by default; one card has
+    no wire to measure)."""
     from repro_torch.comm import compressors as comm_mod
-    rows, lanes, size = FULL[1], FULL[2], 494_032_768
+    size, rows, lanes = layout or QWEN_CUT_LAYOUTS[CUT_LAYERS]
     raw = comm_mod.raw_bytes(rows, lanes)
     wire = comm_mod.wire_bytes(vrl_kw["compress"], rows=rows, lanes=lanes,
                                size=size)
@@ -2045,8 +2143,9 @@ def wire_note(vrl_kw) -> str:
 
 def print_path(res, extra="", phase="4 main path"):
     s = res["steady"]
-    print(f"[{phase} {res['tag']}] {res.get('arch', 'qwen2-0.5b')} "
-          f"full width, W=4, "
+    depth = f" at {res['layers']} layers" if "layers" in res else ""
+    print(f"[{phase} {res['tag']}] {res.get('arch', 'qwen2-0.5b')}{depth} "
+          f"full width, W={res['w']}, "
           f"γ={res['lr']}: {len(res['losses'])} steps, launches "
           f"{res['launches']}; losses "
           f"{['%.4f' % x for x in res['losses']]}{extra}", flush=True)
@@ -2601,7 +2700,7 @@ def tree_api_path(dev, vu):
     from repro_torch.kernels import ops
     from repro_torch.train.train_loop import make_train_step
 
-    cfg = registry.get_arch("qwen2-0.5b")
+    cfg = qwen_cut()
     w, k, rounds = 4, 2, 2
     vrl = VRLConfig(algorithm="vrl_sgd", comm_period=k, learning_rate=MAIN_LR,
                     weight_decay=0.0, update_backend="reference")
@@ -2649,7 +2748,7 @@ def tree_api_path(dev, vu):
         raise AssertionError(f"path (r): Σ_i Δ_i not ~0 after the last sync: "
                              f"{sums}")
     out = path_result("(r) vrl_sgd+sgd via the tree-update API", losses,
-                      wall, {}, launches, MAIN_LR)
+                      wall, {}, launches, MAIN_LR, layers=cfg.num_layers)
     print_path(out, f"; {leaves} leaves, each tree call one launch per leaf; "
                f"max|ΣΔ| {sums[-1][0]:.3e} <= 1e-4 * max|Δ| {max_d:.3e} + "
                f"x̂ rounding {rounding:.3e}")
@@ -3388,6 +3487,13 @@ def serve_path(tag, arch, vu, fa, ss, args=SERVE_ARGS, phase="4 main path",
     return row
 
 
+def attention_tree(params) -> dict:
+    """The stacked attention leaves of a model's tree (the hybrid's under
+    its block)."""
+    layers = params["layers"]
+    return layers["hyb"]["attn"] if "hyb" in layers else layers["attn"]
+
+
 def served_checks(tag, label, cfg, eng, prompt, out, prefill_ms, decode_ms,
                   wall_s, peak, phase="4 main path", card=None):
     """The checks of a served path on the engine that served it
@@ -3416,11 +3522,11 @@ def served_checks(tag, label, cfg, eng, prompt, out, prefill_ms, decode_ms,
         raise AssertionError(f"path {tag}: a token outside [0, {v})")
     n_params = sum(x.numel() for x in tm_leaves(eng.params))
     # param_count leaves out the final norm, as the reference's does (and
-    # the codec frontend's frontend_proj); for the ssm family it is the
-    # reference's analytic overcount
-    want_n = (MAMBA_PARAMS if cfg.family == "ssm"
-              else cfg.param_count() + cfg.d_model
-              + (cfg.frontend_dim * cfg.d_model if codec else 0))
+    # the codec frontend's frontend_proj); for the ssm and hybrid families
+    # it is the reference's analytic overcount
+    want_n = {"ssm": MAMBA_PARAMS, "hybrid": HYMBA_PARAMS}.get(
+        cfg.family, cfg.param_count() + cfg.d_model
+        + (cfg.frontend_dim * cfg.d_model if codec else 0))
     if n_params != want_n:
         raise AssertionError(f"path {tag}: {n_params} parameters")
     raw, finite, picks = decode_consistency(eng, out, s)
@@ -3438,7 +3544,7 @@ def served_checks(tag, label, cfg, eng, prompt, out, prefill_ms, decode_ms,
         soft = raw
         held = f"{raw:.3e} · max|logit| under the init as drawn"
     else:
-        attn = eng.params["layers"]["attn"]
+        attn = attention_tree(eng.params)
         attn["wq"].mul_(0.1)
         attn["wk"].mul_(0.1)
         soft, finite, _ = decode_consistency(eng, out, s)
@@ -5332,6 +5438,438 @@ def elastic_phase(dev, vu, card) -> None:
           f"{time.time() - START:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 11
+# the hybrid and MoE families (``models/hybrid.py``, ``models/moe.py``)
+PHI = "phi3.5-moe-42b-a6.6b"
+KIMI = "kimi-k2-1t-a32b"
+FAMILIES = (HYMBA, PHI, KIMI)
+# (am): hymba-1.5b served at full depth through the serve CLI; a prompt
+# past the 1024-slot attention window and four 256-token SSM chunks
+AM_ARGS = ["--batch", "4", "--prompt-len", "1040", "--gen", "32"]
+# (an): hymba-1.5b trained at full depth through launch.train, W = 2, at
+# (aj)'s γ: under the reference's init the first gradients at 32 layers
+# reach ~1e6 (the smoke width at 32 layers on the CPU: losses ~250 after
+# 4 steps at γ 1e-5, 6.25 at 1e-7)
+AN_LR = 1e-7
+AN_ARGS = ["--arch", HYMBA, "--workers", "2", "--batch", "8", "--seq", "64",
+           "--steps", "4", "--k", "2", "--lr", str(AN_LR), "--log-every",
+           "1"]
+FAMILY_SERVE = (4, 32, 32)      # (ao), (aq): batch, prompt, generated
+PHI_SERVE_LAYERS = 4            # of 32: 21.8 GB of fp32 weights
+PHI_TRAIN_LAYERS = 1            # W = 2: params, Δ, gradients 37.5 GB
+PHI_TRAIN_LAYOUT = (1_562_980_352, 6_106_112, 256)
+KIMI_LAYERS = 1                 # of 61, bf16: 38.8 GB of weights
+KIMI_PARAMS = 19_422_663_680
+# (aq): layer 0's bf16 MoE output against the fp32 evaluation of its kept
+# (token, expert) pairs from the same bf16 weights, per token within this
+# share of the token's max|reference| (bf16 keeps 8 bits: four of its
+# ulps at the row's scale)
+KIMI_TOL = 2 ** -5
+FAMILY_SMOKE_STEPS = (1, 2, 2, 2)   # (ar): k = 2 with warm-up, 7 steps
+FAMILY_SMOKE_LAUNCHES = {"fused_local_sgd": 7, "fused_sync_vrl": 4}
+
+
+def families_smoke(where, forced=None) -> dict:
+    """(ar)'s runs of the three smoke variants on ``where``, each from the
+    CPU's draws (seed 0) with wq, wk × 0.1 (the train slice's parity, as
+    phase 5's): prefill logits and cache over a (3, 40) prompt (hymba's
+    40 tokens: a padded second SSM chunk); 16 greedy tokens; the decode
+    logits of 15 steps teacher-forced over ``forced[arch]`` (the CPU's
+    tokens; its own when None) and their top-2 margins; and vrl_sgd + sgd,
+    W = 2, batch 2 × seq 40, rounds of 1, 2, 2, 2 (losses, params, Δ and
+    the launches).  Returns {arch: {name: array}}."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.kernels import vrl_update as vu
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    from repro_torch.train.train_loop import make_train_step
+    out = {}
+    for arch in FAMILIES:
+        cfg = registry.smoke_arch(arch)
+        params = T.init_params(cfg, seed=0)
+        attn = attention_tree(params)
+        attn["wq"], attn["wk"] = attn["wq"] * 0.1, attn["wk"] * 0.1
+        p = tm.tree_map(lambda x: x.to(where), params)
+        prompt = torch.randint(0, cfg.vocab_size, (3, 40),
+                               generator=torch.Generator().manual_seed(4))
+        r = {}
+        with torch.no_grad():
+            logits, cache = T.prefill(cfg, p, prompt.to(where), 64)
+        r["prefill"] = logits.cpu().numpy()
+        for path, leaf in tm.leaves_with_path(cache):
+            r["cache/" + path] = leaf.float().cpu().numpy()
+        eng = Engine(cfg, p, max_len=64, device=where)
+        r["tokens"] = eng.generate(prompt, 16).cpu().numpy()
+        toks = torch.from_numpy(r["tokens"] if forced is None
+                                else forced[arch]).to(where)
+        _, c = eng.prefill(prompt)
+        steps = []
+        for pos in range(40, 55):
+            lg, c = eng.step(c, toks[:, pos:pos + 1], pos)
+            steps.append(lg.cpu().numpy())
+        r["decode"] = np.stack(steps)
+        r["margins"] = decode_margins(eng, toks, 40)
+        data = assigned_token_stream(contiguous_assignment(2, 2), 40,
+                                     cfg.vocab_size,
+                                     steps=sum(FAMILY_SMOKE_STEPS), batch=2,
+                                     alpha=0.05, seed=0)
+        bundle = make_train_step(cfg, VRLConfig(comm_period=2,
+                                                learning_rate=LR,
+                                                warmup=True), device=where)
+        state = bundle.engine.init(p, 2)
+        vu.reset_launches()
+        losses, t = [], 0
+        for rk in FAMILY_SMOKE_STEPS:
+            x = torch.from_numpy(data[t:t + rk]).to(where).long()
+            state, lk = bundle.round_step(state, x, torch.roll(x, -1, dims=-1))
+            losses += lk.tolist()
+            t += rk
+        r["launches"] = {k: v for k, v in vu.LAUNCHES.items() if v}
+        r.update(losses=np.array(losses), params=state.params.cpu().numpy(),
+                 delta=state.delta.cpu().numpy())
+        out[arch] = r
+    return out
+
+
+def families_cpu_runs(path: str) -> int:
+    """The child process of phase 11: ``families_smoke`` on the CPU, its
+    arrays into the npz ``path`` (keys "arch|name")."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(3)
+    t0 = time.time()
+    runs = families_smoke("cpu")
+    arrays = {f"{arch}|{k}": v for arch, r in runs.items()
+              for k, v in r.items() if k != "launches"}
+    np.savez(path, seconds=np.float64(time.time() - t0), **arrays)
+    return 0
+
+
+def start_families_cpu():
+    """Start ``families_cpu_runs`` in a child process: (process, its npz
+    path, its log path, its directory)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    path, log = os.path.join(tmp, "cpu.npz"), os.path.join(tmp, "cpu.log")
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--families-cpu",
+             path], stdout=subprocess.DEVNULL, stderr=err, cwd=ROOT)
+    return proc, path, log, tmp
+
+
+def families_cpu_result(proc, path, log) -> tuple:
+    """Wait for the child (at most 600 s): ({arch: {name: array}}, its
+    seconds)."""
+    rc = proc.wait(timeout=600)
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"(ar)'s CPU runs failed ({rc}): "
+                                 f"{f.read()[-3000:]}")
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key != "seconds":
+                arch, name = key.split("|", 1)
+                out.setdefault(arch, {})[name] = z[key]
+        return out, float(z["seconds"])
+
+
+def families_small_input(dev, card, cpu, cpu_s) -> None:
+    """(ar): the card's ``families_smoke`` against the CPU's: prefill
+    logits and every cache leaf, and the decode logits over the CPU's
+    tokens, within atol 1e-4 (· max(1, max|leaf|) for the cache); the
+    greedy tokens where the CPU's top-2 margin exceeds twice that; the
+    losses within rtol 1e-4, params atol 1e-4, Δ atol 1e-4/(k γ); the
+    flat engine's kernels on the card."""
+    tol, k = 1e-4, 2
+    card_runs = families_smoke(dev, {a: cpu[a]["tokens"] for a in FAMILIES})
+    notes = []
+    for arch in FAMILIES:
+        want, got = cpu[arch], card_runs[arch]
+        tag = f"(ar) {arch} smoke"
+        close(torch.from_numpy(got["prefill"]),
+              torch.from_numpy(want["prefill"]), tol, f"{tag} prefill")
+        keys = sorted(n for n in want if n.startswith("cache/"))
+        if keys != sorted(n for n in got if n.startswith("cache/")):
+            raise AssertionError(f"{tag}: cache leaves {keys}")
+        for n in keys:
+            close(torch.from_numpy(got[n]), torch.from_numpy(want[n]),
+                  tol * max(1.0, float(np.abs(want[n]).max())),
+                  f"{tag} prefill {n}")
+        close(torch.from_numpy(got["decode"]),
+              torch.from_numpy(want["decode"]), tol, f"{tag} decode")
+        compared = 0
+        for row in range(want["tokens"].shape[0]):
+            for i in range(16):
+                if want["margins"][row, i] <= 2 * tol:
+                    break               # either pick is right; they part
+                if got["tokens"][row, 40 + i] != want["tokens"][row, 40 + i]:
+                    raise AssertionError(f"{tag}: greedy token {i} of row "
+                                         f"{row} differs")
+                compared += 1
+        check_launches(tag, got["launches"], FAMILY_SMOKE_LAUNCHES)
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+        np.testing.assert_allclose(got["params"], want["params"], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["delta"], want["delta"], rtol=0,
+                                   atol=1e-4 / (k * LR))
+        notes.append(
+            f"{arch}: {len(keys)} cache leaves ({', '.join(n[6:] for n in keys)}),"
+            f" {compared} greedy tokens equal, losses max rel diff "
+            f"{np.abs(got['losses'] / want['losses'] - 1).max():.2e}, params "
+            f"{np.abs(got['params'] - want['params']).max():.2e}, Δ "
+            f"{np.abs(got['delta'] - want['delta']).max():.2e}")
+    print(f"[11 families (ar)] smoke, card vs CPU (its runs took {cpu_s:.1f} "
+          f"s beside (am)-(aq)), wq, wk × 0.1: prefill logits and cache, 15 "
+          f"decode steps within atol {tol}; vrl_sgd+sgd 7 steps, launches "
+          f"{FAMILY_SMOKE_LAUNCHES} each: {'; '.join(notes)}; {card}",
+          flush=True)
+
+
+def phi_serve(dev, card):
+    """(ao) phi3.5-moe at full width, PHI_SERVE_LAYERS of its 32 layers
+    (all 16 experts, top-2), fp32, through ``serve.Engine`` with the serve
+    CLI's draws (weights seed 0, prompts seed 1), timed; then
+    ``served_checks`` on an engine of the same weights whose capacity
+    factor (E / k) drops nothing: a prefill of B·S tokens may drop (token,
+    expert) entries that a decode step of B tokens keeps, so with drops
+    the two compute different functions by design (the reference's
+    capacity semantics)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(registry.get_arch(PHI),
+                              num_layers=PHI_SERVE_LAYERS)
+    b, s, gen = FAMILY_SERVE
+    params = T.init_params(cfg, 0, device=dev)
+    eng = Engine(cfg, params, max_len=s + gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    out, timings, wall, peak = timed_generate(eng, dev, prompt, gen)
+    full = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    nd = Engine(full, params, max_len=s + gen, device=dev)
+    with torch.no_grad():
+        out_nd = nd.generate(prompt, gen)
+    same = int((out_nd[:, s:] == out[:, s:]).sum())
+    row = served_checks("(ao) serve.Engine",
+                        f"{PHI} at {PHI_SERVE_LAYERS} of 32 layers (16 "
+                        f"experts top-2; the checks at capacity factor "
+                        f"{full.capacity_factor:g}, the served tokens "
+                        f"{same} of {b * gen} equal to theirs)", cfg, nd,
+                        prompt, out_nd, timings["prefill_ms"],
+                        timings["decode_ms"], wall, peak, "11 families", card)
+    del eng, nd, params, out, out_nd
+    free()
+    return row
+
+
+def keep_mask(ids: np.ndarray, cap: int) -> np.ndarray:
+    """Which (token, expert) entries of ids (T, k) fit the capacity: the
+    reference's stable sort and searchsorted, in numpy."""
+    flat = ids.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    srt = flat[order]
+    pos = np.arange(flat.size) - np.searchsorted(srt, srt, side="left")
+    keep = np.empty(flat.size, bool)
+    keep[order] = pos < cap
+    return keep.reshape(ids.shape)
+
+
+@torch.no_grad()
+def kimi_moe_check(cfg, params, prompt) -> tuple:
+    """Layer 0's MoE on the prefill of ``prompt``: its input (the prefill's
+    own ops to there), the port's bf16 ``moe_mlp`` on it, and the fp32
+    evaluation of each kept (token, expert) pair from the same bf16
+    weights upcast, weighted by the router, plus the shared expert.
+    Returns (worst per-token max|y − ref| / max|ref|, dropped entries,
+    kept entries, the capacity)."""
+    import torch.nn.functional as F
+    from repro_torch import tree as tm
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rms_norm
+    lp = tm.tree_map(lambda a: a[0], params["layers"])
+    b, s = prompt.shape
+    x = T.embed_inputs(cfg, params, prompt)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x = x + attention.attend_full(cfg, lp["attn"],
+                                  rms_norm(x, lp["norm1"], cfg.norm_eps),
+                                  positions, window=cfg.attn_window)
+    h = rms_norm(x, lp["norm2"], cfg.norm_eps).reshape(b * s, -1)
+    pm = lp["moe"]
+    y, _ = moe.moe_mlp(cfg, pm, h)
+    w, ids, _ = moe.route(cfg, pm["router"], h)
+    ids_np = ids.cpu().numpy()
+    cap = moe.capacity(cfg, b * s)
+    keep = keep_mask(ids_np, cap)
+    hf = h.float()
+    ref = torch.zeros_like(hf)
+    for e in np.unique(ids_np[keep]):
+        rows, js = (torch.from_numpy(a).to(h.device)
+                    for a in np.nonzero(keep & (ids_np == e)))
+        xe = hf[rows]
+        he = F.silu(xe @ pm["w_gate"][e].float()) * (xe @ pm["w_up"][e].float())
+        ref[rows] += w[rows, js, None] * (he @ pm["w_down"][e].float())
+    hs = F.silu(hf @ pm["shared_w_gate"].float()) * (
+        hf @ pm["shared_w_up"].float())
+    ref += hs @ pm["shared_w_down"].float()
+    ratio = ((y.float() - ref).abs().amax(-1) / ref.abs().amax(-1)).max()
+    return ratio.item(), int((~keep).sum()), int(keep.sum()), cap
+
+
+def kimi_serve(dev, card):
+    """(aq) kimi-k2 at full width, KIMI_LAYERS of its 61 layers (all 384
+    experts top-8, the shared expert, head_dim 112, the untied 163,840-row
+    head), bf16 weights drawn on the card (the init scales each fp32 draw
+    in place, so its peak holds one fp32 copy of the largest leaf, 22.5 GB,
+    beside its bf16 cast and the leaves before it), through
+    ``serve.Engine``: the output's shape, prompt and token range, finite
+    prefill logits, the tree's count; then ``kimi_moe_check`` within
+    KIMI_TOL."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(registry.get_arch(KIMI), num_layers=KIMI_LAYERS)
+    free()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_params = sum(x.numel() for x in tm.leaves(params))
+    if n_params != KIMI_PARAMS:
+        raise AssertionError(f"path (aq): {n_params} parameters")
+    b, s, gen = FAMILY_SERVE
+    eng = Engine(cfg, params, max_len=s + gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    out, timings, wall, peak = timed_generate(eng, dev, prompt, gen)
+    if out.shape != (b, s + gen) or not torch.equal(out[:, :s], prompt) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"path (aq): output {tuple(out.shape)}")
+    logits, _ = eng.prefill(prompt)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("path (aq): a non-finite prefill logit")
+    ratio, dropped, kept, cap = kimi_moe_check(cfg, params, prompt)
+    if not ratio <= KIMI_TOL:
+        raise AssertionError(f"path (aq): layer 0's MoE {ratio:.3e} · "
+                             f"max|ref| from its fp32 evaluation (limit "
+                             f"{KIMI_TOL})")
+    per_tok = float(np.mean(timings["decode_ms"]))
+    nbytes = sum(x.numel() * x.element_size() for x in tm.leaves(params))
+    weights_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    row = dict(tag="(aq) serve.Engine", prefill_ms=timings["prefill_ms"],
+               decode_ms=per_tok, tok_s=b * gen / wall,
+               peak_gib=peak / 2 ** 30, weights_ms=weights_ms)
+    print(f"[11 families (aq)] {KIMI} at {KIMI_LAYERS} of 61 layers, bf16, "
+          f"{n_params} parameters: init {init_s:.1f} s, its peak "
+          f"{init_peak:.2f} GiB; batch {b}: prefill "
+          f"{timings['prefill_ms']:.3f} ms ({b} x {s} tokens), decode "
+          f"{per_tok:.3f} ms per token ({gen - 1} steps, "
+          f"{min(timings['decode_ms']):.3f}-{max(timings['decode_ms']):.3f};"
+          f" the weights' {nbytes / 1e9:.2f} GB take {weights_ms:.3f} ms at "
+          f"3.35 TB/s), {row['tok_s']:.1f} tokens/s batched, peak "
+          f"{row['peak_gib']:.2f} GiB; no kernel launched; layer 0's MoE on "
+          f"the prefill ({kept} (token, expert) entries kept, {dropped} "
+          f"dropped at capacity {cap}) within {ratio:.3e} · max|ref| of its "
+          f"fp32 evaluation per token (limit {KIMI_TOL:.4f}); {card}",
+          flush=True)
+    del eng, params, out, logits
+    free()
+    return row
+
+
+def phi_train(dev, vu, card) -> dict:
+    """(ap) phi3.5-moe at full width, PHI_TRAIN_LAYERS layer, through
+    ``make_train_step`` and ``round_step``: vrl_sgd + sgd, W = 2, batch 8
+    × seq 64 (512 tokens a worker: capacity 80 an expert), k = 2, 4 steps
+    (fused_local_sgd 4, fused_sync_vrl 2), Σ Δ as phase 4 holds it; then
+    (ar)'s twin: its first round run twice more from the same seed, each
+    on a fresh engine, bitwise equal in losses, params and Δ (the
+    dispatch's permutation, with no colliding scatter of nonzeros)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.data import assigned_token_stream, contiguous_assignment
+    from repro_torch.models import moe
+    from repro_torch.train.train_loop import make_train_step
+    cfg = dataclasses.replace(registry.get_arch(PHI),
+                              num_layers=PHI_TRAIN_LAYERS)
+    vrl_kw = dict(comm_period=2, warmup=False, learning_rate=MAIN_LR)
+    res = train_path("(ap) phi3.5-moe vrl_sgd+sgd", vrl_kw, TRAIN8_ROUNDS,
+                     TRAIN8_LAUNCHES, dev, vu, cfg=cfg, w=2)
+    print_path(res, f"; {check_sums(res)}; all 16 experts top-2, capacity "
+               f"{moe.capacity(cfg, 8 * 64)} an expert; {card}",
+               phase="11 families")
+    data = assigned_token_stream(contiguous_assignment(2, 2), 64,
+                                 cfg.vocab_size, steps=2, batch=8,
+                                 alpha=0.05, seed=0)
+    toks = torch.from_numpy(data).to(dev, torch.long)
+    runs = []
+    for _ in range(2):
+        bundle = make_train_step(cfg, VRLConfig(**vrl_kw), device=dev)
+        spec = bundle.engine.spec
+        if (spec.size, spec.rows, spec.lanes) != PHI_TRAIN_LAYOUT:
+            raise AssertionError(f"path (ap): flat layout {spec.meta()}")
+        state = bundle.init_state(0, 2)
+        state, lk = bundle.round_step(state, toks,
+                                      torch.roll(toks, -1, dims=-1))
+        runs.append((lk.tolist(), state.params, state.delta))
+        del bundle, state
+        free()
+    (l0, p0, d0), (l1, p1, d1) = runs
+    if not (l0 == l1 and torch.equal(p0, p1) and torch.equal(d0, d1)):
+        raise AssertionError(f"(ar) twin: two card runs of (ap)'s first "
+                             f"round differ: losses {l0} vs {l1}")
+    print(f"[11 families (ar)] twin: (ap)'s first round run twice more on "
+          f"the card, each from seed 0 on a fresh engine: losses {l0}, "
+          f"params ({p0.numel()} elements) and Δ bitwise equal; {card}",
+          flush=True)
+    del runs, p0, p1, d0, d1
+    free()
+    return res
+
+
+def families_phase(dev, vu, card) -> None:
+    """Phase 11: (am)-(aq) on the card, (ar) against the CPU's runs of a
+    child process started at the phase's start."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import train as launch
+    t11 = time.time() - START
+    print(f"[11 families] from {t11:.1f} s of the script, the smoke "
+          f"variants' CPU runs in a child process beside (am)-(aq); {card}",
+          flush=True)
+    free()
+    proc, path, log, tmp = start_families_cpu()
+    try:
+        serve_path("(am) serve", HYMBA, vu, fa, ss, AM_ARGS, "11 families",
+                   card)
+        for fn in (phi_serve, kimi_serve):
+            for mod in (vu, fa, ss):
+                mod.reset_launches()
+            row = fn(dev, card)
+            check_launches(row["tag"], {**vu.LAUNCHES, **fa.LAUNCHES,
+                                        **ss.LAUNCHES}, {})
+        cli_path(f"(an) {HYMBA} vrl_sgd+sgd", AN_ARGS, TRAIN8_LAUNCHES,
+                 launch, vu, rounding=True, phase="11 families")
+        phi_train(dev, vu, card)
+        cpu, cpu_s = families_cpu_result(proc, path, log)
+        families_small_input(dev, card, cpu, cpu_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[11 families] {time.time() - START - t11:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5345,6 +5883,8 @@ def main() -> int:
         return paper_cpu_runs(sys.argv[2])
     if sys.argv[1:2] == ["--elastic-cpu"]:
         return elastic_cpu_runs(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--families-cpu"]:
+        return families_cpu_runs(sys.argv[2])
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -5372,6 +5912,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if "--main-paths" in sys.argv[1:]:
+        from repro_torch.launch import train as launch
+        main_path_runs(dev, KernelChecks(vu, tu), tu, vu, launch)
+        return 0
+    if "--families" in sys.argv[1:]:
+        families_phase(dev, vu, card)
+        return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
         return 0
@@ -5486,6 +6033,89 @@ def main() -> int:
             paper_cpu[0].wait()
 
 
+def main_path_runs(dev, chk, tu, vu, launch) -> dict:
+    """Phase 4's training paths, in order, each one's seconds (its set-up
+    and checks included) printed at the end; returns their results by
+    key."""
+    res, secs = {}, {}
+
+    def run(key, fn, *args, **kw):
+        t0 = time.time()
+        res[key] = fn(*args, **kw)
+        secs[key] = time.time() - t0
+        return res[key]
+
+    run("v", cli_path, "vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
+    print_path(run("a", train_path, "(a) bvr_l_sgd+adam", *PATH_A, dev, vu),
+               "; " + check_sums(res["a"]))
+    run("b", train_path, "(b) easgd+momentum", *path_b(EASGD_LR), dev, vu,
+        after=easgd_sync_check(chk, tu))
+    print_path(res["b"], res["b"]["note"])
+    paths = comm_paths()
+    res_c = run("c", train_path, "(c) vrl_sgd+sgd, int8", *paths["c"], dev,
+                vu, watch=ef_identity_watch)
+    worst = max(res_c["watched"], key=lambda r: r["off"] / r["limit"])
+    if not any(r["ef_term"] > 10 * r["limit"] for r in res_c["watched"]):
+        raise AssertionError(f"path (c): the EF term never stands above the "
+                             f"rounding: {res_c['watched']}")
+    print_path(res_c, wire_note(paths["c"][0])
+               + f"; at each of the {len(res_c['watched'])} syncs Σ_i "
+               f"Δ_i moved by the EF term Σ_i (e_i − e'_i)/(k γ) (largest "
+               f"{max(r['ef_term'] for r in res_c['watched']):.3e}) to "
+               f"within {worst['off']:.3e} <= {worst['limit']:.3e}")
+    res_d = run("d", train_path, "(d) bvr_l_sgd+sgd, topk:32, overlap",
+                *paths["d"], dev, vu)
+    print_path(res_d, wire_note(paths["d"][0]) + "; after the last fold "
+               + check_sums(res_d))
+    run("e", cli_path, "(e) vrl_sgd+sgd, --overlap", PATH_E_ARGS,
+        PATH_E_LAUNCHES, launch, vu)
+    print_path(run("f", train_path, "(f) local_sgd+sgd, overlap",
+                   *paths["f"], dev, vu))
+    run("g", cli_path, "(g) hier_vrl_sgd+sgd (2, 2)", *PATH_G, launch, vu,
+        grid=(2, 2))
+    run("h", cli_path, "(h) hier_vrl_sgd+sgd (2, 2), --overlap", *PATH_H,
+        launch, vu, grid=(2, 2))
+    run("m", cli_path, "(m) hier_vrl_sgd+sgd (2, 2), --compress int8",
+        *PATH_M, launch, vu, grid=(2, 2))
+    run("n", cli_path, "(n) hier_vrl_sgd+sgd (2, 2), --compress int8 "
+        "--compress2 topk:32 --overlap --deadline 0.25", *PATH_N, launch, vu,
+        grid=(2, 2), misses=PATH_N_MISSES)
+    run("o", cli_path, "(o) hier_vrl_sgd+sgd (2, 2), --compress topk:32",
+        *PATH_O, launch, vu, grid=(2, 2))
+    res_i = run("i", train_path, "(i) vrl_sgd+adam+sm3", *PATH_I, dev, vu,
+                after=sm3_note)
+    print_path(res_i, "; " + check_sums(res_i) + res_i["note"])
+    run("j", train_path, "(j) hier_vrl_sgd+momentum (2, 2)",
+        *path_j(HIER_MOMENTUM_LR), dev, vu)
+    run("k", train_path, "(k) hier_vrl_sgd+adam (2, 2)",
+        *hier_path(dict(inner_optimizer="adam"), MAIN_LR,
+                   "fused_hier_local_adam"), dev, vu)
+    run("l", train_path, "(l) hier_vrl_sgd+adam+sm3, bf16 mu (2, 2)",
+        *hier_path(dict(inner_optimizer="adam", sm3=True,
+                        moment_dtype="bfloat16"), MAIN_LR,
+                   "fused_hier_local_adam_sm3"), dev, vu, after=sm3_note)
+    for key in "jkl":
+        print_path(res[key], "; " + check_hier_sums(res[key])
+                   + res[key]["note"])
+        print_rounds(res[key])
+    # the per-leaf executor through the CLI (no kernel launched), then the
+    # tree-update API's VRL-SGD rounds
+    run("p", cli_path, "(p) vrl_sgd+sgd, --backend reference", PATH_P, {},
+        launch, vu)
+    run("q", cli_path, "(q) hier_vrl_sgd+sgd (2, 2), --backend reference "
+        "--compress int8", PATH_Q, {}, launch, vu, grid=(2, 2))
+    run("r", tree_api_path, dev, vu)
+    # (u) mamba2-370m trains through the CLI: the flat engine's kernels;
+    # the model's own ssd_chunked scan, as in the reference
+    run("u", cli_path, f"(u) {MAMBA} vrl_sgd+sgd", MAMBA_ARGS, MAIN_LAUNCHES,
+        launch, vu, rounding=True)
+    print(f"[4 main paths] seconds per path (set-up and checks included; "
+          f"all but vrl_sgd+sgd (v) and (u) at {CUT_LAYERS} of qwen2-0.5b's "
+          f"24 layers): {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f", {sum(secs.values()):.1f} in all", flush=True)
+    return res
+
+
 def main_paths(dev, card, chk, times, plain, library, bounds, extra,
                attn_launches, ssd_launches, paper_cpu) -> int:
     """Phases 4 to 6 and the closing lines."""
@@ -5499,70 +6129,7 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
     print(f"[4 main paths] from {time.time() - START:.1f} s of the script, "
           f"the paper's CPU runs in a child process beside them",
           flush=True)
-    res_v = cli_path("vrl_sgd+sgd", MAIN_ARGS, MAIN_LAUNCHES, launch, vu)
-    res_a = train_path("(a) bvr_l_sgd+adam", *PATH_A, dev, vu)
-    print_path(res_a, "; " + check_sums(res_a))
-    res_b = train_path("(b) easgd+momentum", *path_b(EASGD_LR), dev, vu,
-                       after=easgd_sync_check(chk, tu))
-    print_path(res_b, res_b["note"])
-    paths = comm_paths()
-    res_c = train_path("(c) vrl_sgd+sgd, int8", *paths["c"], dev, vu,
-                       watch=ef_identity_watch)
-    worst = max(res_c["watched"], key=lambda r: r["off"] / r["limit"])
-    if not any(r["ef_term"] > 10 * r["limit"] for r in res_c["watched"]):
-        raise AssertionError(f"path (c): the EF term never stands above the "
-                             f"rounding: {res_c['watched']}")
-    print_path(res_c, wire_note(paths["c"][0])
-               + f"; at each of the {len(res_c['watched'])} syncs Σ_i "
-               f"Δ_i moved by the EF term Σ_i (e_i − e'_i)/(k γ) (largest "
-               f"{max(r['ef_term'] for r in res_c['watched']):.3e}) to "
-               f"within {worst['off']:.3e} <= {worst['limit']:.3e}")
-    res_d = train_path("(d) bvr_l_sgd+sgd, topk:32, overlap", *paths["d"],
-                       dev, vu)
-    print_path(res_d, wire_note(paths["d"][0]) + "; after the last fold "
-               + check_sums(res_d))
-    res_e = cli_path("(e) vrl_sgd+sgd, --overlap", PATH_E_ARGS,
-                     PATH_E_LAUNCHES, launch, vu)
-    res_f = train_path("(f) local_sgd+sgd, overlap", *paths["f"], dev, vu)
-    print_path(res_f)
-    res_g = cli_path("(g) hier_vrl_sgd+sgd (2, 2)", *PATH_G, launch, vu,
-                     grid=(2, 2))
-    res_h = cli_path("(h) hier_vrl_sgd+sgd (2, 2), --overlap", *PATH_H,
-                     launch, vu, grid=(2, 2))
-    res_m = cli_path("(m) hier_vrl_sgd+sgd (2, 2), --compress int8", *PATH_M,
-                     launch, vu, grid=(2, 2))
-    res_n = cli_path("(n) hier_vrl_sgd+sgd (2, 2), --compress int8 "
-                     "--compress2 topk:32 --overlap --deadline 0.25",
-                     *PATH_N, launch, vu, grid=(2, 2), misses=PATH_N_MISSES)
-    res_o = cli_path("(o) hier_vrl_sgd+sgd (2, 2), --compress topk:32",
-                     *PATH_O, launch, vu, grid=(2, 2))
-    res_i = train_path("(i) vrl_sgd+adam+sm3", *PATH_I, dev, vu,
-                       after=sm3_note)
-    print_path(res_i, "; " + check_sums(res_i) + res_i["note"])
-    res_j = train_path("(j) hier_vrl_sgd+momentum (2, 2)",
-                       *path_j(HIER_MOMENTUM_LR), dev, vu)
-    res_k = train_path("(k) hier_vrl_sgd+adam (2, 2)",
-                       *hier_path(dict(inner_optimizer="adam"), MAIN_LR,
-                                  "fused_hier_local_adam"), dev, vu)
-    res_l = train_path("(l) hier_vrl_sgd+adam+sm3, bf16 mu (2, 2)",
-                       *hier_path(dict(inner_optimizer="adam", sm3=True,
-                                       moment_dtype="bfloat16"), MAIN_LR,
-                                  "fused_hier_local_adam_sm3"), dev, vu,
-                       after=sm3_note)
-    for res_p in (res_j, res_k, res_l):
-        print_path(res_p, "; " + check_hier_sums(res_p) + res_p["note"])
-        print_rounds(res_p)
-    # the per-leaf executor through the CLI (no kernel launched), then the
-    # tree-update API's VRL-SGD rounds
-    res_p_ = cli_path("(p) vrl_sgd+sgd, --backend reference", PATH_P, {},
-                      launch, vu)
-    res_q = cli_path("(q) hier_vrl_sgd+sgd (2, 2), --backend reference "
-                     "--compress int8", PATH_Q, {}, launch, vu, grid=(2, 2))
-    res_r = tree_api_path(dev, vu)
-    # (u) mamba2-370m trains through the CLI: the flat engine's kernels;
-    # the model's own ssd_chunked scan, as in the reference
-    res_u = cli_path(f"(u) {MAMBA} vrl_sgd+sgd", MAMBA_ARGS, MAIN_LAUNCHES,
-                     launch, vu, rounding=True)
+    res = main_path_runs(dev, chk, tu, vu, launch)
     # the serve CLI at full width (no kernel: the reference's serving path
     # runs none); mha_flash's and ssd_chunk_scan's launches come from
     # their paths in phase 3
@@ -5572,9 +6139,7 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
     # each kernel's launches on the first path that runs it
     main_launches = {"flash_attention": attn_launches,
                      "ssd_scan": ssd_launches}
-    for res_p in (res_v, res_a, res_b, res_c, res_d, res_e, res_f, res_g,
-                  res_h, res_i, res_j, res_k, res_l, res_m, res_n, res_o,
-                  res_p_, res_q, res_r, res_u):
+    for res_p in res.values():
         for name, n in res_p["launches"].items():
             main_launches.setdefault(name, n)
 
@@ -5597,7 +6162,7 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
           f"script {time.time() - START:.1f} s", flush=True)
 
     # ------------------------------------------------------ 7 mesh
-    mesh_paths({"main": res_v, "e": res_e, "g": res_g})
+    mesh_paths({"main": res["v"], "e": res["e"], "g": res["g"]})
 
     # ------------------------------------------------------ 8 backbone
     backbone_phase(dev, vu, fa, ss, card)
@@ -5607,6 +6172,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 10 elastic
     elastic_phase(dev, vu, card)
+
+    # ------------------------------------------------------ 11 families
+    families_phase(dev, vu, card)
 
     kernels = []
     for name in KERNELS:

@@ -19,10 +19,10 @@ from typing import Optional, Tuple
 class ModelConfig:
     """Architecture definition (see ``repro.configs.base.ModelConfig``).
 
-    The port runs the ``dense`` backbone (also built for ``vlm`` and
-    ``audio``, the latter over codec frame embeddings) and the ``ssm``
-    family; the other fields are kept so that configs and ``reduced`` stay
-    field-for-field the reference's.
+    The port runs all six families: the ``dense`` backbone (also built
+    for ``vlm`` and ``audio``, the latter over codec frame embeddings),
+    ``moe``, ``ssm`` and ``hybrid``; the fields are the reference's, so
+    configs and ``reduced`` stay field-for-field its own.
     """
 
     name: str
@@ -82,16 +82,14 @@ class ModelConfig:
         return self.ssm_d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def param_count(self) -> int:
-        """The reference's analytic parameter count, for the families the
-        port runs, formula as it stands.  Its ssm branch counts the B/C
-        projections once per head and two norms per layer (mamba2-370m:
-        759,767,040, where the materialised tree holds 368,227,840); it
-        counts no final norm, and for the codec frontend no
-        ``frontend_proj`` (musicgen-large: 2,424,504,320, where the tree
-        holds 4,194,304 + 2,048 more: 2,428,700,672)."""
-        if self.family not in ("dense", "vlm", "audio", "ssm"):
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (ROADMAP Queue 1)")
+        """The reference's analytic parameter count, formula as it stands.
+        Its ssm branch (hybrid too) counts the B/C projections once per
+        head and two norms per layer (mamba2-370m: 759,767,040, where the
+        materialised tree holds 368,227,840); it counts no final norm, for
+        the codec frontend no ``frontend_proj`` (musicgen-large:
+        2,424,504,320, where the tree holds 4,194,304 + 2,048 more:
+        2,428,700,672), and for the hybrid none of its two output norms
+        and ``fuse_beta``."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         total = V * d if self.tie_embeddings else 2 * V * d
         per_layer = 0
@@ -102,9 +100,15 @@ class ModelConfig:
             per_layer += (self.num_heads * hd) * d          # o
             if self.qkv_bias:
                 per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.family in ("dense", "vlm", "audio", "hybrid"):
             mult = 3 if self.mlp_act in ("silu", "geglu") else 2
             per_layer += mult * d * self.d_ff
-        else:
+        if self.family == "moe":
+            ff = self.moe_d_ff or self.d_ff
+            per_layer += 3 * d * ff * self.num_experts
+            per_layer += 3 * d * ff * self.num_shared_experts
+            per_layer += d * self.num_experts               # router
+        if self.family in ("ssm", "hybrid"):
             di, ds, nh = self.ssm_d_inner, self.ssm_state, self.ssm_num_heads
             per_layer += d * (2 * di + 2 * ds * (di // self.ssm_head_dim)
                               + nh)
@@ -112,6 +116,16 @@ class ModelConfig:
             per_layer += self.conv_kernel * (di + 2 * ds * nh)
         per_layer += 2 * d  # norms
         return total + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        ff = self.moe_d_ff or self.d_ff
+        dense_experts = self.experts_per_token + self.num_shared_experts
+        inactive = 3 * self.d_model * ff * (
+            self.num_experts + self.num_shared_experts - dense_experts)
+        return self.param_count() - self.num_layers * inactive
 
 
 @dataclass(frozen=True)

@@ -2,8 +2,10 @@
 
 Runs a flat algorithm (``--algorithm``: vrl_sgd, local_sgd, ssgd, easgd,
 stl_sgd, bvr_l_sgd) or two-level hier_vrl_sgd on an ``--arch`` (full
-width, or ``--smoke``'s reduced variant; qwen2-0.5b by default) over the
-synthetic non-iid LM stream, round by round: each communication period
+width, or ``--smoke``'s reduced variant; qwen2-0.5b by default; any of the
+ten architectures, the moe family's loss with its router's aux term as
+the reference adds it) over the synthetic non-iid LM stream, round by
+round: each communication period
 is k local steps (forward/backward per worker, then one fused
 local-update kernel over the (W, R, C) buffers) closed by one worker
 mean and the algorithm's sync.  VRL-SGD-W
@@ -28,6 +30,10 @@ the tail runs step by step on the same two-level cadence.  Under
 ``--compress`` compresses both levels, ``--compress2`` overrides level 2
 (the slow cross-pod tier), and the log holds each level's Σ Δ against
 the term its syncs move it by.
+
+``--layers N`` (the port's own flag) cuts the architecture's depth to N
+layers at its width, for runs whose time or memory the full depth does
+not fit.
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device it fails rather than fall back to the CPU.  The log lines are the
@@ -178,13 +184,13 @@ printed.  The stream adds the reference's ``membership``, ``rollback``,
 ``fault`` and ``cohort`` events; the run's last lines give the snapshot,
 rollback, repair, gather and scatter seconds.
 
-Not ported yet (ROADMAP Queue 1): row shards on a mesh, client sampling on
-a mesh.
+Not ported yet (ROADMAP Queue 1): row shards on a mesh.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -273,6 +279,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=registry.list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the architecture's depth to this many "
+                         "layers, at its width (0 keeps its depth)")
     ap.add_argument("--algorithm", default="vrl_sgd",
                     choices=sorted(engine_mod.ALGO_SPECS))
     ap.add_argument("--comm-schedule", default=None,
@@ -684,9 +693,12 @@ def _train(args: argparse.Namespace, device: torch.device,
 
     cfg = (registry.smoke_arch(args.arch) if args.smoke
            else registry.get_arch(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     refuse_codec(cfg)
     say(f"arch: {registry.describe(args.arch)}"
-        f"{' [reduced smoke variant]' if args.smoke else ''}")
+        f"{' [reduced smoke variant]' if args.smoke else ''}"
+        f"{f' [depth cut to {args.layers} layers]' if args.layers else ''}")
     refuse_clients(args)
     faults = build_faults(args)
     membership = args.membership

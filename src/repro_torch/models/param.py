@@ -45,9 +45,11 @@ def _init_one(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
         return torch.ones(d.shape, dtype=dtype, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    # scaled in place: one fp32 copy of the leaf at a time, not two (the
+    # values are those of ``x * scale``, bitwise)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def materialize(defs: Any, seed: int, dtype: torch.dtype = torch.float32,

@@ -3,19 +3,25 @@ blocks -> norm -> logits, for the families the port runs:
   dense / vlm / audio : GQA attention + MLP blocks (silu- or gelu-gated,
                         or plain gelu); vlm takes early-fusion token ids,
                         audio the codec frontend's frame embeddings
+  moe                 : attention + routed-expert MLP (``models/moe.py``);
+                        its router's aux loss comes out of ``forward``
+                        with ``return_aux``
   ssm                 : Mamba2 SSD blocks (no MLP, as in Mamba2;
                         ``models/ssm.py``)
-The reference's moe and hybrid families are not ported yet (ROADMAP
-Queue 1): ``layer_defs`` refuses them.
+  hybrid              : parallel attention + SSM block + MLP
+                        (``models/hybrid.py``); its per-layer cache nests
+                        the KV cache and the SSM state
 
 Layer parameters stay stacked on a leading "layers" axis, the reference's
 tree layout; a Python loop over that axis takes the place of ``lax.scan``
-(decode and prefill stack their per-layer caches on a leading layer axis,
-so the cache tree is the reference's too).  So the reference's ``unroll``,
+(decode and prefill stack every leaf of their per-layer caches on a
+leading layer axis, so the cache tree, nested for the hybrid, is the
+reference's too).  So the reference's ``unroll``,
 a ``lax.scan`` knob, has no counterpart here.  ``forward(remat=True)``
 runs each layer's block under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of the scan body): its activations are recomputed in
-the backward instead of kept.
+the backward instead of kept, and the layer's aux loss comes out of the
+checkpoint beside them.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, hybrid, moe, ssm
 from repro_torch.models.layers import mlp, mlp_defs, rms_norm, rms_norm_def
 from repro_torch.models.param import ParamDef, materialize, stack_defs
 
@@ -35,15 +41,22 @@ from repro_torch.models.param import ParamDef, materialize, stack_defs
 def layer_defs(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         return {"ssm": ssm.ssm_defs(cfg), "norm1": rms_norm_def(cfg.d_model)}
-    if cfg.family not in ("dense", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
-    return {
+    if cfg.family == "hybrid":
+        return {"hyb": hybrid.hybrid_defs(cfg),
+                "norm1": rms_norm_def(cfg.d_model),
+                "norm2": rms_norm_def(cfg.d_model), "mlp": mlp_defs(cfg)}
+    if cfg.family not in ("dense", "vlm", "audio", "moe"):
+        raise ValueError(cfg.family)
+    d = {
         "attn": attention.attention_defs(cfg),
         "norm1": rms_norm_def(cfg.d_model),
         "norm2": rms_norm_def(cfg.d_model),
-        "mlp": mlp_defs(cfg),
     }
+    if cfg.family == "moe":
+        d["moe"] = moe.moe_defs(cfg)
+    else:
+        d["mlp"] = mlp_defs(cfg)
+    return d
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -70,16 +83,29 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 # ------------------------------------------------------------------- blocks
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
-           positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """One layer."""
+           positions: torch.Tensor, window: Optional[int]):
+    """One layer. Returns (x, aux_loss): the router's aux loss for the moe
+    family, None for the others (the reference's zero)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + ssm.ssm_forward(cfg, p["ssm"],
-                                   rms_norm(x, p["norm1"], cfg.norm_eps))
-    x = x + attention.attend_full(
-        cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), positions,
-        window=window if window is not None else cfg.attn_window)
+        return x + ssm.ssm_forward(cfg, p["ssm"], h), None
+    if cfg.family == "hybrid":
+        y = hybrid.hybrid_forward(cfg, p["hyb"], h, positions, window=window)
+    else:
+        y = attention.attend_full(
+            cfg, p["attn"], h, positions,
+            window=window if window is not None else cfg.attn_window)
+    return _mlp_residual(cfg, p, x + y)
+
+
+def _mlp_residual(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """(x + the layer's MLP of the normed x, None), or for the moe family
+    (x + its routed experts over the flattened tokens, the aux loss)."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp(cfg, p["mlp"], h)
+    if cfg.family == "moe":
+        y, aux = moe.moe_mlp(cfg, p["moe"], h.reshape(-1, h.shape[-1]))
+        return x + y.view(h.shape), aux
+    return x + mlp(cfg, p["mlp"], h), None
 
 
 def embed_inputs(cfg: ModelConfig, params: dict,
@@ -105,38 +131,42 @@ def logits_out(cfg: ModelConfig, params: dict,
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             window: Optional[int] = None, remat: bool = False,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, return_aux: bool = False):
     """Full-sequence forward over token ids (..., S) (codec: frame
     embeddings (..., S, F)) -> logits (..., S, V), or with
     ``return_hidden`` the post-final-norm hidden states (..., S, d), for
     the vocab-streaming loss (``train.loss.chunked_cross_entropy_lm``).
     ``remat`` recomputes each layer's activations in the backward.
 
-    (The reference also returns an MoE aux loss, always 0 for the
-    families the port runs; the port returns the logits or hidden states
-    alone.)"""
+    With ``return_aux`` it returns (that, aux) as the reference always
+    does: the router's aux loss summed over layers ÷ the layer count, an
+    fp32 scalar (0 for the families without a router)."""
     x = embed_inputs(cfg, params, inputs)
     if positions is None:
         positions = torch.arange(x.shape[-2], device=x.device).expand(
             x.shape[:-1])
     block = _block_remat if remat else _block
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # unbind once: its backward stacks the L layer gradients in one pass,
     # where L separate a[i] selects would each scatter into a zeroed
     # full-depth buffer (O(L²) traffic)
     for layer_p in _layers(cfg, params):
-        x = block(cfg, layer_p, x, positions, window)
-    if return_hidden:
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_out(cfg, params, x)
+        x, a = block(cfg, layer_p, x, positions, window)
+        if a is not None:
+            aux = aux + a
+    out = (rms_norm(x, params["final_norm"], cfg.norm_eps) if return_hidden
+           else logits_out(cfg, params, x))
+    return (out, aux / cfg.num_layers) if return_aux else out
 
 
 def _block_remat(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor,
-                 window: Optional[int]) -> torch.Tensor:
+                 positions: torch.Tensor, window: Optional[int]):
     """``_block`` under non-reentrant activation checkpointing.  The
     layer's parameter views (of the one ``unbind`` in ``_layers``) go in
     as the checkpoint's inputs, so the recomputed block's gradients reach
-    them, and through the unbind the stacked leaves."""
+    them, and through the unbind the stacked leaves; the block's (x, aux)
+    come out of the checkpoint, so the aux loss's gradient flows through
+    the recomputed router too."""
     paths, leaves = zip(*tree_mod.leaves_with_path(p))
 
     def run(x, *leaves):
@@ -153,8 +183,14 @@ def _layers(cfg: ModelConfig, params: dict) -> list:
 
 
 def _stack(caches: list) -> dict:
-    return {key: torch.stack([c[key] for c in caches])
-            for key in caches[0]}
+    """Per-layer cache trees -> one tree, every leaf stacked on a leading
+    layer axis."""
+    return tree_mod.tree_map(lambda *xs: torch.stack(xs), *caches)
+
+
+def _layer_cache(cache: dict, i: int) -> dict:
+    """Layer ``i``'s cache tree (views of the stacked leaves)."""
+    return tree_mod.tree_map(lambda t: t[i], cache)
 
 
 # ------------------------------------------------------------------- decode
@@ -162,17 +198,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
                window: Optional[int] = None,
                device: torch.device | str = "cpu") -> dict:
-    """Per-layer caches (KV; for ssm the SSM state and conv window) stacked
-    on a leading layer axis (zeros)."""
-    layer_defs(cfg)                     # refuses the families not ported
+    """Per-layer caches (KV; for ssm the SSM state and conv window; for
+    the hybrid both, nested ``{"attn": {k, v}, "ssm": {state, conv}}``,
+    its KV over min(cache_len, window) slots) stacked on a leading layer
+    axis (zeros)."""
     if cfg.family == "ssm":
         layer = ssm.init_ssm_cache(cfg, batch, dtype, device)
+    elif cfg.family == "hybrid":
+        w = window if window is not None else cfg.attn_window
+        alen = min(cache_len, w) if w else cache_len
+        layer = hybrid.init_hybrid_cache(cfg, batch, alen, dtype, device)
     else:
         eff_len = min(cache_len, window) if window is not None \
             else cache_len
         layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device)
-    return {key: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
-                             device=t.device) for key, t in layer.items()}
+    return tree_mod.tree_map(
+        lambda t: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                              device=t.device), layer)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -185,25 +227,25 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
     """
-    layer_defs(cfg)
     x = embed_inputs(cfg, params, inputs)
     eff_window = window if window is not None else cfg.attn_window
     new = []
     for i, layer_p in enumerate(_layers(cfg, params)):
-        layer_c = {key: t[i] for key, t in cache.items()}
+        layer_c = _layer_cache(cache, i)
+        h = rms_norm(x, layer_p["norm1"], cfg.norm_eps)
         if cfg.family == "ssm":
-            y, c = ssm.ssm_decode_step(
-                cfg, layer_p["ssm"],
-                rms_norm(x, layer_p["norm1"], cfg.norm_eps), layer_c)
+            y, c = ssm.ssm_decode_step(cfg, layer_p["ssm"], h, layer_c)
             x = x + y
-            new.append(c)
-            continue
-        y, c = attention.decode_attend(
-            cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
-            layer_c, pos, window=eff_window)
-        x = x + y
-        x = x + mlp(cfg, layer_p["mlp"],
-                    rms_norm(x, layer_p["norm2"], cfg.norm_eps))
+        else:
+            if cfg.family == "hybrid":
+                y, c = hybrid.hybrid_decode_step(cfg, layer_p["hyb"], h,
+                                                 layer_c, pos, window=window)
+            else:
+                y, c = attention.decode_attend(cfg, layer_p["attn"], h,
+                                               layer_c, pos,
+                                               window=eff_window)
+            # the aux loss is dropped, as the reference's decode drops it
+            x, _ = _mlp_residual(cfg, layer_p, x + y)
         new.append(c)
     return logits_out(cfg, params, x), _stack(new)
 
@@ -214,35 +256,36 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     """Cache-building prefill: the full-sequence forward over ``inputs``
     (B, S) ids (codec: frame embeddings (B, S, F)) that also emits every
     layer's decode cache (KV; for ssm the final SSM state and the conv
-    window, ``cache_len`` unused), stacked on the layer axis.
+    window, ``cache_len`` unused; for the hybrid both), stacked on the
+    layer axis.
 
     Returns (logits (B, S, V) — (B, 1, V) with ``last_only`` — , cache);
     the cache is layout-compatible with ``init_cache``/``decode_step``, in
     the activations' dtype.
     """
-    layer_defs(cfg)
     x = embed_inputs(cfg, params, inputs)
     positions = torch.arange(x.shape[-2], device=x.device).expand(
         x.shape[:-1])
     eff_window = window if window is not None else cfg.attn_window
     caches = []
     for layer_p in _layers(cfg, params):
+        h = rms_norm(x, layer_p["norm1"], cfg.norm_eps)
         if cfg.family == "ssm":
-            y, c = ssm.ssm_forward(
-                cfg, layer_p["ssm"],
-                rms_norm(x, layer_p["norm1"], cfg.norm_eps),
-                return_cache=True)
+            y, c = ssm.ssm_forward(cfg, layer_p["ssm"], h, return_cache=True)
             x = x + y
-            caches.append(c)
-            continue
-        y, kv = attention.attend_full(
-            cfg, layer_p["attn"], rms_norm(x, layer_p["norm1"], cfg.norm_eps),
-            positions, window=eff_window, return_kv=True)
-        caches.append(attention.prefill_kv_cache(cfg, kv, cache_len,
-                                                 eff_window, x.dtype))
-        x = x + y
-        x = x + mlp(cfg, layer_p["mlp"],
-                    rms_norm(x, layer_p["norm2"], cfg.norm_eps))
+        else:
+            if cfg.family == "hybrid":
+                y, c = hybrid.hybrid_forward(
+                    cfg, layer_p["hyb"], h, positions, window=window,
+                    return_cache=True, cache_len=cache_len)
+            else:
+                y, kv = attention.attend_full(cfg, layer_p["attn"], h,
+                                              positions, window=eff_window,
+                                              return_kv=True)
+                c = attention.prefill_kv_cache(cfg, kv, cache_len,
+                                               eff_window, x.dtype)
+            x, _ = _mlp_residual(cfg, layer_p, x + y)
+        caches.append(c)
     if last_only:
         # serving needs only the next-token distribution: logits for every
         # prefill position would be a (B, S, V) tensor for nothing

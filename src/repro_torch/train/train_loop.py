@@ -247,14 +247,21 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
 
     def loss_fn(params, tokens, labels):
         if chunked_ce:
-            hidden = transformer.forward(model_cfg, params, tokens,
-                                         remat=remat, return_hidden=True)
+            hidden, aux = transformer.forward(
+                model_cfg, params, tokens, remat=remat, return_hidden=True,
+                return_aux=True)
             tied = model_cfg.tie_embeddings
-            return chunked_cross_entropy_lm(
+            loss = chunked_cross_entropy_lm(
                 hidden, params["embed"] if tied else params["lm_head"],
                 labels, chunk=chunked_ce, head_is_embed=tied)
-        logits = transformer.forward(model_cfg, params, tokens, remat=remat)
-        return cross_entropy_lm(logits, labels)
+        else:
+            logits, aux = transformer.forward(model_cfg, params, tokens,
+                                              remat=remat, return_aux=True)
+            loss = cross_entropy_lm(logits, labels)
+        if model_cfg.num_experts:
+            # the router's load-balance loss, as the reference adds it
+            loss = loss + model_cfg.router_aux_loss * aux
+        return loss
 
     if engine_mod.resolve_backend(vrl_cfg, device) == "reference":
         if mesh is not None:

@@ -101,10 +101,11 @@ def test_configs_match_reference(arch):
     assert jreg.describe(arch) == treg.describe(arch)
 
 
-def test_registry_offers_seven_architectures():
+def test_registry_offers_ten_architectures():
     assert treg.list_archs() == sorted(
-        ["qwen2-0.5b", "granite-3-2b", "mamba2-370m"] + ARCHS)
-    assert set(treg.list_archs()) <= set(jreg.list_archs())
+        ["qwen2-0.5b", "granite-3-2b", "mamba2-370m", "hymba-1.5b",
+         "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"] + ARCHS)
+    assert treg.list_archs() == jreg.list_archs()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

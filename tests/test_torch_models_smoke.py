@@ -1,12 +1,13 @@
 """PyTorch port, the reference's ``tests/test_models_smoke.py`` over every
-ported architecture (the registry's seven): REDUCED same-family variants
-(2 layers, d_model <= 512) run one forward, one train step and one decode
-step on the CPU, asserting output shapes and no NaNs; the reference's
-prefill-then-decode continuation for each family (5e-4).  Codec inputs
+ported architecture (the registry's ten, all six families): REDUCED
+same-family variants (2 layers, d_model <= 512) run one forward, one train
+step and one decode step on the CPU, asserting output shapes and no
+NaNs; the reference's prefill-then-decode continuation for each family
+(5e-4).  Codec inputs
 are drawn frame embeddings (B, S, F), as the reference's test draws them.
 No JAX here: the parity with the JAX package is in
-``tests/test_torch_model.py``, ``test_torch_backbone.py`` and
-``test_torch_ssm.py``.
+``tests/test_torch_model.py``, ``test_torch_backbone.py``,
+``test_torch_ssm.py``, ``test_torch_moe.py`` and ``test_torch_hybrid.py``.
 """
 import pytest
 
@@ -76,13 +77,16 @@ def test_one_decode_step(arch):
                                           make_inputs(cfg, (2, 1), 1), 0)
     assert logits.shape == (2, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
-    assert sorted(new_cache) == sorted(cache)
-    for key in cache:
-        assert new_cache[key].shape == cache[key].shape, key
+    # the cache tree (nested for the hybrid) keeps its leaves and shapes
+    new, old = tm.leaves_with_path(new_cache), tm.leaves_with_path(cache)
+    assert [p for p, _ in new] == [p for p, _ in old]
+    for (path, a), (_, b) in zip(new, old):
+        assert a.shape == b.shape, path
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-370m",
-                                  "stablelm-3b", "musicgen-large"])
+                                  "stablelm-3b", "musicgen-large",
+                                  "hymba-1.5b", "phi3.5-moe-42b-a6.6b"])
 def test_prefill_then_decode_continuation(arch):
     """prefill() cache must continue exactly like step-by-step decode."""
     cfg = registry.smoke_arch(arch)

@@ -26,8 +26,6 @@ state reaches ~1e2) atol 1e-4 · max(1, max|leaf|); gradients per leaf
 atol 1e-4 · max|g| (the scan's own, where a_log sums over every step and
 cum falls by hundreds: 1e-3 · max|g|, as tests/test_torch_model.py).
 """
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -51,7 +49,6 @@ from repro.train.train_loop import make_train_step as j_make  # noqa: E402
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch import tree as tm  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.base import VRLConfig as TVRL  # noqa: E402
 from repro_torch.kernels import ssd_scan as tss  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -517,20 +514,6 @@ def test_config_and_param_count_match_reference():
         TT.model_defs(CFG_T))))
     assert smoke == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(
         jax.eval_shape(lambda: JT.init_params(CFG_J, jax.random.PRNGKey(0)))))
-
-
-# ------------------------------------------------------- (g) the refusals
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "phi3.5-moe-42b-a6.6b"])
-def test_hybrid_and_moe_are_still_refused(arch):
-    cfg = ModelConfig(**jreg.get_arch(arch).__dict__)
-    assert cfg.family in ("hybrid", "moe")
-    for fn in (lambda: TT.layer_defs(cfg), cfg.param_count,
-               lambda: TT.init_cache(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(dataclasses.replace(cfg, num_layers=1, d_model=8,
-                                           vocab_size=8))
 
 
 # ---------------------------------------------------------------- the CLIs

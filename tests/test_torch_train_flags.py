@@ -11,6 +11,9 @@ codec architecture (``launch.train``, ``launch.serve``), on the CPU.
   is refused before any process group is joined.
 * ``--profile-dir`` writes the ``--profile-round`` round's trace as
   Chrome-trace JSON; without it the round's table is printed as before.
+* ``--layers N`` cuts the depth at the architecture's width: the engine's
+  layout is the N-layer tree's, not the full depth's, and the banner says
+  so.
 * Both CLIs refuse musicgen-large (frame embeddings, not token ids) with
   a message that says what runs it; the full-width CLI trains with remat,
   ``--smoke`` without, as the reference's.
@@ -148,3 +151,23 @@ def test_new_archs_run_through_both_clis(arch, capsys):
     assert tuple(served.out.shape) == (2, 12)
     out = capsys.readouterr().out
     assert f"arch: {arch}" in out and "remat=False" in out
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-0.5b", 3),
+                                         ("hymba-1.5b", 1)])
+def test_layers_cuts_the_depth(arch, layers, capsys):
+    import dataclasses
+
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.models import param as tparam
+    from repro_torch.models import transformer as T
+    res = t_launch.run(BASE + ["--arch", arch, "--steps", "2", "--layers",
+                               str(layers)])
+    assert f"[depth cut to {layers} layers]" in capsys.readouterr().out
+    cfg = dataclasses.replace(registry.smoke_arch(arch), num_layers=layers)
+    n = sum(x.numel() for x in tm.leaves(tparam.abstract(T.model_defs(cfg))))
+    assert res.engine.spec.size == n
+    assert res.engine.spec.size != t_launch.run(
+        BASE + ["--arch", arch, "--steps", "2"]).engine.spec.size
+    assert np.all(np.isfinite(res.losses))
