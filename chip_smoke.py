@@ -15,6 +15,9 @@
   python3 chip_smoke.py --families  # phases 1, 2 and 11 alone
   python3 chip_smoke.py --families-cpu PATH  # phase 11's CPU runs into PATH
                                            # (the script starts it itself)
+  python3 chip_smoke.py --shards    # phases 1, 2 and 12 alone
+  python3 chip_smoke.py --moe-ranks OUT   # phase 12's (au) ranks (the
+                                           # script launches them itself)
   python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
                                            # training paths alone, the cut
                                            # ones at N of qwen2-0.5b's 24
@@ -462,8 +465,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 9. checkpoints and telemetry (``repro_torch.checkpoint``, ``obs``,
    ``Engine.diagnostics`` through ``launch.train``); every line carries
    the card's name and power limit:
-   - (ag) qwen2-0.5b at full width, W = 2 (one checkpoint is params + Δ,
-     2 × 2 × 1.98 GB; the directory's free space is printed first),
+   - (ag) qwen2-0.5b at full width, ``CKPT_LAYERS`` of its 24 layers
+     (the script's time), W = 2 (one checkpoint is params +
+     Δ, 2 × 2 × 0.78 GB; the directory's free space is printed first),
      batch 8 × seq 64, vrl_sgd + sgd, k = 2, γ = 1e-3, ``--steps 8
      --ckpt D --ckpt-every 4 --metrics --diag``, then ``--resume
      D/ckpt-00000004`` with the same flags: steps 5-8's losses and the
@@ -560,6 +564,46 @@ Phases (each prints a line; any failure raises and exits non-zero):
      clear; 7 vrl_sgd + sgd steps (losses rtol 1e-4, params atol 1e-4, Δ
      atol 1e-4/(k γ)); and (ap)'s first round twice more on the card,
      bitwise equal in losses, params and Δ (the dispatch's determinism).
+
+12. shards — engine row shards on a rank grid, the shard-mapped MoE and
+   the chaos check.  NCCL refuses two ranks on one card, so the
+   grids of world 4 run over gloo through host memory; each rank prints
+   its step wall, spans, collectives by kind and group (calls, bytes),
+   launches and round peak:
+   - (as) qwen2-0.5b at ``SHARD_LAYERS`` of its 24 layers, full width
+     (flat 764,928 × 256; 765,952 rows at shards 2, a multiple of block
+     1024 · 2), through ``launch.train --mesh-grid --shards 2``
+     on (data 2 × shard 2): W = 2, batch 8 × 64, k = 2, 4 steps, vrl_sgd
+     + adam.  Every rank's losses and the last step's save (gathered
+     over both axes into one file) bitwise the one-process run at
+     ``--shards 2``; ``--shards 1`` within 1e-6 · max|p|; each rank's
+     params (1, 382,976, 256); one "state" all-reduce a round over its
+     shard column; fused_local_adam 4, fused_sync_vrl 2 a rank, as one
+     process; Σ Δ as phase 9 bounds it after every sync.
+   - (at) the smoke width on (data 2 × shard 2): SM3 Adam, bf16 mu,
+     ``--compress int8 --overlap --faults crash@1:3,rejoin@1:5``, 8 steps
+     with saves at 4 and 8, then resumed from the step-4 save: losses,
+     launches and both saves bitwise the one-process run at
+     ``--shards 2``; the resumed steps 5-8 and step-8 save bitwise.
+   - (au) ``models.moe_shardmap`` at phi3.5-moe's published widths (d
+     4096, moe_d_ff 6400, 16 experts top-2, no shared experts, fp32,
+     capacity factor E / k) on (data 2 × model 2), 256 tokens a data
+     rank (``chip_smoke.py --moe-ranks OUT`` under the launcher): within
+     1e-5 · max|ref| of ``moe.moe_mlp`` in one process on the same 512
+     tokens (the same call with TF32 products printed beside it),
+     bitwise run to run, three weight gathers and the aux mean over
+     "data" and one output sum over "model" a call.
+   - (av) ``python -m repro_torch.scripts.chaos_smoke --device cuda
+     --world 1 --cpu-init`` (NCCL), a child started at the phase's start:
+     its gate, both final losses, the tolerance and the three streams'
+     events.  It starts from the init a CPU run draws (seed 0): torch's
+     generators differ by device, and the card's own draw is an init
+     under which chaos B blows up (13.60 against the clean run's 6.24
+     on an H100).  The JAX package's CLI blows up from that same start
+     too (62.87 against 6.18 on the CPU, ``tests/chaos_witness.py``):
+     the smoke model's instability at that init, not the port's (from
+     one softened JAX start the port's three runs are the reference
+     CLI's within 1e-7, ``tests/test_torch_chaos.py``).
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -4578,9 +4622,13 @@ def backbone_phase(dev, vu, fa, ss, card) -> list:
 
 # ----------------------------------------------------------------- phase 9
 CKPT_DIR = os.path.join(ROOT, ".chip_smoke_ckpt")   # git-ignored
-CKPT_ARGS = ["--arch", "qwen2-0.5b", "--workers", "2", "--batch", "8",
-             "--seq", "64", "--steps", "8", "--k", "2", "--lr", str(MAIN_LR),
-             "--log-every", "1", "--diag", "--ckpt-every", "4"]
+# (ag), (ah) at 4 of qwen2-0.5b's 24 layers, full width (phase 12 added;
+# at 24 layers the phase took 169.5 s of the script)
+CKPT_LAYERS = 4
+CKPT_ARGS = ["--arch", "qwen2-0.5b", "--layers", str(CKPT_LAYERS),
+             "--workers", "2", "--batch", "8", "--seq", "64", "--steps", "8",
+             "--k", "2", "--lr", str(MAIN_LR), "--log-every", "1", "--diag",
+             "--ckpt-every", "4"]
 CKPT_LAUNCHES = {"fused_local_sgd": 8, "fused_sync_vrl": 4}
 CKPT_RESUMED_LAUNCHES = {"fused_local_sgd": 4, "fused_sync_vrl": 2}
 CKPT_SMOKE = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--batch",
@@ -4698,7 +4746,8 @@ def ckpt_full_width(dev, vu, card, launch) -> str:
         raise AssertionError(f"(ag): resumed stream events {events}")
     phases = read_metrics(m1)[-1]["phases"]
     cli_save = phases["checkpoint"]["total_s"] / phases["checkpoint"]["n"]
-    print(f"[9 ckpt (ag)] qwen2-0.5b W = 2: the resumed steps 5-8 bitwise "
+    print(f"[9 ckpt (ag)] qwen2-0.5b at {CKPT_LAYERS} of 24 layers, W = 2: "
+          f"the resumed steps 5-8 bitwise "
           f"({['%.6f' % x for x in res.losses]}), the step-8 checkpoint "
           f"bitwise ({nbytes / 1e9:.2f} GB compared); launches {n_run} "
           f"uninterrupted, {CKPT_RESUMED_LAUNCHES} resumed; "
@@ -4774,8 +4823,9 @@ def ckpt_reshard(dev, vu, card, launch, path):
     argv[argv.index("--workers") + 1] = "4"
     args = launch.parse_args(argv)
     vrl = launch.vrl_config(args)
-    cfg = (registry.smoke_arch if args.smoke else registry.get_arch)(
-        args.arch)
+    cfg = dataclasses.replace(
+        (registry.smoke_arch if args.smoke else registry.get_arch)(
+            args.arch), num_layers=args.layers)
     bundle = make_train_step(cfg, vrl, remat=not args.smoke, device=dev,
                              timed=dev.type == "cuda")
     eng = bundle.engine
@@ -4967,7 +5017,8 @@ def ckpt_phase(dev, vu, card) -> None:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     os.makedirs(CKPT_DIR)
     usage = shutil.disk_usage(CKPT_DIR)
-    need = 3 * 2 * 2 * FULL[1] * FULL[2] * 4        # three W = 2 saves
+    _, rows, lanes = QWEN_CUT_LAYOUTS[CKPT_LAYERS]
+    need = 3 * 2 * 2 * rows * lanes * 4             # three W = 2 saves
     print(f"[9 ckpt] from {t9:.1f} s of the script; {CKPT_DIR}: "
           f"{usage.free / 1e9:.1f} GB free of {usage.total / 1e9:.1f} GB, "
           f"(ag) writes {need / 1e9:.1f} GB; {card}", flush=True)
@@ -5870,6 +5921,423 @@ def families_phase(dev, vu, card) -> None:
           f"{time.time() - START:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 12
+# Row shards on a rank grid, the shard-mapped MoE and the chaos check.  NCCL
+# refuses two ranks on one card, so the (data, shard) and (data, model)
+# grids run over gloo through host memory, as (z2) and (z3) do.
+SHARD_LAYERS = 4                # (as): qwen2-0.5b at 4 of its 24 layers
+SHARD_WORLD = 4                 # (as)-(au): data 2 x shard (model) 2
+AS_STEPS = 4
+AS_ARGS = ["--arch", "qwen2-0.5b", "--layers", str(SHARD_LAYERS),
+           "--workers", "2", "--batch", "8", "--seq", "64", "--steps",
+           str(AS_STEPS),
+           "--k", "2", "--lr", str(MAIN_LR), "--inner-optimizer", "adam",
+           "--log-every", "1"]
+AS_LAUNCHES = {"fused_local_adam": 4, "fused_sync_vrl": 2}
+AT_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--batch",
+           "2", "--seq", "32", "--steps", "8", "--k", "2", "--lr", str(LR),
+           "--inner-optimizer", "adam", "--sm3", "--moment-dtype",
+           "bfloat16", "--compress", "int8", "--overlap", "--faults",
+           "crash@1:3,rejoin@1:5", "--log-every", "1", "--ckpt-every", "4",
+           "--shards", "2"]
+# (au): phi3.5-moe's published widths, 16 experts top-2, no shared experts,
+# fp32, capacity factor E / k (no drop); 256 tokens a data rank
+AU_TOKENS = 512
+AU_SEED = 0
+AU_RTOL = 1e-5                  # × max|ref|: fp32 rounding, not TF32
+AU_TIMEOUT = 600
+
+
+def shard_cli(tag, argv, card, world=SHARD_WORLD) -> list:
+    """``launch.train --mesh-grid`` under the launcher at gloo ``world``:
+    each rank's JSON (and the log), its backend and device checked, its
+    step wall, spans, collectives by kind and group, kernel launches and
+    round peak printed."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    ranks = ranks_result(tag, start_ranks(argv, world, out, log), out, log,
+                         world)
+    shutil.rmtree(tmp, ignore_errors=True)
+    lines = ranks[0]["log"].splitlines()
+    for head in ("mesh: ", "engine: "):
+        print(f"[12 shards {tag}] "
+              f"{next(x for x in lines if x.startswith(head))}", flush=True)
+    for r, res in enumerate(ranks):
+        if (res["backend"], res["device"]) != ("gloo", "cuda:0"):
+            raise AssertionError(f"{tag}: rank {r} ran {res['backend']} on "
+                                 f"{res['device']}")
+        spans = {k: [round(x, 1) for x in v]
+                 for k, v in res["phases_ms"].items()}
+        print(f"[12 shards {tag}] rank {r}: step wall "
+              f"{1e3 * res['wall_s'] / max(len(res['losses']), 1):.1f} ms; "
+              f"spans (device ms) {json.dumps(spans)}; collectives "
+              f"{json.dumps(res['collectives'])}; launches "
+              f"{ {k: v for k, v in res['kernels'].items() if v} }; round "
+              f"peak {res['round_peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    return ranks
+
+
+def same_ranks(tag, ranks, one, launches) -> None:
+    """Every rank's losses, averaged-model losses and kernel launches
+    those of the one-process run ``one`` (with its ``launches``)."""
+    for r, res in enumerate(ranks):
+        if (res["losses"], res["avg_model_losses"]) != (
+                one.losses, one.avg_model_losses):
+            raise AssertionError(f"{tag}: rank {r} losses {res['losses']} "
+                                 f"vs one process {one.losses}")
+        check_launches(f"{tag} rank {r}", res["kernels"], launches)
+
+
+def as_path(vu, card, launch) -> None:
+    """(as): qwen2-0.5b at ``SHARD_LAYERS`` layers, full width, vrl_sgd +
+    adam through ``launch.train --mesh-grid --shards 2`` on gloo (data 2 ×
+    shard 2), against the one-process runs at --shards 2 (bitwise: the
+    losses and the last step's save, which the mesh gathers into one file)
+    and 1 (1e-6 · max|p|)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import flat
+    _, rows, lanes = QWEN_CUT_LAYOUTS[SHARD_LAYERS]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_as_")
+    dm, d1 = os.path.join(tmp, "mesh"), os.path.join(tmp, "one")
+    save = ["--shards", "2", "--ckpt-every", str(AS_STEPS), "--ckpt"]
+    try:
+        t0 = time.time()
+        ranks = shard_cli("(as)", AS_ARGS + save + [dm], card)
+        t_mesh = time.time() - t0
+        vu.reset_launches()
+        one = launch.run(AS_ARGS + save + [d1])
+        check_launches("(as) one process", dict(vu.LAUNCHES), AS_LAUNCHES)
+        same_ranks("(as)", ranks, one, AS_LAUNCHES)
+        t0 = time.time()
+        nbytes = same_checkpoint("(as) final state", ckpt.step_dir(
+            dm, AS_STEPS), ckpt.step_dir(d1, AS_STEPS))
+        t_cmp = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # rows pad to a multiple of block · shards: 765,952 at block 1024
+    block = [1, one.engine.spec.rows // 2, lanes]
+    rounds = len(one.losses) // 2
+    for r, res in enumerate(ranks):
+        if res["state_shapes"]["params"] != block:
+            raise AssertionError(f"(as): rank {r} params block "
+                                 f"{res['state_shapes']['params']}, "
+                                 f"expected {block}")
+        state = {g: (c["calls"], c["async"])
+                 for g, c in res["collectives"]["state"].items()}
+        if state != {"pod+data": (rounds, 0)}:
+            raise AssertionError(f"(as): rank {r} model-state all-reduces "
+                                 f"{state}: one a round over its shard "
+                                 f"column expected")
+        limit, max_d = ckpt_bound(types.SimpleNamespace(**res))
+        worst = max(s for _, s, _ in res["invariant"])
+        if not (len(res["invariant"]) == rounds and worst <= limit):
+            raise AssertionError(f"(as): rank {r} Σ_i Δ_i {res['invariant']}"
+                                 f" against {limit}")
+    one1 = launch.run(AS_ARGS)
+    a, b = (tm_leaves(flat.unflatten_stacked(r.engine.spec, r.state.params))
+            for r in (one, one1))
+    scale = max(amax(x) for x in b)
+    diff = max(amax(x - y) for x, y in zip(a, b))
+    if not diff <= 1e-6 * scale:
+        raise AssertionError(f"(as): shards 2 vs 1 max|Δp| {diff} > 1e-6 · "
+                             f"{scale}")
+    fwd = ranks[0]["collectives"]["forward"]["shard"]
+    walls = ", ".join("%.1f" % (1e3 * r["wall_s"] / len(r["losses"]))
+                      for r in ranks)
+    peaks = ", ".join("%.2f" % (r["round_peak_bytes"] / 2**30) for r in ranks)
+    print(f"[12 shards (as)] qwen2-0.5b at {SHARD_LAYERS} of 24 layers "
+          f"(flat {rows:,} x {lanes}; {one.engine.spec.rows:,} rows at "
+          f"--shards 2), W = 2, vrl_sgd+adam: the four ranks' "
+          f"losses {['%.6f' % x for x in one.losses]} and gathered final "
+          f"state ({nbytes / 1e9:.2f} GB, compared in {t_cmp:.1f} s) "
+          f"bitwise the one-process run at --shards 2 (each rank "
+          f"{block}, one state all-reduce a round over its shard column, "
+          f"launches {AS_LAUNCHES} as one process); --shards 1 within "
+          f"{diff:.3e} <= 1e-6 · max|p| {scale:.3e}; Σ_i Δ_i within "
+          f"{worst:.3e} after every sync; the rows' all-gather "
+          f"{fwd['bytes'] / fwd['calls'] / 1e6:.1f} MB a rank a step "
+          f"({fwd['calls']} calls); step wall: gloo ranks {walls} ms, one "
+          f"process {1e3 * one.wall_s / len(one.losses):.1f} ms "
+          f"(shards 2), {1e3 * one1.wall_s / len(one1.losses):.1f} ms "
+          f"(shards 1); round peak: ranks {peaks} GiB, one process "
+          f"{one.round_peak_bytes / 2**30:.2f} GiB; the launch "
+          f"{t_mesh:.1f} s; {card}", flush=True)
+    del one, one1, a, b
+    free()
+
+
+def at_path(vu, card, launch) -> None:
+    """(at): the smoke width with SM3 Adam, bf16 mu, int8, overlap and a
+    crash/rejoin on gloo (data 2 × shard 2): the run and its save bitwise
+    the one-process run at --shards 2, and the run resumed from its
+    step-4 save bitwise its uninterrupted steps 5-8."""
+    from repro_torch import checkpoint as ckpt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_at_")
+    da, db, d1 = (os.path.join(tmp, n) for n in ("mesh", "resumed", "one"))
+    try:
+        full = shard_cli("(at) uninterrupted", AT_ARGS + ["--ckpt", da],
+                         card)
+        res = shard_cli("(at) resumed", AT_ARGS + [
+            "--ckpt", db, "--resume", ckpt.step_dir(da, 4)], card)
+        vu.reset_launches()
+        one = launch.run(AT_ARGS + ["--ckpt", d1])
+        launches = {k: v for k, v in vu.LAUNCHES.items() if v}
+        same_ranks("(at)", full, one, launches)
+        nbytes = sum(same_checkpoint(f"(at) step {t}", ckpt.step_dir(da, t),
+                                     ckpt.step_dir(d1, t)) for t in (4, 8))
+        nbytes += same_checkpoint("(at) resumed step 8",
+                                  ckpt.step_dir(db, 8), ckpt.step_dir(da, 8))
+        for r, (a, b) in enumerate(zip(full, res)):
+            if b["losses"] != a["losses"][4:]:
+                raise AssertionError(f"(at): rank {r} resumed losses "
+                                     f"{b['losses']} vs {a['losses'][4:]}")
+        print(f"[12 shards (at)] smoke qwen2-0.5b W = 2, adam+sm3, bf16 mu, "
+              f"int8, overlap, crash@1:3 / rejoin@1:5 at --shards 2: the "
+              f"ranks' losses {['%.4f' % x for x in one.losses]}, launches "
+              f"{launches} bitwise one process's; the step-4 and step-8 "
+              f"saves bitwise one process's, the resumed run's step-8 save "
+              f"and losses bitwise the uninterrupted run's "
+              f"({nbytes / 1e6:.2f} MB compared); {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def au_config():
+    """phi3.5-moe's widths, no shared experts, capacity factor E / k."""
+    from repro_torch.configs import registry
+    cfg = registry.get_arch("phi3.5-moe-42b-a6.6b")
+    return dataclasses.replace(
+        cfg, num_shared_experts=0,
+        capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def au_inputs(cfg, dev) -> tuple:
+    """The layer's whole fp32 weights and the (T, d) tokens, drawn on the
+    card from ``AU_SEED`` (the same on every rank)."""
+    g = torch.Generator(device=dev).manual_seed(AU_SEED)
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    p = {"router": draw((d, e), d ** -0.5),
+         "w_gate": draw((e, d, ff), d ** -0.5),
+         "w_up": draw((e, d, ff), d ** -0.5),
+         "w_down": draw((e, ff, d), ff ** -0.5)}
+    return p, draw((AU_TOKENS, d), 1.0)
+
+
+def moe_rank_run(out: str) -> int:
+    """(au)'s rank, under ``torch.distributed.run`` (gloo): the layer's
+    blocks on a (data 2 × model 2) grid, two calls (bitwise run to run),
+    its output gathered to rank 0, which runs ``moe.moe_mlp`` on the
+    whole weights and tokens; a JSON per rank."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+    from repro_torch.comm import collectives as coll
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.models import moe_shardmap as ms
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo")
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+    rank, cfg = mesh.rank, au_config()
+    p, x = au_inputs(cfg, dev)
+    blocks = ms.shard_params(p, mesh)
+    xl = ms.shard_tokens(x, mesh).contiguous()
+    del p, x
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            coll.reset_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y, aux = ms.moe_mlp_shardmap(cfg, blocks, xl, mesh)
+            torch.cuda.synchronize(dev)
+            runs.append((y, float(aux), 1e3 * (time.perf_counter() - t0),
+                         json.loads(json.dumps(coll.COUNTS))))
+        # the same call with TF32 products: what the limit must tell apart
+        torch.backends.cuda.matmul.allow_tf32 = True
+        y_tf32 = ms.moe_mlp_shardmap(cfg, blocks, xl, mesh)[0].cpu()
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"rank": rank, "coords": mesh.index(("data", "model")),
+           "bitwise": bool(torch.equal(runs[0][0], runs[1][0])
+                           and runs[0][1] == runs[1][1]),
+           "ms": [r[2] for r in runs], "counts": runs[0][3],
+           "aux": runs[0][1],
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "stored_bytes": sum(blocks[k].numel() * 4
+                               for k in ("w_gate", "w_up", "w_down"))}
+    y = runs[0][0].cpu()
+    del runs, blocks
+    free()
+    parts = [torch.empty_like(y) for _ in range(4)] if rank == 0 else None
+    dist.gather(y, parts, dst=0)
+    parts_tf32 = ([torch.empty_like(y) for _ in range(4)] if rank == 0
+                  else None)
+    dist.gather(y_tf32, parts_tf32, dst=0)
+    if rank == 0:
+        p, x = au_inputs(cfg, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y_ref, aux_ref = moe.moe_mlp(cfg, p, x)
+            torch.cuda.synchronize(dev)
+        rec["ref_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["ref_peak"] = torch.cuda.max_memory_allocated(dev)
+        y_ref = y_ref.cpu()
+        got = torch.cat([parts[0], parts[2]])      # data 0, data 1
+        rec["models_agree"] = bool(torch.equal(parts[0], parts[1])
+                                   and torch.equal(parts[2], parts[3]))
+        rec["err"] = float((got - y_ref).abs().max())
+        rec["err_tf32"] = float((torch.cat([parts_tf32[0], parts_tf32[2]])
+                                 - y_ref).abs().max())
+        rec["scale"] = float(y_ref.abs().max())
+        rec["aux_ref"] = float(aux_ref)
+    with open(f"{out}.rank{rank}", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def au_path(card) -> None:
+    """(au): ``moe_mlp_shardmap`` at phi3.5-moe's widths on gloo (data 2 ×
+    model 2), 256 tokens a data rank, against ``moe.moe_mlp`` in one
+    process on the same 512 tokens."""
+    cfg = au_config()
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    whole = 3 * e * d * ff * 4
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_au_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(SHARD_WORLD), os.path.abspath(__file__),
+             "--moe-ranks", out], stdout=f, stderr=subprocess.STDOUT,
+            cwd=ROOT, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=AU_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        stop_ranks(proc)
+        rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"(au): the ranks exited {rc}: {text[-4000:]}")
+    ranks = [json.load(open(f"{out}.rank{r}")) for r in range(SHARD_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    block = whole // SHARD_WORLD
+    for r, rec in enumerate(ranks):
+        # three weight gathers (this rank's blocks) and the aux mean over
+        # "data", the output sum over "model"
+        want = {"data": {"calls": 4, "bytes": block + 4, "async": 0},
+                "model": {"calls": 1, "bytes": AU_TOKENS // 2 * d * 4,
+                          "async": 0}}
+        if rec["counts"] != {"moe": want}:
+            raise AssertionError(f"(au): rank {r} collectives "
+                                 f"{rec['counts']}, expected {want}")
+        if not rec["bitwise"]:
+            raise AssertionError(f"(au): rank {r} not bitwise run to run")
+        if rec["stored_bytes"] != block:
+            raise AssertionError(f"(au): rank {r} stores "
+                                 f"{rec['stored_bytes']} B of weights")
+        print(f"[12 shards (au)] rank {r} (data, model) {rec['coords']}: "
+              f"{', '.join('%.1f' % x for x in rec['ms'])} ms a call "
+              f"(two), collectives {json.dumps(rec['counts'])}, peak "
+              f"{rec['peak'] / 2**30:.2f} GiB", flush=True)
+    tol = AU_RTOL * r0["scale"]
+    if not (r0["models_agree"] and r0["err"] <= tol):
+        raise AssertionError(f"(au): max|y - moe_mlp| {r0['err']} > {tol}, "
+                             f"or the model ranks' outputs differ")
+    print(f"[12 shards (au)] phi3.5-moe widths (d {d}, moe_d_ff {ff}, {e} "
+          f"experts top-{cfg.experts_per_token}, capacity factor "
+          f"{cfg.capacity_factor:g}, fp32) on gloo (data 2 x model 2), "
+          f"{AU_TOKENS // 2} tokens a data rank: max|y - moe_mlp| "
+          f"{r0['err']:.3e} <= 1e-5 · max|ref| {tol:.3e} (the same call "
+          f"with TF32 products {r0['err_tf32']:.3e}, "
+          f"{'outside' if r0['err_tf32'] > tol else 'INSIDE'} the limit), "
+          f"bitwise run to run; aux {r0['aux']:.6f} (mean over the data blocks) vs the "
+          f"one-process {r0['aux_ref']:.6f} (over all 512 tokens); expert "
+          f"weights {whole / 1e9:.2f} GB whole, {block / 1e9:.2f} GB a rank "
+          f"stored, {2 * block / 1e9:.2f} GB gathered; moe_mlp in one "
+          f"process {r0['ref_ms']:.1f} ms, peak {r0['ref_peak'] / 2**30:.2f} "
+          f"GiB; the launch {time.time() - t0:.1f} s; {card}", flush=True)
+
+
+def start_chaos():
+    """(av): ``python -m repro_torch.scripts.chaos_smoke --device cuda
+    --world 1 --cpu-init`` (NCCL; from the CPU's draw of the init), a
+    child started at the phase's start -> (process, log path,
+    directory)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    log = os.path.join(tmp, "log.txt")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.scripts.chaos_smoke",
+             "--device", "cuda", "--world", "1", "--cpu-init",
+             "--metrics-dir", os.path.join(tmp, "metrics")], stdout=f,
+            stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+            start_new_session=True)
+    return proc, log, tmp
+
+
+def av_result(chaos, card) -> None:
+    """(av): the chaos check's exit, its losses and tolerance, and the
+    three streams' events."""
+    proc, log, _ = chaos
+    try:
+        rc = proc.wait(timeout=AU_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        stop_ranks(proc)
+        rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0 or "chaos smoke OK" not in text:
+        raise AssertionError(f"(av): the chaos check exited {rc}: "
+                             f"{text[-4000:]}")
+    line = next(x for x in text.splitlines()
+                if x.startswith("clean avg_model_loss"))
+    events = json.loads(next(x for x in text.splitlines()
+                             if x.startswith("chaos events: "))[14:])
+    kernels = re.findall(r"kernels: (\{[^}]*\})", text)
+    print(f"[12 shards (av)] python -m repro_torch.scripts.chaos_smoke "
+          f"--device cuda --world 1 --cpu-init (NCCL): {line}; events "
+          f"{json.dumps(events)}; launches per run "
+          f"{[{k: v for k, v in json.loads(s).items() if v} for s in kernels]}"
+          f"; {card}", flush=True)
+
+
+def shards_phase(dev, vu, card) -> None:
+    """Phase 12: (as)-(au) on the card in turn, (av) beside them."""
+    from repro_torch.launch import train as launch
+    t12 = time.time() - START
+    print(f"[12 shards] from {t12:.1f} s of the script; reckoned: (as) "
+          f"~90 s (four gloo ranks, 4 steps through the host, then two "
+          f"one-process runs), (at) ~50 s (two launches), (au) ~40 s, (av) "
+          f"~80 s beside them: ~180 s; {card}", flush=True)
+    free()
+    chaos = start_chaos()
+    try:
+        as_path(vu, card, launch)
+        at_path(vu, card, launch)
+        au_path(card)
+        av_result(chaos, card)
+    finally:
+        stop_ranks(chaos[0])
+        shutil.rmtree(chaos[2], ignore_errors=True)
+    print(f"[12 shards] {time.time() - START - t12:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5885,6 +6353,8 @@ def main() -> int:
         return elastic_cpu_runs(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--families-cpu"]:
         return families_cpu_runs(sys.argv[2])
+    if sys.argv[1:2] == ["--moe-ranks"]:
+        return moe_rank_run(sys.argv[2])
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -5918,6 +6388,9 @@ def main() -> int:
         return 0
     if "--families" in sys.argv[1:]:
         families_phase(dev, vu, card)
+        return 0
+    if "--shards" in sys.argv[1:]:
+        shards_phase(dev, vu, card)
         return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
@@ -6175,6 +6648,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 11 families
     families_phase(dev, vu, card)
+
+    # ------------------------------------------------------ 12 shards
+    shards_phase(dev, vu, card)
 
     kernels = []
     for name in KERNELS:

@@ -1,16 +1,23 @@
-"""The worker axis's collectives over ``torch.distributed``.
+"""The engine's rank grid and its collectives over ``torch.distributed``.
 
 A ``WorkerMesh`` takes the place of the reference's JAX ``Mesh`` over the
-engine's worker axes: the ranks of the default process group laid out
-pod-major over a ("pod", "data") rank grid, each holding one contiguous
-block of the worker grid, with a process group over both axes and one
-per axis (``launch.mesh.make_engine_mesh`` builds it).
+engine's axes: the ranks of the default process group laid out row-major
+over a ("pod", "data") rank grid, each holding one contiguous block of the
+worker grid, with an optional trailing "shard" axis over which each
+worker rank's buffer rows split (``EngineConfig.shards``); a process group over the whole grid, over both worker
+axes and over each one within a shard column, and over the shard axis
+within a worker rank (``launch.mesh.make_engine_mesh`` builds it).  The
+same class carries other grids under their own axis names (the
+shard-mapped MoE's ("data", "model"), ``models.moe_shardmap``).
 
-Every collective goes through ``WorkerMesh.all_reduce`` (or, for a
-checkpoint, ``WorkerMesh.gather``), which counts its calls, bytes and
-asynchronous issues per kind and group in ``COUNTS``.  The kinds:
+Every collective goes through ``WorkerMesh.all_reduce``,
+``all_gather`` or, for a checkpoint, ``gather`` (or ``count`` beside an
+autograd-aware one), which counts its calls, bytes and asynchronous
+issues per kind and group in ``COUNTS``.  The kinds:
 
   * "state" — the model-state means of a round (its communication);
+  * "forward" — a row-sharded engine's parameter rows, gathered over the
+    shard group before every forward;
   * "scalar" — the reported loss;
   * "eval" — the evaluation model x̂, the log's sums and the diagnostics
     pass, outside the round;
@@ -19,14 +26,18 @@ asynchronous issues per kind and group in ``COUNTS``.  The kinds:
   * "membership" — the repairs between rounds of an elastic run
     (``Engine.set_membership``'s global sums, ``recenter_drift``'s means);
   * "clients" — a client store's scatter: every rank's cohort rows
-    gathered to every rank's copy of the store.
+    gathered to every rank's copy of the store;
+  * "moe" — the shard-mapped MoE layer's weight gathers, output sum and
+    aux mean.
 
 ``worker_sum`` and ``worker_mean`` are the reductions over the workers of
 a buffer, one rule for the engine and the log: a local reduction over the
 buffer's worker dims and, on a mesh, one ``all_reduce(SUM)`` over the
 ranks of the axes those dims span — the reference's on-mesh
-``psum(sum) / total``.  Without a mesh (``mesh=None``) they are the plain
-``sum`` and ``mean`` and communicate nothing.
+``psum(sum) / total``.  On a row-sharded grid the worker groups lie within
+a shard column, so each rank reduces its own rows.  Without a mesh
+(``mesh=None``) they are the plain ``sum`` and ``mean`` and communicate
+nothing.
 
 The masked mean of an elastic run (``worker_mean(..., keep=, count=)``)
 runs only while some worker is out (``core.engine`` takes the plain mean
@@ -45,7 +56,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("pod", "data")
+AXES = ("pod", "data")              # the engine's worker axes
+SHARD = "shard"                     # the engine's row-shard axis
+ENGINE_AXES = AXES + (SHARD,)
 # kind -> group label -> {"calls", "bytes", "async"}
 COUNTS: Dict[str, Dict[str, Dict[str, int]]] = {}
 
@@ -54,79 +67,116 @@ def reset_counts() -> None:
     COUNTS.clear()
 
 
-def canonical(axes: Sequence[str]) -> Tuple[str, ...]:
-    """The worker axes in mesh order; an unknown name is refused."""
-    bad = [a for a in axes if a not in AXES]
+def canonical(axes: Sequence[str],
+              names: Sequence[str] = ENGINE_AXES) -> Tuple[str, ...]:
+    """``axes`` in the order of the mesh's axes ``names``; an unknown name
+    is refused."""
+    bad = [a for a in axes if a not in names]
     if bad or not axes:
-        raise ValueError(f"worker axes {tuple(axes)}: the mesh's axes are "
-                         f"{AXES}")
-    return tuple(a for a in AXES if a in axes)
+        raise ValueError(f"axes {tuple(axes)} are not among the mesh's "
+                         f"axes {tuple(names)} (the worker axes, then the "
+                         f"shard axis)")
+    return tuple(a for a in names if a in axes)
 
 
 class WorkerMesh:
-    """This rank's place in the rank grid and the groups over its axes.
+    """This rank's place in a rank grid and the process groups over its
+    axes.
 
-    ``shape``: (p_r, d_r) ranks along ("pod", "data"); ``coords``: this
-    rank's (pod, data) index, rank = pod · d_r + data; ``groups``: the
-    process group of each axis subset (``canonical`` order)."""
+    ``axes``: the grid's axis names, by default the engine's ("pod",
+    "data") worker axes, then "shard" when ``shape`` has a third entry;
+    ``shape``: the ranks along each; ranks are laid out row-major, the last
+    axis fastest (the engine's rank = (pod · d_r + data) · s_r + shard, so
+    a worker rank's shard peers are adjacent); ``coords``: this rank's
+    index on each axis; ``groups``: the process group of each axis subset
+    (``canonical`` order) that runs a collective.  The engine's grid has
+    the whole grid, each worker axis and both worker axes within this
+    rank's shard column, and, with a shard axis, the shard group within
+    this rank's worker rank (``launch.mesh.make_engine_mesh``).  Other
+    grids name their own axes (the shard-mapped MoE's ("data",
+    "model"))."""
 
-    axes = AXES
-
-    def __init__(self, shape: Tuple[int, int], rank: int,
-                 groups: Dict[Tuple[str, ...], object]):
-        self.shape = tuple(shape)
+    def __init__(self, shape: Sequence[int], rank: int,
+                 groups: Dict[Tuple[str, ...], object],
+                 axes: Optional[Sequence[str]] = None):
+        self.shape = tuple(int(s) for s in shape)
+        self.axes = (tuple(axes) if axes is not None
+                     else ENGINE_AXES[:len(self.shape)])
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"a rank grid of shape {self.shape} over axes "
+                             f"{self.axes}")
         self.rank = rank
-        self.coords = divmod(rank, shape[1])
+        self.coords = tuple(int(c) for c in
+                            np.unravel_index(rank, self.shape))
         self.groups = groups
 
+    def canonical(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        return canonical(axes, self.axes)
+
     def size(self, axes: Sequence[str] = AXES) -> int:
-        """Ranks along ``axes``."""
-        return math.prod(self.shape[AXES.index(a)] for a in canonical(axes))
+        """Ranks along ``axes`` (default the worker axes)."""
+        return math.prod(self.shape[self.axes.index(a)]
+                         for a in self.canonical(axes))
 
     def index(self, axes: Sequence[str] = AXES) -> Tuple[int, ...]:
         """This rank's index on each of ``axes``, in the order given."""
-        canonical(axes)
-        return tuple(self.coords[AXES.index(a)] for a in axes)
+        self.canonical(axes)
+        return tuple(self.coords[self.axes.index(a)] for a in axes)
+
+    @property
+    def shards(self) -> int:
+        """Ranks along the shard axis (1 without one)."""
+        return self.size((SHARD,)) if SHARD in self.axes else 1
+
+    def group(self, axes: Optional[Sequence[str]] = None):
+        """The process group over ``axes`` (default: the whole grid)."""
+        return self.groups[self.axes if axes is None
+                           else self.canonical(axes)]
+
+    def count(self, tensor: torch.Tensor, axes: Optional[Sequence[str]],
+              kind: str, async_op: bool = False) -> None:
+        """Count one collective of ``tensor``'s bytes over ``axes`` (the
+        whole grid for None) under ``kind``."""
+        label = "+".join(self.axes if axes is None else self.canonical(axes))
+        rec = COUNTS.setdefault(kind, {}).setdefault(
+            label, {"calls": 0, "bytes": 0, "async": 0})
+        rec["calls"] += 1
+        rec["bytes"] += tensor.numel() * tensor.element_size()
+        rec["async"] += int(async_op)
 
     def all_reduce(self, tensor: torch.Tensor, axes: Sequence[str] = AXES,
                    *, kind: str = "state", op=None, async_op: bool = False):
         """``dist.all_reduce`` of ``tensor`` in place over the group of
         ``axes`` (``op`` default SUM), counted under ``kind``; returns the
         work handle when ``async_op``."""
-        axes = canonical(axes)
-        label = "+".join(axes)
-        rec = COUNTS.setdefault(kind, {}).setdefault(
-            label, {"calls": 0, "bytes": 0, "async": 0})
-        rec["calls"] += 1
-        rec["bytes"] += tensor.numel() * tensor.element_size()
-        rec["async"] += int(async_op)
+        self.count(tensor, axes, kind, async_op)
         return dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None
-                               else op, group=self.groups[axes],
+                               else op, group=self.group(axes),
                                async_op=async_op)
 
-    def all_gather(self, tensor: torch.Tensor, *, kind: str) -> torch.Tensor:
+    def all_gather(self, tensor: torch.Tensor, *, kind: str,
+                   axes: Optional[Sequence[str]] = None) -> torch.Tensor:
         """Every rank's ``tensor`` (same shape on all) stacked in rank order
-        over the whole grid, on every rank: one ``dist.all_gather`` counted
-        under ``kind`` (through the host under gloo)."""
-        rec = COUNTS.setdefault(kind, {}).setdefault(
-            "+".join(AXES), {"calls": 0, "bytes": 0, "async": 0})
-        rec["calls"] += 1
-        rec["bytes"] += tensor.numel() * tensor.element_size()
-        x = tensor.to(wire_device(self))
-        out = [torch.empty_like(x) for _ in range(self.size())]
-        dist.all_gather(out, x, group=self.groups[AXES])
-        return torch.stack(out).to(tensor.device)
+        over the ranks of ``axes`` (default the whole grid), on each of
+        them: one counted all-gather (through the host under gloo)."""
+        self.count(tensor, axes, kind)
+        group = self.group(axes)
+        x = tensor.to(wire_device(self)).contiguous()
+        out = torch.empty((dist.get_world_size(group), *x.shape),
+                          dtype=x.dtype, device=x.device)
+        if dist.get_backend(group) == "nccl":
+            dist.all_gather_into_tensor(out, x, group=group)
+        else:
+            dist.all_gather(list(out.unbind(0)), x, group=group)
+        return out.to(tensor.device)
 
     def gather(self, tensor: torch.Tensor, gather_list, *,
                kind: str = "checkpoint") -> None:
         """``dist.gather`` of every rank's ``tensor`` (same shape on all)
         into rank 0's ``gather_list`` (None elsewhere), in rank order over
         the whole grid, counted under ``kind``."""
-        rec = COUNTS.setdefault(kind, {}).setdefault(
-            "+".join(AXES), {"calls": 0, "bytes": 0, "async": 0})
-        rec["calls"] += 1
-        rec["bytes"] += tensor.numel() * tensor.element_size()
-        dist.gather(tensor, gather_list, dst=0, group=self.groups[AXES])
+        self.count(tensor, None, kind)
+        dist.gather(tensor, gather_list, dst=0, group=self.group())
 
 
 class PendingMean(NamedTuple):
@@ -216,7 +266,7 @@ def wire_device(mesh) -> torch.device:
     """Where a tensor made for one of ``mesh``'s collectives lives: the
     card under NCCL, the host under gloo."""
     return (torch.device("cuda", torch.cuda.current_device())
-            if dist.get_backend(mesh.groups[AXES]) == "nccl"
+            if dist.get_backend(mesh.group()) == "nccl"
             else torch.device("cpu"))
 
 
@@ -226,6 +276,6 @@ def global_reduce(mesh, x: float, op=None) -> float:
     if mesh is None:
         return x
     t = torch.tensor(x, device=wire_device(mesh))
-    mesh.all_reduce(t, kind="eval",
+    mesh.all_reduce(t, mesh.axes, kind="eval",
                     op=dist.ReduceOp.MAX if op is None else op)
     return t.item()

@@ -137,9 +137,12 @@ class EngineConfig:
     the whole buffer and ignore ``block``; it only decides the row padding,
     so the port's layout is the reference's.  ``shards`` pads rows to a
     multiple of ``block * shards`` and gives SM3's lane stat one row per
-    shard's row span, as the reference does; the port places nothing on a
-    mesh (there is no ``shard_axis`` yet), so it is layout only, and
-    ``shards=1`` is the unsharded layout.  ``round_scan`` is read by the
+    shard's row span, as the reference does.  On a mesh with a "shard"
+    axis of ``shards`` ranks (``launch.train --mesh-grid --shards S``)
+    each rank holds one block of R / S rows of every buffer,
+    and the round's worker mean is a per-shard all-reduce; without a mesh,
+    or on one without the axis, the padding is layout only.  ``shards=1``
+    is the unsharded layout.  ``round_scan`` is read by the
     launch driver alone: True trains round by round (``round_step``),
     False step by step (``train_step``, the reference's ``--no-round``).
     """

@@ -50,8 +50,25 @@ level 2 through the flat one over the pod rows against a global one.
 
 SM3-factored Adam (``sm3=True``) replaces the dense (W, R, C) nu with a
 (W, R, 1) row stat and a (W, S, C) lane stat, one lane row per shard span
-of ``EngineConfig.shards`` (layout only: rows pad to a multiple of
-``block * shards``, nothing is placed on a mesh).
+of ``EngineConfig.shards`` (rows pad to a multiple of ``block * shards``).
+
+Row shards (``EngineConfig.shards`` S > 1 on a mesh with a "shard" axis of
+S ranks, ``sharding.specs.engine_shard_axis``; ``RowShards``): each rank
+holds rows [s·R/S, (s+1)·R/S) of its workers' buffers — params, Δ, B,
+moments (SM3's lane stat its shard's one row), EF residuals and
+references, the center, overlap pend, the hierarchy's Δ2 — and the update
+kernels take those (W_l, R/S, C) buffers as they are.  Every worker mean
+runs over the worker group of the rank's shard column: one counted
+"state" all-reduce a round of 1/S of the bytes, none in the local steps,
+as the reference's per-shard all-reduce.  The forward needs every row:
+``gather_params`` gathers them over the shard group into a transient
+(W_l, R, C) buffer (counted "forward"; the train loop calls it before each
+step's forward), ``own_rows`` cuts a rank's rows out of a full gradient;
+``local_step`` takes a gradient tensor of the rank's rows as it comes and
+cuts a gradient tree of every row.
+The diagnostics' and the guard's scalars reduce over every rank (the
+reference's ``_gsum`` / ``_per_worker`` over the shard axis too).
+Without a mesh, or on one without the axis, the shards are layout only.
 
 The port runs every flat algorithm (vrl_sgd, local_sgd, ssgd, easgd,
 stl_sgd, bvr_l_sgd) and hier_vrl_sgd with the sgd, momentum and adam
@@ -114,6 +131,7 @@ from repro_torch.core.types import (CommState, FlatWorkerState,
                                     MemberState, OverlapState, WorkerState)
 from repro_torch.kernels import vrl_update as vu
 from repro_torch.optim import optimizers as opt_mod
+from repro_torch.sharding import specs as sharding_specs
 
 
 # ===================================================================== specs
@@ -325,13 +343,56 @@ def _misses(cfg: VRLConfig, axis_index: tuple = ()) -> Callable:
                              axis_index=tuple(axis_index))
 
 
-def _check_mesh(cfg: VRLConfig, mesh) -> None:
-    """Reject what the port cannot run on a mesh."""
-    if mesh is not None and cfg.engine.shards > 1:
-        raise ValueError(
-            "EngineConfig.shards > 1 with a mesh: the port's row shards are "
-            "layout only, and placing them on ranks needs an all-gather "
-            "before every forward (ROADMAP Queue 1); use shards=1 on a mesh")
+class RowShards(NamedTuple):
+    """Where this rank's rows of the flat layout lie: ``axis``, the mesh
+    axis the rows split over (None: every rank holds all R rows); ``count``
+    its ranks S; ``index`` this rank's s.  The rank holds rows [s·R/S,
+    (s+1)·R/S) of every buffer (``flat.make_spec`` pads R to a multiple of
+    block · S)."""
+
+    axis: Optional[str]
+    count: int
+    index: int
+    mesh: Any
+
+    def own(self, buf: torch.Tensor, rows: int) -> torch.Tensor:
+        """This rank's rows of a full (..., R, C) buffer (``rows`` = R): a
+        view, contiguous when the leading dims hold one worker; ``buf``
+        itself when every rank holds every row."""
+        if self.axis is None:
+            return buf
+        if buf.shape[-2] != rows:
+            raise ValueError(
+                f"expected a buffer of all {rows} rows to cut this shard "
+                f"rank's block from, got shape {tuple(buf.shape)}")
+        r = rows // self.count
+        return buf[..., self.index * r:(self.index + 1) * r, :]
+
+    def gather(self, buf: torch.Tensor, kind: str) -> torch.Tensor:
+        """The full (..., R, C) buffer from every shard rank's (..., R/S, C)
+        rows: one all-gather over the shard group, counted ``kind``;
+        ``buf`` itself without a shard axis."""
+        if self.axis is None:
+            return buf
+        parts = self.mesh.all_gather(buf, kind=kind, axes=(self.axis,))
+        return parts.movedim(0, -3).reshape(
+            *buf.shape[:-2], self.count * buf.shape[-2], buf.shape[-1])
+
+
+def _row_shards(cfg: VRLConfig, mesh) -> RowShards:
+    """The rows' placement (``sharding.specs.engine_shard_axis``): a mesh
+    whose shard axis has another size than ``EngineConfig.shards`` is
+    refused, and so is one with a shard axis of several ranks and shards
+    1 (its ranks would hold replicas of one another's rows)."""
+    ax = sharding_specs.engine_shard_axis(mesh, cfg.engine)
+    if ax is None:
+        if mesh is not None and mesh.shards > 1:
+            raise ValueError(
+                f"the mesh's shard axis has {mesh.shards} ranks but "
+                f"EngineConfig.shards={cfg.engine.shards}; the row dim "
+                f"splits into exactly one block a shard rank")
+        return RowShards(None, 1, 0, mesh)
+    return RowShards(ax, mesh.size((ax,)), mesh.index((ax,))[0], mesh)
 
 
 def _validate_membership(cfg: VRLConfig, algo: AlgoSpec) -> None:
@@ -921,13 +982,26 @@ def _amax(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x.to(torch.float32), float("inf"))
 
 
-def _nonfinite_rows(rows: torch.Tensor, live=None) -> torch.Tensor:
-    """How many of the (n, R, C) worker rows (of ``live``, when given)
-    hold a non-finite value."""
-    idx = range(rows.shape[0]) if live is None else live
-    return sum(((~torch.isfinite(rows[i])).any().to(torch.float32)
-                for i in idx),
-               torch.zeros((), dtype=torch.float32, device=rows.device))
+def _per_worker(p: torch.Tensor, xhat: torch.Tensor, rows, mesh,
+                where: np.ndarray, n: int) -> torch.Tensor:
+    """(2, workers) fp32: each worker's ‖x_i − x̂‖² and whether its
+    parameters hold a non-finite value (the ``rows`` of the (…, R, C)
+    buffer ``p``, flattened, read; the others 0).  On a mesh the whole
+    grid's (``where``: this rank's global indices of its workers, ``n``
+    the workers in all): one zero-padded all-reduce over every rank
+    ("eval"), which also sums a worker's rows over the shard ranks."""
+    flat_p = p.reshape(-1, *p.shape[-2:])
+    per = torch.zeros((2, flat_p.shape[0]), dtype=torch.float32,
+                      device=p.device)
+    for i in rows:
+        per[0, i] = _sq(flat_p[i].to(torch.float32) - xhat)
+        per[1, i] = (~torch.isfinite(flat_p[i])).any().to(torch.float32)
+    if mesh is None:
+        return per
+    full = torch.zeros((2, n), dtype=torch.float32, device=p.device)
+    full[:, torch.from_numpy(where)] = per
+    mesh.all_reduce(full, mesh.axes, kind="eval")
+    return full
 
 
 def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
@@ -938,7 +1012,7 @@ def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
     for vals, op in ((sums, None), (maxes, dist.ReduceOp.MAX)):
         if vals:
             v = torch.stack(list(vals.values()))
-            mesh.all_reduce(v, kind="eval", op=op)
+            mesh.all_reduce(v, mesh.axes, kind="eval", op=op)
             vals.update(zip(vals, v))
     return sums, maxes
 
@@ -1032,6 +1106,14 @@ class Engine(NamedTuple):
     all_active: Any = None      # (member,) -> bool: no MemberState, or
                                 # every worker active (the plain means
                                 # apply); host-side, no device read
+    gather_params: Any = None   # (state, kind="forward") -> the params
+                                # buffer with every row: on a row-sharded
+                                # mesh gathered over the shard group (a
+                                # new buffer), else state.params
+    own_rows: Any = None        # (buf,) -> this rank's rows of a full
+                                # (..., R, C) buffer, a view (contiguous
+                                # with one worker a rank); None off a
+                                # row-sharded mesh
 
 
 def make_engine(cfg: VRLConfig, template: Any, *,
@@ -1050,7 +1132,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     counted all-reduce (even on one rank).  Without a mesh nothing is
     communicated."""
     algo = get_spec(cfg.algorithm)
-    _check_mesh(cfg, mesh)
+    shards = _row_shards(cfg, mesh)
     ecfg = cfg.engine
     fspec = flat.make_spec(template, lanes=ecfg.lanes, block=ecfg.block,
                            max_waste=ecfg.max_pad_waste, shards=ecfg.shards)
@@ -1068,7 +1150,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,
                                  delta_dt=delta_dt, device=device,
                                  kind=kind, beta=beta, mdt=mdt, sm3=sm3,
-                                 mesh=mesh)
+                                 mesh=mesh, shards=shards)
     _validate_overlap(cfg, algo, comp)
     world = 1 if mesh is None else mesh.size()
     # the reference folds the axis indices in only where the worker axes
@@ -1101,10 +1183,13 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                                 async_op=async_op)
 
     def _gbuf(grads: Any) -> torch.Tensor:
+        """A gradient buffer shaped like ``state.params`` (this rank's rows)
+        as it comes, or a tree of every row -> this rank's rows."""
         if isinstance(grads, torch.Tensor):
             return grads
-        return flat.flatten_stacked(fspec, grads,
-                                    dtype=flat.dtype_of(fspec.dtype))
+        return shards.own(flat.flatten_stacked(
+            fspec, grads, dtype=flat.dtype_of(fspec.dtype)),
+            fspec.rows).contiguous()
 
     def init(params: Any, num_workers: int) -> FlatWorkerState:
         """The state of ``num_workers`` workers from ``params`` (on a mesh:
@@ -1117,6 +1202,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         flat1 = flat.flatten_tree(fspec, params)
         if device is not None:
             flat1 = flat1.to(device)
+        flat1 = shards.own(flat1, fspec.rows)
         stacked = flat1.unsqueeze(0).repeat(num_workers, 1, 1)
 
         def zeros(dtype):
@@ -1127,8 +1213,8 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         elif kind == "momentum":
             inner = zeros(mdt)
         else:
-            inner = _adam_state(stacked.shape, fspec.shards, mdt, sm3,
-                                stacked.device)
+            inner = _adam_state(stacked.shape, fspec.shards // shards.count,
+                                mdt, sm3, stacked.device)
         comm = ()
         if comp is not None:
             # fp32 residuals keep the EF invariant exact; ref is the shared
@@ -1320,19 +1406,29 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             state = local_step(state, g)
         return sync(state) if xbar is None else round_fold(state, xbar)
 
+    def gather_params(state: FlatWorkerState,
+                      kind: str = "forward") -> torch.Tensor:
+        """The (W, R, C) parameter buffer of this rank's workers: on a
+        row-sharded mesh every shard rank's rows gathered into a new
+        buffer (one all-gather, counted ``kind``), else ``state.params``
+        itself."""
+        return shards.gather(state.params, kind)
+
     def params_tree(state: FlatWorkerState) -> Any:
-        """Worker-stacked parameter tree of views into ``state.params``."""
-        return flat.unflatten_stacked(fspec, state.params)
+        """Worker-stacked parameter tree of views into ``state.params``
+        (on a row-sharded mesh: into its gathered copy)."""
+        return flat.unflatten_stacked(fspec, gather_params(state))
 
     def avg_model(state: FlatWorkerState) -> Any:
         """x̂ — the evaluation model (the paper reports metrics on it; on a
-        mesh its all-reduce counts as "eval", outside the round)."""
-        return flat.unflatten_tree(fspec, _wmean(state.params, "eval",
-                                                 member=state.member))
+        mesh its all-reduce, and on a row-sharded one its rows' gather,
+        count as "eval", outside the round)."""
+        return flat.unflatten_tree(fspec, shards.gather(
+            _wmean(state.params, "eval", member=state.member), "eval"))
 
     # this rank's workers' indices in the whole grid
     def _mine(w_l: int) -> np.ndarray:
-        r = 0 if mesh is None else mesh.rank
+        r = 0 if mesh is None else mesh.index(("data",))[0]
         return np.arange(r * w_l, (r + 1) * w_l)
 
     @torch.no_grad()
@@ -1443,15 +1539,12 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             if live is None:
                 return coll.worker_sum(mesh, buf.to(torch.float32), 0)
             return _rows_sum(buf, live, mesh, kind="eval")
-        sums = {"nonfinite": _nonfinite_rows(p, live),
-                "params": _sq_rows(p, live)}
+        sums = {"params": _sq_rows(p, live)}
         xhat = wsum(p).mul_(1.0 / n)
-        drift_w = torch.zeros(w_l, dtype=torch.float32, device=p.device)
-        for i in rows:
-            drift_w[i] = _sq(p[i].to(torch.float32) - xhat)
+        per = _per_worker(p, xhat, rows, mesh, _mine(w_l), w_l * world)
         del xhat
-        sums["drift"] = drift_w.sum()
-        maxes = {"drift": drift_w.max()}
+        drift_w = per[0]
+        maxes = {}
 
         def invariant(buf, res_key, disp_key=None):
             s = wsum(buf)
@@ -1470,19 +1563,11 @@ def make_engine(cfg: VRLConfig, template: Any, *,
             sums["ef"] = _sq_rows(state.comm.resid, live)
         _moment_sums(kind, sm3, state.inner, sums, live)
         sums, maxes = _global_scalars(mesh, sums, maxes)
-        out = {"nonfinite_workers": sums["nonfinite"],
+        out = {"nonfinite_workers": (per[1] > 0).sum().to(torch.float32),
                "params_rms": torch.sqrt(sums["params"] / (n * elems)),
-               "drift_sq_mean": sums["drift"] * (1.0 / n),
-               "drift_max": torch.sqrt(maxes["drift"]),
+               "drift_sq_mean": drift_w.sum() * (1.0 / n),
+               "drift_max": torch.sqrt(drift_w.max()),
                "drift_per_worker": torch.sqrt(drift_w)}
-        if mesh is not None:
-            # every worker's entry on every rank ("eval"; entries are ≥ +0,
-            # so the zero-padded sum is exact)
-            full = torch.zeros(w_l * world, dtype=torch.float32,
-                               device=p.device)
-            full[mesh.rank * w_l:(mesh.rank + 1) * w_l] = drift_w
-            mesh.all_reduce(full, kind="eval")
-            out["drift_per_worker"] = torch.sqrt(full)
         for key in ("delta_residual", "bias_residual"):
             if key in maxes:
                 out[key] = maxes[key] * (1.0 / n)
@@ -1505,14 +1590,18 @@ def make_engine(cfg: VRLConfig, template: Any, *,
                   misses=misses if cfg.overlap else None,
                   diagnostics=diagnostics,
                   set_membership=set_membership if cfg.membership else None,
-                  recenter_drift=recenter_drift, all_active=all_active)
+                  recenter_drift=recenter_drift, all_active=all_active,
+                  gather_params=gather_params,
+                  own_rows=None if shards.axis is None else
+                  functools.partial(shards.own, rows=fspec.rows))
 
 
 # ============================================== hierarchical executor ("vrl2")
 def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                       *, lr: float, wd: float, delta_dt: torch.dtype,
                       device: Optional[torch.device], kind: str, beta: float,
-                      mdt: torch.dtype, sm3: bool, mesh=None) -> Engine:
+                      mdt: torch.dtype, sm3: bool, mesh,
+                      shards: RowShards) -> Engine:
     """The two-level engine over pod-major (P, D, R, C) flat buffers
     (``repro.core.engine._make_hier_engine``), with the sgd, momentum or
     Adam (dense or SM3) inner optimizer over (P, D, ...) moments.
@@ -1537,7 +1626,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
     ef2 = None if comp2 is None else _ef_op(comp2, fspec.lanes)
     ef1_on = comp1 is not None and comp1.error_feedback
     ef2_on = comp2 is not None and comp2.error_feedback
-    p_r, d_r = (1, 1) if mesh is None else mesh.shape
+    p_r, d_r = (1, 1) if mesh is None else mesh.shape[:2]
     if p_total % p_r or d_total % d_r:
         raise ValueError(f"hier grid {hcfg.grid} does not split over the "
                          f"mesh's {(p_r, d_r)} rank grid")
@@ -1590,10 +1679,13 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                           device=dev) * lr
 
     def _gbuf(grads: Any) -> torch.Tensor:
+        """A gradient buffer shaped like ``state.params`` (this rank's rows)
+        as it comes, or a grid tree of every row -> this rank's rows."""
         if isinstance(grads, torch.Tensor):
             return grads
-        return flat.flatten_grid(fspec, grads,
-                                 dtype=flat.dtype_of(fspec.dtype))
+        return shards.own(flat.flatten_grid(
+            fspec, grads, dtype=flat.dtype_of(fspec.dtype)),
+            fspec.rows).contiguous()
 
     def _check_round() -> None:
         if k2 % k1:
@@ -1610,6 +1702,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         flat1 = flat.flatten_tree(fspec, params)
         if device is not None:
             flat1 = flat1.to(device)
+        flat1 = shards.own(flat1, fspec.rows)
         # this rank's block of the grid (all of it without a mesh)
         stacked = flat1.expand(p_loc, d_loc, *flat1.shape).clone()
         pod_shape = (p_loc, 1, *flat1.shape)
@@ -1659,8 +1752,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         if kind == "momentum":
             return torch.zeros(stacked.shape, dtype=mdt,
                                device=stacked.device)
-        return _adam_state(stacked.shape, fspec.shards, mdt, sm3,
-                           stacked.device)
+        return _adam_state(stacked.shape, fspec.shards // shards.count, mdt,
+                           sm3, stacked.device)
 
     def local_step(state: HierFlatState, grads: Any) -> HierFlatState:
         """One local step: the inner optimizer on v = g − Δ1 − Δ2 (the
@@ -1836,21 +1929,31 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             state = local_step(state, g)
         return round_fold(state, glob) if cfg.overlap else round_end(state)
 
+    def gather_params(state: HierFlatState,
+                      kind: str = "forward") -> torch.Tensor:
+        """The (P, D, R, C) parameter buffer of this rank's workers (on a
+        row-sharded mesh gathered over the shard group, counted
+        ``kind``)."""
+        return shards.gather(state.params, kind)
+
     def params_tree(state: HierFlatState) -> Any:
-        """Grid-stacked parameter tree ((P, D, ...) leaves), views."""
-        return flat.unflatten_grid(fspec, state.params)
+        """Grid-stacked parameter tree ((P, D, ...) leaves), views (on a
+        row-sharded mesh into the gathered copy)."""
+        return flat.unflatten_grid(fspec, gather_params(state))
 
     def avg_model(state: HierFlatState) -> Any:
         """x̂ over all P·D workers — the evaluation model; with a
         ``MemberState`` over the active ones."""
         member = state.member
         if all_active(member):
-            return flat.unflatten_tree(fspec, coll.worker_mean(
-                mesh, state.params, (0, 1), coll.AXES, kind="eval"))
-        return flat.unflatten_tree(fspec, coll.worker_mean(
-            mesh, state.params, (0, 1), coll.AXES, kind="eval",
-            keep=host_mask(member).keep.reshape(p_loc, d_loc),
-            count=_active_workers(member).clamp(min=1.0)))
+            xbar = coll.worker_mean(mesh, state.params, (0, 1), coll.AXES,
+                                    kind="eval")
+        else:
+            xbar = coll.worker_mean(
+                mesh, state.params, (0, 1), coll.AXES, kind="eval",
+                keep=host_mask(member).keep.reshape(p_loc, d_loc),
+                count=_active_workers(member).clamp(min=1.0))
+        return flat.unflatten_tree(fspec, shards.gather(xbar, "eval"))
 
     def _active_workers(member: MemberState) -> torch.Tensor:
         """The active workers of the whole grid, a 0-d fp32 tensor (on a
@@ -1862,8 +1965,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         return n.to(member.n_pod.device)
 
     # this rank's block of the (P, D) grid
-    p0 = 0 if mesh is None else mesh.coords[0] * p_loc
-    d0 = 0 if mesh is None else mesh.coords[1] * d_loc
+    p0 = 0 if mesh is None else mesh.index(("pod",))[0] * p_loc
+    d0 = 0 if mesh is None else mesh.index(("data",))[0] * d_loc
     mine = np.arange(p_total * d_total).reshape(p_total, d_total)[
         p0:p0 + p_loc, d0:d0 + d_loc].reshape(-1)
 
@@ -1990,13 +2093,11 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             if idx is None:
                 return coll.worker_sum(mesh, buf.to(torch.float32), 0, axes)
             return _rows_sum(buf, idx, mesh, axes, kind="eval")
-        sums = {"nonfinite": _nonfinite_rows(rows, live),
-                "params": _sq_rows(p, live)}
+        sums = {"params": _sq_rows(p, live)}
         xhat = wsum(rows, coll.AXES, live).mul_(1.0 / n)
-        drift_w = [_sq(rows[i].to(torch.float32) - xhat) for i in each]
+        per = _per_worker(p, xhat, each, mesh, mine, p_total * d_total)
         del xhat
-        sums["drift"] = sum(drift_w, zero)
-        maxes = {"drift": torch.stack(drift_w + [zero]).max()}
+        maxes = {}
         maxes["delta1"] = torch.stack([zero] + [
             _amax(wsum(d1[pi], ("data",), pod_rows[pi]).mul_(
                 1.0 / float(n_pod[pi]))) for pi in range(p_loc)]).max()
@@ -2019,9 +2120,9 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
         _moment_sums(kind, sm3, state.inner, sums, live)
         sums, maxes = _global_scalars(mesh, sums, maxes)
         out = {"params_rms": torch.sqrt(sums["params"] / (n * elems)),
-               "drift_sq_mean": sums["drift"] * (1.0 / n),
-               "drift_max": torch.sqrt(maxes["drift"]),
-               "nonfinite_workers": sums["nonfinite"],
+               "drift_sq_mean": per[0].sum() * (1.0 / n),
+               "drift_max": torch.sqrt(per[0].max()),
+               "nonfinite_workers": (per[1] > 0).sum().to(torch.float32),
                "delta1_residual": maxes["delta1"],
                "delta2_residual": maxes["delta2"],
                "zeta_sq_proxy": sums["zeta"] * (1.0 / n)}
@@ -2043,4 +2144,6 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                   sync1=sync1, sync2=sync2, grid=(p_total, d_total),
                   diagnostics=diagnostics,
                   set_membership=set_membership if cfg.membership else None,
-                  all_active=all_active)
+                  all_active=all_active, gather_params=gather_params,
+                  own_rows=None if shards.axis is None else
+                  functools.partial(shards.own, rows=fspec.rows))

@@ -56,8 +56,9 @@ class FlatSpec(NamedTuple):
     block: int                      # row tile height of the layout
     dtype: str                      # buffer dtype for the params buffer
     shards: int = 1                 # row-block shard count: rows are a
-                                    # multiple of block * shards (layout
-                                    # only: nothing is placed on a mesh)
+                                    # multiple of block * shards, so each
+                                    # of S ranks can hold R / S whole
+                                    # tiles (core.engine.RowShards)
 
     @property
     def padded(self) -> int:

@@ -1,19 +1,25 @@
-"""Worker meshes over ``torch.distributed`` (``repro.launch.mesh``
-``make_engine_mesh``): the rank grid and its process groups.
+"""Rank grids over ``torch.distributed`` (``repro.launch.mesh``
+``make_engine_mesh``): the grid and its process groups.
 
-The rank grid (``rank_grid``): flat, (1, world) with W % world == 0;
-hierarchical over a (P, D) worker grid, d_r = gcd(D, world) ranks along
-the data axis and p_r = world / d_r along the pod axis, so that ranks fill
-the data axis first (P % p_r == 0).  Each rank holds W / world workers
-((P / p_r, D / d_r) for the hierarchy).  ``make_engine_mesh`` returns the
-``comm.collectives.WorkerMesh`` the engine's worker means run over.
+The engine's rank grid (``rank_grid``): world = (worker ranks) × shards.
+The worker ranks are flat, (1, world / S) with W % (world / S) == 0, or,
+over the hierarchy's (P, D) worker grid, d_r = gcd(D, world / S) ranks
+along the data axis and p_r = world / S / d_r along the pod axis, so that
+ranks fill the data axis first (P % p_r == 0).  Each worker rank holds
+W / (world / S) workers ((P / p_r, D / d_r) for the hierarchy).  With
+``shards`` S > 1 a trailing "shard" axis of S ranks splits each worker
+rank's buffer rows (``EngineConfig.shards``): rank = (pod · d_r + data) ·
+S + shard, so shard peers are adjacent, as in the reference's
+``make_engine_mesh``.  ``make_engine_mesh`` returns the
+``comm.collectives.WorkerMesh`` the engine runs over; ``make_mesh`` builds
+any other named grid (the shard-mapped MoE's ("data", "model")).
 ``gather_state`` and ``state_block`` carry a checkpoint between a mesh
 and its one file.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,66 +28,105 @@ import torch.distributed as dist
 from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import Block
 from repro_torch.comm import collectives as coll
-from repro_torch.comm.collectives import AXES, WorkerMesh
+from repro_torch.comm.collectives import AXES, ENGINE_AXES, SHARD, WorkerMesh
 
 
-def rank_grid(workers: int, world: int, pods: int = 0) -> Tuple[int, int]:
-    """The (pod, data) rank grid that spreads ``workers`` (a (``pods``,
-    W/pods) grid for the hierarchy, flat when ``pods`` is 0) over
-    ``world`` ranks, or a ValueError that says why it cannot."""
+def rank_grid(workers: int, world: int, pods: int = 0,
+              shards: int = 1) -> Tuple[int, ...]:
+    """The (pod, data) rank grid, with a trailing shard axis when
+    ``shards`` > 1, that spreads ``workers`` (a (``pods``, W/pods) grid for
+    the hierarchy, flat when ``pods`` is 0) over ``world`` ranks, or a
+    ValueError that says why it cannot."""
     if world < 1:
         raise ValueError(f"a mesh needs at least one rank, got {world}")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    if world % shards:
+        raise ValueError(
+            f"a world of {world} ranks does not split into {shards} shard "
+            f"ranks a worker rank: the rank grid is (worker ranks) x "
+            f"shards, so world % shards must be 0")
+    wr = world // shards
+    tail = () if shards == 1 else (shards,)
     if not pods:
-        if workers % world:
+        if workers % wr:
             raise ValueError(
-                f"{workers} workers do not split over {world} ranks: the "
-                f"flat rank grid is (1, {world}), so each rank holds "
-                f"W / world workers and W % world must be 0")
-        return 1, world
+                f"{workers} workers do not split over {wr} ranks: the flat "
+                f"rank grid is (1, {wr}), so each rank holds W / world "
+                f"workers and W % world must be 0" if not tail else
+                f"{workers} workers do not split over {wr} worker ranks: "
+                f"the flat rank grid is (1, {wr}) x {shards} shards, so "
+                f"each worker rank holds W / (world / shards) workers and "
+                f"W % (world / shards) must be 0")
+        return (1, wr) + tail
     if workers % pods:
         raise ValueError(f"{workers} workers do not split into {pods} pods")
-    d_r = math.gcd(workers // pods, world)
-    p_r = world // d_r
+    d_r = math.gcd(workers // pods, wr)
+    p_r = wr // d_r
     if pods % p_r:
         raise ValueError(
             f"the (P, D) = ({pods}, {workers // pods}) worker grid does not "
-            f"split over {world} ranks: ranks fill the data axis first "
-            f"(d_r = gcd(D, world) = {d_r}), which leaves p_r = {p_r} rank "
-            f"rows for {pods} pods (P % p_r must be 0)")
-    return p_r, d_r
+            f"split over {wr} worker ranks: ranks fill the data axis first "
+            f"(d_r = gcd(D, worker ranks) = {d_r}), which leaves p_r = "
+            f"{p_r} rank rows for {pods} pods (P % p_r must be 0)")
+    return (p_r, d_r) + tail
 
 
 def local_workers(mesh: WorkerMesh, workers: int,
                   pods: int = 0) -> np.ndarray:
     """The global indices (pod-major for the hierarchy) of this rank's
     workers, in the order of its local buffers."""
-    pi, di = mesh.coords
+    pi, di = mesh.index(AXES)
+    p_r, d_r = mesh.shape[:2]
     if not pods:
         w = workers // mesh.size()
-        return np.arange(mesh.rank * w, (mesh.rank + 1) * w)
+        return np.arange(di * w, (di + 1) * w)
     d = workers // pods
-    pl, dl = pods // mesh.shape[0], d // mesh.shape[1]
+    pl, dl = pods // p_r, d // d_r
     grid = np.arange(workers).reshape(pods, d)
     return grid[pi * pl:(pi + 1) * pl, di * dl:(di + 1) * dl].ravel()
 
 
-def make_engine_mesh(workers: int, *, pods: int = 0) -> WorkerMesh:
-    """The worker mesh over the default process group (initialised by the
-    caller): the rank grid of ``rank_grid`` and its groups.  Every rank
-    creates every group, in the same order: the whole grid, then each
-    column of the pod axis, then each row of the data axis."""
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              subsets: Sequence[Tuple[str, ...]] = ()) -> WorkerMesh:
+    """A rank grid of ``shape`` over ``axes`` on the default process group
+    (initialised by the caller; world = the product of ``shape``), with a
+    process group over the whole grid and over each axis subset of
+    ``subsets`` (default: each axis alone) — one group for every
+    combination of the other axes' indices.  Every rank creates every
+    group, in the same order: the whole grid, then the subsets in the
+    order given, each over the other axes' indices in rank order."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
     world, rank = dist.get_world_size(), dist.get_rank()
-    p_r, d_r = rank_grid(workers, world, pods)
-    groups = {AXES: dist.new_group(list(range(world)))}
-    for di in range(d_r):
-        g = dist.new_group([pi * d_r + di for pi in range(p_r)])
-        if rank % d_r == di:
-            groups[("pod",)] = g
-    for pi in range(p_r):
-        g = dist.new_group([pi * d_r + di for di in range(d_r)])
-        if rank // d_r == pi:
-            groups[("data",)] = g
-    return WorkerMesh((p_r, d_r), rank, groups)
+    if math.prod(shape) != world:
+        raise ValueError(f"a rank grid of shape {shape} needs "
+                         f"{math.prod(shape)} ranks, the world has {world}")
+    coords = list(np.ndindex(*shape))
+    groups = {axes: dist.new_group(list(range(world)))}
+    for sub in (subsets or [(a,) for a in axes]):
+        sub = coll.canonical(sub, axes)
+        rest = [i for i, a in enumerate(axes) if a not in sub]
+        buckets: dict = {}
+        for r, c in enumerate(coords):
+            buckets.setdefault(tuple(c[i] for i in rest), []).append(r)
+        for key in sorted(buckets):
+            g = dist.new_group(buckets[key])
+            if rank in buckets[key]:
+                groups[sub] = g
+    return WorkerMesh(shape, rank, groups, axes)
+
+
+def make_engine_mesh(workers: int, *, pods: int = 0,
+                     shards: int = 1) -> WorkerMesh:
+    """The engine's mesh over the default process group (initialised by
+    the caller): the rank grid of ``rank_grid`` and its groups — the whole
+    grid, each worker axis, and with a shard axis both worker axes within
+    each shard column and the shard axis within each worker rank."""
+    shape = rank_grid(workers, dist.get_world_size(), pods, shards)
+    subsets = [("pod",), ("data",)]
+    if shards > 1:
+        subsets += [AXES, (SHARD,)]
+    return make_mesh(shape, ENGINE_AXES[:len(shape)], subsets)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -108,13 +153,27 @@ def _span(key: str, hier: bool) -> str:
     return "worker"
 
 
+def _row_split(key: str, leaf_ndim: int) -> bool:
+    """Whether a state leaf's rows (dim -2) split over the shard axis:
+    every buffer of the flat layout (params, Δ, B, moments and SM3's
+    stats, EF residuals and references, the center, overlap pend, the
+    hierarchy's per-pod leaves); not the (…, 1, 1) overlap ``pend_k`` and
+    membership leaves, nor a 0-d or 1-d leaf."""
+    return (leaf_ndim >= 2 and not key.startswith("member/")
+            and key != "overlap/pend_k")
+
+
 def state_block(mesh: WorkerMesh, pods: int = 0):
     """The ``checkpoint.Block`` of this rank: its part of each saved leaf
-    (``pods``: the hierarchy's P, 0 for the flat algorithms)."""
+    (``pods``: the hierarchy's P, 0 for the flat algorithms), its rows'
+    share of every row-split leaf on a shard axis."""
     hier = bool(pods)
-    (pi, di), (p_r, d_r), world = mesh.coords, mesh.shape, mesh.size()
+    (pi, di), (p_r, d_r), world = (mesh.index(AXES), mesh.shape[:2],
+                                   mesh.size())
+    s_r, si = mesh.shards, (mesh.index((SHARD,))[0] if mesh.shards > 1
+                            else 0)
 
-    def full_shape(key: str, shape: tuple) -> tuple:
+    def worker_shape(key: str, shape: tuple) -> tuple:
         span = _span(key, hier)
         if not shape or span == "global":
             return tuple(shape)
@@ -124,13 +183,22 @@ def state_block(mesh: WorkerMesh, pods: int = 0):
             return (shape[0] * p_r, *shape[1:])
         return (shape[0] * p_r, shape[1] * d_r, *shape[2:])
 
+    def full_shape(key: str, shape: tuple) -> tuple:
+        full = list(worker_shape(key, shape))
+        if s_r > 1 and _row_split(key, len(full)):
+            full[-2] *= s_r
+        return tuple(full)
+
     def take(key: str, arr: np.ndarray) -> np.ndarray:
+        if s_r > 1 and _row_split(key, arr.ndim):
+            r = arr.shape[-2] // s_r
+            arr = arr[..., si * r:(si + 1) * r, :]
         span = _span(key, hier)
         if arr.ndim == 0 or span == "global":
             return arr
         if not hier:
             w = arr.shape[0] // world
-            return arr[mesh.rank * w:(mesh.rank + 1) * w]
+            return arr[di * w:(di + 1) * w]
         pl = arr.shape[0] // p_r
         if span == "pod":
             return arr[pi * pl:(pi + 1) * pl]
@@ -143,26 +211,35 @@ def state_block(mesh: WorkerMesh, pods: int = 0):
 def gather_state(mesh: WorkerMesh, state, pods: int = 0):
     """The full state (every rank's block of each leaf, as host tensors)
     on rank 0, None on the other ranks: one gather a leaf, counted
-    "checkpoint"."""
+    "checkpoint"; on a shard axis each worker rank's rows joined in shard
+    order first."""
     hier = bool(pods)
     root = mesh.rank == 0
-    p_r, d_r = mesh.shape
+    p_r, d_r = mesh.shape[:2]
+    s_r = mesh.shards
 
     def one(key, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        if _span(key, hier) == "global":
+        span = _span(key, hier)
+        split = s_r > 1 and _row_split(key, leaf.dim())
+        if span == "global" and not split:
             return leaf.detach().cpu() if root else None
         x = leaf.detach().to(coll.wire_device(mesh)).contiguous()
-        parts = ([torch.empty_like(x) for _ in range(mesh.size())] if root
-                 else None)
+        parts = ([torch.empty_like(x) for _ in range(mesh.size(mesh.axes))]
+                 if root else None)
         mesh.gather(x, parts)
         if not root:
             return None
         parts = [q.cpu() for q in parts]
+        # one block per worker rank, in rank order
+        parts = [torch.cat(parts[w * s_r:(w + 1) * s_r], -2) if split
+                 else parts[w * s_r] for w in range(len(parts) // s_r)]
+        if span == "global":
+            return parts[0]
         if not hier:
             return torch.cat(parts, 0)
-        if _span(key, hier) == "pod":
+        if span == "pod":
             return torch.cat([parts[pi * d_r] for pi in range(p_r)], 0)
         return torch.cat([torch.cat(parts[pi * d_r:(pi + 1) * d_r], 1)
                           for pi in range(p_r)], 0)

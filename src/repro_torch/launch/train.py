@@ -63,11 +63,11 @@ kernel and refuses ``--overlap`` as the reference's does:
       --lr 0.05 --backend reference --algorithm hier_vrl_sgd --pods 2 \\
       --k1 2 --k2 4 --compress int8
 
-The inner optimizers beyond sgd (momentum, Adam with fp32 or bf16
-moments, SM3-factored Adam, ``EngineConfig.shards``) run through
-``VRLConfig`` and ``make_train_step``, flat and hierarchical; the
-reference CLI trains with sgd only, so its ``--sm3`` and
-``--moment-dtype`` change nothing there and are not flags here.
+The reference CLI trains with sgd only (its ``--sm3`` and
+``--moment-dtype`` change nothing there); ``--inner-optimizer adam`` (the
+port's own flag) trains with Adam, fp32 or ``--moment-dtype bfloat16``
+moments, ``--sm3``-factored, flat and hierarchical.  Momentum runs
+through ``VRLConfig`` and ``make_train_step``.
 
 ``--mesh-grid`` spreads the worker grid over ``torch.distributed`` ranks
 (the reference's flag over a JAX mesh; ``launch.mesh``): run it under a
@@ -90,15 +90,22 @@ round.  Rank 0 prints the log; every rank prints its last line, with its
 collectives' counts beside the kernels'.  Without a launcher's
 environment the flag fails; it never falls back to one process.
 
-``--loss-out PATH`` writes the run's losses, logged sums, spans, peak and
-counts as JSON (under ``--mesh-grid`` one file per rank, ``PATH.rank<r>``).
+``--loss-out PATH`` writes the run's losses, logged sums, spans, peak,
+counts and the shape and a SHA-256 of each leaf of the final state as JSON (under
+``--mesh-grid`` one file per rank, ``PATH.rank<r>``, each of its block).
 
 ``--no-round`` (``EngineConfig.round_scan=False``) trains step by step
 through ``train_step``, each step syncing on the per-step cadence and a
 log line every ``--log-every`` steps, as the reference's per-step loop;
 it refuses ``--overlap`` and ``--profile-round`` as the reference's does.
-``--shards N`` sets ``EngineConfig.shards``, layout only (rows pad to
-shard boundaries; refused with ``--mesh-grid``).  ``--profile-round N``
+``--shards S`` sets ``EngineConfig.shards``: rows pad to shard
+boundaries, and under ``--mesh-grid`` the world is (worker ranks) × S,
+each worker rank's buffer rows split over S shard ranks (gathered over
+the shard group before every forward; the round's worker mean a
+per-shard all-reduce; a save gathers the rows, a restore takes each
+rank's block), e.g. ``--nproc-per-node 4 ... --workers 2 --mesh-grid
+--shards 2`` (data 2 × shard 2); without a mesh they are layout only.
+``--clients`` is refused with row shards on a mesh.  ``--profile-round N``
 prints the round's busiest operations and, with ``--profile-dir DIR``,
 writes its ``torch.profiler`` trace there as Chrome-trace JSON.  Full
 width trains with activation checkpointing (``remat``), the smoke variant
@@ -183,8 +190,6 @@ active workers, and the EF-identity and per-level term lines are not
 printed.  The stream adds the reference's ``membership``, ``rollback``,
 ``fault`` and ``cohort`` events; the run's last lines give the snapshot,
 rollback, repair, gather and scatter seconds.
-
-Not ported yet (ROADMAP Queue 1): row shards on a mesh.
 """
 from __future__ import annotations
 
@@ -321,10 +326,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the per-leaf reference executor")
     ap.add_argument("--block", type=int, default=0,
                     help="flat-layout row tile height (0 = auto)")
+    ap.add_argument("--inner-optimizer", default="sgd",
+                    choices=("sgd", "adam"),
+                    help="the workers' inner optimizer (the port's own "
+                         "flag: the reference CLI trains with sgd)")
+    ap.add_argument("--moment-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="storage dtype of Adam's moments")
+    ap.add_argument("--sm3", action="store_true",
+                    help="SM3-factored Adam second moment (row and lane "
+                         "stats)")
     ap.add_argument("--shards", type=int, default=1,
                     help="EngineConfig.shards: rows pad to a multiple of "
-                         "block * shards (layout only: nothing is placed "
-                         "on a mesh; refused with --mesh-grid).  1 = the "
+                         "block * shards; with --mesh-grid each worker "
+                         "rank's rows split over S shard ranks (world = "
+                         "worker ranks x S), else layout only.  1 = the "
                          "unsharded layout")
     ap.add_argument("--no-round", dest="round", action="store_false",
                     help="train step by step through train_step (syncing "
@@ -370,8 +386,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "back to the CPU)")
     ap.add_argument("--mesh-grid", action="store_true",
                     help="spread the worker grid over torch.distributed "
-                         "ranks, (1, world) flat or (p_r, d_r) over the "
-                         "hierarchy's (pods, W/pods); run under a launcher "
+                         "ranks, (1, world / S) flat or (p_r, d_r) over the "
+                         "hierarchy's (pods, W/pods), times --shards S "
+                         "ranks along a shard axis; run under a launcher "
                          "(python -m torch.distributed.run)")
     ap.add_argument("--loss-out", default=None,
                     help="write the run's losses, logged sums and counts "
@@ -468,12 +485,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--no-round")
     if args.shards < 1:
         raise SystemExit(f"--shards must be >= 1, got {args.shards}")
-    if args.shards > 1 and args.mesh_grid:
+    if args.shards > 1 and args.mesh_grid and args.clients:
         raise SystemExit(
-            "--shards > 1 with --mesh-grid: the port's row shards are "
-            "layout only, and placing them on ranks needs an all-gather of "
-            "the parameter rows before every forward (ROADMAP Queue 1); "
-            "use --shards 1 on a mesh")
+            "--clients with --shards > 1 on --mesh-grid: the client store "
+            "keeps whole rows on every rank, the row-sharded engine 1/S of "
+            "them a rank; run the store with --shards 1 on a mesh")
     if args.ckpt_every <= 0:
         raise SystemExit(f"--ckpt-every must be a positive step count, "
                          f"got {args.ckpt_every}")
@@ -616,6 +632,8 @@ def vrl_config(args: argparse.Namespace,
                      overlap=args.overlap, deadline=args.deadline,
                      hier=hier, update_backend=args.backend,
                      membership=membership or args.membership,
+                     inner_optimizer=args.inner_optimizer,
+                     moment_dtype=args.moment_dtype, sm3=args.sm3,
                      engine=EngineConfig(block=args.block,
                                          round_scan=args.round,
                                          shards=args.shards))
@@ -721,7 +739,8 @@ def _train(args: argparse.Namespace, device: torch.device,
     if backend is not None:
         coll.reset_counts()
         try:
-            mesh = mesh_mod.make_engine_mesh(args.workers, pods=pods)
+            mesh = mesh_mod.make_engine_mesh(args.workers, pods=pods,
+                                             shards=args.shards)
         except ValueError as e:
             raise SystemExit(f"--mesh-grid: {e}")
         say(mesh_banner(mesh, backend, device, args.workers, hier))
@@ -768,10 +787,14 @@ def _train(args: argparse.Namespace, device: torch.device,
         + f", round_scan={args.round}, remat={not args.smoke}")
     if eng is not None:
         es = eng.spec
+        placed = mesh is not None and mesh.shards > 1
         say(f"engine: flat buffer {es.rows}x{es.lanes} "
             f"({es.padded - es.size} pad elems), block={es.block}"
-            + (f", shards={es.shards} (layout only: rows pad to shard "
-               f"boundaries)" if es.shards > 1 else ""))
+            + (f", shards={es.shards}" if es.shards > 1 else "")
+            + (f" ({es.rows // es.shards} rows a shard rank, gathered "
+               f"before every forward)" if placed else
+               " (layout only: rows pad to shard boundaries)"
+               if es.shards > 1 else ""))
     else:
         say(f"engine: per-leaf reference executor over {n_leaves} "
             f"leaves (no kernel)")
@@ -1084,7 +1107,7 @@ def _train(args: argparse.Namespace, device: torch.device,
         if mine is not None and hier is None:
             where, n = mine, args.workers
         elif mine is not None:
-            pi = mesh.coords[0]
+            pi = mesh.index(("pod",))[0]
             where, n = np.arange(pi * n_loc, (pi + 1) * n_loc), pods
         mask = _spread(mesh, eng.misses(t, n_loc), where, n)
         pend_k = _spread(mesh, ov.pend_k.flatten().cpu().numpy(), where, n)
@@ -1524,11 +1547,13 @@ def mesh_banner(mesh, backend: str, device: torch.device, workers: int,
     devs = {r: "cpu" if i < 0 else f"cuda:{i}"
             for r, i in enumerate(ids.tolist())}
     if hier is None:
-        block = f"{workers // len(devs)} workers a rank"
+        block = f"{workers // mesh.size()} workers a rank"
     else:
         p, d = hier.grid
         block = (f"({p // mesh.shape[0]}, {d // mesh.shape[1]}) of the "
                  f"({p}, {d}) grid a rank")
+    if mesh.shards > 1:
+        block += f", 1/{mesh.shards} of the rows a shard rank"
     via = (" (gloo stages CUDA tensors through host memory)"
            if backend == "gloo" and device.type == "cuda" else "")
     return (f"mesh: {backend}{via}, rank grid "
@@ -1551,7 +1576,9 @@ def write_loss_out(path: str, res: TrainResult, args, device,
            "round_peak_bytes": res.round_peak_bytes,
            "kernels": dict(vrl_update.LAUNCHES),
            "collectives": res.collectives, "rank": res.rank,
-           "device": str(device), "backend": backend}
+           "device": str(device), "backend": backend,
+           "state_shapes": {k: list(getattr(x, "shape", ()))
+                            for k, x in tree_mod.state_leaves(res.state)}}
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -1599,7 +1626,7 @@ def wire_banner(pair, es, state) -> str:
     item = flat.dtype_of(es.dtype).itemsize
     raw = comm_mod.raw_bytes(es.rows, es.lanes, item)
     rows = comm_mod.used_rows(es.size, es.lanes)
-    sample = state.params.reshape(-1, es.rows, es.lanes)[0, :8]
+    sample = state.params.reshape(-1, *state.params.shape[-2:])[0, :8]
     figures = []
     for c in dict.fromkeys(c for c in pair if c is not None):
         per_row = (comm_mod.rep_nbytes(comm_mod.compress(c, sample))

@@ -4,11 +4,13 @@ Dispatch is capacity-bounded and sort-based, as the reference's: the
 router in fp32 (softmax, then top-k, the weights renormalised over k), a
 stable sort of the flat expert ids, each entry's position within its
 expert's block by ``searchsorted``, entries past the capacity dropped
-(masked to zero and parked at slot ``cap - 1``), an (experts, capacity, d)
-buffer, three batched expert products, and the router-weighted combine;
+(masked to zero and parked at slot ``cap - 1`` of expert 0), an
+(experts, capacity, d) buffer, three batched expert products, and the router-weighted combine;
 the shared experts run densely.  The residual path keeps a dropped token
-intact.  The reference's ``maybe_constrain`` sharding hints have no
-counterpart: the port shards nothing.
+intact.  ``dispatch_compute`` is the routed part over a block of the
+experts (all of them here; one model rank's in ``models.moe_shardmap``,
+the reference's explicit sharding).  The reference's ``maybe_constrain``
+sharding hints have no counterpart.
 
 Determinism on the card.  The reference gathers ``x[token]`` with k
 entries per token and combines with ``y.at[token].add(...)``: both the
@@ -99,39 +101,59 @@ def _permute(x: torch.Tensor, order: torch.Tensor,
     return _Permute.apply(x, order, inv)
 
 
-def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (T, d) -> (y (T, d), aux_loss). The caller flattens batch·seq."""
+def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
+                     weights: torch.Tensor, ids: torch.Tensor,
+                     wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                     e_loc: int, shard: int) -> torch.Tensor:
+    """The routed entries of experts [shard·e_loc, (shard+1)·e_loc)
+    through those experts -> their (T, d) share of the output.
+
+    x: (T, d); weights, ids: (T, k) routing over all experts; wg, wu:
+    (e_loc, d, ff); wd: (e_loc, ff, d).  Entries for other experts sort
+    last (stable) and are masked like drops; an expert's entries past
+    ``capacity(cfg, T)`` are dropped; masked entries are zeros parked at
+    slot ``cap - 1`` of expert 0.  With e_loc = E and shard 0 it is the
+    whole layer's routed output."""
     t, d = x.shape
-    k, e = cfg.experts_per_token, cfg.num_experts
+    k = cfg.experts_per_token
     cap = capacity(cfg, t)
-    weights, ids, aux = route(cfg, p["router"], x)
 
     flat_e = ids.reshape(-1)                                    # (T·k,)
-    order = torch.argsort(flat_e, stable=True)
+    is_local = (flat_e // e_loc) == shard
+    local_e = torch.where(is_local, flat_e - shard * e_loc, e_loc)
+    order = torch.argsort(local_e, stable=True)     # other experts last
     inv = torch.argsort(order)
-    sorted_e = flat_e[order]
+    sorted_e = local_e[order]
     # position of each entry within its expert's block
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     pos = torch.arange(t * k, device=x.device) - first
-    keep = pos < cap
+    keep = (sorted_e < e_loc) & (pos < cap)
     mask = keep[:, None].to(x.dtype)
 
-    # the entries into the expert buffer, dropped ones parked at slot
-    # cap - 1 as zeros; slot = e · cap + position
-    slot = sorted_e * cap + torch.where(keep, pos, cap - 1)
+    # the entries into the expert buffer, masked ones parked at slot
+    # cap - 1 of expert 0 as zeros; slot = e · cap + position
+    slot = (torch.where(keep, sorted_e, 0) * cap
+            + torch.where(keep, pos, cap - 1))
     xk = _permute(x[:, None, :].expand(t, k, d).reshape(t * k, d), order,
                   inv) * mask
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot,), xk, accumulate=True).view(e, cap, d)
+    buf = torch.zeros((e_loc * cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xk, accumulate=True).view(e_loc, cap, d)
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p["w_up"])
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])     # (E, C, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg))
+    h = h * torch.einsum("ecd,edf->ecf", buf, wu)
+    out_buf = torch.einsum("ecf,efd->ecd", h, wd)              # (e, C, d)
 
-    contrib = out_buf.reshape(e * cap, d).index_select(0, slot) * mask
+    contrib = out_buf.reshape(e_loc * cap, d).index_select(0, slot) * mask
     w = _permute(weights.reshape(-1), order, inv).to(x.dtype)
-    y = _permute(contrib * w[:, None], inv, order).view(t, k, d).sum(dim=1)
+    return _permute(contrib * w[:, None], inv, order).view(t, k, d).sum(
+        dim=1)
 
+
+def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """x: (T, d) -> (y (T, d), aux_loss). The caller flattens batch·seq."""
+    weights, ids, aux = route(cfg, p["router"], x)
+    y = dispatch_compute(cfg, x, weights, ids, p["w_gate"], p["w_up"],
+                         p["w_down"], cfg.num_experts, 0)
     if cfg.num_shared_experts:
         hs = F.silu(x @ p["shared_w_gate"]) * (x @ p["shared_w_up"])
         y = y + hs @ p["shared_w_down"]

@@ -47,6 +47,16 @@ The update kernels then run over the whole buffer, after every backward
 of the step has finished — they write ``params`` in place.  The reported
 loss is the mean over workers.
 
+On a row-sharded mesh (``EngineConfig.shards`` S over the mesh's shard
+axis) the engine holds this rank's R/S rows of its workers' buffers:
+before each step's forward the rows are gathered over the shard group
+into a transient (W, R, C) buffer (``Engine.gather_params``, counted
+"forward"), every shard rank runs the same forward and backward on it (the
+batch is not split over the shard ranks, so the gradient sums in the
+one-process order and each rank clips the whole gradient), and the
+engine's update takes the rank's own rows of the gradient
+(``Engine.own_rows``).
+
 On a mesh (``mesh=``, ``comm.collectives.WorkerMesh``; the reference's
 ``mesh`` with ``worker_axes=("pod", "data")``) the engine holds this
 rank's block of the workers, ``grads_fn`` runs only those, and the
@@ -210,7 +220,8 @@ def _health(state, loss, mesh=None) -> bool:
     if mesh is None:
         return ok
     flag = torch.tensor(float(ok), device=coll.wire_device(mesh))
-    mesh.all_reduce(flag, kind="eval", op=torch.distributed.ReduceOp.MIN)
+    mesh.all_reduce(flag, mesh.axes, kind="eval",
+                    op=torch.distributed.ReduceOp.MIN)
     return bool(flag.item() > 0)
 
 
@@ -300,27 +311,50 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return s.mul_(torch.reciprocal(cnt.clamp(min=1.0)))
 
     def local_grads(state, tokens, labels):
-        """Per-worker loss and gradients -> (gradient buffer shaped like
-        ``state.params``: (W, R, C), or (P, D, R, C) for the hierarchy;
-        the (w,) losses of this rank's workers)."""
-        buf = dead_grads(state)
+        """Per-worker loss and gradients -> (gradient buffer of every row of
+        this rank's workers: (W, R, C), or (P, D, R, C) for the hierarchy;
+        the (w,) losses of this rank's workers).  On a row-sharded mesh the
+        parameter rows are first gathered over the shard group (counted
+        "forward") into a transient buffer: every shard rank runs its
+        workers' whole forward and backward, so each clips the whole
+        gradient."""
+        shape = (*state.params.shape[:-2], spec.rows, spec.lanes)
+        buf = gbuf.get(shape)
         if buf is None:
             # pad tail stays zero: gradients only ever fill the leaf spans
-            buf = gbuf[tuple(state.params.shape)] = torch.zeros_like(
-                state.params)
+            buf = gbuf[shape] = torch.zeros(shape, dtype=state.params.dtype,
+                                            device=state.params.device)
         stacked = (-1, spec.rows, spec.lanes)    # the (W, R, C) views
         w = buf.view(stacked).shape[0]
-        ptree = flat.unflatten_stacked(spec, state.params.view(stacked))
+        params = eng.gather_params(state)
+        ptree = flat.unflatten_stacked(spec, params.view(stacked))
         gtree = flat.unflatten_stacked(spec, buf.view(stacked))
         losses = [_worker_grads(loss_fn, vrl_cfg.clip_norm, ptree, gtree,
                                 (i,), tokens[i], labels[i])
                   for i in range(w)]
         return buf, torch.stack(losses)
 
+    def own_rows(state, g: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the full gradient buffer ``g`` (``g`` itself
+        off a row-sharded mesh), kept as the step's dead buffer: a view
+        into ``g`` where they are contiguous (one worker a rank), else
+        copied into a reused buffer shaped like ``state.params``."""
+        if eng.own_rows is None:
+            return g
+        loc, shape = eng.own_rows(g), tuple(state.params.shape)
+        if loc.is_contiguous():
+            gbuf[shape] = loc
+            return loc
+        out = gbuf.get(shape)
+        if out is None:
+            out = gbuf[shape] = torch.empty_like(state.params)
+        return out.copy_(loc)
+
     def grads_fn(state, tokens, labels):
-        """``local_grads`` with the losses' worker mean."""
+        """``local_grads`` (this rank's rows, shaped like ``state.params``)
+        with the losses' worker mean."""
         buf, losses = local_grads(state, tokens, labels)
-        return buf, mean_loss(losses, state.member)
+        return own_rows(state, buf), mean_loss(losses, state.member)
 
     def step(state, tokens, labels, gmul: Optional[np.ndarray] = None):
         """One local step -> (state, this rank's (w,) worker losses);
@@ -329,6 +363,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
             g, losses = local_grads(state, tokens, labels)
             if gmul is not None:
                 _grad_mul(g.view(-1, spec.rows, spec.lanes), spec.size, gmul)
+            g = own_rows(state, g)
         with span("local"):
             state = eng.local_step(state, g)
         return state, losses

@@ -459,9 +459,9 @@ def _fake_mesh(shape=(1, 2), rank=0):
 def test_engine_refusals_on_a_mesh():
     from repro_torch.configs.base import EngineConfig
     tpl = R.template()
-    with pytest.raises(ValueError, match="shards > 1 with a mesh"):
+    with pytest.raises(ValueError, match="row-shard count must equal"):
         teng.make_engine(R.port_cfg("vrl_sgd", engine=EngineConfig(shards=2)),
-                         tpl, mesh=_fake_mesh())
+                         tpl, mesh=_fake_mesh((1, 2, 4)))
     with pytest.raises(ValueError, match="worker axes"):
         _fake_mesh().size(("model",))
     with pytest.raises(ValueError, match="do not split over the mesh"):
