@@ -18,6 +18,7 @@
   python3 chip_smoke.py --shards    # phases 1, 2 and 12 alone
   python3 chip_smoke.py --moe-ranks OUT   # phase 12's (au) ranks (the
                                            # script launches them itself)
+  python3 chip_smoke.py --dryrun    # phases 1, 2 and 13 alone
   python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
                                            # training paths alone, the cut
                                            # ones at N of qwen2-0.5b's 24
@@ -605,6 +606,37 @@ Phases (each prints a line; any failure raises and exits non-zero):
      one softened JAX start the port's three runs are the reference
      CLI's within 1e-7, ``tests/test_torch_chaos.py``).
 
+13. dry run — the port's dry run (``launch.dryrun``: steps counted on
+   meta tensors) against the card:
+   - (aw) ``engine_mem`` for the ten architectures and for the CI gate's
+     configuration (qwen2-0.5b, ``--shards 8 --moment-dtype bfloat16``,
+     at most 700,000,000 B a device in the reference's layout, bf16
+     params; the port's own state there, fp32 params and Δ, printed
+     beside it); the card's total memory (``get_device_properties``)
+     printed with its name and power limit, a failure below
+     ``launch.mesh.HBM_PER_CHIP`` (80 GB); then the state the port trains
+     that ``engine_mem`` sizes for padded qwen2-0.5b (24 layers, W = 4,
+     Adam, fp32 params and Δ) made on the card: the bytes of its storages
+     equal to ``engine_mem``'s ``port`` total (the scalar leaves the port
+     keeps on the host aside), and one local step of the port's engine
+     on it (fused_local_adam once).
+   - (ax) one round, real and counted: qwen2-0.5b padded for the single
+     mesh (16 heads), 4 of 24 layers, W = 4, batch 8 × 64, one round of k
+     = 2, vrl_sgd + sgd, the fused kernels.  The real round on the card
+     under ``FlopCounterMode``; the same round on meta tensors through
+     ``lower_one(fn_kind="round", one_process=True)``.  Gates: the FLOPs
+     equal; the kernels that launched equal, by name and count, the
+     kernels the dry run charged.  The card's ``max_memory_allocated``
+     beside the meta peak and their ratio (recorded, not gated).
+   - (ay) the roofline of (ax) (fp32 products at the CUDA cores' rate:
+     TF32 is off) beside five more rounds' spans (CUDA events; each
+     round's, with the SM clock, power and temperature after it, then the
+     median and the spread): the products' time against ``fwd_bwd``, the
+     engine pass against ``local``, the sync kernel's bound against
+     ``sync``, and the round's bound against the round, each with its
+     achieved share of the median; then one round under torch.profiler,
+     its device time against its spans (the share the card computes).
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -634,10 +666,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 START = time.time()             # the script's clock, for the phase stamps
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
-TF32_FLOPS_PER_S = 495e12       # dense tensor-core rates, same sheet
-BF16_FLOPS_PER_S = 989e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the kernels' cost model: the card's rates and each kernel's bound
+from repro_torch.kernels.costs import (  # noqa: E402
+    COSTS, HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32, PEAK_FLOPS_TF32,
+    attention_cost, bound_ms, leaf_cost, ssd_cost)
 FULL = (4, 1_930_240, 256)      # qwen2-0.5b flat layout at W=4
 FULL_PARAMS = 494_032_768       # qwen2-0.5b's parameters per worker
 MODERATE = ((4, 65_536), (3, 1_237))   # (W, R) at C = 256
@@ -992,174 +1025,6 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
-
-def bound_ms(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S,
-             core_flops: float = 0.0):
-    """The least time for the work, the longest of: bytes over 3.35 TB/s,
-    ``flops`` over ``rate`` (the CUDA cores' fp32 rate unless a
-    tensor-core rate is given), and ``core_flops`` over the CUDA cores'
-    rate — they run beside the tensor cores, so the two unit times do not
-    add."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / rate, core_flops / FP32_FLOPS_PER_S)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-# bytes each kernel must move (every input read once, every output written
-# once) and its fp32 operations, at the main path's operands
-def local_cost(w, r, c, use_d=True, wd=1e-4):
-    n = w * r * c
-    nbytes = 4 * n * (3 + use_d)        # read p, g [, Δ]; write p
-    flops = n * (2 + use_d + (2 if wd else 0))
-    return nbytes, flops
-
-
-def sync_cost(w, r, c):
-    n = w * r * c
-    nbytes = 4 * (4 * n + r * c) + 4   # read p, Δ, x̂, kγ; write p, Δ
-    return nbytes, 3 * n                # sub, div, add per element
-
-
-def momentum_cost(w, r, c, wd=1e-4):
-    """easgd's path: no Δ, no B, fp32 m."""
-    n = w * r * c
-    nbytes = 4 * n * 5                  # read p, g, m; write p, m
-    return nbytes, n * (4 + (2 if wd else 0))
-
-
-def adam_cost(w, r, c, wd=1e-4):
-    """bvr_l_sgd's path: with Δ and B, fp32 mu and nu."""
-    n = w * r * c
-    nbytes = 4 * n * 9 + 8              # read p, g, Δ, B, mu, nu, [c1, c2];
-    return nbytes, n * (18 + (2 if wd else 0))   # write p, mu, nu
-
-
-def bvr_cost(w, r, c):
-    n = w * r * c
-    nbytes = 4 * (6 * n + r * c) + 4   # read p, Δ, B, x̂, kγ; write p, Δ, B
-    return nbytes, 6 * n
-
-
-def easgd_cost(w, r, c):
-    n, rc = w * r * c, r * c
-    # worker pass: read p, x̃, write p; center pass: read x̃, x̂, write x̃
-    return 4 * (2 * n + rc) + 4 * 3 * rc, 3 * n + 3 * rc
-
-
-def ef_int8_cost(w, r, c):
-    """Path (c)'s operands: p, ref and e read, dec and e written."""
-    n = w * r * c
-    # sub, add, abs, max, div, rint, two clamps, mul, sub per element
-    return 4 * (4 * n + r * c), 10 * n
-
-
-def ef_topk_cost(w, r, c):
-    """Path (d)'s operands (ref = x̂_stale, e, dec into pend): the bytes of
-    int8; 31 rounds of one compare per element to find the threshold,
-    then sub, add, abs, compare, select, sub."""
-    n = w * r * c
-    return 4 * (4 * n + r * c), 37 * n
-
-
-def fold_cost(w, r, c, bufs, capture, flops):
-    """``bufs`` (W, R, C) buffers read and written in place (p, Δ, B),
-    pend read (and written with ``capture``), x̂ and wscal read once."""
-    n = w * r * c
-    return 4 * ((2 * bufs + 1 + capture) * n + r * c + 2 * w), flops * n
-
-
-# the hierarchy's, over (P, D, R, C) with n = P·D·R·C worker elements and
-# m = P·R·C per-pod elements (Δ2, x̂_pod, pend2)
-def hier_local_cost(pp, dd, r, c, wd=1e-4):
-    """Read p, g, Δ1 and Δ2 once, write p; sub, sub, [mul, add], mul, sub."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m), n * (4 + (2 if wd else 0))
-
-
-def hier_sync1_cost(pp, dd, r, c):
-    """Read p, Δ1, x̂_pod and kγ, write p and Δ1; sub, div, add."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m) + 4, 3 * n
-
-
-def hier_sync2_cost(pp, dd, r, c):
-    """Read the pod value (worker 0), Δ2, x̂ and kγ, write p and Δ2; sub,
-    div, add per pod element."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (n + 3 * m + r * c) + 4, 3 * m
-
-
-def hier_fold_cost(pp, dd, r, c):
-    """Path (h): capture in the kernel.  Read p, x̂, pend2, Δ2 and wscal,
-    write p, Δ2 and pend2; p + c per worker element, c, c·s₀ + Δ2 and
-    km·pend2 + (1 − km)·p' per pod element."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (2 * n + 4 * m + r * c + 2 * pp), n + 6 * m
-
-
-def hier_ef_cost(pp, dd, r, c, flops=10):
-    """Paths (m)-(o)'s level-1 round trip: read p and e (P·D·R·C each) and
-    the per-pod ref (P·R·C) once, write dec and e; int8's 10 operations
-    per element, top-k's 37 (``ef_int8_cost``, ``ef_topk_cost``)."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m), flops * n
-
-
-def adam_sm3_cost(w, r, c, use_d=True, mu_bytes=4, wd=1e-4, shards=1,
-                  pods=0):
-    """Path (i)'s operands (Δ, no B, fp32 mu; hier, ``pods`` > 0: Δ1 and Δ2
-    once per pod, path (l)'s bf16 mu): read p, g, [Δ], mu, the row stat,
-    the lane stat and [c1, c2]; write p, mu, the row stat and the new lane
-    stat.  Per element: the corrections, mu's EMA (3), v̂ = min (1), nu's
-    EMA (4), the step (6: two divisions, a sqrt) [wd·p (2)], p − step, the
-    row and lane max (2)."""
-    n = w * r * c
-    nbytes = (4 * n * (3 + use_d) + 2 * mu_bytes * n + 8 * w * r
-              + 8 * w * shards * c + 8 + (4 * pods * r * c if pods else 0))
-    return nbytes, n * (17 + use_d + (1 if pods else 0) + (2 if wd else 0))
-
-
-def hier_momentum_cost(pp, dd, r, c, wd=1e-4):
-    """Path (j): read p, g, Δ1, m and Δ2 once per pod, write p and m; sub,
-    sub, [mul, add], mul, add, mul, sub per element."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (6 * n + m), n * (6 + (2 if wd else 0))
-
-
-def hier_adam_cost(pp, dd, r, c, wd=1e-4):
-    """Path (k): read p, g, Δ1, mu, nu, Δ2 once per pod and [c1, c2], write
-    p, mu, nu (fp32 moments)."""
-    n, m = pp * dd * r * c, pp * r * c
-    return 4 * (8 * n + m) + 8, n * (19 + (2 if wd else 0))
-
-
-COSTS = {"fused_local_sgd": local_cost, "fused_sync_vrl": sync_cost,
-         "fused_local_momentum": momentum_cost, "fused_local_adam": adam_cost,
-         "fused_sync_bvr": bvr_cost, "fused_sync_easgd": easgd_cost,
-         "fused_ef_int8": ef_int8_cost, "fused_ef_topk": ef_topk_cost,
-         # path (e): capture in the kernel; c, p + c, Δ + c·s₀, km·pend +
-         # (1 − km)·p'
-         "fused_fold_overlap": lambda w, r, c: fold_cost(w, r, c, 2, 1, 9),
-         # path (d): under compression the kernel does not capture
-         "fused_fold_overlap_bvr": lambda w, r, c: fold_cost(w, r, c, 3, 0,
-                                                            9),
-         # path (f): capture in the kernel
-         "fused_fold_overlap_avg": lambda w, r, c: fold_cost(w, r, c, 1, 1,
-                                                            7),
-         "fused_hier_local_sgd": hier_local_cost,
-         "fused_sync_hier1": hier_sync1_cost,
-         "fused_sync_hier2": hier_sync2_cost,
-         "fused_fold_overlap_hier2": hier_fold_cost,
-         "fused_local_adam_sm3": adam_sm3_cost,
-         "fused_hier_local_momentum": hier_momentum_cost,
-         "fused_hier_local_adam": hier_adam_cost,
-         # path (l): bf16 mu
-         "fused_hier_local_adam_sm3": lambda pp, dd, r, c: adam_sm3_cost(
-             pp * dd, r, c, mu_bytes=2, pods=pp),
-         "fused_ef_int8_grid": hier_ef_cost,
-         "fused_ef_topk_grid": lambda pp, dd, r, c: hier_ef_cost(
-             pp, dd, r, c, flops=37)}
 
 # which arguments each kernel writes in place (the rest are read only)
 INPLACE = {"fused_local_sgd": (0,), "fused_local_momentum": (0, 3),
@@ -2633,17 +2498,6 @@ def leaf_moderate_checks(chk, dev) -> int:
     return chk.count - n0
 
 
-def leaf_cost(n, m, local, item=(4, 4, 4)):
-    """Bytes and fp32 operations of one tree call over n worker elements
-    (m = n/W x̂ elements): local reads p, g, Δ and writes p' (sub, mul,
-    sub); sync reads p, Δ and x̂ once and writes p', Δ' (sub, mul, add).
-    ``item``: the bytes of p, g (x̂), Δ."""
-    ip, ig, idl = item
-    if local:
-        return n * (2 * ip + ig + idl), 3 * n
-    return n * (2 * ip + 2 * idl) + m * ig, 3 * n
-
-
 def leaf_full_width(chk, vu, tu, dev):
     """Phase 3 at full width: the W = 4 worker-stacked qwen2-0.5b tree as
     the per-leaf executor holds it (494,032,768 parameters per worker,
@@ -3048,29 +2902,6 @@ def attention_moderate_checks(dev):
     return n, worst
 
 
-# CUDA-core operations per kept (query, key) pair beside the products:
-# the scale, the running max, the subtraction, exp and the row sum
-ATTN_CORE_OPS = 5
-
-
-def attention_cost(b, s, h, kvh, d, window, itemsize):
-    """Bytes (q, k, v read once, out written once, in their dtype) of one
-    mha_flash and its operations per kept causal (query, key) pair:
-    (bytes, fp32 flops, (tensor-core flops, their rate, CUDA-core ops)).
-    fp32: 4·D flops of q·k and p·v; on the tensor cores three TF32 products
-    each (both operands carry more than TF32's bits), 12·D at 495 TFLOP/s.
-    bf16: q·k one bf16 product (both exact), p·v two (p split into two
-    bf16 parts: p rounded once to bf16 fails the bf16 tolerance,
-    tests/test_torch_split_products.py), 6·D at 989 TFLOP/s.  Beside them
-    ATTN_CORE_OPS a pair on the CUDA cores."""
-    w = s if window is None else min(window, s)
-    pairs = (w * (w + 1) // 2 + (s - w) * w) * b * h
-    tc = ((12 * d, TF32_FLOPS_PER_S) if itemsize == 4
-          else (6 * d, BF16_FLOPS_PER_S))
-    return (itemsize * (2 * b * s * h * d + 2 * b * s * kvh * d),
-            4 * d * pairs, (tc[0] * pairs, tc[1], ATTN_CORE_OPS * pairs))
-
-
 def sdpa_call(q, k, v, window):
     """The library yardstick, timed only (the port never calls it):
     ``scaled_dot_product_attention`` on the repeated (B, H, S, D) tensors,
@@ -3257,39 +3088,6 @@ def ssd_moderate_checks(dev):
     return n_checks, worst
 
 
-def ssd_cost(b, l, h, p, n, q, itemsize):
-    """Bytes (x, dt, B, C read once, y written once, a_log) and operations
-    of one ssd_chunk_scan, chunk by chunk: (bytes, fp32 flops,
-    (tensor-core flops, their rate, CUDA-core ops)).  For a chunk of v
-    valid rows, v(v+1)/2 kept (i, j) pairs, whose C_i·B_j (2N flops) B and
-    C shared by a batch's heads give once per batch; then per (b·h) 2P
-    flops a pair (the product with xd), 2·v·P·N for C·stateᵀ in every
-    chunk but the first (its state is 0) and 2·v·P·N for the state update
-    in every chunk but the last (its state is never read).  fp32: 2P + 1
-    a pair and the rest on the CUDA cores.
-    Tensor cores (TF32, 495 TFLOP/s): three products where both operands
-    carry more than TF32's bits, two where one is exact (a bf16 x against
-    the decayed C·Bᵀ and in the update, bf16 C in C·stateᵀ), one where both
-    are (bf16 C·Bᵀ); beside them 3 CUDA-core operations a kept pair and
-    head (the difference, exp, the product with C·Bᵀ)."""
-    shared = pairs_bh = state_rows = 0
-    nc = -(-l // q)
-    for z in range(nc):
-        v = min(q, l - z * q)
-        pairs = v * (v + 1) // 2
-        shared += pairs * 2 * n
-        pairs_bh += pairs
-        state_rows += v * ((z > 0) + (z < nc - 1))
-    per_head = pairs_bh * (2 * p + 1) + 2 * state_rows * p * n
-    exact = itemsize == 2                 # B and C in the dtype of the call
-    tc = (shared * b * (1 if exact else 3)
-          + b * h * (2 if exact else 3) * (2 * p * pairs_bh
-                                           + 2 * state_rows * p * n))
-    return ((itemsize * (2 * b * l * h * p + b * l * h + 2 * b * l * n)
-             + 4 * h), shared * b + per_head * b * h,
-            (tc, TF32_FLOPS_PER_S, 3 * pairs_bh * b * h))
-
-
 def ssd_full_width(dev):
     """The SSD op's path: mamba2-370m's layer 0 at full width (random
     weights from seed 0, token ids (4, 2048)): its x, dt, B and C as
@@ -3365,7 +3163,7 @@ def ssd_full_width(dev):
                          core_bound=core_ms, err=err)
         # the sequential recurrence's count, lower still: per step and
         # head, decay·S + xd ⊗ B (3PN) and S·C (2PN)
-        rec_ms = 5 * b * l * h * hd * n / FP32_FLOPS_PER_S * 1e3
+        rec_ms = 5 * b * l * h * hd * n / PEAK_FLOPS_FP32 * 1e3
         print(f"[3 kernels] ssd_scan via ssd_chunk_scan at {tag}: {ms:.3f} "
               f"ms; tensor-core bound {b_ms:.3f} ms by {by}, "
               f"{100 * b_ms / ms:.1f}%; fp32 CUDA-core bound {core_ms:.3f} "
@@ -3601,7 +3399,7 @@ def served_checks(tag, label, cfg, eng, prompt, out, prefill_ms, decode_ms,
                              f"{SERVE_REL_TOL}), finite {finite}")
     per_tok = float(np.mean(decode_ms))
     nbytes = sum(x.numel() * x.element_size() for x in tm_leaves(eng.params))
-    weights_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    weights_ms = 1e3 * nbytes / HBM_BW
     row = dict(tag=tag, prefill_ms=prefill_ms, decode_ms=per_tok,
                tok_s=b * gen / wall_s, peak_gib=peak / 2 ** 30,
                weights_ms=weights_ms, launches={})
@@ -3822,7 +3620,6 @@ def close(got, want, atol, tag) -> None:
                              f"{want.dtype} {tuple(want.shape)}")
 
 
-
 def _delta_tree(eng, state):
     """The flat engine's Δ as a worker-stacked tree (views)."""
     from repro_torch.core import flat
@@ -3836,7 +3633,6 @@ def paper_cpu_runs(path: str) -> int:
     run's per-step losses (Appendix E: its distance) written as JSON to
     ``path``, keyed by figure and repr(run key).  Started before phase 4,
     so it runs beside the card's paths."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.paper import figures
     torch.set_num_threads(3)
     out = {}
@@ -5036,7 +4832,6 @@ def ckpt_phase(dev, vu, card) -> None:
           f"{time.time() - START:.1f} s", flush=True)
 
 
-
 # phase 10, elastic runs and partial participation (``repro_torch.fault``,
 # ``Engine.set_membership``, ``core.clients`` through ``launch.train``)
 ELASTIC_DIR = os.path.join(ROOT, ".chip_smoke_elastic")   # git-ignored
@@ -5155,7 +4950,6 @@ def elastic_cpu_runs(path: str, root: str) -> int:
     """The child process of phase 10: (al)'s runs on the CPU from the
     starts under ``root``, their losses as JSON to ``path``.  Started at
     the phase's start, so it runs beside the card's (aj) and (ak)."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.set_num_threads(3)
     with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
         out = al_runs("cpu", root)
@@ -5588,7 +5382,6 @@ def families_smoke(where, forced=None) -> dict:
 def families_cpu_runs(path: str) -> int:
     """The child process of phase 11: ``families_smoke`` on the CPU, its
     arrays into the npz ``path`` (keys "arch|name")."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.set_num_threads(3)
     t0 = time.time()
     runs = families_smoke("cpu")
@@ -5814,7 +5607,7 @@ def kimi_serve(dev, card):
                              f"{KIMI_TOL})")
     per_tok = float(np.mean(timings["decode_ms"]))
     nbytes = sum(x.numel() * x.element_size() for x in tm.leaves(params))
-    weights_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    weights_ms = 1e3 * nbytes / HBM_BW
     row = dict(tag="(aq) serve.Engine", prefill_ms=timings["prefill_ms"],
                decode_ms=per_tok, tok_s=b * gen / wall,
                peak_gib=peak / 2 ** 30, weights_ms=weights_ms)
@@ -6132,7 +5925,6 @@ def moe_rank_run(out: str) -> int:
     blocks on a (data 2 × model 2) grid, two calls (bitwise run to run),
     its output gathered to rank 0, which runs ``moe.moe_mlp`` on the
     whole weights and tokens; a JSON per rank."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.distributed as dist
     from repro_torch.comm import collectives as coll
     from repro_torch.launch import mesh as mesh_mod
@@ -6338,6 +6130,289 @@ def shards_phase(dev, vu, card) -> None:
           f"{time.time() - START:.1f} s", flush=True)
 
 
+AX_LAYERS = 4                   # (ax): qwen2-0.5b at 4 of its 24 layers
+AX_W, AX_BATCH, AX_SEQ, AX_K = 4, 8, 64, 2
+ENGINE_GATE = 700_000_000       # the CI gate's per-device engine bytes
+
+
+def aw_engine_mem(dev, card, dryrun, vu) -> None:
+    """(aw): engine_mem for the ten archs and the CI gate's point, the
+    card's memory against HBM_PER_CHIP, and the state the port trains at
+    the sized point made on the card with the bytes engine_mem gives it,
+    then one local step of the port's engine on it."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import base, registry
+    from repro_torch.core import engine as em
+    from repro_torch.launch.mesh import HBM_PER_CHIP
+    from repro_torch.models import transformer
+    from repro_torch.models.param import abstract
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[13 dry run (aw)] the card's memory {total} B "
+          f"({total / 2**30:.2f} GiB) against HBM_PER_CHIP {HBM_PER_CHIP} "
+          f"B; {card}", flush=True)
+    if total < HBM_PER_CHIP:
+        raise AssertionError(f"(aw): the card holds {total} B, less than "
+                             f"launch.mesh.HBM_PER_CHIP = {HBM_PER_CHIP}")
+    arts = {a: dryrun.engine_mem(a, verbose=False)
+            for a in registry.list_archs()}
+    print("[13 dry run (aw)] engine_mem, vrl_sgd + adam at the single "
+          "mesh's W, GiB a device, the reference's layout (bf16 params) / "
+          "the port's (fp32 params and Δ), each with its fit in 80 GB: "
+          + ", ".join(
+              f"{a} {r['per_device_bytes'] / 2**30:.2f} ({r['fits_pod']}) / "
+              f"{r['port']['per_device_bytes'] / 2**30:.2f} "
+              f"({r['port']['fits_pod']})" for a, r in arts.items()),
+          flush=True)
+    gate = dryrun.engine_mem("qwen2-0.5b", shards=8,
+                             moment_dtype="bfloat16", verbose=False)
+    if gate["per_device_bytes"] > ENGINE_GATE:
+        raise AssertionError(f"(aw): the CI gate's point holds "
+                             f"{gate['per_device_bytes']} B a device > "
+                             f"{ENGINE_GATE} in the reference's layout")
+    port_dev = gate["port"]["per_device_bytes"]
+    print(f"[13 dry run (aw)] the CI gate (qwen2-0.5b --shards 8 "
+          f"--moment-dtype bfloat16), the reference's layout (bf16 params): "
+          f"{gate['per_device_bytes']} B a device <= {ENGINE_GATE}, "
+          f"{gate['reduction']}x below the fp32 baseline; the state the "
+          f"port trains there (fp32 params and Δ): {port_dev} B a device, "
+          f"{'over' if port_dev > ENGINE_GATE else 'within'} that budget",
+          flush=True)
+    art = dryrun.engine_mem("qwen2-0.5b", workers=4, verbose=False)
+    mesh_cfg = registry.mesh_roles("qwen2-0.5b")
+    cfg = registry.padded_arch("qwen2-0.5b", mesh_cfg)
+    vcfg = base.VRLConfig(inner_optimizer="adam", update_backend="fused")
+    template = abstract(transformer.model_defs(cfg))        # fp32
+    eng = em.make_engine(vcfg, template, device=dev)
+    params = tm.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                               device=dev), template)
+    state = eng.init(params, 4)
+    del params
+    stores = {}
+    for _, leaf in tm.state_leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            st = leaf.untyped_storage()
+            stores[st.data_ptr()] = st.nbytes()
+    on_card = sum(stores.values())
+    scalars = sorted(k for k, v in tm.state_leaves(state)
+                     if not isinstance(v, torch.Tensor))
+    want = art["port"]["total_bytes"]
+    print(f"[13 dry run (aw)] padded qwen2-0.5b (16 heads, 24 layers), W = "
+          f"4, adam: engine_mem sizes the port's state (fp32 params and Δ) "
+          f"at {want} B ({art['total_bytes']} B in the reference's layout), "
+          f"{len(art['buffers'])} buffers "
+          f"{json.dumps({k: b['shape'] for k, b in art['buffers'].items()})}"
+          f"; the state made on the card holds {on_card} B in "
+          f"{len(stores)} storages (the host's scalar leaves: {scalars})",
+          flush=True)
+    if on_card != want:
+        raise AssertionError(f"(aw): the engine state on the card holds "
+                             f"{on_card} B, engine_mem sizes {want}")
+    # the port steps that state: one local step, zero gradients
+    n0 = vu.LAUNCHES["fused_local_adam"]
+    state = eng.local_step(state, torch.zeros_like(state.params))
+    torch.cuda.synchronize(dev)
+    if vu.LAUNCHES["fused_local_adam"] != n0 + 1 or state.step != 1:
+        raise AssertionError("(aw): the local step on the sized state did "
+                             "not launch fused_local_adam once")
+    print(f"[13 dry run (aw)] one local step of the port's engine on it: "
+          f"fused_local_adam launched once, the card's peak "
+          f"{torch.cuda.max_memory_allocated(dev)} B", flush=True)
+    del state, eng
+    free()
+
+
+AX_TIMED = 5                    # (ay): rounds timed after (ax)'s first
+
+
+def clocks() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def profiled_round(bundle, state, tok, lab, dev):
+    """One round under torch.profiler (CUPTI): the sum of its device
+    events' own times (kernels, copies) and its spans (CUDA events, the
+    profiler's cost on the host included).  Returns the state and
+    {"busy_ms", "spans_ms"}, or {"error"} where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    bundle.timer.events.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = bundle.round_step(state, tok, lab)
+        torch.cuda.synchronize(dev)
+    spans = bundle.timer.ms()
+    busy = 0.0
+    for ev in prof.key_averages():          # the device's own events
+        if str(ev.device_type).endswith("CUDA"):
+            t = getattr(ev, "self_device_time_total", None)
+            busy += (t if t is not None else ev.self_cuda_time_total) / 1e3
+    out = {"spans_ms": sum(sum(spans.get(n, [0.0]))
+                           for n in ("fwd_bwd", "local", "sync")),
+           "busy_ms": busy}
+    if busy <= 0.0:
+        out = {"error": "the profiler recorded no device time"}
+    return state, {"profiled": out}
+
+
+def ax_round(dev, vu, card, dryrun):
+    """(ax): one round on the card under FlopCounterMode and the same round
+    counted on meta tensors; then ``AX_TIMED`` rounds timed.  Returns the
+    counted result, each timed round's span sums and the bytes of the
+    state's params and Δ."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import base, registry
+    from repro_torch.train.train_loop import make_train_step
+
+    mesh_over = {"shape": (AX_W, 16)}       # W = 4 workers, tensor axis 16
+    mesh_cfg = dataclasses.replace(registry.mesh_roles("qwen2-0.5b"),
+                                   **mesh_over)
+    cfg = dataclasses.replace(registry.padded_arch("qwen2-0.5b", mesh_cfg),
+                              num_layers=AX_LAYERS)
+    vcfg = base.VRLConfig(comm_period=AX_K, update_backend="fused",
+                          learning_rate=1e-3)
+    bundle = make_train_step(cfg, vcfg, device=dev, timed=True)
+    state = bundle.init_state(0, AX_W)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    shape = (AX_K, AX_W, AX_BATCH, AX_SEQ)
+    tok = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    lab = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vu.reset_launches()
+    with FlopCounterMode(display=False) as fm:
+        state, losses = bundle.round_step(state, tok, lab)
+        torch.cuda.synchronize(dev)
+    launches = {k: v for k, v in vu.LAUNCHES.items() if v}
+    card_flops = fm.get_total_flops()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"(ax): losses not finite: {losses}")
+    # the timed rounds: the first carries the cuBLAS set-up
+    rounds = []
+    for _ in range(AX_TIMED):
+        bundle.timer.events.clear()
+        state, _ = bundle.round_step(state, tok, lab)
+        spans = bundle.timer.ms()
+        rounds.append({n: sum(spans.get(n, [0.0]))
+                       for n in ("fwd_bwd", "local", "sync")})
+        rounds[-1]["clocks"] = clocks()
+    # one more round under torch.profiler: the kernels' device time against
+    # its spans, the share of the round the card computes
+    state, busy = profiled_round(bundle, state, tok, lab, dev)
+    rounds.append(busy)
+    engine_bytes = sum(t.numel() * t.element_size()
+                       for t in (state.params, state.delta))
+    del state
+    free()
+    res = dryrun.lower_one(
+        "qwen2-0.5b", "train_4k", multi_pod=False, fn_kind="round",
+        round_k=AX_K, comm_period=AX_K, one_process=True,
+        mesh_override=mesh_over, cfg_override={"num_layers": AX_LAYERS},
+        shape_override=base.InputShape("ax", AX_SEQ, AX_W * AX_BATCH,
+                                       "train"),
+        allow_tf32=False, verbose=False)
+    meta = res.counted
+    print(f"[13 dry run (ax)] qwen2-0.5b padded (16 heads), {AX_LAYERS} of "
+          f"24 layers, W = {AX_W}, batch {AX_BATCH} x {AX_SEQ}, one round "
+          f"of k = {AX_K}, vrl_sgd + sgd: the card's FlopCounterMode "
+          f"{card_flops} FLOPs, the dry run's {meta.flops} "
+          f"({meta.flops_by_dtype}); launches on the card {launches}, "
+          f"charged on meta {meta.launches()}; max_memory_allocated "
+          f"{peak} B, the meta peak {meta.peak_bytes} B (ratio "
+          f"{peak / meta.peak_bytes:.4f}); counted in {meta.seconds:.1f} s "
+          f"on the host; {card}", flush=True)
+    if card_flops != meta.flops:
+        raise AssertionError(f"(ax): the card counted {card_flops} FLOPs, "
+                             f"the dry run {meta.flops}")
+    if launches != meta.launches():
+        raise AssertionError(f"(ax): launches {launches} on the card, "
+                             f"{meta.launches()} charged by the dry run")
+    return res, rounds, engine_bytes
+
+
+def ay_roofline(res, rounds, engine_bytes, card) -> None:
+    """(ay): (ax)'s roofline beside the timed rounds' spans (each round's
+    value, then the median and the spread): the products' time against
+    fwd_bwd, the engine pass (2 x the state's bytes over the HBM rate) and
+    fused_local_sgd's bound against local, fused_sync_vrl's bound against
+    sync, the round's bound against the round."""
+    from repro_torch.launch import roofline as rl
+
+    roof, k = res.roofline, res.counted.kernels
+    t_products = 1e3 * (roof.t_compute
+                        - roof.kernel_flops / PEAK_FLOPS_FP32)
+    t_pass = 1e3 * rl.engine_pass_time(engine_bytes)
+    t_local = bound_ms(k["fused_local_sgd"]["bytes"],
+                       k["fused_local_sgd"]["flops"])[0]
+    t_sync = bound_ms(k["fused_sync_vrl"]["bytes"],
+                      k["fused_sync_vrl"]["flops"])[0]
+    prof = rounds.pop()["profiled"]
+    for r in rounds:
+        r["round"] = r["fwd_bwd"] + r["local"] + r["sync"]
+    print(f"[13 dry run (ay)] {len(rounds)} timed rounds of {AX_K} steps "
+          f"after the first (CUDA events, ms; SM clock, max, power, "
+          f"temperature after each): " + "; ".join(
+              f"fwd_bwd {r['fwd_bwd']:.3f} local {r['local']:.3f} sync "
+              f"{r['sync']:.3f} ({r['clocks']})" for r in rounds),
+          flush=True)
+
+    def med(key):
+        vals = sorted(r[key] for r in rounds)
+        return (float(np.median(vals)), vals[0], vals[-1])
+
+    (fwd, f0, f1), (loc, l0, l1), (syn, s0, s1), (whole, w0, w1) = (
+        med(n) for n in ("fwd_bwd", "local", "sync", "round"))
+    bound = 1e3 * max(roof.t_compute, roof.t_memory)
+    print(f"[13 dry run (ay)] roofline of (ax)'s round (the H100 data "
+          f"sheet's fp32 {PEAK_FLOPS_FP32:.3g} FLOP/s, TF32 off, and "
+          f"{HBM_BW:.4g} B/s): t_compute {1e3 * roof.t_compute:.3f} ms "
+          f"(products {t_products:.3f}), t_memory "
+          f"{1e3 * roof.t_memory:.3f} ms ({roof.hlo_bytes:.4g} B: "
+          f"{res.counted.ops} ops and the kernels), t_engine_pass "
+          f"{t_pass:.3f} ms a step; measured, the median of "
+          f"{len(rounds)} rounds [min, max]: fwd_bwd {fwd:.3f} "
+          f"[{f0:.3f}, {f1:.3f}] ms (the products' share "
+          f"{100 * t_products / fwd:.1f}%), local {loc:.3f} [{l0:.3f}, "
+          f"{l1:.3f}] ms (engine pass x {AX_K} "
+          f"{100 * AX_K * t_pass / loc:.1f}%, fused_local_sgd's bound "
+          f"{t_local:.3f} ms {100 * t_local / loc:.1f}%), sync {syn:.3f} "
+          f"[{s0:.3f}, {s1:.3f}] ms (fused_sync_vrl's bound {t_sync:.3f} "
+          f"ms, {100 * t_sync / syn:.1f}%), the round {whole:.3f} "
+          f"[{w0:.3f}, {w1:.3f}] ms (bound {bound:.3f}, "
+          f"{100 * bound / whole:.1f}%); {card}", flush=True)
+    if "error" in prof:
+        note = f"not measured ({prof['error']})"
+    else:
+        busy, spans = prof["busy_ms"], prof["spans_ms"]
+        note = (f"the card's kernels and copies {busy:.3f} ms of its "
+                f"{spans:.3f} ms of spans ({100 * busy / spans:.1f}% busy; "
+                f"the rest the card waits on the host's launches, the "
+                f"profiler's cost included); that device time is "
+                f"{100 * busy / whole:.1f}% of the unprofiled rounds' "
+                f"median {whole:.3f} ms")
+    print(f"[13 dry run (ay)] one more round under torch.profiler: {note}",
+          flush=True)
+
+
+def dryrun_phase(dev, vu, card) -> None:
+    """Phase 13: (aw)-(ay)."""
+    from repro_torch.launch import dryrun
+    t13 = time.time() - START
+    print(f"[13 dry run] from {t13:.1f} s of the script; reckoned ~40 s; "
+          f"{card}", flush=True)
+    free()
+    aw_engine_mem(dev, card, dryrun, vu)
+    ay_roofline(*ax_round(dev, vu, card, dryrun), card)
+    print(f"[13 dry run] {time.time() - START - t13:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6355,7 +6430,6 @@ def main() -> int:
         return families_cpu_runs(sys.argv[2])
     if sys.argv[1:2] == ["--moe-ranks"]:
         return moe_rank_run(sys.argv[2])
-    sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -6391,6 +6465,9 @@ def main() -> int:
         return 0
     if "--shards" in sys.argv[1:]:
         shards_phase(dev, vu, card)
+        return 0
+    if "--dryrun" in sys.argv[1:]:
+        dryrun_phase(dev, vu, card)
         return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
@@ -6651,6 +6728,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 12 shards
     shards_phase(dev, vu, card)
+
+    # ------------------------------------------------------ 13 dry run
+    dryrun_phase(dev, vu, card)
 
     kernels = []
     for name in KERNELS:

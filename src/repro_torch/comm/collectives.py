@@ -46,6 +46,11 @@ active workers' slices one after another (``masked_sum``): a dead
 worker's slice is never read (NaN · 0 would be NaN), and no temporary the
 size of the buffer is made.  Then one all-reduce, and × the reciprocal of
 the state-carried active count, the reference's op sequence.
+
+A ``DryMesh`` is rank 0's view of a rank grid with no process group, for
+the dry run (``launch.dryrun``): its collectives are counted in
+``COUNTS`` as on a real mesh, then return results of the right shape on
+the operand's device (meta tensors there) and move nothing.
 """
 from __future__ import annotations
 
@@ -133,6 +138,20 @@ class WorkerMesh:
         return self.groups[self.axes if axes is None
                            else self.canonical(axes)]
 
+    def group_ranks(self, axes: Optional[Sequence[str]] = None
+                    ) -> Tuple[int, ...]:
+        """The ranks of this rank's group over ``axes`` (default: the whole
+        grid): those that share its index on every other axis."""
+        axes = self.axes if axes is None else self.canonical(axes)
+        free = [i for i, a in enumerate(self.axes) if a in axes]
+        out = []
+        for idx in np.ndindex(*(self.shape[i] for i in free)):
+            c = list(self.coords)
+            for i, v in zip(free, idx):
+                c[i] = v
+            out.append(int(np.ravel_multi_index(c, self.shape)))
+        return tuple(out)
+
     def count(self, tensor: torch.Tensor, axes: Optional[Sequence[str]],
               kind: str, async_op: bool = False) -> None:
         """Count one collective of ``tensor``'s bytes over ``axes`` (the
@@ -177,6 +196,60 @@ class WorkerMesh:
         the whole grid, counted under ``kind``."""
         self.count(tensor, None, kind)
         dist.gather(tensor, gather_list, dst=0, group=self.group())
+
+
+class _Done:
+    """The work handle of a dry collective: nothing to wait for."""
+
+    def wait(self) -> bool:
+        return True
+
+
+class DryMesh(WorkerMesh):
+    """Rank 0's view of a rank grid of ``shape`` over ``axes`` with no
+    process group (the dry run): each collective is counted as
+    ``WorkerMesh``'s are, then ``all_reduce`` leaves its operand as it is
+    (a done handle when ``async_op``), ``all_gather`` returns a new tensor
+    of the stacked shape on the operand's device and ``gather`` fills
+    nothing.  Nothing needs ``torch.distributed`` to be initialised."""
+
+    dry = True
+
+    def __init__(self, shape: Sequence[int],
+                 axes: Optional[Sequence[str]] = None):
+        super().__init__(shape, 0, {}, axes)
+        # (op, kind, group label) -> the output bytes of its calls: what
+        # the roofline prices (an all-gather's output is n times its input)
+        self.wire: Dict[Tuple[str, str, str], int] = {}
+
+    def group(self, axes: Optional[Sequence[str]] = None):
+        raise RuntimeError("a dry mesh has no process groups")
+
+    def _wire(self, op: str, tensor: torch.Tensor, axes, kind: str,
+              n: int = 1) -> None:
+        label = "+".join(self.axes if axes is None else self.canonical(axes))
+        key = (op, kind, label)
+        self.wire[key] = (self.wire.get(key, 0)
+                          + n * tensor.numel() * tensor.element_size())
+
+    def all_reduce(self, tensor: torch.Tensor, axes: Sequence[str] = AXES,
+                   *, kind: str = "state", op=None, async_op: bool = False):
+        self.count(tensor, axes, kind, async_op)
+        self._wire("all-reduce", tensor, axes, kind)
+        return _Done() if async_op else None
+
+    def all_gather(self, tensor: torch.Tensor, *, kind: str,
+                   axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+        self.count(tensor, axes, kind)
+        n = self.size(self.axes if axes is None else axes)
+        self._wire("all-gather", tensor, axes, kind, n)
+        return torch.empty((n, *tensor.shape), dtype=tensor.dtype,
+                           device=tensor.device)
+
+    def gather(self, tensor: torch.Tensor, gather_list, *,
+               kind: str = "checkpoint") -> None:
+        self.count(tensor, None, kind)
+        self._wire("gather", tensor, None, kind, self.size(self.axes))
 
 
 class PendingMean(NamedTuple):
@@ -264,7 +337,9 @@ def worker_mean(mesh, buf: torch.Tensor, dim, axes: Sequence[str], *,
 
 def wire_device(mesh) -> torch.device:
     """Where a tensor made for one of ``mesh``'s collectives lives: the
-    card under NCCL, the host under gloo."""
+    card under NCCL, the host under gloo, meta tensors on a dry mesh."""
+    if getattr(mesh, "dry", False):
+        return torch.device("meta")
     return (torch.device("cuda", torch.cuda.current_device())
             if dist.get_backend(mesh.group()) == "nccl"
             else torch.device("cpu"))

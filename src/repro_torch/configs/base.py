@@ -6,13 +6,21 @@ here describes exactly the model the JAX package builds, and so is
 the ported slice reads (the flat algorithms and two-level hier_vrl_sgd
 with the sgd, momentum and adam inner optimizers, SM3-factored Adam
 included, on the flat-buffer engine or the per-leaf reference executor);
-their defaults are the reference's.
+their defaults are the reference's.  ``InputShape`` / ``INPUT_SHAPES``,
+``MeshConfig`` and ``pad_for_mesh`` are the reference's too: the
+production layouts that the dry run (``launch.dryrun``) sizes
+(``configs.registry.mesh_roles`` builds each arch's ``MeshConfig``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+def _next_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 @dataclass(frozen=True)
@@ -129,6 +137,22 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Flat-buffer engine layout knobs (``repro.configs.base.EngineConfig``).
 
@@ -242,6 +266,68 @@ class VRLConfig:
     # easgd's center update assumes a fixed worker count and refuses it.
     membership: bool = False
     engine: EngineConfig = EngineConfig()
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """How the production rank grid is carved up for one run: the axes
+    the VRL workers span, those that would shard a worker's parameters
+    (FSDP) and the tensor-parallel ones.  The port runs the worker axes
+    as worker ranks and the tensor axis as the engine's row shards
+    (``launch.dryrun``); it has no FSDP and no tensor parallelism."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+    # VRL workers live across these axes (model averaging every k steps).
+    worker_axes: Tuple[str, ...] = ("data",)
+    # FSDP (param-shard within worker) across these axes.
+    fsdp_axes: Tuple[str, ...] = ()
+    # tensor-parallel axes.
+    tensor_axes: Tuple[str, ...] = ("model",)
+
+    def _size(self, axes: Tuple[str, ...]) -> int:
+        sizes = dict(zip(self.axis_names, self.shape))
+        return math.prod(sizes[a] for a in axes) if axes else 1
+
+    @property
+    def num_workers(self) -> int:
+        return self._size(self.worker_axes)
+
+    @property
+    def tensor_size(self) -> int:
+        return self._size(self.tensor_axes)
+
+    @property
+    def fsdp_size(self) -> int:
+        return self._size(self.fsdp_axes)
+
+
+def pad_for_mesh(cfg: ModelConfig, tensor_size: int) -> ModelConfig:
+    """Pad head counts, vocab and ff so every tensor-parallel dim divides
+    ``tensor_size`` (the reference's rule, field for field).
+
+    The query heads pad by the GQA group: the smallest g' >= g with
+    (kv · g') % tensor_size == 0, so q head i still maps to kv head
+    i // g'; kv heads stay as they are.  The vocab pads to a multiple of
+    128, d_ff and moe_d_ff to one of ``tensor_size``.  The padded model
+    is the one the production layout holds (its parameter count, flat
+    rows and FLOPs)."""
+    changes = {}
+    if cfg.family != "ssm" and cfg.num_heads:
+        nkv = max(cfg.num_kv_heads, 1)
+        g = max(1, cfg.num_heads // nkv)
+        while (nkv * g) % tensor_size:
+            g += 1
+        nh_p = nkv * g
+        if nh_p != cfg.num_heads:
+            changes["num_heads"] = nh_p
+    if cfg.vocab_size % 128:
+        changes["vocab_size"] = _next_multiple(cfg.vocab_size, 128)
+    if cfg.d_ff and cfg.d_ff % tensor_size:
+        changes["d_ff"] = _next_multiple(cfg.d_ff, tensor_size)
+    if cfg.moe_d_ff and cfg.moe_d_ff % tensor_size:
+        changes["moe_d_ff"] = _next_multiple(cfg.moe_d_ff, tensor_size)
+    return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -5,8 +5,11 @@ backbone (qwen2-0.5b, granite-3-2b — the reference serve CLI's default —,
 stablelm-3b and gemma-7b; chameleon-34b's vlm and musicgen-large's audio
 family build the same block), the ssm family (mamba2-370m), the hybrid
 (hymba-1.5b) and the moe family (phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b).
-The reference's mesh-role policy has no counterpart: the port shards
-nothing.
+``mesh_roles`` is the reference's policy for the production grid: models
+whose worker replica does not fit 16-way tensor sharding get FSDP within
+the worker (worker = whole pod).  The port runs neither FSDP nor tensor
+parallelism; the dry run (``launch.dryrun``) sizes those layouts and
+refuses to run them.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from repro_torch.configs import (
     qwen2_0_5b,
     stablelm_3b,
 )
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, MeshConfig,
+                                     ModelConfig, pad_for_mesh, reduced)
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [kimi_k2_1t_a32b.CONFIG, qwen2_0_5b.CONFIG,
@@ -32,10 +36,53 @@ ARCHS: dict[str, ModelConfig] = {
                          gemma_7b.CONFIG, phi3_5_moe_42b_a6_6b.CONFIG]}
 
 
+# Archs too big to replicate one full copy per data slice (params · 2 B /
+# 16 tensor shards must stay well under a chip's memory with Δ and the
+# optimizer state): FSDP within the worker in training.
+_FSDP_ARCHS = {"kimi-k2-1t-a32b", "chameleon-34b", "phi3.5-moe-42b-a6.6b"}
+# Serving holds no Δ or gradients: only the 1T model still needs 2-D
+# parameter sharding there.
+_FSDP_SERVE_ARCHS = {"kimi-k2-1t-a32b"}
+
+
 def get_arch(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
+
+
+def get_shape(shape_id: str) -> InputShape:
+    if shape_id not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {shape_id!r}; known: "
+                       f"{sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[shape_id]
+
+
+def mesh_roles(arch_id: str, *, multi_pod: bool = False,
+               serving: bool = False) -> MeshConfig:
+    """Assign the production grid's axes to roles (VRL worker / FSDP /
+    tensor) for one arch."""
+    big = arch_id in (_FSDP_SERVE_ARCHS if serving else _FSDP_ARCHS)
+    if multi_pod:
+        return MeshConfig(
+            shape=(2, 16, 16),
+            axis_names=("pod", "data", "model"),
+            worker_axes=("pod",) if big else ("pod", "data"),
+            fsdp_axes=("data",) if big else (),
+            tensor_axes=("model",),
+        )
+    return MeshConfig(
+        shape=(16, 16),
+        axis_names=("data", "model"),
+        worker_axes=() if big else ("data",),
+        fsdp_axes=("data",) if big else (),
+        tensor_axes=("model",),
+    )
+
+
+def padded_arch(arch_id: str, mesh: MeshConfig) -> ModelConfig:
+    """The arch padded for the mesh's tensor-parallel degree."""
+    return pad_for_mesh(get_arch(arch_id), mesh.tensor_size)
 
 
 def smoke_arch(arch_id: str, **overrides) -> ModelConfig:

@@ -40,7 +40,10 @@ the EF round trip and the flat fold, ``csrc/leaf_update.cu`` for the
 per-leaf pair, built at first use by ``kernels/build``) and the plain PyTorch version (``kernels/torch_update``)
 for CPU tensors; a CUDA tensor never falls back to the plain version.  ``LAUNCHES`` counts kernel launches per wrapper (a
 CPU call is not a launch), so a run can show that its main path went
-through the kernels.
+through the kernels.  Meta tensors (the dry run, ``launch.dryrun``) are
+checked as any others, then charged to ``kernels.costs.CHARGES`` (the
+kernel's name, shape and work; not a launch) and returned as they came,
+a new output as a new meta tensor: nothing reaches ``ctypes``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import costs
 from repro_torch.kernels import torch_update as tu
 
 LAUNCHES = {"fused_local_sgd": 0, "fused_local_momentum": 0,
@@ -173,8 +177,16 @@ def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
             raise ValueError(f"{name}: {key} is not contiguous")
         if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if lead.device.type not in ("cpu", "cuda"):
+    if lead.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {lead.device}")
+
+
+def _dry(name: str, p: torch.Tensor, out, **opts):
+    """A call on meta tensors: charged to the dry run (``kernels.costs``)
+    with the options of its work, then ``out`` as the kernel would return
+    it; nothing is launched."""
+    costs.charge(name, tuple(p.shape), **opts)
+    return out
 
 
 def _worker_stride(name: str, p: torch.Tensor) -> int:
@@ -236,6 +248,9 @@ def fused_local_sgd(p: torch.Tensor, g: torch.Tensor,
     _same_shape("fused_local_sgd", p, g=g, d=d, b=b)
     if p.device.type == "cpu":
         return p.copy_(tu.fused_local_sgd(p, g, d, lr=lr, wd=wd, b=b))
+    if p.device.type == "meta":
+        return _dry("fused_local_sgd", p, p, use_d=d is not None, wd=wd,
+                    use_b=b is not None)
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_sgd(
@@ -268,6 +283,8 @@ def fused_sync_vrl(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
     if p.device.type == "cpu":
         new_p, new_d = tu.fused_sync_vrl(p, xbar, d, scal.reshape(1, 1))
         return p.copy_(new_p), d.copy_(new_d)
+    if p.device.type == "meta":
+        return _dry("fused_sync_vrl", p, (p, d))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
@@ -300,6 +317,9 @@ def fused_local_momentum(p: torch.Tensor, g: torch.Tensor,
         new_p, new_m = tu.fused_local_momentum(p, g, d, m, lr=lr, beta=beta,
                                                wd=wd, nesterov=nesterov, b=b)
         return p.copy_(new_p), m.copy_(new_m)
+    if p.device.type == "meta":
+        return _dry(name, p, (p, m), wd=wd, use_d=d is not None,
+                    use_b=b is not None, m_bytes=m.element_size())
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_momentum(
@@ -338,6 +358,9 @@ def fused_local_adam(p: torch.Tensor, g: torch.Tensor,
         outs = tu.fused_local_adam(p, g, d, mu, nu, scal.reshape(1, 2),
                                    lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, b=b)
         return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
+    if p.device.type == "meta":
+        return _dry(name, p, (p, mu, nu), wd=wd, use_d=d is not None,
+                    use_b=b is not None, m_bytes=mu.element_size())
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_adam(
@@ -428,6 +451,10 @@ def fused_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
             p, g, d, mu, row, col, scal.reshape(1, 2), lr=lr, b1=b1, b2=b2,
             eps=eps, wd=wd, b=b)
         return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
+    if p.device.type == "meta":
+        return _dry(name, p, (p, mu, row, torch.empty_like(col)),
+                    use_d=d is not None, use_b=b is not None,
+                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2])
     return _adam_sm3(name, p, g, d, b, mu, row, col, scal, 1,
                      _adam_consts(lr, b1, b2, eps, wd))
 
@@ -455,6 +482,8 @@ def fused_sync_bvr(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
         outs = tu.fused_sync_bvr(p, xbar, d, b, scal.reshape(1, 1),
                                  beta=beta)
         return tuple(t.copy_(o) for t, o in zip((p, d, b), outs))
+    if p.device.type == "meta":
+        return _dry(name, p, (p, d, b))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
@@ -489,6 +518,8 @@ def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
     if p.device.type == "cpu":
         new_p, new_c = tu.fused_sync_easgd(p, xbar, center, a=a, na=na)
         return p.copy_(new_p), center.copy_(new_c)
+    if p.device.type == "meta":
+        return _dry(name, p, (p, center))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
@@ -525,7 +556,7 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
     elif ref is not None and tuple(ref.shape) != tuple(p.shape[1:]):
         raise ValueError(f"{name}: ref {tuple(ref.shape)} is not one worker "
                          f"of p {tuple(p.shape)}")
-    if out is not None and e is not None and out.data_ptr() == e.data_ptr():
+    if out is not None and e is not None and _one_buffer(out, e):
         raise ValueError(f"{name}: out and e are one buffer; dec and the "
                          f"residual are both outputs")
     if mode == 1 and k < 1:
@@ -540,6 +571,11 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
     if p.shape[-1] > _MAX_EF_LANES:
         raise ValueError(f"{name}: the kernel takes rows of at most "
                          f"{_MAX_EF_LANES} lanes, got {p.shape[-1]}")
+    if p.device.type == "meta":
+        out = (torch.empty(p.shape, dtype=torch.float32, device=p.device)
+               if out is None else out)
+        return _dry(name, p, (out, e), use_ref=ref is not None,
+                    use_e=e is not None)
     if out is None:
         out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     lib = _comm_lib()
@@ -552,6 +588,15 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return out, e
+
+
+def _one_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at one address (on meta tensors, which
+    have none: one storage at one offset)."""
+    if a.device.type == "meta":
+        return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+                and a.storage_offset() == b.storage_offset())
+    return a.data_ptr() == b.data_ptr()
 
 
 def fused_ef_int8(p: torch.Tensor, ref: Optional[torch.Tensor],
@@ -640,6 +685,8 @@ def _fold(name: str, p, xbar, pend, d, b, wscal, *, beta: float,
             outs = tu.fused_fold_overlap_avg(p, xbar, pend, wscal,
                                              capture=capture)
         return tuple(t.copy_(o) for t, o in zip(bufs, outs))
+    if p.device.type == "meta":
+        return _dry(name, p, bufs, capture=capture)
     lib = _comm_lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
@@ -728,6 +775,8 @@ def fused_hier_local_sgd(p: torch.Tensor, g: torch.Tensor, d1: torch.Tensor,
     _pod_shape(name, p, d2=d2)
     if p.device.type == "cpu":
         return p.copy_(tu.fused_hier_local_sgd(p, g, d1, d2, lr=lr, wd=wd))
+    if p.device.type == "meta":
+        return _dry(name, p, p, wd=wd)
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_sgd(
@@ -759,6 +808,8 @@ def fused_sync_hier1(p: torch.Tensor, xbar_pod: torch.Tensor,
         new_p, new_d = tu.fused_sync_hier1(p, xbar_pod, d1,
                                            scal.reshape(1, 1))
         return p.copy_(new_p), d1.copy_(new_d)
+    if p.device.type == "meta":
+        return _dry(name, p, (p, d1))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_hier1(
@@ -793,6 +844,8 @@ def fused_sync_hier2(p: torch.Tensor, glob: torch.Tensor, d2: torch.Tensor,
     if p.device.type == "cpu":
         new_p, new_d = tu.fused_sync_hier2(p, glob, d2, scal.reshape(1, 1))
         return p.copy_(new_p), d2.copy_(new_d)
+    if p.device.type == "meta":
+        return _dry(name, p, (p, d2))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_hier2(
@@ -835,6 +888,8 @@ def fused_fold_overlap_hier2(p: torch.Tensor, glob: torch.Tensor,
         outs = tu.fused_fold_overlap_hier2(p, glob, pend2, d2, wscal,
                                            capture=capture)
         return tuple(t.copy_(o) for t, o in zip(bufs, outs))
+    if p.device.type == "meta":
+        return _dry(name, p, bufs, capture=capture)
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_fold_hier2(
@@ -868,6 +923,8 @@ def fused_hier_local_momentum(p: torch.Tensor, g: torch.Tensor,
         new_p, new_m = tu.fused_hier_local_momentum(
             p, g, d1, d2, m, lr=lr, beta=beta, wd=wd, nesterov=nesterov)
         return p.copy_(new_p), m.copy_(new_m)
+    if p.device.type == "meta":
+        return _dry(name, p, (p, m), wd=wd, m_bytes=m.element_size())
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_momentum(
@@ -908,6 +965,8 @@ def fused_hier_local_adam(p: torch.Tensor, g: torch.Tensor,
                                         scal.reshape(1, 2), lr=lr, b1=b1,
                                         b2=b2, eps=eps, wd=wd)
         return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
+    if p.device.type == "meta":
+        return _dry(name, p, (p, mu, nu), wd=wd, m_bytes=mu.element_size())
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_adam(
@@ -952,6 +1011,9 @@ def fused_hier_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
             p, g, d1, d2, mu, row, col, scal.reshape(1, 2), lr=lr, b1=b1,
             b2=b2, eps=eps, wd=wd)
         return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
+    if p.device.type == "meta":
+        return _dry(name, p, (p, mu, row, torch.empty_like(col)),
+                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2])
     return _adam_sm3(name, p, g, d1, d2, mu, row, col, scal, p.shape[1],
                      _adam_consts(lr, b1, b2, eps, wd))
 
@@ -975,7 +1037,7 @@ def _check_leaf(name: str, p: torch.Tensor, **tensors) -> None:
     """Raise on what the per-leaf kernels do not take: an operand not fp32
     or bf16, on another device than p, or not contiguous (any alignment
     and any element count are fine)."""
-    if p.device.type not in ("cpu", "cuda"):
+    if p.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {p.device}")
     for key, t in dict(p=p, **tensors).items():
         if t.dtype not in _MOMENT_DTYPES:
@@ -1008,6 +1070,11 @@ def vrl_local_update(p: torch.Tensor, g: torch.Tensor, d: torch.Tensor, *,
     _same_shape(name, p, g=g, d=d)
     if p.device.type == "cpu":
         return tu.vrl_local_update(p, g, d, lr=lr)
+    if p.device.type == "meta":
+        return _dry(name, p, torch.empty_like(
+            p, memory_format=torch.contiguous_format), n=p.numel(), m=0,
+            local=True, item=(p.element_size(), g.element_size(),
+                              d.element_size()))
     out = torch.empty_like(p, memory_format=torch.contiguous_format)
     lib = _leaf_lib()
     with torch.cuda.device(p.device):
@@ -1040,6 +1107,12 @@ def vrl_sync_update(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
                          f"shape {tuple(p.shape)} or a trailing part of it")
     if p.device.type == "cpu":
         return tu.vrl_sync_update(p, xbar, d, inv_kg=inv_kg)
+    if p.device.type == "meta":
+        return _dry(name, p, (
+            torch.empty_like(p, memory_format=torch.contiguous_format),
+            torch.empty_like(d, memory_format=torch.contiguous_format)),
+            n=p.numel(), m=xbar.numel(), local=False,
+            item=(p.element_size(), xbar.element_size(), d.element_size()))
     new_p = torch.empty_like(p, memory_format=torch.contiguous_format)
     new_d = torch.empty_like(d, memory_format=torch.contiguous_format)
     lib = _leaf_lib()

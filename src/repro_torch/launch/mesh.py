@@ -15,6 +15,12 @@ S + shard, so shard peers are adjacent, as in the reference's
 any other named grid (the shard-mapped MoE's ("data", "model")).
 ``gather_state`` and ``state_block`` carry a checkpoint between a mesh
 and its one file.
+
+The dry run (``launch.dryrun``) reads the engine's grid without a process
+group: ``dry_engine_mesh`` describes it as a ``comm.collectives.DryMesh``
+(rank 0's view).  The constants below are the card's, for the roofline
+(``launch.roofline``); they take the place of the reference's TPU v5e
+constants, which do not carry over.
 """
 from __future__ import annotations
 
@@ -28,7 +34,20 @@ import torch.distributed as dist
 from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import Block
 from repro_torch.comm import collectives as coll
-from repro_torch.comm.collectives import AXES, ENGINE_AXES, SHARD, WorkerMesh
+from repro_torch.comm.collectives import (AXES, ENGINE_AXES, SHARD, DryMesh,
+                                          WorkerMesh)
+# the card's rates (NVIDIA H100 80GB HBM3, SXM5, 700 W, data sheet) live
+# with the kernels' cost model, which chip_smoke reads without this module
+from repro_torch.kernels.costs import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: F401
+                                       PEAK_FLOPS_FP32, PEAK_FLOPS_TF32)
+
+HBM_PER_CHIP = 80 * 10**9   # bytes (80 GB) — the engine-memory fit budget
+CHIPS_PER_POD = 256         # the single-pod (16, 16) grid
+GPUS_PER_NODE = 8           # one NVLink / NVSwitch domain (HGX H100 8-GPU)
+NVLINK_BW = 450e9           # B/s per GPU, each direction (NVLink 4, 900
+#                             GB/s total) — the reference's ICI tier
+IB_BW = 50e9                # B/s per GPU: one 400 Gb/s NDR InfiniBand port
+#                             a GPU — the reference's DCI tier
 
 
 def rank_grid(workers: int, world: int, pods: int = 0,
@@ -114,6 +133,15 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
             if rank in buckets[key]:
                 groups[sub] = g
     return WorkerMesh(shape, rank, groups, axes)
+
+
+def dry_engine_mesh(workers: int, world: int, *, pods: int = 0,
+                    shards: int = 1) -> DryMesh:
+    """Rank 0's view of the engine's rank grid over ``world`` ranks
+    (``rank_grid``), with no process group: its collectives are counted
+    and move nothing (``comm.collectives.DryMesh``)."""
+    shape = rank_grid(workers, world, pods, shards)
+    return DryMesh(shape, ENGINE_AXES[:len(shape)])
 
 
 def make_engine_mesh(workers: int, *, pods: int = 0,

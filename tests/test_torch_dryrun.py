@@ -1,0 +1,569 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package's (``repro.launch.dryrun``), on the CPU.
+
+  * ``engine_mem`` for the ten architectures at the defaults, at
+    ``--shards 16``, at the CI gate's ``--shards 8 --moment-dtype
+    bfloat16``, at ``--sm3 --moment-dtype bfloat16 --shards 16``, and with
+    ``--clients 64`` on qwen2-0.5b: every (W, R, C) buffer equal in shape,
+    dtype, bytes and per-device bytes; ``reduction`` and ``devices_used``
+    equal; the totals equal up to the reference's 0-d scalar leaves (the
+    step counters and Adam's count), which the port keeps on the host.
+  * The collective bytes that ``lower_one`` counts for qwen2-0.5b
+    ``train_4k`` equal to the reference's HLO parse: the sync on the
+    single mesh, at ``--shards 16``, hier_vrl_sgd's sync1 and sync2 on
+    the multi mesh (sync2 all on the inter-node tier, as the reference
+    puts it all on DCI), and ``--compress int8``'s wire bytes.
+  * The meta count of a smoke model's local step equals
+    ``FlopCounterMode`` on the same step run on the CPU.
+  * The dry mesh's counts equal those of gloo ranks (``torch_dryrun_ranks``)
+    on a flat (1 x 2) grid, a hierarchical one and a row-sharded one (data
+    2 x shard 2).
+  * ``engine_mem``'s ``port`` figure: the state the port trains (fp32
+    params and Δ) beside the reference's layout.
+  * The CLI: the CI gate's exit codes on the reference's layout and on
+    the port's, the reference's keys on a row, an FSDP layout refused
+    with its reason.
+  * ``input_specs``, ``cache_specs``, ``state_specs`` and
+    ``batch_sharding_spec`` against the reference's, entry for entry; the
+    FSDP refusal and rank 0's block of each input, both read from them.
+
+The JAX side runs in one subprocess, started with the module (importing
+``repro.launch.dryrun`` sets ``XLA_FLAGS``), beside the port's side.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.multiprocessing as tmp  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+import torch_dryrun_ranks as DR  # noqa: E402
+from repro_torch.configs import base, registry  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.train.train_loop import make_train_step  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = registry.list_archs()
+MEM = {"default": {}, "shards16": {"shards": 16},
+       "gate": {"shards": 8, "moment_dtype": "bfloat16"},
+       "sm3": {"sm3": True, "moment_dtype": "bfloat16", "shards": 16}}
+MEM_CASES = [(a, t) for a in ARCHS for t in MEM] + [("qwen2-0.5b",
+                                                     "clients64")]
+# qwen2-0.5b train_4k lowerings: name -> lower_one keywords (both packages)
+LOWER = {"sync": dict(fn_kind="sync", multi_pod=False),
+         "sync_shards16": dict(fn_kind="sync", multi_pod=False, shards=16),
+         "sync1": dict(fn_kind="sync1", multi_pod=True,
+                       algorithm="hier_vrl_sgd"),
+         "sync2": dict(fn_kind="sync2", multi_pod=True,
+                       algorithm="hier_vrl_sgd"),
+         "sync_int8": dict(fn_kind="sync", multi_pod=False,
+                           compress="int8")}
+SCALARS = 16            # at most this many bytes of 0-d leaves
+SPEC_ARCHS = ("qwen2-0.5b", "mamba2-370m", "hymba-1.5b",
+              "phi3.5-moe-42b-a6.6b", "musicgen-large", "kimi-k2-1t-a32b")
+# VRLConfig fields of state_specs' cases (the compressor as text)
+SPEC_VRL = {"vrl_sgd": {}, "adam_int8": dict(inner_optimizer="adam",
+                                              compress="int8"),
+            "easgd": dict(algorithm="easgd", inner_optimizer="momentum",
+                          momentum=0.9),
+            "bvr": dict(algorithm="bvr_l_sgd"),
+            "ssgd_topk": dict(algorithm="ssgd", compress="topk:8:noef")}
+
+REF_SCRIPT = r"""
+import json, sys
+import jax
+from jax.sharding import PartitionSpec as P
+from repro.comm import compressors as cm
+from repro.configs import registry
+from repro.configs.base import VRLConfig
+from repro.launch import dryrun as d
+mem, lower = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+archs, vrl = json.loads(sys.argv[3]), json.loads(sys.argv[4])
+
+def js(x):
+    if isinstance(x, P):
+        return ["P", [list(e) if isinstance(e, tuple) else e for e in x]]
+    if isinstance(x, jax.ShapeDtypeStruct):
+        return ["S", list(x.shape)]
+    if isinstance(x, dict):
+        return {str(k): js(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return {f: js(getattr(x, f)) for f in x._fields}
+    if isinstance(x, tuple) and not x:
+        return None
+    return x
+
+specs = {}
+for arch in archs:
+    for multi in (False, True):
+        for serving in (False, True):
+            m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
+            c = registry.padded_arch(arch, m)
+            key = arch + ("/multi" if multi else "/single") + (
+                "/serve" if serving else "/train")
+            specs[key + "/cache"] = js(d.cache_specs(c, m, 128, 32768))
+            specs[key + "/cache1"] = js(d.cache_specs(c, m, 1, 7))
+            for b in (1, 16, 256):
+                for ws in (False, True):
+                    specs[key + "/batch/%d/%d" % (b, ws)] = js(
+                        d.batch_sharding_spec(m, b, 1, worker_stacked=ws))
+            if not serving:
+                for tag, kw in vrl.items():
+                    kw = dict(kw)
+                    if "compress" in kw:
+                        kw["compress"] = cm.parse_compressor(kw["compress"])
+                    specs[key + "/state/" + tag] = js(
+                        d.state_specs(c, m, VRLConfig(**kw)))
+            for shape in ("train_4k", "prefill_32k", "decode_32k",
+                          "long_500k"):
+                if (registry.get_shape(shape).kind == "train") == serving:
+                    continue
+                specs[key + "/inputs/" + shape] = js(
+                    d.input_specs(arch, shape, m))
+out = {"mem": {}, "lower": {}, "specs": specs}
+for arch in registry.list_archs():
+    for tag, kw in mem.items():
+        out["mem"][arch + "/" + tag] = d.engine_mem(arch, verbose=False, **kw)
+out["mem"]["qwen2-0.5b/clients64"] = d.engine_mem(
+    "qwen2-0.5b", clients=64, verbose=False)
+for key, kw in lower.items():
+    out["lower"][key] = d.lower_one("qwen2-0.5b", "train_4k", verbose=False,
+                                    **kw).to_json()
+print("REF " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's artifacts, from one subprocess started at the
+    module's first test; ``ref()`` waits for them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", REF_SCRIPT, json.dumps(MEM),
+         json.dumps(LOWER), json.dumps(SPEC_ARCHS), json.dumps(SPEC_VRL)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    box = {}
+
+    def get():
+        if "out" not in box:
+            so, se = proc.communicate(timeout=600)
+            assert proc.returncode == 0, se[-4000:]
+            line = next(x for x in so.splitlines() if x.startswith("REF "))
+            box["out"] = json.loads(line[4:])
+        return box["out"]
+    yield get
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _start(ref):
+    """Starts the JAX subprocess before any test of the module runs."""
+    yield
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ----------------------------------------------------------- engine_mem
+def _port_mem(arch, tag):
+    if tag == "clients64":
+        return dryrun.engine_mem(arch, clients=64, verbose=False)
+    return dryrun.engine_mem(arch, verbose=False, **MEM[tag])
+
+
+@pytest.mark.parametrize("arch,tag", MEM_CASES)
+def test_engine_mem_matches_reference(ref, arch, tag):
+    r = ref()["mem"][f"{arch}/{tag}"]
+    p = _port_mem(arch, tag)
+    # the reference's 0-d leaves the port keeps on the host (step counters,
+    # Adam's count): named, and at most SCALARS bytes
+    host = {k: b for k, b in r["buffers"].items() if k not in p["buffers"]}
+    assert set(host) <= {"step", "last_sync", "inner/count"}, host
+    assert all(b["shape"] == [] for b in host.values()), host
+    extra = sum(b["bytes"] for b in host.values())
+    extra_dev = sum(b["per_device_bytes"] for b in host.values())
+    assert extra <= SCALARS
+    assert set(p["buffers"]) <= set(r["buffers"])
+    for key, b in p["buffers"].items():
+        assert b == r["buffers"][key], key
+    for k in ("arch", "algorithm", "inner", "workers", "shards",
+              "moment_dtype", "sm3", "delta_dtype", "devices_used",
+              "reduction", "chips_per_pod"):
+        assert p[k] == r[k], k
+    assert p["total_bytes"] == r["total_bytes"] - extra
+    assert p["per_device_bytes"] == r["per_device_bytes"] - extra_dev
+    assert p["baseline_per_device_bytes"] == \
+        r["baseline_per_device_bytes"] - extra_dev
+    assert p["hbm_per_chip"] == mesh_mod.HBM_PER_CHIP == 80 * 10**9
+    assert p["fits_pod"] == (p["devices_used"] <= 256
+                             and p["per_device_bytes"] <= 80 * 10**9)
+    assert p["t_engine_pass"] == 2.0 * p["per_device_bytes"] / 3.35e12
+    # the state the port trains: its kernels take fp32 params and Δ, so
+    # each bf16 one of the reference's layout doubles, the rest as sized
+    port = p["port"]
+    assert (port["param_dtype"], port["delta_dtype"]) == ("float32",
+                                                          "float32")
+    wide = [b for k, b in p["buffers"].items()
+            if k in ("params", "delta") and b["dtype"] == "bfloat16"]
+    assert p["buffers"]["params"] in wide
+    assert port["total_bytes"] == p["total_bytes"] + sum(
+        b["bytes"] for b in wide)
+    assert port["per_device_bytes"] == p["per_device_bytes"] + sum(
+        b["per_device_bytes"] for b in wide)
+    assert port["fits_pod"] == (p["devices_used"] <= 256
+                                and port["per_device_bytes"] <= 80 * 10**9)
+    assert port["t_engine_pass"] == \
+        2.0 * port["per_device_bytes"] / 3.35e12
+    if tag == "clients64":
+        assert p["client_store_bytes"] == r["client_store_bytes"] - extra
+
+
+# ---------------------------------------------------- collective bytes
+@pytest.fixture(scope="module")
+def lowered():
+    return {k: dryrun.lower_one("qwen2-0.5b", "train_4k", verbose=False,
+                                **kw) for k, kw in LOWER.items()}
+
+
+@pytest.mark.parametrize("key", list(LOWER))
+def test_collective_bytes_match_reference_hlo(ref, lowered, key):
+    r = ref()["lower"][key]
+    p = lowered[key].to_json()
+    assert p["ok"] and r["ok"]
+    assert p["coll_bytes"] == r["coll_bytes"], (p["coll_detail"],
+                                                r["coll_detail"])
+    if key == "sync2":
+        # the cross-pod all-reduce: all on the slow tier in both packages
+        assert r["dci_bytes"] == r["coll_bytes"]
+        assert p["dci_bytes"] == p["coll_bytes"] > 0
+    assert p.get("comp_bytes", 0) == r.get("comp_bytes", 0)
+    assert p.get("compressor", "") == r.get("compressor", "")
+    assert p["kernels"] == {"sync": {"fused_sync_vrl": 1},
+                            "sync_shards16": {"fused_sync_vrl": 1},
+                            "sync1": {"fused_sync_hier1": 1},
+                            "sync2": {"fused_sync_hier2": 1},
+                            "sync_int8": {"fused_ef_int8": 1,
+                                          "fused_sync_vrl": 1}}[key]
+    # one model-state all-reduce on rank 0's group
+    state = p["collectives"]["state"]
+    assert sum(v["calls"] for v in state.values()) == 1, state
+
+
+def test_sync_collective_is_the_padded_flat_buffer(lowered):
+    """1,998,585,856 B: padded qwen2-0.5b's 1,951,744 rows of 256 fp32
+    lanes (14 heads padded to 16 for the 16-wide tensor axis), one worker
+    a rank; at 16 row shards a rank's 1/16 of the rows padded to blocks."""
+    assert lowered["sync"].roofline.coll_bytes == 1_951_744 * 256 * 4
+    assert lowered["sync_shards16"].roofline.coll_bytes == 125_829_120
+
+
+# ----------------------------------------------------------------- FLOPs
+SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-370m", "hymba-1.5b",
+               "phi3.5-moe-42b-a6.6b", "musicgen-large")
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_meta_flops_equal_cpu_flop_counter(arch):
+    """The smoke model's local step (W = 2, batch 4 x 32) counted on meta
+    tensors equals FlopCounterMode on the same step run on the CPU, and
+    charges the kernel the CPU run would launch on the card."""
+    cfg = registry.smoke_arch(arch)
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    res = dryrun.lower_one(
+        arch, "train_4k", multi_pod=False, fn_kind="local",
+        one_process=True, cfg_override=over,
+        mesh_override={"shape": (2, 16)},
+        shape_override=base.InputShape("s", 32, 8, "train"), verbose=False)
+    bundle = make_train_step(cfg, base.VRLConfig(update_backend="xla"),
+                             device="cpu")
+    st = bundle.init_state(0, 2)
+    gen = torch.Generator().manual_seed(0)
+    lab = torch.randint(0, cfg.vocab_size, (2, 4, 32), generator=gen)
+    tok = (torch.randn(2, 4, 32, cfg.frontend_dim, generator=gen)
+           if cfg.frontend == "codec" else lab)
+    with FlopCounterMode(display=False) as fm:
+        bundle.local_step(st, tok, lab)
+    assert res.roofline.hlo_flops == fm.get_total_flops() > 0
+    assert res.roofline.flops_by_dtype == {"float32": fm.get_total_flops()}
+    assert res.counted.launches() == {"fused_local_sgd": 1}
+    assert res.per_device_bytes > res.counted.base_bytes > 0
+
+
+@pytest.mark.parametrize("fn", ["prefill", "decode"])
+def test_meta_serving_flops_equal_cpu_flop_counter(fn):
+    """The smoke qwen2-0.5b's prefill (4 x 32) and decode step against a
+    32-slot cache, bf16 as the dry run serves, counted on meta tensors and
+    on the CPU."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import make_prefill, make_serve_step
+    cfg = registry.smoke_arch("qwen2-0.5b")
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    shape = base.InputShape("s", 32, 64, fn)
+    res = dryrun.lower_one("qwen2-0.5b", "s", multi_pod=False, fn_kind=fn,
+                           cfg_override=over, shape_override=shape,
+                           verbose=False)
+    params = transformer.init_params(cfg, 0, dtype=torch.bfloat16)
+    with FlopCounterMode(display=False) as fm:
+        with torch.no_grad():
+            if fn == "prefill":
+                make_prefill(cfg, 32)(params, torch.zeros(4, 32,
+                                                          dtype=torch.long))
+            else:
+                cache = transformer.init_cache(cfg, 4, 32)
+                make_serve_step(cfg)(params, cache,
+                                     torch.zeros(4, 1, dtype=torch.long), 31)
+    assert res.roofline.hlo_flops == fm.get_total_flops() > 0
+    assert res.roofline.chips == 16       # 64 requests over 16 data ranks
+    assert res.counted.counts == {} and res.counted.launches() == {}
+
+
+# --------------------------------------------- the dry mesh against gloo
+def _spawn(fn, world, *args):
+    tmp.start_processes(fn, args=(world, *args), nprocs=world,
+                        start_method="spawn")
+
+
+@pytest.fixture(scope="module")
+def gloo_counts(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dryrun_gloo")
+    out = {}
+    for world in (2, 4):
+        _spawn(DR.counts, world, str(d / f"store{world}"),
+               str(d / f"counts{world}"))
+        out.update(torch.load(str(d / f"counts{world}.rank0"),
+                              weights_only=False))
+    return out
+
+
+@pytest.mark.parametrize("case", DR.FLAT_CASES + ("rows",))
+def test_dry_mesh_counts_equal_gloo(gloo_counts, case):
+    real = gloo_counts[case]
+    if case == "rows":
+        mesh = mesh_mod.dry_engine_mesh(DR.SHARD_W, DR.SHARD_W * DR.SHARDS,
+                                        shards=DR.SHARDS)
+        dry = DR.shard_counts(mesh, meta=True)
+        real_counts = tuple(real["counts"])
+        dry = tuple(dry)
+    else:
+        hier = DR.port_cfg(case).hier is not None
+        mesh = mesh_mod.dry_engine_mesh(DR.W, 2,
+                                        pods=DR.PODS if hier else 0)
+        dry = DR.case_counts(case, mesh, meta=True)
+        real_counts = real["counts"]
+    assert tuple(mesh.shape) == tuple(real["grid"])
+    assert dry == real_counts
+    assert any(c for c in (dry if case != "rows" else dry[1])), dry
+
+
+# ------------------------------------------------------------------- CLI
+def _cli(*argv) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+
+
+@pytest.mark.parametrize("budget,rc", [(700_000_000, 0), (600_000_000, 1)])
+def test_cli_engine_mem_gate(budget, rc):
+    """The CI gate's command (qwen2-0.5b at 8 row shards, bf16 moments) with
+    no card visible, on the reference's layout (bf16 params: 626,524,160 B
+    a device)."""
+    proc = _cli("--engine-mem", "--arch", "qwen2-0.5b", "--shards", "8",
+                "--moment-dtype", "bfloat16", "--gate-bytes", str(budget))
+    assert proc.returncode == rc, proc.stderr[-2000:]
+    if rc:
+        assert "engine-mem gate FAILED (the reference's layout)" in \
+            proc.stderr
+    else:
+        assert "engine-mem: 1 arch(s) OK" in proc.stdout
+        assert "the reference's layout" in proc.stdout
+
+
+def test_cli_engine_mem_gate_reports_the_port_layout(tmp_path):
+    """The gate's point on the state the port trains (fp32 params and Δ):
+    751,828,992 B a device, printed beside the reference's layout as over
+    the 7e8 budget, and in the artifact under ``port``."""
+    out = tmp_path / "mem.jsonl"
+    proc = _cli("--engine-mem", "--arch", "qwen2-0.5b", "--shards", "8",
+                "--moment-dtype", "bfloat16", "--gate-bytes", "700000000",
+                "--out", str(out))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    art = json.loads(out.read_text())
+    assert art["per_device_bytes"] == 626_524_160
+    assert art["port"]["per_device_bytes"] == 751_828_992
+    assert ("the reference's layout 626524160 B/device, the port's state "
+            "(fp32 params and Δ) 751828992 B/device, over 700000000") in \
+        proc.stdout
+
+
+def test_cli_sync_row_has_the_reference_keys(ref, tmp_path):
+    out = tmp_path / "rows.jsonl"
+    assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
+                        "--fn", "sync", "--out", str(out)]) == 0
+    row = json.loads(out.read_text().splitlines()[0])
+    assert set(ref()["lower"]["sync"]) <= set(row)
+    assert row["ok"] and row["fn"] == "sync" and row["mesh"] == "single"
+    assert row["coll_bytes"] == ref()["lower"]["sync"]["coll_bytes"]
+
+
+def test_cli_fsdp_layout_is_refused_with_its_reason(tmp_path):
+    out = tmp_path / "rows.jsonl"
+    assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+                        "--fn", "local", "--out", str(out)]) == 1
+    row = json.loads(out.read_text().splitlines()[0])
+    assert row["ok"] is False and row["per_device_bytes"] == -1
+    assert "FSDP" in row["error"] and "NotImplementedError" in row["error"]
+
+
+def test_dryrun_touches_no_card(monkeypatch):
+    """Nothing of the dry run calls into torch.cuda."""
+    def boom(*a, **k):
+        raise AssertionError("the dry run called torch.cuda")
+    for name in ("is_available", "current_device", "synchronize",
+                 "current_stream", "device_count"):
+        monkeypatch.setattr(torch.cuda, name, boom)
+    res = dryrun.lower_one("qwen2-0.5b", "train_4k", multi_pod=False,
+                           fn_kind="sync", verbose=False)
+    assert res.ok
+    dryrun.engine_mem("mamba2-370m", verbose=False)
+
+
+# ------------------------------------------------------------- the specs
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fsdp_refusal_follows_the_specs(arch, multi):
+    """The dry run refuses exactly the layouts whose specs split a worker's
+    state (training) or parameters (serving) over an FSDP axis: the
+    reference's FSDP archs, kimi-k2 alone in serving."""
+    for serving in (False, True):
+        m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
+        c = registry.padded_arch(arch, m)
+        specs = (dryrun.sh.partition_specs(
+            dryrun.transformer.model_defs(c), c, m) if serving
+            else dryrun.state_specs(c, m, base.VRLConfig()))
+        fsdp = arch in (registry._FSDP_SERVE_ARCHS if serving
+                        else registry._FSDP_ARCHS)
+        assert (m.fsdp_size > 1) == fsdp
+        if fsdp:
+            with pytest.raises(NotImplementedError, match="FSDP within"):
+                dryrun._refuse_fsdp(arch, specs, m, serving)
+        else:
+            dryrun._refuse_fsdp(arch, specs, m, serving)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_rank_block_is_rank0s_share(arch, multi):
+    """Rank 0's block of each input, by its spec: a train batch is one
+    worker's (1, b, ...), a serve batch and its cache 1/16 (1/32) of the
+    global batch over the data-like axes with every head whole (no tensor
+    parallelism), the whole batch where those axes do not divide it."""
+    from repro_torch.models import transformer
+    for shape_id in registry.INPUT_SHAPES:
+        shape = registry.get_shape(shape_id)
+        serving = shape.kind != "train"
+        m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
+        if m.fsdp_size > 1:
+            continue
+        c = registry.padded_arch(arch, m)
+        ins = dryrun.input_specs(arch, shape_id, m)
+        if not serving:
+            spec = dryrun.batch_sharding_spec(
+                m, shape.global_batch // m.num_workers,
+                ins["tokens"].dim() - 2, worker_stacked=True)
+            tok = dryrun.rank_block(ins["tokens"], spec, m)
+            assert tok.shape == (1, *ins["tokens"].shape[1:])
+            continue
+        spec = dryrun.batch_sharding_spec(m, shape.global_batch,
+                                          ins["tokens"].dim() - 1,
+                                          worker_stacked=False)
+        ranks = m.num_workers if shape.global_batch % m.num_workers == 0 \
+            else 1
+        b = shape.global_batch // ranks
+        tok = dryrun.rank_block(ins["tokens"], spec, m)
+        assert tok.shape == (b, *ins["tokens"].shape[1:])
+        if shape.kind == "decode":
+            window = dryrun._decode_window(c, shape)
+            cache = tree_map(
+                lambda t, s: dryrun.rank_block(t, s, m), ins["cache"],
+                dryrun.cache_specs(c, m, shape.global_batch, shape.seq_len))
+            want = transformer.init_cache(c, b, shape.seq_len,
+                                          window=window, device="meta")
+            assert tree_map(lambda t: tuple(t.shape), cache) == \
+                tree_map(lambda t: tuple(t.shape), want), shape_id
+
+
+def _js(x):
+    """The port's specs as the reference script writes its own: a spec
+    tuple as ["P", entries], a meta tensor as ["S", shape]."""
+    if isinstance(x, tuple):
+        return ["P", [list(e) if isinstance(e, tuple) else e for e in x]]
+    if isinstance(x, torch.Tensor):
+        return ["S", list(x.shape)]
+    if isinstance(x, dict):
+        return {str(k): _js(v) for k, v in x.items()}
+    return x
+
+
+def _vrl(kw):
+    from repro_torch.comm import compressors as tcm
+    kw = dict(kw)
+    if "compress" in kw:
+        kw["compress"] = tcm.parse_compressor(kw["compress"])
+    return base.VRLConfig(**kw)
+
+
+@pytest.mark.parametrize("serving", [False, True])
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_specs_match_reference(ref, arch, multi, serving):
+    specs = ref()["specs"]
+    m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
+    c = registry.padded_arch(arch, m)
+    key = arch + ("/multi" if multi else "/single") + (
+        "/serve" if serving else "/train")
+    assert _js(dryrun.cache_specs(c, m, 128, 32768)) == specs[key + "/cache"]
+    assert _js(dryrun.cache_specs(c, m, 1, 7)) == specs[key + "/cache1"]
+    for b in (1, 16, 256):
+        for ws in (False, True):
+            assert _js(dryrun.batch_sharding_spec(
+                m, b, 1, worker_stacked=ws)) == \
+                specs[key + "/batch/%d/%d" % (b, ws)]
+    if not serving:
+        for tag, kw in SPEC_VRL.items():
+            got = _js(dryrun.state_specs(c, m, _vrl(kw)))
+            want = specs[key + "/state/" + tag]
+            assert got == want, tag
+    n = 0
+    for shape in registry.INPUT_SHAPES:
+        if (registry.get_shape(shape).kind == "train") == serving:
+            continue
+        got = _js(dryrun.input_specs(arch, shape, m))
+        want = specs[key + "/inputs/" + shape]
+        # the port's ids are int64 and its decode position a host int
+        if "pos" in want:
+            assert want.pop("pos") == ["S", []] and isinstance(
+                got.pop("pos"), int)
+        assert got == want, shape
+        n += 1
+    assert n == (3 if serving else 1)
