@@ -19,6 +19,7 @@
   python3 chip_smoke.py --moe-ranks OUT   # phase 12's (au) ranks (the
                                            # script launches them itself)
   python3 chip_smoke.py --dryrun    # phases 1, 2 and 13 alone
+  python3 chip_smoke.py --bf16      # phases 1, 2 and 14 alone
   python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
                                            # training paths alone, the cut
                                            # ones at N of qwen2-0.5b's 24
@@ -575,9 +576,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      (flat 764,928 × 256; 765,952 rows at shards 2, a multiple of block
      1024 · 2), through ``launch.train --mesh-grid --shards 2``
      on (data 2 × shard 2): W = 2, batch 8 × 64, k = 2, 4 steps, vrl_sgd
-     + adam.  Every rank's losses and the last step's save (gathered
-     over both axes into one file) bitwise the one-process run at
-     ``--shards 2``; ``--shards 1`` within 1e-6 · max|p|; each rank's
+     + adam.  Every rank's losses bitwise the one-process run at
+     ``--shards 2`` (no save, for the script's time: (at) gathers and
+     holds the sharded saves); ``--shards 1`` within 1e-6 ·
+     max|p|; each rank's
      params (1, 382,976, 256); one "state" all-reduce a round over its
      shard column; fused_local_adam 4, fused_sync_vrl 2 a rank, as one
      process; Σ Δ as phase 9 bounds it after every sync.
@@ -611,15 +613,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (aw) ``engine_mem`` for the ten architectures and for the CI gate's
      configuration (qwen2-0.5b, ``--shards 8 --moment-dtype bfloat16``,
      at most 700,000,000 B a device in the reference's layout, bf16
-     params; the port's own state there, fp32 params and Δ, printed
-     beside it); the card's total memory (``get_device_properties``)
+     params, which is the state the port trains: ``port`` held to the
+     same budget); the card's total memory (``get_device_properties``)
      printed with its name and power limit, a failure below
      ``launch.mesh.HBM_PER_CHIP`` (80 GB); then the state the port trains
      that ``engine_mem`` sizes for padded qwen2-0.5b (24 layers, W = 4,
-     Adam, fp32 params and Δ) made on the card: the bytes of its storages
-     equal to ``engine_mem``'s ``port`` total (the scalar leaves the port
-     keeps on the host aside), and one local step of the port's engine
-     on it (fused_local_adam once).
+     Adam, bf16 params, fp32 Δ and moments) made on the card: the bytes
+     of its storages equal to ``engine_mem``'s ``port`` total (the scalar
+     leaves the port keeps on the host aside), and one local step of the
+     port's engine on it (fused_local_adam once, bf16 parameters).
    - (ax) one round, real and counted: qwen2-0.5b padded for the single
      mesh (16 heads), 4 of 24 layers, W = 4, batch 8 × 64, one round of k
      = 2, vrl_sgd + sgd, the fused kernels.  The real round on the card
@@ -631,11 +633,36 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (ay) the roofline of (ax) (fp32 products at the CUDA cores' rate:
      TF32 is off) beside five more rounds' spans (CUDA events; each
      round's, with the SM clock, power and temperature after it, then the
-     median and the spread): the products' time against ``fwd_bwd``, the
+     median and the spread; the round runs fp32 parameters, and the dry
+     run counts it at that dtype): the products' time against ``fwd_bwd``, the
      engine pass against ``local``, the sync kernel's bound against
      ``sync``, and the round's bound against the round, each with its
      achieved share of the median; then one round under torch.profiler,
      its device time against its spans (the share the card computes).
+
+14. bf16 parameters — the engine at the reference's parameter dtype:
+   - (az) each of the twenty-one engine kernels at the main path's shape
+     (4, 1,930,240, 256) (the hierarchy's at (2, 2, 1,930,240, 256)) with
+     the operands of its phase-3 path, the parameters, the gradient and
+     x̂ bf16, and Δ/B fp32 and (where the path has them) bf16: bitwise
+     its plain version worker slice by worker slice, its time in place
+     (CUDA events, 5 launches) beside phase 3's fp32 time and its byte
+     bound at those operand sizes (``kernels.costs``), the plain version
+     timed slice by slice, and ``torch._fused_sgd_`` on the bf16
+     parameters without Δ for the sgd steps.
+   - (ba) qwen2-0.5b at full width (24 layers) through
+     ``make_train_step(param_dtype=torch.bfloat16)``: vrl_sgd + sgd, then
+     + adam (fp32 Δ and moments), W = 4, batch 8 × 64, two rounds of k =
+     3 at γ = MAIN_LR, from torch's draw with wq, wk × 0.1 (the plain
+     draw's first gradients reach ~1e12 at full depth, in fp32 too).
+     Gates: finite losses; after each sync Σ_i Δ_i within the bf16
+     rounding of x̂ (elementwise |Σ_i Δ_i| <= Σ over the syncs of W ·
+     ulp_bf16(x̂)/(k γ), 1e-4 · max|Δ| beyond it); the state's storages
+     on the card equal to ``engine_mem``'s sizing of that state
+     (``launch.dryrun._engine_state_bytes``, bf16 params); the launches
+     (fused_local_sgd or fused_local_adam 6, fused_sync_vrl 2).  The peak
+     beside phase 4's vrl_sgd + sgd (fp32 params, the same model and
+     batch).
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -643,7 +670,10 @@ it; flash_attention's and ssd_scan's from their phase-3 paths, their
 times at qwen2-0.5b's width, fp32, causal, and at mamba2-370m's layer 0,
 fp32, ``bound_ms`` the tensor cores', with the fp32 CUDA-core bound,
 the bf16 row's numbers and the widened shapes' rows (``wide``) beside
-them), and last
+them; each engine kernel's phase-14 numbers under ``bf16``: launches in
+(ba), and ms, plain_ms, bound_ms, bound_by, library_ms with an fp32 Δ
+(``delta_fp32``) and a bf16 one (``delta_bf16``, null without Δ)), and
+last
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1106,10 +1136,11 @@ class KernelChecks:
         worker by worker)."""
         n = slice_count(args, ndim, per_worker)
         for i in range(n):
+            # the slice's clones go with their last reference (no cycle
+            # holds them): no collection between slices
             sl_args, sl_kw = worker_slice(i, args, kw, ndim, per_worker)
             self.run(name, sl_args, f"full shape, slice {i}", **sl_kw)
             del sl_args, sl_kw
-            gc.collect()
 
 
 def slice_count(args, ndim=3, per_worker=False):
@@ -1421,7 +1452,7 @@ def full_shape(chk, vu, tu, dev):
         def run():
             for sl_args, sl_kw in slices:
                 fn(*sl_args, **sl_kw)
-        plain[name] = time_ms(run, 3)
+        plain[name] = time_ms(run, 1)
         del slices
         free()
 
@@ -1898,7 +1929,7 @@ def ef_identity_watch(state):
 
 def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
                require_finite=True, after=None, watch=None, cfg=None,
-               batch=8, seq=64, make_kw=None, w=4):
+               batch=8, seq=64, make_kw=None, w=4, start=None):
     """One full-width path through ``make_train_step(timed=True)`` and
     ``round_step``, W=4, on the synthetic non-iid stream: qwen2-0.5b at
     phase 4's cut depth, batch 8, seq 64 unless ``cfg``, ``batch``,
@@ -1908,7 +1939,8 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     after.  ``watch(state)``, before each round and outside its timing,
     returns a check ``(state, k) -> record`` of the round's sync.
     ``after(bundle, state, vrl)`` then checks the final state and returns
-    a note.  Returns what was measured."""
+    a note.  ``start(bundle, w)`` makes the first state (default
+    ``bundle.init_state(0, w)``).  Returns what was measured."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import VRLConfig
     from repro_torch.core import engine as engine_mod
@@ -1920,7 +1952,8 @@ def train_path(tag, vrl_kw, rounds, want_launches, dev, vu,
     vrl = VRLConfig(**vrl_kw)
     bundle = make_train_step(cfg, vrl, device=dev, timed=True,
                              **(make_kw or {}))
-    state = bundle.init_state(0, w)
+    state = (bundle.init_state(0, w) if start is None
+             else start(bundle, w))
     data = assigned_token_stream(contiguous_assignment(w, w), seq,
                                  cfg.vocab_size, steps=steps, batch=batch,
                                  alpha=0.05, seed=0)
@@ -5785,28 +5818,17 @@ def as_path(vu, card, launch) -> None:
     """(as): qwen2-0.5b at ``SHARD_LAYERS`` layers, full width, vrl_sgd +
     adam through ``launch.train --mesh-grid --shards 2`` on gloo (data 2 ×
     shard 2), against the one-process runs at --shards 2 (bitwise: the
-    losses and the last step's save, which the mesh gathers into one file)
-    and 1 (1e-6 · max|p|)."""
-    from repro_torch import checkpoint as ckpt
+    losses; the sharded save's gather is (at)'s) and 1 (1e-6 ·
+    max|p|)."""
     from repro_torch.core import flat
     _, rows, lanes = QWEN_CUT_LAYOUTS[SHARD_LAYERS]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_as_")
-    dm, d1 = os.path.join(tmp, "mesh"), os.path.join(tmp, "one")
-    save = ["--shards", "2", "--ckpt-every", str(AS_STEPS), "--ckpt"]
-    try:
-        t0 = time.time()
-        ranks = shard_cli("(as)", AS_ARGS + save + [dm], card)
-        t_mesh = time.time() - t0
-        vu.reset_launches()
-        one = launch.run(AS_ARGS + save + [d1])
-        check_launches("(as) one process", dict(vu.LAUNCHES), AS_LAUNCHES)
-        same_ranks("(as)", ranks, one, AS_LAUNCHES)
-        t0 = time.time()
-        nbytes = same_checkpoint("(as) final state", ckpt.step_dir(
-            dm, AS_STEPS), ckpt.step_dir(d1, AS_STEPS))
-        t_cmp = time.time() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.time()
+    ranks = shard_cli("(as)", AS_ARGS + ["--shards", "2"], card)
+    t_mesh = time.time() - t0
+    vu.reset_launches()
+    one = launch.run(AS_ARGS + ["--shards", "2"])
+    check_launches("(as) one process", dict(vu.LAUNCHES), AS_LAUNCHES)
+    same_ranks("(as)", ranks, one, AS_LAUNCHES)
     # rows pad to a multiple of block · shards: 765,952 at block 1024
     block = [1, one.engine.spec.rows // 2, lanes]
     rounds = len(one.losses) // 2
@@ -5841,9 +5863,8 @@ def as_path(vu, card, launch) -> None:
     print(f"[12 shards (as)] qwen2-0.5b at {SHARD_LAYERS} of 24 layers "
           f"(flat {rows:,} x {lanes}; {one.engine.spec.rows:,} rows at "
           f"--shards 2), W = 2, vrl_sgd+adam: the four ranks' "
-          f"losses {['%.6f' % x for x in one.losses]} and gathered final "
-          f"state ({nbytes / 1e9:.2f} GB, compared in {t_cmp:.1f} s) "
-          f"bitwise the one-process run at --shards 2 (each rank "
+          f"losses {['%.6f' % x for x in one.losses]} bitwise the "
+          f"one-process run at --shards 2 (each rank "
           f"{block}, one state all-reduce a round over its shard column, "
           f"launches {AS_LAUNCHES} as one process); --shards 1 within "
           f"{diff:.3e} <= 1e-6 · max|p| {scale:.3e}; Σ_i Δ_i within "
@@ -6113,9 +6134,9 @@ def shards_phase(dev, vu, card) -> None:
     from repro_torch.launch import train as launch
     t12 = time.time() - START
     print(f"[12 shards] from {t12:.1f} s of the script; reckoned: (as) "
-          f"~90 s (four gloo ranks, 4 steps through the host, then two "
+          f"~45 s (four gloo ranks, 4 steps through the host, then two "
           f"one-process runs), (at) ~50 s (two launches), (au) ~40 s, (av) "
-          f"~80 s beside them: ~180 s; {card}", flush=True)
+          f"~80 s beside them: ~135 s; {card}", flush=True)
     free()
     chaos = start_chaos()
     try:
@@ -6157,32 +6178,32 @@ def aw_engine_mem(dev, card, dryrun, vu) -> None:
     arts = {a: dryrun.engine_mem(a, verbose=False)
             for a in registry.list_archs()}
     print("[13 dry run (aw)] engine_mem, vrl_sgd + adam at the single "
-          "mesh's W, GiB a device, the reference's layout (bf16 params) / "
-          "the port's (fp32 params and Δ), each with its fit in 80 GB: "
+          "mesh's W, GiB a device, the reference's layout, which the port "
+          "trains (bf16 params), each with its fit in 80 GB: "
           + ", ".join(
-              f"{a} {r['per_device_bytes'] / 2**30:.2f} ({r['fits_pod']}) / "
-              f"{r['port']['per_device_bytes'] / 2**30:.2f} "
-              f"({r['port']['fits_pod']})" for a, r in arts.items()),
+              f"{a} {r['per_device_bytes'] / 2**30:.2f} ({r['fits_pod']})"
+              for a, r in arts.items()),
           flush=True)
     gate = dryrun.engine_mem("qwen2-0.5b", shards=8,
                              moment_dtype="bfloat16", verbose=False)
-    if gate["per_device_bytes"] > ENGINE_GATE:
-        raise AssertionError(f"(aw): the CI gate's point holds "
-                             f"{gate['per_device_bytes']} B a device > "
-                             f"{ENGINE_GATE} in the reference's layout")
     port_dev = gate["port"]["per_device_bytes"]
+    if max(gate["per_device_bytes"], port_dev) > ENGINE_GATE:
+        raise AssertionError(f"(aw): the CI gate's point holds "
+                             f"{gate['per_device_bytes']} B a device in "
+                             f"the reference's layout, {port_dev} B in the "
+                             f"port's: over {ENGINE_GATE}")
     print(f"[13 dry run (aw)] the CI gate (qwen2-0.5b --shards 8 "
           f"--moment-dtype bfloat16), the reference's layout (bf16 params): "
           f"{gate['per_device_bytes']} B a device <= {ENGINE_GATE}, "
           f"{gate['reduction']}x below the fp32 baseline; the state the "
-          f"port trains there (fp32 params and Δ): {port_dev} B a device, "
-          f"{'over' if port_dev > ENGINE_GATE else 'within'} that budget",
+          f"port trains there: {port_dev} B a device, within that budget",
           flush=True)
     art = dryrun.engine_mem("qwen2-0.5b", workers=4, verbose=False)
     mesh_cfg = registry.mesh_roles("qwen2-0.5b")
     cfg = registry.padded_arch("qwen2-0.5b", mesh_cfg)
     vcfg = base.VRLConfig(inner_optimizer="adam", update_backend="fused")
-    template = abstract(transformer.model_defs(cfg))        # fp32
+    # the reference's layout, the one the port trains: bf16 parameters
+    template = abstract(transformer.model_defs(cfg), torch.bfloat16)
     eng = em.make_engine(vcfg, template, device=dev)
     params = tm.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                                device=dev), template)
@@ -6198,8 +6219,8 @@ def aw_engine_mem(dev, card, dryrun, vu) -> None:
                      if not isinstance(v, torch.Tensor))
     want = art["port"]["total_bytes"]
     print(f"[13 dry run (aw)] padded qwen2-0.5b (16 heads, 24 layers), W = "
-          f"4, adam: engine_mem sizes the port's state (fp32 params and Δ) "
-          f"at {want} B ({art['total_bytes']} B in the reference's layout), "
+          f"4, adam: engine_mem sizes the port's state (bf16 params, fp32 "
+          f"Δ and moments: the reference's layout) at {want} B, "
           f"{len(art['buffers'])} buffers "
           f"{json.dumps({k: b['shape'] for k, b in art['buffers'].items()})}"
           f"; the state made on the card holds {on_card} B in "
@@ -6208,7 +6229,7 @@ def aw_engine_mem(dev, card, dryrun, vu) -> None:
     if on_card != want:
         raise AssertionError(f"(aw): the engine state on the card holds "
                              f"{on_card} B, engine_mem sizes {want}")
-    # the port steps that state: one local step, zero gradients
+    # the port steps that state: one local step, zero bf16 gradients
     n0 = vu.LAUNCHES["fused_local_adam"]
     state = eng.local_step(state, torch.zeros_like(state.params))
     torch.cuda.synchronize(dev)
@@ -6316,7 +6337,10 @@ def ax_round(dev, vu, card, dryrun):
         mesh_override=mesh_over, cfg_override={"num_layers": AX_LAYERS},
         shape_override=base.InputShape("ax", AX_SEQ, AX_W * AX_BATCH,
                                        "train"),
-        allow_tf32=False, verbose=False)
+        allow_tf32=False, verbose=False,
+        # the card's round runs fp32 parameters: the dry run at its dtype
+        # (lower_one's default is the reference's bf16)
+        param_dtype=torch.float32)
     meta = res.counted
     print(f"[13 dry run (ax)] qwen2-0.5b padded (16 heads), {AX_LAYERS} of "
           f"24 layers, W = {AX_W}, batch {AX_BATCH} x {AX_SEQ}, one round "
@@ -6413,6 +6437,319 @@ def dryrun_phase(dev, vu, card) -> None:
           f"{time.time() - START:.1f} s", flush=True)
 
 
+# ------------------------------------------------ 14 bf16 parameters
+# (az): each engine kernel's operands at the main path's shape, as phase 3
+# holds them, the parameters, x̂ and the gradient in bf16 and Δ/B in fp32
+# and in bf16 (where the kernel's path has them): name -> (positional
+# operands, keyword operands, options); hierarchy's over HIER_FULL
+AZ = {
+    "fused_local_sgd": (("p", "g", "d"), (), dict(lr=LR, wd=1e-4)),
+    "fused_local_momentum": (("p", "g", None, "m"), (),
+                             dict(lr=LR, beta=0.9, wd=1e-4)),
+    "fused_local_adam": (("p", "g", "d", "mu", "nu", "scal2"), ("b",),
+                         dict(lr=1e-3, wd=1e-4)),
+    "fused_local_adam_sm3": (("p", "g", "d", "mu", "row", "col", "scal2"),
+                             (), dict(lr=1e-3, wd=1e-4)),
+    "fused_sync_vrl": (("p", "xbar", "d", "scal1"), (), {}),
+    "fused_sync_bvr": (("p", "xbar", "d", "b", "scal1"), (),
+                       dict(beta=0.5)),
+    "fused_sync_easgd": (("p", "xbar32", "center"), (),
+                         dict(a=0.3 / FULL[0], na=0.3)),
+    "fused_ef_int8": (("p", "ref", "e"), (), {}),
+    "fused_ef_topk": (("p", "ref", "e"), (), dict(k=TOPK_FULL)),
+    "fused_fold_overlap": (("p", "xbar", "pend", "d", "wscal"), (),
+                           dict(capture=True)),
+    "fused_fold_overlap_bvr": (("p", "xbar", "pend", "d", "b", "wscal"), (),
+                               dict(beta=0.5, capture=False)),
+    "fused_fold_overlap_avg": (("p", "xbar", "pend", "wscal"), (),
+                               dict(capture=True)),
+    "fused_hier_local_sgd": (("p", "g", "d1", "d2"), (),
+                             dict(lr=LR, wd=1e-4)),
+    "fused_sync_hier1": (("p", "xbar_pod", "d1", "scal1"), (), {}),
+    "fused_sync_hier2": (("p", "glob", "d2", "scal1"), (), {}),
+    "fused_fold_overlap_hier2": (("p", "glob", "pend2", "d2", "wscal"), (),
+                                 dict(capture=True)),
+    "fused_hier_local_momentum": (("p", "g", "d1", "d2", "m"), (),
+                                  dict(lr=HIER_MOMENTUM_LR, beta=0.9,
+                                       wd=1e-4)),
+    "fused_hier_local_adam": (("p", "g", "d1", "d2", "mu", "nu", "scal2"),
+                              (), dict(lr=1e-3, wd=1e-4)),
+    "fused_hier_local_adam_sm3": (("p", "g", "d1", "d2", "mu16", "row",
+                                   "col", "scal2"), (),
+                                  dict(lr=1e-3, wd=1e-4)),
+    "fused_ef_int8_grid": (("p", "ref_pod", "e"), (), {}),
+    "fused_ef_topk_grid": (("p", "ref_pod", "e"), (), dict(k=TOPK_FULL)),
+}
+# the element-size options of each kernel's cost (kernels.costs) where
+# they are not all of pb, gb, db: no gradient, no Δ
+AZ_SIZES = {"fused_sync_vrl": ("pb", "db"), "fused_sync_bvr": ("pb", "db"),
+            "fused_sync_easgd": ("pb",), "fused_ef_int8": ("pb",),
+            "fused_ef_topk": ("pb",), "fused_fold_overlap": ("pb", "db"),
+            "fused_fold_overlap_bvr": ("pb", "db"),
+            "fused_fold_overlap_avg": ("pb", "db"),
+            "fused_sync_hier1": ("pb", "db"), "fused_sync_hier2": ("pb", "db"),
+            "fused_fold_overlap_hier2": ("pb", "db"),
+            "fused_ef_int8_grid": ("pb",), "fused_ef_topk_grid": ("pb",)}
+AZ_PARAMS = frozenset({"p", "g", "xbar", "xbar_pod", "glob"})
+AZ_DRIFT = frozenset({"d", "b", "d1", "d2"})
+BA_ROUNDS = [3, 3]              # (ba): two rounds of k = 3
+
+
+def az_operands(name, ddt, dev, gen):
+    """The operands of ``name`` at full width: (args, kwargs, shape)."""
+    from repro_torch.optim import adam_scal
+    hier = name in HIER_KERNELS
+    shape = HIER_FULL if hier else FULL
+    lead = shape[:-2]
+    pod = (shape[0], 1) + shape[2:]
+    rc = shape[-2:]
+    pos, kws, opts = AZ[name]
+
+    def randn(sh, scale=1.0):
+        return torch.randn(sh, generator=gen, device=dev).mul_(scale)
+
+    def make(key):
+        if key is None:
+            return None
+        if key == "p":
+            x = randn(shape)
+            if name in ("fused_sync_hier2", "fused_fold_overlap_hier2"):
+                x[:, 1:] = x[:, :1]     # after a level-1 sync
+            return x
+        if key in ("g",):
+            return randn(shape)
+        if key in ("d", "b", "d1", "m", "mu"):
+            return randn(shape, 0.1)
+        if key == "mu16":
+            return randn(shape, 0.1).to(torch.bfloat16)
+        if key == "d2":
+            return randn(pod, 0.1)
+        if key == "nu":
+            return randn(shape).square_().mul_(0.01)
+        if key == "row":
+            return randn(lead + (rc[0], 1)).square_().mul_(0.01)
+        if key == "col":
+            return randn(lead + (1, rc[1])).square_().mul_(0.01)
+        if key in ("xbar", "xbar32", "glob", "center", "ref"):
+            return randn(rc)
+        if key in ("xbar_pod", "ref_pod", "pend2"):
+            return randn(pod)
+        if key == "e":
+            return randn(shape, 0.01)
+        if key == "pend":
+            return randn(shape)
+        if key == "scal1":
+            return kg_scal(2, dev)
+        if key == "scal2":
+            return adam_scal(3, dev)
+        if key == "wscal":
+            return wscal_for(shape[0], dev, (2,), (0,))
+        raise KeyError(key)
+
+    def cast(key, x):
+        if key in AZ_PARAMS:
+            return x.to(torch.bfloat16)
+        if key in AZ_DRIFT:
+            return x.to(ddt)
+        return x
+    args = [None if k is None else cast(k, make(k)) for k in pos]
+    kw = {k: cast(k, make(k)) for k in kws}
+    return args, dict(kw, **opts), shape
+
+
+def az_kernels(chk, vu, tu, dev, times32) -> dict:
+    """(az): each kernel at bf16 p, g and x̂ with an fp32 and (where its
+    path has one) a bf16 Δ/B: bitwise its plain version slice by slice,
+    timed in place (CUDA events) beside its byte bound at those operand
+    sizes, the plain version timed slice by slice, and ``torch._fused_sgd_``
+    on the bf16 parameters without Δ where it computes the same step.
+    Returns {kernel: {...}} for the JSON line."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    out = {}
+    for name in AZ:
+        has_d = any(k in AZ_DRIFT for k in AZ[name][0] + AZ[name][1]
+                    if k is not None)
+        row = {}
+        for ddt in ((torch.float32, torch.bfloat16) if has_d
+                    else (torch.float32,)):
+            args, kw, shape = az_operands(name, ddt, dev, gen)
+            ndim = len(shape)
+            per_worker = ndim == 4 and "local" in name
+            slices = [worker_slice(i, args, kw, ndim, per_worker)
+                      for i in range(slice_count(args, ndim, per_worker))]
+            # bitwise slice by slice (no collection between slices: the
+            # clones go with their references)
+            for i, (sl_args, sl_kw) in enumerate(slices):
+                chk.run(name, sl_args, f"bf16 full shape, slice {i}",
+                        **sl_kw)
+            ms = time_ms(lambda: getattr(vu, name)(*args, **kw), 5,
+                         warmup=1)
+            fn = getattr(tu, name)
+
+            def run():
+                for sl_args, sl_kw in slices:
+                    fn(*sl_args, **sl_kw)
+            # the plain version timed once, beside the fp32 Δ's kernel
+            plain_ms = (time_ms(run, 1, warmup=0) if ddt == torch.float32
+                        else None)
+            del slices
+            # the cost model's defaults are these paths' operands; the
+            # element sizes are this call's
+            sizes = {"pb": 2, "gb": 2, "db": 2 if ddt == torch.bfloat16
+                     else 4}
+            b, by = bound_ms(*COSTS[name](*shape, **{
+                k: sizes[k] for k in AZ_SIZES.get(name, ("pb", "gb", "db"))
+            }))
+            lib = None
+            if name in ("fused_local_sgd", "fused_hier_local_sgd"):
+                # torch._fused_sgd_ on the bf16 parameters, momentum 0,
+                # without Δ: its time over the worker slices
+                ps = list(args[0].flatten(0, ndim - 3).unbind(0))
+                gs = list(args[1].flatten(0, ndim - 3).unbind(0))
+                lib = time_ms(lambda: torch._fused_sgd_(
+                    ps, gs, [], weight_decay=1e-4, momentum=0.0, lr=LR,
+                    dampening=0.0, nesterov=False, maximize=False,
+                    is_first_step=False), 5, warmup=1)
+                del ps, gs
+            tag = "bf16" if ddt == torch.bfloat16 else "fp32"
+            row[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                        "bound_by": by, "library_ms": lib}
+            fp32 = times32.get(name)
+            label = f"{tag} Δ" if has_d else "no Δ"
+            print(f"[14 bf16 (az)] {name} at {shape}, bf16 p/g/x̂, {label}: "
+                  f"{ms:.3f} ms (fp32 operands, phase 3: "
+                  f"{'not measured' if fp32 is None else f'{fp32:.3f} ms'});"
+                  f" bound {b:.3f} ms ({by}, {100 * b / ms:.1f}%)"
+                  + ("" if plain_ms is None else
+                     f"; plain {plain_ms:.3f} ms (slice by slice)")
+                  + ("" if lib is None else
+                     f"; torch._fused_sgd_ without Δ {lib:.3f} ms")
+                  + "; bitwise the plain version", flush=True)
+            del args, kw
+        free()
+        out[name] = row
+    return out
+
+
+def ba_training(dev, vu, card, fp32_peak=None) -> dict:
+    """(ba): qwen2-0.5b at full width (24 layers) trained through
+    ``make_train_step(param_dtype=torch.bfloat16)``: vrl_sgd + sgd, then +
+    adam, W = 4, batch 8 × 64, two rounds of k = 3 (fp32 Δ and moments).
+    Gates: finite losses; after each sync Σ_i Δ_i within the bf16 rounding
+    of x̂ (|Σ_i Δ_i| <= the sum over the syncs of W · ulp_bf16(x̂) / (k γ),
+    elementwise, with an fp32 margin), where fp32 parameters keep it at
+    fp32 rounding; the bytes of the state's storages on the card equal
+    ``engine_mem``'s
+    sizing of that state (``launch.dryrun._engine_state_bytes``); the
+    launches.  The peak beside the fp32 run's (phase 4's vrl_sgd + sgd,
+    the same model and batch).  Returns {path: result}."""
+    from repro_torch import tree as tm
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import VRLConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    cfg = registry.get_arch("qwen2-0.5b")
+
+    def start(bundle, w):
+        """torch's draw (seed 0) in bf16 with wq, wk × 0.1: at full depth
+        the plain draw's attention is near one-hot and its first
+        gradients reach ~1e12 (fp32 and bf16 alike; ~0.16 softened)."""
+        params = transformer.init_params(cfg, 0, torch.bfloat16,
+                                         device=dev)
+        attn = params["layers"]["attn"]
+        attn["wq"].mul_(0.1)
+        attn["wk"].mul_(0.1)
+        return bundle.engine.init(params, w)
+    res = {}
+    for inner, local in (("sgd", "fused_local_sgd"),
+                         ("adam", "fused_local_adam")):
+        vrl_kw = dict(algorithm="vrl_sgd", comm_period=BA_ROUNDS[0],
+                      learning_rate=MAIN_LR, warmup=False,
+                      inner_optimizer=inner, update_backend="fused")
+        lim = []                # the bound, summed over the syncs so far
+
+        def watch(state):
+            def check(state, k):
+                # this sync's x̂ rounding: at most half a bf16 ulp of x̂
+                # an element, W of them over k γ (a whole ulp: margin)
+                xhat = state.params[0].float()
+                ulp = torch.abs(xhat).clamp_(min=2.0 ** -126)
+                ulp = torch.exp2(torch.floor(torch.log2(ulp)) - 7)
+                step = ulp.mul_(state.delta.shape[0] / (k * MAIN_LR))
+                if lim:
+                    lim[0].add_(step)
+                else:
+                    lim.append(step)
+                s = state.delta.sum(dim=0)
+                over = (s.abs() - lim[0]).max().item()
+                scale = amax(state.delta)
+                ok = over <= 1e-4 * scale
+                rec = {"sum": amax(s), "limit_max": amax(lim[0]),
+                       "over": over, "scale": scale}
+                del xhat, s
+                if not ok:
+                    raise AssertionError(f"(ba) {inner}: Σ_i Δ_i beyond "
+                                         f"the bf16 rounding of x̂: {rec}")
+                return rec
+            return check
+
+        def after(bundle, state, vrl):
+            stores = {}
+            for _, leaf in tm.state_leaves(state):
+                if isinstance(leaf, torch.Tensor):
+                    st = leaf.untyped_storage()
+                    stores[st.data_ptr()] = st.nbytes()
+            on_card = sum(stores.values())
+            sized = dryrun._engine_state_bytes(cfg, vrl, 4, torch.bfloat16)
+            want = sum(b["bytes"] for b in sized.values())
+            dtypes = {k: str(v.dtype).replace("torch.", "")
+                      for k, v in tm.state_leaves(state)
+                      if isinstance(v, torch.Tensor)}
+            if on_card != want or dtypes["params"] != "bfloat16":
+                raise AssertionError(f"(ba) {inner}: the state on the card "
+                                     f"holds {on_card} B ({dtypes}), "
+                                     f"engine_mem sizes {want}")
+            return (f"; the state on the card {on_card} B = engine_mem's "
+                    f"{want} ({json.dumps(dtypes)})")
+
+        r = train_path(f"(ba) vrl_sgd+{inner}, bf16 params", vrl_kw,
+                       BA_ROUNDS, {local: sum(BA_ROUNDS),
+                                   "fused_sync_vrl": len(BA_ROUNDS)},
+                       dev, vu, watch=watch, after=after, cfg=cfg,
+                       make_kw={"param_dtype": torch.bfloat16},
+                       start=start)
+        lim.clear()
+        res[inner] = r
+        sums = "; ".join(f"sync {i + 1}: max|Σ Δ| {w['sum']:.3e} <= "
+                         f"bound up to {w['limit_max']:.3e}"
+                         for i, w in enumerate(r["watched"]))
+        print_path(r, f"; {sums}{r['note']}; peak {r['peak_gib']:.2f} GiB "
+                   f"(fp32 params, phase 4's vrl_sgd+sgd: "
+                   + ("not measured" if fp32_peak is None
+                      else f"{fp32_peak:.2f} GiB") + f"); {card}",
+                   phase="14 bf16")
+    return res
+
+
+def bf16_phase(dev, vu, tu, card, chk, times32=None, fp32_peak=None):
+    """Phase 14: (az), (ba); returns ({kernel: bf16 numbers}, {kernel:
+    launches in (ba)})."""
+    t14 = time.time() - START
+    print(f"[14 bf16] from {t14:.1f} s of the script; {card}", flush=True)
+    free()
+    rows = az_kernels(chk, vu, tu, dev, times32 or {})
+    ba = ba_training(dev, vu, card, fp32_peak)
+    launches = {}
+    for r in ba.values():
+        for name, n in r["launches"].items():
+            launches.setdefault(name, n)
+    print(f"[14 bf16] {time.time() - START - t14:.1f} s; the script "
+          f"{time.time() - START:.1f} s", flush=True)
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6468,6 +6805,9 @@ def main() -> int:
         return 0
     if "--dryrun" in sys.argv[1:]:
         dryrun_phase(dev, vu, card)
+        return 0
+    if "--bf16" in sys.argv[1:]:
+        bf16_phase(dev, vu, tu, card, KernelChecks(vu, tu))
         return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
@@ -6732,6 +7072,10 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
     # ------------------------------------------------------ 13 dry run
     dryrun_phase(dev, vu, card)
 
+    # ------------------------------------------------------ 14 bf16
+    bf16_rows, bf16_launches = bf16_phase(
+        dev, vu, tu, card, chk, times, res["v"].get("peak_gib"))
+
     kernels = []
     for name in KERNELS:
         b, by = bounds[name]
@@ -6743,6 +7087,14 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
                         "plain_ms": plain[name], "bound_ms": b,
                         "bound_by": by, "library_ms": library[name],
                         **extra.get(name, {})})
+        if name in bf16_rows:
+            # phase 14: bf16 parameters, gradients and x̂ with an fp32 and a
+            # bf16 Δ/B; launches from (ba)'s bf16 training
+            kernels[-1]["bf16"] = {
+                "launches": bf16_launches.get(name, 0),
+                "max_abs_err": chk.err[name],
+                "delta_fp32": bf16_rows[name]["fp32"],
+                "delta_bf16": bf16_rows[name].get("bf16")}
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -254,17 +254,19 @@ class DryMesh(WorkerMesh):
 
 class PendingMean(NamedTuple):
     """A worker mean whose all-reduce was issued with ``async_op=True``:
-    the local sum it reduces in place, the work handle and the global
-    count (a number, or the masked mean's count tensor).  ``result()``
+    the local sum it reduces in place (the fp32 wire copy of a narrower
+    one, see ``_wire``), the work handle, the global count (a number, or
+    the masked mean's count tensor) and the mean's dtype.  ``result()``
     waits, then scales."""
 
     total: torch.Tensor
     work: Any
     count: Any
+    dtype: Any = None
 
     def result(self) -> torch.Tensor:
         self.work.wait()
-        return _scale(self.total, self.count)
+        return _scale(_unwire(self.total, self.dtype), self.count)
 
 
 def resolve(mean: Any) -> Any:
@@ -280,6 +282,19 @@ def worker_sum(mesh, buf: torch.Tensor, dim, axes: Sequence[str] = AXES, *,
     if mesh is not None:
         mesh.all_reduce(s, axes, kind=kind)
     return s
+
+
+def _wire(s: torch.Tensor) -> torch.Tensor:
+    """What a worker sum's all-reduce carries: an fp32 sum as it is, a
+    narrower one (bf16 parameters) widened to fp32, as the reference's
+    lowering carries it (XLA runs a bf16 ``psum`` as an fp32 all-reduce
+    between two converts); the sum is rounded back after it
+    (``_unwire``)."""
+    return s if s.dtype == torch.float32 else s.to(torch.float32)
+
+
+def _unwire(total: torch.Tensor, dtype) -> torch.Tensor:
+    return total if dtype in (None, total.dtype) else total.to(dtype)
 
 
 def _scale(total: torch.Tensor, count) -> torch.Tensor:
@@ -310,11 +325,19 @@ def masked_sum(buf: torch.Tensor, keep: np.ndarray, dim,
 def worker_mean(mesh, buf: torch.Tensor, dim, axes: Sequence[str], *,
                 keepdim: bool = False, kind: str = "state",
                 async_op: bool = False, keep: Optional[np.ndarray] = None,
-                count: Optional[torch.Tensor] = None):
+                count: Optional[torch.Tensor] = None,
+                sum_form: bool = False):
     """The mean of ``buf`` over its local worker dims ``dim`` and, on a mesh,
     the ranks of ``axes``: a local sum, one all-reduce, ÷ the workers it
     covers in all; a ``PendingMean`` when ``async_op``.  Without a mesh the
-    plain ``mean`` (``async_op`` then changes nothing).
+    plain ``mean`` (``async_op`` then changes nothing); with ``sum_form``
+    (the reference's hierarchy, which divides its sum even without a mesh)
+    a buffer narrower than fp32 takes the sum, rounded to its dtype, ÷ the
+    count, as on a mesh.
+
+    A bf16 buffer's sum is rounded to bf16 (fp32 accumulation), its
+    all-reduce carries fp32 (``_wire``) and is rounded back to bf16, and
+    the quotient is rounded again: the reference's op sequence.
 
     Masked (``keep``: the host bool array of ``masked_sum``, True on the
     active workers; ``count``: the active workers in all, a tensor on
@@ -324,15 +347,24 @@ def worker_mean(mesh, buf: torch.Tensor, dim, axes: Sequence[str], *,
         s = masked_sum(buf, keep, dim, keepdim)
         if mesh is None:
             return _scale(s, count)
-        work = mesh.all_reduce(s, axes, kind=kind, async_op=async_op)
-        return PendingMean(s, work, count) if async_op else _scale(s, count)
-    if mesh is None:
-        return buf.mean(dim=dim, keepdim=keepdim)
+        wire = _wire(s)
+        work = mesh.all_reduce(wire, axes, kind=kind, async_op=async_op)
+        if async_op:
+            return PendingMean(wire, work, count, s.dtype)
+        return _scale(_unwire(wire, s.dtype), count)
     dims = (dim,) if isinstance(dim, int) else dim
-    count = math.prod(buf.shape[d] for d in dims) * mesh.size(axes)
+    if mesh is None and not (sum_form and buf.dtype != torch.float32):
+        return buf.mean(dim=dim, keepdim=keepdim)
+    count = math.prod(buf.shape[d] for d in dims) * (
+        1 if mesh is None else mesh.size(axes))
     s = buf.sum(dim=dim, keepdim=keepdim)
-    work = mesh.all_reduce(s, axes, kind=kind, async_op=async_op)
-    return PendingMean(s, work, count) if async_op else s.div_(count)
+    if mesh is None:
+        return s.div_(count)
+    wire = _wire(s)
+    work = mesh.all_reduce(wire, axes, kind=kind, async_op=async_op)
+    if async_op:
+        return PendingMean(wire, work, count, s.dtype)
+    return _unwire(wire, s.dtype).div_(count)
 
 
 def wire_device(mesh) -> torch.device:

@@ -48,6 +48,17 @@ deferred (``fused_fold_overlap_hier2``).  Each level may compress
 round trip against a per-pod reference (``fused_ef_{int8,topk}_grid``),
 level 2 through the flat one over the pod rows against a global one.
 
+Dtypes are the reference's: the parameter buffer (and the gradient
+buffer a tree flattens into) takes the template's dtype, fp32 or bf16
+(``make_train_step(param_dtype=)``), Δ and B ``cfg.delta_dtype``, the
+moments ``cfg.moment_dtype``; the EASGD center, the overlap pend, the EF
+residuals and references and the SM3 stats are fp32.  x̂ reaches the
+kernels in the parameters' dtype (the EASGD x̂, a mean of the fp32-cast
+parameters, and a compressed x̂, ref + mean(dec), are fp32 until then); a
+bf16 mean is the reference's: one rounding off a mesh (the hierarchy's
+divides its rounded sum), and on a mesh the rank's rounded sum, an fp32
+all-reduce, rounded back, ÷ the count (``comm.collectives.worker_mean``).
+
 SM3-factored Adam (``sm3=True``) replaces the dense (W, R, C) nu with a
 (W, R, 1) row stat and a (W, S, C) lane stat, one lane row per shard span
 of ``EngineConfig.shards`` (rows pad to a multiple of ``block * shards``).
@@ -1257,9 +1268,18 @@ def make_engine(cfg: VRLConfig, template: Any, *,
         trip written over the buffer before the mean."""
         g = _gbuf(grads)
         if algo.grad_all_reduce:
-            if comp is not None:
-                ef_rt(g, None, state.comm.resid if ef_on else None, out=g)
-            g.copy_(_wmean(g, member=state.member).unsqueeze(0).expand_as(g))
+            e = state.comm.resid if ef_on else None
+            if comp is not None and g.dtype != torch.float32:
+                # bf16 gradients: the decompressed payload is fp32, and so
+                # is the mean the local step takes (as in the reference)
+                dec, _ = ef_rt(g, None, e)
+                g = _wmean(dec, member=state.member).unsqueeze(0).expand_as(
+                    dec).contiguous()
+            else:
+                if comp is not None:
+                    ef_rt(g, None, e, out=g)
+                g.copy_(_wmean(g, member=state.member).unsqueeze(0)
+                        .expand_as(g))
         p = state.params
         d = state.delta if algo.use_delta else None
         b = state.bias if bias_on else None
@@ -1657,7 +1677,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                 mesh, buf, 1, ("data",), keepdim=True,
                 keep=host_mask(member).keep.reshape(p_loc, d_loc),
                 count=member.n_pod.clamp(min=1.0))
-        return coll.worker_mean(mesh, buf, 1, ("data",), keepdim=True)
+        return coll.worker_mean(mesh, buf, 1, ("data",), keepdim=True,
+                                sum_form=True)
 
     def _cross_mean(pod_avg: torch.Tensor, async_op: bool = False,
                     member: Any = ()):
@@ -1671,7 +1692,7 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
                 keep=(host_mask(member).n_pod > 0).reshape(p_loc, 1),
                 count=member.n_active)
         return coll.worker_mean(mesh, pod_avg, (0, 1), ("pod",),
-                                async_op=async_op)
+                                async_op=async_op, sum_form=True)
 
     def _kg(k_eff: int, dev: torch.device) -> torch.Tensor:
         """k_eff·γ as an fp32 product made on the device (no host sync)."""
@@ -1803,8 +1824,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             xbar = cm.ref1.add_(_pod_mean(dec, state.member))
         else:
             xbar = _pod_mean(p, state.member)
-        vu.fused_sync_hier1(p, xbar, state.delta1, _kg(k_eff, p.device),
-                            block=fspec.block)
+        vu.fused_sync_hier1(p, xbar.to(p.dtype), state.delta1,
+                            _kg(k_eff, p.device), block=fspec.block)
         return state._replace(last_sync1=state.step)
 
     def sync2(state: HierFlatState, out=None) -> HierFlatState:
@@ -1824,8 +1845,8 @@ def _make_hier_engine(cfg: VRLConfig, algo: AlgoSpec, fspec: flat.FlatSpec,
             glob = _cross_mean(p[:, :1], member=state.member)
         if comp1 is not None:
             _reanchor_ref1(state.comm.ref1, glob)
-        vu.fused_sync_hier2(p, glob, state.delta2, _kg(k_eff, p.device),
-                            block=fspec.block)
+        vu.fused_sync_hier2(p, glob.to(p.dtype), state.delta2,
+                            _kg(k_eff, p.device), block=fspec.block)
         return state._replace(last_sync2=state.step)
 
     def sync(state: HierFlatState, out=None) -> HierFlatState:

@@ -12,9 +12,11 @@ One model serves two readers:
     operations without a card.
 
 A kernel's bytes count every input read once and every output written
-once; its operations are fp32 operations on the CUDA cores.  The rates
-are the NVIDIA H100 SXM5 (80GB HBM3, 700 W) data sheet's: 3.35 TB/s of
-HBM3, 67 TFLOP/s fp32 on the CUDA cores, 495 TFLOP/s TF32 and 989
+once, each at its operand's element size (fp32 or bf16, the options
+``pb``, ``gb``, ``db`` of the cost functions, which the wrappers read off
+their operands); its operations are fp32 operations on the CUDA cores.
+The rates are the NVIDIA H100 SXM5 (80GB HBM3, 700 W) data sheet's: 3.35
+TB/s of HBM3, 67 TFLOP/s fp32 on the CUDA cores, 495 TFLOP/s TF32 and 989
 TFLOP/s bf16 on the tensor cores (dense).  Pure Python: nothing here
 imports torch.
 """
@@ -46,118 +48,129 @@ def bound_ms(nbytes: float, flops: float, rate: float = PEAK_FLOPS_FP32,
 
 
 # bytes each kernel must move and its fp32 operations; the defaults are
-# the main path's operands (PERF.md §6's bounds), the options what another
-# call reads or writes beside them (Δ, B, the moments' width, capture)
-def local_cost(w, r, c, use_d=True, wd=1e-4, use_b=False):
+# the main path's operands (PERF.md §6's bounds: fp32 throughout), the
+# options what another call reads or writes beside them (Δ, B, the
+# moments' width, capture) and the element sizes of its operands: ``pb``
+# the parameters and x̂ (4 fp32, 2 bf16), ``gb`` the gradient, ``db`` Δ
+# and B (Δ1, Δ2); the EASGD center, pend, EF buffers and stats are fp32
+def local_cost(w, r, c, use_d=True, wd=1e-4, use_b=False, pb=4, gb=4,
+               db=4):
     n = w * r * c
-    nbytes = 4 * n * (3 + use_d + use_b)   # read p, g [, Δ, B]; write p
+    # read p, g [, Δ, B]; write p
+    nbytes = n * (2 * pb + gb + db * (use_d + use_b))
     flops = n * (2 + use_d + use_b + (2 if wd else 0))
     return nbytes, flops
 
 
-def sync_cost(w, r, c):
+def sync_cost(w, r, c, pb=4, db=4):
     n = w * r * c
-    nbytes = 4 * (4 * n + r * c) + 4   # read p, Δ, x̂, kγ; write p, Δ
+    # read p, Δ, x̂, kγ; write p, Δ
+    nbytes = n * (2 * pb + 2 * db) + pb * r * c + 4
     return nbytes, 3 * n                # sub, div, add per element
 
 
-def momentum_cost(w, r, c, wd=1e-4, use_d=False, use_b=False, m_bytes=4):
+def momentum_cost(w, r, c, wd=1e-4, use_d=False, use_b=False, m_bytes=4,
+                  pb=4, gb=4, db=4):
     """easgd's path: no Δ, no B, fp32 m."""
     n = w * r * c
     # read p, g [, Δ, B], m; write p, m
-    nbytes = 4 * n * (3 + use_d + use_b) + 2 * m_bytes * n
+    nbytes = n * (2 * pb + gb + db * (use_d + use_b)) + 2 * m_bytes * n
     return nbytes, n * (4 + use_d + use_b + (2 if wd else 0))
 
 
-def adam_cost(w, r, c, wd=1e-4, use_d=True, use_b=True, m_bytes=4):
+def adam_cost(w, r, c, wd=1e-4, use_d=True, use_b=True, m_bytes=4, pb=4,
+              gb=4, db=4):
     """bvr_l_sgd's path: with Δ and B, fp32 mu and nu."""
     n = w * r * c
     # read p, g, Δ, B, mu, nu, [c1, c2]; write p, mu, nu
-    nbytes = 4 * n * (3 + use_d + use_b) + 4 * m_bytes * n + 8
+    nbytes = (n * (2 * pb + gb + db * (use_d + use_b)) + 4 * m_bytes * n
+              + 8)
     return nbytes, n * (16 + use_d + use_b + (2 if wd else 0))
 
 
-def bvr_cost(w, r, c):
+def bvr_cost(w, r, c, pb=4, db=4):
     n = w * r * c
-    nbytes = 4 * (6 * n + r * c) + 4   # read p, Δ, B, x̂, kγ; write p, Δ, B
+    # read p, Δ, B, x̂, kγ; write p, Δ, B
+    nbytes = n * (2 * pb + 4 * db) + pb * r * c + 4
     return nbytes, 6 * n
 
 
-def easgd_cost(w, r, c):
+def easgd_cost(w, r, c, pb=4):
     n, rc = w * r * c, r * c
     # worker pass: read p, x̃, write p; center pass: read x̃, x̂, write x̃
-    return 4 * (2 * n + rc) + 4 * 3 * rc, 3 * n + 3 * rc
+    return 2 * pb * n + 4 * rc + 4 * 3 * rc, 3 * n + 3 * rc
 
 
-def ef_int8_cost(w, r, c, use_ref=True, use_e=True):
+def ef_int8_cost(w, r, c, use_ref=True, use_e=True, pb=4):
     """Path (c)'s operands: p, ref and e read, dec and e written."""
     n = w * r * c
     # sub, add, abs, max, div, rint, two clamps, mul, sub per element
-    return 4 * ((2 + 2 * use_e) * n + use_ref * r * c), 10 * n
+    return (pb + 4 + 8 * use_e) * n + 4 * use_ref * r * c, 10 * n
 
 
-def ef_topk_cost(w, r, c, use_ref=True, use_e=True):
+def ef_topk_cost(w, r, c, use_ref=True, use_e=True, pb=4):
     """Path (d)'s operands (ref = x̂_stale, e, dec into pend): the bytes of
     int8; 31 rounds of one compare per element to find the threshold,
     then sub, add, abs, compare, select, sub."""
     n = w * r * c
-    return 4 * ((2 + 2 * use_e) * n + use_ref * r * c), 37 * n
+    return (pb + 4 + 8 * use_e) * n + 4 * use_ref * r * c, 37 * n
 
 
-def fold_cost(w, r, c, bufs, capture, flops):
+def fold_cost(w, r, c, bufs, capture, flops, pb=4, db=4):
     """``bufs`` (W, R, C) buffers read and written in place (p, Δ, B),
     pend read (and written with ``capture``), x̂ and wscal read once."""
     n = w * r * c
-    return 4 * ((2 * bufs + 1 + capture) * n + r * c + 2 * w), flops * n
+    return (n * (2 * pb + 2 * db * (bufs - 1) + 4 * (1 + capture))
+            + pb * r * c + 8 * w), flops * n
 
 
 def _fold(bufs, capture, flops):
     """A fold kernel's cost, its main path's ``capture`` by default."""
-    def cost(w, r, c, capture=capture):
-        return fold_cost(w, r, c, bufs, capture, flops)
+    def cost(w, r, c, capture=capture, pb=4, db=4):
+        return fold_cost(w, r, c, bufs, capture, flops, pb, db)
     return cost
 
 
 # the hierarchy's, over (P, D, R, C) with n = P·D·R·C worker elements and
 # m = P·R·C per-pod elements (Δ2, x̂_pod, pend2)
-def hier_local_cost(pp, dd, r, c, wd=1e-4):
+def hier_local_cost(pp, dd, r, c, wd=1e-4, pb=4, gb=4, db=4):
     """Read p, g, Δ1 and Δ2 once, write p; sub, sub, [mul, add], mul, sub."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m), n * (4 + (2 if wd else 0))
+    return n * (2 * pb + gb + db) + db * m, n * (4 + (2 if wd else 0))
 
 
-def hier_sync1_cost(pp, dd, r, c):
+def hier_sync1_cost(pp, dd, r, c, pb=4, db=4):
     """Read p, Δ1, x̂_pod and kγ, write p and Δ1; sub, div, add."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m) + 4, 3 * n
+    return n * (2 * pb + 2 * db) + pb * m + 4, 3 * n
 
 
-def hier_sync2_cost(pp, dd, r, c):
+def hier_sync2_cost(pp, dd, r, c, pb=4, db=4):
     """Read the pod value (worker 0), Δ2, x̂ and kγ, write p and Δ2; sub,
     div, add per pod element."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * (n + 3 * m + r * c) + 4, 3 * m
+    return pb * (n + m + r * c) + 2 * db * m + 4, 3 * m
 
 
-def hier_fold_cost(pp, dd, r, c, capture=True):
+def hier_fold_cost(pp, dd, r, c, capture=True, pb=4, db=4):
     """Path (h): capture in the kernel.  Read p, x̂, pend2, Δ2 and wscal,
     write p, Δ2 and pend2; p + c per worker element, c, c·s₀ + Δ2 and
     km·pend2 + (1 − km)·p' per pod element."""
     n, m = pp * dd * r * c, pp * r * c
-    return (4 * (2 * n + (3 + capture) * m + r * c + 2 * pp),
-            n + (4 + 2 * capture) * m)
+    return (2 * pb * n + (4 * (1 + capture) + 2 * db) * m + pb * r * c
+            + 8 * pp, n + (4 + 2 * capture) * m)
 
 
-def hier_ef_cost(pp, dd, r, c, flops=10, use_ref=True, use_e=True):
+def hier_ef_cost(pp, dd, r, c, flops=10, use_ref=True, use_e=True, pb=4):
     """Paths (m)-(o)'s level-1 round trip: read p and e (P·D·R·C each) and
     the per-pod ref (P·R·C) once, write dec and e; int8's 10 operations
     per element, top-k's 37 (``ef_int8_cost``, ``ef_topk_cost``)."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * ((2 + 2 * use_e) * n + use_ref * m), flops * n
+    return (pb + 4 + 8 * use_e) * n + 4 * use_ref * m, flops * n
 
 
 def adam_sm3_cost(w, r, c, use_d=True, mu_bytes=4, wd=1e-4, shards=1,
-                  pods=0, use_b=False):
+                  pods=0, use_b=False, pb=4, gb=4, db=4):
     """Path (i)'s operands (Δ, no B, fp32 mu; hier, ``pods`` > 0: Δ1 and Δ2
     once per pod, path (l)'s bf16 mu): read p, g, [Δ], mu, the row stat,
     the lane stat and [c1, c2]; write p, mu, the row stat and the new lane
@@ -165,24 +178,27 @@ def adam_sm3_cost(w, r, c, use_d=True, mu_bytes=4, wd=1e-4, shards=1,
     EMA (4), the step (6: two divisions, a sqrt) [wd·p (2)], p − step, the
     row and lane max (2)."""
     n = w * r * c
-    nbytes = (4 * n * (3 + use_d + use_b) + 2 * mu_bytes * n + 8 * w * r
-              + 8 * w * shards * c + 8 + (4 * pods * r * c if pods else 0))
+    nbytes = (n * (2 * pb + gb + db * (use_d + use_b)) + 2 * mu_bytes * n
+              + 8 * w * r + 8 * w * shards * c + 8
+              + (db * pods * r * c if pods else 0))
     return nbytes, n * (17 + use_d + use_b + (1 if pods else 0)
                         + (2 if wd else 0))
 
 
-def hier_momentum_cost(pp, dd, r, c, wd=1e-4, m_bytes=4):
+def hier_momentum_cost(pp, dd, r, c, wd=1e-4, m_bytes=4, pb=4, gb=4, db=4):
     """Path (j): read p, g, Δ1, m and Δ2 once per pod, write p and m; sub,
     sub, [mul, add], mul, add, mul, sub per element."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m) + 2 * m_bytes * n, n * (6 + (2 if wd else 0))
+    return (n * (2 * pb + gb + db) + db * m + 2 * m_bytes * n,
+            n * (6 + (2 if wd else 0)))
 
 
-def hier_adam_cost(pp, dd, r, c, wd=1e-4, m_bytes=4):
+def hier_adam_cost(pp, dd, r, c, wd=1e-4, m_bytes=4, pb=4, gb=4, db=4):
     """Path (k): read p, g, Δ1, mu, nu, Δ2 once per pod and [c1, c2], write
     p, mu, nu (fp32 moments)."""
     n, m = pp * dd * r * c, pp * r * c
-    return 4 * (4 * n + m) + 4 * m_bytes * n + 8, n * (19 + (2 if wd else 0))
+    return (n * (2 * pb + gb + db) + db * m + 4 * m_bytes * n + 8,
+            n * (19 + (2 if wd else 0)))
 
 
 def _hier_sm3(pp, dd, r, c, **kw):

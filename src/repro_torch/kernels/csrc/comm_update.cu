@@ -30,27 +30,36 @@
 // pod's D workers with it (the flat form is P = 1, D = W).  p's workers
 // may lie a stride apart (the hierarchy's level 2 compresses the pod rows
 // params[:, 0] of a (P, D, R, C) buffer in place, without a copy); e and
-// dec are contiguous.
+// dec are contiguous.  p is fp32 or bf16 (the parameters' type; read
+// exactly, the payload is fp32 from there on); ref, e and dec are fp32.
 //
 // Overlap fold.  c = x̂_stale − pend; p' = p + c; Δ' = Δ + c·s₀;
 // B' = (1−β)B + (β·c)·s₀; pend' = km·pend + (1−km)·p', with [s₀, km] read
 // per worker from the (W, 2) device operand wscal.  Bound: device-memory
-// bandwidth (a handful of flops per 16–36 B).  Design: as the syncs of
-// vrl_update.cu — a float4 grid-stride pass, each x̂ float4 loaded once
-// and applied to the W workers from a register, everything in place.
+// bandwidth (a handful of flops per 10–36 B).  Design: as the syncs of
+// vrl_update.cu — a grid-stride pass over groups of four, each x̂ group
+// loaded once and applied to the W workers from registers, everything in
+// place.  p and x̂ share one type (fp32 or bf16), Δ and B another; pend is
+// fp32 and captures the folded position before its store's rounding.
 //
 // Numerics: the arithmetic is the plain PyTorch version's op for op
 // (kernels/torch_update.py), built with -fmad=false (no FMA contraction)
 // and without fast math (IEEE division), so the kernels are bitwise the
 // plain versions.  rintf rounds half to even, like torch.round; the clamp
 // keeps NaN, like torch.clamp.  1 − β is rounded from double by the caller.
+// A bf16 operand loads exactly; a bf16 result is rounded once on store, to
+// nearest even.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// the C functions' dtype mask: a set bit = that operand is bf16
+constexpr int kDtP = 1, kDtD = 4;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -70,6 +79,51 @@ int grid_for(int64_t items, int per_block) {
   int64_t g = want < cap ? want : cap;
   return (int)(g > 0 ? g : 1);
 }
+
+// four-element loads and stores; i counts groups of four elements
+__device__ __forceinline__ float4 load4(const float* x, int64_t i) {
+  return reinterpret_cast<const float4*>(x)[i];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int64_t i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(x)[i];
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &raw.x, sizeof(lo));
+  memcpy(&hi, &raw.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* x, int64_t i, float4 v) {
+  reinterpret_cast<float4*>(x)[i] = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* x, int64_t i,
+                                       float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  memcpy(&raw.x, &lo, sizeof(lo));
+  memcpy(&raw.y, &hi, sizeof(hi));
+  reinterpret_cast<uint2*>(x)[i] = raw;
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<float>) or f(Tag<__nv_bfloat16>) by a dtype bit
+template <typename F>
+void by_type(bool bf16, F&& f) {
+  if (bf16) {
+    f(Tag<__nv_bfloat16>{});
+  } else {
+    f(Tag<float>{});
+  }
+}
+
+#define VRL_TYPE(tag) typename decltype(tag)::type
 
 __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
   return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
@@ -105,9 +159,9 @@ __device__ __forceinline__ float keep(float x, float thresh) {
 // the row's c4 = C/4 (NV = ceil(c4 / 32)).  mode 0 = int8, 1 = top-k keeping
 // k lanes.  ref ((pods, rows, c4), one row per pod) and e may be null; e,
 // when given, receives resid' in place.  Worker w's rows start at w·ps4 in
-// p and at w·rows·c4 in e and dec.
-template <int NV>
-__global__ void ef_kernel(const float4* p, const float4* __restrict__ ref,
+// p and at w·rows·c4 in e and dec (in groups of four elements).
+template <int NV, typename PT>
+__global__ void ef_kernel(const PT* p, const float4* __restrict__ ref,
                           float4* __restrict__ e, float4* dec, int mode,
                           int k, int64_t pods, int64_t dper, int64_t rows,
                           int64_t c4, int64_t ps4) {
@@ -133,7 +187,7 @@ __global__ void ef_kernel(const float4* p, const float4* __restrict__ ref,
         const int64_t j = lane + 32 * v;
         x[v] = zero;
         if (j < c4) {
-          x[v] = p[pbase + j];
+          x[v] = load4(p, pbase + j);
           if (ref != nullptr) x[v] = sub4(x[v], rv[v]);
           if (e != nullptr) x[v] = add4(x[v], e[base + j]);
         }
@@ -204,41 +258,42 @@ __global__ void ef_kernel(const float4* p, const float4* __restrict__ ref,
   }
 }
 
-// The stale fold over (w, rc) buffers, rc4 = rc/4 float4 groups per worker.
-// d, b null ⇒ no Δ, no B; capture = 0 leaves pend as it is.
-__global__ void fold_kernel(float4* __restrict__ p,
-                            const float4* __restrict__ xbar,
-                            float4* __restrict__ pend, float4* __restrict__ d,
-                            float4* __restrict__ b,
+// The stale fold over (w, rc) buffers, rc4 = rc/4 groups of four per
+// worker; x̂ in p's type, pend fp32.  d, b null ⇒ no Δ, no B; capture = 0
+// leaves pend as it is.
+template <typename PT, typename DT>
+__global__ void fold_kernel(PT* __restrict__ p, const PT* __restrict__ xbar,
+                            float4* __restrict__ pend, DT* __restrict__ d,
+                            DT* __restrict__ b,
                             const float* __restrict__ wscal, float omb,
                             float beta, int capture, int64_t w, int64_t rc4) {
   int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < rc4;
        i += stride) {
-    const float4 xb = xbar[i];
+    const float4 xb = load4(xbar, i);
     for (int64_t k = 0; k < w; ++k) {
       const float inv = wscal[2 * k], km = wscal[2 * k + 1];
       const float omkm = 1.0f - km;
       const int64_t j = k * rc4 + i;
       const float4 pe = pend[j];
       const float4 c = sub4(xb, pe);
-      const float4 pn = add4(p[j], c);
-      p[j] = pn;
+      const float4 pn = add4(load4(p, j), c);
+      store4(p, j, pn);
       if (d != nullptr) {
-        float4 dv = d[j];
+        float4 dv = load4(d, j);
         dv.x = dv.x + c.x * inv;
         dv.y = dv.y + c.y * inv;
         dv.z = dv.z + c.z * inv;
         dv.w = dv.w + c.w * inv;
-        d[j] = dv;
+        store4(d, j, dv);
       }
       if (b != nullptr) {
-        float4 bv = b[j];
+        float4 bv = load4(b, j);
         bv.x = omb * bv.x + (beta * c.x) * inv;
         bv.y = omb * bv.y + (beta * c.y) * inv;
         bv.z = omb * bv.z + (beta * c.z) * inv;
         bv.w = omb * bv.w + (beta * c.w) * inv;
-        b[j] = bv;
+        store4(b, j, bv);
       }
       if (capture) {
         pend[j] = make_float4(km * pe.x + omkm * pn.x, km * pe.y + omkm * pn.y,
@@ -250,19 +305,23 @@ __global__ void fold_kernel(float4* __restrict__ p,
 }
 
 template <int NV>
-void launch_ef(const void* p, const void* ref, void* e, void* dec, int mode,
-               int k, int64_t pods, int64_t dper, int64_t rows, int64_t c4,
-               int64_t ps4, cudaStream_t s) {
-  ef_kernel<NV><<<grid_for(pods * rows, kWarps), kThreads, 0, s>>>(
-      (const float4*)p, (const float4*)ref, (float4*)e, (float4*)dec, mode,
-      k, pods, dper, rows, c4, ps4);
+void launch_ef(const void* p, int p_bf16, const void* ref, void* e,
+               void* dec, int mode, int k, int64_t pods, int64_t dper,
+               int64_t rows, int64_t c4, int64_t ps4, cudaStream_t s) {
+  by_type(p_bf16, [&](auto pt) {
+    using PT = VRL_TYPE(pt);
+    ef_kernel<NV, PT><<<grid_for(pods * rows, kWarps), kThreads, 0, s>>>(
+        (const PT*)p, (const float4*)ref, (float4*)e, (float4*)dec, mode, k,
+        pods, dper, rows, c4, ps4);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// p, e, dec: (pods·dper, rows, c) fp32, worker w of pod w / dper; ref:
+// p (fp32, or bf16 with kDtP in dtypes), e, dec (fp32): (pods·dper, rows,
+// c), worker w of pod w / dper; ref:
 // (pods, rows, c) fp32 or null, pod p's row shared by its dper workers (the
 // flat form: pods = 1, dper = W, ref (rows, c)); e null ⇒ no error
 // feedback.  p_stride: elements between consecutive workers of p (a
@@ -271,8 +330,8 @@ extern "C" {
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
 // for a lane count or stride it does not take.
 int vrl_fused_ef(const void* p, const void* ref, void* e, void* dec,
-                 int mode, int k, int64_t pods, int64_t dper, int64_t rows,
-                 int64_t c, int64_t p_stride, void* stream) {
+                 int dtypes, int mode, int k, int64_t pods, int64_t dper,
+                 int64_t rows, int64_t c, int64_t p_stride, void* stream) {
   const int64_t c4 = c / 4;
   if (c % 4 || c4 > 32 * 8 || p_stride % 4 || p_stride < rows * c) {
     return (int)cudaErrorInvalidValue;
@@ -281,30 +340,41 @@ int vrl_fused_ef(const void* p, const void* ref, void* e, void* dec,
     cudaStream_t s = (cudaStream_t)stream;
     const int64_t ps4 = p_stride / 4;
     if (c4 <= 32) {
-      launch_ef<1>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
+      launch_ef<1>(p, dtypes & kDtP, ref, e, dec, mode, k, pods, dper,
+                    rows, c4, ps4, s);
     } else if (c4 <= 64) {
-      launch_ef<2>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
+      launch_ef<2>(p, dtypes & kDtP, ref, e, dec, mode, k, pods, dper,
+                    rows, c4, ps4, s);
     } else if (c4 <= 128) {
-      launch_ef<4>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
+      launch_ef<4>(p, dtypes & kDtP, ref, e, dec, mode, k, pods, dper,
+                    rows, c4, ps4, s);
     } else {
-      launch_ef<8>(p, ref, e, dec, mode, k, pods, dper, rows, c4, ps4, s);
+      launch_ef<8>(p, dtypes & kDtP, ref, e, dec, mode, k, pods, dper,
+                    rows, c4, ps4, s);
     }
   }
   return (int)cudaGetLastError();
 }
 
-// p, pend, d, b: (w, rc) fp32 (d, b may be null); xbar: (rc,) fp32;
+// p, pend, d, b: (w, rc) (d, b may be null); xbar: (rc,); p and xbar
+// bf16 with kDtP in dtypes, d and b with kDtD, else fp32; pend fp32;
 // wscal: (w, 2) fp32 on the device, [1/(pend_k·γ), km] per worker; omb =
 // 1 − β.  rc is a multiple of 4.
 int vrl_fused_fold(void* p, const void* xbar, void* pend, void* d, void* b,
-                   const void* wscal, float omb, float beta, int capture,
-                   int64_t w, int64_t rc, void* stream) {
+                   const void* wscal, int dtypes, float omb, float beta,
+                   int capture, int64_t w, int64_t rc, void* stream) {
   const int64_t rc4 = rc / 4;
   if (rc4 > 0 && w > 0) {
-    fold_kernel<<<grid_for(rc4, kThreads), kThreads, 0,
-                  (cudaStream_t)stream>>>(
-        (float4*)p, (const float4*)xbar, (float4*)pend, (float4*)d,
-        (float4*)b, (const float*)wscal, omb, beta, capture, w, rc4);
+    by_type(dtypes & kDtP, [&](auto pt) {
+      by_type(dtypes & kDtD, [&](auto dt) {
+        using PT = VRL_TYPE(pt);
+        using DT = VRL_TYPE(dt);
+        fold_kernel<PT, DT><<<grid_for(rc4, kThreads), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+            (PT*)p, (const PT*)xbar, (float4*)pend, (DT*)d, (DT*)b,
+            (const float*)wscal, omb, beta, capture, w, rc4);
+      });
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,13 @@
 
 The port's counterpart of ``repro.kernels.vrl_update``: the flat
 algorithms' local steps and syncs as single passes over worker-stacked
-(W, R, C) fp32 buffers, written in place.
+(W, R, C) buffers, written in place.  Operands take the reference's
+dtypes: the parameters (and the mean x̂ given with them) fp32 or bf16, Δ
+and B fp32 or bf16 (``VRLConfig.delta_dtype``), the gradient either, the
+moments fp32 or bf16; the EASGD center, the overlap pend, the EF
+reference, residual and payload and the SM3 stats fp32.  The math is
+fp32 in registers and each result is rounded once to its buffer's
+dtype.
 
   local sgd:       p' = p − γ((g − Δ − B) + wd·p)
   local momentum:  m' = βm + v;  p' = p − γ·m'  (v = g − Δ − B + wd·p)
@@ -83,14 +89,13 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the
     stream as void*, sizes as int64, so nothing is cut to 32 bits)."""
     lib = build.load("vrl_update")
-    lib.vrl_fused_local_sgd.argtypes = [_PTR, _PTR, _PTR, _PTR,
-                                        ctypes.c_float, ctypes.c_float,
-                                        ctypes.c_int64, _PTR]
+    f32, i64, cint = ctypes.c_float, ctypes.c_int64, ctypes.c_int
+    lib.vrl_fused_local_sgd.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, f32,
+                                        f32, i64, _PTR]
     lib.vrl_fused_local_sgd.restype = ctypes.c_int
-    lib.vrl_fused_sync_vrl.argtypes = [_PTR, _PTR, _PTR, _PTR,
-                                       ctypes.c_int64, ctypes.c_int64, _PTR]
+    lib.vrl_fused_sync_vrl.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, i64,
+                                       i64, _PTR]
     lib.vrl_fused_sync_vrl.restype = ctypes.c_int
-    f32, i64 = ctypes.c_float, ctypes.c_int64
     lib.vrl_fused_local_momentum.argtypes = [
         _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, f32, f32, f32,
         ctypes.c_int, i64, _PTR]
@@ -99,20 +104,20 @@ def _lib() -> ctypes.CDLL:
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, _PTR,
         f32, f32, f32, f32, f32, f32, f32, f32, i64, _PTR]
     lib.vrl_fused_local_adam.restype = ctypes.c_int
-    lib.vrl_fused_sync_bvr.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, f32,
-                                       f32, i64, i64, _PTR]
+    lib.vrl_fused_sync_bvr.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, cint,
+                                       f32, f32, i64, i64, _PTR]
     lib.vrl_fused_sync_bvr.restype = ctypes.c_int
-    lib.vrl_fused_sync_easgd.argtypes = [_PTR, _PTR, _PTR, f32, f32, f32,
-                                         i64, i64, _PTR]
+    lib.vrl_fused_sync_easgd.argtypes = [_PTR, _PTR, _PTR, cint, f32, f32,
+                                         f32, i64, i64, _PTR]
     lib.vrl_fused_sync_easgd.restype = ctypes.c_int
-    lib.vrl_fused_hier_local_sgd.argtypes = [_PTR, _PTR, _PTR, _PTR, f32,
-                                             f32, i64, i64, i64, _PTR]
+    lib.vrl_fused_hier_local_sgd.argtypes = [_PTR, _PTR, _PTR, _PTR, cint,
+                                             f32, f32, i64, i64, i64, _PTR]
     lib.vrl_fused_hier_local_sgd.restype = ctypes.c_int
     for fn in (lib.vrl_fused_sync_hier1, lib.vrl_fused_sync_hier2):
-        fn.argtypes = [_PTR, _PTR, _PTR, _PTR, i64, i64, i64, _PTR]
+        fn.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, i64, i64, i64, _PTR]
         fn.restype = ctypes.c_int
     lib.vrl_fused_fold_hier2.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR,
-                                         ctypes.c_int, i64, i64, i64, _PTR]
+                                         cint, cint, i64, i64, i64, _PTR]
     lib.vrl_fused_fold_hier2.restype = ctypes.c_int
     lib.vrl_fused_hier_local_momentum.argtypes = [
         _PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, f32, f32, f32,
@@ -135,25 +140,37 @@ def _comm_lib() -> ctypes.CDLL:
     """The compressed/overlapped-sync library with its C signatures."""
     lib = build.load("comm_update")
     f32, i64, cint = ctypes.c_float, ctypes.c_int64, ctypes.c_int
-    lib.vrl_fused_ef.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, cint, i64,
-                                 i64, i64, i64, i64, _PTR]
+    lib.vrl_fused_ef.argtypes = [_PTR, _PTR, _PTR, _PTR, cint, cint, cint,
+                                 i64, i64, i64, i64, i64, _PTR]
     lib.vrl_fused_ef.restype = cint
-    lib.vrl_fused_fold.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, f32,
-                                   f32, cint, i64, i64, _PTR]
+    lib.vrl_fused_fold.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, cint,
+                                   f32, f32, cint, i64, i64, _PTR]
     lib.vrl_fused_fold.restype = cint
     return lib
 
 
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+_FLOATS = _MOMENT_DTYPES
+# operands by role (the reference's kernels read each through _f32 and cast
+# each result to its buffer's dtype): the parameters and the mean x̂ come
+# in one dtype, the drift buffers (Δ, B; the hierarchy's Δ1, Δ2) in one,
+# the gradient in either; every other operand is fp32
+_PARAMS = ("p", "xbar", "xbar_pod", "glob")
+_DRIFT = ("d", "b", "d1", "d2")
+# the C functions' dtype mask (csrc/vrl_update.cu, comm_update.cu)
+_DT_P, _DT_G, _DT_D, _DT_M = 1, 2, 4, 8
 
 
-def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
-           strided=(), **tensors) -> None:
+def _check(name: str, lead: torch.Tensor, *, moments=(), fp32=(),
+           grid=False, strided=(), **tensors) -> None:
     """Raise on what the kernels do not take: p not (W, R, C) (with
-    ``grid``: not (P, D, R, C)), non-fp32 buffers (moments named in
-    ``moments`` may be fp32 or bf16, all of one type), mixed devices,
-    non-contiguous or misaligned buffers (those named in ``strided`` may
-    hold their contiguous (R, C) worker slices a stride apart, see
+    ``grid``: not (P, D, R, C)); dtypes off their roles — p and x̂ (and
+    the hierarchy's x̂_pod, glob) fp32 or bf16, all in p's dtype; Δ and B
+    (Δ1, Δ2) fp32 or bf16, of one dtype; g fp32 or bf16; the moments named
+    in ``moments`` fp32 or bf16, of one dtype; every other operand, and
+    those named in ``fp32``, fp32; mixed devices, non-contiguous or
+    misaligned buffers (those named in ``strided`` may hold their
+    contiguous (R, C) worker slices a stride apart, see
     ``_worker_stride``), lanes not a multiple of 4."""
     if lead.dim() != (4 if grid else 3):
         raise ValueError(f"{name}: p must be "
@@ -161,15 +178,19 @@ def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
                          f"{tuple(lead.shape)}")
     if lead.shape[-1] % 4:
         raise ValueError(f"{name}: lanes {lead.shape[-1]} not a multiple of 4")
-    if len({tensors[k].dtype for k in moments}) > 1:
-        raise TypeError(f"{name}: moments {moments} differ in dtype")
+    roles = {"parameters": [], "drift": [], "moments": []}
     for key, t in tensors.items():
         if t is None:
             continue
-        allowed = _MOMENT_DTYPES if key in moments else (torch.float32,)
+        role = (None if key in fp32 else "parameters" if key in _PARAMS
+                else "drift" if key in _DRIFT else "moments"
+                if key in moments else "g" if key == "g" else None)
+        allowed = (torch.float32,) if role is None else _FLOATS
         if t.dtype not in allowed:
             raise TypeError(f"{name}: {key} is {t.dtype}; the kernels take "
                             f"{' or '.join(map(str, allowed))} there")
+        if role in roles:
+            roles[role].append((key, t.dtype))
         if t.device != lead.device:
             raise ValueError(f"{name}: {key} on {t.device}, p on "
                              f"{lead.device}")
@@ -177,8 +198,34 @@ def _check(name: str, lead: torch.Tensor, *, moments=(), grid=False,
             raise ValueError(f"{name}: {key} is not contiguous")
         if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
+    for role, seen in roles.items():
+        if len({dt for _, dt in seen}) > 1:
+            raise TypeError(f"{name}: the {role} {dict(seen)} differ in "
+                            f"dtype; the kernels take one dtype there")
     if lead.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {lead.device}")
+
+
+def _bf(t: Optional[torch.Tensor]) -> bool:
+    return t is not None and t.dtype == torch.bfloat16
+
+
+def _dtypes(p: torch.Tensor, g=None, d=None, m=None) -> int:
+    """The C functions' dtype mask: which of p (and x̂), g, the drift
+    buffers and the moments are bf16."""
+    return (_DT_P * _bf(p) | _DT_G * _bf(g) | _DT_D * _bf(d)
+            | _DT_M * _bf(m))
+
+
+def _items(p: torch.Tensor, g=None, d=None) -> dict:
+    """The operands' element sizes for ``kernels.costs``: pb (p, x̂), gb
+    (g), db (Δ, B)."""
+    out = {"pb": p.element_size()}
+    if g is not None:
+        out["gb"] = g.element_size()
+    if d is not None:
+        out["db"] = d.element_size()
+    return out
 
 
 def _dry(name: str, p: torch.Tensor, out, **opts):
@@ -201,6 +248,11 @@ def _worker_stride(name: str, p: torch.Tensor) -> int:
                          f"contiguous, or lie closer than R·C or off a "
                          f"multiple of 4 apart (strides {p.stride()})")
     return stride
+
+
+def _drift(d: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    """The drift operand whose dtype stands for both Δ and B."""
+    return d if d is not None else b
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -250,12 +302,13 @@ def fused_local_sgd(p: torch.Tensor, g: torch.Tensor,
         return p.copy_(tu.fused_local_sgd(p, g, d, lr=lr, wd=wd, b=b))
     if p.device.type == "meta":
         return _dry("fused_local_sgd", p, p, use_d=d is not None, wd=wd,
-                    use_b=b is not None)
+                    use_b=b is not None, **_items(p, g, _drift(d, b)))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_sgd(
-            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), float(lr),
-            float(wd), p.numel(), _stream(p))
+            p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b),
+            _dtypes(p, g, _drift(d, b)), float(lr), float(wd), p.numel(),
+            _stream(p))
     _raise_on("fused_local_sgd", err)
     LAUNCHES["fused_local_sgd"] += 1
     return p
@@ -284,13 +337,13 @@ def fused_sync_vrl(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
         new_p, new_d = tu.fused_sync_vrl(p, xbar, d, scal.reshape(1, 1))
         return p.copy_(new_p), d.copy_(new_d)
     if p.device.type == "meta":
-        return _dry("fused_sync_vrl", p, (p, d))
+        return _dry("fused_sync_vrl", p, (p, d), **_items(p, d=d))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_vrl(
             p.data_ptr(), d.data_ptr(), xbar.data_ptr(), scal.data_ptr(),
-            w, p.numel() // max(w, 1), _stream(p))
+            _dtypes(p, d=d), w, p.numel() // max(w, 1), _stream(p))
     _raise_on("fused_sync_vrl", err)
     LAUNCHES["fused_sync_vrl"] += 1
     return p, d
@@ -319,12 +372,13 @@ def fused_local_momentum(p: torch.Tensor, g: torch.Tensor,
         return p.copy_(new_p), m.copy_(new_m)
     if p.device.type == "meta":
         return _dry(name, p, (p, m), wd=wd, use_d=d is not None,
-                    use_b=b is not None, m_bytes=m.element_size())
+                    use_b=b is not None, m_bytes=m.element_size(),
+                    **_items(p, g, _drift(d, b)))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_momentum(
             p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), m.data_ptr(),
-            int(m.dtype == torch.bfloat16), float(lr), float(beta),
+            _dtypes(p, g, _drift(d, b), m), float(lr), float(beta),
             float(wd), int(bool(nesterov)), p.numel(), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -360,12 +414,13 @@ def fused_local_adam(p: torch.Tensor, g: torch.Tensor,
         return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
     if p.device.type == "meta":
         return _dry(name, p, (p, mu, nu), wd=wd, use_d=d is not None,
-                    use_b=b is not None, m_bytes=mu.element_size())
+                    use_b=b is not None, m_bytes=mu.element_size(),
+                    **_items(p, g, _drift(d, b)))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_local_adam(
             p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), mu.data_ptr(),
-            nu.data_ptr(), int(mu.dtype == torch.bfloat16), scal.data_ptr(),
+            nu.data_ptr(), _dtypes(p, g, _drift(d, b), mu), scal.data_ptr(),
             *_adam_consts(lr, b1, b2, eps, wd), p.numel(), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -417,7 +472,7 @@ def _adam_sm3(name, p, g, d, b, mu, row, col, scal, b_div, consts):
         err = lib.vrl_fused_local_adam_sm3(
             p.data_ptr(), g.data_ptr(), _ptr(d), _ptr(b), mu.data_ptr(),
             row.data_ptr(), col.data_ptr(), col_out.data_ptr(),
-            int(mu.dtype == torch.bfloat16), scal.data_ptr(), *consts,
+            _dtypes(p, g, _drift(d, b), mu), scal.data_ptr(), *consts,
             workers, b_div, p.shape[-2], p.shape[-1], col.shape[-2],
             _stream(p))
     _raise_on(name, err)
@@ -454,7 +509,8 @@ def fused_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
     if p.device.type == "meta":
         return _dry(name, p, (p, mu, row, torch.empty_like(col)),
                     use_d=d is not None, use_b=b is not None,
-                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2])
+                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2],
+                    **_items(p, g, _drift(d, b)))
     return _adam_sm3(name, p, g, d, b, mu, row, col, scal, 1,
                      _adam_consts(lr, b1, b2, eps, wd))
 
@@ -483,13 +539,14 @@ def fused_sync_bvr(p: torch.Tensor, xbar: torch.Tensor, d: torch.Tensor,
                                  beta=beta)
         return tuple(t.copy_(o) for t, o in zip((p, d, b), outs))
     if p.device.type == "meta":
-        return _dry(name, p, (p, d, b))
+        return _dry(name, p, (p, d, b), **_items(p, d=d))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_bvr(
             p.data_ptr(), d.data_ptr(), b.data_ptr(), xbar.data_ptr(),
-            scal.data_ptr(), float(1.0 - beta), float(beta), w,
+            scal.data_ptr(), _dtypes(p, d=d), float(1.0 - beta),
+            float(beta), w,
             p.numel() // max(w, 1), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -510,7 +567,7 @@ def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
     (p, x̃).  ``xbar``/``center``: (R, C) fp32."""
     del block
     name = "fused_sync_easgd"
-    _check(name, p, p=p, xbar=xbar, center=center)
+    _check(name, p, fp32=("xbar",), p=p, xbar=xbar, center=center)
     if not (tuple(xbar.shape) == tuple(center.shape) == tuple(p.shape[1:])):
         raise ValueError(f"{name}: shapes p {tuple(p.shape)}, xbar "
                          f"{tuple(xbar.shape)}, center "
@@ -519,12 +576,13 @@ def fused_sync_easgd(p: torch.Tensor, xbar: torch.Tensor,
         new_p, new_c = tu.fused_sync_easgd(p, xbar, center, a=a, na=na)
         return p.copy_(new_p), center.copy_(new_c)
     if p.device.type == "meta":
-        return _dry(name, p, (p, center))
+        return _dry(name, p, (p, center), **_items(p))
     lib = _lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_easgd(
-            p.data_ptr(), center.data_ptr(), xbar.data_ptr(), float(a),
+            p.data_ptr(), center.data_ptr(), xbar.data_ptr(), _dtypes(p),
+            float(a),
             float(1.0 - na), float(na), w, p.numel() // max(w, 1),
             _stream(p))
     _raise_on(name, err)
@@ -575,7 +633,7 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
         out = (torch.empty(p.shape, dtype=torch.float32, device=p.device)
                if out is None else out)
         return _dry(name, p, (out, e), use_ref=ref is not None,
-                    use_e=e is not None)
+                    use_e=e is not None, **_items(p))
     if out is None:
         out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     lib = _comm_lib()
@@ -583,8 +641,8 @@ def _ef(name: str, mode: int, k: int, p: torch.Tensor,
     r, c = p.shape[-2:]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_ef(p.data_ptr(), _ptr(ref), _ptr(e),
-                               out.data_ptr(), mode, int(k), pods, dper, r,
-                               c, stride, _stream(p))
+                               out.data_ptr(), _dtypes(p), mode, int(k),
+                               pods, dper, r, c, stride, _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return out, e
@@ -602,13 +660,14 @@ def _one_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
 def fused_ef_int8(p: torch.Tensor, ref: Optional[torch.Tensor],
                   e: Optional[torch.Tensor], *, block: int = 0,
                   out: Optional[torch.Tensor] = None):
-    """Per-row-scaled int8 EF round trip on (W, R, C) fp32 buffers.
+    """Per-row-scaled int8 EF round trip on (W, R, C) buffers: p fp32 or
+    bf16 (the parameters), the rest fp32.
 
     ``ref``: the (R, C) shared drift reference, or None (S-SGD's gradient
     compression); ``e``: the (W, R, C) residual, or None (error feedback
     off), updated in place to resid' = payload − dec.  ``out``: the (W, R,
-    C) fp32 buffer that receives dec (new when None; it may be ``p``
-    itself).  ``p``'s (R, C) worker slices may lie a stride apart (a view
+    C) fp32 buffer that receives dec (new when None; it may be an fp32
+    ``p`` itself).  ``p``'s (R, C) worker slices may lie a stride apart (a view
     ``params[:, 0]`` of a (P, D, R, C) buffer); ``e`` and ``out`` are
     contiguous.  Returns (dec, e).  ``block`` is accepted and ignored.
     """
@@ -639,7 +698,8 @@ def fused_ef_topk(p: torch.Tensor, ref: Optional[torch.Tensor],
 def fused_ef_int8_grid(p: torch.Tensor, ref: Optional[torch.Tensor],
                        e: Optional[torch.Tensor], *, block: int = 0,
                        out: Optional[torch.Tensor] = None):
-    """Pod-major int8 EF round trip: p, e, out (P, D, R, C) fp32, ref the
+    """Pod-major int8 EF round trip: p, e, out (P, D, R, C) (p fp32 or
+    bf16, e and out fp32), ref the
     (P, 1, R, C) per-pod reference broadcast over each pod's D workers (or
     None); otherwise the contract of ``fused_ef_int8``.  Returns (dec,
     e)."""
@@ -686,13 +746,15 @@ def _fold(name: str, p, xbar, pend, d, b, wscal, *, beta: float,
                                              capture=capture)
         return tuple(t.copy_(o) for t, o in zip(bufs, outs))
     if p.device.type == "meta":
-        return _dry(name, p, bufs, capture=capture)
+        return _dry(name, p, bufs, capture=capture,
+                    **_items(p, d=_drift(d, b)))
     lib = _comm_lib()
     w = p.shape[0]
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_fold(
             p.data_ptr(), xbar.data_ptr(), pend.data_ptr(), _ptr(d), _ptr(b),
-            wscal.data_ptr(), float(1.0 - beta), float(beta), int(capture),
+            wscal.data_ptr(), _dtypes(p, d=_drift(d, b)), float(1.0 - beta),
+            float(beta), int(capture),
             w, p.numel() // max(w, 1), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -776,12 +838,13 @@ def fused_hier_local_sgd(p: torch.Tensor, g: torch.Tensor, d1: torch.Tensor,
     if p.device.type == "cpu":
         return p.copy_(tu.fused_hier_local_sgd(p, g, d1, d2, lr=lr, wd=wd))
     if p.device.type == "meta":
-        return _dry(name, p, p, wd=wd)
+        return _dry(name, p, p, wd=wd, **_items(p, g, d1))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_sgd(
             p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-            float(lr), float(wd), *_grid_sizes(p), _stream(p))
+            _dtypes(p, g, d1), float(lr), float(wd), *_grid_sizes(p),
+            _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return p
@@ -809,12 +872,12 @@ def fused_sync_hier1(p: torch.Tensor, xbar_pod: torch.Tensor,
                                            scal.reshape(1, 1))
         return p.copy_(new_p), d1.copy_(new_d)
     if p.device.type == "meta":
-        return _dry(name, p, (p, d1))
+        return _dry(name, p, (p, d1), **_items(p, d=d1))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_hier1(
             p.data_ptr(), d1.data_ptr(), xbar_pod.data_ptr(),
-            scal.data_ptr(), *_grid_sizes(p), _stream(p))
+            scal.data_ptr(), _dtypes(p, d=d1), *_grid_sizes(p), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return p, d1
@@ -845,12 +908,12 @@ def fused_sync_hier2(p: torch.Tensor, glob: torch.Tensor, d2: torch.Tensor,
         new_p, new_d = tu.fused_sync_hier2(p, glob, d2, scal.reshape(1, 1))
         return p.copy_(new_p), d2.copy_(new_d)
     if p.device.type == "meta":
-        return _dry(name, p, (p, d2))
+        return _dry(name, p, (p, d2), **_items(p, d=d2))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_sync_hier2(
             p.data_ptr(), d2.data_ptr(), glob.data_ptr(), scal.data_ptr(),
-            *_grid_sizes(p), _stream(p))
+            _dtypes(p, d=d2), *_grid_sizes(p), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return p, d2
@@ -889,12 +952,13 @@ def fused_fold_overlap_hier2(p: torch.Tensor, glob: torch.Tensor,
                                            capture=capture)
         return tuple(t.copy_(o) for t, o in zip(bufs, outs))
     if p.device.type == "meta":
-        return _dry(name, p, bufs, capture=capture)
+        return _dry(name, p, bufs, capture=capture, **_items(p, d=d2))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_fold_hier2(
             p.data_ptr(), glob.data_ptr(), pend2.data_ptr(), d2.data_ptr(),
-            wscal.data_ptr(), int(capture), *_grid_sizes(p), _stream(p))
+            wscal.data_ptr(), int(capture), _dtypes(p, d=d2),
+            *_grid_sizes(p), _stream(p))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return bufs
@@ -924,12 +988,13 @@ def fused_hier_local_momentum(p: torch.Tensor, g: torch.Tensor,
             p, g, d1, d2, m, lr=lr, beta=beta, wd=wd, nesterov=nesterov)
         return p.copy_(new_p), m.copy_(new_m)
     if p.device.type == "meta":
-        return _dry(name, p, (p, m), wd=wd, m_bytes=m.element_size())
+        return _dry(name, p, (p, m), wd=wd, m_bytes=m.element_size(),
+                    **_items(p, g, d1))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_momentum(
             p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-            m.data_ptr(), int(m.dtype == torch.bfloat16), float(lr),
+            m.data_ptr(), _dtypes(p, g, d1, m), float(lr),
             float(beta), float(wd), int(bool(nesterov)), *_grid_sizes(p),
             _stream(p))
     _raise_on(name, err)
@@ -966,12 +1031,13 @@ def fused_hier_local_adam(p: torch.Tensor, g: torch.Tensor,
                                         b2=b2, eps=eps, wd=wd)
         return tuple(t.copy_(o) for t, o in zip((p, mu, nu), outs))
     if p.device.type == "meta":
-        return _dry(name, p, (p, mu, nu), wd=wd, m_bytes=mu.element_size())
+        return _dry(name, p, (p, mu, nu), wd=wd, m_bytes=mu.element_size(),
+                    **_items(p, g, d1))
     lib = _lib()
     with torch.cuda.device(p.device):
         err = lib.vrl_fused_hier_local_adam(
             p.data_ptr(), g.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-            mu.data_ptr(), nu.data_ptr(), int(mu.dtype == torch.bfloat16),
+            mu.data_ptr(), nu.data_ptr(), _dtypes(p, g, d1, mu),
             scal.data_ptr(), *_adam_consts(lr, b1, b2, eps, wd),
             *_grid_sizes(p), _stream(p))
     _raise_on(name, err)
@@ -1013,7 +1079,8 @@ def fused_hier_local_adam_sm3(p: torch.Tensor, g: torch.Tensor,
         return p.copy_(new_p), mu.copy_(new_mu), row.copy_(new_row), new_col
     if p.device.type == "meta":
         return _dry(name, p, (p, mu, row, torch.empty_like(col)),
-                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2])
+                    mu_bytes=mu.element_size(), wd=wd, shards=col.shape[-2],
+                    **_items(p, g, d1))
     return _adam_sm3(name, p, g, d1, d2, mu, row, col, scal, p.shape[1],
                      _adam_consts(lr, b1, b2, eps, wd))
 

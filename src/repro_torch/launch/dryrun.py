@@ -36,10 +36,13 @@ compile.  ``engine_mem`` still sizes their engine state.
 ``engine_mem`` builds the engine state with ``make_engine`` and ``init``
 on meta tensors and sizes every buffer under the reference's placement
 rule, its fit in the card's memory and its HBM pass time on the card's
-constants (``launch.mesh``: NVIDIA H100 SXM5 80GB, 700 W, data sheet):
-in the reference's layout (bf16 params, the fields its reader and CI
-gate use) and, under ``port``, as the port trains it (fp32 params and Δ,
-what its kernels take).
+constants (``launch.mesh``: NVIDIA H100 SXM5 80GB, 700 W, data sheet),
+in the reference's layout (bf16 params, a bf16 Δ for the FSDP archs: the
+fields its reader and CI gate use), which is the layout the port trains
+(``port`` repeats it, for the readers of the key).  The training steps
+run at that layout too: bf16 parameters (``param_dtype``, the
+reference's dry run's), so their products are counted and priced as
+bf16.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --engine-mem --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
@@ -103,15 +106,18 @@ def _entry_axes(entry) -> tuple:
 
 # -------------------------------------------------------------- input specs
 def input_specs(arch_id: str, shape_id: str, mesh_cfg: MeshConfig,
-                cfg=None, shape: Optional[InputShape] = None) -> dict:
+                cfg=None, shape: Optional[InputShape] = None,
+                param_dtype: torch.dtype = torch.bfloat16) -> dict:
     """Meta-tensor stand-ins for every model input of this combination, at
     the global shapes (train: worker-stacked (W, b, S)); ``shape``
-    replaces the registry's input shape of ``shape_id``."""
+    replaces the registry's input shape of ``shape_id``; the codec
+    frontend's training frames come in ``param_dtype``."""
     cfg = cfg or registry.padded_arch(arch_id, mesh_cfg)
     shape = shape or registry.get_shape(shape_id)
     if shape.kind == "train":
         w = mesh_cfg.num_workers
-        return _train_inputs(cfg, w, shape.global_batch // w, shape.seq_len)
+        return _train_inputs(cfg, w, shape.global_batch // w, shape.seq_len,
+                             param_dtype)
     if shape.kind == "prefill":
         return {"tokens": _tokens(cfg, (shape.global_batch, shape.seq_len))}
     window = _decode_window(cfg, shape)
@@ -130,10 +136,13 @@ def _tokens(cfg, lead) -> torch.Tensor:
     return torch.empty(lead, dtype=torch.int64, device=META)
 
 
-def _train_inputs(cfg, w: int, b: int, s: int) -> dict:
+def _train_inputs(cfg, w: int, b: int, s: int,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
     if cfg.frontend == "codec":
-        # the port trains in fp32: frame embeddings in the params' dtype
-        tok = torch.empty((w, b, s, cfg.frontend_dim), device=META)
+        # frame embeddings in the training parameters' dtype (bf16 in the
+        # reference's dry run)
+        tok = torch.empty((w, b, s, cfg.frontend_dim), dtype=dtype,
+                          device=META)
     else:
         tok = torch.empty((w, b, s), dtype=torch.int64, device=META)
     return {"tokens": tok,
@@ -479,10 +488,10 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
                clients: int = 0, delta_bf16: bool = False,
                verbose: bool = True) -> dict:
     """The engine-state memory artifact for one (arch, sharding,
-    moment-storage) point.  Its top-level fields are the reference's and
-    size the REFERENCE's layout: bf16 parameters (its ``param_dtype``) and
-    its Δ dtype (bf16 for the FSDP archs), a state the port's kernels do
-    not step (they take fp32 parameters and Δ):
+    moment-storage) point.  Its fields are the reference's and size its
+    layout, which is the one the port trains: bf16 parameters (the
+    ``param_dtype`` of both dry runs) and the Δ dtype (bf16 for the FSDP
+    archs, or with ``delta_bf16``):
 
       buffers            — per engine-state leaf: shape, dtype, total bytes,
                            per-device bytes under the placement rules
@@ -500,10 +509,10 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
                            client store of M clients behind the W slots
                            (each per-participant leaf × M/W, globals once)
 
-    ``port`` sizes the state the port trains at the same point: fp32
-    parameters and Δ, the moments as asked (its ``param_dtype``,
-    ``delta_dtype``, ``total_bytes``, ``per_device_bytes``, ``fits_pod``,
-    ``t_engine_pass``).
+    ``port`` sizes the state the port trains at the same point, the same
+    layout (its ``param_dtype``, ``delta_dtype``, ``total_bytes``,
+    ``per_device_bytes``, ``fits_pod``, ``t_engine_pass`` equal the fields
+    above; the key stays for its readers).
     """
     mesh_cfg = registry.mesh_roles(arch_id, multi_pod=False, serving=False)
     cfg = registry.padded_arch(arch_id, mesh_cfg)
@@ -526,11 +535,9 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
                                workers, bf16)
     base = _engine_state_bytes(cfg, _cfg(1, "float32", False), workers,
                                bf16)
-    port = _engine_state_bytes(cfg, _cfg(shards, moment_dtype, sm3,
-                                         "float32"), workers, torch.float32)
     per_dev = sum(b["per_device_bytes"] for b in bufs.values())
     base_dev = sum(b["per_device_bytes"] for b in base.values())
-    port_dev = sum(b["per_device_bytes"] for b in port.values())
+    total = sum(b["bytes"] for b in bufs.values())
     devices = workers * shards
     art = {
         "arch": arch_id, "algorithm": algorithm, "inner": inner,
@@ -538,7 +545,7 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
         "moment_dtype": moment_dtype, "sm3": sm3,
         "delta_dtype": delta_dt,
         "buffers": bufs,
-        "total_bytes": sum(b["bytes"] for b in bufs.values()),
+        "total_bytes": total,
         "per_device_bytes": per_dev,
         "baseline_per_device_bytes": base_dev,
         "reduction": round(base_dev / per_dev, 2) if per_dev else 0.0,
@@ -546,11 +553,10 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
         "hbm_per_chip": HBM_PER_CHIP, "chips_per_pod": CHIPS_PER_POD,
         "fits_pod": _fits(per_dev),
         "t_engine_pass": rl.engine_pass_time(per_dev),
-        "port": {"param_dtype": "float32", "delta_dtype": "float32",
-                 "total_bytes": sum(b["bytes"] for b in port.values()),
-                 "per_device_bytes": port_dev,
-                 "fits_pod": _fits(port_dev),
-                 "t_engine_pass": rl.engine_pass_time(port_dev)},
+        "port": {"param_dtype": "bfloat16", "delta_dtype": delta_dt,
+                 "total_bytes": total, "per_device_bytes": per_dev,
+                 "fits_pod": _fits(per_dev),
+                 "t_engine_pass": rl.engine_pass_time(per_dev)},
     }
     if clients:
         if clients < workers:
@@ -570,12 +576,11 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
                  f"GiB host (M={clients})" if clients else "")
         print(f"[engine-mem] {arch_id} {algorithm}/{inner} W={workers} "
               f"shards={shards} moments={moment_dtype}"
-              f"{'+sm3' if sm3 else ''}: the reference's layout (bf16 "
-              f"params, {delta_dt} Δ) {per_dev/2**30:.2f} GiB/device "
-              f"(baseline {base_dev/2**30:.2f}, {art['reduction']}x), "
-              f"{devices} chips, fits_pod={art['fits_pod']}; the port's "
-              f"(fp32 params and Δ) {port_dev/2**30:.2f} GiB/device, "
-              f"fits_pod={art['port']['fits_pod']}{extra}")
+              f"{'+sm3' if sm3 else ''}: the reference's layout and the "
+              f"port's (bf16 params, {delta_dt} Δ) "
+              f"{per_dev/2**30:.2f} GiB/device (baseline "
+              f"{base_dev/2**30:.2f}, {art['reduction']}x), {devices} "
+              f"chips, fits_pod={art['fits_pod']}{extra}")
     return art
 
 
@@ -600,7 +605,8 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
               last_only: bool = False, no_remat: bool = False,
               one_process: bool = False,
               shape_override: Optional[InputShape] = None,
-              allow_tf32: Optional[bool] = None) -> DryrunResult:
+              allow_tf32: Optional[bool] = None,
+              param_dtype: torch.dtype = torch.bfloat16) -> DryrunResult:
     """Run one combination's step on meta tensors and count it.  fn_kind in
     {train, local, sync, sync1, sync2, round, prefill, decode} (default by
     the shape's kind; sync1/sync2 are the hierarchy's per-level syncs and
@@ -618,8 +624,10 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
     whole batch in one process instead, with no mesh (as a one-card run
     does).  ``mesh_override`` replaces fields of the arch's
     ``MeshConfig``, ``shape_override`` the input shape, ``cfg_override``
-    fields of the padded model (``num_layers`` cuts depth).  The engine
-    state is fp32 (the port trains in fp32: its kernels take fp32 params);
+    fields of the padded model (``num_layers`` cuts depth).  The training
+    steps hold their parameters in ``param_dtype`` (bf16 by default, the
+    reference's dry run's; the engine's kernels take it) with a bf16 Δ for
+    the FSDP archs (``registry._FSDP_ARCHS``), as the reference's;
     serving holds bf16 parameters and caches, as the reference's dry run.
     ``backend`` is the update backend ("fused": the kernels' wrappers,
     which charge their calls on meta tensors).  ``allow_tf32`` prices the
@@ -675,9 +683,8 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
                        else None),
             moment_dtype=moment_dtype, sm3=sm3,
             engine=EngineConfig(shards=shards),
-            # the kernels take an fp32 Δ: the reference's bf16 Δ of the
-            # FSDP archs is engine_mem's, not a step the port runs
-            delta_dtype="float32")
+            delta_dtype=("bfloat16" if arch_id in registry._FSDP_ARCHS
+                         else "float32"))
         if not one_process:
             _refuse_fsdp(arch_id, state_specs(cfg, mesh_cfg, vrl_cfg),
                          mesh_cfg, serving=False)
@@ -693,14 +700,15 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
                 pods=engine_mod.hier_config(vrl_cfg).grid[0] if hier_on
                 else 0, shards=vrl_cfg.engine.shards)
         bundle = make_train_step(cfg, vrl_cfg, remat=not no_remat,
-                                 device=META, mesh=mesh)
+                                 device=META, mesh=mesh,
+                                 param_dtype=param_dtype)
         if bundle.engine is None:
             raise NotImplementedError(
                 "update_backend='reference' (the per-leaf executor) is "
                 "single-process and has no engine to count on a mesh")
         eng_spec = bundle.engine.spec
         state = bundle.engine.init(
-            abstract(transformer.model_defs(cfg)), w)
+            abstract(transformer.model_defs(cfg), param_dtype), w)
         if fn_kind in ("sync", "sync1", "sync2"):
             step_fn = {"sync": bundle.sync_step, "sync1": bundle.sync1_step,
                        "sync2": bundle.sync2_step}[fn_kind]
@@ -708,7 +716,8 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
                 raise ValueError(f"fn_kind {fn_kind!r} requires hier_vrl_sgd")
             args = (state,)
         else:
-            ins = input_specs(arch_id, shape_id, mesh_cfg, cfg, shape=shape)
+            ins = input_specs(arch_id, shape_id, mesh_cfg, cfg, shape=shape,
+                              param_dtype=param_dtype)
             spec = batch_sharding_spec(mesh_cfg, shape.global_batch // w,
                                        ins["tokens"].dim() - 2,
                                        worker_stacked=True)
@@ -874,14 +883,13 @@ def main(argv=None) -> int:
     ap.add_argument("--gate-bytes", type=int, default=0,
                     help="--engine-mem gate: exit 1 if any arch's "
                          "per-device engine bytes in the reference's layout "
-                         "(bf16 params) exceed this budget; the port's own "
-                         "state is printed beside each")
+                         "(bf16 params, the port's too) exceed this budget")
     ap.add_argument("--tag", default="", help="label for this variant")
     ap.add_argument("--no-remat", action="store_true",
                     help="no activation recomputation in the train steps")
     ap.add_argument("--delta-bf16", action="store_true",
-                    help="--engine-mem: hold Δ in bf16 in the reference's "
-                         "layout (the port's kernels take an fp32 Δ)")
+                    help="--engine-mem: hold Δ in bf16 (the FSDP archs "
+                         "always do)")
     ap.add_argument("--last-only", action="store_true",
                     help="prefill emits last-position logits only")
     ap.add_argument("--two-layer", action="store_true",
@@ -909,11 +917,10 @@ def main(argv=None) -> int:
                     f.write(json.dumps(art) + "\n")
             if not args.gate_bytes:
                 continue
-            port = art["port"]["per_device_bytes"]
-            print(f"engine-mem gate {arch}: the reference's layout "
-                  f"{art['per_device_bytes']} B/device, the port's state "
-                  f"(fp32 params and Δ) {port} B/device, "
-                  f"{'over' if port > args.gate_bytes else 'within'} "
+            per_dev = art["per_device_bytes"]
+            print(f"engine-mem gate {arch}: the reference's layout, which "
+                  f"the port trains, {per_dev} B/device, "
+                  f"{'over' if per_dev > args.gate_bytes else 'within'} "
                   f"{args.gate_bytes}")
             if art["per_device_bytes"] > args.gate_bytes:
                 over_budget.append(f"{arch}: {art['per_device_bytes']} > "

@@ -239,16 +239,21 @@ def _grad_mul(rows: torch.Tensor, size: int, m: np.ndarray) -> None:
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                     remat: bool = True, chunked_ce: int = 0,
                     device: torch.device | str = "cuda",
-                    timed: bool = False, mesh=None) -> StepBundle:
-    """``remat`` recomputes each layer's activations in the backward
-    (``transformer.forward(remat=True)``; the reference's default, as
-    here).  ``chunked_ce > 0`` streams the LM loss over vocab chunks of
-    that size (``chunked_cross_entropy_lm`` on the post-final-norm hidden
-    states, with ``embed`` as the head when it is tied): the (..., V)
-    logits are never held.  Tokens are ids (W, B, S), or for the codec
-    frontend frame embeddings (W, B, S, F).  ``timed`` records CUDA-event
-    spans around the forward/backward and the update of every step
-    (``StepBundle.timer``); CUDA only.  ``mesh`` goes to
+                    timed: bool = False, mesh=None,
+                    param_dtype: torch.dtype = torch.float32) -> StepBundle:
+    """``param_dtype`` (the reference's, fp32 by default) is the dtype of
+    the parameters: ``init_state`` draws them in it, the engine's buffers
+    (params, and the gradients the backward gives) hold it, and the model
+    computes in it; Δ and the moments take ``vrl_cfg``'s ``delta_dtype``
+    and ``moment_dtype``.  ``remat`` recomputes each layer's activations
+    in the backward (``transformer.forward(remat=True)``; the reference's
+    default, as here).  ``chunked_ce > 0`` streams the LM loss over vocab
+    chunks of that size (``chunked_cross_entropy_lm`` on the
+    post-final-norm hidden states, with ``embed`` as the head when it is
+    tied): the (..., V) logits are never held.  Tokens are ids (W, B, S),
+    or for the codec frontend frame embeddings (W, B, S, F).  ``timed``
+    records CUDA-event spans around the forward/backward and the update of
+    every step (``StepBundle.timer``); CUDA only.  ``mesh`` goes to
     ``core.engine.make_engine``."""
     device = torch.device(device)
     timer = PhaseTimer() if timed else None
@@ -281,16 +286,21 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
                 "single-process: on a mesh every rank would run all W "
                 "workers; use 'auto' or 'fused' with a mesh")
         return _reference_bundle(model_cfg, vrl_cfg, device, timer, span,
-                                 loss_fn)
-    template = abstract(transformer.model_defs(model_cfg))
+                                 loss_fn, param_dtype)
+    template = abstract(transformer.model_defs(model_cfg), param_dtype)
     eng = engine_mod.make_engine(vrl_cfg, template, device=device, mesh=mesh)
     pods = eng.grid[0] if eng.grid is not None else 0
     spec = eng.spec
     gbuf: dict = {}             # params shape -> the reused gradient buffer
 
     def dead_grads(state):
-        """The last step's gradient buffer (dead once the step is done)."""
-        return gbuf.get(tuple(state.params.shape))
+        """The last step's gradient buffer (dead once the step is done), as
+        the fp32 scratch of a compressed sync's payload; None when the
+        gradients are narrower (bf16 parameters): the sync then makes its
+        own fp32 buffer, as the reference's does."""
+        buf = gbuf.get(tuple(state.params.shape))
+        return buf if buf is not None and buf.dtype == torch.float32 \
+            else None
 
     def mean_loss(local: torch.Tensor, member: Any = ()) -> torch.Tensor:
         """(..., w) losses of this rank's workers -> (...) worker means (on
@@ -417,7 +427,8 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return round_step_fault(state, tokens_k, labels_k)
 
     def init_state(seed: int, num_workers: int):
-        params = transformer.init_params(model_cfg, seed, device=device)
+        params = transformer.init_params(model_cfg, seed, param_dtype,
+                                         device=device)
         return eng.init(params, num_workers)
 
     return StepBundle(init_state, train_step, local_step, sync_step,
@@ -447,7 +458,9 @@ def _release(old: Any, new: Any) -> None:
 
 def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
                       device: torch.device, timer, span: Callable,
-                      loss_fn: Callable) -> StepBundle:
+                      loss_fn: Callable,
+                      param_dtype: torch.dtype = torch.float32
+                      ) -> StepBundle:
     """The train step over the per-leaf reference executor
     (``update_backend="reference"``; the reference's ``make_train_step``
     reference branch)."""
@@ -553,7 +566,8 @@ def _reference_bundle(model_cfg: ModelConfig, vrl_cfg: VRLConfig,
         return round_step_fault(state, tokens_k, labels_k)
 
     def init_state(seed: int, num_workers: int):
-        params = transformer.init_params(model_cfg, seed, device=device)
+        params = transformer.init_params(model_cfg, seed, param_dtype,
+                                         device=device)
         return alg.init(vrl_cfg, params, num_workers)
 
     return StepBundle(init_state, train_step, local_step, sync_step,

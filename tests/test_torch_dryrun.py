@@ -14,15 +14,16 @@ package's (``repro.launch.dryrun``), on the CPU.
     the multi mesh (sync2 all on the inter-node tier, as the reference
     puts it all on DCI), and ``--compress int8``'s wire bytes.
   * The meta count of a smoke model's local step equals
-    ``FlopCounterMode`` on the same step run on the CPU.
+    ``FlopCounterMode`` on the same step run on the CPU, at fp32 and at
+    the dry run's bf16 parameters (then every product is counted bf16).
   * The dry mesh's counts equal those of gloo ranks (``torch_dryrun_ranks``)
     on a flat (1 x 2) grid, a hierarchical one and a row-sharded one (data
     2 x shard 2).
-  * ``engine_mem``'s ``port`` figure: the state the port trains (fp32
-    params and Δ) beside the reference's layout.
-  * The CLI: the CI gate's exit codes on the reference's layout and on
-    the port's, the reference's keys on a row, an FSDP layout refused
-    with its reason.
+  * ``engine_mem``'s ``port`` figure: the state the port trains, which is
+    the reference's layout (bf16 params, the FSDP archs' bf16 Δ).
+  * The CLI: the CI gate's exit codes on the reference's layout (the
+    port's), the reference's keys on a row, an FSDP layout refused with
+    its reason.
   * ``input_specs``, ``cache_specs``, ``state_specs`` and
     ``batch_sharding_spec`` against the reference's, entry for entry; the
     FSDP refusal and rank 0's block of each input, both read from them.
@@ -217,22 +218,17 @@ def test_engine_mem_matches_reference(ref, arch, tag):
     assert p["fits_pod"] == (p["devices_used"] <= 256
                              and p["per_device_bytes"] <= 80 * 10**9)
     assert p["t_engine_pass"] == 2.0 * p["per_device_bytes"] / 3.35e12
-    # the state the port trains: its kernels take fp32 params and Δ, so
-    # each bf16 one of the reference's layout doubles, the rest as sized
+    # the state the port trains is the reference's layout: bf16 params,
+    # the reference's Δ dtype, every figure equal to the top-level ones
     port = p["port"]
-    assert (port["param_dtype"], port["delta_dtype"]) == ("float32",
-                                                          "float32")
-    wide = [b for k, b in p["buffers"].items()
-            if k in ("params", "delta") and b["dtype"] == "bfloat16"]
-    assert p["buffers"]["params"] in wide
-    assert port["total_bytes"] == p["total_bytes"] + sum(
-        b["bytes"] for b in wide)
-    assert port["per_device_bytes"] == p["per_device_bytes"] + sum(
-        b["per_device_bytes"] for b in wide)
-    assert port["fits_pod"] == (p["devices_used"] <= 256
-                                and port["per_device_bytes"] <= 80 * 10**9)
-    assert port["t_engine_pass"] == \
-        2.0 * port["per_device_bytes"] / 3.35e12
+    assert p["buffers"]["params"]["dtype"] == "bfloat16"
+    assert (port["param_dtype"], port["delta_dtype"]) == ("bfloat16",
+                                                          r["delta_dtype"])
+    assert port["total_bytes"] == p["total_bytes"]
+    assert port["per_device_bytes"] == p["per_device_bytes"]
+    assert port["fits_pod"] == p["fits_pod"] == (
+        p["devices_used"] <= 256 and port["per_device_bytes"] <= 80 * 10**9)
+    assert port["t_engine_pass"] == p["t_engine_pass"]
     if tag == "clients64":
         assert p["client_store_bytes"] == r["client_store_bytes"] - extra
 
@@ -281,29 +277,43 @@ SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-370m", "hymba-1.5b",
                "phi3.5-moe-42b-a6.6b", "musicgen-large")
 
 
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", SMOKE_ARCHS)
-def test_meta_flops_equal_cpu_flop_counter(arch):
+def test_meta_flops_equal_cpu_flop_counter(arch, pdt):
     """The smoke model's local step (W = 2, batch 4 x 32) counted on meta
     tensors equals FlopCounterMode on the same step run on the CPU, and
-    charges the kernel the CPU run would launch on the card."""
+    charges the kernel the CPU run would launch on the card; at the dry
+    run's bf16 parameters (its default, the reference's) the products are
+    bf16 ones, priced at the bf16 rate (all of them in the dense and
+    audio families; beside the fp32 router and scan elsewhere)."""
+    dtype = getattr(torch, pdt)
     cfg = registry.smoke_arch(arch)
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     res = dryrun.lower_one(
         arch, "train_4k", multi_pod=False, fn_kind="local",
         one_process=True, cfg_override=over,
         mesh_override={"shape": (2, 16)},
-        shape_override=base.InputShape("s", 32, 8, "train"), verbose=False)
+        shape_override=base.InputShape("s", 32, 8, "train"), verbose=False,
+        **({} if pdt == "bfloat16" else {"param_dtype": dtype}))
     bundle = make_train_step(cfg, base.VRLConfig(update_backend="xla"),
-                             device="cpu")
+                             device="cpu", param_dtype=dtype)
     st = bundle.init_state(0, 2)
     gen = torch.Generator().manual_seed(0)
     lab = torch.randint(0, cfg.vocab_size, (2, 4, 32), generator=gen)
-    tok = (torch.randn(2, 4, 32, cfg.frontend_dim, generator=gen)
+    tok = (torch.randn(2, 4, 32, cfg.frontend_dim, generator=gen).to(dtype)
            if cfg.frontend == "codec" else lab)
     with FlopCounterMode(display=False) as fm:
         bundle.local_step(st, tok, lab)
-    assert res.roofline.hlo_flops == fm.get_total_flops() > 0
-    assert res.roofline.flops_by_dtype == {"float32": fm.get_total_flops()}
+    total = fm.get_total_flops()
+    assert res.roofline.hlo_flops == total > 0
+    by = res.roofline.flops_by_dtype
+    if pdt == "float32" or cfg.family in ("dense", "audio"):
+        assert by == {pdt: total}
+    else:
+        # the MoE router and the SSM scan's decays stay fp32, as the
+        # reference's
+        assert set(by) == {"bfloat16", "float32"}
+        assert sum(by.values()) == total and by["bfloat16"] > by["float32"]
     assert res.counted.launches() == {"fused_local_sgd": 1}
     assert res.per_device_bytes > res.counted.base_bytes > 0
 
@@ -400,9 +410,9 @@ def test_cli_engine_mem_gate(budget, rc):
 
 
 def test_cli_engine_mem_gate_reports_the_port_layout(tmp_path):
-    """The gate's point on the state the port trains (fp32 params and Δ):
-    751,828,992 B a device, printed beside the reference's layout as over
-    the 7e8 budget, and in the artifact under ``port``."""
+    """The gate's point on the state the port trains, the reference's
+    layout (bf16 params): 626,524,160 B a device, within the 7e8 budget,
+    in the artifact under ``port`` too."""
     out = tmp_path / "mem.jsonl"
     proc = _cli("--engine-mem", "--arch", "qwen2-0.5b", "--shards", "8",
                 "--moment-dtype", "bfloat16", "--gate-bytes", "700000000",
@@ -410,10 +420,10 @@ def test_cli_engine_mem_gate_reports_the_port_layout(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     art = json.loads(out.read_text())
     assert art["per_device_bytes"] == 626_524_160
-    assert art["port"]["per_device_bytes"] == 751_828_992
-    assert ("the reference's layout 626524160 B/device, the port's state "
-            "(fp32 params and Δ) 751828992 B/device, over 700000000") in \
-        proc.stdout
+    assert art["port"]["per_device_bytes"] == 626_524_160
+    assert art["port"]["param_dtype"] == "bfloat16"
+    assert ("the reference's layout, which the port trains, 626524160 "
+            "B/device, within 700000000") in proc.stdout
 
 
 def test_cli_sync_row_has_the_reference_keys(ref, tmp_path):

@@ -165,6 +165,37 @@ def test_cost_model_gives_the_table_bounds(name):
     assert by == "bytes"
 
 
+def _sizes(fn, pb, gb, db):
+    """The element-size options ``fn`` (a ``COSTS`` entry) takes."""
+    import inspect
+    # the hierarchy's SM3 and top-k pass their options on
+    target = {costs._hier_sm3: costs.adam_sm3_cost,
+              costs._hier_topk: costs.hier_ef_cost}.get(fn, fn)
+    params = inspect.signature(target).parameters
+    return {k: v for k, v in (("pb", pb), ("gb", gb), ("db", db))
+            if k in params}
+
+
+@pytest.mark.parametrize("name", sorted(BOUNDS))
+def test_cost_model_bounds_by_operand_dtype(name):
+    """The bounds charge each operand at its element size: fp32 sizes
+    given keep §6's digits; bf16 parameters and gradients (fp32 Δ, then
+    bf16 Δ) move fewer bytes.  At the main path's shape, fused_local_sgd
+    moves 10 B an element instead of 16 (5.900 ms) and fused_sync_vrl
+    12.5 B instead of 17 (7.375 ms)."""
+    shape = HIER if ("hier" in name or name.endswith("_grid")) else FULL
+    fn = costs.COSTS[name]
+    ms32, _ = costs.bound_ms(*fn(*shape, **_sizes(fn, 4, 4, 4)))
+    assert f"{ms32:.3f}" == BOUNDS[name]
+    ms16, _ = costs.bound_ms(*fn(*shape, **_sizes(fn, 2, 2, 4)))
+    ms16d, _ = costs.bound_ms(*fn(*shape, **_sizes(fn, 2, 2, 2)))
+    assert ms16d <= ms16 < ms32
+    want = {"fused_local_sgd": ("5.900", "4.720"),
+            "fused_sync_vrl": ("7.375", "5.015")}.get(name)
+    if want:
+        assert (f"{ms16:.3f}", f"{ms16d:.3f}") == want
+
+
 def test_cost_model_leaf_and_model_op_bounds():
     n = 4 * 494_032_768                  # the W = 4 qwen2-0.5b tree
     assert f"{costs.bound_ms(*costs.leaf_cost(n, n // 4, True))[0]:.3f}" \
@@ -261,11 +292,25 @@ def test_wrappers_charge_on_meta_and_launch_nothing():
         costs.leaf_cost(140, 35, False, (2, 4, 4))[0]
     assert costs.CHARGES["fused_ef_int8_grid"]["shapes"] == {
         f"{pp}x{dd}x{r}x{c}": 1}
+    # bf16 parameters and gradients, a bf16 Δ: charged at their sizes
+    costs.reset_charges()
+    h = torch.bfloat16
+    vu.fused_local_sgd(_m(w, r, c, dt=h), _m(w, r, c, dt=h),
+                       _m(w, r, c, dt=h), lr=0.1)
+    vu.fused_sync_vrl(_m(w, r, c, dt=h), _m(r, c, dt=h), _m(w, r, c),
+                      s1)
+    assert costs.CHARGES["fused_local_sgd"]["bytes"] == 2 * n * 4
+    assert costs.CHARGES["fused_sync_vrl"]["bytes"] == \
+        2 * 2 * n + 2 * 4 * n + 2 * r * c + 4
 
 
 def test_wrappers_check_meta_operands():
+    # bf16 parameters take an x̂ of their dtype, fp16 is no kernel's
     with pytest.raises(TypeError):
-        vu.fused_local_sgd(_m(2, 8, 256, dt=torch.bfloat16),
+        vu.fused_sync_vrl(_m(2, 8, 256, dt=torch.bfloat16), _m(8, 256),
+                          _m(2, 8, 256), _m(1, 1))
+    with pytest.raises(TypeError):
+        vu.fused_local_sgd(_m(2, 8, 256, dt=torch.float16),
                            _m(2, 8, 256), None, lr=0.1)
     with pytest.raises(ValueError):
         vu.fused_sync_vrl(_m(2, 8, 256), _m(4, 256), _m(2, 8, 256),

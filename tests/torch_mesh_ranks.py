@@ -100,6 +100,8 @@ def buffers(state, prefix: str = "") -> dict:
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             out.update(buffers(v, f"{prefix}{f}."))
         elif isinstance(v, torch.Tensor) and v.ndim >= 2:
+            # bf16 as fp32 (exact), every other dtype as it is
+            v = v.float() if v.dtype == torch.bfloat16 else v
             out[prefix + f] = v.detach().cpu().numpy().copy()
     return out
 
@@ -346,5 +348,69 @@ def elastic(rank: int, world: int, store: str, out: str) -> None:
                                      for kind, v in coll.COUNTS.items()}})
         res[name] = {"rounds": rounds, "buffers": buffers(st),
                      "n_active": float(st.member.n_active)}
+    torch.save(res, f"{out}.rank{rank}")
+    dist.destroy_process_group()
+
+
+# bf16 parameters on a mesh: name -> (VRLConfig fields, workers)
+BF16_CASES = {
+    "vrl_w2": (dict(algorithm="vrl_sgd"), 2),
+    "vrl_overlap_w2": (dict(algorithm="vrl_sgd", overlap=True), 2),
+    "hier_w4": (dict(algorithm="hier_vrl_sgd", hier=HIER), 4),
+    "vrl_w4": (dict(algorithm="vrl_sgd"), 4),
+    "bvr_adam_w4": (dict(algorithm="bvr_l_sgd", inner_optimizer="adam",
+                         bvr_beta=0.5, delta_dtype="bfloat16"), 4),
+}
+
+
+def run_bf16(name: str, mesh=None, presync: bool = False):
+    """A ``BF16_CASES`` case through ``round_step_flat`` at bf16
+    parameters (the fp32 numpy parameters and gradients rounded to bf16):
+    this rank's block (all of it without a mesh), its buffers as numpy
+    (bf16 ones as fp32).  Three rounds where a rank holds one worker of
+    each mean; one where it holds two (the x̂ of a later round would start
+    from the first one's rounding).  ``presync``: the engine and the state
+    before that round's sync (one process, no overlap)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.core import engine as teng
+    from repro_torch.launch import mesh as mesh_mod
+    fields, w = BF16_CASES[name]
+    cfg = port_cfg("vrl_sgd", **fields)
+    hier = cfg.hier is not None
+    tpl = tree_mod.tree_map(lambda t: t.to(torch.bfloat16), template())
+    et = teng.make_engine(cfg, tpl, mesh=mesh)
+    st = et.init(tree_mod.tree_map(lambda t: t.to(torch.bfloat16),
+                                   params0()), w)
+    spec = et.spec
+    idx = (np.arange(w) if mesh is None else
+           mesh_mod.local_workers(mesh, w, PODS if hier else 0))
+    local = tuple(st.params.shape[:-2])
+    for r in range(3 if w == 2 or hier else 1):
+        gk = np.zeros((K, w, spec.rows, spec.lanes), np.float32)
+        rng = np.random.RandomState(500 + r)
+        gk.reshape(K, w, -1)[..., :spec.size] = rng.randn(K, w, spec.size)
+        gk = torch.from_numpy(np.ascontiguousarray(
+            gk[:, idx].reshape(K, *local, *gk.shape[-2:]))).to(
+            torch.bfloat16)
+        if presync:
+            for g in gk:
+                st = et.local_step(st, g)
+            return et, st
+        st = et.round_step_flat(st, gk)
+    return buffers(st)
+
+
+def bf16_mesh(rank: int, world: int, store: str, out: str) -> None:
+    """Every ``BF16_CASES`` case on this rank's block of a mesh over
+    ``world`` ranks."""
+    from repro_torch.launch import mesh as mesh_mod
+    torch.set_num_threads(1)
+    _init(rank, world, store)
+    res = {}
+    for name, (fields, w) in BF16_CASES.items():
+        pods = PODS if "hier" in fields else 0
+        mesh = mesh_mod.make_engine_mesh(w, pods=pods)
+        res[name] = {"state": run_bf16(name, mesh), "coords": mesh.coords,
+                     "idx": mesh_mod.local_workers(mesh, w, pods)}
     torch.save(res, f"{out}.rank{rank}")
     dist.destroy_process_group()
