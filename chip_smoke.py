@@ -20,6 +20,12 @@
                                            # script launches them itself)
   python3 chip_smoke.py --dryrun    # phases 1, 2 and 13 alone
   python3 chip_smoke.py --bf16      # phases 1, 2 and 14 alone
+  python3 chip_smoke.py --fsdp      # phases 1, 2 and 15 alone
+  python3 chip_smoke.py --fsdp-ranks CASE OUT   # phase 15's (bb) or (bc)
+                                           # ranks (the script launches
+                                           # them itself)
+  python3 chip_smoke.py --fsdp-dry OUT   # phase 15's (bd) rows (the
+                                           # script starts it itself)
   python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
                                            # training paths alone, the cut
                                            # ones at N of qwen2-0.5b's 24
@@ -387,7 +393,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 7. mesh — the distributed worker axis: ``repro_torch.launch.train
    --mesh-grid`` under ``python -m torch.distributed.run --standalone
    --nproc-per-node N`` (one process per rank, ``--loss-out`` a JSON per
-   rank), each rank's block of the workers on the one card:
+   rank), each rank's block of the workers on the one card; the four
+   launches start side by side (the script's time), so their step walls
+   share the host's cores:
    - (z1) NCCL, world 1: phase 4's vrl_sgd + sgd flags (full width, W = 4,
      batch 8 × seq 64, k = 2, ``--warmup``, γ = 1e-3, 7 steps: rounds of 1,
      2, 2, 2), held to phase 4's one-process run of them.
@@ -664,6 +672,38 @@ Phases (each prints a line; any failure raises and exits non-zero):
      beside phase 4's vrl_sgd + sgd (fp32 params, the same model and
      batch).
 
+15. a worker over ranks — one VRL worker over fsdp ranks (its batch split
+   over them, one gradient mean before the clip, the MoE dispatch and aux
+   loss over the worker's whole batch), every rank on the one card over
+   gloo (NCCL refuses two ranks on one device), its ranks
+   ``chip_smoke.py --fsdp-ranks CASE OUT`` under the launcher:
+   - (bb) phi3.5-moe at full width (d 4096, 16 experts top-2, moe_d_ff
+     6400, vocab 32,064), 1 of 32 layers (1.56e9 parameters), bf16
+     parameters and Δ, vrl_sgd + sgd, one worker over 2 fsdp ranks, batch
+     8 × 64 (4 × 64 a rank), k = 2, one round, remat on, the router's
+     aux loss in the loss; then rank 0 runs the same worker on the whole
+     batch in one process (the twin).  Gates: finite losses within 1e-2
+     relative of the twin's; the first step's dispatches (its forward and
+     the remat recompute) bitwise the twin's kept mask and slots
+     (``models.moe.TRACE``; later steps' shares printed: their parameters
+     differ by bf16 roundings of a gradient summed in another order); both
+     ranks' params and Δ bitwise after every step (two checksums of their
+     bit patterns); one "grad" all-reduce a step over the fsdp group of
+     the whole gradient, fp32 on the wire.  Each rank's step walls and the
+     gradient mean's walls (host clock, synchronised), its peak.
+   - (bc) the smoke phi3.5-moe (capacity factor 0.5) as 2 workers × fsdp
+     2 (gloo world 4), vrl_sgd + adam, fp32, clip_norm 0.5 (the first
+     gradient's norm printed, a failure at or below it), launched beside
+     (bb): losses within 1e-4 relative of one process with the two
+     workers, the gathered params within 1e-4 · max|p| on all but 1 %
+     of the elements (Adam's ±γ steps) and 2γ a step on every one.
+   - (bd) (bb)'s first local step and first sync on a (1 × fsdp 2) dry
+     mesh (``launch.dryrun.lower_one``): FLOPs, launches and collectives
+     equal to rank 0's on the card (``FlopCounterMode``); and, in a child
+     process beside (bb) and (bc) (``chip_smoke.py --fsdp-dry OUT``), the
+     FSDP archs' (chameleon-34b, kimi-k2, phi3.5-moe) train_4k local and
+     sync rows on the single and multi meshes, each ``ok``.
+
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
 it; flash_attention's and ssd_scan's from their phase-3 paths, their
@@ -672,8 +712,8 @@ fp32, ``bound_ms`` the tensor cores', with the fp32 CUDA-core bound,
 the bf16 row's numbers and the widened shapes' rows (``wide``) beside
 them; each engine kernel's phase-14 numbers under ``bf16``: launches in
 (ba), and ms, plain_ms, bound_ms, bound_by, library_ms with an fp32 Δ
-(``delta_fp32``) and a bf16 one (``delta_bf16``, null without Δ)), and
-last
+(``delta_fp32``) and a bf16 one (``delta_bf16``, null without Δ)),
+``fsdp_launches`` for the kernels (bb) runs (rank 0's), and last
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -3971,8 +4011,15 @@ def ranks_result(tag, proc, out, log, nproc, timeout=Z_TIMEOUT) -> list:
             for r in range(nproc)]
 
 
+def z_launch(argv, nproc):
+    """Start one phase-7 launch -> (process, JSON path, log path)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    return start_ranks(argv, nproc, out, log), out, log
+
+
 def z_path(tag, argv, nproc, backend, want_state, want_launches, ref,
-           grid=None, lr=MAIN_LR):
+           grid=None, lr=MAIN_LR, launch=None):
     """One phase-7 path on the card: the CLI under the launcher, each
     rank's JSON checked — its backend and device, every loss finite and
     the same on every rank, within ``Z_RTOL`` of ``ref`` (the same flags
@@ -3980,11 +4027,10 @@ def z_path(tag, argv, nproc, backend, want_state, want_launches, ref,
     group ({group: (calls, async calls)}: one per round, per level in the
     hierarchy, none in the local steps), the kernel launches (each rank's
     own block), the deadline misses where ``ref`` has them, Σ Δ as phase 4
-    holds it — and each rank's counts, spans, peak and wall printed."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
-    ranks = ranks_result(tag, start_ranks(argv, nproc, out, log), out, log,
-                         nproc)
+    holds it — and each rank's counts, spans, peak and wall printed.
+    ``launch``: the ``z_launch`` of ``argv`` started earlier, or None to
+    start it here."""
+    ranks = ranks_result(tag, *(launch or z_launch(argv, nproc)), nproc)
     banner = next(line for line in ranks[0]["log"].splitlines()
                   if line.startswith("mesh: "))
     via = {"nccl": "NCCL world 1", "gloo": "gloo through host memory"}[
@@ -4075,23 +4121,32 @@ def mesh_paths(refs) -> None:
 
 
 def mesh_card_paths(refs, z4_cpu) -> None:
-    """(z1)-(z4) on the card."""
+    """(z1)-(z4) on the card, their launches started side by side (the
+    script's time: their walls share the host's cores)."""
     from repro_torch.launch import train as launch
-    z_path("(z1) vrl_sgd+sgd, NCCL world 1", MAIN_ARGS, 1, "nccl",
-           {"pod+data": (4, 0)}, MAIN_LAUNCHES, refs["main"])
-    z_path("(z2) vrl_sgd+sgd --overlap, gloo world 2",
-           PATH_E_ARGS, 2, "gloo", {"pod+data": (2, 2)},
-           PATH_E_LAUNCHES, refs["e"])
-    z_path("(z3) hier_vrl_sgd (2, 2), gloo world 2", PATH_G[0], 2, "gloo",
-           {"data": (2, 0), "pod": (1, 0)}, PATH_G[1], refs["g"],
-           grid=(2, 2))
-    cpu = ranks_result("(z4) on the CPU", *z4_cpu, 2)
-    one = launch.run(Z4_ARGS)
-    ranks = z_path("(z4) smoke hier (2, 2) int8 / topk:32 --overlap "
-                   "--deadline 0.25, gloo world 2", Z4_ARGS, 2, "gloo",
-                   {"data": (4, 0), "pod": (2, 2)}, Z4_LAUNCHES,
-                   {"losses": one.losses, "avg": one.avg_model_losses,
-                    "misses": cpu[0]["misses"]}, grid=(2, 2), lr=LR)
+    runs = [z_launch(MAIN_ARGS, 1), z_launch(PATH_E_ARGS, 2),
+            z_launch(PATH_G[0], 2), z_launch(Z4_ARGS, 2)]
+    try:
+        z_path("(z1) vrl_sgd+sgd, NCCL world 1", MAIN_ARGS, 1, "nccl",
+               {"pod+data": (4, 0)}, MAIN_LAUNCHES, refs["main"],
+               launch=runs[0])
+        z_path("(z2) vrl_sgd+sgd --overlap, gloo world 2",
+               PATH_E_ARGS, 2, "gloo", {"pod+data": (2, 2)},
+               PATH_E_LAUNCHES, refs["e"], launch=runs[1])
+        z_path("(z3) hier_vrl_sgd (2, 2), gloo world 2", PATH_G[0], 2,
+               "gloo", {"data": (2, 0), "pod": (1, 0)}, PATH_G[1],
+               refs["g"], grid=(2, 2), launch=runs[2])
+        cpu = ranks_result("(z4) on the CPU", *z4_cpu, 2)
+        one = launch.run(Z4_ARGS)
+        ranks = z_path("(z4) smoke hier (2, 2) int8 / topk:32 --overlap "
+                       "--deadline 0.25, gloo world 2", Z4_ARGS, 2, "gloo",
+                       {"data": (4, 0), "pod": (2, 2)}, Z4_LAUNCHES,
+                       {"losses": one.losses, "avg": one.avg_model_losses,
+                        "misses": cpu[0]["misses"]}, grid=(2, 2), lr=LR,
+                       launch=runs[3])
+    finally:
+        for proc, _, _ in runs:
+            stop_ranks(proc)
     # the card's first loss beside the CPU's, from the same parameters:
     # the smoke model's forward under the reference's init (attention near
     # one-hot) parts the two GEMM orders before any update, so the card is
@@ -6750,6 +6805,430 @@ def bf16_phase(dev, vu, tu, card, chk, times32=None, fp32_peak=None):
     return rows, launches
 
 
+# ------------------------------------------------ 15 a worker over ranks
+# (bb): phi3.5-moe at full width (d 4096, 16 experts top-2, moe_d_ff 6400,
+# vocab 32,064), 1 of 32 layers, one worker over 2 fsdp ranks on gloo (NCCL
+# refuses two ranks on one card): bf16 parameters and Δ (the reference's
+# layout for its FSDP archs), vrl_sgd + sgd, the worker's batch 8 x 64 (4 x
+# 64 a rank), k = 2, remat on, the router's aux loss in the loss.  Each rank holds ~6 B a parameter (params, Δ, the gradient: 9.4 GB
+# at 1.56e9) plus the gradient mean's fp32 wire copy (6.2 GB), rank 0 the
+# one-process twin after its own run (another 9.4 GB): ~35 GB in all.
+# one round: the gradient mean takes 7-18 s a step through gloo's host
+# staging on an H100 host, and the phase keeps under 90 s
+BB_FSDP, BB_BATCH, BB_SEQ, BB_K, BB_ROUNDS = 2, 8, 64, 2, 1
+BB_RTOL = 1e-2                  # losses against the one-process twin
+BB_SEED = 15
+# (bc): two workers x fsdp 2 (gloo world 4) at the smoke MoE's widths,
+# vrl_sgd + adam, fp32, a clip that binds, against one process with the
+# two workers: the mesh standard (PERF.md §2)
+BC_W, BC_FSDP, BC_RTOL, BC_CLIP, BC_LR = 2, 2, 1e-4, 0.5, 1e-3
+FSDP_TIMEOUT = 600
+# (bd): the reference's FSDP archs' training rows the dry run must lower
+FSDP_ARCHS = ("chameleon-34b", "kimi-k2-1t-a32b", PHI)
+
+
+def bb_config():
+    """phi3.5-moe at full width, 1 of 32 layers."""
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_arch(PHI), num_layers=1)
+
+
+def bb_vrl():
+    from repro_torch.configs.base import VRLConfig
+    return VRLConfig(comm_period=BB_K, warmup=False, learning_rate=MAIN_LR,
+                     delta_dtype="bfloat16", update_backend="fused")
+
+
+def bc_config():
+    """The smoke phi3.5-moe at capacity factor 0.5 (its experts drop)."""
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.smoke_arch(PHI), capacity_factor=0.5)
+
+
+def bc_vrl():
+    from repro_torch.configs.base import VRLConfig
+    return VRLConfig(comm_period=2, warmup=False, learning_rate=BC_LR,
+                     inner_optimizer="adam", clip_norm=BC_CLIP,
+                     update_backend="fused")
+
+
+def fsdp_tokens(vocab, w, b, steps, seed, dev):
+    """(steps, W, b, seq) ids from numpy and their next-token labels."""
+    t = np.random.RandomState(seed).randint(
+        0, vocab, (steps, w, b, BB_SEQ)).astype(np.int64)
+    t = torch.from_numpy(t).to(dev)
+    return t, torch.roll(t, -1, dims=-1)
+
+
+def state_sums(state) -> list:
+    """Two checksums of each of the state's tensors' bit patterns (their
+    16- or 32-bit words summed, and weighted by position mod 65,521), on
+    the card: equal states give equal sums."""
+    out = []
+    for t in (state.params, state.delta):
+        words = t.view(torch.int16 if t.element_size() == 2
+                       else torch.int32).reshape(-1)
+        s1 = s2 = 0
+        for chunk in words.split(1 << 26):
+            c = chunk.to(torch.int64)
+            s1 += int(c.sum())
+            w = torch.arange(c.numel(), device=c.device) % 65521
+            s2 += int((c * w).sum())
+        out += [s1, s2]
+    return out
+
+
+def fsdp_rank_run(case: str, out: str) -> int:
+    """Phase 15's ranks under ``torch.distributed.run`` (gloo, every rank
+    on the one card): (bb) or (bc); a JSON per rank."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.comm import collectives as coll
+    from repro_torch.kernels import vrl_update as vu
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.train.train_loop import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    rec = {"rank": rank}
+    if case == "bb":
+        mesh = mesh_mod.make_engine_mesh(1, fsdp=BB_FSDP)
+        cfg, vcfg, w, dtype = bb_config(), bb_vrl(), 1, torch.bfloat16
+        tok, lab = fsdp_tokens(cfg.vocab_size, 1, BB_BATCH, BB_K * BB_ROUNDS,
+                               BB_SEED, dev)
+    else:
+        mesh = mesh_mod.make_engine_mesh(BC_W, fsdp=BC_FSDP)
+        cfg, vcfg, w, dtype = bc_config(), bc_vrl(), BC_W, torch.float32
+        tok, lab = fsdp_tokens(cfg.vocab_size, BC_W, 4, 4, BB_SEED, dev)
+    rec["coords"] = dict(zip(mesh.axes, mesh.coords))
+    mine = mesh_mod.local_workers(mesh, w)
+
+    def start(bundle):
+        state = bundle.init_state(0, w)
+        if case == "bc":
+            from repro_torch.core import flat
+            tree = flat.unflatten_stacked(bundle.engine.spec, state.params)
+            for k in ("wq", "wk"):
+                tree["layers"]["attn"][k].mul_(0.1)
+        return state
+
+    # the gradient mean's wall (host clock, synchronised), apart from the
+    # rest of the step
+    mean_ms = []
+    orig = coll.fsdp_mean
+
+    def timed_mean(m, buf, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = orig(m, buf, **kw)
+        torch.cuda.synchronize(dev)
+        mean_ms.append(1e3 * (time.perf_counter() - t0))
+        return r
+    coll.fsdp_mean = timed_mean
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    bundle = make_train_step(cfg, vcfg, device=dev, mesh=mesh,
+                             param_dtype=dtype)
+    state = start(bundle)
+    torch.cuda.synchronize(dev)
+    rec["init_s"] = time.perf_counter() - t0
+    moe.TRACE = [] if case == "bb" else None
+    losses, walls, sums, counted, total = [], [], [], {}, {}
+
+    def launched():
+        got = {k: v for k, v in vu.LAUNCHES.items() if v}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return got
+    for i in range(tok.shape[0]):
+        vu.reset_launches()
+        coll.reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) if i == 0 else \
+                contextlib.nullcontext() as fm:
+            state, loss = bundle.local_step(state, tok[i][mine], lab[i][mine])
+            torch.cuda.synchronize(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = launched()
+        if i == 0:
+            counted["local"] = {
+                "flops": fm.get_total_flops(), "launches": got,
+                "counts": json.loads(json.dumps(coll.COUNTS))}
+        losses.append(float(loss))
+        if (i + 1) % (BB_K if case == "bb" else 2) == 0:
+            vu.reset_launches()
+            coll.reset_counts()
+            first = "sync" not in counted
+            with FlopCounterMode(display=False) if first else \
+                    contextlib.nullcontext() as fm:
+                state = bundle.sync_step(state)
+                torch.cuda.synchronize(dev)
+            got = launched()
+            if first:
+                counted["sync"] = {
+                    "flops": fm.get_total_flops(), "launches": got,
+                    "counts": json.loads(json.dumps(coll.COUNTS))}
+        sums.append(state_sums(state))
+    coll.fsdp_mean = orig
+    trace = moe.TRACE
+    moe.TRACE = None
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (rec["coords"], sums))
+    rec.update(losses=losses, walls=walls, mean_ms=mean_ms, counted=counted,
+               launches=total,
+               peak=torch.cuda.max_memory_allocated(dev),
+               state_bytes=sum(t.numel() * t.element_size()
+                               for t in (state.params, state.delta)),
+               wire_bytes=state.params.numel() * 4,
+               finite=bool(torch.isfinite(torch.tensor(losses)).all()))
+    # each fsdp rank's sums after every step equal its peers'
+    rec["peers_bitwise"] = all(
+        s == sums for c, s in every
+        if {a: v for a, v in c.items() if a != "fsdp"}
+        == {a: v for a, v in rec["coords"].items() if a != "fsdp"})
+    full = mesh_mod.gather_state(mesh, state) if case == "bc" else None
+    if case == "bb":
+        torch.save(trace, f"{out}.trace{rank}")
+    del bundle, state
+    free()
+    dist.barrier()
+    if rank == 0:
+        # the one-process twin: the same worker(s) on the whole batch
+        moe.TRACE = [] if case == "bb" else None
+        torch.cuda.reset_peak_memory_stats(dev)
+        twin = make_train_step(cfg, vcfg, device=dev, param_dtype=dtype)
+        st = start(twin)
+        tl = []
+        for i in range(tok.shape[0]):
+            st, loss = twin.local_step(st, tok[i], lab[i])
+            tl.append(float(loss))
+            if (i + 1) % 2 == 0:
+                st = twin.sync_step(st)
+        rec["twin_losses"] = tl
+        rec["twin_peak"] = torch.cuda.max_memory_allocated(dev)
+        rec["loss_rel"] = max(abs(a - b) / abs(b)
+                              for a, b in zip(losses, tl))
+        if case == "bb":
+            parts = [trace, torch.load(f"{out}.trace1")]
+            whole = moe.TRACE
+            moe.TRACE = None
+            rec["dispatches"] = len(whole)
+            if not len(whole) == len(parts[0]) == len(parts[1]):
+                raise AssertionError(f"(bb): {len(whole)} dispatches in one "
+                                     f"process, {len(parts[0])} and "
+                                     f"{len(parts[1])} on the ranks")
+            # per dispatch (each step's forward and its recompute): the
+            # share of entries whose kept flag and slot are the one
+            # process's
+            rec["dispatch_equal"] = [
+                float(((torch.cat([a[0], b[0]]) == c[0])
+                       & (torch.cat([a[1], b[1]]) == c[1])).float().mean())
+                for a, b, c in zip(parts[0], parts[1], whole)]
+            rec["kept"] = [int(c[0].sum()) for c in whole[:1]]
+            rec["entries"] = int(whole[0][0].numel())
+        else:
+            p = full.params.to(torch.float32).cpu().numpy()
+            q = st.params.to(torch.float32).cpu().numpy()
+            diff = np.abs(p - q)
+            scale = max(1.0, float(np.abs(q).max()))
+            rec["param_err"] = float(diff.max())
+            rec["param_over"] = float((diff > BC_RTOL * scale).mean())
+            # the clip binds: the first step's gradient norm before it
+            noclip = make_train_step(cfg, dataclasses.replace(
+                vcfg, clip_norm=0.0), device=dev)
+            g, _ = noclip.grads_fn(start(noclip), tok[0], lab[0])
+            rec["grad_norm"] = float(torch.linalg.vector_norm(g))
+        del twin, st
+    with open(f"{out}.rank{rank}", "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def fsdp_dry_rows(out: str) -> int:
+    """(bd)'s child process: the FSDP archs' local and sync rows on both
+    meshes through ``lower_one``, one JSON line each."""
+    from repro_torch.launch import dryrun
+    with open(out, "w") as f:
+        for arch in FSDP_ARCHS:
+            for multi in (False, True):
+                for fn in ("local", "sync"):
+                    row = dryrun.lower_one(arch, "train_4k", multi_pod=multi,
+                                           fn_kind=fn, verbose=False)
+                    f.write(json.dumps(row.to_json()) + "\n")
+    return 0
+
+
+def launch_ranks(case: str, nproc: int, tmp: str):
+    out, log = os.path.join(tmp, case), os.path.join(tmp, f"{case}.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), os.path.abspath(__file__),
+             "--fsdp-ranks", case, out], stdout=f,
+            stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+            start_new_session=True)
+    return proc, out, log
+
+
+def fsdp_phase(dev, vu, card) -> dict:
+    """Phase 15: (bb) and (bc) launched side by side, (bd)'s rows in a
+    child process beside them; returns (bb)'s launches."""
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun
+    t15 = time.time() - START
+    print(f"[15 fsdp] from {t15:.1f} s of the script; {card}", flush=True)
+    free()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    rows_out = os.path.join(tmp, "rows.jsonl")
+    # at a lower priority: the ranks' gloo staging runs on the same cores
+    dry = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fsdp-dry", rows_out],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        start_new_session=True, preexec_fn=lambda: os.nice(10))
+    runs = {"bb": launch_ranks("bb", BB_FSDP, tmp),
+            "bc": launch_ranks("bc", BC_W * BC_FSDP, tmp)}
+    try:
+        ranks = {c: ranks_result(f"({c})", *runs[c], n, FSDP_TIMEOUT)
+                 for c, n in (("bb", BB_FSDP), ("bc", BC_W * BC_FSDP))}
+    finally:
+        for proc, _, _ in runs.values():
+            stop_ranks(proc)
+    t_ranks = time.time() - START - t15
+    # (bb)
+    bb = ranks["bb"]
+    r0 = bb[0]
+    cfg = bb_config()
+    from repro_torch.models import moe
+    n_params = cfg.param_count()
+    for r in bb:
+        if not (r["finite"] and r["peers_bitwise"]):
+            raise AssertionError(f"(bb): rank {r['rank']} losses "
+                                 f"{r['losses']} or its state's sums differ "
+                                 f"from its fsdp peer's")
+        grad = r["counted"]["local"]["counts"].get("grad")
+        # one mean a step of the rank's whole bf16 gradient, fp32 on the wire
+        if grad != {"fsdp": {"calls": 1, "bytes": r["wire_bytes"],
+                             "async": 0}}:
+            raise AssertionError(f"(bb): rank {r['rank']} gradient "
+                                 f"collectives {grad}")
+    # the first step's dispatches (its forward and the remat recompute) run
+    # on the same parameters as the one process's: bitwise; later steps'
+    # parameters differ from the one process's by bf16 roundings of a
+    # gradient summed in another order, which moves near-tied routings
+    first = r0["dispatch_equal"][:2]
+    if r0["loss_rel"] > BB_RTOL or first != [1.0, 1.0]:
+        raise AssertionError(
+            f"(bb): losses {r0['losses']} against the one process's "
+            f"{r0['twin_losses']} (max rel {r0['loss_rel']:.3e}, limit "
+            f"{BB_RTOL}), or the first step's kept entries and slots "
+            f"differ (shares equal: {first})")
+    steps = len(r0["walls"])
+    print(f"[15 fsdp (bb)] {PHI} at full width (d {cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, moe_d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}), 1 of 32 layers, "
+          f"{n_params} parameters, bf16 params and Δ, one worker over "
+          f"{BB_FSDP} fsdp ranks on gloo, batch {BB_BATCH} x {BB_SEQ} "
+          f"({BB_BATCH // BB_FSDP} x {BB_SEQ} a rank), k = {BB_K}, "
+          f"{BB_ROUNDS} rounds, remat on: losses {r0['losses']} against the "
+          f"one process's {r0['twin_losses']} (max rel "
+          f"{r0['loss_rel']:.3e} <= {BB_RTOL}); the first step's "
+          f"dispatches (forward and recompute) bitwise the one process's "
+          f"kept mask and slots ({r0['kept'][0]} of {r0['entries']} "
+          f"entries kept, capacity {moe.capacity(cfg, BB_BATCH * BB_SEQ)} "
+          f"over the worker's {BB_BATCH * BB_SEQ} tokens); the share equal "
+          f"in each of the {r0['dispatches']} dispatches "
+          f"{', '.join('%.4f' % x for x in r0['dispatch_equal'])}; both "
+          f"ranks' params and Δ bitwise after every step", flush=True)
+    for r in bb:
+        print(f"[15 fsdp (bb)] rank {r['rank']}: step wall ms "
+              f"{', '.join('%.1f' % x for x in r['walls'])}; the gradient "
+              f"mean's ms {', '.join('%.1f' % x for x in r['mean_ms'])} "
+              f"({r['counted']['local']['counts']['grad']['fsdp']['bytes']}"
+              f" B fp32 a step); init {r['init_s']:.1f} s; peak "
+              f"{r['peak'] / 2**30:.2f} GiB (state {r['state_bytes'] / 1e9:.2f}"
+              f" GB); collectives of step 1 "
+              f"{json.dumps(r['counted']['local']['counts'])}; "
+              f"launches in all {r['launches']}", flush=True)
+    print(f"[15 fsdp (bb)] the twin's peak {r0['twin_peak'] / 2**30:.2f} "
+          f"GiB; {steps} steps; {card}", flush=True)
+    # (bc)
+    c0 = ranks["bc"][0]
+    for r in ranks["bc"]:
+        if not (r["finite"] and r["peers_bitwise"]):
+            raise AssertionError(f"(bc): rank {r['rank']} not finite or its "
+                                 f"state differs from its fsdp peer's")
+    if (c0["loss_rel"] > BC_RTOL or c0["param_over"] > 0.01
+            or c0["param_err"] > 2 * BC_LR * len(c0["losses"])
+            or c0["grad_norm"] <= BC_CLIP):
+        raise AssertionError(
+            f"(bc): losses {c0['losses']} vs {c0['twin_losses']} (rel "
+            f"{c0['loss_rel']:.3e}), params max err {c0['param_err']:.3e}, "
+            f"{c0['param_over']:.4f} of them past {BC_RTOL} · max|p|, the "
+            f"first gradient's norm {c0['grad_norm']:.3f} (clip {BC_CLIP})")
+    print(f"[15 fsdp (bc)] smoke {PHI} (capacity factor 0.5), {BC_W} "
+          f"workers x fsdp {BC_FSDP} on gloo world {BC_W * BC_FSDP}, "
+          f"vrl_sgd + adam, fp32, clip {BC_CLIP} (the first gradient's norm "
+          f"{c0['grad_norm']:.3f}): losses within {c0['loss_rel']:.3e} "
+          f"relative of one process with the two workers (limit "
+          f"{BC_RTOL}); params max err {c0['param_err']:.3e} "
+          f"({100 * c0['param_over']:.3f} % past {BC_RTOL} · max|p|; "
+          f"Adam's ±γ steps); fsdp peers bitwise after every step; "
+          f"{card}", flush=True)
+    # (bd): (bb)'s local step and sync counted on a (1 x fsdp 2) dry mesh
+    mesh_over = dict(shape=(BB_FSDP,), axis_names=("data",),
+                     worker_axes=(), fsdp_axes=("data",), tensor_axes=())
+    shape = base.InputShape("bb", BB_SEQ, BB_BATCH, "train")
+    over = {"num_layers": 1, "vocab_size": cfg.vocab_size}
+    for fn in ("local", "sync"):
+        res = dryrun.lower_one(PHI, "train_4k", multi_pod=False, fn_kind=fn,
+                               comm_period=BB_K, mesh_override=mesh_over,
+                               cfg_override=over, shape_override=shape,
+                               allow_tf32=False, verbose=False)
+        meta, card_c = res.counted, r0["counted"][fn]
+        if (meta.flops != card_c["flops"]
+                or meta.launches() != card_c["launches"]
+                or meta.counts != card_c["counts"]):
+            raise AssertionError(
+                f"(bd) {fn}: the dry run's {meta.flops} FLOPs, "
+                f"{meta.launches()}, {meta.counts} against the card's "
+                f"{card_c}")
+        print(f"[15 fsdp (bd)] (bb)'s {fn} on a (1 x fsdp 2) dry mesh: "
+              f"{meta.flops} FLOPs, launches {meta.launches()}, collectives "
+              f"{json.dumps(meta.counts)}: equal to rank 0's on the card",
+              flush=True)
+    try:
+        _, err = dry.communicate(timeout=FSDP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        stop_ranks(dry)
+        raise AssertionError("(bd): the dry run's rows timed out")
+    if dry.returncode != 0:
+        raise AssertionError(f"(bd): the dry run's rows exited "
+                             f"{dry.returncode}: {err.decode()[-2000:]}")
+    rows = [json.loads(x) for x in open(rows_out)]
+    bad = [(r["arch"], r["mesh"], r["fn"]) for r in rows if not r["ok"]]
+    if bad or len(rows) != 4 * len(FSDP_ARCHS):
+        raise AssertionError(f"(bd): rows not ok: {bad}")
+    print(f"[15 fsdp (bd)] {', '.join(FSDP_ARCHS)}: train_4k local and sync "
+          f"on the single and multi meshes, {len(rows)} rows ok (local "
+          f"FLOPs a device: "
+          f"{', '.join('%s/%s %.4g' % (r['arch'], r['mesh'], r['hlo_flops']) for r in rows if r['fn'] == 'local')})",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[15 fsdp] {time.time() - START - t15:.1f} s (the ranks "
+          f"{t_ranks:.1f}); the script {time.time() - START:.1f} s",
+          flush=True)
+    return r0["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6767,6 +7246,10 @@ def main() -> int:
         return families_cpu_runs(sys.argv[2])
     if sys.argv[1:2] == ["--moe-ranks"]:
         return moe_rank_run(sys.argv[2])
+    if sys.argv[1:2] == ["--fsdp-ranks"]:
+        return fsdp_rank_run(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--fsdp-dry"]:
+        return fsdp_dry_rows(sys.argv[2])
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -6808,6 +7291,9 @@ def main() -> int:
         return 0
     if "--bf16" in sys.argv[1:]:
         bf16_phase(dev, vu, tu, card, KernelChecks(vu, tu))
+        return 0
+    if "--fsdp" in sys.argv[1:]:
+        fsdp_phase(dev, vu, card)
         return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
@@ -7076,6 +7562,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
     bf16_rows, bf16_launches = bf16_phase(
         dev, vu, tu, card, chk, times, res["v"].get("peak_gib"))
 
+    # ------------------------------------------------------ 15 fsdp
+    fsdp_launches = fsdp_phase(dev, vu, card)
+
     kernels = []
     for name in KERNELS:
         b, by = bounds[name]
@@ -7095,6 +7584,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
                 "max_abs_err": chk.err[name],
                 "delta_fp32": bf16_rows[name]["fp32"],
                 "delta_bf16": bf16_rows[name].get("bf16")}
+        if name in fsdp_launches:
+            # phase 15: (bb)'s one worker over two fsdp ranks (rank 0)
+            kernels[-1]["fsdp_launches"] = fsdp_launches[name]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,18 @@
 A ``WorkerMesh`` takes the place of the reference's JAX ``Mesh`` over the
 engine's axes: the ranks of the default process group laid out row-major
 over a ("pod", "data") rank grid, each holding one contiguous block of the
-worker grid, with an optional trailing "shard" axis over which each
-worker rank's buffer rows split (``EngineConfig.shards``); a process group over the whole grid, over both worker
-axes and over each one within a shard column, and over the shard axis
-within a worker rank (``launch.mesh.make_engine_mesh`` builds it).  The
-same class carries other grids under their own axis names (the
-shard-mapped MoE's ("data", "model"), ``models.moe_shardmap``).
+worker grid, with an optional "fsdp" axis over which each worker's batch
+splits (one worker spans the fsdp ranks, each holding the worker's whole
+state and running its slice of the batch: the reference's FSDP axes) and
+an optional trailing "shard" axis over which each worker rank's buffer
+rows split (``EngineConfig.shards``): (pod, data, fsdp, shard), the
+reference's ("data", "model") device order, "model" fastest.  Its process
+groups: the whole grid, both worker axes and each one within an (fsdp,
+shard) column, the fsdp axis within a worker's (pod, data, shard) place,
+the state's axes (all but fsdp) within an fsdp index, and the shard axis
+within a worker rank's fsdp index (``launch.mesh.make_engine_mesh`` builds
+them).  The same class carries other grids under their own axis names
+(the shard-mapped MoE's ("data", "model"), ``models.moe_shardmap``).
 
 Every collective goes through ``WorkerMesh.all_reduce``,
 ``all_gather`` or, for a checkpoint, ``gather`` (or ``count`` beside an
@@ -18,7 +24,10 @@ issues per kind and group in ``COUNTS``.  The kinds:
   * "state" — the model-state means of a round (its communication);
   * "forward" — a row-sharded engine's parameter rows, gathered over the
     shard group before every forward;
-  * "scalar" — the reported loss;
+  * "grad" — a worker's gradient averaged over its fsdp ranks before
+    the clip, and the clip's squared sums over the shard ranks;
+  * "scalar" — the reported loss (on an fsdp axis also its mean over the
+    fsdp ranks' slices);
   * "eval" — the evaluation model x̂, the log's sums and the diagnostics
     pass, outside the round;
   * "setup" — once per run, before training;
@@ -28,7 +37,9 @@ issues per kind and group in ``COUNTS``.  The kinds:
   * "clients" — a client store's scatter: every rank's cohort rows
     gathered to every rank's copy of the store;
   * "moe" — the shard-mapped MoE layer's weight gathers, output sum and
-    aux mean.
+    aux mean; on an fsdp axis the routed layer's expert counts (an
+    all-gather) and its aux loss's sums (an all-reduce) over the fsdp
+    ranks, each run again in a remat layer's recompute.
 
 ``worker_sum`` and ``worker_mean`` are the reductions over the workers of
 a buffer, one rule for the engine and the log: a local reduction over the
@@ -62,8 +73,9 @@ import torch
 import torch.distributed as dist
 
 AXES = ("pod", "data")              # the engine's worker axes
+FSDP = "fsdp"                       # a worker's batch split over ranks
 SHARD = "shard"                     # the engine's row-shard axis
-ENGINE_AXES = AXES + (SHARD,)
+ENGINE_AXES = AXES + (FSDP, SHARD)
 # kind -> group label -> {"calls", "bytes", "async"}
 COUNTS: Dict[str, Dict[str, Dict[str, int]]] = {}
 
@@ -80,7 +92,7 @@ def canonical(axes: Sequence[str],
     if bad or not axes:
         raise ValueError(f"axes {tuple(axes)} are not among the mesh's "
                          f"axes {tuple(names)} (the worker axes, then the "
-                         f"shard axis)")
+                         f"fsdp and shard axes)")
     return tuple(a for a in names if a in axes)
 
 
@@ -89,24 +101,28 @@ class WorkerMesh:
     axes.
 
     ``axes``: the grid's axis names, by default the engine's ("pod",
-    "data") worker axes, then "shard" when ``shape`` has a third entry;
-    ``shape``: the ranks along each; ranks are laid out row-major, the last
-    axis fastest (the engine's rank = (pod · d_r + data) · s_r + shard, so
-    a worker rank's shard peers are adjacent); ``coords``: this rank's
-    index on each axis; ``groups``: the process group of each axis subset
-    (``canonical`` order) that runs a collective.  The engine's grid has
-    the whole grid, each worker axis and both worker axes within this
-    rank's shard column, and, with a shard axis, the shard group within
-    this rank's worker rank (``launch.mesh.make_engine_mesh``).  Other
-    grids name their own axes (the shard-mapped MoE's ("data",
-    "model"))."""
+    "data") worker axes, then "shard" when ``shape`` has a third entry,
+    and ("pod", "data", "fsdp", "shard") for a fourth; ``shape``: the ranks
+    along each; ranks are laid out row-major, the last axis fastest (the
+    engine's rank = ((pod · d_r + data) · F + fsdp) · s_r + shard, so a
+    worker rank's shard peers are adjacent, then its fsdp peers);
+    ``coords``: this rank's index on each axis; ``groups``: the process
+    group of each axis subset (``canonical`` order) that runs a
+    collective.  The engine's grid has the whole grid, each worker axis
+    and both worker axes within this rank's (fsdp, shard) column, and,
+    with a shard axis, the shard group within this rank's worker rank;
+    with an fsdp axis the fsdp group and the state's axes
+    (``state_axes``) within this rank's fsdp index
+    (``launch.mesh.make_engine_mesh``).  Other grids name their own axes
+    (the shard-mapped MoE's ("data", "model"))."""
 
     def __init__(self, shape: Sequence[int], rank: int,
                  groups: Dict[Tuple[str, ...], object],
                  axes: Optional[Sequence[str]] = None):
         self.shape = tuple(int(s) for s in shape)
         self.axes = (tuple(axes) if axes is not None
-                     else ENGINE_AXES[:len(self.shape)])
+                     else ENGINE_AXES if len(self.shape) == 4
+                     else (AXES + (SHARD,))[:len(self.shape)])
         if len(self.axes) != len(self.shape):
             raise ValueError(f"a rank grid of shape {self.shape} over axes "
                              f"{self.axes}")
@@ -132,6 +148,18 @@ class WorkerMesh:
     def shards(self) -> int:
         """Ranks along the shard axis (1 without one)."""
         return self.size((SHARD,)) if SHARD in self.axes else 1
+
+    @property
+    def fsdp(self) -> int:
+        """Ranks along the fsdp axis, over which a worker's batch splits (1
+        without one)."""
+        return self.size((FSDP,)) if FSDP in self.axes else 1
+
+    @property
+    def state_axes(self) -> Tuple[str, ...]:
+        """The axes the engine state is spread over: every axis but fsdp,
+        along which it is replicated (the whole grid without one)."""
+        return tuple(a for a in self.axes if a != FSDP)
 
     def group(self, axes: Optional[Sequence[str]] = None):
         """The process group over ``axes`` (default: the whole grid)."""
@@ -190,12 +218,14 @@ class WorkerMesh:
         return out.to(tensor.device)
 
     def gather(self, tensor: torch.Tensor, gather_list, *,
-               kind: str = "checkpoint") -> None:
+               kind: str = "checkpoint",
+               axes: Optional[Sequence[str]] = None) -> None:
         """``dist.gather`` of every rank's ``tensor`` (same shape on all)
         into rank 0's ``gather_list`` (None elsewhere), in rank order over
-        the whole grid, counted under ``kind``."""
-        self.count(tensor, None, kind)
-        dist.gather(tensor, gather_list, dst=0, group=self.group())
+        the ranks of ``axes`` (default the whole grid; rank 0's group),
+        counted under ``kind``."""
+        self.count(tensor, axes, kind)
+        dist.gather(tensor, gather_list, dst=0, group=self.group(axes))
 
 
 class _Done:
@@ -247,9 +277,11 @@ class DryMesh(WorkerMesh):
                            device=tensor.device)
 
     def gather(self, tensor: torch.Tensor, gather_list, *,
-               kind: str = "checkpoint") -> None:
-        self.count(tensor, None, kind)
-        self._wire("gather", tensor, None, kind, self.size(self.axes))
+               kind: str = "checkpoint",
+               axes: Optional[Sequence[str]] = None) -> None:
+        self.count(tensor, axes, kind)
+        self._wire("gather", tensor, axes, kind,
+                   self.size(self.axes if axes is None else axes))
 
 
 class PendingMean(NamedTuple):
@@ -386,3 +418,68 @@ def global_reduce(mesh, x: float, op=None) -> float:
     mesh.all_reduce(t, mesh.axes, kind="eval",
                     op=dist.ReduceOp.MAX if op is None else op)
     return t.item()
+
+
+def fsdp_mean(mesh, buf: torch.Tensor, *, kind: str = "grad"
+              ) -> torch.Tensor:
+    """``buf`` (this rank's gradient of its slice of a worker's batch; a
+    contiguous tensor) replaced in place by its mean over the rank's fsdp
+    group: one all-reduce, counted under ``kind``, that carries fp32 (a
+    narrower buffer widened for the wire, as the worker means carry it),
+    ÷ F in fp32, then rounded once to ``buf``'s dtype.  The slices are
+    equal, so the mean of their mean-loss gradients is the whole batch's."""
+    wire = _wire(buf)
+    mesh.all_reduce(wire, (FSDP,), kind=kind)
+    wire.div_(mesh.fsdp)
+    if wire is not buf:
+        buf.copy_(wire)
+    return buf
+
+
+class MeshGroup(NamedTuple):
+    """The ranks of ``mesh`` along ``axes`` that share this rank's index on
+    every other axis, as a model layer takes them to run one worker's
+    batch split over them (``models.moe``: the routed layer's dispatch and
+    aux loss over a worker's fsdp ranks).  ``size`` ranks; this rank is
+    ``index`` among them, in rank order."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axes)
+
+    @property
+    def index(self) -> int:
+        axes = self.mesh.canonical(self.axes)
+        return int(np.ravel_multi_index(
+            self.mesh.index(axes), [self.mesh.size((a,)) for a in axes]))
+
+    def all_gather(self, tensor: torch.Tensor, kind: str) -> torch.Tensor:
+        """Every group rank's ``tensor`` stacked in rank order."""
+        return self.mesh.all_gather(tensor, kind=kind, axes=self.axes)
+
+    def sum(self, tensor: torch.Tensor, kind: str) -> torch.Tensor:
+        """Σ of ``tensor`` over the group, as a new tensor: one counted
+        all-reduce.  Its backward assumes what its one caller guarantees:
+        every rank reads the sum into the same term of its loss (the
+        router's aux loss), so the all-reduce's true backward, the group's
+        sum of the incoming gradients, is ``size`` times this rank's own,
+        and it is taken so, with no collective in the backward.  The group
+        mean of the ranks' gradients then counts that term's gradient once,
+        not 1/``size`` of it."""
+        return _GroupSum.apply(tensor, self, kind)
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        out = x.detach().clone()
+        group.mesh.all_reduce(out, group.axes, kind=kind)
+        ctx.n = group.size
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None

@@ -271,10 +271,12 @@ class VRLConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """How the production rank grid is carved up for one run: the axes
-    the VRL workers span, those that would shard a worker's parameters
-    (FSDP) and the tensor-parallel ones.  The port runs the worker axes
-    as worker ranks and the tensor axis as the engine's row shards
-    (``launch.dryrun``); it has no FSDP and no tensor parallelism."""
+    the VRL workers span, those a worker spans within itself (FSDP) and
+    the tensor-parallel ones.  The port runs the worker axes as worker
+    ranks, the FSDP axes as an fsdp axis over which one worker's batch
+    splits (each rank holding the worker's whole state) and the tensor
+    axis as the engine's row shards (``launch.mesh.production_grid``); it
+    has no tensor parallelism."""
 
     shape: Tuple[int, ...] = (16, 16)
     axis_names: Tuple[str, ...] = ("data", "model")

@@ -7,9 +7,11 @@ family build the same block), the ssm family (mamba2-370m), the hybrid
 (hymba-1.5b) and the moe family (phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b).
 ``mesh_roles`` is the reference's policy for the production grid: models
 whose worker replica does not fit 16-way tensor sharding get FSDP within
-the worker (worker = whole pod).  The port runs neither FSDP nor tensor
-parallelism; the dry run (``launch.dryrun``) sizes those layouts and
-refuses to run them.
+the worker (worker = whole pod).  The port trains those layouts with one
+worker over the FSDP axes' ranks, each running its slice of the worker's
+batch (``launch.mesh.production_grid``, ``train.train_loop``); it has no
+tensor parallelism, so the dry run (``launch.dryrun``) refuses serving
+kimi-k2, whose weights the reference splits 2D.
 """
 from __future__ import annotations
 

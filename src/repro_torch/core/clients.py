@@ -104,6 +104,11 @@ class ClientStore:
                 "the overlap pend buffers are one round stale, so a "
                 "gathered cohort would fold positions transmitted by "
                 "DIFFERENT clients")
+        if mesh is not None and mesh.fsdp > 1:
+            raise NotImplementedError(
+                f"a client store with a worker over {mesh.fsdp} fsdp ranks "
+                f"is not ported: its slots follow the global rank, and "
+                f"every fsdp rank would hold the same worker's rows")
         w = int(state.params.shape[0])
         rank = 0 if mesh is None else mesh.rank
         self.mesh = mesh

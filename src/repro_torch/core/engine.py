@@ -406,6 +406,24 @@ def _row_shards(cfg: VRLConfig, mesh) -> RowShards:
     return RowShards(ax, mesh.size((ax,)), mesh.index((ax,))[0], mesh)
 
 
+def _validate_fsdp(cfg: VRLConfig, algo: AlgoSpec, mesh) -> None:
+    """Refuse what the port does not run with a worker over fsdp ranks:
+    the hierarchy (its pod-major grid over the fsdp axis is not ported)
+    and membership (its host masks and repairs reduce over the whole
+    grid, where the fsdp replicas would count each worker F times)."""
+    if mesh is None or mesh.fsdp == 1:
+        return
+    if algo.sync == "vrl2":
+        raise NotImplementedError(
+            f"hier_vrl_sgd with a worker over {mesh.fsdp} fsdp ranks is not "
+            f"ported: the hierarchy's (P, D) grid runs one worker rank a "
+            f"worker")
+    if cfg.membership:
+        raise NotImplementedError(
+            f"membership with a worker over {mesh.fsdp} fsdp ranks is not "
+            f"ported: its masks and repairs reduce over the whole grid")
+
+
 def _validate_membership(cfg: VRLConfig, algo: AlgoSpec) -> None:
     if cfg.membership and algo.sync == "elastic":
         raise ValueError(
@@ -999,8 +1017,9 @@ def _per_worker(p: torch.Tensor, xhat: torch.Tensor, rows, mesh,
     parameters hold a non-finite value (the ``rows`` of the (…, R, C)
     buffer ``p``, flattened, read; the others 0).  On a mesh the whole
     grid's (``where``: this rank's global indices of its workers, ``n``
-    the workers in all): one zero-padded all-reduce over every rank
-    ("eval"), which also sums a worker's rows over the shard ranks."""
+    the workers in all): one zero-padded all-reduce over the state's
+    ranks ("eval"; not over the fsdp ranks, which hold replicas), which
+    also sums a worker's rows over the shard ranks."""
     flat_p = p.reshape(-1, *p.shape[-2:])
     per = torch.zeros((2, flat_p.shape[0]), dtype=torch.float32,
                       device=p.device)
@@ -1011,7 +1030,7 @@ def _per_worker(p: torch.Tensor, xhat: torch.Tensor, rows, mesh,
         return per
     full = torch.zeros((2, n), dtype=torch.float32, device=p.device)
     full[:, torch.from_numpy(where)] = per
-    mesh.all_reduce(full, mesh.axes, kind="eval")
+    mesh.all_reduce(full, mesh.state_axes, kind="eval")
     return full
 
 
@@ -1023,7 +1042,7 @@ def _global_scalars(mesh, sums: dict, maxes: dict) -> Tuple[dict, dict]:
     for vals, op in ((sums, None), (maxes, dist.ReduceOp.MAX)):
         if vals:
             v = torch.stack(list(vals.values()))
-            mesh.all_reduce(v, mesh.axes, kind="eval", op=op)
+            mesh.all_reduce(v, mesh.state_axes, kind="eval", op=op)
             vals.update(zip(vals, v))
     return sums, maxes
 
@@ -1156,6 +1175,7 @@ def make_engine(cfg: VRLConfig, template: Any, *,
     # stays canonical, so pair_meta(engine.compressors) == pair_meta(cfg)
     comp, comp2 = comm_mod.resolve_pair(cfg)
     _validate_membership(cfg, algo)
+    _validate_fsdp(cfg, algo, mesh)
     if algo.sync == "vrl2":
         _validate_overlap(cfg, algo, comp2)
         return _make_hier_engine(cfg, algo, fspec, lr=lr, wd=wd,

@@ -21,17 +21,23 @@ the reference compiles for a placeholder mesh.  It records, per device:
     0's view of the grid), each priced at its link tier by
     ``launch.roofline``.
 
-The per-device view is the grid the port would launch: the mesh's worker
-axes are worker ranks, one worker a rank; its "model" axis becomes the
-engine's row shards when ``shards`` > 1 (the reference maps it so, with
-``EngineConfig(shard_axis="model")``); each rank runs its worker's whole
-model at its worker's batch.  Rank 0's block of every input follows the
-reference's partition specs (``batch_sharding_spec``, ``cache_specs``;
-``rank_block``), its tensor axes held whole.  The port has no tensor
-parallelism and no FSDP: a layout whose specs split a worker's state over
-FSDP axes (kimi-k2, chameleon-34b and phi3.5-moe in training, kimi-k2 in
-serving) is refused with the reason, as the reference records a failed
-compile.  ``engine_mem`` still sizes their engine state.
+The per-device view is the grid the port would launch
+(``launch.mesh.production_grid``, from the ``MeshConfig``'s roles):
+the mesh's worker axes are worker ranks, one worker a rank; its FSDP axes
+(kimi-k2, chameleon-34b and phi3.5-moe in training) an fsdp axis over
+which one worker spans its ranks, each running its slice of the worker's
+batch with the whole worker state (the reference splits the batch so,
+``batch_sharding_spec``; the state it spreads over "model" only, as
+``engine_mem`` sizes it); its "model" axis becomes the engine's row
+shards when ``shards`` > 1 (the reference maps it so, with
+``EngineConfig(shard_axis="model")``).  Each rank runs its worker's whole
+model.  A training step is given each of rank 0's workers' whole batch
+and takes its fsdp slice itself (``train.train_loop``); serving gives
+rank 0 its block of the batch and the cache (``batch_sharding_spec``,
+``cache_specs``; ``rank_block``), its tensor axes held whole.  The port
+has no tensor parallelism: serving kimi-k2, whose specs split the
+weights 2D over the FSDP and tensor axes, is refused with the reason, as
+the reference records a failed compile.
 
 ``engine_mem`` builds the engine state with ``make_engine`` and ``init``
 on meta tensors and sizes every buffer under the reference's placement
@@ -82,7 +88,7 @@ from repro_torch.core import schedule as schedule_mod
 from repro_torch.kernels import costs
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (CHIPS_PER_POD, HBM_PER_CHIP,
-                                     dry_engine_mesh)
+                                     production_grid)
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
 from repro_torch.serve.engine import make_prefill, make_serve_step
@@ -163,8 +169,8 @@ def _decode_window(cfg, shape: InputShape) -> Optional[int]:
 # ------------------------------------------------------------------ specs
 # The production layout's specs (the reference's ``PartitionSpec`` entries
 # as tuples) decide what ``lower_one`` runs on rank 0: its block of every
-# input (``rank_block``) and whether the layout splits a worker's state
-# over FSDP axes, which the port cannot run (``_refuse_fsdp``).
+# input (``rank_block``) and whether a served model's weights split 2D over
+# the FSDP and tensor axes, which the port cannot run (``_refuse_fsdp``).
 def batch_sharding_spec(mesh_cfg: MeshConfig, batch: int, extra: int, *,
                         worker_stacked: bool) -> tuple:
     """``sharding.batch_spec`` with its batch entry replicated (None) where
@@ -243,8 +249,12 @@ def rank_block(t: torch.Tensor, spec: tuple,
 
 def _refuse_fsdp(arch_id: str, specs, mesh_cfg: MeshConfig,
                  serving: bool) -> None:
-    """Refuse a layout whose specs split a worker's state over FSDP axes:
-    the port holds a worker's whole model on one rank."""
+    """Refuse serving a model whose specs split its weights over FSDP
+    axes (beside the tensor axis: 2D-sharded weights): the port holds a
+    served model's whole weights on one rank.  Training on FSDP axes runs
+    (a worker over fsdp ranks), so a training layout passes."""
+    if not serving:
+        return
     fsdp = set(mesh_cfg.fsdp_axes)
     split = [(path, spec) for path, spec in tree_mod.leaves_with_path(specs)
              if isinstance(spec, tuple)
@@ -252,12 +262,11 @@ def _refuse_fsdp(arch_id: str, specs, mesh_cfg: MeshConfig,
     if split:
         path, spec = split[0]
         raise NotImplementedError(
-            f"{arch_id} {'serving' if serving else 'training'} on this mesh "
-            f"needs FSDP within a worker: its layout splits {len(split)} "
-            f"leaves over {mesh_cfg.fsdp_axes} (one worker spans "
-            f"{mesh_cfg.fsdp_size} ranks; e.g. {path}: {spec}); the port "
-            f"holds a worker's whole model on one rank and shards no "
-            f"parameter")
+            f"{arch_id} serving on this mesh needs 2D-sharded weights in "
+            f"serving: its layout splits {len(split)} leaves over the FSDP "
+            f"axes {mesh_cfg.fsdp_axes} beside the tensor axes "
+            f"{mesh_cfg.tensor_axes} (e.g. {path}: {spec}); the port holds "
+            f"a served model's whole weights on one rank")
 
 
 # ------------------------------------------------------------- the counter
@@ -616,11 +625,14 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
     which under VRL-SGD-W's first period of 1 syncs after it).
 
     The train family runs on the dry engine mesh (``launch.mesh
-    .dry_engine_mesh``) as rank 0: one worker a rank over the mesh's
-    worker axes, times ``shards`` row-shard ranks, each given rank 0's
-    block of the inputs (``rank_block`` by ``batch_sharding_spec``);
-    serving gives rank 0 its block of the batch and the cache
-    (``cache_specs``) over the data-like axes.  ``one_process`` runs the
+    .production_grid``) as rank 0: one worker a rank over the mesh's
+    worker axes, times its FSDP axes' ranks (one worker over them, each
+    running its slice of the worker's batch), times ``shards`` row-shard
+    ranks, each given rank 0's workers' whole batches (``rank_block``
+    over the worker axes; the step takes its fsdp slice by
+    ``batch_sharding_spec``'s rule); serving gives rank 0 its block of the
+    batch and the cache (``cache_specs``) over the data-like axes.
+    ``one_process`` runs the
     whole batch in one process instead, with no mesh (as a one-card run
     does).  ``mesh_override`` replaces fields of the arch's
     ``MeshConfig``, ``shape_override`` the input shape, ``cfg_override``
@@ -685,9 +697,6 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             engine=EngineConfig(shards=shards),
             delta_dtype=("bfloat16" if arch_id in registry._FSDP_ARCHS
                          else "float32"))
-        if not one_process:
-            _refuse_fsdp(arch_id, state_specs(cfg, mesh_cfg, vrl_cfg),
-                         mesh_cfg, serving=False)
         if vrl_cfg.membership:
             raise NotImplementedError(
                 "membership reads the active mask on the host at every "
@@ -695,10 +704,9 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
                 "holds no mask to read")
         hier_on = vrl_cfg.algorithm == "hier_vrl_sgd"
         if not one_process:
-            mesh = dry_engine_mesh(
-                w, w * vrl_cfg.engine.shards,
-                pods=engine_mod.hier_config(vrl_cfg).grid[0] if hier_on
-                else 0, shards=vrl_cfg.engine.shards)
+            mesh = coll.DryMesh(*production_grid(
+                mesh_cfg, pods=engine_mod.hier_config(vrl_cfg).grid[0]
+                if hier_on else 0, shards=vrl_cfg.engine.shards))
         bundle = make_train_step(cfg, vrl_cfg, remat=not no_remat,
                                  device=META, mesh=mesh,
                                  param_dtype=param_dtype)
@@ -721,6 +729,8 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             spec = batch_sharding_spec(mesh_cfg, shape.global_batch // w,
                                        ins["tokens"].dim() - 2,
                                        worker_stacked=True)
+            # each worker's whole batch: the step takes its fsdp slice
+            spec = (spec[0], None, *spec[2:])
             if fn_kind == "round":
                 hcfg = engine_mod.hier_config(vrl_cfg)
                 rk = round_k or (hcfg.k1 if hier_on else vrl_cfg.comm_period)
@@ -741,7 +751,7 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             mf = 0.0
         elif fn_kind == "round":
             mf *= rk
-        chips = w * vrl_cfg.engine.shards if mesh is not None else 1
+        chips = math.prod(mesh.shape) if mesh is not None else 1
     elif fn_kind in ("prefill", "decode"):
         if not one_process:
             _refuse_fsdp(arch_id, sh.partition_specs(

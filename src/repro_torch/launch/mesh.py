@@ -1,24 +1,36 @@
 """Rank grids over ``torch.distributed`` (``repro.launch.mesh``
 ``make_engine_mesh``): the grid and its process groups.
 
-The engine's rank grid (``rank_grid``): world = (worker ranks) × shards.
-The worker ranks are flat, (1, world / S) with W % (world / S) == 0, or,
-over the hierarchy's (P, D) worker grid, d_r = gcd(D, world / S) ranks
-along the data axis and p_r = world / S / d_r along the pod axis, so that
-ranks fill the data axis first (P % p_r == 0).  Each worker rank holds
-W / (world / S) workers ((P / p_r, D / d_r) for the hierarchy).  With
+The engine's rank grid (``rank_grid``): world = (worker ranks) × F × S.
+The worker ranks are flat, (1, world / (F·S)) with W % (world / (F·S)) ==
+0, or, over the hierarchy's (P, D) worker grid, d_r = gcd(D, worker
+ranks) ranks along the data axis and p_r = worker ranks / d_r along the
+pod axis, so that ranks fill the data axis first (P % p_r == 0).  Each
+worker rank holds W / (worker ranks) workers ((P / p_r, D / d_r) for the
+hierarchy).  With ``fsdp`` F > 1 an "fsdp" axis of F ranks spans each
+worker rank: every one of them holds the worker rank's whole state and
+runs its slice of each worker's batch (``train.train_loop``).  With
 ``shards`` S > 1 a trailing "shard" axis of S ranks splits each worker
-rank's buffer rows (``EngineConfig.shards``): rank = (pod · d_r + data) ·
-S + shard, so shard peers are adjacent, as in the reference's
-``make_engine_mesh``.  ``make_engine_mesh`` returns the
+rank's buffer rows (``EngineConfig.shards``): rank = ((pod · d_r + data) ·
+F + fsdp) · S + shard, so shard peers are adjacent, then fsdp peers — the
+reference's ("data", "model") device order, "model" fastest.  A grid with
+F = 1 has no fsdp axis: the grid, its groups and its counts are those of
+a mesh without the role.  ``make_engine_mesh`` returns the
 ``comm.collectives.WorkerMesh`` the engine runs over; ``make_mesh`` builds
 any other named grid (the shard-mapped MoE's ("data", "model")).
-``gather_state`` and ``state_block`` carry a checkpoint between a mesh
-and its one file.
+``production_grid`` reads a ``configs.base.MeshConfig``'s roles (the
+reference's ``make_production_mesh``): its worker axes become worker
+ranks, one worker a rank, its FSDP axes the fsdp axis and its tensor axis
+the row shards when ``shards`` > 1 (``make_engine_mesh`` with its
+``fsdp_size`` builds that grid over a process group).  ``gather_state``
+and ``state_block`` carry a checkpoint between a mesh and its one file
+(the state replicated along fsdp: a save reads fsdp index 0, a restore
+gives every fsdp rank the same block).
 
 The dry run (``launch.dryrun``) reads the engine's grid without a process
-group: ``dry_engine_mesh`` describes it as a ``comm.collectives.DryMesh``
-(rank 0's view).  The constants below are the card's, for the roofline
+group: ``dry_engine_mesh``, or a ``comm.collectives.DryMesh`` of
+``production_grid``, describes it (rank 0's view).  The constants below
+are the card's, for the roofline
 (``launch.roofline``); they take the place of the reference's TPU v5e
 constants, which do not carry over.
 """
@@ -34,7 +46,7 @@ import torch.distributed as dist
 from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import Block
 from repro_torch.comm import collectives as coll
-from repro_torch.comm.collectives import (AXES, ENGINE_AXES, SHARD, DryMesh,
+from repro_torch.comm.collectives import (AXES, FSDP, SHARD, DryMesh,
                                           WorkerMesh)
 # the card's rates (NVIDIA H100 80GB HBM3, SXM5, 700 W, data sheet) live
 # with the kernels' cost model, which chip_smoke reads without this module
@@ -50,23 +62,37 @@ IB_BW = 50e9                # B/s per GPU: one 400 Gb/s NDR InfiniBand port
 #                             a GPU — the reference's DCI tier
 
 
+def grid_axes(fsdp: int = 1, shards: int = 1) -> Tuple[str, ...]:
+    """The axis names of the engine's rank grid: the worker axes, then
+    "fsdp" when ``fsdp`` > 1 and "shard" when ``shards`` > 1."""
+    return (AXES + ((FSDP,) if fsdp > 1 else ())
+            + ((SHARD,) if shards > 1 else ()))
+
+
 def rank_grid(workers: int, world: int, pods: int = 0,
-              shards: int = 1) -> Tuple[int, ...]:
-    """The (pod, data) rank grid, with a trailing shard axis when
-    ``shards`` > 1, that spreads ``workers`` (a (``pods``, W/pods) grid for
-    the hierarchy, flat when ``pods`` is 0) over ``world`` ranks, or a
-    ValueError that says why it cannot."""
+              shards: int = 1, fsdp: int = 1) -> Tuple[int, ...]:
+    """The (pod, data) rank grid, with an fsdp axis when ``fsdp`` > 1 and
+    a trailing shard axis when ``shards`` > 1 (``grid_axes``), that spreads
+    ``workers`` (a (``pods``, W/pods) grid for the hierarchy, flat when
+    ``pods`` is 0) over ``world`` ranks, or a ValueError that says why it
+    cannot."""
     if world < 1:
         raise ValueError(f"a mesh needs at least one rank, got {world}")
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
-    if world % shards:
+    if fsdp < 1:
+        raise ValueError(f"fsdp must be >= 1, got {fsdp}")
+    if world % (shards * fsdp):
         raise ValueError(
             f"a world of {world} ranks does not split into {shards} shard "
             f"ranks a worker rank: the rank grid is (worker ranks) x "
-            f"shards, so world % shards must be 0")
-    wr = world // shards
-    tail = () if shards == 1 else (shards,)
+            f"shards, so world % shards must be 0" if fsdp == 1 else
+            f"a world of {world} ranks does not split into {fsdp} fsdp x "
+            f"{shards} shard ranks a worker rank: the rank grid is (worker "
+            f"ranks) x fsdp x shards, so world % (fsdp x shards) must be 0")
+    wr = world // (shards * fsdp)
+    tail = (() if fsdp == 1 else (fsdp,)) + (() if shards == 1
+                                              else (shards,))
     if not pods:
         if workers % wr:
             raise ValueError(
@@ -136,25 +162,52 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
 
 
 def dry_engine_mesh(workers: int, world: int, *, pods: int = 0,
-                    shards: int = 1) -> DryMesh:
+                    shards: int = 1, fsdp: int = 1) -> DryMesh:
     """Rank 0's view of the engine's rank grid over ``world`` ranks
     (``rank_grid``), with no process group: its collectives are counted
     and move nothing (``comm.collectives.DryMesh``)."""
-    shape = rank_grid(workers, world, pods, shards)
-    return DryMesh(shape, ENGINE_AXES[:len(shape)])
+    shape = rank_grid(workers, world, pods, shards, fsdp)
+    return DryMesh(shape, grid_axes(fsdp, shards))
 
 
-def make_engine_mesh(workers: int, *, pods: int = 0,
-                     shards: int = 1) -> WorkerMesh:
+def make_engine_mesh(workers: int, *, pods: int = 0, shards: int = 1,
+                     fsdp: int = 1) -> WorkerMesh:
     """The engine's mesh over the default process group (initialised by
     the caller): the rank grid of ``rank_grid`` and its groups — the whole
-    grid, each worker axis, and with a shard axis both worker axes within
-    each shard column and the shard axis within each worker rank."""
-    shape = rank_grid(workers, dist.get_world_size(), pods, shards)
+    grid, each worker axis, and with a shard or fsdp axis both worker axes
+    within each (fsdp, shard) column; with a shard axis the shard axis
+    within each worker rank's fsdp index; with an fsdp axis the fsdp axis
+    within each (pod, data, shard) place and the state's axes (all but
+    fsdp) within each fsdp index."""
+    shape = rank_grid(workers, dist.get_world_size(), pods, shards, fsdp)
+    axes = grid_axes(fsdp, shards)
     subsets = [("pod",), ("data",)]
+    if shards > 1 or fsdp > 1:
+        subsets += [AXES]
     if shards > 1:
-        subsets += [AXES, (SHARD,)]
-    return make_mesh(shape, ENGINE_AXES[:len(shape)], subsets)
+        subsets += [(SHARD,)]
+    if fsdp > 1:
+        subsets += [(FSDP,), tuple(a for a in axes if a != FSDP)]
+    return make_mesh(shape, axes, subsets)
+
+
+def production_grid(mesh_cfg, *, pods: int = 0,
+                    shards: int = 1) -> Tuple[Tuple[int, ...],
+                                              Tuple[str, ...]]:
+    """(shape, axes) of the engine's rank grid for a ``MeshConfig``'s roles
+    (``configs.registry.mesh_roles``): its W = ``num_workers`` workers one
+    a worker rank (a (``pods``, W/pods) grid for the hierarchy), its FSDP
+    axes' ranks (``fsdp_size``) on the fsdp axis, and its tensor axis as
+    the row shards when ``shards`` > 1, which must then equal its size.
+    The reference's ``make_production_mesh`` / ``build_mesh`` lay the same
+    devices out as its ("pod", "data", "model") grid."""
+    if shards > 1 and shards != mesh_cfg.tensor_size:
+        raise ValueError(f"engine shards={shards} ride the mesh's tensor "
+                         f"axis {mesh_cfg.tensor_axes} of size "
+                         f"{mesh_cfg.tensor_size}: they must be equal")
+    w, f = mesh_cfg.num_workers, mesh_cfg.fsdp_size
+    shape = rank_grid(w, w * f * shards, pods, shards, f)
+    return shape, grid_axes(f, shards)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -238,13 +291,16 @@ def state_block(mesh: WorkerMesh, pods: int = 0):
 
 def gather_state(mesh: WorkerMesh, state, pods: int = 0):
     """The full state (every rank's block of each leaf, as host tensors)
-    on rank 0, None on the other ranks: one gather a leaf, counted
-    "checkpoint"; on a shard axis each worker rank's rows joined in shard
-    order first."""
+    on rank 0, None on the other ranks: one gather a leaf over the ranks
+    of fsdp index 0 (the state is replicated along fsdp; the other fsdp
+    ranks take no part), counted "checkpoint"; on a shard axis each worker
+    rank's rows joined in shard order first."""
     hier = bool(pods)
     root = mesh.rank == 0
     p_r, d_r = mesh.shape[:2]
     s_r = mesh.shards
+    if mesh.fsdp > 1 and mesh.index((FSDP,))[0]:
+        return None
 
     def one(key, leaf):
         if not isinstance(leaf, torch.Tensor):
@@ -254,9 +310,10 @@ def gather_state(mesh: WorkerMesh, state, pods: int = 0):
         if span == "global" and not split:
             return leaf.detach().cpu() if root else None
         x = leaf.detach().to(coll.wire_device(mesh)).contiguous()
-        parts = ([torch.empty_like(x) for _ in range(mesh.size(mesh.axes))]
+        parts = ([torch.empty_like(x)
+                  for _ in range(mesh.size(mesh.state_axes))]
                  if root else None)
-        mesh.gather(x, parts)
+        mesh.gather(x, parts, axes=mesh.state_axes)
         if not root:
             return None
         parts = [q.cpu() for q in parts]

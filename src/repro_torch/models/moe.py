@@ -12,6 +12,20 @@ experts (all of them here; one model rank's in ``models.moe_shardmap``,
 the reference's explicit sharding).  The reference's ``maybe_constrain``
 sharding hints have no counterpart.
 
+One worker's batch over several ranks (``group``: a
+``comm.collectives.MeshGroup`` over the worker's fsdp ranks, each holding
+a contiguous slice of the worker's tokens, rank f the f-th): the layer
+computes what one process computes on the whole batch.  The capacity is
+the whole batch's, ``capacity(cfg, T·F)``; each entry's position within
+its expert is offset by the entries that earlier ranks route to that
+expert (one all-gather of the (E,) counts), so the kept and dropped
+entries are exactly one process's, whose stable sort runs over the whole
+batch in token order; a rank's buffer holds only its own entries, at
+most min(capacity, T) an expert.  The aux loss takes f_e and p_e as means
+over the whole batch (one all-reduce of the 2E sums), and its gradient
+comes out once over the group (``MeshGroup.sum``).  Under remat both
+collectives run again in the recompute, on the same operands.
+
 Determinism on the card.  The reference gathers ``x[token]`` with k
 entries per token and combines with ``y.at[token].add(...)``: both the
 combine and the gather's backward are scatter-adds with k collisions per
@@ -29,6 +43,8 @@ not bitwise.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +52,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamDef
 
 F32 = torch.float32
+# when a list, every dispatch appends its per-entry (keep, slot) on the
+# host (``Plan.per_entry``): a check's record of which entries a run kept
+TRACE: Optional[list] = None
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -65,8 +84,12 @@ def capacity(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
-def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
-    """x: (T, d) -> (weights (T, k) fp32, ids (T, k), aux_loss scalar)."""
+def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+          group=None):
+    """x: (T, d) -> (weights (T, k) fp32, ids (T, k), aux_loss scalar).
+    With ``group`` (x one rank's slice of the batch) f_e and p_e are the
+    whole batch's means: this rank's sums, one all-reduce of the 2E of
+    them over the group, ÷ T·F."""
     logits = x.to(F32) @ router.to(F32)
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
     weights, ids = torch.topk(probs, cfg.experts_per_token, dim=-1)
@@ -74,8 +97,15 @@ def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     # Switch-style load-balance loss: E · Σ_e f_e · p_e, f_e from the
     # top-1 ids
     e = cfg.num_experts
-    me = torch.mean(probs, dim=0)                               # (E,)
-    fe = torch.mean(F.one_hot(ids[:, 0], e).to(F32), dim=0)
+    top1 = F.one_hot(ids[:, 0], e).to(F32)
+    if group is None:
+        me = torch.mean(probs, dim=0)                           # (E,)
+        fe = torch.mean(top1, dim=0)
+    else:
+        n = x.shape[0] * group.size
+        sums = group.sum(torch.cat([probs.sum(dim=0), top1.sum(dim=0)]),
+                         kind="moe")
+        me, fe = sums[:e] / n, sums[e:].detach() / n
     aux = e * torch.sum(fe * me)
     return weights, ids, aux
 
@@ -101,23 +131,45 @@ def _permute(x: torch.Tensor, order: torch.Tensor,
     return _Permute.apply(x, order, inv)
 
 
-def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
-                     weights: torch.Tensor, ids: torch.Tensor,
-                     wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
-                     e_loc: int, shard: int) -> torch.Tensor:
-    """The routed entries of experts [shard·e_loc, (shard+1)·e_loc)
-    through those experts -> their (T, d) share of the output.
+class Plan(NamedTuple):
+    """Where a dispatch puts each of its T·k entries, in the stable sort's
+    order (``order``; ``inv`` its inverse): ``keep`` the kept ones,
+    ``slot`` each entry's row of this rank's (e_loc · ``rows``, d) buffer
+    (a masked entry's the parked slot), ``pos`` its position within its
+    expert over the whole batch, ``sorted_e`` its local expert (e_loc for
+    another block's), ``cap`` the capacity."""
 
-    x: (T, d); weights, ids: (T, k) routing over all experts; wg, wu:
-    (e_loc, d, ff); wd: (e_loc, ff, d).  Entries for other experts sort
-    last (stable) and are masked like drops; an expert's entries past
-    ``capacity(cfg, T)`` are dropped; masked entries are zeros parked at
-    slot ``cap - 1`` of expert 0.  With e_loc = E and shard 0 it is the
-    whole layer's routed output."""
-    t, d = x.shape
-    k = cfg.experts_per_token
-    cap = capacity(cfg, t)
+    order: torch.Tensor
+    inv: torch.Tensor
+    sorted_e: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    cap: int
+    rows: int
 
+    def per_entry(self):
+        """(keep, slot) per entry in token order (T·k,), the slot as one
+        process's: e · cap + the position over the whole batch, -1 where
+        the entry is dropped or masked."""
+        slot = torch.where(self.keep, self.sorted_e * self.cap + self.pos,
+                           -1)
+        return self.keep[self.inv], slot[self.inv]
+
+
+def plan(cfg: ModelConfig, ids: torch.Tensor, e_loc: int, shard: int,
+         group=None) -> Plan:
+    """The dispatch of ``ids`` (T, k) over experts [shard·e_loc,
+    (shard+1)·e_loc): entries for other experts sort last (stable) and
+    are masked like drops; an expert's entries past the capacity are
+    dropped.  Without ``group`` the capacity is ``capacity(cfg, T)`` and
+    the buffer has ``cap`` rows an expert; with one (``ids`` this rank's
+    slice of a batch split over the group) the capacity is the whole
+    batch's, ``capacity(cfg, T·F)``, each position is offset by the
+    earlier ranks' entries for its expert (one all-gather of the counts)
+    and the buffer has min(cap, T) rows an expert, each entry at its
+    position among this rank's own."""
+    t, k = ids.shape
     flat_e = ids.reshape(-1)                                    # (T·k,)
     is_local = (flat_e // e_loc) == shard
     local_e = torch.where(is_local, flat_e - shard * e_loc, e_loc)
@@ -126,34 +178,74 @@ def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
     sorted_e = local_e[order]
     # position of each entry within its expert's block
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos = torch.arange(t * k, device=x.device) - first
+    local = torch.arange(t * k, device=ids.device) - first
+    pos = local
+    if group is None:
+        cap = rows = capacity(cfg, t)
+    else:
+        cap = capacity(cfg, t * group.size)
+        rows = min(cap, t)
+        # this rank's entries an expert, then the earlier ranks' before it
+        edges = torch.searchsorted(sorted_e, torch.arange(
+            e_loc + 1, device=ids.device, dtype=sorted_e.dtype))
+        counts = group.all_gather(edges[1:] - edges[:-1], kind="moe")
+        offset = torch.cat([counts[:group.index].sum(dim=0),
+                            counts.new_zeros(1)])
+        pos = local + offset[sorted_e]
     keep = (sorted_e < e_loc) & (pos < cap)
+    # masked entries parked at slot rows - 1 of expert 0 as zeros; slot =
+    # e · rows + the position among this rank's entries
+    slot = (torch.where(keep, sorted_e, 0) * rows
+            + torch.where(keep, local, rows - 1))
+    return Plan(order, inv, sorted_e, pos, keep, slot, cap, rows)
+
+
+def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
+                     weights: torch.Tensor, ids: torch.Tensor,
+                     wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                     e_loc: int, shard: int, group=None) -> torch.Tensor:
+    """The routed entries of experts [shard·e_loc, (shard+1)·e_loc)
+    through those experts -> their (T, d) share of the output.
+
+    x: (T, d); weights, ids: (T, k) routing over all experts; wg, wu:
+    (e_loc, d, ff); wd: (e_loc, ff, d).  Entries for other experts sort
+    last (stable) and are masked like drops; an expert's entries past
+    the capacity are dropped (``plan``; with ``group`` over the whole
+    batch split over it); masked entries are zeros parked at the last slot
+    of expert 0.  With e_loc = E and shard 0 it is the whole layer's
+    routed output."""
+    t, d = x.shape
+    k = cfg.experts_per_token
+    pl = plan(cfg, ids, e_loc, shard, group)
+    if TRACE is not None:
+        TRACE.append(tuple(v.cpu() for v in pl.per_entry()))
+    order, inv, keep, slot = pl.order, pl.inv, pl.keep, pl.slot
     mask = keep[:, None].to(x.dtype)
 
-    # the entries into the expert buffer, masked ones parked at slot
-    # cap - 1 of expert 0 as zeros; slot = e · cap + position
-    slot = (torch.where(keep, sorted_e, 0) * cap
-            + torch.where(keep, pos, cap - 1))
     xk = _permute(x[:, None, :].expand(t, k, d).reshape(t * k, d), order,
                   inv) * mask
-    buf = torch.zeros((e_loc * cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot,), xk, accumulate=True).view(e_loc, cap, d)
+    buf = torch.zeros((e_loc * pl.rows, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xk, accumulate=True).view(
+        e_loc, pl.rows, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg))
     h = h * torch.einsum("ecd,edf->ecf", buf, wu)
     out_buf = torch.einsum("ecf,efd->ecd", h, wd)              # (e, C, d)
 
-    contrib = out_buf.reshape(e_loc * cap, d).index_select(0, slot) * mask
+    contrib = out_buf.reshape(e_loc * pl.rows, d).index_select(0, slot) \
+        * mask
     w = _permute(weights.reshape(-1), order, inv).to(x.dtype)
     return _permute(contrib * w[:, None], inv, order).view(t, k, d).sum(
         dim=1)
 
 
-def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (T, d) -> (y (T, d), aux_loss). The caller flattens batch·seq."""
-    weights, ids, aux = route(cfg, p["router"], x)
+def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
+    """x: (T, d) -> (y (T, d), aux_loss). The caller flattens batch·seq.
+    ``group``: the ranks a worker's batch is split over (x this rank's
+    slice, the f-th of F equal ones), or None."""
+    weights, ids, aux = route(cfg, p["router"], x, group)
     y = dispatch_compute(cfg, x, weights, ids, p["w_gate"], p["w_up"],
-                         p["w_down"], cfg.num_experts, 0)
+                         p["w_down"], cfg.num_experts, 0, group)
     if cfg.num_shared_experts:
         hs = F.silu(x @ p["shared_w_gate"]) * (x @ p["shared_w_up"])
         y = y + hs @ p["shared_w_down"]

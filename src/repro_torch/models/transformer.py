@@ -83,9 +83,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 # ------------------------------------------------------------------- blocks
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
-           positions: torch.Tensor, window: Optional[int]):
+           positions: torch.Tensor, window: Optional[int], group=None):
     """One layer. Returns (x, aux_loss): the router's aux loss for the moe
-    family, None for the others (the reference's zero)."""
+    family, None for the others (the reference's zero).  ``group``: the
+    ranks the batch is split over (``forward``)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + ssm.ssm_forward(cfg, p["ssm"], h), None
@@ -95,15 +96,17 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
         y = attention.attend_full(
             cfg, p["attn"], h, positions,
             window=window if window is not None else cfg.attn_window)
-    return _mlp_residual(cfg, p, x + y)
+    return _mlp_residual(cfg, p, x + y, group)
 
 
-def _mlp_residual(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def _mlp_residual(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
     """(x + the layer's MLP of the normed x, None), or for the moe family
-    (x + its routed experts over the flattened tokens, the aux loss)."""
+    (x + its routed experts over the flattened tokens, the aux loss; over
+    the whole batch split over ``group``)."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = moe.moe_mlp(cfg, p["moe"], h.reshape(-1, h.shape[-1]))
+        y, aux = moe.moe_mlp(cfg, p["moe"], h.reshape(-1, h.shape[-1]),
+                             group)
         return x + y.view(h.shape), aux
     return x + mlp(cfg, p["mlp"], h), None
 
@@ -131,12 +134,17 @@ def logits_out(cfg: ModelConfig, params: dict,
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             window: Optional[int] = None, remat: bool = False,
-            return_hidden: bool = False, return_aux: bool = False):
+            return_hidden: bool = False, return_aux: bool = False,
+            group=None):
     """Full-sequence forward over token ids (..., S) (codec: frame
     embeddings (..., S, F)) -> logits (..., S, V), or with
     ``return_hidden`` the post-final-norm hidden states (..., S, d), for
     the vocab-streaming loss (``train.loss.chunked_cross_entropy_lm``).
     ``remat`` recomputes each layer's activations in the backward.
+    ``group`` (a ``comm.collectives.MeshGroup``): the inputs are this
+    rank's slice, the f-th of F equal ones, of a batch split over the
+    group's ranks; the routed layers dispatch and take their aux loss over
+    the whole batch (``models.moe``).  Every other layer is per token.
 
     With ``return_aux`` it returns (that, aux) as the reference always
     does: the router's aux loss summed over layers ÷ the layer count, an
@@ -151,7 +159,7 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     # where L separate a[i] selects would each scatter into a zeroed
     # full-depth buffer (O(L²) traffic)
     for layer_p in _layers(cfg, params):
-        x, a = block(cfg, layer_p, x, positions, window)
+        x, a = block(cfg, layer_p, x, positions, window, group)
         if a is not None:
             aux = aux + a
     out = (rms_norm(x, params["final_norm"], cfg.norm_eps) if return_hidden
@@ -160,18 +168,20 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 
 
 def _block_remat(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, window: Optional[int]):
+                 positions: torch.Tensor, window: Optional[int],
+                 group=None):
     """``_block`` under non-reentrant activation checkpointing.  The
     layer's parameter views (of the one ``unbind`` in ``_layers``) go in
     as the checkpoint's inputs, so the recomputed block's gradients reach
     them, and through the unbind the stacked leaves; the block's (x, aux)
     come out of the checkpoint, so the aux loss's gradient flows through
-    the recomputed router too."""
+    the recomputed router too; a ``group``'s collectives run again in the
+    recompute, on the same operands."""
     paths, leaves = zip(*tree_mod.leaves_with_path(p))
 
     def run(x, *leaves):
         return _block(cfg, tree_mod.from_paths(list(zip(paths, leaves))), x,
-                      positions, window)
+                      positions, window, group)
     return checkpoint(run, x, *leaves, use_reentrant=False)
 
 

@@ -5,13 +5,14 @@ engine's row-shard axis.
 axes by the ``MeshConfig``'s roles (``configs.registry.mesh_roles``).  A
 spec is a plain tuple with one entry a dimension: a mesh-axis name, a
 tuple of names, or None (replicated) — the entries of the reference's
-``PartitionSpec``.  The port runs no tensor parallelism and no FSDP; the
-dry run (``launch.dryrun``) reads these specs for what rank 0 of the
-production grid holds: its block of every input (``batch_spec``, its
-batch dim split over the data-like axes) and whether the layout splits a
-worker's parameters over FSDP axes, which it refuses
-(``partition_specs``, ``worker_stacked_spec``).  The reference's ``make_mesh`` and
-``shardings`` build JAX objects and have no counterpart.
+``PartitionSpec``.  The port runs no tensor parallelism; the dry run
+(``launch.dryrun``) reads these specs for what rank 0 of the production
+grid holds: its block of every input (``batch_spec``, its batch dim split
+over the data-like axes, which a training step takes as its fsdp slice)
+and whether a served model's weights split over FSDP axes, which it
+refuses (``partition_specs``, ``worker_stacked_spec``).  The reference's
+``make_mesh`` and ``shardings`` build JAX objects and have no
+counterpart.
 
 The flat-buffer engine splits every (W, R, C) buffer's rows over the rank
 grid's "shard" axis (``comm.collectives.SHARD``), one block of R / S rows

@@ -57,6 +57,26 @@ one-process order and each rank clips the whole gradient), and the
 engine's update takes the rank's own rows of the gradient
 (``Engine.own_rows``).
 
+A worker over ranks (a mesh with an "fsdp" axis of F ranks, the
+reference's FSDP axes; ``launch.mesh.make_engine_mesh(fsdp=)``): every fsdp rank holds its worker rank's whole
+state and is given each of its workers' whole batch, as a row-shard rank
+is; it runs the f-th of F contiguous slices of it along the batch dim
+(rows [f·b/F, (f+1)·b/F), the reference's ``batch_sharding_spec``), with
+the routed layers' dispatch and aux loss over the whole batch
+(``models.moe``, the group passed to ``transformer.forward``).  The
+backward does not clip: the gradient is first averaged over the fsdp
+group (``comm.collectives.fsdp_mean``, counted "grad"; the slices are
+equal, so the mean of the slice means is the batch mean), then clipped by
+the worker's global norm.  On a row-sharded grid the mean covers only the
+rank's own rows, and the norm is the whole worker's: one all-reduce of
+the squared sums over the shard group ("grad"), so every rank of a worker
+holds bitwise the same clipped rows.  The reported loss is the mean of
+the fsdp ranks' slice losses (one "scalar" all-reduce over fsdp), then
+the worker mean as below.  Where F does not divide the batch, every fsdp
+rank runs the whole batch with no gradient mean, as the reference
+replicates it.  Membership and the hierarchy are refused on such a grid
+(``core.engine``), and so is the client store (``core.clients``).
+
 On a mesh (``mesh=``, ``comm.collectives.WorkerMesh``; the reference's
 ``mesh`` with ``worker_axes=("pod", "data")``) the engine holds this
 rank's block of the workers, ``grads_fn`` runs only those, and the
@@ -230,10 +250,26 @@ def _grad_mul(rows: torch.Tensor, size: int, m: np.ndarray) -> None:
     spans are its first ``size`` elements, the pad stays zero) by its
     entry of ``m`` (n,), in place, as the reference multiplies the
     worker's gradient tree: NaN or Inf poisons the worker's local step;
-    1 changes nothing and is skipped (g · 1 = g)."""
+    1 changes nothing and is skipped (g · 1 = g).  ``rows`` may be a shard
+    rank's own rows: ``size`` then counts the leaf elements they hold."""
     for i, f in enumerate(np.asarray(m, np.float32)):
         if f != 1.0:
             rows[i].view(-1)[:size].mul_(float(f))
+
+
+def _clip_rows(g: torch.Tensor, max_norm: float, mesh) -> None:
+    """Clip each worker's rows of ``g`` ((w, R/S, C), a shard rank's own
+    rows of an fsdp-averaged gradient; the pad is zero) in place by the
+    worker's global norm: the rows' squared sums in fp32, one all-reduce
+    over the shard group (counted "grad"), the root correctly rounded, as
+    ``clip_by_global_norm`` scales."""
+    sq = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
+                      for x in g])
+    mesh.all_reduce(sq, (coll.SHARD,), kind="grad")
+    scale = torch.clamp(max_norm / torch.clamp(sqrt_rn(sq), min=1e-9),
+                        max=1.0)
+    for x, c in zip(g, scale):
+        x.copy_((x.to(torch.float32) * c).to(x.dtype))
 
 
 def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
@@ -261,18 +297,19 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     def span(name: str):
         return contextlib.nullcontext() if timer is None else timer.span(name)
 
-    def loss_fn(params, tokens, labels):
+    def loss_fn(params, tokens, labels, group=None):
         if chunked_ce:
             hidden, aux = transformer.forward(
                 model_cfg, params, tokens, remat=remat, return_hidden=True,
-                return_aux=True)
+                return_aux=True, group=group)
             tied = model_cfg.tie_embeddings
             loss = chunked_cross_entropy_lm(
                 hidden, params["embed"] if tied else params["lm_head"],
                 labels, chunk=chunked_ce, head_is_embed=tied)
         else:
             logits, aux = transformer.forward(model_cfg, params, tokens,
-                                              remat=remat, return_aux=True)
+                                              remat=remat, return_aux=True,
+                                              group=group)
             loss = cross_entropy_lm(logits, labels)
         if model_cfg.num_experts:
             # the router's load-balance loss, as the reference adds it
@@ -292,6 +329,20 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
     pods = eng.grid[0] if eng.grid is not None else 0
     spec = eng.spec
     gbuf: dict = {}             # params shape -> the reused gradient buffer
+    fsdp = 1 if mesh is None else mesh.fsdp
+    group = None if fsdp == 1 else coll.MeshGroup(mesh, (coll.FSDP,))
+
+    def split(tokens) -> bool:
+        """Whether the fsdp ranks split these (w, b, ...) batches: F > 1
+        and F divides b (else each runs the whole batch)."""
+        return fsdp > 1 and tokens.shape[1] % fsdp == 0
+
+    def fsdp_slice(x: torch.Tensor) -> torch.Tensor:
+        """This fsdp rank's contiguous slice of one worker's batch (b,
+        ...)."""
+        n = x.shape[0] // fsdp
+        f = mesh.index((coll.FSDP,))[0]
+        return x[f * n:(f + 1) * n]
 
     def dead_grads(state):
         """The last step's gradient buffer (dead once the step is done), as
@@ -302,12 +353,18 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         return buf if buf is not None and buf.dtype == torch.float32 \
             else None
 
-    def mean_loss(local: torch.Tensor, member: Any = ()) -> torch.Tensor:
+    def mean_loss(local: torch.Tensor, member: Any = (),
+                  fsdp_split: bool = False) -> torch.Tensor:
         """(..., w) losses of this rank's workers -> (...) worker means (on
         a mesh over every rank's: one all-reduce of the local sums).  With
         a ``MemberState`` that leaves a worker out, the mean over the
         active workers (at least one), their count reduced in the same
-        all-reduce and × its reciprocal, the reference's op sequence."""
+        all-reduce and × its reciprocal, the reference's op sequence.
+        ``fsdp_split``: the losses are of this rank's batch slices, first
+        averaged over the fsdp ranks (one all-reduce)."""
+        if fsdp_split:
+            local = coll.worker_mean(mesh, local.unsqueeze(-1), -1,
+                                     (coll.FSDP,), kind="scalar")
         if eng.all_active(member):
             return coll.worker_mean(mesh, local, -1, coll.AXES,
                                     kind="scalar")
@@ -327,7 +384,11 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         parameter rows are first gathered over the shard group (counted
         "forward") into a transient buffer: every shard rank runs its
         workers' whole forward and backward, so each clips the whole
-        gradient."""
+        gradient.  On an fsdp axis that splits the batch (``split``) each
+        worker runs this rank's slice, unclipped; the gradient is averaged
+        over the fsdp group, then clipped (``fsdp_grads``), and on a
+        row-sharded mesh what comes back is this rank's rows of it
+        (shaped like ``state.params``)."""
         shape = (*state.params.shape[:-2], spec.rows, spec.lanes)
         buf = gbuf.get(shape)
         if buf is None:
@@ -339,18 +400,46 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         params = eng.gather_params(state)
         ptree = flat.unflatten_stacked(spec, params.view(stacked))
         gtree = flat.unflatten_stacked(spec, buf.view(stacked))
+        if split(tokens):
+            losses = [_worker_grads(
+                lambda p, t, y: loss_fn(p, t, y, group), 0.0, ptree, gtree,
+                (i,), fsdp_slice(tokens[i]), fsdp_slice(labels[i]))
+                for i in range(w)]
+            return fsdp_grads(state, buf, gtree, w), torch.stack(losses)
         losses = [_worker_grads(loss_fn, vrl_cfg.clip_norm, ptree, gtree,
                                 (i,), tokens[i], labels[i])
                   for i in range(w)]
         return buf, torch.stack(losses)
+
+    def fsdp_grads(state, buf: torch.Tensor, gtree, w: int) -> torch.Tensor:
+        """The slices' gradients ``buf`` averaged over the fsdp group, then
+        clipped to ``vrl_cfg.clip_norm`` by each worker's global norm: off
+        a row-sharded mesh in place over every row (the whole tree's
+        norm, ``clip_by_global_norm``); on one over this rank's rows only,
+        copied out to a buffer shaped like ``state.params`` (returned), the
+        norm's squared sums all-reduced over the shard group."""
+        if eng.own_rows is None:
+            coll.fsdp_mean(mesh, buf)
+            if vrl_cfg.clip_norm:
+                for i in range(w):
+                    leaves = [x[i] for x in tree_mod.leaves(gtree)]
+                    for x, c in zip(leaves, clip_by_global_norm(
+                            leaves, vrl_cfg.clip_norm)):
+                        x.copy_(c)
+            return buf
+        g = own_rows(state, buf)
+        coll.fsdp_mean(mesh, g)
+        if vrl_cfg.clip_norm:
+            _clip_rows(g.view(-1, *g.shape[-2:]), vrl_cfg.clip_norm, mesh)
+        return g
 
     def own_rows(state, g: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the full gradient buffer ``g`` (``g`` itself
         off a row-sharded mesh), kept as the step's dead buffer: a view
         into ``g`` where they are contiguous (one worker a rank), else
         copied into a reused buffer shaped like ``state.params``."""
-        if eng.own_rows is None:
-            return g
+        if eng.own_rows is None or g.shape[-2] != spec.rows:
+            return g            # ... or already this rank's rows
         loc, shape = eng.own_rows(g), tuple(state.params.shape)
         if loc.is_contiguous():
             gbuf[shape] = loc
@@ -364,7 +453,8 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         """``local_grads`` (this rank's rows, shaped like ``state.params``)
         with the losses' worker mean."""
         buf, losses = local_grads(state, tokens, labels)
-        return own_rows(state, buf), mean_loss(losses, state.member)
+        return own_rows(state, buf), mean_loss(losses, state.member,
+                                               split(tokens))
 
     def step(state, tokens, labels, gmul: Optional[np.ndarray] = None):
         """One local step -> (state, this rank's (w,) worker losses);
@@ -372,7 +462,14 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         with span("fwd_bwd"):
             g, losses = local_grads(state, tokens, labels)
             if gmul is not None:
-                _grad_mul(g.view(-1, spec.rows, spec.lanes), spec.size, gmul)
+                rows = g.shape[-2]
+                # a shard rank's own rows hold the leaf elements past
+                # its first row's offset
+                start = (0 if rows == spec.rows else
+                         mesh.index((coll.SHARD,))[0] * rows * spec.lanes)
+                _grad_mul(g.view(-1, rows, spec.lanes),
+                          max(0, min(spec.size - start, rows * spec.lanes)),
+                          gmul)
             g = own_rows(state, g)
         with span("local"):
             state = eng.local_step(state, g)
@@ -380,7 +477,7 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
 
     def local_step(state, tokens, labels):
         state, losses = step(state, tokens, labels)
-        return state, mean_loss(losses, state.member)
+        return state, mean_loss(losses, state.member, split(tokens))
 
     # the last step's gradients are dead at a sync: a compressed sync
     # writes its decompressed payload over them instead of a new buffer
@@ -421,7 +518,8 @@ def make_train_step(model_cfg: ModelConfig, vrl_cfg: VRLConfig, *,
         if mesh is None:
             return state, torch.stack([mean_loss(x, state.member)
                                        for x in losses])
-        return state, mean_loss(torch.stack(losses), state.member)
+        return state, mean_loss(torch.stack(losses), state.member,
+                                split(tokens_k[0]))
 
     def round_step(state, tokens_k, labels_k):
         return round_step_fault(state, tokens_k, labels_k)

@@ -140,6 +140,13 @@ out["mem"]["qwen2-0.5b/clients64"] = d.engine_mem(
 for key, kw in lower.items():
     out["lower"][key] = d.lower_one("qwen2-0.5b", "train_4k", verbose=False,
                                     **kw).to_json()
+out["model_flops"] = {}
+for arch in sorted(registry._FSDP_ARCHS):
+    for multi in (False, True):
+        m = registry.mesh_roles(arch, multi_pod=multi)
+        out["model_flops"][arch + ("/multi" if multi else "/single")] = \
+            d._model_flops_train(registry.padded_arch(arch, m),
+                                 registry.get_shape("train_4k"))
 print("REF " + json.dumps(out))
 """
 
@@ -364,10 +371,21 @@ def gloo_counts(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("case", DR.FLAT_CASES + ("rows",))
+@pytest.mark.parametrize("case", DR.FLAT_CASES + ("rows",)
+                         + tuple(DR.FSDP_CASES))
 def test_dry_mesh_counts_equal_gloo(gloo_counts, case):
     real = gloo_counts[case]
-    if case == "rows":
+    if case in DR.FSDP_CASES:
+        # one worker over fsdp ranks (x shard ranks): the dense and MoE
+        # smoke models' rounds, remat on (the MoE's collectives run again
+        # in each layer's recompute)
+        f, s = DR.FSDP_CASES[case]
+        mesh = mesh_mod.dry_engine_mesh(1, f * s, fsdp=f, shards=s)
+        dry = DR.fsdp_counts(mesh, meta=True, shards=s)
+        real_counts = real["counts"]
+        assert all("grad" in c for c in dry)
+        assert sum("moe" in c for c in dry) == len(dry) // 2
+    elif case == "rows":
         mesh = mesh_mod.dry_engine_mesh(DR.SHARD_W, DR.SHARD_W * DR.SHARDS,
                                         shards=DR.SHARDS)
         dry = DR.shard_counts(mesh, meta=True)
@@ -437,12 +455,53 @@ def test_cli_sync_row_has_the_reference_keys(ref, tmp_path):
 
 
 def test_cli_fsdp_layout_is_refused_with_its_reason(tmp_path):
+    """kimi-k2's training step runs with a worker over its 16 fsdp ranks;
+    serving it needs 2D-sharded weights, which the port refuses."""
     out = tmp_path / "rows.jsonl"
     assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
-                        "--fn", "local", "--out", str(out)]) == 1
+                        "--fn", "local", "--out", str(out)]) == 0
     row = json.loads(out.read_text().splitlines()[0])
+    assert row["ok"] is True and row["chips"] == 16
+    assert row["collectives"]["grad"]["fsdp"]["calls"] == 1
+    assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "decode_32k",
+                        "--out", str(out)]) == 1
+    row = json.loads(out.read_text().splitlines()[1])
     assert row["ok"] is False and row["per_device_bytes"] == -1
-    assert "FSDP" in row["error"] and "NotImplementedError" in row["error"]
+    assert "2D-sharded weights in serving" in row["error"]
+    assert "NotImplementedError" in row["error"]
+
+
+FSDP_ROWS = [(a, m, fn) for a in sorted(registry._FSDP_ARCHS)
+             for m in ("single", "multi") for fn in ("local", "sync")]
+
+
+@pytest.mark.parametrize("arch,mesh,fn", FSDP_ROWS)
+def test_fsdp_training_rows_run(ref, arch, mesh, fn):
+    """The reference's FSDP archs' training steps on both meshes: one
+    worker over the 16 "data" ranks of its FSDP axis (2 workers over the
+    pods on the multi mesh), each rank's batch 16 sequences of the
+    worker's 256 (8 of 128 on the multi mesh), its gradient averaged over
+    them once a step; ``model_flops`` equal to the reference's."""
+    multi = mesh == "multi"
+    res = dryrun.lower_one(arch, "train_4k", multi_pod=multi, fn_kind=fn,
+                           verbose=False)
+    row = res.to_json()
+    assert row["ok"] and row["chips"] == (32 if multi else 16)
+    assert res.counted.mesh.shape == ((1, 2, 16) if multi else (1, 1, 16))
+    if fn == "sync":
+        assert row["kernels"] == {"fused_sync_vrl": 1}
+        assert row["model_flops"] == 0.0
+        assert set(row["collectives"]) == {"state"}
+        return
+    assert row["kernels"] == {"fused_local_sgd": 1}
+    assert row["model_flops"] == ref()["model_flops"][f"{arch}/{mesh}"]
+    # the bf16 gradient's mean carries fp32 on the wire
+    _, r, c = dryrun.engine_mem(arch, verbose=False)["buffers"]["params"][
+        "shape"]
+    assert row["collectives"]["grad"] == {"fsdp": {
+        "calls": 1, "bytes": r * c * 4, "async": 0}}
+    assert ("moe" in row["collectives"]) == (arch != "chameleon-34b")
+    assert row["hlo_flops"] > 0
 
 
 def test_dryrun_touches_no_card(monkeypatch):
@@ -462,9 +521,9 @@ def test_dryrun_touches_no_card(monkeypatch):
 @pytest.mark.parametrize("multi", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_fsdp_refusal_follows_the_specs(arch, multi):
-    """The dry run refuses exactly the layouts whose specs split a worker's
-    state (training) or parameters (serving) over an FSDP axis: the
-    reference's FSDP archs, kimi-k2 alone in serving."""
+    """The dry run refuses exactly the serving layouts whose specs split a
+    model's parameters over an FSDP axis (kimi-k2 alone); the reference's
+    FSDP archs' training layouts run (a worker over fsdp ranks)."""
     for serving in (False, True):
         m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
         c = registry.padded_arch(arch, m)
@@ -474,8 +533,9 @@ def test_fsdp_refusal_follows_the_specs(arch, multi):
         fsdp = arch in (registry._FSDP_SERVE_ARCHS if serving
                         else registry._FSDP_ARCHS)
         assert (m.fsdp_size > 1) == fsdp
-        if fsdp:
-            with pytest.raises(NotImplementedError, match="FSDP within"):
+        if fsdp and serving:
+            with pytest.raises(NotImplementedError,
+                               match="2D-sharded weights in serving"):
                 dryrun._refuse_fsdp(arch, specs, m, serving)
         else:
             dryrun._refuse_fsdp(arch, specs, m, serving)

@@ -331,9 +331,10 @@ def test_wrappers_check_meta_operands():
 # ------------------------------------------------------------- the scripts
 @pytest.fixture(scope="module")
 def rows_file(tmp_path_factory):
-    """Smoke-size rows of the port's dry run: qwen2-0.5b's and
-    mamba2-370m's train (local, sync), prefill and decode, and kimi-k2's
-    refused local step."""
+    """Smoke-size rows of the port's dry run: qwen2-0.5b's, mamba2-370m's
+    and kimi-k2's train (local, sync), prefill and decode; kimi-k2 trains
+    with a worker over its fsdp ranks and its serving is refused (2D-
+    sharded weights)."""
     path = tmp_path_factory.mktemp("rows") / "dryrun_torch.jsonl"
     with open(path, "w") as f:
         for arch in ("qwen2-0.5b", "mamba2-370m", "kimi-k2-1t-a32b"):
@@ -362,9 +363,10 @@ def test_roofline_report_prints_counted_rows(rows_file, capsys):
     text = capsys.readouterr().out
     assert set(out) == {(a, s, "single") for a in ("qwen2-0.5b",
                                                    "mamba2-370m")
-                        for s in ("train_4k", "prefill_32k", "decode_32k")}
+                        for s in ("train_4k", "prefill_32k", "decode_32k")
+                        } | {("kimi-k2-1t-a32b", "train_4k", "single")}
     lines = [x for x in text.splitlines() if x.startswith("roofline/")]
-    assert len(lines) == 6 and all("calib=counted" in x for x in lines)
+    assert len(lines) == 7 and all("calib=counted" in x for x in lines)
     assert "roofline/qwen2-0.5b/train_4k/single," in text
 
 
@@ -373,6 +375,7 @@ def test_experiments_tables_print_rows(rows_file, capsys):
     gen_experiments_tables.main([rows_file])
     text = capsys.readouterr().out
     assert "| qwen2-0.5b | train_4k | OK |" in text
-    assert "| kimi-k2-1t-a32b | train_4k | FAIL | ? |" in text
+    assert "| kimi-k2-1t-a32b | train_4k | OK |" in text
+    assert "| kimi-k2-1t-a32b | decode_32k | FAIL | ? |" in text
     assert "**memory**" in text or "**compute**" in text
-    assert "kimi-k2-1t-a32b/train_4k/single/local:" in text
+    assert "kimi-k2-1t-a32b/decode_32k/single/decode:" in text
