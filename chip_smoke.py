@@ -26,6 +26,11 @@
                                            # them itself)
   python3 chip_smoke.py --fsdp-dry OUT   # phase 15's (bd) rows (the
                                            # script starts it itself)
+  python3 chip_smoke.py --tp        # phases 1, 2 and 16 alone
+  python3 chip_smoke.py --tp-ranks CASES DIR   # phase 16's (be)-(bh) ranks
+                                           # (the script launches them)
+  python3 chip_smoke.py --tp-dry OUT   # phase 16's (bi) rows (the script
+                                           # starts it itself)
   python3 chip_smoke.py --main-paths [N]   # phases 1, 2 and phase 4's
                                            # training paths alone, the cut
                                            # ones at N of qwen2-0.5b's 24
@@ -237,12 +242,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
      within 1e-4 · max|Δ| plus 2 n ulp(max|p|)/(k γ), and some EF term of
      each level above twice that (so a sync that lost it would fail).
    - (n) the same grid with ``--compress int8 --compress2 topk:32
-     --overlap --deadline 0.25`` (12 steps): fused_ef_int8_grid 6,
-     fused_sync_hier1 6, fused_fold_overlap_hier2 3 (no capture in the
-     kernel), fused_ef_topk 3 (the compressed capture),
-     fused_hier_local_sgd 12.  The per-pod misses at the folds of steps 4,
-     8 and 12 are the reference's draws, [1, 0], [0, 1] and [0, 0], and
-     pend_k after them [5, 4], [4, 8], [4, 4]; Σ_d Δ1 as in (m), Σ_p Δ2
+     --overlap --deadline 0.25`` (8 steps, for the script's time):
+     fused_ef_int8_grid 4, fused_sync_hier1 4, fused_fold_overlap_hier2 2
+     (no capture in the kernel), fused_ef_topk 2 (the compressed capture),
+     fused_hier_local_sgd 8.  The per-pod misses at the folds of steps 4
+     and 8 are the reference's draws, [1, 0] and [0, 1], and pend_k after
+     them [5, 4], [4, 8]; Σ_d Δ1 as in (m), Σ_p Δ2
      moves at each fold by Σ_p c_p/(pend_k_p γ) (the pods' pend_k differ
      once one misses).
    - (o) ``--compress topk:32`` at both levels, blocking (4 steps):
@@ -250,7 +255,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (p) vrl_sgd + sgd with ``--backend reference`` (the per-leaf
      executor, 6 steps, k = 2, warmup: rounds of 1, 2, 2 and a one-step
      tail) and (q) hier_vrl_sgd (2, 2) with ``--backend reference
-     --compress int8`` (8 steps), through ``launch.train``: no kernel
+     --compress int8`` (4 steps, for the script's time),
+     through ``launch.train``: no kernel
      launched (the per-leaf executor runs none, as the reference's),
      every logged loss finite, Σ_i Δ_i (for (q) each level's move by its
      EF term) as for the flat paths.
@@ -277,9 +283,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      token, tok/s and the peak are printed.
    - (u) mamba2-370m (48 layers, d 1024, 368,227,840 parameters per
      worker) through ``repro_torch.launch.train --arch mamba2-370m
-     --workers 4 --batch 4 --seq 256 --steps 7 --k 2 --lr 1e-3 --warmup``
-     (one full 256-step chunk per sequence): vrl_sgd + sgd, rounds of 1,
-     2, 2, 2: fused_local_sgd 7, fused_sync_vrl 4 (the model's own
+     --workers 4 --batch 4 --seq 256 --steps 3 --k 2 --lr 1e-3 --warmup``
+     (one full 256-step chunk per sequence; 3 steps for the script's
+     time): vrl_sgd + sgd, rounds of 1, 2: fused_local_sgd
+     3, fused_sync_vrl 2 (the model's own
      ``ssd_chunked`` scan, as in the reference: no ssd_scan launch); the
      checks of the qwen2 CLI path, Σ_i Δ_i with the fp32 rounding of x̂
      added to its bound, 2 W ulp(max|p|)/(k_eff γ) per sync (Δ is O(1)
@@ -512,7 +519,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 10. elastic runs and partial participation (``repro_torch.fault``,
    ``MemberState``, ``Engine.set_membership``, ``core.clients`` through
    ``launch.train``); every line carries the card's name and power limit:
-   - (aj) qwen2-0.5b at full width, W = 4, batch 8 × seq 64, k = 2, γ =
+   - (aj) qwen2-0.5b at full width and ``CUT_LAYERS`` of its 24 layers
+     (the depth cut for the script's time), W = 4, batch 8 × seq 64, k =
+     2, γ =
      1e-7 (at 1e-3 the init's own blow-up trips the guard's loss trend),
      12 steps with ``--membership --guard --faults
      "nan@2:3,crash@1:4,rejoin@1:8"``: the rollback, membership and fault
@@ -583,7 +592,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (as) qwen2-0.5b at ``SHARD_LAYERS`` of its 24 layers, full width
      (flat 764,928 × 256; 765,952 rows at shards 2, a multiple of block
      1024 · 2), through ``launch.train --mesh-grid --shards 2``
-     on (data 2 × shard 2): W = 2, batch 8 × 64, k = 2, 4 steps, vrl_sgd
+     on (data 2 × shard 2): W = 2, batch 8 × 64, k = 2, 2 steps (one
+     round, for the script's time), vrl_sgd
      + adam.  Every rank's losses bitwise the one-process run at
      ``--shards 2`` (no save, for the script's time: (at) gathers and
      holds the sharded saves); ``--shards 1`` within 1e-6 ·
@@ -599,7 +609,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (au) ``models.moe_shardmap`` at phi3.5-moe's published widths (d
      4096, moe_d_ff 6400, 16 experts top-2, no shared experts, fp32,
      capacity factor E / k) on (data 2 × model 2), 256 tokens a data
-     rank (``chip_smoke.py --moe-ranks OUT`` under the launcher): within
+     rank (``chip_smoke.py --moe-ranks OUT`` under the launcher, started
+     at the phase's start beside (as) and (at)): within
      1e-5 · max|ref| of ``moe.moe_mlp`` in one process on the same 512
      tokens (the same call with TF32 products printed beside it),
      bitwise run to run, three weight gathers and the aux mean over
@@ -680,7 +691,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    - (bb) phi3.5-moe at full width (d 4096, 16 experts top-2, moe_d_ff
      6400, vocab 32,064), 1 of 32 layers (1.56e9 parameters), bf16
      parameters and Δ, vrl_sgd + sgd, one worker over 2 fsdp ranks, batch
-     8 × 64 (4 × 64 a rank), k = 2, one round, remat on, the router's
+     8 × 64 (4 × 64 a rank), k = 1 (one step and its sync, for the
+     script's time), remat on, the router's
      aux loss in the loss; then rank 0 runs the same worker on the whole
      batch in one process (the twin).  Gates: finite losses within 1e-2
      relative of the twin's; the first step's dispatches (its forward and
@@ -703,6 +715,48 @@ Phases (each prints a line; any failure raises and exits non-zero):
      process beside (bb) and (bc) (``chip_smoke.py --fsdp-dry OUT``), the
      FSDP archs' (chameleon-34b, kimi-k2, phi3.5-moe) train_4k local and
      sync rows on the single and multi meshes, each ``ok``.
+16. tensor-parallel serving — the reference's serving layout on a
+   (data, model) rank grid (``launch.mesh.make_serve_mesh``: each rank
+   its block of every weight by ``sharding.specs.rank_params``, its rows
+   of the batch and its block of the KV cache; the collectives written by
+   hand and counted as "tensor", "weights" and "moe"), every rank on the
+   one card over gloo, its ranks ``chip_smoke.py --tp-ranks CASES DIR``
+   under the launcher, three launches at once ((bg) and (bh) share one
+   grid's ranks, in turn), started beside the twins, whose card they
+   leave alone until the twins are done.  Random weights from one
+   seed, wq and wk × 0.1 (the full-depth check's softening, phase 5);
+   each case first served by its one-process twin on the whole padded
+   model, alone on the card (``serve.Engine``, greedy, batch 4 × 32 + 8;
+   its tokens and each step's logits kept on the host), then by the
+   ranks (``Engine(mesh=)``; each rank draws the same leaves in turn and
+   keeps its blocks, so no two whole leaves are on the card at once):
+   - (be) qwen2-0.5b at full width, 24 layers, over model 4, fp32: 14
+     heads padded to 16 (kv 2, g' 8); 2 kv heads do not divide 4, so the
+     cache splits by slots (the distributed flash-decode);
+   - (bf) granite-3-2b at full width, 40 layers, over model 2, fp32: kv 8
+     split;
+   - (bg) phi3.5-moe at full width, 2 of 32 layers, over data 2 × model
+     2, fp32: 8 experts a rank, 2 requests a data rank, the keep and drop
+     over the whole batch;
+   - (bh) kimi-k2's smoke model over data 2 × model 2, bf16: the 2D
+     layout (d dims over "data", gathered before each product) with the
+     shared expert.
+   Gates: every rank's greedy tokens equal its twin's rows (or, where
+   they part, a near-tie of the twin's top-2 logits, printed); each
+   step's logits within 1e-4 · max|twin logits| in fp32 (the mesh limit
+   of PERF.md §2), within 2^-5 of each row's max in bf16; no kernel
+   launched; each rank's weight bytes (``torch.cuda.memory_allocated``
+   after loading) equal to the spec count within the allocator's
+   rounding; the prefill's and a decode step's collectives equal to the
+   design count (``tp_design_count``).  Printed: prefill ms, decode ms a
+   token (median and spread) for the ranks and the twin, each rank's
+   weight bytes and peak, the collectives by kind.
+   - (bi) (be)'s prefill and first decode step on a dry (1 × 4) serving
+     grid (``launch.dryrun.lower_one``): FLOPs, launches and collectives
+     equal to rank 0's on the card (``FlopCounterMode``); and, in a child
+     process beside the ranks (``chip_smoke.py --tp-dry OUT``), kimi-k2's
+     prefill_32k, decode_32k and long_500k rows on the single and multi
+     meshes, each ``ok`` on the whole grid.
 
 Then the card's name and power limit (nvidia-smi), then one JSON object
 with every kernel's numbers (``launches`` from the main path that runs
@@ -878,9 +932,12 @@ HYMBA_PARAMS = 1_589_669_760
 HYMBA_LAYOUT = (HYMBA_PARAMS, 6_210_560, 256)
 FLAT_LAYOUTS = {"qwen2-0.5b": QWEN_LAYOUT, MAMBA: MAMBA_LAYOUT,
                 HYMBA: HYMBA_LAYOUT}
+# 3 steps (syncs at 1 and 3 under the warm-up): cut from 7 so that the
+# script, phase 16 added, keeps its time
 MAMBA_ARGS = ["--arch", MAMBA, "--workers", "4", "--batch", "4", "--seq",
-              "256", "--steps", "7", "--k", "2", "--lr", str(MAIN_LR),
+              "256", "--steps", "3", "--k", "2", "--lr", str(MAIN_LR),
               "--warmup"]
+MAMBA_LAUNCHES = {"fused_local_sgd": 3, "fused_sync_vrl": 2}
 # (v): a prompt of one full chunk and one padded chunk, so the SSM state
 # crosses a chunk boundary in prefill
 MAMBA_SERVE_ARGS = ["--batch", "4", "--prompt-len", "288", "--gen", "32"]
@@ -977,17 +1034,16 @@ PATH_M = (cut(HIER_ARGS + ["--steps", "8", "--compress", "int8"]),
           {"fused_hier_local_sgd": 8, "fused_ef_int8_grid": 4,
            "fused_sync_hier1": 4, "fused_ef_int8": 2, "fused_sync_hier2": 2})
 # (n) int8 within pods, topk:32 across them, overlapped, deadline 0.25: the
-# folds at steps 4, 8, 12 run without capture, the compressed capture is
+# folds at steps 4 and 8 run without capture, the compressed capture is
 # the flat top-k round trip; the reference's per-pod misses and the pend_k
 # they leave
-PATH_N = (cut(HIER_ARGS + ["--steps", "12", "--compress", "int8",
+PATH_N = (cut(HIER_ARGS + ["--steps", "8", "--compress", "int8",
                            "--compress2", "topk:32", "--overlap",
                            "--deadline", "0.25"]),
-          {"fused_hier_local_sgd": 12, "fused_sync_hier1": 6,
-           "fused_ef_int8_grid": 6, "fused_fold_overlap_hier2": 3,
-           "fused_ef_topk": 3})
-PATH_N_MISSES = [(4, [1.0, 0.0], [5.0, 4.0]), (8, [0.0, 1.0], [4.0, 8.0]),
-                 (12, [0.0, 0.0], [4.0, 4.0])]
+          {"fused_hier_local_sgd": 8, "fused_sync_hier1": 4,
+           "fused_ef_int8_grid": 4, "fused_fold_overlap_hier2": 2,
+           "fused_ef_topk": 2})
+PATH_N_MISSES = [(4, [1.0, 0.0], [5.0, 4.0]), (8, [0.0, 1.0], [4.0, 8.0])]
 # (o) topk:32 at both levels, blocking, 4 steps: the grid top-k round trip
 PATH_O = (cut(HIER_ARGS + ["--steps", "4", "--compress", "topk:32"]),
           {"fused_hier_local_sgd": 4, "fused_ef_topk_grid": 2,
@@ -996,11 +1052,12 @@ TOPK_FULL = 256 // 32           # path (d)'s k: topk:32 over 256 lanes
 # paths (p) and (q): the per-leaf reference executor through the CLI; it
 # launches no kernel.  (p) vrl_sgd, 6 steps, k = 2 with warmup (rounds of
 # 1, 2, 2 and a one-step tail); (q) hier_vrl_sgd (2, 2) with int8 at both
-# levels, 8 steps (every level's EF identity in the log)
+# levels, 4 steps (each level's EF identity in the log; cut from 8, the
+# script's time)
 PATH_P = cut(MAIN_ARGS[:MAIN_ARGS.index("--steps")] + [
     "--steps", "6", "--k", "2", "--lr", str(MAIN_LR), "--warmup",
     "--backend", "reference"])
-PATH_Q = cut(HIER_ARGS + ["--steps", "8", "--compress", "int8", "--backend",
+PATH_Q = cut(HIER_ARGS + ["--steps", "4", "--compress", "int8", "--backend",
                           "reference"])
 # paths (i)-(l): SM3 Adam on the flat vrl_sgd, and the hierarchy's (2, 2)
 # grid with momentum, Adam and SM3 Adam (bf16 mu), through make_train_step
@@ -4932,8 +4989,10 @@ ELASTIC_FULL = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "64",
 # 5.61e10), which the guard's loss trend rightly calls a divergence; at
 # 1e-7 the round means stay near 6e4
 AJ_LR = 1e-7
-AJ_FULL = ELASTIC_FULL[:ELASTIC_FULL.index("--lr")] + [
-    "--lr", str(AJ_LR), "--log-every", "1", "--workers", "4", "--steps", "12"]
+# at phase 4's cut depth, full width (the script's time)
+AJ_FULL = cut(ELASTIC_FULL[:ELASTIC_FULL.index("--lr")] + [
+    "--lr", str(AJ_LR), "--log-every", "1", "--workers", "4", "--steps",
+    "12"])
 AJ_ARGS = AJ_FULL + ["--membership", "--guard", "--faults",
                      "nan@2:3,crash@1:4,rejoin@1:8"]
 AJ_TWIN = AJ_FULL + ["--membership", "--faults", "crash@1:4,rejoin@1:8"]
@@ -5107,7 +5166,6 @@ def elastic_full_width(dev, vu, card, launch):
     full mask bitwise membership off.  ``--trace-memory`` records the
     faulted run's allocations and prints its peak's live blocks by
     site."""
-    from repro_torch.configs import registry
     from repro_torch.obs.metrics import read_metrics
     from repro_torch.train.train_loop import make_train_step
     m = os.path.join(ELASTIC_DIR, "aj.jsonl")
@@ -5162,7 +5220,8 @@ def elastic_full_width(dev, vu, card, launch):
     step_ms = 1e3 * b.wall_s / 12
     del b
     free()
-    print(f"[10 elastic (aj)] qwen2-0.5b W = 4, --membership --guard "
+    print(f"[10 elastic (aj)] qwen2-0.5b at {CUT_LAYERS} of 24 layers, "
+          f"W = 4, --membership --guard "
           f"--faults nan@2:3,crash@1:4,rejoin@1:8: round [2, 4) poisoned, "
           f"rolled back to its start and replayed (losses and final params, "
           f"Δ bitwise the un-poisoned twin's); events {got}; max|Σ_active Δ| "
@@ -5178,7 +5237,7 @@ def elastic_full_width(dev, vu, card, launch):
     # the dead rows are never read: NaN planted in a dropped worker's
     # params and Δ, one more round, the survivors finite
     args = launch.parse_args(AJ_ARGS)
-    cfg = registry.get_arch("qwen2-0.5b")
+    cfg = qwen_cut()
     vrl = launch.vrl_config(args, membership=True)
     bundle = make_train_step(cfg, vrl, remat=True, device=dev)
     state, eng = a.state, bundle.engine
@@ -5808,13 +5867,13 @@ def families_phase(dev, vu, card) -> None:
 # grids run over gloo through host memory, as (z2) and (z3) do.
 SHARD_LAYERS = 4                # (as): qwen2-0.5b at 4 of its 24 layers
 SHARD_WORLD = 4                 # (as)-(au): data 2 x shard (model) 2
-AS_STEPS = 4
+AS_STEPS = 2                    # one round (cut from 4, the script's time)
 AS_ARGS = ["--arch", "qwen2-0.5b", "--layers", str(SHARD_LAYERS),
            "--workers", "2", "--batch", "8", "--seq", "64", "--steps",
            str(AS_STEPS),
            "--k", "2", "--lr", str(MAIN_LR), "--inner-optimizer", "adam",
            "--log-every", "1"]
-AS_LAUNCHES = {"fused_local_adam": 4, "fused_sync_vrl": 2}
+AS_LAUNCHES = {"fused_local_adam": 2, "fused_sync_vrl": 1}
 AT_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--batch",
            "2", "--seq", "32", "--steps", "8", "--k", "2", "--lr", str(LR),
            "--inner-optimizer", "adam", "--sm3", "--moment-dtype",
@@ -6073,23 +6132,30 @@ def moe_rank_run(out: str) -> int:
     return 0
 
 
-def au_path(card) -> None:
-    """(au): ``moe_mlp_shardmap`` at phi3.5-moe's widths on gloo (data 2 ×
-    model 2), 256 tokens a data rank, against ``moe.moe_mlp`` in one
-    process on the same 512 tokens."""
-    cfg = au_config()
-    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
-    whole = 3 * e * d * ff * 4
+def au_start():
+    """(au)'s ranks under the launcher, started at the phase's start beside
+    (as) and (at) (the ranks' start-up overlaps theirs) -> (process, JSON
+    path, log path, directory, start time)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_au_")
     out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.time()
     with open(log, "w") as f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(SHARD_WORLD), os.path.abspath(__file__),
              "--moe-ranks", out], stdout=f, stderr=subprocess.STDOUT,
             cwd=ROOT, env=env, start_new_session=True)
+    return proc, out, log, tmp, time.time()
+
+
+def au_path(card, run) -> None:
+    """(au): ``moe_mlp_shardmap`` at phi3.5-moe's widths on gloo (data 2 ×
+    model 2), 256 tokens a data rank, against ``moe.moe_mlp`` in one
+    process on the same 512 tokens; ``run``: ``au_start``'s launch."""
+    cfg = au_config()
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    whole = 3 * e * d * ff * 4
+    proc, out, log, tmp, t0 = run
     try:
         rc = proc.wait(timeout=AU_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -6185,23 +6251,26 @@ def av_result(chaos, card) -> None:
 
 
 def shards_phase(dev, vu, card) -> None:
-    """Phase 12: (as)-(au) on the card in turn, (av) beside them."""
+    """Phase 12: (as), (at) on the card in turn, (au)'s ranks and (av)
+    beside them."""
     from repro_torch.launch import train as launch
     t12 = time.time() - START
     print(f"[12 shards] from {t12:.1f} s of the script; reckoned: (as) "
-          f"~45 s (four gloo ranks, 4 steps through the host, then two "
-          f"one-process runs), (at) ~50 s (two launches), (au) ~40 s, (av) "
-          f"~80 s beside them: ~135 s; {card}", flush=True)
+          f"~40 s (four gloo ranks, 2 steps through the host, then two "
+          f"one-process runs), (at) ~50 s (two launches), (au)'s ranks and "
+          f"(av) beside them: ~100 s; {card}", flush=True)
     free()
     chaos = start_chaos()
+    au = au_start()
     try:
         as_path(vu, card, launch)
         at_path(vu, card, launch)
-        au_path(card)
+        au_path(card, au)
         av_result(chaos, card)
     finally:
-        stop_ranks(chaos[0])
-        shutil.rmtree(chaos[2], ignore_errors=True)
+        for proc, tmp in ((chaos[0], chaos[2]), (au[0], au[3])):
+            stop_ranks(proc)
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"[12 shards] {time.time() - START - t12:.1f} s; the script "
           f"{time.time() - START:.1f} s", flush=True)
 
@@ -6815,7 +6884,9 @@ def bf16_phase(dev, vu, tu, card, chk, times32=None, fp32_peak=None):
 # one-process twin after its own run (another 9.4 GB): ~35 GB in all.
 # one round: the gradient mean takes 7-18 s a step through gloo's host
 # staging on an H100 host, and the phase keeps under 90 s
-BB_FSDP, BB_BATCH, BB_SEQ, BB_K, BB_ROUNDS = 2, 8, 64, 2, 1
+# one step and its sync (k = 1): each step's gradient mean moves 6.25 GB
+# through gloo, 7-18 s (the script's time)
+BB_FSDP, BB_BATCH, BB_SEQ, BB_K, BB_ROUNDS = 2, 8, 64, 1, 1
 BB_RTOL = 1e-2                  # losses against the one-process twin
 BB_SEED = 15
 # (bc): two workers x fsdp 2 (gloo world 4) at the smoke MoE's widths,
@@ -7229,6 +7300,493 @@ def fsdp_phase(dev, vu, card) -> dict:
     return r0["launches"]
 
 
+# ---------------------------------------------------------------- phase 16
+# Tensor-parallel serving on a (data, model) rank grid: gloo ranks on the
+# one card (NCCL refuses two ranks on one device), each case against its
+# one-process twin on the same padded model, the twin first and alone.
+# 8 generated tokens (cut from 32, the script's time): a decode step on
+# gloo ranks sharing the one card takes 0.1-1.2 s, each collective waiting
+# for the card's time slices between the ranks' contexts
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 32, 8
+TP_SEED = 16
+TP_RTOL = 1e-4                  # fp32 logits, × max|twin logits| (§2 mesh)
+TP_PHI_LAYERS = 2               # of 32: the four cases' ranks share 80 GB
+# case: (arch, layers (None: all; "smoke": the smoke model), (data,
+# model), dtype name)
+TP_CASES = {"be": ("qwen2-0.5b", None, (1, 4), "float32"),
+            "bf": ("granite-3-2b", None, (1, 2), "float32"),
+            "bg": (PHI, TP_PHI_LAYERS, (2, 2), "float32"),
+            "bh": (KIMI, "smoke", (2, 2), "bfloat16")}
+TP_TIMEOUT = 400
+# the launches, all at once (each spends ~30 s importing torch beside the
+# others, more than its collectives lose to the contexts' time slices);
+# (bg) and (bh) share one grid's ranks, in turn
+TP_LAUNCHES = (("be",), ("bf",), ("bg", "bh"))
+
+
+def tp_case(case: str):
+    """(padded config, serving ``MeshConfig``, dtype) of a phase-16 case:
+    the arch's serving roles on the case's grid, the model padded for its
+    tensor ranks."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import pad_for_mesh
+    arch, layers, grid, dt = TP_CASES[case]
+    roles = dataclasses.replace(registry.mesh_roles(arch, serving=True),
+                                shape=grid)
+    base = (registry.smoke_arch(arch) if layers == "smoke"
+            else registry.get_arch(arch))
+    if isinstance(layers, int):
+        base = dataclasses.replace(base, num_layers=layers)
+    return pad_for_mesh(base, grid[1]), roles, getattr(torch, dt)
+
+
+def tp_prompt(cfg, dev) -> torch.Tensor:
+    """The (TP_BATCH, TP_PROMPT) prompt, token ids from numpy."""
+    t = np.random.RandomState(TP_SEED + 1).randint(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT)).astype(np.int64)
+    return torch.from_numpy(t).to(dev)
+
+
+def tp_soften(params) -> None:
+    """wq and wk × 0.1 in place (whole leaves or a rank's blocks alike)."""
+    attn = params["layers"]["attn"]
+    attn["wq"].mul_(0.1)
+    attn["wk"].mul_(0.1)
+
+
+def tp_blocks(cfg, smesh, dtype, dev) -> dict:
+    """This rank's blocks of ``transformer.init_params(cfg, TP_SEED,
+    dtype, dev)``: the same leaves drawn in the same order from one
+    generator (``models.param.materialize``'s values), each whole leaf cut
+    by ``sharding.specs.rank_params`` and freed before the next is
+    drawn."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.param import _init_one
+    from repro_torch.sharding import specs as sh
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TP_SEED)
+    out = []
+    for (path, d), (_, spec) in zip(
+            tree_mod.leaves_with_path(transformer.model_defs(cfg)),
+            tree_mod.leaves_with_path(smesh.specs(cfg))):
+        whole = _init_one(d, gen, dtype, dev)
+        out.append((path, sh.rank_params({"w": whole}, {"w": spec},
+                                         smesh.mesh)["w"]))
+        del whole
+    return tree_mod.from_paths(out)
+
+
+def tp_engine(cfg, params, dev, smesh=None, flops=False):
+    """A ``serve.Engine`` that keeps each call's logits (on the card) and
+    the collectives of its prefill and first decode step; with ``flops``
+    also their FLOPs (``FlopCounterMode`` around those two calls: its
+    Python dispatch adds ms to calls that gloo makes seconds long)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.comm import collectives as coll
+    from repro_torch.serve.engine import Engine
+
+    class Recording(Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.counts, self.flops, self.logits = {}, {}, []
+
+        def _call(self, fn, key, *args):
+            if key in self.counts:
+                return fn(*args)
+            coll.reset_counts()
+            with (FlopCounterMode(display=False) if flops
+                  else contextlib.nullcontext()) as fm:
+                out = fn(*args)
+            self.counts[key] = json.loads(json.dumps(coll.COUNTS))
+            if flops:
+                self.flops[key] = fm.get_total_flops()
+            return out
+
+        def prefill(self, prompt):
+            out = self._call(super().prefill, "prefill", prompt)
+            self.logits = [out[0]]
+            return out
+
+        def step(self, cache, tokens, pos, batch=None):
+            out = self._call(super().step, "decode", cache, tokens, pos,
+                             batch)
+            self.logits.append(out[0])
+            return out
+    return Recording(cfg, params, max_len=TP_PROMPT + TP_GEN, device=dev,
+                     mesh=smesh)
+
+
+def tp_twin(case: str, path: str, dev) -> dict:
+    """The case's one-process twin on the whole padded model: greedy
+    tokens, each call's logits and times, saved to ``path``."""
+    from repro_torch.models import transformer
+    cfg, _, dtype = tp_case(case)
+    free()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = transformer.init_params(cfg, TP_SEED, dtype, dev)
+    tp_soften(params)
+    torch.cuda.synchronize(dev)
+    weights = torch.cuda.memory_allocated(dev)
+    eng = tp_engine(cfg, params, dev)
+    timings = {}
+    tokens = eng.generate(tp_prompt(cfg, dev), TP_GEN, timings=timings)
+    rec = {"tokens": tokens.cpu(),
+           "logits": [x.float().cpu() for x in eng.logits],
+           "prefill_ms": timings["prefill_ms"],
+           "decode_ms": timings["decode_ms"], "weights": weights,
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    torch.save(rec, path)
+    del params, eng
+    free()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def tp_design_count(case: str, fn: str) -> dict:
+    """The design count of one prefill or decode step of a case, {kind:
+    calls} (``tests/test_torch_tp_serve.py``'s ``design_count``): per
+    layer a "tensor" sum after ``wo`` where the heads split and one after
+    the MLP or the routed experts, in decode with the cache split by slots
+    the query's gather (heads split), the max and the sum; one sum for the
+    embedding and one gather of the logits; "moe" one count gather a
+    routed layer where the batch splits; "weights" one gather a weight a
+    use on the FSDP ranks (13 a MoE layer with a shared expert, and the
+    final norm, lm_head and embedding)."""
+    cfg, roles, _ = tp_case(case)
+    t, layers = roles.tensor_size, cfg.num_layers
+    heads = cfg.num_heads % t == 0
+    per = int(heads) + 1
+    if fn == "decode" and cfg.num_kv_heads % t:
+        per += 2 + int(heads)
+    counts = {"tensor": layers * per + 2}
+    if cfg.family == "moe" and roles.num_workers * roles.fsdp_size > 1:
+        counts["moe"] = layers
+    if roles.fsdp_size > 1:
+        counts["weights"] = layers * (2 + 4 + 4 + 3 * bool(
+            cfg.num_shared_experts)) + 3
+    return counts
+
+
+def tp_compare(case: str, tokens, logits, twin, rows) -> dict:
+    """A rank's greedy tokens and each call's logits against its twin's
+    rows: tokens equal, or the first parting step a near-tie of the twin's
+    top-2 logits; the logits of every step before it within the case's
+    tolerance."""
+    _, _, dtype = tp_case(case)
+    want_tok = twin["tokens"][rows]
+    part = (tokens != want_tok).any(dim=0).nonzero()
+    stop = (int(part[0]) - TP_PROMPT) if len(part) else len(logits)
+    worst, tie = 0.0, None
+    for i in range(stop):
+        got, want = logits[i].float().cpu(), twin["logits"][i][rows]
+        if dtype == torch.bfloat16:
+            row = want.abs().amax(dim=-1, keepdim=True)
+            worst = max(worst, float(((got - want).abs() / row).max()))
+        else:
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max()))
+    limit = 2.0 ** -5 if dtype == torch.bfloat16 else TP_RTOL
+    if worst > limit:
+        raise AssertionError(f"({case}): logits {worst:.3e} of the twin's "
+                             f"scale apart (limit {limit})")
+    if stop < len(logits):
+        parted = (tokens[:, TP_PROMPT + stop] != want_tok[:, TP_PROMPT + stop])
+        lg = twin["logits"][stop][rows][parted][:, -1]
+        top2 = lg.topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).min())
+        if gap > limit * float(lg.abs().max()):
+            raise AssertionError(f"({case}): greedy tokens part from the "
+                                 f"twin's at generated token {stop}, not a "
+                                 f"near-tie (top-2 gap {gap:.3e})")
+        tie = {"step": stop, "gap": gap}
+    return {"err": worst, "tie": tie}
+
+
+def tp_rank_run(cases: str, out: str) -> int:
+    """Phase 16's ranks under ``torch.distributed.run`` (gloo, every rank
+    on the one card): the cases of ``cases`` ("+"-joined, one grid) in
+    turn; a JSON per case and rank."""
+    import threading
+    import torch.distributed as dist
+    warm = None
+    if "be" in cases.split("+"):
+        # the flop counter's first use imports for seconds (longer while
+        # the other launches import torch): beside the waits below, not
+        # inside (be)'s timed prefill
+        warm = threading.Thread(target=tp_warm_flops)
+        warm.start()
+    # the twins run alone on the card first: wait for them
+    while not os.path.exists(os.path.join(out, "twins.done")):
+        time.sleep(0.1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    start = time.time() - START
+    dist.init_process_group("gloo")
+    if warm is not None:
+        warm.join()
+    for case in cases.split("+"):
+        rec = tp_rank_case(case, dev, out)
+        rec["stamps"] = {"imported": 0.0, "start": start, **rec["stamps"]}
+        with open(os.path.join(out, f"{case}.rank{rec['rank']}"), "w") as f:
+            json.dump(rec, f)
+        free()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_warm_flops() -> None:
+    """One product under the flop counter: its first use's set-up."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False):
+        torch.ones(2, 2) @ torch.ones(2, 2)
+
+
+def tp_rank_case(case: str, dev, out: str) -> dict:
+    """One phase-16 case on this rank: its blocks drawn in turn, the
+    greedy generation timed, each step's logits against the twin's."""
+    import torch.distributed as dist
+    from repro_torch import tree as tree_mod
+    from repro_torch.kernels import vrl_update as vu
+    from repro_torch.launch import mesh as mesh_mod
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg, roles, dtype = tp_case(case)
+    smesh = mesh_mod.make_serve_mesh(roles)
+    stamps = {"mesh": time.time() - START}
+    rec = {"rank": rank, "stamps": stamps, "epoch": START,
+           "coords": dict(zip(smesh.mesh.axes, smesh.mesh.coords))}
+    t0 = time.perf_counter()
+    # what the card holds already (an earlier case's cuBLAS workspace)
+    held = torch.cuda.memory_allocated(dev)
+    for r in range(world):
+        # in turn: one whole leaf on the card at a time
+        if r == rank:
+            blocks = tp_blocks(cfg, smesh, dtype, dev)
+            tp_soften(blocks)
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+    rec["load_s"] = time.perf_counter() - t0
+    stamps["loaded"] = time.time() - START
+    rec["weights"] = torch.cuda.memory_allocated(dev) - held
+    rec["spec_bytes"] = sum(t.numel() * t.element_size()
+                            for t in tree_mod.leaves(blocks))
+    rec["leaves"] = len(tree_mod.leaves(blocks))
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompt = tp_prompt(cfg, dev)
+    # (bi): (be)'s prefill and first decode step under the flop counter
+    eng = tp_engine(cfg, blocks, dev, smesh, flops=case == "be")
+    rows = eng.rows(TP_BATCH)
+    vu.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompt, TP_GEN, timings=timings)
+    rec["generate_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: v for k, v in vu.LAUNCHES.items() if v}
+    rec.update(prefill_ms=timings["prefill_ms"],
+               decode_ms=timings["decode_ms"], counts=eng.counts,
+               flops=eng.flops, peak=torch.cuda.max_memory_allocated(dev),
+               rows=[rows.start, rows.stop])
+    stamps["generated"] = time.time() - START
+    twin = torch.load(os.path.join(out, f"twin_{case}.pt"))
+    rec.update(tp_compare(case, tokens.cpu(), eng.logits, twin, rows))
+    stamps["compared"] = time.time() - START
+    return rec
+
+
+def tp_dry_rows(out: str) -> int:
+    """(bi)'s child process: kimi-k2's serving rows on both meshes through
+    ``lower_one``, one JSON line each."""
+    from repro_torch.launch import dryrun
+    with open(out, "w") as f:
+        for multi in (False, True):
+            for shape in ("prefill_32k", "decode_32k", "long_500k"):
+                row = dryrun.lower_one(KIMI, shape, multi_pod=multi,
+                                       verbose=False)
+                f.write(json.dumps(row.to_json()) + "\n")
+    return 0
+
+
+def tp_launch(cases: tuple, tmp: str):
+    """Start the ranks of ``cases`` (one grid) under the launcher ->
+    (process, log)."""
+    nproc = math.prod(TP_CASES[cases[0]][2])
+    log = os.path.join(tmp, f"{'+'.join(cases)}.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), os.path.abspath(__file__),
+             "--tp-ranks", "+".join(cases), tmp], stdout=f,
+            stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+            start_new_session=True)
+    return proc, log
+
+
+def tp_phase(dev, card) -> None:
+    """Phase 16: each case's twin alone on the card, then the four cases'
+    ranks side by side, (bi)'s kimi-k2 rows in a child process beside
+    them, then (bi)'s dry (1 × 4) grid against (be)'s rank 0."""
+    t16 = time.time() - START
+    print(f"[16 tp] from {t16:.1f} s of the script; {card}", flush=True)
+    free()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = []
+    try:
+        rows_out = os.path.join(tmp, "rows.jsonl")
+        dry = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-dry",
+             rows_out], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            cwd=ROOT, env=dict(os.environ,
+                               PYTHONPATH=os.path.join(ROOT, "src")),
+            start_new_session=True, preexec_fn=lambda: os.nice(10))
+        procs.append(dry)
+        # the ranks start (import torch) while the twins run alone on the
+        # card; they touch it once "twins.done" is written
+        t_launch = time.time()
+        runs = {cases: tp_launch(cases, tmp) for cases in TP_LAUNCHES}
+        procs += [p for p, _ in runs.values()]
+        twins = {}
+        for case in TP_CASES:
+            twins[case] = tp_twin(case, os.path.join(tmp, f"twin_{case}.pt"),
+                                  dev)
+        open(os.path.join(tmp, "twins.done"), "w").close()
+        t_twins = time.time() - START - t16
+        print(f"[16 tp] the twins {t_twins:.1f} s", flush=True)
+        ranks = {}
+        for cases, (proc, log) in runs.items():
+            try:
+                rc = proc.wait(timeout=TP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                raise AssertionError(f"({'+'.join(cases)}): the ranks "
+                                     f"exited {rc}: "
+                                     f"{open(log).read()[-4000:]}")
+            for case in cases:
+                n = math.prod(TP_CASES[case][2])
+                ranks[case] = [json.load(open(os.path.join(
+                    tmp, f"{case}.rank{r}"))) for r in range(n)]
+                r0 = ranks[case][0]
+                # rank 0's stamps: s from its launch to each point
+                st = {k: round(v + r0["epoch"] - t_launch, 1)
+                      for k, v in r0["stamps"].items()}
+                print(f"[16 tp ({case})] the ranks done at "
+                      f"{time.time() - START - t16:.1f} s of the phase; rank "
+                      f"0's s from the launch: {json.dumps(st)}; generate "
+                      f"{r0['generate_s']:.1f} s", flush=True)
+        t_ranks = time.time() - START - t16 - t_twins
+        for case, recs in ranks.items():
+            tp_report(case, recs, twins[case], card)
+        tp_dry_check(ranks["be"][0])
+        try:
+            _, err = dry.communicate(timeout=TP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("(bi): kimi-k2's rows timed out")
+        if dry.returncode != 0:
+            raise AssertionError(f"(bi): kimi-k2's rows exited "
+                                 f"{dry.returncode}: {err.decode()[-2000:]}")
+        rows = [json.loads(x) for x in open(rows_out)]
+        bad = [(r["shape"], r["mesh"]) for r in rows
+               if not r["ok"] or r["chips"] != (256 if r["mesh"] == "single"
+                                                else 512)]
+        if bad or len(rows) != 6:
+            raise AssertionError(f"(bi): kimi-k2's rows not ok: {bad}")
+        print(f"[16 tp (bi)] {KIMI} serving on its 2D layout: "
+              + "; ".join(f"{r['shape']}/{r['mesh']} ok on {r['chips']} "
+                          f"chips, {r['per_device_bytes'] / 2**30:.2f} GiB "
+                          f"a device, {r['bottleneck']}-bound "
+                          f"(collective {r['t_collective'] * 1e3:.1f} ms)"
+                          for r in rows), flush=True)
+    finally:
+        for p in procs:
+            stop_ranks(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[16 tp] {time.time() - START - t16:.1f} s (the twins "
+          f"{t_twins:.1f}, the ranks {t_ranks:.1f}); the script "
+          f"{time.time() - START:.1f} s", flush=True)
+
+
+def tp_dry_check(r0: dict) -> None:
+    """(bi): (be)'s prefill and first decode step on the dry (1 × 4)
+    serving grid against its rank 0 on the card."""
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun
+    cfg, roles, dtype = tp_case("be")
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for fn, seq in (("prefill", TP_PROMPT), ("decode", TP_PROMPT + TP_GEN)):
+        res = dryrun.lower_one(
+            TP_CASES["be"][0], "decode_32k", multi_pod=False, fn_kind=fn,
+            mesh_override={"shape": roles.shape}, cfg_override=over,
+            last_only=True, param_dtype=dtype,
+            shape_override=base.InputShape("be", seq, TP_BATCH, fn),
+            allow_tf32=False, verbose=False)
+        meta = res.counted
+        if (meta.flops != r0["flops"][fn] or meta.launches()
+                or r0["launches"] or meta.counts != r0["counts"][fn]):
+            raise AssertionError(
+                f"(bi) {fn}: the dry grid's {meta.flops} FLOPs, "
+                f"{meta.launches()}, {meta.counts} against rank 0's "
+                f"{r0['flops'][fn]}, {r0['launches']}, "
+                f"{r0['counts'][fn]}")
+        print(f"[16 tp (bi)] (be)'s {fn} on a dry {roles.shape} serving "
+              f"grid: {meta.flops} FLOPs, no launch, collectives "
+              f"{json.dumps(meta.counts)}: equal to rank 0's on the card; "
+              f"chips {res.roofline.chips}", flush=True)
+
+
+def tp_report(case: str, recs: list, twin: dict, card: str) -> None:
+    """Check and print one case's ranks."""
+    cfg, roles, dtype = tp_case(case)
+    want = {fn: tp_design_count(case, fn) for fn in ("prefill", "decode")}
+    for r in recs:
+        got = {fn: {k: sum(v["calls"] for v in d.values())
+                    for k, d in r["counts"][fn].items()}
+               for fn in ("prefill", "decode")}
+        # the allocator's rounding: a block of 512-byte units, a large
+        # one keeping its segment's unsplit remainder (< 1 MiB)
+        slack = r["leaves"] << 20
+        if (got != want or r["launches"]
+                or not 0 <= r["weights"] - r["spec_bytes"] <= slack):
+            raise AssertionError(
+                f"({case}) rank {r['rank']}: collectives {got} (design "
+                f"{want}), launches {r['launches']}, weight bytes "
+                f"{r['weights']} against the spec count {r['spec_bytes']}")
+    arch, layers, grid, dt = TP_CASES[case]
+    depth = (f"{cfg.num_layers} layers" if layers is None else
+             "the smoke model" if layers == "smoke" else
+             f"{layers} of 32 layers")
+    tw = np.array(twin["decode_ms"])
+    ties = [r["tie"] for r in recs if r["tie"]]
+    print(f"[16 tp ({case})] {arch}, {depth}, {dt}, over data {grid[0]} x "
+          f"model {grid[1]} (heads {cfg.num_heads}, kv {cfg.num_kv_heads}, "
+          f"vocab {cfg.vocab_size}), batch {TP_BATCH} x {TP_PROMPT} + "
+          f"{TP_GEN}: every rank's greedy tokens "
+          f"{'equal to the twin' + chr(39) + 's' if not ties else 'part at a near-tie ' + json.dumps(ties)}; "
+          f"logits within {max(r['err'] for r in recs):.3e} of the twin's "
+          f"scale; no kernel launched; collectives a prefill "
+          f"{json.dumps(want['prefill'])}, a decode step "
+          f"{json.dumps(want['decode'])} (the design count); the twin "
+          f"prefill {twin['prefill_ms']:.1f} ms, decode median "
+          f"{np.median(tw):.2f} ms a token ({tw.min():.2f}-{tw.max():.2f}), "
+          f"weights {twin['weights']} B, peak "
+          f"{twin['peak'] / 2**30:.2f} GiB, {twin['seconds']:.1f} s in all; "
+          f"{card}", flush=True)
+    for r in recs:
+        d = np.array(r["decode_ms"])
+        print(f"[16 tp ({case})] rank {r['rank']} {json.dumps(r['coords'])} "
+              f"rows {r['rows']}: prefill {r['prefill_ms']:.1f} ms, decode "
+              f"median {np.median(d):.2f} ms a token "
+              f"({d.min():.2f}-{d.max():.2f}); weights {r['weights']} B "
+              f"(spec count {r['spec_bytes']}); peak "
+              f"{r['peak'] / 2**30:.2f} GiB; load {r['load_s']:.1f} s; "
+              f"collectives of a decode step "
+              f"{json.dumps(r['counts']['decode'])}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -7250,6 +7808,10 @@ def main() -> int:
         return fsdp_rank_run(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--fsdp-dry"]:
         return fsdp_dry_rows(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-ranks"]:
+        return tp_rank_run(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--tp-dry"]:
+        return tp_dry_rows(sys.argv[2])
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -7294,6 +7856,9 @@ def main() -> int:
         return 0
     if "--fsdp" in sys.argv[1:]:
         fsdp_phase(dev, vu, card)
+        return 0
+    if "--tp" in sys.argv[1:]:
+        tp_phase(dev, card)
         return 0
     if "--backbone" in sys.argv[1:]:
         backbone_phase(dev, vu, fa, ss, card)
@@ -7483,8 +8048,8 @@ def main_path_runs(dev, chk, tu, vu, launch) -> dict:
     run("r", tree_api_path, dev, vu)
     # (u) mamba2-370m trains through the CLI: the flat engine's kernels;
     # the model's own ssd_chunked scan, as in the reference
-    run("u", cli_path, f"(u) {MAMBA} vrl_sgd+sgd", MAMBA_ARGS, MAIN_LAUNCHES,
-        launch, vu, rounding=True)
+    run("u", cli_path, f"(u) {MAMBA} vrl_sgd+sgd", MAMBA_ARGS,
+        MAMBA_LAUNCHES, launch, vu, rounding=True)
     print(f"[4 main paths] seconds per path (set-up and checks included; "
           f"all but vrl_sgd+sgd (v) and (u) at {CUT_LAYERS} of qwen2-0.5b's "
           f"24 layers): {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
@@ -7564,6 +8129,9 @@ def main_paths(dev, card, chk, times, plain, library, bounds, extra,
 
     # ------------------------------------------------------ 15 fsdp
     fsdp_launches = fsdp_phase(dev, vu, card)
+
+    # ------------------------------------------------------ 16 tp
+    tp_phase(dev, card)
 
     kernels = []
     for name in KERNELS:

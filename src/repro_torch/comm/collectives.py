@@ -39,7 +39,17 @@ issues per kind and group in ``COUNTS``.  The kinds:
   * "moe" — the shard-mapped MoE layer's weight gathers, output sum and
     aux mean; on an fsdp axis the routed layer's expert counts (an
     all-gather) and its aux loss's sums (an all-reduce) over the fsdp
-    ranks, each run again in a remat layer's recompute.
+    ranks, each run again in a remat layer's recompute; in serving the
+    routed layer's expert counts over the ranks the served batch splits
+    over;
+  * "tensor" — tensor-parallel serving over the "model" ranks: the sums
+    after a row-parallel product (attention's ``wo``, the MLP's
+    ``w_down``, the routed experts, the vocab-split embedding), the
+    logits' all-gather over the vocab, and the distributed flash-decode's
+    query all-gather, max and sum;
+  * "weights" — serving a model whose weights split over the FSDP axes
+    too (kimi-k2's 2D layout): each weight's d dimension all-gathered
+    over them just before its product.
 
 ``worker_sum`` and ``worker_mean`` are the reductions over the workers of
 a buffer, one rule for the engine and the log: a local reduction over the
@@ -202,10 +212,14 @@ class WorkerMesh:
                                async_op=async_op)
 
     def all_gather(self, tensor: torch.Tensor, *, kind: str,
-                   axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+                   axes: Optional[Sequence[str]] = None,
+                   dim: Optional[int] = None) -> torch.Tensor:
         """Every rank's ``tensor`` (same shape on all) stacked in rank order
         over the ranks of ``axes`` (default the whole grid), on each of
-        them: one counted all-gather (through the host under gloo)."""
+        them: one counted all-gather (through the host under gloo).  With
+        ``dim`` the blocks are joined along that dim instead, on the wire's
+        device, so that the operand's device receives only the joined
+        tensor."""
         self.count(tensor, axes, kind)
         group = self.group(axes)
         x = tensor.to(wire_device(self)).contiguous()
@@ -215,6 +229,8 @@ class WorkerMesh:
             dist.all_gather_into_tensor(out, x, group=group)
         else:
             dist.all_gather(list(out.unbind(0)), x, group=group)
+        if dim is not None:
+            out = _join(out, dim)
         return out.to(tensor.device)
 
     def gather(self, tensor: torch.Tensor, gather_list, *,
@@ -226,6 +242,15 @@ class WorkerMesh:
         counted under ``kind``."""
         self.count(tensor, axes, kind)
         dist.gather(tensor, gather_list, dst=0, group=self.group(axes))
+
+
+def _join(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """(n, *shape) stacked blocks -> one tensor, the blocks joined in order
+    along ``dim`` of ``shape``."""
+    dim = dim % (parts.dim() - 1)
+    if dim == 0:
+        return parts.reshape(-1, *parts.shape[2:])
+    return torch.cat(list(parts.unbind(0)), dim)
 
 
 class _Done:
@@ -269,12 +294,14 @@ class DryMesh(WorkerMesh):
         return _Done() if async_op else None
 
     def all_gather(self, tensor: torch.Tensor, *, kind: str,
-                   axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+                   axes: Optional[Sequence[str]] = None,
+                   dim: Optional[int] = None) -> torch.Tensor:
         self.count(tensor, axes, kind)
         n = self.size(self.axes if axes is None else axes)
         self._wire("all-gather", tensor, axes, kind, n)
-        return torch.empty((n, *tensor.shape), dtype=tensor.dtype,
-                           device=tensor.device)
+        out = torch.empty((n, *tensor.shape), dtype=tensor.dtype,
+                          device=tensor.device)
+        return out if dim is None else _join(out, dim)
 
     def gather(self, tensor: torch.Tensor, gather_list, *,
                kind: str = "checkpoint",
@@ -440,8 +467,10 @@ class MeshGroup(NamedTuple):
     """The ranks of ``mesh`` along ``axes`` that share this rank's index on
     every other axis, as a model layer takes them to run one worker's
     batch split over them (``models.moe``: the routed layer's dispatch and
-    aux loss over a worker's fsdp ranks).  ``size`` ranks; this rank is
-    ``index`` among them, in rank order."""
+    aux loss over a worker's fsdp ranks) or, in serving, a weight split
+    over them (the "model" ranks of tensor parallelism, the FSDP ranks of
+    a 2D layout; ``all_sum``, ``all_max``, ``gather_dim``).  ``size``
+    ranks; this rank is ``index`` among them, in rank order."""
 
     mesh: Any
     axes: Tuple[str, ...]
@@ -470,6 +499,40 @@ class MeshGroup(NamedTuple):
         mean of the ranks' gradients then counts that term's gradient once,
         not 1/``size`` of it."""
         return _GroupSum.apply(tensor, self, kind)
+
+
+    # ------------------------------------------------------------ serving
+    # Tensor-parallel serving's collectives (``models``' ``tp=`` and
+    # ``fsdp=`` groups): no autograd (they run under ``torch.no_grad``),
+    # each a new tensor on the operand's device, identical on every rank
+    # of the group.
+
+    def all_sum(self, tensor: torch.Tensor,
+                kind: str = "tensor") -> torch.Tensor:
+        """Σ of ``tensor`` over the group: one counted all-reduce."""
+        return self._reduce(tensor, kind, None)
+
+    def all_max(self, tensor: torch.Tensor,
+                kind: str = "tensor") -> torch.Tensor:
+        """The elementwise max of ``tensor`` over the group: one counted
+        all-reduce."""
+        return self._reduce(tensor, kind, dist.ReduceOp.MAX)
+
+    def gather_dim(self, tensor: torch.Tensor, dim: int,
+                   kind: str = "tensor") -> torch.Tensor:
+        """Every group rank's block of ``tensor`` joined along ``dim`` in
+        rank order: one counted all-gather."""
+        with torch.no_grad():
+            return self.mesh.all_gather(tensor, kind=kind, axes=self.axes,
+                                        dim=dim)
+
+    def _reduce(self, tensor: torch.Tensor, kind: str, op) -> torch.Tensor:
+        with torch.no_grad():
+            w = tensor.to(wire_device(self.mesh)).contiguous()
+            if w.data_ptr() == tensor.data_ptr() and w.numel():
+                w = w.clone()
+            self.mesh.all_reduce(w, self.axes, kind=kind, op=op)
+            return w.to(tensor.device)
 
 
 class _GroupSum(torch.autograd.Function):

@@ -275,8 +275,10 @@ class MeshConfig:
     the tensor-parallel ones.  The port runs the worker axes as worker
     ranks, the FSDP axes as an fsdp axis over which one worker's batch
     splits (each rank holding the worker's whole state) and the tensor
-    axis as the engine's row shards (``launch.mesh.production_grid``); it
-    has no tensor parallelism."""
+    axis as the engine's row shards (``launch.mesh.production_grid``) in
+    training; in serving the grid itself, the weights split over the
+    tensor axis (and kimi-k2's over the FSDP axes too), the batch over the
+    others (``launch.mesh.make_serve_mesh``)."""
 
     shape: Tuple[int, ...] = (16, 16)
     axis_names: Tuple[str, ...] = ("data", "model")

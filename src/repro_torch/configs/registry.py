@@ -9,9 +9,10 @@ family build the same block), the ssm family (mamba2-370m), the hybrid
 whose worker replica does not fit 16-way tensor sharding get FSDP within
 the worker (worker = whole pod).  The port trains those layouts with one
 worker over the FSDP axes' ranks, each running its slice of the worker's
-batch (``launch.mesh.production_grid``, ``train.train_loop``); it has no
-tensor parallelism, so the dry run (``launch.dryrun``) refuses serving
-kimi-k2, whose weights the reference splits 2D.
+batch (``launch.mesh.production_grid``, ``train.train_loop``), and
+serves every layout on its grid: the weights over the tensor axis,
+kimi-k2's over the FSDP axes too (2D), the batch over the others
+(``launch.mesh.make_serve_mesh``, ``serve.engine``).
 """
 from __future__ import annotations
 

@@ -21,9 +21,9 @@ the reference compiles for a placeholder mesh.  It records, per device:
     0's view of the grid), each priced at its link tier by
     ``launch.roofline``.
 
-The per-device view is the grid the port would launch
-(``launch.mesh.production_grid``, from the ``MeshConfig``'s roles):
-the mesh's worker axes are worker ranks, one worker a rank; its FSDP axes
+The per-device view is the grid the port would launch.  Training
+(``launch.mesh.production_grid``, from the ``MeshConfig``'s roles): the
+mesh's worker axes are worker ranks, one worker a rank; its FSDP axes
 (kimi-k2, chameleon-34b and phi3.5-moe in training) an fsdp axis over
 which one worker spans its ranks, each running its slice of the worker's
 batch with the whole worker state (the reference splits the batch so,
@@ -31,13 +31,17 @@ batch with the whole worker state (the reference splits the batch so,
 ``engine_mem`` sizes it); its "model" axis becomes the engine's row
 shards when ``shards`` > 1 (the reference maps it so, with
 ``EngineConfig(shard_axis="model")``).  Each rank runs its worker's whole
-model.  A training step is given each of rank 0's workers' whole batch
-and takes its fsdp slice itself (``train.train_loop``); serving gives
-rank 0 its block of the batch and the cache (``batch_sharding_spec``,
-``cache_specs``; ``rank_block``), its tensor axes held whole.  The port
-has no tensor parallelism: serving kimi-k2, whose specs split the
-weights 2D over the FSDP and tensor axes, is refused with the reason, as
-the reference records a failed compile.
+model, given each of rank 0's workers' whole batch; the step takes its
+fsdp slice itself (``train.train_loop``).  Serving runs on the serving
+grid itself (``launch.mesh.dry_serve_mesh``, the reference's serving
+layout): rank 0 holds its block of every weight, of the batch and of the
+cache with the tensor axes split (``rank_block`` by ``partition_specs``,
+``batch_sharding_spec``, ``cache_specs``; kimi-k2's weights over the
+FSDP axes too), the step's collectives are counted on the dry mesh and
+priced, and ``chips`` is the whole grid.  The ssm and hybrid families'
+serving rows keep their weights whole on a rank (their ``ssm_inner``
+split is not ported): their blocks hold the tensor axes whole and their
+``chips`` count the data-like axes.
 
 ``engine_mem`` builds the engine state with ``make_engine`` and ``init``
 on meta tensors and sizes every buffer under the reference's placement
@@ -88,26 +92,20 @@ from repro_torch.core import schedule as schedule_mod
 from repro_torch.kernels import costs
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (CHIPS_PER_POD, HBM_PER_CHIP,
-                                     production_grid)
+                                     dry_serve_mesh, production_grid)
 from repro_torch.models import transformer
 from repro_torch.models.param import abstract
 from repro_torch.serve.engine import make_prefill, make_serve_step
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.specs import (batch_sharding_spec,  # noqa: F401
+                                        cache_specs)
 from repro_torch.train.train_loop import make_train_step
 
 META = torch.device("meta")
 
 
-def _axis_size(mesh_cfg: MeshConfig, axes) -> int:
-    sizes = dict(zip(mesh_cfg.axis_names, mesh_cfg.shape))
-    return math.prod(sizes[a] for a in axes) if axes else 1
-
-
-def _entry_axes(entry) -> tuple:
-    """The mesh axes of one spec entry (a name, a tuple of names, None)."""
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
+_axis_size = sh.axis_size
+_entry_axes = sh.entry_axes
 
 
 # -------------------------------------------------------------- input specs
@@ -117,7 +115,7 @@ def input_specs(arch_id: str, shape_id: str, mesh_cfg: MeshConfig,
     """Meta-tensor stand-ins for every model input of this combination, at
     the global shapes (train: worker-stacked (W, b, S)); ``shape``
     replaces the registry's input shape of ``shape_id``; the codec
-    frontend's training frames come in ``param_dtype``."""
+    frontend's frames and the decode cache come in ``param_dtype``."""
     cfg = cfg or registry.padded_arch(arch_id, mesh_cfg)
     shape = shape or registry.get_shape(shape_id)
     if shape.kind == "train":
@@ -125,19 +123,21 @@ def input_specs(arch_id: str, shape_id: str, mesh_cfg: MeshConfig,
         return _train_inputs(cfg, w, shape.global_batch // w, shape.seq_len,
                              param_dtype)
     if shape.kind == "prefill":
-        return {"tokens": _tokens(cfg, (shape.global_batch, shape.seq_len))}
+        return {"tokens": _tokens(cfg, (shape.global_batch, shape.seq_len),
+                                  param_dtype)}
     window = _decode_window(cfg, shape)
-    return {"tokens": _tokens(cfg, (shape.global_batch, 1)),
+    return {"tokens": _tokens(cfg, (shape.global_batch, 1), param_dtype),
             "cache": transformer.init_cache(
                 cfg, shape.global_batch, shape.seq_len,
-                dtype=torch.bfloat16, window=window, device=META),
+                dtype=param_dtype, window=window, device=META),
             "pos": shape.seq_len - 1}
 
 
-def _tokens(cfg, lead) -> torch.Tensor:
-    """Token ids (int64), or the codec frontend's bf16 frame embeddings."""
+def _tokens(cfg, lead, dtype=torch.bfloat16) -> torch.Tensor:
+    """Token ids (int64), or the codec frontend's frame embeddings in
+    ``dtype``."""
     if cfg.frontend == "codec":
-        return torch.empty((*lead, cfg.frontend_dim), dtype=torch.bfloat16,
+        return torch.empty((*lead, cfg.frontend_dim), dtype=dtype,
                            device=META)
     return torch.empty(lead, dtype=torch.int64, device=META)
 
@@ -169,44 +169,7 @@ def _decode_window(cfg, shape: InputShape) -> Optional[int]:
 # ------------------------------------------------------------------ specs
 # The production layout's specs (the reference's ``PartitionSpec`` entries
 # as tuples) decide what ``lower_one`` runs on rank 0: its block of every
-# input (``rank_block``) and whether a served model's weights split 2D over
-# the FSDP and tensor axes, which the port cannot run (``_refuse_fsdp``).
-def batch_sharding_spec(mesh_cfg: MeshConfig, batch: int, extra: int, *,
-                        worker_stacked: bool) -> tuple:
-    """``sharding.batch_spec`` with its batch entry replicated (None) where
-    its ranks do not divide ``batch``."""
-    spec = list(sh.batch_spec(mesh_cfg, worker_stacked=worker_stacked,
-                              extra_dims=extra))
-    i = 1 if worker_stacked else 0
-    if batch % _axis_size(mesh_cfg, _entry_axes(spec[i])):
-        spec[i] = None
-    return tuple(spec)
-
-
-def cache_specs(cfg, mesh_cfg: MeshConfig, batch: int, seq_len: int = 0):
-    """The reference's spec tree of ``init_cache``'s (layer-stacked)
-    structure: kv heads over the tensor axis when they divide it, else the
-    cache's sequence dim."""
-    t = mesh_cfg.tensor_size
-    bax = batch_sharding_spec(mesh_cfg, batch, 0, worker_stacked=False)[0]
-    tax = sh._norm(tuple(mesh_cfg.tensor_axes))
-    kvh = seq_ax = None
-    if cfg.num_kv_heads and cfg.num_kv_heads % t == 0:
-        kvh = tax
-    elif seq_len and seq_len % t == 0:
-        seq_ax = tax
-    ssmh = tax if cfg.ssm_state and cfg.ssm_num_heads % t == 0 else None
-    attn = {"k": (None, bax, seq_ax, kvh, None),
-            "v": (None, bax, seq_ax, kvh, None)}
-    ssm_c = {"state": (None, bax, ssmh, None, None),
-             "conv": (None, bax, None, None)}
-    if cfg.family == "ssm":
-        return ssm_c
-    if cfg.family == "hybrid":
-        return {"attn": attn, "ssm": ssm_c}
-    return attn
-
-
+# input and, in serving, of every weight (``rank_block``).
 def state_specs(cfg, mesh_cfg: MeshConfig, vrl_cfg: VRLConfig) -> dict:
     """The spec tree of the per-leaf executor's ``WorkerState`` (its
     fields by name; None where the algorithm holds nothing)."""
@@ -233,40 +196,16 @@ def state_specs(cfg, mesh_cfg: MeshConfig, vrl_cfg: VRLConfig) -> dict:
             "comm": comm}
 
 
-def rank_block(t: torch.Tensor, spec: tuple,
-               mesh_cfg: MeshConfig) -> torch.Tensor:
+def rank_block(t: torch.Tensor, spec: tuple, mesh_cfg: MeshConfig,
+               tensor: bool = False) -> torch.Tensor:
     """Rank 0's block of a meta tensor laid out by ``spec``: each dim split
-    over its entry's ranks, the tensor axes excepted (the port has no
-    tensor parallelism: a rank holds those dims whole)."""
-    tensor = set(mesh_cfg.tensor_axes)
-    shape = []
-    for i, n in enumerate(t.shape):
-        axes = _entry_axes(spec[i]) if i < len(spec) else ()
-        shape.append(n // _axis_size(mesh_cfg,
-                                     [a for a in axes if a not in tensor]))
-    return torch.empty(shape, dtype=t.dtype, device=META)
-
-
-def _refuse_fsdp(arch_id: str, specs, mesh_cfg: MeshConfig,
-                 serving: bool) -> None:
-    """Refuse serving a model whose specs split its weights over FSDP
-    axes (beside the tensor axis: 2D-sharded weights): the port holds a
-    served model's whole weights on one rank.  Training on FSDP axes runs
-    (a worker over fsdp ranks), so a training layout passes."""
-    if not serving:
-        return
-    fsdp = set(mesh_cfg.fsdp_axes)
-    split = [(path, spec) for path, spec in tree_mod.leaves_with_path(specs)
-             if isinstance(spec, tuple)
-             and any(fsdp & set(_entry_axes(e)) for e in spec)]
-    if split:
-        path, spec = split[0]
-        raise NotImplementedError(
-            f"{arch_id} serving on this mesh needs 2D-sharded weights in "
-            f"serving: its layout splits {len(split)} leaves over the FSDP "
-            f"axes {mesh_cfg.fsdp_axes} beside the tensor axes "
-            f"{mesh_cfg.tensor_axes} (e.g. {path}: {spec}); the port holds "
-            f"a served model's whole weights on one rank")
+    over its entry's ranks, the tensor axes held whole unless ``tensor``
+    (serving on the grid splits them; training and the ssm and hybrid
+    families' serving do not)."""
+    sizes = dict(zip(mesh_cfg.axis_names, mesh_cfg.shape))
+    skip = () if tensor else tuple(mesh_cfg.tensor_axes)
+    return torch.empty(sh.block_shape(t.shape, spec, sizes, skip),
+                       dtype=t.dtype, device=META)
 
 
 # ------------------------------------------------------------- the counter
@@ -630,8 +569,11 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
     running its slice of the worker's batch), times ``shards`` row-shard
     ranks, each given rank 0's workers' whole batches (``rank_block``
     over the worker axes; the step takes its fsdp slice by
-    ``batch_sharding_spec``'s rule); serving gives rank 0 its block of the
-    batch and the cache (``cache_specs``) over the data-like axes.
+    ``batch_sharding_spec``'s rule); serving runs on the dry serving grid
+    as its rank 0 (``launch.mesh.dry_serve_mesh``), with its blocks of the
+    weights, the batch and the cache (``partition_specs``,
+    ``batch_sharding_spec``, ``cache_specs``; the ssm and hybrid families
+    with whole weights, the module's docstring).
     ``one_process`` runs the
     whole batch in one process instead, with no mesh (as a one-card run
     does).  ``mesh_override`` replaces fields of the arch's
@@ -640,7 +582,8 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
     steps hold their parameters in ``param_dtype`` (bf16 by default, the
     reference's dry run's; the engine's kernels take it) with a bf16 Δ for
     the FSDP archs (``registry._FSDP_ARCHS``), as the reference's;
-    serving holds bf16 parameters and caches, as the reference's dry run.
+    serving holds ``param_dtype`` parameters and caches (bf16, as the
+    reference's dry run, by default).
     ``backend`` is the update backend ("fused": the kernels' wrappers,
     which charge their calls on meta tensors).  ``allow_tf32`` prices the
     fp32 products at the TF32 rate (default: PyTorch's current setting)."""
@@ -753,23 +696,38 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             mf *= rk
         chips = math.prod(mesh.shape) if mesh is not None else 1
     elif fn_kind in ("prefill", "decode"):
-        if not one_process:
-            _refuse_fsdp(arch_id, sh.partition_specs(
-                transformer.model_defs(cfg), cfg, mesh_cfg), mesh_cfg,
-                serving=True)
-        params = abstract(transformer.model_defs(cfg), torch.bfloat16)
+        # the ssm and hybrid families serve with whole weights (their
+        # ssm_inner split is not ported): their rows keep the tensor axes
+        # whole and count the data-like axes' ranks
+        grid = not one_process and cfg.family not in ("ssm", "hybrid")
+        params = abstract(transformer.model_defs(cfg), param_dtype)
         ins = input_specs(arch_id, shape_id, mesh_cfg, cfg,
-                          shape=dataclasses.replace(shape, kind=fn_kind))
+                          shape=dataclasses.replace(shape, kind=fn_kind),
+                          param_dtype=param_dtype)
         spec = batch_sharding_spec(mesh_cfg, shape.global_batch,
                                    ins["tokens"].dim() - 1,
                                    worker_stacked=False)
-        # one rank a slice of the batch over the data-like axes, the whole
-        # batch where they do not divide it (the reference's rule)
-        chips = 1 if one_process else _axis_size(mesh_cfg,
-                                                  _entry_axes(spec[0]))
+        groups = None
+        if grid:
+            smesh = dry_serve_mesh(mesh_cfg)
+            mesh, groups = smesh.mesh, smesh.groups(shape.global_batch)
+            params = tree_mod.tree_map(
+                lambda t, s: rank_block(t, s, mesh_cfg, tensor=True),
+                params, smesh.specs(cfg))
+            chips = math.prod(mesh_cfg.shape)
+        else:
+            # one rank a slice of the batch over the data-like axes, the
+            # whole batch where they do not divide it (the reference's rule)
+            chips = 1 if one_process else _axis_size(mesh_cfg,
+                                                      _entry_axes(spec[0]))
+
+        def block(t, spec):
+            return t if one_process else rank_block(t, spec, mesh_cfg,
+                                                    tensor=grid)
         tokens = block(ins["tokens"], spec)
         if fn_kind == "prefill":
-            fn = make_prefill(cfg, shape.seq_len, last_only=last_only)
+            fn = make_prefill(cfg, shape.seq_len, last_only=last_only,
+                              groups=groups)
             args = (params, tokens)
             mf = _model_flops_prefill(cfg, shape)
         else:
@@ -778,11 +736,21 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             cspec = cache_specs(cfg, mesh_cfg, shape.global_batch,
                                 min(eff, shape.seq_len))
             cache = tree_mod.tree_map(block, ins["cache"], cspec)
-            fn = make_serve_step(cfg, window=window)
+            if grid:
+                # the block the step reads; a cache whose slots do not
+                # split over the tensor ranks is refused there
+                want = transformer.init_cache(
+                    cfg, tokens.shape[0], shape.seq_len, dtype=param_dtype,
+                    window=window, device=META, tp=groups["tp"])
+                if tree_mod.tree_map(lambda t: t.shape, cache) != \
+                        tree_mod.tree_map(lambda t: t.shape, want):
+                    raise ValueError("the cache's spec block is not the "
+                                     "block the serving step reads")
+            fn = make_serve_step(cfg, window=window, groups=groups)
             args = (params, cache, tokens, ins["pos"])
             mf = _model_flops_decode(cfg, shape)
         with torch.no_grad():
-            _, counted = count(fn, *args)
+            _, counted = count(fn, *args, mesh=mesh)
     else:
         raise ValueError(fn_kind)
 

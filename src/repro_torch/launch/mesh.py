@@ -27,9 +27,21 @@ and ``state_block`` carry a checkpoint between a mesh and its one file
 (the state replicated along fsdp: a save reads fsdp index 0, a restore
 gives every fsdp rank the same block).
 
+The serving grid (``serve_grid``) is the ``MeshConfig``'s own, over its
+axis names (("data", "model"), ("pod", "data", "model") on the multi-pod
+mesh: the reference's serving layout, ``configs.registry.mesh_roles(...,
+serving=True)``).  ``make_serve_mesh`` builds it over a process group as
+a ``ServeMesh``: the rank's groups over the tensor axes (``tp``), the
+FSDP axes its weights' d dims split over (``fsdp``, kimi-k2's 2D layout)
+and the data-like axes its batch splits over (``batch_group``), its rows
+of a served batch (``rows``) and its blocks of the weights (``params``);
+``serve.engine`` and ``models.transformer``'s serving functions run on
+them.
+
 The dry run (``launch.dryrun``) reads the engine's grid without a process
 group: ``dry_engine_mesh``, or a ``comm.collectives.DryMesh`` of
-``production_grid``, describes it (rank 0's view).  The constants below
+``production_grid``, describes it (rank 0's view); ``dry_serve_mesh`` the
+serving grid's.  The constants below
 are the card's, for the roofline
 (``launch.roofline``); they take the place of the reference's TPU v5e
 constants, which do not carry over.
@@ -37,7 +49,7 @@ constants, which do not carry over.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,11 +59,12 @@ from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import Block
 from repro_torch.comm import collectives as coll
 from repro_torch.comm.collectives import (AXES, FSDP, SHARD, DryMesh,
-                                          WorkerMesh)
+                                          MeshGroup, WorkerMesh)
 # the card's rates (NVIDIA H100 80GB HBM3, SXM5, 700 W, data sheet) live
 # with the kernels' cost model, which chip_smoke reads without this module
 from repro_torch.kernels.costs import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: F401
                                        PEAK_FLOPS_FP32, PEAK_FLOPS_TF32)
+from repro_torch.sharding import specs
 
 HBM_PER_CHIP = 80 * 10**9   # bytes (80 GB) — the engine-memory fit budget
 CHIPS_PER_POD = 256         # the single-pod (16, 16) grid
@@ -208,6 +221,95 @@ def production_grid(mesh_cfg, *, pods: int = 0,
     w, f = mesh_cfg.num_workers, mesh_cfg.fsdp_size
     shape = rank_grid(w, w * f * shards, pods, shards, f)
     return shape, grid_axes(f, shards)
+
+
+# ---------------------------------------------------------------- serving
+def serve_grid(mesh_cfg) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the serving rank grid of a ``MeshConfig``: its own
+    shape over its own axis names, one rank a device (rank 0 holds the
+    first block of every split dim, the last axis fastest)."""
+    return tuple(mesh_cfg.shape), tuple(mesh_cfg.axis_names)
+
+
+class ServeMesh:
+    """One rank of the serving grid: ``mesh`` (a ``WorkerMesh`` over the
+    grid's axes, or rank 0's ``DryMesh``) and ``roles`` (the
+    ``MeshConfig``: which axes are the tensor, FSDP and worker ones)."""
+
+    def __init__(self, mesh, roles):
+        self.mesh, self.roles = mesh, roles
+
+    def _group(self, axes) -> Optional[MeshGroup]:
+        axes = tuple(axes)
+        if not axes or self.mesh.size(axes) == 1:
+            return None
+        return MeshGroup(self.mesh, self.mesh.canonical(axes))
+
+    @property
+    def tp(self) -> Optional[MeshGroup]:
+        """The tensor axes' ranks (heads, kv heads, ff, vocab, experts
+        split over them), None at one rank."""
+        return self._group(self.roles.tensor_axes)
+
+    @property
+    def fsdp(self) -> Optional[MeshGroup]:
+        """The FSDP axes' ranks, over which the weights' d dims split
+        (kimi-k2's serving layout), None where there are none."""
+        return self._group(self.roles.fsdp_axes)
+
+    def batch_group(self, batch: int) -> Optional[MeshGroup]:
+        """The data-like axes' ranks when they split a served batch of
+        ``batch`` rows (None where they do not divide it: every rank then
+        serves the whole batch)."""
+        entry = specs.batch_sharding_spec(self.roles, batch, 0,
+                                          worker_stacked=False)[0]
+        return self._group(specs.entry_axes(entry))
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a served batch of ``batch`` rows."""
+        g = self.batch_group(batch)
+        if g is None:
+            return slice(0, batch)
+        n = batch // g.size
+        return slice(g.index * n, (g.index + 1) * n)
+
+    def groups(self, batch: int) -> dict:
+        """The keywords of ``models.transformer``'s serving functions for
+        a served batch of ``batch`` rows: ``tp``, ``fsdp`` and the MoE's
+        ``group``."""
+        return {"tp": self.tp, "fsdp": self.fsdp,
+                "group": self.batch_group(batch)}
+
+    def specs(self, cfg):
+        """The partition specs of ``cfg``'s parameters on this grid."""
+        from repro_torch.models import transformer
+        return specs.partition_specs(transformer.model_defs(cfg), cfg,
+                                     self.roles)
+
+    def params(self, whole, cfg):
+        """This rank's block of every leaf of ``whole`` (``cfg``'s whole
+        parameter tree), by the specs (``sharding.specs.rank_params``)."""
+        return specs.rank_params(whole, self.specs(cfg), self.mesh)
+
+
+def make_serve_mesh(mesh_cfg) -> ServeMesh:
+    """The serving grid of ``mesh_cfg`` over the default process group
+    (initialised by the caller; world = the grid's size), with process
+    groups over the tensor axes, the data-like axes and the FSDP axes."""
+    shape, axes = serve_grid(mesh_cfg)
+    subsets = []
+    for sub in (mesh_cfg.tensor_axes, specs.data_axes(mesh_cfg),
+                mesh_cfg.fsdp_axes):
+        sub = coll.canonical(sub, axes) if sub else ()
+        if sub and sub not in subsets:
+            subsets.append(sub)
+    return ServeMesh(make_mesh(shape, axes, subsets), mesh_cfg)
+
+
+def dry_serve_mesh(mesh_cfg) -> ServeMesh:
+    """Rank 0's view of ``mesh_cfg``'s serving grid, with no process
+    group (``comm.collectives.DryMesh``)."""
+    return ServeMesh(DryMesh(*serve_grid(mesh_cfg)), mesh_cfg)
 
 
 # ------------------------------------------------------------ checkpoints

@@ -26,6 +26,19 @@ over the whole batch (one all-reduce of the 2E sums), and its gradient
 comes out once over the group (``MeshGroup.sum``).  Under remat both
 collectives run again in the recompute, on the same operands.
 
+Serving on a rank grid (``moe_mlp(..., tp=, fsdp=, group=)``, this
+rank's blocks of the weights, ``sharding.specs.rank_params``): the
+experts split over the tensor ranks ``tp`` where they divide them (the
+reference's ``axis_rules``), each rank dispatching to its E/t
+(``dispatch_compute``, as ``models.moe_shardmap`` does), then one sum
+over ``tp``; the keep and drop are one process's over the whole served
+batch, split over ``group`` as above; the shared experts ("ff" whole when
+the experts split) run once on every tensor rank and are added after the
+sum (``_tp_combine``); with ``fsdp`` (kimi-k2's 2D layout) the router's,
+the experts' and the shared experts' d dims are all-gathered over it,
+each weight just before its product.  The aux loss of a serving call is
+this rank's tokens' (serving drops it, as the reference's).
+
 Determinism on the card.  The reference gathers ``x[token]`` with k
 entries per token and combines with ``y.at[token].add(...)``: both the
 combine and the gather's backward are scatter-adds with k collisions per
@@ -49,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import fsdp_weight, split_count
 from repro_torch.models.param import ParamDef
 
 F32 = torch.float32
@@ -137,7 +151,8 @@ class Plan(NamedTuple):
     ``slot`` each entry's row of this rank's (e_loc · ``rows``, d) buffer
     (a masked entry's the parked slot), ``pos`` its position within its
     expert over the whole batch, ``sorted_e`` its local expert (e_loc for
-    another block's), ``cap`` the capacity."""
+    another block's), ``cap`` the capacity, ``base`` the block's first
+    expert."""
 
     order: torch.Tensor
     inv: torch.Tensor
@@ -147,12 +162,14 @@ class Plan(NamedTuple):
     slot: torch.Tensor
     cap: int
     rows: int
+    base: int = 0
 
     def per_entry(self):
         """(keep, slot) per entry in token order (T·k,), the slot as one
-        process's: e · cap + the position over the whole batch, -1 where
-        the entry is dropped or masked."""
-        slot = torch.where(self.keep, self.sorted_e * self.cap + self.pos,
+        process's: e · cap + the position over the whole batch (e the
+        global expert), -1 where the entry is dropped or masked."""
+        slot = torch.where(self.keep,
+                           (self.base + self.sorted_e) * self.cap + self.pos,
                            -1)
         return self.keep[self.inv], slot[self.inv]
 
@@ -197,13 +214,15 @@ def plan(cfg: ModelConfig, ids: torch.Tensor, e_loc: int, shard: int,
     # e · rows + the position among this rank's entries
     slot = (torch.where(keep, sorted_e, 0) * rows
             + torch.where(keep, local, rows - 1))
-    return Plan(order, inv, sorted_e, pos, keep, slot, cap, rows)
+    return Plan(order, inv, sorted_e, pos, keep, slot, cap, rows,
+                shard * e_loc)
 
 
 def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
                      weights: torch.Tensor, ids: torch.Tensor,
                      wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
-                     e_loc: int, shard: int, group=None) -> torch.Tensor:
+                     e_loc: int, shard: int, group=None,
+                     fsdp=None) -> torch.Tensor:
     """The routed entries of experts [shard·e_loc, (shard+1)·e_loc)
     through those experts -> their (T, d) share of the output.
 
@@ -213,7 +232,8 @@ def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
     the capacity are dropped (``plan``; with ``group`` over the whole
     batch split over it); masked entries are zeros parked at the last slot
     of expert 0.  With e_loc = E and shard 0 it is the whole layer's
-    routed output."""
+    routed output.  With ``fsdp`` the weights' d dims are this rank's
+    blocks, each all-gathered over it just before its product."""
     t, d = x.shape
     k = cfg.experts_per_token
     pl = plan(cfg, ids, e_loc, shard, group)
@@ -228,9 +248,10 @@ def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
     buf = buf.index_put((slot,), xk, accumulate=True).view(
         e_loc, pl.rows, d)
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg))
-    h = h * torch.einsum("ecd,edf->ecf", buf, wu)
-    out_buf = torch.einsum("ecf,efd->ecd", h, wd)              # (e, C, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, fsdp_weight(wg, 1, fsdp)))
+    h = h * torch.einsum("ecd,edf->ecf", buf, fsdp_weight(wu, 1, fsdp))
+    out_buf = torch.einsum("ecf,efd->ecd", h,
+                           fsdp_weight(wd, 2, fsdp))           # (e, C, d)
 
     contrib = out_buf.reshape(e_loc * pl.rows, d).index_select(0, slot) \
         * mask
@@ -239,10 +260,14 @@ def dispatch_compute(cfg: ModelConfig, x: torch.Tensor,
         dim=1)
 
 
-def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
+def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None,
+            tp=None, fsdp=None):
     """x: (T, d) -> (y (T, d), aux_loss). The caller flattens batch·seq.
     ``group``: the ranks a worker's batch is split over (x this rank's
-    slice, the f-th of F equal ones), or None."""
+    slice, the f-th of F equal ones), or None.  ``tp`` / ``fsdp``:
+    serving on this rank's blocks of the weights (``_moe_serving``)."""
+    if tp is not None or fsdp is not None:
+        return _moe_serving(cfg, p, x, group, tp, fsdp)
     weights, ids, aux = route(cfg, p["router"], x, group)
     y = dispatch_compute(cfg, x, weights, ids, p["w_gate"], p["w_up"],
                          p["w_down"], cfg.num_experts, 0, group)
@@ -250,3 +275,43 @@ def moe_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
         hs = F.silu(x @ p["shared_w_gate"]) * (x @ p["shared_w_up"])
         y = y + hs @ p["shared_w_down"]
     return y, aux
+
+
+def _tp_combine(tp, routed: torch.Tensor, routed_split: bool,
+                shared: Optional[torch.Tensor],
+                shared_split: bool) -> torch.Tensor:
+    """The layer's output from its parts: the partial ones (split over
+    ``tp``) summed in one all-reduce, the whole ones added after it (the
+    shared experts when the routed ones take the tensor axis)."""
+    parts = [routed] + ([shared] if shared is not None else [])
+    split = [routed_split] + ([shared_split] if shared is not None else [])
+    partial = [y for y, s in zip(parts, split) if s]
+    y = tp.all_sum(sum(partial[1:], partial[0])) if partial else None
+    for part, s in zip(parts, split):
+        if not s:
+            y = part if y is None else y + part
+    return y
+
+
+def _moe_serving(cfg: ModelConfig, p: dict, x: torch.Tensor, group, tp,
+                 fsdp):
+    """``moe_mlp`` on this rank's blocks of a serving grid: its experts'
+    dispatch (keep and drop over the whole batch split over ``group``),
+    the shared experts, the parts combined over ``tp`` (``_tp_combine``).
+    Returns (y, this rank's tokens' aux loss)."""
+    e = cfg.num_experts
+    experts_split = split_count(e, tp, p["w_gate"], 0, "w_gate")
+    weights, ids, aux = route(cfg, fsdp_weight(p["router"], 0, fsdp), x)
+    e_loc = e // tp.size if experts_split else e
+    y = dispatch_compute(cfg, x, weights, ids, p["w_gate"], p["w_up"],
+                         p["w_down"], e_loc,
+                         tp.index if experts_split else 0, group, fsdp)
+    ys = shared_split = None
+    if cfg.num_shared_experts:
+        ff = cfg.num_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
+        shared_split = split_count(ff, tp, p["shared_w_up"], 1,
+                                   "shared_w_up", split=not experts_split)
+        hs = F.silu(x @ fsdp_weight(p["shared_w_gate"], 0, fsdp)) * (
+            x @ fsdp_weight(p["shared_w_up"], 0, fsdp))
+        ys = hs @ fsdp_weight(p["shared_w_down"], 1, fsdp)
+    return _tp_combine(tp, y, experts_split, ys, shared_split), aux

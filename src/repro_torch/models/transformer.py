@@ -22,6 +22,24 @@ runs each layer's block under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of the scan body): its activations are recomputed in
 the backward instead of kept, and the layer's aux loss comes out of the
 checkpoint beside them.
+
+Serving on a rank grid (the reference's serving layout; ``prefill``,
+``decode_step`` and ``init_cache`` take ``tp``, ``fsdp`` and ``group``,
+``comm.collectives.MeshGroup``s or None, as ``launch.mesh.ServeMesh
+.groups`` gives them): the parameters are this rank's blocks
+(``sharding.specs.rank_params``), the inputs its rows of the served batch
+and the cache its block (``sharding.specs.cache_specs``).  The vocab
+splits over the tensor ranks ``tp``: the embedding looks up the rank's
+rows (zeros for the other ranks' ids), then one sum; the logits are the
+rank's vocab columns, then one all-gather, so every rank returns the
+whole logits of its rows.  Attention, the MLP and the routed experts
+split as ``models.attention``, ``models.layers`` and ``models.moe`` say;
+``group`` is the data-like ranks the batch splits over, over which the
+routed layer keeps one process's keep and drop; ``fsdp`` the ranks the
+weights' d dims split over (kimi-k2), each weight gathered over them just
+before its product.  The ssm and hybrid families serve with whole
+weights: their ``ssm_inner`` split is not ported.  Training's
+``forward`` splits no weight.
 """
 from __future__ import annotations
 
@@ -33,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, hybrid, moe, ssm
-from repro_torch.models.layers import mlp, mlp_defs, rms_norm, rms_norm_def
+from repro_torch.models.layers import (fsdp_weight, mlp, mlp_defs,
+                                       rms_norm, rms_norm_def, split_count)
 from repro_torch.models.param import ParamDef, materialize, stack_defs
 
 
@@ -99,36 +118,71 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return _mlp_residual(cfg, p, x + y, group)
 
 
-def _mlp_residual(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
+def _mlp_residual(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None,
+                  tp=None, fsdp=None):
     """(x + the layer's MLP of the normed x, None), or for the moe family
     (x + its routed experts over the flattened tokens, the aux loss; over
-    the whole batch split over ``group``)."""
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    the whole batch split over ``group``); ``tp`` / ``fsdp``: serving on
+    this rank's blocks."""
+    h = rms_norm(x, _norm_w(p["norm2"], fsdp), cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe.moe_mlp(cfg, p["moe"], h.reshape(-1, h.shape[-1]),
-                             group)
+                             group, tp, fsdp)
         return x + y.view(h.shape), aux
-    return x + mlp(cfg, p["mlp"], h), None
+    return x + mlp(cfg, p["mlp"], h, tp, fsdp), None
+
+
+def _norm_w(w: torch.Tensor, fsdp) -> torch.Tensor:
+    """A norm's weight, whole (gathered over ``fsdp`` where its d dim
+    splits over it)."""
+    return fsdp_weight(w, 0, fsdp)
+
+
+def _vocab_split(cfg: ModelConfig, w: torch.Tensor, dim: int, tp,
+                 name: str) -> bool:
+    """Whether this rank's ``w`` holds a block of the vocab (dim ``dim``)
+    over ``tp`` (always on a grid: the reference's rule)."""
+    return split_count(cfg.vocab_size, tp, w, dim, name, split=True)
 
 
 def embed_inputs(cfg: ModelConfig, params: dict,
-                 inputs: torch.Tensor) -> torch.Tensor:
+                 inputs: torch.Tensor, tp=None, fsdp=None) -> torch.Tensor:
     """Token ids (..., S) int -> embeddings (..., S, d); for the codec
     frontend, precomputed frame embeddings (..., S, F) pass through
-    ``frontend_proj`` (in their promoted dtype, as ``jnp``'s matmul)."""
+    ``frontend_proj`` (in their promoted dtype, as ``jnp``'s matmul).
+    With ``tp``: this rank's vocab rows looked up, zeros for the other
+    ranks' ids, then one sum over ``tp``."""
     if cfg.frontend == "codec":
-        proj = params["frontend_proj"]
+        proj = fsdp_weight(params["frontend_proj"], 1, fsdp)
         dt = torch.promote_types(inputs.dtype, proj.dtype)
         return inputs.to(dt) @ proj.to(dt)
-    return params["embed"][inputs]
+    split = _vocab_split(cfg, params["embed"], 0, tp, "embed")
+    emb = fsdp_weight(params["embed"], 1, fsdp)
+    if not split:
+        return emb[inputs]
+    n = emb.shape[0]
+    local = inputs - tp.index * n
+    mine = (local >= 0) & (local < n)
+    rows = emb[torch.where(mine, local, 0)]
+    return tp.all_sum(torch.where(mine[..., None], rows,
+                                  torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device)))
 
 
 def logits_out(cfg: ModelConfig, params: dict,
-               x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+               x: torch.Tensor, tp=None, fsdp=None) -> torch.Tensor:
+    """The final norm, then the logits; with ``tp`` this rank's vocab
+    columns, then one all-gather over ``tp`` (every rank the whole
+    logits)."""
+    x = rms_norm(x, _norm_w(params["final_norm"], fsdp), cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.einsum("...d,vd->...v", x, params["embed"])
-    return x @ params["lm_head"]
+        split = _vocab_split(cfg, params["embed"], 0, tp, "embed")
+        y = torch.einsum("...d,vd->...v", x,
+                         fsdp_weight(params["embed"], 1, fsdp))
+    else:
+        split = _vocab_split(cfg, params["lm_head"], 1, tp, "lm_head")
+        y = x @ fsdp_weight(params["lm_head"], 0, fsdp)
+    return tp.gather_dim(y, -1) if split else y
 
 
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
@@ -204,14 +258,24 @@ def _layer_cache(cache: dict, i: int) -> dict:
 
 
 # ------------------------------------------------------------------- decode
+def _whole_only(cfg: ModelConfig, tp, fsdp) -> None:
+    if (tp is not None or fsdp is not None) and cfg.family in ("ssm",
+                                                               "hybrid"):
+        raise NotImplementedError(
+            f"the {cfg.family} family serves with whole weights: its "
+            f"ssm_inner split over the tensor ranks is not ported")
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
                window: Optional[int] = None,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cpu", tp=None) -> dict:
     """Per-layer caches (KV; for ssm the SSM state and conv window; for
     the hybrid both, nested ``{"attn": {k, v}, "ssm": {state, conv}}``,
     its KV over min(cache_len, window) slots) stacked on a leading layer
-    axis (zeros)."""
+    axis (zeros).  With ``tp`` this rank's block (``batch`` its rows):
+    its kv heads, or its slots where the kv heads do not divide ``tp``."""
+    _whole_only(cfg, tp, None)
     if cfg.family == "ssm":
         layer = ssm.init_ssm_cache(cfg, batch, dtype, device)
     elif cfg.family == "hybrid":
@@ -221,7 +285,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     else:
         eff_len = min(cache_len, window) if window is not None \
             else cache_len
-        layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device)
+        layer = attention.init_kv_cache(cfg, batch, eff_len, dtype, device,
+                                        tp)
     return tree_mod.tree_map(
         lambda t: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
                               device=t.device), layer)
@@ -229,20 +294,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 inputs: torch.Tensor, pos,
-                window: Optional[int] = None):
+                window: Optional[int] = None, tp=None, fsdp=None,
+                group=None):
     """One-token decode against a cache. inputs: (B, 1) ids (codec: frame
     embeddings (B, 1, F)); pos: the position of that token (an int or a
     0-d tensor, read on the host; the ssm family's decode does not read
-    it).
+    it).  ``tp``, ``fsdp``, ``group``: serving on this rank's blocks of a
+    grid (the module's docstring).
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
     """
-    x = embed_inputs(cfg, params, inputs)
+    _whole_only(cfg, tp, fsdp)
+    x = embed_inputs(cfg, params, inputs, tp, fsdp)
     eff_window = window if window is not None else cfg.attn_window
     new = []
     for i, layer_p in enumerate(_layers(cfg, params)):
         layer_c = _layer_cache(cache, i)
-        h = rms_norm(x, layer_p["norm1"], cfg.norm_eps)
+        h = rms_norm(x, _norm_w(layer_p["norm1"], fsdp), cfg.norm_eps)
         if cfg.family == "ssm":
             y, c = ssm.ssm_decode_step(cfg, layer_p["ssm"], h, layer_c)
             x = x + y
@@ -253,16 +321,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             else:
                 y, c = attention.decode_attend(cfg, layer_p["attn"], h,
                                                layer_c, pos,
-                                               window=eff_window)
+                                               window=eff_window, tp=tp,
+                                               fsdp=fsdp)
             # the aux loss is dropped, as the reference's decode drops it
-            x, _ = _mlp_residual(cfg, layer_p, x + y)
+            x, _ = _mlp_residual(cfg, layer_p, x + y, group, tp, fsdp)
         new.append(c)
-    return logits_out(cfg, params, x), _stack(new)
+    return logits_out(cfg, params, x, tp, fsdp), _stack(new)
 
 
 def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             cache_len: int, window: Optional[int] = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None, fsdp=None, group=None):
     """Cache-building prefill: the full-sequence forward over ``inputs``
     (B, S) ids (codec: frame embeddings (B, S, F)) that also emits every
     layer's decode cache (KV; for ssm the final SSM state and the conv
@@ -271,15 +340,17 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 
     Returns (logits (B, S, V) — (B, 1, V) with ``last_only`` — , cache);
     the cache is layout-compatible with ``init_cache``/``decode_step``, in
-    the activations' dtype.
+    the activations' dtype.  ``tp``, ``fsdp``, ``group``: serving on this
+    rank's blocks of a grid (the module's docstring).
     """
-    x = embed_inputs(cfg, params, inputs)
+    _whole_only(cfg, tp, fsdp)
+    x = embed_inputs(cfg, params, inputs, tp, fsdp)
     positions = torch.arange(x.shape[-2], device=x.device).expand(
         x.shape[:-1])
     eff_window = window if window is not None else cfg.attn_window
     caches = []
     for layer_p in _layers(cfg, params):
-        h = rms_norm(x, layer_p["norm1"], cfg.norm_eps)
+        h = rms_norm(x, _norm_w(layer_p["norm1"], fsdp), cfg.norm_eps)
         if cfg.family == "ssm":
             y, c = ssm.ssm_forward(cfg, layer_p["ssm"], h, return_cache=True)
             x = x + y
@@ -291,13 +362,14 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             else:
                 y, kv = attention.attend_full(cfg, layer_p["attn"], h,
                                               positions, window=eff_window,
-                                              return_kv=True)
+                                              return_kv=True, tp=tp,
+                                              fsdp=fsdp)
                 c = attention.prefill_kv_cache(cfg, kv, cache_len,
-                                               eff_window, x.dtype)
-            x, _ = _mlp_residual(cfg, layer_p, x + y)
+                                               eff_window, x.dtype, tp)
+            x, _ = _mlp_residual(cfg, layer_p, x + y, group, tp, fsdp)
         caches.append(c)
     if last_only:
         # serving needs only the next-token distribution: logits for every
         # prefill position would be a (B, S, V) tensor for nothing
         x = x[..., -1:, :]
-    return logits_out(cfg, params, x), _stack(caches)
+    return logits_out(cfg, params, x, tp, fsdp), _stack(caches)

@@ -6,6 +6,16 @@ engine runs prefill once and then the step per token.  Plain tensor ops,
 eager, as the reference's jitted functions are plain jnp: no kernel of the
 port runs here (``kernels.mha_flash`` is an op of its own, as in the
 reference).
+
+On a serving grid (``mesh``: a ``launch.mesh.ServeMesh``, the reference's
+serving layout of ``configs.registry.mesh_roles(..., serving=True)``)
+each rank holds its block of every weight (``ServeMesh.params``), serves
+its rows of the batch against its block of the cache, and gets the whole
+logits of its rows, so greedy decoding picks the same token on every
+tensor rank; the step's collectives are counted in
+``comm.collectives.COUNTS`` (kinds "tensor", "weights", "moe").  The
+reference's serve CLI has no mesh, so neither has the port's: the grid is
+the Python API's.
 """
 from __future__ import annotations
 
@@ -19,20 +29,30 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 
-def make_serve_step(cfg: ModelConfig, window: Optional[int] = None):
-    """(params, cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache)."""
+def make_serve_step(cfg: ModelConfig, window: Optional[int] = None,
+                    groups: Optional[dict] = None):
+    """(params, cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache).
+    ``groups``: a serving grid's ``tp``, ``fsdp`` and ``group``
+    (``launch.mesh.ServeMesh.groups``): params, cache and tokens are then
+    this rank's blocks."""
+    kw = groups or {}
+
     def serve_step(params, cache, tokens, pos):
         return transformer.decode_step(cfg, params, cache, tokens, pos,
-                                       window=window)
+                                       window=window, **kw)
     return serve_step
 
 
 def make_prefill(cfg: ModelConfig, cache_len: int,
-                 window: Optional[int] = None, last_only: bool = False):
-    """(params, tokens (B, S)) -> (logits, cache)."""
+                 window: Optional[int] = None, last_only: bool = False,
+                 groups: Optional[dict] = None):
+    """(params, tokens (B, S)) -> (logits, cache); ``groups`` as
+    ``make_serve_step``'s."""
+    kw = groups or {}
+
     def prefill_fn(params, tokens):
         return transformer.prefill(cfg, params, tokens, cache_len,
-                                   window=window, last_only=last_only)
+                                   window=window, last_only=last_only, **kw)
     return prefill_fn
 
 
@@ -45,36 +65,62 @@ class Engine:
     """Minimal batched generation engine (greedy / temperature sampling).
 
     ``device`` is where the prompt is sent and the tokens are made; by
-    default the device of the parameters.
+    default the device of the parameters.  ``mesh`` (a
+    ``launch.mesh.ServeMesh``): ``params`` are this rank's blocks
+    (``mesh.params``; whole weights are refused), and each call takes the
+    whole batch and serves this rank's rows of it; with ``mesh=None`` it
+    serves the whole batch on whole weights.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_len: int = 512,
                  window: Optional[int] = None,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None, mesh=None):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
         self.window = window
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None \
             else params["embed"].device
-        self._prefill = make_prefill(cfg, max_len, window, last_only=True)
-        self._step = make_serve_step(cfg, window)
+        if mesh is not None:
+            _check_blocks(params, mesh, cfg)
+
+    def _groups(self, batch: int) -> Optional[dict]:
+        return None if self.mesh is None else self.mesh.groups(batch)
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a served batch of ``batch`` rows (all of
+        them without a mesh)."""
+        return (slice(0, batch) if self.mesh is None
+                else self.mesh.rows(batch))
 
     @torch.no_grad()
     def prefill(self, prompt: torch.Tensor):
-        """prompt (B, S) -> (last-position logits (B, 1, V), cache)."""
-        return self._prefill(self.params, prompt.to(self.device))
+        """prompt (B, S) -> (last-position logits (b, 1, V), cache) of this
+        rank's b rows (all B without a mesh)."""
+        fn = make_prefill(self.cfg, self.max_len, self.window,
+                          last_only=True,
+                          groups=self._groups(prompt.shape[0]))
+        return fn(self.params, prompt[self.rows(prompt.shape[0])].to(
+            self.device))
 
     @torch.no_grad()
-    def step(self, cache: dict, tokens: torch.Tensor, pos: int):
-        """tokens (B, 1) at ``pos`` -> (logits (B, 1, V), new cache)."""
-        return self._step(self.params, cache, tokens.to(self.device), pos)
+    def step(self, cache: dict, tokens: torch.Tensor, pos: int,
+             batch: Optional[int] = None):
+        """tokens (b, 1) of this rank's rows at ``pos`` -> (logits (b, 1,
+        V), new cache); ``batch``: the whole served batch's rows (b
+        without a mesh)."""
+        fn = make_serve_step(self.cfg, self.window, groups=self._groups(
+            batch if batch is not None else tokens.shape[0]))
+        return fn(self.params, cache, tokens.to(self.device), pos)
 
     @torch.no_grad()
     def generate(self, prompt, steps: int, *, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  timings: Optional[dict] = None) -> torch.Tensor:
-        """prompt (B, S) int -> (B, S + steps) greedy/sampled continuation.
+        """prompt (B, S) int -> (B, S + steps) greedy/sampled continuation
+        (on a mesh, this rank's rows of it; every tensor rank of those rows
+        picks the same tokens).
 
         The token after the prompt is greedy, as in the reference; the
         others are drawn at ``temperature`` > 0 from ``generator`` (on the
@@ -94,8 +140,9 @@ class Engine:
         if clock:
             _sync(self.device)
             t0 = time.perf_counter()
-        s = prompt.shape[1]
+        batch, s = prompt.shape[:2]
         logits, cache = self.prefill(prompt)
+        prompt = prompt[self.rows(batch)]
         tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
         if clock:
             _sync(self.device)
@@ -105,7 +152,7 @@ class Engine:
         for i in range(steps - 1):
             if clock:
                 t0 = time.perf_counter()
-            logits, cache = self.step(cache, tok, s + i)
+            logits, cache = self.step(cache, tok, s + i, batch)
             if temperature > 0.0:
                 u = torch.rand(logits[:, 0].shape, generator=generator,
                                device=self.device)
@@ -121,3 +168,22 @@ class Engine:
                 timings["decode_ms"].append(
                     1e3 * (time.perf_counter() - t0))
         return torch.cat(out, dim=1)
+
+
+def _check_blocks(params: dict, mesh, cfg: ModelConfig) -> None:
+    """Refuse parameters that are not this rank's blocks of ``cfg``'s on
+    ``mesh``: no rank of a grid serves whole weights unasked."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.sharding import specs as sh
+    sizes = dict(zip(mesh.mesh.axes, mesh.mesh.shape))
+    want = tree_mod.leaves_with_path(tree_mod.tree_map(
+        lambda d, s: sh.block_shape(d.shape, s, sizes),
+        transformer.model_defs(cfg), mesh.specs(cfg)))
+    got = dict(tree_mod.leaves_with_path(params))
+    for path, shape in want:
+        if path not in got or tuple(got[path].shape) != shape:
+            raise ValueError(
+                f"Engine(mesh=...): {path} is "
+                f"{tuple(got[path].shape) if path in got else 'missing'}, "
+                f"this rank's block of it is {shape} "
+                f"(pass mesh.params(whole, cfg))")

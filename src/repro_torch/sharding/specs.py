@@ -1,18 +1,24 @@
-"""Logical-axis -> partition-spec rules (``repro.sharding.specs``), and the
-engine's row-shard axis.
+"""Logical-axis -> partition-spec rules (``repro.sharding.specs``), the
+rank's blocks they give, and the engine's row-shard axis.
 
 ``ParamDef`` axes (``models/param.py``) map onto the production grid's
 axes by the ``MeshConfig``'s roles (``configs.registry.mesh_roles``).  A
 spec is a plain tuple with one entry a dimension: a mesh-axis name, a
 tuple of names, or None (replicated) — the entries of the reference's
-``PartitionSpec``.  The port runs no tensor parallelism; the dry run
-(``launch.dryrun``) reads these specs for what rank 0 of the production
-grid holds: its block of every input (``batch_spec``, its batch dim split
-over the data-like axes, which a training step takes as its fsdp slice)
-and whether a served model's weights split over FSDP axes, which it
-refuses (``partition_specs``, ``worker_stacked_spec``).  The reference's
-``make_mesh`` and ``shardings`` build JAX objects and have no
-counterpart.
+``PartitionSpec``.  ``rank_params`` cuts a whole parameter tree to one
+rank's contiguous block of every leaf, each dim split over its entry's
+axes (the tensor axes and, for kimi-k2's serving layout, the FSDP axes
+too): the counterpart of the reference placing its weights with
+``shardings``.  Serving runs on those blocks (tensor parallelism over
+"model", ``models``' ``tp=`` / ``fsdp=`` groups, ``serve.engine``), each
+rank given its rows of the served batch (``batch_sharding_spec``) and its
+block of the KV cache (``cache_specs``: kv heads over the tensor axis
+where they divide it, else the cache's sequence); the dry run
+(``launch.dryrun``) reads the same specs for rank 0's blocks
+(``block_shape``).  Training splits no weight over "model": a worker's
+batch splits over the FSDP axes (``batch_spec``), its state's rows over
+the engine's shard axis.  The reference's ``make_mesh`` and
+``shardings`` build JAX objects and have no counterpart.
 
 The flat-buffer engine splits every (W, R, C) buffer's rows over the rank
 grid's "shard" axis (``comm.collectives.SHARD``), one block of R / S rows
@@ -23,7 +29,11 @@ builders (``launch.mesh``) place only "shard", so the name is fixed.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from ..comm.collectives import SHARD
 from ..configs.base import MeshConfig, ModelConfig
@@ -93,6 +103,120 @@ def batch_spec(mesh_cfg: MeshConfig, *, worker_stacked: bool,
         return (_norm(w), _norm(f), *([None] * extra_dims))
     # serving: the batch over every data-like axis
     return (_norm(w + f), *([None] * extra_dims))
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (a name, a tuple of names, None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axis_size(mesh_cfg: MeshConfig, axes: Sequence[str]) -> int:
+    sizes = dict(zip(mesh_cfg.axis_names, mesh_cfg.shape))
+    return math.prod(sizes[a] for a in axes) if axes else 1
+
+
+def data_axes(mesh_cfg: MeshConfig) -> Tuple[str, ...]:
+    """The data-like axes a served batch splits over: the worker axes,
+    then the FSDP axes (the reference's ``_data_axes``)."""
+    return tuple(mesh_cfg.worker_axes) + tuple(mesh_cfg.fsdp_axes)
+
+
+def batch_sharding_spec(mesh_cfg: MeshConfig, batch: int, extra: int, *,
+                        worker_stacked: bool) -> Tuple:
+    """``batch_spec`` with its batch entry replicated (None) where its
+    ranks do not divide ``batch`` (the reference's dry-run rule)."""
+    spec = list(batch_spec(mesh_cfg, worker_stacked=worker_stacked,
+                           extra_dims=extra))
+    i = 1 if worker_stacked else 0
+    if batch % axis_size(mesh_cfg, entry_axes(spec[i])):
+        spec[i] = None
+    return tuple(spec)
+
+
+def cache_specs(cfg: ModelConfig, mesh_cfg: MeshConfig, batch: int,
+                seq_len: int = 0):
+    """The reference's spec tree of ``init_cache``'s (layer-stacked)
+    structure: the batch over the data-like axes, kv heads over the
+    tensor axis when they divide it, else the cache's sequence dim (the
+    distributed flash-decode, ``models.attention.decode_attend``)."""
+    t = mesh_cfg.tensor_size
+    bax = batch_sharding_spec(mesh_cfg, batch, 0, worker_stacked=False)[0]
+    tax = _norm(tuple(mesh_cfg.tensor_axes))
+    kvh = seq_ax = None
+    if cfg.num_kv_heads and cfg.num_kv_heads % t == 0:
+        kvh = tax
+    elif seq_len and seq_len % t == 0:
+        seq_ax = tax
+    ssmh = tax if cfg.ssm_state and cfg.ssm_num_heads % t == 0 else None
+    attn = {"k": (None, bax, seq_ax, kvh, None),
+            "v": (None, bax, seq_ax, kvh, None)}
+    ssm_c = {"state": (None, bax, ssmh, None, None),
+             "conv": (None, bax, None, None)}
+    if cfg.family == "ssm":
+        return ssm_c
+    if cfg.family == "hybrid":
+        return {"attn": attn, "ssm": ssm_c}
+    return attn
+
+
+def block_shape(shape: Sequence[int], spec: Tuple,
+                sizes: dict, skip: Sequence[str] = ()) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` laid out by
+    ``spec`` over a grid of axis ``sizes``: each dim ÷ the ranks of its
+    entry's axes (those in ``skip`` held whole); a dim they do not divide
+    is refused."""
+    out = []
+    for i, n in enumerate(shape):
+        axes = [a for a in entry_axes(spec[i] if i < len(spec) else None)
+                if a not in skip]
+        k = math.prod(sizes[a] for a in axes)
+        if n % k:
+            raise ValueError(f"a dim of {n} does not split over the {k} "
+                             f"ranks of {tuple(axes)} (spec {spec})")
+        out.append(n // k)
+    return tuple(out)
+
+
+def _block_index(entry, mesh) -> Tuple[int, int]:
+    """(this rank's block index, the block count) along one spec entry's
+    axes of ``mesh``, the entry's first axis slowest."""
+    axes = entry_axes(entry)
+    if not axes:
+        return 0, 1
+    sizes = [mesh.size((a,)) for a in axes]
+    return (int(np.ravel_multi_index(mesh.index(axes), sizes)),
+            math.prod(sizes))
+
+
+def rank_block(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
+    """This rank's contiguous block of ``t`` laid out by ``spec`` over
+    ``mesh`` (a ``comm.collectives.WorkerMesh`` whose axes the spec
+    names): each dim's i-th of n equal parts, i this rank's index along
+    the entry's axes.  A copy of its own where any dim splits (the whole
+    tensor can be freed), ``t`` itself where none does."""
+    out = t
+    for dim, entry in enumerate(spec):
+        i, n = _block_index(entry, mesh)
+        if n == 1:
+            continue
+        size = t.shape[dim]
+        if size % n:
+            raise ValueError(f"a dim of {size} does not split over the {n} "
+                             f"ranks of {entry_axes(entry)}")
+        out = out.narrow(dim, i * (size // n), size // n)
+    return out if out is t else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def rank_params(params, specs, mesh):
+    """This rank's block of every leaf of a whole parameter tree, each dim
+    split over its spec entry's axes (``partition_specs`` of the model's
+    defs on the serving ``MeshConfig``): the weights a rank of the
+    serving grid holds."""
+    return tree_mod.tree_map(lambda t, s: rank_block(t, s, mesh), params,
+                             specs)
 
 
 def engine_shard_axis(mesh, ecfg) -> Optional[str]:

@@ -22,11 +22,11 @@ package's (``repro.launch.dryrun``), on the CPU.
   * ``engine_mem``'s ``port`` figure: the state the port trains, which is
     the reference's layout (bf16 params, the FSDP archs' bf16 Δ).
   * The CLI: the CI gate's exit codes on the reference's layout (the
-    port's), the reference's keys on a row, an FSDP layout refused with
-    its reason.
+    port's), the reference's keys on a row, kimi-k2's FSDP layout in
+    training and its 2D-sharded serving layout on the 256-rank grid.
   * ``input_specs``, ``cache_specs``, ``state_specs`` and
-    ``batch_sharding_spec`` against the reference's, entry for entry; the
-    FSDP refusal and rank 0's block of each input, both read from them.
+    ``batch_sharding_spec`` against the reference's, entry for entry;
+    rank 0's blocks of the weights and of each input, read from them.
 
 The JAX side runs in one subprocess, started with the module (importing
 ``repro.launch.dryrun`` sets ``XLA_FLAGS``), beside the port's side.
@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -327,30 +328,39 @@ def test_meta_flops_equal_cpu_flop_counter(arch, pdt):
 
 @pytest.mark.parametrize("fn", ["prefill", "decode"])
 def test_meta_serving_flops_equal_cpu_flop_counter(fn):
-    """The smoke qwen2-0.5b's prefill (4 x 32) and decode step against a
-    32-slot cache, bf16 as the dry run serves, counted on meta tensors and
-    on the CPU."""
+    """The smoke qwen2-0.5b's prefill (64 x 32) and decode step against a
+    32-slot cache, bf16 as the dry run serves, counted on meta tensors in
+    one process and on the CPU; on the (16, 16) serving grid rank 0 counts
+    its share (4 of the 64 requests, its 1/16 of the vocab and of the
+    MLP's ff, the cache's slots split over "model") and the grid's
+    collectives, and the row's chips are the whole grid."""
     from repro_torch.models import transformer
     from repro_torch.serve.engine import make_prefill, make_serve_step
     cfg = registry.smoke_arch("qwen2-0.5b")
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     shape = base.InputShape("s", 32, 64, fn)
+    kw = dict(cfg_override=over, shape_override=shape, verbose=False)
     res = dryrun.lower_one("qwen2-0.5b", "s", multi_pod=False, fn_kind=fn,
-                           cfg_override=over, shape_override=shape,
-                           verbose=False)
+                           one_process=True, **kw)
     params = transformer.init_params(cfg, 0, dtype=torch.bfloat16)
     with FlopCounterMode(display=False) as fm:
         with torch.no_grad():
             if fn == "prefill":
-                make_prefill(cfg, 32)(params, torch.zeros(4, 32,
+                make_prefill(cfg, 32)(params, torch.zeros(64, 32,
                                                           dtype=torch.long))
             else:
-                cache = transformer.init_cache(cfg, 4, 32)
+                cache = transformer.init_cache(cfg, 64, 32)
                 make_serve_step(cfg)(params, cache,
-                                     torch.zeros(4, 1, dtype=torch.long), 31)
+                                     torch.zeros(64, 1, dtype=torch.long),
+                                     31)
     assert res.roofline.hlo_flops == fm.get_total_flops() > 0
-    assert res.roofline.chips == 16       # 64 requests over 16 data ranks
+    assert res.roofline.chips == 1
     assert res.counted.counts == {} and res.counted.launches() == {}
+    grid = dryrun.lower_one("qwen2-0.5b", "s", multi_pod=False, fn_kind=fn,
+                            **kw)
+    assert grid.roofline.chips == 256 and grid.counted.launches() == {}
+    assert 0 < grid.roofline.hlo_flops < res.roofline.hlo_flops / 16
+    assert set(grid.counted.counts) == {"tensor"}
 
 
 # --------------------------------------------- the dry mesh against gloo
@@ -456,7 +466,10 @@ def test_cli_sync_row_has_the_reference_keys(ref, tmp_path):
 
 def test_cli_fsdp_layout_is_refused_with_its_reason(tmp_path):
     """kimi-k2's training step runs with a worker over its 16 fsdp ranks;
-    serving it needs 2D-sharded weights, which the port refuses."""
+    its serving runs on the 2D-sharded layout of the (16, 16) grid: rank
+    0's 1/256 of the weights, the d dims gathered over "data" ("weights"),
+    the tensor ranks' sums and gathers over "model" ("tensor"), the routed
+    layer's counts over "data" ("moe"), ``chips`` the whole grid."""
     out = tmp_path / "rows.jsonl"
     assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
                         "--fn", "local", "--out", str(out)]) == 0
@@ -464,11 +477,24 @@ def test_cli_fsdp_layout_is_refused_with_its_reason(tmp_path):
     assert row["ok"] is True and row["chips"] == 16
     assert row["collectives"]["grad"]["fsdp"]["calls"] == 1
     assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "decode_32k",
-                        "--out", str(out)]) == 1
+                        "--out", str(out)]) == 0
     row = json.loads(out.read_text().splitlines()[1])
-    assert row["ok"] is False and row["per_device_bytes"] == -1
-    assert "2D-sharded weights in serving" in row["error"]
-    assert "NotImplementedError" in row["error"]
+    assert row["ok"] is True and row["error"] == ""
+    assert row["chips"] == 256 and row["per_device_bytes"] > 0
+    cfg = registry.padded_arch("kimi-k2-1t-a32b", registry.mesh_roles(
+        "kimi-k2-1t-a32b", serving=True))
+    layers = cfg.num_layers
+    assert {k: {g: v["calls"] for g, v in d.items()}
+            for k, d in row["collectives"].items()} == {
+        # norms 2, attention 4, router 1, experts 3, shared 3 a layer; the
+        # final norm, lm_head and the embedding
+        "weights": {"data": 13 * layers + 3},
+        # wo, the experts a layer, the flash-decode's 3 (kv 8 over 16
+        # ranks: the cache splits by slots); the embedding, the logits
+        "tensor": {"model": 5 * layers + 2},
+        "moe": {"data": layers}}
+    # a rank's weights: 1/256 of the model's bf16 bytes
+    assert row["per_device_bytes"] > 2 * cfg.param_count() // 256
 
 
 FSDP_ROWS = [(a, m, fn) for a in sorted(registry._FSDP_ARCHS)
@@ -521,66 +547,99 @@ def test_dryrun_touches_no_card(monkeypatch):
 @pytest.mark.parametrize("multi", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_fsdp_refusal_follows_the_specs(arch, multi):
-    """The dry run refuses exactly the serving layouts whose specs split a
-    model's parameters over an FSDP axis (kimi-k2 alone); the reference's
-    FSDP archs' training layouts run (a worker over fsdp ranks)."""
+    """Rank 0's parameter blocks follow the specs on every arch and mesh:
+    in serving each leaf's dims ÷ the ranks of its spec's axes, the tensor
+    and, for kimi-k2 alone, the FSDP axes (its 2D layout), the ssm and
+    hybrid families' tensor axes held whole; the reference's FSDP archs
+    train a worker over fsdp ranks (``state_specs`` over the FSDP axes)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.param import abstract
     for serving in (False, True):
         m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
         c = registry.padded_arch(arch, m)
-        specs = (dryrun.sh.partition_specs(
-            dryrun.transformer.model_defs(c), c, m) if serving
-            else dryrun.state_specs(c, m, base.VRLConfig()))
         fsdp = arch in (registry._FSDP_SERVE_ARCHS if serving
                         else registry._FSDP_ARCHS)
         assert (m.fsdp_size > 1) == fsdp
-        if fsdp and serving:
-            with pytest.raises(NotImplementedError,
-                               match="2D-sharded weights in serving"):
-                dryrun._refuse_fsdp(arch, specs, m, serving)
-        else:
-            dryrun._refuse_fsdp(arch, specs, m, serving)
+        if not serving:
+            specs = dryrun.state_specs(c, m, base.VRLConfig())
+            assert fsdp == any(
+                set(m.fsdp_axes) & set(dryrun._entry_axes(e))
+                for spec in dryrun.tree_mod.leaves(specs["params"])
+                for e in spec)
+            continue
+        sizes = dict(zip(m.axis_names, m.shape))
+        grid = c.family not in ("ssm", "hybrid")
+        split = set(m.tensor_axes if grid else ()) | set(m.fsdp_axes)
+        specs = dryrun.sh.partition_specs(transformer.model_defs(c), c, m)
+        whole = abstract(transformer.model_defs(c), torch.bfloat16)
+        seen = set()
+        for (path, t), (_, spec) in zip(
+                dryrun.tree_mod.leaves_with_path(whole),
+                dryrun.tree_mod.leaves_with_path(specs)):
+            got = dryrun.rank_block(t, spec, m, tensor=grid)
+            want = []
+            for n, e in zip(t.shape, spec):
+                axes = [a for a in dryrun._entry_axes(e) if a in split]
+                seen |= set(axes)
+                want.append(n // math.prod(sizes[a] for a in axes))
+            assert tuple(got.shape) == tuple(want), path
+        assert bool(seen & set(m.fsdp_axes)) == fsdp
+        assert bool(seen & set(m.tensor_axes)) == grid
 
 
 @pytest.mark.parametrize("multi", [False, True])
 @pytest.mark.parametrize("arch", SPEC_ARCHS)
 def test_rank_block_is_rank0s_share(arch, multi):
     """Rank 0's block of each input, by its spec: a train batch is one
-    worker's (1, b, ...), a serve batch and its cache 1/16 (1/32) of the
-    global batch over the data-like axes with every head whole (no tensor
-    parallelism), the whole batch where those axes do not divide it."""
+    worker's (1, b, ...); a serve batch and its cache 1/16 (1/32) of the
+    global batch over the data-like axes, the whole batch where those axes
+    do not divide it; on the serving grid the cache's kv heads, or where
+    they do not divide the 16 "model" ranks its slots, split over them
+    (``init_cache(tp=)``'s block), the ssm and hybrid families' cache with
+    its tensor axes whole."""
     from repro_torch.models import transformer
     for shape_id in registry.INPUT_SHAPES:
         shape = registry.get_shape(shape_id)
         serving = shape.kind != "train"
         m = registry.mesh_roles(arch, multi_pod=multi, serving=serving)
-        if m.fsdp_size > 1:
-            continue
         c = registry.padded_arch(arch, m)
         ins = dryrun.input_specs(arch, shape_id, m)
         if not serving:
+            if m.fsdp_size > 1:
+                continue
             spec = dryrun.batch_sharding_spec(
                 m, shape.global_batch // m.num_workers,
                 ins["tokens"].dim() - 2, worker_stacked=True)
             tok = dryrun.rank_block(ins["tokens"], spec, m)
             assert tok.shape == (1, *ins["tokens"].shape[1:])
             continue
+        grid = c.family not in ("ssm", "hybrid")
         spec = dryrun.batch_sharding_spec(m, shape.global_batch,
                                           ins["tokens"].dim() - 1,
                                           worker_stacked=False)
-        ranks = m.num_workers if shape.global_batch % m.num_workers == 0 \
-            else 1
+        data = m.num_workers * m.fsdp_size
+        ranks = data if shape.global_batch % data == 0 else 1
         b = shape.global_batch // ranks
-        tok = dryrun.rank_block(ins["tokens"], spec, m)
+        tok = dryrun.rank_block(ins["tokens"], spec, m, tensor=grid)
         assert tok.shape == (b, *ins["tokens"].shape[1:])
         if shape.kind == "decode":
             window = dryrun._decode_window(c, shape)
+            eff = min(window or shape.seq_len, shape.seq_len)
             cache = tree_map(
-                lambda t, s: dryrun.rank_block(t, s, m), ins["cache"],
-                dryrun.cache_specs(c, m, shape.global_batch, shape.seq_len))
+                lambda t, s: dryrun.rank_block(t, s, m, tensor=grid),
+                ins["cache"],
+                dryrun.cache_specs(c, m, shape.global_batch, eff))
+            tp = mesh_mod.dry_serve_mesh(m).tp if grid else None
             want = transformer.init_cache(c, b, shape.seq_len,
-                                          window=window, device="meta")
+                                          window=window, device="meta",
+                                          tp=tp)
             assert tree_map(lambda t: tuple(t.shape), cache) == \
                 tree_map(lambda t: tuple(t.shape), want), shape_id
+            if grid:
+                k = cache["k"].shape
+                assert (k[3] == c.num_kv_heads // 16
+                        if c.num_kv_heads % 16 == 0
+                        else k[2] == eff // 16), (shape_id, k)
 
 
 def _js(x):
