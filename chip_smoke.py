@@ -615,6 +615,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
      tokens (the same call with TF32 products printed beside it),
      bitwise run to run, three weight gathers and the aux mean over
      "data" and one output sum over "model" a call.
+   - (bl) the client store on row shards: qwen2-0.5b at
+     ``SHARD_LAYERS`` of its 24 layers, full width, vrl_sgd + sgd,
+     ``--workers 2 --clients 4 --participation 0.5 --mesh-grid --shards
+     2`` on (data 2 × shard 2), 2 rounds of k = 1 with a save after the
+     second, its ranks started at the phase's start beside (au)'s; its
+     twin the same flags in one process on the card.  Gates: every rank's
+     losses and launches bitwise the twin's; after each round every
+     rank's row block of the store bitwise the twin's block of it
+     (``--loss-out``'s ``store_digests``); each rank's store host bytes
+     the twin's row-split leaves ÷ 2 and its globals whole; its
+     "clients" all-gathers 1/2 of the bytes an unsharded grid's would
+     move; the ranks' save (rank 0 gathers its shard peer's rows)
+     restored into the twin's layout bitwise the twin's store.
    - (av) ``python -m repro_torch.scripts.chaos_smoke --device cuda
      --world 1 --cpu-init`` (NCCL), a child started at the phase's start:
      its gate, both final losses, the tolerance and the three streams'
@@ -721,8 +734,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    of the batch and its block of the KV cache; the collectives written by
    hand and counted as "tensor", "weights" and "moe"), every rank on the
    one card over gloo, its ranks ``chip_smoke.py --tp-ranks CASES DIR``
-   under the launcher, three launches at once ((bg) and (bh) share one
-   grid's ranks, in turn), started beside the twins, whose card they
+   under the launcher, three launches at once (the cases of one grid
+   share its ranks, in turn), started beside the twins, whose card they
    leave alone until the twins are done.  Random weights from one
    seed, wq and wk × 0.1 (the full-depth check's softening, phase 5);
    each case first served by its one-process twin on the whole padded
@@ -740,17 +753,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
      over the whole batch;
    - (bh) kimi-k2's smoke model over data 2 × model 2, bf16: the 2D
      layout (d dims over "data", gathered before each product) with the
-     shared expert.
+     shared expert;
+   - (bj) mamba2-370m at full width and depth (48 layers) over model 4,
+     fp32: ``ssm_inner`` over "model" (512 inner channels and 8 of the
+     32 SSM heads a rank, their state), the conv window whole (the new x
+     channels all-gathered each step); shares (be)'s launch, after it;
+   - (bk) hymba-1.5b at full width, 8 of 32 layers (the script's time),
+     over model 2, fp32: 30 heads padded from 25 split, kv 5 whole (the
+     window's 1024 slots split, the flash-decode), 25 of the 50 SSM heads
+     a rank, each branch summed before its norm in the fuse; shares
+     (bf)'s launch, after it.
    Gates: every rank's greedy tokens equal its twin's rows (or, where
    they part, a near-tie of the twin's top-2 logits, printed); each
    step's logits within 1e-4 · max|twin logits| in fp32 (the mesh limit
    of PERF.md §2), within 2^-5 of each row's max in bf16; no kernel
    launched; each rank's weight bytes (``torch.cuda.memory_allocated``
    after loading) equal to the spec count within the allocator's
-   rounding; the prefill's and a decode step's collectives equal to the
-   design count (``tp_design_count``).  Printed: prefill ms, decode ms a
-   token (median and spread) for the ranks and the twin, each rank's
-   weight bytes and peak, the collectives by kind.
+   rounding; each rank's prefill cache bytes equal to the spec count
+   (``cache_specs``); the prefill's and a decode step's collectives equal
+   to the design count (``tp_design_count``).  Printed: prefill ms,
+   decode ms a token (median and spread) for the ranks and the twin, each
+   rank's weight and cache bytes and peak, the collectives by kind.
    - (bi) (be)'s prefill and first decode step on a dry (1 × 4) serving
      grid (``launch.dryrun.lower_one``): FLOPs, launches and collectives
      equal to rank 0's on the card (``FlopCounterMode``); and, in a child
@@ -5880,6 +5903,16 @@ AT_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--batch",
            "bfloat16", "--compress", "int8", "--overlap", "--faults",
            "crash@1:3,rejoin@1:5", "--log-every", "1", "--ckpt-every", "4",
            "--shards", "2"]
+# (bl): the client store on row shards, 2 rounds of k = 1 with a save
+# after the second; a rank's store 3.1 GB of page-locked host memory; one
+# log line, at the end (each logged round evaluates x̂ through gloo)
+BL_ARGS = ["--arch", "qwen2-0.5b", "--layers", str(SHARD_LAYERS),
+           "--workers", "2", "--clients", "4", "--participation", "0.5",
+           "--batch", "2", "--seq", "64", "--steps", "2", "--k", "1",
+           "--lr", str(MAIN_LR), "--log-every", "2", "--shards", "2",
+           "--ckpt-every", "2"]
+BL_LAUNCHES = {"fused_local_sgd": 2, "fused_sync_vrl": 2}
+BL_TIMEOUT = 600
 # (au): phi3.5-moe's published widths, 16 experts top-2, no shared experts,
 # fp32, capacity factor E / k (no drop); 256 tokens a data rank
 AU_TOKENS = 512
@@ -6206,6 +6239,110 @@ def au_path(card, run) -> None:
           f"GiB; the launch {time.time() - t0:.1f} s; {card}", flush=True)
 
 
+def bl_start():
+    """(bl)'s ranks under the launcher, started at the phase's start beside
+    (au)'s -> (process, JSON path, log path, directory, checkpoint
+    directory, start time)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bl_")
+    out, log = os.path.join(tmp, "out.json"), os.path.join(tmp, "log.txt")
+    ck = os.path.join(tmp, "ckpt")
+    proc = start_ranks(BL_ARGS + ["--ckpt", ck], SHARD_WORLD, out, log)
+    return proc, out, log, tmp, ck, time.time()
+
+
+def bl_path(vu, card, launch, run) -> None:
+    """(bl): the client store on row shards (``bl_start``'s ranks) against
+    its twin, the same flags in one process on the card: losses and
+    launches bitwise; every rank's row block of the store after each round
+    bitwise the twin's block of it; a rank's store bytes and "clients"
+    bytes 1/2 of the row-split ones; the ranks' save restored into the
+    twin's layout bitwise the twin's store."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree as tree_mod
+    proc, out, log, tmp, ck, t0 = run
+    try:
+        ranks = ranks_result("(bl)", proc, out, log, SHARD_WORLD,
+                             timeout=BL_TIMEOUT)
+        t_ranks = time.time() - t0
+        t1 = time.time()
+        vu.reset_launches()
+        twin_out = os.path.join(tmp, "twin.json")
+        one = launch.run(BL_ARGS + ["--loss-out", twin_out])
+        t_twin = time.time() - t1
+        check_launches("(bl) twin", dict(vu.LAUNCHES), BL_LAUNCHES)
+        same_ranks("(bl)", ranks, one, BL_LAUNCHES)
+        twin = json.load(open(twin_out))
+        rounds = len(twin["store_digests"])
+        for r, res in enumerate(ranks):
+            if len(res["store_digests"]) != rounds or rounds != 2:
+                raise AssertionError(f"(bl): rank {r} hashed "
+                                     f"{len(res['store_digests'])} stores, "
+                                     f"the twin {rounds}")
+            for i, (got, want) in enumerate(zip(res["store_digests"],
+                                                twin["store_digests"])):
+                for key, blocks in got.items():
+                    w = want[key][0 if len(want[key]) == 1
+                                  else res["shard"]]
+                    if blocks != [w]:
+                        raise AssertionError(
+                            f"(bl): rank {r} (shard {res['shard']}) store "
+                            f"{key} after round {i + 1} is not the twin's "
+                            f"block")
+        store = one.store
+        split = whole = 0
+        for _, leaf in tree_mod.state_leaves(store.to_tree()["clients"]):
+            if isinstance(leaf, torch.Tensor) and leaf.dim() >= 2:
+                split += leaf.numel() * leaf.element_size()
+            else:
+                whole += (leaf.numel() * leaf.element_size()
+                          if isinstance(leaf, torch.Tensor) else 4)
+        rows, lanes = one.state.params.shape[-2:]
+        # params and Δ, one worker slot a worker rank, fp32: what a round's
+        # scatter would all-gather on an unsharded grid
+        unsharded = 2 * rows * lanes * 4
+        for r, res in enumerate(ranks):
+            c = res["collectives"]["clients"]
+            if (res["store_bytes"] != split // 2 + whole
+                    or set(c) != {"pod+data"}
+                    or c["pod+data"]["bytes"] * 2 != rounds * unsharded
+                    or c["pod+data"]["calls"] != 2 * rounds):
+                raise AssertionError(
+                    f"(bl): rank {r} store {res['store_bytes']} B (want "
+                    f"{split // 2 + whole}), clients {c} (unsharded "
+                    f"{unsharded} B a round)")
+        t2 = time.time()
+        last = twin["store_digests"][-1]
+        store.load_tree(ckpt.restore(ckpt.step_dir(ck, 2), store.to_tree()))
+        if store.block_digests(2) != last:
+            raise AssertionError("(bl): the ranks' save restored into the "
+                                 "twin's layout is not the twin's store")
+        t_restore = time.time() - t2
+        c0 = ranks[0]["collectives"]
+        print(f"[12 shards (bl)] qwen2-0.5b at {SHARD_LAYERS} of 24 layers, "
+              f"W = 2 over M = 4 clients, vrl_sgd + sgd, 2 rounds of k = 1 "
+              f"on gloo (data 2 x shard 2): the ranks' losses "
+              f"{['%.6f' % x for x in one.losses]} and launches "
+              f"{BL_LAUNCHES} bitwise the twin's; after each round every "
+              f"rank's row block of the store bitwise the twin's block; a "
+              f"rank's store {ranks[0]['store_bytes']} B host (the twin "
+              f"{store.nbytes} B: {split} of rows ÷ 2 + {whole} B of "
+              f"globals); \"clients\" "
+              f"{c0['clients']['pod+data']['bytes'] // rounds} B a round a "
+              f"rank ({unsharded} on an unsharded grid), save gathered "
+              f"{json.dumps(c0.get('checkpoint'))}; the step-2 save "
+              f"restored into the twin's layout bitwise its store; rank "
+              f"0's gather / scatter s a round "
+              f"{json.dumps(ranks[0]['store_s'])}, the twin's "
+              f"{json.dumps(twin['store_s'])}; the ranks {t_ranks:.1f} s from their launch, the twin "
+              f"{t_twin:.1f} s, the restore and its check {t_restore:.1f} "
+              f"s; {card}", flush=True)
+        del one, store
+        free()
+    finally:
+        stop_ranks(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def start_chaos():
     """(av): ``python -m repro_torch.scripts.chaos_smoke --device cuda
     --world 1 --cpu-init`` (NCCL; from the CPU's draw of the init), a
@@ -6257,18 +6394,22 @@ def shards_phase(dev, vu, card) -> None:
     t12 = time.time() - START
     print(f"[12 shards] from {t12:.1f} s of the script; reckoned: (as) "
           f"~40 s (four gloo ranks, 2 steps through the host, then two "
-          f"one-process runs), (at) ~50 s (two launches), (au)'s ranks and "
-          f"(av) beside them: ~100 s; {card}", flush=True)
+          f"one-process runs), (at) ~50 s (two launches), (au)'s and "
+          f"(bl)'s ranks and (av) beside them, (bl)'s twin ~20 s: ~120 s; "
+          f"{card}", flush=True)
     free()
     chaos = start_chaos()
     au = au_start()
+    bl = bl_start()
     try:
         as_path(vu, card, launch)
         at_path(vu, card, launch)
         au_path(card, au)
+        bl_path(vu, card, launch, bl)
         av_result(chaos, card)
     finally:
-        for proc, tmp in ((chaos[0], chaos[2]), (au[0], au[3])):
+        for proc, tmp in ((chaos[0], chaos[2]), (au[0], au[3]),
+                          (bl[0], bl[3])):
             stop_ranks(proc)
             shutil.rmtree(tmp, ignore_errors=True)
     print(f"[12 shards] {time.time() - START - t12:.1f} s; the script "
@@ -7311,17 +7452,20 @@ TP_BATCH, TP_PROMPT, TP_GEN = 4, 32, 8
 TP_SEED = 16
 TP_RTOL = 1e-4                  # fp32 logits, × max|twin logits| (§2 mesh)
 TP_PHI_LAYERS = 2               # of 32: the four cases' ranks share 80 GB
+TP_HYMBA_LAYERS = 8             # of 32: the script's time
 # case: (arch, layers (None: all; "smoke": the smoke model), (data,
 # model), dtype name)
 TP_CASES = {"be": ("qwen2-0.5b", None, (1, 4), "float32"),
             "bf": ("granite-3-2b", None, (1, 2), "float32"),
             "bg": (PHI, TP_PHI_LAYERS, (2, 2), "float32"),
-            "bh": (KIMI, "smoke", (2, 2), "bfloat16")}
+            "bh": (KIMI, "smoke", (2, 2), "bfloat16"),
+            "bj": (MAMBA, None, (1, 4), "float32"),
+            "bk": (HYMBA, TP_HYMBA_LAYERS, (1, 2), "float32")}
 TP_TIMEOUT = 400
 # the launches, all at once (each spends ~30 s importing torch beside the
 # others, more than its collectives lose to the contexts' time slices);
-# (bg) and (bh) share one grid's ranks, in turn
-TP_LAUNCHES = (("be",), ("bf",), ("bg", "bh"))
+# the cases of one grid share its ranks, in turn
+TP_LAUNCHES = (("be", "bj"), ("bf", "bk"), ("bg", "bh"))
 
 
 def tp_case(case: str):
@@ -7348,10 +7492,13 @@ def tp_prompt(cfg, dev) -> torch.Tensor:
 
 
 def tp_soften(params) -> None:
-    """wq and wk × 0.1 in place (whole leaves or a rank's blocks alike)."""
-    attn = params["layers"]["attn"]
-    attn["wq"].mul_(0.1)
-    attn["wk"].mul_(0.1)
+    """wq and wk × 0.1 in place (whole leaves or a rank's blocks alike;
+    the hybrid's attention branch; the ssm family has none)."""
+    layers = params["layers"]
+    attn = layers["hyb"]["attn"] if "hyb" in layers else layers.get("attn")
+    if attn is not None:
+        attn["wq"].mul_(0.1)
+        attn["wk"].mul_(0.1)
 
 
 def tp_blocks(cfg, smesh, dtype, dev) -> dict:
@@ -7383,6 +7530,7 @@ def tp_engine(cfg, params, dev, smesh=None, flops=False):
     also their FLOPs (``FlopCounterMode`` around those two calls: its
     Python dispatch adds ms to calls that gloo makes seconds long)."""
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree as tree_mod
     from repro_torch.comm import collectives as coll
     from repro_torch.serve.engine import Engine
 
@@ -7406,6 +7554,8 @@ def tp_engine(cfg, params, dev, smesh=None, flops=False):
         def prefill(self, prompt):
             out = self._call(super().prefill, "prefill", prompt)
             self.logits = [out[0]]
+            self.cache_bytes = sum(t.numel() * t.element_size()
+                                   for t in tree_mod.leaves(out[1]))
             return out
 
         def step(self, cache, tokens, pos, batch=None):
@@ -7449,17 +7599,22 @@ def tp_design_count(case: str, fn: str) -> dict:
     calls} (``tests/test_torch_tp_serve.py``'s ``design_count``): per
     layer a "tensor" sum after ``wo`` where the heads split and one after
     the MLP or the routed experts, in decode with the cache split by slots
-    the query's gather (heads split), the max and the sum; one sum for the
-    embedding and one gather of the logits; "moe" one count gather a
-    routed layer where the batch splits; "weights" one gather a weight a
-    use on the FSDP ranks (13 a MoE layer with a shared expert, and the
-    final norm, lm_head and embedding)."""
+    the query's gather (heads split), the max and the sum; an SSM block
+    whose inner channels split three (the x channels' gather, the gated
+    norm's sum, the sum after ``out_proj``); one sum for the embedding
+    and one gather of the logits; "moe" one count gather a routed layer
+    where the batch splits; "weights" one gather a weight a use on the
+    FSDP ranks (13 a MoE layer with a shared expert, and the final norm,
+    lm_head and embedding)."""
     cfg, roles, _ = tp_case(case)
     t, layers = roles.tensor_size, cfg.num_layers
-    heads = cfg.num_heads % t == 0
-    per = int(heads) + 1
-    if fn == "decode" and cfg.num_kv_heads % t:
+    attn = cfg.family != "ssm"
+    heads = attn and cfg.num_heads % t == 0
+    per = int(heads) + int(attn)
+    if fn == "decode" and attn and cfg.num_kv_heads % t:
         per += 2 + int(heads)
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_d_inner % t == 0:
+        per += 3
     counts = {"tensor": layers * per + 2}
     if cfg.family == "moe" and roles.num_workers * roles.fsdp_size > 1:
         counts["moe"] = layers
@@ -7589,12 +7744,32 @@ def tp_rank_case(case: str, dev, out: str) -> dict:
     rec.update(prefill_ms=timings["prefill_ms"],
                decode_ms=timings["decode_ms"], counts=eng.counts,
                flops=eng.flops, peak=torch.cuda.max_memory_allocated(dev),
-               rows=[rows.start, rows.stop])
+               rows=[rows.start, rows.stop], cache_bytes=eng.cache_bytes,
+               cache_spec_bytes=tp_cache_spec_bytes(cfg, roles, dtype))
     stamps["generated"] = time.time() - START
     twin = torch.load(os.path.join(out, f"twin_{case}.pt"))
     rec.update(tp_compare(case, tokens.cpu(), eng.logits, twin, rows))
     stamps["compared"] = time.time() - START
     return rec
+
+
+def tp_cache_spec_bytes(cfg, roles, dtype) -> int:
+    """A rank's bytes of the prefill cache by the specs: the whole
+    batch's cache (``init_cache`` on meta tensors; the window's slots, or
+    the prompt and generated tokens') cut by ``cache_specs``."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import transformer
+    from repro_torch.sharding import specs as sh
+    w = cfg.attn_window
+    slots = w if w else TP_PROMPT + TP_GEN
+    whole = transformer.init_cache(cfg, TP_BATCH, slots, dtype=dtype,
+                                   window=w, device="meta")
+    sizes = dict(zip(roles.axis_names, roles.shape))
+    return sum(math.prod(sh.block_shape(t.shape, spec, sizes))
+               * t.element_size() for t, spec in zip(
+                   tree_mod.leaves(whole),
+                   tree_mod.leaves(sh.cache_specs(cfg, roles, TP_BATCH,
+                                                  slots))))
 
 
 def tp_dry_rows(out: str) -> int:
@@ -7750,20 +7925,25 @@ def tp_report(case: str, recs: list, twin: dict, card: str) -> None:
         # one keeping its segment's unsplit remainder (< 1 MiB)
         slack = r["leaves"] << 20
         if (got != want or r["launches"]
-                or not 0 <= r["weights"] - r["spec_bytes"] <= slack):
+                or not 0 <= r["weights"] - r["spec_bytes"] <= slack
+                or r["cache_bytes"] != r["cache_spec_bytes"]):
             raise AssertionError(
                 f"({case}) rank {r['rank']}: collectives {got} (design "
                 f"{want}), launches {r['launches']}, weight bytes "
-                f"{r['weights']} against the spec count {r['spec_bytes']}")
+                f"{r['weights']} against the spec count {r['spec_bytes']}, "
+                f"cache bytes {r['cache_bytes']} against "
+                f"{r['cache_spec_bytes']}")
     arch, layers, grid, dt = TP_CASES[case]
     depth = (f"{cfg.num_layers} layers" if layers is None else
              "the smoke model" if layers == "smoke" else
              f"{layers} of 32 layers")
     tw = np.array(twin["decode_ms"])
     ties = [r["tie"] for r in recs if r["tie"]]
+    ssm = (f", SSM heads {cfg.ssm_num_heads} over d_inner "
+           f"{cfg.ssm_d_inner}" if cfg.ssm_state else "")
     print(f"[16 tp ({case})] {arch}, {depth}, {dt}, over data {grid[0]} x "
-          f"model {grid[1]} (heads {cfg.num_heads}, kv {cfg.num_kv_heads}, "
-          f"vocab {cfg.vocab_size}), batch {TP_BATCH} x {TP_PROMPT} + "
+          f"model {grid[1]} (heads {cfg.num_heads}, kv {cfg.num_kv_heads}"
+          f"{ssm}, vocab {cfg.vocab_size}), batch {TP_BATCH} x {TP_PROMPT} + "
           f"{TP_GEN}: every rank's greedy tokens "
           f"{'equal to the twin' + chr(39) + 's' if not ties else 'part at a near-tie ' + json.dumps(ties)}; "
           f"logits within {max(r['err'] for r in recs):.3e} of the twin's "
@@ -7781,7 +7961,8 @@ def tp_report(case: str, recs: list, twin: dict, card: str) -> None:
               f"rows {r['rows']}: prefill {r['prefill_ms']:.1f} ms, decode "
               f"median {np.median(d):.2f} ms a token "
               f"({d.min():.2f}-{d.max():.2f}); weights {r['weights']} B "
-              f"(spec count {r['spec_bytes']}); peak "
+              f"(spec count {r['spec_bytes']}); cache {r['cache_bytes']} B "
+              f"(spec count {r['cache_spec_bytes']}); peak "
               f"{r['peak'] / 2**30:.2f} GiB; load {r['load_s']:.1f} s; "
               f"collectives of a decode step "
               f"{json.dumps(r['counts']['decode'])}", flush=True)

@@ -36,20 +36,33 @@ health of the physical slots (crash/rejoin faults compose with sampling),
 so it stays on the device and never round-trips the store; ``scatter``
 skips the rows of dead slots, leaving those clients as they were.
 
-On a mesh (``mesh=``, a ``comm.collectives.WorkerMesh``: each rank holds
-its block of the W slots) every rank keeps a whole copy of the store:
-``gather`` installs this rank's slots of the cohort, and ``scatter``
-all-gathers every rank's updated rows (counted "clients") so that every
-copy takes the same writes and stays the same.
+On a mesh (``mesh=``, a ``comm.collectives.WorkerMesh``: each worker
+rank holds its block of the W slots) every worker rank keeps a copy of
+the store: ``gather`` installs this rank's slots of the cohort, and
+``scatter`` all-gathers every worker rank's updated rows over the worker
+axes (counted "clients") so that every copy takes the same writes and
+stays the same.  On a grid with a shard axis (the engine's rows split
+over S shard ranks, ``EngineConfig.shards``) each rank's store holds
+every client's rows of its shard block, R/S of each (M, R, C) leaf, as
+its state holds them: the row-split globals and ``server_params`` its
+block too (``launch.mesh.store_block`` and ``gather_store`` carry the
+store between the ranks and its one checkpoint file).  The gather copies
+the cohort's rows of that block, the scatter all-gathers over the worker
+axes within the rank's shard column only (1/S of the bytes of an
+unsharded grid), and the dead-slot skip and the consensus refresh act on
+each block as they act on whole rows.
 """
 from __future__ import annotations
 
+import hashlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.comm import collectives as coll
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.types import MemberState, OverlapState
 
@@ -110,9 +123,12 @@ class ClientStore:
                 f"is not ported: its slots follow the global rank, and "
                 f"every fsdp rank would hold the same worker's rows")
         w = int(state.params.shape[0])
-        rank = 0 if mesh is None else mesh.rank
+        # this worker rank's index on the (pod, data) grid (its shard
+        # peers hold the same slots)
+        rank = 0 if mesh is None else int(np.ravel_multi_index(
+            mesh.index(coll.AXES), mesh.shape[:2]))
         self.mesh = mesh
-        self.cohort_size = w * (1 if mesh is None else mesh.size())
+        self.cohort_size = w * (1 if mesh is None else mesh.size(coll.AXES))
         # this rank's slots of the cohort
         self._slots = np.arange(rank * w, (rank + 1) * w)
         if num_clients < self.cohort_size:
@@ -233,10 +249,11 @@ class ClientStore:
         for i, ((key, lf), per_client) in enumerate(zip(leaves,
                                                         self._is_client)):
             if per_client:
-                # every slot's row: this rank's, or on a mesh every rank's
+                # every slot's row: this rank's, or on a mesh every worker
+                # rank's (of this rank's shard block)
                 rows = (lf if self.mesh is None else
-                        self.mesh.all_gather(lf, kind="clients").flatten(
-                            0, 1))
+                        self.mesh.all_gather(lf, kind="clients",
+                                             axes=coll.AXES).flatten(0, 1))
                 if key == "params":
                     p = rows
                 for j, c in enumerate(cohort):
@@ -306,6 +323,41 @@ class ClientStore:
             else:
                 self._leaves[i] = int(theirs)
         self.server_params.copy_(torch.as_tensor(server))
+
+    def block_digests(self, parts: int = 1) -> dict:
+        """{leaf key: [the SHA-256 of each of ``parts`` row blocks]} of the
+        store's tree (``to_tree``'s keys): a leaf with rows (dim -2) cut
+        into ``parts`` equal blocks, each hashed over every client in
+        order; a 0-d or 1-d leaf or a host integer hashed whole, once.  A
+        row-sharded rank's store (``parts`` 1) and one process's at the
+        same ``shards`` layout (``parts`` S) then compare block by block
+        without moving the store.  The blocks hash on threads (hashlib
+        releases the GIL)."""
+        def one(x: np.ndarray, j: int) -> str:
+            h = hashlib.sha256()
+            if x.ndim < 2:
+                h.update(np.ascontiguousarray(x))
+                return h.hexdigest()
+            r = x.shape[-2] // parts
+            for blk in x.reshape(-1, *x.shape[-2:]):
+                h.update(np.ascontiguousarray(blk[j * r:(j + 1) * r]))
+            return h.hexdigest()
+
+        jobs = {}
+        for key, lf in tree_mod.state_leaves(self.to_tree()):
+            if not isinstance(lf, torch.Tensor):
+                lf = torch.tensor(int(lf), dtype=torch.int64)
+            x = lf.detach()
+            if x.dtype == torch.bfloat16:
+                x = x.view(torch.int16)
+            x = x.cpu().numpy()
+            jobs[key] = [(x, j) for j in range(parts if x.ndim >= 2
+                                               else 1)]
+        with ThreadPoolExecutor() as pool:
+            futs = {key: [pool.submit(one, x, j) for x, j in js]
+                    for key, js in jobs.items()}
+            return {key: [f.result() for f in fs]
+                    for key, fs in futs.items()}
 
     def global_leaf(self, name: str):
         """A stored global leaf by state field name (e.g. ``step``)."""

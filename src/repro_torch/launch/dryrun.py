@@ -39,9 +39,9 @@ cache with the tensor axes split (``rank_block`` by ``partition_specs``,
 ``batch_sharding_spec``, ``cache_specs``; kimi-k2's weights over the
 FSDP axes too), the step's collectives are counted on the dry mesh and
 priced, and ``chips`` is the whole grid.  The ssm and hybrid families'
-serving rows keep their weights whole on a rank (their ``ssm_inner``
-split is not ported): their blocks hold the tensor axes whole and their
-``chips`` count the data-like axes.
+SSM blocks split by the ``ssm_inner`` rule and their state by heads
+where the heads divide the tensor axis (``models.ssm``), as every
+family's rows do.
 
 ``engine_mem`` builds the engine state with ``make_engine`` and ``init``
 on meta tensors and sizes every buffer under the reference's placement
@@ -104,7 +104,6 @@ from repro_torch.train.train_loop import make_train_step
 META = torch.device("meta")
 
 
-_axis_size = sh.axis_size
 _entry_axes = sh.entry_axes
 
 
@@ -200,8 +199,7 @@ def rank_block(t: torch.Tensor, spec: tuple, mesh_cfg: MeshConfig,
                tensor: bool = False) -> torch.Tensor:
     """Rank 0's block of a meta tensor laid out by ``spec``: each dim split
     over its entry's ranks, the tensor axes held whole unless ``tensor``
-    (serving on the grid splits them; training and the ssm and hybrid
-    families' serving do not)."""
+    (serving on the grid splits them; training does not)."""
     sizes = dict(zip(mesh_cfg.axis_names, mesh_cfg.shape))
     skip = () if tensor else tuple(mesh_cfg.tensor_axes)
     return torch.empty(sh.block_shape(t.shape, spec, sizes, skip),
@@ -456,6 +454,12 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
       client_store_bytes — with ``clients`` = M > 0: the HOST bytes of a
                            client store of M clients behind the W slots
                            (each per-participant leaf × M/W, globals once)
+      client_store_rank_bytes
+                         — with ``clients``: one rank's store on a grid
+                           with ``shards`` row shards (every leaf whose rows
+                           split over them ÷ S, the rest whole; the
+                           client store's row split, ``launch.mesh
+                           .store_block``)
 
     ``port`` sizes the state the port trains at the same point, the same
     layout (its ``param_dtype``, ``delta_dtype``, ``total_bytes``,
@@ -511,17 +515,25 @@ def engine_mem(arch_id: str, *, algorithm: str = "vrl_sgd",
             raise ValueError(f"clients ({clients}) must be >= workers "
                              f"({workers}) — the cohort size is the "
                              f"worker count")
-        store = 0
+        store = rank = 0
         for b in bufs.values():
             per_participant = (len(b["shape"]) >= 3
                                and b["shape"][0] == workers)
-            store += (b["bytes"] // workers * clients if per_participant
-                      else b["bytes"])
+            nb = (b["bytes"] // workers * clients if per_participant
+                  else b["bytes"])
+            store += nb
+            rows = b["shape"][-2] if len(b["shape"]) >= 2 else 1
+            rank += (nb // shards if shards > 1 and rows > 1
+                     and rows % shards == 0 else nb)
         art["clients"] = clients
         art["client_store_bytes"] = store
+        art["client_store_rank_bytes"] = rank
     if verbose:
         extra = (f", client store {art['client_store_bytes']/2**30:.2f} "
-                 f"GiB host (M={clients})" if clients else "")
+                 f"GiB host (M={clients})"
+                 + (f", {art['client_store_rank_bytes']/2**30:.2f} a rank "
+                    f"of {shards} row shards" if shards > 1 else "")
+                 if clients else "")
         print(f"[engine-mem] {arch_id} {algorithm}/{inner} W={workers} "
               f"shards={shards} moments={moment_dtype}"
               f"{'+sm3' if sm3 else ''}: the reference's layout and the "
@@ -572,8 +584,7 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
     ``batch_sharding_spec``'s rule); serving runs on the dry serving grid
     as its rank 0 (``launch.mesh.dry_serve_mesh``), with its blocks of the
     weights, the batch and the cache (``partition_specs``,
-    ``batch_sharding_spec``, ``cache_specs``; the ssm and hybrid families
-    with whole weights, the module's docstring).
+    ``batch_sharding_spec``, ``cache_specs``).
     ``one_process`` runs the
     whole batch in one process instead, with no mesh (as a one-card run
     does).  ``mesh_override`` replaces fields of the arch's
@@ -696,10 +707,6 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             mf *= rk
         chips = math.prod(mesh.shape) if mesh is not None else 1
     elif fn_kind in ("prefill", "decode"):
-        # the ssm and hybrid families serve with whole weights (their
-        # ssm_inner split is not ported): their rows keep the tensor axes
-        # whole and count the data-like axes' ranks
-        grid = not one_process and cfg.family not in ("ssm", "hybrid")
         params = abstract(transformer.model_defs(cfg), param_dtype)
         ins = input_specs(arch_id, shape_id, mesh_cfg, cfg,
                           shape=dataclasses.replace(shape, kind=fn_kind),
@@ -707,23 +714,18 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
         spec = batch_sharding_spec(mesh_cfg, shape.global_batch,
                                    ins["tokens"].dim() - 1,
                                    worker_stacked=False)
-        groups = None
-        if grid:
+        groups, chips = None, 1
+        if not one_process:
             smesh = dry_serve_mesh(mesh_cfg)
             mesh, groups = smesh.mesh, smesh.groups(shape.global_batch)
             params = tree_mod.tree_map(
                 lambda t, s: rank_block(t, s, mesh_cfg, tensor=True),
                 params, smesh.specs(cfg))
             chips = math.prod(mesh_cfg.shape)
-        else:
-            # one rank a slice of the batch over the data-like axes, the
-            # whole batch where they do not divide it (the reference's rule)
-            chips = 1 if one_process else _axis_size(mesh_cfg,
-                                                      _entry_axes(spec[0]))
 
         def block(t, spec):
             return t if one_process else rank_block(t, spec, mesh_cfg,
-                                                    tensor=grid)
+                                                    tensor=True)
         tokens = block(ins["tokens"], spec)
         if fn_kind == "prefill":
             fn = make_prefill(cfg, shape.seq_len, last_only=last_only,
@@ -736,7 +738,7 @@ def lower_one(arch_id: str, shape_id: str, *, multi_pod: bool,
             cspec = cache_specs(cfg, mesh_cfg, shape.global_batch,
                                 min(eff, shape.seq_len))
             cache = tree_mod.tree_map(block, ins["cache"], cspec)
-            if grid:
+            if not one_process:
                 # the block the step reads; a cache whose slots do not
                 # split over the tensor ranks is refused there
                 want = transformer.init_cache(

@@ -25,7 +25,9 @@ the row shards when ``shards`` > 1 (``make_engine_mesh`` with its
 ``fsdp_size`` builds that grid over a process group).  ``gather_state``
 and ``state_block`` carry a checkpoint between a mesh and its one file
 (the state replicated along fsdp: a save reads fsdp index 0, a restore
-gives every fsdp rank the same block).
+gives every fsdp rank the same block); ``gather_store`` and
+``store_block`` do the same for a client store, whose rows split over a
+shard axis as the state's do.
 
 The serving grid (``serve_grid``) is the ``MeshConfig``'s own, over its
 axis names (("data", "model"), ("pod", "data", "model") on the multi-pod
@@ -432,4 +434,68 @@ def gather_state(mesh: WorkerMesh, state, pods: int = 0):
                           for pi in range(p_r)], 0)
 
     full = tree_mod.state_map(one, state)
+    return full if root else None
+
+
+# ---------------------------------------------------------- client store
+# A client store's checkpoint (``core.clients.ClientStore.to_tree``: the
+# state-shaped "clients" tree of (M, ...) leaves and "server_params") is
+# one file whatever the grid.  Every worker rank keeps a copy of the
+# store; on a shard axis a rank's copy holds its shard block of the rows
+# of every leaf whose rows split (``_row_split``, the state's rule).
+
+def _store_split(key: str, ndim: int) -> bool:
+    """Whether a store leaf's rows (dim -2) split over the shard axis: a
+    "clients/..." leaf by its state key's rule, ``server_params`` (one
+    parameter row block) always."""
+    if key == "server_params":
+        return True
+    return _row_split(key.split("/", 1)[1], ndim)
+
+
+def store_block(mesh: WorkerMesh) -> Block:
+    """The ``checkpoint.Block`` of this rank's client store: its shard
+    block of the rows of every row-split leaf (every worker rank the
+    same), the rest whole."""
+    s_r, si = mesh.shards, (mesh.index((SHARD,))[0] if mesh.shards > 1
+                            else 0)
+
+    def full_shape(key: str, shape: tuple) -> tuple:
+        full = list(shape)
+        if s_r > 1 and _store_split(key, len(full)):
+            full[-2] *= s_r
+        return tuple(full)
+
+    def take(key: str, arr: np.ndarray) -> np.ndarray:
+        if s_r > 1 and _store_split(key, arr.ndim):
+            r = arr.shape[-2] // s_r
+            arr = arr[..., si * r:(si + 1) * r, :]
+        return arr
+
+    return Block(take, full_shape)
+
+
+def gather_store(mesh: WorkerMesh, tree):
+    """The whole client store tree (host tensors) on rank 0, None on the
+    other ranks: on a shard axis one gather a row-split leaf over worker
+    rank 0's shard ranks (the other worker ranks' copies are the same and
+    take no part), counted "checkpoint", the blocks joined in shard
+    order; without one rank 0's tree as it is."""
+    root = mesh.rank == 0
+    if mesh.shards == 1:
+        return tree if root else None
+    if any(mesh.index(AXES)):
+        return None
+
+    def one(key, leaf):
+        if not (isinstance(leaf, torch.Tensor)
+                and _store_split(key, leaf.dim())):
+            return leaf if root else None
+        x = leaf.detach().to(coll.wire_device(mesh)).contiguous()
+        parts = ([torch.empty_like(x) for _ in range(mesh.shards)]
+                 if root else None)
+        mesh.gather(x, parts, axes=(SHARD,))
+        return torch.cat([q.cpu() for q in parts], -2) if root else None
+
+    full = tree_mod.state_map(one, tree)
     return full if root else None

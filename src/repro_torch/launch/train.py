@@ -105,7 +105,8 @@ the shard group before every forward; the round's worker mean a
 per-shard all-reduce; a save gathers the rows, a restore takes each
 rank's block), e.g. ``--nproc-per-node 4 ... --workers 2 --mesh-grid
 --shards 2`` (data 2 × shard 2); without a mesh they are layout only.
-``--clients`` is refused with row shards on a mesh.  ``--profile-round N``
+With ``--clients`` each rank's client store then holds its shard block
+of every client's rows.  ``--profile-round N``
 prints the round's busiest operations and, with ``--profile-dir DIR``,
 writes its ``torch.profiler`` trace there as Chrome-trace JSON.  Full
 width trains with activation checkpointing (``remat``), the smoke variant
@@ -127,8 +128,10 @@ and B recentred, EF residuals dropped) and re-splitting the saved data
 assignment (which, as in the reference, cannot grow the workers past
 its shard count); a checkpoint at or past ``--steps`` only evaluates the
 restored model.  Under ``--mesh-grid`` a save gathers every rank's block
-to rank 0, which writes the one file (a client store, whole on every
-rank, it writes as it is); a resume reads it on every rank.
+to rank 0, which writes the one file (a client store: its own copy, or on
+a shard axis its shard peers' row blocks gathered to it,
+``launch.mesh.gather_store``); a resume reads it on every rank, each
+taking its block (``launch.mesh.state_block``, ``store_block``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --workers 2 --steps 6 --k 2 --batch 2 --seq 32 \\
@@ -174,9 +177,11 @@ unchanged (one model-state mean) and the healthy round's rows scatter
 back; M = W is bitwise the storeless run.  ``--participation p`` checks
 that round(p · M) = W.  A checkpoint then holds the store (the JAX
 package's "clients/..." and "server_params" keys).  Under ``--mesh-grid``
-every rank keeps a whole copy of the store and gathers its own slots; a
-scatter all-gathers the cohort's rows to every copy.  Refused, as in the
-reference: with the hierarchy, ``--overlap``, ``--no-round`` and
+every worker rank keeps a copy of the store and gathers its own slots; a
+scatter all-gathers the cohort's rows over the worker axes to every copy;
+with ``--shards S`` each rank's copy holds its shard block of the rows
+(R/S of every client's), and a scatter moves only those.  Refused, as
+in the reference: with the hierarchy, ``--overlap``, ``--no-round`` and
 ``--backend reference``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -485,11 +490,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--no-round")
     if args.shards < 1:
         raise SystemExit(f"--shards must be >= 1, got {args.shards}")
-    if args.shards > 1 and args.mesh_grid and args.clients:
-        raise SystemExit(
-            "--clients with --shards > 1 on --mesh-grid: the client store "
-            "keeps whole rows on every rank, the row-sharded engine 1/S of "
-            "them a rank; run the store with --shards 1 on a mesh")
     if args.ckpt_every <= 0:
         raise SystemExit(f"--ckpt-every must be a positive step count, "
                          f"got {args.ckpt_every}")
@@ -863,14 +863,15 @@ def _train(args: argparse.Namespace, device: torch.device,
         meta = {"step": t, "arch": args.arch, "workers": args.workers,
                 "assignment": partition_mod.assignment_to_meta(assignment)}
         if store is not None:
-            # the STORE (every client's state, (M, ...) leaves + the shared
-            # globals), not the cohort window; the layout, compressor and
-            # moment metadata ride along so a mismatched restore fails
+            # ``state`` is the STORE's tree (every client's state, (M, ...)
+            # leaves + the shared globals, ``on_rank0``), not the cohort
+            # window; the layout, compressor and moment metadata ride
+            # along so a mismatched restore fails
             meta["clients"] = args.clients
             meta["flat_spec"] = eng.spec.meta()
             meta["compressors"] = comm_mod.pair_meta(eng.compressors)
             meta["moments"] = ckpt.moments_meta(vrl)
-            ckpt.save(path, store.to_tree(), meta=meta)
+            ckpt.save(path, state, meta=meta)
             return
         if eng is None:
             ckpt.save(path, state, meta=meta)
@@ -881,13 +882,15 @@ def _train(args: argparse.Namespace, device: torch.device,
             moments=ckpt.moments_meta(vrl))
 
     def on_rank0(state):
-        """What rank 0 saves: on a mesh the whole grid's state gathered to
-        it (None on the other ranks); under ``--clients`` the state as it
-        is, the store being whole on every rank."""
+        """What rank 0 saves (None on the other ranks): the state, on a
+        mesh the whole grid's gathered to it; under ``--clients`` the
+        store's tree, on a shard axis its row blocks gathered to it."""
+        if store is not None:
+            tree = store.to_tree()
+            return tree if mesh is None else mesh_mod.gather_store(mesh,
+                                                                  tree)
         if mesh is None:
             return state
-        if store is not None:
-            return state if mesh.rank == 0 else None
         return mesh_mod.gather_state(mesh, state, pods)
 
     def checkpoint(state, t: int) -> None:
@@ -941,7 +944,9 @@ def _train(args: argparse.Namespace, device: torch.device,
                 recorded, eng.spec,
                 compressors=comm_mod.pair_meta(eng.compressors),
                 moments=ckpt.moments_meta(vrl))
-            store.load_tree(ckpt.restore(path, store.to_tree()))
+            store.load_tree(ckpt.restore(
+                path, store.to_tree(),
+                block=None if mesh is None else mesh_mod.store_block(mesh)))
             return state
         if "clients" in recorded:
             raise ValueError(
@@ -1037,7 +1042,8 @@ def _train(args: argparse.Namespace, device: torch.device,
     misses: List[tuple] = []
     elastic = {"snapshot_s": [], "rollback_s": [], "membership_s": [],
                "gather_s": [], "scatter_s": [], "rollbacks": [],
-               "masks": [], "store_bytes": (store.nbytes if store is not None
+               "masks": [], "store_digests": [],
+               "store_bytes": (store.nbytes if store is not None
                                             else None)}
 
     # (field, label, worker dim, the mesh axes that dim spans, log)
@@ -1169,11 +1175,20 @@ def _train(args: argparse.Namespace, device: torch.device,
             mesh, state.member.active,
             np.arange(args.workers) if mine is None else mine, args.workers)
 
+    # --loss-out: the store's row blocks hashed after every scatter (a
+    # row-sharded rank's own block; one process's in the shard layout's
+    # blocks), for comparing stores block by block without moving them
+    digest_parts = (args.shards if mesh is None or mesh.shards == 1
+                    else 1)
+
     def scatter(state, cohort) -> None:
         t1 = clock()
         with phase("scatter"):
             store.scatter(state, cohort)
         elastic["scatter_s"].append(clock() - t1)
+        if args.loss_out:
+            elastic["store_digests"].append(
+                store.block_digests(digest_parts))
 
     cuda = device.type == "cuda"
 
@@ -1488,9 +1503,11 @@ def _train(args: argparse.Namespace, device: torch.device,
     # the run's end record: the averaged model's loss on the last step's
     # data of every unit, which the last log line evaluated (the
     # reference's emit_final); with --clients the log evaluated the last
-    # cohort, so every client's batches are evaluated here
+    # cohort, so every client's batches are evaluated here (on a mesh by
+    # every rank: the evaluation's means are collectives, though only rank
+    # 0 writes the stream)
     final = avg_losses[-1]
-    if store is not None and mw.active:
+    if store is not None and args.metrics:
         with phase("eval"):
             final = float(eval_avg(state, args.steps - 1))
     end_meta = {"wall_s_train": round(wall, 3)}
@@ -1579,6 +1596,14 @@ def write_loss_out(path: str, res: TrainResult, args, device,
            "device": str(device), "backend": backend,
            "state_shapes": {k: list(getattr(x, "shape", ()))
                             for k, x in tree_mod.state_leaves(res.state)}}
+    if res.store is not None:
+        out["store_bytes"] = res.store.nbytes
+        out["store_digests"] = res.elastic["store_digests"]
+        out["store_s"] = {"gather": res.elastic["gather_s"],
+                          "scatter": res.elastic["scatter_s"]}
+        out["shard"] = (res.store.mesh.index((coll.SHARD,))[0]
+                        if res.store.mesh is not None
+                        and res.store.mesh.shards > 1 else None)
     with open(path, "w") as f:
         json.dump(out, f)
 

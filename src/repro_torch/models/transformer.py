@@ -37,8 +37,9 @@ split as ``models.attention``, ``models.layers`` and ``models.moe`` say;
 ``group`` is the data-like ranks the batch splits over, over which the
 routed layer keeps one process's keep and drop; ``fsdp`` the ranks the
 weights' d dims split over (kimi-k2), each weight gathered over them just
-before its product.  The ssm and hybrid families serve with whole
-weights: their ``ssm_inner`` split is not ported.  Training's
+before its product.  The ssm and hybrid families' SSM blocks split their
+inner channels and heads as ``models.ssm`` says (the ``ssm_inner``
+rule), the hybrid's attention as every other family's.  Training's
 ``forward`` splits no weight.
 """
 from __future__ import annotations
@@ -258,14 +259,6 @@ def _layer_cache(cache: dict, i: int) -> dict:
 
 
 # ------------------------------------------------------------------- decode
-def _whole_only(cfg: ModelConfig, tp, fsdp) -> None:
-    if (tp is not None or fsdp is not None) and cfg.family in ("ssm",
-                                                               "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} family serves with whole weights: its "
-            f"ssm_inner split over the tensor ranks is not ported")
-
-
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
                window: Optional[int] = None,
@@ -274,14 +267,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     the hybrid both, nested ``{"attn": {k, v}, "ssm": {state, conv}}``,
     its KV over min(cache_len, window) slots) stacked on a leading layer
     axis (zeros).  With ``tp`` this rank's block (``batch`` its rows):
-    its kv heads, or its slots where the kv heads do not divide ``tp``."""
-    _whole_only(cfg, tp, None)
+    its kv heads, or its slots where the kv heads do not divide ``tp``;
+    its SSM heads' state where they divide ``tp``, the conv window
+    whole."""
     if cfg.family == "ssm":
-        layer = ssm.init_ssm_cache(cfg, batch, dtype, device)
+        layer = ssm.init_ssm_cache(cfg, batch, dtype, device, tp)
     elif cfg.family == "hybrid":
         w = window if window is not None else cfg.attn_window
         alen = min(cache_len, w) if w else cache_len
-        layer = hybrid.init_hybrid_cache(cfg, batch, alen, dtype, device)
+        layer = hybrid.init_hybrid_cache(cfg, batch, alen, dtype, device,
+                                         tp)
     else:
         eff_len = min(cache_len, window) if window is not None \
             else cache_len
@@ -304,7 +299,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is left as it was.
     """
-    _whole_only(cfg, tp, fsdp)
     x = embed_inputs(cfg, params, inputs, tp, fsdp)
     eff_window = window if window is not None else cfg.attn_window
     new = []
@@ -312,12 +306,13 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         layer_c = _layer_cache(cache, i)
         h = rms_norm(x, _norm_w(layer_p["norm1"], fsdp), cfg.norm_eps)
         if cfg.family == "ssm":
-            y, c = ssm.ssm_decode_step(cfg, layer_p["ssm"], h, layer_c)
+            y, c = ssm.ssm_decode_step(cfg, layer_p["ssm"], h, layer_c, tp)
             x = x + y
         else:
             if cfg.family == "hybrid":
                 y, c = hybrid.hybrid_decode_step(cfg, layer_p["hyb"], h,
-                                                 layer_c, pos, window=window)
+                                                 layer_c, pos, window=window,
+                                                 tp=tp)
             else:
                 y, c = attention.decode_attend(cfg, layer_p["attn"], h,
                                                layer_c, pos,
@@ -343,7 +338,6 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     the activations' dtype.  ``tp``, ``fsdp``, ``group``: serving on this
     rank's blocks of a grid (the module's docstring).
     """
-    _whole_only(cfg, tp, fsdp)
     x = embed_inputs(cfg, params, inputs, tp, fsdp)
     positions = torch.arange(x.shape[-2], device=x.device).expand(
         x.shape[:-1])
@@ -352,13 +346,14 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     for layer_p in _layers(cfg, params):
         h = rms_norm(x, _norm_w(layer_p["norm1"], fsdp), cfg.norm_eps)
         if cfg.family == "ssm":
-            y, c = ssm.ssm_forward(cfg, layer_p["ssm"], h, return_cache=True)
+            y, c = ssm.ssm_forward(cfg, layer_p["ssm"], h, return_cache=True,
+                                   tp=tp)
             x = x + y
         else:
             if cfg.family == "hybrid":
                 y, c = hybrid.hybrid_forward(
                     cfg, layer_p["hyb"], h, positions, window=window,
-                    return_cache=True, cache_len=cache_len)
+                    return_cache=True, cache_len=cache_len, tp=tp)
             else:
                 y, kv = attention.attend_full(cfg, layer_p["attn"], h,
                                               positions, window=eff_window,

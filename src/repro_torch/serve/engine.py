@@ -13,9 +13,13 @@ each rank holds its block of every weight (``ServeMesh.params``), serves
 its rows of the batch against its block of the cache, and gets the whole
 logits of its rows, so greedy decoding picks the same token on every
 tensor rank; the step's collectives are counted in
-``comm.collectives.COUNTS`` (kinds "tensor", "weights", "moe").  The
-reference's serve CLI has no mesh, so neither has the port's: the grid is
-the Python API's.
+``comm.collectives.COUNTS`` (kinds "tensor", "weights", "moe").  Every
+family serves there, the ssm and hybrid families with their SSM blocks
+split by the ``ssm_inner`` rule and their state by heads
+(``models.ssm``).  The engine refuses weights that are not the rank's
+blocks by the specs, and a prefill cache that is not its block by
+``sharding.specs.cache_specs``.  The reference's serve CLI has no mesh,
+so neither has the port's: the grid is the Python API's.
 """
 from __future__ import annotations
 
@@ -98,11 +102,14 @@ class Engine:
     def prefill(self, prompt: torch.Tensor):
         """prompt (B, S) -> (last-position logits (b, 1, V), cache) of this
         rank's b rows (all B without a mesh)."""
+        batch = prompt.shape[0]
         fn = make_prefill(self.cfg, self.max_len, self.window,
-                          last_only=True,
-                          groups=self._groups(prompt.shape[0]))
-        return fn(self.params, prompt[self.rows(prompt.shape[0])].to(
-            self.device))
+                          last_only=True, groups=self._groups(batch))
+        out = fn(self.params, prompt[self.rows(batch)].to(self.device))
+        if self.mesh is not None:
+            _check_cache(out[1], self.mesh, self.cfg, batch, self.max_len,
+                         self.window)
+        return out
 
     @torch.no_grad()
     def step(self, cache: dict, tokens: torch.Tensor, pos: int,
@@ -187,3 +194,28 @@ def _check_blocks(params: dict, mesh, cfg: ModelConfig) -> None:
                 f"{tuple(got[path].shape) if path in got else 'missing'}, "
                 f"this rank's block of it is {shape} "
                 f"(pass mesh.params(whole, cfg))")
+
+
+def _check_cache(cache: dict, mesh, cfg: ModelConfig, batch: int,
+                 max_len: int, window: Optional[int]) -> None:
+    """Refuse a prefill cache that is not this rank's block of the whole
+    batch's by ``sharding.specs.cache_specs`` (its rows; its kv heads or
+    its slots; its SSM heads' state or every head's; the conv window
+    whole)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.sharding import specs as sh
+    w = window if window is not None else cfg.attn_window
+    slots = w if w else max_len
+    whole = transformer.init_cache(cfg, batch, slots, window=w,
+                                   device="meta")
+    sizes = dict(zip(mesh.mesh.axes, mesh.mesh.shape))
+    want = tree_mod.leaves_with_path(tree_mod.tree_map(
+        lambda t, s: sh.block_shape(t.shape, s, sizes), whole,
+        sh.cache_specs(cfg, mesh.roles, batch, slots)))
+    got = dict(tree_mod.leaves_with_path(cache))
+    for path, shape in want:
+        if tuple(got[path].shape) != shape:
+            raise ValueError(
+                f"Engine(mesh=...): the prefill cache's {path} is "
+                f"{tuple(got[path].shape)}, this rank's block of it by "
+                f"the cache specs is {shape}")

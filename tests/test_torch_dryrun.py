@@ -549,9 +549,10 @@ def test_dryrun_touches_no_card(monkeypatch):
 def test_fsdp_refusal_follows_the_specs(arch, multi):
     """Rank 0's parameter blocks follow the specs on every arch and mesh:
     in serving each leaf's dims ÷ the ranks of its spec's axes, the tensor
-    and, for kimi-k2 alone, the FSDP axes (its 2D layout), the ssm and
-    hybrid families' tensor axes held whole; the reference's FSDP archs
-    train a worker over fsdp ranks (``state_specs`` over the FSDP axes)."""
+    and, for kimi-k2 alone, the FSDP axes (its 2D layout), every family's
+    tensor axes split (the ssm and hybrid families' too, held whole until
+    their ssm_inner split was ported); the reference's FSDP archs train a
+    worker over fsdp ranks (``state_specs`` over the FSDP axes)."""
     from repro_torch.models import transformer
     from repro_torch.models.param import abstract
     for serving in (False, True):
@@ -568,15 +569,14 @@ def test_fsdp_refusal_follows_the_specs(arch, multi):
                 for e in spec)
             continue
         sizes = dict(zip(m.axis_names, m.shape))
-        grid = c.family not in ("ssm", "hybrid")
-        split = set(m.tensor_axes if grid else ()) | set(m.fsdp_axes)
+        split = set(m.tensor_axes) | set(m.fsdp_axes)
         specs = dryrun.sh.partition_specs(transformer.model_defs(c), c, m)
         whole = abstract(transformer.model_defs(c), torch.bfloat16)
         seen = set()
         for (path, t), (_, spec) in zip(
                 dryrun.tree_mod.leaves_with_path(whole),
                 dryrun.tree_mod.leaves_with_path(specs)):
-            got = dryrun.rank_block(t, spec, m, tensor=grid)
+            got = dryrun.rank_block(t, spec, m, tensor=True)
             want = []
             for n, e in zip(t.shape, spec):
                 axes = [a for a in dryrun._entry_axes(e) if a in split]
@@ -584,7 +584,7 @@ def test_fsdp_refusal_follows_the_specs(arch, multi):
                 want.append(n // math.prod(sizes[a] for a in axes))
             assert tuple(got.shape) == tuple(want), path
         assert bool(seen & set(m.fsdp_axes)) == fsdp
-        assert bool(seen & set(m.tensor_axes)) == grid
+        assert seen & set(m.tensor_axes)
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -595,8 +595,10 @@ def test_rank_block_is_rank0s_share(arch, multi):
     global batch over the data-like axes, the whole batch where those axes
     do not divide it; on the serving grid the cache's kv heads, or where
     they do not divide the 16 "model" ranks its slots, split over them
-    (``init_cache(tp=)``'s block), the ssm and hybrid families' cache with
-    its tensor axes whole."""
+    (``init_cache(tp=)``'s block); the SSM state by heads where they
+    divide the "model" ranks, else whole (hymba-1.5b's 50 heads), the
+    conv window whole (the ssm and hybrid families' cache was held whole
+    on a rank until their ssm_inner split was ported)."""
     from repro_torch.models import transformer
     for shape_id in registry.INPUT_SHAPES:
         shape = registry.get_shape(shape_id)
@@ -613,33 +615,41 @@ def test_rank_block_is_rank0s_share(arch, multi):
             tok = dryrun.rank_block(ins["tokens"], spec, m)
             assert tok.shape == (1, *ins["tokens"].shape[1:])
             continue
-        grid = c.family not in ("ssm", "hybrid")
         spec = dryrun.batch_sharding_spec(m, shape.global_batch,
                                           ins["tokens"].dim() - 1,
                                           worker_stacked=False)
         data = m.num_workers * m.fsdp_size
         ranks = data if shape.global_batch % data == 0 else 1
         b = shape.global_batch // ranks
-        tok = dryrun.rank_block(ins["tokens"], spec, m, tensor=grid)
+        tok = dryrun.rank_block(ins["tokens"], spec, m, tensor=True)
         assert tok.shape == (b, *ins["tokens"].shape[1:])
         if shape.kind == "decode":
             window = dryrun._decode_window(c, shape)
             eff = min(window or shape.seq_len, shape.seq_len)
             cache = tree_map(
-                lambda t, s: dryrun.rank_block(t, s, m, tensor=grid),
+                lambda t, s: dryrun.rank_block(t, s, m, tensor=True),
                 ins["cache"],
                 dryrun.cache_specs(c, m, shape.global_batch, eff))
-            tp = mesh_mod.dry_serve_mesh(m).tp if grid else None
+            tp = mesh_mod.dry_serve_mesh(m).tp
             want = transformer.init_cache(c, b, shape.seq_len,
                                           window=window, device="meta",
                                           tp=tp)
             assert tree_map(lambda t: tuple(t.shape), cache) == \
                 tree_map(lambda t: tuple(t.shape), want), shape_id
-            if grid:
-                k = cache["k"].shape
+            attn = cache if c.family not in ("ssm", "hybrid") \
+                else cache.get("attn")
+            if attn is not None:
+                k = attn["k"].shape
                 assert (k[3] == c.num_kv_heads // 16
                         if c.num_kv_heads % 16 == 0
                         else k[2] == eff // 16), (shape_id, k)
+            ssm_c = cache if c.family == "ssm" else cache.get("ssm")
+            if ssm_c is not None:
+                h = c.ssm_num_heads
+                assert ssm_c["state"].shape[2] == (
+                    h // 16 if h % 16 == 0 else h), (shape_id, h)
+                assert ssm_c["conv"].shape[-1] == \
+                    c.ssm_d_inner + 2 * c.ssm_state
 
 
 def _js(x):

@@ -23,9 +23,11 @@ engine, which runs unsharded and with the ``shards`` layout:
 * the overlapped (2, 2) hierarchy at shards 2 on (data 2 × shard 2)
   against the port's one process at shards 2;
 * the refusals: a world that does not split into shards, a mesh whose
-  shard axis has another size, a shard axis of several ranks at shards 1,
-  ``--clients`` with row shards on a mesh; ``engine_shard_axis`` as the
-  reference's ``test_shard_axis_size_mismatch_fails_loudly`` holds it;
+  shard axis has another size, a shard axis of several ranks at shards 1;
+  ``engine_shard_axis`` as the reference's
+  ``test_shard_axis_size_mismatch_fails_loudly`` holds it; ``--clients``
+  with row shards on a mesh, refused until the store split its rows,
+  runs (data 1 × shard 2), its losses one process's;
 * ``launch.train --mesh-grid --shards 2`` at world 2 (data 1 × shard 2):
   losses and the saved file bitwise the one-process run at ``--shards
   2``, and a bitwise resume; at W = 1 too (the gradient's rows a view).
@@ -207,10 +209,17 @@ def test_row_shard_refusals(case, tmp_path):
             teng.make_engine(SR.port_shard_cfg(1), tpl,
                              mesh=_fake_mesh((1, 2, 2)))
     else:
-        with pytest.raises(SystemExit, match="--clients with --shards"):
-            t_launch.run(CLI + ["--workers", "2", "--clients", "4",
-                                "--steps", "2", "--shards", "2",
-                                "--mesh-grid"])
+        # no longer refused: the client store on row shards runs, its
+        # losses one process's (tests/test_torch_clients_shards.py holds
+        # the store itself)
+        argv = CLI + ["--workers", "2", "--clients", "4", "--steps", "2",
+                      "--shards", "2"]
+        _spawn(MR.cli, 2, _free_port(), argv + ["--mesh-grid"],
+               str(tmp_path / "c"))
+        one = t_launch.run(argv)
+        for res in _load(str(tmp_path / "c"), 2):
+            assert res["losses"] == one.losses and len(one.losses) == 2
+            assert res["collectives"]["clients"]["pod+data"]["calls"] == 2
 
 
 def test_engine_shard_axis_size_mismatch_fails_loudly():

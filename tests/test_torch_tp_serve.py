@@ -10,7 +10,10 @@ process on whole weights and against the JAX package's ``make_prefill`` /
       model 4 with the cache split by slots and padded heads — qwen2-0.5b
       with 6 heads (8 padded), also under a window of 8 (the ring buffer);
       data 2 × model 2 — phi3.5-moe at capacity factor 0.5 (it drops);
-      kimi-k2's 2D layout in bf16 with its shared expert), every smoke
+      kimi-k2's 2D layout in bf16 with its shared expert; model 2 for the
+      ssm and hybrid families — mamba2-370m and hymba-1.5b with their
+      inner channels and 8 SSM heads split, and each with 3 heads of 64
+      over 192 channels, a head split over the two ranks), every smoke
       model from the JAX package's draw (wq, wk × 0.1).  Every rank's
       prefill logits and teacher-forced decode logits: fp32 within atol
       1e-4 of the JAX package's on whole weights (``tests/
@@ -28,16 +31,17 @@ process on whole weights and against the JAX package's ``make_prefill`` /
       (``launch.dryrun.lower_one`` on the same case), whose FLOPs equal
       rank 0's ``FlopCounterMode`` count.
   (d) Each rank's weight bytes, and rank 0's blocks at full width for
-      every dense, vlm, audio and moe architecture on both production
-      meshes (``rank_params`` and the dry run's blocks, on meta tensors),
-      equal the leaves' bytes ÷ the mesh sizes the JAX package's
-      ``partition_specs`` name.
+      every architecture on both production meshes (``rank_params`` and
+      the dry run's blocks, on meta tensors), equal the leaves' bytes ÷
+      the mesh sizes the JAX package's ``partition_specs`` name.
   (e) Planted faults, each of which fails its check: the sum after
       ``wo`` skipped; the flash-decode combine without the e^{m−M}
       rescale; the shared expert inside the "model" sum; a rank's
-      capacity from its own tokens.
-  (f) Whole weights given to a rank of a grid, and the ssm family on one,
-      are refused.
+      capacity from its own tokens; the SSM's gated norm over the rank's
+      channels alone; the hybrid's SSM branch normalised before its sum.
+  (f) Whole weights given to a rank of a grid are refused; the ssm
+      family serves on one, its blocks cut by the ``ssm_inner`` rule, and
+      the dry run's mamba2-370m row splits them too.
 """
 import dataclasses
 import math
@@ -75,8 +79,7 @@ MOE_CASES = ("phi_d2m2", "kimi_d2m2")
 JAX_ATOL = 1e-4          # fp32 against the JAX package
 ONE_RTOL = 1e-5          # fp32 against one process, × max|logits|
 BF16_TOL = 2.0 ** -5     # bf16, × each row's max|logits|
-SERVE_ARCHS = [a for a in registry.list_archs()
-               if registry.get_arch(a).family not in ("ssm", "hybrid")]
+SERVE_ARCHS = registry.list_archs()
 
 
 @pytest.fixture(autouse=True)
@@ -125,7 +128,7 @@ def jax_side(tmp_path_factory):
         logits, cache = j_prefill(cfg, cache_len)(pj, x[:, :s])
         rec = {"prefill": np.asarray(logits.astype(jnp.float32)),
                "cache": {k: np.asarray(v.astype(jnp.float32))
-                         for k, v in cache.items()}}
+                         for k, v in tree_mod.leaves_with_path(cache)}}
         step = jax.jit(j_step(cfg), static_argnums=())
         dec = []
         for i in range(TR.GEN):
@@ -202,14 +205,18 @@ def _grid(name, coords):
 @pytest.mark.parametrize("name", CASES)
 def test_cache_block_is_the_specs_block(ranks, one, jax_side, name):
     """Each rank's prefill cache is one process's cut by ``cache_specs``
-    (its rows, its kv heads or its slots; the ring buffer's slot = pos %
-    8 under the window), and one process's holds the JAX package's."""
+    (its rows, its kv heads or its slots, the ring buffer's slot = pos %
+    8 under the window; its SSM heads' state where they divide the
+    tensor ranks, else every head's, and the whole conv window), and one
+    process's holds the JAX package's."""
     _, jx = jax_side
     cfg, roles = TR.model_cfg(name), TR.roles(name)
     length = TR.CASES[name][5] if cfg.attn_window is None \
         else cfg.attn_window
-    spec = sh.cache_specs(cfg, roles, TR.B, length)
-    for key in ("k", "v"):
+    spec = dict(tree_mod.leaves_with_path(
+        sh.cache_specs(cfg, roles, TR.B, length)))
+    assert sorted(spec) == sorted(one[name]["cache"])
+    for key in spec:
         whole = one[name]["cache"][key]
         _hold(whole, jx[name]["cache"][key], name, "jax")
         for rec in _recs(ranks, name):
@@ -291,18 +298,24 @@ def design_count(name, fn: str) -> dict:
     (where the heads split) and one after the MLP or the routed experts
     (their partial parts summed together; the shared experts added after
     it), plus in decode with the cache split by slots the query's gather
-    (where the heads split), the max and the sum; one sum for the vocab-
-    split embedding (token inputs), one all-gather of the logits; "moe"
-    one all-gather of the expert counts a routed layer where the batch
-    splits over the data ranks; "weights" (the d dims over FSDP ranks)
-    one gather a weight a use."""
+    (where the heads split), the max and the sum; an SSM block whose
+    inner channels split three (the x channels' all-gather for the conv
+    window, with the conv's output where a head splits; the gated norm's
+    sum of squares; the sum after ``out_proj``), prefill or decode; one
+    sum for the vocab-split embedding (token inputs), one all-gather of
+    the logits; "moe" one all-gather of the expert counts a routed layer
+    where the batch splits over the data ranks; "weights" (the d dims
+    over FSDP ranks) one gather a weight a use."""
     cfg, roles = TR.model_cfg(name), TR.roles(name)
     t, L = roles.tensor_size, cfg.num_layers
-    heads = cfg.num_heads % t == 0
-    seq = cfg.num_kv_heads % t != 0
-    per = int(heads) + 1
+    attn = cfg.family != "ssm"
+    heads = attn and cfg.num_heads % t == 0
+    seq = attn and cfg.num_kv_heads % t != 0
+    per = int(heads) + int(attn)
     if fn == "decode" and seq:
         per += 2 + int(heads)
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_d_inner % t == 0:
+        per += 3
     tokens = cfg.frontend != "codec"
     counts = {"tensor": L * per + int(tokens) + 1}
     if cfg.family == "moe" and roles.num_workers * roles.fsdp_size > 1:
@@ -405,6 +418,55 @@ def test_full_width_blocks_follow_the_reference_specs(arch, multi):
                    for t in tree_mod.leaves(tree)) == want
 
 
+@pytest.mark.parametrize("shape_id", ["prefill_32k", "decode_32k",
+                                      "long_500k"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_serving_rows_split_by_the_specs(arch, shape_id):
+    """The ssm and hybrid families' serving rows on the (16, 16) grid: ok
+    on all 256 chips; rank 0's bytes its blocks by the specs — the
+    weights by the JAX package's ``partition_specs`` (``ssm_inner`` over
+    "model"), the cache by ``cache_specs`` (mamba2-370m's 32 SSM heads
+    split, hymba-1.5b's 50 whole beside its 200 channels a rank, its
+    window's slots split), the tokens by the batch spec; its "tensor"
+    collectives the design count (3 an SSM block; the hybrid's attention
+    and MLP as the dense family's)."""
+    res = dryrun.lower_one(arch, shape_id, multi_pod=False, verbose=False)
+    assert res.ok and res.roofline.chips == 256
+    jm = jreg.mesh_roles(arch, serving=True)
+    jc = jreg.padded_arch(arch, jm)
+    sizes = dict(zip(jm.axis_names, jm.shape))
+    weights = _jax_bytes(JT.model_defs(jc),
+                         jspecs.partition_specs(JT.model_defs(jc), jc, jm),
+                         sizes, 2)
+    m = registry.mesh_roles(arch, serving=True)
+    c = registry.padded_arch(arch, m)
+    shape = registry.get_shape(shape_id)
+    ins = dryrun.input_specs(arch, shape_id, m)
+    spec = sh.batch_sharding_spec(m, shape.global_batch,
+                                  ins["tokens"].dim() - 1,
+                                  worker_stacked=False)
+    inputs = [(ins["tokens"], spec)]
+    if shape.kind == "decode":
+        window = dryrun._decode_window(c, shape)
+        eff = min(window or shape.seq_len, shape.seq_len)
+        inputs += list(zip(
+            tree_mod.leaves(ins["cache"]),
+            tree_mod.leaves(sh.cache_specs(c, m, shape.global_batch, eff))))
+    held = sum(math.prod(sh.block_shape(t.shape, sp, sizes))
+               * t.element_size() for t, sp in inputs)
+    assert res.counted.base_bytes == weights + held
+    t, L = m.tensor_size, c.num_layers
+    per = 3
+    if c.family == "hybrid":
+        per += int(c.num_heads % t == 0) + 1
+        if shape.kind == "decode" and c.num_kv_heads % t:
+            per += 2 + int(c.num_heads % t == 0)
+    assert res.counted.counts == {"tensor": {"model": {
+        "calls": L * per + 2,
+        "bytes": res.counted.counts["tensor"]["model"]["bytes"],
+        "async": 0}}}
+
+
 # ------------------------------------------------------------ (e) faults
 @pytest.mark.parametrize("fault", list(TR.FAULTS))
 def test_planted_fault_fails(ranks, one, fault):
@@ -429,8 +491,10 @@ def test_planted_fault_fails(ranks, one, fault):
 # ----------------------------------------------------------- (f) refusals
 def test_whole_weights_and_ssm_are_refused():
     """A rank of a grid given whole weights refuses them (no quiet fall
-    back to whole weights), and so does the ssm family on a grid (its
-    ssm_inner split is not ported); the dry run keeps its rows whole."""
+    back to whole weights); the ssm family, refused on a grid until its
+    ssm_inner split was ported, serves on one from its blocks (and refuses
+    whole ones), and the dry run splits its row over the 16 "model"
+    ranks."""
     from repro_torch.serve.engine import Engine
     roles = TR.roles("qwen_m2")
     smesh = mesh_mod.dry_serve_mesh(roles)
@@ -443,10 +507,22 @@ def test_whole_weights_and_ssm_are_refused():
         TT.prefill(cfg, whole, torch.zeros(2, 4, dtype=torch.long), 8,
                    **smesh.groups(2))
     ssm = registry.smoke_arch("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="ssm_inner"):
-        TT.decode_step(ssm, TT.init_params(ssm, 0),
-                       TT.init_cache(ssm, 1, 8), torch.zeros(
-                           1, 1, dtype=torch.long), 0, tp=smesh.tp)
+    whole = TT.init_params(ssm, 0)
+    with pytest.raises(ValueError, match="serving layout gives this rank"):
+        TT.decode_step(ssm, whole, TT.init_cache(ssm, 1, 8),
+                       torch.zeros(1, 1, dtype=torch.long), 0, tp=smesh.tp)
+    # on the dry grid: meta tensors, as the dry run steps them
+    blocks = smesh.params(tparam.abstract(TT.model_defs(ssm),
+                                          torch.float32), ssm)
+    assert blocks["layers"]["ssm"]["wx"].shape[-1] == ssm.ssm_d_inner // 2
+    cache = TT.init_cache(ssm, 1, 8, dtype=torch.float32, device="meta",
+                          tp=smesh.tp)
+    assert cache["state"].shape[2] == ssm.ssm_num_heads // 2
+    logits, _ = TT.decode_step(ssm, blocks, cache,
+                               torch.zeros(1, 1, dtype=torch.long,
+                                           device="meta"), 0, tp=smesh.tp)
+    assert logits.shape == (1, 1, ssm.vocab_size)
     row = dryrun.lower_one("mamba2-370m", "decode_32k", multi_pod=False,
                            verbose=False, cfg_override={"num_layers": 1})
-    assert row.ok and row.roofline.chips == 16 and row.counted.counts == {}
+    assert row.ok and row.roofline.chips == 256
+    assert row.counted.counts["tensor"]["model"]["calls"] == 3 + 2

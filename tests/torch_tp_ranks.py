@@ -48,11 +48,27 @@ CASES = {
                  "float32", 32, 40),
     # the 2D layout: d dims over data, the shared expert, bf16
     "kimi_d2m2": ("kimi-k2-1t-a32b", {}, (2, 2), "bfloat16", 8, 16),
+    # ssm_inner over model 2, 8 SSM heads split (4 a rank); a prompt of
+    # two chunks of 32, the second padded
+    "mamba_m2": ("mamba2-370m", {}, (1, 2), "float32", 40, 48),
+    # d_inner 192 over model 2: 96 channels a rank, 3 heads of 64 that do
+    # not divide it (a head splits over the ranks: every rank scans every
+    # head, the state whole)
+    "mamba_m2x": ("mamba2-370m", {"d_model": 96, "ssm_head_dim": 64},
+                  (1, 2), "float32", 40, 48),
+    # attention (4 heads split, kv 1: the cache by slots, 32 of the
+    # window's 64 a rank, the flash-decode) and SSM heads (8 split) in
+    # parallel
+    "hymba_m2": ("hymba-1.5b", {}, (1, 2), "float32", 40, 64),
+    # the hybrid with 3 SSM heads over model 2 (a head splits)
+    "hymba_m2x": ("hymba-1.5b", {"d_model": 96, "ssm_head_dim": 64},
+                  (1, 2), "float32", 40, 64),
 }
 WORLD = {name: c[2][0] * c[2][1] for name, c in CASES.items()}
 # fault -> the case it is planted in
 FAULTS = {"wo_sum": "qwen_m2", "no_rescale": "qwen_m4",
-          "shared_inside": "kimi_d2m2", "rank_capacity": "phi_d2m2"}
+          "shared_inside": "kimi_d2m2", "rank_capacity": "phi_d2m2",
+          "norm_local": "mamba_m2x", "norm_before_sum": "hymba_m2"}
 
 
 def _init(rank: int, world: int, store: str) -> None:
@@ -108,6 +124,7 @@ def serve(name: str, params: dict, smesh, dt: torch.dtype) -> dict:
     the teacher-forced decode logits, the greedy tokens, the collectives
     and the routed layer's (keep, slot) per dispatch."""
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree as tree_mod
     from repro_torch.comm import collectives as coll
     from repro_torch.models import moe
     from repro_torch.serve.engine import (Engine, make_prefill,
@@ -131,7 +148,7 @@ def serve(name: str, params: dict, smesh, dt: torch.dtype) -> dict:
             rec["prefill_counts"] = json_counts(coll.COUNTS)
             rec["prefill"] = logits.float().numpy().copy()
             rec["cache"] = {k: v.float().numpy().copy()
-                            for k, v in cache.items()}
+                            for k, v in tree_mod.leaves_with_path(cache)}
             rec["prefill_trace"] = [tuple(t.numpy().copy() for t in e)
                                     for e in moe.TRACE]
             moe.TRACE = []
@@ -164,8 +181,46 @@ def plant(fault: str, data: int):
     ``no_rescale``: the flash-decode's combine sums the partials without
     the e^{m−M} rescale; ``shared_inside``: the shared experts are added
     inside the routed experts' sum over the tensor ranks;
-    ``rank_capacity``: each rank's capacity is its own tokens'."""
-    from repro_torch.models import attention, moe
+    ``rank_capacity``: each rank's capacity is its own tokens';
+    ``norm_local``: the SSM's gated norm takes its rank's sum of squares
+    alone (no sum over the tensor ranks); ``norm_before_sum``: the hybrid
+    normalises the SSM branch's partial ``out_proj`` product and sums
+    after the norm (one sum after the fuse's norm, not before it)."""
+    from repro_torch.models import attention, hybrid, moe, ssm
+    if fault == "norm_local":
+        orig = ssm._gated_norm
+
+        def local(y, z, w, eps, tp=None, n=0):
+            if tp is None:
+                return orig(y, z, w, eps)
+            dt = y.dtype
+            y = (y * torch.nn.functional.silu(z)).float()
+            y = y * torch.rsqrt(y.pow(2).sum(-1, keepdim=True) / n + eps)
+            return (y * w.float()).to(dt)
+        ssm._gated_norm = local
+        return lambda: setattr(ssm, "_gated_norm", orig)
+    if fault == "norm_before_sum":
+        orig_out, orig_fuse = ssm._out_proj, hybrid._fuse
+        seen = {}
+
+        def partial(p, y, tp, split):
+            seen["tp"] = tp if split else None
+            return orig_out(p, y, tp, False)
+
+        def fuse_after(p, ya, ys, eps):
+            tp = seen.get("tp")
+            if tp is None:
+                return orig_fuse(p, ya, ys, eps)
+            from repro_torch.models.layers import rms_norm
+            ya = rms_norm(ya, p["attn_out_norm"], eps)
+            ys = tp.all_sum(rms_norm(ys, p["ssm_out_norm"], eps)) / tp.size
+            beta = p["fuse_beta"].to(ya.dtype)
+            return 0.5 * (beta[0] * ya + beta[1] * ys)
+        ssm._out_proj, hybrid._fuse = partial, fuse_after
+
+        def undo():
+            ssm._out_proj, hybrid._fuse = orig_out, orig_fuse
+        return undo
     if fault == "wo_sum":
         orig = attention._out_proj
 
